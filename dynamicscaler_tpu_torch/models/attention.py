@@ -1,0 +1,138 @@
+"""Attention stack for the LVDM UNet (PyTorch).
+
+Counterpart of ``dynamicscaler_tpu/models/attention.py`` with VideoCrafter
+state_dict names (lvdm/modules/attention.py:43-220). Every attention and
+feed-forward sub-block dispatches by SITE to one op:
+
+* self-attention inside a TemporalTransformer (attn1 and, with
+  ``temporal_selfatt_only``, attn2) -> K1 ``fused_ln_attention``;
+* spatial self-attention (attn1 of a SpatialTransformer) -> K2
+  ``fused_ln_spatial_attention``;
+* cross-attention (attn2 of a SpatialTransformer) -> K3
+  ``fused_ln_cross_attention`` (dual text/image KV with ``to_k_ip``);
+* every feed-forward -> K4 ``fused_ln_geglu``.
+
+Each op takes its plain PyTorch version for CPU tensors. On the card the
+modules hand each op its kernel operands, packed once from their parameters
+(``cuda_lib.PackCache``). Sites with a mask
+(causal temporal attention) keep plain math here; relative position and
+FreeTraj are not ported (off the shipped configs' path).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from dynamicscaler_tpu_torch.models.layers import FeedForward, layer_norm
+from dynamicscaler_tpu_torch.ops import cuda_lib, fused_spatial, fused_temporal
+from dynamicscaler_tpu_torch.ops.fused_temporal import mm_f32
+
+SITE_TEMPORAL = "temporal"  # self-attention over frame tokens
+SITE_SPATIAL = "spatial"  # self-attention over H*W tokens
+SITE_CROSS = "cross"  # attention to the text (+ image) context
+
+
+class CrossAttention(nn.Module):
+    """Self/cross attention with optional dual image-KV
+    (lvdm/modules/attention.py:43-127). ``forward`` runs the whole
+    LN -> attention -> out-proj -> +x sub-block."""
+
+    def __init__(self, query_dim: int, context_dim: Optional[int] = None, heads: int = 8,
+                 dim_head: int = 64, img_cross_attention: bool = False,
+                 text_context_len: int = 77):
+        super().__init__()
+        inner = heads * dim_head
+        context_dim = query_dim if context_dim is None else context_dim
+        self.heads = heads
+        self.dim_head = dim_head
+        self.scale = dim_head ** -0.5
+        self.text_context_len = text_context_len
+        self.img_cross_attention = img_cross_attention
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim, inner, bias=False)
+        self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Dropout(0.0))
+        if img_cross_attention:
+            self.to_k_ip = nn.Linear(context_dim, inner, bias=False)
+            self.to_v_ip = nn.Linear(context_dim, inner, bias=False)
+        self._operands = cuda_lib.PackCache()
+
+    def forward(self, x, ln: nn.LayerNorm, site: str, context=None, mask=None):
+        if mask is not None:
+            return self._masked_plain(x, ln, mask)
+        out = self.to_out[0]
+        args = (ln.weight, ln.bias, self.to_q.weight, self.to_k.weight, self.to_v.weight,
+                out.weight, out.bias)
+        kw = dict(heads=self.heads, scale=self.scale, eps=ln.eps)
+        if site == SITE_CROSS:
+            ip = (self.to_k_ip.weight, self.to_v_ip.weight) if self.img_cross_attention else (None, None)
+            ops = self._packed(x, fused_spatial.pack_ln_cross_attention, *args, *ip)
+            return fused_spatial.fused_ln_cross_attention(
+                x, context, *args, *ip, text_len=self.text_context_len, operands=ops, **kw
+            )
+        if site in (SITE_TEMPORAL, SITE_SPATIAL):
+            op = (fused_temporal.fused_ln_attention if site == SITE_TEMPORAL
+                  else fused_spatial.fused_ln_spatial_attention)
+            return op(x, *args, operands=self._packed(x, fused_temporal.pack_ln_attention, *args), **kw)
+        raise ValueError(f"unknown attention site {site!r}")
+
+    def _packed(self, x, pack, *params):
+        """The op's kernel operands for a CUDA ``x``, packed once; None on
+        the CPU, where the op runs its plain version."""
+        if not x.is_cuda:
+            return None
+        return self._operands.get(lambda: pack(*params, dtype=x.dtype), params, x.dtype)
+
+    def _masked_plain(self, x, ln, mask):
+        """Masked self-attention (causal temporal configs), plain math:
+        fp32 logits, masked entries at the fp32 minimum, fp32 softmax."""
+        B, N, _ = x.shape
+        h, d = self.heads, self.dim_head
+        dt = x.dtype
+        xn = layer_norm(x, ln.weight, ln.bias, ln.eps)
+
+        def split(t):
+            return t.reshape(B, N, h, d).transpose(1, 2)
+
+        q, k, v = (split(mm_f32(xn, lin.weight).to(dt)) for lin in (self.to_q, self.to_k, self.to_v))
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * self.scale
+        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+        p = torch.softmax(logits, dim=-1).to(dt)
+        o = torch.matmul(p.float(), v.float()).to(dt).transpose(1, 2).reshape(B, N, h * d)
+        out = self.to_out[0]
+        return (mm_f32(o, out.weight) + out.bias.float()).to(dt) + x
+
+
+class BasicTransformerBlock(nn.Module):
+    """self-attn -> cross-attn (or a second self-attn) -> GEGLU FF, each with
+    a pre-LayerNorm and a residual (lvdm/modules/attention.py:187-220).
+    ``temporal`` selects the sites: a temporal block's attn1 and attn2 are
+    both frame self-attention (K1); a spatial block's are K2 and K3."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
+                 img_cross_attention: bool = False, text_context_len: int = 77,
+                 temporal: bool = False):
+        super().__init__()
+        self.temporal = temporal
+        self.attn1 = CrossAttention(dim, None, heads, dim_head)
+        self.ff = FeedForward(dim)
+        self.attn2 = CrossAttention(
+            dim, None if temporal else context_dim, heads, dim_head,
+            img_cross_attention=img_cross_attention and not temporal,
+            text_context_len=text_context_len,
+        )
+        self.norm1 = nn.LayerNorm(dim)
+        self.norm2 = nn.LayerNorm(dim)
+        self.norm3 = nn.LayerNorm(dim)
+
+    def forward(self, x, context=None, mask=None):
+        if self.temporal:
+            x = self.attn1(x, self.norm1, SITE_TEMPORAL, mask=mask)
+            x = self.attn2(x, self.norm2, SITE_TEMPORAL, mask=mask)
+        else:
+            x = self.attn1(x, self.norm1, SITE_SPATIAL)
+            x = self.attn2(x, self.norm2, SITE_CROSS, context=context)
+        return self.ff(x, self.norm3)

@@ -1,0 +1,380 @@
+"""VideoCrafter 3D UNet in PyTorch.
+
+Counterpart of ``dynamicscaler_tpu/models/unet3d.py`` with the reference's
+state_dict names (lvdm/modules/networks/openaimodel3d.py:312-708), so a
+VideoCrafter checkpoint loads with ``load_state_dict``. Public layout is the
+JAX one: latents ``[B, F, H, W, C]``; spatial layers run on ``[(B F), H, W, C]``
+and temporal layers on ``[(B H W), F, C]``. Convolutions are
+``F.conv2d``/``F.conv3d`` on channels-last views of those tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dynamicscaler_tpu_torch.config import UNetConfig
+from dynamicscaler_tpu_torch.models.attention import BasicTransformerBlock
+from dynamicscaler_tpu_torch.models.layers import MLPEmbed, timestep_embedding
+from dynamicscaler_tpu_torch.ops import fused_twrap
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    """One sub-layer of an encoder/decoder block; ``torch_path`` is its
+    state_dict prefix (under ``model.diffusion_model.``)."""
+
+    name: str
+    kind: str  # res | spatial | temporal | down | up | conv_in
+    channels: int
+    torch_path: str
+    extra: dict = dataclasses.field(default_factory=dict)
+
+
+def unet_layout(cfg: UNetConfig) -> Tuple[List[List[BlockSpec]], List[List[BlockSpec]], List[BlockSpec], List[int]]:
+    """(input_blocks, output_blocks, middle_block, skip_channels) in
+    construction order (openaimodel3d.py:418-649); same as the JAX one."""
+    ch = cfg.model_channels
+    ds = 1
+    input_blocks = [[BlockSpec("in0_conv", "conv_in", ch, "input_blocks.0.0")]]
+    input_chans = [ch]
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            i = len(input_blocks)
+            specs = [BlockSpec(f"in{i}_res", "res", mult * cfg.model_channels,
+                               f"input_blocks.{i}.0", {"in_ch": ch})]
+            ch = mult * cfg.model_channels
+            if ds in cfg.attention_resolutions:
+                specs.append(BlockSpec(f"in{i}_spatial", "spatial", ch, f"input_blocks.{i}.1"))
+                if cfg.temporal_attention:
+                    specs.append(BlockSpec(f"in{i}_temporal", "temporal", ch, f"input_blocks.{i}.2"))
+            input_blocks.append(specs)
+            input_chans.append(ch)
+        if level != len(cfg.channel_mult) - 1:
+            i = len(input_blocks)
+            input_blocks.append([BlockSpec(f"in{i}_down", "down", ch, f"input_blocks.{i}.0")])
+            input_chans.append(ch)
+            ds *= 2
+
+    middle = [
+        BlockSpec("mid_res0", "res", ch, "middle_block.0", {"in_ch": ch}),
+        BlockSpec("mid_spatial", "spatial", ch, "middle_block.1"),
+    ]
+    mid_idx = 2
+    if cfg.temporal_attention:
+        middle.append(BlockSpec("mid_temporal", "temporal", ch, "middle_block.2"))
+        mid_idx = 3
+    middle.append(BlockSpec("mid_res1", "res", ch, f"middle_block.{mid_idx}", {"in_ch": ch}))
+
+    output_blocks: List[List[BlockSpec]] = []
+    skip_chans: List[int] = []
+    for level, mult in reversed(list(enumerate(cfg.channel_mult))):
+        for i in range(cfg.num_res_blocks + 1):
+            ich = input_chans.pop()
+            skip_chans.append(ich)
+            oi = len(output_blocks)
+            specs = [BlockSpec(f"out{oi}_res", "res", cfg.model_channels * mult,
+                               f"output_blocks.{oi}.0", {"in_ch": ch + ich})]
+            ch = cfg.model_channels * mult
+            j = 1
+            if ds in cfg.attention_resolutions:
+                specs.append(BlockSpec(f"out{oi}_spatial", "spatial", ch, f"output_blocks.{oi}.{j}"))
+                j += 1
+                if cfg.temporal_attention:
+                    specs.append(BlockSpec(f"out{oi}_temporal", "temporal", ch, f"output_blocks.{oi}.{j}"))
+                    j += 1
+            if level and i == cfg.num_res_blocks:
+                specs.append(BlockSpec(f"out{oi}_up", "up", ch, f"output_blocks.{oi}.{j}"))
+                ds //= 2
+            output_blocks.append(specs)
+    return input_blocks, output_blocks, middle, skip_chans
+
+
+# state_dict suffixes the reference zero-initialises (lvdm/basics.py:19
+# zero_module): ResBlock out conv, last temporal conv, transformer proj_out,
+# UNet out conv (dynamicscaler_tpu/models/unet3d.py:221, 255, 298, 368, 502)
+ZERO_INIT_SUFFIXES = (
+    "out_layers.3.weight", "out_layers.3.bias",
+    "temopral_conv.conv4.3.weight", "temopral_conv.conv4.3.bias",
+    "proj_out.weight", "proj_out.bias",
+)
+ZERO_INIT_NAMES = ("out.2.weight", "out.2.bias")
+
+
+def is_zero_init(name: str) -> bool:
+    return name in ZERO_INIT_NAMES or name.endswith(ZERO_INIT_SUFFIXES)
+
+
+def conv2d_nhwc(x, conv: nn.Conv2d):
+    """Conv2d on an NHWC tensor through its channels-last NCHW view."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, conv.stride, conv.padding)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv3d_ndhwc(x, conv: nn.Conv3d):
+    """Conv3d on a [B, F, H, W, C] tensor through its channels-last view."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), conv.weight, conv.bias, conv.stride, conv.padding)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+class TemporalConvBlock(nn.Module):
+    """4x (GN -> SiLU -> Conv3d(3,1,1)) + residual, last conv zero-init
+    (openaimodel3d.py:257-309). Input [B, F, H, W, C]; the GroupNorm
+    statistics of each clip span ALL its frames (the JAX twin feeds
+    [B, F, H, W, C], unet3d.py:231-232), eps 1e-5."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+
+        def conv():
+            return nn.Conv3d(channels, channels, (3, 1, 1), padding=(1, 0, 0))
+
+        self.conv1 = nn.Sequential(nn.GroupNorm(32, channels), nn.SiLU(), conv())
+        self.conv2 = nn.Sequential(nn.GroupNorm(32, channels), nn.SiLU(), nn.Dropout(0.0), conv())
+        self.conv3 = nn.Sequential(nn.GroupNorm(32, channels), nn.SiLU(), nn.Dropout(0.0), conv())
+        self.conv4 = nn.Sequential(nn.GroupNorm(32, channels), nn.SiLU(), nn.Dropout(0.0), conv())
+
+    def forward(self, x):
+        identity = x
+        for seq in (self.conv1, self.conv2, self.conv3, self.conv4):
+            x = fused_twrap.gn_silu(x, seq[0].weight, seq[0].bias, eps=1e-5)
+            x = conv3d_ndhwc(x, seq[-1])
+        return x + identity
+
+
+class ResBlock(nn.Module):
+    """GN -> SiLU -> Conv3x3 + time-emb + GN -> SiLU -> zero Conv3x3 + skip,
+    then the temporal conv block (openaimodel3d.py:115-254). GroupNorm
+    statistics per frame, eps 1e-5."""
+
+    def __init__(self, channels: int, emb_channels: int, out_channels: int,
+                 use_temporal_conv: bool = True):
+        super().__init__()
+        self.in_layers = nn.Sequential(
+            nn.GroupNorm(32, channels), nn.SiLU(), nn.Conv2d(channels, out_channels, 3, padding=1)
+        )
+        self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, out_channels))
+        self.out_layers = nn.Sequential(
+            nn.GroupNorm(32, out_channels), nn.SiLU(), nn.Dropout(0.0),
+            nn.Conv2d(out_channels, out_channels, 3, padding=1),
+        )
+        self.skip_connection = (
+            nn.Identity() if channels == out_channels else nn.Conv2d(channels, out_channels, 1)
+        )
+        self.use_temporal_conv = use_temporal_conv
+        if use_temporal_conv:
+            self.temopral_conv = TemporalConvBlock(out_channels)  # reference spelling
+
+    def forward(self, x, emb, num_frames: int):
+        h = fused_twrap.gn_silu(x, self.in_layers[0].weight, self.in_layers[0].bias, eps=1e-5)
+        h = conv2d_nhwc(h, self.in_layers[2])
+        emb_out = self.emb_layers[1](F.silu(emb))
+        h = h + emb_out[:, None, None, :]
+        h = fused_twrap.gn_silu(h, self.out_layers[0].weight, self.out_layers[0].bias, eps=1e-5)
+        h = conv2d_nhwc(h, self.out_layers[3])
+        if isinstance(self.skip_connection, nn.Conv2d):
+            x = conv2d_nhwc(x, self.skip_connection)
+        h = x + h
+        if self.use_temporal_conv:
+            BF, H, W, C = h.shape
+            h = self.temopral_conv(h.reshape(BF // num_frames, num_frames, H, W, C))
+            h = h.reshape(BF, H, W, C)
+        return h
+
+
+class SpatialTransformer(nn.Module):
+    """GN -> proj_in -> transformer over H*W tokens -> proj_out + residual
+    (lvdm/modules/attention.py:223-278, use_linear=True)."""
+
+    def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
+                 context_dim: int = None, img_cross_attention: bool = False,
+                 text_context_len: int = 77):
+        super().__init__()
+        inner = heads * dim_head
+        self.norm = nn.GroupNorm(32, channels, eps=1e-6)
+        self.proj_in = nn.Linear(channels, inner)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(inner, heads, dim_head, context_dim=context_dim,
+                                  img_cross_attention=img_cross_attention,
+                                  text_context_len=text_context_len)
+            for _ in range(depth)
+        ])
+        self.proj_out = nn.Linear(inner, channels)
+
+    def forward(self, x, context):
+        # GroupNorm eps 1e-6 in the transformer wrappers (fused_twrap.py:347)
+        h = fused_twrap.gn_proj_in_spatial(x, self.norm.weight, self.norm.bias,
+                                           self.proj_in.weight, self.proj_in.bias, eps=1e-6)
+        for blk in self.transformer_blocks:
+            h = blk(h, context=context)
+        return fused_twrap.tail_spatial(h, x, self.proj_out.weight, self.proj_out.bias)
+
+
+class TemporalTransformer(nn.Module):
+    """GN -> proj_in -> transformer over F tokens per (b, h, w) -> proj_out
+    + residual (lvdm/modules/attention.py:281-373). Input [(B F), H, W, C].
+    ``use_linear=False`` stores proj_in/proj_out as Conv1d(k=1) (the
+    reference's ``init_attn``); the compute is the same product."""
+
+    def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
+                 use_linear: bool = True, causal_attention: bool = False,
+                 only_self_att: bool = True, relative_position: bool = False):
+        super().__init__()
+        if not only_self_att:
+            raise NotImplementedError("cross-attn temporal transformer unused by shipped configs")
+        if relative_position:
+            raise NotImplementedError("temporal relative position is not ported")
+        inner = heads * dim_head
+        self.causal_attention = causal_attention
+        self.norm = nn.GroupNorm(32, channels, eps=1e-6)
+        if use_linear:
+            self.proj_in = nn.Linear(channels, inner)
+            self.proj_out = nn.Linear(inner, channels)
+        else:
+            self.proj_in = nn.Conv1d(channels, inner, 1)
+            self.proj_out = nn.Conv1d(inner, channels, 1)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(inner, heads, dim_head, temporal=True) for _ in range(depth)
+        ])
+
+    def forward(self, x, num_frames: int):
+        BF, H, W, C = x.shape
+        Fn = num_frames
+        x5 = x.reshape(BF // Fn, Fn, H, W, C)
+        w_in = self.proj_in.weight.reshape(self.proj_in.weight.shape[0], -1)
+        w_out = self.proj_out.weight.reshape(self.proj_out.weight.shape[0], -1)
+        # GroupNorm eps 1e-6 over each clip (fused_twrap.py:311)
+        h = fused_twrap.gn_proj_in_temporal(x5, self.norm.weight, self.norm.bias, w_in,
+                                            self.proj_in.bias, eps=1e-6)
+        mask = None
+        if self.causal_attention:
+            mask = torch.tril(torch.ones((1, 1, Fn, Fn), dtype=torch.bool, device=x.device))
+        for blk in self.transformer_blocks:
+            h = blk(h, mask=mask)
+        return fused_twrap.tail_temporal(h, x5, w_out, self.proj_out.bias).reshape(BF, H, W, C)
+
+
+class Downsample(nn.Module):
+    """Conv stride 2 (openaimodel3d.py:48-79); state_dict name ``op``."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.op = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return conv2d_nhwc(x, self.op)
+
+
+class Upsample(nn.Module):
+    """Nearest x2 + conv 3x3 (openaimodel3d.py:82-112)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        return conv2d_nhwc(x, self.conv)
+
+
+class UNet3D(nn.Module):
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        in_specs, out_specs, mid_specs, _ = unet_layout(cfg)
+        self._in_specs, self._out_specs, self._mid_specs = in_specs, out_specs, mid_specs
+        mc = cfg.model_channels
+        self.time_embed = MLPEmbed(mc, mc * 4)
+        if cfg.fps_cond:
+            self.fps_embedding = MLPEmbed(mc, mc * 4)
+        self.input_blocks = nn.ModuleList([nn.ModuleList([self._make(s) for s in sp]) for sp in in_specs])
+        if cfg.addition_attention:
+            # 8 heads x 64 = 512 wide on 320 channels (unet3d.py:487-495)
+            self.init_attn = nn.Sequential(TemporalTransformer(
+                mc, 8, cfg.num_head_channels, use_linear=False,
+                causal_attention=cfg.use_causal_attention, only_self_att=cfg.temporal_selfatt_only,
+                relative_position=cfg.use_relative_position,
+            ))
+        self.middle_block = nn.ModuleList([self._make(s) for s in mid_specs])
+        self.output_blocks = nn.ModuleList([nn.ModuleList([self._make(s) for s in sp]) for sp in out_specs])
+        self.out = nn.Sequential(nn.GroupNorm(32, mc), nn.SiLU(), nn.Conv2d(mc, cfg.out_channels, 3, padding=1))
+
+    def _make(self, spec: BlockSpec) -> nn.Module:
+        cfg = self.cfg
+        heads = spec.channels // cfg.num_head_channels
+        if spec.kind == "conv_in":
+            return nn.Conv2d(cfg.in_channels, cfg.model_channels, 3, padding=1)
+        if spec.kind == "res":
+            return ResBlock(spec.extra["in_ch"], cfg.model_channels * 4, spec.channels,
+                            use_temporal_conv=cfg.temporal_conv)
+        if spec.kind == "spatial":
+            return SpatialTransformer(
+                spec.channels, heads, cfg.num_head_channels, depth=cfg.transformer_depth,
+                context_dim=cfg.context_dim, img_cross_attention=cfg.use_image_attention,
+                text_context_len=cfg.text_context_len,
+            )
+        if spec.kind == "temporal":
+            return TemporalTransformer(
+                spec.channels, heads, cfg.num_head_channels, depth=cfg.transformer_depth,
+                use_linear=cfg.use_linear, causal_attention=cfg.use_causal_attention,
+                only_self_att=cfg.temporal_selfatt_only,
+                relative_position=cfg.use_relative_position,
+            )
+        if spec.kind == "down":
+            return Downsample(spec.channels)
+        if spec.kind == "up":
+            return Upsample(spec.channels)
+        raise ValueError(spec.kind)
+
+    def _run_specs(self, specs, layers, h, emb, context, Fn):
+        for spec, layer in zip(specs, layers):
+            if spec.kind == "conv_in":
+                h = conv2d_nhwc(h, layer)
+            elif spec.kind in ("down", "up"):
+                h = layer(h)
+            elif spec.kind == "res":
+                h = layer(h, emb, Fn)
+            elif spec.kind == "spatial":
+                h = layer(h, context)
+            elif spec.kind == "temporal":
+                h = layer(h, Fn)
+        return h
+
+    def forward(self, x, timesteps, context, fps=16):
+        """eps prediction. x [B, F, H, W, C]; timesteps [B] (whole clip) or
+        [B, F] (per frame); context [B, L, context_dim]; fps scalar or [B].
+        Returns fp32 [B, F, H, W, out_channels]."""
+        cfg = self.cfg
+        B, Fn, H, W, C = x.shape
+        dt = self.out[2].weight.dtype
+        dev = x.device
+        timesteps = torch.as_tensor(timesteps, device=dev)
+        t_flat = timesteps.reshape(B * Fn) if timesteps.ndim == 2 else timesteps.repeat_interleave(Fn)
+        emb = self.time_embed(timestep_embedding(t_flat, cfg.model_channels).to(dt))
+        if cfg.fps_cond:
+            fps_t = torch.as_tensor(fps, dtype=torch.float32, device=dev).broadcast_to((B,))
+            emb = emb + self.fps_embedding(
+                timestep_embedding(fps_t.repeat_interleave(Fn), cfg.model_channels).to(dt)
+            )
+        # the context is repeated per frame: it rides the (B F) batch (unet3d.py:548)
+        ctx = context.repeat_interleave(Fn, dim=0).to(dt)
+        h = x.reshape(B * Fn, H, W, C).to(dt)
+
+        hs = []
+        for i, (specs, layers) in enumerate(zip(self._in_specs, self.input_blocks)):
+            h = self._run_specs(specs, layers, h, emb, ctx, Fn)
+            if i == 0 and cfg.addition_attention:
+                h = self.init_attn[0](h, Fn)
+            hs.append(h)
+        h = self._run_specs(self._mid_specs, self.middle_block, h, emb, ctx, Fn)
+        for specs, layers in zip(self._out_specs, self.output_blocks):
+            h = torch.cat([h, hs.pop()], dim=-1)
+            h = self._run_specs(specs, layers, h, emb, ctx, Fn)
+
+        h = fused_twrap.gn_silu(h, self.out[0].weight, self.out[0].bias, eps=1e-5)
+        y = conv2d_nhwc(h, self.out[2]).float()
+        return y.reshape(B, Fn, H, W, cfg.out_channels)

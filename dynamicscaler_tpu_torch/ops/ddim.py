@@ -1,0 +1,179 @@
+"""DDIM / DDPM schedule math (PyTorch).
+
+Counterpart of ``dynamicscaler_tpu/ops/ddim.py``: tables built in float64
+numpy on the host and stored as float32 tensors in a :class:`DDIMSchedule`;
+``ddim_step`` takes a per-frame DDIM index vector. Noise is explicit: pass
+``noise=`` (tests inject the same numbers into both twins) or a
+``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def make_beta_schedule(schedule: str, n_timestep: int, linear_start: float = 1e-4,
+                       linear_end: float = 2e-2, cosine_s: float = 8e-3) -> np.ndarray:
+    """Beta schedule table (float64), lvdm/models/utils_diffusion.py:31."""
+    if schedule == "linear":
+        return np.linspace(linear_start ** 0.5, linear_end ** 0.5, n_timestep, dtype=np.float64) ** 2
+    if schedule == "cosine":
+        ts = np.arange(n_timestep + 1, dtype=np.float64) / n_timestep + cosine_s
+        alphas = np.cos(ts / (1 + cosine_s) * np.pi / 2) ** 2
+        alphas = alphas / alphas[0]
+        return np.clip(1 - alphas[1:] / alphas[:-1], 0, 0.999)
+    if schedule == "sqrt_linear":
+        return np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64)
+    if schedule == "sqrt":
+        return np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64) ** 0.5
+    raise ValueError(f"schedule '{schedule}' unknown")
+
+
+def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int,
+                        discretize: str = "uniform") -> np.ndarray:
+    """DDIM sub-schedule timestep selection (utils_diffusion.py:56)."""
+    if discretize == "uniform":
+        return np.linspace(0, num_ddpm_timesteps - 1, num_ddim_timesteps).round().astype(np.int64)
+    if discretize == "quad":
+        return (np.linspace(0, np.sqrt(num_ddpm_timesteps * 0.8), num_ddim_timesteps) ** 2).astype(int) + 1
+    raise NotImplementedError(f"ddim discretization '{discretize}' unknown")
+
+
+def make_scale_arr(num_timesteps: int, scale_a: float = 1.0, scale_b: float = 0.3,
+                   mid_step: int = 400, fix_scale_bug: bool = False) -> np.ndarray:
+    """VideoCrafter latent-scale array (ddpm3d.py:362-376), with the
+    reference's over-long flat tail unless ``fix_scale_bug``."""
+    scale_step = num_timesteps - mid_step if fix_scale_bug else num_timesteps
+    arr = np.concatenate([np.linspace(scale_a, scale_b, mid_step, dtype=np.float64),
+                          np.full(scale_step, scale_b, dtype=np.float64)])
+    return arr[:num_timesteps] if fix_scale_bug else arr
+
+
+@dataclasses.dataclass(frozen=True)
+class DDIMSchedule:
+    """Schedule tables: DDPM tables have length T, DDIM tables length S."""
+
+    betas: torch.Tensor
+    alphas_cumprod: torch.Tensor
+    alphas_cumprod_prev: torch.Tensor
+    sqrt_alphas_cumprod: torch.Tensor
+    sqrt_one_minus_alphas_cumprod: torch.Tensor
+    ddim_timesteps: torch.Tensor  # int64, ascending
+    ddim_alphas: torch.Tensor
+    ddim_alphas_prev: torch.Tensor
+    ddim_sqrt_one_minus_alphas: torch.Tensor
+    ddim_sigmas: torch.Tensor
+    scale_arr: torch.Tensor  # VideoCrafter use_scale array (all ones if unused)
+    use_scale: bool = False
+    num_ddpm_timesteps: int = 1000
+    num_ddim_steps: int = 50
+    eta: float = 0.0
+
+
+def make_ddim_schedule(num_ddim_steps: int, num_ddpm_timesteps: int = 1000,
+                       beta_schedule: str = "linear", linear_start: float = 0.00085,
+                       linear_end: float = 0.012, eta: float = 0.0, discretize: str = "uniform",
+                       use_scale: bool = False, scale_a: float = 1.0, scale_b: float = 0.3,
+                       mid_step: int = 400, given_alphas_cumprod: Optional[np.ndarray] = None,
+                       device=None) -> DDIMSchedule:
+    """Full schedule (host float64 -> float32 tensors on ``device``)."""
+    if given_alphas_cumprod is not None:
+        alphas_cumprod = np.asarray(given_alphas_cumprod, dtype=np.float64)
+        betas = 1.0 - alphas_cumprod / np.append(1.0, alphas_cumprod[:-1])
+        num_ddpm_timesteps = alphas_cumprod.shape[0]
+    else:
+        betas = make_beta_schedule(beta_schedule, num_ddpm_timesteps, linear_start, linear_end)
+        alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+    alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+    ddim_ts = make_ddim_timesteps(num_ddim_steps, num_ddpm_timesteps, discretize)
+    ddim_alphas = alphas_cumprod[ddim_ts]
+    ddim_alphas_prev = np.asarray([alphas_cumprod[0]] + alphas_cumprod[ddim_ts[:-1]].tolist())
+    ddim_sigmas = eta * np.sqrt(
+        (1 - ddim_alphas_prev) / (1 - ddim_alphas) * (1 - ddim_alphas / ddim_alphas_prev)
+    )
+    scale_arr = (
+        make_scale_arr(num_ddpm_timesteps, scale_a=scale_a, scale_b=scale_b, mid_step=mid_step)
+        if use_scale else np.ones(num_ddpm_timesteps, dtype=np.float64)
+    )
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    return DDIMSchedule(
+        betas=f32(betas),
+        alphas_cumprod=f32(alphas_cumprod),
+        alphas_cumprod_prev=f32(alphas_cumprod_prev),
+        sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
+        sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
+        ddim_timesteps=torch.as_tensor(ddim_ts, dtype=torch.long, device=device),
+        ddim_alphas=f32(ddim_alphas),
+        ddim_alphas_prev=f32(ddim_alphas_prev),
+        ddim_sqrt_one_minus_alphas=f32(np.sqrt(1.0 - ddim_alphas)),
+        ddim_sigmas=f32(ddim_sigmas),
+        scale_arr=f32(scale_arr),
+        use_scale=use_scale,
+        num_ddpm_timesteps=int(num_ddpm_timesteps),
+        num_ddim_steps=int(num_ddim_steps),
+        eta=float(eta),
+    )
+
+
+def _index(table: torch.Tensor, idx) -> torch.Tensor:
+    return table[torch.as_tensor(idx, dtype=torch.long, device=table.device)]
+
+
+def _per_frame(table, indices, ndim: int, frame_axis: int):
+    shape = [1] * ndim
+    shape[frame_axis] = -1
+    return _index(table, indices).reshape(shape)
+
+
+def _noise_like(x, generator, noise):
+    if noise is not None:
+        return torch.as_tensor(noise, dtype=x.dtype, device=x.device)
+    return torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+
+
+def ddim_step(schedule: DDIMSchedule, x, noise_pred, indices,
+              generator: Optional[torch.Generator] = None, frame_axis: int = 1,
+              noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One DDIM update with a per-frame DDIM index vector ``indices`` [F].
+    Returns ``(x_prev, pred_x0)``. With eta 0 it draws no noise."""
+    nd = x.ndim
+    a_t = _per_frame(schedule.ddim_alphas, indices, nd, frame_axis)
+    a_prev = _per_frame(schedule.ddim_alphas_prev, indices, nd, frame_axis)
+    sigma_t = _per_frame(schedule.ddim_sigmas, indices, nd, frame_axis)
+    sqrt_omat = _per_frame(schedule.ddim_sqrt_one_minus_alphas, indices, nd, frame_axis)
+    pred_x0 = (x - sqrt_omat * noise_pred) / torch.sqrt(a_t)
+    dir_xt = torch.sqrt(1.0 - a_prev - sigma_t ** 2) * noise_pred
+    x_prev = torch.sqrt(a_prev) * pred_x0 + dir_xt
+    if schedule.eta > 0 and (generator is not None or noise is not None):
+        x_prev = x_prev + sigma_t * _noise_like(x, generator, noise)
+    return x_prev, pred_x0
+
+
+def re_noise(schedule: DDIMSchedule, x_a, step_a, step_b,
+             generator: Optional[torch.Generator] = None, noise=None):
+    """Closed-form jump q(x_b | x_a) between two DDIM steps
+    (pipeline/scheduler.py:98-110); ``step_a < step_b`` adds noise."""
+    acp_a = _index(schedule.alphas_cumprod, _index(schedule.ddim_timesteps, step_a))
+    acp_b = _index(schedule.alphas_cumprod, _index(schedule.ddim_timesteps, step_b))
+    ratio = torch.clamp(acp_b / acp_a, 0.0, 1.0)
+    return torch.sqrt(ratio) * x_a + torch.sqrt(1.0 - ratio) * _noise_like(x_a, generator, noise)
+
+
+def re_noise_per_frame(schedule: DDIMSchedule, x_a, steps_b,
+                       generator: Optional[torch.Generator] = None, step_a: int = 0,
+                       frame_axis: int = 1, noise=None):
+    """Re-noise each frame to its own DDIM step (progressive skip-noise init)."""
+    shape = [1] * x_a.ndim
+    shape[frame_axis] = -1
+    acp_a = _index(schedule.alphas_cumprod, _index(schedule.ddim_timesteps, step_a))
+    acp_b = _index(schedule.alphas_cumprod, _index(schedule.ddim_timesteps, steps_b))
+    ratio = torch.clamp(acp_b / acp_a, 0.0, 1.0)
+    return (torch.sqrt(ratio).reshape(shape) * x_a
+            + torch.sqrt(1.0 - ratio).reshape(shape) * _noise_like(x_a, generator, noise))

@@ -1,0 +1,155 @@
+"""K1 (temporal LN-attention sub-block) and K4 (LN + GEGLU feed-forward).
+
+Counterparts of ``dynamicscaler_tpu/ops/fused_temporal.py``
+``fused_ln_attention`` (Pallas ``_kernel``) and ``fused_ln_geglu``
+(``_ff_kernel``). Weights are in torch ``Linear`` layout ``[out, in]``.
+
+On the card each op runs as a short sequence of hand-written CUDA kernels
+(``csrc/gemm.cu``, ``csrc/attention.cu``); see the notes there for what
+bounds each on the H100. The plain versions beside them hold the same
+rounding points as the TPU kernels: fp32 LayerNorm statistics, bf16 matmul
+inputs with fp32 accumulation, q/k/v rounded to the activation type, fp32
+softmax with probabilities rounded before PV (K1), out-projection + bias in
+fp32 then rounded, residual added in the activation type.
+
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from dynamicscaler_tpu_torch.models.layers import layer_norm
+from dynamicscaler_tpu_torch.ops import cuda_lib
+from dynamicscaler_tpu_torch.ops.cuda_lib import MODE_GEGLU, MODE_RESIDUAL, act, f32, ln_gemm
+
+
+def mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w.T`` with fp32 accumulation, returned in fp32 (the plain
+    versions' ``preferred_element_type=float32`` product)."""
+    return torch.matmul(a.float(), w.float().t())
+
+
+class AttnOperands(NamedTuple):
+    """Kernel operands of one LN-attention sub-block (K1, K2, K3): fp32
+    LayerNorm and bias vectors, weights in the activation type."""
+
+    ln_scale: torch.Tensor
+    ln_bias: torch.Tensor
+    w_in: torch.Tensor  # self-attention: q|k|v rows [3C, C]; cross: q [C, C]
+    wo: torch.Tensor
+    bo: torch.Tensor
+    w_kv: tuple = ()  # cross: k|v rows [2C, Dc] per context segment
+
+
+def pack_ln_attention(ln_scale, ln_bias, wq, wk, wv, wo, bo, *, dtype) -> AttnOperands:
+    """K1/K2 operands: q, k and v weights stacked for one projection GEMM."""
+    return AttnOperands(f32(ln_scale), f32(ln_bias), torch.cat([act(w, dtype) for w in (wq, wk, wv)]),
+                        act(wo, dtype), f32(bo))
+
+
+# ---------------------------------------------------------------------------
+# K1: LayerNorm -> QKV -> F-token self-attention -> out-proj -> +x
+# ---------------------------------------------------------------------------
+
+
+def ln_attention_plain(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *, heads, scale, eps=1e-5):
+    """Plain PyTorch version of K1. x [R, F, C]; weights [C, C]."""
+    R, Fn, C = x.shape
+    dt = x.dtype
+    d = C // heads
+    h = layer_norm(x, ln_scale, ln_bias, eps)
+
+    def split(t):
+        return t.reshape(R, Fn, heads, d).transpose(1, 2)
+
+    q, k, v = (split(mm_f32(h, w).to(dt)) for w in (wq, wk, wv))
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.softmax(logits, dim=-1).to(dt)
+    o = torch.matmul(p.float(), v.float()).to(dt)
+    o = o.transpose(1, 2).reshape(R, Fn, C)
+    return (mm_f32(o, wo) + bo.float()).to(dt) + x
+
+
+def fused_ln_attention(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *, heads, scale, eps=1e-5,
+                       operands=None):
+    """K1: LayerNorm -> QKV -> F-token self-attention -> out-proj -> +x.
+
+    x: [rows, F, C]; rows = B*H*W, F = 16 frames on the card; weights
+    [C, C] torch layout; ln_scale/ln_bias/bo [C]. Returns [rows, F, C].
+    On the card: LN-prologue GEMM (q|k|v) -> ds_temporal_attention ->
+    GEMM + bias + residual, reading ``operands`` (from
+    :func:`pack_ln_attention`; packed here when None)."""
+    if not cuda_lib.use_kernel(x):
+        return ln_attention_plain(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
+                                  heads=heads, scale=scale, eps=eps)
+    R, Fn, C = x.shape
+    if Fn != 16 or C != heads * 64:
+        raise ValueError(f"K1 kernel takes F=16 and head dim 64, got F={Fn} C={C} heads={heads}")
+    cuda_lib.check_operand("x", x)
+    op = operands or pack_ln_attention(ln_scale, ln_bias, wq, wk, wv, wo, bo, dtype=x.dtype)
+    x2d = x.reshape(R * Fn, C)
+    qkv = ln_gemm(x2d, op.w_in, ln=(op.ln_scale, op.ln_bias), eps=eps)
+    o = torch.empty_like(x2d)
+    cuda_lib.call("ds_temporal_attention", cuda_lib.ptr(qkv), R, C, heads, float(scale), cuda_lib.ptr(o))
+    out = ln_gemm(o, op.wo, bias=op.bo, residual=x2d, mode=MODE_RESIDUAL)
+    fused_ln_attention.launches += 1
+    return out.reshape(R, Fn, C)
+
+
+fused_ln_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: LayerNorm -> GEGLU feed-forward -> +x
+# ---------------------------------------------------------------------------
+
+
+def ln_geglu_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps=1e-5):
+    """Plain PyTorch version of K4. w1 [8C, C] (value rows first, then gate
+    rows), w2 [C, 4C]."""
+    dt = x.dtype
+    h = layer_norm(x, ln_scale, ln_bias, eps)
+    a = (mm_f32(h, w1) + b1.float()).to(dt)
+    val, gate = a.chunk(2, dim=-1)
+    inner = (val.float() * F.gelu(gate.float(), approximate="none")).to(dt)
+    return (mm_f32(inner, w2) + b2.float()).to(dt) + x
+
+
+class FFOperands(NamedTuple):
+    """Kernel operands of one LN + GEGLU sub-block (K4)."""
+
+    ln_scale: torch.Tensor
+    ln_bias: torch.Tensor
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+
+
+def pack_ln_geglu(ln_scale, ln_bias, w1, b1, w2, b2, *, dtype) -> FFOperands:
+    return FFOperands(f32(ln_scale), f32(ln_bias), act(w1, dtype), f32(b1), act(w2, dtype), f32(b2))
+
+
+def fused_ln_geglu(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps=1e-5, operands=None):
+    """K4: LayerNorm -> [C, 8C] + b1 -> value * GELU(gate) (exact erf) ->
+    [4C, C] + b2 -> +x, over the flattened leading axes of x [..., C].
+    On the card: LN-prologue GEMM with the GEGLU epilogue -> GEMM + bias +
+    residual, reading ``operands`` (from :func:`pack_ln_geglu`; packed here
+    when None)."""
+    if not cuda_lib.use_kernel(x):
+        return ln_geglu_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps)
+    C = x.shape[-1]
+    cuda_lib.check_operand("x", x)
+    op = operands or pack_ln_geglu(ln_scale, ln_bias, w1, b1, w2, b2, dtype=x.dtype)
+    x2d = x.reshape(-1, C)
+    inner = ln_gemm(x2d, op.w1, ln=(op.ln_scale, op.ln_bias), eps=eps, bias=op.b1, mode=MODE_GEGLU)
+    out = ln_gemm(inner, op.w2, bias=op.b2, residual=x2d, mode=MODE_RESIDUAL)
+    fused_ln_geglu.launches += 1
+    return out.reshape(x.shape)
+
+
+fused_ln_geglu.launches = 0

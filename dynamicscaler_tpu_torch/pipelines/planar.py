@@ -1,0 +1,157 @@
+"""Planar shift-window denoising engine (PyTorch).
+
+Counterpart of ``dynamicscaler_tpu/pipelines/planar.py``: one DDIM step
+over N overlapping ring windows gathers the windows from the global latent
+as a batch, runs the UNet once on the ``2N`` CFG-packed batch and scatters
+the results back. Overlap modes:
+
+* ``last`` (default): windows read the step-start snapshot; the
+  order-dependent blends use earlier-window coverage masks and the scatter
+  is ordered (last write wins);
+* ``average``: weighted scatter-average over overlaps, order-free;
+* ``sequential``: exact reference ordering, window k+1 reads window k's
+  writes (N UNet calls per step).
+
+The global latent and the denoised buffer are updated IN PLACE each step
+(the JAX engine donates them instead). The mesh, trace cache and warm-only
+paths of the JAX engine are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dynamicscaler_tpu_torch.ops.blend import mix_with_mask, normalize_accumulated
+from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, re_noise
+from dynamicscaler_tpu_torch.ops.ring import add_ring_window, get_ring_window, set_ring_window
+
+
+def device_earlier_masks(origins, sizes, latent) -> torch.Tensor:
+    """masks[k] = 1 where window k's footprint was already covered by
+    windows < k in this step (the reference's within-step denoised mask),
+    built on the latent's device -> [N, f, h, w, 1]."""
+    fs, hs, ws = sizes
+    cov = torch.zeros(latent.shape[:-1] + (1,), dtype=torch.float32, device=latent.device)
+    ones = torch.ones((1, fs, hs, ws, 1), dtype=torch.float32, device=latent.device)
+    masks = []
+    for origin in origins:
+        masks.append(get_ring_window(cov, tuple(origin), sizes)[0])
+        set_ring_window(cov, ones, tuple(origin))
+    return torch.stack(masks)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """Host-precomputed data for one DDIM step of the window loop."""
+
+    t: int  # DDPM timestep fed to the UNet
+    index: int  # DDIM table index (total_steps - i - 1)
+    origins: np.ndarray  # [N, 3] (f0, h0, w0)
+    context: torch.Tensor  # [N_base, L, D], N_base divides N
+    renoise_ratio: Optional[float]
+    merge_prev_ratio: Optional[float]
+
+
+class PlanarShiftWindowEngine:
+    def __init__(self, model, schedule: DDIMSchedule, window_sizes: Tuple[int, int, int],
+                 guidance_scale: float = 7.5, fps: int = 16, overlap_mode: str = "last",
+                 unet_microbatch: int = 8):
+        if overlap_mode not in ("last", "average", "sequential"):
+            raise ValueError(f"overlap_mode {overlap_mode!r}")
+        self.model = model
+        self.schedule = schedule
+        self.window_sizes = window_sizes
+        self.guidance_scale = guidance_scale
+        self.fps = fps
+        self.overlap_mode = overlap_mode
+        self.unet_microbatch = unet_microbatch
+
+    def run(self, latent: torch.Tensor, plan: Sequence[StepPlan], uncond_context: torch.Tensor,
+            generator: Optional[torch.Generator] = None,
+            pre_step: Optional[Callable] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The full window-denoise loop over ``plan``. Returns
+        ``(latent, denoised)``; the caller's ``latent`` is not modified."""
+        latent = latent.clone()
+        denoised = torch.zeros_like(latent)
+        for i, sp in enumerate(plan):
+            if pre_step is not None:
+                latent = pre_step(latent, i, generator)
+            self.step(latent, denoised, sp, uncond_context, generator)
+        return latent, denoised
+
+    def _denoise_batch(self, wins, ctx, uncond, sp: StepPlan):
+        """wins [n, f, h, w, C] -> (x_prev, pred_x0); one CFG-packed UNet call."""
+        n = wins.shape[0]
+        g = self.guidance_scale
+        if g != 1.0:
+            x = torch.cat([wins, wins])
+            cc = torch.cat([ctx, uncond.expand((n,) + tuple(uncond.shape[1:]))])
+            eps = self.model.apply_unet_microbatched(x, sp.t, cc, self.fps, self.unet_microbatch)
+            eps = eps[n:] + g * (eps[:n] - eps[n:])
+        else:
+            eps = self.model.apply_unet_microbatched(wins, sp.t, ctx, self.fps, self.unet_microbatch)
+        frame_idx = torch.full((self.window_sizes[0],), sp.index, dtype=torch.long)
+        return ddim_step(self.schedule, wins, eps, frame_idx)
+
+    def _renoise(self, wins, sp: StepPlan, generator):
+        ratio = sp.renoise_ratio or 0.0
+        if ratio == 0.0:  # a 0-ratio mix is the identity: draw no noise
+            return wins, ratio
+        return re_noise(self.schedule, wins, max(sp.index - 1, 0), sp.index, generator=generator), ratio
+
+    def step(self, latent, denoised, sp: StepPlan, uncond_context, generator=None):
+        """One DDIM step over all windows of ``sp``; updates ``latent`` and
+        ``denoised`` in place."""
+        sizes = self.window_sizes
+        origins = [tuple(int(v) for v in o) for o in np.asarray(sp.origins)]
+        N = len(origins)
+        ctx = sp.context
+        if ctx.shape[0] != N:
+            ctx = ctx.repeat(N // ctx.shape[0], 1, 1)
+        merge_ratio = sp.merge_prev_ratio or 0.0
+
+        if self.overlap_mode == "sequential":
+            mask_global = torch.zeros_like(latent)
+            for k, origin in enumerate(origins):
+                win = get_ring_window(latent, origin, sizes)
+                mask_win = get_ring_window(mask_global, origin, sizes)
+                prev = win
+                noised, ratio = self._renoise(win, sp, generator)
+                win = mix_with_mask(win, noised, mask_win, ratio)
+                new, den_w = self._denoise_batch(win, ctx[k:k + 1], uncond_context, sp)
+                new = mix_with_mask(new, prev, mask_win, merge_ratio)
+                set_ring_window(latent, new, origin)
+                set_ring_window(denoised, den_w, origin)
+                set_ring_window(mask_global, torch.ones_like(new), origin)
+            return
+
+        wins = torch.cat([get_ring_window(latent, o, sizes) for o in origins])
+        prev = wins
+        earlier = None
+        if self.overlap_mode == "last":
+            earlier = device_earlier_masks(origins, sizes, latent)
+            noised, ratio = self._renoise(wins, sp, generator)
+            wins = mix_with_mask(wins, noised, earlier, ratio)
+
+        new, den = self._denoise_batch(wins, ctx, uncond_context, sp)
+
+        if self.overlap_mode == "average":
+            accum = torch.zeros_like(latent)
+            count = torch.zeros(latent.shape[:-1] + (1,), dtype=latent.dtype, device=latent.device)
+            dac = torch.zeros_like(latent)
+            for k, origin in enumerate(origins):
+                add_ring_window(accum, new[k:k + 1], origin)
+                add_ring_window(count, torch.ones_like(new[k:k + 1, ..., :1]), origin)
+                add_ring_window(dac, den[k:k + 1], origin)
+            latent.copy_(normalize_accumulated(accum, count, latent))
+            denoised.copy_(normalize_accumulated(dac, count, denoised))
+            return
+
+        new = mix_with_mask(new, prev, earlier, merge_ratio)
+        for k, origin in enumerate(origins):  # ordered scatter, last write wins
+            set_ring_window(latent, new[k:k + 1], origin)
+            set_ring_window(denoised, den[k:k + 1], origin)

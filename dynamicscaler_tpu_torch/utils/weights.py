@@ -1,0 +1,226 @@
+"""JAX parameter trees -> the port's VideoCrafter-named state_dicts.
+
+The inverse of ``dynamicscaler_tpu/utils/weights.py`` ``convert_unet``,
+``convert_vae`` and ``convert_clip_text``: each ``from_jax_*`` takes the JAX
+package's parameter tree (nested dicts of numpy arrays, with or without the
+top ``"params"`` level) and returns a ``{name: torch.Tensor}`` state_dict
+for the port's module. Layout changes:
+
+  flax Dense kernel [in, out]            -> Linear weight [out, in]
+  flax Conv kernel [kh, kw, in, out]     -> Conv2d weight [out, in, kh, kw]
+  flax Conv kernel [kt, kh, kw, in, out] -> Conv3d weight [out, in, kt, kh, kw]
+  Dense kernel of a Conv1d(k=1) proj     -> Conv1d weight [out, in, 1]
+  (the ``init_attn`` proj_in/proj_out, use_linear=False)
+
+Because the names are VideoCrafter's, a real checkpoint loads into the
+port's modules directly with ``load_state_dict``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from dynamicscaler_tpu_torch.config import CLIPTextConfig, UNetConfig, VAEConfig
+from dynamicscaler_tpu_torch.models.unet3d import unet_layout
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+class _Out(dict):
+    def lin(self, p, tree):
+        self[p + ".weight"] = _t(np.asarray(tree["kernel"]).T)
+        if "bias" in tree:
+            self[p + ".bias"] = _t(tree["bias"])
+
+    def conv2d(self, p, tree):
+        self[p + ".weight"] = _t(np.asarray(tree["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in tree:
+            self[p + ".bias"] = _t(tree["bias"])
+
+    def conv3d(self, p, tree):
+        self[p + ".weight"] = _t(np.asarray(tree["kernel"]).transpose(4, 3, 0, 1, 2))
+        self[p + ".bias"] = _t(tree["bias"])
+
+    def conv1d(self, p, tree):
+        self[p + ".weight"] = _t(np.asarray(tree["kernel"]).T[:, :, None])
+        self[p + ".bias"] = _t(tree["bias"])
+
+    def norm(self, p, tree):
+        self[p + ".weight"] = _t(tree["scale"])
+        self[p + ".bias"] = _t(tree["bias"])
+
+    def gn32(self, p, tree):
+        self.norm(p, tree["GroupNorm_0"])
+
+
+def _params(tree):
+    return tree["params"] if "params" in tree else tree
+
+
+# ---------------------------------------------------------------------------
+# UNet
+# ---------------------------------------------------------------------------
+
+
+def _attention(out: _Out, p, tree):
+    for name in ("to_q", "to_k", "to_v", "to_k_ip", "to_v_ip"):
+        if name in tree:
+            out.lin(f"{p}.{name}", tree[name])
+    out.lin(p + ".to_out.0", tree["to_out"])
+
+
+def _transformer(out: _Out, p, tree, depth: int, proj):
+    out.gn32(p + ".norm", tree["norm"])
+    proj(p + ".proj_in", tree["proj_in"])
+    proj(p + ".proj_out", tree["proj_out"])
+    for d in range(depth):
+        b, bt = f"{p}.transformer_blocks.{d}", tree[f"block{d}"]
+        _attention(out, b + ".attn1", bt["attn1"])
+        _attention(out, b + ".attn2", bt["attn2"])
+        for n in ("norm1", "norm2", "norm3"):
+            out.norm(f"{b}.{n}", bt[n])
+        out.lin(b + ".ff.net.0.proj", bt["ff"]["geglu"]["proj"])
+        out.lin(b + ".ff.net.2", bt["ff"]["out"])
+
+
+def _res(out: _Out, p, tree):
+    out.gn32(p + ".in_layers.0", tree["in_norm"])
+    out.conv2d(p + ".in_layers.2", tree["in_conv"])
+    out.lin(p + ".emb_layers.1", tree["emb_proj"])
+    out.gn32(p + ".out_layers.0", tree["out_norm"])
+    out.conv2d(p + ".out_layers.3", tree["out_conv"])
+    if "skip_conv" in tree:
+        out.conv2d(p + ".skip_connection", tree["skip_conv"])
+    if "temporal_conv" in tree:
+        tc = tree["temporal_conv"]
+        # Sequential indices: conv1 -> (0 GN, 2 Conv); conv2..4 -> (0 GN, 3 Conv)
+        for i, conv_idx in zip(range(1, 5), (2, 3, 3, 3)):
+            out.gn32(f"{p}.temopral_conv.conv{i}.0", tc[f"norm{i}"])
+            out.conv3d(f"{p}.temopral_conv.conv{i}.{conv_idx}", tc[f"conv{i}"])
+
+
+def from_jax_unet(tree: Dict[str, Any], cfg: UNetConfig) -> Dict[str, torch.Tensor]:
+    """JAX UNet3D params -> the port's UNet3D state_dict (inverse of
+    ``convert_unet``)."""
+    p = _params(tree)
+    out = _Out()
+    out.lin("time_embed.0", p["time_embed"]["fc1"])
+    out.lin("time_embed.2", p["time_embed"]["fc2"])
+    if cfg.fps_cond:
+        out.lin("fps_embedding.0", p["fps_embed"]["fc1"])
+        out.lin("fps_embedding.2", p["fps_embed"]["fc2"])
+    if cfg.addition_attention:
+        _transformer(out, "init_attn.0", p["init_attn"], cfg.transformer_depth, out.conv1d)
+    temporal_proj = out.lin if cfg.use_linear else out.conv1d
+    in_specs, out_specs, mid_specs, _ = unet_layout(cfg)
+    for specs in list(in_specs) + list(out_specs) + [mid_specs]:
+        for s in specs:
+            t, tp = p[s.name], s.torch_path
+            if s.kind == "conv_in":
+                out.conv2d(tp, t)
+            elif s.kind == "res":
+                _res(out, tp, t)
+            elif s.kind == "spatial":
+                _transformer(out, tp, t, cfg.transformer_depth, out.lin)
+            elif s.kind == "temporal":
+                _transformer(out, tp, t, cfg.transformer_depth, temporal_proj)
+            elif s.kind == "down":
+                out.conv2d(tp + ".op", t["conv"])
+            elif s.kind == "up":
+                out.conv2d(tp + ".conv", t["conv"])
+    out.gn32("out.0", p["out_norm"])
+    out.conv2d("out.2", p["out_conv"])
+    return dict(out)
+
+
+# ---------------------------------------------------------------------------
+# VAE
+# ---------------------------------------------------------------------------
+
+
+def _resnet(out: _Out, p, tree):
+    out.norm(p + ".norm1", tree["norm1"])
+    out.conv2d(p + ".conv1", tree["conv1"])
+    out.norm(p + ".norm2", tree["norm2"])
+    out.conv2d(p + ".conv2", tree["conv2"])
+    if "nin_shortcut" in tree:
+        out.conv2d(p + ".nin_shortcut", tree["nin_shortcut"])
+
+
+def _mid(out: _Out, pre, tree):
+    _resnet(out, pre + ".mid.block_1", tree["mid_block_1"])
+    a = tree["mid_attn_1"]
+    out.norm(pre + ".mid.attn_1.norm", a["norm"])
+    for n in ("q", "k", "v", "proj_out"):
+        out.conv2d(f"{pre}.mid.attn_1.{n}", a[n])
+    _resnet(out, pre + ".mid.block_2", tree["mid_block_2"])
+
+
+def from_jax_vae(tree: Dict[str, Any], cfg: VAEConfig) -> Dict[str, torch.Tensor]:
+    """JAX AutoencoderKL params -> the port's state_dict (inverse of
+    ``convert_vae``)."""
+    p = _params(tree)
+    out = _Out()
+    enc, dec = p["encoder"], p["decoder"]
+    out.conv2d("encoder.conv_in", enc["conv_in"])
+    for i in range(len(cfg.ch_mult)):
+        for b in range(cfg.num_res_blocks):
+            _resnet(out, f"encoder.down.{i}.block.{b}", enc[f"down{i}_block{b}"])
+        if i != len(cfg.ch_mult) - 1:
+            out.conv2d(f"encoder.down.{i}.downsample.conv", enc[f"down{i}_downsample"]["conv"])
+    _mid(out, "encoder", enc)
+    out.norm("encoder.norm_out", enc["norm_out"])
+    out.conv2d("encoder.conv_out", enc["conv_out"])
+    out.conv2d("decoder.conv_in", dec["conv_in"])
+    _mid(out, "decoder", dec)
+    for i in range(len(cfg.ch_mult)):
+        for b in range(cfg.num_res_blocks + 1):
+            _resnet(out, f"decoder.up.{i}.block.{b}", dec[f"up{i}_block{b}"])
+        if i != 0:
+            out.conv2d(f"decoder.up.{i}.upsample.conv", dec[f"up{i}_upsample"]["conv"])
+    out.norm("decoder.norm_out", dec["norm_out"])
+    out.conv2d("decoder.conv_out", dec["conv_out"])
+    out.conv2d("quant_conv", p["quant_conv"])
+    out.conv2d("post_quant_conv", p["post_quant_conv"])
+    return dict(out)
+
+
+# ---------------------------------------------------------------------------
+# CLIP text
+# ---------------------------------------------------------------------------
+
+
+def from_jax_clip_text(tree: Dict[str, Any], cfg: CLIPTextConfig) -> Dict[str, torch.Tensor]:
+    """JAX CLIPTextEncoder params -> the port's OpenCLIP-named state_dict
+    (inverse of ``convert_clip_text``; the blocks that run)."""
+    p = _params(tree)
+    out = _Out()
+    out["token_embedding.weight"] = _t(p["token_embedding"])
+    out["positional_embedding"] = _t(p["positional_embedding"])
+    out.norm("ln_final", p["ln_final"])
+    for i in range(cfg.layers - (1 if cfg.penultimate else 0)):
+        b, bt = f"transformer.resblocks.{i}", p[f"resblock{i}"]
+        out.norm(b + ".ln_1", bt["ln_1"])
+        out.norm(b + ".ln_2", bt["ln_2"])
+        out[b + ".attn.in_proj_weight"] = _t(np.asarray(bt["attn"]["in_proj"]["kernel"]).T)
+        out[b + ".attn.in_proj_bias"] = _t(bt["attn"]["in_proj"]["bias"])
+        out.lin(b + ".attn.out_proj", bt["attn"]["out_proj"])
+        out.lin(b + ".mlp.c_fc", bt["mlp_fc"])
+        out.lin(b + ".mlp.c_proj", bt["mlp_proj"])
+    return dict(out)
+
+
+def perturb_zero_params(module: torch.nn.Module, generator: torch.Generator, scale: float = 0.02):
+    """Give every all-zero parameter small seeded random values. The
+    reference zero-initialises its output layers, which makes a random-init
+    forward comparison vacuous at those outputs."""
+    with torch.no_grad():
+        for q in module.parameters():
+            if bool((q == 0).all()):
+                noise = torch.randn(q.shape, generator=generator, device=generator.device)
+                q.add_((noise * scale).to(q.device, q.dtype))
