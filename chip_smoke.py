@@ -6,31 +6,51 @@ Phases, in order, one result line each (any failure exits non-zero):
 
 1. card and build: ``nvidia-smi`` name and power limit; build the CUDA
    kernels of ``dynamicscaler_tpu_torch/csrc`` (nvcc, sm_90a).
-2. each kernel (K1-K4, K3 in its t2v and i2v variants) against its plain
-   PyTorch version, bf16, at every full-width UNet shape for window batch 2
-   (one CFG pair, 16 frames, 40x64 latent): max abs error against the stated
-   tolerance, kernel and plain times (CUDA events).
-3. one full-width VideoCrafter2 t2v UNet forward (seeded random bf16
-   weights, zero-initialised layers perturbed) through the kernels and
-   through the plain versions: relative error, times, launch counts.
-4. the main path: after a one-step warm-up request, two prompts through
+2. the models' forwards, each through the kernels and through the plain
+   versions (seeded random bf16 weights, zero-initialised layers perturbed):
+   one full-width VideoCrafter2 t2v UNet forward at window batch 2 (one CFG
+   pair, 16 frames, 40x64 latent) with a device-time profile by kernel
+   class; one full-width i2v UNet forward at the UNet batch 8 of phase 5;
+   the tiled VAE encode of phase 5's panorama and the ring decode of one of
+   its latent frames. Relative error, times and exact launch counts. Every
+   kernel call of the kernel-path runs is recorded with its input shapes.
+3. each kernel against its plain PyTorch version, bf16, at every shape that
+   phase 2 recorded: K1-K4 (K3 in its t2v and i2v variants), the
+   transformer wrapper heads and tails K5-K8, ``gn_silu`` K9 (UNet and VAE).
+   Per shape: max abs error against the stated tolerance, L2 error, and the
+   kernel, plain and library-composite times (CUDA events) beside the bound
+   (the least time the H100 could take for the kernel's work). The
+   GroupNorm statistics pass (``group_norm_fold``, plain PyTorch) whose
+   vectors K5, K7 and K9 read is timed on its own.
+4. the t2v path: after a one-step warm-up request, two prompts through
    ``pipelines.t2v.sample_shift_multi_windows`` (2 windows of 320x512, a
    320x1024x16 panorama, 4 DDIM steps, CFG 7.5, frame-chunked VAE decode);
    the launch counters are zeroed just before and read just after.
+5. the i2v path (stage 2 of gen_pano_360): the full-width i2v bundle (CLIP
+   ViT-H vision, Resampler) through ``pipelines.i2v.sample_shift_multi_windows``
+   on a smooth seeded 512x1024 panorama, 2x2 windows of 320x512, 16 frames,
+   CFG 7.5, UNet batch 8, skip-time init from the tiled VAE encode, the last
+   4 steps of the 48-step table, ring-aware decode; a one-step warm-up
+   request, then one timed request with the counters zeroed before and read
+   after.
 
 Then one JSON line of kernel records, and last the device JSON line.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
-from dynamicscaler_tpu_torch.ops import cuda_lib, fused_spatial, fused_temporal
+from dynamicscaler_tpu_torch.ops import cuda_lib, fused_spatial, fused_temporal, fused_twrap
 
 # name -> (wrapper, description, CUDA source, TPU kernel it replaces)
 KERNELS = {
@@ -43,20 +63,64 @@ KERNELS = {
            "dynamicscaler_tpu_torch/csrc/attention.cu", "dynamicscaler_tpu/ops/fused_spatial.py:337"),
     "K4": (fused_temporal.fused_ln_geglu, "fused_ln_geglu (LN+GEGLU feed-forward)",
            "dynamicscaler_tpu_torch/csrc/gemm.cu", "dynamicscaler_tpu/ops/fused_temporal.py:350"),
+    "K5": (fused_twrap.head_temporal, "head_temporal (temporal wrapper head: folded GN apply, permute, proj_in)",
+           "dynamicscaler_tpu_torch/csrc/gemm.cu", "dynamicscaler_tpu/ops/fused_twrap.py:150"),
+    "K6": (fused_twrap.tail_temporal, "tail_temporal (temporal wrapper tail: proj_out, permute, residual)",
+           "dynamicscaler_tpu_torch/csrc/gemm.cu", "dynamicscaler_tpu/ops/fused_twrap.py:193"),
+    "K7": (fused_twrap.head_spatial, "head_spatial (spatial wrapper head: folded GN apply, proj_in)",
+           "dynamicscaler_tpu_torch/csrc/gemm.cu", "dynamicscaler_tpu/ops/fused_twrap.py:236"),
+    "K8": (fused_twrap.tail_spatial, "tail_spatial (spatial wrapper tail: proj_out, residual)",
+           "dynamicscaler_tpu_torch/csrc/gemm.cu", "dynamicscaler_tpu/ops/fused_twrap.py:277"),
+    "K9": (fused_twrap.gn_silu_apply, "gn_silu_apply (folded GroupNorm apply + SiLU)",
+           "dynamicscaler_tpu_torch/csrc/gn_silu.cu", "dynamicscaler_tpu/ops/fused_twrap.py:386"),
+}
+# the roles of each wrapper's positional arguments, for making inputs of a
+# recorded shape: x / y activations, gx a GroupNorm input or residual, ctx
+# the context, ln a LayerNorm scale, vec a bias, w a weight [out, in], and
+# mul / add the folded GroupNorm vectors (computed from gx)
+ROLES = {
+    "K1": ("x", "ln", "vec", "w", "w", "w", "w", "vec"),
+    "K2": ("x", "ln", "vec", "w", "w", "w", "w", "vec"),
+    "K3": ("x", "ctx", "ln", "vec", "w", "w", "w", "w", "vec", "w", "w"),
+    "K4": ("x", "ln", "vec", "w", "vec", "w", "vec"),
+    "K5": ("gx", "mul", "add", "w", "vec"),
+    "K6": ("y", "gx", "w", "vec"),
+    "K7": ("gx", "mul", "add", "w", "vec"),
+    "K8": ("y", "gx", "w", "vec"),
+    "K9": ("gx", "mul", "add"),
 }
 
-# bf16 tolerances of kernel vs plain: both round q/k/v, probabilities and
-# outputs to bf16 at the same points but accumulate in other orders, so a
-# few outputs may land one or two bf16 ulps apart (2^-7 relative each).
-# TOL_REL bounds the worst element against max|plain|; TOL_BRANCH_REL_L2
-# bounds the L2 error against the sub-block's own output (plain - x), which
-# the residual x would otherwise hide.
+# bf16 tolerances of kernel vs plain: both round q/k/v, probabilities,
+# normalised activations and outputs to bf16 at the same points but
+# accumulate in other orders, so a few outputs may land one or two bf16 ulps
+# apart (2^-7 relative each). TOL_REL bounds the worst element against
+# max|plain|; TOL_BRANCH_REL_L2 bounds the L2 error against the op's own
+# output (plain - x for the ops with a residual, which x would otherwise
+# hide). K9 (gn_silu) has no sum at all: kernel and plain share the folded
+# GroupNorm vectors and round once, so each element must be within one bf16
+# ulp of plain (|d| <= 2^-7 |plain| + 1e-6 max|plain|) and the L2 error
+# within 1e-3.
 TOL_REL = 0.03
 TOL_BRANCH_REL_L2 = 0.02
-# relative L2 error of one full UNet forward, kernels vs plain, in bf16
-TOL_UNET_REL_L2 = 0.05
-EXPECTED_PER_FORWARD = {"K1": 34, "K2": 16, "K3": 16, "K4": 33}
+TOL_GN_ULP = 2.0 ** -7
+TOL_GN_REL_L2 = 1e-3
+# relative L2 error of a whole model path (a full UNet forward, the tiled VAE
+# encode, a ring decode), kernels vs plain, in bf16
+TOL_PATH_REL_L2 = 0.05
+# launches per full-width UNet forward, at any batch: 34 temporal
+# self-attentions (17 temporal transformers x 2), 16 spatial transformers,
+# 33 feed-forwards; 17 temporal and 16 spatial wrappers; gn_silu 6 per
+# ResBlock (2 + 4 in its temporal conv block) x 22 ResBlocks + the out norm
+EXPECTED_PER_FORWARD = {"K1": 34, "K2": 16, "K3": 16, "K4": 33, "K5": 17, "K6": 17, "K7": 16, "K8": 16,
+                        "K9": 133}
+# the run whose per-shape sums make the kernels line's figures (as in PERF.md)
+MAIN_FWD = "t2v UNet fwd batch 2"
+I2V_FWD = "i2v UNet fwd batch 8"
+# H100 SXM datasheet peaks: bf16 dense tensor cores, fp32
+# CUDA cores, HBM3
+PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 DEV = torch.device("cuda:0")
+BF = torch.bfloat16
 
 
 def _fail(msg: str) -> None:
@@ -67,6 +131,7 @@ def _fail(msg: str) -> None:
 def _reset_launches() -> None:
     for fn, *_ in KERNELS.values():
         fn.launches = 0
+    fused_spatial.fused_ln_cross_attention.launches_i2v = 0
 
 
 def _launches() -> dict:
@@ -92,14 +157,18 @@ def main() -> None:
     print(f"phase 1 ok: built {lib.relative_to(cuda_lib.REPO_ROOT)} in {time.perf_counter() - t0:.1f} s "
           f"on {torch.cuda.get_device_name(0)} [{smi}]", flush=True)
 
-    records = _phase_kernels()
-    model = _random_model()
-    _phase_unet(model)
-    launches = _phase_sampler(model, steps=4)
+    t2v_model, i2v_model = _random_model("t2v"), _random_model("i2v")
+    sites = _phase_forwards(t2v_model, i2v_model)
+    records = _phase_kernels(sites)
+    launches_t2v = _phase_sampler(t2v_model, steps=4)
+    del t2v_model
+    torch.cuda.empty_cache()
+    launches_i2v = _phase_i2v_sampler(i2v_model, steps=4)
 
     kernels = [
         {"name": f"{k} {desc}", "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], **records[k]}
+         "launches": launches_i2v[k], "launches_by_path": {"t2v": launches_t2v[k], "i2v": launches_i2v[k]},
+         **records[k]}
         for k, (_, desc, src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -119,146 +188,176 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _kernel_cases():
-    """(op, calls per full-width forward, description, args, kwargs, packed
-    kernel operands) at every main-path shape of the 40x64x16 latent,
-    window batch 2."""
-    g = torch.Generator(device=DEV).manual_seed(1)
-    bf = torch.bfloat16
-
-    def rn(*shape, s=1.0):
-        return torch.randn(shape, generator=g, device=DEV) * s
-
-    def w(o, i):
-        return (rn(o, i) / i ** 0.5).to(bf)
-
-    def ln(C):
-        return 1.0 + rn(C, s=0.1), rn(C, s=0.1)
-
-    B2F = 2 * 16  # window batch 2 (one CFG pair) x 16 frames
-    for calls, R, C in ((10, 5120, 320), (2, 5120, 512), (10, 1280, 640), (10, 320, 1280), (2, 80, 1280)):
-        x = rn(R, 16, C).to(bf)
-        a = (x, *ln(C), w(C, C), w(C, C), w(C, C), w(C, C), rn(C, s=0.1))
-        yield "K1", calls, f"x[{R},16,{C}]", a, dict(heads=C // 64, scale=0.125), \
-            fused_temporal.pack_ln_attention(*a[1:], dtype=bf)
-    for calls, N, C in ((5, 2560, 320), (5, 640, 640), (5, 160, 1280), (1, 40, 1280)):
-        kw = dict(heads=C // 64, scale=0.125)
-        x = rn(B2F, N, C).to(bf)
-        a = (x, *ln(C), w(C, C), w(C, C), w(C, C), w(C, C), rn(C, s=0.1))
-        yield "K2", calls, f"x[{B2F},{N},{C}]", a, kw, fused_temporal.pack_ln_attention(*a[1:], dtype=bf)
-        ctx = rn(B2F, 77, 1024).to(bf)
-        a = (x, ctx, *ln(C), w(C, C), w(C, 1024), w(C, 1024), w(C, C), rn(C, s=0.1))
-        yield "K3", calls, f"x[{B2F},{N},{C}] ctx[{B2F},77,1024] t2v", a, kw, \
-            fused_spatial.pack_ln_cross_attention(*a[2:], dtype=bf)
-        ctx_i = rn(B2F, 93, 1024).to(bf)
-        a = (x, ctx_i, *ln(C), w(C, C), w(C, 1024), w(C, 1024), w(C, C), rn(C, s=0.1),
-             w(C, 1024), w(C, 1024))
-        yield "K3", 0, f"x[{B2F},{N},{C}] ctx[{B2F},77+16,1024] i2v", a, dict(kw, text_len=77), \
-            fused_spatial.pack_ln_cross_attention(*a[2:], dtype=bf)
-    for calls, T, C in ((10, 81920, 320), (1, 81920, 512), (10, 20480, 640), (10, 5120, 1280), (2, 1280, 1280)):
-        x = rn(T, C).to(bf)
-        a = (x, *ln(C), w(8 * C, C), rn(8 * C, s=0.1), w(C, 4 * C), rn(C, s=0.1))
-        yield "K4", calls, f"x[{T},{C}]", a, {}, fused_temporal.pack_ln_geglu(*a[1:], dtype=bf)
+def _wall_ms(fn, iters: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
 
 
-def _phase_kernels():
-    """Phase 2: every kernel against its plain version. Returns, per op,
-    the largest error and the kernel and plain ms summed over one forward."""
-    records = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in KERNELS}
-    bad = []
-    for k, calls, desc, a, kw, ops in _kernel_cases():
-        fn = KERNELS[k][0]
-        got = fn(*a, **kw, operands=ops)
-        with cuda_lib.plain_kernels():
-            ref = fn(*a, **kw)
-        torch.cuda.synchronize()
-        diff = got.float() - ref.float()
-        err = float(diff.abs().max())
-        tol = TOL_REL * max(1.0, float(ref.float().abs().max()))
-        branch_rel = float(diff.norm() / (ref.float() - a[0].float()).norm())
-        finite = bool(torch.isfinite(got).all())
-        ms = _time_ms(lambda: fn(*a, **kw, operands=ops), 10)
-        with cuda_lib.plain_kernels():
-            plain_ms = _time_ms(lambda: fn(*a, **kw), 3)
-        ok = finite and err <= tol and branch_rel <= TOL_BRANCH_REL_L2
-        print(f"phase 2 {k} {desc}: max_abs_err {err:.5f} (tol {tol:.5f}) branch rel_l2 "
-              f"{branch_rel:.5f} (tol {TOL_BRANCH_REL_L2}) kernel {ms:.3f} ms "
-              f"plain {plain_ms:.3f} ms x{calls}/fwd {'ok' if ok else 'FAIL'}", flush=True)
-        r = records[k]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += calls * ms
-        r["plain_ms"] += calls * plain_ms
-        if not ok:
-            bad.append(f"{k} {desc}")
-        del got, ref, diff, a, ops
-    torch.cuda.empty_cache()
-    if bad:
-        _fail(f"kernel disagrees with its plain version: {bad}")
-    print("phase 2 ok: " + ", ".join(
-        f"{k} {r['ms']:.2f} ms/fwd (plain {r['plain_ms']:.2f})" for k, r in records.items()), flush=True)
-    return records
+# ---------------------------------------------------------------------------
+# recording the kernel calls of a run
+# ---------------------------------------------------------------------------
 
 
-def _random_model():
-    from dynamicscaler_tpu_torch.config import videocrafter2_t2v
+def _describe(v):
+    """A call argument as the recorder keeps it: (shape, dtype) of a
+    tensor, else the value itself."""
+    return (tuple(v.shape), v.dtype) if torch.is_tensor(v) else v
+
+
+class _Recorder:
+    """Stands in for kernel ``k``'s wrapper: counts each call in ``calls``,
+    keyed by (kernel, positional arguments, options) as :func:`_describe`
+    gives them (the packed ``operands`` left out), and calls the wrapper.
+    Attributes (the launch counters the wrapper bumps through its own name)
+    are the wrapper's."""
+
+    def __init__(self, k, fn, calls):
+        object.__setattr__(self, "_rec", (k, fn, calls))
+
+    def __call__(self, *a, **kw):
+        k, fn, calls = self._rec
+        opts = tuple(sorted((n, _describe(v)) for n, v in kw.items() if n != "operands"))
+        calls[(k, tuple(map(_describe, a)), opts)] += 1
+        return fn(*a, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._rec[1], name)
+
+    def __setattr__(self, name, value):
+        setattr(self._rec[1], name, value)
+
+
+@contextlib.contextmanager
+def _recording(calls: collections.Counter):
+    """Record every kernel-wrapper call inside the block in ``calls``: each
+    wrapper is swapped for a :class:`_Recorder` in the module that defines
+    it, where its callers look it up."""
+    saved = []
+    for k, (fn, *_) in KERNELS.items():
+        mod = sys.modules[fn.__module__]
+        saved.append((mod, fn.__name__, fn))
+        setattr(mod, fn.__name__, _Recorder(k, fn, calls))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+# ---------------------------------------------------------------------------
+# models, phase 2
+# ---------------------------------------------------------------------------
+
+
+def _random_model(kind):
+    from dynamicscaler_tpu_torch.config import videocrafter2_t2v, videocrafter_i2v
     from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
     from dynamicscaler_tpu_torch.utils.tokenizer import HashTokenizer
     from dynamicscaler_tpu_torch.utils.weights import perturb_zero_params
 
     t0 = time.perf_counter()
-    gen = torch.Generator(device=DEV).manual_seed(0)
-    model = LatentVideoDiffusion.init_random(videocrafter2_t2v("bfloat16"), gen, DEV,
-                                             tokenizer=HashTokenizer())
+    cfg = videocrafter2_t2v("bfloat16") if kind == "t2v" else videocrafter_i2v("bfloat16")
+    gen = torch.Generator(device=DEV).manual_seed(0 if kind == "t2v" else 2)
+    model = LatentVideoDiffusion.init_random(cfg, gen, tokenizer=HashTokenizer())
     # without this the zero-initialised output layers make eps identically 0
     perturb_zero_params(model.unet, gen)
-    print(f"model: random bf16 weights in {time.perf_counter() - t0:.1f} s", flush=True)
+    n = sum(p.numel() for _, m in model.components() for p in m.parameters())
+    print(f"model {kind}: {n / 1e9:.3f}B random bf16 weights on {model.device} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return model
 
 
-def _phase_unet(model):
-    """Phase 3: one full-width UNet forward, kernels vs plain."""
-    g = torch.Generator(device=DEV).manual_seed(7)
-    x = torch.randn((2, 16, 40, 64, 4), generator=g, device=DEV)
-    ctx = torch.randn((2, 77, 1024), generator=g, device=DEV)
-    t = torch.tensor([500, 500], device=DEV)
+def _unet_inputs(B, L, seed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((B, 16, 40, 64, 4), generator=g, device=DEV)
+    ctx = torch.randn((B, L, 1024), generator=g, device=DEV)
+    return x, ctx, torch.full((B,), 500, device=DEV)
 
-    def fwd():
-        return model.apply_unet(x, t, ctx, 16)
 
+Versus = collections.namedtuple("Versus", "out rel finite launches i2v_k3 ms plain_ms")
+
+
+def _against_plain(where, fn, sites, iters, plain_iters):
+    """Run ``fn`` through the kernels, recording every kernel call into
+    ``sites[where]``, and through the plain versions; then time both paths
+    (host clock, synchronised)."""
+    calls = sites.setdefault(where, collections.Counter())
     _reset_launches()
-    got = fwd()
+    with _recording(calls):
+        got = fn()
     torch.cuda.synchronize()
-    counts = _launches()
+    launches = _launches()
+    i2v_k3 = fused_spatial.fused_ln_cross_attention.launches_i2v
     with cuda_lib.plain_kernels():
-        ref = fwd()
+        ref = fn()
     torch.cuda.synchronize()
-    rel = float((got - ref).norm() / ref.norm())
+    rel = float((got.float() - ref.float()).norm() / ref.float().norm())
     finite = bool(torch.isfinite(got).all())
-
-    def timed(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fwd()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / n * 1e3
-
-    ms = timed(3)
+    del ref
+    ms = _wall_ms(fn, iters)
     with cuda_lib.plain_kernels():
-        plain_ms = timed(2)
-    print(f"phase 3: UNet fwd batch 2 [2,16,40,64,4]: rel_l2 {rel:.5f} (tol {TOL_UNET_REL_L2}) "
-          f"|eps| mean {float(ref.abs().mean()):.4f} kernels {ms:.1f} ms plain {plain_ms:.1f} ms "
-          f"launches {counts}", flush=True)
-    if not finite or rel > TOL_UNET_REL_L2:
-        _fail(f"UNet kernel path disagrees with the plain path: rel_l2 {rel} finite {finite}")
-    if counts != EXPECTED_PER_FORWARD:
-        _fail(f"launch counts {counts} != {EXPECTED_PER_FORWARD}")
-    _profile_forward(fwd, ms)
-    print("phase 3 ok", flush=True)
+        plain_ms = _wall_ms(fn, plain_iters)
+    recorded = dict.fromkeys(KERNELS, 0)
+    for (k, *_), n in calls.items():
+        recorded[k] += n
+    if recorded != launches:
+        _fail(f"{where}: recorded calls {recorded} != launches {launches}")
+    return Versus(got, rel, finite, launches, i2v_k3, ms, plain_ms)
+
+
+def _phase_forwards(model, i2v_model):
+    """Phase 2: one full-width t2v UNet forward at batch 2 (with a device
+    profile) and one i2v UNet forward at batch 8, the tiled encode of the
+    phase-5 panorama and the ring decode of one of its latent frames, each
+    through the kernels against the plain versions, with the exact launch
+    counts. Returns the recorded kernel calls of each run."""
+    from dynamicscaler_tpu_torch.pipelines.tiled_vae import ring_aware_decode, tiled_vae_encode
+
+    sites = {}
+    for kind, m, B, L, seed in (("t2v", model, 2, 77, 7), ("i2v", i2v_model, 8, 93, 8)):
+        x, ctx, t = _unet_inputs(B, L, seed)
+
+        def fwd(m=m, x=x, ctx=ctx, t=t):
+            return m.apply_unet(x, t, ctx, 16)
+
+        r = _against_plain(f"{kind} UNet fwd batch {B}", fwd, sites, 3 if B == 2 else 2, 2 if B == 2 else 1)
+        print(f"phase 2 {kind}: UNet fwd batch {B} [{B},16,40,64,4] ctx [{B},{L},1024]: rel_l2 {r.rel:.5f} "
+              f"(tol {TOL_PATH_REL_L2}) |eps| mean {float(r.out.abs().mean()):.4f} kernels {r.ms:.1f} ms "
+              f"plain {r.plain_ms:.1f} ms launches {r.launches} (K3 with image keys {r.i2v_k3})", flush=True)
+        if not r.finite or r.rel > TOL_PATH_REL_L2:
+            _fail(f"{kind} UNet kernel path disagrees with the plain path: rel_l2 {r.rel} finite {r.finite}")
+        if r.launches != EXPECTED_PER_FORWARD:
+            _fail(f"{kind} launch counts {r.launches} != {EXPECTED_PER_FORWARD}")
+        if r.i2v_k3 != (EXPECTED_PER_FORWARD["K3"] if kind == "i2v" else 0):
+            _fail(f"{kind}: {r.i2v_k3} K3 launches with image keys")
+        if kind == "t2v":
+            _profile_forward(fwd, r.ms)
+        del r
+    pano = smooth_panorama(512, 1024, seed=5)
+    enc = _against_plain("i2v tiled VAE encode", lambda: tiled_vae_encode(i2v_model, pano), sites, 1, 1)
+    z = enc.out
+    dec = _against_plain("i2v ring decode, one frame", lambda: ring_aware_decode(i2v_model, z), sites, 1, 1)
+    for name, r, shape in (("tiled VAE encode of the 512x1024 panorama", enc, (1, 1, 64, 128, 4)),
+                           ("ring decode of one 64x128 latent frame", dec, (1, 1, 512, 1024, 3))):
+        print(f"phase 2 i2v {name}: {tuple(r.out.shape)} rel_l2 {r.rel:.5f} (tol {TOL_PATH_REL_L2}) "
+              f"kernels {r.ms:.1f} ms plain {r.plain_ms:.1f} ms gn_silu launches {r.launches['K9']}", flush=True)
+        others = {k: n for k, n in r.launches.items() if k != "K9" and n}
+        if tuple(r.out.shape) != shape or not r.finite or r.rel > TOL_PATH_REL_L2 or not r.launches["K9"] \
+                or others:
+            _fail(f"VAE {name}: shape {tuple(r.out.shape)} finite {r.finite} rel_l2 {r.rel} "
+                  f"launches {r.launches}")
+    print("phase 2 ok", flush=True)
+    return sites
 
 
 def _profile_forward(fwd, wall_ms):
-    """Device time of one kernel-path forward by CUDA kernel (torch.profiler)."""
+    """Device time of one kernel-path forward by CUDA kernel (torch.profiler),
+    by kernel class: the GEMM, the two attention kernels, gn_silu, cuDNN,
+    cuBLAS and the remaining elementwise/reduction work."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -267,27 +366,318 @@ def _profile_forward(fwd, wall_ms):
     rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     total = sum(e.self_device_time_total for e in rows) / 1e3
     if total <= 0:
-        print("phase 3 profile: no device time recorded (profiler saw no CUDA activity)", flush=True)
+        print("phase 2 profile: no device time recorded (profiler saw no CUDA activity)", flush=True)
         return
     groups = {}
     for e in rows:
         n = e.key.lower()
-        key = ("ds_gemm (K1-K4 projections)" if "ln_gemm_kernel" in n
+        key = ("ds_gemm (K1-K4 projections, K5-K8 wrapper heads/tails)" if "ln_gemm_kernel" in n
+               else "ds_gn_silu (K9)" if "gn_silu_kernel" in n
                else "ds_flash_attn (K2, K3)" if "flash_attn_kernel" in n
                else "ds_temporal_attn (K1)" if "temporal_attn_kernel" in n
                else "conv (cuDNN)" if any(s in n for s in ("conv", "cudnn", "fprop", "implicit"))
-               else "gemm (cuBLAS: proj_in/out, time emb)" if any(s in n for s in ("gemm", "cutlass"))
-               else "elementwise/reduce (GN, casts, cat)")
+               else "gemm (cuBLAS: time emb)" if any(s in n for s in ("gemm", "cutlass"))
+               else "elementwise/reduce (GN fold, casts, cat)")
         groups[key] = groups.get(key, 0.0) + e.self_device_time_total / 1e3
     parts = ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.0f}%)"
                       for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
-    print(f"phase 3 profile: device busy {total:.1f} ms of {wall_ms:.1f} ms wall "
+    print(f"phase 2 profile: device busy {total:.1f} ms of {wall_ms:.1f} ms wall "
           f"(idle share {max(0.0, 1 - total / wall_ms):.2f}); {parts}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions at the recorded shapes
+# ---------------------------------------------------------------------------
+
+
+class Case:
+    """One kernel at one recorded shape: ``run`` launches the kernel,
+    ``plain`` computes the plain version, ``library`` the same function
+    composed of PyTorch library calls in bf16 (a yardstick; the port never
+    calls it), ``fold`` the plain GroupNorm statistics pass whose vectors
+    the kernel reads (or None). ``base``: the residual the op adds (L2 error
+    is measured against plain - base). ``flops``: tensor-core bf16
+    operations, ``ops``: fp32 CUDA-core operations; with the output,
+    :meth:`set_bound` adds its bytes to the inputs' (each read once, each
+    output written once)."""
+
+    def __init__(self, k, desc, run, plain, library, inputs, *, base=None, fold=None, flops=0.0, ops=0.0):
+        self.k, self.desc = k, desc
+        self.run, self.plain, self.library, self.base, self.fold = run, plain, library, base, fold
+        self.op_ms = max(flops / PEAK_BF16, ops / PEAK_FP32) * 1e3
+        self.in_bytes = sum(t.numel() * t.element_size() for t in inputs if torch.is_tensor(t))
+
+    def set_bound(self, out):
+        byte_ms = (self.in_bytes + out.numel() * out.element_size()) / PEAK_BYTES * 1e3
+        self.bound_ms = max(self.op_ms, byte_ms)
+        self.bound_by = "bytes" if byte_ms >= self.op_ms else "operations"
+
+
+def _plain(fn, *a, **kw):
+    def call():
+        with cuda_lib.plain_kernels():
+            return fn(*a, **kw)
+    return call
+
+
+def _gen():
+    g = torch.Generator(device=DEV).manual_seed(1)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device=DEV) * s
+    return rn
+
+
+def _synth(role, d, rn):
+    """An input of the recorded (shape, dtype) ``d`` for its role."""
+    if d is None:
+        return None
+    shape, dtype = d
+    t = (rn(*shape) / shape[-1] ** 0.5 if role == "w" else 1.0 + rn(*shape, s=0.1) if role == "ln"
+         else rn(*shape, s=0.1) if role == "vec" else 2 * rn(*shape) + 0.5 if role == "gx" else rn(*shape))
+    return t.to(dtype)
+
+
+def _case(k, pos, opts, rn):
+    """The Case of kernel ``k`` called with positional arguments ``pos`` and
+    options ``opts`` as recorded."""
+    fn = KERNELS[k][0]
+    a = [_synth(role, d, rn) for role, d in zip(ROLES[k], pos)]
+    x = a[0]
+    C = x.shape[-1]
+    T = x.numel() // C
+    fold = gn = None
+    if ROLES[k][1] == "mul":  # K5, K7, K9: folded vectors of gx with a GroupNorm scale and bias
+        gn = (1.0 + rn(C, s=0.1), rn(C, s=0.1))
+
+        def fold():
+            return fused_twrap.group_norm_fold(x, *gn)
+        a[1:3] = fold()
+    run_kw = dict(opts)
+    if k in ("K1", "K2"):
+        run_kw["operands"] = fused_temporal.pack_ln_attention(*a[1:], dtype=BF)
+    elif k == "K3":
+        run_kw["operands"] = fused_spatial.pack_ln_cross_attention(*a[2:], dtype=BF)
+    elif k == "K4":
+        run_kw["operands"] = fused_temporal.pack_ln_geglu(*a[1:], dtype=BF)
+
+    def run():
+        return fn(*a, **run_kw)
+    plain = _plain(fn, *a, **opts)
+    common = dict(inputs=a, fold=fold)
+    if k in ("K1", "K2"):
+        B, N, _ = x.shape
+        return Case(k, f"x{list(x.shape)}", run, plain, _lib_self_attention(a, opts["heads"], opts["scale"]),
+                    base=x, flops=8 * T * C * C + 4 * B * N * N * C, **common)
+    if k == "K3":
+        B, N, _ = x.shape
+        _, L, D = a[1].shape
+        img = a[9] is not None
+        return Case(k, f"x{list(x.shape)} ctx{list(a[1].shape)} {'i2v' if img else 't2v'}", run, plain,
+                    _lib_cross_attention(a, opts["heads"], opts["scale"], opts.get("text_len", 77) if img else None),
+                    base=x, flops=4 * T * C * C + 4 * B * L * D * C + 4 * B * N * L * C, **common)
+    if k == "K4":
+        return Case(k, f"x{list(x.shape)}", run, plain, _lib_geglu(a), base=x, flops=24 * T * C * C, **common)
+    if k in ("K5", "K7"):
+        Ci = a[3].shape[0]
+        return Case(k, f"x{list(x.shape)} -> {Ci}", run, plain, _lib_head(x, *gn, *a[3:], temporal=k == "K5"),
+                    flops=2 * T * C * Ci, **common)
+    if k in ("K6", "K8"):
+        res = a[1]
+        return Case(k, f"y{list(x.shape)} x{list(res.shape)}", run, plain,
+                    _lib_tail(x, res, *a[2:], temporal=k == "K6"), base=res,
+                    flops=2 * T * C * res.shape[-1], **common)
+    act = opts.get("act", True)
+    return Case(k, f"x{list(x.shape)}{'' if act else ' no SiLU'}", run, plain, _lib_gn_silu(x, *gn, 1e-6, act),
+                ops=x.numel() * (6 if act else 2), **common)
+
+
+def _bf(*ts):
+    return [t.to(BF) for t in ts]
+
+
+def _heads(t, heads):
+    """[B, N, heads*64] -> [B, heads, N, 64] (a view)."""
+    B, N, _ = t.shape
+    return t.view(B, N, heads, 64).transpose(1, 2)
+
+
+def _lib_self_attention(a, heads, scale):
+    x, s, b, wq, wk, wv, wo, bo = a
+    C = x.shape[-1]
+    s, b, bo = _bf(s, b, bo)
+    wqkv = torch.cat([wq, wk, wv])
+
+    def run():
+        x3 = x.reshape(-1, x.shape[-2], C)
+        q, k, v = F.linear(F.layer_norm(x3, (C,), s, b, 1e-5), wqkv).chunk(3, dim=-1)
+        o = F.scaled_dot_product_attention(_heads(q, heads), _heads(k, heads), _heads(v, heads), scale=scale)
+        return (F.linear(o.transpose(1, 2).reshape(x3.shape), wo, bo) + x3).reshape(x.shape)
+    return run
+
+
+def _lib_cross_attention(a, heads, scale, text_len):
+    """One SDPA call per context segment (text; image from ``text_len`` on
+    when not None), outputs summed."""
+    x, ctx, s, b, wq, wk, wv, wo, bo = a[:9]
+    C = x.shape[-1]
+    s, b, bo = _bf(s, b, bo)
+    ctx = ctx.to(BF)
+    segs = [(torch.cat([wk, wv]), slice(0, text_len))]
+    if text_len is not None:
+        segs.append((torch.cat(a[9:11]), slice(text_len, None)))
+
+    def run():
+        q = _heads(F.linear(F.layer_norm(x, (C,), s, b, 1e-5), wq), heads)
+        o = 0
+        for wkv, sl in segs:
+            k, v = F.linear(ctx[:, sl], wkv).chunk(2, dim=-1)
+            o = o + F.scaled_dot_product_attention(q, _heads(k, heads), _heads(v, heads), scale=scale)
+        return F.linear(o.transpose(1, 2).reshape(x.shape), wo, bo) + x
+    return run
+
+
+def _lib_geglu(a):
+    x, s, b, w1, b1, w2, b2 = a
+    C = x.shape[-1]
+    s, b, b1, b2 = _bf(s, b, b1, b2)
+
+    def run():
+        val, gate = F.linear(F.layer_norm(x, (C,), s, b, 1e-5), w1, b1).chunk(2, dim=-1)
+        return F.linear(val * F.gelu(gate), w2, b2) + x
+    return run
+
+
+def _channels_first(x):
+    return x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
+
+
+def _channels_last(x):
+    return x.permute(0, *range(2, x.ndim), 1)
+
+
+def _lib_head(x, s, b, wi, bi, temporal):
+    """F.group_norm on the channels-first view (statistics included), the
+    layout copy to tokens, F.linear."""
+    s, b, bi = _bf(s, b, bi)
+    C = x.shape[-1]
+
+    def run():
+        xn = F.group_norm(_channels_first(x), 32, s, b, 1e-6)
+        h = xn.permute(0, 3, 4, 2, 1) if temporal else _channels_last(xn)  # [B,H,W,F,C] / [BF,H,W,C]
+        return F.linear(h.reshape(-1, C), wi, bi)
+    return run
+
+
+def _lib_tail(y, x, wo, bo, temporal):
+    bo = bo.to(BF)
+
+    def run():
+        o = F.linear(y, wo, bo)
+        if temporal:
+            B, Fn, H, W, C = x.shape
+            o = o.reshape(B, H, W, Fn, C).permute(0, 3, 1, 2, 4)
+        return o.reshape(x.shape) + x
+    return run
+
+
+def _lib_gn_silu(x, s, b, eps, act):
+    """F.group_norm (statistics included) [-> F.silu], back to channels-last."""
+    s, b = _bf(s, b)
+
+    def run():
+        h = F.group_norm(_channels_first(x), 32, s, b, eps)
+        return _channels_last(F.silu(h) if act else h).contiguous()
+    return run
+
+
+def _check(case, got, ref):
+    """(max abs error, its tolerance, L2 error, its tolerance, ok)."""
+    diff = got.float() - ref.float()
+    err = float(diff.abs().max())
+    own = ref.float() - (case.base.float() if case.base is not None else 0.0)
+    rel = float(diff.norm() / own.norm())
+    finite = bool(torch.isfinite(got).all())
+    if case.k == "K9":
+        peak = float(ref.float().abs().max())
+        beyond = int((diff.abs() > TOL_GN_ULP * ref.float().abs() + 1e-6 * peak).sum())
+        return err, f"1 bf16 ulp, {beyond} beyond", rel, TOL_GN_REL_L2, finite and beyond == 0 and rel <= TOL_GN_REL_L2
+    tol = TOL_REL * max(1.0, float(ref.float().abs().max()))
+    return err, f"{tol:.5f}", rel, TOL_BRANCH_REL_L2, finite and err <= tol and rel <= TOL_BRANCH_REL_L2
+
+
+def _phase_kernels(sites):
+    """Phase 3: every kernel against its plain version at every shape that
+    phase 2 recorded. Returns, per kernel, the largest error and the kernel,
+    plain, library, bound and fold ms summed over the batch-2 t2v forward,
+    with the same sums over the batch-8 i2v forward."""
+    shapes = collections.defaultdict(dict)  # (kernel, args, options) -> {run: calls}
+    for where, calls in sites.items():
+        for key, n in calls.items():
+            shapes[key][where] = n
+    rn = _gen()
+    sums = {where: {k: collections.Counter() for k in KERNELS} for where in sites}
+    max_err = dict.fromkeys(KERNELS, 0.0)
+    bound_by = {k: collections.Counter() for k in KERNELS}  # bound ms per limiting resource
+    bad = []
+    for (k, pos, opts), runs in sorted(shapes.items(), key=lambda kv: kv[0][0]):
+        case = _case(k, pos, dict(opts), rn)
+        got = case.run()
+        ref = case.plain()
+        lib = case.library()
+        torch.cuda.synchronize()
+        case.set_bound(got)
+        err, tol, rel, tol_l2, ok = _check(case, got, ref)
+        lib_rel = float((lib.float().reshape(ref.shape) - ref.float()).norm() / ref.float().norm())
+        del got, ref, lib
+        t = {"ms": _time_ms(case.run, 10), "plain_ms": _time_ms(case.plain, 3),
+             "library_ms": _time_ms(case.library, 10), "bound_ms": case.bound_ms,
+             "fold_ms": _time_ms(case.fold, 10) if case.fold else 0.0}
+        print(f"phase 3 {k} {case.desc}: max_abs_err {err:.5f} (tol {tol}) rel_l2 {rel:.5f} (tol {tol_l2}) "
+              f"kernel {t['ms']:.3f} ms plain {t['plain_ms']:.3f} ms library {t['library_ms']:.3f} ms "
+              f"(rel_l2 vs plain {lib_rel:.4f}) bound {case.bound_ms:.4f} ms ({case.bound_by})"
+              + (f" group_norm_fold {t['fold_ms']:.3f} ms" if case.fold else "")
+              + " [" + ", ".join(f"x{n} per {w}" for w, n in runs.items()) + f"] {'ok' if ok else 'FAIL'}",
+              flush=True)
+        max_err[k] = max(max_err[k], err)
+        for where, n in runs.items():
+            for key, v in t.items():
+                sums[where][k][key] += n * v
+        bound_by[k][case.bound_by] += runs.get(MAIN_FWD, 0) * case.bound_ms
+        if not ok:
+            bad.append(f"{k} {case.desc}")
+        del case
+    torch.cuda.empty_cache()
+    if bad:
+        _fail(f"kernel disagrees with its plain version: {bad}")
+    for where, per_k in sums.items():
+        print(f"phase 3 sums per {where} (ms: kernel / plain / library / bound; + group_norm_fold): " + ", ".join(
+            f"{k} {c['ms']:.2f}/{c['plain_ms']:.2f}/{c['library_ms']:.2f}/{c['bound_ms']:.3f}"
+            + (f" + {c['fold_ms']:.2f}" if c["fold_ms"] else "") for k, c in per_k.items() if c), flush=True)
+    print("phase 3 ok", flush=True)
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    records = {}
+    for k in KERNELS:
+        main, i2v = sums[MAIN_FWD][k], sums[I2V_FWD][k]
+        records[k] = {"max_abs_err": max_err[k], **{key: main[key] for key in keys},
+                      "bound_by": bound_by[k].most_common(1)[0][0],
+                      "fold_ms": main["fold_ms"] if ROLES[k][1] == "mul" else None,
+                      "per_i2v_forward_batch_8": {key: i2v[key] for key in keys + ("fold_ms",)}}
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: the two sampler paths
+# ---------------------------------------------------------------------------
+
+
+def _missing(launches):
+    return [k for k, n in launches.items() if n == 0]
 
 
 def _phase_sampler(model, steps):
     """Phase 4: a one-step warm-up request, then two requests through the
-    shift-window sampler, timed warm."""
+    t2v shift-window sampler, timed warm."""
     from dynamicscaler_tpu_torch.pipelines import t2v
 
     gen = torch.Generator(device=DEV).manual_seed(11)
@@ -326,9 +716,88 @@ def _phase_sampler(model, steps):
     print(f"phase 4 ok: {len(prompts)} warm requests, {sum(timings) / len(timings):.3f} s/step mean "
           f"(cold one-step warm-up request {cold:.3f} s/step, decode {cold_decode:.2f} s), "
           f"kernel launches {launches}", flush=True)
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        _fail(f"kernels never launched on the main path: {missing}")
+    if _missing(launches):
+        _fail(f"kernels never launched on the t2v path: {_missing(launches)}")
+    return launches
+
+
+def smooth_panorama(h, w, seed):
+    """A smooth seeded [h, w, 3] panorama image in [-1, 1] that wraps in w."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 2 * np.pi, w, endpoint=False), indexing="ij")
+    img = np.stack([np.sin(xx * k + p) * np.cos(yy * 3 + p)
+                    for k, p in zip((1, 2, 3), rng.uniform(0, 6, 3))], -1)
+    return (0.8 * img + 0.05 * rng.standard_normal(img.shape)).clip(-1, 1).astype(np.float32)
+
+
+class _Probe:
+    """Seconds (synchronised) and gn_silu launches spent inside some of the
+    model's methods, per label; installed on the model instance."""
+
+    def __init__(self, model, methods):
+        self.stats = collections.Counter()
+        for obj, name, label in methods:
+            setattr(obj, name, self._wrap(getattr(obj, name), label))
+
+    def _wrap(self, fn, label):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0, n0 = time.perf_counter(), fused_twrap.gn_silu_apply.launches
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.stats[label + " s"] += time.perf_counter() - t0
+            self.stats[label + " gn_silu"] += fused_twrap.gn_silu_apply.launches - n0
+            return out
+        return wrapped
+
+
+def _phase_i2v_sampler(model, steps):
+    """Phase 5: stage 2 of gen_pano_360 on the i2v sampler at full width: a
+    one-step warm-up request, then one timed request of ``steps`` steps."""
+    from dynamicscaler_tpu_torch.pipelines import i2v
+
+    pano = smooth_panorama(512, 1024, seed=5)
+    probe = _Probe(model, [(model, "encode_text", "conditioning"), (model, "encode_image_cond", "conditioning"),
+                           (model, "encode_video", "encode"), (model, "decode_video", "decode")])
+    gen = torch.Generator(device=DEV).manual_seed(13)
+
+    def request(n_steps):
+        probe.stats.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video, _ = i2v.sample_shift_multi_windows(
+            model, "a panoramic mountain lake at sunrise", pano, total_w=1024, total_h=512, total_f=16,
+            num_windows_w=2, num_windows_h=2, loop_step=16, height=320, width=512, frames=16, fps=8,
+            guidance_scale=7.5, num_inference_steps=48, use_skip_time=True, skip_time_step_idx=48 - n_steps,
+            unet_microbatch=8, generator=gen, decode=True,
+        )
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        st = collections.Counter(probe.stats)
+        sampling = total - st["conditioning s"] - st["encode s"] - st["decode s"]
+        return video, total, sampling / n_steps, st
+
+    _, cold_total, cold_step, _ = request(1)
+    _reset_launches()
+    video, total, per_step, st = request(steps)
+    launches = _launches()
+    i2v_k3 = fused_spatial.fused_ln_cross_attention.launches_i2v
+    shape = tuple(video.shape)
+    finite = bool(torch.isfinite(video).all())
+    vae_gn = st["encode gn_silu"] + st["decode gn_silu"]
+    print(f"phase 5: i2v stage 2, 512x1024x16 panorama, 2x2 windows of 320x512 (UNet batch 8), {steps} of 48 "
+          f"steps: video {shape} finite {finite} |video| mean {float(video.abs().mean()):.4f}; request "
+          f"{total:.2f} s: conditioning (64 CLIP crops + text) {st['conditioning s']:.2f} s, tiled VAE encode "
+          f"{st['encode s']:.2f} s, sampling {per_step:.3f} s/step, ring decode {st['decode s']:.2f} s "
+          f"(cold one-step warm-up request {cold_total:.2f} s, {cold_step:.3f} s/step)", flush=True)
+    print(f"phase 5 launches {launches}; K3 with image keys {i2v_k3}; gn_silu in the VAE "
+          f"{vae_gn} (encode {st['encode gn_silu']}, decode {st['decode gn_silu']})", flush=True)
+    if shape != (1, 16, 512, 1024, 3) or not finite:
+        _fail(f"bad i2v video {shape} finite={finite}")
+    if _missing(launches) or i2v_k3 == 0 or st["encode gn_silu"] == 0 or st["decode gn_silu"] == 0:
+        _fail(f"kernels never launched on the i2v path: {_missing(launches)} K3 i2v {i2v_k3} "
+              f"VAE gn_silu {st['encode gn_silu']}/{st['decode gn_silu']}")
+    print("phase 5 ok", flush=True)
     return launches
 
 

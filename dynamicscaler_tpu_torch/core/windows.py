@@ -1,16 +1,122 @@
 """Shift-window grid arithmetic (host side, pure Python).
 
-Counterpart of ``dynamicscaler_tpu/core/windows.py::IntegerGrid``: the
-integer-grid planar window enumeration of the reference
-(i2v_normal_pipeline.py:254-313, t2v_normal_pipeline.py:471-522). The
-fractional ``PlanarGrid`` and the sphere view grids come with the i2v and
-sphere slices.
+Counterpart of ``dynamicscaler_tpu/core/windows.py``: frame windows with a
+cyclic start offset and docking (``frame_window_origins``,
+i2v_sphere_panorama_pipeline.py:256-318), the fractional-overlap planar grid
+of the i2v sampler (``PlanarGrid``, :732-768) and the integer-grid planar
+windows (``IntegerGrid``, i2v_normal_pipeline.py:254-313,
+t2v_normal_pipeline.py:471-522). The sphere view grids come with the sphere
+slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Tuple
+
+DOCK_START = "dock_start"
+DOCK_END = "dock_end"
+
+
+def frame_window_origins(step: int, total_f: int, frames: int, overlap_ratio_f: float,
+                         loop_step_frame: Optional[int] = None, dock_at_f: bool = False) -> List[int]:
+    """Frame-window start indices for DDIM step ``step``: cyclic start
+    offset ``(step % loop_step_frame) * offset step``, a ``ceil`` window count
+    over the ring, and with ``dock_at_f`` windows pinned to the clip start
+    and end (skipped when the cycle is at its origin; a docking run never
+    wraps past the clip end)."""
+    if total_f == frames:
+        return [0]
+    if total_f < frames:
+        raise ValueError(f"total_f {total_f} must be >= frames {frames}")
+    n = math.ceil((total_f // frames - 1) / (1 - overlap_ratio_f)) + 1
+    begin = (step % loop_step_frame) * max(int(overlap_ratio_f * frames / loop_step_frame), 1)
+    stride = int(frames * (1 - overlap_ratio_f))
+    idx_list = [DOCK_START, *range(n), DOCK_END] if dock_at_f else list(range(n))
+    origins: List[int] = []
+    for idx in idx_list:
+        if idx in (DOCK_START, DOCK_END):
+            if begin == 0:
+                continue
+            f0 = 0 if idx == DOCK_START else total_f - frames
+        else:
+            f0 = (begin + idx * stride) % total_f
+        if dock_at_f and f0 + frames > total_f:
+            continue
+        origins.append(f0)
+    return origins
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanarGrid:
+    """Fractional-overlap planar window grid over a [total_h, total_w]
+    latent with [win_h, win_w] windows; the overlap follows from the total
+    size and the window count, and the origins shift by whole latent pixels
+    each step with period ``loop_step``."""
+
+    total_h: int
+    total_w: int
+    win_h: int
+    win_w: int
+    num_windows_h: int
+    num_windows_w: int
+    loop_step: int
+    vae_scale: int = 8
+
+    def __post_init__(self):
+        for axis in ("w", "h"):
+            r = getattr(self, f"overlap_ratio_{axis}")
+            if not 0 <= r < 1:
+                raise ValueError(f"overlap_ratio_{axis}={r} not legal for grid {self}")
+            n, total, win = (getattr(self, f"{k}_{axis}") for k in ("num_windows", "total", "win"))
+            # one window must fit exactly (the reference divides by zero there)
+            if n == 1 and total != win:
+                raise ValueError(f"1 window of {axis}={win} cannot cover total_{axis}={total}")
+            if n > 1 and getattr(self, f"offset_step_{axis}") < 1:
+                raise ValueError(f"latent offset step along {axis} must be >= 1 for grid {self}")
+
+    @property
+    def overlap_ratio_w(self) -> float:
+        if self.num_windows_w == 1:
+            return 0.0
+        return 1 - (self.total_w / self.win_w - 1) / (self.num_windows_w - 1)
+
+    @property
+    def overlap_ratio_h(self) -> float:
+        if self.num_windows_h == 1:
+            return 0.0
+        return 1 - (self.total_h / self.win_h - 1) / (self.num_windows_h - 1)
+
+    @property
+    def window_step_w(self) -> float:
+        return self.win_w * (1 - self.overlap_ratio_w)
+
+    @property
+    def window_step_h(self) -> float:
+        return self.win_h * (1 - self.overlap_ratio_h)
+
+    @property
+    def offset_step_w(self) -> int:
+        if self.num_windows_w == 1:
+            return 0
+        # the reference steps in image pixels, then divides by the VAE scale
+        img_w = self.win_w * self.vae_scale
+        return int((1 - self.overlap_ratio_w) * img_w / self.loop_step) // self.vae_scale
+
+    @property
+    def offset_step_h(self) -> int:
+        if self.num_windows_h == 1:
+            return 0
+        img_h = self.win_h * self.vae_scale
+        return int((1 - self.overlap_ratio_h) * img_h / self.loop_step) // self.vae_scale
+
+    def step_origins(self, step: int, begin_index_offset: int = 0) -> List[Tuple[int, int]]:
+        """(h0, w0) latent origins of every window at DDIM ``step``, w outer."""
+        phase = (step + begin_index_offset) % self.loop_step
+        left0, top0 = phase * self.offset_step_w, phase * self.offset_step_h
+        return [(top0 + round(hi * self.window_step_h), left0 + round(wi * self.window_step_w))
+                for wi in range(self.num_windows_w) for hi in range(self.num_windows_h)]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,14 +1,23 @@
-"""OpenCLIP ViT-H/14 text tower in PyTorch (penultimate layer).
+"""OpenCLIP ViT-H/14 text and vision towers in PyTorch.
 
-Counterpart of ``dynamicscaler_tpu/models/clip.py::CLIPTextEncoder``
-(lvdm/modules/encoders/condition.py:174-235): token + positional embedding,
-causal pre-LN transformer stopped one block early, then ``ln_final``; the
-full 77-token sequence is returned. OpenCLIP state_dict names
-(``transformer.resblocks.{i}.attn.in_proj_weight`` ...). With
-``penultimate`` only the blocks that run are built: drop the unused last
-block's keys (and ``text_projection``/``logit_scale``) of an OpenCLIP
-checkpoint before loading it.
-Attention is PyTorch's SDPA (no repository kernel at this site).
+Counterparts of ``dynamicscaler_tpu/models/clip.py``:
+
+* ``CLIPTextEncoder`` (lvdm/modules/encoders/condition.py:174-235): token +
+  positional embedding, causal pre-LN transformer stopped one block early,
+  then ``ln_final``; the full 77-token sequence is returned. With
+  ``penultimate`` only the blocks that run are built: drop the unused last
+  block's keys (and ``text_projection``/``logit_scale``) of an OpenCLIP
+  checkpoint before loading it.
+* ``CLIPVisionEncoder`` (condition.py:298-374, ``FrozenOpenCLIPImageEmbedderV2``):
+  bias-free patch conv + class token + positional embedding, ``ln_pre``, the
+  full transformer; all 257 tokens are returned, without ``ln_post`` or the
+  projection (drop those two keys of an OpenCLIP ``visual.*`` checkpoint).
+  Input is :func:`clip_preprocess`'s output.
+
+OpenCLIP state_dict names (``transformer.resblocks.{i}.attn.in_proj_weight``
+...). LayerNorm eps 1e-5, exact (erf) GELU (LAION ViT-H). Attention is
+PyTorch's SDPA (the JAX package's is stock JAX here too: no repository kernel
+at these sites).
 """
 
 from __future__ import annotations
@@ -17,14 +26,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dynamicscaler_tpu_torch.config import CLIPTextConfig
+from dynamicscaler_tpu_torch.config import CLIPTextConfig, CLIPVisionConfig
 from dynamicscaler_tpu_torch.ops.attention import attention
+
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def clip_preprocess(images: torch.Tensor, image_size: int = 224) -> torch.Tensor:
+    """[-1, 1] NHWC images -> CLIP-normalised ``image_size``^2 NHWC, fp32.
+
+    Antialiased bicubic resize with half-pixel centres and a = -0.5, which
+    is what ``jax.image.resize(..., "bicubic")`` computes (the reference's
+    kornia resize is the same up to align_corners)."""
+    x = F.interpolate(images.float().permute(0, 3, 1, 2), size=(image_size, image_size),
+                      mode="bicubic", antialias=True, align_corners=False).permute(0, 2, 3, 1)
+    x = (x + 1.0) / 2.0
+    mean = torch.tensor(CLIP_MEAN, device=x.device)
+    std = torch.tensor(CLIP_STD, device=x.device)
+    return (x - mean) / std
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, causal: bool = True):
         super().__init__()
         self.heads = heads
+        self.causal = causal
         self.ln_1 = nn.LayerNorm(width)
         self.attn = nn.MultiheadAttention(width, heads, batch_first=True)
         self.ln_2 = nn.LayerNorm(width)
@@ -38,7 +65,7 @@ class ResidualAttentionBlock(nn.Module):
         d = W // self.heads
         qkv = F.linear(x, self.attn.in_proj_weight, self.attn.in_proj_bias)
         q, k, v = (t.reshape(B, N, self.heads, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-        o = attention(q, k, v, d ** -0.5, causal=True).transpose(1, 2).reshape(B, N, W)
+        o = attention(q, k, v, d ** -0.5, causal=self.causal).transpose(1, 2).reshape(B, N, W)
         return self.attn.out_proj(o)
 
     def forward(self, x):
@@ -65,3 +92,30 @@ class CLIPTextEncoder(nn.Module):
         for blk in self.transformer.resblocks:
             x = blk(x)
         return self.ln_final(x)
+
+
+class CLIPVisionEncoder(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.cfg = cfg
+        grid = cfg.image_size // cfg.patch_size
+        self.conv1 = nn.Conv2d(3, cfg.width, cfg.patch_size, stride=cfg.patch_size, bias=False)
+        self.class_embedding = nn.Parameter(torch.empty(cfg.width))
+        self.positional_embedding = nn.Parameter(torch.empty(grid * grid + 1, cfg.width))
+        self.ln_pre = nn.LayerNorm(cfg.width)
+        self.transformer = nn.Module()
+        self.transformer.resblocks = nn.ModuleList(
+            [ResidualAttentionBlock(cfg.width, cfg.heads, causal=False) for _ in range(cfg.layers)]
+        )
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """CLIP-normalised [B, S, S, 3] -> [B, grid^2 + 1, width]."""
+        dt = self.conv1.weight.dtype
+        x = F.conv2d(images.to(dt).permute(0, 3, 1, 2), self.conv1.weight, stride=self.cfg.patch_size)
+        x = x.flatten(2).transpose(1, 2)  # [B, grid^2, width], row-major patches
+        cls = self.class_embedding.to(dt).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding
+        x = self.ln_pre(x)
+        for blk in self.transformer.resblocks:
+            x = blk(x)
+        return x

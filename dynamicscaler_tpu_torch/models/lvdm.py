@@ -1,4 +1,5 @@
-"""LatentVideoDiffusion: the frozen t2v model bundle (UNet + VAE + CLIP text).
+"""LatentVideoDiffusion: the frozen model bundle (UNet + VAE + CLIP text, and
+for i2v the CLIP vision tower and the Resampler).
 
 Counterpart of ``dynamicscaler_tpu/models/lvdm.py`` (reference
 lvdm/models/ddpm3d.py:327-693). Modules live on one ``device`` with their
@@ -15,7 +16,8 @@ import torch
 from torch import nn
 
 from dynamicscaler_tpu_torch.config import ModelConfig, tiny_test_config  # noqa: F401 (re-export)
-from dynamicscaler_tpu_torch.models.clip import CLIPTextEncoder
+from dynamicscaler_tpu_torch.models.clip import CLIPTextEncoder, CLIPVisionEncoder, clip_preprocess
+from dynamicscaler_tpu_torch.models.resampler import Resampler
 from dynamicscaler_tpu_torch.models.unet3d import UNet3D, is_zero_init
 from dynamicscaler_tpu_torch.models.vae import AutoencoderKL
 
@@ -24,13 +26,18 @@ def init_module_random(module: nn.Module, generator: torch.Generator, zero_init=
     """Seeded random weights in place: Linear/Conv weights N(0, 1/fan_in)
     (lecun normal, as the JAX init), biases 0, norm scales 1, embeddings
     N(0, 0.02) / positional N(0, 0.01); parameters named by ``zero_init``
-    are 0, as the reference initialises them."""
+    are 0, as the reference initialises them. The CLIP class token is
+    N(0, 0.02) and the Resampler queries N(0, 1/dim), as the JAX init."""
     dev = generator.device
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if zero_init(name) or leaf in ("bias", "in_proj_bias"):
                 p.zero_()
+            elif leaf == "class_embedding":
+                p.copy_(torch.randn(p.shape, generator=generator, device=dev) * 0.02)
+            elif leaf == "latents":
+                p.copy_(torch.randn(p.shape, generator=generator, device=dev) / math.sqrt(p.shape[-1]))
             elif p.ndim == 1:  # GroupNorm / LayerNorm scales
                 p.fill_(1.0)
             elif "positional_embedding" in name:
@@ -42,20 +49,35 @@ def init_module_random(module: nn.Module, generator: torch.Generator, zero_init=
                 p.copy_(torch.randn(p.shape, generator=generator, device=dev) / math.sqrt(fan_in))
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index is None or b.index is None or a.index == b.index)
+
+
 class LatentVideoDiffusion:
-    """Frozen t2v model bundle: ``unet``, ``vae``, ``text_encoder`` modules,
-    a host ``tokenizer`` (texts -> [B, 77] int), on ``device``."""
+    """Frozen model bundle: ``unet``, ``vae``, ``text_encoder`` and, for an
+    i2v config, ``image_encoder`` (CLIP vision) and ``resampler`` modules
+    (else None); a host ``tokenizer`` (texts -> [B, 77] int); on
+    ``device``."""
 
     def __init__(self, config: ModelConfig, unet: UNet3D, vae: AutoencoderKL,
-                 text_encoder: CLIPTextEncoder, tokenizer=None):
-        if config.clip_vision is not None or config.resampler is not None:
-            raise NotImplementedError("the i2v bundle (CLIP vision, resampler) is not ported yet")
+                 text_encoder: CLIPTextEncoder, image_encoder: CLIPVisionEncoder = None,
+                 resampler: Resampler = None, tokenizer=None):
+        if (image_encoder is None) != (config.clip_vision is None) or \
+                (resampler is None) != (config.resampler is None):
+            raise ValueError("the image encoder and resampler must match the config's i2v parts")
         self.config = config
         self.unet = unet.eval()
         self.vae = vae.eval()
         self.text_encoder = text_encoder.eval()
+        self.image_encoder = None if image_encoder is None else image_encoder.eval()
+        self.resampler = None if resampler is None else resampler.eval()
         self.tokenizer = tokenizer
-        self.image_encoder = None
+
+    def components(self):
+        """(name, module) of every component the bundle holds."""
+        mods = [("unet", self.unet), ("vae", self.vae), ("clip_text", self.text_encoder),
+                ("clip_vision", self.image_encoder), ("resampler", self.resampler)]
+        return [(n, m) for n, m in mods if m is not None]
 
     @property
     def device(self) -> torch.device:
@@ -72,32 +94,49 @@ class LatentVideoDiffusion:
         """Modules with uninitialised fp32 storage on ``device`` (``meta``
         allocates nothing: parameter counting)."""
         with torch.device(device):
-            return cls(config, UNet3D(config.unet), AutoencoderKL(config.vae),
-                       CLIPTextEncoder(config.clip_text), tokenizer)
+            return cls(
+                config, UNet3D(config.unet), AutoencoderKL(config.vae),
+                CLIPTextEncoder(config.clip_text),
+                CLIPVisionEncoder(config.clip_vision) if config.clip_vision else None,
+                Resampler(config.resampler) if config.resampler else None,
+                tokenizer,
+            )
 
     @classmethod
-    def init_random(cls, config: ModelConfig, generator: torch.Generator, device=None,
+    def init_random(cls, config: ModelConfig, generator: torch.Generator, device="cuda",
                     tokenizer=None) -> "LatentVideoDiffusion":
         """Seeded random weights (development without a checkpoint), stored
-        in the config's compute dtype on ``device`` (default: the
-        generator's device)."""
-        device = torch.device(device if device is not None else generator.device)
+        in the config's compute dtype on ``device``: the card unless the
+        caller asks for another device. ``generator`` must live on that
+        device."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("init_random builds on the CUDA card by default and none is "
+                               "available: pass device='cpu' to build on the CPU")
+        if not _same_device(torch.device(generator.device), device):
+            raise ValueError(f"generator on {generator.device} cannot fill weights on {device}")
         model = cls.build(config, "meta", tokenizer)
-        for mod, zero in ((model.unet, is_zero_init), (model.vae, lambda n: False),
-                          (model.text_encoder, lambda n: False)):
+        for name, mod in model.components():
             mod.to_empty(device=device)
-            init_module_random(mod, generator, zero)
+            init_module_random(mod, generator, is_zero_init if name == "unet" else lambda n: False)
             mod.to(config.torch_dtype)
         return model
 
-    def load_state_dicts(self, unet=None, vae=None, clip_text=None):
+    def load_state_dicts(self, unet=None, vae=None, clip_text=None, clip_vision=None,
+                         resampler=None):
         """Load per-component state_dicts (VideoCrafter names, prefixes
         stripped; fp32 storage from ``build``) and cast them to the compute
         dtype."""
-        for mod, sd in ((self.unet, unet), (self.vae, vae), (self.text_encoder, clip_text)):
-            if sd is not None:
-                mod.load_state_dict(sd)
-                mod.to(self.dtype)
+        given = dict(unet=unet, vae=vae, clip_text=clip_text, clip_vision=clip_vision,
+                     resampler=resampler)
+        held = dict(self.components())
+        for name, sd in given.items():
+            if sd is None:
+                continue
+            if name not in held:
+                raise ValueError(f"this bundle has no {name} (t2v config)")
+            held[name].load_state_dict(sd)
+            held[name].to(self.dtype)
         return self
 
     # -- apply methods --------------------------------------------------------
@@ -131,6 +170,32 @@ class LatentVideoDiffusion:
         if self.tokenizer is None:
             raise ValueError("no tokenizer configured")
         return self.encode_text_tokens(self.tokenizer(texts))
+
+    @torch.inference_mode()
+    def encode_image_cond(self, images, microbatch: int = 32):
+        """[-1, 1] NHWC image(s) [B, H, W, 3] -> [B, num_queries, output_dim]
+        Resampler tokens (ddpm3d.py:689-693: embedder -> image_proj_model),
+        in chunks of ``microbatch`` images (bounded activation memory)."""
+        if self.image_encoder is None:
+            raise ValueError("this bundle has no image encoder (t2v config)")
+        if not torch.is_tensor(images):
+            images = torch.from_numpy(np.asarray(images, np.float32))
+        images = images.to(self.device, torch.float32)
+        size = self.config.clip_vision.image_size
+        return torch.cat([
+            self.resampler(self.image_encoder(clip_preprocess(images[i:i + microbatch], size)))
+            for i in range(0, images.shape[0], microbatch)
+        ])
+
+    @torch.inference_mode()
+    def encode_video(self, video, generator=None, noise=None):
+        """[B, F, H, W, 3] in [-1, 1] -> scaled fp32 latents [B, F, h, w, zc]
+        (the posterior mode, or a sample with ``generator`` or ``noise``).
+        Frames ride the VAE batch."""
+        B, Fn, H, W, C = video.shape
+        flat = video.reshape(B * Fn, H, W, C).to(self.dtype)
+        z = self.vae.encode(flat, generator, noise).float()
+        return z.reshape(B, Fn, *z.shape[1:])
 
     @torch.inference_mode()
     def decode_video(self, latents):

@@ -1,0 +1,77 @@
+"""The perceiver ``Resampler``: CLIP ViT-H image tokens -> i2v context tokens.
+
+Counterpart of ``dynamicscaler_tpu/models/resampler.py::Resampler``
+(lvdm/modules/encoders/ip_resampler.py:45-135): ``proj_in`` to ``dim``, then
+``depth`` x (perceiver attention of the learned queries over [x ; queries],
++ residual; LayerNorm -> GELU MLP, + residual), ``proj_out`` and
+``norm_out``. VideoCrafter ``image_proj_model.*`` state_dict names
+(``layers.{d}.0`` the attention, ``layers.{d}.1`` the MLP). LayerNorm eps
+1e-5, exact (erf) GELU; attention is PyTorch's SDPA (stock JAX in the JAX
+package too). ``ImageProjModel`` is off the i2v path and not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from dynamicscaler_tpu_torch.config import ResamplerConfig
+from dynamicscaler_tpu_torch.ops.attention import attention
+
+
+class PerceiverAttention(nn.Module):
+    """ip_resampler.py:45-91: the latents attend over [x ; latents]; q and k
+    are each scaled by dim_head^-1/4, i.e. the logits by dim_head^-1/2."""
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8):
+        super().__init__()
+        inner = dim_head * heads
+        self.dim_head, self.heads = dim_head, heads
+        self.norm1 = nn.LayerNorm(dim)
+        self.norm2 = nn.LayerNorm(dim)
+        self.to_q = nn.Linear(dim, inner, bias=False)
+        self.to_kv = nn.Linear(dim, inner * 2, bias=False)
+        self.to_out = nn.Linear(inner, dim, bias=False)
+
+    def forward(self, x, latents):
+        x = self.norm1(x)
+        latents = self.norm2(latents)
+        B, L, _ = latents.shape
+
+        def split(t):
+            return t.reshape(B, t.shape[1], self.heads, self.dim_head).transpose(1, 2)
+
+        q = split(self.to_q(latents))
+        k, v = (split(t) for t in self.to_kv(torch.cat([x, latents], dim=1)).chunk(2, dim=-1))
+        out = attention(q, k, v, self.dim_head ** -0.5).transpose(1, 2).reshape(B, L, -1)
+        return self.to_out(out)
+
+
+def _perceiver_ff(dim: int, mult: int) -> nn.Sequential:
+    """ip_resampler.py:24-31 FeedForward (names ``0`` norm, ``1`` fc1, ``3`` fc2)."""
+    return nn.Sequential(nn.LayerNorm(dim), nn.Linear(dim, dim * mult, bias=False), nn.GELU(),
+                         nn.Linear(dim * mult, dim, bias=False))
+
+
+class Resampler(nn.Module):
+    def __init__(self, cfg: ResamplerConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.latents = nn.Parameter(torch.empty(1, cfg.num_queries, cfg.dim))
+        self.proj_in = nn.Linear(cfg.embedding_dim, cfg.dim)
+        self.proj_out = nn.Linear(cfg.dim, cfg.output_dim)
+        self.norm_out = nn.LayerNorm(cfg.output_dim)
+        self.layers = nn.ModuleList([
+            nn.ModuleList([PerceiverAttention(cfg.dim, cfg.dim_head, cfg.heads),
+                           _perceiver_ff(cfg.dim, cfg.ff_mult)])
+            for _ in range(cfg.depth)
+        ])
+
+    def forward(self, x):
+        """x [B, T, embedding_dim] -> [B, num_queries, output_dim]."""
+        latents = self.latents.expand(x.shape[0], -1, -1)
+        x = self.proj_in(x)
+        for attn, ff in self.layers:
+            latents = attn(x, latents) + latents
+            latents = ff(latents) + latents
+        return self.norm_out(self.proj_out(latents))

@@ -20,7 +20,7 @@ from torch import nn
 from dynamicscaler_tpu_torch.config import UNetConfig
 from dynamicscaler_tpu_torch.models.attention import BasicTransformerBlock
 from dynamicscaler_tpu_torch.models.layers import MLPEmbed, timestep_embedding
-from dynamicscaler_tpu_torch.ops import fused_twrap
+from dynamicscaler_tpu_torch.ops import cuda_lib, fused_twrap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,6 +186,17 @@ class ResBlock(nn.Module):
         return h
 
 
+def _wrapper_operands(module, x):
+    """(w_in, b_in, w_out, b_out) of a transformer wrapper's proj_in and
+    proj_out, weights as [out, in]; on the card packed once per module
+    (``fused_twrap.pack_wrapper``: activation-type weights, fp32 biases)."""
+    params = (module.proj_in.weight, module.proj_in.bias, module.proj_out.weight, module.proj_out.bias)
+    if not x.is_cuda:
+        w_in, b_in, w_out, b_out = params
+        return w_in.reshape(w_in.shape[0], -1), b_in, w_out.reshape(w_out.shape[0], -1), b_out
+    return module._operands.get(lambda: fused_twrap.pack_wrapper(*params, dtype=x.dtype), params, x.dtype)
+
+
 class SpatialTransformer(nn.Module):
     """GN -> proj_in -> transformer over H*W tokens -> proj_out + residual
     (lvdm/modules/attention.py:223-278, use_linear=True)."""
@@ -204,14 +215,15 @@ class SpatialTransformer(nn.Module):
             for _ in range(depth)
         ])
         self.proj_out = nn.Linear(inner, channels)
+        self._operands = cuda_lib.PackCache()
 
     def forward(self, x, context):
+        w_in, b_in, w_out, b_out = _wrapper_operands(self, x)
         # GroupNorm eps 1e-6 in the transformer wrappers (fused_twrap.py:347)
-        h = fused_twrap.gn_proj_in_spatial(x, self.norm.weight, self.norm.bias,
-                                           self.proj_in.weight, self.proj_in.bias, eps=1e-6)
+        h = fused_twrap.gn_proj_in_spatial(x, self.norm.weight, self.norm.bias, w_in, b_in, eps=1e-6)
         for blk in self.transformer_blocks:
             h = blk(h, context=context)
-        return fused_twrap.tail_spatial(h, x, self.proj_out.weight, self.proj_out.bias)
+        return fused_twrap.tail_spatial(h, x, w_out, b_out)
 
 
 class TemporalTransformer(nn.Module):
@@ -240,22 +252,21 @@ class TemporalTransformer(nn.Module):
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, temporal=True) for _ in range(depth)
         ])
+        self._operands = cuda_lib.PackCache()
 
     def forward(self, x, num_frames: int):
         BF, H, W, C = x.shape
         Fn = num_frames
         x5 = x.reshape(BF // Fn, Fn, H, W, C)
-        w_in = self.proj_in.weight.reshape(self.proj_in.weight.shape[0], -1)
-        w_out = self.proj_out.weight.reshape(self.proj_out.weight.shape[0], -1)
+        w_in, b_in, w_out, b_out = _wrapper_operands(self, x)
         # GroupNorm eps 1e-6 over each clip (fused_twrap.py:311)
-        h = fused_twrap.gn_proj_in_temporal(x5, self.norm.weight, self.norm.bias, w_in,
-                                            self.proj_in.bias, eps=1e-6)
+        h = fused_twrap.gn_proj_in_temporal(x5, self.norm.weight, self.norm.bias, w_in, b_in, eps=1e-6)
         mask = None
         if self.causal_attention:
             mask = torch.tril(torch.ones((1, 1, Fn, Fn), dtype=torch.bool, device=x.device))
         for blk in self.transformer_blocks:
             h = blk(h, mask=mask)
-        return fused_twrap.tail_temporal(h, x5, w_out, self.proj_out.bias).reshape(BF, H, W, C)
+        return fused_twrap.tail_temporal(h, x5, w_out, b_out).reshape(BF, H, W, C)
 
 
 class Downsample(nn.Module):

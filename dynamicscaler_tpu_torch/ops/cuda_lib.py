@@ -10,8 +10,9 @@ Each op wrapper in ``ops/fused_*.py`` takes its plain PyTorch version for a
 CPU tensor and launches its kernel for a CUDA tensor. :func:`plain_kernels`
 is the one explicit way to run the plain versions on the card (for the
 kernel-vs-plain comparisons of ``chip_smoke.py``). :func:`ln_gemm` binds
-the GEMM that every op's projections run on; :class:`PackCache` keeps a
-module's kernel operands packed between calls.
+the GEMM that every op's projections run on (K1-K4 and the transformer
+wrapper head and tail); :class:`PackCache` keeps a module's kernel operands
+packed between calls.
 """
 
 from __future__ import annotations
@@ -31,14 +32,16 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 REPO_ROOT = CSRC.parent.parent
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
-    "ds_ln_gemm": (_P, _I, _I, _P, _P, _F, _P, _I, _P, _P, _P, _I, _P),
+    "ds_ln_gemm": (_P, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P),
+    "ds_gn_silu": (_P, _I, _L, _I, _P, _P, _I, _P, _P),
     "ds_temporal_attention": (_P, _I, _I, _I, _F, _P, _P),
     "ds_flash_attention": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _P, _I, _P),
 }
@@ -64,7 +67,8 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into ``build/kernels-<hash>/libdscaler.so``
-    (no-op when that file exists). Returns the library path."""
+    (no-op when that file exists): one ``nvcc`` per source, all started
+    together, then one link. Returns the library path."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
@@ -74,15 +78,30 @@ def build(verbose: bool = False) -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libdscaler.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr)
+    nvcc, tag = _nvcc(), os.getpid()
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [out_dir / f"{s.stem}.{tag}.o" for s in srcs]
+    procs = [
+        subprocess.Popen([nvcc, *(["-Xptxas=-v"] if verbose else []), *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for s, o in zip(srcs, objs)
+    ]
+    logs, failed = [], []
+    for s, p in zip(srcs, procs):
+        out, err = p.communicate()
+        logs.append(out + err)
+        if p.returncode != 0:
+            failed.append(f"{s.name} ({p.returncode}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out_dir / f"libdscaler.{tag}.so"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    for o in objs:
+        o.unlink()
+    if verbose and any(logs):
+        print("".join(logs))
     os.replace(tmp, lib)
     return lib
 
@@ -184,12 +203,18 @@ class PackCache:
 MODE_STORE, MODE_RESIDUAL, MODE_GEGLU = 0, 1, 2
 
 
-def ln_gemm(x2d, w, *, ln=None, eps=1e-5, bias=None, residual=None, mode=MODE_STORE):
-    """Launch ``csrc/gemm.cu::ds_ln_gemm``: ``epilogue(LN(x2d) @ w.T)``.
+def ln_gemm(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, frame_map=None, bias=None,
+            residual=None, mode=MODE_STORE):
+    """Launch ``csrc/gemm.cu::ds_ln_gemm``: ``epilogue(prologue(x2d) @ w.T)``.
 
-    x2d [M, K] bf16; w [N, K] bf16; ln (scale, bias) fp32 [K] or None;
-    bias fp32 [N]; residual [M, N] bf16 for ``MODE_RESIDUAL``.
-    ``MODE_GEGLU`` returns [M, N / 2]."""
+    x2d [M, K] bf16; w [N, K] bf16; bias fp32 [N]; residual [M, N] bf16 for
+    ``MODE_RESIDUAL``. ``MODE_GEGLU`` returns [M, N / 2]. Prologue: ``ln``
+    (scale, bias) fp32 [K] (LayerNorm per row), or ``gn`` (mul, add) fp32
+    [M / rows_per_sample, K] (folded GroupNorm per sample, mode 0 only).
+    ``frame_map = (F, HW)`` reads the rows of x2d (with ``gn``) or writes the
+    output rows and reads the residual rows (``MODE_RESIDUAL``) in the
+    frame-major order of a [B, F, H, W, .] tensor, logical row
+    ``(b*HW + hw)*F + f``."""
     M, K = x2d.shape
     N = w.shape[0]
     n_out = N // 2 if mode == MODE_GEGLU else N
@@ -200,6 +225,18 @@ def ln_gemm(x2d, w, *, ln=None, eps=1e-5, bias=None, residual=None, mode=MODE_ST
     if ln is not None:
         check_operand("ln scale", ln[0], torch.float32, (K,))
         check_operand("ln bias", ln[1], torch.float32, (K,))
+    if gn is not None:
+        if ln is not None or mode != MODE_STORE or rows_per_sample <= 0 or M % rows_per_sample:
+            raise ValueError(f"ln_gemm: the GroupNorm prologue takes mode 0 and whole samples, got "
+                             f"mode={mode} M={M} rows_per_sample={rows_per_sample}")
+        check_operand("gn mul", gn[0], torch.float32, (M // rows_per_sample, K))
+        check_operand("gn add", gn[1], torch.float32, (M // rows_per_sample, K))
+    map_f, map_hw = frame_map or (0, 0)
+    if frame_map is not None:
+        if map_f <= 0 or map_hw <= 0 or M % (map_f * map_hw) or ln is not None \
+                or (gn is None) != (mode == MODE_RESIDUAL):
+            raise ValueError(f"ln_gemm: frame_map {frame_map} takes the GroupNorm head or the "
+                             f"residual tail over whole clips, got M={M} mode={mode}")
     if bias is not None:
         check_operand("bias", bias, torch.float32, (N,))
     if residual is not None:
@@ -207,6 +244,7 @@ def ln_gemm(x2d, w, *, ln=None, eps=1e-5, bias=None, residual=None, mode=MODE_ST
     y = torch.empty((M, n_out), device=x2d.device, dtype=torch.bfloat16)
     call(
         "ds_ln_gemm", ptr(x2d), M, K, ptr(ln[0] if ln else None), ptr(ln[1] if ln else None),
-        float(eps), ptr(w), N, ptr(bias), ptr(residual), ptr(y), mode,
+        float(eps), ptr(gn[0] if gn else None), ptr(gn[1] if gn else None), int(rows_per_sample),
+        int(map_f), int(map_hw), ptr(w), N, ptr(bias), ptr(residual), ptr(y), mode,
     )
     return y

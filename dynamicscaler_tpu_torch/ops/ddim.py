@@ -138,6 +138,17 @@ def _noise_like(x, generator, noise):
     return torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
 
 
+def draw_noise(shape, device, generator: Optional[torch.Generator] = None, noise_fn=None,
+               name: str = "") -> torch.Tensor:
+    """Standard-normal fp32 noise of ``shape``: ``noise_fn(name, shape)`` when
+    given (every draw of a sampler can be injected from outside under its
+    name, so a test hands two implementations the same numbers), else drawn
+    from ``generator``."""
+    if noise_fn is not None:
+        return torch.as_tensor(noise_fn(name, tuple(shape)), dtype=torch.float32, device=device)
+    return torch.randn(tuple(shape), generator=generator, device=device)
+
+
 def ddim_step(schedule: DDIMSchedule, x, noise_pred, indices,
               generator: Optional[torch.Generator] = None, frame_axis: int = 1,
               noise=None) -> Tuple[torch.Tensor, torch.Tensor]:

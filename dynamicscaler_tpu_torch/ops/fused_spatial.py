@@ -174,7 +174,9 @@ def fused_ln_cross_attention(x, ctx, ln_scale, ln_bias, wq, wk, wv, wo, bo, wk_i
     )
     out = ln_gemm(o, op.wo, bias=op.bo, residual=x2d, mode=MODE_RESIDUAL)
     fused_ln_cross_attention.launches += 1
+    fused_ln_cross_attention.launches_i2v += has_img
     return out.reshape(B, N, C)
 
 
 fused_ln_cross_attention.launches = 0
+fused_ln_cross_attention.launches_i2v = 0  # the launches with image keys (i2v variant)

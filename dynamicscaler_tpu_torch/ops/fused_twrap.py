@@ -1,12 +1,30 @@
-"""Transformer wrapper layers and folded GroupNorm, plain PyTorch.
+"""Transformer wrapper head and tail, and GroupNorm [-> SiLU], with folded
+GroupNorm statistics (kernels 5-9).
 
-Counterparts of the plain paths of ``dynamicscaler_tpu/ops/fused_twrap.py``
-(``group_norm_fold``, ``gn_proj_in_temporal``, ``tail_temporal``,
-``gn_proj_in_spatial``, ``tail_spatial``, ``gn_silu``). Their Pallas
-kernels (``_head_temporal``, ``_tail_temporal``, ``_head_spatial``,
-``_tail_spatial``, ``_gn_silu_call``) have no Hopper port yet (ROADMAP
-queue 2); proj_in/proj_out are plain products here, as XLA ran them
-outside any kernel. Weights are in torch layout ``[out, in]``.
+Counterparts of ``dynamicscaler_tpu/ops/fused_twrap.py``:
+
+* ``head_temporal`` -> kernel 5 (Pallas ``_head_temporal``): GroupNorm
+  apply -> frame permute [B,F,H,W,C] -> [BHW,F,C] -> proj_in + bias;
+* ``tail_temporal`` -> kernel 6 (``_tail_temporal``): proj_out + bias ->
+  permute back -> + residual;
+* ``head_spatial`` / ``tail_spatial`` -> kernels 7 and 8
+  (``_head_spatial``, ``_tail_spatial``): the same without the permute;
+* ``gn_silu_apply`` -> kernel 9 (``_gn_silu_call``).
+
+The heads and ``gn_silu_apply`` take the folded GroupNorm vectors;
+``gn_proj_in_temporal``, ``gn_proj_in_spatial`` and ``gn_silu`` compute them
+with ``group_norm_fold``, the statistics reduction, which stays a plain
+PyTorch pass (the JAX package leaves it to XLA outside the kernels). On the
+card the heads and tails run as ``csrc/gemm.cu::ds_ln_gemm`` with its
+GroupNorm prologue, frame row map and residual epilogue, and
+``gn_silu_apply`` as ``csrc/gn_silu.cu::ds_gn_silu``; see the notes there for
+what bounds each. Each kernel wrapper takes its plain version (``*_plain``,
+same rounding points: normalised activation rounded to the activation type
+before the product, bias added in fp32 before the rounding, residual added
+in the activation type) for CPU tensors, and counts its kernel launches in
+``<wrapper>.launches``. Weights are in torch layout ``[out, in]``; the
+transformer modules hand the heads and tails the weights and fp32 biases
+packed once (:func:`pack_wrapper`).
 
 GroupNorm eps: 1e-6 in the transformer wrappers (lvdm attention.py
 Normalize, fused_twrap.py:311,347); 1e-5 in the UNet ResBlocks and
@@ -17,6 +35,9 @@ TemporalConvBlock (``gn_silu`` default, fused_twrap.py:438); 1e-6 in the VAE
 from __future__ import annotations
 
 import torch
+
+from dynamicscaler_tpu_torch.ops import cuda_lib
+from dynamicscaler_tpu_torch.ops.cuda_lib import MODE_RESIDUAL, act, f32, ln_gemm
 
 
 def group_norm_fold(x, scale, bias, num_groups: int = 32, eps: float = 1e-6):
@@ -43,50 +64,192 @@ def _proj(x, w, b):
     ).reshape(*x.shape[:-1], w.shape[0])
 
 
+def _apply(x, mul, add):
+    """``x * mul[b] + add[b]`` in fp32 (product and sum rounded separately)
+    for x [B, *spatial, C]."""
+    bshape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    return x.float() * mul.reshape(bshape) + add.reshape(bshape)
+
+
+def pack_wrapper(w_in, b_in, w_out, b_out, *, dtype):
+    """Kernel operands of one transformer wrapper (kernels 5-8): proj_in and
+    proj_out weights [out, in] in the activation type, fp32 biases."""
+    return (act(w_in.reshape(w_in.shape[0], -1), dtype), f32(b_in),
+            act(w_out.reshape(w_out.shape[0], -1), dtype), f32(b_out))
+
+
+def _check_wrapper(name, x, C, Ci):
+    cuda_lib.check_operand(name, x)
+    if C % 32 or Ci % 64:
+        raise ValueError(f"{name}: the kernel takes C % 32 == 0 and Ci % 64 == 0, got C={C} Ci={Ci}")
+
+
+# ---------------------------------------------------------------------------
+# kernels 5 and 6: TemporalTransformer head and tail
+# ---------------------------------------------------------------------------
+
+
+def head_temporal_plain(x5, mul, add, w, b):
+    """Plain version of kernel 5: [B,F,H,W,C] -> [B*H*W, F, Ci]."""
+    B, Fn, H, W, C = x5.shape
+    xn = _apply(x5, mul, add).to(x5.dtype)
+    return _proj(xn.permute(0, 2, 3, 1, 4).reshape(B * H * W, Fn, C), w, b)
+
+
+def head_temporal(x5, mul, add, w, b):
+    """Kernel 5: GroupNorm apply with the folded vectors ``(mul, add)``
+    [B, C] -> [B*H*W, F, Ci] tokens -> proj_in + bias. On the card: the GEMM
+    with the GroupNorm prologue, reading the rows of x5 in (b, h, w, f)
+    order."""
+    if not cuda_lib.use_kernel(x5, w):
+        return head_temporal_plain(x5, mul, add, w, b)
+    B, Fn, H, W, C = x5.shape
+    Ci = w.shape[0]
+    _check_wrapper("x5", x5, C, Ci)
+    y = ln_gemm(x5.reshape(-1, C), act(w, x5.dtype), gn=(mul, add), rows_per_sample=Fn * H * W,
+                frame_map=(Fn, H * W), bias=f32(b))
+    head_temporal.launches += 1
+    return y.reshape(B * H * W, Fn, Ci)
+
+
+head_temporal.launches = 0
+
+
 def gn_proj_in_temporal(x5, gn_scale, gn_bias, w, b, *, eps: float = 1e-6):
     """[B,F,H,W,C] -> GroupNorm(32) over each clip -> [B*H*W, F, Ci] tokens
-    -> proj_in (the TemporalTransformer head)."""
-    B, Fn, H, W, C = x5.shape
+    -> proj_in (the TemporalTransformer head): the statistics pass, then
+    :func:`head_temporal`."""
     mul, add = group_norm_fold(x5, gn_scale, gn_bias, eps=eps)
-    xn = (x5.float() * mul[:, None, None, None] + add[:, None, None, None]).to(x5.dtype)
-    h = xn.permute(0, 2, 3, 1, 4).reshape(B * H * W, Fn, C)
-    return _proj(h, w, b)
+    return head_temporal(x5, mul, add, w, b)
 
 
-def tail_temporal(y, x5, w, b):
-    """proj_out -> permute back -> + residual: [BHW,F,Ci], [B,F,H,W,C] ->
-    [B,F,H,W,C]."""
+def tail_temporal_plain(y, x5, w, b):
+    """Plain version of kernel 6: [BHW,F,Ci], [B,F,H,W,C] -> [B,F,H,W,C]."""
     B, Fn, H, W, C = x5.shape
     o = _proj(y, w, b)
     o = o.reshape(B, H, W, Fn, C).permute(0, 3, 1, 2, 4)
     return o + x5
 
 
-def gn_proj_in_spatial(x4, gn_scale, gn_bias, w, b, *, eps: float = 1e-6):
-    """[BF,H,W,C] -> GroupNorm(32) per frame -> [BF, H*W, Ci] proj_in tokens
-    (the SpatialTransformer head)."""
+def tail_temporal(y, x5, w, b):
+    """proj_out -> permute back -> + residual: [BHW,F,Ci], [B,F,H,W,C] ->
+    [B,F,H,W,C]. On the card: the GEMM with the residual epilogue, writing
+    (and reading the residual at) the rows of x5 in (b, h, w, f) order."""
+    if not cuda_lib.use_kernel(y, x5, w):
+        return tail_temporal_plain(y, x5, w, b)
+    B, Fn, H, W, C = x5.shape
+    Ci = y.shape[-1]
+    _check_wrapper("y", y, Ci, C)
+    cuda_lib.check_operand("x5", x5)
+    out = ln_gemm(y.reshape(-1, Ci), act(w, y.dtype), frame_map=(Fn, H * W), bias=f32(b),
+                  residual=x5.reshape(-1, C), mode=MODE_RESIDUAL)
+    tail_temporal.launches += 1
+    return out.reshape(x5.shape)
+
+
+tail_temporal.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernels 7 and 8: SpatialTransformer head and tail
+# ---------------------------------------------------------------------------
+
+
+def head_spatial_plain(x4, mul, add, w, b):
+    """Plain version of kernel 7: [BF,H,W,C] -> [BF, H*W, Ci]."""
     BF, H, W, C = x4.shape
-    mul, add = group_norm_fold(x4, gn_scale, gn_bias, eps=eps)
-    x3 = x4.reshape(BF, H * W, C)
-    xn = (x3.float() * mul[:, None] + add[:, None]).to(x4.dtype)
+    xn = _apply(x4.reshape(BF, H * W, C), mul, add).to(x4.dtype)
     return _proj(xn, w, b)
 
 
-def tail_spatial(y, x4, w, b):
-    """proj_out -> + residual: [BF,N,Ci], [BF,H,W,C] -> [BF,H,W,C]."""
+def head_spatial(x4, mul, add, w, b):
+    """Kernel 7: GroupNorm apply with the folded vectors ``(mul, add)``
+    [BF, C] -> proj_in + bias: [BF,H,W,C] -> [BF, H*W, Ci]. On the card: the
+    GEMM with the GroupNorm prologue, one sample per H*W rows."""
+    if not cuda_lib.use_kernel(x4, w):
+        return head_spatial_plain(x4, mul, add, w, b)
+    BF, H, W, C = x4.shape
+    Ci = w.shape[0]
+    _check_wrapper("x4", x4, C, Ci)
+    y = ln_gemm(x4.reshape(-1, C), act(w, x4.dtype), gn=(mul, add), rows_per_sample=H * W,
+                bias=f32(b))
+    head_spatial.launches += 1
+    return y.reshape(BF, H * W, Ci)
+
+
+head_spatial.launches = 0
+
+
+def gn_proj_in_spatial(x4, gn_scale, gn_bias, w, b, *, eps: float = 1e-6):
+    """[BF,H,W,C] -> GroupNorm(32) per frame -> [BF, H*W, Ci] proj_in tokens
+    (the SpatialTransformer head): the statistics pass, then
+    :func:`head_spatial`."""
+    mul, add = group_norm_fold(x4, gn_scale, gn_bias, eps=eps)
+    return head_spatial(x4, mul, add, w, b)
+
+
+def tail_spatial_plain(y, x4, w, b):
+    """Plain version of kernel 8: [BF,N,Ci], [BF,H,W,C] -> [BF,H,W,C]."""
     BF, H, W, C = x4.shape
     o = _proj(y, w, b)
     return (o + x4.reshape(BF, H * W, C)).reshape(BF, H, W, C)
 
 
-def gn_silu(x, gn_scale, gn_bias, *, eps: float = 1e-5, act: bool = True):
-    """GroupNorm(32) [-> SiLU] with folded statistics per sample x.shape[0]
-    (ResBlock / TemporalConvBlock / UNet out prologue; the VAE passes
-    eps=1e-6). x: [B, *spatial, C]."""
-    B, C = x.shape[0], x.shape[-1]
-    mul, add = group_norm_fold(x, gn_scale, gn_bias, eps=eps)
-    bshape = (B,) + (1,) * (x.ndim - 2) + (C,)
-    h = x.float() * mul.reshape(bshape) + add.reshape(bshape)
+def tail_spatial(y, x4, w, b):
+    """proj_out -> + residual: [BF,N,Ci], [BF,H,W,C] -> [BF,H,W,C]. On the
+    card: the GEMM with the residual epilogue."""
+    if not cuda_lib.use_kernel(y, x4, w):
+        return tail_spatial_plain(y, x4, w, b)
+    C = x4.shape[-1]
+    Ci = y.shape[-1]
+    _check_wrapper("y", y, Ci, C)
+    cuda_lib.check_operand("x4", x4)
+    out = ln_gemm(y.reshape(-1, Ci), act(w, y.dtype), bias=f32(b), residual=x4.reshape(-1, C),
+                  mode=MODE_RESIDUAL)
+    tail_spatial.launches += 1
+    return out.reshape(x4.shape)
+
+
+tail_spatial.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 9: GroupNorm [-> SiLU]
+# ---------------------------------------------------------------------------
+
+
+def gn_silu_plain(x, mul, add, *, act: bool = True):
+    """Plain version of kernel 9: ``silu(x * mul[b] + add[b])`` in fp32,
+    rounded to x.dtype (no SiLU with ``act=False``)."""
+    h = _apply(x, mul, add)
     if act:
         h = h * torch.sigmoid(h)
     return h.to(x.dtype)
+
+
+def gn_silu_apply(x, mul, add, *, act: bool = True):
+    """Kernel 9: ``silu(x * mul[b] + add[b])`` with the folded vectors
+    ``(mul, add)`` [B, C] per sample x.shape[0] (no SiLU with
+    ``act=False``). x: [B, *spatial, C]. On the card: one elementwise pass."""
+    if not cuda_lib.use_kernel(x):
+        return gn_silu_plain(x, mul, add, act=act)
+    B, C = x.shape[0], x.shape[-1]
+    cuda_lib.check_operand("x", x)
+    if C % 8 or C > 6144:
+        raise ValueError(f"gn_silu kernel takes C % 8 == 0 and C <= 6144, got C={C}")
+    y = torch.empty_like(x)
+    cuda_lib.call("ds_gn_silu", cuda_lib.ptr(x), B, x.numel() // B, C, cuda_lib.ptr(mul),
+                  cuda_lib.ptr(add), int(act), cuda_lib.ptr(y))
+    gn_silu_apply.launches += 1
+    return y
+
+
+gn_silu_apply.launches = 0
+
+
+def gn_silu(x, gn_scale, gn_bias, *, eps: float = 1e-5, act: bool = True):
+    """GroupNorm(32) [-> SiLU] with statistics per sample x.shape[0]
+    (ResBlock / TemporalConvBlock / UNet out prologue; the VAE passes
+    eps=1e-6): the statistics pass, then :func:`gn_silu_apply`."""
+    mul, add = group_norm_fold(x, gn_scale, gn_bias, eps=eps)
+    return gn_silu_apply(x, mul, add, act=act)

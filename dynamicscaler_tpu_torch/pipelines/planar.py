@@ -14,7 +14,9 @@ the results back. Overlap modes:
 
 The global latent and the denoised buffer are updated IN PLACE each step
 (the JAX engine donates them instead). The mesh, trace cache and warm-only
-paths of the JAX engine are not ported.
+paths of the JAX engine are not ported. Every re-noise draw can be injected
+through ``noise_fn`` under the name ``renoise:{step}`` (``renoise:{step}:{k}``
+per window in ``sequential`` mode).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from dynamicscaler_tpu_torch.ops.blend import mix_with_mask, normalize_accumulated
-from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, re_noise
+from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, draw_noise, re_noise
 from dynamicscaler_tpu_torch.ops.ring import add_ring_window, get_ring_window, set_ring_window
 
 
@@ -51,9 +53,11 @@ class StepPlan:
     t: int  # DDPM timestep fed to the UNet
     index: int  # DDIM table index (total_steps - i - 1)
     origins: np.ndarray  # [N, 3] (f0, h0, w0)
-    context: torch.Tensor  # [N_base, L, D], N_base divides N
+    context: torch.Tensor  # [N_base, L, D], N_base divides N; or a bank (ctx_idx)
     renoise_ratio: Optional[float]
     merge_prev_ratio: Optional[float]
+    # [N] rows of ``context`` (an all-phases context bank) that the windows take
+    ctx_idx: Optional[np.ndarray] = None
 
 
 class PlanarShiftWindowEngine:
@@ -72,15 +76,16 @@ class PlanarShiftWindowEngine:
 
     def run(self, latent: torch.Tensor, plan: Sequence[StepPlan], uncond_context: torch.Tensor,
             generator: Optional[torch.Generator] = None,
-            pre_step: Optional[Callable] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            pre_step: Optional[Callable] = None, noise_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """The full window-denoise loop over ``plan``. Returns
-        ``(latent, denoised)``; the caller's ``latent`` is not modified."""
+        ``(latent, denoised)``; the caller's ``latent`` is not modified.
+        ``pre_step(latent, i)`` may replace the latent before step i."""
         latent = latent.clone()
         denoised = torch.zeros_like(latent)
         for i, sp in enumerate(plan):
             if pre_step is not None:
-                latent = pre_step(latent, i, generator)
-            self.step(latent, denoised, sp, uncond_context, generator)
+                latent = pre_step(latent, i)
+            self.step(latent, denoised, sp, uncond_context, generator, noise_fn, f"renoise:{i}")
         return latent, denoised
 
     def _denoise_batch(self, wins, ctx, uncond, sp: StepPlan):
@@ -97,20 +102,24 @@ class PlanarShiftWindowEngine:
         frame_idx = torch.full((self.window_sizes[0],), sp.index, dtype=torch.long)
         return ddim_step(self.schedule, wins, eps, frame_idx)
 
-    def _renoise(self, wins, sp: StepPlan, generator):
+    def _renoise(self, wins, sp: StepPlan, generator, noise_fn, name):
         ratio = sp.renoise_ratio or 0.0
         if ratio == 0.0:  # a 0-ratio mix is the identity: draw no noise
             return wins, ratio
-        return re_noise(self.schedule, wins, max(sp.index - 1, 0), sp.index, generator=generator), ratio
+        noise = draw_noise(wins.shape, wins.device, generator, noise_fn, name)
+        return re_noise(self.schedule, wins, max(sp.index - 1, 0), sp.index, noise=noise), ratio
 
-    def step(self, latent, denoised, sp: StepPlan, uncond_context, generator=None):
+    def step(self, latent, denoised, sp: StepPlan, uncond_context, generator=None, noise_fn=None,
+             name: str = "renoise"):
         """One DDIM step over all windows of ``sp``; updates ``latent`` and
         ``denoised`` in place."""
         sizes = self.window_sizes
         origins = [tuple(int(v) for v in o) for o in np.asarray(sp.origins)]
         N = len(origins)
         ctx = sp.context
-        if ctx.shape[0] != N:
+        if sp.ctx_idx is not None:
+            ctx = ctx[torch.as_tensor(np.asarray(sp.ctx_idx), dtype=torch.long, device=ctx.device)]
+        elif ctx.shape[0] != N:
             ctx = ctx.repeat(N // ctx.shape[0], 1, 1)
         merge_ratio = sp.merge_prev_ratio or 0.0
 
@@ -120,7 +129,7 @@ class PlanarShiftWindowEngine:
                 win = get_ring_window(latent, origin, sizes)
                 mask_win = get_ring_window(mask_global, origin, sizes)
                 prev = win
-                noised, ratio = self._renoise(win, sp, generator)
+                noised, ratio = self._renoise(win, sp, generator, noise_fn, f"{name}:{k}")
                 win = mix_with_mask(win, noised, mask_win, ratio)
                 new, den_w = self._denoise_batch(win, ctx[k:k + 1], uncond_context, sp)
                 new = mix_with_mask(new, prev, mask_win, merge_ratio)
@@ -134,7 +143,7 @@ class PlanarShiftWindowEngine:
         earlier = None
         if self.overlap_mode == "last":
             earlier = device_earlier_masks(origins, sizes, latent)
-            noised, ratio = self._renoise(wins, sp, generator)
+            noised, ratio = self._renoise(wins, sp, generator, noise_fn, name)
             wins = mix_with_mask(wins, noised, earlier, ratio)
 
         new, den = self._denoise_batch(wins, ctx, uncond_context, sp)

@@ -5,7 +5,10 @@ Counterpart of ``dynamicscaler_tpu/pipelines/t2v.py``:
 (t2v_normal_pipeline.py:70-212); ``sample_shift_multi_windows`` is the
 planar integer-grid shift-window sampler (t2v_normal_pipeline.py:214-570) on
 :class:`PlanarShiftWindowEngine`: prompt -> CLIP text -> ring shift-window
-DDIM with CFG -> VAE decode.
+DDIM with CFG -> VAE decode, optionally from a pre-denoised single-window
+clip (``use_pre_denoise``). Every noise draw takes ``noise_fn`` when given
+(see ``ops.ddim.draw_noise``; names ``init``, ``pre_denoise_init``,
+``pre_denoise``, ``pre:{step}`` and the engine's ``renoise:*``).
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ import numpy as np
 import torch
 
 from dynamicscaler_tpu_torch.core.windows import IntegerGrid
-from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, make_ddim_schedule
+from dynamicscaler_tpu_torch.ops.blend import checkerboard_mix
+from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, draw_noise, make_ddim_schedule, re_noise
+from dynamicscaler_tpu_torch.ops.resize import resize_video_latent
 from dynamicscaler_tpu_torch.pipelines.conditioning import build_uncond_context
 from dynamicscaler_tpu_torch.pipelines.planar import PlanarShiftWindowEngine, StepPlan
 
@@ -30,10 +35,28 @@ def make_schedule_for_model(model, num_steps: int) -> DDIMSchedule:
     )
 
 
+def basic_sample_loop(model, sched: DDIMSchedule, latent, context, uncond, guidance_scale: float,
+                      fps: int, num_skip: int = 0):
+    """Single-window DDIM with CFG packed into one batch-2 UNet call per
+    step, over the last ``S - num_skip`` steps of the table. Returns
+    (latent, denoised)."""
+    S = sched.num_ddim_steps
+    ctx2 = torch.cat([context, uncond])
+    den = None
+    for i in range(S - num_skip):
+        index = S - 1 - i - num_skip
+        t = int(sched.ddim_timesteps[index])
+        eps = model.apply_unet(torch.cat([latent, latent]), torch.full((2,), t, device=latent.device),
+                               ctx2, fps)
+        eps = eps[1:] + guidance_scale * (eps[:1] - eps[1:])
+        latent, den = ddim_step(sched, latent, eps, torch.full((latent.shape[1],), index))
+    return latent, den
+
+
 def basic_sample(model, prompt: str, height: int = 320, width: int = 512, frames: int = 16,
                  fps: int = 16, guidance_scale: float = 7.5, num_inference_steps: int = 48,
                  generator: Optional[torch.Generator] = None, latents=None,
-                 skip_time_step_idx: Optional[int] = None, decode: bool = True):
+                 skip_time_step_idx: Optional[int] = None, decode: bool = True, noise_fn=None):
     """Single-window t2v generation. Returns (video or None, denoised
     latent [1, F, h, w, C])."""
     if model.config.unet.use_image_attention:
@@ -46,18 +69,11 @@ def basic_sample(model, prompt: str, height: int = 320, width: int = 512, frames
     if latents is None:
         if skip_time_step_idx:
             raise ValueError("skip_time_step_idx requires a prepared latent")
-        latents = torch.randn((1, frames, h, w, model.config.unet.in_channels),
-                              generator=generator, device=model.device)
-    S = sched.num_ddim_steps
-    ctx2 = torch.cat([context, uncond])
-    lat = latents
-    den = None
-    for i in range(S - int(skip_time_step_idx or 0)):
-        index = S - 1 - i - int(skip_time_step_idx or 0)
-        t = int(sched.ddim_timesteps[index])
-        eps = model.apply_unet(torch.cat([lat, lat]), torch.full((2,), t, device=lat.device), ctx2, fps)
-        eps = eps[1:] + guidance_scale * (eps[:1] - eps[1:])
-        lat, den = ddim_step(sched, lat, eps, torch.full((lat.shape[1],), index))
+        latents = draw_noise((1, frames, h, w, model.config.unet.in_channels), model.device, generator,
+                             noise_fn, "init")
+    latents = torch.as_tensor(latents, dtype=torch.float32, device=model.device)
+    _, den = basic_sample_loop(model, sched, latents, context, uncond, guidance_scale, fps,
+                               int(skip_time_step_idx or 0))
     video = model.decode_video(den) if decode else None
     return video, den
 
@@ -81,11 +97,15 @@ def sample_shift_multi_windows(
     docking_step_range: Optional[Sequence[int]] = None,
     merge_renoised_overlap_latent_ratio: Optional[float] = 1.0,
     merge_prev_denoised_ratio_list: Optional[Sequence[float]] = None,
+    merge_predenoise_ratio_list: Optional[Sequence[float]] = None,
+    sparse_add_residual: bool = True,
     init_panorama_latent: Optional[torch.Tensor] = None,
+    clear_pre_denoised_latent: Optional[torch.Tensor] = None,
     use_pre_denoise: bool = False,
     overlap_mode: str = "last",
     unet_microbatch: int = 8,
     generator: Optional[torch.Generator] = None,
+    noise_fn=None,
     decode: bool = True,
 ):
     """Planar integer-grid shift-window t2v: the global latent is
@@ -93,12 +113,15 @@ def sample_shift_multi_windows(
     step denoises all windows, with cyclically shifting origins, as one
     CFG-packed UNet batch. Returns (video [1, F, H, W, 3] or None, denoised
     latent). For large panoramas pass ``decode=False`` and decode with
-    ``model.decode_video_chunked`` to bound the VAE's memory."""
-    if use_pre_denoise:
-        raise NotImplementedError(
-            "use_pre_denoise needs ops/resize.py (bicubic latent upsampling), which the port "
-            "has not brought over yet"
-        )
+    ``model.decode_video_chunked`` to bound the VAE's memory.
+
+    ``use_pre_denoise``: generate a single-window clip first (or take
+    ``clear_pre_denoised_latent``), upsample its latent (bicubic) to the
+    global size, tile it over the frame windows and re-noise it as the
+    initial latent (t2v_normal_pipeline.py:348-403); with
+    ``merge_predenoise_ratio_list`` every step re-anchors the latent to the
+    re-noised residual, on a checkerboard with ``sparse_add_residual``
+    (:445-468)."""
     sched = make_schedule_for_model(model, num_inference_steps)
     vs = model.config.vae.spatial_scale
     wh, ww = height // vs, width // vs
@@ -114,13 +137,38 @@ def sample_shift_multi_windows(
     context = model.encode_text([prompt])
     uncond = build_uncond_context(model, with_image=False)
 
-    if init_panorama_latent is None:
-        latent = torch.randn((1, grid.total_f, grid.total_h, grid.total_w, model.config.unet.in_channels),
-                             generator=generator, device=model.device)
-    else:
-        latent = torch.as_tensor(init_panorama_latent, dtype=torch.float32, device=model.device)
-
     S = sched.num_ddim_steps
+    dev = model.device
+    shape = (1, grid.total_f, grid.total_h, grid.total_w, model.config.unet.in_channels)
+    residual = None
+    if init_panorama_latent is not None:
+        latent = torch.as_tensor(init_panorama_latent, dtype=torch.float32, device=dev)
+    elif use_pre_denoise:
+        small = clear_pre_denoised_latent
+        if small is None:
+            init = draw_noise((1, frames, wh, ww, shape[-1]), dev, generator, noise_fn, "pre_denoise_init")
+            _, small = basic_sample(model, prompt, height=height, width=width, frames=frames, fps=fps,
+                                    guidance_scale=guidance_scale, num_inference_steps=num_inference_steps,
+                                    latents=init, decode=False)
+        big = resize_video_latent(torch.as_tensor(small, dtype=torch.float32, device=dev),
+                                  grid.total_h, grid.total_w, mode="bicubic")
+        residual = big.repeat(1, num_windows_f, 1, 1, 1)[:, :grid.total_f]
+        latent = re_noise(sched, residual, 0, S - 1,
+                          noise=draw_noise(residual.shape, dev, generator, noise_fn, "pre_denoise"))
+    else:
+        latent = draw_noise(shape, dev, generator, noise_fn, "init")
+
+    pre_step = None
+    if residual is not None and merge_predenoise_ratio_list is not None:
+        def pre_step(lat, i):
+            # per-step residual re-anchoring (t2v_normal_pipeline.py:445-468)
+            ratio = float(merge_predenoise_ratio_list[i])
+            noise = draw_noise(residual.shape, dev, generator, noise_fn, f"pre:{i}")
+            noised = re_noise(sched, residual, 0, S - 1 - i, noise=noise)
+            if sparse_add_residual:
+                return checkerboard_mix(lat, noised, ratio, i)
+            return lat * ratio + noised * (1.0 - ratio)
+
     ddim_ts = sched.ddim_timesteps.cpu().numpy()
     plan: List[StepPlan] = []
     for i in range(S):
@@ -137,6 +185,6 @@ def sample_shift_multi_windows(
     engine = PlanarShiftWindowEngine(model, sched, (frames, wh, ww), guidance_scale=guidance_scale,
                                      fps=fps, overlap_mode=overlap_mode,
                                      unet_microbatch=unet_microbatch)
-    latent, denoised = engine.run(latent, plan, uncond, generator)
+    latent, denoised = engine.run(latent, plan, uncond, generator, pre_step=pre_step, noise_fn=noise_fn)
     video = model.decode_video(denoised) if decode else None
     return video, denoised

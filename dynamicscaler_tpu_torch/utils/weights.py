@@ -1,7 +1,8 @@
 """JAX parameter trees -> the port's VideoCrafter-named state_dicts.
 
 The inverse of ``dynamicscaler_tpu/utils/weights.py`` ``convert_unet``,
-``convert_vae`` and ``convert_clip_text``: each ``from_jax_*`` takes the JAX
+``convert_vae``, ``convert_clip_text``, ``convert_clip_vision`` and
+``convert_resampler``: each ``from_jax_*`` takes the JAX
 package's parameter tree (nested dicts of numpy arrays, with or without the
 top ``"params"`` level) and returns a ``{name: torch.Tensor}`` state_dict
 for the port's module. Layout changes:
@@ -23,7 +24,13 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from dynamicscaler_tpu_torch.config import CLIPTextConfig, UNetConfig, VAEConfig
+from dynamicscaler_tpu_torch.config import (
+    CLIPTextConfig,
+    CLIPVisionConfig,
+    ResamplerConfig,
+    UNetConfig,
+    VAEConfig,
+)
 from dynamicscaler_tpu_torch.models.unet3d import unet_layout
 
 
@@ -195,6 +202,16 @@ def from_jax_vae(tree: Dict[str, Any], cfg: VAEConfig) -> Dict[str, torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def _clip_block(out: _Out, b, bt):
+    out.norm(b + ".ln_1", bt["ln_1"])
+    out.norm(b + ".ln_2", bt["ln_2"])
+    out[b + ".attn.in_proj_weight"] = _t(np.asarray(bt["attn"]["in_proj"]["kernel"]).T)
+    out[b + ".attn.in_proj_bias"] = _t(bt["attn"]["in_proj"]["bias"])
+    out.lin(b + ".attn.out_proj", bt["attn"]["out_proj"])
+    out.lin(b + ".mlp.c_fc", bt["mlp_fc"])
+    out.lin(b + ".mlp.c_proj", bt["mlp_proj"])
+
+
 def from_jax_clip_text(tree: Dict[str, Any], cfg: CLIPTextConfig) -> Dict[str, torch.Tensor]:
     """JAX CLIPTextEncoder params -> the port's OpenCLIP-named state_dict
     (inverse of ``convert_clip_text``; the blocks that run)."""
@@ -204,14 +221,42 @@ def from_jax_clip_text(tree: Dict[str, Any], cfg: CLIPTextConfig) -> Dict[str, t
     out["positional_embedding"] = _t(p["positional_embedding"])
     out.norm("ln_final", p["ln_final"])
     for i in range(cfg.layers - (1 if cfg.penultimate else 0)):
-        b, bt = f"transformer.resblocks.{i}", p[f"resblock{i}"]
-        out.norm(b + ".ln_1", bt["ln_1"])
-        out.norm(b + ".ln_2", bt["ln_2"])
-        out[b + ".attn.in_proj_weight"] = _t(np.asarray(bt["attn"]["in_proj"]["kernel"]).T)
-        out[b + ".attn.in_proj_bias"] = _t(bt["attn"]["in_proj"]["bias"])
-        out.lin(b + ".attn.out_proj", bt["attn"]["out_proj"])
-        out.lin(b + ".mlp.c_fc", bt["mlp_fc"])
-        out.lin(b + ".mlp.c_proj", bt["mlp_proj"])
+        _clip_block(out, f"transformer.resblocks.{i}", p[f"resblock{i}"])
+    return dict(out)
+
+
+def from_jax_clip_vision(tree: Dict[str, Any], cfg: CLIPVisionConfig) -> Dict[str, torch.Tensor]:
+    """JAX CLIPVisionEncoder params -> the port's OpenCLIP ``visual.*``-named
+    state_dict (inverse of ``convert_clip_vision``)."""
+    p = _params(tree)
+    out = _Out()
+    out.conv2d("conv1", p["patch_embed"])
+    out["class_embedding"] = _t(p["class_embedding"])
+    out["positional_embedding"] = _t(p["positional_embedding"])
+    out.norm("ln_pre", p["ln_pre"])
+    for i in range(cfg.layers):
+        _clip_block(out, f"transformer.resblocks.{i}", p[f"resblock{i}"])
+    return dict(out)
+
+
+def from_jax_resampler(tree: Dict[str, Any], cfg: ResamplerConfig) -> Dict[str, torch.Tensor]:
+    """JAX Resampler params -> the port's ``image_proj_model.*``-named
+    state_dict (inverse of ``convert_resampler``)."""
+    p = _params(tree)
+    out = _Out()
+    out["latents"] = _t(p["latents"])
+    out.lin("proj_in", p["proj_in"])
+    out.lin("proj_out", p["proj_out"])
+    out.norm("norm_out", p["norm_out"])
+    for d in range(cfg.depth):
+        a, f = p[f"attn{d}"], p[f"ff{d}"]
+        out.norm(f"layers.{d}.0.norm1", a["norm1"])
+        out.norm(f"layers.{d}.0.norm2", a["norm2"])
+        for n in ("to_q", "to_kv", "to_out"):
+            out.lin(f"layers.{d}.0.{n}", a[n])
+        out.norm(f"layers.{d}.1.0", f["norm"])
+        out.lin(f"layers.{d}.1.1", f["fc1"])
+        out.lin(f"layers.{d}.1.3", f["fc2"])
     return dict(out)
 
 

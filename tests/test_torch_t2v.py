@@ -1,9 +1,10 @@
 """The PyTorch port's sampler stack against the JAX package, on the CPU:
 DDIM schedule math with injected noise, ring windows, blends, the integer
 window grid, and the tiny-config shift-window t2v sampler end to end in all
-three overlap modes. Plus: the BPE tokenizer gives the JAX ids, the hash
-tokenizer gives the same ids in every process, and importing the port
-pulls in no JAX.
+three overlap modes (``use_pre_denoise`` is in
+tests/test_torch_t2v_pre_denoise.py). Plus: the BPE tokenizer gives the JAX
+ids, the hash tokenizer gives the same ids in every process, and importing
+the port pulls in no JAX.
 """
 
 import gzip
@@ -20,25 +21,17 @@ import jax
 import jax.numpy as jnp
 
 from dynamicscaler_tpu.core.windows import IntegerGrid as JIntegerGrid
-from dynamicscaler_tpu.models.clip import CLIPTextEncoder as JCLIPText
-from dynamicscaler_tpu.models.lvdm import LatentVideoDiffusion as JLVDM
-from dynamicscaler_tpu.models.lvdm import tiny_test_config as jtiny
-from dynamicscaler_tpu.models.unet3d import UNet3D as JUNet3D
-from dynamicscaler_tpu.models.vae import AutoencoderKL as JAutoencoderKL
 from dynamicscaler_tpu.ops import blend as jblend
 from dynamicscaler_tpu.ops import ddim as jddim
 from dynamicscaler_tpu.ops import ring as jring
 from dynamicscaler_tpu.pipelines import t2v as jt2v
 from dynamicscaler_tpu.utils.tokenizer import CLIPBPETokenizer as JCLIPBPETokenizer
 from dynamicscaler_tpu.utils.tokenizer import HashTokenizer as JHashTokenizer
-from dynamicscaler_tpu_torch.config import tiny_test_config
 from dynamicscaler_tpu_torch.core.windows import IntegerGrid
-from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
 from dynamicscaler_tpu_torch.ops import blend, ddim, ring
 from dynamicscaler_tpu_torch.pipelines import t2v
-from dynamicscaler_tpu_torch.utils import weights
 from dynamicscaler_tpu_torch.utils.tokenizer import CLIPBPETokenizer, HashTokenizer
-from torch_port_helpers import random_jax_params
+from torch_port_helpers import close_fp32_chain, t2v_twin_models
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -137,35 +130,9 @@ def test_integer_grid_matches_jax(kw):
 # ---------------------------------------------------------------------------
 
 
-def _close_fp32_chain(got, ref):
-    """fp32 through 3 UNet forwards, CFG 7.5 and the VAE decode: pred_x0
-    reaches |x| ~ 80 at random weights, so the absolute tolerance scales
-    with the output (2e-5 of its max, ~100 fp32 ulps) on top of 2e-4."""
-    ref = np.asarray(ref)
-    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-3, atol=2e-4 + 2e-5 * float(np.abs(ref).max()))
-
-
 @pytest.fixture(scope="module")
 def twin_models():
-    """The JAX bundle with random params (zero leaves perturbed) and the
-    port's bundle loaded from the same numbers via ``from_jax_*``."""
-    jcfg = jtiny(img_attention=False)
-    params = {
-        "unet": random_jax_params(JUNet3D(jcfg.unet).init, jnp.zeros((1, 2, 8, 8, 4)),
-                                  jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 32)), 16, seed=5),
-        "vae": random_jax_params(JAutoencoderKL(jcfg.vae).init, jnp.zeros((1, 32, 32, 3)), seed=6),
-        "clip_text": random_jax_params(JCLIPText(jcfg.clip_text).init,
-                                       jnp.zeros((1, 77), jnp.int32), seed=7),
-    }
-    # one tokenizer for both twins: the ids are the same numpy input
-    jmodel = JLVDM(config=jcfg, params=params, tokenizer=HashTokenizer(512))
-    cfg = tiny_test_config(img_attention=False)
-    tmodel = LatentVideoDiffusion.build(cfg, "cpu", tokenizer=HashTokenizer(512)).load_state_dicts(
-        unet=weights.from_jax_unet(params["unet"], cfg.unet),
-        vae=weights.from_jax_vae(params["vae"], cfg.vae),
-        clip_text=weights.from_jax_clip_text(params["clip_text"], cfg.clip_text),
-    )
-    return jmodel, tmodel
+    return t2v_twin_models()
 
 
 @pytest.mark.parametrize("mode", ["last", "average", "sequential"])
@@ -178,8 +145,8 @@ def test_shift_window_sampler_matches_jax(twin_models, mode):
                                              init_panorama_latent=jnp.asarray(init), **kw)
     tv, td = t2v.sample_shift_multi_windows(tmodel, "a red fox", init_panorama_latent=_t(init), **kw)
     assert tv.shape == (1, 4, 32, 64, 3)
-    _close_fp32_chain(td, jd)
-    _close_fp32_chain(tv, jv)
+    close_fp32_chain(td, jd)
+    close_fp32_chain(tv, jv)
 
 
 def test_basic_sample_matches_jax(twin_models):
@@ -189,13 +156,8 @@ def test_basic_sample_matches_jax(twin_models):
     kw = dict(height=32, width=32, frames=4, num_inference_steps=3)
     jv, jd = jt2v.basic_sample(jmodel, "a swan", latents=jnp.asarray(init), **kw)
     tv, td = t2v.basic_sample(tmodel, "a swan", latents=_t(init), **kw)
-    _close_fp32_chain(td, jd)
-    _close_fp32_chain(tv, jv)
-
-
-def test_pre_denoise_is_not_ported_yet(twin_models):
-    with pytest.raises(NotImplementedError, match="resize"):
-        t2v.sample_shift_multi_windows(twin_models[1], "x", use_pre_denoise=True, decode=False)
+    close_fp32_chain(td, jd)
+    close_fp32_chain(tv, jv)
 
 
 TEXTS = ["A cat, hello!", "  dog's 42 CATS  ", " ".join(["hello"] * 90), "naïve café"]
@@ -235,18 +197,29 @@ def test_hash_tokenizer_ids_do_not_depend_on_the_process():
     assert local.max() < 512 and (local[:, 0] == 510).all()
 
 
+# every module of the port, the i2v slice's included; the walk below must find them all
+PORT_MODULES = {
+    "config", "core.windows", "models.attention", "models.clip", "models.layers", "models.lvdm",
+    "models.resampler", "models.unet3d", "models.vae", "ops.attention", "ops.blend", "ops.cuda_lib",
+    "ops.ddim", "ops.fused_spatial", "ops.fused_temporal", "ops.fused_twrap", "ops.resize", "ops.ring",
+    "pipelines.conditioning", "pipelines.i2v", "pipelines.planar", "pipelines.t2v", "pipelines.tiled_vae",
+    "utils.tokenizer", "utils.weights",
+}
+
+
 def test_port_imports_no_jax():
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, json, pkgutil, sys\n"
         "import dynamicscaler_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dynamicscaler_tpu')]\n"
         "assert not bad, bad\n"
-        "print(len([k for k in sys.modules if k.startswith('dynamicscaler_tpu_torch')]))\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.startswith('dynamicscaler_tpu_torch.'))))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    loaded = {m.split(".", 1)[1] for m in json.loads(out.stdout)}
+    assert PORT_MODULES <= loaded, PORT_MODULES - loaded

@@ -1,7 +1,20 @@
 """Shared helpers of the PyTorch-port tests (tests/test_torch_*.py)."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+
+from dynamicscaler_tpu.models.clip import CLIPTextEncoder as JCLIPText
+from dynamicscaler_tpu.models.clip import CLIPVisionEncoder as JCLIPVision
+from dynamicscaler_tpu.models.lvdm import LatentVideoDiffusion as JLVDM
+from dynamicscaler_tpu.models.lvdm import tiny_test_config as jtiny
+from dynamicscaler_tpu.models.resampler import Resampler as JResampler
+from dynamicscaler_tpu.models.unet3d import UNet3D as JUNet3D
+from dynamicscaler_tpu.models.vae import AutoencoderKL as JAutoencoderKL
+from dynamicscaler_tpu_torch.config import tiny_test_config
+from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
+from dynamicscaler_tpu_torch.utils import weights
+from dynamicscaler_tpu_torch.utils.tokenizer import HashTokenizer
 
 
 def random_jax_params(init_fn, *args, seed=0, scale=0.02):
@@ -29,3 +42,96 @@ def random_jax_params(init_fn, *args, seed=0, scale=0.02):
         return a
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def i2v_jax_params(jcfg, seed=20):
+    """Random JAX parameter trees of the tiny i2v bundle (zero leaves perturbed)."""
+    cv, rs = jcfg.clip_vision, jcfg.resampler
+    L = jcfg.unet.text_context_len + rs.num_queries
+    return {
+        "unet": random_jax_params(JUNet3D(jcfg.unet).init, jnp.zeros((1, 2, 8, 8, 4)),
+                                  jnp.zeros((1,), jnp.int32), jnp.zeros((1, L, 32)), 16, seed=seed),
+        "vae": random_jax_params(JAutoencoderKL(jcfg.vae).init, jnp.zeros((1, 32, 32, 3)), seed=seed + 1),
+        "clip_text": random_jax_params(JCLIPText(jcfg.clip_text).init, jnp.zeros((1, 77), jnp.int32),
+                                       seed=seed + 2),
+        "clip_vision": random_jax_params(JCLIPVision(cv).init,
+                                         jnp.zeros((1, cv.image_size, cv.image_size, 3)), seed=seed + 3),
+        "resampler": random_jax_params(JResampler(rs).init, jnp.zeros((1, cv.output_tokens, rs.embedding_dim)),
+                                       seed=seed + 4),
+    }
+
+
+def port_from_jax(params, cfg, tokenizer):
+    """The port's bundle on the CPU, loaded from JAX parameter trees."""
+    return LatentVideoDiffusion.build(cfg, "cpu", tokenizer=tokenizer).load_state_dicts(
+        unet=weights.from_jax_unet(params["unet"], cfg.unet),
+        vae=weights.from_jax_vae(params["vae"], cfg.vae),
+        clip_text=weights.from_jax_clip_text(params["clip_text"], cfg.clip_text),
+        clip_vision=weights.from_jax_clip_vision(params["clip_vision"], cfg.clip_vision),
+        resampler=weights.from_jax_resampler(params["resampler"], cfg.resampler),
+    )
+
+
+def t2v_twin_models(seed=5):
+    """The tiny t2v bundle twice: the JAX one with random parameters and the
+    port's loaded from the same numbers, sharing one tokenizer."""
+    jcfg = jtiny(img_attention=False)
+    params = {
+        "unet": random_jax_params(JUNet3D(jcfg.unet).init, jnp.zeros((1, 2, 8, 8, 4)),
+                                  jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 32)), 16, seed=seed),
+        "vae": random_jax_params(JAutoencoderKL(jcfg.vae).init, jnp.zeros((1, 32, 32, 3)), seed=seed + 1),
+        "clip_text": random_jax_params(JCLIPText(jcfg.clip_text).init, jnp.zeros((1, 77), jnp.int32),
+                                       seed=seed + 2),
+    }
+    tok = HashTokenizer(512)
+    cfg = tiny_test_config(img_attention=False)
+    tmodel = LatentVideoDiffusion.build(cfg, "cpu", tokenizer=tok).load_state_dicts(
+        unet=weights.from_jax_unet(params["unet"], cfg.unet),
+        vae=weights.from_jax_vae(params["vae"], cfg.vae),
+        clip_text=weights.from_jax_clip_text(params["clip_text"], cfg.clip_text),
+    )
+    return JLVDM(config=jcfg, params=params, tokenizer=tok), tmodel
+
+
+def i2v_twin_models(seed=20):
+    """The tiny i2v bundle twice: the JAX one with random parameters and the
+    port's loaded from the same numbers, sharing one tokenizer (the ids are
+    then the same input to both)."""
+    jcfg = jtiny(img_attention=True)
+    params = i2v_jax_params(jcfg, seed)
+    tok = HashTokenizer(512)
+    return JLVDM(config=jcfg, params=params, tokenizer=tok), port_from_jax(params, tiny_test_config(True), tok)
+
+
+def jax_noise(key):
+    """The port's noise_fn for a JAX sampler call with ``key``: each named
+    draw is the JAX sampler's own draw (pipelines/i2v.py splits
+    (k_init, k_run, k_noise); the engine folds the step, then the window)."""
+    k_init, k_run, k_noise = jax.random.split(key, 3)
+
+    def fn(name, shape):
+        kind, *idx = name.split(":")
+        k = {"init": k_init, "skip": k_noise, "renoise": k_run}[kind]
+        for i in idx:
+            k = jax.random.fold_in(k, int(i))
+        return np.array(jax.random.normal(k, shape))
+
+    return fn
+
+
+def close_fp32_chain(got, ref):
+    """Tolerance of a whole sampler run in fp32 (several UNet forwards with
+    CFG 7.5, the re-noise blends and the VAE): the twins differ only in the
+    order of their sums, but pred_x0 reaches |x| ~ 80 at random weights, so
+    the absolute tolerance scales with the output (2e-5 of its max, ~100
+    fp32 ulps) on top of 2e-4; rtol 1e-3."""
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-3, atol=2e-4 + 2e-5 * float(np.abs(ref).max()))
+
+
+def smooth_pano(seed, h, w):
+    """A smooth seeded panorama image in [-1, 1], [h, w, 3]."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 2 * np.pi, w, endpoint=False), indexing="ij")
+    img = np.stack([np.sin(xx * k + p) * np.cos(yy * 3 + p) for k, p in zip((1, 2, 3), rng.uniform(0, 6, 3))], -1)
+    return (0.8 * img + 0.05 * rng.standard_normal(img.shape)).clip(-1, 1).astype(np.float32)
