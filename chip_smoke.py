@@ -10,18 +10,25 @@ Phases, in order, one result line each (any failure exits non-zero):
    versions (seeded random bf16 weights, zero-initialised layers perturbed):
    one full-width VideoCrafter2 t2v UNet forward at window batch 2 (one CFG
    pair, 16 frames, 40x64 latent) with a device-time profile by kernel
-   class; one full-width i2v UNet forward at the UNet batch 8 of phase 5;
-   the tiled VAE encode of phase 5's panorama and the ring decode of one of
-   its latent frames. Relative error, times and exact launch counts. Every
-   kernel call of the kernel-path runs is recorded with its input shapes.
+   class; one full-width i2v UNet forward at the UNet batch 8 of phases 5
+   and 6; the tiled VAE encode of phase 5's panorama and the ring decode of
+   one of its latent frames. Relative error, times and exact launch counts
+   (the UNet under the port's dispatch plan: kernel 10 for the C = 320 and
+   512 temporal blocks, kernel 13 for the C = 320 spatial transformers).
+   Every kernel call of the kernel-path runs is recorded with its input
+   shapes.
 3. each kernel against its plain PyTorch version, bf16, at every shape that
    phase 2 recorded: K1-K4 (K3 in its t2v and i2v variants), the
-   transformer wrapper heads and tails K5-K8, ``gn_silu`` K9 (UNet and VAE).
+   transformer wrapper heads and tails K5-K8, ``gn_silu`` K9 (UNet and VAE),
+   the whole temporal block K10 and the whole spatial transformer K13.
    Per shape: max abs error against the stated tolerance, L2 error, and the
    kernel, plain and library-composite times (CUDA events) beside the bound
    (the least time the H100 could take for the kernel's work). The
    GroupNorm statistics pass (``group_norm_fold``, plain PyTorch) whose
-   vectors K5, K7 and K9 read is timed on its own.
+   vectors K5, K7, K9 and K13 read is timed on its own. At the K10 and K13
+   shapes the transformer module is also timed at the plan level the kernel
+   replaces (fold + K5 + K1 + K1 + K4 + K6 against fold + K5 + K10 + K6;
+   fold + K7 + K2 + K3 + K4 + K8 against fold + K13).
 4. the t2v path: after a one-step warm-up request, two prompts through
    ``pipelines.t2v.sample_shift_multi_windows`` (2 windows of 320x512, a
    320x1024x16 panorama, 4 DDIM steps, CFG 7.5, frame-chunked VAE decode);
@@ -33,6 +40,13 @@ Phases, in order, one result line each (any failure exits non-zero):
    4 steps of the 48-step table, ring-aware decode; a one-step warm-up
    request, then one timed request with the counters zeroed before and read
    after.
+6. stage 1 of gen_pano_360, the sphere sampler, at the CLI's geometry: the
+   full-width i2v bundle on a smooth seeded 2048x1024 equirect panorama
+   (latent 128x256, 16 frames), the CLI's 44-view grid with its per-phi
+   prompts, FOV 120, 10 theta phases, ``last`` overlap, paste-on-static,
+   the CLI's frame-overlap and merge-prev schedules, UNet batch 88 per step
+   as 11 forwards of 8; steps cut to 2 of the 48-step table (step 0 the
+   warm-up, step 1 timed), counters zeroed before and read after.
 
 Then one JSON line of kernel records, and last the device JSON line.
 """
@@ -50,7 +64,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dynamicscaler_tpu_torch.ops import cuda_lib, fused_spatial, fused_temporal, fused_twrap
+from dynamicscaler_tpu_torch.ops import cuda_lib, fused_block, fused_mega, fused_spatial, fused_temporal, fused_twrap
 
 # name -> (wrapper, description, CUDA source, TPU kernel it replaces)
 KERNELS = {
@@ -73,6 +87,10 @@ KERNELS = {
            "dynamicscaler_tpu_torch/csrc/gemm.cu", "dynamicscaler_tpu/ops/fused_twrap.py:277"),
     "K9": (fused_twrap.gn_silu_apply, "gn_silu_apply (folded GroupNorm apply + SiLU)",
            "dynamicscaler_tpu_torch/csrc/gn_silu.cu", "dynamicscaler_tpu/ops/fused_twrap.py:386"),
+    "K10": (fused_block.fused_temporal_block, "fused_temporal_block (whole temporal transformer block)",
+            "dynamicscaler_tpu_torch/csrc/block.cu", "dynamicscaler_tpu/ops/fused_block.py:292"),
+    "K13": (fused_mega.spatial_mega, "spatial_mega (whole spatial transformer, folded GroupNorm)",
+            "dynamicscaler_tpu_torch/csrc/mega.cu", "dynamicscaler_tpu/ops/fused_mega.py:340"),
 }
 # the roles of each wrapper's positional arguments, for making inputs of a
 # recorded shape: x / y activations, gx a GroupNorm input or residual, ctx
@@ -88,6 +106,8 @@ ROLES = {
     "K7": ("gx", "mul", "add", "w", "vec"),
     "K8": ("y", "gx", "w", "vec"),
     "K9": ("gx", "mul", "add"),
+    "K10": ("x", "lns", "attn", "attn", "ff"),
+    "K13": ("gx", "ctx", "mul", "add", "w", "vec", "lns", "attn", "attn", "ff", "w", "vec"),
 }
 
 # bf16 tolerances of kernel vs plain: both round q/k/v, probabilities,
@@ -107,12 +127,16 @@ TOL_GN_REL_L2 = 1e-3
 # relative L2 error of a whole model path (a full UNet forward, the tiled VAE
 # encode, a ring decode), kernels vs plain, in bf16
 TOL_PATH_REL_L2 = 0.05
-# launches per full-width UNet forward, at any batch: 34 temporal
-# self-attentions (17 temporal transformers x 2), 16 spatial transformers,
-# 33 feed-forwards; 17 temporal and 16 spatial wrappers; gn_silu 6 per
-# ResBlock (2 + 4 in its temporal conv block) x 22 ResBlocks + the out norm
-EXPECTED_PER_FORWARD = {"K1": 34, "K2": 16, "K3": 16, "K4": 33, "K5": 17, "K6": 17, "K7": 16, "K8": 16,
-                        "K9": 133}
+# launches per full-width UNet forward, at any batch, under the dispatch
+# plan: of the 17 temporal transformers the 5 at C = 320 and the 512-wide
+# init_attn run their block as K10 (6) and the 11 at C = 640 / 1280 as two
+# K1 and one K4 (22, 22), all 17 with the wrapper kernels K5 and K6; of the
+# 16 spatial transformers the 5 at C = 320 run whole as K13 and the 11 at
+# C = 640 / 1280 as K7, K2, K3, K4, K8 (11 each, K4 22 with the temporal
+# ones); gn_silu 6 per ResBlock (2 + 4 in its temporal conv block) x 22
+# ResBlocks + the out norm
+EXPECTED_PER_FORWARD = {"K1": 22, "K2": 11, "K3": 11, "K4": 22, "K5": 17, "K6": 17, "K7": 11, "K8": 11,
+                        "K9": 133, "K10": 6, "K13": 5}
 # the run whose per-shape sums make the kernels line's figures (as in PERF.md)
 MAIN_FWD = "t2v UNet fwd batch 2"
 I2V_FWD = "i2v UNet fwd batch 8"
@@ -164,10 +188,12 @@ def main() -> None:
     del t2v_model
     torch.cuda.empty_cache()
     launches_i2v = _phase_i2v_sampler(i2v_model, steps=4)
+    launches_sphere = _phase_sphere(i2v_model, steps=2)
 
     kernels = [
         {"name": f"{k} {desc}", "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches_i2v[k], "launches_by_path": {"t2v": launches_t2v[k], "i2v": launches_i2v[k]},
+         "launches": launches_sphere[k],
+         "launches_by_path": {"t2v": launches_t2v[k], "i2v": launches_i2v[k], "sphere": launches_sphere[k]},
          **records[k]}
         for k, (_, desc, src, rep) in KERNELS.items()
     ]
@@ -204,7 +230,10 @@ def _wall_ms(fn, iters: int) -> float:
 
 def _describe(v):
     """A call argument as the recorder keeps it: (shape, dtype) of a
-    tensor, else the value itself."""
+    tensor, a tuple of those for a tuple of tensors, else the value
+    itself."""
+    if isinstance(v, tuple):
+        return tuple(_describe(e) for e in v)
     return (tuple(v.shape), v.dtype) if torch.is_tensor(v) else v
 
 
@@ -375,6 +404,8 @@ def _profile_forward(fwd, wall_ms):
                else "ds_gn_silu (K9)" if "gn_silu_kernel" in n
                else "ds_flash_attn (K2, K3)" if "flash_attn_kernel" in n
                else "ds_temporal_attn (K1)" if "temporal_attn_kernel" in n
+               else "ds_temporal_block (K10)" if "temporal_block_kernel" in n
+               else "ds_mega (K13)" if "mega_head_kernel" in n or "mega_body_kernel" in n
                else "conv (cuDNN)" if any(s in n for s in ("conv", "cudnn", "fprop", "implicit"))
                else "gemm (cuBLAS: time emb)" if any(s in n for s in ("gemm", "cutlass"))
                else "elementwise/reduce (GN fold, casts, cat)")
@@ -428,10 +459,18 @@ def _gen():
     return rn
 
 
+# the roles inside a tuple argument: LayerNorm (scale, bias) x 3; attention
+# (wq, wk, wv, wo, bo[, wk_ip, wv_ip]); feed-forward (w1, b1, w2, b2)
+TUPLE_ROLES = {"lns": ("ln", "vec") * 3, "attn": ("w", "w", "w", "w", "vec", "w", "w"),
+               "ff": ("w", "vec", "w", "vec")}
+
+
 def _synth(role, d, rn):
     """An input of the recorded (shape, dtype) ``d`` for its role."""
     if d is None:
         return None
+    if role in TUPLE_ROLES:
+        return tuple(_synth(r, e, rn) for r, e in zip(TUPLE_ROLES[role], d))
     shape, dtype = d
     t = (rn(*shape) / shape[-1] ** 0.5 if role == "w" else 1.0 + rn(*shape, s=0.1) if role == "ln"
          else rn(*shape, s=0.1) if role == "vec" else 2 * rn(*shape) + 0.5 if role == "gx" else rn(*shape))
@@ -447,14 +486,19 @@ def _case(k, pos, opts, rn):
     C = x.shape[-1]
     T = x.numel() // C
     fold = gn = None
-    if ROLES[k][1] == "mul":  # K5, K7, K9: folded vectors of gx with a GroupNorm scale and bias
+    if "mul" in ROLES[k]:  # K5, K7, K9, K13: folded vectors of gx with a GroupNorm scale and bias
         gn = (1.0 + rn(C, s=0.1), rn(C, s=0.1))
 
         def fold():
             return fused_twrap.group_norm_fold(x, *gn)
-        a[1:3] = fold()
+        i = ROLES[k].index("mul")
+        a[i:i + 2] = fold()
     run_kw = dict(opts)
-    if k in ("K1", "K2"):
+    if k == "K10":
+        run_kw["operands"] = fused_block.pack_temporal_block(*a[1:], dtype=BF)
+    elif k == "K13":
+        run_kw["operands"] = fused_mega.pack_spatial_mega(*a[4:], dtype=BF)
+    elif k in ("K1", "K2"):
         run_kw["operands"] = fused_temporal.pack_ln_attention(*a[1:], dtype=BF)
     elif k == "K3":
         run_kw["operands"] = fused_spatial.pack_ln_cross_attention(*a[2:], dtype=BF)
@@ -464,7 +508,23 @@ def _case(k, pos, opts, rn):
     def run():
         return fn(*a, **run_kw)
     plain = _plain(fn, *a, **opts)
-    common = dict(inputs=a, fold=fold)
+    common = dict(inputs=[t for v in a for t in (v if isinstance(v, tuple) else (v,))], fold=fold)
+    if k == "K10":
+        R, Fn, _ = x.shape
+        return Case(k, f"x{list(x.shape)}", run, plain, _lib_temporal_block(a, opts["heads"], opts["scale"]),
+                    base=x, flops=2 * (8 * T * C * C + 4 * R * Fn * Fn * C) + 24 * T * C * C, **common)
+    if k == "K13":
+        BFn, H, W, _ = x.shape
+        clips, L, Dc = a[1].shape
+        Ci = a[4].shape[0]
+        img = len(a[8]) == 7
+        text_len = opts.get("text_len", 77) if img else None
+        flops = (4 * T * C * Ci + 8 * T * Ci * Ci + 4 * BFn * (H * W) ** 2 * Ci  # proj_in/out, self-attention
+                 + 4 * T * Ci * Ci + 4 * clips * L * Dc * Ci + 4 * T * L * Ci  # cross-attention, K/V per clip
+                 + 24 * T * Ci * Ci)  # feed-forward
+        return Case(k, f"x{list(x.shape)} ctx{list(a[1].shape)} {'i2v' if img else 't2v'}", run, plain,
+                    _lib_spatial_transformer(x, a[1], gn, a[4:], opts["heads"], opts["scale"], text_len),
+                    base=x, flops=flops, **common)
     if k in ("K1", "K2"):
         B, N, _ = x.shape
         return Case(k, f"x{list(x.shape)}", run, plain, _lib_self_attention(a, opts["heads"], opts["scale"]),
@@ -545,6 +605,65 @@ def _lib_geglu(a):
     def run():
         val, gate = F.linear(F.layer_norm(x, (C,), s, b, 1e-5), w1, b1).chunk(2, dim=-1)
         return F.linear(val * F.gelu(gate), w2, b2) + x
+    return run
+
+
+def _lib_temporal_block(a, heads, scale):
+    """K1, K1, K4's composites in sequence: F.layer_norm, F.linear, SDPA,
+    F.gelu."""
+    x, lns, a1, a2, ff = a
+    C = x.shape[-1]
+    s1, b1, s2, b2, s3, b3 = _bf(*lns)
+    attns = [(s, b, torch.cat(w[:3]), w[3], w[4].to(BF)) for s, b, w in ((s1, b1, a1), (s2, b2, a2))]
+    w1, bb1, w2, bb2 = ff
+    bb1, bb2 = _bf(bb1, bb2)
+
+    def run():
+        h = x
+        for s, b, wqkv, wo, bo in attns:
+            q, k, v = F.linear(F.layer_norm(h, (C,), s, b, 1e-5), wqkv).chunk(3, dim=-1)
+            o = F.scaled_dot_product_attention(_heads(q, heads), _heads(k, heads), _heads(v, heads), scale=scale)
+            h = F.linear(o.transpose(1, 2).reshape(h.shape), wo, bo) + h
+        val, gate = F.linear(F.layer_norm(h, (C,), s3, b3, 1e-5), w1, bb1).chunk(2, dim=-1)
+        return F.linear(val * F.gelu(gate), w2, bb2) + h
+    return run
+
+
+def _lib_spatial_transformer(x, ctx, gn, rest, heads, scale, text_len):
+    """F.group_norm (statistics included) + F.linear proj_in, the K2, K3, K4
+    composites (the context K/V projected per clip and repeated over its
+    frames), F.linear proj_out + x."""
+    w_in, b_in, lns, a1, a2, ff, w_out, b_out = rest
+    BFn, H, W, C = x.shape
+    frames = BFn // ctx.shape[0]
+    Ci = w_in.shape[0]
+    gs, gb, b_in, b_out = _bf(*gn, b_in, b_out)
+    s1, b1, s2, b2, s3, b3 = _bf(*lns)
+    wqkv, wo1, bo1 = torch.cat(a1[:3]), a1[3], a1[4].to(BF)
+    wq2, wo2, bo2 = a2[0], a2[3], a2[4].to(BF)
+    segs = [(torch.cat(a2[1:3]), slice(0, text_len))]
+    if text_len is not None:
+        segs.append((torch.cat(a2[5:7]), slice(text_len, None)))
+    w1, bb1, w2, bb2 = ff
+    bb1, bb2 = _bf(bb1, bb2)
+    ctx = ctx.to(BF)
+
+    def run():
+        xn = _channels_last(F.group_norm(_channels_first(x), 32, gs, gb, 1e-6))
+        h = F.linear(xn.reshape(BFn, H * W, C), w_in, b_in)
+        q, k, v = F.linear(F.layer_norm(h, (Ci,), s1, b1, 1e-5), wqkv).chunk(3, dim=-1)
+        o = F.scaled_dot_product_attention(_heads(q, heads), _heads(k, heads), _heads(v, heads), scale=scale)
+        h = F.linear(o.transpose(1, 2).reshape(h.shape), wo1, bo1) + h
+        q = _heads(F.linear(F.layer_norm(h, (Ci,), s2, b2, 1e-5), wq2), heads)
+        o = 0
+        for wkv, sl in segs:
+            k, v = (_heads(t, heads).repeat_interleave(frames, dim=0)
+                    for t in F.linear(ctx[:, sl], wkv).chunk(2, dim=-1))
+            o = o + F.scaled_dot_product_attention(q, k, v, scale=scale)
+        h = F.linear(o.transpose(1, 2).reshape(h.shape), wo2, bo2) + h
+        val, gate = F.linear(F.layer_norm(h, (Ci,), s3, b3, 1e-5), w1, bb1).chunk(2, dim=-1)
+        h = F.linear(val * F.gelu(gate), w2, bb2) + h
+        return F.linear(h, w_out, b_out).reshape(x.shape) + x
     return run
 
 
@@ -654,6 +773,7 @@ def _phase_kernels(sites):
         print(f"phase 3 sums per {where} (ms: kernel / plain / library / bound; + group_norm_fold): " + ", ".join(
             f"{k} {c['ms']:.2f}/{c['plain_ms']:.2f}/{c['library_ms']:.2f}/{c['bound_ms']:.3f}"
             + (f" + {c['fold_ms']:.2f}" if c["fold_ms"] else "") for k, c in per_k.items() if c), flush=True)
+    levels = _phase_levels(shapes)
     print("phase 3 ok", flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     records = {}
@@ -661,9 +781,78 @@ def _phase_kernels(sites):
         main, i2v = sums[MAIN_FWD][k], sums[I2V_FWD][k]
         records[k] = {"max_abs_err": max_err[k], **{key: main[key] for key in keys},
                       "bound_by": bound_by[k].most_common(1)[0][0],
-                      "fold_ms": main["fold_ms"] if ROLES[k][1] == "mul" else None,
+                      "fold_ms": main["fold_ms"] if "mul" in ROLES[k] else None,
                       "per_i2v_forward_batch_8": {key: i2v[key] for key in keys + ("fold_ms",)}}
+    for k in LEVELS:
+        records[k]["level_ms"] = {"per_t2v_forward_batch_2": dict(levels[MAIN_FWD][k]),
+                                  "per_i2v_forward_batch_8": dict(levels[I2V_FWD][k])}
     return records
+
+
+# kernel -> (plan side, the level it is on, the level it replaces)
+LEVELS = {"K10": ("t", "wrap+blk", "wrap+sub"), "K13": ("s", "mega", "wrap+sub")}
+
+
+def _level_module(k, pos, opts):
+    """The transformer module that runs kernel ``k`` at the recorded shape
+    (random bf16 weights) and a call of it on a random input."""
+    from dynamicscaler_tpu_torch.models.lvdm import init_module_random
+    from dynamicscaler_tpu_torch.models.unet3d import SpatialTransformer, TemporalTransformer
+
+    g = torch.Generator(device=DEV).manual_seed(4)
+    if k == "K10":  # the UNet's C = 320 level, 40x64 latent; width 512 is init_attn (Conv1d projections)
+        R, Fn, width = pos[0][0]
+        if R % (40 * 64):
+            _fail(f"K10 rows {R} are not whole 40x64 latents")
+        with torch.device(DEV):
+            m = TemporalTransformer(320, width // 64, 64, use_linear=width == 320)
+        x = torch.randn((R // (40 * 64) * Fn, 40, 64, 320), generator=g, device=DEV).to(BF)
+
+        def call():
+            return m(x, Fn)
+        width_key = width
+    else:
+        (BFn, H, W, C), (clips, L, Dc) = pos[0][0], pos[1][0]
+        with torch.device(DEV):
+            m = SpatialTransformer(C, C // 64, 64, context_dim=Dc, img_cross_attention=len(pos[8]) == 7,
+                                   text_context_len=opts.get("text_len", 77))
+        x = torch.randn((BFn, H, W, C), generator=g, device=DEV).to(BF)
+        ctx = torch.randn((clips, L, Dc), generator=g, device=DEV).to(BF).repeat_interleave(BFn // clips, dim=0)
+
+        def call():
+            return m(x, ctx, BFn // clips)
+        width_key = C
+    init_module_random(m, g)
+    m.to(BF).eval()
+    return call, width_key
+
+
+def _phase_levels(shapes):
+    """Phase 3, the plan levels: at every K10 / K13 shape, the transformer
+    module at the level its kernel replaces and at the kernel's level (the
+    GroupNorm fold included in both), CUDA events. Returns, per run, each
+    kernel's {"replaced": ms, "with_kernel": ms} summed over its calls."""
+    sums = collections.defaultdict(lambda: collections.defaultdict(collections.Counter))
+    for (k, pos, opts), runs in sorted(shapes.items(), key=lambda kv: kv[0][0]):
+        if k not in LEVELS:
+            continue
+        side, level, replaced = LEVELS[k]
+        call, width = _level_module(k, pos, dict(opts))
+        t = {}
+        with torch.inference_mode():
+            for name, lvl in (("replaced", replaced), ("with_kernel", level)):
+                fused_temporal.set_plan({(side, width): lvl})
+                t[name] = _time_ms(call, 5)
+        fused_temporal.set_plan()
+        print(f"phase 3 level {side}{width} at {k}'s x{list(pos[0][0])}: {replaced} {t['replaced']:.3f} ms, "
+              f"{level} {t['with_kernel']:.3f} ms [" + ", ".join(f"x{n} per {w}" for w, n in runs.items()) + "]",
+              flush=True)
+        for where, n in runs.items():
+            for name, v in t.items():
+                sums[where][k][name] += n * v
+        del call
+    torch.cuda.empty_cache()
+    return sums
 
 
 # ---------------------------------------------------------------------------
@@ -675,12 +864,22 @@ def _missing(launches):
     return [k for k, n in launches.items() if n == 0]
 
 
+def _check_per_forward(where, launches, n_fwd):
+    """Every UNet kernel launched exactly its per-forward count times the
+    run's UNet forwards (gn_silu aside: the VAE launches it too)."""
+    want = {k: n * n_fwd for k, n in EXPECTED_PER_FORWARD.items() if k != "K9"}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        _fail(f"{where}: launches {got} over {n_fwd} UNet forwards, expected {want}")
+
+
 def _phase_sampler(model, steps):
     """Phase 4: a one-step warm-up request, then two requests through the
     t2v shift-window sampler, timed warm."""
     from dynamicscaler_tpu_torch.pipelines import t2v
 
     gen = torch.Generator(device=DEV).manual_seed(11)
+    probe = _Probe(model, [(model, "apply_unet", "unet")])
 
     def request(prompt, n_steps):
         """One request; returns (video, sampling s/step, decode s)."""
@@ -700,6 +899,7 @@ def _phase_sampler(model, steps):
     _, cold, cold_decode = request("warm-up", 1)
     prompts = ["a snowy mountain village at dusk, panorama", "waves rolling onto a tropical beach, panorama"]
     _reset_launches()
+    probe.stats.clear()
     timings = []
     for p in prompts:
         video, per_step, decode_s = request(p, steps)
@@ -718,6 +918,7 @@ def _phase_sampler(model, steps):
           f"kernel launches {launches}", flush=True)
     if _missing(launches):
         _fail(f"kernels never launched on the t2v path: {_missing(launches)}")
+    _check_per_forward("t2v path", launches, probe.stats["unet calls"])
     return launches
 
 
@@ -745,6 +946,7 @@ class _Probe:
             t0, n0 = time.perf_counter(), fused_twrap.gn_silu_apply.launches
             out = fn(*a, **kw)
             torch.cuda.synchronize()
+            self.stats[label + " calls"] += 1
             self.stats[label + " s"] += time.perf_counter() - t0
             self.stats[label + " gn_silu"] += fused_twrap.gn_silu_apply.launches - n0
             return out
@@ -758,7 +960,8 @@ def _phase_i2v_sampler(model, steps):
 
     pano = smooth_panorama(512, 1024, seed=5)
     probe = _Probe(model, [(model, "encode_text", "conditioning"), (model, "encode_image_cond", "conditioning"),
-                           (model, "encode_video", "encode"), (model, "decode_video", "decode")])
+                           (model, "encode_video", "encode"), (model, "decode_video", "decode"),
+                           (model, "apply_unet", "unet")])
     gen = torch.Generator(device=DEV).manual_seed(13)
 
     def request(n_steps):
@@ -797,7 +1000,90 @@ def _phase_i2v_sampler(model, steps):
     if _missing(launches) or i2v_k3 == 0 or st["encode gn_silu"] == 0 or st["decode gn_silu"] == 0:
         _fail(f"kernels never launched on the i2v path: {_missing(launches)} K3 i2v {i2v_k3} "
               f"VAE gn_silu {st['encode gn_silu']}/{st['decode gn_silu']}")
+    _check_per_forward("i2v path", launches, st["unet calls"])
     print("phase 5 ok", flush=True)
+    return launches
+
+
+# the gen_pano_360 stage-1 geometry: a 1024x512 equirect at sphere scale 2,
+# its view grid (phi -> thetas, 44 views) and per-phi prompts
+CLI_PROMPT = "Massive green blue ocean wave, dynamic ocean spray, breaking waves"
+CLI_PHI_PROMPTS = {
+    90.0: "Clear light blue sky", 75.0: "Clear light blue sky", 60.0: "Clear light blue sky",
+    45.0: CLI_PROMPT, 0.0: CLI_PROMPT, -45.0: "green blue ocean with waves and swirling foam patterns",
+    -60.0: "green blue ocean with waves", -75.0: "green blue ocean water", -90.0: "green blue ocean water",
+}
+CLI_THETAS = [360 * t // 6 for t in range(6)]
+CLI_GRID = {90: [0], -90: [0], 75: CLI_THETAS, -75: CLI_THETAS, 60: CLI_THETAS, -60: CLI_THETAS,
+            45: CLI_THETAS, -45: CLI_THETAS, 0: CLI_THETAS}
+
+
+def _phase_sphere(model, steps):
+    """Phase 6: stage 1 of gen_pano_360 (the sphere sampler) at the CLI's
+    geometry and schedules, ``steps`` of the 48-step table: step 0 the
+    warm-up, the last step timed."""
+    from dynamicscaler_tpu_torch.pipelines import sphere
+
+    S = 48
+    ov_org = [0.75, 0.5]
+    pano = smooth_panorama(1024, 2048, seed=9)
+    probe = _Probe(model, [(model, "encode_text", "conditioning"), (model, "encode_image_cond", "conditioning"),
+                           (model, "encode_video", "encode"), (model, "apply_unet", "unet"),
+                           (sphere, "_phase_view_maps", "view maps"), (sphere, "_view_contexts", "view contexts")])
+    step_s, step_launches = [], []
+    orig_step = sphere._Sampler.step
+
+    def timed_step(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0, n0 = time.perf_counter(), _launches()
+        out = orig_step(self, *a, **kw)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_launches.append({k: n - n0[k] for k, n in _launches().items()})
+        return out
+
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    _reset_launches()
+    sphere._Sampler.step = timed_step
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, latent, den = sphere.sample_shift_sphere_panorama(
+            model, CLI_PROMPT, pano, equirect_width=2048, equirect_height=1024, phi_theta_dict=CLI_GRID,
+            view_fov=120, loop_step_theta=10, phi_prompt_dict=CLI_PHI_PROMPTS, total_f=16, dock_at_f=True,
+            overlap_ratio_list_f=[ov_org[i * len(ov_org) // S] for i in range(S)], loop_step_frame=8,
+            height=320, width=512, frames=16, fps=8, guidance_scale=7.5, num_inference_steps=S,
+            denoise_to_step=steps, paste_on_static=True, merge_renoised_overlap_latent_ratio=1.0,
+            merge_prev_denoised_ratio_list=[0.5 * (1 - t / 20) for t in range(20)] + [0.0] * (S - 20),
+            overlap_mode="last", unet_microbatch=8, generator=gen,
+        )
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        sphere._Sampler.step = orig_step
+    launches = _launches()
+    st = probe.stats
+    shape = tuple(latent.shape)
+    finite = bool(torch.isfinite(latent).all()) and bool(torch.isfinite(den).all())
+    per_step = [{k: n[k] for k in ("K10", "K13")} for n in step_launches]
+    print(f"phase 6: sphere stage 1, 2048x1024 equirect (latent 128x256), 16 frames, 44 views x 10 phases, "
+          f"UNet batch 88 per step in forwards of 8, {steps} of 48 steps: latent {shape} finite {finite} "
+          f"|latent| mean {float(latent.abs().mean()):.4f}; request {total:.2f} s: view maps (host, 3 x 10 "
+          f"phases x 44 views) {st['view maps s']:.2f} s, per-view contexts (440 view casts on the host, crops "
+          f"gathered on the card, CLIP and text encodes) {st['view contexts s']:.2f} s, all CLIP/text encodes {st['conditioning s']:.2f} s, "
+          f"static tiled VAE encode {st['encode s']:.2f} s, steps "
+          + ", ".join(f"{t:.3f}" for t in step_s) + f" s (step 0 warm-up; {step_s[-1]:.3f} s/step timed), "
+          f"UNet forwards {st['unet calls']}, K10/K13 launches per step {per_step}", flush=True)
+    print(f"phase 6 launches {launches}", flush=True)
+    if shape != (1, 16, 128, 256, 4) or not finite:
+        _fail(f"bad sphere latent {shape} finite={finite}")
+    if _missing(launches) or st["encode gn_silu"] == 0:
+        _fail(f"kernels never launched on the sphere path: {_missing(launches)} VAE gn_silu {st['encode gn_silu']}")
+    _check_per_forward("sphere path", launches, st["unet calls"])
+    if any(n != {"K10": 11 * EXPECTED_PER_FORWARD["K10"], "K13": 11 * EXPECTED_PER_FORWARD["K13"]}
+           for n in per_step):
+        _fail(f"sphere steps launched K10/K13 {per_step}, expected 11 forwards of the per-forward counts")
+    print("phase 6 ok", flush=True)
     return launches
 
 

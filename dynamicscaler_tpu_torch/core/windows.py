@@ -5,15 +5,16 @@ cyclic start offset and docking (``frame_window_origins``,
 i2v_sphere_panorama_pipeline.py:256-318), the fractional-overlap planar grid
 of the i2v sampler (``PlanarGrid``, :732-768) and the integer-grid planar
 windows (``IntegerGrid``, i2v_normal_pipeline.py:254-313,
-t2v_normal_pipeline.py:471-522). The sphere view grids come with the sphere
-slice.
+t2v_normal_pipeline.py:471-522) and the sphere view grids of the
+equirectangular sampler (``default_phi_theta_grid``, ``sphere_step_views``,
+``sphere_phase_views``, i2v_sphere_panorama_pipeline.py:235,320-327).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 DOCK_START = "dock_start"
 DOCK_END = "dock_end"
@@ -189,3 +190,31 @@ class IntegerGrid:
                     origins.append((f0, 0, w0))
                     origins.append((f0, self.total_h - self.win_h, w0))
         return origins
+
+
+# ---------------------------------------------------------------------------
+# Sphere view grids
+# ---------------------------------------------------------------------------
+
+
+def default_phi_theta_grid(phi_num: int = 6) -> Dict[float, List[float]]:
+    """The gen_pano_360 view grid: an equator ring of ``phi_num`` thetas at
+    phi 0, rings at +-45 and +-67.5, and the two poles."""
+    thetas = [i * (360.0 / phi_num) for i in range(phi_num)]
+    return {-90.0: [0.0], -67.5: thetas, -45.0: thetas, 0.0: thetas, 45.0: thetas, 67.5: thetas, 90.0: [0.0]}
+
+
+def sphere_step_views(phi_theta_dict: Dict[float, Sequence[float]], step: int, loop_step_theta: int,
+                      view_fov: float) -> List[Tuple[float, float]]:
+    """(phi, theta + offset) of every view at DDIM ``step``: the thetas turn
+    by ``view_fov // loop_step_theta`` degrees a step, period
+    ``loop_step_theta``."""
+    theta_offset = (step % loop_step_theta) * (view_fov // loop_step_theta)
+    return [(phi, theta + theta_offset) for phi, thetas in phi_theta_dict.items() for theta in thetas]
+
+
+def sphere_phase_views(phi_theta_dict: Dict[float, Sequence[float]], loop_step_theta: int,
+                       view_fov: float) -> Dict[int, List[Tuple[float, float]]]:
+    """Every step phase -> its view list (a finite set: the projection maps
+    and the per-view conditioning are made once per phase)."""
+    return {p: sphere_step_views(phi_theta_dict, p, loop_step_theta, view_fov) for p in range(loop_step_theta)}

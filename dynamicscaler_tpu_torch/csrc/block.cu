@@ -1,0 +1,256 @@
+// Kernel 10: the whole temporal BasicTransformerBlock in one launch.
+//
+// Replaces dynamicscaler_tpu/ops/fused_block.py::_temporal_block_call
+// (Pallas _temporal_block_kernel):
+//   x += out1(attn16(LN1(x) @ [q1|k1|v1]))     16-frame self-attention
+//   x += out2(attn16(LN2(x) @ [q2|k2|v2]))     16-frame self-attention
+//   x += GEGLU(LN3(x)) @ W2 + b2
+// over x [R, 16, C] bf16 (R = B*H*W rows of 16 frame tokens), head dim 64,
+// C = 64 * heads, 128 <= C <= 512 (320 and 512 on the UNet's path).
+//
+// What bounds it: the projections. Per token the block does 16 C^2 + 24 C^2
+// multiply-adds (4 + 4 attention projections, 8C + 4C wide FF), 134 + 201
+// GFLOP at C = 320 and 81,920 tokens, against 105 MB of activation traffic:
+// the tensor cores, by ~100x over the memory. The attention itself is 16x16
+// per (row, head), about 1% of the operations.
+//
+// Design: every 16-frame row is independent, so one block owns 64 tokens (4
+// rows; 32 at C = 512) and keeps them in shared memory through all three
+// sub-blocks; device
+// memory sees one read and one write of x. The TPU kernel's 128-token
+// block-diagonal trick (8 rows per MXU product, masked) is not copied: the
+// 16x16 attention runs on CUDA cores, 4 (8) threads per query token, each
+// owning 16 (8) of the 64 head dims (partial dot products joined by
+// shuffles). The
+// QKV projection runs one head at a time (the packed weight keeps each
+// head's q, k and v rows together), so only [32, 192] of q|k|v is ever
+// resident; the head's attention output lands in its 64 columns of O, and
+// the out-projection reads O whole. The FF runs over chunks of the GEGLU
+// hidden (value chunk, then the gate chunk's epilogue applies GELU in
+// place), each chunk's share of the second product added into an fp32
+// accumulator (chunks of 128 columns at 64 tokens, 256 at 32). Every product
+// is tile.cuh's 8-warp GEMM (mma.sync, a cp.async weight ring streaming
+// across column chunks); the weights stream from L2, 4.1 MB per 64-token
+// block at C = 320, so the tokens per block set the L2 traffic (5.2 GB per
+// batch-2 call) and the ring's depth how much of its latency hides. Shared
+// memory: 221 KB at C = 320, 223 KB at C = 512 (one block per SM). No
+// wgmma/TMA yet.
+//
+// Rounding points are those of the plain version (K1, K1, K4 in sequence):
+// LN output, q/k/v, probabilities (normalised before PV), attention output,
+// projection + bias, residual sum and GEGLU value/gate/product are each
+// rounded to bf16; sums accumulate in fp32.
+
+#include "tile.cuh"
+
+namespace {
+
+using namespace dstile;
+
+constexpr int TF = 16;          // frame tokens per row
+constexpr int D = 64;           // head dim
+constexpr int LDQ = 3 * D + 8;  // bf16 pitch of one head's q|k|v
+
+// tokens per block: 4 rows of 16 frames up to C = 320, 2 rows at C = 512
+// (shared memory); more tokens per block stream the weights fewer times
+int tile_tokens(int C) { return C <= 320 ? 64 : 32; }
+
+struct BlockArgs {
+  const bf16* x;
+  bf16* out;
+  const float* ln_w[3];
+  const float* ln_b[3];
+  const bf16* wqkv[2];  // [3C, C], rows (head, q|k|v, 64)
+  const bf16* wo[2];    // [C, C]
+  const float* bo[2];
+  const bf16* w1;       // [8C, C]: value rows, then gate rows
+  const float* b1;
+  const bf16* w2;       // [C, 4C]
+  const float* b2;
+  int R;
+  int C;
+  float scale;
+  float eps;
+};
+
+// GEGLU hidden columns per FF chunk (shared memory): 128 at 64 tokens, 256 at 32
+__host__ __device__ int hidden_chunk(int tm) { return tm == 64 ? 128 : 256; }
+__host__ __device__ int ld_x(int C) { return C + 8; }
+__host__ __device__ int union_elems(int C, int tm) {  // bf16 elements per token of the union area
+  const int ff = 2 * (C + 4) + hidden_chunk(tm) + 8;  // fp32 accumulator + hidden chunk
+  const int attn = ld_x(C) + LDQ;
+  return ff > attn ? ff : attn;
+}
+
+template <int TM>
+int smem_bytes(int C) { return TM * (2 * ld_x(C) + union_elems(C, TM)) * 2 + Tile<TM>::RING; }
+
+// one head of 16-frame attention for the TM tokens: Qk [TM][LDQ] holds the
+// head's q | k | v; writes the head's 64 output columns of Out (pitch ldo)
+template <int TM>
+__device__ void attention16(const bf16* Qk, bf16* Out, int ldo, float scale) {
+  constexpr int QD = THREADS / TM;  // threads per token
+  constexpr int DPT = D / QD;       // head dims per thread
+  const int i = threadIdx.x / QD;           // token
+  const int qd = (threadIdx.x % QD) * DPT;  // its first head dim
+  const int base = (i / TF) * TF;           // first token of its row
+  float q[DPT];
+#pragma unroll
+  for (int c = 0; c < DPT; ++c) q[c] = bf2f(Qk[i * LDQ + qd + c]);
+  float p[TF];
+#pragma unroll
+  for (int j = 0; j < TF; ++j) {
+    const bf16* kr = Qk + (base + j) * LDQ + D + qd;
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) s += q[c] * bf2f(kr[c]);
+    p[j] = s;
+  }
+#pragma unroll
+  for (int j = 0; j < TF; ++j)
+#pragma unroll
+    for (int o = 1; o < QD; o <<= 1) p[j] += __shfl_xor_sync(0xffffffffu, p[j], o);
+  float m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < TF; ++j) {
+    p[j] *= scale;
+    m = fmaxf(m, p[j]);
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < TF; ++j) {
+    p[j] = expf(p[j] - m);
+    sum += p[j];
+  }
+#pragma unroll
+  for (int j = 0; j < TF; ++j) p[j] = round_bf(p[j] / sum);
+#pragma unroll
+  for (int c = 0; c < DPT; ++c) {
+    float o = 0.f;
+#pragma unroll
+    for (int j = 0; j < TF; ++j) o += p[j] * bf2f(Qk[(base + j) * LDQ + 2 * D + qd + c]);
+    Out[i * ldo + qd + c] = f2bf(o);
+  }
+  __syncthreads();
+}
+
+template <int TM>
+__global__ void __launch_bounds__(THREADS) temporal_block_kernel(BlockArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int C = a.C;
+  const int ldx = ld_x(C);
+  bf16* Xs = reinterpret_cast<bf16*>(smem);
+  bf16* Hs = Xs + TM * ldx;
+  bf16* Us = Hs + TM * ldx;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(Us + TM * union_elems(C, TM));
+  const int T = a.R * TF;
+  const int t0 = blockIdx.x * TM;
+  const int cv = C / 8;
+
+  for (int i = threadIdx.x; i < TM * cv; i += THREADS) {
+    const int r = i / cv;
+    const int c = (i - r * cv) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (t0 + r < T) v = *reinterpret_cast<const uint4*>(a.x + (size_t)(t0 + r) * C + c);
+    *reinterpret_cast<uint4*>(Xs + r * ldx + c) = v;
+  }
+  __syncthreads();
+
+  // two self-attention sub-blocks; the q|k|v rows of head h are rows
+  // [192 h, 192 h + 192) of the packed weight
+  bf16* Os = Us;
+  bf16* Qk = Us + TM * ldx;
+  for (int s = 0; s < 2; ++s) {
+    layer_norm_rows<TM>(Xs, ldx, Hs, ldx, C, a.ln_w[s], a.ln_b[s], a.eps);
+    for (int h = 0; h < C / D; ++h) {
+      gemm_cols<TM>(Hs, ldx, C, a.wqkv[s] + (size_t)h * 3 * D * C, C, 3 * D, ring,
+                    [&](int r, int c, float v) { Qk[r * LDQ + c] = f2bf(v); });
+      attention16<TM>(Qk, Os + h * D, ldx, a.scale);
+    }
+    const float* bo = a.bo[s];
+    gemm_cols<TM>(Os, ldx, C, a.wo[s], C, C, ring, [&](int r, int c, float v) {
+      bf16& d = Xs[r * ldx + c];
+      d = f2bf(bf2f(d) + round_bf(v + bo[c]));
+    });
+  }
+
+  // GEGLU feed-forward over hidden chunks of hc columns: value product, gate
+  // product with GELU in its epilogue, then the chunk's share of the second
+  // product added to an fp32 accumulator
+  layer_norm_rows<TM>(Xs, ldx, Hs, ldx, C, a.ln_w[2], a.ln_b[2], a.eps);
+  const int H4 = 4 * C;
+  const int hc = hidden_chunk(TM);
+  const int lda = C + 4;
+  float* Acc = reinterpret_cast<float*>(Us);
+  bf16* Is = reinterpret_cast<bf16*>(Acc + TM * lda);
+  const int ldi = hc + 8;
+  const float* b1 = a.b1;
+  const float* b2 = a.b2;
+  for (int i = threadIdx.x; i < TM * lda; i += THREADS) Acc[i] = 0.f;
+  for (int j0 = 0; j0 < H4; j0 += hc) {
+    gemm_cols<TM>(Hs, ldx, C, a.w1 + (size_t)j0 * C, C, hc, ring,
+                  [&](int r, int c, float v) { Is[r * ldi + c] = f2bf(v + b1[j0 + c]); });
+    gemm_cols<TM>(Hs, ldx, C, a.w1 + (size_t)(H4 + j0) * C, C, hc, ring, [&](int r, int c, float v) {
+      bf16& d = Is[r * ldi + c];
+      d = f2bf(bf2f(d) * gelu_erf(round_bf(v + b1[H4 + j0 + c])));
+    });
+    gemm_cols<TM>(Is, ldi, hc, a.w2 + j0, H4, C, ring, [&](int r, int c, float v) { Acc[r * lda + c] += v; });
+  }
+  for (int i = threadIdx.x; i < TM * C; i += THREADS) {
+    const int r = i / C;
+    const int c = i - r * C;
+    bf16& d = Xs[r * ldx + c];
+    d = f2bf(bf2f(d) + round_bf(Acc[r * lda + c] + b2[c]));
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < TM * cv; i += THREADS) {
+    const int r = i / cv;
+    const int c = (i - r * cv) * 8;
+    if (t0 + r < T)
+      *reinterpret_cast<uint4*>(a.out + (size_t)(t0 + r) * C + c) = *reinterpret_cast<const uint4*>(Xs + r * ldx + c);
+  }
+}
+
+template <int TM>
+int launch(const BlockArgs& a, void* stream) {
+  const int smem = smem_bytes<TM>(a.C);
+  cudaError_t e = cudaFuncSetAttribute(temporal_block_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (a.R * TF + TM - 1) / TM;
+  temporal_block_kernel<TM><<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// p: device pointers, in order: x, out, then per attention sub-block s = 1, 2:
+// ln_w, ln_b, wqkv [3C, C] (rows: head, then q|k|v, then 64), wo [C, C], bo;
+// then ln3_w, ln3_b, w1 [8C, C],
+// b1 [8C], w2 [C, 4C], b2 [C]. x/out [R, 16, C] bf16, vectors fp32.
+// Shapes the caller guarantees: C % 64 == 0, 128 <= C <= 512, every pointer
+// 16-byte aligned and contiguous.
+extern "C" int ds_temporal_block(const void* const* p, int R, int C, float scale, float eps, void* stream) {
+  if (C % 64 || C < 128 || C > 512 || R <= 0) return (int)cudaErrorInvalidValue;
+  BlockArgs a;
+  a.x = static_cast<const bf16*>(p[0]);
+  a.out = static_cast<bf16*>(const_cast<void*>(p[1]));
+  for (int s = 0; s < 2; ++s) {
+    a.ln_w[s] = static_cast<const float*>(p[2 + 5 * s]);
+    a.ln_b[s] = static_cast<const float*>(p[3 + 5 * s]);
+    a.wqkv[s] = static_cast<const bf16*>(p[4 + 5 * s]);
+    a.wo[s] = static_cast<const bf16*>(p[5 + 5 * s]);
+    a.bo[s] = static_cast<const float*>(p[6 + 5 * s]);
+  }
+  a.ln_w[2] = static_cast<const float*>(p[12]);
+  a.ln_b[2] = static_cast<const float*>(p[13]);
+  a.w1 = static_cast<const bf16*>(p[14]);
+  a.b1 = static_cast<const float*>(p[15]);
+  a.w2 = static_cast<const bf16*>(p[16]);
+  a.b2 = static_cast<const float*>(p[17]);
+  a.R = R;
+  a.C = C;
+  a.scale = scale;
+  a.eps = eps;
+  return tile_tokens(C) == 64 ? launch<64>(a, stream) : launch<32>(a, stream);
+}

@@ -10,7 +10,10 @@ feed-forward sub-block dispatches by SITE to one op:
   ``fused_ln_spatial_attention``;
 * cross-attention (attn2 of a SpatialTransformer) -> K3
   ``fused_ln_cross_attention`` (dual text/image KV with ``to_k_ip``);
-* every feed-forward -> K4 ``fused_ln_geglu``.
+* every feed-forward -> K4 ``fused_ln_geglu``;
+* a whole temporal block, where the dispatch plan allows ``block`` at its
+  width (``fused_temporal.plan_allows``) -> kernel 10
+  ``fused_block.fused_temporal_block``.
 
 Each op takes its plain PyTorch version for CPU tensors. On the card the
 modules hand each op its kernel operands, packed once from their parameters
@@ -27,7 +30,7 @@ import torch
 from torch import nn
 
 from dynamicscaler_tpu_torch.models.layers import FeedForward, layer_norm
-from dynamicscaler_tpu_torch.ops import cuda_lib, fused_spatial, fused_temporal
+from dynamicscaler_tpu_torch.ops import cuda_lib, fused_block, fused_spatial, fused_temporal
 from dynamicscaler_tpu_torch.ops.fused_temporal import mm_f32
 
 SITE_TEMPORAL = "temporal"  # self-attention over frame tokens
@@ -110,7 +113,9 @@ class BasicTransformerBlock(nn.Module):
     """self-attn -> cross-attn (or a second self-attn) -> GEGLU FF, each with
     a pre-LayerNorm and a residual (lvdm/modules/attention.py:187-220).
     ``temporal`` selects the sites: a temporal block's attn1 and attn2 are
-    both frame self-attention (K1); a spatial block's are K2 and K3."""
+    both frame self-attention (K1); a spatial block's are K2 and K3. A
+    temporal block without a mask runs whole as kernel 10 where the plan
+    allows ``block`` at its width."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
                  img_cross_attention: bool = False, text_context_len: int = 77,
@@ -127,8 +132,33 @@ class BasicTransformerBlock(nn.Module):
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
         self.norm3 = nn.LayerNorm(dim)
+        self.dim = dim
+        self._operands = cuda_lib.PackCache()
+
+    def weights(self):
+        """(lns, attn1, attn2, ff): the block's parameters as the whole-block
+        and whole-transformer ops take them (attn2 with the image K/V
+        weights where it has them)."""
+        lns = tuple(p for n in (self.norm1, self.norm2, self.norm3) for p in (n.weight, n.bias))
+
+        def attn(a):
+            out = a.to_out[0]
+            ws = (a.to_q.weight, a.to_k.weight, a.to_v.weight, out.weight, out.bias)
+            return ws + ((a.to_k_ip.weight, a.to_v_ip.weight) if a.img_cross_attention else ())
+        ff = self.ff
+        return lns, attn(self.attn1), attn(self.attn2), (ff.net[0].proj.weight, ff.net[0].proj.bias,
+                                                        ff.net[2].weight, ff.net[2].bias)
 
     def forward(self, x, context=None, mask=None):
+        if self.temporal and mask is None and fused_temporal.plan_allows("block", "t", self.dim):
+            w = self.weights()
+            ops = None
+            if x.is_cuda:
+                params = [p for group in w for p in group]
+                ops = self._operands.get(lambda: fused_block.pack_temporal_block(*w, dtype=x.dtype),
+                                         params, x.dtype)
+            return fused_block.fused_temporal_block(x, *w, heads=self.attn1.heads, scale=self.attn1.scale,
+                                                    eps=self.norm1.eps, operands=ops)
         if self.temporal:
             x = self.attn1(x, self.norm1, SITE_TEMPORAL, mask=mask)
             x = self.attn2(x, self.norm2, SITE_TEMPORAL, mask=mask)

@@ -20,7 +20,7 @@ from torch import nn
 from dynamicscaler_tpu_torch.config import UNetConfig
 from dynamicscaler_tpu_torch.models.attention import BasicTransformerBlock
 from dynamicscaler_tpu_torch.models.layers import MLPEmbed, timestep_embedding
-from dynamicscaler_tpu_torch.ops import cuda_lib, fused_twrap
+from dynamicscaler_tpu_torch.ops import cuda_lib, fused_mega, fused_temporal, fused_twrap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,7 +199,10 @@ def _wrapper_operands(module, x):
 
 class SpatialTransformer(nn.Module):
     """GN -> proj_in -> transformer over H*W tokens -> proj_out + residual
-    (lvdm/modules/attention.py:223-278, use_linear=True)."""
+    (lvdm/modules/attention.py:223-278, use_linear=True). At depth 1 with a
+    context, where the dispatch plan allows ``mega`` at its channels, the
+    whole transformer runs as kernel 13 (``fused_mega.spatial_transformer``);
+    else the wrapper head and tail (kernels 7, 8) around the block."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
                  context_dim: int = None, img_cross_attention: bool = False,
@@ -216,14 +219,37 @@ class SpatialTransformer(nn.Module):
         ])
         self.proj_out = nn.Linear(inner, channels)
         self._operands = cuda_lib.PackCache()
+        self._mega_operands = cuda_lib.PackCache()
 
-    def forward(self, x, context):
+    def forward(self, x, context, num_frames: int = 1):
+        """x [(B F), H, W, C]; context [(B F), L, D], the same rows for the
+        ``num_frames`` samples of a clip."""
+        C = x.shape[-1]
+        blk = self.transformer_blocks[0]
+        if (len(self.transformer_blocks) == 1 and context is not None and blk.dim == C
+                and fused_temporal.plan_allows("mega", "s", C)):
+            return self._mega(x, context[::num_frames], blk)
         w_in, b_in, w_out, b_out = _wrapper_operands(self, x)
         # GroupNorm eps 1e-6 in the transformer wrappers (fused_twrap.py:347)
         h = fused_twrap.gn_proj_in_spatial(x, self.norm.weight, self.norm.bias, w_in, b_in, eps=1e-6)
         for blk in self.transformer_blocks:
             h = blk(h, context=context)
         return fused_twrap.tail_spatial(h, x, w_out, b_out)
+
+    def _mega(self, x, ctx_clips, blk):
+        lns, a1, a2, ff = blk.weights()
+        wrap = (self.proj_in.weight, self.proj_in.bias, self.proj_out.weight, self.proj_out.bias)
+        ops = None
+        if x.is_cuda:
+            params = [*wrap, *lns, *a1, *a2, *ff]
+            ops = self._mega_operands.get(
+                lambda: fused_mega.pack_spatial_mega(wrap[0], wrap[1], lns, a1, a2, ff, wrap[2], wrap[3],
+                                                     dtype=x.dtype), params, x.dtype)
+        # GroupNorm eps 1e-6 in the transformer wrappers (fused_twrap.py:347)
+        return fused_mega.spatial_transformer(
+            x, ctx_clips, self.norm.weight, self.norm.bias, wrap[0], wrap[1], lns, a1, a2, ff, wrap[2],
+            wrap[3], heads=blk.attn1.heads, scale=blk.attn1.scale, text_len=blk.attn2.text_context_len,
+            gn_eps=1e-6, eps=blk.norm1.eps, operands=ops)
 
 
 class TemporalTransformer(nn.Module):
@@ -350,7 +376,7 @@ class UNet3D(nn.Module):
             elif spec.kind == "res":
                 h = layer(h, emb, Fn)
             elif spec.kind == "spatial":
-                h = layer(h, context)
+                h = layer(h, context, Fn)
             elif spec.kind == "temporal":
                 h = layer(h, Fn)
         return h

@@ -12,7 +12,8 @@ is the one explicit way to run the plain versions on the card (for the
 kernel-vs-plain comparisons of ``chip_smoke.py``). :func:`ln_gemm` binds
 the GEMM that every op's projections run on (K1-K4 and the transformer
 wrapper head and tail); :class:`PackCache` keeps a module's kernel operands
-packed between calls.
+packed between calls; the whole-block and whole-transformer kernels (10, 13)
+take their operands as one array of pointers (:func:`ptr_array`).
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ _SIGNATURES = {
     "ds_gn_silu": (_P, _I, _L, _I, _P, _P, _I, _P, _P),
     "ds_temporal_attention": (_P, _I, _I, _I, _F, _P, _P),
     "ds_flash_attention": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _P, _I, _P),
+    "ds_temporal_block": (_P, _I, _I, _F, _F, _P),
+    "ds_mega_spatial": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 _lock = threading.Lock()
@@ -166,6 +169,12 @@ def check_operand(name: str, t: torch.Tensor, dtype=torch.bfloat16, shape=None) 
 
 def ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def ptr_array(tensors):
+    """A host array of device pointers (null for None), for the kernels that
+    take their many operands as one ``const void* const*``."""
+    return (ctypes.c_void_p * len(tensors))(*(None if t is None else t.data_ptr() for t in tensors))
 
 
 def f32(t: torch.Tensor) -> torch.Tensor:

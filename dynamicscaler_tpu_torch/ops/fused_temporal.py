@@ -1,4 +1,5 @@
-"""K1 (temporal LN-attention sub-block) and K4 (LN + GEGLU feed-forward).
+"""K1 (temporal LN-attention sub-block) and K4 (LN + GEGLU feed-forward),
+and the per-shape dispatch plan of the UNet's transformers.
 
 Counterparts of ``dynamicscaler_tpu/ops/fused_temporal.py``
 ``fused_ln_attention`` (Pallas ``_kernel``) and ``fused_ln_geglu``
@@ -25,6 +26,60 @@ import torch.nn.functional as F
 from dynamicscaler_tpu_torch.models.layers import layer_norm
 from dynamicscaler_tpu_torch.ops import cuda_lib
 from dynamicscaler_tpu_torch.ops.cuda_lib import MODE_GEGLU, MODE_RESIDUAL, act, f32, ln_gemm
+
+
+# ---------------------------------------------------------------------------
+# Per-shape dispatch plan: which level of the fusion ladder each UNet
+# transformer shape runs (counterpart of the JAX package's _PLAN_DEFAULT,
+# plan_allows and set_plan, fused_temporal.py:95-147). Keys are (side, C):
+# side "t" for a TemporalTransformer's block (C its width; 512 is the
+# init_attn, which the JAX table leaves out and so runs at the highest legal
+# level), "s" for a SpatialTransformer (C its channels). Levels, highest
+# first:
+#   mega      the whole SpatialTransformer as kernel 13 (ops/fused_mega.py);
+#   wrap+blk  the wrapper head and tail (kernels 5-8) around the whole block
+#             as kernel 10 (ops/fused_block.py);
+#   wrap+sub  the wrapper head and tail around the sub-block kernels K1-K4.
+# The JAX package's v5e table puts s640 and s1280 at "subs" (no wrapper
+# kernels); the port keeps its wrappers (K7/K8) there until its own H100
+# level timings (chip_smoke.py phase 3) decide. Shapes not in the table keep
+# wrap+sub, so small test configs keep the sub-block path unless a test sets
+# the plan.
+# ---------------------------------------------------------------------------
+
+PLAN_DEFAULT = {
+    ("t", 320): "wrap+blk",
+    ("t", 512): "wrap+blk",
+    ("t", 640): "wrap+sub",
+    ("t", 1280): "wrap+sub",
+    ("s", 320): "mega",
+    ("s", 640): "wrap+sub",
+    ("s", 1280): "wrap+sub",
+}
+_LEVEL_ALLOWS = {
+    "mega": frozenset({"mega", "block"}),
+    "wrap+blk": frozenset({"block"}),
+    "wrap+sub": frozenset(),
+}
+_PLAN = dict(PLAN_DEFAULT)
+
+
+def set_plan(spec=None) -> None:
+    """Reset the plan to :data:`PLAN_DEFAULT`, then patch it with ``spec``,
+    a dict ``{(side, C): level}``."""
+    global _PLAN
+    plan = dict(PLAN_DEFAULT)
+    for (side, c), level in (spec or {}).items():
+        if side not in ("t", "s") or level not in _LEVEL_ALLOWS:
+            raise ValueError(f"bad plan entry {(side, c)!r}={level!r}")
+        plan[(side, int(c))] = level
+    _PLAN = plan
+
+
+def plan_allows(kind: str, side: str, C: int) -> bool:
+    """Does the plan let the ``side`` ("t"/"s") transformer at width ``C``
+    run kernel class ``kind`` ("block": kernel 10, "mega": kernel 13)?"""
+    return kind in _LEVEL_ALLOWS[_PLAN.get((side, C), "wrap+sub")]
 
 
 def mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

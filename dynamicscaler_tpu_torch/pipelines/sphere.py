@@ -1,0 +1,474 @@
+"""Spherical (equirectangular) panorama shift-window sampler, stage 1 of the
+360-degree pipeline (PyTorch).
+
+Counterpart of ``dynamicscaler_tpu/pipelines/sphere.py``
+(``VC2_Pipeline_I2V_SpherePano.basic_sample_shift_shpere_panorama``,
+i2v_sphere_panorama_pipeline.py:32-496, and the t2v variant,
+t2v_sphere_panorama_pipeline.py:24-316):
+
+* the (phi, theta) view set of a step depends only on its phase
+  ``step % loop_step_theta``, so every phase's projection maps (gather,
+  validity, scatter plans) and every view's conditioning (per-phi prompt +
+  the image tokens of the view's perspective crop of the panorama) are made
+  up front: one batched text encode and one image encode, in chunks, over
+  all phases' views;
+* one DDIM step gathers every (frame window, view) pair from the latent as
+  one batch, mixes in re-noise where earlier pairs of the step already
+  wrote, runs the CFG-packed UNet batch in ``unet_microbatch`` chunks, DDIM
+  steps, mixes with the previous latent, and scatters back in pair order
+  (``last``) or averaged (``average``); ``sequential`` runs the pairs one at
+  a time, each reading the writes of the pairs before it;
+* with ``paste_on_static`` the writes land on the clean panorama latent
+  (tiled-VAE encoded once) re-noised to the step's level.
+
+Every noise draw takes ``noise_fn`` when given (``ops.ddim.draw_noise``),
+else the ``generator``. Names: ``init``, ``skip``, ``renoise:{step}`` (the
+whole window batch in ``last`` / ``average``), ``pair:{step}:{k}`` (pair k
+in ``sequential``) and ``static:{step}`` (the re-noised static panorama).
+The JAX package's mesh/seq-slab sharding, step-program cache, timers and
+warm-up programs are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dynamicscaler_tpu_torch.core.windows import frame_window_origins, sphere_phase_views
+from dynamicscaler_tpu_torch.ops.blend import mix_with_mask, normalize_accumulated
+from dynamicscaler_tpu_torch.ops.ddim import ddim_step, draw_noise, re_noise, re_noise_per_frame
+from dynamicscaler_tpu_torch.ops.resize import resize_video_latent
+from dynamicscaler_tpu_torch.ops.ring import wrap_slice_indices
+from dynamicscaler_tpu_torch.ops.sphere import (
+    ScatterPlan,
+    add_view_nearest,
+    make_sphere_views,
+    plan_scatter,
+    set_view_nearest,
+)
+from dynamicscaler_tpu_torch.pipelines.conditioning import build_uncond_context, cat_text_image, encode_texts_cached
+from dynamicscaler_tpu_torch.pipelines.t2v import make_schedule_for_model
+from dynamicscaler_tpu_torch.pipelines.tiled_vae import tiled_vae_encode
+
+# ---------------------------------------------------------------------------
+# host-side precomputation
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PhaseMaps:
+    """One phase's view maps at one view resolution, on the device: gather
+    and scatter indices [Nv, h, w] long, validity [Nv, h, w] float, and
+    each view's :class:`ScatterPlan`."""
+
+    gather: torch.Tensor
+    valid: torch.Tensor
+    scatter: torch.Tensor
+    plans: Tuple[ScatterPlan, ...]
+
+
+def _phase_view_maps(phase_views: Dict[int, List[Tuple[float, float]]], view_fov: float, lat_h: int,
+                     lat_w: int, eq_lat_h: int, eq_lat_w: int, phi_fov_dict: Optional[Dict[float, float]] = None,
+                     device=None) -> Dict[int, PhaseMaps]:
+    """Per phase: the latent-space maps of its views; ``phi_fov_dict``
+    overrides the FOV per phi row (t2v_sphere_panorama_pipeline.py:189-192)."""
+    out = {}
+    for phase, views in phase_views.items():
+        svs = make_sphere_views([((phi_fov_dict or {}).get(phi, view_fov), theta, phi) for phi, theta in views],
+                                lat_h, lat_w, eq_lat_h, eq_lat_w)
+        scatter = np.stack([v.scatter_idx for v in svs])
+        out[phase] = PhaseMaps(
+            gather=torch.as_tensor(np.stack([v.gather_idx for v in svs]), dtype=torch.long, device=device),
+            valid=torch.as_tensor(np.stack([v.valid for v in svs]), dtype=torch.float32, device=device),
+            scatter=torch.as_tensor(scatter, dtype=torch.long, device=device),
+            plans=tuple(plan_scatter(s, eq_lat_h * eq_lat_w, device) for s in scatter),
+        )
+    return out
+
+
+def sphere_earlier_masks(scatter_idx: np.ndarray, f_origins: Sequence[int], frames: int, total_f: int,
+                         eq_pixels: int, gather_idx: np.ndarray = None,
+                         gather_valid: np.ndarray = None) -> np.ndarray:
+    """Host oracle of the within-step earlier-pair coverage mask of every
+    (frame window, view) pair (the reference's ``denoised_mask``,
+    i2v_sphere_panorama_pipeline.py:345-365): coverage is WRITTEN with each
+    pair's scatter footprint (``scatter_idx`` [Nv, hs, ws], ``eq_pixels``
+    invalid) and READ through the native-resolution gather maps (default:
+    the scatter maps). Returns [pairs, frames, h, w, 1] float32."""
+    Nv = scatter_idx.shape[0]
+    if gather_idx is None:
+        gather_idx = scatter_idx
+        gather_valid = scatter_idx < eq_pixels
+    h, w = gather_idx.shape[1:]
+    pairs = [(f0, v) for f0 in f_origins for v in range(Nv)]
+    cov = np.zeros((total_f, eq_pixels), bool)
+    masks = np.zeros((len(pairs), frames, h, w, 1), np.float32)
+    for k, (f0, v) in enumerate(pairs):
+        fi = (np.arange(frames) + f0) % total_f
+        gidx = gather_idx[v].reshape(-1).clip(0)
+        gval = gather_valid[v].reshape(-1)
+        m = cov[np.ix_(fi, np.minimum(gidx, eq_pixels - 1))]
+        masks[k, ..., 0] = (m & gval[None, :]).reshape(frames, h, w)
+        sidx = scatter_idx[v]
+        cov[np.ix_(fi, np.unique(sidx[sidx < eq_pixels]))] = True
+    return masks
+
+
+def device_sphere_masks(mask_gather_idx: torch.Tensor, mask_valid: torch.Tensor, scatter_idx: torch.Tensor,
+                        pair_view: Sequence[int], pair_f: Sequence[int], frames: int, total_f: int,
+                        eq_pixels: int) -> torch.Tensor:
+    """On-device twin of :func:`sphere_earlier_masks`: ``mask_gather_idx``
+    and ``mask_valid`` [Nv, h, w] (native resolution), ``scatter_idx`` [Nv,
+    hs, ws] (the write footprint, ``eq_pixels`` invalid). Returns [pairs,
+    frames, h, w, 1] float32."""
+    dev = mask_gather_idx.device
+    mh, mw = mask_gather_idx.shape[1:]
+    cov = torch.zeros((total_f, eq_pixels), dtype=torch.float32, device=dev)
+    masks = []
+    for v, f0 in zip(pair_view, pair_f):
+        fi = wrap_slice_indices(f0, frames, total_f, dev)
+        gi = mask_gather_idx[v].reshape(-1).clamp(max=eq_pixels - 1)
+        masks.append(cov[fi][:, gi] * mask_valid[v].reshape(1, -1))
+        si = scatter_idx[v].reshape(-1)
+        cov[fi[:, None], si[si < eq_pixels][None, :]] = 1.0
+    return torch.stack(masks).reshape(len(masks), frames, mh, mw, 1)
+
+
+# ---------------------------------------------------------------------------
+# one step
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SphereStep:
+    """What one DDIM step of the sphere loop needs besides the state."""
+
+    t: int
+    index: int
+    pair_view: Tuple[int, ...]
+    pair_f: Tuple[int, ...]
+    context: torch.Tensor  # [pairs, L, D]
+    renoise_ratio: float
+    merge_prev_ratio: float
+    paste: bool
+    step: int  # the loop step, which names its noise draws
+
+
+class _Sampler:
+    """The step functions of one sampler call (model, schedule and the
+    options that do not change from step to step)."""
+
+    def __init__(self, model, sched, frames, guidance, fps, mode, unet_microbatch, get_scale, set_scale,
+                 generator, noise_fn):
+        self.model, self.sched, self.frames = model, sched, frames
+        self.guidance, self.fps, self.mode, self.unet_microbatch = guidance, fps, mode, unet_microbatch
+        self.get_scale, self.set_scale = get_scale, set_scale
+        self.generator, self.noise_fn = generator, noise_fn
+
+    def _noise(self, shape, name):
+        return draw_noise(shape, self.model.device, self.generator, self.noise_fn, name)
+
+    def _renoise(self, wins, sp: SphereStep, mask, name):
+        if sp.renoise_ratio == 0.0:  # a 0-ratio mix is the identity: draw no noise
+            return wins
+        noised = re_noise(self.sched, wins, max(sp.index - 1, 0), sp.index, noise=self._noise(wins.shape, name))
+        return mix_with_mask(wins, noised, mask, sp.renoise_ratio)
+
+    def _to_native(self, wins):
+        if self.get_scale == 1:
+            return wins
+        return resize_video_latent(wins, wins.shape[2] // self.get_scale, wins.shape[3] // self.get_scale,
+                                   mode="nearest")
+
+    def _to_set(self, *ts):
+        if self.set_scale == 1:
+            return ts
+        return tuple(resize_video_latent(t, t.shape[2] * self.set_scale, t.shape[3] * self.set_scale,
+                                         mode="nearest") for t in ts)
+
+    def _static(self, latent, static_clean, sp: SphereStep):
+        clean = static_clean.expand(latent.shape[0], latent.shape[1], *static_clean.shape[2:])
+        return re_noise(self.sched, clean, 0, sp.index, noise=self._noise(clean.shape, f"static:{sp.step}"))
+
+    def _gather(self, flat, maps: PhaseMaps, v, f0, F):
+        """[frames, h * w, C] window of view v at frame origin f0 of a
+        [F, H * W, C] latent, invalid pixels zeroed."""
+        fi = wrap_slice_indices(f0, self.frames, F, flat.device)
+        return flat[fi][:, maps.gather[v].reshape(-1)] * maps.valid[v].reshape(1, -1, 1)
+
+    def step(self, latent, denoised, static_clean, maps, native, set_maps, uncond, sp: SphereStep):
+        """One DDIM step; returns the new (latent, denoised). ``latent``
+        [1, F, EH, EW, C]; ``maps`` / ``native`` / ``set_maps`` the phase's
+        maps at the get, native and set resolutions."""
+        if self.mode == "sequential":
+            return self._step_sequential(latent, denoised, static_clean, maps, native, set_maps, uncond, sp)
+        B, F, EH, EW, C = latent.shape
+        h, w = maps.gather.shape[1:]
+        flat = latent[0].reshape(F, EH * EW, C)
+        wins = torch.stack([self._gather(flat, maps, v, f0, F) for v, f0 in zip(sp.pair_view, sp.pair_f)])
+        wins = self._to_native(wins.reshape(-1, self.frames, h, w, C))
+        earlier = device_sphere_masks(native.gather, native.valid, set_maps.scatter, sp.pair_view, sp.pair_f,
+                                      self.frames, F, EH * EW)
+        prev = wins
+        wins = self._renoise(wins, sp, earlier, f"renoise:{sp.step}")
+
+        n = wins.shape[0]
+        if self.guidance != 1.0:
+            x = torch.cat([wins, wins])
+            ctx = torch.cat([sp.context, uncond.expand((n,) + tuple(uncond.shape[1:]))])
+            eps = self.model.apply_unet_microbatched(x, sp.t, ctx, self.fps, self.unet_microbatch)
+            eps = eps[n:] + self.guidance * (eps[:n] - eps[n:])
+        else:
+            eps = self.model.apply_unet_microbatched(wins, sp.t, sp.context, self.fps, self.unet_microbatch)
+        new, den = ddim_step(self.sched, wins, eps, torch.full((self.frames,), sp.index, dtype=torch.long))
+        new = mix_with_mask(new, prev, earlier, sp.merge_prev_ratio)
+        new, den = self._to_set(new, den)
+
+        target = self._static(latent, static_clean, sp) if sp.paste else latent
+        pairs = list(zip(sp.pair_view, sp.pair_f))
+        if self.mode == "average":
+            acc, dacc = torch.zeros_like(target), torch.zeros_like(target)
+            cnt = torch.zeros(target.shape[:-1] + (1,), dtype=target.dtype, device=target.device)
+            dcnt = torch.zeros_like(cnt)  # the same counts again
+            for k, (v, f0) in enumerate(pairs):
+                add_view_nearest(acc, cnt, new[k:k + 1], set_maps.scatter[v], frame_origin=f0)
+                add_view_nearest(dacc, dcnt, den[k:k + 1], set_maps.scatter[v], frame_origin=f0)
+            return normalize_accumulated(acc, cnt, target), normalize_accumulated(dacc, cnt, denoised)
+        for k, (v, f0) in enumerate(pairs):  # pair order: the last write wins
+            set_view_nearest(target, new[k:k + 1], set_maps.plans[v], frame_origin=f0)
+            set_view_nearest(denoised, den[k:k + 1], set_maps.plans[v], frame_origin=f0)
+        return target, denoised
+
+    def _step_sequential(self, latent, denoised, static_clean, maps, native, set_maps, uncond, sp: SphereStep):
+        """The reference's exact ordering (i2v_sphere_panorama_pipeline.py:
+        279-471): each pair gathers from the CURRENT latent, seeing the
+        writes of the pairs before it, and writes both the latent and the
+        paste target; the coverage mask is written with each pair's set
+        footprint and read at the native view resolution."""
+        B, F, EH, EW, C = latent.shape
+        h, w = maps.gather.shape[1:]
+        mh, mw = native.gather.shape[1:]
+        eq = EH * EW
+        tgt = self._static(latent, static_clean, sp) if sp.paste else latent
+        cov = torch.zeros((F, eq), dtype=torch.float32, device=latent.device)
+        frame_idx = torch.full((self.frames,), sp.index, dtype=torch.long)
+        uc = uncond[:1]
+        for k, (v, f0) in enumerate(zip(sp.pair_view, sp.pair_f)):
+            fi = wrap_slice_indices(f0, self.frames, F, latent.device)
+            win = self._gather(latent[0].reshape(F, eq, C), maps, v, f0, F)
+            win = self._to_native(win.reshape(1, self.frames, h, w, C))
+            prev = win
+            mgi = native.gather[v].reshape(-1).clamp(max=eq - 1)
+            m = (cov[fi][:, mgi] * native.valid[v].reshape(1, -1)).reshape(1, self.frames, mh, mw, 1)
+            win = self._renoise(win, sp, m, f"pair:{sp.step}:{k}")
+            ctx_k = sp.context[k:k + 1]
+            if self.guidance != 1.0:
+                eps = self.model.apply_unet(torch.cat([win, win]), torch.full((2,), sp.t, device=win.device),
+                                            torch.cat([ctx_k, uc]), self.fps)
+                eps = eps[1:] + self.guidance * (eps[:1] - eps[1:])
+            else:
+                eps = self.model.apply_unet(win, torch.full((1,), sp.t, device=win.device), ctx_k, self.fps)
+            new, den_w = ddim_step(self.sched, win, eps, frame_idx)
+            new = mix_with_mask(new, prev, m, sp.merge_prev_ratio)
+            new, den_w = self._to_set(new, den_w)
+            plan = set_maps.plans[v]
+            set_view_nearest(latent, new, plan, frame_origin=f0)
+            if sp.paste:
+                set_view_nearest(tgt, new, plan, frame_origin=f0)
+            set_view_nearest(denoised, den_w, plan, frame_origin=f0)
+            cov[fi[:, None], plan.tgt[None, :]] = 1.0
+        return tgt, denoised
+
+
+# ---------------------------------------------------------------------------
+# conditioning
+# ---------------------------------------------------------------------------
+
+
+# view crops made and encoded at a time (the CLI's 440 crops of 320x512 are
+# 865 MB in fp32 at once)
+CROP_CHUNK = 64
+
+
+def _view_contexts(model, prompt, pano_image, phase_views, view_fov, phi_prompt_dict, phi_fov_dict, height,
+                   width, use_image_cond):
+    """The all-phases context bank [V, L, D] and, per phase, the bank rows
+    of its views: one text encode of the unique per-phi prompts and one
+    image encode of every view's perspective crop of the panorama (the crop
+    at the full view resolution, i2v_sphere_panorama_pipeline.py:367-376),
+    gathered on the model's device and encoded ``CROP_CHUNK`` crops at a
+    time."""
+    phase_gid, prompts, specs = {}, [], []
+    for phase, views in phase_views.items():
+        phase_gid[phase] = np.arange(len(prompts), len(prompts) + len(views))
+        prompts += [(phi_prompt_dict or {}).get(phi, prompt) for phi, _ in views]
+        specs += [((phi_fov_dict or {}).get(phi, view_fov), theta, phi) for phi, theta in views]
+    text = encode_texts_cached(model, prompts, {})
+    if not use_image_cond:
+        return text, phase_gid
+    eq_h, eq_w = pano_image.shape[:2]
+    dev = model.device
+    flat = torch.as_tensor(pano_image, device=dev).reshape(-1, 3)
+    embs = []
+    for i in range(0, len(specs), CROP_CHUNK):
+        svs = make_sphere_views(specs[i:i + CROP_CHUNK], height, width, eq_h, eq_w)
+        idx = torch.as_tensor(np.stack([sv.gather_idx for sv in svs]), dtype=torch.long, device=dev)
+        valid = torch.as_tensor(np.stack([sv.valid for sv in svs]), device=dev)
+        crops = flat[idx.reshape(-1)].reshape(len(svs), height, width, 3) * valid[..., None]
+        embs.append(model.encode_image_cond(crops))
+    return cat_text_image(text, torch.cat(embs)), phase_gid
+
+
+# ---------------------------------------------------------------------------
+# sampler
+# ---------------------------------------------------------------------------
+
+
+def sample_shift_sphere_panorama(
+    model,
+    prompt: str,
+    pano_image,  # [eq_h, eq_w, 3] in [-1, 1]
+    equirect_width: int,
+    equirect_height: int,
+    phi_theta_dict: Dict[float, Sequence[float]],
+    view_fov: float = 120,
+    loop_step_theta: int = 10,
+    phi_prompt_dict: Optional[Dict[float, str]] = None,
+    phi_fov_dict: Optional[Dict[float, float]] = None,
+    total_f: Optional[int] = None,
+    dock_at_f: bool = False,
+    overlap_ratio_list_f: Optional[Sequence[float]] = None,
+    loop_step_frame: Optional[int] = None,
+    height: int = 320,
+    width: int = 512,
+    frames: int = 16,
+    fps: int = 16,
+    guidance_scale: float = 7.5,
+    num_inference_steps: int = 48,
+    denoise_to_step: Optional[int] = None,
+    paste_on_static: bool = True,
+    merge_renoised_overlap_latent_ratio: Optional[float] = 1.0,
+    merge_prev_denoised_ratio_list: Optional[Sequence[float]] = None,
+    use_skip_time: bool = False,
+    skip_time_step_idx: Optional[int] = None,
+    progressive_skip: bool = False,
+    init_sphere_latent=None,
+    downsample_factor_before_vae_decode: Optional[float] = None,
+    view_get_scale_factor: int = 1,
+    view_set_scale_factor: int = 1,
+    overlap_mode: str = "last",
+    unet_microbatch: int = 8,
+    use_image_cond: Optional[bool] = None,
+    generator: Optional[torch.Generator] = None,
+    noise_fn=None,
+    decode: bool = False,
+):
+    """Sphere panorama shift-window sampling. Returns (video or None, final
+    latent, denoised latent), each ``[1, total_f, eq_h / vs, eq_w / vs, C]``
+    (divided by ``downsample_factor_before_vae_decode`` when given).
+    ``use_image_cond`` defaults to whether the model has an image encoder
+    (i2v); the t2v variant is the same algorithm with text-only
+    conditioning. ``denoise_to_step`` stops after that many steps (the CLI
+    runs 15 of 48)."""
+    if equirect_width != 2 * equirect_height:
+        raise ValueError("equirect requires W = 2H")
+    if overlap_mode not in ("last", "average", "sequential"):
+        raise ValueError(f"overlap_mode {overlap_mode!r}")
+    dev = model.device
+    sched = make_schedule_for_model(model, num_inference_steps)
+    vs = model.config.vae.spatial_scale
+    lat_h, lat_w = height // vs, width // vs
+    eq_lat_h, eq_lat_w = equirect_height // vs, equirect_width // vs
+    total_f = total_f or frames
+    S = num_inference_steps
+    C = model.config.unet.in_channels
+    if use_image_cond is None:
+        use_image_cond = model.image_encoder is not None
+    if torch.is_tensor(pano_image):
+        pano_image = pano_image.detach().cpu().numpy()
+    pano_image = np.asarray(pano_image, np.float32)
+
+    # per-phase view maps: gather at the get scale, scatter at the set scale
+    # (i2v_sphere_panorama_pipeline.py:330-343,422-435), coverage read at
+    # the native window resolution
+    phase_views = sphere_phase_views(phi_theta_dict, loop_step_theta, view_fov)
+
+    def maps_at(scale):
+        return _phase_view_maps(phase_views, view_fov, lat_h * scale, lat_w * scale, eq_lat_h, eq_lat_w,
+                                phi_fov_dict, dev)
+    maps = maps_at(view_get_scale_factor)
+    native = maps if view_get_scale_factor == 1 else maps_at(1)
+    set_maps = maps if view_set_scale_factor == view_get_scale_factor else maps_at(view_set_scale_factor)
+
+    ctx_bank, phase_gid = _view_contexts(model, prompt, pano_image, phase_views, view_fov, phi_prompt_dict,
+                                         phi_fov_dict, height, width, use_image_cond)
+    uncond = build_uncond_context(model, with_image=use_image_cond, image_hw=(lat_h, lat_w))
+
+    # the clean static pano latent, encoded once
+    if paste_on_static or use_skip_time:
+        static_clean = tiled_vae_encode(model, pano_image)
+    else:
+        static_clean = torch.zeros((1, 1, eq_lat_h, eq_lat_w, C), device=dev)
+
+    skip = int(skip_time_step_idx or 0)
+    shape = (1, total_f, eq_lat_h, eq_lat_w, C)
+    if init_sphere_latent is not None:
+        latent = torch.as_tensor(init_sphere_latent, dtype=torch.float32, device=dev).clone()
+    elif not use_skip_time:
+        latent = draw_noise(shape, dev, generator, noise_fn, "init")
+    else:
+        clean = static_clean.repeat(1, total_f, 1, 1, 1)
+        noise = draw_noise(clean.shape, dev, generator, noise_fn, "skip")
+        if progressive_skip:
+            steps_b = np.full((total_f,), S - 1, np.int64)
+            for frame_idx, pskip in enumerate(reversed(range(skip))):
+                steps_b[frame_idx] = S - pskip - 1
+            noised = re_noise_per_frame(sched, clean, torch.from_numpy(steps_b), noise=noise)
+            sel = (torch.arange(total_f, device=dev) < skip)[None, :, None, None, None]
+            latent = torch.where(sel, noised, draw_noise(shape, dev, generator, noise_fn, "init"))
+        else:
+            latent = re_noise(sched, clean, 0, S - 1, noise=noise)
+
+    steps_eff = S - (skip if use_skip_time and not progressive_skip else 0)
+    if denoise_to_step is not None:
+        steps_eff = min(steps_eff, denoise_to_step)
+    ratios_f = overlap_ratio_list_f if overlap_ratio_list_f is not None else [0.5] * S
+    ddim_ts = sched.ddim_timesteps.cpu().numpy()
+    sampler = _Sampler(model, sched, frames, guidance_scale, fps, overlap_mode, unet_microbatch,
+                       view_get_scale_factor, view_set_scale_factor, generator, noise_fn)
+
+    denoised = torch.zeros_like(latent)
+    for i in range(steps_eff):
+        # with skip the table index keeps counting from the truncated top
+        index = (S - (skip if use_skip_time and not progressive_skip else 0)) - 1 - i
+        phase = i % loop_step_theta
+        f_origins = frame_window_origins(i, total_f, frames, ratios_f[i], loop_step_frame, dock_at_f)
+        Nv = len(phase_views[phase])
+        ids = np.concatenate([phase_gid[phase]] * len(f_origins))
+        last = i == steps_eff - 1
+        sp = SphereStep(
+            t=int(ddim_ts[index]), index=index,
+            pair_view=tuple(v for _ in f_origins for v in range(Nv)),
+            pair_f=tuple(f0 for f0 in f_origins for _ in range(Nv)),
+            context=ctx_bank[torch.as_tensor(ids, dtype=torch.long, device=ctx_bank.device)],
+            renoise_ratio=float(merge_renoised_overlap_latent_ratio)
+            if merge_renoised_overlap_latent_ratio is not None and not last else 0.0,
+            merge_prev_ratio=float(merge_prev_denoised_ratio_list[i])
+            if merge_prev_denoised_ratio_list is not None and not last else 0.0,
+            paste=bool(paste_on_static and not last),
+            step=i,
+        )
+        latent, denoised = sampler.step(latent, denoised, static_clean, maps[phase], native[phase],
+                                        set_maps[phase], uncond, sp)
+
+    out_latent, out_denoised = latent, denoised
+    if downsample_factor_before_vae_decode and downsample_factor_before_vae_decode != 1:
+        th = int(eq_lat_h // downsample_factor_before_vae_decode)
+        tw = int(eq_lat_w // downsample_factor_before_vae_decode)
+        out_latent = resize_video_latent(out_latent, th, tw, mode="nearest")
+        out_denoised = resize_video_latent(out_denoised, th, tw, mode="nearest")
+    video = model.decode_video_chunked(out_denoised) if decode else None
+    return video, out_latent, out_denoised

@@ -1,0 +1,193 @@
+"""Kernels 10 and 13 of the PyTorch port (``ops/fused_block.py``,
+``ops/fused_mega.py``) and its per-shape dispatch plan, against the JAX
+package on the CPU.
+
+On the CPU each wrapper takes its plain PyTorch version; the JAX side runs
+``_temporal_block_call`` and ``_s_mega_call`` through the Pallas
+interpreter (``fused_temporal.set_mode("interpret")``, as
+tests/test_fused_block.py and tests/test_fused_mega.py do). Inputs and
+weights come from a numpy seed (JAX weights in flax ``[in, out]`` layout,
+the port's transposed). Tolerance: both sides compute in fp32 with the same
+rounding points and differ only in the order of their sums (LayerNorm and
+GroupNorm statistics, the products, the softmax denominators), so rtol 1e-4
+with an absolute floor of 1e-4 of the output's largest magnitude. The tiny
+UNet with the tiny widths planned onto kernels 10 and 13 is held against the
+JAX UNet (XLA path) with the tolerance of tests/test_torch_unet.py.
+"""
+
+import collections
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from dynamicscaler_tpu.models.lvdm import tiny_test_config as jtiny
+from dynamicscaler_tpu.models.unet3d import UNet3D as JUNet3D
+from dynamicscaler_tpu.ops import fused_block as jblock
+from dynamicscaler_tpu.ops import fused_mega as jmega
+from dynamicscaler_tpu.ops import fused_temporal as jtemporal
+from dynamicscaler_tpu_torch.config import tiny_test_config
+from dynamicscaler_tpu_torch.models.unet3d import UNet3D
+from dynamicscaler_tpu_torch.ops import fused_block, fused_mega, fused_temporal
+from dynamicscaler_tpu_torch.utils import weights
+from torch_port_helpers import random_jax_params
+
+
+@pytest.fixture
+def interpret():
+    jtemporal.set_mode("interpret")
+    yield
+    jtemporal.set_mode("auto")
+
+
+@pytest.fixture
+def restore_plan():
+    yield
+    fused_temporal.set_plan()
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _close(got, ref):
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4 * max(1.0, float(np.abs(ref).max())))
+
+
+def _w(rng, n_in, n_out):
+    return (rng.standard_normal((n_in, n_out)) / np.sqrt(n_in)).astype(np.float32)
+
+
+def _vec(rng, n, base=0.0):
+    return (base + 0.1 * rng.standard_normal(n)).astype(np.float32)
+
+
+def _block_weights(rng, C, Dc=None, img=False):
+    """One block's weights, flax layout: (lns, attn1, attn2, ff); attn2 is
+    (wq, wk, wv, wo, bo) + (wk_ip, wv_ip) with image keys."""
+    Dc = Dc or C
+    lns = tuple(_vec(rng, C, base) for _ in range(3) for base in (1.0, 0.0))
+    a1 = (_w(rng, C, C), _w(rng, C, C), _w(rng, C, C), _w(rng, C, C), _vec(rng, C))
+    a2 = (_w(rng, C, C), _w(rng, Dc, C), _w(rng, Dc, C), _w(rng, C, C), _vec(rng, C))
+    if img:
+        a2 += (_w(rng, Dc, C), _w(rng, Dc, C))
+    ff = (_w(rng, C, 8 * C), _vec(rng, 8 * C), _w(rng, 4 * C, C), _vec(rng, C))
+    return lns, a1, a2, ff
+
+
+def _port(ws):
+    """Port layout: weights [out, in], vectors as they are."""
+    return tuple(_t(w.T) if w.ndim == 2 else _t(w) for w in ws)
+
+
+def _jax_attn2(a2):
+    """The JAX kernels' attn2 order: (wq, wk, wv[, wk_ip, wv_ip], wo, bo)."""
+    return tuple(jnp.asarray(w) for w in (a2[:3] + a2[5:] + a2[3:5]))
+
+
+@pytest.mark.parametrize("R,C,heads", [(40, 64, 1), (24, 128, 2)])
+def test_temporal_block_matches_pallas(rng, interpret, R, C, heads):
+    """Kernel 10's plain version: the whole temporal block over 16-frame
+    rows (R rows, not a multiple of the TPU kernel's row tile)."""
+    x = rng.standard_normal((R, 16, C)).astype(np.float32)
+    lns, a1, a2, ff = _block_weights(rng, C)
+    scale = 64 ** -0.5
+    ref = jblock.fused_temporal_block(jnp.asarray(x), tuple(map(jnp.asarray, lns)), tuple(map(jnp.asarray, a1)),
+                                      tuple(map(jnp.asarray, a2)), tuple(map(jnp.asarray, ff)), heads=heads,
+                                      scale=scale)
+    got = fused_block.fused_temporal_block(_t(x), tuple(map(_t, lns)), _port(a1), _port(a2), _port(ff),
+                                           heads=heads, scale=scale)
+    assert got.shape == (R, 16, C) and fused_block.fused_temporal_block.launches == 0
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("img,C,heads", [(False, 64, 1), (True, 128, 2)])
+def test_spatial_mega_matches_pallas(rng, interpret, img, C, heads):
+    """Kernel 13's plain version: the whole SpatialTransformer over N = 256
+    tokens, 2 clips of 2 frames, a context width of 128 given per clip (the
+    JAX kernel takes it repeated per frame); t2v with an odd text length,
+    i2v with 77 text + 16 image keys."""
+    clips, frames, H, W, Dc = 2, 2, 16, 16, 128
+    L = 77 + 16 if img else 21
+    x4 = (2.0 * rng.standard_normal((clips * frames, H, W, C)) + 0.5).astype(np.float32)
+    ctx = rng.standard_normal((clips, L, Dc)).astype(np.float32)
+    gs, gb = _vec(rng, C, 1.0), _vec(rng, C)
+    w_in, b_in, w_out, b_out = _w(rng, C, C), _vec(rng, C), _w(rng, C, C), _vec(rng, C)
+    lns, a1, a2, ff = _block_weights(rng, C, Dc, img)
+    scale = 64 ** -0.5
+    ref = jmega.spatial_transformer(
+        jnp.asarray(x4), jnp.asarray(np.repeat(ctx, frames, axis=0)), jnp.asarray(gs), jnp.asarray(gb),
+        jnp.asarray(w_in), jnp.asarray(b_in), tuple(map(jnp.asarray, lns)), tuple(map(jnp.asarray, a1)),
+        _jax_attn2(a2), tuple(map(jnp.asarray, ff)), jnp.asarray(w_out), jnp.asarray(b_out), heads=heads,
+        scale=scale)
+    got = fused_mega.spatial_transformer(_t(x4), _t(ctx), _t(gs), _t(gb), _t(w_in.T), _t(b_in),
+                                         tuple(map(_t, lns)), _port(a1), _port(a2), _port(ff), _t(w_out.T),
+                                         _t(b_out), heads=heads, scale=scale)
+    assert got.shape == x4.shape and fused_mega.spatial_mega.launches == 0
+    _close(got, ref)
+
+
+def test_plan_table_and_overrides(restore_plan):
+    assert fused_temporal.plan_allows("block", "t", 320) and fused_temporal.plan_allows("block", "t", 512)
+    assert not fused_temporal.plan_allows("mega", "t", 320)
+    assert fused_temporal.plan_allows("mega", "s", 320) and fused_temporal.plan_allows("block", "s", 320)
+    for side, c in (("t", 640), ("t", 1280), ("s", 640), ("s", 1280), ("t", 64), ("s", 32)):
+        assert not fused_temporal.plan_allows("block", side, c) and not fused_temporal.plan_allows("mega", side, c)
+    fused_temporal.set_plan({("t", 64): "wrap+blk", ("s", 32): "mega", ("s", 320): "wrap+sub"})
+    assert fused_temporal.plan_allows("block", "t", 64) and fused_temporal.plan_allows("mega", "s", 32)
+    assert not fused_temporal.plan_allows("mega", "s", 320)
+    fused_temporal.set_plan({("t", 320): "wrap+sub"})
+    assert not fused_temporal.plan_allows("block", "t", 320) and fused_temporal.plan_allows("mega", "s", 320)
+    with pytest.raises(ValueError):
+        fused_temporal.set_plan({("t", 320): "subs"})
+    fused_temporal.set_plan()
+    assert fused_temporal._PLAN == fused_temporal.PLAN_DEFAULT
+
+
+@pytest.fixture
+def route_counts(monkeypatch):
+    """Calls of the plain versions of kernels 10 and 13 (the routes a CPU
+    forward takes)."""
+    calls = collections.Counter()
+    for mod, name in ((fused_block, "temporal_block_plain"), (fused_mega, "spatial_mega_plain")):
+        fn = getattr(mod, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("img", [False, True])
+def test_unet_on_block_and_mega_routes_matches_jax(restore_plan, route_counts, img):
+    """The tiny UNet with its widths (32, 64) planned onto kernels 10 and 13
+    against the JAX UNet and against the port's default (sub-block) path."""
+    rng = np.random.default_rng(2)
+    cfg = tiny_test_config(img_attention=img).unet
+    L = 77 + (4 if img else 0)
+    x = rng.standard_normal((2, 4, 8, 8, 4)).astype(np.float32)
+    ctx = rng.standard_normal((2, L, cfg.context_dim)).astype(np.float32)
+    t = np.array([700, 40], np.int32)
+    jm = JUNet3D(jtiny(img_attention=img).unet)
+    params = random_jax_params(jm.init, jnp.zeros((1, 2, 8, 8, 4)), jnp.zeros((1,), jnp.int32),
+                               jnp.zeros((1, L, cfg.context_dim)), 16, seed=4)
+    ref = np.asarray(jax.jit(jm.apply, static_argnums=4)(params, jnp.asarray(x), jnp.asarray(t),
+                                                         jnp.asarray(ctx), 16))
+    tm = UNet3D(cfg)
+    tm.load_state_dict(weights.from_jax_unet(params, cfg))
+    args = (torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ctx), 16)
+    with torch.no_grad():
+        default = tm(*args)
+        assert not route_counts
+        fused_temporal.set_plan({("t", 32): "wrap+blk", ("t", 64): "wrap+blk", ("s", 32): "mega",
+                                 ("s", 64): "mega"})
+        got = tm(*args)
+    # every transformer of the tiny UNet (3 input, 1 middle, 3 output levels with attention)
+    assert route_counts == {"temporal_block_plain": 7, "spatial_mega_plain": 7}
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=1e-3)
+    np.testing.assert_allclose(got.numpy(), default.numpy(), atol=1e-5, rtol=1e-5)

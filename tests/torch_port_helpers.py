@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from dynamicscaler_tpu.models.clip import CLIPTextEncoder as JCLIPText
 from dynamicscaler_tpu.models.clip import CLIPVisionEncoder as JCLIPVision
@@ -15,6 +16,14 @@ from dynamicscaler_tpu_torch.config import tiny_test_config
 from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
 from dynamicscaler_tpu_torch.utils import weights
 from dynamicscaler_tpu_torch.utils.tokenizer import HashTokenizer
+
+# One torch intra-op thread per test process. The suite runs several pytest
+# workers on a few cores; torch's OpenMP pool of a thread per core in every
+# worker oversubscribes them, and its spin-waits made the port's twin tests
+# about 10x slower than with one thread (six twin files: 860 s against 75 s
+# on an 8-core host). Workers import every test module at collection, so
+# this holds for the whole run.
+torch.set_num_threads(1)
 
 
 def random_jax_params(init_fn, *args, seed=0, scale=0.02):
@@ -105,15 +114,22 @@ def i2v_twin_models(seed=20):
 
 def jax_noise(key):
     """The port's noise_fn for a JAX sampler call with ``key``: each named
-    draw is the JAX sampler's own draw (pipelines/i2v.py splits
-    (k_init, k_run, k_noise); the engine folds the step, then the window)."""
+    draw is the JAX sampler's own draw (pipelines/i2v.py and
+    pipelines/sphere.py split (k_init, k_run, k_noise); the planar engine
+    folds the step, then the window). The sphere sampler's step key is
+    k_run folded with the step; it draws the window batch's re-noise from
+    the step key (``renoise:{step}``), the static panorama's from the step
+    key folded with 1 (``static:{step}``) and, in ``sequential`` mode, pair
+    k's from the step key folded with k + 2 (``pair:{step}:{k}``)."""
     k_init, k_run, k_noise = jax.random.split(key, 3)
+    extra_fold = {"static": lambda idx: [*idx, 1], "pair": lambda idx: [idx[0], idx[1] + 2]}
 
     def fn(name, shape):
         kind, *idx = name.split(":")
-        k = {"init": k_init, "skip": k_noise, "renoise": k_run}[kind]
-        for i in idx:
-            k = jax.random.fold_in(k, int(i))
+        idx = [int(i) for i in idx]
+        k = {"init": k_init, "skip": k_noise, "renoise": k_run, "static": k_run, "pair": k_run}[kind]
+        for i in extra_fold.get(kind, lambda idx: idx)(idx):
+            k = jax.random.fold_in(k, i)
         return np.array(jax.random.normal(k, shape))
 
     return fn
