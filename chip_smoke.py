@@ -10,25 +10,30 @@ Phases, in order, one result line each (any failure exits non-zero):
    versions (seeded random bf16 weights, zero-initialised layers perturbed):
    one full-width VideoCrafter2 t2v UNet forward at window batch 2 (one CFG
    pair, 16 frames, 40x64 latent) with a device-time profile by kernel
-   class; one full-width i2v UNet forward at the UNet batch 8 of phases 5
-   and 6; the tiled VAE encode of phase 5's panorama and the ring decode of
-   one of its latent frames. Relative error, times and exact launch counts
-   (the UNet under the port's dispatch plan: kernel 10 for the C = 320 and
-   512 temporal blocks, kernel 13 for the C = 320 spatial transformers).
+   class; full-width i2v UNet forwards at the UNet batch 8 of phases 5 and
+   6 under the port's dispatch plan, under "off" (the highest legal level
+   everywhere: kernel 12 at the temporal transformers of C 320 / 640,
+   kernel 10 at init_attn and C 1280, kernel 13 at the spatial ones of C
+   320 / 640) and under the all-wrap+blk plan (kernel 10 at all 17 temporal
+   blocks, kernel 11 at the 10 spatial blocks of C 320 / 640); the tiled
+   VAE encode of phase 5's panorama and the ring decode of one of its latent
+   frames. Relative error, times and exact launch counts (derived from the
+   plan, the UNet layout and the kernels' gates by ``expected_launches``).
    Every kernel call of the kernel-path runs is recorded with its input
    shapes.
 3. each kernel against its plain PyTorch version, bf16, at every shape that
    phase 2 recorded: K1-K4 (K3 in its t2v and i2v variants), the
    transformer wrapper heads and tails K5-K8, ``gn_silu`` K9 (UNet and VAE),
-   the whole temporal block K10 and the whole spatial transformer K13.
+   the whole blocks K10 and K11 and the whole transformers K12 and K13.
    Per shape: max abs error against the stated tolerance, L2 error, and the
    kernel, plain and library-composite times (CUDA events) beside the bound
    (the least time the H100 could take for the kernel's work). The
    GroupNorm statistics pass (``group_norm_fold``, plain PyTorch) whose
-   vectors K5, K7, K9 and K13 read is timed on its own. At the K10 and K13
-   shapes the transformer module is also timed at the plan level the kernel
-   replaces (fold + K5 + K1 + K1 + K4 + K6 against fold + K5 + K10 + K6;
-   fold + K7 + K2 + K3 + K4 + K8 against fold + K13).
+   vectors K5, K7, K9, K12 and K13 read is timed on its own. Then the
+   transformer module at every legal level (mega, wrap+blk, wrap+sub) at
+   every (side, width) of the batch-8 i2v forward, the fold included, and
+   one line saying whether ``PLAN_DEFAULT`` still names each shape's fastest
+   level (naming any shape where another level was faster by more than 5%).
 4. the t2v path: after a one-step warm-up request, two prompts through
    ``pipelines.t2v.sample_shift_multi_windows`` (2 windows of 320x512, a
    320x1024x16 panorama, 4 DDIM steps, CFG 7.5, frame-chunked VAE decode);
@@ -38,8 +43,8 @@ Phases, in order, one result line each (any failure exits non-zero):
    on a smooth seeded 512x1024 panorama, 2x2 windows of 320x512, 16 frames,
    CFG 7.5, UNet batch 8, skip-time init from the tiled VAE encode, the last
    4 steps of the 48-step table, ring-aware decode; a one-step warm-up
-   request, then one timed request with the counters zeroed before and read
-   after.
+   request, then one timed request under the dispatch plan and one under
+   "off", the counters zeroed before and read after each.
 6. stage 1 of gen_pano_360, the sphere sampler, at the CLI's geometry: the
    full-width i2v bundle on a smooth seeded 2048x1024 equirect panorama
    (latent 128x256, 16 frames), the CLI's 44-view grid with its per-phi
@@ -48,7 +53,9 @@ Phases, in order, one result line each (any failure exits non-zero):
    as 11 forwards of 8; steps cut to 2 of the 48-step table (step 0 the
    warm-up, step 1 timed), counters zeroed before and read after.
 
-Then one JSON line of kernel records, and last the device JSON line.
+Then one JSON line of kernel records (K1-K13; ``launches`` is the sum over
+the paths: the three samplers, phase 5's "off" request and phase 2's two
+override forwards), and last the device JSON line.
 """
 
 from __future__ import annotations
@@ -89,6 +96,10 @@ KERNELS = {
            "dynamicscaler_tpu_torch/csrc/gn_silu.cu", "dynamicscaler_tpu/ops/fused_twrap.py:386"),
     "K10": (fused_block.fused_temporal_block, "fused_temporal_block (whole temporal transformer block)",
             "dynamicscaler_tpu_torch/csrc/block.cu", "dynamicscaler_tpu/ops/fused_block.py:292"),
+    "K11": (fused_block.fused_spatial_block, "fused_spatial_block (whole spatial transformer block)",
+            "dynamicscaler_tpu_torch/csrc/mega.cu", "dynamicscaler_tpu/ops/fused_block.py:447"),
+    "K12": (fused_mega.temporal_mega, "temporal_mega (whole temporal transformer, folded GroupNorm)",
+            "dynamicscaler_tpu_torch/csrc/block.cu", "dynamicscaler_tpu/ops/fused_mega.py:164"),
     "K13": (fused_mega.spatial_mega, "spatial_mega (whole spatial transformer, folded GroupNorm)",
             "dynamicscaler_tpu_torch/csrc/mega.cu", "dynamicscaler_tpu/ops/fused_mega.py:340"),
 }
@@ -107,6 +118,8 @@ ROLES = {
     "K8": ("y", "gx", "w", "vec"),
     "K9": ("gx", "mul", "add"),
     "K10": ("x", "lns", "attn", "attn", "ff"),
+    "K11": ("x", "ctx", "lns", "attn", "attn", "ff"),
+    "K12": ("gx", "mul", "add", "w", "vec", "lns", "attn", "attn", "ff", "w", "vec"),
     "K13": ("gx", "ctx", "mul", "add", "w", "vec", "lns", "attn", "attn", "ff", "w", "vec"),
 }
 
@@ -127,19 +140,17 @@ TOL_GN_REL_L2 = 1e-3
 # relative L2 error of a whole model path (a full UNet forward, the tiled VAE
 # encode, a ring decode), kernels vs plain, in bf16
 TOL_PATH_REL_L2 = 0.05
-# launches per full-width UNet forward, at any batch, under the dispatch
-# plan: of the 17 temporal transformers the 5 at C = 320 and the 512-wide
-# init_attn run their block as K10 (6) and the 11 at C = 640 / 1280 as two
-# K1 and one K4 (22, 22), all 17 with the wrapper kernels K5 and K6; of the
-# 16 spatial transformers the 5 at C = 320 run whole as K13 and the 11 at
-# C = 640 / 1280 as K7, K2, K3, K4, K8 (11 each, K4 22 with the temporal
-# ones); gn_silu 6 per ResBlock (2 + 4 in its temporal conv block) x 22
-# ResBlocks + the out norm
-EXPECTED_PER_FORWARD = {"K1": 22, "K2": 11, "K3": 11, "K4": 22, "K5": 17, "K6": 17, "K7": 11, "K8": 11,
-                        "K9": 133, "K10": 6, "K13": 5}
-# the run whose per-shape sums make the kernels line's figures (as in PERF.md)
+# the runs whose per-shape sums make the kernels line's figures (as in
+# PERF.md): the batch-2 t2v forward, else the first batch-8 i2v forward in
+# which the kernel runs (default plan, then the two override plans)
 MAIN_FWD = "t2v UNet fwd batch 2"
 I2V_FWD = "i2v UNet fwd batch 8"
+# the override plans of phase 2 (and phase 5's "off" request): "off" runs
+# the highest legal level everywhere; WRAP_BLK runs every whole block
+# (kernels 10, 11) inside the wrapper kernels, at every width
+WRAP_BLK = "s320=wrap+blk,s640=wrap+blk,t320=wrap+blk,t512=wrap+blk,t640=wrap+blk,t1280=wrap+blk"
+OVERRIDES = {f"{I2V_FWD}, plan off": "off", f"{I2V_FWD}, plan wrap+blk": WRAP_BLK}
+FORWARDS = (MAIN_FWD, I2V_FWD, *OVERRIDES)
 # H100 SXM datasheet peaks: bf16 dense tensor cores, fp32
 # CUDA cores, HBM3
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -182,18 +193,18 @@ def main() -> None:
           f"on {torch.cuda.get_device_name(0)} [{smi}]", flush=True)
 
     t2v_model, i2v_model = _random_model("t2v"), _random_model("i2v")
-    sites = _phase_forwards(t2v_model, i2v_model)
-    records = _phase_kernels(sites)
-    launches_t2v = _phase_sampler(t2v_model, steps=4)
+    sites, paths = _phase_forwards(t2v_model, i2v_model)
+    records = _phase_kernels(sites, i2v_model.unet.cfg)
+    paths["t2v"] = _phase_sampler(t2v_model, steps=4)
     del t2v_model
     torch.cuda.empty_cache()
-    launches_i2v = _phase_i2v_sampler(i2v_model, steps=4)
-    launches_sphere = _phase_sphere(i2v_model, steps=2)
+    paths["i2v"], paths["i2v, plan off"] = _phase_i2v_sampler(i2v_model, steps=4)
+    paths["sphere"] = _phase_sphere(i2v_model, steps=2)
 
     kernels = [
         {"name": f"{k} {desc}", "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches_sphere[k],
-         "launches_by_path": {"t2v": launches_t2v[k], "i2v": launches_i2v[k], "sphere": launches_sphere[k]},
+         "launches": sum(n[k] for n in paths.values()),
+         "launches_by_path": {path: n[k] for path, n in paths.items()},
          **records[k]}
         for k, (_, desc, src, rep) in KERNELS.items()
     ]
@@ -338,32 +349,115 @@ def _against_plain(where, fn, sites, iters, plain_iters):
     return Versus(got, rel, finite, launches, i2v_k3, ms, plain_ms)
 
 
+def unet_transformers(cfg, H, W):
+    """(side, C, inner, heads, H, W) of every transformer of a UNet forward
+    at an H x W latent, in the order the forward runs them, with init_attn
+    (8 heads on model_channels) after the first input block."""
+    from dynamicscaler_tpu_torch.models.unet3d import unet_layout
+
+    ins, outs, mid, _ = unet_layout(cfg)
+    out, size = [], [H, W]
+    d = cfg.num_head_channels
+
+    def walk(specs):
+        for sp in specs:
+            if sp.kind == "down":
+                size[:] = [(n + 1) // 2 for n in size]
+            elif sp.kind == "up":
+                size[:] = [2 * n for n in size]
+            elif sp.kind in ("spatial", "temporal"):
+                out.append((sp.kind[0], sp.channels, sp.channels, sp.channels // d, *size))
+    walk(ins[0])
+    if cfg.addition_attention:
+        out.append(("t", cfg.model_channels, 8 * d, 8, *size))
+    for specs in (*ins[1:], mid, *outs):
+        walk(specs)
+    return out
+
+
+def expected_launches(cfg, H, W, frames=16):
+    """Kernel launches of one UNet forward at an H x W latent under the
+    current dispatch plan, from the UNet layout, the plan and the kernels'
+    gates: per transformer the whole transformer (K12 / K13) where the plan
+    allows ``mega`` and its gate admits the shape; else the wrapper head and
+    tail (K5 + K6 / K7 + K8) around the whole block (K10 / K11) where the
+    plan allows ``block`` and its gate admits it, or around the sub-blocks
+    (K1 x 2 + K4 / K2 + K3 + K4). gn_silu (K9): 2 per ResBlock, 4 more in
+    its temporal conv block, and the out norm."""
+    from dynamicscaler_tpu_torch.models.unet3d import unet_layout
+
+    n = collections.Counter()
+    allows = fused_temporal.plan_allows
+    for side, C, inner, heads, h, w in unet_transformers(cfg, H, W):
+        if side == "t":
+            if allows("mega", "t", C) and fused_mega.temporal_ok(frames, C, inner, heads):
+                n["K12"] += 1
+                continue
+            n.update(("K5", "K6"))
+            if allows("block", "t", inner) and fused_block.temporal_block_ok(frames, inner, inner, heads):
+                n["K10"] += 1
+            else:
+                n.update(("K1", "K1", "K4"))
+        else:
+            if allows("mega", "s", C) and fused_mega.spatial_ok(h * w, C, inner, heads, cfg.context_dim):
+                n["K13"] += 1
+                continue
+            n.update(("K7", "K8"))
+            if allows("block", "s", inner) and fused_block.spatial_block_ok(h * w, inner, inner, heads,
+                                                                             cfg.context_dim):
+                n["K11"] += 1
+            else:
+                n.update(("K2", "K3", "K4"))
+    ins, outs, mid, _ = unet_layout(cfg)
+    res = sum(sp.kind == "res" for specs in (*ins, mid, *outs) for sp in specs)
+    n["K9"] = (2 + 4 * cfg.temporal_conv) * res + 1
+    return {k: n[k] for k in KERNELS}
+
+
+@contextlib.contextmanager
+def _plan(spec):
+    """The dispatch plan ``spec`` inside the block, the default after it."""
+    fused_temporal.set_plan(spec)
+    try:
+        yield
+    finally:
+        fused_temporal.set_plan()
+
+
 def _phase_forwards(model, i2v_model):
     """Phase 2: one full-width t2v UNet forward at batch 2 (with a device
-    profile) and one i2v UNet forward at batch 8, the tiled encode of the
-    phase-5 panorama and the ring decode of one of its latent frames, each
-    through the kernels against the plain versions, with the exact launch
-    counts. Returns the recorded kernel calls of each run."""
+    profile) and i2v UNet forwards at batch 8 under the default plan, under
+    "off" and under the all-wrap+blk plan, the tiled encode of the phase-5
+    panorama and the ring decode of one of its latent frames, each through
+    the kernels against the plain versions, with the exact launch counts of
+    :func:`expected_launches`. Returns the recorded kernel calls of each run
+    and the launches of the override forwards by name."""
     from dynamicscaler_tpu_torch.pipelines.tiled_vae import ring_aware_decode, tiled_vae_encode
 
-    sites = {}
-    for kind, m, B, L, seed in (("t2v", model, 2, 77, 7), ("i2v", i2v_model, 8, 93, 8)):
+    sites, paths = {}, {}
+    runs = [("t2v", model, 2, 77, 7, MAIN_FWD, None), ("i2v", i2v_model, 8, 93, 8, I2V_FWD, None)]
+    runs += [("i2v", i2v_model, 8, 93, 8, where, spec) for where, spec in OVERRIDES.items()]
+    for kind, m, B, L, seed, where, spec in runs:
         x, ctx, t = _unet_inputs(B, L, seed)
 
         def fwd(m=m, x=x, ctx=ctx, t=t):
             return m.apply_unet(x, t, ctx, 16)
 
-        r = _against_plain(f"{kind} UNet fwd batch {B}", fwd, sites, 3 if B == 2 else 2, 2 if B == 2 else 1)
-        print(f"phase 2 {kind}: UNet fwd batch {B} [{B},16,40,64,4] ctx [{B},{L},1024]: rel_l2 {r.rel:.5f} "
+        with _plan(spec):
+            want = expected_launches(m.unet.cfg, 40, 64)
+            r = _against_plain(where, fwd, sites, 3 if B == 2 else 2, 2 if B == 2 else 1)
+        print(f"phase 2 {where}: [{B},16,40,64,4] ctx [{B},{L},1024]: rel_l2 {r.rel:.5f} "
               f"(tol {TOL_PATH_REL_L2}) |eps| mean {float(r.out.abs().mean()):.4f} kernels {r.ms:.1f} ms "
               f"plain {r.plain_ms:.1f} ms launches {r.launches} (K3 with image keys {r.i2v_k3})", flush=True)
         if not r.finite or r.rel > TOL_PATH_REL_L2:
-            _fail(f"{kind} UNet kernel path disagrees with the plain path: rel_l2 {r.rel} finite {r.finite}")
-        if r.launches != EXPECTED_PER_FORWARD:
-            _fail(f"{kind} launch counts {r.launches} != {EXPECTED_PER_FORWARD}")
-        if r.i2v_k3 != (EXPECTED_PER_FORWARD["K3"] if kind == "i2v" else 0):
-            _fail(f"{kind}: {r.i2v_k3} K3 launches with image keys")
-        if kind == "t2v":
+            _fail(f"{where}: the kernel path disagrees with the plain path: rel_l2 {r.rel} finite {r.finite}")
+        if r.launches != want:
+            _fail(f"{where}: launch counts {r.launches} != {want} (plan {spec or 'default'})")
+        if r.i2v_k3 != (want["K3"] if kind == "i2v" else 0):
+            _fail(f"{where}: {r.i2v_k3} K3 launches with image keys")
+        if spec:
+            paths[where] = r.launches
+        if where == MAIN_FWD:
             _profile_forward(fwd, r.ms)
         del r
     pano = smooth_panorama(512, 1024, seed=5)
@@ -380,7 +474,7 @@ def _phase_forwards(model, i2v_model):
             _fail(f"VAE {name}: shape {tuple(r.out.shape)} finite {r.finite} rel_l2 {r.rel} "
                   f"launches {r.launches}")
     print("phase 2 ok", flush=True)
-    return sites
+    return sites, paths
 
 
 def _profile_forward(fwd, wall_ms):
@@ -404,8 +498,8 @@ def _profile_forward(fwd, wall_ms):
                else "ds_gn_silu (K9)" if "gn_silu_kernel" in n
                else "ds_flash_attn (K2, K3)" if "flash_attn_kernel" in n
                else "ds_temporal_attn (K1)" if "temporal_attn_kernel" in n
-               else "ds_temporal_block (K10)" if "temporal_block_kernel" in n
-               else "ds_mega (K13)" if "mega_head_kernel" in n or "mega_body_kernel" in n
+               else "ds_temporal_block (K10, K12)" if "temporal_block_kernel" in n
+               else "ds_mega (K11, K13)" if "mega_head_kernel" in n or "mega_body_kernel" in n
                else "conv (cuDNN)" if any(s in n for s in ("conv", "cudnn", "fprop", "implicit"))
                else "gemm (cuBLAS: time emb)" if any(s in n for s in ("gemm", "cutlass"))
                else "elementwise/reduce (GN fold, casts, cat)")
@@ -486,7 +580,7 @@ def _case(k, pos, opts, rn):
     C = x.shape[-1]
     T = x.numel() // C
     fold = gn = None
-    if "mul" in ROLES[k]:  # K5, K7, K9, K13: folded vectors of gx with a GroupNorm scale and bias
+    if "mul" in ROLES[k]:  # K5, K7, K9, K12, K13: folded vectors of gx with a GroupNorm scale and bias
         gn = (1.0 + rn(C, s=0.1), rn(C, s=0.1))
 
         def fold():
@@ -496,6 +590,10 @@ def _case(k, pos, opts, rn):
     run_kw = dict(opts)
     if k == "K10":
         run_kw["operands"] = fused_block.pack_temporal_block(*a[1:], dtype=BF)
+    elif k == "K11":
+        run_kw["operands"] = fused_block.pack_spatial_block(*a[2:], dtype=BF)
+    elif k == "K12":
+        run_kw["operands"] = fused_mega.pack_temporal_mega(*a[3:], dtype=BF)
     elif k == "K13":
         run_kw["operands"] = fused_mega.pack_spatial_mega(*a[4:], dtype=BF)
     elif k in ("K1", "K2"):
@@ -513,17 +611,25 @@ def _case(k, pos, opts, rn):
         R, Fn, _ = x.shape
         return Case(k, f"x{list(x.shape)}", run, plain, _lib_temporal_block(a, opts["heads"], opts["scale"]),
                     base=x, flops=2 * (8 * T * C * C + 4 * R * Fn * Fn * C) + 24 * T * C * C, **common)
-    if k == "K13":
-        BFn, H, W, _ = x.shape
+    if k == "K12":
+        B, Fn, H, W, _ = x.shape
+        flops = 4 * T * C * C + 2 * (8 * T * C * C + 4 * B * H * W * Fn * Fn * C) + 24 * T * C * C
+        return Case(k, f"x5{list(x.shape)}", run, plain,
+                    _lib_temporal_transformer(x, gn, a[3:], opts["heads"], opts["scale"]), base=x, flops=flops,
+                    **common)
+    if k in ("K11", "K13"):
+        BFn, N = x.shape[0], T // x.shape[0]
         clips, L, Dc = a[1].shape
-        Ci = a[4].shape[0]
-        img = len(a[8]) == 7
+        rest = a[4:] if k == "K13" else (None, None, *a[2:], None, None)
+        Ci = opts["heads"] * 64
+        img = len(rest[4]) == 7
         text_len = opts.get("text_len", 77) if img else None
-        flops = (4 * T * C * Ci + 8 * T * Ci * Ci + 4 * BFn * (H * W) ** 2 * Ci  # proj_in/out, self-attention
+        flops = (8 * T * Ci * Ci + 4 * BFn * N * N * Ci  # self-attention
                  + 4 * T * Ci * Ci + 4 * clips * L * Dc * Ci + 4 * T * L * Ci  # cross-attention, K/V per clip
-                 + 24 * T * Ci * Ci)  # feed-forward
-        return Case(k, f"x{list(x.shape)} ctx{list(a[1].shape)} {'i2v' if img else 't2v'}", run, plain,
-                    _lib_spatial_transformer(x, a[1], gn, a[4:], opts["heads"], opts["scale"], text_len),
+                 + 24 * T * Ci * Ci + (4 * T * C * Ci if k == "K13" else 0))  # feed-forward, proj_in/out
+        lib = (_lib_spatial_transformer(x, a[1], gn, rest, opts["heads"], opts["scale"], text_len) if k == "K13"
+               else _lib_spatial_block(x, a[1], rest[2:6], opts["heads"], opts["scale"], text_len))
+        return Case(k, f"x{list(x.shape)} ctx{list(a[1].shape)} {'i2v' if img else 't2v'}", run, plain, lib,
                     base=x, flops=flops, **common)
     if k in ("K1", "K2"):
         B, N, _ = x.shape
@@ -608,36 +714,51 @@ def _lib_geglu(a):
     return run
 
 
-def _lib_temporal_block(a, heads, scale):
+def _lib_temporal_block_fn(lns, a1, a2, ff, heads, scale):
     """K1, K1, K4's composites in sequence: F.layer_norm, F.linear, SDPA,
-    F.gelu."""
-    x, lns, a1, a2, ff = a
-    C = x.shape[-1]
+    F.gelu, as a function of h [rows, F, C]."""
     s1, b1, s2, b2, s3, b3 = _bf(*lns)
     attns = [(s, b, torch.cat(w[:3]), w[3], w[4].to(BF)) for s, b, w in ((s1, b1, a1), (s2, b2, a2))]
     w1, bb1, w2, bb2 = ff
     bb1, bb2 = _bf(bb1, bb2)
 
-    def run():
-        h = x
+    def block(h):
+        C = h.shape[-1]
         for s, b, wqkv, wo, bo in attns:
             q, k, v = F.linear(F.layer_norm(h, (C,), s, b, 1e-5), wqkv).chunk(3, dim=-1)
             o = F.scaled_dot_product_attention(_heads(q, heads), _heads(k, heads), _heads(v, heads), scale=scale)
             h = F.linear(o.transpose(1, 2).reshape(h.shape), wo, bo) + h
         val, gate = F.linear(F.layer_norm(h, (C,), s3, b3, 1e-5), w1, bb1).chunk(2, dim=-1)
         return F.linear(val * F.gelu(gate), w2, bb2) + h
+    return block
+
+
+def _lib_temporal_block(a, heads, scale):
+    x, lns, a1, a2, ff = a
+    block = _lib_temporal_block_fn(lns, a1, a2, ff, heads, scale)
+    return lambda: block(x)
+
+
+def _lib_temporal_transformer(x5, gn, rest, heads, scale):
+    """F.group_norm over each clip (statistics included), the permute to
+    16-frame rows and F.linear proj_in, the K10 composite, F.linear proj_out,
+    the permute back + x5."""
+    w_in, b_in, lns, a1, a2, ff, w_out, b_out = rest
+    B, Fn, H, W, C = x5.shape
+    gs, gb, b_in, b_out = _bf(*gn, b_in, b_out)
+    block = _lib_temporal_block_fn(lns, a1, a2, ff, heads, scale)
+
+    def run():
+        xn = F.group_norm(_channels_first(x5), 32, gs, gb, 1e-6)  # [B, C, F, H, W]
+        h = F.linear(xn.permute(0, 3, 4, 2, 1).reshape(B * H * W, Fn, C), w_in, b_in)
+        o = F.linear(block(h), w_out, b_out).reshape(B, H, W, Fn, C).permute(0, 3, 1, 2, 4)
+        return o + x5
     return run
 
 
-def _lib_spatial_transformer(x, ctx, gn, rest, heads, scale, text_len):
-    """F.group_norm (statistics included) + F.linear proj_in, the K2, K3, K4
-    composites (the context K/V projected per clip and repeated over its
-    frames), F.linear proj_out + x."""
-    w_in, b_in, lns, a1, a2, ff, w_out, b_out = rest
-    BFn, H, W, C = x.shape
-    frames = BFn // ctx.shape[0]
-    Ci = w_in.shape[0]
-    gs, gb, b_in, b_out = _bf(*gn, b_in, b_out)
+def _lib_spatial_block_fn(ctx, lns, a1, a2, ff, heads, scale, text_len, frames):
+    """K2, K3, K4's composites in sequence (the context K/V projected per
+    clip and repeated over its frames), as a function of h [BF, N, C]."""
     s1, b1, s2, b2, s3, b3 = _bf(*lns)
     wqkv, wo1, bo1 = torch.cat(a1[:3]), a1[3], a1[4].to(BF)
     wq2, wo2, bo2 = a2[0], a2[3], a2[4].to(BF)
@@ -648,9 +769,8 @@ def _lib_spatial_transformer(x, ctx, gn, rest, heads, scale, text_len):
     bb1, bb2 = _bf(bb1, bb2)
     ctx = ctx.to(BF)
 
-    def run():
-        xn = _channels_last(F.group_norm(_channels_first(x), 32, gs, gb, 1e-6))
-        h = F.linear(xn.reshape(BFn, H * W, C), w_in, b_in)
+    def block(h):
+        Ci = h.shape[-1]
         q, k, v = F.linear(F.layer_norm(h, (Ci,), s1, b1, 1e-5), wqkv).chunk(3, dim=-1)
         o = F.scaled_dot_product_attention(_heads(q, heads), _heads(k, heads), _heads(v, heads), scale=scale)
         h = F.linear(o.transpose(1, 2).reshape(h.shape), wo1, bo1) + h
@@ -662,7 +782,26 @@ def _lib_spatial_transformer(x, ctx, gn, rest, heads, scale, text_len):
             o = o + F.scaled_dot_product_attention(q, k, v, scale=scale)
         h = F.linear(o.transpose(1, 2).reshape(h.shape), wo2, bo2) + h
         val, gate = F.linear(F.layer_norm(h, (Ci,), s3, b3, 1e-5), w1, bb1).chunk(2, dim=-1)
-        h = F.linear(val * F.gelu(gate), w2, bb2) + h
+        return F.linear(val * F.gelu(gate), w2, bb2) + h
+    return block
+
+
+def _lib_spatial_block(x, ctx, block_w, heads, scale, text_len):
+    block = _lib_spatial_block_fn(ctx, *block_w, heads, scale, text_len, x.shape[0] // ctx.shape[0])
+    return lambda: block(x)
+
+
+def _lib_spatial_transformer(x, ctx, gn, rest, heads, scale, text_len):
+    """F.group_norm (statistics included) + F.linear proj_in, the K2, K3, K4
+    composites, F.linear proj_out + x."""
+    w_in, b_in, lns, a1, a2, ff, w_out, b_out = rest
+    BFn, H, W, C = x.shape
+    gs, gb, b_in, b_out = _bf(*gn, b_in, b_out)
+    block = _lib_spatial_block_fn(ctx, lns, a1, a2, ff, heads, scale, text_len, BFn // ctx.shape[0])
+
+    def run():
+        xn = _channels_last(F.group_norm(_channels_first(x), 32, gs, gb, 1e-6))
+        h = block(F.linear(xn.reshape(BFn, H * W, C), w_in, b_in))
         return F.linear(h, w_out, b_out).reshape(x.shape) + x
     return run
 
@@ -725,11 +864,13 @@ def _check(case, got, ref):
     return err, f"{tol:.5f}", rel, TOL_BRANCH_REL_L2, finite and err <= tol and rel <= TOL_BRANCH_REL_L2
 
 
-def _phase_kernels(sites):
+def _phase_kernels(sites, cfg):
     """Phase 3: every kernel against its plain version at every shape that
-    phase 2 recorded. Returns, per kernel, the largest error and the kernel,
-    plain, library, bound and fold ms summed over the batch-2 t2v forward,
-    with the same sums over the batch-8 i2v forward."""
+    phase 2 recorded; then the transformer levels (:func:`_phase_levels`).
+    Returns, per kernel, the largest error and the kernel, plain, library,
+    bound and fold ms summed over one forward: the batch-2 t2v forward, else
+    the first batch-8 i2v forward in which the kernel runs ("per"), with the
+    same sums over every phase-2 forward that runs it."""
     shapes = collections.defaultdict(dict)  # (kernel, args, options) -> {run: calls}
     for where, calls in sites.items():
         for key, n in calls.items():
@@ -739,7 +880,7 @@ def _phase_kernels(sites):
     max_err = dict.fromkeys(KERNELS, 0.0)
     bound_by = {k: collections.Counter() for k in KERNELS}  # bound ms per limiting resource
     bad = []
-    for (k, pos, opts), runs in sorted(shapes.items(), key=lambda kv: kv[0][0]):
+    for (k, pos, opts), runs in sorted(shapes.items(), key=lambda kv: int(kv[0][0][1:])):
         case = _case(k, pos, dict(opts), rn)
         got = case.run()
         ref = case.plain()
@@ -762,7 +903,7 @@ def _phase_kernels(sites):
         for where, n in runs.items():
             for key, v in t.items():
                 sums[where][k][key] += n * v
-        bound_by[k][case.bound_by] += runs.get(MAIN_FWD, 0) * case.bound_ms
+            bound_by[k][case.bound_by] += n * case.bound_ms
         if not ok:
             bad.append(f"{k} {case.desc}")
         del case
@@ -773,86 +914,98 @@ def _phase_kernels(sites):
         print(f"phase 3 sums per {where} (ms: kernel / plain / library / bound; + group_norm_fold): " + ", ".join(
             f"{k} {c['ms']:.2f}/{c['plain_ms']:.2f}/{c['library_ms']:.2f}/{c['bound_ms']:.3f}"
             + (f" + {c['fold_ms']:.2f}" if c["fold_ms"] else "") for k, c in per_k.items() if c), flush=True)
-    levels = _phase_levels(shapes)
+    _phase_levels(cfg)
     print("phase 3 ok", flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     records = {}
     for k in KERNELS:
-        main, i2v = sums[MAIN_FWD][k], sums[I2V_FWD][k]
+        ran = [w for w in FORWARDS if sums[w][k]]
+        if not ran:
+            _fail(f"{k} ran in none of the phase-2 forwards")
+        main = sums[ran[0]][k]
         records[k] = {"max_abs_err": max_err[k], **{key: main[key] for key in keys},
                       "bound_by": bound_by[k].most_common(1)[0][0],
-                      "fold_ms": main["fold_ms"] if "mul" in ROLES[k] else None,
-                      "per_i2v_forward_batch_8": {key: i2v[key] for key in keys + ("fold_ms",)}}
-    for k in LEVELS:
-        records[k]["level_ms"] = {"per_t2v_forward_batch_2": dict(levels[MAIN_FWD][k]),
-                                  "per_i2v_forward_batch_8": dict(levels[I2V_FWD][k])}
+                      "fold_ms": main["fold_ms"] if "mul" in ROLES[k] else None, "per": ran[0],
+                      "sums_by_forward": {w: {key: sums[w][k][key] for key in keys + ("fold_ms",)} for w in ran}}
     return records
 
 
-# kernel -> (plan side, the level it is on, the level it replaces)
-LEVELS = {"K10": ("t", "wrap+blk", "wrap+sub"), "K13": ("s", "mega", "wrap+sub")}
+# the ladder's levels, highest first
+LEVEL_NAMES = ("mega", "wrap+blk", "wrap+sub")
 
 
-def _level_module(k, pos, opts):
-    """The transformer module that runs kernel ``k`` at the recorded shape
-    (random bf16 weights) and a call of it on a random input."""
+def _level_module(side, C, inner, heads, H, W, B=8, Fn=16, L=93, Dc=1024):
+    """The UNet's transformer at (side, C, inner) with random bf16 weights
+    and a call of it at the batch-B forward's shape; init_attn (inner !=
+    C) has Conv1d projections."""
     from dynamicscaler_tpu_torch.models.lvdm import init_module_random
     from dynamicscaler_tpu_torch.models.unet3d import SpatialTransformer, TemporalTransformer
 
     g = torch.Generator(device=DEV).manual_seed(4)
-    if k == "K10":  # the UNet's C = 320 level, 40x64 latent; width 512 is init_attn (Conv1d projections)
-        R, Fn, width = pos[0][0]
-        if R % (40 * 64):
-            _fail(f"K10 rows {R} are not whole 40x64 latents")
-        with torch.device(DEV):
-            m = TemporalTransformer(320, width // 64, 64, use_linear=width == 320)
-        x = torch.randn((R // (40 * 64) * Fn, 40, 64, 320), generator=g, device=DEV).to(BF)
-
-        def call():
-            return m(x, Fn)
-        width_key = width
-    else:
-        (BFn, H, W, C), (clips, L, Dc) = pos[0][0], pos[1][0]
-        with torch.device(DEV):
-            m = SpatialTransformer(C, C // 64, 64, context_dim=Dc, img_cross_attention=len(pos[8]) == 7,
-                                   text_context_len=opts.get("text_len", 77))
-        x = torch.randn((BFn, H, W, C), generator=g, device=DEV).to(BF)
-        ctx = torch.randn((clips, L, Dc), generator=g, device=DEV).to(BF).repeat_interleave(BFn // clips, dim=0)
-
-        def call():
-            return m(x, ctx, BFn // clips)
-        width_key = C
+    with torch.device(DEV):
+        m = (TemporalTransformer(C, heads, 64, use_linear=inner == C) if side == "t" else
+             SpatialTransformer(C, heads, 64, context_dim=Dc, img_cross_attention=True, text_context_len=77))
     init_module_random(m, g)
     m.to(BF).eval()
-    return call, width_key
+    x = torch.randn((B * Fn, H, W, C), generator=g, device=DEV).to(BF)
+    if side == "t":
+        return lambda: m(x, Fn)
+    ctx = torch.randn((B, L, Dc), generator=g, device=DEV).to(BF).repeat_interleave(Fn, dim=0)
+    return lambda: m(x, ctx, Fn)
 
 
-def _phase_levels(shapes):
-    """Phase 3, the plan levels: at every K10 / K13 shape, the transformer
-    module at the level its kernel replaces and at the kernel's level (the
-    GroupNorm fold included in both), CUDA events. Returns, per run, each
-    kernel's {"replaced": ms, "with_kernel": ms} summed over its calls."""
-    sums = collections.defaultdict(lambda: collections.defaultdict(collections.Counter))
-    for (k, pos, opts), runs in sorted(shapes.items(), key=lambda kv: kv[0][0]):
-        if k not in LEVELS:
-            continue
-        side, level, replaced = LEVELS[k]
-        call, width = _level_module(k, pos, dict(opts))
+def _legal_levels(side, C, inner, heads, H, W, Dc=1024):
+    """The levels the transformer at this shape can run: mega where the
+    transformer's gate admits it, wrap+blk where the block's does, and
+    wrap+sub."""
+    if side == "t":
+        gates = (fused_mega.temporal_ok(16, C, inner, heads), fused_block.temporal_block_ok(16, inner, inner, heads))
+    else:
+        gates = (fused_mega.spatial_ok(H * W, C, inner, heads, Dc),
+                 fused_block.spatial_block_ok(H * W, inner, inner, heads, Dc))
+    return [lvl for lvl, ok in zip(LEVEL_NAMES, (*gates, True)) if ok]
+
+
+def _phase_levels(cfg):
+    """Phase 3, the plan levels: the transformer module at every legal level
+    at every (side, width) of the batch-8 i2v forward (the width of init_attn
+    its block's, 512), CUDA events, the GroupNorm fold included. Prints each
+    shape's times, the per-forward sums of each plan key (its shapes' calls x
+    ms per call), the fastest plan by those sums, and whether PLAN_DEFAULT
+    still names each key's fastest level (a key where another level was
+    faster by more than 5% is named)."""
+    shapes = collections.Counter(unet_transformers(cfg, 40, 64))
+    sums = collections.defaultdict(collections.Counter)  # plan key -> level -> ms per forward
+    for (side, C, inner, heads, H, W), calls in sorted(shapes.items()):
+        call = _level_module(side, C, inner, heads, H, W)
         t = {}
         with torch.inference_mode():
-            for name, lvl in (("replaced", replaced), ("with_kernel", level)):
-                fused_temporal.set_plan({(side, width): lvl})
-                t[name] = _time_ms(call, 5)
-        fused_temporal.set_plan()
-        print(f"phase 3 level {side}{width} at {k}'s x{list(pos[0][0])}: {replaced} {t['replaced']:.3f} ms, "
-              f"{level} {t['with_kernel']:.3f} ms [" + ", ".join(f"x{n} per {w}" for w, n in runs.items()) + "]",
-              flush=True)
-        for where, n in runs.items():
-            for name, v in t.items():
-                sums[where][k][name] += n * v
+            for lvl in _legal_levels(side, C, inner, heads, H, W):
+                with _plan({(side, inner): lvl}):
+                    t[lvl] = _time_ms(call, 5)
         del call
+        for lvl, ms in t.items():
+            sums[(side, inner)][lvl] += calls * ms
+        print(f"phase 3 level {side}{inner} [128,{H},{W},{C}] x{calls} per forward: "
+              + ", ".join(f"{lvl} {ms:.3f} ms" for lvl, ms in t.items()) + f"; fastest {min(t, key=t.get)}",
+              flush=True)
     torch.cuda.empty_cache()
-    return sums
+    # a level must be legal at every shape of its key to be chosen for it
+    fastest, beaten = {}, []
+    for key, per in sorted(sums.items()):
+        legal = {lvl: ms for lvl, ms in per.items()
+                 if all(lvl in _legal_levels(*sh) for sh in shapes if (sh[0], sh[2]) == key)}
+        best = fastest[key] = min(legal, key=legal.get)
+        have = fused_temporal.PLAN_DEFAULT.get(key, "wrap+sub")
+        if legal.get(have, float("inf")) > 1.05 * legal[best]:
+            beaten.append(f"{key[0]}{key[1]} ({best} {legal[best]:.2f} ms vs PLAN_DEFAULT's {have} "
+                          f"{legal.get(have, float('nan')):.2f} ms per forward)")
+    print("phase 3 levels per i2v batch-8 forward (ms): " + ", ".join(
+        f"{s}{c} " + "/".join(f"{lvl} {ms:.2f}" for lvl, ms in per.items()) for (s, c), per in sorted(sums.items())),
+        flush=True)
+    print("phase 3 fastest plan: " + json.dumps({f"{s}{c}": lvl for (s, c), lvl in fastest.items()}), flush=True)
+    print("phase 3 plan: " + ("PLAN_DEFAULT names the fastest level at every shape (within 5%)" if not beaten
+                              else "PLAN_DEFAULT is beaten by more than 5% at " + "; ".join(beaten)), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -860,17 +1013,16 @@ def _phase_levels(shapes):
 # ---------------------------------------------------------------------------
 
 
-def _missing(launches):
-    return [k for k, n in launches.items() if n == 0]
-
-
-def _check_per_forward(where, launches, n_fwd):
-    """Every UNet kernel launched exactly its per-forward count times the
-    run's UNet forwards (gn_silu aside: the VAE launches it too)."""
-    want = {k: n * n_fwd for k, n in EXPECTED_PER_FORWARD.items() if k != "K9"}
+def _check_per_forward(where, launches, n_fwd, cfg):
+    """Every UNet kernel launched exactly its per-forward count under the
+    current plan (:func:`expected_launches` at the 40x64 latent) times the
+    run's UNet forwards (gn_silu aside: the VAE launches it too, so it must
+    only have launched)."""
+    per = expected_launches(cfg, 40, 64)
+    want = {k: n * n_fwd for k, n in per.items() if k != "K9"}
     got = {k: launches[k] for k in want}
-    if got != want:
-        _fail(f"{where}: launches {got} over {n_fwd} UNet forwards, expected {want}")
+    if got != want or not launches["K9"]:
+        _fail(f"{where}: launches {launches} over {n_fwd} UNet forwards, expected {want} and gn_silu")
 
 
 def _phase_sampler(model, steps):
@@ -916,9 +1068,7 @@ def _phase_sampler(model, steps):
     print(f"phase 4 ok: {len(prompts)} warm requests, {sum(timings) / len(timings):.3f} s/step mean "
           f"(cold one-step warm-up request {cold:.3f} s/step, decode {cold_decode:.2f} s), "
           f"kernel launches {launches}", flush=True)
-    if _missing(launches):
-        _fail(f"kernels never launched on the t2v path: {_missing(launches)}")
-    _check_per_forward("t2v path", launches, probe.stats["unet calls"])
+    _check_per_forward("t2v path", launches, probe.stats["unet calls"], model.unet.cfg)
     return launches
 
 
@@ -955,7 +1105,10 @@ class _Probe:
 
 def _phase_i2v_sampler(model, steps):
     """Phase 5: stage 2 of gen_pano_360 on the i2v sampler at full width: a
-    one-step warm-up request, then one timed request of ``steps`` steps."""
+    one-step warm-up request, one timed request of ``steps`` steps under the
+    default plan, then one under "off" (kernel 12 at the temporal
+    transformers of C 320 / 640, kernel 13 at the spatial ones). Returns the
+    launches of the two timed requests."""
     from dynamicscaler_tpu_torch.pipelines import i2v
 
     pano = smooth_panorama(512, 1024, seed=5)
@@ -981,28 +1134,38 @@ def _phase_i2v_sampler(model, steps):
         return video, total, sampling / n_steps, st
 
     _, cold_total, cold_step, _ = request(1)
-    _reset_launches()
-    video, total, per_step, st = request(steps)
-    launches = _launches()
-    i2v_k3 = fused_spatial.fused_ln_cross_attention.launches_i2v
-    shape = tuple(video.shape)
-    finite = bool(torch.isfinite(video).all())
-    vae_gn = st["encode gn_silu"] + st["decode gn_silu"]
-    print(f"phase 5: i2v stage 2, 512x1024x16 panorama, 2x2 windows of 320x512 (UNet batch 8), {steps} of 48 "
-          f"steps: video {shape} finite {finite} |video| mean {float(video.abs().mean()):.4f}; request "
-          f"{total:.2f} s: conditioning (64 CLIP crops + text) {st['conditioning s']:.2f} s, tiled VAE encode "
-          f"{st['encode s']:.2f} s, sampling {per_step:.3f} s/step, ring decode {st['decode s']:.2f} s "
-          f"(cold one-step warm-up request {cold_total:.2f} s, {cold_step:.3f} s/step)", flush=True)
-    print(f"phase 5 launches {launches}; K3 with image keys {i2v_k3}; gn_silu in the VAE "
-          f"{vae_gn} (encode {st['encode gn_silu']}, decode {st['decode gn_silu']})", flush=True)
-    if shape != (1, 16, 512, 1024, 3) or not finite:
-        _fail(f"bad i2v video {shape} finite={finite}")
-    if _missing(launches) or i2v_k3 == 0 or st["encode gn_silu"] == 0 or st["decode gn_silu"] == 0:
-        _fail(f"kernels never launched on the i2v path: {_missing(launches)} K3 i2v {i2v_k3} "
-              f"VAE gn_silu {st['encode gn_silu']}/{st['decode gn_silu']}")
-    _check_per_forward("i2v path", launches, st["unet calls"])
-    print("phase 5 ok", flush=True)
-    return launches
+    out, per_step_by_plan = [], {}
+    for spec in (None, "off"):
+        plan = spec or "default"
+        with _plan(spec):
+            _reset_launches()
+            video, total, per_step, st = request(steps)
+            launches = _launches()
+            i2v_k3 = fused_spatial.fused_ln_cross_attention.launches_i2v
+            shape = tuple(video.shape)
+            finite = bool(torch.isfinite(video).all())
+            vae_gn = st["encode gn_silu"] + st["decode gn_silu"]
+            print(f"phase 5 (plan {plan}): i2v stage 2, 512x1024x16 panorama, 2x2 windows of 320x512 (UNet batch "
+                  f"8), {steps} of 48 steps: video {shape} finite {finite} |video| mean "
+                  f"{float(video.abs().mean()):.4f}; request {total:.2f} s: conditioning (64 CLIP crops + text) "
+                  f"{st['conditioning s']:.2f} s, tiled VAE encode {st['encode s']:.2f} s, sampling "
+                  f"{per_step:.3f} s/step, ring decode {st['decode s']:.2f} s"
+                  + (f" (cold one-step warm-up request {cold_total:.2f} s, {cold_step:.3f} s/step)" if not spec
+                     else ""), flush=True)
+            print(f"phase 5 (plan {plan}) launches {launches}; K3 with image keys {i2v_k3}; gn_silu in the VAE "
+                  f"{vae_gn} (encode {st['encode gn_silu']}, decode {st['decode gn_silu']})", flush=True)
+            if shape != (1, 16, 512, 1024, 3) or not finite:
+                _fail(f"bad i2v video {shape} finite={finite} (plan {plan})")
+            if i2v_k3 != launches["K3"] or st["encode gn_silu"] == 0 or st["decode gn_silu"] == 0:
+                _fail(f"i2v path (plan {plan}): K3 {launches['K3']} of which with image keys {i2v_k3}, "
+                      f"VAE gn_silu {st['encode gn_silu']}/{st['decode gn_silu']}")
+            _check_per_forward(f"i2v path (plan {plan})", launches, st["unet calls"], model.unet.cfg)
+            out.append(launches)
+            per_step_by_plan[plan] = per_step
+            del video
+    print("phase 5 ok: sampling s/step " + ", ".join(f"plan {p} {v:.3f}" for p, v in per_step_by_plan.items()),
+          flush=True)
+    return out
 
 
 # the gen_pano_360 stage-1 geometry: a 1024x512 equirect at sphere scale 2,
@@ -1065,7 +1228,8 @@ def _phase_sphere(model, steps):
     st = probe.stats
     shape = tuple(latent.shape)
     finite = bool(torch.isfinite(latent).all()) and bool(torch.isfinite(den).all())
-    per_step = [{k: n[k] for k in ("K10", "K13")} for n in step_launches]
+    whole = ("K10", "K11", "K12", "K13")
+    per_step = [{k: n[k] for k in whole if n[k]} for n in step_launches]
     print(f"phase 6: sphere stage 1, 2048x1024 equirect (latent 128x256), 16 frames, 44 views x 10 phases, "
           f"UNet batch 88 per step in forwards of 8, {steps} of 48 steps: latent {shape} finite {finite} "
           f"|latent| mean {float(latent.abs().mean()):.4f}; request {total:.2f} s: view maps (host, 3 x 10 "
@@ -1073,16 +1237,16 @@ def _phase_sphere(model, steps):
           f"gathered on the card, CLIP and text encodes) {st['view contexts s']:.2f} s, all CLIP/text encodes {st['conditioning s']:.2f} s, "
           f"static tiled VAE encode {st['encode s']:.2f} s, steps "
           + ", ".join(f"{t:.3f}" for t in step_s) + f" s (step 0 warm-up; {step_s[-1]:.3f} s/step timed), "
-          f"UNet forwards {st['unet calls']}, K10/K13 launches per step {per_step}", flush=True)
+          f"UNet forwards {st['unet calls']}, whole-block/transformer launches per step {per_step}", flush=True)
     print(f"phase 6 launches {launches}", flush=True)
     if shape != (1, 16, 128, 256, 4) or not finite:
         _fail(f"bad sphere latent {shape} finite={finite}")
-    if _missing(launches) or st["encode gn_silu"] == 0:
-        _fail(f"kernels never launched on the sphere path: {_missing(launches)} VAE gn_silu {st['encode gn_silu']}")
-    _check_per_forward("sphere path", launches, st["unet calls"])
-    if any(n != {"K10": 11 * EXPECTED_PER_FORWARD["K10"], "K13": 11 * EXPECTED_PER_FORWARD["K13"]}
-           for n in per_step):
-        _fail(f"sphere steps launched K10/K13 {per_step}, expected 11 forwards of the per-forward counts")
+    if st["encode gn_silu"] == 0:
+        _fail("the sphere path's static encode launched no gn_silu")
+    _check_per_forward("sphere path", launches, st["unet calls"], model.unet.cfg)
+    per = expected_launches(model.unet.cfg, 40, 64)
+    if any(n != {k: 11 * per[k] for k in whole if per[k]} for n in per_step):
+        _fail(f"sphere steps launched {per_step}, expected 11 forwards of the per-forward counts")
     print("phase 6 ok", flush=True)
     return launches
 

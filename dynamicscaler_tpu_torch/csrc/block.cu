@@ -1,45 +1,71 @@
-// Kernel 10: the whole temporal BasicTransformerBlock in one launch.
+// Kernel 10: the whole temporal BasicTransformerBlock in one launch, and
+// kernel 12: the whole TemporalTransformer (depth 1) in one launch.
 //
-// Replaces dynamicscaler_tpu/ops/fused_block.py::_temporal_block_call
+// Kernel 10 replaces dynamicscaler_tpu/ops/fused_block.py::_temporal_block_call
 // (Pallas _temporal_block_kernel):
 //   x += out1(attn16(LN1(x) @ [q1|k1|v1]))     16-frame self-attention
 //   x += out2(attn16(LN2(x) @ [q2|k2|v2]))     16-frame self-attention
 //   x += GEGLU(LN3(x)) @ W2 + b2
 // over x [R, 16, C] bf16 (R = B*H*W rows of 16 frame tokens), head dim 64,
-// C = 64 * heads, 128 <= C <= 512 (320 and 512 on the UNet's path).
+// C = 64 * heads, 64 <= C <= 1280 (320, 512, 640 and 1280 on the UNet's
+// path).
 //
-// What bounds it: the projections. Per token the block does 16 C^2 + 24 C^2
-// multiply-adds (4 + 4 attention projections, 8C + 4C wide FF), 134 + 201
-// GFLOP at C = 320 and 81,920 tokens, against 105 MB of activation traffic:
-// the tensor cores, by ~100x over the memory. The attention itself is 16x16
-// per (row, head), about 1% of the operations.
+// Kernel 12 replaces dynamicscaler_tpu/ops/fused_mega.py::_t_mega_call
+// (Pallas _t_mega_kernel): the same block with kernel 5's prologue and
+// kernel 6's epilogue around it, over x5 [B, 16, H, W, C] and the folded
+// GroupNorm vectors (mul, add) [B, C]:
+//   h = (x5 * mul + add) permuted to 16-frame rows @ W_in + b_in
+//   h = block(h)                                   (kernel 10's body)
+//   y = x5 + (h @ W_out + b_out) permuted back
+// with inner == C <= 640. The frame permute lives in the address arithmetic:
+// token (row = b*H*W + hw, frame f) is read from and written to x5 element
+// ((b*16 + f)*H*W + hw)*C; nothing is copied.
 //
-// Design: every 16-frame row is independent, so one block owns 64 tokens (4
-// rows; 32 at C = 512) and keeps them in shared memory through all three
-// sub-blocks; device
-// memory sees one read and one write of x. The TPU kernel's 128-token
-// block-diagonal trick (8 rows per MXU product, masked) is not copied: the
-// 16x16 attention runs on CUDA cores, 4 (8) threads per query token, each
-// owning 16 (8) of the 64 head dims (partial dot products joined by
-// shuffles). The
+// What bounds them: the projections. Per token the block does 16 C^2 + 24
+// C^2 multiply-adds (4 + 4 attention projections, 8C + 4C wide FF), kernel
+// 12 another 4 C^2 (proj_in, proj_out): 134 + 201 GFLOP at C = 320 and
+// 81,920 tokens, against 105 MB of activation traffic, so the tensor cores,
+// by ~100x over the memory. The attention itself is 16x16 per (row, head),
+// about 1% of the operations.
+//
+// Design: every 16-frame row is independent, so one block owns TM tokens
+// (TM / 16 rows) and keeps them in shared memory through all three
+// sub-blocks (and, in kernel 12, proj_in and proj_out); device memory sees
+// one read and one write of x. The TPU kernel's 128-token block-diagonal
+// trick (8 rows per MXU product, masked) is not copied: the 16x16 attention
+// runs on CUDA cores, 256 / TM threads per query token, each owning 64 / (256
+// / TM) of the 64 head dims (partial dot products joined by shuffles). The
 // QKV projection runs one head at a time (the packed weight keeps each
-// head's q, k and v rows together), so only [32, 192] of q|k|v is ever
+// head's q, k and v rows together), so only [TM, 192] of q|k|v is ever
 // resident; the head's attention output lands in its 64 columns of O, and
 // the out-projection reads O whole. The FF runs over chunks of the GEGLU
 // hidden (value chunk, then the gate chunk's epilogue applies GELU in
 // place), each chunk's share of the second product added into an fp32
-// accumulator (chunks of 128 columns at 64 tokens, 256 at 32). Every product
-// is tile.cuh's 8-warp GEMM (mma.sync, a cp.async weight ring streaming
-// across column chunks); the weights stream from L2, 4.1 MB per 64-token
-// block at C = 320, so the tokens per block set the L2 traffic (5.2 GB per
-// batch-2 call) and the ring's depth how much of its latency hides. Shared
-// memory: 221 KB at C = 320, 223 KB at C = 512 (one block per SM). No
-// wgmma/TMA yet.
+// accumulator (chunks of 128 columns at 64 tokens, 256 at 32 and 16). Every
+// product is tile.cuh's 8-warp GEMM (mma.sync, a cp.async weight ring
+// streaming across column chunks); the weights stream from L2, 4.1 MB per
+// 64-token block at C = 320, so the tokens per block set the L2 traffic and
+// the ring's depth how much of its latency hides. No wgmma/TMA yet.
 //
-// Rounding points are those of the plain version (K1, K1, K4 in sequence):
-// LN output, q/k/v, probabilities (normalised before PV), attention output,
-// projection + bias, residual sum and GEGLU value/gate/product are each
-// rounded to bf16; sums accumulate in fp32.
+// Shared memory, per block (one block per SM; the limit is 232,448 bytes):
+// TM tokens x (x, the LN output, and the union of [O | one head's q|k|v] and
+// [fp32 FF accumulator | hidden chunk]) + the weight ring:
+//   C <= 320:  TM 64, ring 2 x 128 x 72 bf16 (BK 64): 221 KB at C = 320;
+//   C <= 512:  TM 32, ring 2 x 256 x 72 (BK 64): 223 KB at C = 512;
+//   C <= 640:  TM 32, ring 2 x 256 x 40 (BK 32): 32 x 5,696 B + 40,960 B =
+//              223,232 B at C = 640 (with the BK 64 ring it would be 256 KB);
+//   C <= 1280: TM 16 (one 16-frame row), ring BK 32: 16 x 10,816 B + 40,960
+//              B = 214,016 B at C = 1280 (32 tokens would need 346 KB of
+//              tiles alone).
+// Kernel 12 needs no more: its GroupNorm-applied input is staged in the LN
+// tile, proj_in writes the residual stream, and proj_out reads it and adds
+// x5 from device memory in its epilogue.
+//
+// Rounding points are those of the plain versions (kernel 10: K1, K1, K4 in
+// sequence; kernel 12: kernels 5, 10, 6): the GN-applied input (product and
+// sum rounded separately), LN output, q/k/v, probabilities (normalised
+// before PV), attention output, projection + bias, residual sum and GEGLU
+// value/gate/product are each rounded to bf16; sums accumulate in fp32.
 
 #include "tile.cuh"
 
@@ -50,10 +76,6 @@ using namespace dstile;
 constexpr int TF = 16;          // frame tokens per row
 constexpr int D = 64;           // head dim
 constexpr int LDQ = 3 * D + 8;  // bf16 pitch of one head's q|k|v
-
-// tokens per block: 4 rows of 16 frames up to C = 320, 2 rows at C = 512
-// (shared memory); more tokens per block stream the weights fewer times
-int tile_tokens(int C) { return C <= 320 ? 64 : 32; }
 
 struct BlockArgs {
   const bf16* x;
@@ -67,13 +89,21 @@ struct BlockArgs {
   const float* b1;
   const bf16* w2;       // [C, 4C]
   const float* b2;
+  // kernel 12 only: x / out are [B, 16, H, W, C]
+  const float* gn_mul;  // [B, C] folded GroupNorm vectors
+  const float* gn_add;
+  const bf16* w_in;     // [C, C]
+  const float* b_in;
+  const bf16* w_out;    // [C, C]
+  const float* b_out;
+  int HW;
   int R;
   int C;
   float scale;
   float eps;
 };
 
-// GEGLU hidden columns per FF chunk (shared memory): 128 at 64 tokens, 256 at 32
+// GEGLU hidden columns per FF chunk: one full chunk of the tile's GEMM
 __host__ __device__ int hidden_chunk(int tm) { return tm == 64 ? 128 : 256; }
 __host__ __device__ int ld_x(int C) { return C + 8; }
 __host__ __device__ int union_elems(int C, int tm) {  // bf16 elements per token of the union area
@@ -82,8 +112,8 @@ __host__ __device__ int union_elems(int C, int tm) {  // bf16 elements per token
   return ff > attn ? ff : attn;
 }
 
-template <int TM>
-int smem_bytes(int C) { return TM * (2 * ld_x(C) + union_elems(C, TM)) * 2 + Tile<TM>::RING; }
+template <int TM, int BK>
+int smem_bytes(int C) { return TM * (2 * ld_x(C) + union_elems(C, TM)) * 2 + Tile<TM, BK>::RING; }
 
 // one head of 16-frame attention for the TM tokens: Qk [TM][LDQ] holds the
 // head's q | k | v; writes the head's 64 output columns of Out (pitch ldo)
@@ -134,8 +164,18 @@ __device__ void attention16(const bf16* Qk, bf16* Out, int ldo, float scale) {
   __syncthreads();
 }
 
-template <int TM>
+// the x5 element offset of token t (16-frame row t / 16 = b*HW + hw, frame
+// t % 16) of kernel 12's [B, 16, H, W, C] input
+__device__ __forceinline__ size_t frame_major(int t, int HW, int C) {
+  const int row = t / TF, f = t % TF;
+  const int b = row / HW, hw = row - b * HW;
+  return ((size_t)(b * TF + f) * HW + hw) * C;
+}
+
+// MEGA = false: kernel 10 over x [R, 16, C]; MEGA = true: kernel 12 over x5
+template <int TM, int BK, bool MEGA>
 __global__ void __launch_bounds__(THREADS) temporal_block_kernel(BlockArgs a) {
+  using G = Tile<TM, BK>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int C = a.C;
   const int ldx = ld_x(C);
@@ -147,14 +187,36 @@ __global__ void __launch_bounds__(THREADS) temporal_block_kernel(BlockArgs a) {
   const int t0 = blockIdx.x * TM;
   const int cv = C / 8;
 
-  for (int i = threadIdx.x; i < TM * cv; i += THREADS) {
-    const int r = i / cv;
-    const int c = (i - r * cv) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (t0 + r < T) v = *reinterpret_cast<const uint4*>(a.x + (size_t)(t0 + r) * C + c);
-    *reinterpret_cast<uint4*>(Xs + r * ldx + c) = v;
+  if (MEGA) {
+    // GroupNorm apply with each row's clip vectors (product and sum rounded
+    // separately) into the LN tile, then proj_in + b_in -> the residual stream
+    for (int i = threadIdx.x; i < TM * cv; i += THREADS) {
+      const int r = i / cv;
+      const int c = (i - r * cv) * 8;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (t0 + r < T) {
+        v = *reinterpret_cast<const uint4*>(a.x + frame_major(t0 + r, a.HW, C) + c);
+        const size_t g = (size_t)((t0 + r) / TF / a.HW) * C + c;
+        bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          e[q] = f2bf(__fadd_rn(__fmul_rn(bf2f(e[q]), a.gn_mul[g + q]), a.gn_add[g + q]));
+      }
+      *reinterpret_cast<uint4*>(Hs + r * ldx + c) = v;
+    }
+    const float* b_in = a.b_in;
+    gemm_cols<G>(Hs, ldx, C, a.w_in, C, C, ring,
+                 [&](int r, int c, float v) { Xs[r * ldx + c] = f2bf(v + b_in[c]); });
+  } else {
+    for (int i = threadIdx.x; i < TM * cv; i += THREADS) {
+      const int r = i / cv;
+      const int c = (i - r * cv) * 8;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (t0 + r < T) v = *reinterpret_cast<const uint4*>(a.x + (size_t)(t0 + r) * C + c);
+      *reinterpret_cast<uint4*>(Xs + r * ldx + c) = v;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // two self-attention sub-blocks; the q|k|v rows of head h are rows
   // [192 h, 192 h + 192) of the packed weight
@@ -163,12 +225,12 @@ __global__ void __launch_bounds__(THREADS) temporal_block_kernel(BlockArgs a) {
   for (int s = 0; s < 2; ++s) {
     layer_norm_rows<TM>(Xs, ldx, Hs, ldx, C, a.ln_w[s], a.ln_b[s], a.eps);
     for (int h = 0; h < C / D; ++h) {
-      gemm_cols<TM>(Hs, ldx, C, a.wqkv[s] + (size_t)h * 3 * D * C, C, 3 * D, ring,
-                    [&](int r, int c, float v) { Qk[r * LDQ + c] = f2bf(v); });
+      gemm_cols<G>(Hs, ldx, C, a.wqkv[s] + (size_t)h * 3 * D * C, C, 3 * D, ring,
+                   [&](int r, int c, float v) { Qk[r * LDQ + c] = f2bf(v); });
       attention16<TM>(Qk, Os + h * D, ldx, a.scale);
     }
     const float* bo = a.bo[s];
-    gemm_cols<TM>(Os, ldx, C, a.wo[s], C, C, ring, [&](int r, int c, float v) {
+    gemm_cols<G>(Os, ldx, C, a.wo[s], C, C, ring, [&](int r, int c, float v) {
       bf16& d = Xs[r * ldx + c];
       d = f2bf(bf2f(d) + round_bf(v + bo[c]));
     });
@@ -188,13 +250,13 @@ __global__ void __launch_bounds__(THREADS) temporal_block_kernel(BlockArgs a) {
   const float* b2 = a.b2;
   for (int i = threadIdx.x; i < TM * lda; i += THREADS) Acc[i] = 0.f;
   for (int j0 = 0; j0 < H4; j0 += hc) {
-    gemm_cols<TM>(Hs, ldx, C, a.w1 + (size_t)j0 * C, C, hc, ring,
-                  [&](int r, int c, float v) { Is[r * ldi + c] = f2bf(v + b1[j0 + c]); });
-    gemm_cols<TM>(Hs, ldx, C, a.w1 + (size_t)(H4 + j0) * C, C, hc, ring, [&](int r, int c, float v) {
+    gemm_cols<G>(Hs, ldx, C, a.w1 + (size_t)j0 * C, C, hc, ring,
+                 [&](int r, int c, float v) { Is[r * ldi + c] = f2bf(v + b1[j0 + c]); });
+    gemm_cols<G>(Hs, ldx, C, a.w1 + (size_t)(H4 + j0) * C, C, hc, ring, [&](int r, int c, float v) {
       bf16& d = Is[r * ldi + c];
       d = f2bf(bf2f(d) * gelu_erf(round_bf(v + b1[H4 + j0 + c])));
     });
-    gemm_cols<TM>(Is, ldi, hc, a.w2 + j0, H4, C, ring, [&](int r, int c, float v) { Acc[r * lda + c] += v; });
+    gemm_cols<G>(Is, ldi, hc, a.w2 + j0, H4, C, ring, [&](int r, int c, float v) { Acc[r * lda + c] += v; });
   }
   for (int i = threadIdx.x; i < TM * C; i += THREADS) {
     const int r = i / C;
@@ -204,35 +266,51 @@ __global__ void __launch_bounds__(THREADS) temporal_block_kernel(BlockArgs a) {
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < TM * cv; i += THREADS) {
-    const int r = i / cv;
-    const int c = (i - r * cv) * 8;
-    if (t0 + r < T)
-      *reinterpret_cast<uint4*>(a.out + (size_t)(t0 + r) * C + c) = *reinterpret_cast<const uint4*>(Xs + r * ldx + c);
+  if (MEGA) {
+    // proj_out + b_out, then + x5, written back in frame-major order
+    const float* b_out = a.b_out;
+    const bf16* x = a.x;
+    bf16* out = a.out;
+    const int HW = a.HW;
+    gemm_cols<G>(Xs, ldx, C, a.w_out, C, C, ring, [&](int r, int c, float v) {
+      if (t0 + r < T) {
+        const size_t e = frame_major(t0 + r, HW, C) + c;
+        out[e] = f2bf(bf2f(x[e]) + round_bf(v + b_out[c]));
+      }
+    });
+  } else {
+    for (int i = threadIdx.x; i < TM * cv; i += THREADS) {
+      const int r = i / cv;
+      const int c = (i - r * cv) * 8;
+      if (t0 + r < T)
+        *reinterpret_cast<uint4*>(a.out + (size_t)(t0 + r) * C + c) =
+            *reinterpret_cast<const uint4*>(Xs + r * ldx + c);
+    }
   }
 }
 
-template <int TM>
+template <int TM, int BK, bool MEGA>
 int launch(const BlockArgs& a, void* stream) {
-  const int smem = smem_bytes<TM>(a.C);
-  cudaError_t e = cudaFuncSetAttribute(temporal_block_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = smem_bytes<TM, BK>(a.C);
+  cudaError_t e = cudaFuncSetAttribute(temporal_block_kernel<TM, BK, MEGA>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int blocks = (a.R * TF + TM - 1) / TM;
-  temporal_block_kernel<TM><<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  temporal_block_kernel<TM, BK, MEGA><<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+// the tile for width C (the reckoning in the note above)
+template <bool MEGA>
+int launch_for_width(const BlockArgs& a, void* stream) {
+  if (a.C <= 320) return launch<64, 64, MEGA>(a, stream);
+  if (a.C <= 512) return launch<32, 64, MEGA>(a, stream);
+  if (a.C <= 640) return launch<32, 32, MEGA>(a, stream);
+  return launch<16, 32, MEGA>(a, stream);
+}
 
-// p: device pointers, in order: x, out, then per attention sub-block s = 1, 2:
-// ln_w, ln_b, wqkv [3C, C] (rows: head, then q|k|v, then 64), wo [C, C], bo;
-// then ln3_w, ln3_b, w1 [8C, C],
-// b1 [8C], w2 [C, 4C], b2 [C]. x/out [R, 16, C] bf16, vectors fp32.
-// Shapes the caller guarantees: C % 64 == 0, 128 <= C <= 512, every pointer
-// 16-byte aligned and contiguous.
-extern "C" int ds_temporal_block(const void* const* p, int R, int C, float scale, float eps, void* stream) {
-  if (C % 64 || C < 128 || C > 512 || R <= 0) return (int)cudaErrorInvalidValue;
-  BlockArgs a;
+BlockArgs block_args(const void* const* p, int R, int C, float scale, float eps) {
+  BlockArgs a = {};
   a.x = static_cast<const bf16*>(p[0]);
   a.out = static_cast<bf16*>(const_cast<void*>(p[1]));
   for (int s = 0; s < 2; ++s) {
@@ -252,5 +330,36 @@ extern "C" int ds_temporal_block(const void* const* p, int R, int C, float scale
   a.C = C;
   a.scale = scale;
   a.eps = eps;
-  return tile_tokens(C) == 64 ? launch<64>(a, stream) : launch<32>(a, stream);
+  return a;
+}
+
+}  // namespace
+
+// p: device pointers, in order: x, out, then per attention sub-block s = 1, 2:
+// ln_w, ln_b, wqkv [3C, C] (rows: head, then q|k|v, then 64), wo [C, C], bo;
+// then ln3_w, ln3_b, w1 [8C, C],
+// b1 [8C], w2 [C, 4C], b2 [C]. x/out [R, 16, C] bf16, vectors fp32.
+// Shapes the caller guarantees: C % 64 == 0, 64 <= C <= 1280, every pointer
+// 16-byte aligned and contiguous.
+extern "C" int ds_temporal_block(const void* const* p, int R, int C, float scale, float eps, void* stream) {
+  if (C % 64 || C < 64 || C > 1280 || R <= 0) return (int)cudaErrorInvalidValue;
+  return launch_for_width<false>(block_args(p, R, C, scale, eps), stream);
+}
+
+// p: kernel 10's 18 pointers with x / out [B, 16, H, W, C], then 18 mul
+// [B, C], 19 add [B, C] (fp32), 20 w_in [C, C], 21 b_in [C], 22 w_out
+// [C, C], 23 b_out [C]. Shapes the caller guarantees: C % 64 == 0, 64 <= C
+// <= 640, every pointer 16-byte aligned and contiguous.
+extern "C" int ds_temporal_mega(const void* const* p, int B, int HW, int C, float scale, float eps,
+                                void* stream) {
+  if (C % 64 || C < 64 || C > 640 || B <= 0 || HW <= 0) return (int)cudaErrorInvalidValue;
+  BlockArgs a = block_args(p, B * HW, C, scale, eps);
+  a.gn_mul = static_cast<const float*>(p[18]);
+  a.gn_add = static_cast<const float*>(p[19]);
+  a.w_in = static_cast<const bf16*>(p[20]);
+  a.b_in = static_cast<const float*>(p[21]);
+  a.w_out = static_cast<const bf16*>(p[22]);
+  a.b_out = static_cast<const float*>(p[23]);
+  a.HW = HW;
+  return launch_for_width<true>(a, stream);
 }

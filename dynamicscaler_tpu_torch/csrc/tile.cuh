@@ -1,18 +1,21 @@
-// Device routines shared by the whole-block kernel (block.cu, kernel 10) and
-// the whole-transformer kernel (mega.cu, kernel 13): an 8-warp block keeps a
-// tile of TM tokens in shared memory and runs every projection of the block
-// on it as a sequence of column chunks.
+// Device routines shared by the whole-block kernels (block.cu: kernels 10
+// and 12) and the whole-transformer kernels (mega.cu: kernels 11 and 13): an
+// 8-warp block keeps a tile of TM tokens in shared memory and runs every
+// projection of the block on it as a sequence of column chunks.
 //
 // gemm_cols: Y[TM, n] = A[TM, K] @ W[n, K]^T in column chunks of 128 (TM =
-// 64) or 256 (TM = 32) output columns, 8 warps of 32 x 32 each, with A
-// resident in shared memory (bf16, any pitch that is a multiple of 8) and
-// the weight rows streamed from device memory (L2 after the first blocks)
-// through a cp.async ring of NCOL x 64 bf16 tiles that runs across the
-// chunks, so the next chunk's weights load while this one computes. The
-// products are mma.sync m16n8k16 (bf16 in, fp32 accumulation) on fragments
-// loaded with ldmatrix; each thread hands its accumulator elements straight
-// to an epilogue functor epi(row, col, value), so the callers fuse bias,
-// rounding, residual adds and GEGLU into it.
+// 64) or 256 (TM = 32, 16) output columns; each of the 8 warps owns 32 rows
+// (16 at TM = 16) x 32 columns of a chunk. A is resident in shared memory
+// (bf16, any pitch that is a multiple of 8); the weight rows stream from
+// device memory (L2 after the first blocks) through a cp.async ring of
+// NCOL x BK bf16 tiles that runs across the chunks, so the next chunk's
+// weights load while this one computes. The ring is two stages of BK = 64
+// (TM = 64 and the narrower tiles up to C = 512) or of BK = 32 (the wide
+// tiles, C > 512, whose activation tiles leave less room; 40 KB instead of
+// 72 KB). The products are mma.sync m16n8k16 (bf16 in, fp32 accumulation)
+// on fragments loaded with ldmatrix; each thread hands its accumulator
+// elements straight to an epilogue functor epi(row, col, value), so the
+// callers fuse bias, rounding, residual adds and GEGLU into it.
 //
 // layer_norm_rows: flax LayerNorm numerics (fp32 fast-variance statistics,
 // var = max(0, E[x^2] - mu^2); y = (x - mu) * (rsqrt(var + eps) * s) + b,
@@ -32,18 +35,22 @@ using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int THREADS = 256;  // 8 warps
-constexpr int BK = 64;        // k per pipeline stage
-constexpr int LDB = BK + 8;   // bf16 pitch of a staged weight tile (144 bytes)
 
-// the chunk shape of a TM-row tile: 8 warps of 32 rows x 32 columns, and
-// the weight ring (two stages: the next tile loads while this one computes;
-// deeper rings measured no faster, these products are bound by issuing the
-// fragment loads and MMAs, not by the weight stream's latency)
-template <int TM>
+// the chunk shape of a TM-row tile: 8 warps of MF 16-row fragments x 32
+// columns, and the weight ring of k depth BK (two stages: the next tile
+// loads while this one computes; deeper rings measured no faster, these
+// products are bound by issuing the fragment loads and MMAs, not by the
+// weight stream's latency)
+template <int TM, int BK_ = 64>
 struct Tile {
-  static constexpr int WR = TM / 32;         // warps along the rows; warp w -> rows 32 (w % WR)
-  static constexpr int NCOL = 8 / WR * 32;   // output columns per chunk: 128 (TM = 64), 256 (TM = 32)
-  static constexpr int STAGE = NCOL * LDB;   // bf16 elements per weight stage
+  static_assert(TM == 16 || TM == 32 || TM == 64, "TM is 16, 32 or 64");
+  static_assert(BK_ == 32 || BK_ == 64, "BK is 32 or 64");
+  static constexpr int MF = TM < 32 ? 1 : 2;     // 16-row fragments per warp
+  static constexpr int WR = TM / (16 * MF);      // warps along the rows; warp w -> rows 16 MF (w % WR)
+  static constexpr int NCOL = 8 / WR * 32;       // output columns per chunk: 128 (TM = 64), else 256
+  static constexpr int BK = BK_;                 // k per pipeline stage
+  static constexpr int LDB = BK + 8;             // bf16 pitch of a staged weight tile (144 or 80 bytes)
+  static constexpr int STAGE = NCOL * LDB;       // bf16 elements per weight stage
   static constexpr int STAGES = 2;
   static constexpr int RING = STAGES * STAGE * 2;  // bytes
 };
@@ -91,30 +98,32 @@ __device__ __forceinline__ void mma16816(float* c, const unsigned* a, const unsi
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// rows [0, n) of a NCOL x 64 weight stage (8 chunks of 16 bytes per row)
-template <int NCOL>
+// rows [0, n) of a NCOL x BK weight stage (BK / 8 chunks of 16 bytes per row)
+template <class G>
 __device__ __forceinline__ void load_b(bf16* Bs, const bf16* W, int ldw, int k0, int n) {
-  for (int i = threadIdx.x; i < NCOL * (BK / 8); i += THREADS) {
-    const int r = i >> 3;
-    const int c = (i & 7) * 8;
-    if (r < n) cp_async16(Bs + r * LDB + c, W + (size_t)r * ldw + k0 + c);
+  constexpr int CPR = G::BK / 8;
+  for (int i = threadIdx.x; i < G::NCOL * CPR; i += THREADS) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * 8;
+    if (r < n) cp_async16(Bs + r * G::LDB + c, W + (size_t)r * ldw + k0 + c);
   }
 }
 
 // Y[TM, 0:n] = A[TM, 0:K] @ W[0:n, 0:K]^T, then epi(r, c, y) for every
-// element, as column chunks of Tile<TM>::NCOL. The weight tiles of all the
-// chunks form one stream through the ring (the next chunk's tiles load while
-// this one computes); each warp's 32 x 32 accumulator goes to the epilogue
-// straight from its registers when its chunk's last k stage is done. A must
-// not be a destination of epi. K % 64 == 0, n % 32 == 0; W rows 16-byte
-// aligned (ldw % 8 == 0); A rows 16-byte aligned. Ends synchronised.
-template <int TM, class Epi>
+// element, as column chunks of G::NCOL (G a Tile). The weight tiles of all
+// the chunks form one stream through the ring (the next chunk's tiles load
+// while this one computes); each warp's (16 MF) x 32 accumulator goes to the
+// epilogue straight from its registers when its chunk's last k stage is
+// done. A must not be a destination of epi. K % G::BK == 0, n % 32 == 0; W
+// rows 16-byte aligned (ldw % 8 == 0); A rows 16-byte aligned. Ends
+// synchronised.
+template <class G, class Epi>
 __device__ void gemm_cols(const bf16* A, int lda, int K, const bf16* W, int ldw, int n, unsigned char* ring,
                           Epi epi) {
-  using G = Tile<TM>;
+  constexpr int MF = G::MF, BK = G::BK, LDB = G::LDB;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int wr = (warp % G::WR) * 32;
+  const int wr = (warp % G::WR) * 16 * MF;
   const int wc = (warp / G::WR) * 32;
   const int nk = K / BK;
   const int total = (n + G::NCOL - 1) / G::NCOL * nk;
@@ -122,17 +131,17 @@ __device__ void gemm_cols(const bf16* A, int lda, int K, const bf16* W, int ldw,
   auto issue = [&](int i) {  // tile i: chunk i / nk, k stage i % nk, into slot i % STAGES
     if (i < total) {
       const int c0 = i / nk * G::NCOL;
-      load_b<G::NCOL>(Bs + (i % G::STAGES) * G::STAGE, W + (size_t)c0 * ldw, ldw, (i % nk) * BK,
-                      min(G::NCOL, n - c0));
+      load_b<G>(Bs + (i % G::STAGES) * G::STAGE, W + (size_t)c0 * ldw, ldw, (i % nk) * BK,
+                min(G::NCOL, n - c0));
     }
     cp_async_commit();
   };
 #pragma unroll
   for (int s = 0; s < G::STAGES - 1; ++s) issue(s);
 
-  float acc[2][4][4];  // 2 row fragments x 4 column fragments of 16 x 8
+  float acc[MF][4][4];  // MF row fragments x 4 column fragments of 16 x 8
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int m = 0; m < MF; ++m)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -147,16 +156,16 @@ __device__ void gemm_cols(const bf16* A, int lda, int K, const bf16* W, int ldw,
     if (c0 + wc < n) {  // this warp's 32 columns are in the chunk (n % 32 == 0)
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
-        unsigned a[2][4];
+        unsigned a[MF][4];
 #pragma unroll
-        for (int m = 0; m < 2; ++m)
+        for (int m = 0; m < MF; ++m)
           ldsm_x4(a[m], A + (wr + m * 16 + (lane & 15)) * lda + ks * BK + kk + (lane >> 4) * 8);
 #pragma unroll
         for (int nb = 0; nb < 2; ++nb) {
           unsigned b[4];
           ldsm_x4(b, cur + (wc + nb * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDB + kk + ((lane >> 3) & 1) * 8);
 #pragma unroll
-          for (int m = 0; m < 2; ++m) {
+          for (int m = 0; m < MF; ++m) {
             mma16816(acc[m][2 * nb], a[m], b);
             mma16816(acc[m][2 * nb + 1], a[m], b + 2);
           }
@@ -164,7 +173,7 @@ __device__ void gemm_cols(const bf16* A, int lda, int K, const bf16* W, int ldw,
       }
       if (ks == nk - 1) {
 #pragma unroll
-        for (int m = 0; m < 2; ++m)
+        for (int m = 0; m < MF; ++m)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
 #pragma unroll

@@ -12,8 +12,12 @@ feed-forward sub-block dispatches by SITE to one op:
   ``fused_ln_cross_attention`` (dual text/image KV with ``to_k_ip``);
 * every feed-forward -> K4 ``fused_ln_geglu``;
 * a whole temporal block, where the dispatch plan allows ``block`` at its
-  width (``fused_temporal.plan_allows``) -> kernel 10
-  ``fused_block.fused_temporal_block``.
+  width (``fused_temporal.plan_allows``) and its gate admits the shape
+  (``fused_block.temporal_block_ok``) -> kernel 10
+  ``fused_block.fused_temporal_block``;
+* a whole spatial block the same way (``fused_block.spatial_block_ok``) ->
+  kernel 11 ``fused_block.fused_spatial_block``, with the context of each
+  clip once.
 
 Each op takes its plain PyTorch version for CPU tensors. On the card the
 modules hand each op its kernel operands, packed once from their parameters
@@ -114,8 +118,9 @@ class BasicTransformerBlock(nn.Module):
     a pre-LayerNorm and a residual (lvdm/modules/attention.py:187-220).
     ``temporal`` selects the sites: a temporal block's attn1 and attn2 are
     both frame self-attention (K1); a spatial block's are K2 and K3. A
-    temporal block without a mask runs whole as kernel 10 where the plan
-    allows ``block`` at its width."""
+    temporal block without a mask runs whole as kernel 10, a spatial block
+    with a context whole as kernel 11, where the plan allows ``block`` at
+    its width and the kernel's gate admits the shape."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
                  img_cross_attention: bool = False, text_context_len: int = 77,
@@ -149,16 +154,19 @@ class BasicTransformerBlock(nn.Module):
         return lns, attn(self.attn1), attn(self.attn2), (ff.net[0].proj.weight, ff.net[0].proj.bias,
                                                         ff.net[2].weight, ff.net[2].bias)
 
-    def forward(self, x, context=None, mask=None):
-        if self.temporal and mask is None and fused_temporal.plan_allows("block", "t", self.dim):
-            w = self.weights()
-            ops = None
-            if x.is_cuda:
-                params = [p for group in w for p in group]
-                ops = self._operands.get(lambda: fused_block.pack_temporal_block(*w, dtype=x.dtype),
-                                         params, x.dtype)
-            return fused_block.fused_temporal_block(x, *w, heads=self.attn1.heads, scale=self.attn1.scale,
-                                                    eps=self.norm1.eps, operands=ops)
+    def forward(self, x, context=None, mask=None, num_frames: int = 1):
+        """x [B, N, dim]; context [B, L, D], the same rows for the
+        ``num_frames`` samples of a clip (spatial blocks)."""
+        heads = self.attn1.heads
+        inner = heads * self.attn1.dim_head
+        side = "t" if self.temporal else "s"
+        if mask is None and fused_temporal.plan_allows("block", side, self.dim):
+            if self.temporal and fused_block.temporal_block_ok(x.shape[1], inner, self.dim, heads):
+                return self._whole(x, fused_block.fused_temporal_block, fused_block.pack_temporal_block)
+            if (not self.temporal and context is not None
+                    and fused_block.spatial_block_ok(x.shape[1], inner, self.dim, heads, context.shape[-1])):
+                return self._whole(x, fused_block.fused_spatial_block, fused_block.pack_spatial_block,
+                                   context[::num_frames], text_len=self.attn2.text_context_len)
         if self.temporal:
             x = self.attn1(x, self.norm1, SITE_TEMPORAL, mask=mask)
             x = self.attn2(x, self.norm2, SITE_TEMPORAL, mask=mask)
@@ -166,3 +174,14 @@ class BasicTransformerBlock(nn.Module):
             x = self.attn1(x, self.norm1, SITE_SPATIAL)
             x = self.attn2(x, self.norm2, SITE_CROSS, context=context)
         return self.ff(x, self.norm3)
+
+    def _whole(self, x, op, pack, *ctx, **kw):
+        """The whole block as kernel 10 or 11 (``op``), its operands packed
+        once on the card."""
+        w = self.weights()
+        ops = None
+        if x.is_cuda:
+            params = [p for group in w for p in group]
+            ops = self._operands.get(lambda: pack(*w, dtype=x.dtype), params, x.dtype)
+        return op(x, *ctx, *w, heads=self.attn1.heads, scale=self.attn1.scale, eps=self.norm1.eps, operands=ops,
+                  **kw)

@@ -197,12 +197,31 @@ def _wrapper_operands(module, x):
     return module._operands.get(lambda: fused_twrap.pack_wrapper(*params, dtype=x.dtype), params, x.dtype)
 
 
+def _whole_transformer(module, x, op, pack, *ctx, **kw):
+    """The whole transformer ``module`` (depth 1) as kernel 12 or 13
+    (``op``, after the GroupNorm statistics pass), its operands packed once
+    on the card. GroupNorm eps 1e-6 in the transformer wrappers
+    (fused_twrap.py:311, 347)."""
+    blk = module.transformer_blocks[0]
+    lns, a1, a2, ff = blk.weights()
+    w_in, b_in, w_out, b_out = (module.proj_in.weight, module.proj_in.bias, module.proj_out.weight,
+                                module.proj_out.bias)
+    ops = None
+    if x.is_cuda:
+        params = [w_in, b_in, w_out, b_out, *lns, *a1, *a2, *ff]
+        ops = module._mega_operands.get(
+            lambda: pack(w_in, b_in, lns, a1, a2, ff, w_out, b_out, dtype=x.dtype), params, x.dtype)
+    return op(x, *ctx, module.norm.weight, module.norm.bias, w_in, b_in, lns, a1, a2, ff, w_out, b_out,
+              heads=blk.attn1.heads, scale=blk.attn1.scale, gn_eps=1e-6, eps=blk.norm1.eps, operands=ops, **kw)
+
+
 class SpatialTransformer(nn.Module):
     """GN -> proj_in -> transformer over H*W tokens -> proj_out + residual
     (lvdm/modules/attention.py:223-278, use_linear=True). At depth 1 with a
-    context, where the dispatch plan allows ``mega`` at its channels, the
-    whole transformer runs as kernel 13 (``fused_mega.spatial_transformer``);
-    else the wrapper head and tail (kernels 7, 8) around the block."""
+    context, where the dispatch plan allows ``mega`` at its channels and
+    kernel 13's gate admits the shape (``fused_mega.spatial_ok``), the whole
+    transformer runs as kernel 13 (``fused_mega.spatial_transformer``); else
+    the wrapper head and tail (kernels 7, 8) around the block."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
                  context_dim: int = None, img_cross_attention: bool = False,
@@ -224,39 +243,32 @@ class SpatialTransformer(nn.Module):
     def forward(self, x, context, num_frames: int = 1):
         """x [(B F), H, W, C]; context [(B F), L, D], the same rows for the
         ``num_frames`` samples of a clip."""
-        C = x.shape[-1]
+        BF, H, W, C = x.shape
         blk = self.transformer_blocks[0]
-        if (len(self.transformer_blocks) == 1 and context is not None and blk.dim == C
-                and fused_temporal.plan_allows("mega", "s", C)):
-            return self._mega(x, context[::num_frames], blk)
+        heads = blk.attn1.heads
+        if (len(self.transformer_blocks) == 1 and context is not None
+                and fused_temporal.plan_allows("mega", "s", C)
+                and fused_mega.spatial_ok(H * W, C, heads * blk.attn1.dim_head, heads, context.shape[-1])):
+            return _whole_transformer(self, x, fused_mega.spatial_transformer, fused_mega.pack_spatial_mega,
+                                      context[::num_frames], text_len=blk.attn2.text_context_len)
         w_in, b_in, w_out, b_out = _wrapper_operands(self, x)
         # GroupNorm eps 1e-6 in the transformer wrappers (fused_twrap.py:347)
         h = fused_twrap.gn_proj_in_spatial(x, self.norm.weight, self.norm.bias, w_in, b_in, eps=1e-6)
         for blk in self.transformer_blocks:
-            h = blk(h, context=context)
+            h = blk(h, context=context, num_frames=num_frames)
         return fused_twrap.tail_spatial(h, x, w_out, b_out)
-
-    def _mega(self, x, ctx_clips, blk):
-        lns, a1, a2, ff = blk.weights()
-        wrap = (self.proj_in.weight, self.proj_in.bias, self.proj_out.weight, self.proj_out.bias)
-        ops = None
-        if x.is_cuda:
-            params = [*wrap, *lns, *a1, *a2, *ff]
-            ops = self._mega_operands.get(
-                lambda: fused_mega.pack_spatial_mega(wrap[0], wrap[1], lns, a1, a2, ff, wrap[2], wrap[3],
-                                                     dtype=x.dtype), params, x.dtype)
-        # GroupNorm eps 1e-6 in the transformer wrappers (fused_twrap.py:347)
-        return fused_mega.spatial_transformer(
-            x, ctx_clips, self.norm.weight, self.norm.bias, wrap[0], wrap[1], lns, a1, a2, ff, wrap[2],
-            wrap[3], heads=blk.attn1.heads, scale=blk.attn1.scale, text_len=blk.attn2.text_context_len,
-            gn_eps=1e-6, eps=blk.norm1.eps, operands=ops)
 
 
 class TemporalTransformer(nn.Module):
     """GN -> proj_in -> transformer over F tokens per (b, h, w) -> proj_out
     + residual (lvdm/modules/attention.py:281-373). Input [(B F), H, W, C].
     ``use_linear=False`` stores proj_in/proj_out as Conv1d(k=1) (the
-    reference's ``init_attn``); the compute is the same product."""
+    reference's ``init_attn``); the compute is the same product. At depth 1
+    without a causal mask, where the dispatch plan allows ``mega`` at its
+    width and kernel 12's gate admits the shape (``fused_mega.temporal_ok``:
+    inner == C, so never the 512-wide init_attn), the whole transformer runs
+    as kernel 12 (``fused_mega.temporal_transformer``); else the wrapper head
+    and tail (kernels 5, 6) around the block."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
                  use_linear: bool = True, causal_attention: bool = False,
@@ -279,11 +291,19 @@ class TemporalTransformer(nn.Module):
             BasicTransformerBlock(inner, heads, dim_head, temporal=True) for _ in range(depth)
         ])
         self._operands = cuda_lib.PackCache()
+        self._mega_operands = cuda_lib.PackCache()
 
     def forward(self, x, num_frames: int):
         BF, H, W, C = x.shape
         Fn = num_frames
         x5 = x.reshape(BF // Fn, Fn, H, W, C)
+        blk = self.transformer_blocks[0]
+        heads = blk.attn1.heads
+        if (len(self.transformer_blocks) == 1 and not self.causal_attention
+                and fused_temporal.plan_allows("mega", "t", C)
+                and fused_mega.temporal_ok(Fn, C, heads * blk.attn1.dim_head, heads)):
+            return _whole_transformer(self, x5, fused_mega.temporal_transformer,
+                                      fused_mega.pack_temporal_mega).reshape(BF, H, W, C)
         w_in, b_in, w_out, b_out = _wrapper_operands(self, x)
         # GroupNorm eps 1e-6 over each clip (fused_twrap.py:311)
         h = fused_twrap.gn_proj_in_temporal(x5, self.norm.weight, self.norm.bias, w_in, b_in, eps=1e-6)

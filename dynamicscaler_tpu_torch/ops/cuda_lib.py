@@ -12,7 +12,7 @@ is the one explicit way to run the plain versions on the card (for the
 kernel-vs-plain comparisons of ``chip_smoke.py``). :func:`ln_gemm` binds
 the GEMM that every op's projections run on (K1-K4 and the transformer
 wrapper head and tail); :class:`PackCache` keeps a module's kernel operands
-packed between calls; the whole-block and whole-transformer kernels (10, 13)
+packed between calls; the whole-block and whole-transformer kernels (10-13)
 take their operands as one array of pointers (:func:`ptr_array`).
 """
 
@@ -46,7 +46,9 @@ _SIGNATURES = {
     "ds_temporal_attention": (_P, _I, _I, _I, _F, _P, _P),
     "ds_flash_attention": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _P, _I, _P),
     "ds_temporal_block": (_P, _I, _I, _F, _F, _P),
-    "ds_mega_spatial": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "ds_temporal_mega": (_P, _I, _I, _I, _F, _F, _P),
+    "ds_mega_spatial": (_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "ds_spatial_block": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -1,17 +1,33 @@
-"""Kernel 10: the whole temporal BasicTransformerBlock in one launch.
+"""Kernels 10 and 11: the whole temporal and the whole spatial
+BasicTransformerBlock.
 
-Counterpart of ``dynamicscaler_tpu/ops/fused_block.py``
-``fused_temporal_block`` (Pallas ``_temporal_block_call``): LN1 -> 16-frame
-self-attention -> + x, LN2 -> 16-frame self-attention -> + x, LN3 -> GEGLU
-FF -> + x, over x [rows, 16, C]. Weights are in torch ``Linear`` layout
-``[out, in]``.
+Counterparts of ``dynamicscaler_tpu/ops/fused_block.py``:
 
-On the card the block runs as ``csrc/block.cu::ds_temporal_block``: one
-thread block owns two 16-frame rows and keeps them in shared memory through
-all three sub-blocks (see the note there for what bounds it). The plain
-version is the three sub-blocks' plain versions in sequence (K1, K1, K4),
-which hold the TPU kernel's rounding points. The wrapper counts its kernel
-launches in ``fused_temporal_block.launches``.
+* ``fused_temporal_block`` -> kernel 10 (Pallas ``_temporal_block_call``):
+  LN1 -> 16-frame self-attention -> + x, LN2 -> 16-frame self-attention ->
+  + x, LN3 -> GEGLU FF -> + x, over x [rows, 16, C];
+* ``fused_spatial_block`` -> kernel 11 (``_spatial_block_call``): LN1 ->
+  N-token self-attention -> + x, LN2 -> text (+ image) cross-attention -> +
+  x, LN3 -> GEGLU FF -> + x, over x [BF, N, C] with the context given per
+  CLIP, ``ctx`` [clips, L, Dc] (BF = clips * frames; the UNet repeats it
+  over a clip's frames, and the kernel projects its K/V once per clip).
+
+Weights are in torch ``Linear`` layout ``[out, in]``. On the card kernel 10
+runs as ``csrc/block.cu::ds_temporal_block`` (one launch; TM tokens of
+16-frame rows resident in shared memory through all three sub-blocks) and
+kernel 11 as ``csrc/mega.cu::ds_spatial_block`` (kernel 13's head and body
+without the GroupNorm apply, proj_in and proj_out, after the context K/V
+projection with ``csrc/gemm.cu``); see the notes there for what bounds each.
+The plain versions are the sub-blocks' plain versions in sequence (K1, K1,
+K4; K2, K3, K4), which hold the TPU kernels' rounding points. Each wrapper
+counts its kernel launches in ``<wrapper>.launches``.
+
+The gates :func:`temporal_block_ok` and :func:`spatial_block_ok` are the
+JAX package's shape conditions (``temporal_block_fusable``,
+``spatial_block_fusable``) without its TPU tiling terms; the module dispatch
+routes by them and the wrappers refuse what they do not admit. On the card
+the kernels also need head dim 64 (and 16 frames for kernel 10), as the
+sub-block kernels K1-K4 do.
 """
 
 from __future__ import annotations
@@ -21,6 +37,12 @@ from typing import NamedTuple
 import torch
 
 from dynamicscaler_tpu_torch.ops import cuda_lib
+from dynamicscaler_tpu_torch.ops.cuda_lib import ln_gemm
+from dynamicscaler_tpu_torch.ops.fused_spatial import (
+    ln_cross_attention_plain,
+    ln_spatial_attention_plain,
+    pack_ln_cross_attention,
+)
 from dynamicscaler_tpu_torch.ops.fused_temporal import (
     AttnOperands,
     FFOperands,
@@ -32,13 +54,40 @@ from dynamicscaler_tpu_torch.ops.fused_temporal import (
 
 
 class BlockOperands(NamedTuple):
-    """Kernel operands of one block: the two attention sub-blocks' (as K1
-    packs them, but with the q, k and v rows of each head of 64 together)
-    and the feed-forward's (as K4 packs them)."""
+    """Kernel operands of one block: the two attention sub-blocks' and the
+    feed-forward's (as K4 packs them). Kernel 10 packs both attentions as K1
+    does but with the q, k and v rows of each head of 64 together; kernel 11
+    packs attn1 as K2 and attn2 as K3 do."""
 
     attn1: AttnOperands
     attn2: AttnOperands
     ff: FFOperands
+
+
+def temporal_block_ok(frames: int, inner: int, dim: int, heads: int) -> bool:
+    """Kernel 10's gate: the shape conditions of the JAX package's
+    ``temporal_block_fusable`` (fused_block.py:214-225) without its TPU
+    tiling term (frames dividing 128)."""
+    return frames >= 2 and inner == dim and inner % heads == 0 and inner <= 1280 and (inner // heads) % 8 == 0
+
+
+def spatial_block_ok(n_tokens: int, inner: int, dim: int, heads: int, ctx_dim: int) -> bool:
+    """Kernel 11's gate: the shape conditions of the JAX package's
+    ``spatial_block_fusable`` (fused_block.py:339-351)."""
+    return (256 <= n_tokens <= 4096 and n_tokens % 16 == 0 and inner == dim and inner % heads == 0
+            and inner <= 640 and (inner // heads) % 8 == 0 and ctx_dim % 128 == 0)
+
+
+def refuse_unless(kernel: str, ok: bool, shape: str) -> None:
+    """Raise unless the card's kernel takes the shape (``ok``)."""
+    if not ok:
+        raise ValueError(f"kernel {kernel} does not take {shape}: outside its gate, or not head dim 64 "
+                         f"(and 16 frames for the temporal kernels) as the card's kernels need")
+
+
+# ---------------------------------------------------------------------------
+# kernel 10: the whole temporal block
+# ---------------------------------------------------------------------------
 
 
 def _rows_by_head(op: AttnOperands) -> AttnOperands:
@@ -64,13 +113,17 @@ def temporal_block_plain(x, lns, attn1, attn2, ff, *, heads, scale, eps=1e-5):
     return ln_geglu_plain(x, s3, b3, *ff, eps=eps)
 
 
-def _check_operands(op: BlockOperands, C: int) -> None:
+def check_block_operands(op: BlockOperands, C: int) -> None:
+    """Kernel 10's (and 12's) packed block operands at width C."""
     for name, a in (("attn1", op.attn1), ("attn2", op.attn2)):
         cuda_lib.check_operand(f"{name} w_qkv", a.w_in, shape=(3 * C, C))
         cuda_lib.check_operand(f"{name} wo", a.wo, shape=(C, C))
         for v in (a.ln_scale, a.ln_bias, a.bo):
             cuda_lib.check_operand(f"{name} vector", v, torch.float32, (C,))
-    f = op.ff
+    _check_ff(op.ff, C)
+
+
+def _check_ff(f: FFOperands, C: int) -> None:
     cuda_lib.check_operand("ff w1", f.w1, shape=(8 * C, C))
     cuda_lib.check_operand("ff w2", f.w2, shape=(C, 4 * C))
     cuda_lib.check_operand("ff b1", f.b1, torch.float32, (8 * C,))
@@ -78,28 +131,130 @@ def _check_operands(op: BlockOperands, C: int) -> None:
         cuda_lib.check_operand("ff vector", v, torch.float32, (C,))
 
 
+def block_pointers(op: BlockOperands) -> list:
+    """The block operands in ``ds_temporal_block``'s pointer order (after x, out)."""
+    a1, a2, f = op
+    return [a1.ln_scale, a1.ln_bias, a1.w_in, a1.wo, a1.bo,
+            a2.ln_scale, a2.ln_bias, a2.w_in, a2.wo, a2.bo,
+            f.ln_scale, f.ln_bias, f.w1, f.b1, f.w2, f.b2]
+
+
 def fused_temporal_block(x, lns, attn1, attn2, ff, *, heads, scale, eps=1e-5, operands=None):
     """Kernel 10: the whole temporal BasicTransformerBlock. x [rows, F, C];
-    returns [rows, F, C]. On the card one launch of
-    ``ds_temporal_block`` (F = 16, head dim 64, 128 <= C <= 512), reading
-    ``operands`` (from :func:`pack_temporal_block`; packed here when None)."""
+    returns [rows, F, C]. On the card one launch of ``ds_temporal_block``
+    (F = 16, head dim 64, C <= 1280), reading ``operands`` (from
+    :func:`pack_temporal_block`; packed here when None)."""
     if not cuda_lib.use_kernel(x):
         return temporal_block_plain(x, lns, attn1, attn2, ff, heads=heads, scale=scale, eps=eps)
     R, Fn, C = x.shape
-    if Fn != 16 or C != heads * 64 or not 128 <= C <= 512:
-        raise ValueError(f"kernel 10 takes F=16, head dim 64 and 128 <= C <= 512, got F={Fn} C={C} heads={heads}")
+    refuse_unless("10", temporal_block_ok(Fn, C, C, heads) and Fn == 16 and C == heads * 64,
+                  f"x {tuple(x.shape)} with {heads} heads")
     cuda_lib.check_operand("x", x)
     op = operands or pack_temporal_block(lns, attn1, attn2, ff, dtype=x.dtype)
-    _check_operands(op, C)
+    check_block_operands(op, C)
     out = torch.empty_like(x)
-    a1, a2, f = op
-    ptrs = [x, out,
-            a1.ln_scale, a1.ln_bias, a1.w_in, a1.wo, a1.bo,
-            a2.ln_scale, a2.ln_bias, a2.w_in, a2.wo, a2.bo,
-            f.ln_scale, f.ln_bias, f.w1, f.b1, f.w2, f.b2]
-    cuda_lib.call("ds_temporal_block", cuda_lib.ptr_array(ptrs), R, C, float(scale), float(eps))
+    cuda_lib.call("ds_temporal_block", cuda_lib.ptr_array([x, out, *block_pointers(op)]), R, C, float(scale),
+                  float(eps))
     fused_temporal_block.launches += 1
     return out
 
 
 fused_temporal_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 11: the whole spatial block (and the launch it shares with kernel 13)
+# ---------------------------------------------------------------------------
+
+
+def pack_spatial_block(lns, attn1, attn2, ff, *, dtype) -> BlockOperands:
+    s1, b1, s2, b2, s3, b3 = lns
+    return BlockOperands(pack_ln_attention(s1, b1, *attn1, dtype=dtype),
+                         pack_ln_cross_attention(s2, b2, *attn2, dtype=dtype),
+                         pack_ln_geglu(s3, b3, *ff, dtype=dtype))
+
+
+def spatial_block_plain(x, ctx, lns, attn1, attn2, ff, *, heads, scale, text_len=77, eps=1e-5):
+    """Plain PyTorch version of kernel 11. x [BF, N, C]; ctx [clips, L, Dc];
+    lns (s1, b1, s2, b2, s3, b3); attn1 (wq, wk, wv, wo, bo); attn2 the same,
+    + (wk_ip, wv_ip) with image keys; ff (w1, b1, w2, b2)."""
+    s1, b1, s2, b2, s3, b3 = lns
+    ctx_s = ctx.repeat_interleave(x.shape[0] // ctx.shape[0], dim=0)
+    h = ln_spatial_attention_plain(x, s1, b1, *attn1, heads=heads, scale=scale, eps=eps)
+    h = ln_cross_attention_plain(h, ctx_s, s2, b2, *attn2, heads=heads, scale=scale, text_len=text_len, eps=eps)
+    return ln_geglu_plain(h, s3, b3, *ff, eps=eps)
+
+
+def check_spatial_operands(op: BlockOperands, Ci: int, Dc: int, has_img: bool) -> None:
+    """Kernel 11's (and 13's) packed block operands at width Ci."""
+    f32 = torch.float32
+    cuda_lib.check_operand("attn1 w_qkv", op.attn1.w_in, shape=(3 * Ci, Ci))
+    cuda_lib.check_operand("attn2 wq", op.attn2.w_in, shape=(Ci, Ci))
+    if len(op.attn2.w_kv) != 1 + has_img:
+        raise ValueError(f"attn2 packs {len(op.attn2.w_kv)} key segments, the call has {1 + has_img}")
+    for w_kv in op.attn2.w_kv:
+        cuda_lib.check_operand("attn2 w_kv", w_kv, shape=(2 * Ci, Dc))
+    for a in (op.attn1, op.attn2):
+        cuda_lib.check_operand("wo", a.wo, shape=(Ci, Ci))
+        for v in (a.ln_scale, a.ln_bias, a.bo):
+            cuda_lib.check_operand("attention vector", v, f32, (Ci,))
+    _check_ff(op.ff, Ci)
+
+
+def spatial_launch(x3, ctx, op: BlockOperands, wrapper, *, heads, scale, text_len, eps):
+    """Launch kernel 13 (``wrapper`` = (mul, add, w_in, b_in, w_out, b_out))
+    or kernel 11 (``wrapper`` None) on x3 [BF, N, C] with the per-clip
+    context ``ctx`` [clips, L, Dc]: the context K|V of each segment (text;
+    image from ``text_len`` on with image keys) projected once per clip by
+    ``ds_ln_gemm``, then ``ds_mega_spatial`` / ``ds_spatial_block``. Returns
+    [BF, N, C]."""
+    BF, N, C = x3.shape
+    clips, L, Dc = ctx.shape
+    Ci = heads * 64
+    dt = x3.dtype
+    has_img = len(op.attn2.w_kv) == 2
+    Lt = text_len if has_img else L
+    ctx = ctx.to(dt)
+    segs = (ctx[:, :Lt], ctx[:, Lt:]) if has_img else (ctx,)
+    kv = [ln_gemm(c.reshape(-1, Dc).contiguous(), w) for c, w in zip(segs, op.attn2.w_kv)]
+    qkv = torch.empty((BF * N, 3 * Ci), device=x3.device, dtype=dt)
+    out = torch.empty_like(x3)
+    mul, add, w_in, b_in, w_out, b_out = wrapper or (None,) * 6
+    h = torch.empty((BF * N, Ci), device=x3.device, dtype=dt) if wrapper else None
+    a1, a2, f = op
+    ptrs = cuda_lib.ptr_array([
+        x3, mul, add, w_in, b_in,
+        a1.ln_scale, a1.ln_bias, a1.w_in, a1.wo, a1.bo,
+        a2.ln_scale, a2.ln_bias, a2.w_in, kv[0], kv[1] if has_img else None, a2.wo, a2.bo,
+        f.ln_scale, f.ln_bias, f.w1, f.b1, f.w2, f.b2, w_out, b_out, h, qkv, out])
+    tail = (BF // clips, Lt, L - Lt, float(scale), float(eps))
+    if wrapper:
+        cuda_lib.call("ds_mega_spatial", ptrs, BF, N, C, Ci, *tail)
+    else:
+        cuda_lib.call("ds_spatial_block", ptrs, BF, N, C, *tail)
+    return out
+
+
+def fused_spatial_block(x, ctx, lns, attn1, attn2, ff, *, heads, scale, text_len=77, eps=1e-5, operands=None):
+    """Kernel 11: the whole spatial BasicTransformerBlock. x [BF, N, C]; ctx
+    [clips, L, Dc] per clip (BF = clips * frames); returns [BF, N, C]. On the
+    card the context K/V projection and ``ds_spatial_block`` (two launches),
+    reading ``operands`` (from :func:`pack_spatial_block`; packed here when
+    None)."""
+    if not cuda_lib.use_kernel(x, ctx):
+        return spatial_block_plain(x, ctx, lns, attn1, attn2, ff, heads=heads, scale=scale, text_len=text_len,
+                                   eps=eps)
+    BF, N, C = x.shape
+    clips, L, Dc = ctx.shape
+    has_img = len(attn2) == 7
+    refuse_unless("11", spatial_block_ok(N, C, C, heads, Dc) and C == heads * 64 and BF % clips == 0
+                  and (not has_img or 0 < text_len < L), f"x {tuple(x.shape)} ctx {tuple(ctx.shape)} with {heads} heads")
+    cuda_lib.check_operand("x", x)
+    op = operands or pack_spatial_block(lns, attn1, attn2, ff, dtype=x.dtype)
+    check_spatial_operands(op, C, Dc, has_img)
+    out = spatial_launch(x, ctx, op, None, heads=heads, scale=scale, text_len=text_len, eps=eps)
+    fused_spatial_block.launches += 1
+    return out
+
+
+fused_spatial_block.launches = 0

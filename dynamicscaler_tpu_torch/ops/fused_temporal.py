@@ -18,6 +18,7 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -31,20 +32,38 @@ from dynamicscaler_tpu_torch.ops.cuda_lib import MODE_GEGLU, MODE_RESIDUAL, act,
 # ---------------------------------------------------------------------------
 # Per-shape dispatch plan: which level of the fusion ladder each UNet
 # transformer shape runs (counterpart of the JAX package's _PLAN_DEFAULT,
-# plan_allows and set_plan, fused_temporal.py:95-147). Keys are (side, C):
-# side "t" for a TemporalTransformer's block (C its width; 512 is the
-# init_attn, which the JAX table leaves out and so runs at the highest legal
-# level), "s" for a SpatialTransformer (C its channels). Levels, highest
-# first:
-#   mega      the whole SpatialTransformer as kernel 13 (ops/fused_mega.py);
+# _parse_plan, set_plan and plan_allows, fused_temporal.py:95-147). Keys are
+# (side, C): side "t" for a TemporalTransformer (C its width; the block's
+# width 512 is the init_attn, which the JAX table leaves out), "s" for a
+# SpatialTransformer (C its channels). Levels, highest first:
+#   mega      the whole transformer as kernel 12 (temporal) or 13 (spatial),
+#             ops/fused_mega.py; the block as kernel 10 / 11 where the
+#             transformer's gate refuses (init_attn: inner 512 != C 320);
 #   wrap+blk  the wrapper head and tail (kernels 5-8) around the whole block
-#             as kernel 10 (ops/fused_block.py);
+#             as kernel 10 / 11 (ops/fused_block.py);
 #   wrap+sub  the wrapper head and tail around the sub-block kernels K1-K4.
-# The JAX package's v5e table puts s640 and s1280 at "subs" (no wrapper
-# kernels); the port keeps its wrappers (K7/K8) there until its own H100
-# level timings (chip_smoke.py phase 3) decide. Shapes not in the table keep
-# wrap+sub, so small test configs keep the sub-block path unless a test sets
-# the plan.
+# The JAX package's fourth level, "subs" (no wrapper kernels), has no
+# counterpart: the port's wrapper kernels run wherever the wrapper does.
+# A level names the preferred kernel set; the kernels' shape gates
+# (fused_block.temporal_block_ok / spatial_block_ok, fused_mega.temporal_ok /
+# spatial_ok) veto on top, falling through to the next level. Shapes not in
+# the table keep wrap+sub, so small test configs keep the sub-block path
+# unless a test sets the plan. DSCALER_FUSE_PLAN (read once, at import) or
+# set_plan takes "auto" (the table), "off" (the highest legal level at every
+# shape) or a comma spec such as "t640=mega,s320=wrap+blk" patching the
+# table.
+#
+# The table is the fastest level at each shape of the batch-8 i2v UNet
+# forward in one recorded run of chip_smoke.py (phase 3, module ms per
+# forward with the GroupNorm fold, NVIDIA H100 80GB HBM3 at 700 W; the run
+# is in PERF.md):
+#   t320 : wrap+blk 83.93 (mega 84.75, wrap+sub 124.08)
+#   t512 : wrap+blk 39.61 (wrap+sub 49.15; init_attn, no mega: inner != C)
+#   t640 : wrap+sub 100.85 (wrap+blk 136.03, mega 156.35)
+#   t1280: wrap+sub 94.72 (wrap+blk 306.76; no mega: inner > 640)
+#   s320 : wrap+blk 160.25 (mega 164.74, wrap+sub 213.03)
+#   s640 : wrap+sub 105.35 (wrap+blk 149.21, mega 162.66)
+#   s1280: wrap+sub 91.90 (the only legal level)
 # ---------------------------------------------------------------------------
 
 PLAN_DEFAULT = {
@@ -52,7 +71,7 @@ PLAN_DEFAULT = {
     ("t", 512): "wrap+blk",
     ("t", 640): "wrap+sub",
     ("t", 1280): "wrap+sub",
-    ("s", 320): "mega",
+    ("s", 320): "wrap+blk",
     ("s", 640): "wrap+sub",
     ("s", 1280): "wrap+sub",
 }
@@ -61,25 +80,67 @@ _LEVEL_ALLOWS = {
     "wrap+blk": frozenset({"block"}),
     "wrap+sub": frozenset(),
 }
-_PLAN = dict(PLAN_DEFAULT)
+
+
+class PlanError(ValueError, AssertionError):
+    """A plan the port does not take. An AssertionError, as the JAX
+    package's ``_parse_plan`` raises for a bad level or key, and a
+    ValueError."""
+
+
+def _level(level: str, where: str) -> str:
+    if level == "subs":
+        raise PlanError(f"plan level 'subs' in {where}: the port has no level without its wrapper kernels "
+                        f"(kernels 5-8 run wherever the wrapper does); use wrap+sub")
+    if level not in _LEVEL_ALLOWS:
+        raise PlanError(f"bad plan level {level!r} in {where}")
+    return level
+
+
+def _parse_plan(spec: str):
+    """The JAX package's spec rules: "auto" or "" the table, "off" None (the
+    highest legal level everywhere), else comma items side+C=level patching
+    the table."""
+    if spec in ("auto", ""):
+        return dict(PLAN_DEFAULT)
+    if spec == "off":
+        return None
+    plan = dict(PLAN_DEFAULT)
+    for item in spec.split(","):
+        k, _, lvl = item.partition("=")
+        _level(lvl, repr(spec))
+        side, c = k[0], int(k[1:])
+        if side not in ("t", "s"):
+            raise PlanError(f"bad plan key {k!r} in {spec!r}")
+        plan[(side, c)] = lvl
+    return plan
+
+
+_PLAN = _parse_plan(os.environ.get("DSCALER_FUSE_PLAN", "auto"))
 
 
 def set_plan(spec=None) -> None:
-    """Reset the plan to :data:`PLAN_DEFAULT`, then patch it with ``spec``,
-    a dict ``{(side, C): level}``."""
+    """Set the plan: None or "auto" the table :data:`PLAN_DEFAULT`, "off"
+    the highest legal level at every shape, a comma spec
+    ("t640=mega,s320=wrap+blk") or a dict ``{(side, C): level}`` patching
+    the table."""
     global _PLAN
+    if spec is None or isinstance(spec, str):
+        _PLAN = _parse_plan(spec or "auto")
+        return
     plan = dict(PLAN_DEFAULT)
-    for (side, c), level in (spec or {}).items():
-        if side not in ("t", "s") or level not in _LEVEL_ALLOWS:
-            raise ValueError(f"bad plan entry {(side, c)!r}={level!r}")
-        plan[(side, int(c))] = level
+    for (side, c), level in spec.items():
+        if side not in ("t", "s"):
+            raise PlanError(f"bad plan key {(side, c)!r}")
+        plan[(side, int(c))] = _level(level, f"{(side, c)!r}")
     _PLAN = plan
 
 
 def plan_allows(kind: str, side: str, C: int) -> bool:
     """Does the plan let the ``side`` ("t"/"s") transformer at width ``C``
-    run kernel class ``kind`` ("block": kernel 10, "mega": kernel 13)?"""
-    return kind in _LEVEL_ALLOWS[_PLAN.get((side, C), "wrap+sub")]
+    run kernel class ``kind`` ("block": kernel 10 / 11, "mega": kernel 12 /
+    13)? Always under "off"."""
+    return _PLAN is None or kind in _LEVEL_ALLOWS[_PLAN.get((side, C), "wrap+sub")]
 
 
 def mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

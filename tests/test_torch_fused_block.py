@@ -12,7 +12,8 @@ rounding points and differ only in the order of their sums (LayerNorm and
 GroupNorm statistics, the products, the softmax denominators), so rtol 1e-4
 with an absolute floor of 1e-4 of the output's largest magnitude. The tiny
 UNet with the tiny widths planned onto kernels 10 and 13 is held against the
-JAX UNet (XLA path) with the tolerance of tests/test_torch_unet.py.
+JAX UNet (XLA path) with the tolerance of tests/test_torch_unet.py. Kernels
+11 and 12 and the plan's spec strings are in tests/test_torch_fused_ladder.py.
 """
 
 import collections
@@ -24,16 +25,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from dynamicscaler_tpu.models.lvdm import tiny_test_config as jtiny
-from dynamicscaler_tpu.models.unet3d import UNet3D as JUNet3D
 from dynamicscaler_tpu.ops import fused_block as jblock
 from dynamicscaler_tpu.ops import fused_mega as jmega
 from dynamicscaler_tpu.ops import fused_temporal as jtemporal
-from dynamicscaler_tpu_torch.config import tiny_test_config
-from dynamicscaler_tpu_torch.models.unet3d import UNet3D
 from dynamicscaler_tpu_torch.ops import fused_block, fused_mega, fused_temporal
-from dynamicscaler_tpu_torch.utils import weights
-from torch_port_helpers import random_jax_params
+from torch_port_helpers import tiny_unet_twins
 
 
 @pytest.fixture
@@ -132,16 +128,22 @@ def test_spatial_mega_matches_pallas(rng, interpret, img, C, heads):
 
 
 def test_plan_table_and_overrides(restore_plan):
+    """The table filled from the H100 level timings (PERF.md): the
+    whole block at t320, t512 and s320, the sub-blocks at C 640 / 1280; and
+    the dict overrides on top of it."""
+    assert fused_temporal.PLAN_DEFAULT == {
+        ("t", 320): "wrap+blk", ("t", 512): "wrap+blk", ("t", 640): "wrap+sub", ("t", 1280): "wrap+sub",
+        ("s", 320): "wrap+blk", ("s", 640): "wrap+sub", ("s", 1280): "wrap+sub"}
     assert fused_temporal.plan_allows("block", "t", 320) and fused_temporal.plan_allows("block", "t", 512)
     assert not fused_temporal.plan_allows("mega", "t", 320)
-    assert fused_temporal.plan_allows("mega", "s", 320) and fused_temporal.plan_allows("block", "s", 320)
+    assert not fused_temporal.plan_allows("mega", "s", 320) and fused_temporal.plan_allows("block", "s", 320)
     for side, c in (("t", 640), ("t", 1280), ("s", 640), ("s", 1280), ("t", 64), ("s", 32)):
         assert not fused_temporal.plan_allows("block", side, c) and not fused_temporal.plan_allows("mega", side, c)
     fused_temporal.set_plan({("t", 64): "wrap+blk", ("s", 32): "mega", ("s", 320): "wrap+sub"})
     assert fused_temporal.plan_allows("block", "t", 64) and fused_temporal.plan_allows("mega", "s", 32)
-    assert not fused_temporal.plan_allows("mega", "s", 320)
+    assert not fused_temporal.plan_allows("mega", "s", 320) and not fused_temporal.plan_allows("block", "s", 320)
     fused_temporal.set_plan({("t", 320): "wrap+sub"})
-    assert not fused_temporal.plan_allows("block", "t", 320) and fused_temporal.plan_allows("mega", "s", 320)
+    assert not fused_temporal.plan_allows("block", "t", 320) and fused_temporal.plan_allows("block", "s", 320)
     with pytest.raises(ValueError):
         fused_temporal.set_plan({("t", 320): "subs"})
     fused_temporal.set_plan()
@@ -165,21 +167,19 @@ def route_counts(monkeypatch):
 
 @pytest.mark.parametrize("img", [False, True])
 def test_unet_on_block_and_mega_routes_matches_jax(restore_plan, route_counts, img):
-    """The tiny UNet with its widths (32, 64) planned onto kernels 10 and 13
-    against the JAX UNet and against the port's default (sub-block) path."""
+    """The tiny UNet (context width 128, 16x16 latent) with its widths (32,
+    64) planned onto kernels 10 and 13 against the JAX UNet and against the
+    port's default (sub-block) path. Kernel 13 runs where its gate admits the
+    shape: the 3 spatial transformers of the 16x16 level (N = 256); the 8x8
+    level's N = 64 keeps the wrapper path."""
     rng = np.random.default_rng(2)
-    cfg = tiny_test_config(img_attention=img).unet
+    jm, params, tm, cfg = tiny_unet_twins(img)
     L = 77 + (4 if img else 0)
-    x = rng.standard_normal((2, 4, 8, 8, 4)).astype(np.float32)
+    x = rng.standard_normal((2, 4, 16, 16, 4)).astype(np.float32)
     ctx = rng.standard_normal((2, L, cfg.context_dim)).astype(np.float32)
     t = np.array([700, 40], np.int32)
-    jm = JUNet3D(jtiny(img_attention=img).unet)
-    params = random_jax_params(jm.init, jnp.zeros((1, 2, 8, 8, 4)), jnp.zeros((1,), jnp.int32),
-                               jnp.zeros((1, L, cfg.context_dim)), 16, seed=4)
     ref = np.asarray(jax.jit(jm.apply, static_argnums=4)(params, jnp.asarray(x), jnp.asarray(t),
                                                          jnp.asarray(ctx), 16))
-    tm = UNet3D(cfg)
-    tm.load_state_dict(weights.from_jax_unet(params, cfg))
     args = (torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ctx), 16)
     with torch.no_grad():
         default = tm(*args)
@@ -187,7 +187,8 @@ def test_unet_on_block_and_mega_routes_matches_jax(restore_plan, route_counts, i
         fused_temporal.set_plan({("t", 32): "wrap+blk", ("t", 64): "wrap+blk", ("s", 32): "mega",
                                  ("s", 64): "mega"})
         got = tm(*args)
-    # every transformer of the tiny UNet (3 input, 1 middle, 3 output levels with attention)
-    assert route_counts == {"temporal_block_plain": 7, "spatial_mega_plain": 7}
+    # every temporal transformer of the tiny UNet (3 input, 1 middle, 3 output levels with attention); the
+    # spatial transformers of the 16x16 level (1 input, 2 output)
+    assert route_counts == {"temporal_block_plain": 7, "spatial_mega_plain": 3}
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=1e-3)
     np.testing.assert_allclose(got.numpy(), default.numpy(), atol=1e-5, rtol=1e-5)

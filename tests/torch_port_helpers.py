@@ -151,3 +151,23 @@ def smooth_pano(seed, h, w):
     yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 2 * np.pi, w, endpoint=False), indexing="ij")
     img = np.stack([np.sin(xx * k + p) * np.cos(yy * 3 + p) for k, p in zip((1, 2, 3), rng.uniform(0, 6, 3))], -1)
     return (0.8 * img + 0.05 * rng.standard_normal(img.shape)).clip(-1, 1).astype(np.float32)
+
+
+def tiny_unet_twins(img_attention, *, context_dim=128, seed=4):
+    """The tiny UNet with a context width the whole-block and
+    whole-transformer gates admit (a multiple of 128), twice: the JAX module
+    with random parameters and the port's loaded from the same numbers.
+    Returns (JAX module, JAX params, port UNet3D, port UNetConfig)."""
+    import dataclasses
+
+    from dynamicscaler_tpu_torch.models.unet3d import UNet3D
+
+    jcfg = dataclasses.replace(jtiny(img_attention=img_attention).unet, context_dim=context_dim)
+    cfg = dataclasses.replace(tiny_test_config(img_attention=img_attention).unet, context_dim=context_dim)
+    L = cfg.text_context_len + (4 if img_attention else 0)
+    jm = JUNet3D(jcfg)
+    params = random_jax_params(jm.init, jnp.zeros((1, 2, 8, 8, 4)), jnp.zeros((1,), jnp.int32),
+                               jnp.zeros((1, L, context_dim)), 16, seed=seed)
+    tm = UNet3D(cfg)
+    tm.load_state_dict(weights.from_jax_unet(params, cfg))
+    return jm, params, tm, cfg
