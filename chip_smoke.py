@@ -29,7 +29,12 @@ Phases, in order, one result line each (any failure exits non-zero):
    kernel, plain and library-composite times (CUDA events) beside the bound
    (the least time the H100 could take for the kernel's work). The
    GroupNorm statistics pass (``group_norm_fold``, plain PyTorch) whose
-   vectors K5, K7, K9, K12 and K13 read is timed on its own. Then the
+   vectors K5, K7, K9, K12 and K13 read is timed on its own. Then the GEMM
+   table: every distinct ``ds_ln_gemm`` call of the batch-8 i2v forward
+   (M, K, N, prologue, epilogue mode, row map, calls per forward) against
+   ``cuda_lib.ln_gemm_plain`` under the same gates, with its time, TFLOP/s
+   and share of the 989 TFLOP/s peak, bound and ``F.linear`` on the same bf16
+   operands (a yardstick; the port never calls it). Then the
    transformer module at every legal level (mega, wrap+blk, wrap+sub) at
    every (side, width) of the batch-8 i2v forward, the fold included, and
    one line saying whether ``PLAN_DEFAULT`` still names each shape's fastest
@@ -163,6 +168,13 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
+# every ds_ln_gemm call of each phase-2 kernel-path run: where -> Counter of
+# (x shape, w shape, prologue, rows_per_sample, frame_map, bias, mode)
+GEMM_SITES = {}
+# the modules whose ops call cuda_lib.ln_gemm by that name
+GEMM_CALLERS = (fused_block, fused_spatial, fused_temporal, fused_twrap)
+
+
 def _reset_launches() -> None:
     for fn, *_ in KERNELS.values():
         fn.launches = 0
@@ -288,6 +300,29 @@ def _recording(calls: collections.Counter):
             setattr(mod, name, fn)
 
 
+def _gemm_key(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, frame_map=None, bias=None,
+              residual=None, mode=cuda_lib.MODE_STORE):
+    pro = "LN" if ln is not None else "GN" if gn is not None else "-"
+    return (tuple(x2d.shape), tuple(w.shape), pro, int(rows_per_sample), tuple(frame_map) if frame_map else None,
+            bias is not None, int(mode))
+
+
+@contextlib.contextmanager
+def _recording_gemms(calls: collections.Counter):
+    """Count every ``cuda_lib.ln_gemm`` call inside the block in ``calls``,
+    keyed by :func:`_gemm_key`, through a stand-in in each calling module."""
+    def recorded(*a, **kw):
+        calls[_gemm_key(*a, **kw)] += 1
+        return cuda_lib.ln_gemm(*a, **kw)
+    for mod in GEMM_CALLERS:
+        mod.ln_gemm = recorded
+    try:
+        yield calls
+    finally:
+        for mod in GEMM_CALLERS:
+            mod.ln_gemm = cuda_lib.ln_gemm
+
+
 # ---------------------------------------------------------------------------
 # models, phase 2
 # ---------------------------------------------------------------------------
@@ -327,7 +362,7 @@ def _against_plain(where, fn, sites, iters, plain_iters):
     (host clock, synchronised)."""
     calls = sites.setdefault(where, collections.Counter())
     _reset_launches()
-    with _recording(calls):
+    with _recording(calls), _recording_gemms(GEMM_SITES.setdefault(where, collections.Counter())):
         got = fn()
     torch.cuda.synchronize()
     launches = _launches()
@@ -494,7 +529,8 @@ def _profile_forward(fwd, wall_ms):
     groups = {}
     for e in rows:
         n = e.key.lower()
-        key = ("ds_gemm (K1-K4 projections, K5-K8 wrapper heads/tails)" if "ln_gemm_kernel" in n
+        key = ("ds_ln_gemm (K1-K4 projections, K5-K8 wrapper heads/tails; GEMM + prologue pass)"
+               if any(k in n for k in ("ds_gemm_kernel", "prologue_ln_kernel", "prologue_gn_kernel"))
                else "ds_gn_silu (K9)" if "gn_silu_kernel" in n
                else "ds_flash_attn (K2, K3)" if "flash_attn_kernel" in n
                else "ds_temporal_attn (K1)" if "temporal_attn_kernel" in n
@@ -914,6 +950,7 @@ def _phase_kernels(sites, cfg):
         print(f"phase 3 sums per {where} (ms: kernel / plain / library / bound; + group_norm_fold): " + ", ".join(
             f"{k} {c['ms']:.2f}/{c['plain_ms']:.2f}/{c['library_ms']:.2f}/{c['bound_ms']:.3f}"
             + (f" + {c['fold_ms']:.2f}" if c["fold_ms"] else "") for k, c in per_k.items() if c), flush=True)
+    _phase_gemms(GEMM_SITES[I2V_FWD])
     _phase_levels(cfg)
     print("phase 3 ok", flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
@@ -928,6 +965,86 @@ def _phase_kernels(sites, cfg):
                       "fold_ms": main["fold_ms"] if "mul" in ROLES[k] else None, "per": ran[0],
                       "sums_by_forward": {w: {key: sums[w][k][key] for key in keys + ("fold_ms",)} for w in ran}}
     return records
+
+
+def _gemm_case(key, rn):
+    """Inputs of a recorded ds_ln_gemm call: x (a GroupNorm or LayerNorm
+    input where there is a prologue), w [N, K] / sqrt(K), fp32 bias and
+    prologue vectors, a bf16 residual."""
+    (M, K), (N, _), pro, rps, fmap, has_bias, mode = key
+    x = (2 * rn(M, K) + 0.5 if pro != "-" else rn(M, K)).to(BF)
+    w = (rn(N, K) / K ** 0.5).to(BF)
+    kw = dict(mode=mode, frame_map=fmap)
+    if has_bias:
+        kw["bias"] = rn(N, s=0.1)
+    if pro == "LN":
+        kw["ln"] = (1.0 + rn(K, s=0.1), rn(K, s=0.1))
+    if pro == "GN":
+        kw.update(gn=(1.0 + rn(M // rps, K, s=0.1), rn(M // rps, K, s=0.1)), rows_per_sample=rps)
+    if mode == cuda_lib.MODE_RESIDUAL:
+        kw["residual"] = rn(M, N).to(BF)
+    return x, w, kw
+
+
+MODE_NAMES = {cuda_lib.MODE_STORE: "store", cuda_lib.MODE_RESIDUAL: "+residual", cuda_lib.MODE_GEGLU: "GEGLU"}
+
+
+def _phase_gemms(calls):
+    """Phase 3, the GEMM table: every distinct ds_ln_gemm call of the batch-8
+    i2v forward against ln_gemm_plain (max error against TOL_REL of
+    max|plain|, L2 error against TOL_BRANCH_REL_L2 of the op's own output:
+    plain - residual in mode 1), kernel ms (the prologue pass included),
+    TFLOP/s and share of the bf16 peak, bound (the larger of 2MNK over the
+    peak and the bytes over the HBM rate: inputs read once, the output
+    written once) and F.linear on the same bf16 operands. Then the sums per
+    forward (calls x ms) and the compute-bound shapes with M >= 20480 and K,
+    N >= 640 below 40% of the peak."""
+    rn = _gen()
+    bad, low = [], []
+    tot = collections.Counter()
+    for key, n in sorted(calls.items(), key=lambda kv: -kv[0][0][0] * kv[0][0][1] * kv[0][1][0]):
+        (M, K), (N, _), pro, rps, fmap, has_bias, mode = key
+        x, w, kw = _gemm_case(key, rn)
+        got = cuda_lib.ln_gemm(x, w, **kw)
+        ref = cuda_lib.ln_gemm_plain(x, w, **kw)
+        torch.cuda.synchronize()
+        diff = got.float() - ref.float()
+        err = float(diff.abs().max())
+        tol = TOL_REL * max(1.0, float(ref.float().abs().max()))
+        own = ref.float() - (kw["residual"].float() if mode == cuda_lib.MODE_RESIDUAL else 0.0)
+        rel = float(diff.norm() / own.norm())
+        ok = bool(torch.isfinite(got).all()) and err <= tol and rel <= TOL_BRANCH_REL_L2
+        ins = [x, w, got, kw.get("bias"), kw.get("residual"), *(kw.get("ln") or ()), *(kw.get("gn") or ())]
+        nbytes = sum(t.numel() * t.element_size() for t in ins if t is not None)
+        del got, ref, diff, own
+        flops = 2 * M * N * K
+        op_ms, byte_ms = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+        ms = _time_ms(lambda: cuda_lib.ln_gemm(x, w, **kw), 10)
+        lib_ms = _time_ms(lambda: F.linear(x, w), 10)
+        share = flops / (ms * 1e-3) / PEAK_BF16
+        tile = cuda_lib.gemm_tile(M, K, N, mode)
+        print(f"phase 3 gemm M={M} K={K} N={N} {pro} {MODE_NAMES[mode]}"
+              + (f" rows/sample {rps}" if pro == "GN" else "") + (f" map {fmap}" if fmap else "")
+              + f" x{n} per forward: tile 128x{tile.block_n}x{tile.stages} max_abs_err {err:.5f} (tol {tol:.5f}) "
+              f"rel_l2 {rel:.5f} (tol {TOL_BRANCH_REL_L2}) kernel {ms:.3f} ms ({flops / ms / 1e9:.0f} TFLOP/s, "
+              f"{100 * share:.1f}% of 989) bound {max(op_ms, byte_ms):.4f} ms "
+              f"({'bytes' if byte_ms >= op_ms else 'operations'}) F.linear {lib_ms:.3f} ms "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        tot["ms"] += n * ms
+        tot["lib"] += n * lib_ms
+        tot["bound"] += n * max(op_ms, byte_ms)
+        tot["calls"] += n
+        if not ok:
+            bad.append(str(key))
+        if op_ms > byte_ms and M >= 20480 and K >= 640 and N >= 640 and share < 0.4:
+            low.append(f"M={M} K={K} N={N} {pro} {MODE_NAMES[mode]} {100 * share:.1f}%")
+        del x, w, kw
+    torch.cuda.empty_cache()
+    print(f"phase 3 gemm sums per {I2V_FWD} ({tot['calls']} calls, {len(calls)} shapes): kernel {tot['ms']:.2f} ms, "
+          f"F.linear {tot['lib']:.2f} ms, bound {tot['bound']:.2f} ms; compute-bound shapes with M >= 20480, "
+          f"K, N >= 640 below 40% of 989 TFLOP/s: {low or 'none'}", flush=True)
+    if bad:
+        _fail(f"ds_ln_gemm disagrees with ln_gemm_plain at {bad}")
 
 
 # the ladder's levels, highest first

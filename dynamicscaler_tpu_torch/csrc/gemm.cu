@@ -1,6 +1,7 @@
-// bf16 tiled GEMM with an optional LayerNorm or GroupNorm prologue, an
-// optional row map and three epilogues, for every projection of the UNet
-// transformers.
+// bf16 GEMM with an optional LayerNorm or GroupNorm prologue, an optional
+// row map and three epilogues, for every projection of the UNet
+// transformers: a Hopper kernel (TMA ring on mbarriers, wgmma, warp
+// specialisation, a persistent grid).
 //
 // Replaces the projection halves of the TPU kernels
 //   dynamicscaler_tpu/ops/fused_temporal.py::_kernel     (K1: LN -> QKV, out-proj + residual)
@@ -13,63 +14,107 @@
 //   dynamicscaler_tpu/ops/fused_twrap.py::_tail_kernel   (6 _tail_temporal, 8 _tail_spatial:
 //                                                          proj_out [-> permute back] + residual)
 //
-// Y[M, N_out] = epilogue( A[M, K] @ W[N, K]^T ),  W in torch Linear layout.
-//   prologue (applied while the A tile is staged in shared memory, so the
-//   normalised activation never goes to device memory):
-//     PRO_LN: A = LN(X) (flax fast-variance statistics in fp32:
-//             var = max(0, E[x^2] - mu^2); h = (x - mu) * (rsqrt(var + eps) * s) + b,
-//             rounded to bf16 before the product, as the TPU kernels do).
-//     PRO_GN: A = bf16(x * mul[s] + add[s]) with the folded GroupNorm vectors
+// Y[M, N_out] = epilogue( prologue(X)[M, K] @ W[N, K]^T ),  W in torch Linear layout.
+//   prologue:
+//     LN: A = LN(X): flax fast-variance statistics in fp32,
+//             var = max(0, E[x^2] - mu^2), h = (x - mu) * (rstd * s) + b, rounded
+//             to bf16 before the product, as the TPU kernels do.
+//     GN: A = bf16(x * mul[s] + add[s]) with the folded GroupNorm vectors
 //             mul/add [S, K] fp32 of sample s = r / rows_per_sample, applied
-//             PER ROW (a 64-row tile straddles samples at N = 40); the product
-//             and the sum are rounded separately (__fmul_rn, __fadd_rn), as the
-//             plain version computes them.
-//   row map (the frame permute of the temporal wrappers, done in the address
-//   arithmetic: logical row r = (b*HW + hw)*F + f <-> stored row
-//   (b*F + f)*HW + hw of a [B, F, H, W, C] tensor; each row stays K or N
-//   contiguous bf16, so the 16-byte loads and stores stay coalesced):
+//             per row; product and sum rounded separately (__fmul_rn,
+//             __fadd_rn), as the plain version computes them.
+//   row map (the frame permute of the temporal wrappers: logical row
+//   r = (b*HW + hw)*F + f <-> stored row (b*F + f)*HW + hw of a [B, F, H, W, C]
+//   tensor):
 //     MAP_A:   A row r is read from X's stored row map(r)   (temporal head)
 //     MAP_OUT: output row r is written to, and its residual read from,
 //              stored row map(r)                           (temporal tail)
 //   mode 0: y = bf16(acc [+ bias])
-//   mode 1: y = bf16(bf16(acc + bias) + R)                (out-proj / FF2 / wrapper tail + residual)
-//   mode 2: GEGLU. Each block loads 32 value rows j.. and the 32 gate rows
-//           N/2 + j.. of W into one 64-row tile, so value and gate of one
-//           output column sit in the same accumulator tile:
-//           a = bf16(acc + bias); y = bf16(f32(a_val) * gelu_erf(f32(a_gate))),
+//   mode 1: y = bf16(bf16(acc [+ bias]) + R)              (out-proj / FF2 / wrapper tail + residual)
+//   mode 2: GEGLU. The B tile holds BN/2 value rows n0.. and the BN/2 gate rows
+//           N/2 + n0.. of W (two TMA boxes per stage), so value column c and
+//           gate column c + BN/2 sit in the same thread's accumulator registers:
+//           a = bf16(acc [+ bias]); y = bf16(f32(a_val) * gelu_erf(f32(a_gate))),
 //           N_out = N / 2.
 //
-// What bounds it on the H100: these products are compute-bound at the UNet
-// shapes (M up to 8*16*2560 = 327680 tokens, K and N 320..5120), so the work
-// is the tensor cores'. This first version uses WMMA bf16 fragments with
-// fp32 accumulation (mma.sync underneath), 64x64x32 block tiles, 4 warps of
-// 32x32. The LayerNorm row statistics are computed by each block from its 64
-// rows (L2 hits for all but the first block of a row); the GroupNorm vectors
-// are per sample and read as float4 from L1/L2. The wrapper products have
-// K, N = 320..1280 and are the smallest of the UNet's GEMMs; fusing the
-// GroupNorm apply and the permutes into them saves the fp32 normalised copy,
-// the permuted copy and the separate residual pass of the plain path. No
-// cp.async pipelining, no wgmma and no TMA yet: those are the next steps.
+// What bounds it on the H100. The products are compute-bound at nearly every
+// UNet shape (M up to 8*16*2560 = 327680 tokens, K and N 320..10240: 2MNK
+// operations against 2(MK + NK + MN) bytes is 100-1700 operations a byte
+// against the card's 295); the C 320 wrapper heads and tails (K = N = 320 at
+// M = 327680, ~100 operations a byte) are byte-bound. So the design keeps the
+// tensor cores fed and streams every operand once:
+//   * a persistent grid (one block per SM) walks the 128 x BN output tiles
+//     (BN 64, 128 or 256, chosen per shape on the host: cuda_lib.gemm_tile),
+//     column tiles fastest, so the blocks in flight share their A rows in L2;
+//   * a producer thread fills a ring of `stages` (A, B) tiles in shared
+//     memory with TMA copies (cp.async.bulk.tensor, 128-byte swizzle,
+//     completion on an mbarrier per stage; out-of-bounds rows of a ragged M
+//     or N arrive as zeros), K in steps of 64 (one swizzle row of bf16); the
+//     ring runs on across tiles, so the next tile's loads overlap this one's
+//     epilogue;
+//   * two consumer warpgroups of 64 rows each issue wgmma m64nBNk16 with both
+//     operands in shared memory and fp32 accumulators in registers, taking
+//     turns on the tensor cores, and release each stage on a second mbarrier
+//     (setmaxnreg hands the producer warpgroup's unused registers to them);
+//   * the epilogue adds the bias (and forms GEGLU) from the registers, stages
+//     the bf16 tile in shared memory of its own (not the ring, which is
+//     already loading the next tile), and writes each row in 16-byte pieces,
+//     the residual read the same way and the output row map applied per row;
+//   * the frame permute of the temporal head is a 3-D TMA box: 128 logical
+//     rows are hb = 128 / F hw positions x F frames of one clip, and the box
+//     {64, hb, F} over [B*F, HW, K] lands them frame-major in shared memory;
+//     the epilogue maps accumulator row i to logical row (i % hb) * F + i / hb,
+//     so the permutation is in the addresses, not the data;
+//   * the prologue is one streaming pass before the GEMM (prologue_ln_kernel,
+//     prologue_gn_kernel) that writes the normalised bf16 rows, in X's stored
+//     order, to scratch the wrapper allocates; the GEMM reads them like any A.
+//     Rewriting the A tile in shared memory inside the GEMM (in the consumer
+//     warpgroups, or in spare warps of the producer's) repeats the prologue
+//     for every column tile of the same rows (N / BN times: 20 at N = 5120)
+//     and held the LN GEMMs well below the rate of the same GEMM without it;
+//     the pass costs one write and one read of M x K bf16, a few percent of
+//     these GEMMs' time (the pass is launched by ds_ln_gemm, so its time is
+//     the GEMM's).
+// Not done yet: TMA stores, clusters with multicast of the A tile, the
+// prologue pass fused into the previous kernel's epilogue.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int THREADS = 128;
-constexpr int LDS = BK + 8;   // bf16 row pitch of the staged tiles (80 bytes)
-constexpr int LDC = BN + 4;   // fp32 row pitch of the epilogue tile
+constexpr int BM = 128;                  // rows per tile: two consumer warpgroups of 64
+constexpr int BK = 64;                   // K per stage: one 128-byte swizzle row of bf16
+constexpr int A_BYTES = BM * BK * 2;     // 16 KB per stage
+constexpr int SMEM_MAX = 232448;         // the H100's per-block limit
+constexpr int SMEM_ALIGN = 1024;         // the 128-byte swizzle repeats every 8 rows of 128 bytes
+// Warpgroups 0 and 1 consume (wgmma), the first thread of warpgroup 2
+// produces. ptxas compiles the block at the launch bound's 168 registers a
+// thread; setmaxnreg moves warpgroup 2's share to the consumers.
+constexpr int THREADS = 384;
+constexpr int CONSUMER_REGS = 232;
+constexpr int PRODUCER_REGS = 40;  // 2 * 128 * 232 + 128 * 40 = 64512 of the 65536
 
-enum { PRO_NONE = 0, PRO_LN = 1, PRO_GN = 2 };
 enum { MAP_NONE = 0, MAP_A = 1, MAP_OUT = 2 };
+
+struct Params {
+  int M, K, N;                 // N: rows of W (2 * N_out in mode 2)
+  int mode, map;
+  int map_F, map_HW, map_hb;   // frame map; map_hb = 128 / map_F (MAP_A)
+  int k_tiles, stages, n_tiles, tiles;
+  const float* bias;           // [N] or null
+  const bf16* R;               // mode 1: [M, N]
+  bf16* Y;
+};
+
+// bf16 staging of the output tile for the epilogue: 128 rows of BN values,
+// the row pitch padded by 8 (the accumulator stores hit distinct banks).
+__host__ __device__ constexpr int epilogue_pitch(int bn) { return bn + 8; }
+__host__ __device__ constexpr int epilogue_bytes(int bn) { return BM * epilogue_pitch(bn) * 2; }
 
 __device__ __forceinline__ float gelu_erf(float g) {
   return g * 0.5f * (1.0f + erff(g * 0.70710678118654752f));
@@ -83,219 +128,556 @@ __device__ __forceinline__ size_t frame_major_row(int r, int F, int HW) {
   return ((size_t)b * F + f) * HW + (bhw - b * HW);
 }
 
-template <int MODE, int PRO, int MAP>
-__global__ void __launch_bounds__(THREADS)
-ln_gemm_kernel(const bf16* __restrict__ X, int M, int K,
-               const float* __restrict__ ln_w, const float* __restrict__ ln_b, float eps,
-               const float* __restrict__ gn_mul, const float* __restrict__ gn_add,
-               int rows_per_sample, int map_F, int map_HW,
-               const bf16* __restrict__ W, int N,
-               const float* __restrict__ bias,
-               const bf16* __restrict__ R,
-               bf16* __restrict__ Y) {
-  __shared__ __align__(128) bf16 As[BM * LDS];
-  __shared__ __align__(128) bf16 Bs[BN * LDS];
-  __shared__ __align__(128) float Cs[BM * LDC];
-  __shared__ float s_mu[BM];
-  __shared__ float s_rstd[BM];
+// Logical row of row i of the tile at m0 (the MAP_A box lands frame-major).
+__device__ __forceinline__ int logical_row(const Params& p, int m0, int i) {
+  return p.map == MAP_A ? m0 + (i % p.map_hb) * p.map_F + i / p.map_hb : m0 + i;
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int m0 = blockIdx.y * BM;
-  // output columns covered by this block
-  const int n_out_tile = (MODE == 2) ? BN / 2 : BN;
-  const int n0 = blockIdx.x * n_out_tile;
-  const int n_out = (MODE == 2) ? N / 2 : N;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  if (PRO == PRO_LN) {
-    // 4 warps x 16 rows: fp32 sum and sum of squares per row
-    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-      const int m = m0 + r;
-      float s = 0.f, ss = 0.f;
-      if (m < M) {
-        const bf16* xr = X + (size_t)m * K;
-        for (int k = lane * 2; k < K; k += 64) {
-          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + k));
-          s += v.x + v.y;
-          ss += v.x * v.x + v.y * v.y;
-        }
-      }
+// ---- mbarriers --------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---- TMA ----------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];\n" ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// ---- wgmma ------------------------------------------------------------------------
+
+// Descriptor of a K-major tile of 128-byte rows in the 128-byte swizzle (the
+// TMA's layout): start address, leading offset 16 B (unused by this layout),
+// stride 1024 B between 8-row groups, swizzle mode 1. One k16 step further
+// along K is +32 bytes of the start address (+2 in the descriptor).
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads above the last wait (a
+// register copy between a wgmma's issue and its wait makes ptxas serialize
+// the wgmmas, C7515, so this is used only after a tile's last one).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, o);
-        ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      }
-      if (lane == 0) {
-        const float mu = s / (float)K;
-        const float var = fmaxf(0.f, ss / (float)K - mu * mu);
-        s_mu[r] = mu;
-        s_rstd[r] = (m < M) ? rsqrtf(var + eps) : 0.f;
-      }
-    }
-    __syncthreads();
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x N] = A[64 x 16] (shared, K-major) * B[N x 16]^T (shared, K-major)
+// [+ D where scale_d != 0].
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
+};
 
-  const int wm = (warp >> 1) * 32;  // warp's row offset in the tile
-  const int wn = (warp & 1) * 32;   // warp's column offset in the tile
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();
-    // stage A and B: 64 rows x 32 bf16 each = 256 16-byte chunks, 2 per thread
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int idx = tid + it * THREADS;
-      const int row = idx >> 2;
-      const int col = (idx & 3) * 8;
-      const int m = m0 + row;
-      uint4 a = make_uint4(0, 0, 0, 0);
-      if (m < M) {
-        const size_t arow = (MAP == MAP_A) ? frame_major_row(m, map_F, map_HW) : (size_t)m;
-        a = *reinterpret_cast<const uint4*>(X + arow * K + k0 + col);
-        bf16* e = reinterpret_cast<bf16*>(&a);
-        if (PRO == PRO_LN) {
-          const float mu = s_mu[row];
-          const float rstd = s_rstd[row];
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const int k = k0 + col + q;
-            const float h = (__bfloat162float(e[q]) - mu) * (rstd * ln_w[k]) + ln_b[k];
-            e[q] = __float2bfloat16(h);
-          }
-        } else if (PRO == PRO_GN) {
-          const size_t v = (size_t)(m / rows_per_sample) * K + k0 + col;
-          const float4 mu0 = *reinterpret_cast<const float4*>(gn_mul + v);
-          const float4 mu1 = *reinterpret_cast<const float4*>(gn_mul + v + 4);
-          const float4 ad0 = *reinterpret_cast<const float4*>(gn_add + v);
-          const float4 ad1 = *reinterpret_cast<const float4*>(gn_add + v + 4);
-          const float mul8[8] = {mu0.x, mu0.y, mu0.z, mu0.w, mu1.x, mu1.y, mu1.z, mu1.w};
-          const float add8[8] = {ad0.x, ad0.y, ad0.z, ad0.w, ad1.x, ad1.y, ad1.z, ad1.w};
-#pragma unroll
-          for (int q = 0; q < 8; ++q)
-            e[q] = __float2bfloat16(__fadd_rn(__fmul_rn(__bfloat162float(e[q]), mul8[q]), add8[q]));
-        }
-      }
-      *reinterpret_cast<uint4*>(As + row * LDS + col) = a;
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 
-      int wrow;
-      if (MODE == 2) {
-        wrow = (row < BN / 2) ? (n0 + row) : (N / 2 + n0 + row - BN / 2);
-      } else {
-        wrow = n0 + row;
-      }
-      *reinterpret_cast<uint4*>(Bs + row * LDS + col) =
-          *reinterpret_cast<const uint4*>(W + (size_t)wrow * K + k0 + col);
-    }
-    __syncthreads();
 
+// ---- the prologue passes ----------------------------------------------------------
+
+// A = LN(X) row by row (K % 8 == 0), one warp per row: fp32 sum and sum of
+// squares over the row, then the row again (from L1) normalised to bf16.
+__global__ void __launch_bounds__(256) prologue_ln_kernel(const bf16* __restrict__ X, int M, int K,
+                                                          const float* __restrict__ ln_w,
+                                                          const float* __restrict__ ln_b, float eps,
+                                                          bf16* __restrict__ A) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 8 + warp;
+  if (row >= M) return;
+  const bf16* x = X + (size_t)row * K;
+  float s = 0.f, ss = 0.f;
+  for (int k = lane * 8; k < K; k += 256) {
+    const uint4 v = *reinterpret_cast<const uint4*>(x + k);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm + i * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + (wn + j * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    for (int q = 0; q < 4; ++q) {
+      const float2 f = __bfloat1622float2(h[q]);
+      s += f.x + f.y;
+      ss += f.x * f.x + f.y * f.y;
     }
   }
-
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  }
+  const float mu = s / (float)K;
+  const float rstd = rsqrtf(fmaxf(0.f, ss / (float)K - mu * mu) + eps);
+  bf16* a = A + (size_t)row * K;
+  for (int k = lane * 8; k < K; k += 256) {
+    uint4 v = *reinterpret_cast<const uint4*>(x + k);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+    const float4 w0 = __ldg(reinterpret_cast<const float4*>(ln_w + k));
+    const float4 w1 = __ldg(reinterpret_cast<const float4*>(ln_w + k + 4));
+    const float4 b0 = __ldg(reinterpret_cast<const float4*>(ln_b + k));
+    const float4 b1 = __ldg(reinterpret_cast<const float4*>(ln_b + k + 4));
+    const float w8[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const float b8[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * LDC + wn + j * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-
-  for (int idx = tid; idx < BM * n_out_tile; idx += THREADS) {
-    const int r = idx / n_out_tile;
-    const int c = idx - r * n_out_tile;
-    const int m = m0 + r;
-    if (m >= M) continue;
-    const size_t orow = (MAP == MAP_OUT) ? frame_major_row(m, map_F, map_HW) : (size_t)m;
-    const int n = n0 + c;
-    float y;
-    if (MODE == 2) {
-      const float av = __bfloat162float(__float2bfloat16(Cs[r * LDC + c] + bias[n]));
-      const float ag = __bfloat162float(__float2bfloat16(Cs[r * LDC + c + BN / 2] + bias[N / 2 + n]));
-      y = av * gelu_erf(ag);
-    } else if (MODE == 1) {
-      const float o = __bfloat162float(__float2bfloat16(Cs[r * LDC + c] + bias[n]));
-      y = o + __bfloat162float(R[orow * n_out + n]);
-    } else {
-      y = Cs[r * LDC + c] + (bias ? bias[n] : 0.f);
+    for (int q = 0; q < 4; ++q) {
+      const float2 f = __bfloat1622float2(h[q]);
+      h[q] = __floats2bfloat162_rn((f.x - mu) * (rstd * w8[2 * q]) + b8[2 * q],
+                                   (f.y - mu) * (rstd * w8[2 * q + 1]) + b8[2 * q + 1]);
     }
-    Y[orow * n_out + n] = __float2bfloat16(y);
+    *reinterpret_cast<uint4*>(a + k) = v;
   }
 }
 
-struct GemmArgs {
-  const bf16* X; int M; int K;
-  const float* ln_w; const float* ln_b; float eps;
-  const float* gn_mul; const float* gn_add; int rows_per_sample; int map_F; int map_HW;
-  const bf16* W; int N; const float* bias; const bf16* R; bf16* Y;
-};
+// A = bf16(X * mul[s] + add[s]) for s = row / rows_per_sample, X's stored
+// rows in their stored order; 8 values a thread.
+__global__ void __launch_bounds__(256) prologue_gn_kernel(const bf16* __restrict__ X, long long chunks, int K,
+                                                          const float* __restrict__ mul,
+                                                          const float* __restrict__ add, int rows_per_sample,
+                                                          bf16* __restrict__ A) {
+  const int per_row = K / 8;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < chunks;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i / per_row;
+    const int k = (int)(i - row * per_row) * 8;
+    const size_t v0 = (size_t)(row / rows_per_sample) * K + k;
+    uint4 v = *reinterpret_cast<const uint4*>(X + row * K + k);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+    const float4 m0 = __ldg(reinterpret_cast<const float4*>(mul + v0));
+    const float4 m1 = __ldg(reinterpret_cast<const float4*>(mul + v0 + 4));
+    const float4 a0 = __ldg(reinterpret_cast<const float4*>(add + v0));
+    const float4 a1 = __ldg(reinterpret_cast<const float4*>(add + v0 + 4));
+    const float m8[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
+    const float a8[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 f = __bfloat1622float2(h[q]);
+      h[q] = __floats2bfloat162_rn(__fadd_rn(__fmul_rn(f.x, m8[2 * q]), a8[2 * q]),
+                                   __fadd_rn(__fmul_rn(f.y, m8[2 * q + 1]), a8[2 * q + 1]));
+    }
+    *reinterpret_cast<uint4*>(A + row * K + k) = v;
+  }
+}
 
-template <int MODE, int PRO, int MAP>
-void launch(const GemmArgs& a, cudaStream_t stream) {
-  const int n_out_tile = (MODE == 2) ? BN / 2 : BN;
-  const int n_out = (MODE == 2) ? a.N / 2 : a.N;
-  dim3 grid(n_out / n_out_tile, (a.M + BM - 1) / BM);
-  ln_gemm_kernel<MODE, PRO, MAP><<<grid, THREADS, 0, stream>>>(
-      a.X, a.M, a.K, a.ln_w, a.ln_b, a.eps, a.gn_mul, a.gn_add, a.rows_per_sample, a.map_F,
-      a.map_HW, a.W, a.N, a.bias, a.R, a.Y);
+// ---- the GEMM -----------------------------------------------------------------------
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+ds_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB, const Params p) {
+  constexpr int B_BYTES = BN * BK * 2;
+  constexpr int STAGE = A_BYTES + B_BYTES;
+  constexpr int ACC = BN / 2;  // fp32 accumulators per consumer thread
+  constexpr int PITCH = epilogue_pitch(BN);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + SMEM_ALIGN - 1) &
+                                             ~uintptr_t(SMEM_ALIGN - 1));
+  const int S = p.stages;
+  bf16* staging = reinterpret_cast<bf16*>(smem + S * STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * STAGE + epilogue_bytes(BN));  // TMA landed
+  uint64_t* empty = full + S;                                                           // consumers done
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int KT = p.k_tiles;
+  const bool geglu = p.mode == 2;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every TMA copy, tile after tile ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      int it = 0;  // k steps issued so far, across tiles: the ring position
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const int m0 = (tile / p.n_tiles) * BM;
+        const int n0 = (tile % p.n_tiles) * (geglu ? BN / 2 : BN);
+        int a1 = m0, a2 = 0;  // MAP_A: hw0 and b*F of the tile's clip
+        if (p.map == MAP_A) {
+          const int bhw = m0 / p.map_F;
+          a2 = (bhw / p.map_HW) * p.map_F;
+          a1 = bhw % p.map_HW;
+        }
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % S;
+          mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+          uint8_t* sa = smem + s * STAGE;
+          uint8_t* sb = sa + A_BYTES;
+          mbar_expect_tx(&full[s], STAGE);
+          if (p.map == MAP_A) tma_load_3d(sa, &tmA, &full[s], kt * BK, a1, a2);
+          else tma_load_2d(sa, &tmA, &full[s], kt * BK, a1);
+          if (geglu) {
+            tma_load_2d(sb, &tmB, &full[s], kt * BK, n0);
+            tma_load_2d(sb + B_BYTES / 2, &tmB, &full[s], kt * BK, p.N / 2 + n0);
+          } else {
+            tma_load_2d(sb, &tmB, &full[s], kt * BK, n0);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns tile rows wg*64 .. wg*64+63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int warp = tid >> 5, lane = tid & 31;
+    const int n_out = geglu ? p.N / 2 : p.N;
+    constexpr int UNITS = BN / 8;  // 8-output pieces of a row (half of them in GEGLU)
+    const int units = geglu ? UNITS / 2 : UNITS;
+    bf16* stage_rows = staging + wg * 64 * PITCH;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const int m0 = (tile / p.n_tiles) * BM;
+      const int n0 = (tile % p.n_tiles) * (geglu ? BN / 2 : BN);
+      float acc[ACC];
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+      // Per stage: wait for it, issue the products, wait for them, hand the
+      // stage back; the two warpgroups take turns on the tensor cores.
+      // (Keeping a group in flight, wait_group 1, makes ptxas serialize the
+      // wgmmas here: C7515.)
+#pragma unroll 1
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int s = it % S;
+        mbar_wait(&full[s], (it / S) & 1);
+        const uint64_t da = smem_desc(smem + s * STAGE + wg * 64 * 128);
+        const uint64_t db = smem_desc(smem + s * STAGE + A_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < BK / 16; ++k) Wgmma<BN>::mma(acc, da + 2 * k, db + 2 * k, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      fence_acc(acc);
+
+      // ---- epilogue ----
+      // Thread (warp w, lane l) holds rows 16w + l/4 (+8) and, for each
+      // 8-column group g, columns 8g + 2(l%4) + {0, 1}: acc[4g + 2h + {0, 1}]
+      // for row half h. Bias (and GEGLU) here, into the bf16 staging rows.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bf16* srow = stage_rows + (warp * 16 + (lane >> 2) + 8 * h) * PITCH + 2 * (lane & 3);
+        if (geglu) {
+#pragma unroll
+          for (int g = 0; g < BN / 16; ++g) {
+            const int n = n0 + 8 * g + 2 * (lane & 3);
+            float2 v = make_float2(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
+            float2 gt = make_float2(acc[4 * (g + BN / 16) + 2 * h], acc[4 * (g + BN / 16) + 2 * h + 1]);
+            if (p.bias) {
+              const float2 bv = __ldg(reinterpret_cast<const float2*>(p.bias + n));
+              const float2 bg = __ldg(reinterpret_cast<const float2*>(p.bias + p.N / 2 + n));
+              v.x += bv.x; v.y += bv.y; gt.x += bg.x; gt.y += bg.y;
+            }
+            v = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+            gt = __bfloat1622float2(__floats2bfloat162_rn(gt.x, gt.y));
+            *reinterpret_cast<__nv_bfloat162*>(srow + 8 * g) =
+                __floats2bfloat162_rn(v.x * gelu_erf(gt.x), v.y * gelu_erf(gt.y));
+          }
+        } else {
+#pragma unroll
+          for (int g = 0; g < BN / 8; ++g) {
+            const int n = n0 + 8 * g + 2 * (lane & 3);
+            float2 v = make_float2(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
+            if (p.bias && n < p.N) {
+              const float2 b = __ldg(reinterpret_cast<const float2*>(p.bias + n));
+              v.x += b.x; v.y += b.y;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(srow + 8 * g) = __floats2bfloat162_rn(v.x, v.y);
+          }
+        }
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      // Rows out in 16-byte pieces, the residual added in bf16 (mode 1).
+#pragma unroll 4
+      for (int q = tid; q < 64 * units; q += 128) {
+        const int rr = q / units, u = q - rr * units;
+        const int m = logical_row(p, m0, wg * 64 + rr);
+        const int n = n0 + 8 * u;
+        if (m >= p.M || n >= n_out) continue;  // a ragged last row or column tile
+        const size_t row = p.map == MAP_OUT ? frame_major_row(m, p.map_F, p.map_HW) : (size_t)m;
+        uint4 out = *reinterpret_cast<const uint4*>(stage_rows + rr * PITCH + 8 * u);
+        if (p.mode == 1) {
+          const uint4 rv = __ldg(reinterpret_cast<const uint4*>(p.R + row * n_out + n));
+          __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+          const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&rv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 a = __bfloat1622float2(o[e]), b = __bfloat1622float2(r2[e]);
+            o[e] = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+          }
+        }
+        *reinterpret_cast<uint4*>(p.Y + row * n_out + n) = out;
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // staging free again
+    }
+  }
+}
+
+// ---- host side ------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// A bf16 tensor map of rank 2 or 3 (dims innermost first, byte strides of
+// the outer dims), 128-byte swizzle, zero fill out of bounds.
+bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+              const cuuint32_t* box) {
+  const EncodeTiled enc = encode_tiled();
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc != nullptr &&
+         enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+template <int BN>
+cudaError_t launch(const CUtensorMap& a, const CUtensorMap& b, Params p, int smem, cudaStream_t stream) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(ds_gemm_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  p.n_tiles = (p.mode == 2) ? p.N / BN : (p.N + BN - 1) / BN;
+  p.tiles = p.n_tiles * ((p.M + BM - 1) / BM);
+  const int grid = p.tiles < sm_count() ? p.tiles : sm_count();
+  ds_gemm_kernel<BN><<<grid, THREADS, smem, stream>>>(a, b, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shapes the caller guarantees (checked in Python before the call):
-// K % 32 == 0; N % 64 == 0; all pointers 16-byte aligned and row-contiguous;
-// with gn_mul, M % rows_per_sample == 0 and mul/add are [M / rows_per_sample, K];
-// with map_F > 0 (frame permute), M % (map_F * map_HW) == 0.
-// Combinations: LN prologue with mode 0, 1 or 2; GN prologue with mode 0
-// (wrapper head, frame permute of A optional); no prologue with mode 0, 1 or
-// 2 (frame permute of the output optional in mode 1: wrapper tail).
-extern "C" int ds_ln_gemm(const void* X, int M, int K, const void* ln_w, const void* ln_b,
-                          float eps, const void* gn_mul, const void* gn_add, int rows_per_sample,
-                          int map_F, int map_HW, const void* W, int N, const void* bias,
-                          const void* R, void* Y, int mode, void* stream) {
-  GemmArgs a{static_cast<const bf16*>(X), M, K,
-             static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), eps,
-             static_cast<const float*>(gn_mul), static_cast<const float*>(gn_add),
-             rows_per_sample, map_F, map_HW,
-             static_cast<const bf16*>(W), N, static_cast<const float*>(bias),
-             static_cast<const bf16*>(R), static_cast<bf16*>(Y)};
+// Combinations (the others return cudaErrorInvalidValue, and cuda_lib.ln_gemm
+// refuses them first): LN prologue with mode 0, 1 or 2; GN prologue with mode
+// 0 (frame map of A optional); no prologue with mode 0, 1 or 2 (frame map of
+// the output optional in mode 1). Shapes: K % 8 == 0, N % 8 == 0 (mode 2: N/2 a
+// multiple of block_n/2); pointers 16-byte aligned and row-contiguous; with
+// gn_mul, M % rows_per_sample == 0 and mul/add are [M / rows_per_sample, K];
+// with a frame map (map_F > 0), M % (map_F * map_HW) == 0, and for the A map
+// (the GroupNorm head) 128 % map_F == 0, map_HW % (128 / map_F) == 0 (one TMA
+// box a tile) and whole clips a sample (rows_per_sample % (map_F * map_HW) ==
+// 0). scratch: bf16 [M, K] for the prologue's output (LN or GN).
+// block_n (64, 128 or 256) and stages from cuda_lib.gemm_tile.
+extern "C" int ds_ln_gemm(const void* X, int M, int K, const void* ln_w, const void* ln_b, float eps,
+                          const void* gn_mul, const void* gn_add, int rows_per_sample, int map_F, int map_HW,
+                          const void* W, int N, const void* bias, const void* R, void* Y, int mode,
+                          void* scratch, int block_n, int stages, void* stream) {
+  const cudaError_t bad = cudaErrorInvalidValue;
+  const bool ln = ln_w != nullptr, gn = gn_mul != nullptr, map = map_F > 0;
+  const int map_kind = !map ? MAP_NONE : gn ? MAP_A : MAP_OUT;
+  if (M <= 0 || K <= 0 || K % 8 || N % 8 || mode < 0 || mode > 2) return (int)bad;
+  if (block_n != 64 && block_n != 128 && block_n != 256) return (int)bad;
+  if ((ln || gn) && scratch == nullptr) return (int)bad;
+  if (ln && (gn || map)) return (int)bad;
+  if (gn && (mode != 0 || rows_per_sample <= 0 || M % rows_per_sample)) return (int)bad;
+  if (map && (map_HW <= 0 || M % (map_F * map_HW))) return (int)bad;
+  if (map_kind == MAP_A &&
+      (BM % map_F || map_HW % (BM / map_F) || rows_per_sample % (map_F * map_HW)))
+    return (int)bad;
+  if (map_kind == MAP_OUT && mode != 1) return (int)bad;
+  if (mode == 1 && R == nullptr) return (int)bad;
+  if (mode == 2 && (N / 2) % (block_n / 2)) return (int)bad;
+  const int stage_bytes = A_BYTES + block_n * BK * 2;
+  const int smem = stages * stage_bytes + epilogue_bytes(block_n) + 2 * stages * 8 + SMEM_ALIGN;
+  if (stages < 2 || smem > SMEM_MAX) return (int)bad;
+
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool map = map_F > 0;
-  if (a.gn_mul != nullptr) {
-    if (mode != 0 || a.ln_w != nullptr) return (int)cudaErrorInvalidValue;
-    if (map) launch<0, PRO_GN, MAP_A>(a, s);
-    else launch<0, PRO_GN, MAP_NONE>(a, s);
-  } else if (a.ln_w != nullptr) {
-    if (map) return (int)cudaErrorInvalidValue;
-    if (mode == 0) launch<0, PRO_LN, MAP_NONE>(a, s);
-    else if (mode == 1) launch<1, PRO_LN, MAP_NONE>(a, s);
-    else if (mode == 2) launch<2, PRO_LN, MAP_NONE>(a, s);
-    else return (int)cudaErrorInvalidValue;
-  } else if (map) {
-    if (mode != 1) return (int)cudaErrorInvalidValue;
-    launch<1, PRO_NONE, MAP_OUT>(a, s);
-  } else {
-    if (mode == 0) launch<0, PRO_NONE, MAP_NONE>(a, s);
-    else if (mode == 1) launch<1, PRO_NONE, MAP_NONE>(a, s);
-    else if (mode == 2) launch<2, PRO_NONE, MAP_NONE>(a, s);
-    else return (int)cudaErrorInvalidValue;
+  const void* A = X;
+  if (ln) {
+    prologue_ln_kernel<<<(M + 7) / 8, 256, 0, s>>>(static_cast<const bf16*>(X), M, K,
+                                                   static_cast<const float*>(ln_w),
+                                                   static_cast<const float*>(ln_b), eps, static_cast<bf16*>(scratch));
+    A = scratch;
+  } else if (gn) {
+    const long long chunks = (long long)M * (K / 8);
+    const long long want = (chunks + 255) / 256;
+    const int blocks = (int)(want < 16 * sm_count() ? want : 16 * sm_count());
+    prologue_gn_kernel<<<blocks, 256, 0, s>>>(static_cast<const bf16*>(X), chunks, K,
+                                              static_cast<const float*>(gn_mul), static_cast<const float*>(gn_add),
+                                              rows_per_sample, static_cast<bf16*>(scratch));
+    A = scratch;
   }
-  return (int)cudaGetLastError();
+  if (ln || gn) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+
+  CUtensorMap ta, tb;
+  bool ok;
+  if (map_kind == MAP_A) {
+    const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)map_HW, (cuuint64_t)(M / map_HW)};
+    const cuuint64_t strides[2] = {(cuuint64_t)K * 2, (cuuint64_t)map_HW * K * 2};
+    const cuuint32_t box[3] = {BK, (cuuint32_t)(BM / map_F), (cuuint32_t)map_F};
+    ok = make_map(&ta, A, 3, dims, strides, box);
+  } else {
+    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+    const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+    const cuuint32_t box[2] = {BK, BM};
+    ok = make_map(&ta, A, 2, dims, strides, box);
+  }
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+    const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+    const cuuint32_t box[2] = {BK, (cuuint32_t)(mode == 2 ? block_n / 2 : block_n)};
+    ok = ok && make_map(&tb, W, 2, dims, strides, box);
+  }
+  if (!ok) return (int)bad;
+
+  Params p{};
+  p.M = M; p.K = K; p.N = N; p.mode = mode; p.map = map_kind;
+  p.map_F = map_F; p.map_HW = map_HW; p.map_hb = map_kind == MAP_A ? BM / map_F : 1;
+  p.k_tiles = (K + BK - 1) / BK; p.stages = stages;
+  p.bias = static_cast<const float*>(bias); p.R = static_cast<const bf16*>(R); p.Y = static_cast<bf16*>(Y);
+  cudaError_t e;
+  if (block_n == 256) e = launch<256>(ta, tb, p, smem, s);
+  else if (block_n == 128) e = launch<128>(ta, tb, p, smem, s);
+  else e = launch<64>(ta, tb, p, smem, s);
+  return (int)e;
 }

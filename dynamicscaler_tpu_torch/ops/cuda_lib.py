@@ -26,6 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -41,7 +42,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "ds_ln_gemm": (_P, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P),
+    "ds_ln_gemm": (_P, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P),
     "ds_gn_silu": (_P, _I, _L, _I, _P, _P, _I, _P, _P),
     "ds_temporal_attention": (_P, _I, _I, _I, _F, _P, _P),
     "ds_flash_attention": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _P, _I, _P),
@@ -213,49 +214,173 @@ class PackCache:
 
 MODE_STORE, MODE_RESIDUAL, MODE_GEGLU = 0, 1, 2
 
+# ds_ln_gemm's tile (csrc/gemm.cu): 128 rows x BN columns a tile, K in steps
+# of 64 through a ring of `stages` (A, B) tiles in shared memory, beside the
+# epilogue's bf16 staging tile; a persistent grid of one block per SM (132).
+GEMM_BM, GEMM_BK, GEMM_SMS = 128, 64, 132
+GEMM_BLOCK_N = (256, 128, 64)
+GEMM_SMEM_MAX = 232448  # bytes of shared memory a block may have on the H100
+GEMM_MAX_STAGES = 8
+# relative time per output column of a tile at each BN (the narrower tiles
+# read more shared memory per product)
+_GEMM_COLUMN_COST = {256: 1.0, 128: 1.08, 64: 1.3}
+
+
+class GemmTile(NamedTuple):
+    block_n: int
+    stages: int
+    smem: int  # dynamic shared memory bytes, the 1024-byte alignment pad included
+
+
+def gemm_smem(block_n: int, stages: int) -> int:
+    """Shared memory of a ``ds_ln_gemm`` block, as ``csrc/gemm.cu`` reckons
+    it: the ring, the epilogue's bf16 staging tile (128 rows of block_n + 8),
+    two mbarriers a stage and the alignment pad."""
+    return stages * (GEMM_BM + block_n) * GEMM_BK * 2 + GEMM_BM * (block_n + 8) * 2 + 16 * stages + 1024
+
+
+def gemm_tile(M: int, K: int, N: int, mode: int = MODE_STORE) -> GemmTile:
+    """The tile of ``ds_ln_gemm`` at [M, K] x [N, K]: the BN whose rounds of
+    tiles over the 132 SMs take least time by :data:`_GEMM_COLUMN_COST`
+    (the GEGLU epilogue pairs value and gate columns, so there BN / 2 must
+    divide N / 2), then as many ring stages as K has steps and shared memory
+    holds (at least 2)."""
+    cands = [bn for bn in GEMM_BLOCK_N if mode != MODE_GEGLU or (N // 2) % (bn // 2) == 0]
+    m_tiles = -(-M // GEMM_BM)
+
+    def cost(bn):
+        n_tiles = N // bn if mode == MODE_GEGLU else -(-N // bn)
+        return -(-m_tiles * n_tiles // GEMM_SMS) * bn * _GEMM_COLUMN_COST[bn]
+    bn = min(cands, key=cost)
+    fit = max(s for s in range(2, GEMM_MAX_STAGES + 1) if gemm_smem(bn, s) <= GEMM_SMEM_MAX)
+    stages = max(2, min(fit, -(-K // GEMM_BK)))
+    return GemmTile(bn, stages, gemm_smem(bn, stages))
+
+
+def _frame_rows(M: int, F: int, HW: int) -> torch.Tensor:
+    """Stored row of each logical row r = (b*HW + hw)*F + f of a
+    [B, F, H, W, .] tensor: (b*F + f)*HW + hw."""
+    r = torch.arange(M)
+    f, bhw = r % F, r // F
+    b, hw = bhw // HW, bhw % HW
+    return (b * F + f) * HW + hw
+
+
+def ln_gemm_plain(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, frame_map=None, bias=None,
+                  residual=None, mode=MODE_STORE):
+    """Plain PyTorch version of ``ds_ln_gemm`` (arguments as :func:`ln_gemm`),
+    with its rounding points: the prologue in fp32 (LayerNorm fast variance;
+    GroupNorm product and sum rounded separately), the normalised activation
+    rounded to the activation type, the product accumulated in fp32, bias
+    added in fp32, then rounded; the residual added in the activation type;
+    GEGLU on the rounded value and gate. Never on the main path: the
+    reference for the kernel in tests and ``chip_smoke.py``."""
+    M, K = x2d.shape
+    N = w.shape[0]
+    dt = x2d.dtype
+    x = x2d
+    map_f, map_hw = frame_map or (0, 0)
+    rows = _frame_rows(M, map_f, map_hw).to(x2d.device) if frame_map is not None else None
+    if gn is not None and rows is not None:
+        x = x[rows]
+    xf = x.float()
+    if ln is not None:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
+        a = ((xf - mu) * (torch.rsqrt(var + eps) * ln[0].float()) + ln[1].float()).to(dt)
+    elif gn is not None:
+        s = torch.arange(M, device=x2d.device) // rows_per_sample
+        a = (xf * gn[0].float()[s] + gn[1].float()[s]).to(dt)
+    else:
+        a = x
+    acc = torch.matmul(a.float(), w.float().t())
+    if bias is not None:
+        acc = acc + bias.float()
+    if mode == MODE_GEGLU:
+        val, gate = acc.to(dt).float().chunk(2, dim=-1)
+        return (val * torch.nn.functional.gelu(gate, approximate="none")).to(dt)
+    y = acc.to(dt)
+    if mode == MODE_RESIDUAL:
+        res = residual if rows is None else residual[rows]
+        y = (y.float() + res.float()).to(dt)
+    if rows is not None and gn is None:
+        out = torch.empty_like(y)
+        out[rows] = y
+        y = out
+    return y
+
+
+def _check_ln_gemm(M, K, N, *, ln, gn, rows_per_sample, frame_map, residual, mode):
+    """Raise ValueError for an argument combination or shape that
+    ``ds_ln_gemm`` does not take (the same rules on every device)."""
+    if mode not in (MODE_STORE, MODE_RESIDUAL, MODE_GEGLU):
+        raise ValueError(f"ln_gemm: unknown mode {mode}")
+    n_out = N // 2 if mode == MODE_GEGLU else N
+    if K % 32 or N % 64 or n_out % 32:
+        raise ValueError(f"ln_gemm: needs K % 32 == 0 and N % 64 == 0, got K={K} N={N}")
+    if (mode == MODE_RESIDUAL) != (residual is not None):
+        raise ValueError(f"ln_gemm: a residual is read exactly in MODE_RESIDUAL, got mode={mode} "
+                         f"residual={'given' if residual is not None else 'None'}")
+    if gn is not None:
+        if ln is not None or mode != MODE_STORE or rows_per_sample <= 0 or M % rows_per_sample:
+            raise ValueError(f"ln_gemm: the GroupNorm prologue takes mode 0 and whole samples, got "
+                             f"mode={mode} M={M} rows_per_sample={rows_per_sample}")
+    if frame_map is not None:
+        map_f, map_hw = frame_map
+        if map_f <= 0 or map_hw <= 0 or M % (map_f * map_hw) or ln is not None \
+                or (gn is None) != (mode == MODE_RESIDUAL):
+            raise ValueError(f"ln_gemm: frame_map {frame_map} takes the GroupNorm head or the "
+                             f"residual tail over whole clips, got M={M} mode={mode}")
+        if gn is not None and (GEMM_BM % map_f or map_hw % (GEMM_BM // map_f)
+                               or rows_per_sample % (map_f * map_hw)):
+            raise ValueError(f"ln_gemm: the GroupNorm head reads its {GEMM_BM}-row tiles as one TMA box of "
+                             f"{GEMM_BM} // F positions x F frames of one clip, each sample whole clips, so F "
+                             f"must divide {GEMM_BM}, H*W be a multiple of {GEMM_BM} // F and rows_per_sample "
+                             f"of F*H*W; got F={map_f} H*W={map_hw} rows_per_sample={rows_per_sample}")
+
 
 def ln_gemm(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, frame_map=None, bias=None,
             residual=None, mode=MODE_STORE):
     """Launch ``csrc/gemm.cu::ds_ln_gemm``: ``epilogue(prologue(x2d) @ w.T)``.
 
     x2d [M, K] bf16; w [N, K] bf16; bias fp32 [N]; residual [M, N] bf16 for
-    ``MODE_RESIDUAL``. ``MODE_GEGLU`` returns [M, N / 2]. Prologue: ``ln``
-    (scale, bias) fp32 [K] (LayerNorm per row), or ``gn`` (mul, add) fp32
-    [M / rows_per_sample, K] (folded GroupNorm per sample, mode 0 only).
-    ``frame_map = (F, HW)`` reads the rows of x2d (with ``gn``) or writes the
-    output rows and reads the residual rows (``MODE_RESIDUAL``) in the
-    frame-major order of a [B, F, H, W, .] tensor, logical row
-    ``(b*HW + hw)*F + f``."""
+    ``MODE_RESIDUAL`` (and only there). ``MODE_GEGLU`` returns [M, N / 2].
+    Prologue: ``ln`` (scale, bias) fp32 [K] (LayerNorm per row), or ``gn``
+    (mul, add) fp32 [M / rows_per_sample, K] (folded GroupNorm per sample,
+    mode 0 only). ``frame_map = (F, HW)`` reads the rows of x2d (with ``gn``)
+    or writes the output rows and reads the residual rows (``MODE_RESIDUAL``)
+    in the frame-major order of a [B, F, H, W, .] tensor, logical row
+    ``(b*HW + hw)*F + f``. Combinations the kernel does not take raise
+    ValueError on every device; CPU tensors take :func:`ln_gemm_plain`."""
     M, K = x2d.shape
     N = w.shape[0]
     n_out = N // 2 if mode == MODE_GEGLU else N
-    if K % 32 or N % 64 or n_out % 32:
-        raise ValueError(f"ln_gemm: needs K % 32 == 0 and N % 64 == 0, got K={K} N={N}")
+    _check_ln_gemm(M, K, N, ln=ln, gn=gn, rows_per_sample=rows_per_sample, frame_map=frame_map,
+                   residual=residual, mode=mode)
+    if not use_kernel(x2d, w):
+        return ln_gemm_plain(x2d, w, ln=ln, eps=eps, gn=gn, rows_per_sample=rows_per_sample,
+                             frame_map=frame_map, bias=bias, residual=residual, mode=mode)
     check_operand("x", x2d)
     check_operand("w", w, shape=(N, K))
     if ln is not None:
         check_operand("ln scale", ln[0], torch.float32, (K,))
         check_operand("ln bias", ln[1], torch.float32, (K,))
     if gn is not None:
-        if ln is not None or mode != MODE_STORE or rows_per_sample <= 0 or M % rows_per_sample:
-            raise ValueError(f"ln_gemm: the GroupNorm prologue takes mode 0 and whole samples, got "
-                             f"mode={mode} M={M} rows_per_sample={rows_per_sample}")
         check_operand("gn mul", gn[0], torch.float32, (M // rows_per_sample, K))
         check_operand("gn add", gn[1], torch.float32, (M // rows_per_sample, K))
-    map_f, map_hw = frame_map or (0, 0)
-    if frame_map is not None:
-        if map_f <= 0 or map_hw <= 0 or M % (map_f * map_hw) or ln is not None \
-                or (gn is None) != (mode == MODE_RESIDUAL):
-            raise ValueError(f"ln_gemm: frame_map {frame_map} takes the GroupNorm head or the "
-                             f"residual tail over whole clips, got M={M} mode={mode}")
     if bias is not None:
         check_operand("bias", bias, torch.float32, (N,))
     if residual is not None:
         check_operand("residual", residual, shape=(M, n_out))
     y = torch.empty((M, n_out), device=x2d.device, dtype=torch.bfloat16)
+    map_f, map_hw = frame_map or (0, 0)
+    # the prologue pass's normalised rows (X's stored order), read by the GEMM
+    scratch = torch.empty_like(x2d) if ln is not None or gn is not None else None
+    tile = gemm_tile(M, K, N, mode)
     call(
         "ds_ln_gemm", ptr(x2d), M, K, ptr(ln[0] if ln else None), ptr(ln[1] if ln else None),
         float(eps), ptr(gn[0] if gn else None), ptr(gn[1] if gn else None), int(rows_per_sample),
-        int(map_f), int(map_hw), ptr(w), N, ptr(bias), ptr(residual), ptr(y), mode,
+        int(map_f), int(map_hw), ptr(w), N, ptr(bias), ptr(residual), ptr(y), mode, ptr(scratch),
+        tile.block_n, tile.stages,
     )
     return y

@@ -56,22 +56,25 @@ from dynamicscaler_tpu_torch.ops.cuda_lib import MODE_GEGLU, MODE_RESIDUAL, act,
 # The table is the fastest level at each shape of the batch-8 i2v UNet
 # forward in one recorded run of chip_smoke.py (phase 3, module ms per
 # forward with the GroupNorm fold, NVIDIA H100 80GB HBM3 at 700 W; the run
-# is in PERF.md):
-#   t320 : wrap+blk 83.93 (mega 84.75, wrap+sub 124.08)
-#   t512 : wrap+blk 39.61 (wrap+sub 49.15; init_attn, no mega: inner != C)
-#   t640 : wrap+sub 100.85 (wrap+blk 136.03, mega 156.35)
-#   t1280: wrap+sub 94.72 (wrap+blk 306.76; no mega: inner > 640)
-#   s320 : wrap+blk 160.25 (mega 164.74, wrap+sub 213.03)
-#   s640 : wrap+sub 105.35 (wrap+blk 149.21, mega 162.66)
-#   s1280: wrap+sub 91.90 (the only legal level)
+# is in PERF.md). With the sub-block GEMMs on wgmma (csrc/gemm.cu) the
+# sub-block level is the fastest at every shape:
+#   t320 : wrap+sub 45.06 (wrap+blk 78.97, mega 85.53)
+#   t512 : wrap+sub 13.75 (wrap+blk 37.67; init_attn, no mega: inner != C)
+#   t640 : wrap+sub 26.34 (wrap+blk 132.14, mega 155.98)
+#   t1280: wrap+sub 19.92 (wrap+blk 299.15; no mega: inner > 640)
+#   s320 : wrap+sub 142.07 (wrap+blk 153.79, mega 163.69)
+#   s640 : wrap+sub 38.52 (wrap+blk 145.63, mega 162.08)
+#   s1280: wrap+sub 22.78 (the only legal level)
+# The whole-block and whole-transformer kernels (10-13) run where a plan
+# override or "off" asks for them.
 # ---------------------------------------------------------------------------
 
 PLAN_DEFAULT = {
-    ("t", 320): "wrap+blk",
-    ("t", 512): "wrap+blk",
+    ("t", 320): "wrap+sub",
+    ("t", 512): "wrap+sub",
     ("t", 640): "wrap+sub",
     ("t", 1280): "wrap+sub",
-    ("s", 320): "wrap+blk",
+    ("s", 320): "wrap+sub",
     ("s", 640): "wrap+sub",
     ("s", 1280): "wrap+sub",
 }

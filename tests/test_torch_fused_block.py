@@ -129,21 +129,16 @@ def test_spatial_mega_matches_pallas(rng, interpret, img, C, heads):
 
 def test_plan_table_and_overrides(restore_plan):
     """The table filled from the H100 level timings (PERF.md): the
-    whole block at t320, t512 and s320, the sub-blocks at C 640 / 1280; and
-    the dict overrides on top of it."""
-    assert fused_temporal.PLAN_DEFAULT == {
-        ("t", 320): "wrap+blk", ("t", 512): "wrap+blk", ("t", 640): "wrap+sub", ("t", 1280): "wrap+sub",
-        ("s", 320): "wrap+blk", ("s", 640): "wrap+sub", ("s", 1280): "wrap+sub"}
-    assert fused_temporal.plan_allows("block", "t", 320) and fused_temporal.plan_allows("block", "t", 512)
-    assert not fused_temporal.plan_allows("mega", "t", 320)
-    assert not fused_temporal.plan_allows("mega", "s", 320) and fused_temporal.plan_allows("block", "s", 320)
-    for side, c in (("t", 640), ("t", 1280), ("s", 640), ("s", 1280), ("t", 64), ("s", 32)):
+    sub-blocks at every width; and the dict overrides on top of it."""
+    keys = [(side, c) for side in "ts" for c in (320, 640, 1280)] + [("t", 512)]
+    assert fused_temporal.PLAN_DEFAULT == dict.fromkeys(keys, "wrap+sub")
+    for side, c in keys + [("t", 64), ("s", 32)]:
         assert not fused_temporal.plan_allows("block", side, c) and not fused_temporal.plan_allows("mega", side, c)
-    fused_temporal.set_plan({("t", 64): "wrap+blk", ("s", 32): "mega", ("s", 320): "wrap+sub"})
+    fused_temporal.set_plan({("t", 64): "wrap+blk", ("s", 32): "mega", ("s", 320): "wrap+blk"})
     assert fused_temporal.plan_allows("block", "t", 64) and fused_temporal.plan_allows("mega", "s", 32)
-    assert not fused_temporal.plan_allows("mega", "s", 320) and not fused_temporal.plan_allows("block", "s", 320)
-    fused_temporal.set_plan({("t", 320): "wrap+sub"})
-    assert not fused_temporal.plan_allows("block", "t", 320) and fused_temporal.plan_allows("block", "s", 320)
+    assert fused_temporal.plan_allows("block", "s", 320) and not fused_temporal.plan_allows("mega", "s", 320)
+    fused_temporal.set_plan({("t", 320): "wrap+blk"})
+    assert fused_temporal.plan_allows("block", "t", 320) and not fused_temporal.plan_allows("block", "s", 320)
     with pytest.raises(ValueError):
         fused_temporal.set_plan({("t", 320): "subs"})
     fused_temporal.set_plan()

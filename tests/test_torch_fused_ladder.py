@@ -32,10 +32,8 @@ import jax.numpy as jnp
 from dynamicscaler_tpu.ops import fused_block as jblock
 from dynamicscaler_tpu.ops import fused_mega as jmega
 from dynamicscaler_tpu.ops import fused_temporal as jtemporal
-from dynamicscaler_tpu_torch.config import videocrafter_i2v
-from dynamicscaler_tpu_torch.models.unet3d import unet_layout
 from dynamicscaler_tpu_torch.ops import fused_block, fused_mega, fused_temporal
-from torch_port_helpers import tiny_unet_twins
+from torch_port_helpers import i2v_transformers, tiny_unet_twins
 
 WRAP_BLK_SPEC = "s320=wrap+blk,s640=wrap+blk,t640=wrap+blk,t1280=wrap+blk"
 
@@ -205,20 +203,6 @@ def test_env_plan_read_at_import():
 # ---------------------------------------------------------------------------
 
 
-def _i2v_transformers():
-    """(side, C, inner, heads, H, W) of every transformer of the full-width
-    i2v UNet at the 40x64 latent, with init_attn (inner 512 on C 320)."""
-    cfg = videocrafter_i2v().unet
-    ins, outs, mid, _ = unet_layout(cfg)
-    sizes = {320: (40, 64), 640: (20, 32), 1280: (10, 16)}
-    out = [("t", 320, 512, 8, 40, 64)]
-    for spec in [s for blk in ins + outs for s in blk] + mid:
-        if spec.kind in ("spatial", "temporal"):
-            H, W = sizes[spec.channels] if spec.name != "mid_spatial" and spec.name != "mid_temporal" else (5, 8)
-            out.append((spec.kind[0], spec.channels, spec.channels, spec.channels // 64, H, W))
-    return out
-
-
 def _port_gates(side, C, inner, heads, H, W, ctx_dim=1024):
     if side == "t":
         return {"mega": fused_mega.temporal_ok(16, C, inner, heads),
@@ -245,7 +229,7 @@ def test_gates_match_jax_at_full_width(interpret, restore_plans, spec):
     the patch the port's gates are held with the JAX plan."""
     jtemporal.set_plan(spec)
     fused_temporal.set_plan(spec)
-    shapes = _i2v_transformers()
+    shapes = i2v_transformers()
     assert len(shapes) == 1 + 16 + 16
     admitted = collections.Counter()
     for shape in shapes:

@@ -171,3 +171,20 @@ def tiny_unet_twins(img_attention, *, context_dim=128, seed=4):
     tm = UNet3D(cfg)
     tm.load_state_dict(weights.from_jax_unet(params, cfg))
     return jm, params, tm, cfg
+
+
+def i2v_transformers():
+    """(side, C, inner, heads, H, W) of every transformer of the full-width
+    i2v UNet at the 40x64 latent, with init_attn (inner 512 on C 320)."""
+    from dynamicscaler_tpu_torch.config import videocrafter_i2v
+    from dynamicscaler_tpu_torch.models.unet3d import unet_layout
+
+    cfg = videocrafter_i2v().unet
+    ins, outs, mid, _ = unet_layout(cfg)
+    sizes = {320: (40, 64), 640: (20, 32), 1280: (10, 16)}
+    out = [("t", 320, 512, 8, 40, 64)]
+    for spec in [s for blk in ins + outs for s in blk] + mid:
+        if spec.kind in ("spatial", "temporal"):
+            H, W = sizes[spec.channels] if spec.name != "mid_spatial" and spec.name != "mid_temporal" else (5, 8)
+            out.append((spec.kind[0], spec.channels, spec.channels, spec.channels // 64, H, W))
+    return out
