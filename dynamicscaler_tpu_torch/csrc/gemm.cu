@@ -64,7 +64,11 @@
 //     rows are hb = 128 / F hw positions x F frames of one clip, and the box
 //     {64, hb, F} over [B*F, HW, K] lands them frame-major in shared memory;
 //     the epilogue maps accumulator row i to logical row (i % hb) * F + i / hb,
-//     so the permutation is in the addresses, not the data;
+//     so the permutation is in the addresses, not the data. Where hb
+//     positions do not tile a clip's H*W (or F does not divide 128), a box
+//     would run across the clip's edge, so the GroupNorm prologue pass
+//     gathers the rows into logical order instead (same bytes: it reads and
+//     writes M x K once either way) and the GEMM reads them unmapped;
 //   * the prologue is one streaming pass before the GEMM (prologue_ln_kernel,
 //     prologue_gn_kernel) that writes the normalised bf16 rows, in X's stored
 //     order, to scratch the wrapper allocates; the GEMM reads them like any A.
@@ -78,14 +82,13 @@
 // Not done yet: TMA stores, clusters with multicast of the A tile, the
 // prologue pass fused into the previous kernel's epilogue.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BM = 128;                  // rows per tile: two consumer warpgroups of 64
 constexpr int BK = 64;                   // K per stage: one 128-byte swizzle row of bf16
@@ -132,166 +135,6 @@ __device__ __forceinline__ size_t frame_major_row(int r, int F, int HW) {
 __device__ __forceinline__ int logical_row(const Params& p, int m0, int i) {
   return p.map == MAP_A ? m0 + (i % p.map_hb) * p.map_F + i / p.map_hb : m0 + i;
 }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers --------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// ---- TMA ----------------------------------------------------------------------
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
-      "[%2];\n" ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// ---- wgmma ------------------------------------------------------------------------
-
-// Descriptor of a K-major tile of 128-byte rows in the 128-byte swizzle (the
-// TMA's layout): start address, leading offset 16 B (unused by this layout),
-// stride 1024 B between 8-row groups, swizzle mode 1. One k16 step further
-// along K is +32 bytes of the start address (+2 in the descriptor).
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator reads above the last wait (a
-// register copy between a wgmma's issue and its wait makes ptxas serialize
-// the wgmmas, C7515, so this is used only after a tile's last one).
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D[64 x N] = A[64 x 16] (shared, K-major) * B[N x 16]^T (shared, K-major)
-// [+ D where scale_d != 0].
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<256> {
-  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
 
 // ---- the prologue passes ----------------------------------------------------------
 
@@ -343,19 +186,24 @@ __global__ void __launch_bounds__(256) prologue_ln_kernel(const bf16* __restrict
   }
 }
 
-// A = bf16(X * mul[s] + add[s]) for s = row / rows_per_sample, X's stored
-// rows in their stored order; 8 values a thread.
+// A = bf16(X * mul[s] + add[s]) for s = row / rows_per_sample, 8 values a
+// thread. A's rows are X's stored rows in their stored order, or, with a
+// frame map (map_F > 0: the temporal head where its 3-D TMA box does not fit
+// the clip), A's row r is X's stored row frame_major_row(r), so the GEMM
+// reads A in logical order with a plain 2-D box (a sample's rows are whole
+// clips, so r and its stored row share the sample).
 __global__ void __launch_bounds__(256) prologue_gn_kernel(const bf16* __restrict__ X, long long chunks, int K,
                                                           const float* __restrict__ mul,
                                                           const float* __restrict__ add, int rows_per_sample,
-                                                          bf16* __restrict__ A) {
+                                                          int map_F, int map_HW, bf16* __restrict__ A) {
   const int per_row = K / 8;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < chunks;
        i += (long long)gridDim.x * blockDim.x) {
     const long long row = i / per_row;
     const int k = (int)(i - row * per_row) * 8;
     const size_t v0 = (size_t)(row / rows_per_sample) * K + k;
-    uint4 v = *reinterpret_cast<const uint4*>(X + row * K + k);
+    const size_t src = map_F > 0 ? frame_major_row((int)row, map_F, map_HW) : (size_t)row;
+    uint4 v = *reinterpret_cast<const uint4*>(X + src * K + k);
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
     const float4 m0 = __ldg(reinterpret_cast<const float4*>(mul + v0));
     const float4 m1 = __ldg(reinterpret_cast<const float4*>(mul + v0 + 4));
@@ -533,49 +381,6 @@ ds_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ 
 
 // ---- host side ------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// A bf16 tensor map of rank 2 or 3 (dims innermost first, byte strides of
-// the outer dims), 128-byte swizzle, zero fill out of bounds.
-bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-              const cuuint32_t* box) {
-  const EncodeTiled enc = encode_tiled();
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return enc != nullptr &&
-         enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 132;
-  }
-  return n;
-}
-
 template <int BN>
 cudaError_t launch(const CUtensorMap& a, const CUtensorMap& b, Params p, int smem, cudaStream_t stream) {
   static bool sized = false;
@@ -601,9 +406,14 @@ cudaError_t launch(const CUtensorMap& a, const CUtensorMap& b, Params p, int sme
 // multiple of block_n/2); pointers 16-byte aligned and row-contiguous; with
 // gn_mul, M % rows_per_sample == 0 and mul/add are [M / rows_per_sample, K];
 // with a frame map (map_F > 0), M % (map_F * map_HW) == 0, and for the A map
-// (the GroupNorm head) 128 % map_F == 0, map_HW % (128 / map_F) == 0 (one TMA
-// box a tile) and whole clips a sample (rows_per_sample % (map_F * map_HW) ==
-// 0). scratch: bf16 [M, K] for the prologue's output (LN or GN).
+// (the GroupNorm head) whole clips a sample (rows_per_sample % (map_F *
+// map_HW) == 0). The A map reads each 128-row tile as one 3-D TMA box of 128
+// / F positions x F frames where that box fits a clip (128 % F == 0 and
+// map_HW % (128 / F) == 0: 40x64 and every UNet level of it); at any other F
+// or H*W (a 40x40 latent's 10x10 and 5x5 levels, 384x384's 6x6) the
+// prologue pass writes the normalised rows already permuted to logical
+// order, and the GEMM reads them with the plain 2-D box. scratch: bf16 [M, K]
+// for the prologue's output (LN or GN).
 // block_n (64, 128 or 256) and stages from cuda_lib.gemm_tile.
 extern "C" int ds_ln_gemm(const void* X, int M, int K, const void* ln_w, const void* ln_b, float eps,
                           const void* gn_mul, const void* gn_add, int rows_per_sample, int map_F, int map_HW,
@@ -618,9 +428,9 @@ extern "C" int ds_ln_gemm(const void* X, int M, int K, const void* ln_w, const v
   if (ln && (gn || map)) return (int)bad;
   if (gn && (mode != 0 || rows_per_sample <= 0 || M % rows_per_sample)) return (int)bad;
   if (map && (map_HW <= 0 || M % (map_F * map_HW))) return (int)bad;
-  if (map_kind == MAP_A &&
-      (BM % map_F || map_HW % (BM / map_F) || rows_per_sample % (map_F * map_HW)))
-    return (int)bad;
+  if (map_kind == MAP_A && rows_per_sample % (map_F * map_HW)) return (int)bad;
+  // the head's permute as a TMA box, or in the prologue pass (gather)
+  const bool gather = map_kind == MAP_A && (BM % map_F || map_HW % (BM / map_F));
   if (map_kind == MAP_OUT && mode != 1) return (int)bad;
   if (mode == 1 && R == nullptr) return (int)bad;
   if (mode == 2 && (N / 2) % (block_n / 2)) return (int)bad;
@@ -641,7 +451,8 @@ extern "C" int ds_ln_gemm(const void* X, int M, int K, const void* ln_w, const v
     const int blocks = (int)(want < 16 * sm_count() ? want : 16 * sm_count());
     prologue_gn_kernel<<<blocks, 256, 0, s>>>(static_cast<const bf16*>(X), chunks, K,
                                               static_cast<const float*>(gn_mul), static_cast<const float*>(gn_add),
-                                              rows_per_sample, static_cast<bf16*>(scratch));
+                                              rows_per_sample, gather ? map_F : 0, map_HW,
+                                              static_cast<bf16*>(scratch));
     A = scratch;
   }
   if (ln || gn) {
@@ -651,7 +462,8 @@ extern "C" int ds_ln_gemm(const void* X, int M, int K, const void* ln_w, const v
 
   CUtensorMap ta, tb;
   bool ok;
-  if (map_kind == MAP_A) {
+  const int a_map = gather ? MAP_NONE : map_kind;  // what the GEMM itself does with the rows
+  if (a_map == MAP_A) {
     const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)map_HW, (cuuint64_t)(M / map_HW)};
     const cuuint64_t strides[2] = {(cuuint64_t)K * 2, (cuuint64_t)map_HW * K * 2};
     const cuuint32_t box[3] = {BK, (cuuint32_t)(BM / map_F), (cuuint32_t)map_F};
@@ -671,8 +483,8 @@ extern "C" int ds_ln_gemm(const void* X, int M, int K, const void* ln_w, const v
   if (!ok) return (int)bad;
 
   Params p{};
-  p.M = M; p.K = K; p.N = N; p.mode = mode; p.map = map_kind;
-  p.map_F = map_F; p.map_HW = map_HW; p.map_hb = map_kind == MAP_A ? BM / map_F : 1;
+  p.M = M; p.K = K; p.N = N; p.mode = mode; p.map = a_map;
+  p.map_F = map_F; p.map_HW = map_HW; p.map_hb = a_map == MAP_A ? BM / map_F : 1;
   p.k_tiles = (K + BK - 1) / BK; p.stages = stages;
   p.bias = static_cast<const float*>(bias); p.R = static_cast<const bf16*>(R); p.Y = static_cast<bf16*>(Y);
   cudaError_t e;

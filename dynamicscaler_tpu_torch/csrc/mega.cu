@@ -47,8 +47,9 @@
 // A cooperative single launch with a grid barrier would save one pass of
 // q|k|v through L2, but needs every tile resident at once (80 x samples
 // tiles of 221 KB each, far more than 132 SMs hold); two launches need no
-// such limit. The GroupNorm statistics stay the plain group_norm_fold pass,
-// as in the JAX package. Every product is tile.cuh's 8-warp GEMM (mma.sync,
+// such limit. The GroupNorm statistics are a pass of their own
+// (gn_silu.cu::ds_gn_stats), as the JAX package leaves them to XLA outside
+// its kernel. Every product is tile.cuh's 8-warp GEMM (mma.sync,
 // a cp.async weight ring streaming across column chunks). No wgmma/TMA yet.
 //
 // Shared memory (the limit is 232,448 bytes a block; one block per SM):

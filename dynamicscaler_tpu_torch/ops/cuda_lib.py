@@ -44,10 +44,11 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "ds_ln_gemm": (_P, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P),
     "ds_gn_silu": (_P, _I, _L, _I, _P, _P, _I, _P, _P),
-    "ds_temporal_attention": (_P, _I, _I, _I, _F, _P, _P),
+    "ds_gn_stats": (_P, _I, _I, _L, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P),
+    "ds_temporal_attention": (_P, _I, _I, _I, _I, _F, _P, _P),
     "ds_flash_attention": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _P, _I, _P),
-    "ds_temporal_block": (_P, _I, _I, _F, _F, _P),
-    "ds_temporal_mega": (_P, _I, _I, _I, _F, _F, _P),
+    "ds_temporal_block": (_P, _I, _I, _I, _F, _F, _P),
+    "ds_temporal_mega": (_P, _I, _I, _I, _I, _F, _F, _P),
     "ds_mega_spatial": (_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     "ds_spatial_block": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
@@ -331,12 +332,9 @@ def _check_ln_gemm(M, K, N, *, ln, gn, rows_per_sample, frame_map, residual, mod
                 or (gn is None) != (mode == MODE_RESIDUAL):
             raise ValueError(f"ln_gemm: frame_map {frame_map} takes the GroupNorm head or the "
                              f"residual tail over whole clips, got M={M} mode={mode}")
-        if gn is not None and (GEMM_BM % map_f or map_hw % (GEMM_BM // map_f)
-                               or rows_per_sample % (map_f * map_hw)):
-            raise ValueError(f"ln_gemm: the GroupNorm head reads its {GEMM_BM}-row tiles as one TMA box of "
-                             f"{GEMM_BM} // F positions x F frames of one clip, each sample whole clips, so F "
-                             f"must divide {GEMM_BM}, H*W be a multiple of {GEMM_BM} // F and rows_per_sample "
-                             f"of F*H*W; got F={map_f} H*W={map_hw} rows_per_sample={rows_per_sample}")
+        if gn is not None and rows_per_sample % (map_f * map_hw):
+            raise ValueError(f"ln_gemm: the GroupNorm head's samples are whole clips, so rows_per_sample must "
+                             f"be a multiple of F*H*W; got F={map_f} H*W={map_hw} rows_per_sample={rows_per_sample}")
 
 
 def ln_gemm(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, frame_map=None, bias=None,

@@ -4,8 +4,8 @@ BasicTransformerBlock.
 Counterparts of ``dynamicscaler_tpu/ops/fused_block.py``:
 
 * ``fused_temporal_block`` -> kernel 10 (Pallas ``_temporal_block_call``):
-  LN1 -> 16-frame self-attention -> + x, LN2 -> 16-frame self-attention ->
-  + x, LN3 -> GEGLU FF -> + x, over x [rows, 16, C];
+  LN1 -> F-frame self-attention -> + x, LN2 -> F-frame self-attention ->
+  + x, LN3 -> GEGLU FF -> + x, over x [rows, F, C];
 * ``fused_spatial_block`` -> kernel 11 (``_spatial_block_call``): LN1 ->
   N-token self-attention -> + x, LN2 -> text (+ image) cross-attention -> +
   x, LN3 -> GEGLU FF -> + x, over x [BF, N, C] with the context given per
@@ -14,7 +14,8 @@ Counterparts of ``dynamicscaler_tpu/ops/fused_block.py``:
 
 Weights are in torch ``Linear`` layout ``[out, in]``. On the card kernel 10
 runs as ``csrc/block.cu::ds_temporal_block`` (one launch; TM tokens of
-16-frame rows resident in shared memory through all three sub-blocks) and
+F-frame rows resident in shared memory through all three sub-blocks, a
+row of more than TM frames spread over a thread-block cluster) and
 kernel 11 as ``csrc/mega.cu::ds_spatial_block`` (kernel 13's head and body
 without the GroupNorm apply, proj_in and proj_out, after the context K/V
 projection with ``csrc/gemm.cu``); see the notes there for what bounds each.
@@ -24,10 +25,9 @@ counts its kernel launches in ``<wrapper>.launches``.
 
 The gates :func:`temporal_block_ok` and :func:`spatial_block_ok` are the
 JAX package's shape conditions (``temporal_block_fusable``,
-``spatial_block_fusable``) without its TPU tiling terms; the module dispatch
-routes by them and the wrappers refuse what they do not admit. On the card
-the kernels also need head dim 64 (and 16 frames for kernel 10), as the
-sub-block kernels K1-K4 do.
+``spatial_block_fusable``); the module dispatch routes by them and the
+wrappers refuse what they do not admit. On the card the kernels also need
+head dim 64, as the sub-block kernels K1-K4 do.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ from dynamicscaler_tpu_torch.ops.fused_spatial import (
 from dynamicscaler_tpu_torch.ops.fused_temporal import (
     AttnOperands,
     FFOperands,
+    frames_ok,
     ln_attention_plain,
     ln_geglu_plain,
     pack_ln_attention,
@@ -66,9 +67,8 @@ class BlockOperands(NamedTuple):
 
 def temporal_block_ok(frames: int, inner: int, dim: int, heads: int) -> bool:
     """Kernel 10's gate: the shape conditions of the JAX package's
-    ``temporal_block_fusable`` (fused_block.py:214-225) without its TPU
-    tiling term (frames dividing 128)."""
-    return frames >= 2 and inner == dim and inner % heads == 0 and inner <= 1280 and (inner // heads) % 8 == 0
+    ``temporal_block_fusable`` (fused_block.py:214-225)."""
+    return frames_ok(frames) and inner == dim and inner % heads == 0 and inner <= 1280 and (inner // heads) % 8 == 0
 
 
 def spatial_block_ok(n_tokens: int, inner: int, dim: int, heads: int, ctx_dim: int) -> bool:
@@ -82,7 +82,7 @@ def refuse_unless(kernel: str, ok: bool, shape: str) -> None:
     """Raise unless the card's kernel takes the shape (``ok``)."""
     if not ok:
         raise ValueError(f"kernel {kernel} does not take {shape}: outside its gate, or not head dim 64 "
-                         f"(and 16 frames for the temporal kernels) as the card's kernels need")
+                         f"as the card's kernels need")
 
 
 # ---------------------------------------------------------------------------
@@ -142,18 +142,18 @@ def block_pointers(op: BlockOperands) -> list:
 def fused_temporal_block(x, lns, attn1, attn2, ff, *, heads, scale, eps=1e-5, operands=None):
     """Kernel 10: the whole temporal BasicTransformerBlock. x [rows, F, C];
     returns [rows, F, C]. On the card one launch of ``ds_temporal_block``
-    (F = 16, head dim 64, C <= 1280), reading ``operands`` (from
+    (head dim 64, C <= 1280), reading ``operands`` (from
     :func:`pack_temporal_block`; packed here when None)."""
     if not cuda_lib.use_kernel(x):
         return temporal_block_plain(x, lns, attn1, attn2, ff, heads=heads, scale=scale, eps=eps)
     R, Fn, C = x.shape
-    refuse_unless("10", temporal_block_ok(Fn, C, C, heads) and Fn == 16 and C == heads * 64,
+    refuse_unless("10", temporal_block_ok(Fn, C, C, heads) and C == heads * 64,
                   f"x {tuple(x.shape)} with {heads} heads")
     cuda_lib.check_operand("x", x)
     op = operands or pack_temporal_block(lns, attn1, attn2, ff, dtype=x.dtype)
     check_block_operands(op, C)
     out = torch.empty_like(x)
-    cuda_lib.call("ds_temporal_block", cuda_lib.ptr_array([x, out, *block_pointers(op)]), R, C, float(scale),
+    cuda_lib.call("ds_temporal_block", cuda_lib.ptr_array([x, out, *block_pointers(op)]), R, Fn, C, float(scale),
                   float(eps))
     fused_temporal_block.launches += 1
     return out

@@ -22,9 +22,9 @@ every token is text.
 ``temporal_mega`` and ``spatial_mega`` are the kernel wrappers (with their
 launch counters ``.launches``): they take the folded GroupNorm vectors
 ``(mul, add)`` [B, C], which ``temporal_transformer`` and
-``spatial_transformer`` compute with the plain statistics pass
+``spatial_transformer`` compute with the statistics pass
 ``fused_twrap.group_norm_fold`` (the JAX package leaves it to XLA outside
-the kernels too). On the card kernel 12 runs as
+the kernels; on the card it is ``csrc/gn_silu.cu::ds_gn_stats``). On the card kernel 12 runs as
 ``csrc/block.cu::ds_temporal_mega`` (one launch) and kernel 13 as the
 context K/V projection and ``csrc/mega.cu::ds_mega_spatial`` (two
 launches); see the notes there. The plain versions are the plain versions
@@ -42,7 +42,7 @@ from typing import NamedTuple
 
 import torch
 
-from dynamicscaler_tpu_torch.ops import cuda_lib
+from dynamicscaler_tpu_torch.ops import cuda_lib, fused_twrap
 from dynamicscaler_tpu_torch.ops.fused_block import (
     BlockOperands,
     refuse_unless,
@@ -56,8 +56,8 @@ from dynamicscaler_tpu_torch.ops.fused_block import (
     spatial_launch,
     temporal_block_plain,
 )
+from dynamicscaler_tpu_torch.ops.fused_temporal import frames_ok
 from dynamicscaler_tpu_torch.ops.fused_twrap import (
-    group_norm_fold,
     head_spatial_plain,
     head_temporal_plain,
     pack_wrapper,
@@ -97,9 +97,9 @@ def _check_gn(mul, add, B: int, C: int) -> None:
 
 def temporal_ok(frames: int, C: int, inner: int, heads: int) -> bool:
     """Kernel 12's gate: the shape conditions of the JAX package's
-    ``temporal_ok`` (fused_mega.py:76-89) without its TPU tiling terms
-    (frames dividing 128, the row tile ``_t_th``)."""
-    return frames >= 2 and inner == C and inner % heads == 0 and inner <= 640 and (inner // heads) % 8 == 0
+    ``temporal_ok`` (fused_mega.py:76-89) without its TPU row tile
+    ``_t_th``."""
+    return frames_ok(frames) and inner == C and inner % heads == 0 and inner <= 640 and (inner // heads) % 8 == 0
 
 
 def pack_temporal_mega(w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, *, dtype) -> MegaOperands:
@@ -121,14 +121,14 @@ def temporal_mega(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out,
                   operands=None):
     """Kernel 12 with the folded GroupNorm vectors ``(mul, add)`` [B, C]:
     [B, F, H, W, C] -> [B, F, H, W, C]. On the card one launch of
-    ``ds_temporal_mega`` (F = 16, head dim 64, inner == C <= 640), reading
+    ``ds_temporal_mega`` (head dim 64, inner == C <= 640), reading
     ``operands`` (from :func:`pack_temporal_mega`; packed here when None)."""
     if not cuda_lib.use_kernel(x5):
         return temporal_mega_plain(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, heads=heads,
                                    scale=scale, eps=eps)
     B, Fn, H, W, C = x5.shape
     inner = heads * 64
-    refuse_unless("12", temporal_ok(Fn, C, inner, heads) and Fn == 16, f"x5 {tuple(x5.shape)} with {heads} heads")
+    refuse_unless("12", temporal_ok(Fn, C, inner, heads), f"x5 {tuple(x5.shape)} with {heads} heads")
     cuda_lib.check_operand("x5", x5)
     op = operands or pack_temporal_mega(w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, dtype=x5.dtype)
     _check_wrapper(op, C, C)
@@ -136,7 +136,7 @@ def temporal_mega(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out,
     _check_gn(mul, add, B, C)
     out = torch.empty_like(x5)
     ptrs = [x5, out, *block_pointers(op.block), mul, add, op.w_in, op.b_in, op.w_out, op.b_out]
-    cuda_lib.call("ds_temporal_mega", cuda_lib.ptr_array(ptrs), B, H * W, C, float(scale), float(eps))
+    cuda_lib.call("ds_temporal_mega", cuda_lib.ptr_array(ptrs), B, Fn, H * W, C, float(scale), float(eps))
     temporal_mega.launches += 1
     return out
 
@@ -148,7 +148,7 @@ def temporal_transformer(x5, gn_scale, gn_bias, w_in, b_in, lns, attn1, attn2, f
                          scale, gn_eps=1e-6, eps=1e-5, operands=None):
     """The whole TemporalTransformer: the GroupNorm statistics pass over each
     clip, then :func:`temporal_mega`. x5 [B, F, H, W, C]."""
-    mul, add = group_norm_fold(x5, gn_scale, gn_bias, eps=gn_eps)
+    mul, add = fused_twrap.group_norm_fold(x5, gn_scale, gn_bias, eps=gn_eps)
     return temporal_mega(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, heads=heads,
                          scale=scale, eps=eps, operands=operands)
 
@@ -213,7 +213,7 @@ def spatial_transformer(x4, ctx, gn_scale, gn_bias, w_in, b_in, lns, attn1, attn
                         heads, scale, text_len=77, gn_eps=1e-6, eps=1e-5, operands=None):
     """The whole SpatialTransformer: the GroupNorm statistics pass, then
     :func:`spatial_mega`. x4 [BF, H, W, C]; ctx [clips, L, Dc] per clip."""
-    mul, add = group_norm_fold(x4, gn_scale, gn_bias, eps=gn_eps)
+    mul, add = fused_twrap.group_norm_fold(x4, gn_scale, gn_bias, eps=gn_eps)
     return spatial_mega(x4, ctx, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, heads=heads,
                         scale=scale, text_len=text_len, eps=eps, operands=operands)
 

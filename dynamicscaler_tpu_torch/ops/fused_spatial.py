@@ -7,10 +7,11 @@ Counterparts of ``dynamicscaler_tpu/ops/fused_spatial.py``
 ``Linear`` layout ``[out, in]``.
 
 On the card each op runs as hand-written CUDA kernels: an LN-prologue GEMM
-for the projections, the flash-style ``ds_flash_attention`` (N up to 2560;
-one or two key segments) and a GEMM with the bias + residual epilogue. K3
-projects the context K/V with the same GEMM kernel. The plain versions keep
-the TPU kernels' rounding points; softmax is normalised AFTER the PV product.
+for the projections, :func:`flash_attention` (``ds_flash_attention``, a
+TMA/wgmma flash-attention forward; N up to 2560, one or two key segments)
+and a GEMM with the bias + residual epilogue. K3 projects the context K/V
+with the same GEMM kernel. The plain versions keep the TPU kernels' rounding
+points; softmax is normalised AFTER the PV product.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
@@ -48,6 +49,56 @@ def _heads_attention_plain(q, kvs, heads, scale):
     return torch.cat(outs, dim=-1)
 
 
+def flash_attention_plain(q, k0, v0, k1=None, v1=None, *, heads, scale):
+    """Plain version of ``ds_flash_attention``: :func:`_heads_attention_plain`
+    over the key segments (k0, v0) and, where given, (k1, v1)."""
+    kvs = [(k0, v0)] + ([(k1, v1)] if k1 is not None else [])
+    return _heads_attention_plain(q, kvs, heads, scale)
+
+
+def _check_rows(name, t, B, C):
+    """A [B, n, >= C] bf16 CUDA view whose rows ds_flash_attention reads
+    with a pitch: unit column stride, 16-byte aligned rows, samples packed."""
+    if (t.device.type != "cuda" or t.dtype != torch.bfloat16 or t.dim() != 3 or t.shape[0] != B
+            or t.shape[2] != C or t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) != t.shape[1] * t.stride(1)
+            or t.data_ptr() % 16):
+        raise ValueError(f"{name}: ds_flash_attention reads [{B}, n, {C}] bf16 CUDA rows with a pitch that is a "
+                         f"multiple of 8 and packed samples, got {tuple(t.shape)} strides {t.stride()} "
+                         f"{t.dtype} on {t.device} address {t.data_ptr():#x}")
+
+
+def flash_attention(q, k0, v0, k1=None, v1=None, *, heads, scale):
+    """K2's and K3's attention core: per (sample, head) the sum over the key
+    segments (k0, v0) and, where given, (k1, v1) of softmax(q k^T * scale) v,
+    each segment with its own softmax (exponentials rounded to the activation
+    type for PV, the sum divided out after). q [B, Nq, C], k/v [B, L_s, C]
+    (views with a row pitch, such as columns of a packed q|k|v); returns
+    [B, Nq, C]. On the card one launch of ``csrc/attention.cu::
+    ds_flash_attention`` (head dim 64)."""
+    if not cuda_lib.use_kernel(q, k0, v0, k1, v1):
+        return flash_attention_plain(q, k0, v0, k1, v1, heads=heads, scale=scale)
+    B, Nq, C = q.shape
+    if C != heads * 64 or (k1 is None) != (v1 is None):
+        raise ValueError(f"ds_flash_attention takes head dim 64 and whole segments, got C={C} heads={heads}")
+    segs = [(k0, v0)] + ([(k1, v1)] if k1 is not None else [])
+    for name, t in (("q", q), *((f"k/v {i}", t) for i, kv in enumerate(segs) for t in kv)):
+        _check_rows(name, t, B, C)
+    for k, v in segs:
+        if k.shape != v.shape or k.stride() != v.stride() or k.shape[1] == 0:
+            raise ValueError(f"ds_flash_attention: a segment's keys and values must be alike and non-empty, got "
+                             f"{tuple(k.shape)} {k.stride()} and {tuple(v.shape)} {v.stride()}")
+    o = torch.empty((B, Nq, C), device=q.device, dtype=q.dtype)
+    p = cuda_lib.ptr
+    ld1, len1 = (k1.stride(1), k1.shape[1]) if k1 is not None else (0, 0)
+    cuda_lib.call("ds_flash_attention", p(q), q.stride(1), B, Nq, heads, p(k0), p(v0), k0.stride(1), k0.shape[1],
+                  p(k1), p(v1), ld1, len1, len(segs), float(scale), p(o), C)
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # K2: LayerNorm -> QKV -> N-token self-attention -> out-proj -> +x
 # ---------------------------------------------------------------------------
@@ -78,15 +129,9 @@ def fused_ln_spatial_attention(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *, head
     cuda_lib.check_operand("x", x)
     op = operands or pack_ln_attention(ln_scale, ln_bias, wq, wk, wv, wo, bo, dtype=x.dtype)
     x2d = x.reshape(B * N, C)
-    qkv = ln_gemm(x2d, op.w_in, ln=(op.ln_scale, op.ln_bias), eps=eps)
-    o = torch.empty_like(x2d)
-    p = cuda_lib.ptr
-    cuda_lib.call(
-        "ds_flash_attention", p(qkv), 3 * C, B, N, heads,
-        p(qkv[:, C:]), p(qkv[:, 2 * C:]), 3 * C, N,
-        None, None, 0, 0, 1, float(scale), p(o), C,
-    )
-    out = ln_gemm(o, op.wo, bias=op.bo, residual=x2d, mode=MODE_RESIDUAL)
+    qkv = ln_gemm(x2d, op.w_in, ln=(op.ln_scale, op.ln_bias), eps=eps).view(B, N, 3 * C)
+    o = flash_attention(qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], heads=heads, scale=scale)
+    out = ln_gemm(o.view(B * N, C), op.wo, bias=op.bo, residual=x2d, mode=MODE_RESIDUAL)
     fused_ln_spatial_attention.launches += 1
     return out.reshape(B, N, C)
 
@@ -158,21 +203,13 @@ def fused_ln_cross_attention(x, ctx, ln_scale, ln_bias, wq, wk, wv, wo, bo, wk_i
     x2d = x.reshape(B * N, C)
     q = ln_gemm(x2d, op.w_in, ln=(op.ln_scale, op.ln_bias), eps=eps)
     ctx_t, ctx_i = _split_ctx(ctx.to(dt), has_img, text_len)
-    segs = []
+    kv = []
     for c, w_kv in zip((ctx_t, ctx_i), op.w_kv):
         L, Dc = c.shape[1], c.shape[2]
-        segs.append((ln_gemm(c.reshape(B * L, Dc).contiguous(), w_kv), L))
-    (kv0, l0) = segs[0]
-    (kv1, l1) = segs[1] if has_img else (None, 0)
-    o = torch.empty_like(x2d)
-    p = cuda_lib.ptr
-    cuda_lib.call(
-        "ds_flash_attention", p(q), C, B, N, heads,
-        p(kv0), p(kv0[:, C:]), 2 * C, l0,
-        p(kv1), None if kv1 is None else p(kv1[:, C:]), 2 * C, l1,
-        len(segs), float(scale), p(o), C,
-    )
-    out = ln_gemm(o, op.wo, bias=op.bo, residual=x2d, mode=MODE_RESIDUAL)
+        t = ln_gemm(c.reshape(B * L, Dc).contiguous(), w_kv).view(B, L, 2 * C)
+        kv += [t[..., :C], t[..., C:]]
+    o = flash_attention(q.view(B, N, C), *kv, heads=heads, scale=scale)
+    out = ln_gemm(o.view(B * N, C), op.wo, bias=op.bo, residual=x2d, mode=MODE_RESIDUAL)
     fused_ln_cross_attention.launches += 1
     fused_ln_cross_attention.launches_i2v += has_img
     return out.reshape(B, N, C)

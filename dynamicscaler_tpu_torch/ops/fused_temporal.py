@@ -6,8 +6,9 @@ Counterparts of ``dynamicscaler_tpu/ops/fused_temporal.py``
 (``_ff_kernel``). Weights are in torch ``Linear`` layout ``[out, in]``.
 
 On the card each op runs as a short sequence of hand-written CUDA kernels
-(``csrc/gemm.cu``, ``csrc/attention.cu``); see the notes there for what
-bounds each on the H100. The plain versions beside them hold the same
+(``csrc/gemm.cu``, and for K1's attention :func:`temporal_attention`,
+``csrc/attention.cu``); see the notes there for what bounds each on the
+H100. The plain versions beside them hold the same
 rounding points as the TPU kernels: fp32 LayerNorm statistics, bf16 matmul
 inputs with fp32 accumulation, q/k/v rounded to the activation type, fp32
 softmax with probabilities rounded before PV (K1), out-projection + bias in
@@ -175,46 +176,87 @@ def pack_ln_attention(ln_scale, ln_bias, wq, wk, wv, wo, bo, *, dtype) -> AttnOp
 # ---------------------------------------------------------------------------
 
 
-def ln_attention_plain(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *, heads, scale, eps=1e-5):
-    """Plain PyTorch version of K1. x [R, F, C]; weights [C, C]."""
-    R, Fn, C = x.shape
-    dt = x.dtype
+def _frames_attend(q, k, v, heads, scale):
+    """[R, F, C] each: fp32 logits and softmax per (row, head), the
+    probabilities rounded to the activation type before PV; rounded result."""
+    R, Fn, C = q.shape
     d = C // heads
-    h = layer_norm(x, ln_scale, ln_bias, eps)
 
     def split(t):
         return t.reshape(R, Fn, heads, d).transpose(1, 2)
 
-    q, k, v = (split(mm_f32(h, w).to(dt)) for w in (wq, wk, wv))
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    p = torch.softmax(logits, dim=-1).to(dt)
-    o = torch.matmul(p.float(), v.float()).to(dt)
-    o = o.transpose(1, 2).reshape(R, Fn, C)
+    logits = torch.matmul(split(q).float(), split(k).float().transpose(-1, -2)) * scale
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = torch.matmul(p.float(), split(v).float()).to(q.dtype)
+    return o.transpose(1, 2).reshape(R, Fn, C)
+
+
+def ln_attention_plain(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *, heads, scale, eps=1e-5):
+    """Plain PyTorch version of K1. x [R, F, C]; weights [C, C]."""
+    dt = x.dtype
+    h = layer_norm(x, ln_scale, ln_bias, eps)
+    q, k, v = (mm_f32(h, w).to(dt) for w in (wq, wk, wv))
+    o = _frames_attend(q, k, v, heads, scale)
     return (mm_f32(o, wo) + bo.float()).to(dt) + x
+
+
+def frames_ok(frames: int) -> bool:
+    """The frame counts K1's attention (and kernels 10 and 12) take: those of
+    the JAX gate ``fusable`` (fused_temporal.py:157-175), 2 <= F and F
+    dividing 128."""
+    return frames >= 2 and 128 % frames == 0
+
+
+def temporal_attention_plain(qkv, *, heads, scale):
+    """Plain version of ``ds_temporal_attention``: qkv [R, F, 3C] (q | k | v)
+    -> [R, F, C]."""
+    return _frames_attend(*qkv.chunk(3, dim=-1), heads, scale)
+
+
+def temporal_attention(qkv, *, heads, scale):
+    """K1's attention core: per (row, head), softmax(q k^T * scale) rounded,
+    times v, over the F frame tokens of each row. qkv [R, F, 3C] with the
+    q, k and v columns side by side (head h at columns 64h of each); returns
+    [R, F, C]. On the card one launch of ``csrc/attention.cu::
+    ds_temporal_attention`` (head dim 64, F as :func:`frames_ok`)."""
+    if not cuda_lib.use_kernel(qkv):
+        return temporal_attention_plain(qkv, heads=heads, scale=scale)
+    R, Fn, C3 = qkv.shape
+    C = C3 // 3
+    if not frames_ok(Fn) or C != heads * 64:
+        raise ValueError(f"ds_temporal_attention takes 2 <= F, 128 % F == 0 and head dim 64, got F={Fn} "
+                         f"C={C} heads={heads}")
+    cuda_lib.check_operand("qkv", qkv)
+    o = torch.empty((R, Fn, C), device=qkv.device, dtype=qkv.dtype)
+    cuda_lib.call("ds_temporal_attention", cuda_lib.ptr(qkv), R, Fn, C, heads, float(scale), cuda_lib.ptr(o))
+    temporal_attention.launches += 1
+    return o
+
+
+temporal_attention.launches = 0
 
 
 def fused_ln_attention(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *, heads, scale, eps=1e-5,
                        operands=None):
     """K1: LayerNorm -> QKV -> F-token self-attention -> out-proj -> +x.
 
-    x: [rows, F, C]; rows = B*H*W, F = 16 frames on the card; weights
-    [C, C] torch layout; ln_scale/ln_bias/bo [C]. Returns [rows, F, C].
-    On the card: LN-prologue GEMM (q|k|v) -> ds_temporal_attention ->
-    GEMM + bias + residual, reading ``operands`` (from
+    x: [rows, F, C]; rows = B*H*W, F as :func:`frames_ok` on the card;
+    weights [C, C] torch layout; ln_scale/ln_bias/bo [C]. Returns [rows, F,
+    C]. On the card: LN-prologue GEMM (q|k|v) -> :func:`temporal_attention`
+    -> GEMM + bias + residual, reading ``operands`` (from
     :func:`pack_ln_attention`; packed here when None)."""
     if not cuda_lib.use_kernel(x):
         return ln_attention_plain(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
                                   heads=heads, scale=scale, eps=eps)
     R, Fn, C = x.shape
-    if Fn != 16 or C != heads * 64:
-        raise ValueError(f"K1 kernel takes F=16 and head dim 64, got F={Fn} C={C} heads={heads}")
+    if not frames_ok(Fn) or C != heads * 64:
+        raise ValueError(f"K1 kernel takes 2 <= F, 128 % F == 0 and head dim 64, got F={Fn} C={C} heads={heads}")
     cuda_lib.check_operand("x", x)
     op = operands or pack_ln_attention(ln_scale, ln_bias, wq, wk, wv, wo, bo, dtype=x.dtype)
     x2d = x.reshape(R * Fn, C)
     qkv = ln_gemm(x2d, op.w_in, ln=(op.ln_scale, op.ln_bias), eps=eps)
-    o = torch.empty_like(x2d)
-    cuda_lib.call("ds_temporal_attention", cuda_lib.ptr(qkv), R, C, heads, float(scale), cuda_lib.ptr(o))
-    out = ln_gemm(o, op.wo, bias=op.bo, residual=x2d, mode=MODE_RESIDUAL)
+    o = temporal_attention(qkv.view(R, Fn, 3 * C), heads=heads, scale=scale)
+    out = ln_gemm(o.view(R * Fn, C), op.wo, bias=op.bo, residual=x2d, mode=MODE_RESIDUAL)
     fused_ln_attention.launches += 1
     return out.reshape(R, Fn, C)
 

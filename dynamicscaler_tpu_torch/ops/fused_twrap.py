@@ -13,12 +13,12 @@ Counterparts of ``dynamicscaler_tpu/ops/fused_twrap.py``:
 
 The heads and ``gn_silu_apply`` take the folded GroupNorm vectors;
 ``gn_proj_in_temporal``, ``gn_proj_in_spatial`` and ``gn_silu`` compute them
-with ``group_norm_fold``, the statistics reduction, which stays a plain
-PyTorch pass (the JAX package leaves it to XLA outside the kernels). On the
-card the heads and tails run as ``csrc/gemm.cu::ds_ln_gemm`` with its
-GroupNorm prologue, frame row map and residual epilogue, and
-``gn_silu_apply`` as ``csrc/gn_silu.cu::ds_gn_silu``; see the notes there for
-what bounds each. Each kernel wrapper takes its plain version (``*_plain``,
+with ``group_norm_fold``, the statistics reduction (the JAX package leaves it
+to XLA outside the kernels; the port runs it as one CUDA reduction,
+``csrc/gn_silu.cu::ds_gn_stats``). On the card the heads and tails run as
+``csrc/gemm.cu::ds_ln_gemm`` with its GroupNorm prologue, frame row map and
+residual epilogue, and ``gn_silu_apply`` as ``csrc/gn_silu.cu::ds_gn_silu``;
+see the notes there for what bounds each. Each kernel wrapper takes its plain version (``*_plain``,
 same rounding points: normalised activation rounded to the activation type
 before the product, bias added in fp32 before the rounding, residual added
 in the activation type) for CPU tensors, and counts its kernel launches in
@@ -40,10 +40,8 @@ from dynamicscaler_tpu_torch.ops import cuda_lib
 from dynamicscaler_tpu_torch.ops.cuda_lib import MODE_RESIDUAL, act, f32, ln_gemm
 
 
-def group_norm_fold(x, scale, bias, num_groups: int = 32, eps: float = 1e-6):
-    """Per-(sample, channel) GroupNorm vectors ``(mul, add)`` [B, C] fp32,
-    such that ``normalized = x * mul + add``. Statistics reduce over every
-    axis but the first (B) and the channel group, fp32 fast variance."""
+def group_norm_fold_plain(x, scale, bias, num_groups: int = 32, eps: float = 1e-6):
+    """Plain version of :func:`group_norm_fold`."""
     B, C = x.shape[0], x.shape[-1]
     G = num_groups
     xf = x.float().reshape(B, -1, G, C // G)
@@ -55,6 +53,56 @@ def group_norm_fold(x, scale, bias, num_groups: int = 32, eps: float = 1e-6):
     mul = rstd_c * scale.float()[None]
     add = bias.float()[None] - mu_c * mul
     return mul, add
+
+
+# the statistics pass gives each thread of a block (lanes x C / 8 threads,
+# about 256) this many rows of its sample
+GN_STATS_THREADS = 256
+GN_STATS_ROWS_PER_THREAD = 32
+
+
+def gn_stats_splits(B: int, M: int, C: int) -> int:
+    """The row splits of one sample in ``ds_gn_stats``: a block's lanes
+    (``GN_STATS_THREADS // (C / 8)``, at least 1) times 32 rows each, every
+    split non-empty."""
+    lanes = max(1, GN_STATS_THREADS // (C // 8))
+    return -(-M // (lanes * GN_STATS_ROWS_PER_THREAD))
+
+
+def group_norm_fold(x, scale, bias, num_groups: int = 32, eps: float = 1e-6):
+    """Per-(sample, channel) GroupNorm vectors ``(mul, add)`` [B, C] fp32,
+    such that ``normalized = x * mul + add``. Statistics reduce over every
+    axis but the first (B) and the channel group, fp32 fast variance. x [B,
+    ..., C] bf16 or fp32. On the card one launch of ``csrc/gn_silu.cu::
+    ds_gn_stats`` (a reduction pass over x and a small fold launch): C % 8
+    == 0, C divisible by the groups, C <= 6144."""
+    if not cuda_lib.use_kernel(x):
+        return group_norm_fold_plain(x, scale, bias, num_groups, eps)
+    B, C = x.shape[0], x.shape[-1]
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"ds_gn_stats takes bf16 or fp32 activations, got {x.dtype}")
+    cuda_lib.check_operand("x", x, x.dtype)
+    if C % 8 or C % num_groups or C > 6144 or x.numel() == 0:
+        raise ValueError(f"ds_gn_stats takes C % 8 == 0, C % groups == 0 and C <= 6144, got C={C} "
+                         f"groups={num_groups} shape {tuple(x.shape)}")
+    M = x.numel() // (B * C)
+    splits = gn_stats_splits(B, M, C)
+    # one allocation: the kernel's partial sums [splits, B, 2, C], then mul, add
+    buf = torch.empty((splits + 1) * 2 * B * C, device=x.device, dtype=torch.float32)
+    part = buf[:splits * 2 * B * C]
+    mul, add = buf[splits * 2 * B * C:].view(2, B, C).unbind(0)
+    s, b = scale.detach(), bias.detach()  # a bf16 model's vectors are read as they are, no cast launch
+    if s.dtype != b.dtype or s.dtype not in (torch.bfloat16, torch.float32):
+        s, b = f32(s), f32(b)
+    s, b = s.contiguous(), b.contiguous()
+    cuda_lib.call("ds_gn_stats", cuda_lib.ptr(x), int(x.dtype == torch.float32), B, M, C, num_groups, splits,
+                  cuda_lib.ptr(s), cuda_lib.ptr(b), int(s.dtype == torch.float32), float(eps), cuda_lib.ptr(part),
+                  cuda_lib.ptr(mul), cuda_lib.ptr(add))
+    group_norm_fold.launches += 1
+    return mul, add
+
+
+group_norm_fold.launches = 0
 
 
 def _proj(x, w, b):

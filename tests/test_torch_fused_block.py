@@ -101,6 +101,24 @@ def test_temporal_block_matches_pallas(rng, interpret, R, C, heads):
     _close(got, ref)
 
 
+@pytest.mark.parametrize("R,Fn", [(12, 8), (3, 32), (40, 2)])
+def test_temporal_block_matches_pallas_at_other_frame_counts(rng, interpret, R, Fn):
+    """Kernel 10's plain version over rows of 8, 32 and 2 frames (the card's
+    kernel takes every F the JAX gate admits, spreading a row of more
+    frames than its token tile over a cluster of blocks)."""
+    C, heads = 64, 1
+    x = rng.standard_normal((R, Fn, C)).astype(np.float32)
+    lns, a1, a2, ff = _block_weights(rng, C)
+    scale = 64 ** -0.5
+    ref = jblock.fused_temporal_block(jnp.asarray(x), tuple(map(jnp.asarray, lns)), tuple(map(jnp.asarray, a1)),
+                                      tuple(map(jnp.asarray, a2)), tuple(map(jnp.asarray, ff)), heads=heads,
+                                      scale=scale)
+    got = fused_block.fused_temporal_block(_t(x), tuple(map(_t, lns)), _port(a1), _port(a2), _port(ff),
+                                           heads=heads, scale=scale)
+    assert got.shape == (R, Fn, C) and fused_block.fused_temporal_block.launches == 0
+    _close(got, ref)
+
+
 @pytest.mark.parametrize("img,C,heads", [(False, 64, 1), (True, 128, 2)])
 def test_spatial_mega_matches_pallas(rng, interpret, img, C, heads):
     """Kernel 13's plain version: the whole SpatialTransformer over N = 256

@@ -137,6 +137,40 @@ def test_temporal_mega_matches_pallas(rng, interpret, C, heads):
     _close(got, ref)
 
 
+@pytest.mark.parametrize("Fn", [8, 32])
+def test_temporal_mega_matches_pallas_at_other_frame_counts(rng, interpret, Fn):
+    """Kernel 12's plain version at 8 and 32 frames (the card's kernel takes
+    every F the JAX gate admits), one clip of 2x8 positions at C 64."""
+    B, H, W, C, heads = 1, 2, 8, 64, 1
+    x5 = (2.0 * rng.standard_normal((B, Fn, H, W, C)) + 0.5).astype(np.float32)
+    gs, gb = _vec(rng, C, 1.0), _vec(rng, C)
+    w_in, b_in, w_out, b_out = _w(rng, C, C), _vec(rng, C), _w(rng, C, C), _vec(rng, C)
+    lns, a1, a2, ff = _block_weights(rng, C)
+    scale = 64 ** -0.5
+    assert jmega.temporal_ok(Fn, C, C, heads, H, W)
+    ref = jmega.temporal_transformer(jnp.asarray(x5), jnp.asarray(gs), jnp.asarray(gb), jnp.asarray(w_in),
+                                     jnp.asarray(b_in), _jax(lns), _jax(a1), _jax(a2), _jax(ff), jnp.asarray(w_out),
+                                     jnp.asarray(b_out), heads=heads, scale=scale)
+    got = fused_mega.temporal_transformer(_t(x5), _t(gs), _t(gb), _t(w_in.T), _t(b_in), tuple(map(_t, lns)),
+                                          _port(a1), _port(a2), _port(ff), _t(w_out.T), _t(b_out), heads=heads,
+                                          scale=scale)
+    assert got.shape == x5.shape and fused_mega.temporal_mega.launches == 0
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("Fn", [1, 2, 3, 4, 8, 12, 16, 32, 64, 128, 256])
+def test_frame_gates_match_jax(interpret, restore_plans, Fn):
+    """K1's, kernel 10's and kernel 12's frame counts are the JAX gates':
+    2 <= F and F dividing 128 (at a W where the JAX row tile always exists)."""
+    jtemporal.set_plan("off")
+    fused_temporal.set_plan("off")
+    for C in (320, 640, 1280):
+        heads = C // 64
+        assert fused_temporal.frames_ok(Fn) == jtemporal.fusable(Fn, C, C, heads)
+        assert fused_block.temporal_block_ok(Fn, C, C, heads) == jblock.temporal_block_fusable(Fn, C, C, heads)
+        assert fused_mega.temporal_ok(Fn, C, C, heads) == jmega.temporal_ok(Fn, C, C, heads, 8, 128)
+
+
 # ---------------------------------------------------------------------------
 # the plan's spec strings (the cases of tests/test_fuse_plan.py)
 # ---------------------------------------------------------------------------

@@ -155,11 +155,15 @@ def test_ln_geglu_then_ff2_matches_k4(rng, interpret, shape):
     _close(got.reshape(shape), ref)
 
 
-@pytest.mark.parametrize("B,F,H,W,C,Ci", [(2, 8, 4, 4, 64, 64), (1, 16, 2, 4, 64, 128)])
+@pytest.mark.parametrize("B,F,H,W,C,Ci", [(2, 8, 4, 4, 64, 64), (1, 16, 2, 4, 64, 128), (1, 16, 5, 5, 64, 64),
+                                           (1, 16, 10, 10, 64, 64), (2, 8, 5, 5, 64, 64), (1, 8, 10, 10, 64, 64),
+                                           (1, 16, 6, 6, 64, 64)])
 def test_gn_head_and_tail_with_row_maps_match_pallas(rng, interpret, B, F, H, W, C, Ci):
     """The GroupNorm head with the A row map against ``_head_temporal`` and
     the tail with the output row map against ``_tail_temporal``, at shapes
-    the kernel's TMA box takes (F divides 128, H*W a multiple of 128 / F)."""
+    the kernel's TMA box takes (F divides 128, H*W a multiple of 128 / F)
+    and at those where the prologue pass gathers the rows instead (H*W 25,
+    100 and 36: a 40x40 latent's two deepest levels, 384x384's)."""
     assert jtwrap._enabled("t", C)
     x5 = (2.0 * rng.standard_normal((B, F, H, W, C)) + 0.5).astype(np.float32)
     s, b = (1.0 + 0.1 * rng.standard_normal(C)).astype(np.float32), (0.1 * rng.standard_normal(C)).astype(np.float32)
@@ -220,15 +224,26 @@ def test_gemm_tile_fits_every_forward_shape(side, C):
         assert mode != MODE_GEGLU or (N // 2) % (tile.block_n // 2) == 0
 
 
+@pytest.mark.parametrize("F,HW", [(16, 25), (16, 36), (16, 100), (8, 25), (8, 36), (8, 100), (3, 32), (16, 12)])
+def test_check_ln_gemm_takes_any_head_geometry(F, HW):
+    """The GroupNorm head (kernel 5) takes every clip geometry whose samples
+    are whole clips: its TMA box where it fits the clip, the gathering
+    prologue pass elsewhere."""
+    M = 2 * F * HW
+    cuda_lib._check_ln_gemm(M, 64, 128, ln=None, gn=(1, 1), rows_per_sample=F * HW, frame_map=(F, HW),
+                            residual=None, mode=MODE_STORE)
+
+
+# (the ids keep each case's name from before the head took every clip geometry)
 @pytest.mark.parametrize("case,match", [
-    (dict(gn=True, rows_per_sample=96, frame_map=(3, 32)), "F must divide 128"),
-    (dict(gn=True, rows_per_sample=192, frame_map=(16, 12)), "multiple of 128 // F"),
-    (dict(gn=True, rows_per_sample=64, frame_map=(16, 8)), "rows_per_sample"),
-    (dict(mode=MODE_RESIDUAL), "residual"),
-    (dict(residual=True), "residual"),
-    (dict(K=48), "K % 32"),
-    (dict(ln=True, frame_map=(16, 8)), "frame_map"),
-    (dict(gn=True, rows_per_sample=128, mode=MODE_GEGLU), "GroupNorm prologue takes mode 0"),
+    pytest.param(dict(gn=True, rows_per_sample=64, frame_map=(16, 8)), "rows_per_sample",
+                 id="case2-rows_per_sample"),
+    pytest.param(dict(mode=MODE_RESIDUAL), "residual", id="case3-residual"),
+    pytest.param(dict(residual=True), "residual", id="case4-residual"),
+    pytest.param(dict(K=48), "K % 32", id="case5-K % 32"),
+    pytest.param(dict(ln=True, frame_map=(16, 8)), "frame_map", id="case6-frame_map"),
+    pytest.param(dict(gn=True, rows_per_sample=128, mode=MODE_GEGLU), "GroupNorm prologue takes mode 0",
+                 id="case7-GroupNorm prologue takes mode 0"),
 ])
 def test_ln_gemm_refuses_what_the_kernel_cannot_take(case, match):
     """Combinations the kernel cannot take raise ValueError in ln_gemm

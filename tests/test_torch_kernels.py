@@ -53,7 +53,8 @@ def _close(got, ref, atol=ATOL, rtol=RTOL):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("R,F,C,heads", [(24, 16, 64, 2), (8, 8, 32, 4), (4, 16, 256, 4)])
+@pytest.mark.parametrize("R,F,C,heads", [(24, 16, 64, 2), (8, 8, 32, 4), (4, 16, 256, 4), (4, 32, 64, 2),
+                                         (16, 2, 64, 1), (2, 64, 64, 1)])
 def test_k1_temporal_attention_matches_jax_kernel(rng, interpret, R, F, C, heads):
     x = (rng.standard_normal((R, F, C)) * 0.5).astype(np.float32)
     s, b = _ln_inputs(rng, C)
@@ -139,6 +140,59 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch(rng):
         cuda_lib.use_kernel(x, torch.empty(1, device="meta"))
 
 
+def test_attention_cores_take_plain_version_on_cpu_and_count_no_launch(rng):
+    """K1's and K2/K3's attention cores (the wrappers of ds_temporal_attention
+    and ds_flash_attention) take their plain versions for CPU tensors, on
+    packed-column views as K1-K3 hand them over, and launch nothing."""
+    before = (ttemporal.temporal_attention.launches, tspatial.flash_attention.launches)
+    qkv = _t(rng.standard_normal((3, 8, 3 * 128)))
+    got = ttemporal.temporal_attention(qkv, heads=2, scale=0.125)
+    assert torch.equal(got, ttemporal.temporal_attention_plain(qkv, heads=2, scale=0.125))
+    assert got.shape == (3, 8, 128)
+    q, k, v = qkv[..., :128], qkv[..., 128:256], qkv[..., 256:]
+    kv = _t(rng.standard_normal((3, 5, 256)))
+    got = tspatial.flash_attention(q, k, v, kv[..., :128], kv[..., 128:], heads=2, scale=0.125)
+    ref = tspatial._heads_attention_plain(q, [(k, v), (kv[..., :128], kv[..., 128:])], 2, 0.125)
+    assert torch.equal(got, ref) and got.shape == (3, 8, 128)
+    assert (ttemporal.temporal_attention.launches, tspatial.flash_attention.launches) == before
+
+
+def test_attention_and_statistics_wrappers_hand_their_kernels_the_right_arguments(monkeypatch):
+    """The card-side host code of the attention cores and the GroupNorm
+    statistics, run on CPU tensors with the launch replaced by a recorder:
+    the pitches of packed q|k|v columns, the segment lengths, the frame
+    count, the statistics' row splits and an output of the right shape, and
+    one counted launch each."""
+    calls = []
+    monkeypatch.setattr(cuda_lib, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(cuda_lib, "check_operand", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_lib, "call", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(tspatial, "_check_rows", lambda *a: None)
+    wrappers = (ttemporal.temporal_attention, tspatial.flash_attention, ttwrap.group_norm_fold)
+    for fn in wrappers:
+        monkeypatch.setattr(fn, "launches", 0)
+    bf = torch.bfloat16
+    qkv = torch.zeros(6, 8, 3 * 128, dtype=bf)
+    o = ttemporal.temporal_attention(qkv, heads=2, scale=0.125)
+    assert o.shape == (6, 8, 128) and calls[-1][0] == "ds_temporal_attention"
+    assert calls[-1][1][1:5] == (6, 8, 128, 2)
+    qkv = torch.zeros(2, 40, 3 * 128, dtype=bf)
+    kv = torch.zeros(2, 7, 2 * 128, dtype=bf)
+    o = tspatial.flash_attention(qkv[..., :128], qkv[..., 128:256], qkv[..., 256:], kv[..., :128], kv[..., 128:],
+                                 heads=2, scale=0.125)
+    args = calls[-1][1]
+    assert o.shape == (2, 40, 128) and calls[-1][0] == "ds_flash_attention"
+    assert args[1:5] == (384, 2, 40, 2) and args[7:9] == (384, 40) and args[11:14] == (256, 7, 2) and args[16] == 128
+    x = torch.zeros(2, 3, 5, 7, 64, dtype=bf)
+    mul, add = ttwrap.group_norm_fold(x, torch.ones(64, dtype=bf), torch.zeros(64, dtype=bf), eps=1e-5)
+    args = calls[-1][1]
+    assert mul.shape == add.shape == (2, 64) and mul.is_contiguous() and add.is_contiguous()
+    assert calls[-1][0] == "ds_gn_stats" and args[1:7] == (0, 2, 105, 64, 32, ttwrap.gn_stats_splits(2, 105, 64))
+    assert args[9] == 0 and args[10] == 1e-5  # bf16 vectors read as they are
+    assert [c[0] for c in calls] == ["ds_temporal_attention", "ds_flash_attention", "ds_gn_stats"]
+    assert [fn.launches for fn in wrappers] == [1, 1, 1]
+
+
 @pytest.mark.parametrize("img", [False, True])
 def test_packed_operands_layout(rng, img):
     """The kernels' operands: fp32 vectors, weights in the activation type,
@@ -185,7 +239,11 @@ def test_pack_cache_packs_once_and_again_after_a_parameter_changes():
     assert get() is get() and len(packs) == 4
 
 
-@pytest.mark.parametrize("shape,eps", [((2, 4, 6, 5, 64), 1e-6), ((3, 6, 5, 32), 1e-5)])
+@pytest.mark.parametrize("shape,eps", [((2, 4, 6, 5, 64), 1e-6), ((3, 6, 5, 32), 1e-5),
+                                       # ResBlock-like [B, F, H, W, C] and VAE-like [B, H, W, C] shapes whose
+                                       # M is a multiple of no block size, at both eps
+                                       ((2, 3, 7, 9, 320), 1e-5), ((2, 3, 7, 9, 320), 1e-6),
+                                       ((1, 13, 17, 128), 1e-6), ((2, 5, 11, 640), 1e-5)])
 def test_group_norm_fold_and_gn_silu_match_jax(rng, shape, eps):
     C = shape[-1]
     x = rng.standard_normal(shape).astype(np.float32)

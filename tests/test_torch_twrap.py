@@ -25,7 +25,7 @@ from dynamicscaler_tpu_torch.ops import fused_twrap as ttwrap
 
 # the kernel wrappers, each with its launch counter
 WRAPPERS = (ttwrap.head_temporal, ttwrap.tail_temporal, ttwrap.head_spatial, ttwrap.tail_spatial,
-            ttwrap.gn_silu_apply)
+            ttwrap.gn_silu_apply, ttwrap.group_norm_fold)
 
 
 @pytest.fixture
@@ -65,6 +65,8 @@ def _assert_pallas_runs(side, C):
     (2, 4, 3, 5, 64, 64),    # permuted frames, two clips
     (1, 8, 4, 4, 64, 128),   # Ci != C (the init_attn head is 320 -> 512)
     (3, 2, 5, 7, 96, 64),    # Ci < C, three clips, odd spatial extent
+    (1, 16, 5, 5, 64, 64),   # H*W 25 and 100: no 128 / F positions tile a clip (the card's
+    (1, 8, 10, 10, 64, 64),  # head gathers its rows in the prologue pass)
 ])
 def test_temporal_head_and_tail_match_pallas(rng, interpret, B, F, H, W, C, Ci):
     _assert_pallas_runs("t", C)
@@ -114,6 +116,17 @@ def test_gn_silu_matches_pallas(rng, interpret, shape, eps, act, site):
     b = (0.1 * rng.standard_normal(C)).astype(np.float32)
     ref = jtwrap.gn_silu(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b), eps=eps, act=act, site=site)
     _close(ttwrap.gn_silu(_t(x), _t(s), _t(b), eps=eps, act=act), ref)
+
+
+@pytest.mark.parametrize("B,M,C", [(2, 7, 64), (1, 300, 320), (3, 1, 128), (8, 40960, 320), (8, 2560, 1280)])
+def test_gn_stats_splits_cover_every_row(B, M, C):
+    """The statistics kernel's row splits of a sample: non-empty, covering
+    all M rows, at most 32 rows a thread of a block of about 256."""
+    splits = ttwrap.gn_stats_splits(B, M, C)
+    rows = -(-M // splits)
+    lanes = max(1, 256 // (C // 8))
+    assert 1 <= splits <= max(1, M) and (splits - 1) * rows < M <= splits * rows
+    assert rows <= 32 * lanes
 
 
 def test_group_norm_fold_matches_jax_at_both_eps(rng):
