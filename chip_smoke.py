@@ -35,7 +35,12 @@ Phases, in order, one result line each (any failure exits non-zero):
    shape: max abs error against the stated tolerance, L2 error, and the
    kernel, plain and library-composite times (CUDA events) beside the bound
    (the least time the H100 could take for the kernel's work); the
-   statistics pass is also timed at each K5, K7, K9, K12, K13 site. Then the GEMM
+   statistics pass is also timed at each K5, K7, K9, K12, K13 site; K10 and
+   K12 also with their tile plan (TM, CL, ring stages, head group, hidden
+   chunk, shared memory), the clusters of it the card holds at once
+   (``cudaOccupancyMaxActiveClusters``), their TFLOP/s and share of 989,
+   and the weight bytes a launch reads from L2, once per cluster, against
+   once per block (the design before clusters). Then the GEMM
    table: every distinct ``ds_ln_gemm`` call of the batch-8 i2v forward
    (M, K, N, prologue, epilogue mode, row map, calls per forward) against
    ``cuda_lib.ln_gemm_plain`` under the same gates, with its time, TFLOP/s
@@ -577,7 +582,7 @@ def _profile_forward(where, fwd, wall_ms):
                else "ds_gn_stats (GroupNorm statistics)" if "gn_partial_kernel" in n or "gn_fold_kernel" in n
                else "ds_flash_attn (K2, K3)" if "flash_attn_kernel" in n
                else "ds_temporal_attn (K1)" if "temporal_attn_kernel" in n
-               else "ds_temporal_block (K10, K12)" if "temporal_block_kernel" in n
+               else "ds_temporal_block / ds_temporal_mega (K10, K12)" if "temporal_block_tma_kernel" in n
                else "ds_mega (K11, K13)" if "mega_head_kernel" in n or "mega_body_kernel" in n
                else "conv (cuDNN)" if any(s in n for s in ("conv", "cudnn", "fprop", "implicit"))
                else "gemm (cuBLAS: time emb)" if any(s in n for s in ("gemm", "cutlass"))
@@ -606,6 +611,8 @@ class Case:
     output written once)."""
 
     lib_comparable = True  # the library call computes the same output (the GroupNorm statistics' does not)
+    block = None  # K10, K12: (tokens, C, F, mega) for the tile plan line
+    run_at = None  # K10, K12: run(plan), the kernel at another tile plan
 
     def __init__(self, k, desc, run, plain, library, inputs, *, base=None, fold=None, flops=0.0, ops=0.0):
         self.k, self.desc = k, desc
@@ -690,14 +697,20 @@ def _case(k, pos, opts, rn):
     common = dict(inputs=[t for v in a for t in (v if isinstance(v, tuple) else (v,))], fold=fold)
     if k == "K10":
         R, Fn, _ = x.shape
-        return Case(k, f"x{list(x.shape)}", run, plain, _lib_temporal_block(a, opts["heads"], opts["scale"]),
+        case = Case(k, f"x{list(x.shape)}", run, plain, _lib_temporal_block(a, opts["heads"], opts["scale"]),
                     base=x, flops=2 * (8 * T * C * C + 4 * R * Fn * Fn * C) + 24 * T * C * C, **common)
+        case.block = (T, C, Fn, False)
+        case.run_at = lambda plan: fn(*a, **run_kw, plan=plan)
+        return case
     if k == "K12":
         B, Fn, H, W, _ = x.shape
         flops = 4 * T * C * C + 2 * (8 * T * C * C + 4 * B * H * W * Fn * Fn * C) + 24 * T * C * C
-        return Case(k, f"x5{list(x.shape)}", run, plain,
+        case = Case(k, f"x5{list(x.shape)}", run, plain,
                     _lib_temporal_transformer(x, gn, a[3:], opts["heads"], opts["scale"]), base=x, flops=flops,
                     **common)
+        case.block = (T, C, Fn, True)
+        case.run_at = lambda plan: fn(*a, **run_kw, plan=plan)
+        return case
     if k in ("K11", "K13"):
         BFn, N = x.shape[0], T // x.shape[0]
         clips, L, Dc = a[1].shape
@@ -1036,6 +1049,7 @@ def _phase_kernels(sites, cfg):
     sums = {where: {k: collections.Counter() for k in KERNELS} for where in (*sites, REPAIR)}
     max_err = dict.fromkeys(KERNELS, 0.0)
     bound_by = {k: collections.Counter() for k in KERNELS}  # bound ms per limiting resource
+    tiles = {"K10": [], "K12": []}  # the tile plan and rate of kernels 10 and 12 at each shape
     bad = []
     for key, runs in _repair_cases().items():
         shapes[key] = {**shapes.get(key, {}), **runs}
@@ -1050,7 +1064,7 @@ def _phase_kernels(sites, cfg):
         err, tol, rel, tol_l2, ok = _check(case, got, ref)
         lib_rel = (float((lib.float().reshape(ref.shape) - ref.float()).norm() / ref.float().norm())
                    if case.lib_comparable else float("nan"))
-        del got, ref, lib
+        del got, lib
         t = {"ms": _time_ms(case.run, 10), "plain_ms": _time_ms(case.plain, 3),
              "library_ms": _time_ms(case.library, 10), "bound_ms": case.bound_ms,
              "fold_ms": _time_ms(case.fold, 10) if case.fold else 0.0}
@@ -1060,6 +1074,12 @@ def _phase_kernels(sites, cfg):
               + (f" group_norm_fold {t['fold_ms']:.3f} ms" if case.fold else "")
               + " [" + ", ".join(f"x{n} per {w}" for w, n in runs.items()) + f"] {'ok' if ok else 'FAIL'}",
               flush=True)
+        if case.block:
+            tile, reckoned = _block_tile(case, t["ms"], ref)
+            tiles[k].append(tile)
+            ok = ok and tile["other_cl_ok"]
+            print(f"phase 3 {k} {case.desc} tile: {_block_line(tile, reckoned)}", flush=True)
+        del ref
         max_err[k] = max(max_err[k], err)
         for where, n in runs.items():
             for key, v in t.items():
@@ -1089,7 +1109,53 @@ def _phase_kernels(sites, cfg):
                       "bound_by": bound_by[k].most_common(1)[0][0],
                       "fold_ms": main["fold_ms"] if "mul" in ROLES[k] else None, "per": ran[0],
                       "sums_by_forward": {w: {key: sums[w][k][key] for key in keys + ("fold_ms",)} for w in ran}}
+        if k in tiles:
+            records[k]["tiles"] = tiles[k]
     return records
+
+
+def _block_tile(case, ms, ref):
+    """Kernel 10 / 12 at one shape: the tile plan (cuda_lib.block_plan), how
+    many of its clusters the card holds at once, the tensor-core rate and
+    its share of the 989 TFLOP/s peak; where a row lies in one block, the
+    kernel also at the other cluster size (CL 1, each block alone on its
+    weights, against CL 2, each weight tile multicast to two blocks): its
+    output held to the plain version's gates, and both timed in turn
+    (plan, other, other, plan; ``ms_by_cl``). Returns the record and, for
+    the tile line only, the weight bytes a launch reads from L2 at each
+    timed CL as this design reckons them (once per cluster; no counter
+    reads them)."""
+    T, C, Fn, mega = case.block
+    plan = cuda_lib.block_plan(C, Fn, mega)
+    grid = cuda_lib.block_grid(plan, T)
+    wbytes = (20 + 2 * mega) * C * C * 2
+    rate = case.op_ms / ms * PEAK_BF16 / 1e12
+    rec = {"shape": case.desc, **plan._asdict(), "grid": grid, "clusters_at_once": cuda_lib.block_clusters(plan, mega),
+           "tflops": rate, "share_of_989": rate * 1e12 / PEAK_BF16, "ms_by_cl": {plan.cl: ms}, "other_cl_ok": True}
+    if Fn <= plan.tm:
+        other = plan._replace(cl=2 if plan.cl == 1 else 1)
+        err, tol, rel, tol_l2, ok = _check(case, case.run_at(other), ref)
+        times = {plan.cl: [], other.cl: []}
+        for p in (plan, other, other, plan):
+            times[p.cl].append(_time_ms(lambda: case.run_at(p), 10))
+        rec.update(ms_by_cl={cl: sum(v) / len(v) for cl, v in sorted(times.items())}, other_cl_ok=ok,
+                   other_cl_max_abs_err=err, other_cl_rel_l2=rel,
+                   other_cl_clusters_at_once=cuda_lib.block_clusters(other, mega))
+    reckoned = {cl: wbytes * cuda_lib.block_grid(plan._replace(cl=cl), T) // cl / 1e9 for cl in rec["ms_by_cl"]}
+    return rec, reckoned
+
+
+def _block_line(r, reckoned):
+    by_cl = "; ".join(f"CL {cl} {ms:.3f} ms" for cl, ms in r["ms_by_cl"].items())
+    other = (f" (CL {'2' if r['cl'] == 1 else '1'}: max_abs_err {r['other_cl_max_abs_err']:.5f} rel_l2 "
+             f"{r['other_cl_rel_l2']:.5f} {'ok' if r['other_cl_ok'] else 'FAIL'}, "
+             f"{r['other_cl_clusters_at_once']} clusters at once)" if "other_cl_rel_l2" in r else
+             " (CL fixed by a row over F / TM blocks)")
+    return (f"plan TM {r['tm']} CL {r['cl']} stages {r['stages']} heads/group {r['hg']} hidden chunk {r['hc']} "
+            f"smem {r['smem']} B; grid {r['grid']} blocks, {r['clusters_at_once']} clusters at once "
+            f"(cudaOccupancyMaxActiveClusters); {r['tflops']:.1f} TFLOP/s ({100 * r['share_of_989']:.1f}% of 989); "
+            f"timed: {by_cl}{other}; L2 weight bytes a launch, reckoned, not measured: "
+            + ", ".join(f"CL {cl} {gb:.2f} GB" for cl, gb in reckoned.items()))
 
 
 def _gemm_case(key, rn):

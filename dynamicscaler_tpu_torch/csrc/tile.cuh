@@ -1,6 +1,7 @@
-// Device routines shared by the whole-block kernels (block.cu: kernels 10
-// and 12) and the whole-transformer kernels (mega.cu: kernels 11 and 13): an
-// 8-warp block keeps a tile of TM tokens in shared memory and runs every
+// Device routines of the whole-spatial kernels (mega.cu: kernels 11 and
+// 13, and only those: kernels 10 and 12 in block.cu run on hopper.cuh's TMA
+// and wgmma, and this header goes when kernels 11 and 13 follow them):
+// an 8-warp block keeps a tile of TM tokens in shared memory and runs every
 // projection of the block on it as a sequence of column chunks.
 //
 // gemm_cols: Y[TM, n] = A[TM, K] @ W[n, K]^T in column chunks of 128 (TM =

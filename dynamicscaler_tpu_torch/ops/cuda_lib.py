@@ -13,13 +13,16 @@ kernel-vs-plain comparisons of ``chip_smoke.py``). :func:`ln_gemm` binds
 the GEMM that every op's projections run on (K1-K4 and the transformer
 wrapper head and tail); :class:`PackCache` keeps a module's kernel operands
 packed between calls; the whole-block and whole-transformer kernels (10-13)
-take their operands as one array of pointers (:func:`ptr_array`).
+take their operands as one array of pointers (:func:`ptr_array`), and
+kernels 10 and 12 also their tile plan (:func:`block_plan`) and the TMA
+maps of their weights (:func:`block_maps`, encoded once per weight set).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -47,8 +50,10 @@ _SIGNATURES = {
     "ds_gn_stats": (_P, _I, _I, _L, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P),
     "ds_temporal_attention": (_P, _I, _I, _I, _I, _F, _P, _P),
     "ds_flash_attention": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _P, _I, _P),
-    "ds_temporal_block": (_P, _I, _I, _I, _F, _F, _P),
-    "ds_temporal_mega": (_P, _I, _I, _I, _I, _F, _F, _P),
+    "ds_temporal_block": (_P, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _P),
+    "ds_temporal_mega": (_P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _P),
+    "ds_block_maps": (_P, _I, _I, _I, _P, _P),
+    "ds_block_clusters": (_I, _I, _I, _I, _P, _P),
     "ds_mega_spatial": (_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     "ds_spatial_block": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
@@ -256,6 +261,107 @@ def gemm_tile(M: int, K: int, N: int, mode: int = MODE_STORE) -> GemmTile:
     fit = max(s for s in range(2, GEMM_MAX_STAGES + 1) if gemm_smem(bn, s) <= GEMM_SMEM_MAX)
     stages = max(2, min(fit, -(-K // GEMM_BK)))
     return GemmTile(bn, stages, gemm_smem(bn, stages))
+
+
+# ds_temporal_block / ds_temporal_mega's tile (csrc/block.cu): TM resident
+# tokens a block, weight tiles of 128 rows x 64 k (16 KB) through a ring of
+# `stages`, multicast to a thread-block cluster of CL blocks (each block
+# alone on its weights at CL 1); the q|k|v projection hg heads at a time,
+# the GEGLU hidden hc columns at a time.
+BLOCK_TILE_BYTES = 128 * 64 * 2
+BLOCK_LDQ = 72  # bf16 pitch of a q, k or v row
+BLOCK_MAX_STAGES = 6
+# the ring depth bought first, before wider head groups: at TM 16 a weight
+# tile is little work, so the ring must hold more of them to hide its refill
+BLOCK_MIN_STAGES = {16: 6, 32: 4, 64: 4}
+# blocks a cluster shares each weight tile with, by width, where a row lies
+# in one block: 2 where chip_smoke.py's tile lines timed the multicast
+# faster than each block alone on its weights (C 512), else 1 (PERF.md)
+BLOCK_CL_BY_WIDTH = {512: 2}
+BLOCK_UNITS = 8  # 16-query attention units a head group fills: one per consumer warp
+
+
+class BlockPlan(NamedTuple):
+    tm: int      # tokens a block
+    cl: int      # blocks a cluster
+    stages: int  # ring tiles
+    hg: int      # heads a q|k|v projection
+    hc: int      # GEGLU hidden columns a chunk
+    smem: int    # dynamic shared memory bytes, the 1024-byte alignment pad included
+
+
+def block_smem(tm: int, C: int, F: int, stages: int, hg: int, hc: int) -> int:
+    """Shared memory of a ``ds_temporal_block`` / ``ds_temporal_mega``
+    block, as ``csrc/block.cu::layout`` reckons it: the ring, the residual
+    stream, the LN output and the attention output ([tm, C] bf16 each), hg
+    heads of q|k|v ([tm, 72] bf16 each) and, where a row spans blocks (F >
+    tm), the row's keys and values ([2, F, 72]); the GEGLU chunk [tm, hc]
+    over the attention's area; 2 x stages + 2 mbarriers; the alignment pad."""
+    tile = tm * C * 2
+    attn = tile + hg * 3 * tm * BLOCK_LDQ * 2 + (2 * F * BLOCK_LDQ * 2 if F > tm else 0)
+    return 1024 + stages * BLOCK_TILE_BYTES + 2 * tile + max(attn, tm * hc * 2) + (2 * stages + 2) * 8
+
+
+@functools.lru_cache(maxsize=None)
+def block_plan(C: int, F: int, mega: bool = False) -> BlockPlan:
+    """The tile of kernels 10 (``mega`` False) and 12 at width C and F
+    frames: TM by width (64 at C <= 320, 32 at C <= 640, else 16: what the
+    three [TM, C] tiles and a 4-deep ring leave room for); CL from
+    :data:`BLOCK_CL_BY_WIDTH`, or F / TM where a row spans more blocks (a
+    cluster holds whole rows; larger clusters measured slower, PERF.md); hc
+    the widest multiple of 128 that divides 4C and is at most C (the chunk
+    fits in the attention's area); then the widest head group (at most
+    :data:`BLOCK_UNITS` units of 16 queries; one head where a row spans
+    blocks) beside :data:`BLOCK_MIN_STAGES` ring stages (fewer only where
+    one head does not fit beside them), and as many stages as the rest
+    holds. Kernel 12 takes C <= 640 only."""
+    if mega and C > 640:
+        raise ValueError(f"block_plan: kernel 12 takes C <= 640, got {C}")
+    tm = 64 if C <= 320 else 32 if C <= 640 else 16
+    rb = F // tm if F > tm else 1
+    cl = max(rb, BLOCK_CL_BY_WIDTH.get(C, 1))
+    hc = max([h for h in range(128, C + 1, 128) if (4 * C) % h == 0], default=128)
+    heads = C // 64
+    hg_max = 1 if rb > 1 else max(1, min(heads, BLOCK_UNITS * 16 // tm))
+    for need in range(BLOCK_MIN_STAGES[tm], 1, -1):
+        hg = next((h for h in range(hg_max, 0, -1) if block_smem(tm, C, F, need, h, hc) <= GEMM_SMEM_MAX), None)
+        if hg is not None:
+            break
+    else:
+        raise ValueError(f"block_plan: no tile fits C={C} F={F}")
+    stages = max(s for s in range(need, BLOCK_MAX_STAGES + 1) if block_smem(tm, C, F, s, hg, hc) <= GEMM_SMEM_MAX)
+    return BlockPlan(tm, cl, stages, hg, hc, block_smem(tm, C, F, stages, hg, hc))
+
+
+def block_grid(plan: BlockPlan, tokens: int) -> int:
+    """Blocks of a ``ds_temporal_block`` / ``ds_temporal_mega`` launch over
+    ``tokens`` F-frame tokens, as ``csrc/block.cu::launch`` sizes the grid:
+    ceil(tokens / TM) rounded up to whole clusters."""
+    tiles = -(-tokens // plan.tm)
+    return -(-tiles // plan.cl) * plan.cl
+
+
+def block_maps(cache: dict, weights, C: int, cl: int):
+    """The TMA maps of a block's weights (``ds_block_maps``: wqkv1, wo1,
+    wqkv2, wo2, w1, w2[, w_in, w_out]) for clusters of ``cl``, encoded at
+    the first call and kept in ``cache`` by cluster size: the ``maps`` dict
+    of the packed operands that hold these weights, so a map lives exactly
+    as long as the addresses it names. Returns a pointer for
+    ``ds_temporal_block`` / ``ds_temporal_mega``."""
+    buf = cache.get(cl)
+    if buf is None:
+        buf = ctypes.create_string_buffer(128 * len(weights))
+        call("ds_block_maps", ptr_array(weights), len(weights), C, cl, ctypes.cast(buf, ctypes.c_void_p))
+        cache[cl] = buf
+    return ctypes.cast(buf, ctypes.c_void_p)
+
+
+def block_clusters(plan: BlockPlan, mega: bool = False) -> int:
+    """How many clusters of ``plan`` the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    n = ctypes.c_int(0)
+    call("ds_block_clusters", int(mega), plan.tm, plan.cl, plan.smem, ctypes.byref(n))
+    return n.value
 
 
 def _frame_rows(M: int, F: int, HW: int) -> torch.Tensor:

@@ -14,8 +14,10 @@ Counterparts of ``dynamicscaler_tpu/ops/fused_block.py``:
 
 Weights are in torch ``Linear`` layout ``[out, in]``. On the card kernel 10
 runs as ``csrc/block.cu::ds_temporal_block`` (one launch; TM tokens of
-F-frame rows resident in shared memory through all three sub-blocks, a
-row of more than TM frames spread over a thread-block cluster) and
+F-frame rows resident in shared memory through all three sub-blocks, the
+weights streamed by TMA once per thread-block cluster into wgmma products,
+a row of more than TM frames spread over the cluster; its tile plan from
+``cuda_lib.block_plan``, its weights' TMA maps from ``cuda_lib.block_maps``) and
 kernel 11 as ``csrc/mega.cu::ds_spatial_block`` (kernel 13's head and body
 without the GroupNorm apply, proj_in and proj_out, after the context K/V
 projection with ``csrc/gemm.cu``); see the notes there for what bounds each.
@@ -63,6 +65,7 @@ class BlockOperands(NamedTuple):
     attn1: AttnOperands
     attn2: AttnOperands
     ff: FFOperands
+    maps: dict = None  # kernel 10: its weights' TMA maps by cluster size (cuda_lib.block_maps), kept with them
 
 
 def temporal_block_ok(frames: int, inner: int, dim: int, heads: int) -> bool:
@@ -101,7 +104,7 @@ def pack_temporal_block(lns, attn1, attn2, ff, *, dtype) -> BlockOperands:
     s1, b1, s2, b2, s3, b3 = lns
     return BlockOperands(_rows_by_head(pack_ln_attention(s1, b1, *attn1, dtype=dtype)),
                          _rows_by_head(pack_ln_attention(s2, b2, *attn2, dtype=dtype)),
-                         pack_ln_geglu(s3, b3, *ff, dtype=dtype))
+                         pack_ln_geglu(s3, b3, *ff, dtype=dtype), {})
 
 
 def temporal_block_plain(x, lns, attn1, attn2, ff, *, heads, scale, eps=1e-5):
@@ -133,17 +136,26 @@ def _check_ff(f: FFOperands, C: int) -> None:
 
 def block_pointers(op: BlockOperands) -> list:
     """The block operands in ``ds_temporal_block``'s pointer order (after x, out)."""
-    a1, a2, f = op
+    a1, a2, f = op.attn1, op.attn2, op.ff
     return [a1.ln_scale, a1.ln_bias, a1.w_in, a1.wo, a1.bo,
             a2.ln_scale, a2.ln_bias, a2.w_in, a2.wo, a2.bo,
             f.ln_scale, f.ln_bias, f.w1, f.b1, f.w2, f.b2]
 
 
-def fused_temporal_block(x, lns, attn1, attn2, ff, *, heads, scale, eps=1e-5, operands=None):
+def block_weights(op: BlockOperands) -> list:
+    """The weights whose TMA maps ``ds_temporal_block`` reads, in
+    ``ds_block_maps``' order: wqkv1, wo1, wqkv2, wo2, w1, w2."""
+    a1, a2, f = op.attn1, op.attn2, op.ff
+    return [a1.w_in, a1.wo, a2.w_in, a2.wo, f.w1, f.w2]
+
+
+def fused_temporal_block(x, lns, attn1, attn2, ff, *, heads, scale, eps=1e-5, operands=None, plan=None):
     """Kernel 10: the whole temporal BasicTransformerBlock. x [rows, F, C];
     returns [rows, F, C]. On the card one launch of ``ds_temporal_block``
-    (head dim 64, C <= 1280), reading ``operands`` (from
-    :func:`pack_temporal_block`; packed here when None)."""
+    (head dim 64, C <= 1280) at the tile ``plan`` (``cuda_lib.block_plan``'s
+    when None; the kernel refuses one it cannot take), reading ``operands``
+    (from :func:`pack_temporal_block`; packed here when None) and their TMA
+    maps."""
     if not cuda_lib.use_kernel(x):
         return temporal_block_plain(x, lns, attn1, attn2, ff, heads=heads, scale=scale, eps=eps)
     R, Fn, C = x.shape
@@ -153,8 +165,10 @@ def fused_temporal_block(x, lns, attn1, attn2, ff, *, heads, scale, eps=1e-5, op
     op = operands or pack_temporal_block(lns, attn1, attn2, ff, dtype=x.dtype)
     check_block_operands(op, C)
     out = torch.empty_like(x)
+    plan = plan or cuda_lib.block_plan(C, Fn)
+    maps = cuda_lib.block_maps(op.maps, block_weights(op), C, plan.cl)
     cuda_lib.call("ds_temporal_block", cuda_lib.ptr_array([x, out, *block_pointers(op)]), R, Fn, C, float(scale),
-                  float(eps))
+                  float(eps), maps, *plan)
     fused_temporal_block.launches += 1
     return out
 
@@ -221,7 +235,7 @@ def spatial_launch(x3, ctx, op: BlockOperands, wrapper, *, heads, scale, text_le
     out = torch.empty_like(x3)
     mul, add, w_in, b_in, w_out, b_out = wrapper or (None,) * 6
     h = torch.empty((BF * N, Ci), device=x3.device, dtype=dt) if wrapper else None
-    a1, a2, f = op
+    a1, a2, f = op.attn1, op.attn2, op.ff
     ptrs = cuda_lib.ptr_array([
         x3, mul, add, w_in, b_in,
         a1.ln_scale, a1.ln_bias, a1.w_in, a1.wo, a1.bo,

@@ -25,7 +25,7 @@ launch counters ``.launches``): they take the folded GroupNorm vectors
 ``spatial_transformer`` compute with the statistics pass
 ``fused_twrap.group_norm_fold`` (the JAX package leaves it to XLA outside
 the kernels; on the card it is ``csrc/gn_silu.cu::ds_gn_stats``). On the card kernel 12 runs as
-``csrc/block.cu::ds_temporal_mega`` (one launch) and kernel 13 as the
+``csrc/block.cu::ds_temporal_mega`` (one launch, kernel 10's design) and kernel 13 as the
 context K/V projection and ``csrc/mega.cu::ds_mega_spatial`` (two
 launches); see the notes there. The plain versions are the plain versions
 of kernels 5, 10 and 6, and of 7, 2, 3, 4 and 8, in sequence, which hold the
@@ -47,6 +47,7 @@ from dynamicscaler_tpu_torch.ops.fused_block import (
     BlockOperands,
     refuse_unless,
     block_pointers,
+    block_weights,
     check_block_operands,
     check_spatial_operands,
     pack_spatial_block,
@@ -76,6 +77,7 @@ class MegaOperands(NamedTuple):
     block: BlockOperands
     w_out: torch.Tensor
     b_out: torch.Tensor
+    maps: dict = None  # kernel 12: its eight weights' TMA maps by cluster size, kept with them
 
 
 def _check_wrapper(op: MegaOperands, C: int, Ci: int) -> None:
@@ -104,7 +106,7 @@ def temporal_ok(frames: int, C: int, inner: int, heads: int) -> bool:
 
 def pack_temporal_mega(w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, *, dtype) -> MegaOperands:
     wi, bi, wo, bo = pack_wrapper(w_in, b_in, w_out, b_out, dtype=dtype)
-    return MegaOperands(wi, bi, pack_temporal_block(lns, attn1, attn2, ff, dtype=dtype), wo, bo)
+    return MegaOperands(wi, bi, pack_temporal_block(lns, attn1, attn2, ff, dtype=dtype), wo, bo, {})
 
 
 def temporal_mega_plain(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, *, heads, scale,
@@ -118,11 +120,13 @@ def temporal_mega_plain(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, 
 
 
 def temporal_mega(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, *, heads, scale, eps=1e-5,
-                  operands=None):
+                  operands=None, plan=None):
     """Kernel 12 with the folded GroupNorm vectors ``(mul, add)`` [B, C]:
     [B, F, H, W, C] -> [B, F, H, W, C]. On the card one launch of
-    ``ds_temporal_mega`` (head dim 64, inner == C <= 640), reading
-    ``operands`` (from :func:`pack_temporal_mega`; packed here when None)."""
+    ``ds_temporal_mega`` (head dim 64, inner == C <= 640) at the tile
+    ``plan`` (``cuda_lib.block_plan``'s when None), reading ``operands``
+    (from :func:`pack_temporal_mega`; packed here when None) and their TMA
+    maps."""
     if not cuda_lib.use_kernel(x5):
         return temporal_mega_plain(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, heads=heads,
                                    scale=scale, eps=eps)
@@ -136,7 +140,10 @@ def temporal_mega(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out,
     _check_gn(mul, add, B, C)
     out = torch.empty_like(x5)
     ptrs = [x5, out, *block_pointers(op.block), mul, add, op.w_in, op.b_in, op.w_out, op.b_out]
-    cuda_lib.call("ds_temporal_mega", cuda_lib.ptr_array(ptrs), B, Fn, H * W, C, float(scale), float(eps))
+    plan = plan or cuda_lib.block_plan(C, Fn, mega=True)
+    maps = cuda_lib.block_maps(op.maps, [*block_weights(op.block), op.w_in, op.w_out], C, plan.cl)
+    cuda_lib.call("ds_temporal_mega", cuda_lib.ptr_array(ptrs), B, Fn, H * W, C, float(scale), float(eps), maps,
+                  *plan)
     temporal_mega.launches += 1
     return out
 

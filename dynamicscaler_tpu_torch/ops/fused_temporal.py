@@ -57,21 +57,22 @@ from dynamicscaler_tpu_torch.ops.cuda_lib import MODE_GEGLU, MODE_RESIDUAL, act,
 # The table is the fastest level at each shape of the batch-8 i2v UNet
 # forward in one recorded run of chip_smoke.py (phase 3, module ms per
 # forward with the GroupNorm fold, NVIDIA H100 80GB HBM3 at 700 W; the run
-# is in PERF.md). With the sub-block GEMMs on wgmma (csrc/gemm.cu) the
-# sub-block level is the fastest at every shape:
-#   t320 : wrap+sub 45.06 (wrap+blk 78.97, mega 85.53)
-#   t512 : wrap+sub 13.75 (wrap+blk 37.67; init_attn, no mega: inner != C)
-#   t640 : wrap+sub 26.34 (wrap+blk 132.14, mega 155.98)
-#   t1280: wrap+sub 19.92 (wrap+blk 299.15; no mega: inner > 640)
-#   s320 : wrap+sub 142.07 (wrap+blk 153.79, mega 163.69)
-#   s640 : wrap+sub 38.52 (wrap+blk 145.63, mega 162.08)
-#   s1280: wrap+sub 22.78 (the only legal level)
-# The whole-block and whole-transformer kernels (10-13) run where a plan
-# override or "off" asks for them.
+# is in PERF.md). With the sub-block GEMMs on wgmma (csrc/gemm.cu) and
+# kernels 10 and 12 on TMA and wgmma (csrc/block.cu), the whole temporal
+# transformer (kernel 12) is the fastest at t320 and the sub-blocks
+# everywhere else:
+#   t320 : mega 35.38 (wrap+blk 35.75, wrap+sub 37.94)
+#   t512 : wrap+sub 11.70 (wrap+blk 15.63; init_attn, no mega: inner != C)
+#   t640 : wrap+sub 22.63 (wrap+blk 36.33, mega 42.22)
+#   t1280: wrap+sub 17.81 (wrap+blk 52.85; no mega: inner > 640)
+#   s320 : wrap+sub 45.59 (wrap+blk 151.27, mega 160.10)
+#   s640 : wrap+sub 22.48 (wrap+blk 144.30, mega 161.05)
+#   s1280: wrap+sub 18.92 (the only legal level)
+# Kernels 10, 11 and 13 run where a plan override or "off" asks for them.
 # ---------------------------------------------------------------------------
 
 PLAN_DEFAULT = {
-    ("t", 320): "wrap+sub",
+    ("t", 320): "mega",
     ("t", 512): "wrap+sub",
     ("t", 640): "wrap+sub",
     ("t", 1280): "wrap+sub",

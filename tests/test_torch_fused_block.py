@@ -17,6 +17,7 @@ JAX UNet (XLA path) with the tolerance of tests/test_torch_unet.py. Kernels
 """
 
 import collections
+import types
 
 import numpy as np
 import pytest
@@ -28,7 +29,7 @@ import jax.numpy as jnp
 from dynamicscaler_tpu.ops import fused_block as jblock
 from dynamicscaler_tpu.ops import fused_mega as jmega
 from dynamicscaler_tpu.ops import fused_temporal as jtemporal
-from dynamicscaler_tpu_torch.ops import fused_block, fused_mega, fused_temporal
+from dynamicscaler_tpu_torch.ops import cuda_lib, fused_block, fused_mega, fused_temporal
 from torch_port_helpers import tiny_unet_twins
 
 
@@ -119,6 +120,108 @@ def test_temporal_block_matches_pallas_at_other_frame_counts(rng, interpret, R, 
     _close(got, ref)
 
 
+FRAMES = [2, 4, 8, 16, 32, 64, 128]  # every F with 2 <= F <= 128 that divides 128
+
+
+@pytest.mark.parametrize("mega,C,Fn", [(False, C, Fn) for C in (320, 512, 640, 1280) for Fn in FRAMES]
+                         + [(True, C, Fn) for C in (320, 512, 640) for Fn in FRAMES])
+def test_block_plan_fits_the_card(mega, C, Fn):
+    """The tile plan of kernels 10 and 12 (``cuda_lib.block_plan``) at every
+    UNet width and frame count the gates admit: its shared memory is
+    csrc/block.cu's reckoning and fits the H100's 232,448 bytes; the
+    cluster is portable (at most 8 blocks); a cluster holds whole F-frame
+    rows, and is no larger than that where the multicast did not time
+    faster (every width but 512); the padded grid
+    is whole clusters; and the ring, the head group, the hidden chunk and
+    the token tile are what the kernel takes (csrc/block.cu::plan_ok)."""
+    p = cuda_lib.block_plan(C, Fn, mega)
+    assert p.smem == cuda_lib.block_smem(p.tm, C, Fn, p.stages, p.hg, p.hc) <= 232448
+    assert p.cl in (1, 2, 4, 8)
+    assert (p.cl * p.tm) % Fn == 0  # every row lies in one cluster
+    assert p.cl == max(-(-Fn // p.tm), 2 if C == 512 else 1)
+    if Fn > p.tm:
+        assert p.cl % (Fn // p.tm) == 0 and p.hg == 1
+    for rows in (1, 3, 37, 1280):
+        grid = cuda_lib.block_grid(p, rows * Fn)
+        assert grid % p.cl == 0 and grid * p.tm >= rows * Fn > (grid - p.cl) * p.tm
+    assert p.tm == (64 if C <= 320 else 32 if C <= 640 else 16) and not (mega and p.tm == 16)
+    assert C <= 128 * {64: 3, 32: 5, 16: 10}[p.tm]  # the second product's tiles held in registers
+    assert 2 <= p.stages <= cuda_lib.BLOCK_MAX_STAGES and 1 <= p.hg <= C // 64
+    assert p.hc % 128 == 0 and (4 * C) % p.hc == 0 and p.hc <= max(C, 128)
+
+
+def _block_operands(C, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(0)
+    vec = lambda n: torch.randn(n, generator=g)  # noqa: E731
+    w = lambda o, i: torch.randn(o, i, generator=g)  # noqa: E731
+    lns = tuple(vec(C) for _ in range(6))
+    attn = lambda: (w(C, C), w(C, C), w(C, C), w(C, C), vec(C))  # noqa: E731
+    a1, a2, ff = attn(), attn(), (w(8 * C, C), vec(8 * C), w(C, 4 * C), vec(C))
+    return lns, a1, a2, ff
+
+
+def test_block_wrappers_hand_their_kernels_the_plan(monkeypatch):
+    """The card-side host code of kernels 10 and 12, run on CPU tensors with
+    the launch replaced by a recorder: each wrapper encodes its weights'
+    TMA maps once (six for kernel 10, eight with w_in and w_out for kernel
+    12, at the plan's cluster size) and keeps them with the packed
+    operands, hands ``ds_temporal_block`` / ``ds_temporal_mega`` the maps
+    and ``block_plan``'s tile, and counts one launch; a second call reuses
+    the maps. Where the kernel returns an error the wrapper raises and
+    counts nothing."""
+    calls = []
+    monkeypatch.setattr(cuda_lib, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(cuda_lib, "check_operand", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_lib, "call", lambda name, *args: calls.append((name, args)))
+    for fn in (fused_block.fused_temporal_block, fused_mega.temporal_mega):
+        monkeypatch.setattr(fn, "launches", 0)
+    bf, C, Fn = torch.bfloat16, 128, 16
+    lns, a1, a2, ff = _block_operands(C)
+    op = fused_block.pack_temporal_block(lns, a1, a2, ff, dtype=bf)
+    x = torch.zeros(5, Fn, C, dtype=bf)
+    for _ in range(2):
+        out = fused_block.fused_temporal_block(x, lns, a1, a2, ff, heads=2, scale=0.125, operands=op)
+        assert out.shape == x.shape
+    plan = cuda_lib.block_plan(C, Fn)
+    assert [c[0] for c in calls] == ["ds_block_maps", "ds_temporal_block", "ds_temporal_block"]
+    maps_args, args = calls[0][1], calls[1][1]
+    assert maps_args[1:4] == (6, C, plan.cl)
+    assert args[1:6] == (5, Fn, C, 0.125, 1e-5) and tuple(args[7:]) == tuple(plan)
+    assert args[6].value == maps_args[4].value and fused_block.fused_temporal_block.launches == 2
+    assert list(op.maps) == [plan.cl]
+
+    calls.clear()
+    w_in, b_in, w_out, b_out = torch.randn(C, C), torch.randn(C), torch.randn(C, C), torch.randn(C)
+    mop = fused_mega.pack_temporal_mega(w_in, b_in, lns, a1, a2, ff, w_out, b_out, dtype=bf)
+    x5 = torch.zeros(2, 8, 3, 5, C, dtype=bf)
+    mul, add = torch.ones(2, C), torch.zeros(2, C)
+    out = fused_mega.temporal_mega(x5, mul, add, w_in, b_in, lns, a1, a2, ff, w_out, b_out, heads=2, scale=0.125,
+                                   operands=mop)
+    plan = cuda_lib.block_plan(C, 8, mega=True)
+    assert out.shape == x5.shape and [c[0] for c in calls] == ["ds_block_maps", "ds_temporal_mega"]
+    maps_args, args = calls[0][1], calls[1][1]
+    assert maps_args[1:4] == (8, C, plan.cl)
+    assert args[1:7] == (2, 8, 15, C, 0.125, 1e-5) and tuple(args[8:]) == tuple(plan)
+    assert fused_mega.temporal_mega.launches == 1 and list(mop.maps) == [plan.cl]
+
+    # a non-zero return of the kernel reaches the wrapper, which raises
+    monkeypatch.undo()
+    monkeypatch.setattr(cuda_lib, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(cuda_lib, "check_operand", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    failing = types.SimpleNamespace(ds_block_maps=lambda *a: 0, ds_temporal_block=lambda *a: 700,
+                                    ds_temporal_mega=lambda *a: 719)
+    monkeypatch.setattr(cuda_lib, "library", lambda: failing)
+    for fn in (fused_block.fused_temporal_block, fused_mega.temporal_mega):
+        monkeypatch.setattr(fn, "launches", 0)
+    with pytest.raises(RuntimeError, match="ds_temporal_block launch failed: CUDA error 700"):
+        fused_block.fused_temporal_block(x, lns, a1, a2, ff, heads=2, scale=0.125, operands=op)
+    with pytest.raises(RuntimeError, match="ds_temporal_mega launch failed: CUDA error 719"):
+        fused_mega.temporal_mega(x5, mul, add, w_in, b_in, lns, a1, a2, ff, w_out, b_out, heads=2, scale=0.125,
+                                 operands=mop)
+    assert fused_block.fused_temporal_block.launches == 0 and fused_mega.temporal_mega.launches == 0
+
+
 @pytest.mark.parametrize("img,C,heads", [(False, 64, 1), (True, 128, 2)])
 def test_spatial_mega_matches_pallas(rng, interpret, img, C, heads):
     """Kernel 13's plain version: the whole SpatialTransformer over N = 256
@@ -146,11 +249,13 @@ def test_spatial_mega_matches_pallas(rng, interpret, img, C, heads):
 
 
 def test_plan_table_and_overrides(restore_plan):
-    """The table filled from the H100 level timings (PERF.md): the
-    sub-blocks at every width; and the dict overrides on top of it."""
+    """The table filled from the H100 level timings (PERF.md): the whole
+    temporal transformer (kernel 12) at t320, the sub-blocks at every other
+    width; and the dict overrides on top of it."""
     keys = [(side, c) for side in "ts" for c in (320, 640, 1280)] + [("t", 512)]
-    assert fused_temporal.PLAN_DEFAULT == dict.fromkeys(keys, "wrap+sub")
-    for side, c in keys + [("t", 64), ("s", 32)]:
+    assert fused_temporal.PLAN_DEFAULT == {**dict.fromkeys(keys, "wrap+sub"), ("t", 320): "mega"}
+    assert fused_temporal.plan_allows("mega", "t", 320) and fused_temporal.plan_allows("block", "t", 320)
+    for side, c in [k for k in keys if k != ("t", 320)] + [("t", 64), ("s", 32)]:
         assert not fused_temporal.plan_allows("block", side, c) and not fused_temporal.plan_allows("mega", side, c)
     fused_temporal.set_plan({("t", 64): "wrap+blk", ("s", 32): "mega", ("s", 320): "wrap+blk"})
     assert fused_temporal.plan_allows("block", "t", 64) and fused_temporal.plan_allows("mega", "s", 32)
