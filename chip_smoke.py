@@ -30,8 +30,10 @@ Phases, in order, one result line each (any failure exits non-zero):
    (FA, ``ds_flash_attention``, against one SDPA call a key segment), and
    the GroupNorm statistics (GN, ``ds_gn_stats``, whose vectors K5, K7, K9,
    K12 and K13 read; against the plain fold and bit for bit against a second
-   run, beside ``torch.var_mean``); and at the clip geometries that only the
-   repair made legal and no forward gives (:func:`_repair_cases`). Per
+   run, beside ``torch.var_mean``); and at the shapes no forward of phase 2
+   gives (:func:`_repair_cases`: clip geometries of the earlier repairs, and
+   K11 and K13 at the 40x40 latent's levels, t2v, 8 frames a clip and N 256
+   and 4096). Per
    shape: max abs error against the stated tolerance, L2 error, and the
    kernel, plain and library-composite times (CUDA events) beside the bound
    (the least time the H100 could take for the kernel's work); the
@@ -40,7 +42,9 @@ Phases, in order, one result line each (any failure exits non-zero):
    chunk, shared memory), the clusters of it the card holds at once
    (``cudaOccupancyMaxActiveClusters``), their TFLOP/s and share of 989,
    and the weight bytes a launch reads from L2, once per cluster, against
-   once per block (the design before clusters). Then the GEMM
+   once per block (the design before clusters); K11 and K13 with their tile
+   plan (TM, ring stages, hidden chunk, shared memory), grid, TFLOP/s and
+   share of 989. Then the GEMM
    table: every distinct ``ds_ln_gemm`` call of the batch-8 i2v forward
    (M, K, N, prologue, epilogue mode, row map, calls per forward) against
    ``cuda_lib.ln_gemm_plain`` under the same gates, with its time, TFLOP/s
@@ -583,7 +587,7 @@ def _profile_forward(where, fwd, wall_ms):
                else "ds_flash_attn (K2, K3)" if "flash_attn_kernel" in n
                else "ds_temporal_attn (K1)" if "temporal_attn_kernel" in n
                else "ds_temporal_block / ds_temporal_mega (K10, K12)" if "temporal_block_tma_kernel" in n
-               else "ds_mega (K11, K13)" if "mega_head_kernel" in n or "mega_body_kernel" in n
+               else "ds_spatial_block / ds_mega_spatial body (K11, K13)" if "spatial_body_kernel" in n
                else "conv (cuDNN)" if any(s in n for s in ("conv", "cudnn", "fprop", "implicit"))
                else "gemm (cuBLAS: time emb)" if any(s in n for s in ("gemm", "cutlass"))
                else "elementwise/reduce (casts, cat)")
@@ -613,6 +617,7 @@ class Case:
     lib_comparable = True  # the library call computes the same output (the GroupNorm statistics' does not)
     block = None  # K10, K12: (tokens, C, F, mega) for the tile plan line
     run_at = None  # K10, K12: run(plan), the kernel at another tile plan
+    spatial = None  # K11, K13: (samples, N, C) for the tile plan line
 
     def __init__(self, k, desc, run, plain, library, inputs, *, base=None, fold=None, flops=0.0, ops=0.0):
         self.k, self.desc = k, desc
@@ -723,8 +728,10 @@ def _case(k, pos, opts, rn):
                  + 24 * T * Ci * Ci + (4 * T * C * Ci if k == "K13" else 0))  # feed-forward, proj_in/out
         lib = (_lib_spatial_transformer(x, a[1], gn, rest, opts["heads"], opts["scale"], text_len) if k == "K13"
                else _lib_spatial_block(x, a[1], rest[2:6], opts["heads"], opts["scale"], text_len))
-        return Case(k, f"x{list(x.shape)} ctx{list(a[1].shape)} {'i2v' if img else 't2v'}", run, plain, lib,
+        case = Case(k, f"x{list(x.shape)} ctx{list(a[1].shape)} {'i2v' if img else 't2v'}", run, plain, lib,
                     base=x, flops=flops, **common)
+        case.spatial = (BFn, N, C)
+        return case
     if k in ("K1", "K2"):
         B, N, _ = x.shape
         return Case(k, f"x{list(x.shape)}", run, plain, _lib_self_attention(a, opts["heads"], opts["scale"]),
@@ -1012,13 +1019,31 @@ def _block_desc(C):
 REPAIR = "repair shapes"
 
 
+def _spatial_desc(C, img, Dc=1024):
+    """The descriptions of a spatial block's (lns, attn1, attn2, ff); attn2
+    with image keys (i2v) or without (t2v)."""
+    vec, w = _d(C), _d(C, C)
+    attn2 = (w, _d(C, Dc), _d(C, Dc), w, vec) + ((_d(C, Dc), _d(C, Dc)) if img else ())
+    return (vec,) * 6, (w, w, w, w, vec), attn2, (_d(8 * C, C), _d(8 * C), _d(C, 4 * C), vec)
+
+
+# kernels 11 and 13 at shapes no batch-8 override forward gives them (the
+# batch-2 forwards run the default plan): (clips, frames, H, W, C, image
+# keys): the 40x40 latent's two levels (N 1600 and 400: a ragged last query
+# tile), t2v (77 text keys, no image keys), 8 frames a clip (the per-clip
+# context index), and the gate's ends N 256 and 4096
+SPATIAL_REPAIRS = ((2, 16, 40, 40, 320, True), (2, 16, 20, 20, 640, True), (2, 16, 40, 64, 320, False),
+                   (2, 8, 40, 64, 320, True), (2, 16, 16, 16, 320, True), (2, 16, 64, 64, 320, True))
+
+
 def _repair_cases():
     """Calls, as phase 2 records them, of the clip geometries the repaired
     kernels take and no phase-2 forward gives (the 40x40 and the 8-frame
     forwards give kernel 5 at H*W 100 and 25, K1 at 8 frames): kernel 5 at
     a 384x384 window's deepest level (H*W 36), K1 at 32 frames, kernel 10 at
     8, 32 and 128 frames (a row over a cluster of 2 and of 8 blocks at C
-    1280), kernel 12 at 8 and 32 frames."""
+    1280), kernel 12 at 8 and 32 frames; kernels 11 and 13 at
+    :data:`SPATIAL_REPAIRS`."""
     f32 = torch.float32
 
     def opts(C):
@@ -1031,6 +1056,12 @@ def _repair_cases():
     cases += [("K12", (_d(B, Fn, H, W, C), _d(B, C, dt=f32), _d(B, C, dt=f32), _d(C, C), _d(C), *_block_desc(C),
                        _d(C, C), _d(C)), opts(C))
               for B, Fn, H, W, C in ((2, 8, 40, 64, 320), (1, 32, 20, 32, 640))]
+    for clips, Fn, H, W, C, img in SPATIAL_REPAIRS:
+        BFn, ctx = clips * Fn, _d(clips, 93 if img else 77, 1024)
+        o = (*opts(C), ("text_len", 77))
+        cases += [("K11", (_d(BFn, H * W, C), ctx, *_spatial_desc(C, img)), o),
+                  ("K13", (_d(BFn, H, W, C), ctx, _d(BFn, C, dt=f32), _d(BFn, C, dt=f32), _d(C, C), _d(C),
+                           *_spatial_desc(C, img), _d(C, C), _d(C)), o)]
     return {case: {REPAIR: 1} for case in cases}
 
 
@@ -1049,7 +1080,7 @@ def _phase_kernels(sites, cfg):
     sums = {where: {k: collections.Counter() for k in KERNELS} for where in (*sites, REPAIR)}
     max_err = dict.fromkeys(KERNELS, 0.0)
     bound_by = {k: collections.Counter() for k in KERNELS}  # bound ms per limiting resource
-    tiles = {"K10": [], "K12": []}  # the tile plan and rate of kernels 10 and 12 at each shape
+    tiles = {"K10": [], "K11": [], "K12": [], "K13": []}  # the tile plan and rate of kernels 10-13 at each shape
     bad = []
     for key, runs in _repair_cases().items():
         shapes[key] = {**shapes.get(key, {}), **runs}
@@ -1079,6 +1110,12 @@ def _phase_kernels(sites, cfg):
             tiles[k].append(tile)
             ok = ok and tile["other_cl_ok"]
             print(f"phase 3 {k} {case.desc} tile: {_block_line(tile, reckoned)}", flush=True)
+        if case.spatial:
+            tile = _spatial_tile(case, t["ms"])
+            tiles[k].append(tile)
+            print(f"phase 3 {k} {case.desc} tile: plan TM {tile['tm']} stages {tile['stages']} hidden chunk "
+                  f"{tile['hc']} smem {tile['smem']} B, no cluster; grid {tile['grid']} blocks; {tile['tflops']:.1f} "
+                  f"TFLOP/s ({100 * tile['share_of_989']:.1f}% of 989); kernel {t['ms']:.3f} ms", flush=True)
         del ref
         max_err[k] = max(max_err[k], err)
         for where, n in runs.items():
@@ -1143,6 +1180,17 @@ def _block_tile(case, ms, ref):
                    other_cl_clusters_at_once=cuda_lib.block_clusters(other, mega))
     reckoned = {cl: wbytes * cuda_lib.block_grid(plan._replace(cl=cl), T) // cl / 1e9 for cl in rec["ms_by_cl"]}
     return rec, reckoned
+
+
+def _spatial_tile(case, ms):
+    """Kernel 11 / 13 at one shape: its tile plan (cuda_lib.spatial_plan),
+    grid, and tensor-core rate (the bf16 operations the function needs over
+    the measured ms) and its share of the 989 TFLOP/s peak."""
+    samples, N, C = case.spatial
+    plan = cuda_lib.spatial_plan(C)
+    rate = case.op_ms / ms * PEAK_BF16 / 1e12
+    return {"shape": case.desc, **plan._asdict(), "grid": cuda_lib.spatial_grid(plan, samples, N), "tflops": rate,
+            "share_of_989": rate * 1e12 / PEAK_BF16, "ms": ms}
 
 
 def _block_line(r, reckoned):

@@ -35,7 +35,8 @@
 //     on across tiles; every operand has a 3-D tensor map (64 columns of one
 //     head, row within the sample, sample), so a box never crosses into the
 //     next sample's rows and a ragged tile arrives zero-filled;
-//   * S = Q K^T runs on wgmma m64nBNk16 with both operands in shared memory
+//   * (the steps below live in flash.cuh, which mega.cu shares)
+//     S = Q K^T runs on wgmma m64nBNk16 with both operands in shared memory
 //     (128-byte swizzle, K-major); the online softmax runs on the
 //     accumulator registers (the four threads of a quad own a row: two
 //     shuffles for its max), logits past the segment's length masked to
@@ -68,6 +69,7 @@
 
 #include <math.h>
 
+#include "flash.cuh"
 #include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -75,6 +77,7 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 using namespace hopper;
+using namespace flash;
 
 constexpr int D = 64;  // head dim
 
@@ -103,11 +106,6 @@ __device__ __forceinline__ void mma16816(float* c, const uint32_t* a, const uint
                "{%0,%1,%2,%3};\n"
                : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // NK keys a query tile: its row's F keys (F >= 16), or the tile's own 16
@@ -272,89 +270,6 @@ __host__ __device__ constexpr int flash_stage_bytes() { return 2 * flash_max(BN0
 template <int BN0, int BN1>
 __host__ __device__ constexpr int flash_smem() {
   return SMEM_ALIGN + 2 * Q_BYTES + FA_STAGES * flash_stage_bytes<BN0, BN1>() + 8 * (4 + 2 * FA_STAGES);
-}
-
-// the transposed (MN-major) V operand: 8-row groups 1024 bytes apart along
-// k; the leading offset is unused at N = 64 (one 128-byte row of N), set
-// to the same 1024 bytes
-__device__ __forceinline__ uint64_t v_desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (64ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// O += P V for one key tile: P (bf16 A fragments) from registers, V from the stage
-template <int BN>
-__device__ __forceinline__ void issue_pv(float (&o)[32], uint32_t (&pa)[BN / 16][4], const uint8_t* vt) {
-  const uint64_t vd = v_desc(vt);
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) WgmmaRegA<64>::mma(o, pa[kk], vd + 128 * kk, 1);
-}
-
-// The online-softmax step of one S tile (BN keys, `valid` of them inside the
-// segment): the rows' running max m (raw logits) and sum l, the factor alpha
-// that rescales the rows' O, and P = exp2(S sl - m sl) left in s.
-template <int BN>
-__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
-                                             int valid, float sl) {
-  const int t4 = threadIdx.x & 3;
-  if (valid < BN) {
-#pragma unroll
-    for (int g = 0; g < BN / 8; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (8 * g + 2 * t4 + (e & 1) >= valid) s[4 * g + e] = -INFINITY;
-  }
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int g = 0; g < BN / 8; ++g)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * g + e]);
-  float neg[2], ps[2] = {0.f, 0.f};
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-    alpha[hh] = exp2f((m[hh] - mx[hh]) * sl);  // 0 on the first tile
-    m[hh] = mx[hh];
-    neg[hh] = -mx[hh] * sl;
-  }
-#pragma unroll
-  for (int g = 0; g < BN / 8; ++g)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = exp2f(fmaf(s[4 * g + e], sl, neg[e >> 1]));
-      s[4 * g + e] = p;
-      ps[e >> 1] += p;
-    }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + ps[hh];
-}
-
-// P in bf16: the S accumulator of keys 16kk..16kk+15 is the A fragment
-template <int BN>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[BN / 16][4], const float (&s)[BN / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    pa[kk][0] = pack2(s[8 * kk + 0], s[8 * kk + 1]);
-    pa[kk][1] = pack2(s[8 * kk + 2], s[8 * kk + 3]);
-    pa[kk][2] = pack2(s[8 * kk + 4], s[8 * kk + 5]);
-    pa[kk][3] = pack2(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
-
-template <int BN>
-__device__ __forceinline__ void issue_s(float (&s)[BN / 2], uint64_t qdesc, const uint8_t* kt) {
-  const uint64_t kd = smem_desc(kt);
-#pragma unroll
-  for (int k = 0; k < D / 16; ++k) Wgmma<BN>::mma(s, qdesc + 2 * k, kd + 2 * k, k);
 }
 
 // One key segment for this warpgroup's 64 query rows: the online softmax

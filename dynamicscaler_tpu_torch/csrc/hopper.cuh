@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the TMA/wgmma kernels (gemm.cu: ds_ln_gemm;
-// attention.cu: ds_flash_attention; block.cu: kernels 10 and 12): mbarriers
+// attention.cu: ds_flash_attention; block.cu: kernels 10 and 12; mega.cu:
+// kernels 11 and 13): mbarriers
 // (local and across a thread-block cluster), TMA tile copies (plain and
 // multicast to a cluster), wgmma descriptors and instructions, and the
 // host-side tensor-map encoder.
@@ -34,6 +35,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// `count` arrivals at once (one thread standing for several arrivers).
+__device__ __forceinline__ void mbar_arrive_count(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
 // Wait for the completion of the barrier's phase of this parity.
@@ -141,6 +147,13 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 }
 
 // ---- wgmma ------------------------------------------------------------------------
+
+// two floats as a bf16 pair (the low half first), as an A fragment or a
+// 4-byte store takes them
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 // Descriptor of a tile of 128-byte rows in the 128-byte swizzle (the TMA's
 // layout): start address, leading offset 16 B (unused by this layout),

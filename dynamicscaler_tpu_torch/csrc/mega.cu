@@ -1,6 +1,7 @@
 // Kernel 13: the whole SpatialTransformer (depth 1), and kernel 11: the
-// whole spatial BasicTransformerBlock, each as two launches (after the
-// context K/V projection, which the wrapper runs as csrc/gemm.cu's GEMM).
+// whole spatial BasicTransformerBlock: the body of each as one launch, after
+// the wrapper's csrc/gemm.cu GEMMs (the context K/V projection once per clip,
+// the head).
 //
 // Kernel 13 replaces dynamicscaler_tpu/ops/fused_mega.py::_s_mega_call
 // (Pallas _s_mega_kernel):
@@ -10,617 +11,546 @@
 //   h += GEGLU(LN3(h)) @ W2 + b2
 //   y  = x + (h @ W_out + b_out)
 // over x [BF, N, C] bf16 (BF = clips * frames samples of N = H*W tokens,
-// N % 16 == 0), head dim 64, C and Ci = 64 * heads up to 640, the context
-// K/V [clips, Lt (+ Li), 2 Ci] projected once per clip.
-// Kernel 11 replaces dynamicscaler_tpu/ops/fused_block.py::_spatial_block_call
-// (Pallas _spatial_block_kernel): the same without the GroupNorm apply,
-// proj_in and proj_out (h = x, y = h), C up to 640.
+// 256 <= N <= 4096, N % 16 == 0, the JAX gate's), head dim 64, C = 64 *
+// heads <= 640, the context K/V [clips, Lt (+ Li), 2C] projected once per
+// clip. Kernel 11 replaces dynamicscaler_tpu/ops/fused_block.py::
+// _spatial_block_call (Pallas _spatial_block_kernel): the same without the
+// GroupNorm apply, proj_in and proj_out (h = x, y = h).
 //
-// What bounds them: operations. At s320, 32 samples of 2560 tokens: 268
-// GFLOP of N x N attention, 346 of projections and FF (about 0.62 ms at 989
-// TFLOP/s) against 105 MB of x in and out; at s640 (N = 640) the
-// projections dominate (4 x 8 + 24 Ci^2 per token).
+// What bounds them on the H100: operations. At s320 (128 samples of 2560
+// tokens, C 320) a call is 2.3 TFLOP: 1.07 of N x N self-attention, 1.2 of
+// projections (15 C^2 a token in the body: wo1, wq2, wo2, w1 8 C^2, w2 4 C^2;
+// 3 C^2 of q|k|v and, kernel 13, 2 C^2 of proj_in / proj_out) against 0.2 GB
+// of x in and out; at s640 (512 tokens, C 640) the projections are 90%.
 //
-// Why two launches: a query tile cannot finish its self-attention before
-// every token of its sample has its K and V, and a 2560 x 320 sample does
-// not fit one SM. So
-//   ds_mega_head (one block per TM-token row tile): [GN apply -> proj_in ->
-//     h, kept for launch 2 as the residual] -> LN1 -> q|k|v, written to
-//     device memory;
-//   ds_mega_body (one block per TM-query tile of one sample, to the end; a
-//     sample's last tile is ragged when N % TM != 0):
-//     flash attention over the sample's K/V (online softmax, key tiles of 64
-//     double-buffered by cp.async, exponentials rounded to bf16 for PV,
-//     normalised after PV, as K2; raw mma.sync with S and P in registers,
-//     each warp 16 query rows x a 64 / (8 / (TM / 16)) key share of every
-//     key tile, the shares merged once per key segment) ->
-//     out-proj + bias + h -> LN2 -> q2 -> cross-attention over exactly Lt
-//     text keys and Li image keys (two softmaxes, summed; ragged key tiles
-//     masked by length, nothing padded to 16 as the TPU operands were) ->
-//     out-proj + residual -> LN3 -> the GEGLU FF in hidden chunks (value and
-//     gate chunk products, GELU in the gate's epilogue, then the chunk's
-//     share of the second product added into an fp32 accumulator in shared
-//     memory) -> + b2 + residual -> [proj_out + b_out + x] -> the write.
-// The context K/V is projected once per clip (the UNet repeats the context
-// over the clip's frames; the TPU kernel projected it per frame sample) by
-// the wrapper, with csrc/gemm.cu's GEMM, so any context width fits.
-// A cooperative single launch with a grid barrier would save one pass of
-// q|k|v through L2, but needs every tile resident at once (80 x samples
-// tiles of 221 KB each, far more than 132 SMs hold); two launches need no
-// such limit. The GroupNorm statistics are a pass of their own
-// (gn_silu.cu::ds_gn_stats), as the JAX package leaves them to XLA outside
-// its kernel. Every product is tile.cuh's 8-warp GEMM (mma.sync,
-// a cp.async weight ring streaming across column chunks). No wgmma/TMA yet.
+// Why the head is not in the body: a query tile cannot finish its
+// self-attention before every token of its sample has its K and V, and a
+// 2560 x 320 sample does not fit one SM; so the wrapper runs the head as
+// ds_ln_gemm calls (kernel 13: GN apply -> proj_in -> h, which the body
+// reads back as its residual; then LN1 -> q|k|v for both), at that GEMM's
+// rate, and the body is one launch over query tiles.
 //
-// Shared memory (the limit is 232,448 bytes a block; one block per SM):
-//   body: Hs, Ns [TM][Ci+8] bf16 (the residual stream, the LN/attention-
-//     output tile); a union of the attention area (a query tile [TM][Ci+8],
-//     the double-buffered 64-key K/V tiles 36,864 B, one merge slot
-//     (TM x 64 + 2 TM) fp32) and the FF area (fp32 accumulator [TM][Ci+4] +
-//     hidden chunk [TM][HC+8]); the weight ring.
-//     Ci <= 320: TM 64, HC 128, ring 2 x 128 x 72 (BK 64): 221,184 B at 320.
-//     Ci <= 640: TM 32, HC 256, ring 2 x 256 x 40 (BK 32): 82,944 + 99,328
-//     + 40,960 = 223,232 B at 640 (at TM 64 the FF accumulator alone would
-//     be 165 KB).
-//   head: [x tile [TM][C+8]], Hs, Ns [TM][Ci+8] + the ring: 162,816 B at C =
-//     Ci = 320 (TM 64), 165,376 B at 640 (TM 32).
+// The body: one block = TM query tokens of one sample (TM 64 at C <= 320, 32
+// at C <= 640: three [TM, C] tiles and a ring of 16 KB slots in 227 KB), on
+// block.cu's machinery (resident.cuh): 384 threads, two consumer warpgroups
+// and a producer warpgroup whose one issuing thread walks the block's fixed
+// schedule through one TMA/mbarrier ring, running ahead across phases:
+//   self-attention K/V tiles, head pair by head pair; wo1; wq2; the
+//   cross-attention K/V tiles (text, then image), head pair by head pair;
+//   wo2; per hidden chunk the w1 value and gate rows and the w2 columns;
+//   (kernel 13) w_out.
+// A ring slot is a 128 x 64 weight tile or a 64-key K tile with its V tile
+// (8 KB each), so weights and keys share the ring. The projections run on
+// wgmma with the operands swapped (resident.cuh: weight rows as M, the token
+// tile as N = TM), the GEGLU second product's C / 128 output tiles held in
+// registers across the hidden chunks. The attention runs on wgmma as
+// attention.cu's flash kernel does (flash.cuh): each consumer warpgroup takes
+// one head of a pair (a lone last head: warpgroup 0), its 64 queries as M
+// (at TM 32 the 32 rows past the tile ride along and are dropped), S = Q
+// K^T with both operands
+// in shared memory, the online softmax on the accumulators, P from registers
+// as the A operand of P V, V read MN-major; S of one tile in flight with P V
+// of the last. K and V arrive by TMA through 3-D tensor maps (64 columns of
+// one head, row within the sample or clip, sample or clip), so a segment's
+// ragged last tile lands zero-filled and is masked by length: exactly N self
+// keys, and Lt text and Li image keys in two softmaxes whose normalised
+// outputs are summed. A tile slot read by one warpgroup is released by it
+// for both (release_alone).
 //
-// Rounding points are the plain version's (kernel 13: kernels 7, 2, 3, 4, 8
+// Shared memory (from the 1024-aligned base; ops/cuda_lib.py::spatial_smem
+// reckons the same): the ring (stages x 16 KB); X [TM, C] the residual
+// stream; H [TM, C]: the self-attention queries, then LN2, the cross-
+// attention output, LN3, proj_out's staging; O [TM, C]: the self-attention
+// output, then q2, then the GEGLU chunk [TM, hc]; past O, room for a 64-row
+// operand read from O's last head at TM 32; 2 x stages mbarriers.
+// Not done: K and V cross L2 once per query tile and head (3.3 MB a block at
+// s320). A cluster of two query tiles of a sample sharing every ring tile by
+// multicast halved those bytes but timed slower at the UNet's batch-8 shapes
+// (as kernel 10's cluster did at C 320 and 640), so a cluster is one block;
+// a larger query tile does not fit beside the ring.
+//
+// Rounding points are the plain versions' (kernel 13: kernels 7, 2, 3, 4, 8
 // in sequence; kernel 11: 2, 3, 4): the GN-applied input (product and sum
-// rounded separately, as fused_twrap's plain apply), every projection
-// output, q/k/v, attention outputs, residual sums and GEGLU
-// value/gate/product are rounded to bf16.
+// rounded separately), every projection output, q/k/v, the exponentials for
+// P V, attention outputs, residual sums and GEGLU value/gate/product are
+// rounded to bf16; sums accumulate in fp32; the softmax sum of the unrounded
+// exponentials is divided out after P V.
 
-#include "tile.cuh"
+#include <math.h>
+#include <string.h>
+
+#include "flash.cuh"
+#include "resident.cuh"
 
 namespace {
 
-using namespace dstile;
+using namespace hopper;
+using namespace resident;
+using namespace flash;
 
-constexpr int D = 64;          // head dim
-constexpr int FK = 64;         // keys per flash tile
-constexpr int LDH = D + 8;     // bf16 pitch of a head tile
+constexpr int KEYS = 64;                // keys a ring slot: a K tile and its V tile
+constexpr int KV_BYTES = KEYS * D * 2;  // 8 KB each
+constexpr float LOG2E = 1.4426950408889634f;
 
-struct HeadArgs {
-  const bf16* x;        // [T, C]
-  const float* mul;     // [BF, C] folded GroupNorm vectors (kernel 13)
-  const float* add;
-  const bf16* w_in;     // [Ci, C]
-  const float* b_in;
-  const float* ln1_w;
-  const float* ln1_b;
-  const bf16* wqkv;     // [3Ci, Ci]
-  bf16* h;              // [T, Ci] (kernel 13)
-  bf16* qkv;            // [T, 3Ci]
-  int T, N, C, Ci;
-  float eps;
-  bool wrap;            // kernel 13: GN apply + proj_in; kernel 11: h = x
+enum { M_WO1, M_WQ2, M_WO2, M_W1, M_W2, M_OUT, N_MAPS };
+
+struct SpatialMaps {
+  CUtensorMap w[N_MAPS];  // the weights, boxes of 64 k x 128 rows (M_OUT: kernel 13 only)
+  CUtensorMap qkv;        // [BF, N, 3C], boxes of 64 columns x 64 rows of one sample
+  CUtensorMap kv[2];      // text, image K|V [clips, L_s, 2C], the same boxes (kv[1] unused without image keys)
 };
 
-struct BodyArgs {
-  const bf16* x;
-  bf16* out;            // [T, C]
-  const bf16* h;        // the residual stream after proj_in (x for kernel 11)
-  const bf16* qkv;
-  const bf16* wo1;      // [Ci, Ci]
-  const float* bo1;
-  const float* ln2_w;
-  const float* ln2_b;
-  const bf16* wq2;      // [Ci, Ci]
-  const bf16* kv[2];    // text, image K|V [clips * L_s, 2Ci]
-  int len[2];           // Lt, Li (0 without image keys)
-  const bf16* wo2;
-  const float* bo2;
-  const float* ln3_w;
-  const float* ln3_b;
-  const bf16* w1;       // [8Ci, Ci]
-  const float* b1;
-  const bf16* w2;       // [Ci, 4Ci]
-  const float* b2;
-  const bf16* w_out;    // [C, Ci] (kernel 13)
-  const float* b_out;
-  int T, N, C, Ci, frames;
-  float scale, eps;
-  bool wrap;            // kernel 13: proj_out + x; kernel 11: y = h
+struct SpatialArgs {
+  const bf16* h;    // [BF N, C] the block's input: kernel 13 proj_in's output, kernel 11 x
+  const bf16* x;    // kernel 13: [BF N, C] the transformer's input, the outer residual
+  const bf16* qkv;  // [BF N, 3C] LN1(h) @ Wqkv: the queries read from it, K and V by TMA
+  const float *bo1, *ln2_w, *ln2_b, *bo2, *ln3_w, *ln3_b, *b1, *b2, *b_out;
+  bf16* out;        // [BF N, C]
+  int N, C, heads, frames;
+  int len[2];       // Lt, Li (0 without image keys)
+  int stages, hc;
+  float scale_log2, eps;
 };
 
-template <int TM, int BK>
-int head_smem(int C, int Ci, bool wrap) { return TM * ((wrap ? C + 8 : 0) + 2 * (Ci + 8)) * 2 + Tile<TM, BK>::RING; }
+// Byte offsets of the shared-memory regions from the 1024-aligned base, and
+// the dynamic shared memory a block asks for (the alignment pad included).
+struct Layout {
+  int xs, hs, os, bars, total;
+};
 
-// body layout: Hs, Ns [TM][Ci+8] bf16; a union of the attention area (a query
-// tile [TM][Ci+8] bf16, the double-buffered K/V tiles and the flash merge
-// slot) and the FF area (fp32 accumulator [TM][Ci+4] + hidden chunk
-// [TM][hc+8] bf16); then the GEMM weight ring
-constexpr int KV_BYTES = 2 * 2 * FK * LDH * 2;
-__host__ __device__ constexpr int hidden_chunk(int tm) { return tm == 64 ? 128 : 256; }
-__host__ __device__ int attn_area(int Ci, int tm) { return tm * (Ci + 8) * 2 + KV_BYTES + (tm * D + 2 * tm) * 4; }
-__host__ __device__ int ff_area(int Ci, int tm) { return tm * (Ci + 4) * 4 + tm * (hidden_chunk(tm) + 8) * 2; }
-__host__ __device__ int body_union(int Ci, int tm) {
-  return attn_area(Ci, tm) > ff_area(Ci, tm) ? attn_area(Ci, tm) : ff_area(Ci, tm);
+__host__ __device__ inline Layout layout(int tm, int C, int stages, int hc) {
+  Layout L;
+  const int tile = tm * C * 2;
+  L.xs = stages * TILE_BYTES;
+  L.hs = L.xs + tile;
+  L.os = L.hs + tile;
+  int end = L.os + tile + (64 - tm) * 128;  // a 64-row query operand from O's last head
+  if (L.os + tm * hc * 2 > end) end = L.os + tm * hc * 2;
+  L.bars = end;
+  L.total = SMEM_ALIGN + L.bars + 2 * stages * 8;
+  return L;
 }
-template <int TM, int BK>
-int body_smem(int Ci) { return 2 * TM * (Ci + 8) * 2 + body_union(Ci, TM) + Tile<TM, BK>::RING; }
 
-// ---------------------------------------------------------------------------
-// launch 1: [GN apply -> proj_in ->] LN1 -> q|k|v
-// ---------------------------------------------------------------------------
+// The ring slot of this warpgroup's next attention tile: of each `pair`
+// consecutive tiles the producer issues, the `mine`-th.
+__device__ __forceinline__ int take(Ring& rg, int pair, int mine, uint32_t& phase) {
+  if (mine) rg.advance();
+  const int s = rg.s;
+  phase = rg.phase;
+  rg.advance();
+  if (pair - mine == 2) rg.advance();
+  return s;
+}
 
-template <int TM, int BK>
-__global__ void __launch_bounds__(THREADS) mega_head_kernel(HeadArgs a) {
-  using G = Tile<TM, BK>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int C = a.C, Ci = a.Ci, ldh = Ci + 8;
-  const int t0 = blockIdx.x * TM;
-  const int T = a.T;
-  bf16* Hs = reinterpret_cast<bf16*>(smem);
-  bf16* Ns = Hs + TM * ldh;
-  bf16* Xs = Ns + TM * ldh;  // kernel 13's GroupNorm-applied input
-  unsigned char* ring = reinterpret_cast<unsigned char*>(Xs + (a.wrap ? TM * (C + 8) : 0));
-
-  if (a.wrap) {
-    // GroupNorm apply with the vectors of each row's sample (a tile may
-    // straddle samples), product and sum rounded separately
-    const int ldx = C + 8, cv = C / 8;
-    for (int i = threadIdx.x; i < TM * cv; i += THREADS) {
-      const int r = i / cv;
-      const int c = (i - r * cv) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (t0 + r < T) {
-        v = *reinterpret_cast<const uint4*>(a.x + (size_t)(t0 + r) * C + c);
-        const size_t g = (size_t)((t0 + r) / a.N) * C + c;
-        bf16* e = reinterpret_cast<bf16*>(&v);
+// One key segment of `len` keys for this warpgroup's 64 query rows (qdesc)
+// of one head, whose tiles the producer issues interleaved with the other
+// head of a pair (pair 2) or alone (pair 1): O unnormalised in o, each row's
+// sum of exponentials in l (reduced over the row's quad on return). Tile
+// j's S = Q K^T is issued with tile j-1's O += P V, and tile j's softmax
+// runs while P V is in flight (the first tile peeled, so every wait is
+// unconditional). A slot only this warpgroup reads it hands back for both.
+__device__ __forceinline__ void attend_segment(float (&o)[32], float (&l)[2], Ring& rg, int pair, int mine, int len,
+                                               uint64_t qdesc, float sl) {
+  float m[2] = {-INFINITY, -INFINITY};
+  float alpha[2];
+  l[0] = l[1] = 0.f;
 #pragma unroll
-        for (int q = 0; q < 8; ++q) e[q] = f2bf(__fadd_rn(__fmul_rn(bf2f(e[q]), a.mul[g + q]), a.add[g + q]));
-      }
-      *reinterpret_cast<uint4*>(Xs + r * ldx + c) = v;
-    }
-    const float* b_in = a.b_in;
-    bf16* hg = a.h;
-    gemm_cols<G>(Xs, ldx, C, a.w_in, C, Ci, ring, [&](int r, int c, float v) {
-      const bf16 y = f2bf(v + b_in[c]);
-      Hs[r * ldh + c] = y;
-      if (t0 + r < T) hg[(size_t)(t0 + r) * Ci + c] = y;
-    });
-  } else {
-    const int hv = Ci / 8;
-    for (int i = threadIdx.x; i < TM * hv; i += THREADS) {
-      const int r = i / hv;
-      const int c = (i - r * hv) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (t0 + r < T) v = *reinterpret_cast<const uint4*>(a.x + (size_t)(t0 + r) * Ci + c);
-      *reinterpret_cast<uint4*>(Hs + r * ldh + c) = v;
-    }
-    __syncthreads();
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float sacc[KEYS / 2];
+  uint32_t pa[KEYS / 16][4];
+  uint32_t ph;
+  int prev = take(rg, pair, mine, ph);
+  mbar_wait(&rg.full[prev], ph);
+  wgmma_fence();
+  issue_s<KEYS>(sacc, qdesc, rg.base + prev * TILE_BYTES);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(sacc);
+  softmax_tile<KEYS>(sacc, m, l, alpha, len, sl);
+  pack_p<KEYS>(pa, sacc);
+  for (int k0 = KEYS; k0 < len; k0 += KEYS) {
+    const int s = take(rg, pair, mine, ph);
+    mbar_wait(&rg.full[s], ph);
+    wgmma_fence();
+    issue_s<KEYS>(sacc, qdesc, rg.base + s * TILE_BYTES);
+    wgmma_commit();
+    issue_pv<KEYS>(o, pa, rg.base + prev * TILE_BYTES + KV_BYTES);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(sacc);
+    softmax_tile<KEYS>(sacc, m, l, alpha, len - k0, sl);
+    wgmma_wait<0>();
+    fence_acc(o);
+    fence_regs(pa);
+    release_alone(rg, prev);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+    pack_p<KEYS>(pa, sacc);
+    prev = s;
   }
-  layer_norm_rows<TM>(Hs, ldh, Ns, ldh, Ci, a.ln1_w, a.ln1_b, a.eps);
-  bf16* qkv = a.qkv;
-  const int n3 = 3 * Ci;
-  gemm_cols<G>(Ns, ldh, Ci, a.wqkv, Ci, n3, ring, [&](int r, int c, float v) {
-    if (t0 + r < T) qkv[(size_t)(t0 + r) * n3 + c] = f2bf(v);
-  });
+  wgmma_fence();
+  issue_pv<KEYS>(o, pa, rg.base + prev * TILE_BYTES + KV_BYTES);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(o);
+  fence_regs(pa);
+  release_alone(rg, prev);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
 }
 
-// ---------------------------------------------------------------------------
-// launch 2: attention, cross-attention, FF, [proj_out] per query tile
-// ---------------------------------------------------------------------------
-
-struct KeySeg {
-  const bf16* k;  // row j of the segment at k + j * ld (head columns)
-  const bf16* v;
-  int ld;
-  int len;
-};
-
-__device__ __forceinline__ unsigned pack_bf2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-struct Flash {
-  bf16* KV;      // 2 buffers x (K [FK][LDH], V [FK][LDH])
-  float* merge;  // [TM][D] partial outputs + [TM] max + [TM] sum of one key share
-};
-
-// One head over the TM query rows of Qs (pitch ldq, the head's 64 columns):
-// for each key segment an online-softmax pass over key tiles of 64; the
-// segments' normalised outputs are summed; bf16 result into Out's head
-// columns (pitch ldo). The 8 warps are TM / 16 row groups x NP = 8 / (TM /
-// 16) key shares: warp w owns query rows 16 (w % (TM / 16)) and, of every
-// key tile, the KP = 64 / NP keys of share w / (TM / 16) (32 at TM = 64, 16
-// at TM = 32). S, the softmax and P stay in its registers (the m16n8k16
-// accumulator layout is the A layout of the P V product), so a tile costs
-// one barrier for its K/V (double-buffered cp.async, ragged tails
-// zero-filled) and one before its buffer is refilled. At the end of a
-// segment the other shares' (max, sum, output) merge into share 0's, one at
-// a time through one slot of shared memory (share 0 holds key 0, so its max
-// is finite). Exponentials are rounded to bf16 for P V and the sum is taken
-// before the rounding and divided out after P V, as K2 does. (Warps of 32
-// rows x 16 keys, which load half the fragments per MMA, ran out of
-// registers and measured slower.) Ends synchronised.
+// Heads h0 and h0 + 1 (pair 2), one a warpgroup, or h0 alone (pair 1, on
+// warpgroup 0): the head's queries, the 64-column k block of the swizzled
+// tile Q, against the nseg key segments of lens, each segment's normalised
+// output summed and rounded to bf16 into the head's columns of Out (rows
+// below TM). A warpgroup without a head steps its ring position over the
+// tiles without waiting for them. A parity wait is still never fooled: the
+// fill of a slot before the one a warpgroup waits for is one it waited for
+// itself (with an even ring depth each head of a pair keeps to slots of its
+// own), or one that completed before both warpgroups last synchronised
+// (every attention section and every lone head starts with a consumer_sync).
 template <int TM>
-__device__ void flash_head(const bf16* Qs, int ldq, const KeySeg* segs, int nseg, float scale, bf16* Out,
-                           int ldo, const Flash& f) {
-  constexpr int RG = TM / 16;   // row groups
-  constexpr int NP = 8 / RG;    // key shares
-  constexpr int KP = FK / NP;   // keys per share
-  constexpr int NJ = KP / 8;    // S column fragments
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int r0 = (warp % RG) * 16;  // query rows of this warp
-  const int share = warp / RG;
-  const int kh = share * KP;        // its keys within a tile
-  const int g = lane >> 2, t = lane & 3;
-  bf16* Ks[2] = {f.KV, f.KV + 2 * FK * LDH};
-  bf16* Vs[2] = {f.KV + FK * LDH, f.KV + 3 * FK * LDH};
-
-  __syncthreads();  // the query tile is written
-  unsigned qa[4][4];  // Q fragments: 16 rows x 64 dims
+__device__ void attend_heads(Ring& rg, int pair, int h0, const int* lens, int nseg, const uint8_t* Q, uint8_t* Out,
+                             float sl) {
+  const int wg = threadIdx.x >> 7;
+  if (pair == 1) consumer_sync();
+  if (wg >= pair) {
+    for (int sg = 0; sg < nseg; ++sg)
+      for (int k0 = 0; k0 < lens[sg]; k0 += KEYS)
+        for (int m = 0; m < pair; ++m) rg.advance();
+    return;
+  }
+  const int h = h0 + wg;
+  const uint64_t qdesc = smem_desc(Q + h * TM * 128);
+  float fin[32];
 #pragma unroll
-  for (int kd = 0; kd < 4; ++kd) ldsm_x4(qa[kd], Qs + (r0 + (lane & 15)) * ldq + kd * 16 + (lane >> 4) * 8);
-
-  float fin[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) fin[n][e] = 0.f;
-
+  for (int i = 0; i < 32; ++i) fin[i] = 0.f;
   for (int sg = 0; sg < nseg; ++sg) {
-    const KeySeg seg = segs[sg];
-    float o[8][4];
+    float o[32], l[2];
+    attend_segment(o, l, rg, pair, wg, lens[sg], qdesc, sl);
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int i = 0; i < 32; ++i) fin[i] += o[i] * inv[(i >> 1) & 1];
+  }
+  // thread (warp w, lane x) holds rows 16 w + x / 4 (+8), columns 8 g + 2 (x % 4) + {0, 1}
+  const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * w + (lane >> 2) + 8 * hh;
+    if (r >= TM) continue;
+#pragma unroll
+    for (int g = 0; g < 8; ++g)
+      *reinterpret_cast<uint32_t*>(Out + tok_off<TM>(r, h * D + 8 * g + 2 * (lane & 3))) =
+          pack2(fin[4 * g + 2 * hh], fin[4 * g + 2 * hh + 1]);
+  }
+}
 
-    auto load_tile = [&](int buf, int k0) {
-      for (int idx = tid; idx < FK * (D / 8); idx += THREADS) {
-        const int r = idx >> 3;
-        const int col = (idx & 7) * 8;
-        const bool ok = k0 + r < seg.len;
-        const size_t off = ok ? (size_t)(k0 + r) * seg.ld + col : 0;
-        cp_async16_zfill(Ks[buf] + r * LDH + col, seg.k + off, ok);
-        cp_async16_zfill(Vs[buf] + r * LDH + col, seg.v + off, ok);
-      }
-    };
-    const int ntiles = (seg.len + FK - 1) / FK;
-    load_tile(0, 0);
-    cp_async_commit();
-    for (int kt = 0; kt < ntiles; ++kt) {
-      if (kt + 1 < ntiles) {
-        load_tile((kt + 1) & 1, (kt + 1) * FK);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* K = Ks[kt & 1];
-      const bf16* V = Vs[kt & 1];
+// ---- the producer ---------------------------------------------------------------
 
-      float sc[NJ][4];  // S: 16 rows x this warp's KP keys
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < 4; ++kd)
-#pragma unroll
-        for (int kb = 0; kb < KP; kb += 16) {
-          unsigned b[4];
-          ldsm_x4(b, K + (kh + kb + (lane & 7) + ((lane >> 4) << 3)) * LDH + kd * 16 + ((lane >> 3) & 1) * 8);
-          mma16816(sc[kb / 8], qa[kd], b);
-          mma16816(sc[kb / 8 + 1], qa[kd], b + 2);
-        }
-
-      const int valid = seg.len - kt * FK;  // keys of this tile in the segment (may exceed 64)
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = kh + j * 8 + 2 * t + (e & 1);
-          sc[j][e] = key < valid ? sc[j][e] * scale : -INFINITY;
-          mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
-        }
-      float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        alpha[h] = mx[h] == -INFINITY ? 1.f : expf(m[h] - mx[h]);  // 0 on the first tile
-      }
-      unsigned pa[NJ / 2][4];  // P as the A operand of P V, KP / 16 k16 steps
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          p[e] = sc[j][e] == -INFINITY ? 0.f : expf(sc[j][e] - mx[e >> 1]);
-          sum[e >> 1] += p[e];
-        }
-        pa[j >> 1][(j & 1) * 2] = pack_bf2(p[0], p[1]);
-        pa[j >> 1][(j & 1) * 2 + 1] = pack_bf2(p[2], p[3]);
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-        l[h] = l[h] * alpha[h] + sum[h];
-        m[h] = mx[h];
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        o[n][0] *= alpha[0];
-        o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1];
-        o[n][3] *= alpha[1];
-      }
-#pragma unroll
-      for (int kk = 0; kk < NJ / 2; ++kk)
-#pragma unroll
-        for (int nd = 0; nd < 4; ++nd) {
-          unsigned b[4];
-          ldsm_x4_t(b, V + (kh + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH + nd * 16 + (lane >> 4) * 8);
-          mma16816(o[2 * nd], pa[kk], b);
-          mma16816(o[2 * nd + 1], pa[kk], b + 2);
-        }
-      __syncthreads();  // every warp is done with this buffer before it is refilled
+// One thread walks the block's whole schedule through the ring, in the
+// order the consumers take it.
+template <bool MEGA>
+__device__ void produce(const SpatialMaps& mp, const SpatialArgs& a, uint8_t* ring, uint64_t* full, uint64_t* empty,
+                        int sample) {
+  const int S = a.stages, C = a.C, nk = C / BK;
+  int s = 0;
+  uint32_t phase = 0;  // of the slot's fill; its release of the previous fill has the other parity
+  auto slot = [&]() {
+    mbar_wait(&empty[s], phase ^ 1);
+    mbar_expect_tx(&full[s], TILE_BYTES);
+    return ring + s * TILE_BYTES;
+  };
+  auto next = [&]() {
+    if (++s == S) {
+      s = 0;
+      phase ^= 1;
     }
-
-    // merge the other key shares into share 0, one at a time, then add the
-    // normalised output
-    float* mo = f.merge;
-    float* mm = mo + TM * D;
-    float* ml = mm + TM;
-    const int ra = r0 + g, rb = r0 + g + 8;
-    for (int sh = 1; sh < NP; ++sh) {
-      if (share == sh) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int c = n * 8 + 2 * t;
-          mo[ra * D + c] = o[n][0];
-          mo[ra * D + c + 1] = o[n][1];
-          mo[rb * D + c] = o[n][2];
-          mo[rb * D + c + 1] = o[n][3];
-        }
-        if (t == 0) {
-          mm[ra] = m[0];
-          mm[rb] = m[1];
-          ml[ra] = l[0];
-          ml[rb] = l[1];
-        }
-      }
-      __syncthreads();
-      if (share == 0) {
-        float wa[2], wb[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = h ? rb : ra;
-          const float m2 = mm[r];
-          const float mt = fmaxf(m[h], m2);
-          wa[h] = expf(m[h] - mt);
-          wb[h] = m2 == -INFINITY ? 0.f : expf(m2 - mt);
-          l[h] = l[h] * wa[h] + ml[r] * wb[h];
-          m[h] = mt;
-        }
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int c = n * 8 + 2 * t;
-          o[n][0] = o[n][0] * wa[0] + mo[ra * D + c] * wb[0];
-          o[n][1] = o[n][1] * wa[0] + mo[ra * D + c + 1] * wb[0];
-          o[n][2] = o[n][2] * wa[1] + mo[rb * D + c] * wb[1];
-          o[n][3] = o[n][3] * wa[1] + mo[rb * D + c + 1] * wb[1];
-        }
-      }
-      __syncthreads();  // the slot is read before the next share writes it
+  };
+  auto load = [&](int m, int row0, int k0) {
+    uint8_t* dst = slot();
+    tma_load_2d(dst, &mp.w[m], &full[s], k0, row0);
+    next();
+  };
+  auto gemm = [&](int m, int rows) {
+    for (int p = 0; p < rows; p += WROWS)
+      for (int ks = 0; ks < nk; ++ks) load(m, p, ks * BK);
+  };
+  // the K and V tiles of head pairs over segments: map, K column of head 0,
+  // V column of head 0, length, outer coordinate
+  auto keys = [&](const CUtensorMap* const* maps, const int* kcol, const int* vcol, const int* lens, int nseg,
+                  int b) {
+    for (int h0 = 0; h0 < a.heads; h0 += 2) {
+      const int pair = min(2, a.heads - h0);
+      for (int sg = 0; sg < nseg; ++sg)
+        for (int k0 = 0; k0 < lens[sg]; k0 += KEYS)
+          for (int m = 0; m < pair; ++m) {
+            uint8_t* dst = slot();
+            tma_load_3d(dst, maps[sg], &full[s], kcol[sg] + (h0 + m) * D, k0, b);
+            tma_load_3d(dst + KV_BYTES, maps[sg], &full[s], vcol[sg] + (h0 + m) * D, k0, b);
+            next();
+          }
     }
-    if (share == 0) {
-      const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  };
+  const CUtensorMap* self_map[1] = {&mp.qkv};
+  const int self_k[1] = {C}, self_v[1] = {2 * C}, self_len[1] = {a.N};
+  keys(self_map, self_k, self_v, self_len, 1, sample);
+  gemm(M_WO1, C);
+  gemm(M_WQ2, C);
+  const CUtensorMap* ctx_map[2] = {&mp.kv[0], &mp.kv[1]};
+  const int ctx_k[2] = {0, 0}, ctx_v[2] = {C, C};
+  keys(ctx_map, ctx_k, ctx_v, a.len, a.len[1] ? 2 : 1, sample / a.frames);
+  gemm(M_WO2, C);
+  produce_ff(load, M_W1, M_W2, C, a.hc);
+  if (MEGA) gemm(M_OUT, C);
+}
+
+// ---- the consumers -----------------------------------------------------------------
+
+template <int TM, bool MEGA>
+__device__ void consume(const SpatialArgs& a, uint8_t* sm, const Layout& L, Ring& rg, int sample, int q0) {
+  const int C = a.C, nk = C / BK, cv = C / 8;
+  const int rows = min(TM, a.N - q0);  // queries of this tile (a sample's last tile may be ragged)
+  const size_t t0 = (size_t)sample * a.N + q0;
+  uint8_t* Xs = sm + L.xs;
+  uint8_t* Hs = sm + L.hs;
+  uint8_t* Os = sm + L.os;
+  const int tid = threadIdx.x;
+
+  // the residual stream into X, the tile's queries (every head) into H; the
+  // rows past the sample zero
+  for (int i = tid; i < TM * cv; i += CONSUMERS) {
+    const int r = i / cv, c = (i - r * cv) * 8;
+    uint4 hv = make_uint4(0, 0, 0, 0), qv = hv;
+    if (r < rows) {
+      hv = *reinterpret_cast<const uint4*>(a.h + (t0 + r) * C + c);
+      qv = *reinterpret_cast<const uint4*>(a.qkv + (t0 + r) * 3 * C + c);
+    }
+    *reinterpret_cast<uint4*>(Xs + tok_off<TM>(r, c)) = hv;
+    *reinterpret_cast<uint4*>(Hs + tok_off<TM>(r, c)) = qv;
+  }
+  fence_proxy_async();
+  consumer_sync();
+
+  auto add_into_x = [&](int, int, int off, float v, int) {
+    bf16* d = reinterpret_cast<bf16*>(Xs + off);
+    *d = f2bf(bf2f(*d) + round_bf(v));
+  };
+  // self-attention over the sample's N keys -> O; out-projection + bo1 + residual
+  const int self_len[1] = {a.N};
+  for (int h0 = 0; h0 < a.heads; h0 += 2) attend_heads<TM>(rg, min(2, a.heads - h0), h0, self_len, 1, Hs, Os, a.scale_log2);
+  fence_proxy_async();
+  consumer_sync();
+  gemm_rows<TM>(rg, Os, nk, C, a.bo1, add_into_x);
+
+  // cross-attention: q2 = LN2(X) @ Wq2 -> O; text (+ image) keys of this
+  // sample's clip -> H; out-projection + bo2 + residual
+  layer_norm<TM>(Xs, Hs, C, a.ln2_w, a.ln2_b, a.eps);
+  gemm_rows<TM>(rg, Hs, nk, C, nullptr,
+                [&](int, int, int off, float v, int) { *reinterpret_cast<bf16*>(Os + off) = f2bf(v); });
+  fence_proxy_async();
+  consumer_sync();
+  const int nseg = a.len[1] ? 2 : 1;
+  for (int h0 = 0; h0 < a.heads; h0 += 2) attend_heads<TM>(rg, min(2, a.heads - h0), h0, a.len, nseg, Os, Hs, a.scale_log2);
+  fence_proxy_async();
+  consumer_sync();
+  gemm_rows<TM>(rg, Hs, nk, C, a.bo2, add_into_x);
+
+  feed_forward<TM>(rg, Xs, Hs, Os, C, a.hc, a.ln3_w, a.ln3_b, a.b1, a.b2, a.eps);
+
+  if (MEGA) {
+    // proj_out + b_out staged in H, then + x
+    gemm_rows<TM>(rg, Xs, nk, C, a.b_out,
+                  [&](int, int, int off, float v, int) { *reinterpret_cast<bf16*>(Hs + off) = f2bf(v); });
+    consumer_sync();
+    for (int i = tid; i < rows * cv; i += CONSUMERS) {
+      const int r = i / cv, c = (i - r * cv) * 8;
+      const uint4 xr = *reinterpret_cast<const uint4*>(a.x + (t0 + r) * C + c);
+      uint4 y = *reinterpret_cast<const uint4*>(Hs + tok_off<TM>(r, c));
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&y);
+      const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xr);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        fin[n][0] += o[n][0] * inv[0];
-        fin[n][1] += o[n][1] * inv[0];
-        fin[n][2] += o[n][2] * inv[1];
-        fin[n][3] += o[n][3] * inv[1];
+      for (int q = 0; q < 4; ++q) {
+        const float2 p = __bfloat1622float2(o[q]), xf = __bfloat1622float2(x2[q]);
+        o[q] = __floats2bfloat162_rn(xf.x + p.x, xf.y + p.y);
       }
+      *reinterpret_cast<uint4*>(a.out + (t0 + r) * C + c) = y;
+    }
+  } else {
+    for (int i = tid; i < rows * cv; i += CONSUMERS) {
+      const int r = i / cv, c = (i - r * cv) * 8;
+      *reinterpret_cast<uint4*>(a.out + (t0 + r) * C + c) = *reinterpret_cast<const uint4*>(Xs + tok_off<TM>(r, c));
     }
   }
-  if (share == 0) {
-    const int ra = r0 + g, rb = r0 + g + 8;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(Out + ra * ldo + c) = __floats2bfloat162_rn(fin[n][0], fin[n][1]);
-      *reinterpret_cast<__nv_bfloat162*>(Out + rb * ldo + c) = __floats2bfloat162_rn(fin[n][2], fin[n][3]);
+}
+
+// MEGA = false: kernel 11; MEGA = true: kernel 13. One block a (sample, query tile).
+template <int TM, bool MEGA>
+__global__ void __launch_bounds__(THREADS, 1)
+spatial_body_kernel(const __grid_constant__ SpatialMaps maps, const SpatialArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + SMEM_ALIGN - 1) &
+                                           ~uintptr_t(SMEM_ALIGN - 1));
+  const Layout L = layout(TM, a.C, a.stages, a.hc);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
+  uint64_t* empty = full + a.stages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // both consumer warpgroups (or one for both: release_alone)
     }
+    mbar_fence_init();
   }
   __syncthreads();
-}
-
-template <int TM, int BK>
-__global__ void __launch_bounds__(THREADS) mega_body_kernel(BodyArgs a) {
-  using G = Tile<TM, BK>;
-  constexpr int HC = hidden_chunk(TM);
-  constexpr int LDI = HC + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int C = a.C, Ci = a.Ci, ldh = Ci + 8, heads = Ci / D;
-  const int tiles = (a.N + TM - 1) / TM;    // query tiles per sample
+  const int tiles = (a.N + TM - 1) / TM;
   const int sample = blockIdx.x / tiles;
   const int q0 = (blockIdx.x - sample * tiles) * TM;
-  const int t0 = sample * a.N + q0;
-  const int rows = min(TM, a.N - q0);      // queries of this tile
-  const int clip = sample / a.frames;
-  bf16* Hs = reinterpret_cast<bf16*>(smem);
-  bf16* Ns = Hs + TM * ldh;
-  unsigned char* U = reinterpret_cast<unsigned char*>(Ns + TM * ldh);
-  bf16* Qa = reinterpret_cast<bf16*>(U);     // query tile: [TM][LDH] (self), [TM][ldh] (cross)
-  unsigned char* ring = U + body_union(Ci, TM);
-  const Flash fl{reinterpret_cast<bf16*>(U + TM * ldh * 2),
-                 reinterpret_cast<float*>(U + TM * ldh * 2 + KV_BYTES)};
-  float* Acc = reinterpret_cast<float*>(U);  // FF: [TM][Ci+4] fp32, then the hidden chunk
-  const int lda = Ci + 4;
-  bf16* Is = reinterpret_cast<bf16*>(U + TM * lda * 4);
-  const int n3 = 3 * Ci, hv = Ci / 8;
-
-  for (int i = threadIdx.x; i < TM * hv; i += THREADS) {
-    const int r = i / hv;
-    const int c = (i - r * hv) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < rows) v = *reinterpret_cast<const uint4*>(a.h + (size_t)(t0 + r) * Ci + c);
-    *reinterpret_cast<uint4*>(Hs + r * ldh + c) = v;
-  }
-
-  // self-attention over the sample's N tokens
-  const bf16* kbase = a.qkv + (size_t)sample * a.N * n3;
-  for (int hh = 0; hh < heads; ++hh) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < TM * (D / 8); idx += THREADS) {
-      const int r = idx >> 3;
-      const int col = (idx & 7) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (r < rows) v = *reinterpret_cast<const uint4*>(a.qkv + (size_t)(t0 + r) * n3 + hh * D + col);
-      *reinterpret_cast<uint4*>(Qa + r * LDH + col) = v;
-    }
-    const KeySeg seg{kbase + Ci + hh * D, kbase + 2 * Ci + hh * D, n3, a.N};
-    flash_head<TM>(Qa, LDH, &seg, 1, a.scale, Ns + hh * D, ldh, fl);
-  }
-  const float* bo1 = a.bo1;
-  gemm_cols<G>(Ns, ldh, Ci, a.wo1, Ci, Ci, ring, [&](int r, int c, float v) {
-    bf16& d = Hs[r * ldh + c];
-    d = f2bf(bf2f(d) + round_bf(v + bo1[c]));
-  });
-
-  // cross-attention: text keys, then image keys, of this sample's clip
-  layer_norm_rows<TM>(Hs, ldh, Ns, ldh, Ci, a.ln2_w, a.ln2_b, a.eps);
-  gemm_cols<G>(Ns, ldh, Ci, a.wq2, Ci, Ci, ring, [&](int r, int c, float v) { Qa[r * ldh + c] = f2bf(v); });
-  const int n2 = 2 * Ci;
-  for (int hh = 0; hh < heads; ++hh) {
-    KeySeg segs[2];
-    int nseg = 0;
-    for (int s = 0; s < 2; ++s) {
-      if (a.len[s] == 0) continue;
-      const bf16* kv = a.kv[s] + (size_t)clip * a.len[s] * n2;
-      segs[nseg++] = KeySeg{kv + hh * D, kv + Ci + hh * D, n2, a.len[s]};
-    }
-    flash_head<TM>(Qa + hh * D, ldh, segs, nseg, a.scale, Ns + hh * D, ldh, fl);
-  }
-  const float* bo2 = a.bo2;
-  gemm_cols<G>(Ns, ldh, Ci, a.wo2, Ci, Ci, ring, [&](int r, int c, float v) {
-    bf16& d = Hs[r * ldh + c];
-    d = f2bf(bf2f(d) + round_bf(v + bo2[c]));
-  });
-
-  // GEGLU feed-forward in hidden chunks of HC columns
-  layer_norm_rows<TM>(Hs, ldh, Ns, ldh, Ci, a.ln3_w, a.ln3_b, a.eps);
-  for (int i = threadIdx.x; i < TM * lda; i += THREADS) Acc[i] = 0.f;
-  const int H4 = 4 * Ci;
-  const float* b1 = a.b1;
-  for (int j0 = 0; j0 < H4; j0 += HC) {
-    gemm_cols<G>(Ns, ldh, Ci, a.w1 + (size_t)j0 * Ci, Ci, HC, ring,
-                 [&](int r, int c, float v) { Is[r * LDI + c] = f2bf(v + b1[j0 + c]); });
-    gemm_cols<G>(Ns, ldh, Ci, a.w1 + (size_t)(H4 + j0) * Ci, Ci, HC, ring, [&](int r, int c, float v) {
-      bf16& d = Is[r * LDI + c];
-      d = f2bf(bf2f(d) * gelu_erf(round_bf(v + b1[H4 + j0 + c])));
-    });
-    gemm_cols<G>(Is, LDI, HC, a.w2 + j0, H4, Ci, ring, [&](int r, int c, float v) { Acc[r * lda + c] += v; });
-  }
-  for (int i = threadIdx.x; i < TM * Ci; i += THREADS) {
-    const int r = i / Ci;
-    const int c = i - r * Ci;
-    bf16& d = Hs[r * ldh + c];
-    d = f2bf(bf2f(d) + round_bf(Acc[r * lda + c] + a.b2[c]));
-  }
-  __syncthreads();
-
-  bf16* out = a.out;
-  if (a.wrap) {
-    // proj_out + outer residual
-    const float* b_out = a.b_out;
-    const bf16* x = a.x;
-    gemm_cols<G>(Hs, ldh, Ci, a.w_out, Ci, C, ring, [&](int r, int c, float v) {
-      if (r < rows) {
-        const size_t e = (size_t)(t0 + r) * C + c;
-        out[e] = f2bf(bf2f(x[e]) + round_bf(v + b_out[c]));
-      }
-    });
+  if (threadIdx.x >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS) produce<MEGA>(maps, a, sm, full, empty, sample);
   } else {
-    for (int i = threadIdx.x; i < rows * hv; i += THREADS) {
-      const int r = i / hv;
-      const int c = (i - r * hv) * 8;
-      *reinterpret_cast<uint4*>(out + (size_t)(t0 + r) * Ci + c) = *reinterpret_cast<const uint4*>(Hs + r * ldh + c);
-    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    Ring rg{sm, full, empty, a.stages, 1, 0, 0};
+    consume<TM, MEGA>(a, sm, L, rg, sample, q0);
   }
 }
 
-template <int TM, int BK>
-int launch(const HeadArgs& h, const BodyArgs& b, int BF, cudaStream_t s) {
-  const int hs = head_smem<TM, BK>(h.C, h.Ci, h.wrap), bs = body_smem<TM, BK>(b.Ci);
-  cudaError_t e = cudaFuncSetAttribute(mega_head_kernel<TM, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, hs);
+// ---- host side ---------------------------------------------------------------------
+
+template <int TM, bool MEGA>
+int launch(const SpatialMaps& maps, const SpatialArgs& a, int BF, int smem, void* stream) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(spatial_body_kernel<TM, MEGA>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const long long blocks = (long long)BF * ((a.N + TM - 1) / TM);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];  // a cluster of one block: the ring's release addresses its own rank
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, spatial_body_kernel<TM, MEGA>, maps, a);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(mega_body_kernel<TM, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, bs);
-  if (e != cudaSuccess) return (int)e;
-  mega_head_kernel<TM, BK><<<(h.T + TM - 1) / TM, THREADS, hs, s>>>(h);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  mega_body_kernel<TM, BK><<<BF * ((b.N + TM - 1) / TM), THREADS, bs, s>>>(b);
   return (int)cudaGetLastError();
 }
 
-// kernels 13 (wrap) and 11: the pointer layout of ds_mega_spatial
-int run(const void* const* p, bool wrap, int BF, int N, int C, int Ci, int frames, int Lt, int Li, float scale,
-        float eps, void* stream) {
-  if (N % 16 || N <= 0 || C % 64 || C > 640 || Ci % 64 || Ci > 640 || (!wrap && C != Ci) || frames <= 0 ||
-      BF % frames || Lt <= 0 || Li < 0)
+// The plan's checks: TM by width, the second product's tiles in registers,
+// the ring, the hidden chunk, and the shared memory the plan reckoned equal
+// to layout()'s.
+bool plan_ok(int C, int tm, int stages, int hc, int smem) {
+  if (tm != (C <= 320 ? 64 : 32) || C > WROWS * ff_tiles(tm) || stages < 4 || stages % 2) return false;
+  if (hc < WROWS || hc % WROWS || (4 * C) % hc) return false;
+  return smem == layout(tm, C, stages, hc).total && smem <= SMEM_MAX;
+}
+
+// an activation's map: [outer, rows, width] bf16, boxes of 64 columns x KEYS rows of one outer index
+bool act_map(CUtensorMap* map, const void* base, int outer, int rows, int width) {
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)rows * width * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)KEYS, 1};
+  return make_map(map, base, 3, dims, strides, box);
+}
+
+int run(const void* const* p, bool mega, int BF, int N, int C, int frames, int Lt, int Li, float scale, float eps,
+        const void* maps, int tm, int stages, int hc, int smem, void* stream) {
+  if (N % 16 || N <= 0 || C % 64 || C < 64 || C > 640 || frames <= 0 || BF <= 0 || BF % frames || Lt <= 0 ||
+      Li < 0 || maps == nullptr || !plan_ok(C, tm, stages, hc, smem))
     return (int)cudaErrorInvalidValue;
-  auto bf = [&](int i) { return static_cast<const bf16*>(p[i]); };
+  for (int i = 0; i < 15; ++i)
+    if (p[i] == nullptr && !(i == 1 && !mega) && !(i == 4 && Li == 0) && !(i == 13 && !mega))
+      return (int)cudaErrorInvalidValue;
+  const int clips = BF / frames;
+  SpatialMaps m;
+  memset(&m, 0, sizeof(m));
+  memcpy(m.w, maps, (mega ? N_MAPS : N_MAPS - 1) * sizeof(CUtensorMap));
+  if (!act_map(&m.qkv, p[2], BF, N, 3 * C) || !act_map(&m.kv[0], p[3], clips, Lt, 2 * C) ||
+      (Li > 0 && !act_map(&m.kv[1], p[4], clips, Li, 2 * C)))
+    return (int)cudaErrorInvalidValue;
   auto f = [&](int i) { return static_cast<const float*>(p[i]); };
-  const int T = BF * N;
-  bf16* hbuf = static_cast<bf16*>(const_cast<void*>(p[25]));
-
-  HeadArgs h;
-  h.x = bf(0); h.mul = f(1); h.add = f(2); h.w_in = bf(3); h.b_in = f(4);
-  h.ln1_w = f(5); h.ln1_b = f(6); h.wqkv = bf(7);
-  h.h = hbuf;
-  h.qkv = static_cast<bf16*>(const_cast<void*>(p[26]));
-  h.T = T; h.N = N; h.C = C; h.Ci = Ci; h.eps = eps; h.wrap = wrap;
-
-  BodyArgs b;
-  b.x = bf(0); b.out = static_cast<bf16*>(const_cast<void*>(p[27]));
-  b.h = wrap ? hbuf : bf(0); b.qkv = h.qkv;
-  b.wo1 = bf(8); b.bo1 = f(9); b.ln2_w = f(10); b.ln2_b = f(11); b.wq2 = bf(12);
-  b.kv[0] = bf(13); b.kv[1] = bf(14); b.len[0] = Lt; b.len[1] = Li;
-  b.wo2 = bf(15); b.bo2 = f(16); b.ln3_w = f(17); b.ln3_b = f(18);
-  b.w1 = bf(19); b.b1 = f(20); b.w2 = bf(21); b.b2 = f(22); b.w_out = bf(23); b.b_out = f(24);
-  b.T = T; b.N = N; b.C = C; b.Ci = Ci; b.frames = frames; b.scale = scale; b.eps = eps; b.wrap = wrap;
-
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (C > 320 || Ci > 320) ? launch<32, 32>(h, b, BF, s) : launch<64, 64>(h, b, BF, s);
+  SpatialArgs a = {};
+  a.h = static_cast<const bf16*>(p[0]);
+  a.x = static_cast<const bf16*>(p[1]);
+  a.qkv = static_cast<const bf16*>(p[2]);
+  a.bo1 = f(5);
+  a.ln2_w = f(6);
+  a.ln2_b = f(7);
+  a.bo2 = f(8);
+  a.ln3_w = f(9);
+  a.ln3_b = f(10);
+  a.b1 = f(11);
+  a.b2 = f(12);
+  a.b_out = f(13);
+  a.out = static_cast<bf16*>(const_cast<void*>(p[14]));
+  a.N = N;
+  a.C = C;
+  a.heads = C / D;
+  a.frames = frames;
+  a.len[0] = Lt;
+  a.len[1] = Li;
+  a.stages = stages;
+  a.hc = hc;
+  a.scale_log2 = scale * LOG2E;
+  a.eps = eps;
+  if (mega) return tm == 64 ? launch<64, true>(m, a, BF, smem, stream) : launch<32, true>(m, a, BF, smem, stream);
+  return tm == 64 ? launch<64, false>(m, a, BF, smem, stream) : launch<32, false>(m, a, BF, smem, stream);
 }
 
 }  // namespace
 
-// p: device pointers, in order:
-//  0 x [T, C] bf16       1 mul [BF, C] f32     2 add                3 w_in [Ci, C]   4 b_in
-//  5 ln1_w  6 ln1_b      7 wqkv1 [3Ci, Ci]     8 wo1 [Ci, Ci]       9 bo1
-// 10 ln2_w 11 ln2_b     12 wq2 [Ci, Ci]       13 kv_t [clips*Lt, 2Ci] (context K|V, per clip)
-// 14 kv_i [clips*Li, 2Ci] (or null)
-// 15 wo2   16 bo2       17 ln3_w 18 ln3_b     19 w1 [8Ci, Ci]      20 b1   21 w2 [Ci, 4Ci]  22 b2
-// 23 w_out [C, Ci]      24 b_out
-// scratch: 25 h [T, Ci]  26 qkv [T, 3Ci]
-// 27 out [T, C]
-// T = BF * N tokens, samples of N tokens, frames samples per clip.
-// Shapes the caller guarantees: N % 16 == 0, C and Ci multiples of 64 up to
-// 640, every pointer 16-byte aligned and contiguous.
-extern "C" int ds_mega_spatial(const void* const* p, int BF, int N, int C, int Ci, int frames, int Lt, int Li,
-                               float scale, float eps, void* stream) {
-  return run(p, true, BF, N, C, Ci, frames, Lt, Li, scale, eps, stream);
+// The TMA maps of the body's weights (boxes of 64 k x 128 rows, 128-byte
+// swizzle), written to out (n x 128 bytes): w holds n = 5 device pointers,
+// wo1 [C, C], wq2 [C, C], wo2 [C, C], w1 [8C, C], w2 [C, 4C], or n = 6 with
+// kernel 13's w_out [C, C]. A map describes only the address, the shape and
+// the box, so the caller may keep it for as long as these weights live.
+// stream: unused (the convention of every entry point).
+extern "C" int ds_spatial_maps(const void* const* w, int n, int C, void* out, void* stream) {
+  (void)stream;
+  if ((n != N_MAPS - 1 && n != N_MAPS) || C % 64 || C <= 0 || out == nullptr) return (int)cudaErrorInvalidValue;
+  const int rows[N_MAPS] = {C, C, C, 8 * C, C, C};
+  const int cols[N_MAPS] = {C, C, C, C, 4 * C, C};
+  for (int i = 0; i < n; ++i) {
+    CUtensorMap m;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols[i], (cuuint64_t)rows[i]};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols[i] * 2};
+    const cuuint32_t box[2] = {BK, WROWS};
+    if (w[i] == nullptr || !make_map(&m, w[i], 2, dims, strides, box)) return (int)cudaErrorInvalidValue;
+    memcpy(static_cast<uint8_t*>(out) + i * sizeof(CUtensorMap), &m, sizeof(CUtensorMap));
+  }
+  return 0;
 }
 
-// Kernel 11: the same pointer layout with 1-4, 23-25 unused (null); x and
-// out [T, C], C == Ci.
-extern "C" int ds_spatial_block(const void* const* p, int BF, int N, int C, int frames, int Lt, int Li,
-                                float scale, float eps, void* stream) {
-  return run(p, false, BF, N, C, C, frames, Lt, Li, scale, eps, stream);
+// p: device pointers, in order:
+//  0 h [T, C] (the block's input: proj_in's output)   1 x [T, C] (the outer residual)
+//  2 qkv [T, 3C] (LN1(h) @ Wqkv: q | k | v, each head's 64 columns together)
+//  3 kv_t [clips * Lt, 2C] (text K | V per clip)      4 kv_i [clips * Li, 2C] (or null)
+//  5 bo1   6 ln2_w   7 ln2_b   8 bo2   9 ln3_w   10 ln3_b   11 b1 [8C]   12 b2   13 b_out
+// 14 out [T, C]
+// T = BF * N tokens, samples of N tokens, frames samples a clip; bf16
+// activations, fp32 vectors. maps: ds_spatial_maps of the six weights. The
+// plan (tm, stages, hc, smem) from cuda_lib.spatial_plan. Shapes the caller
+// guarantees: N % 16 == 0, C a multiple of 64 up to 640, every pointer
+// 16-byte aligned and contiguous.
+extern "C" int ds_mega_spatial(const void* const* p, int BF, int N, int C, int frames, int Lt, int Li, float scale,
+                               float eps, const void* maps, int tm, int stages, int hc, int smem, void* stream) {
+  return run(p, true, BF, N, C, frames, Lt, Li, scale, eps, maps, tm, stages, hc, smem, stream);
+}
+
+// Kernel 11: the same pointer layout with 0 = x and 1, 13 unused (null);
+// maps: ds_spatial_maps of the five block weights.
+extern "C" int ds_spatial_block(const void* const* p, int BF, int N, int C, int frames, int Lt, int Li, float scale,
+                                float eps, const void* maps, int tm, int stages, int hc, int smem, void* stream) {
+  return run(p, false, BF, N, C, frames, Lt, Li, scale, eps, maps, tm, stages, hc, smem, stream);
 }

@@ -13,9 +13,10 @@ kernel-vs-plain comparisons of ``chip_smoke.py``). :func:`ln_gemm` binds
 the GEMM that every op's projections run on (K1-K4 and the transformer
 wrapper head and tail); :class:`PackCache` keeps a module's kernel operands
 packed between calls; the whole-block and whole-transformer kernels (10-13)
-take their operands as one array of pointers (:func:`ptr_array`), and
-kernels 10 and 12 also their tile plan (:func:`block_plan`) and the TMA
-maps of their weights (:func:`block_maps`, encoded once per weight set).
+take their operands as one array of pointers (:func:`ptr_array`), their
+tile plan (:func:`block_plan` for kernels 10 and 12, :func:`spatial_plan`
+for 11 and 13) and the TMA maps of their weights (:func:`block_maps`,
+:func:`spatial_maps`, encoded once per weight set).
 """
 
 from __future__ import annotations
@@ -54,8 +55,9 @@ _SIGNATURES = {
     "ds_temporal_mega": (_P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _P),
     "ds_block_maps": (_P, _I, _I, _I, _P, _P),
     "ds_block_clusters": (_I, _I, _I, _I, _P, _P),
-    "ds_mega_spatial": (_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    "ds_spatial_block": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "ds_mega_spatial": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P),
+    "ds_spatial_block": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P),
+    "ds_spatial_maps": (_P, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -362,6 +364,69 @@ def block_clusters(plan: BlockPlan, mega: bool = False) -> int:
     n = ctypes.c_int(0)
     call("ds_block_clusters", int(mega), plan.tm, plan.cl, plan.smem, ctypes.byref(n))
     return n.value
+
+
+# ds_spatial_block / ds_mega_spatial's tile (csrc/mega.cu): TM query tokens
+# of one sample a block (TM 64 at C <= 320, else 32), a ring of `stages` 16
+# KB slots holding weight tiles and the attention's 64-key K/V tiles (an
+# even number of slots, at least 4: the two heads of a pair keep to slots of
+# their own), the GEGLU hidden hc columns at a time.
+SPATIAL_MAX_STAGES = 8
+
+
+class SpatialPlan(NamedTuple):
+    tm: int      # query tokens a block
+    stages: int  # ring slots
+    hc: int      # GEGLU hidden columns a chunk
+    smem: int    # dynamic shared memory bytes, the 1024-byte alignment pad included
+
+
+def spatial_smem(tm: int, C: int, stages: int, hc: int) -> int:
+    """Shared memory of a ``ds_spatial_block`` / ``ds_mega_spatial`` block,
+    as ``csrc/mega.cu::layout`` reckons it: the ring, the residual stream X
+    and the tiles H and O ([tm, C] bf16 each); O also holds the GEGLU chunk
+    [tm, hc] and, past its end, the 64 - tm rows that a 64-row query operand
+    read from its last head runs over; 2 x stages mbarriers; the alignment
+    pad."""
+    tile = tm * C * 2
+    o = max(tile + (64 - tm) * 128, tm * hc * 2)
+    return 1024 + stages * BLOCK_TILE_BYTES + 2 * tile + o + 2 * stages * 8
+
+
+@functools.lru_cache(maxsize=None)
+def spatial_plan(C: int) -> SpatialPlan:
+    """The tile of kernels 11 and 13 at width C (their shared memory does not
+    depend on N, the context or the wrapper): TM 64 at C <= 320, else 32
+    (three [TM, C] tiles beside a ring of at least 4 slots); hc the widest
+    multiple of 128 that divides 4C and is at most C (the chunk lies in O);
+    as many ring slots as the rest leaves room for, an even number up to
+    :data:`SPATIAL_MAX_STAGES`."""
+    if C % 64 or not 64 <= C <= 640:
+        raise ValueError(f"spatial_plan: kernels 11 and 13 take C a multiple of 64 up to 640, got {C}")
+    tm = 64 if C <= 320 else 32
+    hc = max([h for h in range(128, C + 1, 128) if (4 * C) % h == 0], default=128)
+    stages = max(s for s in range(4, SPATIAL_MAX_STAGES + 1, 2) if spatial_smem(tm, C, s, hc) <= GEMM_SMEM_MAX)
+    return SpatialPlan(tm, stages, hc, spatial_smem(tm, C, stages, hc))
+
+
+def spatial_grid(plan: SpatialPlan, samples: int, N: int) -> int:
+    """Blocks of a ``ds_spatial_block`` / ``ds_mega_spatial`` launch: one a
+    (sample, query tile), ceil(N / TM) tiles a sample (the last ragged where
+    TM does not divide N)."""
+    return samples * -(-N // plan.tm)
+
+
+def spatial_maps(cache: dict, weights, C: int):
+    """The TMA maps of the body's weights (``ds_spatial_maps``: wo1, wq2,
+    wo2, w1, w2[, w_out]), encoded at the first call and kept in ``cache``
+    (the ``maps`` dict of the packed operands that hold these weights).
+    Returns a pointer for ``ds_spatial_block`` / ``ds_mega_spatial``."""
+    buf = cache.get("spatial")
+    if buf is None:
+        buf = ctypes.create_string_buffer(128 * len(weights))
+        call("ds_spatial_maps", ptr_array(weights), len(weights), C, ctypes.cast(buf, ctypes.c_void_p))
+        cache["spatial"] = buf
+    return ctypes.cast(buf, ctypes.c_void_p)
 
 
 def _frame_rows(M: int, F: int, HW: int) -> torch.Tensor:

@@ -18,9 +18,13 @@ F-frame rows resident in shared memory through all three sub-blocks, the
 weights streamed by TMA once per thread-block cluster into wgmma products,
 a row of more than TM frames spread over the cluster; its tile plan from
 ``cuda_lib.block_plan``, its weights' TMA maps from ``cuda_lib.block_maps``) and
-kernel 11 as ``csrc/mega.cu::ds_spatial_block`` (kernel 13's head and body
-without the GroupNorm apply, proj_in and proj_out, after the context K/V
-projection with ``csrc/gemm.cu``); see the notes there for what bounds each.
+kernel 11 as the context K/V projection and the LN1 -> q|k|v head on
+``csrc/gemm.cu``'s GEMM, then ``csrc/mega.cu::ds_spatial_block`` (kernel
+13's body without proj_out: TM query tokens resident through the whole
+block, the weights and the attention's K/V tiles streamed by TMA into wgmma
+products; its tile plan from ``cuda_lib.spatial_plan``, its weights' TMA
+maps from ``cuda_lib.spatial_maps``); see the notes there for what bounds
+each.
 The plain versions are the sub-blocks' plain versions in sequence (K1, K1,
 K4; K2, K3, K4), which hold the TPU kernels' rounding points. Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
@@ -65,7 +69,7 @@ class BlockOperands(NamedTuple):
     attn1: AttnOperands
     attn2: AttnOperands
     ff: FFOperands
-    maps: dict = None  # kernel 10: its weights' TMA maps by cluster size (cuda_lib.block_maps), kept with them
+    maps: dict = None  # kernels 10, 11: their weights' TMA maps (cuda_lib.block_maps / spatial_maps), kept with them
 
 
 def temporal_block_ok(frames: int, inner: int, dim: int, heads: int) -> bool:
@@ -185,7 +189,7 @@ def pack_spatial_block(lns, attn1, attn2, ff, *, dtype) -> BlockOperands:
     s1, b1, s2, b2, s3, b3 = lns
     return BlockOperands(pack_ln_attention(s1, b1, *attn1, dtype=dtype),
                          pack_ln_cross_attention(s2, b2, *attn2, dtype=dtype),
-                         pack_ln_geglu(s3, b3, *ff, dtype=dtype))
+                         pack_ln_geglu(s3, b3, *ff, dtype=dtype), {})
 
 
 def spatial_block_plain(x, ctx, lns, attn1, attn2, ff, *, heads, scale, text_len=77, eps=1e-5):
@@ -215,46 +219,55 @@ def check_spatial_operands(op: BlockOperands, Ci: int, Dc: int, has_img: bool) -
     _check_ff(op.ff, Ci)
 
 
-def spatial_launch(x3, ctx, op: BlockOperands, wrapper, *, heads, scale, text_len, eps):
+def spatial_weights(op: BlockOperands) -> list:
+    """The block weights whose TMA maps ``ds_spatial_block`` /
+    ``ds_mega_spatial`` read, in ``ds_spatial_maps``' order: wo1, wq2, wo2,
+    w1, w2."""
+    return [op.attn1.wo, op.attn2.w_in, op.attn2.wo, op.ff.w1, op.ff.w2]
+
+
+def spatial_launch(x3, ctx, op: BlockOperands, wrapper, maps: dict, *, heads, scale, text_len, eps):
     """Launch kernel 13 (``wrapper`` = (mul, add, w_in, b_in, w_out, b_out))
     or kernel 11 (``wrapper`` None) on x3 [BF, N, C] with the per-clip
-    context ``ctx`` [clips, L, Dc]: the context K|V of each segment (text;
-    image from ``text_len`` on with image keys) projected once per clip by
-    ``ds_ln_gemm``, then ``ds_mega_spatial`` / ``ds_spatial_block``. Returns
+    context ``ctx`` [clips, L, Dc]: by ``ds_ln_gemm`` the context K|V of each
+    segment (text; image from ``text_len`` on with image keys) once per clip,
+    (kernel 13) GroupNorm apply -> proj_in -> h, and LN1(h) -> q|k|v; then
+    ``ds_mega_spatial`` / ``ds_spatial_block`` at ``cuda_lib.spatial_plan``'s
+    tile with the weights' TMA maps, encoded once into ``maps``. Returns
     [BF, N, C]."""
     BF, N, C = x3.shape
     clips, L, Dc = ctx.shape
-    Ci = heads * 64
     dt = x3.dtype
     has_img = len(op.attn2.w_kv) == 2
     Lt = text_len if has_img else L
     ctx = ctx.to(dt)
     segs = (ctx[:, :Lt], ctx[:, Lt:]) if has_img else (ctx,)
     kv = [ln_gemm(c.reshape(-1, Dc).contiguous(), w) for c, w in zip(segs, op.attn2.w_kv)]
-    qkv = torch.empty((BF * N, 3 * Ci), device=x3.device, dtype=dt)
-    out = torch.empty_like(x3)
-    mul, add, w_in, b_in, w_out, b_out = wrapper or (None,) * 6
-    h = torch.empty((BF * N, Ci), device=x3.device, dtype=dt) if wrapper else None
+    x2 = x3.reshape(BF * N, C)
     a1, a2, f = op.attn1, op.attn2, op.ff
-    ptrs = cuda_lib.ptr_array([
-        x3, mul, add, w_in, b_in,
-        a1.ln_scale, a1.ln_bias, a1.w_in, a1.wo, a1.bo,
-        a2.ln_scale, a2.ln_bias, a2.w_in, kv[0], kv[1] if has_img else None, a2.wo, a2.bo,
-        f.ln_scale, f.ln_bias, f.w1, f.b1, f.w2, f.b2, w_out, b_out, h, qkv, out])
-    tail = (BF // clips, Lt, L - Lt, float(scale), float(eps))
+    weights = spatial_weights(op)
+    b_out = None
+    h = x2
     if wrapper:
-        cuda_lib.call("ds_mega_spatial", ptrs, BF, N, C, Ci, *tail)
-    else:
-        cuda_lib.call("ds_spatial_block", ptrs, BF, N, C, *tail)
+        mul, add, w_in, b_in, w_out, b_out = wrapper
+        h = ln_gemm(x2, w_in, gn=(mul, add), rows_per_sample=N, bias=b_in)
+        weights.append(w_out)
+    qkv = ln_gemm(h, a1.w_in, ln=(a1.ln_scale, a1.ln_bias), eps=eps)
+    out = torch.empty_like(x3)
+    ptrs = cuda_lib.ptr_array([
+        h, x2 if wrapper else None, qkv, kv[0], kv[1] if has_img else None,
+        a1.bo, a2.ln_scale, a2.ln_bias, a2.bo, f.ln_scale, f.ln_bias, f.b1, f.b2, b_out, out])
+    cuda_lib.call("ds_mega_spatial" if wrapper else "ds_spatial_block", ptrs, BF, N, C, BF // clips, Lt, L - Lt,
+                  float(scale), float(eps), cuda_lib.spatial_maps(maps, weights, C), *cuda_lib.spatial_plan(C))
     return out
 
 
 def fused_spatial_block(x, ctx, lns, attn1, attn2, ff, *, heads, scale, text_len=77, eps=1e-5, operands=None):
     """Kernel 11: the whole spatial BasicTransformerBlock. x [BF, N, C]; ctx
     [clips, L, Dc] per clip (BF = clips * frames); returns [BF, N, C]. On the
-    card the context K/V projection and ``ds_spatial_block`` (two launches),
-    reading ``operands`` (from :func:`pack_spatial_block`; packed here when
-    None)."""
+    card :func:`spatial_launch` (the context K/V and q|k|v GEMMs, then one
+    launch of ``ds_spatial_block``), reading ``operands`` (from
+    :func:`pack_spatial_block`; packed here when None) and their TMA maps."""
     if not cuda_lib.use_kernel(x, ctx):
         return spatial_block_plain(x, ctx, lns, attn1, attn2, ff, heads=heads, scale=scale, text_len=text_len,
                                    eps=eps)
@@ -266,7 +279,7 @@ def fused_spatial_block(x, ctx, lns, attn1, attn2, ff, *, heads, scale, text_len
     cuda_lib.check_operand("x", x)
     op = operands or pack_spatial_block(lns, attn1, attn2, ff, dtype=x.dtype)
     check_spatial_operands(op, C, Dc, has_img)
-    out = spatial_launch(x, ctx, op, None, heads=heads, scale=scale, text_len=text_len, eps=eps)
+    out = spatial_launch(x, ctx, op, None, op.maps, heads=heads, scale=scale, text_len=text_len, eps=eps)
     fused_spatial_block.launches += 1
     return out
 

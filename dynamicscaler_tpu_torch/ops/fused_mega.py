@@ -25,11 +25,12 @@ launch counters ``.launches``): they take the folded GroupNorm vectors
 ``spatial_transformer`` compute with the statistics pass
 ``fused_twrap.group_norm_fold`` (the JAX package leaves it to XLA outside
 the kernels; on the card it is ``csrc/gn_silu.cu::ds_gn_stats``). On the card kernel 12 runs as
-``csrc/block.cu::ds_temporal_mega`` (one launch, kernel 10's design) and kernel 13 as the
-context K/V projection and ``csrc/mega.cu::ds_mega_spatial`` (two
-launches); see the notes there. The plain versions are the plain versions
-of kernels 5, 10 and 6, and of 7, 2, 3, 4 and 8, in sequence, which hold the
-TPU kernels' rounding points.
+``csrc/block.cu::ds_temporal_mega`` (one launch, kernel 10's design) and kernel 13 as
+``csrc/gemm.cu`` GEMMs (the context K/V once per clip, the GroupNorm apply ->
+proj_in head, LN1 -> q|k|v) and one launch of ``csrc/mega.cu::ds_mega_spatial``
+(the body and proj_out on kernel 10's design); see the notes there. The
+plain versions are the plain versions of kernels 5, 10 and 6, and of 7, 2,
+3, 4 and 8, in sequence, which hold the TPU kernels' rounding points.
 
 The gates :func:`temporal_ok` and :func:`spatial_ok` are the JAX package's
 shape conditions without its TPU tiling terms; the module dispatch routes by
@@ -77,7 +78,7 @@ class MegaOperands(NamedTuple):
     block: BlockOperands
     w_out: torch.Tensor
     b_out: torch.Tensor
-    maps: dict = None  # kernel 12: its eight weights' TMA maps by cluster size, kept with them
+    maps: dict = None  # kernels 12, 13: their weights' TMA maps (eight by cluster size; six), kept with them
 
 
 def _check_wrapper(op: MegaOperands, C: int, Ci: int) -> None:
@@ -174,7 +175,7 @@ def spatial_ok(n_tokens: int, C: int, inner: int, heads: int, ctx_dim: int) -> b
 
 def pack_spatial_mega(w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, *, dtype) -> MegaOperands:
     wi, bi, wo, bo = pack_wrapper(w_in, b_in, w_out, b_out, dtype=dtype)
-    return MegaOperands(wi, bi, pack_spatial_block(lns, attn1, attn2, ff, dtype=dtype), wo, bo)
+    return MegaOperands(wi, bi, pack_spatial_block(lns, attn1, attn2, ff, dtype=dtype), wo, bo, {})
 
 
 def spatial_mega_plain(x4, ctx, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, *, heads,
@@ -190,9 +191,11 @@ def spatial_mega_plain(x4, ctx, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_o
 def spatial_mega(x4, ctx, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, *, heads, scale,
                  text_len=77, eps=1e-5, operands=None):
     """Kernel 13 with the folded GroupNorm vectors ``(mul, add)`` [BF, C]:
-    [BF, H, W, C] -> [BF, H, W, C]. On the card the context K/V projection
-    and ``ds_mega_spatial`` (head dim 64, C and Ci up to 640), reading
-    ``operands`` (from :func:`pack_spatial_mega`; packed here when None)."""
+    [BF, H, W, C] -> [BF, H, W, C]. On the card
+    :func:`fused_block.spatial_launch` (the context K/V, proj_in and q|k|v
+    GEMMs, then one launch of ``ds_mega_spatial``; head dim 64, inner == C
+    <= 640), reading ``operands`` (from
+    :func:`pack_spatial_mega`; packed here when None) and their TMA maps."""
     if not cuda_lib.use_kernel(x4, ctx):
         return spatial_mega_plain(x4, ctx, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out,
                                   heads=heads, scale=scale, text_len=text_len, eps=eps)
@@ -208,7 +211,7 @@ def spatial_mega(x4, ctx, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_
     check_spatial_operands(op.block, Ci, Dc, has_img)
     _check_gn(mul, add, BF, C)
     out = spatial_launch(x4.reshape(BF, H * W, C), ctx, op.block, (mul, add, op.w_in, op.b_in, op.w_out, op.b_out),
-                         heads=heads, scale=scale, text_len=text_len, eps=eps)
+                         op.maps, heads=heads, scale=scale, text_len=text_len, eps=eps)
     spatial_mega.launches += 1
     return out.reshape(x4.shape)
 

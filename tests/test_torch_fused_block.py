@@ -1,6 +1,7 @@
 """Kernels 10 and 13 of the PyTorch port (``ops/fused_block.py``,
 ``ops/fused_mega.py``) and its per-shape dispatch plan, against the JAX
-package on the CPU.
+package on the CPU; the tile plans and the card-side host code of kernels
+10-13 with the launches recorded.
 
 On the CPU each wrapper takes its plain PyTorch version; the JAX side runs
 ``_temporal_block_call`` and ``_s_mega_call`` through the Pallas
@@ -222,6 +223,129 @@ def test_block_wrappers_hand_their_kernels_the_plan(monkeypatch):
     assert fused_block.fused_temporal_block.launches == 0 and fused_mega.temporal_mega.launches == 0
 
 
+@pytest.mark.parametrize("C,N", [(C, N) for C in range(64, 641, 64) for N in (256, 400, 1600, 2560, 4096)])
+def test_spatial_plan_fits_the_card(C, N):
+    """The tile plan of kernels 11 and 13 (``cuda_lib.spatial_plan``) at
+    every width the gates admit: its shared memory is csrc/mega.cu's
+    reckoning and fits the H100's 232,448 bytes; TM 64 up to C 320 and 32
+    above (the second product's C / 128 output tiles held in registers); the
+    ring an even number of slots, at least 4, and as deep as fits; the
+    hidden chunk a multiple of 128 that divides 4C and lies in O; and the
+    grid at N tokens a sample one block a
+    (sample, query tile), the last tile of a sample ragged where TM does
+    not divide N."""
+    p = cuda_lib.spatial_plan(C)
+    assert p.smem == cuda_lib.spatial_smem(p.tm, C, p.stages, p.hc) <= 232448
+    assert p.tm == (64 if C <= 320 else 32) and C <= 128 * {64: 3, 32: 5}[p.tm]
+    assert 4 <= p.stages <= cuda_lib.SPATIAL_MAX_STAGES and p.stages % 2 == 0
+    assert cuda_lib.spatial_smem(p.tm, C, p.stages + 2, p.hc) > 232448 or p.stages == cuda_lib.SPATIAL_MAX_STAGES
+    assert p.hc % 128 == 0 and (4 * C) % p.hc == 0 and p.hc <= max(C, 128)
+    for samples in (1, 3, 128):
+        grid = cuda_lib.spatial_grid(p, samples, N)
+        tiles = grid // samples
+        assert grid % samples == 0 and tiles * p.tm >= N > (tiles - 1) * p.tm
+
+
+def _spatial_call_operands(C, Dc, img):
+    lns, a1, a2, ff = _block_operands(C)
+    g = torch.Generator().manual_seed(1)
+    a2 = a2[:1] + (torch.randn(C, Dc, generator=g), torch.randn(C, Dc, generator=g)) + a2[3:]
+    if img:
+        a2 += (torch.randn(C, Dc, generator=g), torch.randn(C, Dc, generator=g))
+    return lns, a1, a2, ff
+
+
+def test_spatial_wrappers_hand_their_kernels_the_plan(monkeypatch):
+    """The card-side host code of kernels 11 and 13, run on CPU tensors with
+    every launch replaced by a recorder: the head runs as ``ds_ln_gemm``
+    calls (the context K|V of each segment once per clip; kernel 13's
+    GroupNorm apply -> proj_in with one sample per N rows; LN1 -> q|k|v),
+    whose outputs the body reads; each wrapper encodes its weights' TMA maps
+    once (five for kernel 11, six with w_out for kernel 13) and keeps them
+    with the packed operands, hands ``ds_spatial_block`` /
+    ``ds_mega_spatial`` the pointers in their order, the maps and
+    ``spatial_plan``'s tile, and counts one launch; a second call reuses the
+    maps. Where the kernel returns an error the wrapper raises and counts
+    nothing."""
+    calls = []
+    monkeypatch.setattr(cuda_lib, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(cuda_lib, "check_operand", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_lib, "call", lambda name, *args: calls.append((name, args)))
+    for fn in (fused_block.fused_spatial_block, fused_mega.spatial_mega):
+        monkeypatch.setattr(fn, "launches", 0)
+    bf, C, Dc, N, clips, frames = torch.bfloat16, 128, 256, 272, 2, 3
+    lns, a1, a2, ff = _spatial_call_operands(C, Dc, img=True)
+    op = fused_block.pack_spatial_block(lns, a1, a2, ff, dtype=bf)
+    x = torch.zeros(clips * frames, N, C, dtype=bf)
+    ctx = torch.zeros(clips, 77 + 16, Dc, dtype=bf)
+    plan = cuda_lib.spatial_plan(C)
+
+    def gemm_io(args):  # ds_ln_gemm's (x, M, K, ln, gn, rows/sample, w, N, y) of a recorded call
+        return (args[0].value, args[1], args[2], args[3] is not None, args[6] is not None, args[8], args[11].value,
+                args[12], args[15].value)
+    for _ in range(2):
+        out = fused_block.fused_spatial_block(x, ctx, lns, a1, a2, ff, heads=2, scale=0.125, operands=op)
+        assert out.shape == x.shape
+    names = ["ds_ln_gemm"] * 3 + ["ds_spatial_maps", "ds_spatial_block"] + ["ds_ln_gemm"] * 3 + ["ds_spatial_block"]
+    assert [c[0] for c in calls] == names
+    kv_t, kv_i, qkv = (gemm_io(c[1]) for c in calls[:3])
+    T = clips * frames * N
+    assert kv_t[1:6] == (clips * 77, Dc, False, False, 0) and kv_t[6:8] == (op.attn2.w_kv[0].data_ptr(), 2 * C)
+    assert kv_i[1:6] == (clips * 16, Dc, False, False, 0) and kv_i[6:8] == (op.attn2.w_kv[1].data_ptr(), 2 * C)
+    assert qkv[:6] == (x.data_ptr(), T, C, True, False, 0) and qkv[6:8] == (op.attn1.w_in.data_ptr(), 3 * C)
+    maps_args, args = calls[3][1], calls[4][1]
+    assert list(maps_args[0]) == [w.data_ptr() for w in fused_block.spatial_weights(op)] and maps_args[1:3] == (5, C)
+    p = list(args[0])
+    assert p[:5] == [x.data_ptr(), None, qkv[8], kv_t[8], kv_i[8]] and p[13] is None
+    assert p[5:13] == [t.data_ptr() for t in (op.attn1.bo, op.attn2.ln_scale, op.attn2.ln_bias, op.attn2.bo,
+                                              op.ff.ln_scale, op.ff.ln_bias, op.ff.b1, op.ff.b2)]
+    assert args[1:9] == (clips * frames, N, C, frames, 77, 16, 0.125, 1e-5) and tuple(args[10:]) == tuple(plan)
+    assert args[9].value == maps_args[3].value and calls[8][1][9].value == args[9].value
+    assert fused_block.fused_spatial_block.launches == 2 and list(op.maps) == ["spatial"]
+
+    calls.clear()
+    w_in, b_in, w_out, b_out = torch.randn(C, C), torch.randn(C), torch.randn(C, C), torch.randn(C)
+    lns, a1, a2, ff = _spatial_call_operands(C, Dc, img=False)
+    mop = fused_mega.pack_spatial_mega(w_in, b_in, lns, a1, a2, ff, w_out, b_out, dtype=bf)
+    x4 = torch.zeros(clips * frames, 16, 17, C, dtype=bf)
+    ctx = torch.zeros(clips, 77, Dc, dtype=bf)
+    mul, add = torch.ones(clips * frames, C), torch.zeros(clips * frames, C)
+    out = fused_mega.spatial_mega(x4, ctx, mul, add, w_in, b_in, lns, a1, a2, ff, w_out, b_out, heads=2,
+                                  scale=0.125, operands=mop)
+    assert out.shape == x4.shape
+    assert [c[0] for c in calls] == ["ds_ln_gemm"] * 3 + ["ds_spatial_maps", "ds_mega_spatial"]
+    kv_t, head, qkv = (gemm_io(c[1]) for c in calls[:3])
+    assert kv_t[1:6] == (clips * 77, Dc, False, False, 0)
+    assert head[:6] == (x4.data_ptr(), T, C, False, True, N) and head[6:8] == (mop.w_in.data_ptr(), C)
+    assert calls[1][1][13].value == mop.b_in.data_ptr()
+    assert qkv[0] == head[8] and qkv[1:6] == (T, C, True, False, 0)
+    maps_args, args = calls[3][1], calls[4][1]
+    assert list(maps_args[0]) == [w.data_ptr() for w in fused_block.spatial_weights(mop.block) + [mop.w_out]]
+    assert maps_args[1:3] == (6, C)
+    p = list(args[0])
+    assert p[:5] == [head[8], x4.data_ptr(), qkv[8], kv_t[8], None] and p[13] == mop.b_out.data_ptr()
+    assert args[1:9] == (clips * frames, N, C, frames, 77, 0, 0.125, 1e-5) and tuple(args[10:]) == tuple(plan)
+    assert fused_mega.spatial_mega.launches == 1 and list(mop.maps) == ["spatial"]
+
+    # a non-zero return of the kernel reaches the wrapper, which raises
+    monkeypatch.undo()
+    monkeypatch.setattr(cuda_lib, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(cuda_lib, "check_operand", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    failing = types.SimpleNamespace(ds_ln_gemm=lambda *a: 0, ds_spatial_maps=lambda *a: 0,
+                                    ds_spatial_block=lambda *a: 700, ds_mega_spatial=lambda *a: 719)
+    monkeypatch.setattr(cuda_lib, "library", lambda: failing)
+    for fn in (fused_block.fused_spatial_block, fused_mega.spatial_mega):
+        monkeypatch.setattr(fn, "launches", 0)
+    lns, a1, a2, ff = _spatial_call_operands(C, Dc, img=False)
+    with pytest.raises(RuntimeError, match="ds_spatial_block launch failed: CUDA error 700"):
+        fused_block.fused_spatial_block(x, ctx, lns, a1, a2, ff, heads=2, scale=0.125)
+    with pytest.raises(RuntimeError, match="ds_mega_spatial launch failed: CUDA error 719"):
+        fused_mega.spatial_mega(x4, ctx, mul, add, w_in, b_in, lns, a1, a2, ff, w_out, b_out, heads=2, scale=0.125,
+                                operands=mop)
+    assert fused_block.fused_spatial_block.launches == 0 and fused_mega.spatial_mega.launches == 0
+
+
 @pytest.mark.parametrize("img,C,heads", [(False, 64, 1), (True, 128, 2)])
 def test_spatial_mega_matches_pallas(rng, interpret, img, C, heads):
     """Kernel 13's plain version: the whole SpatialTransformer over N = 256
@@ -235,6 +359,29 @@ def test_spatial_mega_matches_pallas(rng, interpret, img, C, heads):
     gs, gb = _vec(rng, C, 1.0), _vec(rng, C)
     w_in, b_in, w_out, b_out = _w(rng, C, C), _vec(rng, C), _w(rng, C, C), _vec(rng, C)
     lns, a1, a2, ff = _block_weights(rng, C, Dc, img)
+    scale = 64 ** -0.5
+    ref = jmega.spatial_transformer(
+        jnp.asarray(x4), jnp.asarray(np.repeat(ctx, frames, axis=0)), jnp.asarray(gs), jnp.asarray(gb),
+        jnp.asarray(w_in), jnp.asarray(b_in), tuple(map(jnp.asarray, lns)), tuple(map(jnp.asarray, a1)),
+        _jax_attn2(a2), tuple(map(jnp.asarray, ff)), jnp.asarray(w_out), jnp.asarray(b_out), heads=heads,
+        scale=scale)
+    got = fused_mega.spatial_transformer(_t(x4), _t(ctx), _t(gs), _t(gb), _t(w_in.T), _t(b_in),
+                                         tuple(map(_t, lns)), _port(a1), _port(a2), _port(ff), _t(w_out.T),
+                                         _t(b_out), heads=heads, scale=scale)
+    assert got.shape == x4.shape and fused_mega.spatial_mega.launches == 0
+    _close(got, ref)
+
+
+def test_spatial_mega_matches_pallas_at_a_ragged_n(rng, interpret):
+    """Kernel 13's plain version at N = 272 (17 x 16 tokens: no query tile
+    of the card's kernel divides it, so a sample's last tile is ragged), 2
+    clips of 2 frames, i2v context."""
+    clips, frames, H, W, C, Dc, heads = 2, 2, 16, 17, 128, 128, 2
+    x4 = (2.0 * rng.standard_normal((clips * frames, H, W, C)) + 0.5).astype(np.float32)
+    ctx = rng.standard_normal((clips, 77 + 16, Dc)).astype(np.float32)
+    gs, gb = _vec(rng, C, 1.0), _vec(rng, C)
+    w_in, b_in, w_out, b_out = _w(rng, C, C), _vec(rng, C), _w(rng, C, C), _vec(rng, C)
+    lns, a1, a2, ff = _block_weights(rng, C, Dc, True)
     scale = 64 ** -0.5
     ref = jmega.spatial_transformer(
         jnp.asarray(x4), jnp.asarray(np.repeat(ctx, frames, axis=0)), jnp.asarray(gs), jnp.asarray(gb),

@@ -116,6 +116,23 @@ def test_spatial_block_matches_pallas(rng, interpret, img):
     _close(got, ref)
 
 
+def test_spatial_block_matches_pallas_at_a_ragged_n(rng, interpret):
+    """Kernel 11's plain version at N = 272 (17 x 16 tokens: no query tile
+    of the card's kernel divides it, so a sample's last tile is ragged), 2
+    clips of 3 frames, i2v context, two heads."""
+    clips, frames, N, C, Dc, heads = 2, 3, 272, 128, 128, 2
+    x = rng.standard_normal((clips * frames, N, C)).astype(np.float32)
+    ctx = rng.standard_normal((clips, 77 + 16, Dc)).astype(np.float32)
+    lns, a1, a2, ff = _block_weights(rng, C, Dc, True)
+    scale = 64 ** -0.5
+    ref = jblock.fused_spatial_block(jnp.asarray(x), jnp.asarray(np.repeat(ctx, frames, axis=0)), _jax(lns),
+                                     _jax(a1), _jax(a2[:3] + a2[5:] + a2[3:5]), _jax(ff), heads=heads, scale=scale)
+    got = fused_block.fused_spatial_block(_t(x), _t(ctx), tuple(map(_t, lns)), _port(a1), _port(a2), _port(ff),
+                                          heads=heads, scale=scale)
+    assert got.shape == x.shape and fused_block.fused_spatial_block.launches == 0
+    _close(got, ref)
+
+
 @pytest.mark.parametrize("C,heads", [(64, 1), (128, 2)])
 def test_temporal_mega_matches_pallas(rng, interpret, C, heads):
     """Kernel 12's plain version: the whole TemporalTransformer over 2 clips
