@@ -5,7 +5,9 @@
 Phases, in order, one result line each (any failure exits non-zero):
 
 1. card and build: ``nvidia-smi`` name and power limit; build the CUDA
-   kernels of ``dynamicscaler_tpu_torch/csrc`` (nvcc, sm_90a).
+   kernels of ``dynamicscaler_tpu_torch/csrc`` (nvcc, sm_90a); the clusters
+   of each size ``ds_group_norm_silu``'s plan can give that the card holds
+   at once (at least one of each).
 2. the models' forwards, each through the kernels and through the plain
    versions (seeded random bf16 weights, zero-initialised layers perturbed):
    one full-width VideoCrafter2 t2v UNet forward at window batch 2 (one CFG
@@ -24,12 +26,18 @@ Phases, in order, one result line each (any failure exits non-zero):
    shapes.
 3. each kernel against its plain PyTorch version, bf16, at every shape that
    phase 2 recorded: K1-K4 (K3 in its t2v and i2v variants), the
-   transformer wrapper heads and tails K5-K8, ``gn_silu`` K9 (UNet and VAE),
-   the whole blocks K10 and K11 and the whole transformers K12 and K13, the
+   transformer wrapper heads and tails K5-K8, ``gn_silu`` K9 (UNet and VAE:
+   GroupNorm + SiLU in one call, ``ds_group_norm_silu``, against the plain
+   fold then the plain apply, bit for bit against a rerun; with its route,
+   cluster size and clusters at once, its folded statistics against the
+   plain fold, and the apply kernel alone, ``gn_silu_apply``, against the
+   plain apply; times against the route's bound and the apply's), the whole
+   blocks K10 and K11 and the whole transformers K12 and K13, the
    device kernels inside K1 (TA, ``ds_temporal_attention``) and K2 / K3
    (FA, ``ds_flash_attention``, against one SDPA call a key segment), and
-   the GroupNorm statistics (GN, ``ds_gn_stats``, whose vectors K5, K7, K9,
-   K12 and K13 read; against the plain fold and bit for bit against a second
+   the GroupNorm statistics (GN, ``ds_gn_stats``, whose vectors K5, K7, K12
+   and K13 read, and which K9's split route launches inside its call;
+   against the plain fold and bit for bit against a second
    run, beside ``torch.var_mean``); and at the shapes no forward of phase 2
    gives (:func:`_repair_cases`: clip geometries of the earlier repairs, and
    K11 and K13 at the 40x40 latent's levels, t2v, 8 frames a clip and N 256
@@ -37,7 +45,7 @@ Phases, in order, one result line each (any failure exits non-zero):
    shape: max abs error against the stated tolerance, L2 error, and the
    kernel, plain and library-composite times (CUDA events) beside the bound
    (the least time the H100 could take for the kernel's work); the
-   statistics pass is also timed at each K5, K7, K9, K12, K13 site; K10 and
+   statistics pass is also timed at each K5, K7, K12, K13 site; K10 and
    K12 also with their tile plan (TM, CL, ring stages, head group, hidden
    chunk, shared memory), the clusters of it the card holds at once
    (``cudaOccupancyMaxActiveClusters``), their TFLOP/s and share of 989,
@@ -112,8 +120,10 @@ KERNELS = {
            "dynamicscaler_tpu_torch/csrc/gemm.cu", "dynamicscaler_tpu/ops/fused_twrap.py:236"),
     "K8": (fused_twrap.tail_spatial, "tail_spatial (spatial wrapper tail: proj_out, residual)",
            "dynamicscaler_tpu_torch/csrc/gemm.cu", "dynamicscaler_tpu/ops/fused_twrap.py:277"),
-    "K9": (fused_twrap.gn_silu_apply, "gn_silu_apply (folded GroupNorm apply + SiLU)",
-           "dynamicscaler_tpu_torch/csrc/gn_silu.cu", "dynamicscaler_tpu/ops/fused_twrap.py:386"),
+    "K9": (fused_twrap.gn_silu, "gn_silu (GroupNorm + SiLU in one call with its statistics, ds_group_norm_silu: "
+           "a thread-block cluster a sample with the slab in shared memory, or ds_gn_stats's kernels then the "
+           "apply kernel of ds_gn_silu)", "dynamicscaler_tpu_torch/csrc/gn_silu.cu",
+           "dynamicscaler_tpu/ops/fused_twrap.py:386"),
     "K10": (fused_block.fused_temporal_block, "fused_temporal_block (whole temporal transformer block)",
             "dynamicscaler_tpu_torch/csrc/block.cu", "dynamicscaler_tpu/ops/fused_block.py:292"),
     "K11": (fused_block.fused_spatial_block, "fused_spatial_block (whole spatial transformer block)",
@@ -123,15 +133,17 @@ KERNELS = {
     "K13": (fused_mega.spatial_mega, "spatial_mega (whole spatial transformer, folded GroupNorm)",
             "dynamicscaler_tpu_torch/csrc/mega.cu", "dynamicscaler_tpu/ops/fused_mega.py:340"),
     # the device kernels inside K1 and K2 / K3, and the statistics pass under
-    # kernels 5, 7, 9, 12 and 13, each with a wrapper and a counter of its own
+    # kernels 5, 7, 12 and 13 and K9's split route, each with a wrapper and a
+    # counter of its own (K9's split route counts its statistics launches in
+    # gn_silu.launches_split)
     "TA": (fused_temporal.temporal_attention, "temporal_attention (K1's attention core, ds_temporal_attention)",
            "dynamicscaler_tpu_torch/csrc/attention.cu", "dynamicscaler_tpu/ops/fused_temporal.py:267"),
     "FA": (fused_spatial.flash_attention,
            "flash_attention (K2's and K3's attention core, ds_flash_attention; K3 is fused_spatial.py:337)",
            "dynamicscaler_tpu_torch/csrc/attention.cu", "dynamicscaler_tpu/ops/fused_spatial.py:156"),
     "GN": (fused_twrap.group_norm_fold,
-           "group_norm_fold (GroupNorm statistics under K5, K7, K9, K12, K13, ds_gn_stats; an XLA reduction "
-           "in the JAX package)", "dynamicscaler_tpu_torch/csrc/gn_silu.cu", "dynamicscaler_tpu/ops/fused_twrap.py:58"),
+           "group_norm_fold (GroupNorm statistics under K5, K7, K12, K13 and K9's split route, ds_gn_stats; an "
+           "XLA reduction in the JAX package)", "dynamicscaler_tpu_torch/csrc/gn_silu.cu", "dynamicscaler_tpu/ops/fused_twrap.py:58"),
 }
 # the kernels whose launches the VAE adds to a UNet forward's (gn_silu and its statistics)
 VAE_KERNELS = ("K9", "GN")
@@ -148,7 +160,7 @@ ROLES = {
     "K6": ("y", "gx", "w", "vec"),
     "K7": ("gx", "mul", "add", "w", "vec"),
     "K8": ("y", "gx", "w", "vec"),
-    "K9": ("gx", "mul", "add"),
+    "K9": ("gx", "ln", "vec"),
     "K10": ("x", "lns", "attn", "attn", "ff"),
     "K11": ("x", "ctx", "lns", "attn", "attn", "ff"),
     "K12": ("gx", "mul", "add", "w", "vec", "lns", "attn", "attn", "ff", "w", "vec"),
@@ -164,10 +176,10 @@ ROLES = {
 # apart (2^-7 relative each). TOL_REL bounds the worst element against
 # max|plain|; TOL_BRANCH_REL_L2 bounds the L2 error against the op's own
 # output (plain - x for the ops with a residual, which x would otherwise
-# hide). K9 (gn_silu) has no sum at all: kernel and plain share the folded
-# GroupNorm vectors and round once, so each element must be within one bf16
-# ulp of plain (|d| <= 2^-7 |plain| + 1e-6 max|plain|) and the L2 error
-# within 1e-3.
+# hide). K9 (gn_silu) and its apply kernel alone round once after the
+# GroupNorm vectors (the one call folds its own, within TOL_FOLD_REL of the
+# plain fold's), so each element must be within one bf16 ulp of plain (|d|
+# <= 2^-7 |plain| + 1e-6 max|plain|) and the L2 error within 1e-3.
 TOL_REL = 0.03
 TOL_BRANCH_REL_L2 = 0.02
 TOL_GN_ULP = 2.0 ** -7
@@ -222,10 +234,27 @@ def _reset_launches() -> None:
     for fn, *_ in KERNELS.values():
         fn.launches = 0
     fused_spatial.fused_ln_cross_attention.launches_i2v = 0
+    fused_twrap.gn_silu.launches_split = 0
 
 
 def _launches() -> dict:
-    return {k: fn.launches for k, (fn, *_) in KERNELS.items()}
+    n = {k: fn.launches for k, (fn, *_) in KERNELS.items()}
+    n["GN"] += fused_twrap.gn_silu.launches_split  # ds_gn_stats's kernels inside K9's split route
+    return n
+
+
+def _k9_route(pos):
+    """The ``gn_plan`` route of a recorded K9 call (positional arguments as
+    :func:`_describe` gives them)."""
+    shape = pos[0][0]
+    B, C = shape[0], shape[-1]
+    return cuda_lib.gn_plan(B, int(np.prod(shape)) // (B * C), C, 32).route
+
+
+def _k9_split(calls) -> int:
+    """Recorded K9 calls on the split route (each launches the statistics
+    kernels inside it)."""
+    return sum(n for (k, pos, _), n in calls.items() if k == "K9" and _k9_route(pos) == "split")
 
 
 def main() -> None:
@@ -244,7 +273,15 @@ def main() -> None:
     t0 = time.perf_counter()
     lib = cuda_lib.build(verbose=True)
     cuda_lib.library()
-    print(f"phase 1 ok: built {lib.relative_to(cuda_lib.REPO_ROOT)} in {time.perf_counter() - t0:.1f} s "
+    built_s = time.perf_counter() - t0
+    # every cluster size gn_plan can give must be schedulable at the most shared memory a block may take
+    held = [cuda_lib.gn_clusters(cuda_lib.GnPlan("cluster", cs, 1, cuda_lib.GEMM_SMEM_MAX, 0), 320)
+            for cs in range(1, cuda_lib.GN_CLUSTER_MAX + 1)]
+    print(f"phase 1 ds_group_norm_silu: clusters of 1-{cuda_lib.GN_CLUSTER_MAX} blocks of {cuda_lib.GEMM_SMEM_MAX} B "
+          f"the card holds at once (cudaOccupancyMaxActiveClusters): {held}", flush=True)
+    if min(held) < 1:
+        _fail(f"a cluster size of ds_group_norm_silu's plan does not fit the card: {held}")
+    print(f"phase 1 ok: built {lib.relative_to(cuda_lib.REPO_ROOT)} in {built_s:.1f} s "
           f"on {torch.cuda.get_device_name(0)} [{smi}]", flush=True)
 
     t2v_model, i2v_model = _random_model("t2v"), _random_model("i2v")
@@ -422,6 +459,7 @@ def _against_plain(where, fn, sites, iters, plain_iters):
     recorded = dict.fromkeys(KERNELS, 0)
     for (k, *_), n in calls.items():
         recorded[k] += n
+    recorded["GN"] += _k9_split(calls)
     if recorded != launches:
         _fail(f"{where}: recorded calls {recorded} != launches {launches}")
     return Versus(got, rel, finite, launches, i2v_k3, ms, plain_ms)
@@ -461,11 +499,13 @@ def expected_launches(cfg, H, W, frames=16):
     tail (K5 + K6 / K7 + K8) around the whole block (K10 / K11) where the
     plan allows ``block`` and its gate admits it, or around the sub-blocks
     (K1 x 2 + K4 / K2 + K3 + K4). gn_silu (K9): 2 per ResBlock, 4 more in
-    its temporal conv block, and the out norm. The device-kernel wrappers
-    inside them: K1's attention core (TA) once per K1, K2's and K3's (FA)
-    once per K2 and per K3, the GroupNorm statistics (GN) once per K5, K7,
-    K9, K12 and K13."""
-    from dynamicscaler_tpu_torch.models.unet3d import unet_layout
+    its temporal conv block, and the out norm (``unet3d.gn_silu_calls``).
+    The device-kernel wrappers inside them: K1's attention core (TA) once
+    per K1, K2's and K3's (FA) once per K2 and per K3, the GroupNorm
+    statistics (GN) once per K5, K7, K12 and K13 and per K9 call on the
+    split route (``cuda_lib.gn_plan``: the route depends on a sample's rows
+    and channels, not on the batch)."""
+    from dynamicscaler_tpu_torch.models.unet3d import gn_silu_calls
 
     n = collections.Counter()
     allows = fused_temporal.plan_allows
@@ -489,11 +529,10 @@ def expected_launches(cfg, H, W, frames=16):
                 n["K11"] += 1
             else:
                 n.update(("K2", "K3", "K4"))
-    ins, outs, mid, _ = unet_layout(cfg)
-    res = sum(sp.kind == "res" for specs in (*ins, mid, *outs) for sp in specs)
-    n["K9"] = (2 + 4 * cfg.temporal_conv) * res + 1
+    k9 = gn_silu_calls(cfg, 1, frames, H, W)
+    n["K9"] = len(k9)
     n["TA"], n["FA"] = n["K1"], n["K2"] + n["K3"]
-    n["GN"] = n["K5"] + n["K7"] + n["K9"] + n["K12"] + n["K13"]
+    n["GN"] = n["K5"] + n["K7"] + n["K12"] + n["K13"] + sum(cuda_lib.gn_plan(*c, 32).route == "split" for c in k9)
     return {k: n[k] for k in KERNELS}
 
 
@@ -549,14 +588,16 @@ def _phase_forwards(model, i2v_model):
     enc = _against_plain("i2v tiled VAE encode", lambda: tiled_vae_encode(i2v_model, pano), sites, 1, 1)
     z = enc.out
     dec = _against_plain("i2v ring decode, one frame", lambda: ring_aware_decode(i2v_model, z), sites, 1, 1)
-    for name, r, shape in (("tiled VAE encode of the 512x1024 panorama", enc, (1, 1, 64, 128, 4)),
-                           ("ring decode of one 64x128 latent frame", dec, (1, 1, 512, 1024, 3))):
+    for name, where, r, shape in (
+            ("tiled VAE encode of the 512x1024 panorama", "i2v tiled VAE encode", enc, (1, 1, 64, 128, 4)),
+            ("ring decode of one 64x128 latent frame", "i2v ring decode, one frame", dec, (1, 1, 512, 1024, 3))):
         print(f"phase 2 i2v {name}: {tuple(r.out.shape)} rel_l2 {r.rel:.5f} (tol {TOL_PATH_REL_L2}) "
-              f"kernels {r.ms:.1f} ms plain {r.plain_ms:.1f} ms gn_silu launches {r.launches['K9']} GroupNorm "
-              f"statistics launches {r.launches['GN']}", flush=True)
+              f"kernels {r.ms:.1f} ms plain {r.plain_ms:.1f} ms gn_silu launches {r.launches['K9']} (split route "
+              f"{_k9_split(sites[where])}) GroupNorm statistics launches {r.launches['GN']}", flush=True)
         others = {k: n for k, n in r.launches.items() if k not in VAE_KERNELS and n}
+        split = _k9_split(sites[where])
         if tuple(r.out.shape) != shape or not r.finite or r.rel > TOL_PATH_REL_L2 or not r.launches["K9"] \
-                or r.launches["GN"] != r.launches["K9"] or others:
+                or r.launches["GN"] != split or others:
             _fail(f"VAE {name}: shape {tuple(r.out.shape)} finite {r.finite} rel_l2 {r.rel} "
                   f"launches {r.launches}")
     print("phase 2 ok", flush=True)
@@ -582,8 +623,10 @@ def _profile_forward(where, fwd, wall_ms):
         n = e.key.lower()
         key = ("ds_ln_gemm (K1-K4 projections, K5-K8 wrapper heads/tails; GEMM + prologue pass)"
                if any(k in n for k in ("ds_gemm_kernel", "prologue_ln_kernel", "prologue_gn_kernel"))
-               else "ds_gn_silu (K9)" if "gn_silu_kernel" in n
-               else "ds_gn_stats (GroupNorm statistics)" if "gn_partial_kernel" in n or "gn_fold_kernel" in n
+               else "ds_group_norm_silu cluster route (K9)" if "gn_cluster_kernel" in n
+               else "ds_gn_silu apply kernel (K9 split route)" if "gn_apply_kernel" in n
+               else "ds_gn_stats (GroupNorm statistics: K5, K7, K12, K13, K9 split route)"
+               if "gn_partial_kernel" in n or "gn_fold_kernel" in n
                else "ds_flash_attn (K2, K3)" if "flash_attn_kernel" in n
                else "ds_temporal_attn (K1)" if "temporal_attn_kernel" in n
                else "ds_temporal_block / ds_temporal_mega (K10, K12)" if "temporal_block_tma_kernel" in n
@@ -618,6 +661,7 @@ class Case:
     block = None  # K10, K12: (tokens, C, F, mega) for the tile plan line
     run_at = None  # K10, K12: run(plan), the kernel at another tile plan
     spatial = None  # K11, K13: (samples, N, C) for the tile plan line
+    gn = None  # K9: (x, scale, bias, eps, act) for the route line
 
     def __init__(self, k, desc, run, plain, library, inputs, *, base=None, fold=None, flops=0.0, ops=0.0):
         self.k, self.desc = k, desc
@@ -787,9 +831,11 @@ def _case(k, pos, opts, rn):
                     lambda: torch.var_mean(x.view(B, -1, G, C // G), dim=(1, 3)), ops=3 * x.numel(), **common)
         case.lib_comparable = False
         return case
-    act = opts.get("act", True)
-    return Case(k, f"x{list(x.shape)}{'' if act else ' no SiLU'}", run, plain, _lib_gn_silu(x, *gn, 1e-6, act),
-                ops=x.numel() * (6 if act else 2), **common)
+    eps, act = opts.get("eps", 1e-5), opts.get("act", True)
+    case = Case(k, f"x{list(x.shape)} eps {eps:g}{'' if act else ' no SiLU'}", run, plain,
+                _lib_gn_silu(x, a[1], a[2], eps, act), ops=x.numel() * (9 if act else 5), **common)
+    case.gn = (x, a[1], a[2], eps, act)
+    return case
 
 
 def _bf(*ts):
@@ -997,11 +1043,66 @@ def _check(case, got, ref):
         return (err, f"{tol:.2e}, bit-exact rerun {same}", rel, TOL_FOLD_REL_L2,
                 finite and same and err <= tol and rel <= TOL_FOLD_REL_L2)
     if case.k == "K9":
-        peak = float(ref.float().abs().max())
-        beyond = int((diff.abs() > TOL_GN_ULP * ref.float().abs() + 1e-6 * peak).sum())
-        return err, f"1 bf16 ulp, {beyond} beyond", rel, TOL_GN_REL_L2, finite and beyond == 0 and rel <= TOL_GN_REL_L2
+        beyond = _beyond_ulp(got, ref)
+        same = bool(torch.equal(case.run(), got))
+        return (err, f"1 bf16 ulp, {beyond} beyond, bit-exact rerun {same}", rel, TOL_GN_REL_L2,
+                finite and same and beyond == 0 and rel <= TOL_GN_REL_L2)
     tol = TOL_REL * max(1.0, float(ref.float().abs().max()))
     return err, f"{tol:.5f}", rel, TOL_BRANCH_REL_L2, finite and err <= tol and rel <= TOL_BRANCH_REL_L2
+
+
+def _beyond_ulp(got, ref) -> int:
+    """Elements of ``got`` more than one bf16 ulp from ``ref`` (the K9 gate)."""
+    r = ref.float()
+    return int(((got.float() - r).abs() > TOL_GN_ULP * r.abs() + 1e-6 * float(r.abs().max())).sum())
+
+
+def _gn_route(case, ms):
+    """K9 at one shape beside its one-call check: the route of ``gn_plan``
+    (blocks a cluster, rows, shared memory, and how many such clusters the
+    card holds at once), the statistics it folded against the plain fold
+    (within TOL_FOLD_REL, bit-exact on a rerun), the apply kernel alone
+    (``gn_silu_apply`` on the plain fold's vectors) against the plain apply
+    within one bf16 ulp and bit-exact on a rerun, and the times against the
+    route's bound (2 x bytes where x is read once, 3 x on the split route)
+    and the apply's own (2 x bytes). Returns (ok, timings)."""
+    x, s, b, eps, act = case.gn
+    B, C = x.shape[0], x.shape[-1]
+    plan = cuda_lib.gn_plan(B, x.numel() // (B * C), C, 32)
+    y, vec = fused_twrap.gn_silu(x, s, b, eps=eps, act=act, vectors=True)
+    y2, vec2 = fused_twrap.gn_silu(x, s, b, eps=eps, act=act, vectors=True)
+    vec, vec2 = torch.stack(vec), torch.stack(vec2)
+    pm, pa = fused_twrap.group_norm_fold_plain(x, s, b, 32, eps)
+    pvec = torch.stack([pm, pa])
+    verr, vtol = float((vec - pvec).abs().max()), TOL_FOLD_REL * float(pvec.abs().max())
+    vrel = float((vec - pvec).norm() / pvec.norm())
+    vec_ok = verr <= vtol and vrel <= TOL_FOLD_REL_L2 and torch.equal(vec, vec2) and torch.equal(y, y2)
+
+    def apply():
+        return fused_twrap.gn_silu_apply(x, pm, pa, act=act)
+    ref = fused_twrap.gn_silu_plain(x, pm, pa, act=act)
+    ya = apply()
+    beyond = _beyond_ulp(ya, ref)
+    arel = float((ya.float() - ref.float()).norm() / ref.float().norm())
+    apply_ok = (bool(torch.isfinite(ya).all()) and torch.equal(ya, apply()) and beyond == 0
+                and arel <= TOL_GN_REL_L2)
+    del y, y2, ya, ref
+    apply_ms = _time_ms(apply, 10)
+    bound = 4 * x.numel() / PEAK_BYTES * 1e3
+    route_bound = bound * (1.5 if plan.route == "split" else 1.0)
+    clusters = cuda_lib.gn_clusters(plan, C) if plan.route == "cluster" else None
+    where = (f"cluster CS {plan.cs} rows {plan.rows} smem {plan.smem} B, {clusters} clusters at once"
+             if clusters is not None else f"split, {plan.splits} statistics splits of {plan.rows} rows")
+    print(f"phase 3 K9 {case.desc} route: {where}; statistics max err {verr:.2e} (tol {vtol:.2e}) rel_l2 {vrel:.1e}, "
+          f"bit-exact rerun {torch.equal(vec, vec2)}; one call {ms:.4f} ms against the route bound "
+          f"{route_bound:.4f} ({100 * route_bound / ms:.0f}%); apply kernel alone {apply_ms:.4f} ms against "
+          f"{bound:.4f} ({100 * bound / apply_ms:.0f}%), {beyond} beyond 1 bf16 ulp, rel_l2 {arel:.1e} "
+          f"{'ok' if vec_ok and apply_ok else 'FAIL'}", flush=True)
+    if clusters is not None and clusters < 1:
+        vec_ok = False
+    return vec_ok and apply_ok, {"apply_ms": apply_ms, "apply_bound_ms": bound, "route_bound_ms": route_bound,
+                                 f"{plan.route}_calls": 1.0, f"{plan.route}_ms": ms,
+                                 f"{plan.route}_bound_ms": route_bound}
 
 
 def _d(*shape, dt=BF):
@@ -1110,6 +1211,10 @@ def _phase_kernels(sites, cfg):
             tiles[k].append(tile)
             ok = ok and tile["other_cl_ok"]
             print(f"phase 3 {k} {case.desc} tile: {_block_line(tile, reckoned)}", flush=True)
+        if case.gn:
+            gn_ok, extra = _gn_route(case, t["ms"])
+            ok = ok and gn_ok
+            t.update(extra)
         if case.spatial:
             tile = _spatial_tile(case, t["ms"])
             tiles[k].append(tile)
@@ -1132,6 +1237,13 @@ def _phase_kernels(sites, cfg):
         print(f"phase 3 sums per {where} (ms: kernel / plain / library / bound; + group_norm_fold): " + ", ".join(
             f"{k} {c['ms']:.2f}/{c['plain_ms']:.2f}/{c['library_ms']:.2f}/{c['bound_ms']:.3f}"
             + (f" + {c['fold_ms']:.2f}" if c["fold_ms"] else "") for k, c in per_k.items() if c), flush=True)
+        c = per_k["K9"]
+        if c:
+            print(f"phase 3 K9 per {where}: {c['ms']:.2f} ms against the routes' bound {c['route_bound_ms']:.3f} "
+                  f"(function bound {c['bound_ms']:.3f}); cluster route {c['cluster_calls']:.0f} calls "
+                  f"{c['cluster_ms']:.2f} ms / {c['cluster_bound_ms']:.3f}, split route {c['split_calls']:.0f} calls "
+                  f"{c['split_ms']:.2f} ms / {c['split_bound_ms']:.3f}; the apply kernel alone {c['apply_ms']:.2f} ms "
+                  f"/ {c['apply_bound_ms']:.3f}", flush=True)
     _phase_gemms(GEMM_SITES[I2V_FWD])
     _phase_levels(cfg)
     print("phase 3 ok", flush=True)
@@ -1148,6 +1260,10 @@ def _phase_kernels(sites, cfg):
                       "sums_by_forward": {w: {key: sums[w][k][key] for key in keys + ("fold_ms",)} for w in ran}}
         if k in tiles:
             records[k]["tiles"] = tiles[k]
+        if k == "K9":
+            records[k].update({key: main[key] for key in (
+                "apply_ms", "apply_bound_ms", "route_bound_ms", "cluster_calls", "cluster_ms", "cluster_bound_ms",
+                "split_calls", "split_ms", "split_bound_ms")})
     return records
 
 
@@ -1450,12 +1566,12 @@ class _Probe:
     def _wrap(self, fn, label):
         def wrapped(*a, **kw):
             torch.cuda.synchronize()
-            t0, n0 = time.perf_counter(), fused_twrap.gn_silu_apply.launches
+            t0, n0 = time.perf_counter(), fused_twrap.gn_silu.launches
             out = fn(*a, **kw)
             torch.cuda.synchronize()
             self.stats[label + " calls"] += 1
             self.stats[label + " s"] += time.perf_counter() - t0
-            self.stats[label + " gn_silu"] += fused_twrap.gn_silu_apply.launches - n0
+            self.stats[label + " gn_silu"] += fused_twrap.gn_silu.launches - n0
             return out
         return wrapped
 

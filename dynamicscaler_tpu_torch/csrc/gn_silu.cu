@@ -1,91 +1,182 @@
 // GroupNorm apply [-> SiLU] with folded per-sample statistics, bf16 in and
-// out (ds_gn_silu), and the statistics themselves (ds_gn_stats).
+// out (ds_gn_silu), the statistics themselves (ds_gn_stats), and GroupNorm
+// [-> SiLU] in one call with the statistics inside it (ds_group_norm_silu).
 //
 // ds_gn_silu replaces dynamicscaler_tpu/ops/fused_twrap.py::_gn_silu_kernel
 // (kernel 9, launched by _gn_silu_call): y = bf16(silu(fp32(x) * mul[b] +
 // add[b])), or without the SiLU for the VAE attention norm (act = 0). x is
 // [B, M, C] with the channel last; mul/add are the fp32 [B, C] vectors that
 // ds_gn_stats folds. The product and the sum are rounded separately
-// (__fmul_rn, __fadd_rn) and the SiLU is h * (1 / (1 + exp(-h))) with the
-// precise expf, as the plain version computes them, so the two differ by at
-// most one bf16 rounding.
+// (__fmul_rn, __fadd_rn), as the plain version computes them; the SiLU is
+// h / (1 + exp(-h)) with the fast __expf and __fdividef (a few fp32 ulps
+// from the plain h * sigmoid(h), far inside the one bf16 rounding by which
+// chip_smoke.py lets the two differ, TOL_GN_ULP).
 //
 // What bounds it on the H100: bytes. Each element is read once and written
-// once (4 bytes) against ~5 fp32 operations, far below the card's ~295
-// operations per byte, so the bound is 2 * numel * 2 bytes / 3.35 TB/s (about
-// 0.03 ms for the 52 MB level-1 ResBlock input at batch 2; 0.09 ms for a 151 MB
-// VAE-decode tensor of one 512x1152 frame at C = 128). The design serves the
-// memory system and nothing else: every thread moves 8 bf16 (16 bytes) per
-// load and store, neighbouring threads on neighbouring addresses, in a
-// grid-stride loop; gridDim.y is the sample, so a block's mul/add vectors are
-// one sample's and are staged once in shared memory. Offsets are 64-bit.
+// once (4 bytes) against ~8 fp32 operations, far below the card's ~295
+// operations per byte, so the bound is 2 * numel * 2 bytes / 3.35 TB/s. The
+// kernel is channel-stationary (gn_apply_kernel): a block of lanes x (C / 8)
+// threads takes a range of rows of one sample; each thread owns one fixed
+// 8-channel chunk, holds its 8 mul and 8 add values in registers, loaded
+// once, and strides over the rows with
+// APPLY_UNROLL 16-byte loads in flight before it uses any. Neighbouring
+// threads read neighbouring 16 bytes (a block covers whole consecutive
+// rows), and the loop has no shared memory and no modulo (the design before
+// it staged the vectors in shared memory, where lanes 8 words apart met in
+// the same bank, and took a 64-bit % per chunk). The grid holds twice as
+// many blocks as the card keeps resident at the kernel's occupancy
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), split over the
+// samples.
 //
 // ds_gn_stats is the statistics pass that the JAX package leaves to XLA
 // (dynamicscaler_tpu/ops/fused_twrap.py::group_norm_fold), the reduction
-// under kernels 5, 7, 9, 12 and 13: for x [B, M, C] (bf16 or fp32; M every
-// axis between the first and the last), per (sample, group of C / G
-// contiguous channels) the fp32 sums of x and x^2, folded into (mul, add)
-// [B, C] fp32 by the JAX formula: mean, the fast variance clamped at 0,
-// rsqrt(var + eps), mul = rstd * scale, add = bias - mean * mul. Bound by
-// reading x once (13 MB a sample at the batch-8 level-1 ResBlocks: about 0.06
-// ms for the batch at 3.35 TB/s). B is as small as 8 there, and at the deep
-// levels C is wide and M short, so M is split over blocks of 32 rows a
-// thread: a block of lanes x (C / 8) threads gives each thread one fixed
-// 8-channel chunk (one 16-byte load a row in bf16) and every lanes-th row
-// of its split, so its fp32 sums stay in 16 registers and its loads are
-// few enough that latency does not bound it; the block adds its row lanes in a fixed
-// order into per-channel partials [splits, B, 2, C], and a second small
-// launch (a block a (group, sample)) adds the splits and the group's
-// channels, again in a fixed order, and folds. No float atomics anywhere:
-// two runs agree bit for bit.
+// under kernels 5, 7, 12 and 13 and the split route of kernel 9: for x [B, M,
+// C] (bf16 or fp32; M every axis between the first and the last), per
+// (sample, group of C / G contiguous channels) the fp32 sums of x and x^2,
+// folded into (mul, add) [B, C] fp32 by the JAX formula: mean, the fast
+// variance clamped at 0, rsqrt(var + eps), mul = rstd * scale, add = bias -
+// mean * mul. Bound by reading x once. B is as small as 8 at the clip norms,
+// and at the deep levels C is wide and M short, so M is split over blocks of
+// 32 rows a thread: a block of lanes x (C / 8) threads gives each thread one
+// fixed 8-channel chunk (one 16-byte load a row in bf16) and every lanes-th
+// row of its split, so its fp32 sums stay in 16 registers; the block adds its
+// row lanes in a fixed order into per-channel partials [splits, B, 2, C], and
+// a second small launch (a block a (group, sample)) adds the splits and the
+// group's channels, again in a fixed order, and folds. No float atomics
+// anywhere: two runs agree bit for bit.
+//
+// ds_group_norm_silu is GroupNorm [-> SiLU] with statistics per sample, the
+// function of the JAX gn_silu (group_norm_fold, then _gn_silu_call) as one
+// call, on one of two routes that cuda_lib.gn_plan picks and this file
+// checks:
+//  * "cluster", where a sample's slab (M * C * 2 bytes) fits the shared
+//    memory of CS <= 16 blocks: x is read from device memory exactly once,
+//    so the bound is the function's own (2 x bytes). One thread-block cluster
+//    of CS blocks a sample (gn_cluster_kernel, about 512 threads a block,
+//    one SM each); block `rank` loads rows [rank * rows, ...) into its
+//    shared memory with 16-byte loads (the channel-stationary mapping of the
+//    apply, CLUSTER_UNROLL loads in flight) and sums x and x^2 per channel
+//    in fp32 as they pass, in a fixed order; the row lanes, then the group's
+//    channels, in a fixed order, give the block's group partials; after a
+//    cluster barrier every block reads all CS blocks' partials through
+//    distributed shared memory at once and adds them in rank order (so all
+//    blocks hold the same statistics and a rerun is bit-exact: no atomics),
+//    folds them by the JAX formula, and applies (+ SiLU) from shared memory
+//    to y. A block signals that it has read the others' partials, and waits
+//    for all the cluster's signals only before it exits, so no block leaves
+//    while another may still read its shared memory. What bounds it: a
+//    block's phases run one after another on its SM (the load; the
+//    reductions, the cluster barrier and the fold; the apply, whose two
+//    MUFU operations an element, __expf and the reciprocal, and about ten
+//    instructions an element make it instruction-bound rather than store-bound),
+//    so no SM reads and writes at once. A persistent double-buffered
+//    variant (the next sample's rows by bulk copy while the current one is
+//    normalised) and two blocks an SM did not time faster on the H100 (see
+//    PERF.md), so the route stays one block a slab; it reads x once where
+//    the split route reads it twice.
+//  * "split", everywhere else (the 6-25 MB temporal-conv clips, the level-0
+//    up-block inputs, the VAE's frames): ds_gn_stats's two launches, then
+//    the apply kernel, from the one call; x is read twice (3 x bytes).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TARGET_BLOCKS = 132 * 8;  // ~8 blocks per SM across all samples
-constexpr int STATS_THREADS = 256;      // threads a statistics block aims at (lanes x C / 8)
-constexpr int FOLD_THREADS = 128;       // threads of a fold block (one a (group, sample))
+constexpr int STATS_THREADS = 256;   // threads a statistics block aims at (lanes x C / 8)
+constexpr int STATS_ROWS = 32;       // rows a thread of a statistics block sums (gn_stats_splits)
+constexpr int FOLD_THREADS = 128;    // threads of a fold block (one a (group, sample))
+constexpr int APPLY_THREADS = 256;   // threads an apply block aims at
+constexpr int APPLY_UNROLL = 8;      // rows an apply thread loads before it uses any
+constexpr int CLUSTER_THREADS = 512; // threads a cluster-route block aims at
+constexpr int CLUSTER_UNROLL = 4;    // rows a cluster-route thread loads before it uses any
+constexpr int CLUSTER_MAX = 16;      // blocks a cluster may hold (above 8: non-portable)
+constexpr int SMEM_MAX = 232448;     // dynamic shared memory a block may have on the H100
+constexpr int C_MAX = 6144;
+constexpr int ROW_THREADS_MAX = C_MAX / 8;  // a block holds at least one thread a chunk of a row
 
-template <bool ACT>
-__global__ void __launch_bounds__(THREADS)
-gn_silu_kernel(const bf16* __restrict__ X, long long per_sample, int C,
-               const float* __restrict__ mul, const float* __restrict__ add,
-               bf16* __restrict__ Y) {
-  extern __shared__ float s_vec[];  // mul [C] then add [C] of this block's sample
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < C; i += THREADS) {
-    s_vec[i] = mul[(size_t)b * C + i];
-    s_vec[C + i] = add[(size_t)b * C + i];
-  }
-  __syncthreads();
+// The channel-stationary mapping of a [rows, C] bf16 slab onto a block: C /
+// 8 16-byte chunks a row, a thread a chunk, lanes rows at a time (as many as
+// `threads` allow, at least one); the block's lanes * (C / 8) threads make
+// consecutive 16-byte accesses.
+struct RowMap {
+  int per_row, lanes;
+};
 
-  const uint4* xb = reinterpret_cast<const uint4*>(X + (size_t)b * per_sample);
-  uint4* yb = reinterpret_cast<uint4*>(Y + (size_t)b * per_sample);
-  const long long chunks = per_sample / 8;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < chunks;
-       i += (long long)gridDim.x * THREADS) {
-    uint4 v = xb[i];
-    bf16* e = reinterpret_cast<bf16*>(&v);
-    const int c0 = (int)((i * 8) % C);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      float h = __fadd_rn(__fmul_rn(__bfloat162float(e[q]), s_vec[c0 + q]), s_vec[C + c0 + q]);
-      if (ACT) h = __fmul_rn(h, 1.0f / (1.0f + expf(-h)));
-      e[q] = __float2bfloat16(h);
-    }
-    yb[i] = v;
-  }
+__host__ __device__ __forceinline__ RowMap row_map(int C, int threads) {
+  RowMap m;
+  m.per_row = C / 8;
+  m.lanes = m.per_row < threads ? threads / m.per_row : 1;
+  return m;
 }
-
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ float silu(float h) { return __fdividef(h, 1.0f + __expf(-h)); }
+
+// 8 bf16 values of x -> y with the chunk's folded vectors (m, a).
+template <bool ACT>
+__device__ __forceinline__ uint4 apply8(uint4 v, const float (&m)[8], const float (&a)[8]) {
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 f = __bfloat1622float2(h[q]);
+    float y0 = __fadd_rn(__fmul_rn(f.x, m[2 * q]), a[2 * q]);
+    float y1 = __fadd_rn(__fmul_rn(f.y, m[2 * q + 1]), a[2 * q + 1]);
+    if (ACT) {
+      y0 = silu(y0);
+      y1 = silu(y1);
+    }
+    h[q] = __floats2bfloat162_rn(y0, y1);
+  }
+  return v;
+}
+
+__device__ __forceinline__ void load_vec8(const float* p, float (&v)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+// Apply: block (split, b) takes rows [split * rows, (split + 1) * rows) of
+// sample b; blockDim = row_map(C, APPLY_THREADS) lanes * (C / 8).
+template <bool ACT>
+__global__ void __launch_bounds__(ROW_THREADS_MAX)
+gn_apply_kernel(const bf16* __restrict__ X, long long M, int C, long long rows, const float* __restrict__ mul,
+                const float* __restrict__ add, bf16* __restrict__ Y) {
+  const RowMap rm = row_map(C, APPLY_THREADS);
+  const int rl = threadIdx.x / rm.per_row, u = threadIdx.x - rl * rm.per_row;
+  const int b = blockIdx.y;
+  const long long r0 = (long long)blockIdx.x * rows;
+  const long long r1 = r0 + rows < M ? r0 + rows : M;
+  const size_t base = (size_t)b * M * rm.per_row + u;  // in 16-byte chunks
+  const uint4* xs = reinterpret_cast<const uint4*>(X) + base;
+  uint4* ys = reinterpret_cast<uint4*>(Y) + base;
+  float m[8], a[8];
+  load_vec8(mul + (size_t)b * C + 8 * u, m);
+  load_vec8(add + (size_t)b * C + 8 * u, a);
+  const long long step = (long long)APPLY_UNROLL * rm.lanes;
+  for (long long r = r0 + rl; r < r1; r += step) {
+    uint4 v[APPLY_UNROLL];
+#pragma unroll
+    for (int j = 0; j < APPLY_UNROLL; ++j) {
+      const long long rr = r + (long long)j * rm.lanes;
+      if (rr < r1) v[j] = __ldg(xs + rr * rm.per_row);
+    }
+#pragma unroll
+    for (int j = 0; j < APPLY_UNROLL; ++j) {
+      const long long rr = r + (long long)j * rm.lanes;
+      if (rr < r1) ys[rr * rm.per_row] = apply8<ACT>(v[j], m, a);
+    }
+  }
+}
 
 // 8 consecutive values of x as fp32
 __device__ __forceinline__ void load8(const bf16* p, float* f) {
@@ -197,58 +288,335 @@ gn_fold_kernel(const float* __restrict__ part, int splits, int C, int G, long lo
   }
 }
 
+// A float in block `rank` of the cluster, at the offset of `p` in this block.
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(hopper::smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Shared memory of a cluster-route block: the slab [rows, C] bf16, the row
+// lanes' sums [lanes][C] fp32 (sums, then sums of squares; later the
+// cluster's group partials [CS][2][G]), the block's per-channel sums [2][C]
+// (later the folded mul | add), its group partials [2][G] and the group
+// statistics [2][G].
+__host__ __device__ __forceinline__ long long cluster_smem(long long rows, int C, int G) {
+  return rows * C * 2 + ((long long)(row_map(C, CLUSTER_THREADS).lanes + 2) * C + 4LL * G) * 4;
+}
+
+// The cluster route: block (rank, b) of a cluster of CS = gridDim.x blocks
+// holds rows [rank * rows, min(M, (rank + 1) * rows)) of sample b; blockDim
+// = row_map(C, CLUSTER_THREADS) lanes * (C / 8).
+template <bool ACT, typename V>
+__global__ void __launch_bounds__(ROW_THREADS_MAX)
+gn_cluster_kernel(const bf16* __restrict__ X, int M, int C, int G, int rows, const V* __restrict__ scale,
+                  const V* __restrict__ bias, float eps, bf16* __restrict__ Y, float* __restrict__ vec_out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const RowMap rm = row_map(C, CLUSTER_THREADS);
+  uint4* slab = reinterpret_cast<uint4*>(smem);
+  float* red = reinterpret_cast<float*>(smem + (size_t)rows * C * 2);
+  float* csum = red + rm.lanes * C;
+  float* gpart = csum + 2 * C;
+  float* gstat = gpart + 2 * G;
+  const uint32_t rank = hopper::cluster_rank();
+  const int CS = gridDim.x, B = gridDim.y, b = blockIdx.y;
+  const int r0 = (int)rank * rows;
+  const int n = rows < M - r0 ? rows : M - r0;
+  const int rl = threadIdx.x / rm.per_row, u = threadIdx.x - rl * rm.per_row;
+  const size_t base = ((size_t)b * M + r0) * rm.per_row + u;  // in 16-byte chunks
+  const uint4* xs = reinterpret_cast<const uint4*>(X) + base;
+  uint4* ys = reinterpret_cast<uint4*>(Y) + base;
+
+  // 1. the slab into shared memory, summed per channel on the way
+  float s[8], ss[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s[e] = ss[e] = 0.f;
+  for (int r = rl; r < n; r += CLUSTER_UNROLL * rm.lanes) {
+    uint4 v[CLUSTER_UNROLL];
+#pragma unroll
+    for (int j = 0; j < CLUSTER_UNROLL; ++j) {
+      const int rr = r + j * rm.lanes;
+      if (rr < n) v[j] = __ldcs(xs + (size_t)rr * rm.per_row);
+    }
+#pragma unroll
+    for (int j = 0; j < CLUSTER_UNROLL; ++j) {
+      const int rr = r + j * rm.lanes;
+      if (rr < n) {
+        slab[rr * rm.per_row + u] = v[j];
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[j]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 f = __bfloat1622float2(h[q]);
+          s[2 * q] += f.x;
+          ss[2 * q] += f.x * f.x;
+          s[2 * q + 1] += f.y;
+          ss[2 * q + 1] += f.y * f.y;
+        }
+      }
+    }
+  }
+  // 2. per channel, the row lanes in order: the sums, then the sums of squares
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) red[rl * C + 8 * u + e] = which ? ss[e] : s[e];
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      float acc = 0.f;
+      for (int i = 0; i < rm.lanes; ++i) acc += red[i * C + c];
+      csum[which * C + c] = acc;
+    }
+    __syncthreads();
+  }
+  // 3. the group's channels in order: this block's group partials
+  const int cg = C / G;
+  for (int t = threadIdx.x; t < 2 * G; t += blockDim.x) {
+    const int which = t / G, g = t - which * G;
+    const float* col = csum + which * C + g * cg;
+    float acc = 0.f;
+    for (int j = 0; j < cg; ++j) acc += col[j];
+    gpart[t] = acc;
+  }
+  // 4. every block's partials (all loads in flight at once, into red), added
+  // in rank order, folded
+  hopper::cluster_sync_all();
+  for (int i = threadIdx.x; i < CS * 2 * G; i += blockDim.x) {
+    const int q = i / (2 * G);
+    red[i] = ld_cluster(gpart + (i - q * 2 * G), q);
+  }
+  cluster_arrive();  // no read of another block's shared memory after this
+  __syncthreads();
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    float S = 0.f, SS = 0.f;
+    for (int q = 0; q < CS; ++q) {
+      S += red[q * 2 * G + g];
+      SS += red[q * 2 * G + G + g];
+    }
+    const float nn = (float)((long long)M * cg);
+    const float mean = S / nn;
+    gstat[g] = mean;
+    gstat[G + g] = rsqrtf(fmaxf(0.f, SS / nn - mean * mean) + eps);
+  }
+  __syncthreads();
+  float* vec = csum;  // mul [C] | add [C]
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const int g = c / cg;
+    const float m = gstat[G + g] * to_f32(scale[c]);
+    const float a = to_f32(bias[c]) - gstat[g] * m;
+    vec[c] = m;
+    vec[C + c] = a;
+    if (vec_out != nullptr && rank == 0) {
+      vec_out[(size_t)b * C + c] = m;
+      vec_out[((size_t)B + b) * C + c] = a;
+    }
+  }
+  __syncthreads();
+  // 5. apply from shared memory
+  float m[8], a[8];
+  load_vec8(vec + 8 * u, m);
+  load_vec8(vec + C + 8 * u, a);
+#pragma unroll 4
+  for (int r = rl; r < n; r += rm.lanes) ys[(size_t)r * rm.per_row] = apply8<ACT>(slab[r * rm.per_row + u], m, a);
+  cluster_wait();  // the other blocks have read this block's partials
+}
+
+// ---- launches ----------------------------------------------------------------
+
+cudaError_t stats_launch(const void* X, int is_f32, int B, long long M, int C, int G, int splits,
+                         const void* scale, const void* bias, int vec_f32, float eps, float* part, float* mul,
+                         float* add, cudaStream_t s) {
+  const int per_row = C / 8;
+  const int lanes = per_row < STATS_THREADS ? STATS_THREADS / per_row : 1;
+  const long long rows = (M + splits - 1) / splits;
+  const dim3 grid((unsigned)splits, (unsigned)B);
+  const size_t smem = 2 * (size_t)lanes * C * sizeof(float);
+  if (is_f32)
+    gn_partial_kernel<float><<<grid, lanes * per_row, smem, s>>>(static_cast<const float*>(X), M, C, rows, part);
+  else
+    gn_partial_kernel<bf16><<<grid, lanes * per_row, smem, s>>>(static_cast<const bf16*>(X), M, C, rows, part);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (vec_f32)
+    gn_fold_kernel<float><<<dim3(G, B), FOLD_THREADS, 0, s>>>(part, splits, C, G, M, static_cast<const float*>(scale),
+                                                              static_cast<const float*>(bias), eps, mul, add);
+  else
+    gn_fold_kernel<bf16><<<dim3(G, B), FOLD_THREADS, 0, s>>>(part, splits, C, G, M, static_cast<const bf16*>(scale),
+                                                             static_cast<const bf16*>(bias), eps, mul, add);
+  return cudaGetLastError();
+}
+
+// The statistics' row splits of a sample, as cuda_lib.gn_stats_splits
+// reckons them: a block's lanes times STATS_ROWS rows each.
+long long stats_splits(long long M, int C) {
+  const int per_row = C / 8;
+  const long long lanes = per_row < STATS_THREADS ? STATS_THREADS / per_row : 1;
+  return (M + lanes * STATS_ROWS - 1) / (lanes * STATS_ROWS);
+}
+
+// Blocks of `threads` threads the card keeps resident (an SM's share at the
+// kernel's occupancy, times the SMs), asked once per block size.
+template <bool ACT>
+int apply_resident(int threads) {
+  static int cache[ROW_THREADS_MAX + 1] = {0};
+  if (cache[threads] == 0) {
+    int per = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, gn_apply_kernel<ACT>, threads, 0) != cudaSuccess || per < 1)
+      per = 1;
+    cache[threads] = hopper::sm_count() * per;
+  }
+  return cache[threads];
+}
+
+template <bool ACT>
+cudaError_t apply_launch(const bf16* x, int B, long long M, int C, const float* mul, const float* add, bf16* y,
+                         cudaStream_t s) {
+  const RowMap rm = row_map(C, APPLY_THREADS);
+  const int threads = rm.lanes * rm.per_row;
+  long long splits = (2 * apply_resident<ACT>(threads) + B - 1) / B;  // two waves: the last one balances
+  const long long most = (M + rm.lanes - 1) / rm.lanes;  // a lane's row at least a block
+  if (splits > most) splits = most;
+  if (splits < 1) splits = 1;
+  const long long rows = (M + splits - 1) / splits;
+  splits = (M + rows - 1) / rows;
+  gn_apply_kernel<ACT><<<dim3((unsigned)splits, (unsigned)B), threads, 0, s>>>(x, M, C, rows, mul, add, y);
+  return cudaGetLastError();
+}
+
+template <bool ACT, typename V>
+cudaError_t cluster_config(int cs, int B, int C, int smem, cudaStream_t s, cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute* attr) {
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(gn_cluster_kernel<ACT, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM_MAX);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(gn_cluster_kernel<ACT, V>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  const RowMap rm = row_map(C, CLUSTER_THREADS);
+  cfg = {};
+  cfg.gridDim = dim3((unsigned)cs, (unsigned)B);
+  cfg.blockDim = dim3((unsigned)(rm.lanes * rm.per_row));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <bool ACT, typename V>
+cudaError_t cluster_launch(const bf16* x, int B, int M, int C, int G, int cs, int rows, int smem, const void* scale,
+                           const void* bias, float eps, bf16* y, float* vec_out, cudaStream_t s) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = cluster_config<ACT, V>(cs, B, C, smem, s, cfg, attr);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernelEx(&cfg, gn_cluster_kernel<ACT, V>, x, M, C, G, rows, static_cast<const V*>(scale),
+                         static_cast<const V*>(bias), eps, y, vec_out);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+bool shape_ok(int B, long long M, int C, int G) {
+  return B > 0 && B <= 65535 && M > 0 && C > 0 && C % 8 == 0 && C <= C_MAX && G > 0 && C % G == 0;
+}
+
 }  // namespace
 
 // x, y: [B, per_sample] bf16, 16-byte aligned, per_sample = M * C; C % 8 == 0;
 // mul, add: [B, C] fp32 (checked in Python before the call).
 extern "C" int ds_gn_silu(const void* X, int B, long long per_sample, int C, const void* mul,
                           const void* add, int act, void* Y, void* stream) {
-  if (B <= 0 || C <= 0 || C % 8 || per_sample % C) return (int)cudaErrorInvalidValue;
-  const long long chunks = per_sample / 8;
-  long long gx = (chunks + THREADS - 1) / THREADS;
-  const long long cap = TARGET_BLOCKS / B > 0 ? TARGET_BLOCKS / B : 1;
-  if (gx > cap) gx = cap;
-  dim3 grid((unsigned)gx, (unsigned)B);
-  const size_t smem = 2 * (size_t)C * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || B > 65535 || C <= 0 || C % 8 || C > C_MAX || per_sample % C) return (int)cudaErrorInvalidValue;
   const bf16* x = static_cast<const bf16*>(X);
   const float* m = static_cast<const float*>(mul);
   const float* a = static_cast<const float*>(add);
   bf16* y = static_cast<bf16*>(Y);
-  if (act) gn_silu_kernel<true><<<grid, THREADS, smem, s>>>(x, per_sample, C, m, a, y);
-  else gn_silu_kernel<false><<<grid, THREADS, smem, s>>>(x, per_sample, C, m, a, y);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long M = per_sample / C;
+  return (int)(act ? apply_launch<true>(x, B, M, C, m, a, y, s) : apply_launch<false>(x, B, M, C, m, a, y, s));
 }
 
 // x: [B, M, C] bf16 (is_f32 = 0) or fp32 (is_f32 = 1), 16-byte aligned;
 // C % 8 == 0, C % G == 0, C <= 6144; scale, bias: [C] bf16 (vec_f32 = 0) or
 // fp32 (vec_f32 = 1); part: fp32 [splits, B, 2, C] scratch (the wrapper
-// reckons splits: fused_twrap.gn_stats_splits); mul, add: [B, C] fp32 out.
+// reckons splits: cuda_lib.gn_stats_splits); mul, add: [B, C] fp32 out.
 extern "C" int ds_gn_stats(const void* X, int is_f32, int B, long long M, int C, int G, int splits,
                            const void* scale, const void* bias, int vec_f32, float eps, void* part, void* mul,
                            void* add, void* stream) {
-  if (B <= 0 || M <= 0 || C <= 0 || C % 8 || C > 6144 || G <= 0 || C % G || splits <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, M, C, G) || splits <= 0) return (int)cudaErrorInvalidValue;
+  return (int)stats_launch(X, is_f32, B, M, C, G, splits, scale, bias, vec_f32, eps, static_cast<float*>(part),
+                           static_cast<float*>(mul), static_cast<float*>(add), static_cast<cudaStream_t>(stream));
+}
+
+// GroupNorm(G) [-> SiLU] of x [B, M, C] bf16 with statistics per sample, into
+// y [B, M, C] bf16; scale, bias [C] bf16 (vec_f32 = 0) or fp32. The plan is
+// cuda_lib.gn_plan's: route 0 "cluster" (cs blocks a sample of `rows` rows,
+// smem bytes of dynamic shared memory each; scratch null, or [2, B, C] fp32
+// that receives the folded mul | add) or route 1 "split" (`splits` row
+// splits of `rows` rows for the statistics, whose kernel takes smem bytes;
+// scratch [2, B, C] mul | add then [splits, B, 2, C] partials, fp32). A plan
+// that does not match this file's reckoning returns cudaErrorInvalidValue.
+extern "C" int ds_group_norm_silu(const void* X, int B, long long M, int C, int G, const void* scale,
+                                  const void* bias, int vec_f32, float eps, int act, int route, int cs,
+                                  long long rows, int smem, int splits, void* scratch, void* Y, void* stream) {
+  if (!shape_ok(B, M, C, G) || rows <= 0) return (int)cudaErrorInvalidValue;
+  const bf16* x = static_cast<const bf16*>(X);
+  bf16* y = static_cast<bf16*>(Y);
+  float* sc = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 0) {
+    if (cs < 1 || cs > CLUSTER_MAX || (long long)(cs - 1) * rows >= M || (long long)cs * rows < M ||
+        smem != cluster_smem(rows, C, G) || smem > SMEM_MAX ||
+        2 * G * cs > row_map(C, CLUSTER_THREADS).lanes * C)  // the gathered partials fit the lanes' sums
+
+      return (int)cudaErrorInvalidValue;
+    cudaError_t e;
+    const int m = (int)M, r = (int)rows;
+    if (act)
+      e = vec_f32 ? cluster_launch<true, float>(x, B, m, C, G, cs, r, smem, scale, bias, eps, y, sc, s)
+                  : cluster_launch<true, bf16>(x, B, m, C, G, cs, r, smem, scale, bias, eps, y, sc, s);
+    else
+      e = vec_f32 ? cluster_launch<false, float>(x, B, m, C, G, cs, r, smem, scale, bias, eps, y, sc, s)
+                  : cluster_launch<false, bf16>(x, B, m, C, G, cs, r, smem, scale, bias, eps, y, sc, s);
+    return (int)e;
+  }
   const int per_row = C / 8;
   const int lanes = per_row < STATS_THREADS ? STATS_THREADS / per_row : 1;
-  const long long rows = (M + splits - 1) / splits;
-  dim3 grid((unsigned)splits, (unsigned)B);
-  const size_t smem = 2 * (size_t)lanes * C * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(part);
-  if (is_f32)
-    gn_partial_kernel<float><<<grid, lanes * per_row, smem, s>>>(static_cast<const float*>(X), M, C, rows, p);
-  else
-    gn_partial_kernel<bf16><<<grid, lanes * per_row, smem, s>>>(static_cast<const bf16*>(X), M, C, rows, p);
-  cudaError_t e = cudaGetLastError();
+  if (route != 1 || sc == nullptr || splits != stats_splits(M, C) || rows != (M + splits - 1) / splits ||
+      smem != 2 * lanes * C * (int)sizeof(float))
+    return (int)cudaErrorInvalidValue;
+  float* mul = sc;
+  float* add = sc + (size_t)B * C;
+  cudaError_t e = stats_launch(X, 0, B, M, C, G, splits, scale, bias, vec_f32, eps, sc + 2 * (size_t)B * C, mul,
+                               add, s);
   if (e != cudaSuccess) return (int)e;
-  float* mu = static_cast<float*>(mul);
-  float* ad = static_cast<float*>(add);
-  if (vec_f32)
-    gn_fold_kernel<float><<<dim3(G, B), FOLD_THREADS, 0, s>>>(p, splits, C, G, M, static_cast<const float*>(scale),
-                                                              static_cast<const float*>(bias), eps, mu, ad);
-  else
-    gn_fold_kernel<bf16><<<dim3(G, B), FOLD_THREADS, 0, s>>>(p, splits, C, G, M, static_cast<const bf16*>(scale),
-                                                             static_cast<const bf16*>(bias), eps, mu, ad);
-  return (int)cudaGetLastError();
+  return (int)(act ? apply_launch<true>(x, B, M, C, mul, add, y, s) : apply_launch<false>(x, B, M, C, mul, add, y, s));
+}
+
+// How many clusters of `cs` cluster-route blocks with `smem` bytes of shared
+// memory at width C the card holds at once (cudaOccupancyMaxActiveClusters),
+// into *out.
+extern "C" int ds_gn_clusters(int cs, int C, int smem, int* out, void* stream) {
+  if (cs < 1 || cs > CLUSTER_MAX || C <= 0 || C % 8 || C > C_MAX || smem < 0 || smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = cluster_config<true, bf16>(cs, 1, C, smem, static_cast<cudaStream_t>(stream), cfg, attr);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(out, gn_cluster_kernel<true, bf16>, &cfg);
+  return (int)e;
 }

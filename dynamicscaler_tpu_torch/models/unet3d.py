@@ -94,6 +94,31 @@ def unet_layout(cfg: UNetConfig) -> Tuple[List[List[BlockSpec]], List[List[Block
     return input_blocks, output_blocks, middle, skip_chans
 
 
+def gn_silu_calls(cfg: UNetConfig, batch: int, frames: int, H: int, W: int) -> List[Tuple[int, int, int]]:
+    """(samples, rows a sample, channels) of every ``fused_twrap.gn_silu``
+    call of one forward of ``batch`` clips of ``frames`` frames at an H x W
+    latent, in the order the forward makes them: per ResBlock the input and
+    the output norm per frame (batch * frames samples of H * W rows), then
+    the temporal conv block's four norms per clip (batch samples of frames *
+    H * W rows); the out norm last."""
+    ins, outs, mid, _ = unet_layout(cfg)
+    size = [H, W]
+    calls = []
+    for specs in (*ins, mid, *outs):
+        for sp in specs:
+            if sp.kind == "down":
+                size = [(n + 1) // 2 for n in size]
+            elif sp.kind == "up":
+                size = [2 * n for n in size]
+            elif sp.kind == "res":
+                hw = size[0] * size[1]
+                calls += [(batch * frames, hw, sp.extra["in_ch"]), (batch * frames, hw, sp.channels)]
+                if cfg.temporal_conv:
+                    calls += [(batch, frames * hw, sp.channels)] * 4
+    calls.append((batch * frames, H * W, cfg.model_channels))
+    return calls
+
+
 # state_dict suffixes the reference zero-initialises (lvdm/basics.py:19
 # zero_module): ResBlock out conv, last temporal conv, transformer proj_out,
 # UNet out conv (dynamicscaler_tpu/models/unet3d.py:221, 255, 298, 368, 502)

@@ -16,7 +16,8 @@ packed between calls; the whole-block and whole-transformer kernels (10-13)
 take their operands as one array of pointers (:func:`ptr_array`), their
 tile plan (:func:`block_plan` for kernels 10 and 12, :func:`spatial_plan`
 for 11 and 13) and the TMA maps of their weights (:func:`block_maps`,
-:func:`spatial_maps`, encoded once per weight set).
+:func:`spatial_maps`, encoded once per weight set); :func:`gn_plan` picks
+the route of kernel 9's one call, GroupNorm [+ SiLU] with its statistics.
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "ds_ln_gemm": (_P, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P),
     "ds_gn_silu": (_P, _I, _L, _I, _P, _P, _I, _P, _P),
     "ds_gn_stats": (_P, _I, _I, _L, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P),
+    "ds_group_norm_silu": (_P, _I, _L, _I, _I, _P, _P, _I, _F, _I, _I, _I, _L, _I, _I, _P, _P, _P),
+    "ds_gn_clusters": (_I, _I, _I, _P, _P),
     "ds_temporal_attention": (_P, _I, _I, _I, _I, _F, _P, _P),
     "ds_flash_attention": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _P, _I, _P),
     "ds_temporal_block": (_P, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -427,6 +430,79 @@ def spatial_maps(cache: dict, weights, C: int):
         call("ds_spatial_maps", ptr_array(weights), len(weights), C, ctypes.cast(buf, ctypes.c_void_p))
         cache["spatial"] = buf
     return ctypes.cast(buf, ctypes.c_void_p)
+
+
+# ds_gn_stats (csrc/gn_silu.cu): a block of about 256 threads (lanes x C / 8)
+# sums 32 rows a thread of one sample
+GN_STATS_THREADS = 256
+GN_STATS_ROWS_PER_THREAD = 32
+# ds_group_norm_silu's cluster route: blocks of about 512 threads, at most 16
+# a cluster (one a sample)
+GN_CLUSTER_THREADS = 512
+GN_CLUSTER_MAX = 16
+
+
+def gn_stats_splits(B: int, M: int, C: int) -> int:
+    """The row splits of one sample in ``ds_gn_stats``: a block's lanes
+    (``GN_STATS_THREADS // (C / 8)``, at least 1) times 32 rows each, every
+    split non-empty."""
+    lanes = max(1, GN_STATS_THREADS // (C // 8))
+    return -(-M // (lanes * GN_STATS_ROWS_PER_THREAD))
+
+
+def gn_cluster_lanes(C: int) -> int:
+    """Rows a cluster-route block takes at a time: a thread a 16-byte chunk
+    of a row, as many rows as :data:`GN_CLUSTER_THREADS` allow, at least
+    one (``csrc/gn_silu.cu::row_map``)."""
+    return max(1, GN_CLUSTER_THREADS // (C // 8))
+
+
+def gn_cluster_smem(rows: int, C: int, G: int) -> int:
+    """Shared memory of a cluster-route block of ``ds_group_norm_silu``, as
+    ``csrc/gn_silu.cu::cluster_smem`` reckons it: the slab [rows, C] bf16,
+    the row lanes' fp32 sums [lanes, C], the block's per-channel sums [2, C]
+    and two [2, G] fp32 group arrays."""
+    return 2 * rows * C + ((gn_cluster_lanes(C) + 2) * C + 4 * G) * 4
+
+
+class GnPlan(NamedTuple):
+    route: str   # "cluster" (the slab in shared memory) or "split" (statistics pass, then apply)
+    cs: int      # blocks a cluster, one cluster a sample (0 on the split route)
+    rows: int    # rows of a sample a cluster block holds, or a statistics split sums
+    smem: int    # dynamic shared memory bytes of a cluster block, or of a statistics block
+    splits: int  # row splits of a sample's statistics (0 on the cluster route)
+
+
+@functools.lru_cache(maxsize=None)
+def gn_plan(B: int, M: int, C: int, G: int = 32) -> GnPlan:
+    """The route of ``ds_group_norm_silu`` for x [B, M, C] bf16, GroupNorm
+    over G groups per sample. "cluster" where a sample's slab fits the
+    shared memory of at most :data:`GN_CLUSTER_MAX` blocks (x read once):
+    the fewest blocks that hold it, except that 6 or 7 become 8 and 9 to 15
+    become 16 (at one block an SM the H100 holds 15 clusters of 8 and 7 of
+    16 at once, 120 and 112 SMs, but 17 of 6, 15 of 7 and 7 to 9 of 9 to
+    15: chip_smoke.py phase 1 prints the table), then as many as whole
+    non-empty row ranges allow. Else "split": the statistics at
+    :func:`gn_stats_splits` row splits, then the apply."""
+    if B <= 0 or M <= 0 or C % 8 or not 0 < C <= 6144 or G <= 0 or C % G:
+        raise ValueError(f"gn_plan: needs B, M > 0, C % 8 == 0, C <= 6144, C % G == 0; got B={B} M={M} C={C} G={G}")
+    fit = (GEMM_SMEM_MAX - gn_cluster_smem(0, C, G)) // (2 * C)  # rows a block holds
+    if fit >= 1 and -(-M // fit) <= GN_CLUSTER_MAX and 2 * G * GN_CLUSTER_MAX <= gn_cluster_lanes(C) * C:
+        cs = -(-M // fit)
+        cs = 16 if cs > 8 else 8 if cs > 5 else cs
+        rows = -(-M // min(cs, M))
+        return GnPlan("cluster", -(-M // rows), rows, gn_cluster_smem(rows, C, G), 0)
+    splits = gn_stats_splits(B, M, C)
+    lanes = max(1, GN_STATS_THREADS // (C // 8))
+    return GnPlan("split", 0, -(-M // splits), 2 * lanes * C * 4, splits)
+
+
+def gn_clusters(plan: GnPlan, C: int) -> int:
+    """How many clusters of a cluster-route ``plan`` at width C the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    n = ctypes.c_int(0)
+    call("ds_gn_clusters", plan.cs, C, plan.smem, ctypes.byref(n))
+    return n.value
 
 
 def _frame_rows(M: int, F: int, HW: int) -> torch.Tensor:

@@ -12,10 +12,12 @@ Counterparts of ``dynamicscaler_tpu/ops/fused_twrap.py``:
 * ``gn_silu_apply`` -> kernel 9 (``_gn_silu_call``).
 
 The heads and ``gn_silu_apply`` take the folded GroupNorm vectors;
-``gn_proj_in_temporal``, ``gn_proj_in_spatial`` and ``gn_silu`` compute them
-with ``group_norm_fold``, the statistics reduction (the JAX package leaves it
-to XLA outside the kernels; the port runs it as one CUDA reduction,
-``csrc/gn_silu.cu::ds_gn_stats``). On the card the heads and tails run as
+``gn_proj_in_temporal`` and ``gn_proj_in_spatial`` compute them with
+``group_norm_fold``, the statistics reduction (the JAX package leaves it to
+XLA outside the kernels; the port runs it as one CUDA reduction,
+``csrc/gn_silu.cu::ds_gn_stats``). ``gn_silu`` is the JAX ``gn_silu`` (the
+fold, then kernel 9) as one call, ``csrc/gn_silu.cu::ds_group_norm_silu``,
+with the statistics inside it. On the card the heads and tails run as
 ``csrc/gemm.cu::ds_ln_gemm`` with its GroupNorm prologue, frame row map and
 residual epilogue, and ``gn_silu_apply`` as ``csrc/gn_silu.cu::ds_gn_silu``;
 see the notes there for what bounds each. Each kernel wrapper takes its plain version (``*_plain``,
@@ -37,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from dynamicscaler_tpu_torch.ops import cuda_lib
-from dynamicscaler_tpu_torch.ops.cuda_lib import MODE_RESIDUAL, act, f32, ln_gemm
+from dynamicscaler_tpu_torch.ops.cuda_lib import MODE_RESIDUAL, act, f32, gn_stats_splits, ln_gemm
 
 
 def group_norm_fold_plain(x, scale, bias, num_groups: int = 32, eps: float = 1e-6):
@@ -55,18 +57,13 @@ def group_norm_fold_plain(x, scale, bias, num_groups: int = 32, eps: float = 1e-
     return mul, add
 
 
-# the statistics pass gives each thread of a block (lanes x C / 8 threads,
-# about 256) this many rows of its sample
-GN_STATS_THREADS = 256
-GN_STATS_ROWS_PER_THREAD = 32
-
-
-def gn_stats_splits(B: int, M: int, C: int) -> int:
-    """The row splits of one sample in ``ds_gn_stats``: a block's lanes
-    (``GN_STATS_THREADS // (C / 8)``, at least 1) times 32 rows each, every
-    split non-empty."""
-    lanes = max(1, GN_STATS_THREADS // (C // 8))
-    return -(-M // (lanes * GN_STATS_ROWS_PER_THREAD))
+def _gn_vectors(scale, bias):
+    """A GroupNorm (scale, bias) as the statistics kernels read them: a bf16
+    model's vectors as they are (no cast launch), else fp32; contiguous."""
+    s, b = scale.detach(), bias.detach()
+    if s.dtype != b.dtype or s.dtype not in (torch.bfloat16, torch.float32):
+        s, b = f32(s), f32(b)
+    return s.contiguous(), b.contiguous()
 
 
 def group_norm_fold(x, scale, bias, num_groups: int = 32, eps: float = 1e-6):
@@ -91,10 +88,7 @@ def group_norm_fold(x, scale, bias, num_groups: int = 32, eps: float = 1e-6):
     buf = torch.empty((splits + 1) * 2 * B * C, device=x.device, dtype=torch.float32)
     part = buf[:splits * 2 * B * C]
     mul, add = buf[splits * 2 * B * C:].view(2, B, C).unbind(0)
-    s, b = scale.detach(), bias.detach()  # a bf16 model's vectors are read as they are, no cast launch
-    if s.dtype != b.dtype or s.dtype not in (torch.bfloat16, torch.float32):
-        s, b = f32(s), f32(b)
-    s, b = s.contiguous(), b.contiguous()
+    s, b = _gn_vectors(scale, bias)
     cuda_lib.call("ds_gn_stats", cuda_lib.ptr(x), int(x.dtype == torch.float32), B, M, C, num_groups, splits,
                   cuda_lib.ptr(s), cuda_lib.ptr(b), int(s.dtype == torch.float32), float(eps), cuda_lib.ptr(part),
                   cuda_lib.ptr(mul), cuda_lib.ptr(add))
@@ -295,9 +289,42 @@ def gn_silu_apply(x, mul, add, *, act: bool = True):
 gn_silu_apply.launches = 0
 
 
-def gn_silu(x, gn_scale, gn_bias, *, eps: float = 1e-5, act: bool = True):
+def gn_silu(x, gn_scale, gn_bias, *, eps: float = 1e-5, act: bool = True, vectors: bool = False):
     """GroupNorm(32) [-> SiLU] with statistics per sample x.shape[0]
     (ResBlock / TemporalConvBlock / UNet out prologue; the VAE passes
-    eps=1e-6): the statistics pass, then :func:`gn_silu_apply`."""
-    mul, add = group_norm_fold(x, gn_scale, gn_bias, eps=eps)
-    return gn_silu_apply(x, mul, add, act=act)
+    eps=1e-6): the JAX ``gn_silu`` (``group_norm_fold``, then kernel 9).
+    On the card one call of ``csrc/gn_silu.cu::ds_group_norm_silu`` on the
+    route of :func:`cuda_lib.gn_plan` (a thread-block cluster a sample with
+    the slab in shared memory, or ``ds_gn_stats``'s kernels then the apply
+    kernel), counted in ``gn_silu.launches`` (and, on the split route,
+    ``gn_silu.launches_split``: the call launches the statistics kernels
+    too). With ``vectors`` also returns the folded ``(mul, add)`` [B, C]
+    fp32 the call applied (to check the statistics)."""
+    if not cuda_lib.use_kernel(x):
+        mul, add = group_norm_fold_plain(x, gn_scale, gn_bias, 32, eps)
+        y = gn_silu_plain(x, mul, add, act=act)
+        return (y, (mul, add)) if vectors else y
+    B, C = x.shape[0], x.shape[-1]
+    cuda_lib.check_operand("x", x)
+    if C % 32 or C > 6144 or x.numel() == 0 or B > 65535:
+        raise ValueError(f"ds_group_norm_silu takes C % 32 == 0, C <= 6144 and B <= 65535, got shape "
+                         f"{tuple(x.shape)}")
+    M = x.numel() // (B * C)
+    plan = cuda_lib.gn_plan(B, M, C, 32)
+    split = plan.route == "split"
+    s, b = _gn_vectors(gn_scale, gn_bias)
+    y = torch.empty_like(x)
+    # [2, B, C] mul | add, then on the split route the partials [splits, B, 2, C]
+    n = 2 * B * C * (plan.splits + 1) if split else 2 * B * C if vectors else 0
+    scratch = torch.empty(n, device=x.device, dtype=torch.float32) if n else None
+    cuda_lib.call("ds_group_norm_silu", cuda_lib.ptr(x), B, M, C, 32, cuda_lib.ptr(s), cuda_lib.ptr(b),
+                  int(s.dtype == torch.float32), float(eps), int(act), int(split), plan.cs, plan.rows, plan.smem,
+                  plan.splits, cuda_lib.ptr(scratch), cuda_lib.ptr(y))
+    gn_silu.launches += 1
+    if split:
+        gn_silu.launches_split += 1
+    return (y, tuple(scratch[:2 * B * C].view(2, B, C).unbind(0))) if vectors else y
+
+
+gn_silu.launches = 0
+gn_silu.launches_split = 0
