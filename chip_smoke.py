@@ -80,10 +80,28 @@ Phases, in order, one result line each (any failure exits non-zero):
    the CLI's frame-overlap and merge-prev schedules, UNet batch 88 per step
    as 11 forwards of 8; steps cut to 2 of the 48-step table (step 0 the
    warm-up, step 1 timed), counters zeroed before and read after.
+7. the CLI, ``cli/gen_pano_360.py``: ``main(VArgs.from_args(argv))`` on the
+   phase-2 i2v bundle, all three stages at the CLI's defaults but for the
+   steps (6-step table, 3 steps a stage): stage 1 at 2048x1024 (44 views,
+   10 phases), stage 2 on 2x2 and stage 3 on 4x4 windows of 320x512, 16
+   frames, CFG 7.5, UNet batch 8; the panorama phase 5's as a uint8
+   ``.npy``, outputs in a temporary directory removed afterwards. The
+   three latents finite at their shapes, both videos written through
+   whichever writer the machine allows, ``args.json`` and ``e2e.json``,
+   each stage's wall seconds and steady s/step, exact launch counts (48
+   UNet forwards of batch 8 at ``expected_launches`` each, plus K9 and the
+   statistics of the VAE encode and decodes as recorded); K9 and the
+   statistics at every VAE shape of the run that phase 3 did not hold
+   (stage 1's 2048x1024 tiles, the 1024x2048 ring decode), each against
+   its plain version with phase 3's gates; stage 2 again from the stage-1
+   latent the run wrote, equal to the run's bit for bit;
+   the ``--dev_full_random`` bundle (every bf16 parameter 0.01 on the card,
+   the random bundle's parameter count).
 
 Then one JSON line of kernel records (K1-K13, TA, FA, GN; ``launches`` is
-the sum over the paths: the three samplers, phase 5's "off" request and
-phase 2's two override forwards), and last the device JSON line.
+the sum over the paths: the three samplers, the CLI, phase 5's "off"
+request and phase 2's two override forwards), and last the device JSON
+line.
 """
 
 from __future__ import annotations
@@ -91,8 +109,11 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -292,6 +313,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths["i2v"], paths["i2v, plan off"] = _phase_i2v_sampler(i2v_model, steps=4)
     paths["sphere"] = _phase_sphere(i2v_model, steps=2)
+    paths["cli"], cli_err = _phase_cli(i2v_model, held={key for calls in sites.values() for key in calls})
+    for k, err in cli_err.items():
+        records[k]["max_abs_err"] = max(records[k]["max_abs_err"], err)
 
     kernels = [
         {"name": f"{k} {desc}", "route": "cuda", "source": src, "replaces": rep,
@@ -1057,7 +1081,7 @@ def _beyond_ulp(got, ref) -> int:
     return int(((got.float() - r).abs() > TOL_GN_ULP * r.abs() + 1e-6 * float(r.abs().max())).sum())
 
 
-def _gn_route(case, ms):
+def _gn_route(case, ms, phase="phase 3"):
     """K9 at one shape beside its one-call check: the route of ``gn_plan``
     (blocks a cluster, rows, shared memory, and how many such clusters the
     card holds at once), the statistics it folded against the plain fold
@@ -1093,7 +1117,7 @@ def _gn_route(case, ms):
     clusters = cuda_lib.gn_clusters(plan, C) if plan.route == "cluster" else None
     where = (f"cluster CS {plan.cs} rows {plan.rows} smem {plan.smem} B, {clusters} clusters at once"
              if clusters is not None else f"split, {plan.splits} statistics splits of {plan.rows} rows")
-    print(f"phase 3 K9 {case.desc} route: {where}; statistics max err {verr:.2e} (tol {vtol:.2e}) rel_l2 {vrel:.1e}, "
+    print(f"{phase} K9 {case.desc} route: {where}; statistics max err {verr:.2e} (tol {vtol:.2e}) rel_l2 {vrel:.1e}, "
           f"bit-exact rerun {torch.equal(vec, vec2)}; one call {ms:.4f} ms against the route bound "
           f"{route_bound:.4f} ({100 * route_bound / ms:.0f}%); apply kernel alone {apply_ms:.4f} ms against "
           f"{bound:.4f} ({100 * bound / apply_ms:.0f}%), {beyond} beyond 1 bf16 ulp, rel_l2 {arel:.1e} "
@@ -1560,8 +1584,14 @@ class _Probe:
 
     def __init__(self, model, methods):
         self.stats = collections.Counter()
+        self._saved = [(obj, name, getattr(obj, name)) for obj, name, _ in methods]
         for obj, name, label in methods:
             setattr(obj, name, self._wrap(getattr(obj, name), label))
+
+    def remove(self):
+        """Put the wrapped methods back."""
+        for obj, name, fn in reversed(self._saved):
+            setattr(obj, name, fn)
 
     def _wrap(self, fn, label):
         def wrapped(*a, **kw):
@@ -1636,6 +1666,7 @@ def _phase_i2v_sampler(model, steps):
             out.append(launches)
             per_step_by_plan[plan] = per_step
             del video
+    probe.remove()
     print("phase 5 ok: sampling s/step " + ", ".join(f"plan {p} {v:.3f}" for p, v in per_step_by_plan.items()),
           flush=True)
     return out
@@ -1698,6 +1729,7 @@ def _phase_sphere(model, steps):
     finally:
         sphere._Sampler.step = orig_step
     launches = _launches()
+    probe.remove()
     st = probe.stats
     shape = tuple(latent.shape)
     finite = bool(torch.isfinite(latent).all()) and bool(torch.isfinite(den).all())
@@ -1722,6 +1754,190 @@ def _phase_sphere(model, steps):
         _fail(f"sphere steps launched {per_step}, expected 11 forwards of the per-forward counts")
     print("phase 6 ok", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the CLI
+# ---------------------------------------------------------------------------
+
+# only the steps are cut: 3 of stage 1's (to denoise_to_step) and the last 3
+# of the 6-step table in stages 2 and 3; everything else at the CLI's defaults
+CLI_STEPS = ["--num_inference_steps", "6", "--denoise_to_step", "3", "--merge_prev_step", "3"]
+
+
+def _written_video(out, name, frames_shape):
+    """The video ``name`` the CLI wrote in ``out``, through whichever writer
+    the machine allows (``utils.io.save_video``); returns the writer."""
+    from dynamicscaler_tpu_torch.utils.avi import read_avi_info
+
+    base = os.path.join(out, name)
+    if os.path.exists(base + ".mp4"):
+        ok, writer = os.path.getsize(base + ".mp4") > 0, "mp4 through imageio"
+    elif os.path.exists(base + ".avi"):
+        info = read_avi_info(base + ".avi")
+        ok = (info["frames"], info["height"], info["width"]) == frames_shape[:3] \
+            and len(os.listdir(base + "_frames")) == frames_shape[0]
+        writer = "MJPEG AVI and PNG frames through PIL"
+    elif os.path.exists(base + "_frames.npy"):
+        v = np.load(base + "_frames.npy")
+        ok, writer = v.shape == frames_shape and v.dtype == np.uint8, "uint8 .npy frames (no PIL, no imageio)"
+    else:
+        ok, writer = False, "none"
+    if not ok:
+        _fail(f"cli path: video {name} {frames_shape} not written as expected (writer {writer})")
+    return writer
+
+
+def _hold_new_shapes(calls, held):
+    """Phase 7: every kernel call of ``calls`` (K9 and the statistics of the
+    VAE) at a shape that phase 3 did not hold (``held``), against its plain
+    version with phase 3's gates (:func:`_check`; for K9 also
+    :func:`_gn_route`: the statistics it folds and its apply kernel alone).
+    Fails on any disagreement; returns the largest error per kernel."""
+    rn = _gen()
+    errs, bad = {}, []
+    for k, pos, opts in sorted({key for key in calls if key not in held}, key=str):
+        case = _case(k, pos, dict(opts), rn)
+        got = case.run()
+        ref = case.plain()
+        torch.cuda.synchronize()
+        err, tol, rel, tol_l2, ok = _check(case, got, ref)
+        del got, ref
+        ms, plain_ms = _time_ms(case.run, 10), _time_ms(case.plain, 3)
+        print(f"phase 7 {k} {case.desc}: max_abs_err {err:.5f} (tol {tol}) rel_l2 {rel:.5f} (tol {tol_l2}) "
+              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms [x{calls[(k, pos, opts)]} in the cli run] "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if case.gn:
+            ok = _gn_route(case, ms, phase="phase 7")[0] and ok
+        errs[k] = max(errs.get(k, 0.0), err)
+        if not ok:
+            bad.append(f"{k} {case.desc}")
+        del case
+    torch.cuda.empty_cache()
+    if bad:
+        _fail(f"cli path: kernel disagrees with its plain version at a VAE shape of the run: {bad}")
+    return errs
+
+
+def _phase_cli(model, held):
+    """Phase 7: ``cli/gen_pano_360.py`` through ``main(VArgs.from_args(argv))``
+    on the phase-2 bundle, at the CLI's defaults but for the steps
+    (:data:`CLI_STEPS`): the 1024x512 equirect, stage 1 at 2048x1024 with 44
+    views over 10 phases, stages 2 and 3 on 2x2 and 4x4 windows of 320x512,
+    16 frames, CFG 7.5, UNet microbatch 8; the panorama the smooth seeded
+    image of phase 5 as a uint8 ``.npy``, outputs in a temporary directory.
+    Exact launch counts: the UNet forwards at :func:`expected_launches`
+    each, and K9 and the statistics of the VAE's calls as recorded. Then
+    stage 2 again from the stage-1 latent the run wrote, and the
+    ``--dev_full_random`` bundle. K9 and the statistics are held against
+    their plain versions at each VAE shape of the run that is not in
+    ``held``, the keys phase 3 checked (:func:`_hold_new_shapes`).
+    Returns the run's launches and the largest error per kernel there."""
+    from dynamicscaler_tpu_torch.cli import gen_pano_360 as cli
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        pano = os.path.join(tmp, "pano.npy")
+        np.save(pano, np.round((smooth_panorama(512, 1024, seed=5) + 1) * 127.5).astype(np.uint8))
+        argv = ["--pano_image_path", pano, "--output_dir", tmp, *CLI_STEPS]
+        vargs = cli.VArgs.from_args(argv + ["--project_name", "run"])
+        # UNet forwards: 3 stage-1 steps of 44 views (88 CFG-packed, 11
+        # forwards of 8), 3 stage-2 steps of 2x2 windows (1 forward), 3
+        # stage-3 steps of 4x4 windows (4 forwards)
+        s1 = min(vargs.num_inference_steps, vargs.denoise_to_step)
+        s23 = vargs.num_inference_steps - vargs.denoise_to_step
+        want_fwd = s1 * 11 + s23 * 1 + s23 * 4
+        batches, vae_calls = collections.Counter(), collections.Counter()
+        apply_unet, encode_video, decode_video = model.apply_unet, model.encode_video, model.decode_video
+
+        def counted_unet(x, *a, **kw):
+            batches[x.shape[0]] += 1
+            return apply_unet(x, *a, **kw)
+
+        def recorded(fn):
+            def call(*a, **kw):
+                with _recording(vae_calls):
+                    return fn(*a, **kw)
+            return call
+
+        model.apply_unet, model.encode_video, model.decode_video = \
+            counted_unet, recorded(encode_video), recorded(decode_video)
+        try:
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cli.main(vargs, _model=model)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = _launches()
+        finally:
+            model.apply_unet, model.encode_video, model.decode_video = apply_unet, encode_video, decode_video
+        e2e = json.load(open(os.path.join(out, "e2e.json")))
+        for stage, secs in e2e["stages_sec"].items():
+            steady = e2e["steady_sec_per_step"][stage]
+            print(f"phase 7 stage {stage}: {secs:.2f} s wall, steady "
+                  + ("not measured" if steady is None else f"{steady:.3f} s/step"), flush=True)
+        latents = {}
+        for name, shape in (("sphere_SW_latent.npy", (1, 16, 128, 256, 4)),
+                            ("basic_SW_latent.npy", (1, 16, 64, 128, 4)),
+                            ("denoised_latent2x.npy", (1, 16, 128, 256, 4))):
+            latents[name] = np.load(os.path.join(out, name))
+            if latents[name].shape != shape or not np.isfinite(latents[name]).all():
+                _fail(f"cli path: {name} {latents[name].shape} finite {np.isfinite(latents[name]).all()}, "
+                      f"expected {shape}")
+        writers = {name: _written_video(out, name, shape)
+                   for name, shape in (("shift_windows", (16, 512, 1024, 3)), ("SW_2X", (16, 1024, 2048, 3)))}
+        for f in ("args.json", "e2e.json"):
+            if not os.path.exists(os.path.join(out, f)):
+                _fail(f"cli path: no {f}")
+        per = expected_launches(model.unet.cfg, 40, 64)
+        n_fwd = sum(batches.values())
+        vae = dict.fromkeys(KERNELS, 0)
+        for (k, *_), n in vae_calls.items():
+            vae[k] += n
+        want = {k: n * n_fwd for k, n in per.items()}
+        want["K9"] += vae["K9"]
+        want["GN"] += _k9_split(vae_calls)
+        print(f"phase 7 cli: run {run_s:.2f} s: latents {[v.shape for v in latents.values()]} finite, videos "
+              f"{writers}; UNet forwards {dict(batches)} (expected {want_fwd} of 8); gn_silu in the VAE "
+              f"{vae['K9']} (split route {_k9_split(vae_calls)}); launches {launches}", flush=True)
+        if dict(batches) != {8: want_fwd} or launches != want or any(vae[k] for k in KERNELS if k not in VAE_KERNELS) \
+                or not vae["K9"]:
+            _fail(f"cli path: UNet forwards {dict(batches)} (expected {want_fwd} of 8), launches {launches}, "
+                  f"expected {want}; VAE calls {vae}")
+        errs = _hold_new_shapes(vae_calls, held)
+
+        # stage 2 alone, from the stage-1 latent of the run
+        t0 = time.perf_counter()
+        out2 = cli.main(cli.VArgs.from_args(argv + [
+            "--project_name", "resume", "--predenoised_SP_latent_path", os.path.join(out, "sphere_SW_latent.npy"),
+            "--do_upscale", "false"]), _model=model)
+        resume_s = time.perf_counter() - t0
+        a, b = latents["basic_SW_latent.npy"], np.load(os.path.join(out2, "basic_SW_latent.npy"))
+        same = np.array_equal(a, b)
+        print(f"phase 7 resume: stage 2 alone from the stage-1 latent in {resume_s:.2f} s: bit-identical to the "
+              f"full run's: {same} (max abs diff {float(np.abs(b - a).max()):.2e}); files "
+              f"{sorted(os.listdir(out2))}", flush=True)
+        if not same or os.path.exists(os.path.join(out2, "denoised_latent2x.npy")):
+            _fail("cli resume: the stage-2 latent differs from the full run's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    full = cli.build_model(cli.VArgs.from_args(["--dev_full_random", "true"]))
+    params = [p for _, m in full.components() for p in m.parameters()]
+    value = torch.tensor(0.01, dtype=BF, device=DEV)
+    ok = all(p.device == DEV and p.dtype == BF and bool((p == value).all()) for p in params)
+    n, n_ref = sum(p.numel() for p in params), sum(p.numel() for _, m in model.components() for p in m.parameters())
+    print(f"phase 7 --dev_full_random: {n / 1e9:.3f}B parameters (random bundle {n_ref / 1e9:.3f}B), all bf16 0.01 "
+          f"on {DEV}: {ok}, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    del full, params
+    torch.cuda.empty_cache()
+    if not ok or n != n_ref:
+        _fail("the --dev_full_random bundle is not the full i2v bundle with every bf16 parameter 0.01 on the card")
+    print(f"phase 7 ok in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, errs
 
 
 if __name__ == "__main__":

@@ -1,0 +1,427 @@
+"""360-degree panorama video generation CLI (PyTorch), the ``gen_pano_360.py``
+entry point.
+
+Counterpart of ``dynamicscaler_tpu/cli/gen_pano_360.py``: the same flags
+and three-stage orchestration (reference gen_pano_360.py:22-128 ``VArgs``,
+:130-396 ``main``):
+
+  1. sphere panorama shift-window denoise at 2x equirect (15 of 48 steps),
+  2. nearest-downsample to 1x, planar 2x2 shift-window denoise (skip 15),
+  3. bicubic-upsample x2, re-noise, planar 4x4 shift-window denoise,
+
+with the stage latents written as .npy (resume through the
+``--predenoised_*`` flags), the videos written on threads, and each stage's
+wall seconds and steady s/step in ``<out_dir>/e2e.json``.
+
+    python -m dynamicscaler_tpu_torch.cli.gen_pano_360 --ckpt_path model.ckpt --bpe_path bpe.txt.gz \\
+        --pano_image_path pano.png
+    python -m dynamicscaler_tpu_torch.cli.gen_pano_360 --dev_full_random true   # full size, no assets
+    python -m dynamicscaler_tpu_torch.cli.gen_pano_360 --dev_tiny true --pano_image_path pano.png
+
+The model runs on the CUDA card in bf16, the only dtype of the port's
+kernels; ``--dev_tiny`` runs the tiny fp32 model on the CPU. Refused at
+startup: ``--dtype float32`` on the card and ``--data_parallel_devices``
+above 1 (no multi-GPU path yet). The JAX CLI's warm-start flags
+(``aot_warm``, ``warm_probe``, ``repeat_warm``, ``resident_pass``) exist
+only for its TPU server and XLA compiles and are not flags here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+DEFAULT_PHI_PROMPT = {
+    90: "Clear light blue sky",
+    75: "Clear light blue sky",
+    60: "Clear light blue sky",
+    45: "Massive green blue ocean wave, dynamic ocean spray, breaking waves",
+    0: "Massive green blue ocean wave, dynamic ocean spray, breaking waves",
+    -45: "green blue ocean with waves and swirling foam patterns",
+    -60: "green blue ocean with waves",
+    -75: "green blue ocean water",
+    -90: "green blue ocean water",
+}
+
+
+@dataclasses.dataclass
+class VArgs:
+    """CLI flags (reference gen_pano_360.py:22-85; one flag per field)."""
+
+    seed: int = 2333333
+    prompt: str = "Massive green blue ocean wave, dynamic ocean spray, breaking waves"
+    pano_image_path: str = "./input/pano.png"
+    phi_prompt_json: str = ""  # optional JSON {phi: prompt}
+
+    total_f: int = 16
+    do_upscale: bool = True
+    upscale_factor: int = 2
+
+    phi_num: int = 6
+    view_fov: int = 120
+    denoise_to_step: int = 15
+    skip_time_step: int = -1
+    loop_step_theta: int = 10
+    predenoised_SP_latent_path: str = ""
+    predenoised_SW_1x_latent_path: str = ""
+    dock_at_f: bool = True
+    loop_step_frame: int = 8
+    skip_1x: bool = False
+    loop_step_hw: int = 16
+    merge_renoised_overlap_latent_ratio: float = 1.0
+    merge_denoised: bool = True
+    max_merge_denoised_overlap_latent_ratio: float = 0.5
+    merge_prev_step: int = 20
+
+    num_inference_steps: int = 48
+    height: int = 320
+    width: int = 512
+    fps: int = 8
+    guidance_scale: float = 7.5
+    equirect_width: int = 1024
+    equirect_height: int = 512
+    num_windows_hw_2: int = 2
+    # optional per-axis overrides for stage 2/3 window counts (0 = use hw_2)
+    num_windows_w_2: int = 0
+    num_windows_h_2: int = 0
+
+    ckpt_path: str = "./videocrafter_models/i2v_512_v1/model.ckpt"
+    bpe_path: str = ""
+    output_dir: str = "./results"
+    project_name: str = ""
+    overlap_mode: str = "last"
+    unet_microbatch: int = 8
+    view_get_scale_factor: int = 1
+    view_set_scale_factor: int = 1
+    # shard the window batch across this many devices (0 = single); above 1 is refused
+    data_parallel_devices: int = 0
+    dtype: str = "bfloat16"
+    save_latents: bool = True
+    profile_dir: str = ""  # write a torch.profiler Chrome trace of stage 1 here
+    dev_tiny: bool = False  # tiny random fp32 model on the CPU, no assets (smoke/testing)
+    dev_full_random: bool = False  # full-size constant-weight model on the card, no assets
+
+    @classmethod
+    def from_args(cls, argv=None) -> "VArgs":
+        parser = argparse.ArgumentParser(description=__doc__)
+        for f in dataclasses.fields(cls):
+            if f.type in ("bool", bool):
+                parser.add_argument(
+                    f"--{f.name}", type=lambda s: s.lower() in ("1", "true", "yes"),
+                    default=f.default,
+                )
+            else:
+                parser.add_argument(f"--{f.name}", type=type(f.default), default=f.default)
+        return cls(**vars(parser.parse_args(argv)))
+
+
+def check_flags(vargs: VArgs) -> None:
+    """Refuse at startup what the port cannot run, each with its reason."""
+    if vargs.data_parallel_devices > 1:
+        raise ValueError(f"--data_parallel_devices {vargs.data_parallel_devices}: the port runs on one card; "
+                         "the data-parallel window batch over several GPUs is not ported yet")
+    if not vargs.dev_tiny and vargs.dtype != "bfloat16":
+        raise ValueError(f"--dtype {vargs.dtype}: the model runs on the CUDA card, whose kernels take bfloat16 "
+                         "only (--dev_tiny runs the tiny float32 model on the CPU)")
+
+
+def build_model(vargs: VArgs):
+    """The bundle the flags name: ``--dev_tiny`` the tiny random fp32 i2v
+    model on the CPU; ``--dev_full_random`` the full-size i2v bundle with
+    every parameter 0.01 on the card; else the VideoCrafter i2v checkpoint
+    ``--ckpt_path`` with the CLIP BPE vocabulary ``--bpe_path``, on the
+    card."""
+    from dynamicscaler_tpu_torch.config import tiny_test_config, videocrafter_i2v
+    from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
+    from dynamicscaler_tpu_torch.utils.tokenizer import HashTokenizer, load_tokenizer
+
+    if vargs.dev_tiny:
+        return LatentVideoDiffusion.init_random(
+            tiny_test_config(img_attention=True), torch.Generator().manual_seed(vargs.seed % (2**31)),
+            device="cpu", tokenizer=HashTokenizer(512),
+        )
+    if vargs.dev_full_random:
+        return LatentVideoDiffusion.init_constant(videocrafter_i2v(vargs.dtype), tokenizer=HashTokenizer(49408))
+    from dynamicscaler_tpu_torch.utils.weights import load_videocrafter_checkpoint
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the model runs on the CUDA card and none is available (--dev_tiny runs on the CPU)")
+    if not os.path.exists(vargs.ckpt_path):
+        raise FileNotFoundError(f"checkpoint not found: {vargs.ckpt_path}")
+    config = videocrafter_i2v(dtype=vargs.dtype)
+    tokenizer = load_tokenizer(vargs.bpe_path or None)
+    state_dicts = load_videocrafter_checkpoint(vargs.ckpt_path, config)
+    return LatentVideoDiffusion.build(config, "cuda", tokenizer).load_state_dicts(**state_dicts)
+
+
+def site_seed(seed: int, site: int) -> int:
+    """The seed of the generator at one noise draw site: 1 stage 1, 2 stage
+    2, 3 the re-noise before stage 3, 4 stage 3 (the JAX CLI's fold-in
+    indices of its key)."""
+    return int(np.random.SeedSequence([seed % (2**31), site]).generate_state(1)[0])
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def _stage1_profile(profile_dir: str, device: torch.device):
+    """A torch.profiler trace of the block, written as a Chrome trace into
+    ``profile_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        yield
+        _sync(device)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "stage1_trace.json")
+    prof.export_chrome_trace(path)
+    print(f"[stage1] profiler trace -> {path}", flush=True)
+
+
+def main(vargs: VArgs, _model=None, _noise=None):
+    """Run the three stages; returns the output directory. ``_model``
+    replaces :func:`build_model`'s bundle. ``_noise`` (tests only) maps a
+    draw site (see :func:`site_seed`) to a ``noise_fn(name, shape)`` that
+    replaces that site's generator: the samplers' ``noise_fn``, and for
+    site 3 the re-noise drawn under the name ``re_noise``."""
+    from dynamicscaler_tpu_torch.ops.ddim import draw_noise, re_noise
+    from dynamicscaler_tpu_torch.ops.resize import resize_video_latent
+    from dynamicscaler_tpu_torch.pipelines import i2v, planar, sphere
+    from dynamicscaler_tpu_torch.pipelines.t2v import make_schedule_for_model
+    from dynamicscaler_tpu_torch.utils.io import load_image, load_latent, save_latent, save_video, to_uint8_device
+
+    check_flags(vargs)
+    t_start = time.time()
+    stage_secs = {}  # wall seconds per stage
+    stage_steady = {}  # steady s/step per stage (LOOP_STATS)
+    if vargs.dev_tiny:
+        # shrink all geometry to the tiny model (smoke/orchestration test)
+        vargs = dataclasses.replace(
+            vargs,
+            height=16, width=16, total_f=4,
+            equirect_width=64, equirect_height=32,
+            num_inference_steps=4, denoise_to_step=3,
+            loop_step_theta=2, loop_step_hw=2, loop_step_frame=2,
+            phi_num=3, view_fov=110, merge_prev_step=2,
+            upscale_factor=2, num_windows_w_2=4, num_windows_h_2=2,
+        )
+    model = _model if _model is not None else build_model(vargs)
+    dev = model.device
+    device_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"[setup] {model.config.dtype} model on {dev} ({device_name}) at {time.time() - t_start:.1f}s",
+          flush=True)
+    vs = model.config.vae.spatial_scale
+
+    out_dir = os.path.join(vargs.output_dir, vargs.project_name or time.strftime("pano-%Y%m%d-%H%M%S"))
+    os.makedirs(out_dir, exist_ok=True)
+    if vargs.dev_full_random and not os.path.exists(vargs.pano_image_path):
+        # a synthetic panorama, as .npy: load_image reads it without PIL
+        h0, w0 = vargs.equirect_height, vargs.equirect_width
+        yy, xx = np.mgrid[0:h0, 0:w0]
+        img = np.stack([xx % 256, yy % 256, (xx + yy) % 256], -1).astype(np.uint8)
+        path = os.path.join(out_dir, "synthetic_pano.npy")
+        np.save(path, img)
+        vargs = dataclasses.replace(vargs, pano_image_path=path)
+    with open(os.path.join(out_dir, "args.json"), "w") as f:
+        json.dump(dataclasses.asdict(vargs), f, indent=2)
+
+    def noise_source(site):
+        """(generator, noise_fn) of one draw site."""
+        if _noise is not None:
+            return None, _noise(site)
+        return torch.Generator(device=dev).manual_seed(site_seed(vargs.seed, site)), None
+
+    # view grid (gen_pano_360.py:444-455)
+    thetas = [360 * t // vargs.phi_num for t in range(vargs.phi_num)]
+    phi_theta_dict = {
+        90: [0], -90: [0],
+        75: thetas, -75: thetas, 60: thetas, -60: thetas,
+        45: thetas, -45: thetas, 0: thetas,
+    }
+    phi_prompt_dict = (
+        {float(k): v for k, v in json.loads(vargs.phi_prompt_json).items()}
+        if vargs.phi_prompt_json
+        else {float(k): v for k, v in DEFAULT_PHI_PROMPT.items()}
+    )
+
+    S = vargs.num_inference_steps
+    # per-step frame-overlap schedules (gen_pano_360.py:477-485)
+    ov_org = [0.75, 0.5]
+    overlap_list_f = [ov_org[i * len(ov_org) // S] for i in range(S)]
+    merge_prev_list = (
+        [
+            vargs.max_merge_denoised_overlap_latent_ratio * (1 - t / vargs.merge_prev_step)
+            for t in range(vargs.merge_prev_step)
+        ]
+        + [0.0] * (S - vargs.merge_prev_step)
+        if vargs.merge_denoised
+        else None
+    )
+
+    use_skip = vargs.skip_time_step >= 0
+    skip_idx = max(vargs.skip_time_step, 0)
+
+    eq_w, eq_h = vargs.equirect_width, vargs.equirect_height
+    nw_w2 = vargs.num_windows_w_2 or vargs.num_windows_hw_2
+    nw_h2 = vargs.num_windows_h_2 or vargs.num_windows_hw_2
+    sphere_scale = vargs.upscale_factor if vargs.skip_1x else 2
+    frames = 4 if vargs.dev_tiny else 16
+    common = dict(
+        height=vargs.height,
+        width=vargs.width,
+        frames=frames,
+        fps=vargs.fps,
+        guidance_scale=vargs.guidance_scale,
+        num_inference_steps=S,
+        total_f=vargs.total_f,
+        dock_at_f=vargs.dock_at_f,
+        overlap_ratio_list_f=overlap_list_f,
+        loop_step_frame=vargs.loop_step_frame,
+        merge_prev_denoised_ratio_list=merge_prev_list,
+        overlap_mode=vargs.overlap_mode,
+    )
+    planar_kw = dict(
+        loop_step=vargs.loop_step_hw,
+        use_skip_time=True,
+        skip_time_step_idx=vargs.denoise_to_step,
+        progressive_skip=False,
+        merge_renoised_overlap_latent_ratio=vargs.merge_renoised_overlap_latent_ratio,
+        unet_microbatch=vargs.unet_microbatch,
+        decode=True,
+        **common,
+    )
+
+    # ---- STAGE 1: sphere panorama (gen_pano_360.py:227-272) ---------------
+    t_stage = time.time()
+    if vargs.predenoised_SP_latent_path:
+        print(f"[stage1] loading sphere latent from {vargs.predenoised_SP_latent_path}", flush=True)
+        sphere_latent = torch.as_tensor(load_latent(vargs.predenoised_SP_latent_path), dtype=torch.float32,
+                                        device=dev)
+    else:
+        pano_big = load_image(vargs.pano_image_path, eq_h * sphere_scale, eq_w * sphere_scale)
+        print(f"[stage1] sphere pano denoise at {eq_w * sphere_scale}x{eq_h * sphere_scale}", flush=True)
+        generator, noise_fn = noise_source(1)
+        with _stage1_profile(vargs.profile_dir, dev) if vargs.profile_dir else contextlib.nullcontext():
+            _, sphere_latent, _ = sphere.sample_shift_sphere_panorama(
+                model,
+                vargs.prompt,
+                pano_big,
+                equirect_width=eq_w * sphere_scale,
+                equirect_height=eq_h * sphere_scale,
+                phi_theta_dict=phi_theta_dict,
+                phi_prompt_dict=phi_prompt_dict,
+                view_fov=vargs.view_fov,
+                loop_step_theta=vargs.loop_step_theta,
+                denoise_to_step=vargs.denoise_to_step,
+                paste_on_static=True,
+                view_get_scale_factor=vargs.view_get_scale_factor,
+                view_set_scale_factor=vargs.view_set_scale_factor,
+                merge_renoised_overlap_latent_ratio=vargs.merge_renoised_overlap_latent_ratio,
+                use_skip_time=use_skip,
+                skip_time_step_idx=skip_idx,
+                progressive_skip=use_skip,
+                unet_microbatch=vargs.unet_microbatch,
+                generator=generator,
+                noise_fn=noise_fn,
+                **common,
+            )
+        if vargs.save_latents:
+            save_latent(sphere_latent, os.path.join(out_dir, "sphere_SW_latent.npy"))
+        _sync(dev)
+        stage_secs["sphere"] = time.time() - t_stage
+        stage_steady["sphere"] = sphere.LOOP_STATS.steady_sec_per_step
+    print(f"[stage1] done at {time.time() - t_start:.1f}s; latent {tuple(sphere_latent.shape)}", flush=True)
+
+    pano_1x = load_image(vargs.pano_image_path, eq_h, eq_w)
+    # the videos are encoded and written on threads while the next stage runs
+    with ThreadPoolExecutor(max_workers=2, thread_name_prefix="save-video") as writer:
+        saves = []
+
+        # ---- STAGE 2: planar 1x (gen_pano_360.py:287-329) ------------------
+        basic_latent = None
+        t_stage = time.time()
+        if not vargs.skip_1x:
+            if vargs.predenoised_SW_1x_latent_path:
+                print(f"[stage2] loading 1x latent from {vargs.predenoised_SW_1x_latent_path}", flush=True)
+                basic_latent = torch.as_tensor(load_latent(vargs.predenoised_SW_1x_latent_path),
+                                               dtype=torch.float32, device=dev)
+            else:
+                init_1x = resize_video_latent(sphere_latent, eq_h // vs, eq_w // vs, mode="nearest")
+                print(f"[stage2] planar 1x denoise at {eq_w}x{eq_h}", flush=True)
+                generator, noise_fn = noise_source(2)
+                video_1x, basic_latent = i2v.sample_shift_multi_windows(
+                    model, vargs.prompt, pano_1x, total_w=eq_w, total_h=eq_h, num_windows_w=nw_w2,
+                    num_windows_h=nw_h2, init_panorama_latent=init_1x, generator=generator,
+                    noise_fn=noise_fn, **planar_kw,
+                )
+                if vargs.save_latents:
+                    save_latent(basic_latent, os.path.join(out_dir, "basic_SW_latent.npy"))
+                frames_1x = to_uint8_device(video_1x[0]).cpu().numpy()
+                del video_1x
+                saves.append(writer.submit(save_video, frames_1x, out_dir, "shift_windows", fps=vargs.fps))
+                stage_secs["planar_1x"] = time.time() - t_stage
+                stage_steady["planar_1x"] = planar.LOOP_STATS.steady_sec_per_step
+            print(f"[stage2] done at {time.time() - t_start:.1f}s", flush=True)
+
+        # ---- STAGE 3: 2x upscale (gen_pano_360.py:345-392) -----------------
+        t_stage = time.time()
+        if vargs.do_upscale:
+            uf = vargs.upscale_factor
+            if vargs.skip_1x:
+                mixed = sphere_latent
+            else:
+                sched = make_schedule_for_model(model, S)
+                up = resize_video_latent(basic_latent, eq_h // vs * uf, eq_w // vs * uf, mode="bicubic")
+                generator, noise_fn = noise_source(3)
+                noise = draw_noise(up.shape, dev, generator, noise_fn, "re_noise")
+                mixed = re_noise(sched, up, 0, S - vargs.denoise_to_step, noise=noise)
+            pano_2x = load_image(vargs.pano_image_path, eq_h * uf, eq_w * uf)
+            print(f"[stage3] planar {uf}x upscale denoise at {eq_w * uf}x{eq_h * uf}", flush=True)
+            generator, noise_fn = noise_source(4)
+            video_2x, latent_2x = i2v.sample_shift_multi_windows(
+                model, vargs.prompt, pano_2x, total_w=eq_w * uf, total_h=eq_h * uf, num_windows_w=nw_w2 * uf,
+                num_windows_h=nw_h2 * uf, init_panorama_latent=mixed, generator=generator, noise_fn=noise_fn,
+                **planar_kw,
+            )
+            if vargs.save_latents:
+                save_latent(latent_2x, os.path.join(out_dir, "denoised_latent2x.npy"))
+            frames_2x = to_uint8_device(video_2x[0]).cpu().numpy()
+            del video_2x
+            saves.append(writer.submit(save_video, frames_2x, out_dir, "SW_2X", fps=vargs.fps))
+            stage_secs["upscale"] = time.time() - t_stage
+            stage_steady["upscale"] = planar.LOOP_STATS.steady_sec_per_step
+            print(f"[stage3] done at {time.time() - t_start:.1f}s", flush=True)
+        for s in saves:
+            s.result()
+    total = time.time() - t_start
+    for stage, secs in stage_secs.items():
+        steady = stage_steady[stage]
+        print(f"[gen_pano_360] {stage}: {secs:.2f} s wall, steady "
+              + ("not measured (fewer than 2 steps)" if steady is None else f"{steady:.4f} s/step"), flush=True)
+    with open(os.path.join(out_dir, "e2e.json"), "w") as f:
+        json.dump({
+            "device": device_name,
+            "stages_sec": stage_secs,
+            "steady_sec_per_step": stage_steady,
+            "total_sec": total,
+            "geometry": f"{eq_w}x{eq_h}x{vargs.total_f}f_steps{S}",
+            "measured_at": time.strftime("%Y-%m-%d %H:%M:%S"),
+        }, f, indent=2)
+    print(f"[gen_pano_360] total {total:.1f}s -> {out_dir}", flush=True)
+    return out_dir
+
+
+if __name__ == "__main__":
+    main(VArgs.from_args())

@@ -122,6 +122,26 @@ class LatentVideoDiffusion:
             mod.to(config.torch_dtype)
         return model
 
+    @classmethod
+    def init_constant(cls, config: ModelConfig, value: float = 0.01, device="cuda",
+                      tokenizer=None) -> "LatentVideoDiffusion":
+        """Every parameter set to ``value`` in the config's compute dtype on
+        ``device`` (the card unless the caller asks for another): the
+        full-size bundle without assets or host random numbers, for
+        measuring the whole pipeline. Built on ``meta``, allocated on the
+        device in the compute dtype, then filled."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("init_constant builds on the CUDA card by default and none is "
+                               "available: pass device='cpu' to build on the CPU")
+        model = cls.build(config, "meta", tokenizer)
+        with torch.no_grad():
+            for _, mod in model.components():
+                mod.to(config.torch_dtype).to_empty(device=device)
+                for p in mod.parameters():
+                    p.fill_(value)
+        return model
+
     def load_state_dicts(self, unet=None, vae=None, clip_text=None, clip_vision=None,
                          resampler=None):
         """Load per-component state_dicts (VideoCrafter names, prefixes

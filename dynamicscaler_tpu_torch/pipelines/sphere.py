@@ -25,8 +25,9 @@ Every noise draw takes ``noise_fn`` when given (``ops.ddim.draw_noise``),
 else the ``generator``. Names: ``init``, ``skip``, ``renoise:{step}`` (the
 whole window batch in ``last`` / ``average``), ``pair:{step}:{k}`` (pair k
 in ``sequential``) and ``static:{step}`` (the re-noised static panorama).
-The JAX package's mesh/seq-slab sharding, step-program cache, timers and
-warm-up programs are not ported.
+The JAX package's mesh/seq-slab sharding, step-program cache, step timers
+and warm-up programs are not ported; ``LOOP_STATS`` keeps the loop's steady
+s/step.
 """
 
 from __future__ import annotations
@@ -52,6 +53,10 @@ from dynamicscaler_tpu_torch.ops.sphere import (
 from dynamicscaler_tpu_torch.pipelines.conditioning import build_uncond_context, cat_text_image, encode_texts_cached
 from dynamicscaler_tpu_torch.pipelines.t2v import make_schedule_for_model
 from dynamicscaler_tpu_torch.pipelines.tiled_vae import tiled_vae_encode
+from dynamicscaler_tpu_torch.utils.timing import LoopStats
+
+# steady s/step of the most recent sampler loop, read by cli/gen_pano_360.py
+LOOP_STATS = LoopStats()
 
 # ---------------------------------------------------------------------------
 # host-side precomputation
@@ -441,6 +446,7 @@ def sample_shift_sphere_panorama(
                        view_get_scale_factor, view_set_scale_factor, generator, noise_fn)
 
     denoised = torch.zeros_like(latent)
+    LOOP_STATS.start(steps_eff)
     for i in range(steps_eff):
         # with skip the table index keeps counting from the truncated top
         index = (S - (skip if use_skip_time and not progressive_skip else 0)) - 1 - i
@@ -463,6 +469,9 @@ def sample_shift_sphere_panorama(
         )
         latent, denoised = sampler.step(latent, denoised, static_clean, maps[phase], native[phase],
                                         set_maps[phase], uncond, sp)
+        if i == 0:
+            LOOP_STATS.mark_first(latent)
+    LOOP_STATS.finish(latent)
 
     out_latent, out_denoised = latent, denoised
     if downsample_factor_before_vae_decode and downsample_factor_before_vae_decode != 1:

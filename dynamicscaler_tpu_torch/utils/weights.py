@@ -14,7 +14,8 @@ for the port's module. Layout changes:
   (the ``init_attn`` proj_in/proj_out, use_linear=False)
 
 Because the names are VideoCrafter's, a real checkpoint loads into the
-port's modules directly with ``load_state_dict``.
+port's modules directly with ``load_state_dict``:
+``load_videocrafter_checkpoint`` reads one and splits it per component.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from dynamicscaler_tpu_torch.config import (
     CLIPTextConfig,
     CLIPVisionConfig,
+    ModelConfig,
     ResamplerConfig,
     UNetConfig,
     VAEConfig,
@@ -258,6 +260,122 @@ def from_jax_resampler(tree: Dict[str, Any], cfg: ResamplerConfig) -> Dict[str, 
         out.lin(f"layers.{d}.1.1", f["fc1"])
         out.lin(f"layers.{d}.1.3", f["fc2"])
     return dict(out)
+
+
+# ---------------------------------------------------------------------------
+# Whole-checkpoint loader
+# ---------------------------------------------------------------------------
+
+# component -> its key prefix in a VideoCrafter checkpoint
+COMPONENT_PREFIXES = {
+    "unet": "model.diffusion_model.",
+    "vae": "first_stage_model.",
+    "clip_text": "cond_stage_model.model.",
+    "clip_vision": "embedder.model.visual.",
+    "resampler": "image_proj_model.",
+}
+
+
+class EmaFallbackDict(dict):
+    """UNet state_dict view with the EMA shadows as fallback (reference
+    lvdm/ema.py:5-23). LitEma names a shadow after the wrapped parameter
+    with the dots stripped (``model_ema.diffusion_modelinput_blocks00weight``);
+    a key the primary dict lacks resolves through its shadow, and with
+    ``prefer_ema`` the shadow wins even where the primary exists (the
+    reference's ``ema_scope`` at inference, ddpm3d.py:167-180). The loader
+    looks up each key of the module's own ``state_dict``, so iteration over
+    this view (the primaries only) is never needed."""
+
+    def __init__(self, primary: Dict[str, Any], shadow: Dict[str, Any],
+                 prefix: str = "diffusion_model.", prefer_ema: bool = False):
+        super().__init__(primary)
+        self._shadow = shadow
+        self._prefix = prefix
+        self._prefer = prefer_ema
+
+    def _sname(self, key: str) -> str:
+        return (self._prefix + key).replace(".", "")
+
+    def __getitem__(self, key):
+        s = self._sname(key)
+        if (self._prefer or not super().__contains__(key)) and s in self._shadow:
+            return self._shadow[s]
+        return super().__getitem__(key)
+
+    def __contains__(self, key):
+        return super().__contains__(key) or self._sname(key) in self._shadow
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+
+def extract_ema_shadow(raw: Dict[str, Any]) -> Dict[str, Any]:
+    """``model_ema.*`` shadow buffers (minus LitEma's decay/num_updates)."""
+    return {
+        k[len("model_ema."):]: v
+        for k, v in raw.items()
+        if k.startswith("model_ema.") and k not in ("model_ema.decay", "model_ema.num_updates")
+    }
+
+
+def split_state_dict(sd: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """A full VideoCrafter checkpoint -> per-component dicts, prefixes
+    stripped (:data:`COMPONENT_PREFIXES`)."""
+    out: Dict[str, Dict[str, Any]] = {k: {} for k in COMPONENT_PREFIXES}
+    for key, val in sd.items():
+        for comp, pref in COMPONENT_PREFIXES.items():
+            if key.startswith(pref):
+                out[comp][key[len(pref):]] = val
+                break
+    return out
+
+
+def load_videocrafter_checkpoint(path: str, config: ModelConfig, prefer_ema: bool = False) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A VideoCrafter ``.ckpt`` -> ``{component: state_dict}`` for
+    :meth:`LatentVideoDiffusion.load_state_dicts`, each holding exactly the
+    keys of that component's module for ``config``. Handles the Lightning
+    ``state_dict`` nesting, DeepSpeed's ``module.`` prefix
+    (scripts/evaluation/funcs.py:88-104) and the UNet's EMA shadows as
+    fallback, or preferred with ``prefer_ema`` (lvdm/ema.py; only the UNet
+    is EMA'd). No tensor is converted: the port's names are VideoCrafter's.
+    A key the module needs and the file lacks raises, naming it and the
+    component; keys under a component's prefix that its module lacks (such
+    as CLIP's ``logit_scale``) are ignored and counted in one printed line.
+
+    ``torch.load`` runs with ``weights_only=False`` (Lightning pickles more
+    than tensors: load only trusted files) and ``map_location="cpu"``: the
+    whole file, fp32 in VideoCrafter's checkpoints (5.8 GB for the 1.44B
+    UNet alone), lives in host memory, and the returned tensors are its own,
+    uncopied. ``load_state_dicts`` copies them into the fp32 modules of
+    ``LatentVideoDiffusion.build`` on their device and casts there, so a
+    bundle built on the card holds its fp32 copy there until the cast."""
+    from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
+
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    if "state_dict" in raw:
+        raw = raw["state_dict"]
+    elif "module" in raw:  # DeepSpeed
+        raw = {k[len("module."):]: v for k, v in raw["module"].items()}
+    parts = split_state_dict(raw)
+    shadow = extract_ema_shadow(raw)
+    if shadow:
+        parts["unet"] = EmaFallbackDict(parts["unet"], shadow, prefer_ema=prefer_ema)
+    out, ignored = {}, {}
+    for name, module in LatentVideoDiffusion.build(config, "meta").components():
+        sd, keys = parts[name], list(module.state_dict())
+        missing = [k for k in keys if k not in sd]
+        if missing:
+            raise KeyError(f"{path}: the {name} weights lack {len(missing)} of {len(keys)} keys, first "
+                           f"{COMPONENT_PREFIXES[name]}{missing[0]}")
+        out[name] = {k: sd[k] for k in keys}
+        ignored[name] = len(set(dict.keys(sd)) - set(keys))
+    print(f"[load_videocrafter_checkpoint] {path}: loaded " + ", ".join(f"{n} {len(v)}" for n, v in out.items())
+          + " keys; ignored keys the modules lack: " + ", ".join(f"{n} {k}" for n, k in ignored.items()),
+          flush=True)
+    return out
 
 
 def perturb_zero_params(module: torch.nn.Module, generator: torch.Generator, scale: float = 0.02):
