@@ -84,8 +84,8 @@ Phases, in order, one result line each (any failure exits non-zero):
    phase-2 i2v bundle, all three stages at the CLI's defaults but for the
    steps (6-step table, 3 steps a stage): stage 1 at 2048x1024 (44 views,
    10 phases), stage 2 on 2x2 and stage 3 on 4x4 windows of 320x512, 16
-   frames, CFG 7.5, UNet batch 8; the panorama phase 5's as a uint8
-   ``.npy``, outputs in a temporary directory removed afterwards. The
+   frames, CFG 7.5, UNet batch 8; the panorama phase 5's as a PNG,
+   outputs in a temporary directory removed afterwards. The
    three latents finite at their shapes, both videos written through
    whichever writer the machine allows, ``args.json`` and ``e2e.json``,
    each stage's wall seconds and steady s/step, exact launch counts (48
@@ -97,11 +97,31 @@ Phases, in order, one result line each (any failure exits non-zero):
    latent the run wrote, equal to the run's bit for bit;
    the ``--dev_full_random`` bundle (every bf16 parameter 0.01 on the card,
    the random bundle's parameter count).
+8. the single-clip CLI, ``cli/sample.py``, on a full-width VideoCrafter2
+   t2v bundle built again (seeded random bf16 weights, zero-initialised
+   layers perturbed): first three new UNet forwards at batch 2 through
+   the kernels and through the plain versions, with exact launch counts
+   (``expected_launches``, its FreeTraj variant for the trajectory
+   forwards): one FIFO iteration's (the staggered per-frame timesteps
+   [2, 16]) and one FreeTraj forward at an active and one at an inactive
+   step. Then ``main(parse_args(argv))`` in its four modes at 320x512, 16
+   frames, CFG 12, the steps cut: ``t2v`` and ``freetraj`` (two boxes,
+   spatial threshold 600) on a 4-step table, ``i2v`` on the phase-2 i2v
+   bundle with phase 5's panorama cropped to 320x512 as a PNG and a 4-step
+   table, ``fifo`` with a queue of 16 and 8 output frames; then
+   ``fifo_sample(scheduler="lcm")`` directly with 8 output frames. Per
+   run: wall seconds and s/step, finite latents of the expected shapes,
+   the video through the writer that ran, exact launch counts (the UNet
+   forwards at ``expected_launches`` each, plus the VAE's K9 and
+   statistics as recorded), and for FIFO each output frame equal to the
+   front slot's ``denoised`` of the step that emitted it. Every kernel
+   call of the phase at a shape no earlier phase held is held against its
+   plain version with phase 3's gates.
 
 Then one JSON line of kernel records (K1-K13, TA, FA, GN; ``launches`` is
-the sum over the paths: the three samplers, the CLI, phase 5's "off"
-request and phase 2's two override forwards), and last the device JSON
-line.
+the sum over the paths: the three samplers, the gen_pano_360 CLI, the
+sample CLI's four modes and the LCM stream, phase 5's "off" request and
+phase 2's two override forwards), and last the device JSON line.
 """
 
 from __future__ import annotations
@@ -313,9 +333,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths["i2v"], paths["i2v, plan off"] = _phase_i2v_sampler(i2v_model, steps=4)
     paths["sphere"] = _phase_sphere(i2v_model, steps=2)
-    paths["cli"], cli_err = _phase_cli(i2v_model, held={key for calls in sites.values() for key in calls})
-    for k, err in cli_err.items():
-        records[k]["max_abs_err"] = max(records[k]["max_abs_err"], err)
+    held = {key for calls in sites.values() for key in calls}
+    paths["cli"], errs = _phase_cli(i2v_model, held)
+    sample_paths, sample_errs = _phase_sample(i2v_model, held)
+    paths.update(sample_paths)
+    for k in KERNELS:
+        records[k]["max_abs_err"] = max(records[k]["max_abs_err"], errs.get(k, 0.0), sample_errs.get(k, 0.0))
 
     kernels = [
         {"name": f"{k} {desc}", "route": "cuda", "source": src, "replaces": rep,
@@ -515,14 +538,19 @@ def unet_transformers(cfg, H, W):
     return out
 
 
-def expected_launches(cfg, H, W, frames=16):
+def expected_launches(cfg, H, W, frames=16, traj=None):
     """Kernel launches of one UNet forward at an H x W latent under the
     current dispatch plan, from the UNet layout, the plan and the kernels'
     gates: per transformer the whole transformer (K12 / K13) where the plan
     allows ``mega`` and its gate admits the shape; else the wrapper head and
     tail (K5 + K6 / K7 + K8) around the whole block (K10 / K11) where the
     plan allows ``block`` and its gate admits it, or around the sub-blocks
-    (K1 x 2 + K4 / K2 + K3 + K4). gn_silu (K9): 2 per ResBlock, 4 more in
+    (K1 x 2 + K4 / K2 + K3 + K4). ``traj`` (temporal, self, cross): the
+    FreeTraj classes on, which keep their transformers on the wrapper
+    kernels and the sub-blocks: a temporal transformer with the temporal
+    class runs K1 once (attn2; attn1 is re-weighted in plain math) and K4,
+    a spatial one with the self or the cross class K2 unless self, K3
+    unless cross, and K4. gn_silu (K9): 2 per ResBlock, 4 more in
     its temporal conv block, and the out norm (``unet3d.gn_silu_calls``).
     The device-kernel wrappers inside them: K1's attention core (TA) once
     per K1, K2's and K3's (FA) once per K2 and per K3, the GroupNorm
@@ -533,8 +561,13 @@ def expected_launches(cfg, H, W, frames=16):
 
     n = collections.Counter()
     allows = fused_temporal.plan_allows
+    t_traj, s_traj, c_traj = traj or (False, False, False)
     for side, C, inner, heads, h, w in unet_transformers(cfg, H, W):
-        if side == "t":
+        if side == "t" and t_traj:
+            n.update(("K5", "K6", "K1", "K4"))
+        elif side == "s" and (s_traj or c_traj):
+            n.update(("K7", "K8", "K4") + (() if s_traj else ("K2",)) + (() if c_traj else ("K3",)))
+        elif side == "t":
             if allows("mega", "t", C) and fused_mega.temporal_ok(frames, C, inner, heads):
                 n["K12"] += 1
                 continue
@@ -628,10 +661,11 @@ def _phase_forwards(model, i2v_model):
     return sites, paths
 
 
-def _profile_forward(where, fwd, wall_ms):
+def _profile_forward(where, fwd, wall_ms, phase="phase 2"):
     """Device time of one kernel-path forward by CUDA kernel (torch.profiler),
     by kernel class: the GEMM, the two attention kernels, gn_silu, cuDNN,
-    cuBLAS and the remaining elementwise/reduction work."""
+    cuBLAS (the time embedding; FreeTraj's plain attention products) and the
+    remaining elementwise/reduction work."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -640,7 +674,7 @@ def _profile_forward(where, fwd, wall_ms):
     rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     total = sum(e.self_device_time_total for e in rows) / 1e3
     if total <= 0:
-        print(f"phase 2 profile of {where}: no device time recorded (profiler saw no CUDA activity)", flush=True)
+        print(f"{phase} profile of {where}: no device time recorded (profiler saw no CUDA activity)", flush=True)
         return
     groups = {}
     for e in rows:
@@ -656,12 +690,12 @@ def _profile_forward(where, fwd, wall_ms):
                else "ds_temporal_block / ds_temporal_mega (K10, K12)" if "temporal_block_tma_kernel" in n
                else "ds_spatial_block / ds_mega_spatial body (K11, K13)" if "spatial_body_kernel" in n
                else "conv (cuDNN)" if any(s in n for s in ("conv", "cudnn", "fprop", "implicit"))
-               else "gemm (cuBLAS: time emb)" if any(s in n for s in ("gemm", "cutlass"))
+               else "gemm (cuBLAS: time emb, FreeTraj's plain attention)" if any(s in n for s in ("gemm", "cutlass"))
                else "elementwise/reduce (casts, cat)")
         groups[key] = groups.get(key, 0.0) + e.self_device_time_total / 1e3
     parts = ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.0f}%)"
                       for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
-    print(f"phase 2 profile of {where}: device busy {total:.1f} ms of {wall_ms:.1f} ms wall "
+    print(f"{phase} profile of {where}: device busy {total:.1f} ms of {wall_ms:.1f} ms wall "
           f"(idle share {max(0.0, 1 - total / wall_ms):.2f}); {parts}", flush=True)
 
 
@@ -1765,6 +1799,14 @@ def _phase_sphere(model, steps):
 CLI_STEPS = ["--num_inference_steps", "6", "--denoise_to_step", "3", "--merge_prev_step", "3"]
 
 
+def _png(path, image):
+    """A [-1, 1] [h, w, 3] image written as a PNG at ``path`` (PIL)."""
+    from PIL import Image
+
+    Image.fromarray(np.round((image + 1) * 127.5).astype(np.uint8)).save(path)
+    return path
+
+
 def _written_video(out, name, frames_shape):
     """The video ``name`` the CLI wrote in ``out``, through whichever writer
     the machine allows (``utils.io.save_video``); returns the writer."""
@@ -1778,22 +1820,20 @@ def _written_video(out, name, frames_shape):
         ok = (info["frames"], info["height"], info["width"]) == frames_shape[:3] \
             and len(os.listdir(base + "_frames")) == frames_shape[0]
         writer = "MJPEG AVI and PNG frames through PIL"
-    elif os.path.exists(base + "_frames.npy"):
-        v = np.load(base + "_frames.npy")
-        ok, writer = v.shape == frames_shape and v.dtype == np.uint8, "uint8 .npy frames (no PIL, no imageio)"
     else:
         ok, writer = False, "none"
     if not ok:
-        _fail(f"cli path: video {name} {frames_shape} not written as expected (writer {writer})")
+        _fail(f"{out}: video {name} {frames_shape} not written as expected (writer {writer})")
     return writer
 
 
-def _hold_new_shapes(calls, held):
-    """Phase 7: every kernel call of ``calls`` (K9 and the statistics of the
-    VAE) at a shape that phase 3 did not hold (``held``), against its plain
-    version with phase 3's gates (:func:`_check`; for K9 also
-    :func:`_gn_route`: the statistics it folds and its apply kernel alone).
-    Fails on any disagreement; returns the largest error per kernel."""
+def _hold_new_shapes(calls, held, phase):
+    """Every kernel call of ``calls`` at a shape no earlier phase held
+    (``held``, which then gains them), against its plain version with phase
+    3's gates (:func:`_check`; for K9 also :func:`_gn_route`: the
+    statistics it folds and its apply kernel alone; for kernels 10 and 12
+    the other cluster size, :func:`_block_tile`). Fails on any
+    disagreement; returns the largest error per kernel."""
     rn = _gen()
     errs, bad = {}, []
     for k, pos, opts in sorted({key for key in calls if key not in held}, key=str):
@@ -1802,20 +1842,25 @@ def _hold_new_shapes(calls, held):
         ref = case.plain()
         torch.cuda.synchronize()
         err, tol, rel, tol_l2, ok = _check(case, got, ref)
-        del got, ref
+        del got
         ms, plain_ms = _time_ms(case.run, 10), _time_ms(case.plain, 3)
-        print(f"phase 7 {k} {case.desc}: max_abs_err {err:.5f} (tol {tol}) rel_l2 {rel:.5f} (tol {tol_l2}) "
-              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms [x{calls[(k, pos, opts)]} in the cli run] "
+        print(f"{phase} {k} {case.desc}: max_abs_err {err:.5f} (tol {tol}) rel_l2 {rel:.5f} (tol {tol_l2}) "
+              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms [x{calls[(k, pos, opts)]} in the {phase} runs] "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if case.gn:
-            ok = _gn_route(case, ms, phase="phase 7")[0] and ok
+            ok = _gn_route(case, ms, phase=phase)[0] and ok
+        if case.block:
+            tile, reckoned = _block_tile(case, ms, ref)
+            ok = ok and tile["other_cl_ok"]
+            print(f"{phase} {k} {case.desc} tile: {_block_line(tile, reckoned)}", flush=True)
         errs[k] = max(errs.get(k, 0.0), err)
+        held.add((k, pos, opts))
         if not ok:
             bad.append(f"{k} {case.desc}")
-        del case
+        del case, ref
     torch.cuda.empty_cache()
     if bad:
-        _fail(f"cli path: kernel disagrees with its plain version at a VAE shape of the run: {bad}")
+        _fail(f"{phase}: kernel disagrees with its plain version at a shape of the phase's runs: {bad}")
     return errs
 
 
@@ -1825,7 +1870,7 @@ def _phase_cli(model, held):
     (:data:`CLI_STEPS`): the 1024x512 equirect, stage 1 at 2048x1024 with 44
     views over 10 phases, stages 2 and 3 on 2x2 and 4x4 windows of 320x512,
     16 frames, CFG 7.5, UNet microbatch 8; the panorama the smooth seeded
-    image of phase 5 as a uint8 ``.npy``, outputs in a temporary directory.
+    image of phase 5 as a PNG, outputs in a temporary directory.
     Exact launch counts: the UNet forwards at :func:`expected_launches`
     each, and K9 and the statistics of the VAE's calls as recorded. Then
     stage 2 again from the stage-1 latent the run wrote, and the
@@ -1838,8 +1883,7 @@ def _phase_cli(model, held):
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
-        pano = os.path.join(tmp, "pano.npy")
-        np.save(pano, np.round((smooth_panorama(512, 1024, seed=5) + 1) * 127.5).astype(np.uint8))
+        pano = _png(os.path.join(tmp, "pano.png"), smooth_panorama(512, 1024, seed=5))
         argv = ["--pano_image_path", pano, "--output_dir", tmp, *CLI_STEPS]
         vargs = cli.VArgs.from_args(argv + ["--project_name", "run"])
         # UNet forwards: 3 stage-1 steps of 44 views (88 CFG-packed, 11
@@ -1906,7 +1950,7 @@ def _phase_cli(model, held):
                 or not vae["K9"]:
             _fail(f"cli path: UNet forwards {dict(batches)} (expected {want_fwd} of 8), launches {launches}, "
                   f"expected {want}; VAE calls {vae}")
-        errs = _hold_new_shapes(vae_calls, held)
+        errs = _hold_new_shapes(vae_calls, held, "phase 7")
 
         # stage 2 alone, from the stage-1 latent of the run
         t0 = time.perf_counter()
@@ -1938,6 +1982,260 @@ def _phase_cli(model, held):
         _fail("the --dev_full_random bundle is not the full i2v bundle with every bf16 parameter 0.01 on the card")
     print(f"phase 7 ok in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, errs
+
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the single-clip CLI, cli/sample.py
+# ---------------------------------------------------------------------------
+
+SAMPLE_PROMPT = "a red sports car driving along a coastal road"
+# two FreeTraj keyframes: the box moves left to right at mid height
+SAMPLE_TRAJ = "0:0.3-0.7:0.0-0.4;1:0.3-0.7:0.6-1.0"
+SAMPLE_THRES = 600.0  # spatial masking while t > 600: steps at t 999, 666 on, 333, 0 off (4-step table)
+TRAJ_ALL = (True, True, True)  # FreeTraj's (temporal, self, cross) classes, all on in the CLI
+SAMPLE_STEPS = 4  # the t2v, i2v and freetraj modes' DDIM table
+FIFO_OUT = 8  # FIFO output frames (queue 16: one UNet forward a frame)
+
+
+class _SampleProbe:
+    """Installed on a bundle for one run: each UNet call's batch, FreeTraj
+    classes and synchronised seconds; the seconds of conditioning, decode
+    and the video write (``utils.io.save_video``); the VAE decode's kernel
+    calls (recorded apart, by :func:`_recording`)."""
+
+    def __init__(self, model):
+        from dynamicscaler_tpu_torch.utils import io
+
+        self.model, self.unet, self.secs, self.vae_calls = model, [], collections.Counter(), collections.Counter()
+        self._saved = {n: getattr(model, n) for n in ("apply_unet", "encode_text", "encode_image_cond",
+                                                      "decode_video")}
+        self._io = (io, io.save_video)
+
+        def timed(fn, label, record=False):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with _recording(self.vae_calls) if record else contextlib.nullcontext():
+                    out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.secs[label] += time.perf_counter() - t0
+                return out
+            return call
+
+        def unet(x, t, ctx, fps=16, traj=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._saved["apply_unet"](x, t, ctx, fps, traj=traj)
+            torch.cuda.synchronize()
+            classes = None if traj is None else (traj.temporal_attn, traj.self_attn, traj.cross_attn)
+            self.unet.append((x.shape[0], classes, None if traj is None else bool(traj.active.any()),
+                              time.perf_counter() - t0))
+            return out
+
+        model.apply_unet = unet
+        for n in ("encode_text", "encode_image_cond"):
+            setattr(model, n, timed(self._saved[n], "conditioning"))
+        model.decode_video = timed(self._saved["decode_video"], "decode", record=True)
+        io.save_video = timed(io.save_video, "write")
+
+    def remove(self):
+        for n, fn in self._saved.items():
+            setattr(self.model, n, fn)
+        self._io[0].save_video = self._io[1]
+
+
+@contextlib.contextmanager
+def _kept(module, name, store, pick):
+    """``module.name`` wrapped inside the block to append ``pick(result)``
+    to ``store``."""
+    fn = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        out = fn(*a, **kw)
+        store.append(pick(out))
+        return out
+    setattr(module, name, wrapped)
+    try:
+        yield store
+    finally:
+        setattr(module, name, fn)
+
+
+def _check_run(where, model, launches, probe, calls, want_fwd, traj, decoded=True):
+    """Exact launches of one phase-8 run: its UNet forwards (``want_fwd``
+    of batch 2, with the FreeTraj classes ``traj``) at
+    :func:`expected_launches` each, plus the VAE decode's K9 and statistics
+    as recorded (and some K9 calls there where the run ``decoded``); K3
+    with image keys on the i2v bundle only."""
+    per = expected_launches(model.unet.cfg, 40, 64, traj=traj)
+    fwds = [(b, c) for b, c, _, _ in probe.unet]
+    vae = dict.fromkeys(KERNELS, 0)
+    for (k, *_), n in probe.vae_calls.items():
+        vae[k] += n
+    want = {k: n * len(fwds) for k, n in per.items()}
+    want["K9"] += vae["K9"]
+    want["GN"] += _k9_split(probe.vae_calls)
+    i2v_k3 = fused_spatial.fused_ln_cross_attention.launches_i2v
+    want_k3 = launches["K3"] if model.unet.cfg.use_image_attention else 0
+    if fwds != [(2, traj)] * want_fwd or launches != want or i2v_k3 != want_k3 or bool(vae["K9"]) != decoded \
+            or any(vae[k] for k in KERNELS if k not in VAE_KERNELS):
+        _fail(f"{where}: UNet forwards {fwds} (expected {want_fwd} of batch 2 with traj {traj}), launches "
+              f"{launches}, expected {want}; K3 with image keys {i2v_k3}; VAE calls {vae}")
+    calls.update(probe.vae_calls)
+
+
+def _phase_sample(i2v_model, held):
+    """Phase 8: ``cli/sample.py`` on a full-width VideoCrafter2 t2v bundle
+    built again (and the phase-2 i2v bundle for ``--mode i2v``): the new
+    forwards against the plain versions, the four modes through
+    ``main(parse_args(argv))`` with the steps cut, the LCM stream through
+    ``fifo_sample`` directly; every kernel call of the phase at a shape not
+    in ``held`` held against its plain version with phase 3's gates.
+    Returns the launches of each run by path name and the largest error
+    per kernel of the new shapes."""
+    from dynamicscaler_tpu_torch.cli import sample
+    from dynamicscaler_tpu_torch.ops import freetraj as ft
+    from dynamicscaler_tpu_torch.pipelines import fifo, i2v, t2v
+
+    t_phase = time.perf_counter()
+    model = _random_model("t2v")
+    cfg = model.unet.cfg
+    calls = collections.Counter()  # every kernel call of the phase, for the new-shape check
+
+    # the new forwards, kernels against plain versions
+    sites = {}
+    x, ctx, _ = _unet_inputs(2, 77, 10)
+    t_fifo = t2v.make_schedule_for_model(model, 16).ddim_timesteps[None].expand(2, -1)  # queue slot j at index j
+    traj = ft.make_freetraj(sample.parse_traj_spec(SAMPLE_TRAJ), 16, batch=2, device=DEV)
+    outs = {}
+    for where, t, classes in (("t2v FIFO fwd batch 2, per-frame t [2, 16]", t_fifo, None),
+                              ("t2v FreeTraj fwd batch 2, t 999 (spatial masks on)", 999, TRAJ_ALL),
+                              ("t2v FreeTraj fwd batch 2, t 333 (spatial masks off)", 333, TRAJ_ALL)):
+        t2 = torch.as_tensor(t, device=DEV).expand(2, *([] if isinstance(t, int) else [16]))
+        tr = None if classes is None else ft.gate_active(traj, t2, SAMPLE_THRES, 2, 16)
+
+        def fwd(t2=t2, tr=tr):
+            return model.apply_unet(x, t2, ctx, 8, traj=tr)
+
+        want = expected_launches(cfg, 40, 64, traj=classes)
+        r = _against_plain(where, fwd, sites, 2, 1)
+        active = "" if tr is None else f" active frames {int(tr.active.sum())} of 32,"
+        print(f"phase 8 {where}:{active} rel_l2 {r.rel:.5f} (tol {TOL_PATH_REL_L2}) |eps| mean "
+              f"{float(r.out.abs().mean()):.4f} kernels {r.ms:.1f} ms plain {r.plain_ms:.1f} ms launches "
+              f"{r.launches}", flush=True)
+        if not r.finite or r.rel > TOL_PATH_REL_L2 or r.launches != want or r.i2v_k3:
+            _fail(f"{where}: rel_l2 {r.rel} finite {r.finite} launches {r.launches}, expected {want}")
+        outs[where] = r.out
+        if classes and tr.active.all():
+            _profile_forward(where, fwd, r.ms, phase="phase 8")
+        del r
+    on, off = (outs[w] for w in list(outs)[1:])
+    masks = float((on - off).norm() / off.norm())
+    print(f"phase 8 FreeTraj forwards: the spatial masks move eps by rel_l2 {masks:.4f} between the active and "
+          f"the inactive step", flush=True)
+    if masks == 0.0:
+        _fail("the FreeTraj spatial masks leave the forward unchanged at an active step")
+    del outs, on, off
+    for c in sites.values():
+        calls.update(c)
+
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sample_")
+    try:
+        image = _png(os.path.join(tmp, "crop.png"), smooth_panorama(512, 1024, seed=5)[:320, :512])
+        steps = ["--num_inference_steps", str(SAMPLE_STEPS)]
+        runs = (("t2v", model, steps, SAMPLE_STEPS, None, (t2v, "basic_sample")),
+                ("i2v", i2v_model, ["--image", image, *steps], SAMPLE_STEPS, None,
+                 (i2v, "sample_shift_multi_windows_integer")),
+                ("fifo", model, ["--num_frames", str(FIFO_OUT)], FIFO_OUT, None, (fifo, "fifo_sample")),
+                ("freetraj", model, ["--traj", SAMPLE_TRAJ, "--traj_thres", str(SAMPLE_THRES), *steps],
+                 SAMPLE_STEPS, TRAJ_ALL, (t2v, "freetraj_sample")))
+        for mode, m, extra, n_fwd, classes, (mod, fn) in runs:
+            args = sample.parse_args(["--mode", mode, "--prompt", SAMPLE_PROMPT, "--name", mode,
+                                      "--output_dir", os.path.join(tmp, mode), *extra])
+            probe = _SampleProbe(m)
+            latents, fronts = [], []
+            try:
+                with _kept(mod, fn, latents, lambda out: out[1]), \
+                        _kept(fifo, "ddim_step", fronts, lambda out: out[1][:, 0].clone()), _recording(calls):
+                    _reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    path = sample.main(args, _model=m)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    launches = _launches()
+            finally:
+                probe.remove()
+            lat = latents[0]
+            shape = (1, FIFO_OUT if mode == "fifo" else 16, 40, 64, 4)
+            finite = bool(torch.isfinite(lat).all())
+            writer = _written_video(os.path.dirname(path), mode, (shape[1], 320, 512, 3))
+            unet_s = [s for *_, s in probe.unet]
+            sampling = wall - probe.secs["conditioning"] - probe.secs["decode"] - probe.secs["write"]
+            steady = sum(unet_s[1:]) / (len(unet_s) - 1)
+            act = [a for _, _, a, _ in probe.unet]
+            print(f"phase 8 sample --mode {mode}: {wall:.2f} s wall: conditioning {probe.secs['conditioning']:.2f} "
+                  f"s, sampling {sampling / n_fwd:.3f} s/step over {n_fwd} "
+                  f"{'output frames' if mode == 'fifo' else 'steps'} (UNet forward {unet_s[0] * 1e3:.1f} ms first, "
+                  f"{steady * 1e3:.1f} ms steady; the rest of the loop {sampling - sum(unet_s):.2f} s), decode "
+                  f"{probe.secs['decode']:.2f} s, write {probe.secs['write']:.2f} s; latent {tuple(lat.shape)} "
+                  f"finite {finite}; video {path} ({writer}); launches {launches}"
+                  + (f"; spatial masks on at steps {act}" if classes else ""), flush=True)
+            if tuple(lat.shape) != shape or not finite:
+                _fail(f"sample --mode {mode}: latent {tuple(lat.shape)} finite {finite}, expected {shape}")
+            if classes and act != [True, True, False, False]:
+                _fail(f"sample --mode freetraj: spatial masks on at steps {act}, expected [True, True, False, False]")
+            if mode == "fifo":
+                _check_fronts("sample --mode fifo", lat, fronts)
+            _check_run(f"sample --mode {mode}", m, launches, probe, calls, n_fwd, classes)
+            paths[f"sample {mode}"] = launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the LCM stream, which the CLI does not reach
+    probe = _SampleProbe(model)
+    fronts = []
+    try:
+        with _kept(fifo, "lcm_step", fronts, lambda out: out[1][:, 0].clone()), _recording(calls):
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, lat = fifo.fifo_sample(model, SAMPLE_PROMPT, FIFO_OUT, frames=16, fps=8, guidance_scale=12.0,
+                                      generator=torch.Generator(device=DEV).manual_seed(5), decode=False,
+                                      scheduler="lcm")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+    finally:
+        probe.remove()
+    finite = bool(torch.isfinite(lat).all())
+    print(f"phase 8 fifo_sample(scheduler=\"lcm\"): {FIFO_OUT} output frames in {wall:.2f} s "
+          f"({wall / FIFO_OUT:.3f} s a frame, no decode); latent {tuple(lat.shape)} finite {finite}; launches "
+          f"{launches}", flush=True)
+    if tuple(lat.shape) != (1, FIFO_OUT, 40, 64, 4) or not finite:
+        _fail(f"fifo lcm: latent {tuple(lat.shape)} finite {finite}")
+    _check_fronts("fifo lcm", lat, fronts)
+    _check_run("fifo lcm", model, launches, probe, calls, FIFO_OUT, None, decoded=False)
+    paths["fifo lcm"] = launches
+    del model, lat
+    torch.cuda.empty_cache()
+
+    errs = _hold_new_shapes(calls, held, "phase 8")
+    print(f"phase 8 ok in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths, errs
+
+
+def _check_fronts(where, frames_out, fronts):
+    """Each output frame of a FIFO stream equals the front slot's
+    ``denoised`` of the step that emitted it, bit for bit."""
+    same = len(fronts) == frames_out.shape[1] and all(
+        torch.equal(frames_out[:, i], f) for i, f in enumerate(fronts))
+    print(f"phase 8 {where}: {len(fronts)} steps, each output frame the front slot's denoised of its step: {same}",
+          flush=True)
+    if not same:
+        _fail(f"{where}: the output frames are not the front slots' denoised of their steps")
 
 
 if __name__ == "__main__":

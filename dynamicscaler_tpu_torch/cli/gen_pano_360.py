@@ -128,8 +128,13 @@ def check_flags(vargs: VArgs) -> None:
     if vargs.data_parallel_devices > 1:
         raise ValueError(f"--data_parallel_devices {vargs.data_parallel_devices}: the port runs on one card; "
                          "the data-parallel window batch over several GPUs is not ported yet")
-    if not vargs.dev_tiny and vargs.dtype != "bfloat16":
-        raise ValueError(f"--dtype {vargs.dtype}: the model runs on the CUDA card, whose kernels take bfloat16 "
+    check_dtype(vargs.dtype, vargs.dev_tiny)
+
+
+def check_dtype(dtype: str, dev_tiny: bool) -> None:
+    """Refuse a ``--dtype`` the card's kernels do not take (both CLIs)."""
+    if not dev_tiny and dtype != "bfloat16":
+        raise ValueError(f"--dtype {dtype}: the model runs on the CUDA card, whose kernels take bfloat16 "
                          "only (--dev_tiny runs the tiny float32 model on the CPU)")
 
 
@@ -141,7 +146,7 @@ def build_model(vargs: VArgs):
     card."""
     from dynamicscaler_tpu_torch.config import tiny_test_config, videocrafter_i2v
     from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
-    from dynamicscaler_tpu_torch.utils.tokenizer import HashTokenizer, load_tokenizer
+    from dynamicscaler_tpu_torch.utils.tokenizer import HashTokenizer
 
     if vargs.dev_tiny:
         return LatentVideoDiffusion.init_random(
@@ -150,15 +155,22 @@ def build_model(vargs: VArgs):
         )
     if vargs.dev_full_random:
         return LatentVideoDiffusion.init_constant(videocrafter_i2v(vargs.dtype), tokenizer=HashTokenizer(49408))
+    return load_bundle(vargs.ckpt_path, vargs.bpe_path, videocrafter_i2v(dtype=vargs.dtype))
+
+
+def load_bundle(ckpt_path: str, bpe_path: str, config):
+    """The VideoCrafter checkpoint ``ckpt_path`` for ``config`` with the CLIP
+    BPE vocabulary ``bpe_path``, on the card (both CLIPs)."""
+    from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
+    from dynamicscaler_tpu_torch.utils.tokenizer import load_tokenizer
     from dynamicscaler_tpu_torch.utils.weights import load_videocrafter_checkpoint
 
     if not torch.cuda.is_available():
         raise RuntimeError("the model runs on the CUDA card and none is available (--dev_tiny runs on the CPU)")
-    if not os.path.exists(vargs.ckpt_path):
-        raise FileNotFoundError(f"checkpoint not found: {vargs.ckpt_path}")
-    config = videocrafter_i2v(dtype=vargs.dtype)
-    tokenizer = load_tokenizer(vargs.bpe_path or None)
-    state_dicts = load_videocrafter_checkpoint(vargs.ckpt_path, config)
+    if not os.path.exists(ckpt_path):
+        raise FileNotFoundError(f"checkpoint not found: {ckpt_path}")
+    tokenizer = load_tokenizer(bpe_path or None)
+    state_dicts = load_videocrafter_checkpoint(ckpt_path, config)
     return LatentVideoDiffusion.build(config, "cuda", tokenizer).load_state_dicts(**state_dicts)
 
 
@@ -227,12 +239,13 @@ def main(vargs: VArgs, _model=None, _noise=None):
     out_dir = os.path.join(vargs.output_dir, vargs.project_name or time.strftime("pano-%Y%m%d-%H%M%S"))
     os.makedirs(out_dir, exist_ok=True)
     if vargs.dev_full_random and not os.path.exists(vargs.pano_image_path):
-        # a synthetic panorama, as .npy: load_image reads it without PIL
+        from PIL import Image
+
         h0, w0 = vargs.equirect_height, vargs.equirect_width
         yy, xx = np.mgrid[0:h0, 0:w0]
         img = np.stack([xx % 256, yy % 256, (xx + yy) % 256], -1).astype(np.uint8)
-        path = os.path.join(out_dir, "synthetic_pano.npy")
-        np.save(path, img)
+        path = os.path.join(out_dir, "synthetic_pano.png")
+        Image.fromarray(img).save(path)
         vargs = dataclasses.replace(vargs, pano_image_path=path)
     with open(os.path.join(out_dir, "args.json"), "w") as f:
         json.dump(dataclasses.asdict(vargs), f, indent=2)

@@ -21,9 +21,12 @@ feed-forward sub-block dispatches by SITE to one op:
 
 Each op takes its plain PyTorch version for CPU tensors. On the card the
 modules hand each op its kernel operands, packed once from their parameters
-(``cuda_lib.PackCache``). Sites with a mask
-(causal temporal attention) keep plain math here; relative position and
-FreeTraj are not ported (off the shipped configs' path).
+(``cuda_lib.PackCache``). Sites with a mask (causal temporal attention)
+keep plain math here, and so do the sites FreeTraj re-weights
+(``CrossAttention._traj_attention``): the JAX package computes that
+attention outside any Pallas kernel too. Such a site is chosen because a
+``traj`` entry is given, never because a kernel failed. Relative position
+is not ported (off the shipped configs' path).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from torch import nn
 
 from dynamicscaler_tpu_torch.models.layers import FeedForward, layer_norm
 from dynamicscaler_tpu_torch.ops import cuda_lib, fused_block, fused_spatial, fused_temporal
+from dynamicscaler_tpu_torch.ops.freetraj import pair_mul
 from dynamicscaler_tpu_torch.ops.fused_temporal import mm_f32
 
 SITE_TEMPORAL = "temporal"  # self-attention over frame tokens
@@ -67,7 +71,9 @@ class CrossAttention(nn.Module):
             self.to_v_ip = nn.Linear(context_dim, inner, bias=False)
         self._operands = cuda_lib.PackCache()
 
-    def forward(self, x, ln: nn.LayerNorm, site: str, context=None, mask=None):
+    def forward(self, x, ln: nn.LayerNorm, site: str, context=None, mask=None, traj=None):
+        if traj is not None:
+            return self._traj_plain(x, ln, context, mask, traj)
         if mask is not None:
             return self._masked_plain(x, ln, mask)
         out = self.to_out[0]
@@ -112,6 +118,66 @@ class CrossAttention(nn.Module):
         out = self.to_out[0]
         return (mm_f32(o, out.weight) + out.bias.float()).to(dt) + x
 
+    def _traj_plain(self, x, ln, context, mask, traj):
+        """The sub-block with FreeTraj re-weighted attention, plain math as
+        the JAX package's unfused path (attention.py:223-275): LN, q/k/v
+        in the activation type, :meth:`_traj_attention`, then the image
+        keys' attention where the module has them, out-proj + bias, + x."""
+        B, N, _ = x.shape
+        h, d = self.heads, self.dim_head
+        dt = x.dtype
+        xn = layer_norm(x, ln.weight, ln.bias, ln.eps)
+        ctx = xn if context is None else context.to(dt)
+        use_img = self.img_cross_attention and context is not None
+        ctx_txt = ctx[:, :self.text_context_len] if use_img else ctx
+
+        def split(t):
+            return t.reshape(B, t.shape[1], h, d).transpose(1, 2)
+
+        q = split(mm_f32(xn, self.to_q.weight).to(dt))
+        out = self._traj_attention(q, split(mm_f32(ctx_txt, self.to_k.weight).to(dt)),
+                                   split(mm_f32(ctx_txt, self.to_v.weight).to(dt)), mask, traj)
+        if use_img:
+            ctx_img = ctx[:, self.text_context_len:]
+            k_ip, v_ip = (split(mm_f32(ctx_img, lin.weight).to(dt)) for lin in (self.to_k_ip, self.to_v_ip))
+            p = torch.softmax(torch.matmul(q.float(), k_ip.float().transpose(-1, -2)) * self.scale, dim=-1)
+            out = out + torch.matmul(p.to(dt), v_ip)  # image_cross_attention_scale 1.0
+        o = out.transpose(1, 2).reshape(B, N, h * d)
+        lin = self.to_out[0]
+        return (mm_f32(o, lin.weight) + lin.bias.float()).to(dt) + x
+
+    def _traj_attention(self, q, k, v, mask, traj):
+        """FreeTraj re-weighted attention over [B, heads, N, d], as the JAX
+        package's ``CrossAttention._traj_attention`` (attention.py:72-116;
+        reference attention_freetraj.py:178-230 temporal, :319-389 spatial
+        self and cross): products in the activation type, fp32 logits.
+        ``traj`` for self-attention is {fg [B, N] 0/1, active [B] bool}: at
+        active rows the logits are multiplied by :func:`pair_mul` of fg. For
+        cross-attention it also holds fg_tok [M] bool and wadd [B, N]: at
+        active rows the logits of in-box queries and of the target word's
+        columns are floored to the fp32 minimum, and after the softmax the
+        bump wadd is added at the target word's columns without
+        renormalising."""
+        logits = torch.matmul(q, k.transpose(-1, -2)).float() * self.scale
+        act = traj["active"][:, None, None, None]
+        lowest = torch.finfo(torch.float32).min
+        if "fg_tok" not in traj:
+            mul = pair_mul(traj["fg"].float())
+            logits = torch.where(act, logits * mul[:, None], logits)
+            if mask is not None:
+                logits = logits.masked_fill(~mask, lowest)
+            probs = torch.softmax(logits, dim=-1)
+        else:
+            tok = traj["fg_tok"][None, None, None, :]
+            blocked = act & ((traj["fg"] > 0.5)[:, None, :, None] | tok)
+            logits = logits.masked_fill(blocked, lowest)
+            if mask is not None:
+                logits = logits.masked_fill(~mask, lowest)
+            probs = torch.softmax(logits, dim=-1)
+            wadd = traj["wadd"].float()[:, None, :, None] * tok
+            probs = probs + torch.where(act, wadd, 0.0)
+        return torch.matmul(probs.to(v.dtype), v)
+
 
 class BasicTransformerBlock(nn.Module):
     """self-attn -> cross-attn (or a second self-attn) -> GEGLU FF, each with
@@ -154,13 +220,20 @@ class BasicTransformerBlock(nn.Module):
         return lns, attn(self.attn1), attn(self.attn2), (ff.net[0].proj.weight, ff.net[0].proj.bias,
                                                         ff.net[2].weight, ff.net[2].bias)
 
-    def forward(self, x, context=None, mask=None, num_frames: int = 1):
+    def forward(self, x, context=None, mask=None, num_frames: int = 1, traj=None):
         """x [B, N, dim]; context [B, L, D], the same rows for the
-        ``num_frames`` samples of a clip (spatial blocks)."""
+        ``num_frames`` samples of a clip (spatial blocks). ``traj``
+        ({"self": ..., "cross": ...}, FreeTraj's per-site factors): attn1
+        takes ``traj["self"]`` and attn2 ``traj["cross"]``, so a temporal
+        block's second frame self-attention, whose entry is None, stays on
+        K1 (attention.py:350-352); a block with either entry skips the
+        whole-block kernels (attention.py:320-326)."""
         heads = self.attn1.heads
         inner = heads * self.attn1.dim_head
         side = "t" if self.temporal else "s"
-        if mask is None and fused_temporal.plan_allows("block", side, self.dim):
+        t_self, t_cross = (traj or {}).get("self"), (traj or {}).get("cross")
+        if (mask is None and t_self is None and t_cross is None
+                and fused_temporal.plan_allows("block", side, self.dim)):
             if self.temporal and fused_block.temporal_block_ok(x.shape[1], inner, self.dim, heads):
                 return self._whole(x, fused_block.fused_temporal_block, fused_block.pack_temporal_block)
             if (not self.temporal and context is not None
@@ -168,11 +241,11 @@ class BasicTransformerBlock(nn.Module):
                 return self._whole(x, fused_block.fused_spatial_block, fused_block.pack_spatial_block,
                                    context[::num_frames], text_len=self.attn2.text_context_len)
         if self.temporal:
-            x = self.attn1(x, self.norm1, SITE_TEMPORAL, mask=mask)
-            x = self.attn2(x, self.norm2, SITE_TEMPORAL, mask=mask)
+            x = self.attn1(x, self.norm1, SITE_TEMPORAL, mask=mask, traj=t_self)
+            x = self.attn2(x, self.norm2, SITE_TEMPORAL, mask=mask, traj=t_cross)
         else:
-            x = self.attn1(x, self.norm1, SITE_SPATIAL)
-            x = self.attn2(x, self.norm2, SITE_CROSS, context=context)
+            x = self.attn1(x, self.norm1, SITE_SPATIAL, traj=t_self)
+            x = self.attn2(x, self.norm2, SITE_CROSS, context=context, traj=t_cross)
         return self.ff(x, self.norm3)
 
     def _whole(self, x, op, pack, *ctx, **kw):

@@ -162,10 +162,10 @@ class LatentVideoDiffusion:
     # -- apply methods --------------------------------------------------------
 
     @torch.inference_mode()
-    def apply_unet(self, x, t, context, fps=16):
+    def apply_unet(self, x, t, context, fps=16, traj=None):
         """eps prediction (fp32). x [B, F, H, W, C]; t [B] or [B, F];
-        context [B, L, D]."""
-        return self.unet(x, t, context, fps)
+        context [B, L, D]; ``traj`` FreeTraj's state (``ops.freetraj``)."""
+        return self.unet(x, t, context, fps, traj=traj)
 
     @torch.inference_mode()
     def apply_unet_microbatched(self, x, t_scalar, context, fps=16, microbatch: int = 0):

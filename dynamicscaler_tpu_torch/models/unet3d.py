@@ -21,6 +21,7 @@ from dynamicscaler_tpu_torch.config import UNetConfig
 from dynamicscaler_tpu_torch.models.attention import BasicTransformerBlock
 from dynamicscaler_tpu_torch.models.layers import MLPEmbed, timestep_embedding
 from dynamicscaler_tpu_torch.ops import cuda_lib, fused_mega, fused_temporal, fused_twrap
+from dynamicscaler_tpu_torch.ops import freetraj as freetraj_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +118,42 @@ def gn_silu_calls(cfg: UNetConfig, batch: int, frames: int, H: int, W: int) -> L
                     calls += [(batch, frames * hw, sp.channels)] * 4
     calls.append((batch * frames, H * W, cfg.model_channels))
     return calls
+
+
+def freetraj_spatial(traj, shape, num_frames: int):
+    """FreeTraj's factors for a SpatialTransformer at [(B F), H, W, C]
+    (unet3d.py:142-171): {"self": {fg, active} or None, "cross": {fg,
+    active, fg_tok, wadd} or None}, gated per frame by ``traj.active``; None
+    when neither spatial class is on. Rows follow the (B F) batch."""
+    if traj is None or not (traj.self_attn or traj.cross_attn):
+        return None
+    BF, H, W, _ = shape
+    B = BF // num_frames
+    fg = freetraj_ops.fg_map(traj.paths, H, W).reshape(num_frames, H * W).repeat(B, 1)  # [(B F), N]
+    active = traj.active.reshape(BF)
+    d = {"self": None, "cross": None}
+    if traj.self_attn:
+        d["self"] = {"fg": fg, "active": active}
+    if traj.cross_attn:
+        wadd = freetraj_ops.cross_weight_map(traj.paths, H, W, traj.fg_tok.sum()).reshape(num_frames, H * W)
+        d["cross"] = {"fg": fg, "active": active, "fg_tok": traj.fg_tok, "wadd": wadd.repeat(B, 1)}
+    return d
+
+
+def freetraj_temporal(traj, shape, num_frames: int):
+    """FreeTraj's factors for a TemporalTransformer (unet3d.py:174-191):
+    tokens are frames and the batch is (B H W) row-major, the row order of
+    kernel 5's head (``fused_twrap.head_temporal``); fg says whether the box
+    covers the row's position at each frame. Ungated by the timestep, as in
+    the reference (attention_freetraj.py:178). attn2 gets no entry."""
+    if traj is None or not traj.temporal_attn:
+        return None
+    BF, H, W, _ = shape
+    B = BF // num_frames
+    fgm = freetraj_ops.fg_map(traj.paths, H, W)  # [F, H, W]
+    fg = fgm.permute(1, 2, 0).reshape(H * W, num_frames).repeat(B, 1)  # [(B H W), F]
+    active = torch.ones(B * H * W, dtype=torch.bool, device=fg.device)
+    return {"self": {"fg": fg, "active": active}, "cross": None}
 
 
 # state_dict suffixes the reference zero-initialises (lvdm/basics.py:19
@@ -265,13 +302,15 @@ class SpatialTransformer(nn.Module):
         self._operands = cuda_lib.PackCache()
         self._mega_operands = cuda_lib.PackCache()
 
-    def forward(self, x, context, num_frames: int = 1):
+    def forward(self, x, context, num_frames: int = 1, traj=None):
         """x [(B F), H, W, C]; context [(B F), L, D], the same rows for the
-        ``num_frames`` samples of a clip."""
+        ``num_frames`` samples of a clip; ``traj`` FreeTraj's factors
+        (:func:`freetraj_spatial`), which keep the transformer off kernel 13
+        (unet3d.py:301-305)."""
         BF, H, W, C = x.shape
         blk = self.transformer_blocks[0]
         heads = blk.attn1.heads
-        if (len(self.transformer_blocks) == 1 and context is not None
+        if (len(self.transformer_blocks) == 1 and context is not None and traj is None
                 and fused_temporal.plan_allows("mega", "s", C)
                 and fused_mega.spatial_ok(H * W, C, heads * blk.attn1.dim_head, heads, context.shape[-1])):
             return _whole_transformer(self, x, fused_mega.spatial_transformer, fused_mega.pack_spatial_mega,
@@ -280,7 +319,7 @@ class SpatialTransformer(nn.Module):
         # GroupNorm eps 1e-6 in the transformer wrappers (fused_twrap.py:347)
         h = fused_twrap.gn_proj_in_spatial(x, self.norm.weight, self.norm.bias, w_in, b_in, eps=1e-6)
         for blk in self.transformer_blocks:
-            h = blk(h, context=context, num_frames=num_frames)
+            h = blk(h, context=context, num_frames=num_frames, traj=traj)
         return fused_twrap.tail_spatial(h, x, w_out, b_out)
 
 
@@ -318,13 +357,16 @@ class TemporalTransformer(nn.Module):
         self._operands = cuda_lib.PackCache()
         self._mega_operands = cuda_lib.PackCache()
 
-    def forward(self, x, num_frames: int):
+    def forward(self, x, num_frames: int, traj=None):
+        """x [(B F), H, W, C]; ``traj`` FreeTraj's factors
+        (:func:`freetraj_temporal`), which keep the transformer off kernel
+        12 (unet3d.py:380-386)."""
         BF, H, W, C = x.shape
         Fn = num_frames
         x5 = x.reshape(BF // Fn, Fn, H, W, C)
         blk = self.transformer_blocks[0]
         heads = blk.attn1.heads
-        if (len(self.transformer_blocks) == 1 and not self.causal_attention
+        if (len(self.transformer_blocks) == 1 and not self.causal_attention and traj is None
                 and fused_temporal.plan_allows("mega", "t", C)
                 and fused_mega.temporal_ok(Fn, C, heads * blk.attn1.dim_head, heads)):
             return _whole_transformer(self, x5, fused_mega.temporal_transformer,
@@ -336,7 +378,7 @@ class TemporalTransformer(nn.Module):
         if self.causal_attention:
             mask = torch.tril(torch.ones((1, 1, Fn, Fn), dtype=torch.bool, device=x.device))
         for blk in self.transformer_blocks:
-            h = blk(h, mask=mask)
+            h = blk(h, mask=mask, traj=traj)
         return fused_twrap.tail_temporal(h, x5, w_out, b_out).reshape(BF, H, W, C)
 
 
@@ -412,7 +454,7 @@ class UNet3D(nn.Module):
             return Upsample(spec.channels)
         raise ValueError(spec.kind)
 
-    def _run_specs(self, specs, layers, h, emb, context, Fn):
+    def _run_specs(self, specs, layers, h, emb, context, Fn, traj=None):
         for spec, layer in zip(specs, layers):
             if spec.kind == "conv_in":
                 h = conv2d_nhwc(h, layer)
@@ -421,15 +463,16 @@ class UNet3D(nn.Module):
             elif spec.kind == "res":
                 h = layer(h, emb, Fn)
             elif spec.kind == "spatial":
-                h = layer(h, context, Fn)
+                h = layer(h, context, Fn, traj=freetraj_spatial(traj, h.shape, Fn))
             elif spec.kind == "temporal":
-                h = layer(h, Fn)
+                h = layer(h, Fn, traj=freetraj_temporal(traj, h.shape, Fn))
         return h
 
-    def forward(self, x, timesteps, context, fps=16):
+    def forward(self, x, timesteps, context, fps=16, traj=None):
         """eps prediction. x [B, F, H, W, C]; timesteps [B] (whole clip) or
-        [B, F] (per frame); context [B, L, context_dim]; fps scalar or [B].
-        Returns fp32 [B, F, H, W, out_channels]."""
+        [B, F] (per frame); context [B, L, context_dim]; fps scalar or [B];
+        ``traj`` an ``ops.freetraj.FreeTraj`` (trajectory control, with
+        ``active`` [B, F]). Returns fp32 [B, F, H, W, out_channels]."""
         cfg = self.cfg
         B, Fn, H, W, C = x.shape
         dt = self.out[2].weight.dtype
@@ -448,14 +491,14 @@ class UNet3D(nn.Module):
 
         hs = []
         for i, (specs, layers) in enumerate(zip(self._in_specs, self.input_blocks)):
-            h = self._run_specs(specs, layers, h, emb, ctx, Fn)
+            h = self._run_specs(specs, layers, h, emb, ctx, Fn, traj)
             if i == 0 and cfg.addition_attention:
-                h = self.init_attn[0](h, Fn)
+                h = self.init_attn[0](h, Fn, traj=freetraj_temporal(traj, h.shape, Fn))
             hs.append(h)
-        h = self._run_specs(self._mid_specs, self.middle_block, h, emb, ctx, Fn)
+        h = self._run_specs(self._mid_specs, self.middle_block, h, emb, ctx, Fn, traj)
         for specs, layers in zip(self._out_specs, self.output_blocks):
             h = torch.cat([h, hs.pop()], dim=-1)
-            h = self._run_specs(specs, layers, h, emb, ctx, Fn)
+            h = self._run_specs(specs, layers, h, emb, ctx, Fn, traj)
 
         h = fused_twrap.gn_silu(h, self.out[0].weight, self.out[0].bias, eps=1e-5)
         y = conv2d_nhwc(h, self.out[2]).float()

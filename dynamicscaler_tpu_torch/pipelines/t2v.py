@@ -2,7 +2,8 @@
 
 Counterpart of ``dynamicscaler_tpu/pipelines/t2v.py``:
 ``basic_sample`` is single-window DDIM with CFG
-(t2v_normal_pipeline.py:70-212); ``sample_shift_multi_windows`` is the
+(t2v_normal_pipeline.py:70-212), ``freetraj_sample`` the same with FreeTraj
+trajectory control; ``sample_shift_multi_windows`` is the
 planar integer-grid shift-window sampler (t2v_normal_pipeline.py:214-570) on
 :class:`PlanarShiftWindowEngine`: prompt -> CLIP text -> ring shift-window
 DDIM with CFG -> VAE decode, optionally from a pre-denoised single-window
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from dynamicscaler_tpu_torch.core.windows import IntegerGrid
+from dynamicscaler_tpu_torch.ops import freetraj as freetraj_ops
 from dynamicscaler_tpu_torch.ops.blend import checkerboard_mix
 from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, draw_noise, make_ddim_schedule, re_noise
 from dynamicscaler_tpu_torch.ops.resize import resize_video_latent
@@ -36,20 +38,24 @@ def make_schedule_for_model(model, num_steps: int) -> DDIMSchedule:
 
 
 def basic_sample_loop(model, sched: DDIMSchedule, latent, context, uncond, guidance_scale: float,
-                      fps: int, num_skip: int = 0):
+                      fps: int, num_skip: int = 0, traj: Optional[freetraj_ops.FreeTraj] = None,
+                      traj_thres: float = 600.0):
     """Single-window DDIM with CFG packed into one batch-2 UNet call per
-    step, over the last ``S - num_skip`` steps of the table. Returns
-    (latent, denoised)."""
+    step, over the last ``S - num_skip`` steps of the table. With ``traj``
+    (FreeTraj) each step re-gates it from its timestep: spatial masking
+    while t > ``traj_thres``, temporal re-weighting always (t2v.py:
+    129-168). Returns (latent, denoised)."""
     S = sched.num_ddim_steps
+    Fn = latent.shape[1]
     ctx2 = torch.cat([context, uncond])
     den = None
     for i in range(S - num_skip):
         index = S - 1 - i - num_skip
-        t = int(sched.ddim_timesteps[index])
-        eps = model.apply_unet(torch.cat([latent, latent]), torch.full((2,), t, device=latent.device),
-                               ctx2, fps)
+        t2 = torch.full((2,), int(sched.ddim_timesteps[index]), device=latent.device)
+        tr = None if traj is None else freetraj_ops.gate_active(traj, t2, traj_thres, 2, Fn)
+        eps = model.apply_unet(torch.cat([latent, latent]), t2, ctx2, fps, traj=tr)
         eps = eps[1:] + guidance_scale * (eps[:1] - eps[1:])
-        latent, den = ddim_step(sched, latent, eps, torch.full((latent.shape[1],), index))
+        latent, den = ddim_step(sched, latent, eps, torch.full((Fn,), index))
     return latent, den
 
 
@@ -74,6 +80,39 @@ def basic_sample(model, prompt: str, height: int = 320, width: int = 512, frames
     latents = torch.as_tensor(latents, dtype=torch.float32, device=model.device)
     _, den = basic_sample_loop(model, sched, latents, context, uncond, guidance_scale, fps,
                                int(skip_time_step_idx or 0))
+    video = model.decode_video(den) if decode else None
+    return video, den
+
+
+def freetraj_sample(model, prompt: str, traj_keyframes: Sequence[Sequence[float]],
+                    traj_token_ids: Optional[Sequence[int]] = None, traj_thres: float = 600.0,
+                    traj_classes: Tuple[bool, bool, bool] = (True, True, True), height: int = 320,
+                    width: int = 512, frames: int = 16, fps: int = 16, guidance_scale: float = 7.5,
+                    num_inference_steps: int = 48, generator: Optional[torch.Generator] = None,
+                    decode: bool = True, noise_fn=None):
+    """Single-window t2v with FreeTraj trajectory control (t2v.py:155-235;
+    ``ops/freetraj.py`` for the semantics). ``traj_keyframes``: rows (frame
+    index or fraction, h0, h1, w0, w1), the foreground box path in fractions
+    of the video extent; ``traj_token_ids``: the target word's prompt token
+    positions (default [2]); ``traj_classes``: (temporal_attn, self_attn,
+    cross_attn). The init latent is the draw ``init``. Returns (video or
+    None, denoised latent [1, F, h, w, C])."""
+    if model.config.unet.use_image_attention:
+        raise ValueError("freetraj_sample is a t2v path; i2v conditioning unsupported")
+    sched = make_schedule_for_model(model, num_inference_steps)
+    vs = model.config.vae.spatial_scale
+    h, w = height // vs, width // vs
+    context = model.encode_text([prompt])
+    uncond = build_uncond_context(model, with_image=False)
+    traj = freetraj_ops.make_freetraj(
+        traj_keyframes, frames, text_len=model.config.unet.text_context_len, fg_token_ids=traj_token_ids,
+        batch=2,  # CFG-packed (cond, uncond)
+        temporal_attn=traj_classes[0], self_attn=traj_classes[1], cross_attn=traj_classes[2], device=model.device,
+    )
+    latents = draw_noise((1, frames, h, w, model.config.unet.in_channels), model.device, generator, noise_fn,
+                         "init")
+    _, den = basic_sample_loop(model, sched, latents, context, uncond, guidance_scale, fps, traj=traj,
+                               traj_thres=traj_thres)
     video = model.decode_video(den) if decode else None
     return video, den
 

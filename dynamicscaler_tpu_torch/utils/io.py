@@ -1,7 +1,7 @@
 """Host-side image, video and latent files of the CLI.
 
 Counterpart of the parts of ``dynamicscaler_tpu/utils/io.py`` that
-``cli/gen_pano_360.py`` uses (reference utils/tensor_utils.py:7-16 for the
+``cli/gen_pano_360.py`` and ``cli/sample.py`` use (reference utils/tensor_utils.py:7-16 for the
 image load, utils/loop_merge_utils.py for the mp4 save). PIL and imageio
 are optional: each is imported inside the function that uses it, so the
 module imports without them, and every writer prints one line naming the
@@ -14,27 +14,16 @@ import os
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 def load_image(path: str, height: int, width: int, norm_to_1: bool = True) -> np.ndarray:
     """An image file as float32 [height, width, 3], in [-1, 1] when
-    ``norm_to_1``. A ``.npy`` file holds uint8 [H, W, 3] and is resized by
-    PyTorch's antialiased bilinear filter (PIL's BILINEAR filter) and
-    rounded to uint8 half up, as PIL rounds; any other file is decoded and
-    resized by PIL with BILINEAR, as the JAX package does."""
-    if os.path.splitext(path)[1].lower() == ".npy":
-        img = np.load(path)
-        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-            raise ValueError(f"{path}: a .npy image is uint8 [H, W, 3], got {img.dtype} {img.shape}")
-        x = torch.from_numpy(img).permute(2, 0, 1)[None].double()
-        x = F.interpolate(x, size=(height, width), mode="bilinear", antialias=True, align_corners=False)
-        arr = torch.floor(x + 0.5).clamp(0, 255)[0].permute(1, 2, 0).numpy().astype(np.float32)
-    else:
-        from PIL import Image
+    ``norm_to_1``: decoded and resized by PIL with BILINEAR, as the JAX
+    package does."""
+    from PIL import Image
 
-        with Image.open(path) as im:
-            arr = np.asarray(im.convert("RGB").resize((width, height), Image.BILINEAR), np.float32)
+    with Image.open(path) as im:
+        arr = np.asarray(im.convert("RGB").resize((width, height), Image.BILINEAR), np.float32)
     if norm_to_1:
         arr = (arr / 255.0 - 0.5) * 2
     return arr
@@ -60,8 +49,7 @@ def save_video(video, output_path: str, output_name: str, fps: int = 16) -> str:
     ``output_path``; returns its path. The first writer that works, as the
     JAX package orders them: ``<name>.mp4`` through imageio; else the MJPEG
     AVI ``<name>.avi`` with lossless PNG frames in ``<name>_frames/``
-    (PIL); else, with neither PIL nor imageio, the uint8 frames as
-    ``<name>_frames.npy``."""
+    (PIL). With neither library it raises an ImportError naming both."""
     os.makedirs(output_path, exist_ok=True)
     frames = to_uint8_frames(np.asarray(video))
     try:
@@ -78,11 +66,9 @@ def save_video(video, output_path: str, output_name: str, fps: int = 16) -> str:
             print(f"[save_video] no mp4 backend in imageio ({str(e).splitlines()[0]})", flush=True)
     try:
         from PIL import Image
-    except ImportError:
-        path = os.path.join(output_path, f"{output_name}_frames.npy")
-        np.save(path, frames)
-        print(f"[save_video] {path}: uint8 frames {frames.shape} as .npy (no PIL, no imageio)", flush=True)
-        return path
+    except ImportError as e:
+        raise ImportError(f"save_video: writing {output_name} needs imageio (with an mp4 backend) or PIL, and "
+                          "neither is installed") from e
     from concurrent.futures import ThreadPoolExecutor
 
     from dynamicscaler_tpu_torch.utils.avi import write_mjpeg_avi
