@@ -117,24 +117,52 @@ Phases, in order, one result line each (any failure exits non-zero):
    front slot's ``denoised`` of the step that emitted it. Every kernel
    call of the phase at a shape no earlier phase held is held against its
    plain version with phase 3's gates.
+9. the demo server ``cli/demo.py`` and the batch eval ``cli/batch_eval.py``
+   on phase 8's t2v bundle and the phase-2 i2v bundle, at 320x512, 16
+   frames, CFG 12, 4 steps: the demo's ``make_server`` in a thread, its
+   page, a t2v ``POST /generate`` answered with the clip inlined as a GIF
+   (16 frames of 512x320) while a second POST sent during the generation
+   gets 503 and starts nothing; one i2v batch-2 forward of
+   ``i2v.basic_sample`` (text and image tokens, the zero-image uncond)
+   against the plain versions, then the multipart ``POST /generate_i2v``
+   of a 320x512 PNG; ``batch_eval.main`` in process over three prompts at
+   ``--rank 1`` and ``--rank 0`` of 2 (t2v), and over two prompts with a
+   PNG and an MJPEG AVI as conditioning files (i2v, each clip conditioned
+   on its file's first frame); two spawned processes joined through
+   ``parallel/dist.py`` on gloo, each with its own t2v bundle, writing
+   exactly their shards of three prompts at 2 steps; one batch-2 t2v
+   forward with ``no_temporal_attn`` against the plain versions. Per run
+   wall seconds and s/step and exact launch counts (the UNet forwards at
+   ``expected_launches`` each, plus the VAE decode's K9 and statistics as
+   recorded); every kernel call of the phase at a shape no earlier phase
+   held against its plain version with phase 3's gates.
 
 Then one JSON line of kernel records (K1-K13, TA, FA, GN; ``launches`` is
 the sum over the paths: the three samplers, the gen_pano_360 CLI, the
-sample CLI's four modes and the LCM stream, phase 5's "off" request and
-phase 2's two override forwards), and last the device JSON line.
+sample CLI's four modes and the LCM stream, the demo's two requests, the
+batch eval's three runs, the ``no_temporal_attn`` forward, phase 5's
+"off" request and phase 2's two override forwards), and last the device
+JSON line.
 """
 
 from __future__ import annotations
 
+import base64
 import collections
 import contextlib
+import http.client
+import io
 import json
 import os
+import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.parse
 
 import numpy as np
 import torch
@@ -335,10 +363,14 @@ def main() -> None:
     paths["sphere"] = _phase_sphere(i2v_model, steps=2)
     held = {key for calls in sites.values() for key in calls}
     paths["cli"], errs = _phase_cli(i2v_model, held)
-    sample_paths, sample_errs = _phase_sample(i2v_model, held)
+    t2v_model = _random_model("t2v")  # phases 8 and 9
+    sample_paths, sample_errs = _phase_sample(t2v_model, i2v_model, held)
     paths.update(sample_paths)
+    serve_paths, serve_errs = _phase_serve(t2v_model, i2v_model, held, lib)
+    paths.update(serve_paths)
     for k in KERNELS:
-        records[k]["max_abs_err"] = max(records[k]["max_abs_err"], errs.get(k, 0.0), sample_errs.get(k, 0.0))
+        records[k]["max_abs_err"] = max(records[k]["max_abs_err"], errs.get(k, 0.0), sample_errs.get(k, 0.0),
+                                        serve_errs.get(k, 0.0))
 
     kernels = [
         {"name": f"{k} {desc}", "route": "cuda", "source": src, "replaces": rep,
@@ -414,11 +446,12 @@ class _Recorder:
 def _recording(calls: collections.Counter):
     """Record every kernel-wrapper call inside the block in ``calls``: each
     wrapper is swapped for a :class:`_Recorder` in the module that defines
-    it, where its callers look it up."""
+    it, where its callers look it up. Inside another such block the inner
+    one records alone, and the outer one resumes after it."""
     saved = []
     for k, (fn, *_) in KERNELS.items():
         mod = sys.modules[fn.__module__]
-        saved.append((mod, fn.__name__, fn))
+        saved.append((mod, fn.__name__, getattr(mod, fn.__name__)))
         setattr(mod, fn.__name__, _Recorder(k, fn, calls))
     try:
         yield calls
@@ -538,7 +571,7 @@ def unet_transformers(cfg, H, W):
     return out
 
 
-def expected_launches(cfg, H, W, frames=16, traj=None):
+def expected_launches(cfg, H, W, frames=16, traj=None, no_temporal_attn=False):
     """Kernel launches of one UNet forward at an H x W latent under the
     current dispatch plan, from the UNet layout, the plan and the kernels'
     gates: per transformer the whole transformer (K12 / K13) where the plan
@@ -550,7 +583,9 @@ def expected_launches(cfg, H, W, frames=16, traj=None):
     kernels and the sub-blocks: a temporal transformer with the temporal
     class runs K1 once (attn2; attn1 is re-weighted in plain math) and K4,
     a spatial one with the self or the cross class K2 unless self, K3
-    unless cross, and K4. gn_silu (K9): 2 per ResBlock, 4 more in
+    unless cross, and K4. ``no_temporal_attn`` skips every temporal
+    transformer and init_attn (no K1, K5, K6, K10, K12 there, nor their
+    K4). gn_silu (K9): 2 per ResBlock, 4 more in
     its temporal conv block, and the out norm (``unet3d.gn_silu_calls``).
     The device-kernel wrappers inside them: K1's attention core (TA) once
     per K1, K2's and K3's (FA) once per K2 and per K3, the GroupNorm
@@ -563,6 +598,8 @@ def expected_launches(cfg, H, W, frames=16, traj=None):
     allows = fused_temporal.plan_allows
     t_traj, s_traj, c_traj = traj or (False, False, False)
     for side, C, inner, heads, h, w in unet_transformers(cfg, H, W):
+        if side == "t" and no_temporal_attn:
+            continue
         if side == "t" and t_traj:
             n.update(("K5", "K6", "K1", "K4"))
         elif side == "s" and (s_traj or c_traj):
@@ -2023,10 +2060,10 @@ class _SampleProbe:
                 return out
             return call
 
-        def unet(x, t, ctx, fps=16, traj=None):
+        def unet(x, t, ctx, fps=16, no_temporal_attn=False, traj=None):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = self._saved["apply_unet"](x, t, ctx, fps, traj=traj)
+            out = self._saved["apply_unet"](x, t, ctx, fps, no_temporal_attn, traj=traj)
             torch.cuda.synchronize()
             classes = None if traj is None else (traj.temporal_attn, traj.self_attn, traj.cross_attn)
             self.unet.append((x.shape[0], classes, None if traj is None else bool(traj.active.any()),
@@ -2085,9 +2122,9 @@ def _check_run(where, model, launches, probe, calls, want_fwd, traj, decoded=Tru
     calls.update(probe.vae_calls)
 
 
-def _phase_sample(i2v_model, held):
-    """Phase 8: ``cli/sample.py`` on a full-width VideoCrafter2 t2v bundle
-    built again (and the phase-2 i2v bundle for ``--mode i2v``): the new
+def _phase_sample(model, i2v_model, held):
+    """Phase 8: ``cli/sample.py`` on ``model``, a full-width VideoCrafter2
+    t2v bundle built again (and the phase-2 i2v bundle for ``--mode i2v``): the new
     forwards against the plain versions, the four modes through
     ``main(parse_args(argv))`` with the steps cut, the LCM stream through
     ``fifo_sample`` directly; every kernel call of the phase at a shape not
@@ -2099,7 +2136,6 @@ def _phase_sample(i2v_model, held):
     from dynamicscaler_tpu_torch.pipelines import fifo, i2v, t2v
 
     t_phase = time.perf_counter()
-    model = _random_model("t2v")
     cfg = model.unet.cfg
     calls = collections.Counter()  # every kernel call of the phase, for the new-shape check
 
@@ -2219,7 +2255,7 @@ def _phase_sample(i2v_model, held):
     _check_fronts("fifo lcm", lat, fronts)
     _check_run("fifo lcm", model, launches, probe, calls, FIFO_OUT, None, decoded=False)
     paths["fifo lcm"] = launches
-    del model, lat
+    del lat
     torch.cuda.empty_cache()
 
     errs = _hold_new_shapes(calls, held, "phase 8")
@@ -2237,6 +2273,413 @@ def _check_fronts(where, frames_out, fronts):
     if not same:
         _fail(f"{where}: the output frames are not the front slots' denoised of their steps")
 
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the demo server and the batch eval
+# ---------------------------------------------------------------------------
+
+DEMO_DEFAULTS = {"steps": 4, "height": 320, "width": 512}
+DEMO_PROMPT = "a black swan swims on the pond"
+EVAL_PROMPTS = ("a lighthouse on a rocky coast at night", "a paper boat drifting down a rainy street",
+                "a hot air balloon over autumn hills")
+RANK_TIMEOUT_S = 300  # the two coordinated ranks of step 4, together
+FORM = {"Content-Type": "application/x-www-form-urlencoded"}
+
+
+class _Gate:
+    """Holds a bundle's first UNet call until ``release`` is set, with
+    ``started`` set as it arrives: a request sent meanwhile finds a
+    generation running. ``waited``: the seconds it held the call."""
+
+    def __init__(self, model):
+        self.model, self._fn = model, model.apply_unet
+        self.started, self.release, self.waited = threading.Event(), threading.Event(), 0.0
+
+        def gated(*a, **kw):
+            if not self.started.is_set():
+                self.started.set()
+                t0 = time.perf_counter()
+                if not self.release.wait(120):
+                    raise RuntimeError("the gate of the demo's first UNet call was never released")
+                self.waited = time.perf_counter() - t0
+            return self._fn(*a, **kw)
+
+        model.apply_unet = gated
+
+    def remove(self):
+        self.model.apply_unet = self._fn
+
+
+def _http(port, method, path, body=None, headers=None):
+    """One request to the demo on 127.0.0.1:``port``: (status, page, wall s)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request(method, path, body=body, headers=headers or {})
+    r = conn.getresponse()
+    page = r.read().decode()
+    conn.close()
+    return r.status, page, time.perf_counter() - t0
+
+
+def _inlined_gif(page):
+    """(frames, (width, height)) of the GIF a result page inlines."""
+    from PIL import Image
+
+    m = re.search(r'data:image/gif;base64,([A-Za-z0-9+/=]+)"', page)
+    if not m:
+        _fail(f"the demo's page inlines no GIF: {page[-300:]!r}")
+    with Image.open(io.BytesIO(base64.b64decode(m.group(1)))) as im:
+        return im.n_frames, im.size
+
+
+@contextlib.contextmanager
+def _timed(module, name, store):
+    """``module.name`` timed (synchronised) inside the block, its seconds
+    appended to ``store``."""
+    fn = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        store.append(time.perf_counter() - t0)
+        return out
+    setattr(module, name, wrapped)
+    try:
+        yield store
+    finally:
+        setattr(module, name, fn)
+
+
+def _run_line(where, wall, probe, steps):
+    """Wall s and s/step of one phase-9 run; the UNet forwards timed in the
+    thread that ran them."""
+    unet_ms = [sec * 1e3 for *_, sec in probe.unet] or [0.0]
+    sampling = wall - probe.secs["conditioning"] - probe.secs["decode"] - probe.secs["write"]
+    return (f"{where}: {wall:.2f} s wall: conditioning {probe.secs['conditioning']:.2f} s, sampling "
+            f"{sampling / steps:.3f} s/step (UNet forward {unet_ms[0]:.1f} ms first, "
+            f"{sum(unet_ms[1:]) / max(1, len(unet_ms) - 1):.1f} ms on), decode {probe.secs['decode']:.2f} s, "
+            f"write {probe.secs['write']:.2f} s")
+
+
+def _demo_request(model, where, server_dir, calls, post, busy=False):
+    """Serve ``model`` with ``cli/demo.py::make_server`` in a thread and send
+    ``post`` (path, body, headers); with ``busy`` a second POST while the
+    first generates, which must get 503 and start nothing. Exact launches:
+    ``DEMO_DEFAULTS['steps']`` batch-2 forwards and the decode. Returns the
+    launches and the GIF's write seconds."""
+    from dynamicscaler_tpu_torch.cli import demo
+    from dynamicscaler_tpu_torch.utils import io as dio
+
+    server = demo.make_server(model, port=0, result_dir=server_dir, defaults=DEMO_DEFAULTS)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    try:
+        status, page, _ = _http(port, "GET", "/")
+        i2v_form = "/generate_i2v" in page and 'type="file"' in page
+        print(f"phase 9 {where}: GET / {status}, i2v form {i2v_form}", flush=True)
+        if status != 200 or "Generate" not in page or i2v_form != (model.image_encoder is not None):
+            _fail(f"{where}: the page (status {status}, i2v form {i2v_form})")
+        probe = _SampleProbe(model)
+        gate = _Gate(model) if busy else None
+        first, gif_s = {}, []
+        try:
+            with _recording(calls), _timed(dio, "_write_gif", gif_s):
+                _reset_launches()
+                if busy:
+                    t = threading.Thread(target=lambda: first.update(r=_http(port, "POST", *post)))
+                    t.start()
+                    if not gate.started.wait(300):
+                        _fail(f"{where}: the first request never reached the UNet")
+                    b_status, b_page, b_wall = _http(port, "POST", "/generate", "prompt=busy", FORM)
+                    gate.release.set()
+                    t.join(600)
+                    print(f"phase 9 {where}: a second POST while the first generates: {b_status} in "
+                          f"{b_wall * 1e3:.1f} ms ({'the Busy page' if 'Busy' in b_page else 'another page'})",
+                          flush=True)
+                    if b_status != 503 or "Busy" not in b_page:
+                        _fail(f"{where}: the request sent during a generation got {b_status}, not 503")
+                else:
+                    first["r"] = _http(port, "POST", *post)
+                torch.cuda.synchronize()
+                launches = _launches()
+        finally:
+            if gate is not None:
+                gate.remove()
+            probe.remove()
+        status, page, wall = first.get("r", (None, "", 0.0))
+        wall -= gate.waited if gate is not None else 0.0
+        gif = _inlined_gif(page) if status == 200 else None
+        print(f"phase 9 {_run_line(where, wall, probe, DEMO_DEFAULTS['steps'])} (GIF {gif_s[0] if gif_s else 0:.3f} "
+              f"s); POST {status}, inlined GIF {gif}; launches {launches}", flush=True)
+        if status != 200 or gif != (16, (512, 320)):
+            _fail(f"{where}: POST {status}, inlined GIF {gif}, expected 16 frames of 512x320")
+        _written_video(server_dir, demo._clip_name(DEMO_PROMPT), (16, 320, 512, 3))
+        _check_run(where, model, launches, probe, calls, DEMO_DEFAULTS["steps"], None)
+        return launches, gif_s
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def _batch_eval_run(model, where, argv, calls, want_fwd):
+    """``batch_eval.main(parse_args(argv), _model=model)`` with exact
+    launches (``want_fwd`` batch-2 forwards and the decodes); returns the
+    launches and the written paths."""
+    from dynamicscaler_tpu_torch.cli import batch_eval
+
+    probe = _SampleProbe(model)
+    try:
+        with _recording(calls):
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            written = batch_eval.main(batch_eval.parse_args(argv), _model=model)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+    finally:
+        probe.remove()
+    print(f"phase 9 {_run_line(where, wall, probe, want_fwd)}; videos "
+          f"{[os.path.basename(p) for p in written]}; launches {launches}", flush=True)
+    _check_run(where, model, launches, probe, calls, want_fwd, None)
+    return launches, written
+
+
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _eval_rank(rank, port, lib, prompt_file, out_dir, result):
+    """One of the two coordinated ranks of phase 9 (a spawned process): the
+    full-width t2v bundle from phase 8's seed, ``batch_eval.main`` with the
+    group's flags at 2 steps; its launches, forwards and the kernel calls
+    it recorded written to the JSON file ``result``."""
+    from dynamicscaler_tpu_torch.cli import batch_eval
+
+    if not os.path.exists(lib):
+        raise RuntimeError(f"rank {rank}: the kernel library {lib} is not built")
+    cuda_lib.library()
+    model = _random_model("t2v")
+    argv = ["--prompt_file", prompt_file, "--output_dir", out_dir, "--num_inference_steps", "2", "--coordinator",
+            f"127.0.0.1:{port}", "--num_processes", "2", "--process_id", str(rank)]
+    calls = collections.Counter()
+    probe = _SampleProbe(model)
+    with _recording(calls):
+        _reset_launches()
+        t0 = time.perf_counter()
+        written = batch_eval.main(batch_eval.parse_args(argv), _model=model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _launches()
+    probe.remove()
+    calls.update(probe.vae_calls)
+    vae = dict.fromkeys(KERNELS, 0)
+    for (k, *_), n in probe.vae_calls.items():
+        vae[k] += n
+    with open(result, "w") as f:
+        json.dump({"launches": launches, "forwards": [[b, c] for b, c, _, _ in probe.unet], "vae": vae,
+                   "vae_split": _k9_split(probe.vae_calls), "wall": wall, "written": written,
+                   "unet_ms": [sec * 1e3 for *_, sec in probe.unet], "calls": sorted(map(repr, calls))}, f)
+
+
+def _two_ranks(model, tmp, pf, calls, held, lib):
+    """Two spawned processes coordinated through ``parallel/dist.py`` on
+    gloo, each with its own full-width t2v bundle, three prompts at 2
+    steps: they write exactly ``r0_0000``, ``r0_0001`` and ``r1_0000``,
+    each with exact launches; a rank that fails or outlasts
+    :data:`RANK_TIMEOUT_S` fails the phase. Returns the two ranks' launches
+    summed."""
+    import multiprocessing
+
+    out = os.path.join(tmp, "ranks")
+    port = _free_port()
+    ctx = multiprocessing.get_context("spawn")  # CUDA after fork breaks
+    results = [os.path.join(tmp, f"rank{r}.json") for r in (0, 1)]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_eval_rank, args=(r, port, str(lib), pf, out, results[r])) for r in (0, 1)]
+    for p in procs:
+        p.start()
+    deadline = t0 + RANK_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    print(f"phase 9 batch_eval 2 ranks: {wall:.2f} s for two spawned processes (bundle builds included), exit "
+          f"codes {codes}" + (f", ranks {hung} killed after {RANK_TIMEOUT_S} s" if hung else ""), flush=True)
+    if hung or codes != [0, 0]:
+        _fail(f"batch_eval 2 ranks: exit codes {codes}, hung {hung}")
+    per = expected_launches(model.unet.cfg, 40, 64)
+    total = collections.Counter()
+    known = {repr(k) for k in held} | {repr(k) for k in calls}
+    for r, path in enumerate(results):
+        with open(path) as f:
+            res = json.load(f)
+        n_fwd = 2 * (2 if r == 0 else 1)  # 2 steps for each prompt of the shard
+        want = {k: n * n_fwd for k, n in per.items()}
+        want["K9"] += res["vae"]["K9"]
+        want["GN"] += res["vae_split"]
+        new = [c for c in res["calls"] if c not in known]
+        print(f"phase 9 rank {r}: {res['wall']:.2f} s in batch_eval.main, UNet forwards "
+              f"{[round(ms, 1) for ms in res['unet_ms']]} ms, videos {[os.path.basename(p) for p in res['written']]}, "
+              f"launches {res['launches']}, kernel calls at shapes no earlier run held {len(new)}", flush=True)
+        if res["forwards"] != [[2, None]] * n_fwd or res["launches"] != want or new:
+            _fail(f"rank {r}: forwards {res['forwards']}, launches {res['launches']} (expected {want}), new shapes "
+                  f"{new}")
+        total.update(res["launches"])
+    names = sorted(n for n in os.listdir(out) if n.endswith((".mp4", ".avi")))
+    want_names = sorted(f"{tag}_" + "".join(c if c.isalnum() else "_" for c in EVAL_PROMPTS[i][:40])
+                        for tag, i in (("r0_0000", 0), ("r0_0001", 2), ("r1_0000", 1)))
+    if [os.path.splitext(n)[0] for n in names] != want_names:
+        _fail(f"batch_eval 2 ranks wrote {names}, expected {want_names}")
+    return {k: total[k] for k in KERNELS}
+
+
+def _phase_serve(model, i2v_model, held, lib):
+    """Phase 9: ``cli/demo.py`` and ``cli/batch_eval.py`` on phase 8's t2v
+    bundle ``model`` and the phase-2 i2v bundle: the demo's t2v request
+    (with a second request turned away with 503 while it generates) and
+    its i2v request (``i2v.basic_sample``; one such forward first against
+    the plain versions); the batch eval in process (t2v at rank 1 and 0 of
+    2, i2v on a PNG and an MJPEG AVI) and as two coordinated spawned ranks;
+    a t2v forward with ``no_temporal_attn`` against the plain versions.
+    Every kernel call of the phase at a shape not in ``held`` is held
+    against its plain version with phase 3's gates. Returns the launches of
+    each path and the largest error per kernel of the new shapes."""
+    from PIL import Image
+
+    from dynamicscaler_tpu_torch.pipelines import i2v
+    from dynamicscaler_tpu_torch.pipelines.conditioning import build_uncond_context, cat_text_image
+    from dynamicscaler_tpu_torch.utils import avi
+    from dynamicscaler_tpu_torch.utils.io import load_image
+
+    t_phase = time.perf_counter()
+    calls, sites, paths = collections.Counter(), {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        crop = smooth_panorama(512, 1024, seed=5)[:320, :512]
+        png = _png(os.path.join(tmp, "crop.png"), crop)
+
+        # 1. the demo, t2v, and a request turned away while it generates
+        body = urllib.parse.urlencode({"prompt": DEMO_PROMPT, "steps": 4, "cfg": 12, "seed": 1})
+        paths["demo t2v"], gif_s = _demo_request(model, "demo t2v", os.path.join(tmp, "demo_t2v"), calls,
+                                                 ("/generate", body, FORM), busy=True)
+
+        # 2. the demo, i2v: first one of its forwards against the plain versions
+        x = torch.randn((1, 16, 40, 64, 4), generator=torch.Generator(device=DEV).manual_seed(21), device=DEV)
+        ctx2 = torch.cat([cat_text_image(i2v_model.encode_text([DEMO_PROMPT]), i2v_model.encode_image_cond(crop[None])),
+                          build_uncond_context(i2v_model, with_image=True, image_hw=crop.shape[:2])])
+        where = "i2v basic_sample fwd batch 2 (text + image tokens, zero-image uncond)"
+        r = _against_plain(where, lambda: i2v_model.apply_unet(torch.cat([x, x]), torch.full((2,), 999, device=DEV),
+                                                               ctx2, 16), sites, 2, 1)
+        want = expected_launches(i2v_model.unet.cfg, 40, 64)
+        print(f"phase 9 {where}: ctx {tuple(ctx2.shape)} rel_l2 {r.rel:.5f} (tol {TOL_PATH_REL_L2}) kernels "
+              f"{r.ms:.1f} ms plain {r.plain_ms:.1f} ms launches {r.launches} (K3 with image keys {r.i2v_k3})",
+              flush=True)
+        if not r.finite or r.rel > TOL_PATH_REL_L2 or r.launches != want or r.i2v_k3 != want["K3"]:
+            _fail(f"{where}: rel_l2 {r.rel} finite {r.finite} launches {r.launches}, expected {want}")
+        del r
+        with open(png, "rb") as f:
+            image = f.read()
+        boundary = "chipsmokeboundary"
+        parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+                 for k, v in (("prompt", DEMO_PROMPT), ("steps", "4"), ("cfg", "12"), ("seed", "1"))]
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="image"; filename="crop.png"\r\n'
+                     f"Content-Type: image/png\r\n\r\n".encode() + image + b"\r\n")
+        post = ("/generate_i2v", b"".join(parts) + f"--{boundary}--\r\n".encode(),
+                {"Content-Type": f"multipart/form-data; boundary={boundary}"})
+        paths["demo i2v"], i2v_gif_s = _demo_request(i2v_model, "demo i2v", os.path.join(tmp, "demo_i2v"), calls,
+                                                     post)
+
+        # 3. the batch eval in process
+        pf = os.path.join(tmp, "prompts.txt")
+        with open(pf, "w") as f:
+            f.write("\n".join(EVAL_PROMPTS) + "\n")
+        steps = ["--num_inference_steps", "4", "--world_size", "2"]
+        eval_t2v = collections.Counter()
+        for rank, n in ((1, 1), (0, 2)):
+            out = os.path.join(tmp, "eval_t2v")
+            launches, written = _batch_eval_run(model, f"batch_eval t2v rank {rank} of 2", [
+                "--prompt_file", pf, "--output_dir", out, "--rank", str(rank), *steps], calls, 4 * n)
+            want_names = [f"r{rank}_{i:04d}_" + "".join(c if c.isalnum() else "_" for c in p[:40])
+                          for i, p in enumerate(EVAL_PROMPTS[rank::2])]
+            if [os.path.splitext(os.path.basename(w))[0] for w in written] != want_names:
+                _fail(f"batch_eval t2v rank {rank}: wrote {written}, expected {want_names}")
+            for w in written:
+                _written_video(out, os.path.splitext(os.path.basename(w))[0], (16, 320, 512, 3))
+            eval_t2v.update(launches)
+        paths["batch_eval t2v"] = {k: eval_t2v[k] for k in KERNELS}
+
+        conds = os.path.join(tmp, "conds")
+        os.makedirs(conds)
+        _png(os.path.join(conds, "a.png"), crop)
+        clip = ((smooth_panorama(256, 832, seed=6)[:, :416] + 1) * 127.5).round().astype(np.uint8)
+        avi.write_mjpeg_avi(os.path.join(conds, "b.avi"), [clip, np.flipud(clip).copy()], fps=8)
+        decoded = avi.read_mjpeg_avi(os.path.join(conds, "b.avi"))[0][0]
+        want_conds = [load_image(os.path.join(conds, "a.png"), 320, 512),
+                      (np.asarray(Image.fromarray(decoded).convert("RGB").resize((512, 320), Image.BILINEAR),
+                                  np.float32) / 255.0 - 0.5) * 2]
+        got_conds, reads = [], []
+        basic_sample = i2v.basic_sample
+
+        def keep_cond(m, prompt, cond_image, **kw):
+            got_conds.append(np.array(cond_image))
+            return basic_sample(m, prompt, cond_image, **kw)
+
+        with open(pf, "w") as f:
+            f.write("\n".join(EVAL_PROMPTS[:2]) + "\n")
+        i2v.basic_sample = keep_cond
+        try:
+            with _kept(avi, "read_mjpeg_avi", reads, lambda out: out[0].shape):
+                paths["batch_eval i2v"], _ = _batch_eval_run(i2v_model, "batch_eval i2v", [
+                    "--prompt_file", pf, "--output_dir", os.path.join(tmp, "eval_i2v"), "--mode", "i2v",
+                    "--cond_input", conds, "--num_inference_steps", "4"], calls, 8)
+        finally:
+            i2v.basic_sample = basic_sample
+        same = len(got_conds) == 2 and all(np.array_equal(g, w) for g, w in zip(got_conds, want_conds))
+        print(f"phase 9 batch_eval i2v: conditioning files a.png, b.avi (MJPEG AVI, frames 256x416); "
+              f"read_mjpeg_avi decodes during the run {reads}; each clip's conditioning frame equal to its file's "
+              f"first frame after the same resize: {same}", flush=True)
+        if reads != [(2, 256, 416, 3)] or not same:
+            _fail("batch_eval i2v: the AVI conditioning did not come from read_mjpeg_avi's first frame")
+
+        # 4. two coordinated ranks
+        with open(pf, "w") as f:
+            f.write("\n".join(EVAL_PROMPTS) + "\n")
+        paths["batch_eval 2 ranks"] = _two_ranks(model, tmp, pf, calls, held, lib)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 5. no_temporal_attn
+    x, ctx, t = _unet_inputs(2, 77, 7)
+    full = model.apply_unet(x, t, ctx, 16)
+    where = "t2v UNet fwd batch 2, no_temporal_attn"
+    r = _against_plain(where, lambda: model.apply_unet(x, t, ctx, 16, no_temporal_attn=True), sites, 3, 2)
+    want = expected_launches(model.unet.cfg, 40, 64, no_temporal_attn=True)
+    moved = float((r.out.float() - full.float()).norm() / full.float().norm())
+    print(f"phase 9 {where}: rel_l2 {r.rel:.5f} (tol {TOL_PATH_REL_L2}) kernels {r.ms:.1f} ms plain "
+          f"{r.plain_ms:.1f} ms launches {r.launches}; against the full forward rel_l2 {moved:.4f}", flush=True)
+    if not r.finite or r.rel > TOL_PATH_REL_L2 or r.launches != want or moved == 0.0:
+        _fail(f"{where}: rel_l2 {r.rel} finite {r.finite} launches {r.launches}, expected {want}; moved {moved}")
+    paths["no_temporal_attn forward"] = r.launches
+    del r, full
+
+    # 6. new shapes
+    for c in sites.values():
+        calls.update(c)
+    new = len({key for key in calls if key not in held})
+    print(f"phase 9: {new} kernel calls at shapes no earlier phase held", flush=True)
+    errs = _hold_new_shapes(calls, held, "phase 9")
+    print(f"phase 9 ok in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths, errs
 
 if __name__ == "__main__":
     main()

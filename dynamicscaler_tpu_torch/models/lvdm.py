@@ -162,10 +162,13 @@ class LatentVideoDiffusion:
     # -- apply methods --------------------------------------------------------
 
     @torch.inference_mode()
-    def apply_unet(self, x, t, context, fps=16, traj=None):
+    def apply_unet(self, x, t, context, fps=16, no_temporal_attn=False, traj=None):
         """eps prediction (fp32). x [B, F, H, W, C]; t [B] or [B, F];
-        context [B, L, D]; ``traj`` FreeTraj's state (``ops.freetraj``)."""
-        return self.unet(x, t, context, fps, traj=traj)
+        context [B, L, D]; ``no_temporal_attn`` skips the temporal
+        transformers (the legacy sampler's temporal-guidance probe,
+        samplers/ddim.py:228-231); ``traj`` FreeTraj's state
+        (``ops.freetraj``)."""
+        return self.unet(x, t, context, fps, no_temporal_attn, traj=traj)
 
     @torch.inference_mode()
     def apply_unet_microbatched(self, x, t_scalar, context, fps=16, microbatch: int = 0):

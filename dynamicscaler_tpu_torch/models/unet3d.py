@@ -454,7 +454,7 @@ class UNet3D(nn.Module):
             return Upsample(spec.channels)
         raise ValueError(spec.kind)
 
-    def _run_specs(self, specs, layers, h, emb, context, Fn, traj=None):
+    def _run_specs(self, specs, layers, h, emb, context, Fn, traj=None, no_temporal_attn=False):
         for spec, layer in zip(specs, layers):
             if spec.kind == "conv_in":
                 h = conv2d_nhwc(h, layer)
@@ -464,15 +464,17 @@ class UNet3D(nn.Module):
                 h = layer(h, emb, Fn)
             elif spec.kind == "spatial":
                 h = layer(h, context, Fn, traj=freetraj_spatial(traj, h.shape, Fn))
-            elif spec.kind == "temporal":
+            elif spec.kind == "temporal" and not no_temporal_attn:
                 h = layer(h, Fn, traj=freetraj_temporal(traj, h.shape, Fn))
         return h
 
-    def forward(self, x, timesteps, context, fps=16, traj=None):
+    def forward(self, x, timesteps, context, fps=16, no_temporal_attn=False, traj=None):
         """eps prediction. x [B, F, H, W, C]; timesteps [B] (whole clip) or
         [B, F] (per frame); context [B, L, context_dim]; fps scalar or [B];
-        ``traj`` an ``ops.freetraj.FreeTraj`` (trajectory control, with
-        ``active`` [B, F]). Returns fp32 [B, F, H, W, out_channels]."""
+        ``no_temporal_attn`` skips every temporal transformer and init_attn
+        (the legacy sampler's temporal-guidance probe); ``traj`` an
+        ``ops.freetraj.FreeTraj`` (trajectory control, with ``active``
+        [B, F]). Returns fp32 [B, F, H, W, out_channels]."""
         cfg = self.cfg
         B, Fn, H, W, C = x.shape
         dt = self.out[2].weight.dtype
@@ -491,14 +493,14 @@ class UNet3D(nn.Module):
 
         hs = []
         for i, (specs, layers) in enumerate(zip(self._in_specs, self.input_blocks)):
-            h = self._run_specs(specs, layers, h, emb, ctx, Fn, traj)
-            if i == 0 and cfg.addition_attention:
+            h = self._run_specs(specs, layers, h, emb, ctx, Fn, traj, no_temporal_attn)
+            if i == 0 and cfg.addition_attention and not no_temporal_attn:
                 h = self.init_attn[0](h, Fn, traj=freetraj_temporal(traj, h.shape, Fn))
             hs.append(h)
-        h = self._run_specs(self._mid_specs, self.middle_block, h, emb, ctx, Fn, traj)
+        h = self._run_specs(self._mid_specs, self.middle_block, h, emb, ctx, Fn, traj, no_temporal_attn)
         for specs, layers in zip(self._out_specs, self.output_blocks):
             h = torch.cat([h, hs.pop()], dim=-1)
-            h = self._run_specs(specs, layers, h, emb, ctx, Fn, traj)
+            h = self._run_specs(specs, layers, h, emb, ctx, Fn, traj, no_temporal_attn)
 
         h = fused_twrap.gn_silu(h, self.out[0].weight, self.out[0].bias, eps=1e-5)
         y = conv2d_nhwc(h, self.out[2]).float()

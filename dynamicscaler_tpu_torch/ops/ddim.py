@@ -188,3 +188,104 @@ def re_noise_per_frame(schedule: DDIMSchedule, x_a, steps_b,
     ratio = torch.clamp(acp_b / acp_a, 0.0, 1.0)
     return (torch.sqrt(ratio).reshape(shape) * x_a
             + torch.sqrt(1.0 - ratio).reshape(shape) * _noise_like(x_a, generator, noise))
+
+
+# ---------------------------------------------------------------------------
+# the legacy DDIMSampler surface (lvdm/models/samplers/ddim.py), the batch-eval
+# path's: the use_scale step, the CFG variants, temporal guidance, encode
+# ---------------------------------------------------------------------------
+
+
+def _draw_like(x, generator, noise_fn, name: str, noise=None) -> torch.Tensor:
+    if noise is not None:
+        return torch.as_tensor(noise, dtype=x.dtype, device=x.device)
+    return draw_noise(x.shape, x.device, generator, noise_fn, name).to(x.dtype)
+
+
+def ddim_scale_tables(schedule: DDIMSchedule) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ddim_scale_arr, ddim_scale_arr_prev) of the legacy ``use_scale``
+    step (lvdm/models/samplers/ddim.py:42-47): the DDPM scale array at the
+    DDIM timesteps, and the same shifted by one step."""
+    sc = schedule.scale_arr[schedule.ddim_timesteps]
+    sc_prev = torch.cat([schedule.scale_arr[:1], schedule.scale_arr[schedule.ddim_timesteps[:-1]]])
+    return sc, sc_prev
+
+
+def ddim_step_scaled(schedule: DDIMSchedule, x, noise_pred, indices,
+                     generator: Optional[torch.Generator] = None, frame_axis: int = 1,
+                     noise_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The legacy DDIMSampler step with VideoCrafter's ``use_scale``
+    correction (lvdm/models/samplers/ddim.py:267-272): pred_x0 un-scaled by
+    scale_t and re-scaled by scale_{t_prev} in x_prev. With
+    ``use_scale=False`` it is :func:`ddim_step`. ``indices`` is a per-frame
+    DDIM index vector [F]. With eta > 0 and a ``generator`` or ``noise_fn``
+    it adds sigma_t times the draw ``step``. Returns ``(x_prev, pred_x0)``."""
+    nd = x.ndim
+    a_t = _per_frame(schedule.ddim_alphas, indices, nd, frame_axis)
+    a_prev = _per_frame(schedule.ddim_alphas_prev, indices, nd, frame_axis)
+    sigma_t = _per_frame(schedule.ddim_sigmas, indices, nd, frame_axis)
+    sqrt_omat = _per_frame(schedule.ddim_sqrt_one_minus_alphas, indices, nd, frame_axis)
+    pred_x0 = (x - sqrt_omat * noise_pred) / torch.sqrt(a_t)
+    dir_xt = torch.sqrt(1.0 - a_prev - sigma_t ** 2) * noise_pred
+    if schedule.use_scale:
+        sc, sc_prev = ddim_scale_tables(schedule)
+        pred_x0 = pred_x0 / _per_frame(sc, indices, nd, frame_axis)
+        x_prev = torch.sqrt(a_prev) * _per_frame(sc_prev, indices, nd, frame_axis) * pred_x0 + dir_xt
+    else:
+        x_prev = torch.sqrt(a_prev) * pred_x0 + dir_xt
+    if schedule.eta > 0 and (generator is not None or noise_fn is not None):
+        x_prev = x_prev + sigma_t * _draw_like(x, generator, noise_fn, "step")
+    return x_prev, pred_x0
+
+
+def cfg_combine(eps_cond, eps_uncond, guidance_scale: float, uc_type: Optional[str] = None):
+    """Classifier-free guidance, with the legacy sampler's two other
+    formulas (lvdm/models/samplers/ddim.py:217-226)."""
+    if uc_type is None:
+        return eps_uncond + guidance_scale * (eps_cond - eps_uncond)
+    if uc_type == "cfg_original":
+        return eps_cond + guidance_scale * (eps_cond - eps_uncond)
+    if uc_type == "cfg_ours":
+        return eps_cond + guidance_scale * (eps_uncond - eps_cond)
+    raise NotImplementedError(f"uc_type '{uc_type}' unknown")
+
+
+def temporal_guidance_combine(eps, eps_temporal, eps_no_temporal, scale: float):
+    """The ``conditional_guidance_scale_temporal`` term
+    (lvdm/models/samplers/ddim.py:228-231): eps pushed along the difference
+    between the predictions with and without temporal attention (the UNet's
+    ``no_temporal_attn``, which the reference's UNet swallows)."""
+    return eps + scale * (eps_temporal - eps_no_temporal)
+
+
+def _at_t(table: torch.Tensor, t, ndim: int) -> torch.Tensor:
+    """``table[t]``: a scalar, or for a per-batch ``t`` [B] a [B, 1, ...] column."""
+    t = torch.as_tensor(t, dtype=torch.long, device=table.device)
+    return table[t].reshape((-1,) + (1,) * (ndim - 1)) if t.ndim else table[t]
+
+
+def stochastic_encode(schedule: DDIMSchedule, x0, t, generator: Optional[torch.Generator] = None, noise=None,
+                      use_original_steps: bool = False, noise_fn=None):
+    """x0 noised to DDIM step index ``t`` (lvdm/models/samplers/ddim.py:
+    330-348), or to the raw DDPM timestep ``t`` with
+    ``use_original_steps``; ``t`` a scalar or per batch [B]. ``noise``, else
+    the draw ``encode``."""
+    if use_original_steps:
+        sac, somac = schedule.sqrt_alphas_cumprod, schedule.sqrt_one_minus_alphas_cumprod
+    else:
+        sac, somac = torch.sqrt(schedule.ddim_alphas), schedule.ddim_sqrt_one_minus_alphas
+    eps = _draw_like(x0, generator, noise_fn, "encode", noise)
+    return _at_t(sac, t, x0.ndim) * x0 + _at_t(somac, t, x0.ndim) * eps
+
+
+def q_sample(schedule: DDIMSchedule, x_start, t, generator: Optional[torch.Generator] = None, noise=None,
+             noise_fn=None):
+    """Forward diffusion q(x_t | x_0) at DDPM timestep ``t``, with
+    VideoCrafter's ``use_scale`` latent scaling (lvdm/models/ddpm3d.py:
+    411-420). ``noise``, else the draw ``q_sample``."""
+    eps = _draw_like(x_start, generator, noise_fn, "q_sample", noise)
+    t = torch.as_tensor(t, dtype=torch.long, device=schedule.sqrt_alphas_cumprod.device)
+    sac = schedule.sqrt_alphas_cumprod[t]
+    if schedule.use_scale:
+        sac = sac * schedule.scale_arr[t]
+    return sac * x_start + schedule.sqrt_one_minus_alphas_cumprod[t] * eps

@@ -197,14 +197,15 @@ def test_hash_tokenizer_ids_do_not_depend_on_the_process():
     assert local.max() < 512 and (local[:, 0] == 510).all()
 
 
-# every module of the port, the i2v and sphere slices' and both CLIs' included; the walk below must find them all
+# every module of the port, the i2v and sphere slices' and the four CLIs' included; the walk below must find them all
 PORT_MODULES = {
-    "cli.gen_pano_360", "cli.sample", "config", "core.windows", "models.attention", "models.clip", "models.layers",
-    "models.lvdm", "models.resampler", "models.unet3d", "models.vae", "ops.attention", "ops.blend", "ops.cuda_lib",
-    "ops.ddim", "ops.freetraj", "ops.fused_block", "ops.fused_mega", "ops.fused_spatial", "ops.fused_temporal",
-    "ops.fused_twrap", "ops.lcm", "ops.resize", "ops.ring", "ops.sphere", "pipelines.conditioning",
-    "pipelines.fifo", "pipelines.i2v", "pipelines.planar", "pipelines.sphere", "pipelines.t2v",
-    "pipelines.tiled_vae", "utils.avi", "utils.io", "utils.timing", "utils.tokenizer", "utils.weights",
+    "cli.batch_eval", "cli.demo", "cli.gen_pano_360", "cli.sample", "config", "core.windows",
+    "models.attention", "models.clip", "models.layers", "models.lvdm", "models.resampler", "models.unet3d",
+    "models.vae", "ops.attention", "ops.blend", "ops.cuda_lib", "ops.ddim", "ops.freetraj", "ops.fused_block",
+    "ops.fused_mega", "ops.fused_spatial", "ops.fused_temporal", "ops.fused_twrap", "ops.lcm", "ops.resize",
+    "ops.ring", "ops.sphere", "parallel.dist", "pipelines.conditioning", "pipelines.fifo", "pipelines.i2v",
+    "pipelines.planar", "pipelines.sphere", "pipelines.t2v", "pipelines.tiled_vae", "utils.avi", "utils.io",
+    "utils.timing", "utils.tokenizer", "utils.weights",
 }
 
 
