@@ -137,12 +137,42 @@ Phases, in order, one result line each (any failure exits non-zero):
    recorded); every kernel call of the phase at a shape no earlier phase
    held against its plain version with phase 3's gates.
 
+10. fp32: seeded random fp32 bundles, the draws of the bf16 bundles before
+   their rounding. A full-width t2v UNet forward at batch 2 and an i2v one
+   at batch 8 (40x64x16) through the fp32 kernels against the plain
+   versions (rel L2 within ``TOL_F32_PATH``, 1e-4) and against the bf16 forward
+   of the same weights (printed; sanity gate 0.1), with exact launch
+   counts (``expected_launches(..., dtype=float32)``: every kernel runs at
+   fp32 where it runs at bf16, kernel 12 at t320 under the plan), the i2v
+   one with a device-time profile; the batch-8 i2v forward also under "off"
+   and under the all-wrap+blk plan (kernels 10, 11 and 13 run only there),
+   each against the plain versions with exact launches; every fp32 kernel
+   (K1-K13, TA, FA, GN) at every shape these forwards recorded
+   against its plain version (max error within 1e-5 of max|plain|, L2
+   error within 1e-5 of the op's own output, bit-exact on a rerun; GN its
+   statistics' gates), timed
+   beside the plain version, the same function as PyTorch calls in fp32
+   with TF32 off, and its bound (operations over 67 TFLOP/s, bytes at 4 B
+   an element over 3.35 TB/s), summed per batch-8 forward; then the CLIs
+   in fp32 through their ``main`` on these bundles, TF32 switched on before
+   each and off by its startup: ``cli/sample.py --dtype float32`` in t2v and
+   i2v modes (2 steps, 320x512x16) and ``cli/gen_pano_360.py --dtype float32
+   --dev_full_random true`` at the CLI's geometry, two steps a stage (stage
+   1's 11 forwards of 8 a step, stage 2's 1, stage 3's 4), each with finite
+   outputs of their shapes, s/step and exact launches, and every new kernel
+   shape (the VAE's) held with the fp32 gates; the ``--dev_full_random``
+   bundle in fp32 (every parameter 0.01) and the tiny fp32 bundle through
+   a VideoCrafter-named checkpoint and ``load_videocrafter_checkpoint`` on
+   the card, fp32 and bit-exact.
+
 Then one JSON line of kernel records (K1-K13, TA, FA, GN; ``launches`` is
 the sum over the paths: the three samplers, the gen_pano_360 CLI, the
 sample CLI's four modes and the LCM stream, the demo's two requests, the
 batch eval's three runs, the ``no_temporal_attn`` forward, phase 5's
-"off" request and phase 2's two override forwards), and last the device
-JSON line.
+"off" request and phase 2's two override forwards; and the fp32 records
+``K1.f32`` ... ``GN.f32``, launches summed over phase 10's forwards and CLI
+runs, times per the first batch-8 fp32 forward in which the kernel runs),
+and last the device JSON line.
 """
 
 from __future__ import annotations
@@ -264,6 +294,16 @@ TOL_FOLD_REL_L2 = 1e-5
 # relative L2 error of a whole model path (a full UNet forward, the tiled VAE
 # encode, a ring decode), kernels vs plain, in bf16
 TOL_PATH_REL_L2 = 0.05
+# fp32 (phase 10): kernel and plain round nowhere and differ only in the
+# order of their sums (fp32 eps 2^-24), so each kernel is held within
+# TOL_F32 of max|plain| and its L2 error within TOL_F32 of the op's own
+# output, bit-exact on a rerun (1e-5: the first runs' worst kernel was at
+# 2.1e-6 of max|plain| and 1.4e-6 in L2), and a whole fp32 forward within
+# rel L2 TOL_F32_PATH of plain; the fp32 forward against the bf16 forward of
+# the same weights (rounded to bf16) is printed, with a sanity gate
+TOL_F32 = 1e-5
+TOL_F32_PATH = 1e-4
+TOL_F32_VS_BF16 = 0.1
 # the runs whose per-shape sums make the kernels line's figures (as in
 # PERF.md): the batch-2 t2v forward, else the first batch-8 i2v forward in
 # which the kernel runs (default plan, then the two override plans)
@@ -314,10 +354,15 @@ def _launches() -> dict:
 
 def _k9_route(pos):
     """The ``gn_plan`` route of a recorded K9 call (positional arguments as
-    :func:`_describe` gives them)."""
-    shape = pos[0][0]
+    :func:`_describe` gives them), at its activation's element size."""
+    shape, dt = pos[0]
     B, C = shape[0], shape[-1]
-    return cuda_lib.gn_plan(B, int(np.prod(shape)) // (B * C), C, 32).route
+    return cuda_lib.gn_plan(B, int(np.prod(shape)) // (B * C), C, 32, _elem(dt)).route
+
+
+def _elem(dt) -> int:
+    """Bytes of an element of dtype ``dt``."""
+    return torch.empty((), dtype=dt).element_size()
 
 
 def _k9_split(calls) -> int:
@@ -371,6 +416,7 @@ def main() -> None:
     for k in KERNELS:
         records[k]["max_abs_err"] = max(records[k]["max_abs_err"], errs.get(k, 0.0), sample_errs.get(k, 0.0),
                                         serve_errs.get(k, 0.0))
+    f32_records, f32_paths = _phase_fp32(t2v_model, i2v_model)
 
     kernels = [
         {"name": f"{k} {desc}", "route": "cuda", "source": src, "replaces": rep,
@@ -378,6 +424,12 @@ def main() -> None:
          "launches_by_path": {path: n[k] for path, n in paths.items()},
          **records[k]}
         for k, (_, desc, src, rep) in KERNELS.items()
+    ]
+    kernels += [
+        {"name": f"{k}.f32 {KERNELS[k][1]} at fp32", "route": "cuda", "source": FP32_SOURCES[k],
+         "replaces": KERNELS[k][3], "launches": sum(n[k] for n in f32_paths.values()),
+         "launches_by_path": {path: n[k] for path, n in f32_paths.items()}, **f32_records[k]}
+        for k in FP32_KERNELS
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -488,20 +540,23 @@ def _recording_gemms(calls: collections.Counter):
 # ---------------------------------------------------------------------------
 
 
-def _random_model(kind):
+def _random_model(kind, dtype="bfloat16"):
+    """The full-width bundle of ``kind`` with seeded random weights in
+    ``dtype``: the same draws at every dtype (fp32, then cast), so the fp32
+    bundle's weights rounded to bf16 are the bf16 bundle's."""
     from dynamicscaler_tpu_torch.config import videocrafter2_t2v, videocrafter_i2v
     from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
     from dynamicscaler_tpu_torch.utils.tokenizer import HashTokenizer
     from dynamicscaler_tpu_torch.utils.weights import perturb_zero_params
 
     t0 = time.perf_counter()
-    cfg = videocrafter2_t2v("bfloat16") if kind == "t2v" else videocrafter_i2v("bfloat16")
+    cfg = videocrafter2_t2v(dtype) if kind == "t2v" else videocrafter_i2v(dtype)
     gen = torch.Generator(device=DEV).manual_seed(0 if kind == "t2v" else 2)
     model = LatentVideoDiffusion.init_random(cfg, gen, tokenizer=HashTokenizer())
     # without this the zero-initialised output layers make eps identically 0
     perturb_zero_params(model.unet, gen)
     n = sum(p.numel() for _, m in model.components() for p in m.parameters())
-    print(f"model {kind}: {n / 1e9:.3f}B random bf16 weights on {model.device} in "
+    print(f"model {kind}: {n / 1e9:.3f}B random {dtype} weights on {model.device} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return model
 
@@ -571,7 +626,7 @@ def unet_transformers(cfg, H, W):
     return out
 
 
-def expected_launches(cfg, H, W, frames=16, traj=None, no_temporal_attn=False):
+def expected_launches(cfg, H, W, frames=16, traj=None, no_temporal_attn=False, dtype=BF):
     """Kernel launches of one UNet forward at an H x W latent under the
     current dispatch plan, from the UNet layout, the plan and the kernels'
     gates: per transformer the whole transformer (K12 / K13) where the plan
@@ -590,8 +645,10 @@ def expected_launches(cfg, H, W, frames=16, traj=None, no_temporal_attn=False):
     The device-kernel wrappers inside them: K1's attention core (TA) once
     per K1, K2's and K3's (FA) once per K2 and per K3, the GroupNorm
     statistics (GN) once per K5, K7, K12 and K13 and per K9 call on the
-    split route (``cuda_lib.gn_plan``: the route depends on a sample's rows
-    and channels, not on the batch)."""
+    split route (``cuda_lib.gn_plan``: the route depends on a sample's rows,
+    channels and element size, not on the batch). ``dtype`` the
+    activations', whose element size K9's plan reckons (fp32 runs every
+    other kernel where bf16 does)."""
     from dynamicscaler_tpu_torch.models.unet3d import gn_silu_calls
 
     n = collections.Counter()
@@ -626,7 +683,8 @@ def expected_launches(cfg, H, W, frames=16, traj=None, no_temporal_attn=False):
     k9 = gn_silu_calls(cfg, 1, frames, H, W)
     n["K9"] = len(k9)
     n["TA"], n["FA"] = n["K1"], n["K2"] + n["K3"]
-    n["GN"] = n["K5"] + n["K7"] + n["K12"] + n["K13"] + sum(cuda_lib.gn_plan(*c, 32).route == "split" for c in k9)
+    n["GN"] = n["K5"] + n["K7"] + n["K12"] + n["K13"] + sum(
+        cuda_lib.gn_plan(*c, 32, _elem(dtype)).route == "split" for c in k9)
     return {k: n[k] for k in KERNELS}
 
 
@@ -717,15 +775,18 @@ def _profile_forward(where, fwd, wall_ms, phase="phase 2"):
     for e in rows:
         n = e.key.lower()
         key = ("ds_ln_gemm (K1-K4 projections, K5-K8 wrapper heads/tails; GEMM + prologue pass)"
-               if any(k in n for k in ("ds_gemm_kernel", "prologue_ln_kernel", "prologue_gn_kernel"))
+               if any(k in n for k in ("ds_gemm_kernel", "prologue_ln_kernel", "prologue_gn_kernel", "gemm_f32_kernel",
+                                       "ln_stats_f32_kernel"))
                else "ds_group_norm_silu cluster route (K9)" if "gn_cluster_kernel" in n
                else "ds_gn_silu apply kernel (K9 split route)" if "gn_apply_kernel" in n
                else "ds_gn_stats (GroupNorm statistics: K5, K7, K12, K13, K9 split route)"
                if "gn_partial_kernel" in n or "gn_fold_kernel" in n
-               else "ds_flash_attn (K2, K3)" if "flash_attn_kernel" in n
-               else "ds_temporal_attn (K1)" if "temporal_attn_kernel" in n
+               else "ds_flash_attn (K2, K3)" if "flash_attn" in n
+               else "ds_temporal_attn (K1)" if "temporal_attn" in n
                else "ds_temporal_block / ds_temporal_mega (K10, K12)" if "temporal_block_tma_kernel" in n
                else "ds_spatial_block / ds_mega_spatial body (K11, K13)" if "spatial_body_kernel" in n
+               else "ds_temporal_block_f32 / ds_temporal_mega_f32 (K10, K12 fp32)" if "temporal_f32_kernel" in n
+               else "ds_spatial_block_f32 / ds_mega_spatial_f32 body (K11, K13 fp32)" if "spatial_f32_kernel" in n
                else "conv (cuDNN)" if any(s in n for s in ("conv", "cudnn", "fprop", "implicit"))
                else "gemm (cuBLAS: time emb, FreeTraj's plain attention)" if any(s in n for s in ("gemm", "cutlass"))
                else "elementwise/reduce (casts, cat)")
@@ -747,10 +808,11 @@ class Case:
     composed of PyTorch library calls in bf16 (a yardstick; the port never
     calls it), ``fold`` the plain GroupNorm statistics pass whose vectors
     the kernel reads (or None). ``base``: the residual the op adds (L2 error
-    is measured against plain - base). ``flops``: tensor-core bf16
-    operations, ``ops``: fp32 CUDA-core operations; with the output,
-    :meth:`set_bound` adds its bytes to the inputs' (each read once, each
-    output written once)."""
+    is measured against plain - base). ``flops``: the products' operations,
+    tensor-core bf16 (over 989 TFLOP/s) for bf16 activations and CUDA-core
+    fp32 (over 67) for ``fp32`` ones; ``ops``: fp32 CUDA-core operations;
+    with the output, :meth:`set_bound` adds its bytes to the inputs' (each
+    read once, each output written once)."""
 
     lib_comparable = True  # the library call computes the same output (the GroupNorm statistics' does not)
     block = None  # K10, K12: (tokens, C, F, mega) for the tile plan line
@@ -758,10 +820,11 @@ class Case:
     spatial = None  # K11, K13: (samples, N, C) for the tile plan line
     gn = None  # K9: (x, scale, bias, eps, act) for the route line
 
-    def __init__(self, k, desc, run, plain, library, inputs, *, base=None, fold=None, flops=0.0, ops=0.0):
-        self.k, self.desc = k, desc
+    def __init__(self, k, desc, run, plain, library, inputs, *, base=None, fold=None, flops=0.0, ops=0.0,
+                 fp32=False):
+        self.k, self.desc, self.fp32 = k, desc, fp32
         self.run, self.plain, self.library, self.base, self.fold = run, plain, library, base, fold
-        self.op_ms = max(flops / PEAK_BF16, ops / PEAK_FP32) * 1e3
+        self.op_ms = max(flops / (PEAK_FP32 if fp32 else PEAK_BF16), ops / PEAK_FP32) * 1e3
         self.in_bytes = sum(t.numel() * t.element_size() for t in inputs if torch.is_tensor(t))
 
     def set_bound(self, out):
@@ -821,30 +884,32 @@ def _case(k, pos, opts, rn):
         a[i:i + 2] = fold()
     run_kw = dict(opts)
     if k == "K10":
-        run_kw["operands"] = fused_block.pack_temporal_block(*a[1:], dtype=BF)
+        run_kw["operands"] = fused_block.pack_temporal_block(*a[1:], dtype=x.dtype)
     elif k == "K11":
-        run_kw["operands"] = fused_block.pack_spatial_block(*a[2:], dtype=BF)
+        run_kw["operands"] = fused_block.pack_spatial_block(*a[2:], dtype=x.dtype)
     elif k == "K12":
-        run_kw["operands"] = fused_mega.pack_temporal_mega(*a[3:], dtype=BF)
+        run_kw["operands"] = fused_mega.pack_temporal_mega(*a[3:], dtype=x.dtype)
     elif k == "K13":
-        run_kw["operands"] = fused_mega.pack_spatial_mega(*a[4:], dtype=BF)
+        run_kw["operands"] = fused_mega.pack_spatial_mega(*a[4:], dtype=x.dtype)
     elif k in ("K1", "K2"):
-        run_kw["operands"] = fused_temporal.pack_ln_attention(*a[1:], dtype=BF)
+        run_kw["operands"] = fused_temporal.pack_ln_attention(*a[1:], dtype=x.dtype)
     elif k == "K3":
-        run_kw["operands"] = fused_spatial.pack_ln_cross_attention(*a[2:], dtype=BF)
+        run_kw["operands"] = fused_spatial.pack_ln_cross_attention(*a[2:], dtype=x.dtype)
     elif k == "K4":
-        run_kw["operands"] = fused_temporal.pack_ln_geglu(*a[1:], dtype=BF)
+        run_kw["operands"] = fused_temporal.pack_ln_geglu(*a[1:], dtype=x.dtype)
 
     def run():
         return fn(*a, **run_kw)
     plain = _plain(fn, *a, **opts)
-    common = dict(inputs=[t for v in a for t in (v if isinstance(v, tuple) else (v,))], fold=fold)
+    common = dict(inputs=[t for v in a for t in (v if isinstance(v, tuple) else (v,))], fold=fold,
+                  fp32=x.dtype == torch.float32)
     if k == "K10":
         R, Fn, _ = x.shape
         case = Case(k, f"x{list(x.shape)}", run, plain, _lib_temporal_block(a, opts["heads"], opts["scale"]),
                     base=x, flops=2 * (8 * T * C * C + 4 * R * Fn * Fn * C) + 24 * T * C * C, **common)
-        case.block = (T, C, Fn, False)
-        case.run_at = lambda plan: fn(*a, **run_kw, plan=plan)
+        if not case.fp32:  # the tile plan line of block.cu (block_f32.cu has no plan)
+            case.block = (T, C, Fn, False)
+            case.run_at = lambda plan: fn(*a, **run_kw, plan=plan)
         return case
     if k == "K12":
         B, Fn, H, W, _ = x.shape
@@ -852,8 +917,9 @@ def _case(k, pos, opts, rn):
         case = Case(k, f"x5{list(x.shape)}", run, plain,
                     _lib_temporal_transformer(x, gn, a[3:], opts["heads"], opts["scale"]), base=x, flops=flops,
                     **common)
-        case.block = (T, C, Fn, True)
-        case.run_at = lambda plan: fn(*a, **run_kw, plan=plan)
+        if not case.fp32:
+            case.block = (T, C, Fn, True)
+            case.run_at = lambda plan: fn(*a, **run_kw, plan=plan)
         return case
     if k in ("K11", "K13"):
         BFn, N = x.shape[0], T // x.shape[0]
@@ -869,7 +935,8 @@ def _case(k, pos, opts, rn):
                else _lib_spatial_block(x, a[1], rest[2:6], opts["heads"], opts["scale"], text_len))
         case = Case(k, f"x{list(x.shape)} ctx{list(a[1].shape)} {'i2v' if img else 't2v'}", run, plain, lib,
                     base=x, flops=flops, **common)
-        case.spatial = (BFn, N, C)
+        if not case.fp32:  # the tile plan line of mega.cu
+            case.spatial = (BFn, N, C)
         return case
     if k in ("K1", "K2"):
         B, N, _ = x.shape
@@ -927,14 +994,16 @@ def _case(k, pos, opts, rn):
         case.lib_comparable = False
         return case
     eps, act = opts.get("eps", 1e-5), opts.get("act", True)
-    case = Case(k, f"x{list(x.shape)} eps {eps:g}{'' if act else ' no SiLU'}", run, plain,
+    fp32 = " fp32" if x.dtype == torch.float32 else ""
+    case = Case(k, f"x{list(x.shape)} eps {eps:g}{'' if act else ' no SiLU'}{fp32}", run, plain,
                 _lib_gn_silu(x, a[1], a[2], eps, act), ops=x.numel() * (9 if act else 5), **common)
     case.gn = (x, a[1], a[2], eps, act)
     return case
 
 
-def _bf(*ts):
-    return [t.to(BF) for t in ts]
+def _bf(*ts, dt=BF):
+    """Vectors cast to the activation type ``dt`` of a library composite."""
+    return [t.to(dt) for t in ts]
 
 
 def _heads(t, heads):
@@ -946,7 +1015,7 @@ def _heads(t, heads):
 def _lib_self_attention(a, heads, scale):
     x, s, b, wq, wk, wv, wo, bo = a
     C = x.shape[-1]
-    s, b, bo = _bf(s, b, bo)
+    s, b, bo = _bf(s, b, bo, dt=x.dtype)
     wqkv = torch.cat([wq, wk, wv])
 
     def run():
@@ -962,8 +1031,8 @@ def _lib_cross_attention(a, heads, scale, text_len):
     when not None), outputs summed."""
     x, ctx, s, b, wq, wk, wv, wo, bo = a[:9]
     C = x.shape[-1]
-    s, b, bo = _bf(s, b, bo)
-    ctx = ctx.to(BF)
+    s, b, bo = _bf(s, b, bo, dt=x.dtype)
+    ctx = ctx.to(x.dtype)
     segs = [(torch.cat([wk, wv]), slice(0, text_len))]
     if text_len is not None:
         segs.append((torch.cat(a[9:11]), slice(text_len, None)))
@@ -981,7 +1050,7 @@ def _lib_cross_attention(a, heads, scale, text_len):
 def _lib_geglu(a):
     x, s, b, w1, b1, w2, b2 = a
     C = x.shape[-1]
-    s, b, b1, b2 = _bf(s, b, b1, b2)
+    s, b, b1, b2 = _bf(s, b, b1, b2, dt=x.dtype)
 
     def run():
         val, gate = F.linear(F.layer_norm(x, (C,), s, b, 1e-5), w1, b1).chunk(2, dim=-1)
@@ -989,13 +1058,13 @@ def _lib_geglu(a):
     return run
 
 
-def _lib_temporal_block_fn(lns, a1, a2, ff, heads, scale):
+def _lib_temporal_block_fn(lns, a1, a2, ff, heads, scale, dt=BF):
     """K1, K1, K4's composites in sequence: F.layer_norm, F.linear, SDPA,
-    F.gelu, as a function of h [rows, F, C]."""
-    s1, b1, s2, b2, s3, b3 = _bf(*lns)
-    attns = [(s, b, torch.cat(w[:3]), w[3], w[4].to(BF)) for s, b, w in ((s1, b1, a1), (s2, b2, a2))]
+    F.gelu, as a function of h [rows, F, C] in the activation type ``dt``."""
+    s1, b1, s2, b2, s3, b3 = _bf(*lns, dt=dt)
+    attns = [(s, b, torch.cat(w[:3]), w[3], w[4].to(dt)) for s, b, w in ((s1, b1, a1), (s2, b2, a2))]
     w1, bb1, w2, bb2 = ff
-    bb1, bb2 = _bf(bb1, bb2)
+    bb1, bb2 = _bf(bb1, bb2, dt=dt)
 
     def block(h):
         C = h.shape[-1]
@@ -1010,7 +1079,7 @@ def _lib_temporal_block_fn(lns, a1, a2, ff, heads, scale):
 
 def _lib_temporal_block(a, heads, scale):
     x, lns, a1, a2, ff = a
-    block = _lib_temporal_block_fn(lns, a1, a2, ff, heads, scale)
+    block = _lib_temporal_block_fn(lns, a1, a2, ff, heads, scale, x.dtype)
     return lambda: block(x)
 
 
@@ -1020,8 +1089,8 @@ def _lib_temporal_transformer(x5, gn, rest, heads, scale):
     the permute back + x5."""
     w_in, b_in, lns, a1, a2, ff, w_out, b_out = rest
     B, Fn, H, W, C = x5.shape
-    gs, gb, b_in, b_out = _bf(*gn, b_in, b_out)
-    block = _lib_temporal_block_fn(lns, a1, a2, ff, heads, scale)
+    gs, gb, b_in, b_out = _bf(*gn, b_in, b_out, dt=x5.dtype)
+    block = _lib_temporal_block_fn(lns, a1, a2, ff, heads, scale, x5.dtype)
 
     def run():
         xn = F.group_norm(_channels_first(x5), 32, gs, gb, 1e-6)  # [B, C, F, H, W]
@@ -1031,18 +1100,19 @@ def _lib_temporal_transformer(x5, gn, rest, heads, scale):
     return run
 
 
-def _lib_spatial_block_fn(ctx, lns, a1, a2, ff, heads, scale, text_len, frames):
+def _lib_spatial_block_fn(ctx, lns, a1, a2, ff, heads, scale, text_len, frames, dt=BF):
     """K2, K3, K4's composites in sequence (the context K/V projected per
-    clip and repeated over its frames), as a function of h [BF, N, C]."""
-    s1, b1, s2, b2, s3, b3 = _bf(*lns)
-    wqkv, wo1, bo1 = torch.cat(a1[:3]), a1[3], a1[4].to(BF)
-    wq2, wo2, bo2 = a2[0], a2[3], a2[4].to(BF)
+    clip and repeated over its frames), as a function of h [BF, N, C] in the
+    activation type ``dt``."""
+    s1, b1, s2, b2, s3, b3 = _bf(*lns, dt=dt)
+    wqkv, wo1, bo1 = torch.cat(a1[:3]), a1[3], a1[4].to(dt)
+    wq2, wo2, bo2 = a2[0], a2[3], a2[4].to(dt)
     segs = [(torch.cat(a2[1:3]), slice(0, text_len))]
     if text_len is not None:
         segs.append((torch.cat(a2[5:7]), slice(text_len, None)))
     w1, bb1, w2, bb2 = ff
-    bb1, bb2 = _bf(bb1, bb2)
-    ctx = ctx.to(BF)
+    bb1, bb2 = _bf(bb1, bb2, dt=dt)
+    ctx = ctx.to(dt)
 
     def block(h):
         Ci = h.shape[-1]
@@ -1062,7 +1132,7 @@ def _lib_spatial_block_fn(ctx, lns, a1, a2, ff, heads, scale, text_len, frames):
 
 
 def _lib_spatial_block(x, ctx, block_w, heads, scale, text_len):
-    block = _lib_spatial_block_fn(ctx, *block_w, heads, scale, text_len, x.shape[0] // ctx.shape[0])
+    block = _lib_spatial_block_fn(ctx, *block_w, heads, scale, text_len, x.shape[0] // ctx.shape[0], x.dtype)
     return lambda: block(x)
 
 
@@ -1071,8 +1141,8 @@ def _lib_spatial_transformer(x, ctx, gn, rest, heads, scale, text_len):
     composites, F.linear proj_out + x."""
     w_in, b_in, lns, a1, a2, ff, w_out, b_out = rest
     BFn, H, W, C = x.shape
-    gs, gb, b_in, b_out = _bf(*gn, b_in, b_out)
-    block = _lib_spatial_block_fn(ctx, lns, a1, a2, ff, heads, scale, text_len, BFn // ctx.shape[0])
+    gs, gb, b_in, b_out = _bf(*gn, b_in, b_out, dt=x.dtype)
+    block = _lib_spatial_block_fn(ctx, lns, a1, a2, ff, heads, scale, text_len, BFn // ctx.shape[0], x.dtype)
 
     def run():
         xn = _channels_last(F.group_norm(_channels_first(x), 32, gs, gb, 1e-6))
@@ -1092,7 +1162,7 @@ def _channels_last(x):
 def _lib_head(x, s, b, wi, bi, temporal):
     """F.group_norm on the channels-first view (statistics included), the
     layout copy to tokens, F.linear."""
-    s, b, bi = _bf(s, b, bi)
+    s, b, bi = _bf(s, b, bi, dt=x.dtype)
     C = x.shape[-1]
 
     def run():
@@ -1103,7 +1173,7 @@ def _lib_head(x, s, b, wi, bi, temporal):
 
 
 def _lib_tail(y, x, wo, bo, temporal):
-    bo = bo.to(BF)
+    bo = bo.to(x.dtype)
 
     def run():
         o = F.linear(y, wo, bo)
@@ -1116,7 +1186,7 @@ def _lib_tail(y, x, wo, bo, temporal):
 
 def _lib_gn_silu(x, s, b, eps, act):
     """F.group_norm (statistics included) [-> F.silu], back to channels-last."""
-    s, b = _bf(s, b)
+    s, b = _bf(s, b, dt=x.dtype)
 
     def run():
         h = F.group_norm(_channels_first(x), 32, s, b, eps)
@@ -1137,6 +1207,12 @@ def _check(case, got, ref):
         same = bool(torch.equal(again, got))
         return (err, f"{tol:.2e}, bit-exact rerun {same}", rel, TOL_FOLD_REL_L2,
                 finite and same and err <= tol and rel <= TOL_FOLD_REL_L2)
+    if case.fp32:
+        # fp32: kernel and plain differ only in the order of their sums
+        tol = TOL_F32 * float(ref.float().abs().max())
+        same = bool(torch.equal(case.run(), got))
+        return (err, f"{tol:.2e}, bit-exact rerun {same}", rel, TOL_F32,
+                finite and same and err <= tol and rel <= TOL_F32)
     if case.k == "K9":
         beyond = _beyond_ulp(got, ref)
         same = bool(torch.equal(case.run(), got))
@@ -1163,7 +1239,7 @@ def _gn_route(case, ms, phase="phase 3"):
     and the apply's own (2 x bytes). Returns (ok, timings)."""
     x, s, b, eps, act = case.gn
     B, C = x.shape[0], x.shape[-1]
-    plan = cuda_lib.gn_plan(B, x.numel() // (B * C), C, 32)
+    plan = cuda_lib.gn_plan(B, x.numel() // (B * C), C, 32, x.element_size())
     y, vec = fused_twrap.gn_silu(x, s, b, eps=eps, act=act, vectors=True)
     y2, vec2 = fused_twrap.gn_silu(x, s, b, eps=eps, act=act, vectors=True)
     vec, vec2 = torch.stack(vec), torch.stack(vec2)
@@ -1177,13 +1253,18 @@ def _gn_route(case, ms, phase="phase 3"):
         return fused_twrap.gn_silu_apply(x, pm, pa, act=act)
     ref = fused_twrap.gn_silu_plain(x, pm, pa, act=act)
     ya = apply()
-    beyond = _beyond_ulp(ya, ref)
     arel = float((ya.float() - ref.float()).norm() / ref.float().norm())
-    apply_ok = (bool(torch.isfinite(ya).all()) and torch.equal(ya, apply()) and beyond == 0
-                and arel <= TOL_GN_REL_L2)
+    if case.fp32:
+        aerr = float((ya - ref).abs().max()) / float(ref.abs().max())
+        beyond = f"max err {aerr:.1e} of max|plain| (tol {TOL_F32})"
+        within = aerr <= TOL_F32 and arel <= TOL_F32
+    else:
+        n_beyond = _beyond_ulp(ya, ref)
+        beyond, within = f"{n_beyond} beyond 1 bf16 ulp", n_beyond == 0 and arel <= TOL_GN_REL_L2
+    apply_ok = bool(torch.isfinite(ya).all()) and torch.equal(ya, apply()) and within
     del y, y2, ya, ref
     apply_ms = _time_ms(apply, 10)
-    bound = 4 * x.numel() / PEAK_BYTES * 1e3
+    bound = 2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
     route_bound = bound * (1.5 if plan.route == "split" else 1.0)
     clusters = cuda_lib.gn_clusters(plan, C) if plan.route == "cluster" else None
     where = (f"cluster CS {plan.cs} rows {plan.rows} smem {plan.smem} B, {clusters} clusters at once"
@@ -1191,7 +1272,7 @@ def _gn_route(case, ms, phase="phase 3"):
     print(f"{phase} K9 {case.desc} route: {where}; statistics max err {verr:.2e} (tol {vtol:.2e}) rel_l2 {vrel:.1e}, "
           f"bit-exact rerun {torch.equal(vec, vec2)}; one call {ms:.4f} ms against the route bound "
           f"{route_bound:.4f} ({100 * route_bound / ms:.0f}%); apply kernel alone {apply_ms:.4f} ms against "
-          f"{bound:.4f} ({100 * bound / apply_ms:.0f}%), {beyond} beyond 1 bf16 ulp, rel_l2 {arel:.1e} "
+          f"{bound:.4f} ({100 * bound / apply_ms:.0f}%), {beyond}, rel_l2 {arel:.1e} "
           f"{'ok' if vec_ok and apply_ok else 'FAIL'}", flush=True)
     if clusters is not None and clusters < 1:
         vec_ok = False
@@ -1261,27 +1342,30 @@ def _repair_cases():
     return {case: {REPAIR: 1} for case in cases}
 
 
-def _phase_kernels(sites, cfg):
-    """Phase 3: every kernel against its plain version at every shape that
-    phase 2 recorded; then the transformer levels (:func:`_phase_levels`).
-    Returns, per kernel, the largest error and the kernel, plain, library,
-    bound and fold ms summed over one forward: the batch-2 t2v forward, else
-    the first batch-8 i2v forward in which the kernel runs ("per"), with the
-    same sums over every phase-2 forward that runs it."""
-    shapes = collections.defaultdict(dict)  # (kernel, args, options) -> {run: calls}
+def _recorded_shapes(sites):
+    """(kernel, args, options) -> {run: calls} over the recorded runs."""
+    shapes = collections.defaultdict(dict)
     for where, calls in sites.items():
         for key, n in calls.items():
             shapes[key][where] = n
+    return shapes
+
+
+def _time_cases(shapes, runs, phase):
+    """Every kernel call of ``shapes`` against its plain version with the
+    gates of :func:`_check` (K9 also :func:`_gn_route`; kernels 10-13 their
+    tile lines), timed beside its plain version, its library composite and
+    its bound, the sums per run of ``runs`` printed. Fails on any
+    disagreement. Returns the sums, the largest error and the bound ms by
+    limiting resource per kernel, and the tile records of kernels 10-13."""
     rn = _gen()
-    sums = {where: {k: collections.Counter() for k in KERNELS} for where in (*sites, REPAIR)}
+    sums = {where: {k: collections.Counter() for k in KERNELS} for where in runs}
     max_err = dict.fromkeys(KERNELS, 0.0)
     bound_by = {k: collections.Counter() for k in KERNELS}  # bound ms per limiting resource
     tiles = {"K10": [], "K11": [], "K12": [], "K13": []}  # the tile plan and rate of kernels 10-13 at each shape
     bad = []
-    for key, runs in _repair_cases().items():
-        shapes[key] = {**shapes.get(key, {}), **runs}
     order = list(KERNELS)
-    for (k, pos, opts), runs in sorted(shapes.items(), key=lambda kv: order.index(kv[0][0])):
+    for (k, pos, opts), where_n in sorted(shapes.items(), key=lambda kv: order.index(kv[0][0])):
         case = _case(k, pos, dict(opts), rn)
         got = case.run()
         ref = case.plain()
@@ -1295,30 +1379,30 @@ def _phase_kernels(sites, cfg):
         t = {"ms": _time_ms(case.run, 10), "plain_ms": _time_ms(case.plain, 3),
              "library_ms": _time_ms(case.library, 10), "bound_ms": case.bound_ms,
              "fold_ms": _time_ms(case.fold, 10) if case.fold else 0.0}
-        print(f"phase 3 {k} {case.desc}: max_abs_err {err:.5f} (tol {tol}) rel_l2 {rel:.5f} (tol {tol_l2}) "
+        print(f"{phase} {k} {case.desc}: max_abs_err {err:.5g} (tol {tol}) rel_l2 {rel:.5g} (tol {tol_l2}) "
               f"kernel {t['ms']:.3f} ms plain {t['plain_ms']:.3f} ms library {t['library_ms']:.3f} ms "
               f"(rel_l2 vs plain {lib_rel:.4f}) bound {case.bound_ms:.4f} ms ({case.bound_by})"
               + (f" group_norm_fold {t['fold_ms']:.3f} ms" if case.fold else "")
-              + " [" + ", ".join(f"x{n} per {w}" for w, n in runs.items()) + f"] {'ok' if ok else 'FAIL'}",
+              + " [" + ", ".join(f"x{n} per {w}" for w, n in where_n.items()) + f"] {'ok' if ok else 'FAIL'}",
               flush=True)
         if case.block:
             tile, reckoned = _block_tile(case, t["ms"], ref)
             tiles[k].append(tile)
             ok = ok and tile["other_cl_ok"]
-            print(f"phase 3 {k} {case.desc} tile: {_block_line(tile, reckoned)}", flush=True)
+            print(f"{phase} {k} {case.desc} tile: {_block_line(tile, reckoned)}", flush=True)
         if case.gn:
-            gn_ok, extra = _gn_route(case, t["ms"])
+            gn_ok, extra = _gn_route(case, t["ms"], phase)
             ok = ok and gn_ok
             t.update(extra)
         if case.spatial:
             tile = _spatial_tile(case, t["ms"])
             tiles[k].append(tile)
-            print(f"phase 3 {k} {case.desc} tile: plan TM {tile['tm']} stages {tile['stages']} hidden chunk "
+            print(f"{phase} {k} {case.desc} tile: plan TM {tile['tm']} stages {tile['stages']} hidden chunk "
                   f"{tile['hc']} smem {tile['smem']} B, no cluster; grid {tile['grid']} blocks; {tile['tflops']:.1f} "
                   f"TFLOP/s ({100 * tile['share_of_989']:.1f}% of 989); kernel {t['ms']:.3f} ms", flush=True)
         del ref
         max_err[k] = max(max_err[k], err)
-        for where, n in runs.items():
+        for where, n in where_n.items():
             for key, v in t.items():
                 sums[where][k][key] += n * v
             bound_by[k][case.bound_by] += n * case.bound_ms
@@ -1327,32 +1411,55 @@ def _phase_kernels(sites, cfg):
         del case
     torch.cuda.empty_cache()
     if bad:
-        _fail(f"kernel disagrees with its plain version: {bad}")
+        _fail(f"{phase}: kernel disagrees with its plain version: {bad}")
     for where, per_k in sums.items():
-        print(f"phase 3 sums per {where} (ms: kernel / plain / library / bound; + group_norm_fold): " + ", ".join(
+        print(f"{phase} sums per {where} (ms: kernel / plain / library / bound; + group_norm_fold): " + ", ".join(
             f"{k} {c['ms']:.2f}/{c['plain_ms']:.2f}/{c['library_ms']:.2f}/{c['bound_ms']:.3f}"
             + (f" + {c['fold_ms']:.2f}" if c["fold_ms"] else "") for k, c in per_k.items() if c), flush=True)
         c = per_k["K9"]
         if c:
-            print(f"phase 3 K9 per {where}: {c['ms']:.2f} ms against the routes' bound {c['route_bound_ms']:.3f} "
+            print(f"{phase} K9 per {where}: {c['ms']:.2f} ms against the routes' bound {c['route_bound_ms']:.3f} "
                   f"(function bound {c['bound_ms']:.3f}); cluster route {c['cluster_calls']:.0f} calls "
                   f"{c['cluster_ms']:.2f} ms / {c['cluster_bound_ms']:.3f}, split route {c['split_calls']:.0f} calls "
                   f"{c['split_ms']:.2f} ms / {c['split_bound_ms']:.3f}; the apply kernel alone {c['apply_ms']:.2f} ms "
                   f"/ {c['apply_bound_ms']:.3f}", flush=True)
+    return sums, max_err, bound_by, tiles
+
+
+KEYS = ("ms", "plain_ms", "bound_ms", "library_ms")
+
+
+def _record(k, main, max_err, bound_by, per):
+    """Kernel ``k``'s figures for the kernels line: the sums ``main`` over
+    the forward ``per``."""
+    return {"max_abs_err": max_err[k], **{key: main[key] for key in KEYS},
+            "bound_by": bound_by[k].most_common(1)[0][0], "fold_ms": main["fold_ms"] if "mul" in ROLES[k] else None,
+            "per": per}
+
+
+def _phase_kernels(sites, cfg):
+    """Phase 3: every kernel against its plain version at every shape that
+    phase 2 recorded and at :func:`_repair_cases` (:func:`_time_cases`);
+    then the GEMM table and the transformer levels (:func:`_phase_levels`).
+    Returns, per kernel, the largest error and the kernel, plain, library,
+    bound and fold ms summed over one forward: the batch-2 t2v forward, else
+    the first batch-8 i2v forward in which the kernel runs ("per"), with the
+    same sums over every phase-2 forward that runs it."""
+    shapes = _recorded_shapes(sites)
+    for key, runs in _repair_cases().items():
+        shapes[key] = {**shapes.get(key, {}), **runs}
+    sums, max_err, bound_by, tiles = _time_cases(shapes, (*sites, REPAIR), "phase 3")
     _phase_gemms(GEMM_SITES[I2V_FWD])
     _phase_levels(cfg)
     print("phase 3 ok", flush=True)
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     records = {}
     for k in KERNELS:
         ran = [w for w in FORWARDS if sums[w][k]]
         if not ran:
             _fail(f"{k} ran in none of the phase-2 forwards")
         main = sums[ran[0]][k]
-        records[k] = {"max_abs_err": max_err[k], **{key: main[key] for key in keys},
-                      "bound_by": bound_by[k].most_common(1)[0][0],
-                      "fold_ms": main["fold_ms"] if "mul" in ROLES[k] else None, "per": ran[0],
-                      "sums_by_forward": {w: {key: sums[w][k][key] for key in keys + ("fold_ms",)} for w in ran}}
+        records[k] = {**_record(k, main, max_err, bound_by, ran[0]),
+                      "sums_by_forward": {w: {key: sums[w][k][key] for key in KEYS + ("fold_ms",)} for w in ran}}
         if k in tiles:
             records[k]["tiles"] = tiles[k]
         if k == "K9":
@@ -1901,6 +2008,87 @@ def _hold_new_shapes(calls, held, phase):
     return errs
 
 
+def _cli_run(model, vargs, held, phase):
+    """One ``gen_pano_360.main(vargs, _model=model)`` run at the CLI's
+    geometry: stage 1 at 2048x1024 with 44 views over 10 phases, stages 2
+    and 3 on 2x2 and 4x4 windows of 320x512, 16 frames, UNet microbatch 8.
+    Checks the three latents finite at their shapes, both videos, the
+    files, and the exact launch counts (the UNet forwards at
+    :func:`expected_launches` each at the bundle's dtype, and K9 and the
+    statistics of the VAE's calls as recorded), and holds every VAE kernel
+    call at a shape not in ``held`` against its plain version
+    (:func:`_hold_new_shapes`). Returns the output directory, the launches,
+    the largest error per kernel of the new shapes and the latents."""
+    from dynamicscaler_tpu_torch.cli import gen_pano_360 as cli
+
+    # UNet forwards: s1 stage-1 steps of 44 views (88 CFG-packed, 11
+    # forwards of 8), s23 stage-2 steps of 2x2 windows (1 forward), s23
+    # stage-3 steps of 4x4 windows (4 forwards)
+    s1 = min(vargs.num_inference_steps, vargs.denoise_to_step)
+    s23 = vargs.num_inference_steps - vargs.denoise_to_step
+    want_fwd = s1 * 11 + s23 * 1 + s23 * 4
+    batches, vae_calls = collections.Counter(), collections.Counter()
+    apply_unet, encode_video, decode_video = model.apply_unet, model.encode_video, model.decode_video
+
+    def counted_unet(x, *a, **kw):
+        batches[x.shape[0]] += 1
+        return apply_unet(x, *a, **kw)
+
+    def recorded(fn):
+        def call(*a, **kw):
+            with _recording(vae_calls):
+                return fn(*a, **kw)
+        return call
+
+    model.apply_unet, model.encode_video, model.decode_video = \
+        counted_unet, recorded(encode_video), recorded(decode_video)
+    try:
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli.main(vargs, _model=model)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _launches()
+    finally:
+        model.apply_unet, model.encode_video, model.decode_video = apply_unet, encode_video, decode_video
+    e2e = json.load(open(os.path.join(out, "e2e.json")))
+    for stage, secs in e2e["stages_sec"].items():
+        steady = e2e["steady_sec_per_step"][stage]
+        print(f"{phase} stage {stage}: {secs:.2f} s wall, steady "
+              + ("not measured" if steady is None else f"{steady:.3f} s/step"), flush=True)
+    latents = {}
+    for name, shape in (("sphere_SW_latent.npy", (1, 16, 128, 256, 4)),
+                        ("basic_SW_latent.npy", (1, 16, 64, 128, 4)),
+                        ("denoised_latent2x.npy", (1, 16, 128, 256, 4))):
+        latents[name] = np.load(os.path.join(out, name))
+        if latents[name].shape != shape or not np.isfinite(latents[name]).all():
+            _fail(f"cli path: {name} {latents[name].shape} finite {np.isfinite(latents[name]).all()}, "
+                  f"expected {shape}")
+    writers = {name: _written_video(out, name, shape)
+               for name, shape in (("shift_windows", (16, 512, 1024, 3)), ("SW_2X", (16, 1024, 2048, 3)))}
+    for f in ("args.json", "e2e.json"):
+        if not os.path.exists(os.path.join(out, f)):
+            _fail(f"cli path: no {f}")
+    per = expected_launches(model.unet.cfg, 40, 64, dtype=model.dtype)
+    n_fwd = sum(batches.values())
+    vae = dict.fromkeys(KERNELS, 0)
+    for (k, *_), n in vae_calls.items():
+        vae[k] += n
+    want = {k: n * n_fwd for k, n in per.items()}
+    want["K9"] += vae["K9"]
+    want["GN"] += _k9_split(vae_calls)
+    print(f"{phase} cli: run {run_s:.2f} s: latents {[v.shape for v in latents.values()]} finite, videos "
+          f"{writers}; UNet forwards {dict(batches)} (expected {want_fwd} of 8); gn_silu in the VAE "
+          f"{vae['K9']} (split route {_k9_split(vae_calls)}); launches {launches}", flush=True)
+    if dict(batches) != {8: want_fwd} or launches != want or any(vae[k] for k in KERNELS if k not in VAE_KERNELS) \
+            or not vae["K9"]:
+        _fail(f"cli path: UNet forwards {dict(batches)} (expected {want_fwd} of 8), launches {launches}, "
+              f"expected {want}; VAE calls {vae}")
+    errs = _hold_new_shapes(vae_calls, held, phase)
+    return out, launches, errs, latents
+
+
 def _phase_cli(model, held):
     """Phase 7: ``cli/gen_pano_360.py`` through ``main(VArgs.from_args(argv))``
     on the phase-2 bundle, at the CLI's defaults but for the steps
@@ -1922,72 +2110,8 @@ def _phase_cli(model, held):
     try:
         pano = _png(os.path.join(tmp, "pano.png"), smooth_panorama(512, 1024, seed=5))
         argv = ["--pano_image_path", pano, "--output_dir", tmp, *CLI_STEPS]
-        vargs = cli.VArgs.from_args(argv + ["--project_name", "run"])
-        # UNet forwards: 3 stage-1 steps of 44 views (88 CFG-packed, 11
-        # forwards of 8), 3 stage-2 steps of 2x2 windows (1 forward), 3
-        # stage-3 steps of 4x4 windows (4 forwards)
-        s1 = min(vargs.num_inference_steps, vargs.denoise_to_step)
-        s23 = vargs.num_inference_steps - vargs.denoise_to_step
-        want_fwd = s1 * 11 + s23 * 1 + s23 * 4
-        batches, vae_calls = collections.Counter(), collections.Counter()
-        apply_unet, encode_video, decode_video = model.apply_unet, model.encode_video, model.decode_video
-
-        def counted_unet(x, *a, **kw):
-            batches[x.shape[0]] += 1
-            return apply_unet(x, *a, **kw)
-
-        def recorded(fn):
-            def call(*a, **kw):
-                with _recording(vae_calls):
-                    return fn(*a, **kw)
-            return call
-
-        model.apply_unet, model.encode_video, model.decode_video = \
-            counted_unet, recorded(encode_video), recorded(decode_video)
-        try:
-            _reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = cli.main(vargs, _model=model)
-            torch.cuda.synchronize()
-            run_s = time.perf_counter() - t0
-            launches = _launches()
-        finally:
-            model.apply_unet, model.encode_video, model.decode_video = apply_unet, encode_video, decode_video
-        e2e = json.load(open(os.path.join(out, "e2e.json")))
-        for stage, secs in e2e["stages_sec"].items():
-            steady = e2e["steady_sec_per_step"][stage]
-            print(f"phase 7 stage {stage}: {secs:.2f} s wall, steady "
-                  + ("not measured" if steady is None else f"{steady:.3f} s/step"), flush=True)
-        latents = {}
-        for name, shape in (("sphere_SW_latent.npy", (1, 16, 128, 256, 4)),
-                            ("basic_SW_latent.npy", (1, 16, 64, 128, 4)),
-                            ("denoised_latent2x.npy", (1, 16, 128, 256, 4))):
-            latents[name] = np.load(os.path.join(out, name))
-            if latents[name].shape != shape or not np.isfinite(latents[name]).all():
-                _fail(f"cli path: {name} {latents[name].shape} finite {np.isfinite(latents[name]).all()}, "
-                      f"expected {shape}")
-        writers = {name: _written_video(out, name, shape)
-                   for name, shape in (("shift_windows", (16, 512, 1024, 3)), ("SW_2X", (16, 1024, 2048, 3)))}
-        for f in ("args.json", "e2e.json"):
-            if not os.path.exists(os.path.join(out, f)):
-                _fail(f"cli path: no {f}")
-        per = expected_launches(model.unet.cfg, 40, 64)
-        n_fwd = sum(batches.values())
-        vae = dict.fromkeys(KERNELS, 0)
-        for (k, *_), n in vae_calls.items():
-            vae[k] += n
-        want = {k: n * n_fwd for k, n in per.items()}
-        want["K9"] += vae["K9"]
-        want["GN"] += _k9_split(vae_calls)
-        print(f"phase 7 cli: run {run_s:.2f} s: latents {[v.shape for v in latents.values()]} finite, videos "
-              f"{writers}; UNet forwards {dict(batches)} (expected {want_fwd} of 8); gn_silu in the VAE "
-              f"{vae['K9']} (split route {_k9_split(vae_calls)}); launches {launches}", flush=True)
-        if dict(batches) != {8: want_fwd} or launches != want or any(vae[k] for k in KERNELS if k not in VAE_KERNELS) \
-                or not vae["K9"]:
-            _fail(f"cli path: UNet forwards {dict(batches)} (expected {want_fwd} of 8), launches {launches}, "
-                  f"expected {want}; VAE calls {vae}")
-        errs = _hold_new_shapes(vae_calls, held, "phase 7")
+        out, launches, errs, latents = _cli_run(model, cli.VArgs.from_args(argv + ["--project_name", "run"]), held,
+                                                "phase 7")
 
         # stage 2 alone, from the stage-1 latent of the run
         t0 = time.perf_counter()
@@ -2105,7 +2229,7 @@ def _check_run(where, model, launches, probe, calls, want_fwd, traj, decoded=Tru
     :func:`expected_launches` each, plus the VAE decode's K9 and statistics
     as recorded (and some K9 calls there where the run ``decoded``); K3
     with image keys on the i2v bundle only."""
-    per = expected_launches(model.unet.cfg, 40, 64, traj=traj)
+    per = expected_launches(model.unet.cfg, 40, 64, traj=traj, dtype=model.dtype)
     fwds = [(b, c) for b, c, _, _ in probe.unet]
     vae = dict.fromkeys(KERNELS, 0)
     for (k, *_), n in probe.vae_calls.items():
@@ -2680,6 +2804,226 @@ def _phase_serve(model, i2v_model, held, lib):
     errs = _hold_new_shapes(calls, held, "phase 9")
     print(f"phase 9 ok in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return paths, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 10: fp32
+# ---------------------------------------------------------------------------
+
+F32 = torch.float32
+FP32_T2V = "fp32 t2v UNet fwd batch 2"
+FP32_I2V = "fp32 i2v UNet fwd batch 8"
+# the override plans at fp32, as phase 2 runs them at bf16: kernels 10, 11
+# and 13 run only under these
+FP32_OVERRIDES = {f"{FP32_I2V}, plan off": "off", f"{FP32_I2V}, plan wrap+blk": WRAP_BLK}
+# the runs whose sums make the fp32 records: the first in which the kernel runs
+FP32_FORWARDS = (FP32_I2V, *FP32_OVERRIDES)
+# every kernel has an fp32 route; the source of its fp32 kernel (K1-K3: the
+# GEMM's, where most of their time goes; their attention cores are TA and FA)
+FP32_KERNELS = list(KERNELS)
+FP32_SOURCES = {**dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"),
+                                "dynamicscaler_tpu_torch/csrc/gemm_f32.cu"),
+                **dict.fromkeys(("TA", "FA"), "dynamicscaler_tpu_torch/csrc/attention_f32.cu"),
+                **dict.fromkeys(("K9", "GN"), "dynamicscaler_tpu_torch/csrc/gn_silu.cu"),
+                **dict.fromkeys(("K10", "K11", "K12", "K13"), "dynamicscaler_tpu_torch/csrc/block_f32.cu")}
+# the fp32 CLI run: the steps cut to 2 a stage (stage 1's 11 forwards of 8
+# a step, stage 2's 1, stage 3's 4; the second step of each gives its steady
+# s/step), the geometry the CLI's
+FP32_CLI_STEPS = ["--num_inference_steps", "4", "--denoise_to_step", "2", "--merge_prev_step", "2"]
+FP32_SAMPLE_STEPS = 2
+
+
+def _tf32_flags():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def _fp32_kernels(sites):
+    """Every fp32 kernel at every shape the phase-10 forwards recorded,
+    against its plain version with the fp32 gates (:func:`_time_cases`),
+    timed beside its plain version, the same function as PyTorch library
+    calls in fp32 (TF32 off) and its bound (operations over 67 TFLOP/s fp32
+    or bytes at 4 B an element over 3.35 TB/s). Returns per kernel the
+    largest error and the ms summed over the first batch-8 i2v fp32 forward
+    in which it runs (the default plan, then "off", then all-wrap+blk)."""
+    sums, max_err, bound_by, _ = _time_cases(_recorded_shapes(sites), sites, "phase 10")
+    records = {}
+    for k in FP32_KERNELS:
+        ran = [w for w in FP32_FORWARDS if sums[w][k]]
+        if not ran:
+            _fail(f"phase 10: {k} ran in none of the batch-8 fp32 forwards")
+        records[k] = _record(k, sums[ran[0]][k], max_err, bound_by, ran[0])
+    return records
+
+
+def _fp32_sample(model, mode, image, tmp, calls):
+    """``cli/sample.py --dtype float32`` in ``mode`` on the fp32 bundle,
+    2 steps at 320x512x16: the latent finite at its shape, the video, the
+    exact launches, s/step, and both TF32 flags off after the CLI's
+    startup (set on before it)."""
+    from dynamicscaler_tpu_torch.cli import sample
+    from dynamicscaler_tpu_torch.pipelines import i2v, t2v
+
+    mod, fn = (t2v, "basic_sample") if mode == "t2v" else (i2v, "sample_shift_multi_windows_integer")
+    args = sample.parse_args(["--mode", mode, "--prompt", SAMPLE_PROMPT, "--name", mode, "--dtype", "float32",
+                              "--num_inference_steps", str(FP32_SAMPLE_STEPS), "--output_dir",
+                              os.path.join(tmp, mode), *(["--image", image] if mode == "i2v" else [])])
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    probe = _SampleProbe(model)
+    latents = []
+    try:
+        with _kept(mod, fn, latents, lambda out: out[1]), _recording(calls):
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = sample.main(args, _model=model)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+    finally:
+        probe.remove()
+    flags = _tf32_flags()
+    lat = latents[0]
+    finite = bool(torch.isfinite(lat).all())
+    writer = _written_video(os.path.dirname(path), mode, (16, 320, 512, 3))
+    unet_s = [s for *_, s in probe.unet]
+    sampling = wall - probe.secs["conditioning"] - probe.secs["decode"] - probe.secs["write"]
+    print(f"phase 10 sample --mode {mode} --dtype float32: {wall:.2f} s wall: conditioning "
+          f"{probe.secs['conditioning']:.2f} s, sampling {sampling / FP32_SAMPLE_STEPS:.3f} s/step over "
+          f"{FP32_SAMPLE_STEPS} steps (UNet forward {unet_s[0] * 1e3:.1f} ms first, {unet_s[-1] * 1e3:.1f} ms last), "
+          f"decode {probe.secs['decode']:.2f} s, write {probe.secs['write']:.2f} s; latent {tuple(lat.shape)} "
+          f"{lat.dtype} finite {finite}; video ({writer}); TF32 flags after startup (cudnn, matmul) {flags}; "
+          f"launches {launches}", flush=True)
+    if tuple(lat.shape) != (1, 16, 40, 64, 4) or not finite or flags != (False, False):
+        _fail(f"sample --mode {mode} --dtype float32: latent {tuple(lat.shape)} finite {finite}, TF32 {flags}")
+    _check_run(f"sample --mode {mode} --dtype float32", model, launches, probe, calls, FP32_SAMPLE_STEPS, None)
+    return launches
+
+
+def _phase_fp32(t2v_bf, i2v_bf):
+    """Phase 10: the model in fp32. The full-width t2v (batch 2) and i2v
+    (batch 8) UNet forwards at 40x64x16 on seeded random fp32 bundles (the
+    bf16 bundles' draws before their rounding) through the kernels against
+    the plain versions (rel L2 <= TOL_F32_PATH) and against the bf16 forward of
+    the same weights (printed, gated at TOL_F32_VS_BF16), with exact
+    launches, and the batch-8 i2v forward under the two override plans
+    (kernels 10, 11 and 13) against the plain versions; every fp32 kernel at every
+    recorded shape against its plain version (:func:`_fp32_kernels`); the
+    CLIs at ``--dtype float32`` (``cli/sample.py`` t2v and i2v, 2 steps;
+    ``cli/gen_pano_360.py --dev_full_random true`` on the fp32 i2v bundle,
+    two steps a stage at the CLI's geometry) with TF32 set on before each
+    and off after its startup, exact launches, every new kernel shape held
+    with the fp32 gates; the ``--dev_full_random`` bundle in fp32 and a
+    VideoCrafter-named checkpoint of the tiny fp32 bundle loaded on the card
+    (fp32 carried across). Returns the fp32 kernel records and the fp32
+    paths' launches."""
+    from dynamicscaler_tpu_torch.cli import gen_pano_360 as cli
+    from dynamicscaler_tpu_torch.config import tiny_test_config
+    from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
+    from dynamicscaler_tpu_torch.utils import weights
+    from dynamicscaler_tpu_torch.utils.tokenizer import HashTokenizer
+
+    t_phase = time.perf_counter()
+    t2v32, i2v32 = _random_model("t2v", "float32"), _random_model("i2v", "float32")
+    sites, paths = {}, {}
+    runs = [("t2v", t2v32, t2v_bf, 2, 77, 7, FP32_T2V, None), ("i2v", i2v32, i2v_bf, 8, 93, 8, FP32_I2V, None)]
+    runs += [("i2v", i2v32, None, 8, 93, 8, where, spec) for where, spec in FP32_OVERRIDES.items()]
+    for kind, m, mb, B, L, seed, where, spec in runs:
+        x, ctx, t = _unet_inputs(B, L, seed)
+
+        def fwd(m=m, x=x, ctx=ctx, t=t):
+            return m.apply_unet(x, t, ctx, 16)
+
+        with _plan(spec):
+            want = expected_launches(m.unet.cfg, 40, 64, dtype=F32)
+            r = _against_plain(where, fwd, sites, 1 if spec else 2, 1)
+        vs_bf = 0.0
+        if mb is not None:
+            bf = mb.apply_unet(x, t, ctx, 16).float()
+            vs_bf = float((r.out.float() - bf).norm() / bf.norm())
+            del bf
+        print(f"phase 10 {where}: [{B},16,40,64,4] ctx [{B},{L},1024] {r.out.dtype}: rel_l2 against plain {r.rel:.2e} "
+              f"(tol {TOL_F32_PATH})" + (f", against the bf16 forward of the same weights {vs_bf:.4f} (tol "
+                                         f"{TOL_F32_VS_BF16})" if mb is not None else "")
+              + f" |eps| mean {float(r.out.abs().mean()):.4f} kernels {r.ms:.1f} ms plain {r.plain_ms:.1f} ms "
+              f"launches {r.launches} (K3 with image keys {r.i2v_k3})", flush=True)
+        if not r.finite or r.rel > TOL_F32_PATH or vs_bf > TOL_F32_VS_BF16 or r.launches != want \
+                or r.i2v_k3 != (want["K3"] if kind == "i2v" else 0):
+            _fail(f"{where}: rel_l2 {r.rel} against bf16 {vs_bf} finite {r.finite} launches {r.launches}, "
+                  f"expected {want}")
+        paths[where] = r.launches
+        if where == FP32_I2V:
+            _profile_forward(where, fwd, r.ms, phase="phase 10")
+        del r
+    torch.cuda.empty_cache()
+    records = _fp32_kernels(sites)
+
+    held = {key for calls in sites.values() for key in calls}
+    errs, calls = {}, collections.Counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fp32_")
+    try:
+        image = _png(os.path.join(tmp, "crop.png"), smooth_panorama(512, 1024, seed=5)[:320, :512])
+        for mode, m in (("t2v", t2v32), ("i2v", i2v32)):
+            paths[f"fp32 sample {mode}"] = _fp32_sample(m, mode, image, tmp, calls)
+        for k, e in _hold_new_shapes(calls, held, "phase 10").items():
+            errs[k] = max(errs.get(k, 0.0), e)
+        pano = _png(os.path.join(tmp, "pano.png"), smooth_panorama(512, 1024, seed=5))
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        vargs = cli.VArgs.from_args(["--pano_image_path", pano, "--output_dir", tmp, "--project_name", "fp32",
+                                     "--dtype", "float32", "--dev_full_random", "true", *FP32_CLI_STEPS])
+        _, launches, e, _ = _cli_run(i2v32, vargs, held, "phase 10")
+        flags = _tf32_flags()
+        print(f"phase 10 gen_pano_360 --dtype float32: TF32 flags after startup (cudnn, matmul) {flags}", flush=True)
+        if flags != (False, False):
+            _fail(f"gen_pano_360 --dtype float32 left TF32 on: {flags}")
+        paths["fp32 cli"] = launches
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_ref = sum(p.numel() for _, mm in i2v32.components() for p in mm.parameters())
+    del t2v32, i2v32
+    torch.cuda.empty_cache()
+
+    # the --dev_full_random bundle at fp32, and fp32 weights through the checkpoint loader
+    t0 = time.perf_counter()
+    full = cli.build_model(cli.VArgs.from_args(["--dev_full_random", "true", "--dtype", "float32"]))
+    params = [p for _, mm in full.components() for p in mm.parameters()]
+    value = torch.tensor(0.01, dtype=F32, device=DEV)
+    ok = all(p.device == DEV and p.dtype == F32 and bool((p == value).all()) for p in params)
+    n = sum(p.numel() for p in params)
+    print(f"phase 10 --dev_full_random --dtype float32: {n / 1e9:.3f}B parameters (random bundle {n_ref / 1e9:.3f}B), "
+          f"all fp32 0.01 on {DEV}: {ok}, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    del full, params
+    torch.cuda.empty_cache()
+    if not ok or n != n_ref:
+        _fail("the fp32 --dev_full_random bundle is not the full i2v bundle with every fp32 parameter 0.01 on the card")
+    tiny_cfg = tiny_test_config(True)
+    src = LatentVideoDiffusion.init_random(tiny_cfg, torch.Generator(device=DEV).manual_seed(3),
+                                           tokenizer=HashTokenizer(512))
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        sd = {weights.COMPONENT_PREFIXES[name] + k: v for name, mm in src.components()
+              for k, v in mm.state_dict().items()}
+        path = os.path.join(ckpt_dir, "tiny.ckpt")
+        torch.save({"state_dict": sd}, path)
+        loaded = LatentVideoDiffusion.build(tiny_cfg, "cuda").load_state_dicts(
+            **weights.load_videocrafter_checkpoint(path, tiny_cfg))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    pairs = [(a, b) for (_, ma), (_, mb) in zip(src.components(), loaded.components())
+             for a, b in zip(ma.state_dict().values(), mb.state_dict().values())]
+    ok = all(b.dtype == a.dtype and b.device.type == "cuda" and torch.equal(a, b) for a, b in pairs) and all(
+        a.dtype == F32 for a, _ in pairs if a.is_floating_point())
+    print(f"phase 10 checkpoint: the tiny fp32 bundle's {len(pairs)} tensors through load_videocrafter_checkpoint "
+          f"and load_state_dicts on the card, fp32 and equal bit for bit: {ok}", flush=True)
+    if not ok:
+        _fail("the checkpoint loader did not carry fp32 weights across")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"phase 10 ok in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    for k in FP32_KERNELS:
+        records[k]["max_abs_err"] = max(records[k]["max_abs_err"], errs.get(k, 0.0))
+    return records, paths
+
 
 if __name__ == "__main__":
     main()

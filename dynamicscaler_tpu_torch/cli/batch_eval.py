@@ -15,8 +15,9 @@ Several ranks meet through ``parallel/dist.py`` (``--coordinator
 host:port --num_processes N --process_id r``, or the ``DSCALER_*``
 environment), with a barrier before and after the prompts; ``--rank`` /
 ``--world_size`` override the group's. ``--dev_tiny`` runs the tiny random
-fp32 model on the CPU at 32x32, 4 frames, 4 steps. ``--dtype`` other than
-bfloat16 on the card is refused at startup.
+fp32 model on the CPU at 32x32, 4 frames, 4 steps. The model runs on the
+card in bf16, or in fp32 with ``--dtype float32`` (TF32 off); any other
+``--dtype`` on the card is refused at startup.
 """
 
 from __future__ import annotations
@@ -90,13 +91,14 @@ def main(args, _model=None, _noise=None):
     rank * 100003 + i)`` (``gen_pano_360.site_seed``), or from
     ``_noise(rank * 100003 + i)``, a sampler ``noise_fn`` (tests hand it the
     JAX CLI's draws)."""
-    from dynamicscaler_tpu_torch.cli.gen_pano_360 import check_dtype, site_seed
+    from dynamicscaler_tpu_torch.cli.gen_pano_360 import check_dtype, setup_precision, site_seed
     from dynamicscaler_tpu_torch.parallel.dist import (barrier, destroy_distributed, initialize_from_args,
                                                        process_count, process_index)
     from dynamicscaler_tpu_torch.pipelines import i2v, t2v
     from dynamicscaler_tpu_torch.utils.io import load_first_frame, save_video, to_uint8_device
 
     check_dtype(args.dtype, args.dev_tiny)
+    setup_precision(args.dtype, args.dev_tiny)
     coordinated = initialize_from_args(args)
     try:
         rank = args.rank if args.rank >= 0 else process_index()

@@ -15,9 +15,10 @@ here the same surface is served two ways:
     python -m dynamicscaler_tpu_torch.cli.demo --dev_tiny
 
 The model (VideoCrafter2 t2v, or VideoCrafter i2v with ``--mode i2v``,
-which adds the image-upload form) runs on the CUDA card in bf16;
-``--dev_tiny`` serves the tiny random fp32 model on the CPU. ``--dtype``
-other than bfloat16 on the card is refused at startup. One generation runs
+which adds the image-upload form) runs on the CUDA card in bf16, or in
+fp32 with ``--dtype float32`` (TF32 off); ``--dev_tiny`` serves the tiny
+random fp32 model on the CPU. Any other ``--dtype`` on the card is refused
+at startup. One generation runs
 at a time; a request that arrives meanwhile gets 503.
 """
 
@@ -259,9 +260,10 @@ def build_model(args):
     ``--bpe_path``, on the card, at 320x512 and 48 steps
     (``cli/sample.py::build_model``)."""
     from dynamicscaler_tpu_torch.cli import sample
-    from dynamicscaler_tpu_torch.cli.gen_pano_360 import check_dtype
+    from dynamicscaler_tpu_torch.cli.gen_pano_360 import check_dtype, setup_precision
 
     check_dtype(args.dtype, args.dev_tiny)
+    setup_precision(args.dtype, args.dev_tiny)
     model = sample.build_model(argparse.Namespace(**vars(args), seed=0))
     return model, {"steps": 4, "height": 32, "width": 32} if args.dev_tiny else \
         {"steps": 48, "height": 320, "width": 512}

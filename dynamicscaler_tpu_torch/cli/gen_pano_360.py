@@ -18,10 +18,12 @@ wall seconds and steady s/step in ``<out_dir>/e2e.json``.
     python -m dynamicscaler_tpu_torch.cli.gen_pano_360 --dev_full_random true   # full size, no assets
     python -m dynamicscaler_tpu_torch.cli.gen_pano_360 --dev_tiny true --pano_image_path pano.png
 
-The model runs on the CUDA card in bf16, the only dtype of the port's
-kernels; ``--dev_tiny`` runs the tiny fp32 model on the CPU. Refused at
-startup: ``--dtype float32`` on the card and ``--data_parallel_devices``
-above 1 (no multi-GPU path yet). The JAX CLI's warm-start flags
+The model runs on the CUDA card in bf16 (``--dtype bfloat16``, the
+default) or fp32 (``--dtype float32``: the fp32 kernels, with TF32 switched
+off for cuDNN's convolutions and PyTorch's matrix products);
+``--dev_tiny`` runs the tiny fp32 model on the CPU. Refused at startup: any
+other ``--dtype`` on the card and ``--data_parallel_devices`` above 1 (no
+multi-GPU path yet). The JAX CLI's warm-start flags
 (``aot_warm``, ``warm_probe``, ``repeat_warm``, ``resident_pass``) exist
 only for its TPU server and XLA compiles and are not flags here.
 """
@@ -132,10 +134,25 @@ def check_flags(vargs: VArgs) -> None:
 
 
 def check_dtype(dtype: str, dev_tiny: bool) -> None:
-    """Refuse a ``--dtype`` the card's kernels do not take (both CLIs)."""
-    if not dev_tiny and dtype != "bfloat16":
-        raise ValueError(f"--dtype {dtype}: the model runs on the CUDA card, whose kernels take bfloat16 "
-                         "only (--dev_tiny runs the tiny float32 model on the CPU)")
+    """Refuse a ``--dtype`` the card's kernels do not take (every CLI of
+    the port)."""
+    if not dev_tiny and dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"--dtype {dtype}: the model runs on the CUDA card, whose kernels take float32 or "
+                         "bfloat16 only (--dev_tiny runs the tiny float32 model on the CPU)")
+
+
+def setup_precision(dtype: str, dev_tiny: bool) -> None:
+    """The process-wide math settings of a run on the card (every CLI of the
+    port, at startup): ``float32`` switches TF32 off, for cuDNN's
+    convolutions and PyTorch's matrix products alike, so an fp32 run
+    multiplies in fp32 everywhere (PyTorch runs fp32 convolutions in TF32
+    by default), and says so; a bf16 run, and ``--dev_tiny`` on the CPU,
+    keep PyTorch's settings."""
+    if dtype == "float32" and not dev_tiny:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print("[setup] --dtype float32: TF32 off (torch.backends.cudnn.allow_tf32 = False, "
+              "torch.backends.cuda.matmul.allow_tf32 = False)", flush=True)
 
 
 def build_model(vargs: VArgs):
@@ -215,6 +232,7 @@ def main(vargs: VArgs, _model=None, _noise=None):
     from dynamicscaler_tpu_torch.utils.io import load_image, load_latent, save_latent, save_video, to_uint8_device
 
     check_flags(vargs)
+    setup_precision(vargs.dtype, vargs.dev_tiny)
     t_start = time.time()
     stage_secs = {}  # wall seconds per stage
     stage_steady = {}  # steady s/step per stage (LOOP_STATS)

@@ -15,8 +15,9 @@ t2v_test.py and i2v_test.py, as a CLI, plus FIFO streaming and FreeTraj):
     python -m dynamicscaler_tpu_torch.cli.sample --mode t2v --prompt "a black swan" --dev_tiny
 
 The model (VideoCrafter2 t2v, or VideoCrafter i2v for ``--mode i2v``) runs
-on the CUDA card in bf16; ``--dev_tiny`` runs the tiny random fp32 model on
-the CPU. ``--dtype`` other than bfloat16 on the card is refused at startup.
+on the CUDA card in bf16, or in fp32 with ``--dtype float32`` (TF32 off);
+``--dev_tiny`` runs the tiny random fp32 model on the CPU. Any other
+``--dtype`` on the card is refused at startup.
 """
 
 from __future__ import annotations
@@ -100,10 +101,11 @@ def main(args, _model=None, _noise=None):
     bundle; ``_noise`` is the sampler's ``noise_fn(name, shape)`` (tests
     hand it the JAX CLI's draws), else a generator seeded with ``--seed``
     on the model's device draws them."""
-    from dynamicscaler_tpu_torch.cli.gen_pano_360 import check_dtype
+    from dynamicscaler_tpu_torch.cli.gen_pano_360 import check_dtype, setup_precision
     from dynamicscaler_tpu_torch.utils.io import load_image, save_video, to_uint8_device
 
     check_dtype(args.dtype, args.dev_tiny)
+    setup_precision(args.dtype, args.dev_tiny)
     if args.mode == "freetraj" and not args.traj:
         raise ValueError("--traj keyframe spec required for freetraj mode")
     if args.mode == "i2v" and not args.image:

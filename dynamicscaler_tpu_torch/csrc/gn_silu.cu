@@ -77,6 +77,17 @@
 //  * "split", everywhere else (the 6-25 MB temporal-conv clips, the level-0
 //    up-block inputs, the VAE's frames): ds_gn_stats's two launches, then
 //    the apply kernel, from the one call; x is read twice (3 x bytes).
+//
+// fp32 activations (a model run in float32; the JAX kernel computes in
+// x.dtype): ds_gn_silu and ds_group_norm_silu take x and y as bf16 (is_f32
+// = 0) or fp32 (is_f32 = 1), on both routes. The loads and stores are
+// templated on the element type (a thread's 8-channel chunk is one 16-byte
+// load in bf16, two in fp32) and everything inside already computes in
+// fp32, so the fp32 instantiation is the same kernel at twice the bytes; the
+// cluster route's slab takes 4 bytes an element (cluster_smem, and
+// cuda_lib.gn_plan's fit, reckon the element size). At fp32 the SiLU is
+// h / (1 + expf(-h)) with a true division (the bf16 route keeps __expf and
+// __fdividef, far inside its one bf16 rounding).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -119,11 +130,32 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float silu(float h) { return __fdividef(h, 1.0f + __expf(-h)); }
+__device__ __forceinline__ float silu_f32(float h) { return h / (1.0f + expf(-h)); }
+
+// A thread's chunk: 8 consecutive channels of one row (16 bytes in bf16, 32
+// in fp32), loaded and stored whole.
+template <typename T>
+struct Chunk;
+template <>
+struct Chunk<bf16> {
+  uint4 u;
+};
+template <>
+struct Chunk<float> {
+  float4 lo, hi;
+};
+
+__device__ __forceinline__ Chunk<bf16> ldg_chunk(const Chunk<bf16>* p) { return {__ldg(&p->u)}; }
+__device__ __forceinline__ Chunk<float> ldg_chunk(const Chunk<float>* p) { return {__ldg(&p->lo), __ldg(&p->hi)}; }
+__device__ __forceinline__ Chunk<bf16> ldcs_chunk(const Chunk<bf16>* p) { return {__ldcs(&p->u)}; }
+__device__ __forceinline__ Chunk<float> ldcs_chunk(const Chunk<float>* p) {
+  return {__ldcs(&p->lo), __ldcs(&p->hi)};
+}
 
 // 8 bf16 values of x -> y with the chunk's folded vectors (m, a).
 template <bool ACT>
-__device__ __forceinline__ uint4 apply8(uint4 v, const float (&m)[8], const float (&a)[8]) {
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+__device__ __forceinline__ Chunk<bf16> apply8(Chunk<bf16> c, const float (&m)[8], const float (&a)[8]) {
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&c.u);
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const float2 f = __bfloat1622float2(h[q]);
@@ -135,7 +167,34 @@ __device__ __forceinline__ uint4 apply8(uint4 v, const float (&m)[8], const floa
     }
     h[q] = __floats2bfloat162_rn(y0, y1);
   }
-  return v;
+  return c;
+}
+
+// 8 fp32 values of x -> y.
+template <bool ACT>
+__device__ __forceinline__ Chunk<float> apply8(Chunk<float> c, const float (&m)[8], const float (&a)[8]) {
+  float* v = reinterpret_cast<float*>(&c);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float y = __fadd_rn(__fmul_rn(v[e], m[e]), a[e]);
+    v[e] = ACT ? silu_f32(y) : y;
+  }
+  return c;
+}
+
+// The chunk's 8 values as fp32.
+__device__ __forceinline__ void to_f32x8(const Chunk<bf16>& c, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&c.u);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 t = __bfloat1622float2(h[q]);
+    f[2 * q] = t.x;
+    f[2 * q + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void to_f32x8(const Chunk<float>& c, float (&f)[8]) {
+  f[0] = c.lo.x; f[1] = c.lo.y; f[2] = c.lo.z; f[3] = c.lo.w;
+  f[4] = c.hi.x; f[5] = c.hi.y; f[6] = c.hi.z; f[7] = c.hi.w;
 }
 
 __device__ __forceinline__ void load_vec8(const float* p, float (&v)[8]) {
@@ -147,28 +206,28 @@ __device__ __forceinline__ void load_vec8(const float* p, float (&v)[8]) {
 
 // Apply: block (split, b) takes rows [split * rows, (split + 1) * rows) of
 // sample b; blockDim = row_map(C, APPLY_THREADS) lanes * (C / 8).
-template <bool ACT>
+template <bool ACT, typename T>
 __global__ void __launch_bounds__(ROW_THREADS_MAX)
-gn_apply_kernel(const bf16* __restrict__ X, long long M, int C, long long rows, const float* __restrict__ mul,
-                const float* __restrict__ add, bf16* __restrict__ Y) {
+gn_apply_kernel(const T* __restrict__ X, long long M, int C, long long rows, const float* __restrict__ mul,
+                const float* __restrict__ add, T* __restrict__ Y) {
   const RowMap rm = row_map(C, APPLY_THREADS);
   const int rl = threadIdx.x / rm.per_row, u = threadIdx.x - rl * rm.per_row;
   const int b = blockIdx.y;
   const long long r0 = (long long)blockIdx.x * rows;
   const long long r1 = r0 + rows < M ? r0 + rows : M;
-  const size_t base = (size_t)b * M * rm.per_row + u;  // in 16-byte chunks
-  const uint4* xs = reinterpret_cast<const uint4*>(X) + base;
-  uint4* ys = reinterpret_cast<uint4*>(Y) + base;
+  const size_t base = (size_t)b * M * rm.per_row + u;  // in chunks
+  const Chunk<T>* xs = reinterpret_cast<const Chunk<T>*>(X) + base;
+  Chunk<T>* ys = reinterpret_cast<Chunk<T>*>(Y) + base;
   float m[8], a[8];
   load_vec8(mul + (size_t)b * C + 8 * u, m);
   load_vec8(add + (size_t)b * C + 8 * u, a);
   const long long step = (long long)APPLY_UNROLL * rm.lanes;
   for (long long r = r0 + rl; r < r1; r += step) {
-    uint4 v[APPLY_UNROLL];
+    Chunk<T> v[APPLY_UNROLL];
 #pragma unroll
     for (int j = 0; j < APPLY_UNROLL; ++j) {
       const long long rr = r + (long long)j * rm.lanes;
-      if (rr < r1) v[j] = __ldg(xs + rr * rm.per_row);
+      if (rr < r1) v[j] = ldg_chunk(xs + rr * rm.per_row);
     }
 #pragma unroll
     for (int j = 0; j < APPLY_UNROLL; ++j) {
@@ -304,26 +363,26 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-// Shared memory of a cluster-route block: the slab [rows, C] bf16, the row
-// lanes' sums [lanes][C] fp32 (sums, then sums of squares; later the
-// cluster's group partials [CS][2][G]), the block's per-channel sums [2][C]
-// (later the folded mul | add), its group partials [2][G] and the group
-// statistics [2][G].
-__host__ __device__ __forceinline__ long long cluster_smem(long long rows, int C, int G) {
-  return rows * C * 2 + ((long long)(row_map(C, CLUSTER_THREADS).lanes + 2) * C + 4LL * G) * 4;
+// Shared memory of a cluster-route block: the slab [rows, C] of `elem`-byte
+// elements (2 bf16, 4 fp32), the row lanes' sums [lanes][C] fp32 (sums, then
+// sums of squares; later the cluster's group partials [CS][2][G]), the
+// block's per-channel sums [2][C] (later the folded mul | add), its group
+// partials [2][G] and the group statistics [2][G].
+__host__ __device__ __forceinline__ long long cluster_smem(long long rows, int C, int G, int elem) {
+  return rows * C * elem + ((long long)(row_map(C, CLUSTER_THREADS).lanes + 2) * C + 4LL * G) * 4;
 }
 
 // The cluster route: block (rank, b) of a cluster of CS = gridDim.x blocks
 // holds rows [rank * rows, min(M, (rank + 1) * rows)) of sample b; blockDim
 // = row_map(C, CLUSTER_THREADS) lanes * (C / 8).
-template <bool ACT, typename V>
+template <bool ACT, typename V, typename T>
 __global__ void __launch_bounds__(ROW_THREADS_MAX)
-gn_cluster_kernel(const bf16* __restrict__ X, int M, int C, int G, int rows, const V* __restrict__ scale,
-                  const V* __restrict__ bias, float eps, bf16* __restrict__ Y, float* __restrict__ vec_out) {
+gn_cluster_kernel(const T* __restrict__ X, int M, int C, int G, int rows, const V* __restrict__ scale,
+                  const V* __restrict__ bias, float eps, T* __restrict__ Y, float* __restrict__ vec_out) {
   extern __shared__ __align__(16) uint8_t smem[];
   const RowMap rm = row_map(C, CLUSTER_THREADS);
-  uint4* slab = reinterpret_cast<uint4*>(smem);
-  float* red = reinterpret_cast<float*>(smem + (size_t)rows * C * 2);
+  Chunk<T>* slab = reinterpret_cast<Chunk<T>*>(smem);
+  float* red = reinterpret_cast<float*>(smem + (size_t)rows * C * sizeof(T));
   float* csum = red + rm.lanes * C;
   float* gpart = csum + 2 * C;
   float* gstat = gpart + 2 * G;
@@ -332,34 +391,32 @@ gn_cluster_kernel(const bf16* __restrict__ X, int M, int C, int G, int rows, con
   const int r0 = (int)rank * rows;
   const int n = rows < M - r0 ? rows : M - r0;
   const int rl = threadIdx.x / rm.per_row, u = threadIdx.x - rl * rm.per_row;
-  const size_t base = ((size_t)b * M + r0) * rm.per_row + u;  // in 16-byte chunks
-  const uint4* xs = reinterpret_cast<const uint4*>(X) + base;
-  uint4* ys = reinterpret_cast<uint4*>(Y) + base;
+  const size_t base = ((size_t)b * M + r0) * rm.per_row + u;  // in chunks
+  const Chunk<T>* xs = reinterpret_cast<const Chunk<T>*>(X) + base;
+  Chunk<T>* ys = reinterpret_cast<Chunk<T>*>(Y) + base;
 
   // 1. the slab into shared memory, summed per channel on the way
   float s[8], ss[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) s[e] = ss[e] = 0.f;
   for (int r = rl; r < n; r += CLUSTER_UNROLL * rm.lanes) {
-    uint4 v[CLUSTER_UNROLL];
+    Chunk<T> v[CLUSTER_UNROLL];
 #pragma unroll
     for (int j = 0; j < CLUSTER_UNROLL; ++j) {
       const int rr = r + j * rm.lanes;
-      if (rr < n) v[j] = __ldcs(xs + (size_t)rr * rm.per_row);
+      if (rr < n) v[j] = ldcs_chunk(xs + (size_t)rr * rm.per_row);
     }
 #pragma unroll
     for (int j = 0; j < CLUSTER_UNROLL; ++j) {
       const int rr = r + j * rm.lanes;
       if (rr < n) {
         slab[rr * rm.per_row + u] = v[j];
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[j]);
+        float f[8];
+        to_f32x8(v[j], f);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float2 f = __bfloat1622float2(h[q]);
-          s[2 * q] += f.x;
-          ss[2 * q] += f.x * f.x;
-          s[2 * q + 1] += f.y;
-          ss[2 * q + 1] += f.y * f.y;
+        for (int e = 0; e < 8; ++e) {
+          s[e] += f[e];
+          ss[e] += f[e] * f[e];
         }
       }
     }
@@ -464,42 +521,51 @@ long long stats_splits(long long M, int C) {
 
 // Blocks of `threads` threads the card keeps resident (an SM's share at the
 // kernel's occupancy, times the SMs), asked once per block size.
-template <bool ACT>
+template <bool ACT, typename T>
 int apply_resident(int threads) {
   static int cache[ROW_THREADS_MAX + 1] = {0};
   if (cache[threads] == 0) {
     int per = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, gn_apply_kernel<ACT>, threads, 0) != cudaSuccess || per < 1)
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, gn_apply_kernel<ACT, T>, threads, 0) != cudaSuccess ||
+        per < 1)
       per = 1;
     cache[threads] = hopper::sm_count() * per;
   }
   return cache[threads];
 }
 
-template <bool ACT>
-cudaError_t apply_launch(const bf16* x, int B, long long M, int C, const float* mul, const float* add, bf16* y,
+template <bool ACT, typename T>
+cudaError_t apply_launch(const T* x, int B, long long M, int C, const float* mul, const float* add, T* y,
                          cudaStream_t s) {
   const RowMap rm = row_map(C, APPLY_THREADS);
   const int threads = rm.lanes * rm.per_row;
-  long long splits = (2 * apply_resident<ACT>(threads) + B - 1) / B;  // two waves: the last one balances
+  long long splits = (2 * apply_resident<ACT, T>(threads) + B - 1) / B;  // two waves: the last one balances
   const long long most = (M + rm.lanes - 1) / rm.lanes;  // a lane's row at least a block
   if (splits > most) splits = most;
   if (splits < 1) splits = 1;
   const long long rows = (M + splits - 1) / splits;
   splits = (M + rows - 1) / rows;
-  gn_apply_kernel<ACT><<<dim3((unsigned)splits, (unsigned)B), threads, 0, s>>>(x, M, C, rows, mul, add, y);
+  gn_apply_kernel<ACT, T><<<dim3((unsigned)splits, (unsigned)B), threads, 0, s>>>(x, M, C, rows, mul, add, y);
   return cudaGetLastError();
 }
 
-template <bool ACT, typename V>
+// The apply at the activation type of is_f32.
+template <bool ACT>
+cudaError_t apply_any(const void* x, int is_f32, int B, long long M, int C, const float* mul, const float* add,
+                      void* y, cudaStream_t s) {
+  return is_f32 ? apply_launch<ACT, float>(static_cast<const float*>(x), B, M, C, mul, add, static_cast<float*>(y), s)
+                : apply_launch<ACT, bf16>(static_cast<const bf16*>(x), B, M, C, mul, add, static_cast<bf16*>(y), s);
+}
+
+template <bool ACT, typename V, typename T>
 cudaError_t cluster_config(int cs, int B, int C, int smem, cudaStream_t s, cudaLaunchConfig_t& cfg,
                            cudaLaunchAttribute* attr) {
   static bool sized = false;
   if (!sized) {
-    cudaError_t e = cudaFuncSetAttribute(gn_cluster_kernel<ACT, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(gn_cluster_kernel<ACT, V, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          SMEM_MAX);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(gn_cluster_kernel<ACT, V>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      e = cudaFuncSetAttribute(gn_cluster_kernel<ACT, V, T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
     sized = true;
   }
@@ -518,17 +584,24 @@ cudaError_t cluster_config(int cs, int B, int C, int smem, cudaStream_t s, cudaL
   return cudaSuccess;
 }
 
-template <bool ACT, typename V>
-cudaError_t cluster_launch(const bf16* x, int B, int M, int C, int G, int cs, int rows, int smem, const void* scale,
-                           const void* bias, float eps, bf16* y, float* vec_out, cudaStream_t s) {
+template <bool ACT, typename V, typename T>
+cudaError_t cluster_launch(const void* x, int B, int M, int C, int G, int cs, int rows, int smem, const void* scale,
+                           const void* bias, float eps, void* y, float* vec_out, cudaStream_t s) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t e = cluster_config<ACT, V>(cs, B, C, smem, s, cfg, attr);
+  cudaError_t e = cluster_config<ACT, V, T>(cs, B, C, smem, s, cfg, attr);
   if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, gn_cluster_kernel<ACT, V>, x, M, C, G, rows, static_cast<const V*>(scale),
-                         static_cast<const V*>(bias), eps, y, vec_out);
+  e = cudaLaunchKernelEx(&cfg, gn_cluster_kernel<ACT, V, T>, static_cast<const T*>(x), M, C, G, rows,
+                         static_cast<const V*>(scale), static_cast<const V*>(bias), eps, static_cast<T*>(y), vec_out);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <bool ACT, typename T>
+cudaError_t cluster_any(const void* x, int B, int M, int C, int G, int cs, int rows, int smem, const void* scale,
+                        const void* bias, int vec_f32, float eps, void* y, float* vec_out, cudaStream_t s) {
+  return vec_f32 ? cluster_launch<ACT, float, T>(x, B, M, C, G, cs, rows, smem, scale, bias, eps, y, vec_out, s)
+                 : cluster_launch<ACT, bf16, T>(x, B, M, C, G, cs, rows, smem, scale, bias, eps, y, vec_out, s);
 }
 
 bool shape_ok(int B, long long M, int C, int G) {
@@ -537,18 +610,18 @@ bool shape_ok(int B, long long M, int C, int G) {
 
 }  // namespace
 
-// x, y: [B, per_sample] bf16, 16-byte aligned, per_sample = M * C; C % 8 == 0;
-// mul, add: [B, C] fp32 (checked in Python before the call).
+// x, y: [B, per_sample] bf16 (is_f32 = 0) or fp32 (is_f32 = 1), 16-byte
+// aligned, per_sample = M * C; C % 8 == 0; mul, add: [B, C] fp32 (checked in
+// Python before the call).
 extern "C" int ds_gn_silu(const void* X, int B, long long per_sample, int C, const void* mul,
-                          const void* add, int act, void* Y, void* stream) {
+                          const void* add, int act, void* Y, int is_f32, void* stream) {
   if (B <= 0 || B > 65535 || C <= 0 || C % 8 || C > C_MAX || per_sample % C) return (int)cudaErrorInvalidValue;
-  const bf16* x = static_cast<const bf16*>(X);
   const float* m = static_cast<const float*>(mul);
   const float* a = static_cast<const float*>(add);
-  bf16* y = static_cast<bf16*>(Y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = per_sample / C;
-  return (int)(act ? apply_launch<true>(x, B, M, C, m, a, y, s) : apply_launch<false>(x, B, M, C, m, a, y, s));
+  return (int)(act ? apply_any<true>(X, is_f32, B, M, C, m, a, Y, s)
+                   : apply_any<false>(X, is_f32, B, M, C, m, a, Y, s));
 }
 
 // x: [B, M, C] bf16 (is_f32 = 0) or fp32 (is_f32 = 1), 16-byte aligned;
@@ -563,8 +636,9 @@ extern "C" int ds_gn_stats(const void* X, int is_f32, int B, long long M, int C,
                            static_cast<float*>(mul), static_cast<float*>(add), static_cast<cudaStream_t>(stream));
 }
 
-// GroupNorm(G) [-> SiLU] of x [B, M, C] bf16 with statistics per sample, into
-// y [B, M, C] bf16; scale, bias [C] bf16 (vec_f32 = 0) or fp32. The plan is
+// GroupNorm(G) [-> SiLU] of x [B, M, C] with statistics per sample, into
+// y [B, M, C], both bf16 (is_f32 = 0) or fp32 (is_f32 = 1); scale, bias [C]
+// bf16 (vec_f32 = 0) or fp32. The plan is
 // cuda_lib.gn_plan's: route 0 "cluster" (cs blocks a sample of `rows` rows,
 // smem bytes of dynamic shared memory each; scratch null, or [2, B, C] fp32
 // that receives the folded mul | add) or route 1 "split" (`splits` row
@@ -573,26 +647,24 @@ extern "C" int ds_gn_stats(const void* X, int is_f32, int B, long long M, int C,
 // that does not match this file's reckoning returns cudaErrorInvalidValue.
 extern "C" int ds_group_norm_silu(const void* X, int B, long long M, int C, int G, const void* scale,
                                   const void* bias, int vec_f32, float eps, int act, int route, int cs,
-                                  long long rows, int smem, int splits, void* scratch, void* Y, void* stream) {
+                                  long long rows, int smem, int splits, void* scratch, void* Y, int is_f32,
+                                  void* stream) {
   if (!shape_ok(B, M, C, G) || rows <= 0) return (int)cudaErrorInvalidValue;
-  const bf16* x = static_cast<const bf16*>(X);
-  bf16* y = static_cast<bf16*>(Y);
   float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) {
     if (cs < 1 || cs > CLUSTER_MAX || (long long)(cs - 1) * rows >= M || (long long)cs * rows < M ||
-        smem != cluster_smem(rows, C, G) || smem > SMEM_MAX ||
+        smem != cluster_smem(rows, C, G, is_f32 ? 4 : 2) || smem > SMEM_MAX ||
         2 * G * cs > row_map(C, CLUSTER_THREADS).lanes * C)  // the gathered partials fit the lanes' sums
-
       return (int)cudaErrorInvalidValue;
-    cudaError_t e;
     const int m = (int)M, r = (int)rows;
-    if (act)
-      e = vec_f32 ? cluster_launch<true, float>(x, B, m, C, G, cs, r, smem, scale, bias, eps, y, sc, s)
-                  : cluster_launch<true, bf16>(x, B, m, C, G, cs, r, smem, scale, bias, eps, y, sc, s);
+    cudaError_t e;
+    if (is_f32)
+      e = act ? cluster_any<true, float>(X, B, m, C, G, cs, r, smem, scale, bias, vec_f32, eps, Y, sc, s)
+              : cluster_any<false, float>(X, B, m, C, G, cs, r, smem, scale, bias, vec_f32, eps, Y, sc, s);
     else
-      e = vec_f32 ? cluster_launch<false, float>(x, B, m, C, G, cs, r, smem, scale, bias, eps, y, sc, s)
-                  : cluster_launch<false, bf16>(x, B, m, C, G, cs, r, smem, scale, bias, eps, y, sc, s);
+      e = act ? cluster_any<true, bf16>(X, B, m, C, G, cs, r, smem, scale, bias, vec_f32, eps, Y, sc, s)
+              : cluster_any<false, bf16>(X, B, m, C, G, cs, r, smem, scale, bias, vec_f32, eps, Y, sc, s);
     return (int)e;
   }
   const int per_row = C / 8;
@@ -602,10 +674,11 @@ extern "C" int ds_group_norm_silu(const void* X, int B, long long M, int C, int 
     return (int)cudaErrorInvalidValue;
   float* mul = sc;
   float* add = sc + (size_t)B * C;
-  cudaError_t e = stats_launch(X, 0, B, M, C, G, splits, scale, bias, vec_f32, eps, sc + 2 * (size_t)B * C, mul,
-                               add, s);
+  cudaError_t e = stats_launch(X, is_f32, B, M, C, G, splits, scale, bias, vec_f32, eps, sc + 2 * (size_t)B * C,
+                               mul, add, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)(act ? apply_launch<true>(x, B, M, C, mul, add, y, s) : apply_launch<false>(x, B, M, C, mul, add, y, s));
+  return (int)(act ? apply_any<true>(X, is_f32, B, M, C, mul, add, Y, s)
+                   : apply_any<false>(X, is_f32, B, M, C, mul, add, Y, s));
 }
 
 // How many clusters of `cs` cluster-route blocks with `smem` bytes of shared
@@ -616,7 +689,7 @@ extern "C" int ds_gn_clusters(int cs, int C, int smem, int* out, void* stream) {
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t e = cluster_config<true, bf16>(cs, 1, C, smem, static_cast<cudaStream_t>(stream), cfg, attr);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(out, gn_cluster_kernel<true, bf16>, &cfg);
+  cudaError_t e = cluster_config<true, bf16, bf16>(cs, 1, C, smem, static_cast<cudaStream_t>(stream), cfg, attr);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(out, gn_cluster_kernel<true, bf16, bf16>, &cfg);
   return (int)e;
 }

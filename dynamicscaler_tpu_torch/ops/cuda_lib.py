@@ -18,6 +18,13 @@ tile plan (:func:`block_plan` for kernels 10 and 12, :func:`spatial_plan`
 for 11 and 13) and the TMA maps of their weights (:func:`block_maps`,
 :func:`spatial_maps`, encoded once per weight set); :func:`gn_plan` picks
 the route of kernel 9's one call, GroupNorm [+ SiLU] with its statistics.
+
+Activations are bf16 or fp32. An fp32 activation takes the fp32 kernels
+wherever a bf16 one takes the bf16 kernels: ``gemm_f32.cu::ds_ln_gemm_f32``,
+``attention_f32.cu``'s two attention cores, ``gn_silu.cu``'s kernels
+instantiated at fp32 (K1-K9 and the statistics), and ``block_f32.cu``'s
+whole blocks and whole transformers (kernels 10-13, each with a slot of
+scratch a block, :func:`block_f32_scratch`).
 """
 
 from __future__ import annotations
@@ -48,12 +55,15 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "ds_ln_gemm": (_P, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P),
-    "ds_gn_silu": (_P, _I, _L, _I, _P, _P, _I, _P, _P),
+    "ds_ln_gemm_f32": (_P, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P),
+    "ds_gn_silu": (_P, _I, _L, _I, _P, _P, _I, _P, _I, _P),
     "ds_gn_stats": (_P, _I, _I, _L, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P),
-    "ds_group_norm_silu": (_P, _I, _L, _I, _I, _P, _P, _I, _F, _I, _I, _I, _L, _I, _I, _P, _P, _P),
+    "ds_group_norm_silu": (_P, _I, _L, _I, _I, _P, _P, _I, _F, _I, _I, _I, _L, _I, _I, _P, _P, _I, _P),
     "ds_gn_clusters": (_I, _I, _I, _P, _P),
     "ds_temporal_attention": (_P, _I, _I, _I, _I, _F, _P, _P),
     "ds_flash_attention": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _P, _I, _P),
+    "ds_temporal_attention_f32": (_P, _I, _I, _I, _I, _F, _P, _P),
+    "ds_flash_attention_f32": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _P, _I, _P),
     "ds_temporal_block": (_P, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _P),
     "ds_temporal_mega": (_P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _P),
     "ds_block_maps": (_P, _I, _I, _I, _P, _P),
@@ -61,6 +71,10 @@ _SIGNATURES = {
     "ds_mega_spatial": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P),
     "ds_spatial_block": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P),
     "ds_spatial_maps": (_P, _I, _I, _P, _P),
+    "ds_temporal_block_f32": (_P, _I, _I, _I, _F, _F, _P, _L, _I, _P),
+    "ds_temporal_mega_f32": (_P, _I, _I, _I, _I, _F, _F, _P, _L, _I, _P),
+    "ds_spatial_block_f32": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _L, _I, _P),
+    "ds_mega_spatial_f32": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _L, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -181,6 +195,22 @@ def check_operand(name: str, t: torch.Tensor, dtype=torch.bfloat16, shape=None) 
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
+# the activation types of the kernels: each wrapper takes one for all its
+# activations, weights, residuals and contexts, and picks its kernel by it
+ACT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def check_dtypes(name: str, *tensors) -> torch.dtype:
+    """Raise ValueError unless every tensor given (None skipped) has one
+    activation type of :data:`ACT_DTYPES`; return it. Checked on every
+    device, before the wrapper picks its kernel or its plain version."""
+    dts = {t.dtype for t in tensors if t is not None}
+    if len(dts) != 1 or not dts <= set(ACT_DTYPES):
+        raise ValueError(f"{name}: the kernels take bfloat16 or float32 activations, all of one type; got "
+                         f"{sorted(str(d) for d in dts)}")
+    return dts.pop()
+
+
 def ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
@@ -250,6 +280,13 @@ def gemm_smem(block_n: int, stages: int) -> int:
     return stages * (GEMM_BM + block_n) * GEMM_BK * 2 + GEMM_BM * (block_n + 8) * 2 + 16 * stages + 1024
 
 
+# ds_ln_gemm_f32's tile (csrc/gemm_f32.cu): 128 x 128 a block of 256 threads,
+# K in steps of 16 through two static shared-memory buffers of A and B
+# (k-major, rows padded by 4 floats), two blocks an SM
+GEMM_F32_BK = 16
+GEMM_F32_TILE = GemmTile(128, 2, 2 * GEMM_F32_BK * 2 * (128 + 4) * 4)
+
+
 def gemm_tile(M: int, K: int, N: int, mode: int = MODE_STORE) -> GemmTile:
     """The tile of ``ds_ln_gemm`` at [M, K] x [N, K]: the BN whose rounds of
     tiles over the 132 SMs take least time by :data:`_GEMM_COLUMN_COST`
@@ -266,6 +303,22 @@ def gemm_tile(M: int, K: int, N: int, mode: int = MODE_STORE) -> GemmTile:
     fit = max(s for s in range(2, GEMM_MAX_STAGES + 1) if gemm_smem(bn, s) <= GEMM_SMEM_MAX)
     stages = max(2, min(fit, -(-K // GEMM_BK)))
     return GemmTile(bn, stages, gemm_smem(bn, stages))
+
+
+# kernels 10-13 at fp32 (csrc/block_f32.cu): a persistent grid of at most
+# BLOCK_F32_SLOTS blocks of 256 threads (two an SM), each taking tiles of TT
+# tokens (max(64, F) temporal, 64 query tokens spatial) with its own slot of
+# fp32 scratch: [TT, C] normalised or attention rows and [TT, 4C] q|k|v or
+# GEGLU rows, and for kernels 12 and 13 their residual stream [TT, C]
+BLOCK_F32_SLOTS = 2 * GEMM_SMS
+
+
+def block_f32_scratch(tokens: int, C: int, tt: int, mega: bool) -> torch.Size:
+    """The scratch of one launch of ``block_f32.cu`` over ``tokens`` tokens
+    in tiles of ``tt``: a slot a block of the grid, ``[blocks, tt, (5 or 6)
+    * C]`` fp32."""
+    blocks = min(-(-tokens // tt), BLOCK_F32_SLOTS)
+    return torch.Size((blocks, tt, (6 if mega else 5) * C))
 
 
 # ds_temporal_block / ds_temporal_mega's tile (csrc/block.cu): TM resident
@@ -457,12 +510,13 @@ def gn_cluster_lanes(C: int) -> int:
     return max(1, GN_CLUSTER_THREADS // (C // 8))
 
 
-def gn_cluster_smem(rows: int, C: int, G: int) -> int:
+def gn_cluster_smem(rows: int, C: int, G: int, elem: int = 2) -> int:
     """Shared memory of a cluster-route block of ``ds_group_norm_silu``, as
-    ``csrc/gn_silu.cu::cluster_smem`` reckons it: the slab [rows, C] bf16,
-    the row lanes' fp32 sums [lanes, C], the block's per-channel sums [2, C]
-    and two [2, G] fp32 group arrays."""
-    return 2 * rows * C + ((gn_cluster_lanes(C) + 2) * C + 4 * G) * 4
+    ``csrc/gn_silu.cu::cluster_smem`` reckons it: the slab [rows, C] of
+    ``elem``-byte elements (2 bf16, 4 fp32), the row lanes' fp32 sums
+    [lanes, C], the block's per-channel sums [2, C] and two [2, G] fp32
+    group arrays."""
+    return elem * rows * C + ((gn_cluster_lanes(C) + 2) * C + 4 * G) * 4
 
 
 class GnPlan(NamedTuple):
@@ -474,24 +528,26 @@ class GnPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def gn_plan(B: int, M: int, C: int, G: int = 32) -> GnPlan:
-    """The route of ``ds_group_norm_silu`` for x [B, M, C] bf16, GroupNorm
-    over G groups per sample. "cluster" where a sample's slab fits the
-    shared memory of at most :data:`GN_CLUSTER_MAX` blocks (x read once):
+def gn_plan(B: int, M: int, C: int, G: int = 32, elem: int = 2) -> GnPlan:
+    """The route of ``ds_group_norm_silu`` for x [B, M, C] of ``elem``-byte
+    elements (2 bf16, 4 fp32), GroupNorm over G groups per sample.
+    "cluster" where a sample's slab fits the shared memory of at most
+    :data:`GN_CLUSTER_MAX` blocks (x read once):
     the fewest blocks that hold it, except that 6 or 7 become 8 and 9 to 15
     become 16 (at one block an SM the H100 holds 15 clusters of 8 and 7 of
     16 at once, 120 and 112 SMs, but 17 of 6, 15 of 7 and 7 to 9 of 9 to
     15: chip_smoke.py phase 1 prints the table), then as many as whole
     non-empty row ranges allow. Else "split": the statistics at
     :func:`gn_stats_splits` row splits, then the apply."""
-    if B <= 0 or M <= 0 or C % 8 or not 0 < C <= 6144 or G <= 0 or C % G:
-        raise ValueError(f"gn_plan: needs B, M > 0, C % 8 == 0, C <= 6144, C % G == 0; got B={B} M={M} C={C} G={G}")
-    fit = (GEMM_SMEM_MAX - gn_cluster_smem(0, C, G)) // (2 * C)  # rows a block holds
+    if B <= 0 or M <= 0 or C % 8 or not 0 < C <= 6144 or G <= 0 or C % G or elem not in (2, 4):
+        raise ValueError(f"gn_plan: needs B, M > 0, C % 8 == 0, C <= 6144, C % G == 0, 2- or 4-byte elements; "
+                         f"got B={B} M={M} C={C} G={G} elem={elem}")
+    fit = (GEMM_SMEM_MAX - gn_cluster_smem(0, C, G)) // (elem * C)  # rows a block holds
     if fit >= 1 and -(-M // fit) <= GN_CLUSTER_MAX and 2 * G * GN_CLUSTER_MAX <= gn_cluster_lanes(C) * C:
         cs = -(-M // fit)
         cs = 16 if cs > 8 else 8 if cs > 5 else cs
         rows = -(-M // min(cs, M))
-        return GnPlan("cluster", -(-M // rows), rows, gn_cluster_smem(rows, C, G), 0)
+        return GnPlan("cluster", -(-M // rows), rows, gn_cluster_smem(rows, C, G, elem), 0)
     splits = gn_stats_splits(B, M, C)
     lanes = max(1, GN_STATS_THREADS // (C // 8))
     return GnPlan("split", 0, -(-M // splits), 2 * lanes * C * 4, splits)
@@ -521,8 +577,9 @@ def ln_gemm_plain(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, fram
     GroupNorm product and sum rounded separately), the normalised activation
     rounded to the activation type, the product accumulated in fp32, bias
     added in fp32, then rounded; the residual added in the activation type;
-    GEGLU on the rounded value and gate. Never on the main path: the
-    reference for the kernel in tests and ``chip_smoke.py``."""
+    GEGLU on the rounded value and gate (at fp32 none of these roundings
+    exists: ``ds_ln_gemm_f32`` computes it in one pass). Never on the main
+    path: the reference for the kernels in tests and ``chip_smoke.py``."""
     M, K = x2d.shape
     N = w.shape[0]
     dt = x2d.dtype
@@ -586,27 +643,31 @@ def _check_ln_gemm(M, K, N, *, ln, gn, rows_per_sample, frame_map, residual, mod
 
 def ln_gemm(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, frame_map=None, bias=None,
             residual=None, mode=MODE_STORE):
-    """Launch ``csrc/gemm.cu::ds_ln_gemm``: ``epilogue(prologue(x2d) @ w.T)``.
+    """Launch ``csrc/gemm.cu::ds_ln_gemm`` (bf16) or
+    ``csrc/gemm_f32.cu::ds_ln_gemm_f32`` (fp32), by the activation type:
+    ``epilogue(prologue(x2d) @ w.T)``.
 
-    x2d [M, K] bf16; w [N, K] bf16; bias fp32 [N]; residual [M, N] bf16 for
-    ``MODE_RESIDUAL`` (and only there). ``MODE_GEGLU`` returns [M, N / 2].
+    x2d [M, K] bf16 or fp32; w [N, K] and residual [M, N] (``MODE_RESIDUAL``
+    only) of x2d's type; bias fp32 [N]. ``MODE_GEGLU`` returns [M, N / 2].
     Prologue: ``ln`` (scale, bias) fp32 [K] (LayerNorm per row), or ``gn``
     (mul, add) fp32 [M / rows_per_sample, K] (folded GroupNorm per sample,
     mode 0 only). ``frame_map = (F, HW)`` reads the rows of x2d (with ``gn``)
     or writes the output rows and reads the residual rows (``MODE_RESIDUAL``)
     in the frame-major order of a [B, F, H, W, .] tensor, logical row
-    ``(b*HW + hw)*F + f``. Combinations the kernel does not take raise
-    ValueError on every device; CPU tensors take :func:`ln_gemm_plain`."""
+    ``(b*HW + hw)*F + f``. Combinations the kernel does not take, and a
+    mix of activation types, raise ValueError on every device; CPU tensors
+    take :func:`ln_gemm_plain`."""
     M, K = x2d.shape
     N = w.shape[0]
     n_out = N // 2 if mode == MODE_GEGLU else N
+    dt = check_dtypes("ln_gemm", x2d, w, residual)
     _check_ln_gemm(M, K, N, ln=ln, gn=gn, rows_per_sample=rows_per_sample, frame_map=frame_map,
                    residual=residual, mode=mode)
     if not use_kernel(x2d, w):
         return ln_gemm_plain(x2d, w, ln=ln, eps=eps, gn=gn, rows_per_sample=rows_per_sample,
                              frame_map=frame_map, bias=bias, residual=residual, mode=mode)
-    check_operand("x", x2d)
-    check_operand("w", w, shape=(N, K))
+    check_operand("x", x2d, dt)
+    check_operand("w", w, dt, (N, K))
     if ln is not None:
         check_operand("ln scale", ln[0], torch.float32, (K,))
         check_operand("ln bias", ln[1], torch.float32, (K,))
@@ -616,14 +677,19 @@ def ln_gemm(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, frame_map=
     if bias is not None:
         check_operand("bias", bias, torch.float32, (N,))
     if residual is not None:
-        check_operand("residual", residual, shape=(M, n_out))
-    y = torch.empty((M, n_out), device=x2d.device, dtype=torch.bfloat16)
+        check_operand("residual", residual, dt, (M, n_out))
+    y = torch.empty((M, n_out), device=x2d.device, dtype=dt)
     map_f, map_hw = frame_map or (0, 0)
-    # the prologue pass's normalised rows (X's stored order), read by the GEMM
-    scratch = torch.empty_like(x2d) if ln is not None or gn is not None else None
-    tile = gemm_tile(M, K, N, mode)
+    if dt == torch.float32:
+        # the LayerNorm statistics [M, 2]; the prologue applies as the GEMM stages its tiles
+        scratch = torch.empty(2 * M, device=x2d.device, dtype=torch.float32) if ln is not None else None
+        name, tile = "ds_ln_gemm_f32", GEMM_F32_TILE
+    else:
+        # the prologue pass's normalised rows (X's stored order), read by the GEMM
+        scratch = torch.empty_like(x2d) if ln is not None or gn is not None else None
+        name, tile = "ds_ln_gemm", gemm_tile(M, K, N, mode)
     call(
-        "ds_ln_gemm", ptr(x2d), M, K, ptr(ln[0] if ln else None), ptr(ln[1] if ln else None),
+        name, ptr(x2d), M, K, ptr(ln[0] if ln else None), ptr(ln[1] if ln else None),
         float(eps), ptr(gn[0] if gn else None), ptr(gn[1] if gn else None), int(rows_per_sample),
         int(map_f), int(map_hw), ptr(w), N, ptr(bias), ptr(residual), ptr(y), mode, ptr(scratch),
         tile.block_n, tile.stages,

@@ -33,7 +33,10 @@ The gates :func:`temporal_block_ok` and :func:`spatial_block_ok` are the
 JAX package's shape conditions (``temporal_block_fusable``,
 ``spatial_block_fusable``); the module dispatch routes by them and the
 wrappers refuse what they do not admit. On the card the kernels also need
-head dim 64, as the sub-block kernels K1-K4 do.
+head dim 64, as the sub-block kernels K1-K4 do. An fp32 activation takes
+the fp32 kernels instead, with the same operands in fp32:
+``csrc/block_f32.cu::ds_temporal_block_f32`` (one launch), and the same GEMM
+heads (``ds_ln_gemm_f32``) then ``ds_spatial_block_f32``; no TMA maps.
 """
 
 from __future__ import annotations
@@ -120,19 +123,20 @@ def temporal_block_plain(x, lns, attn1, attn2, ff, *, heads, scale, eps=1e-5):
     return ln_geglu_plain(x, s3, b3, *ff, eps=eps)
 
 
-def check_block_operands(op: BlockOperands, C: int) -> None:
-    """Kernel 10's (and 12's) packed block operands at width C."""
+def check_block_operands(op: BlockOperands, C: int, dt: torch.dtype) -> None:
+    """Kernel 10's (and 12's) packed block operands at width C, weights in
+    the activation type ``dt``."""
     for name, a in (("attn1", op.attn1), ("attn2", op.attn2)):
-        cuda_lib.check_operand(f"{name} w_qkv", a.w_in, shape=(3 * C, C))
-        cuda_lib.check_operand(f"{name} wo", a.wo, shape=(C, C))
+        cuda_lib.check_operand(f"{name} w_qkv", a.w_in, dt, (3 * C, C))
+        cuda_lib.check_operand(f"{name} wo", a.wo, dt, (C, C))
         for v in (a.ln_scale, a.ln_bias, a.bo):
             cuda_lib.check_operand(f"{name} vector", v, torch.float32, (C,))
-    _check_ff(op.ff, C)
+    _check_ff(op.ff, C, dt)
 
 
-def _check_ff(f: FFOperands, C: int) -> None:
-    cuda_lib.check_operand("ff w1", f.w1, shape=(8 * C, C))
-    cuda_lib.check_operand("ff w2", f.w2, shape=(C, 4 * C))
+def _check_ff(f: FFOperands, C: int, dt: torch.dtype) -> None:
+    cuda_lib.check_operand("ff w1", f.w1, dt, (8 * C, C))
+    cuda_lib.check_operand("ff w2", f.w2, dt, (C, 4 * C))
     cuda_lib.check_operand("ff b1", f.b1, torch.float32, (8 * C,))
     for v in (f.ln_scale, f.ln_bias, f.b2):
         cuda_lib.check_operand("ff vector", v, torch.float32, (C,))
@@ -155,20 +159,27 @@ def block_weights(op: BlockOperands) -> list:
 
 def fused_temporal_block(x, lns, attn1, attn2, ff, *, heads, scale, eps=1e-5, operands=None, plan=None):
     """Kernel 10: the whole temporal BasicTransformerBlock. x [rows, F, C];
-    returns [rows, F, C]. On the card one launch of ``ds_temporal_block``
-    (head dim 64, C <= 1280) at the tile ``plan`` (``cuda_lib.block_plan``'s
-    when None; the kernel refuses one it cannot take), reading ``operands``
-    (from :func:`pack_temporal_block`; packed here when None) and their TMA
-    maps."""
+    returns [rows, F, C]. On the card one launch (head dim 64, C <= 1280)
+    of ``ds_temporal_block`` (bf16) at the tile ``plan``
+    (``cuda_lib.block_plan``'s when None; the kernel refuses one it cannot
+    take) with the TMA maps of its weights, or of ``ds_temporal_block_f32``
+    (fp32), reading ``operands`` (from :func:`pack_temporal_block`; packed
+    here when None)."""
+    dt = cuda_lib.check_dtypes("K10", x)
     if not cuda_lib.use_kernel(x):
         return temporal_block_plain(x, lns, attn1, attn2, ff, heads=heads, scale=scale, eps=eps)
     R, Fn, C = x.shape
-    refuse_unless("10", temporal_block_ok(Fn, C, C, heads) and C == heads * 64,
-                  f"x {tuple(x.shape)} with {heads} heads")
-    cuda_lib.check_operand("x", x)
-    op = operands or pack_temporal_block(lns, attn1, attn2, ff, dtype=x.dtype)
-    check_block_operands(op, C)
+    refuse_unless("10", temporal_block_ok(Fn, C, C, heads) and C == heads * 64, f"x {tuple(x.shape)} with {heads} heads")
+    cuda_lib.check_operand("x", x, dt)
+    op = operands or pack_temporal_block(lns, attn1, attn2, ff, dtype=dt)
+    check_block_operands(op, C, dt)
     out = torch.empty_like(x)
+    if dt == torch.float32:
+        scratch = torch.empty(cuda_lib.block_f32_scratch(R * Fn, C, max(64, Fn), False), device=x.device, dtype=dt)
+        cuda_lib.call("ds_temporal_block_f32", cuda_lib.ptr_array([x, out, *block_pointers(op)]), R, Fn, C,
+                      float(scale), float(eps), cuda_lib.ptr(scratch), scratch.numel(), scratch.shape[0])
+        fused_temporal_block.launches += 1
+        return out
     plan = plan or cuda_lib.block_plan(C, Fn)
     maps = cuda_lib.block_maps(op.maps, block_weights(op), C, plan.cl)
     cuda_lib.call("ds_temporal_block", cuda_lib.ptr_array([x, out, *block_pointers(op)]), R, Fn, C, float(scale),
@@ -203,20 +214,21 @@ def spatial_block_plain(x, ctx, lns, attn1, attn2, ff, *, heads, scale, text_len
     return ln_geglu_plain(h, s3, b3, *ff, eps=eps)
 
 
-def check_spatial_operands(op: BlockOperands, Ci: int, Dc: int, has_img: bool) -> None:
-    """Kernel 11's (and 13's) packed block operands at width Ci."""
+def check_spatial_operands(op: BlockOperands, Ci: int, Dc: int, has_img: bool, dt: torch.dtype) -> None:
+    """Kernel 11's (and 13's) packed block operands at width Ci, weights in
+    the activation type ``dt``."""
     f32 = torch.float32
-    cuda_lib.check_operand("attn1 w_qkv", op.attn1.w_in, shape=(3 * Ci, Ci))
-    cuda_lib.check_operand("attn2 wq", op.attn2.w_in, shape=(Ci, Ci))
+    cuda_lib.check_operand("attn1 w_qkv", op.attn1.w_in, dt, (3 * Ci, Ci))
+    cuda_lib.check_operand("attn2 wq", op.attn2.w_in, dt, (Ci, Ci))
     if len(op.attn2.w_kv) != 1 + has_img:
         raise ValueError(f"attn2 packs {len(op.attn2.w_kv)} key segments, the call has {1 + has_img}")
     for w_kv in op.attn2.w_kv:
-        cuda_lib.check_operand("attn2 w_kv", w_kv, shape=(2 * Ci, Dc))
+        cuda_lib.check_operand("attn2 w_kv", w_kv, dt, (2 * Ci, Dc))
     for a in (op.attn1, op.attn2):
-        cuda_lib.check_operand("wo", a.wo, shape=(Ci, Ci))
+        cuda_lib.check_operand("wo", a.wo, dt, (Ci, Ci))
         for v in (a.ln_scale, a.ln_bias, a.bo):
             cuda_lib.check_operand("attention vector", v, f32, (Ci,))
-    _check_ff(op.ff, Ci)
+    _check_ff(op.ff, Ci, dt)
 
 
 def spatial_weights(op: BlockOperands) -> list:
@@ -233,8 +245,9 @@ def spatial_launch(x3, ctx, op: BlockOperands, wrapper, maps: dict, *, heads, sc
     segment (text; image from ``text_len`` on with image keys) once per clip,
     (kernel 13) GroupNorm apply -> proj_in -> h, and LN1(h) -> q|k|v; then
     ``ds_mega_spatial`` / ``ds_spatial_block`` at ``cuda_lib.spatial_plan``'s
-    tile with the weights' TMA maps, encoded once into ``maps``. Returns
-    [BF, N, C]."""
+    tile with the weights' TMA maps, encoded once into ``maps`` (bf16), or
+    ``ds_mega_spatial_f32`` / ``ds_spatial_block_f32`` with the weights'
+    pointers and a slot of scratch a block (fp32). Returns [BF, N, C]."""
     BF, N, C = x3.shape
     clips, L, Dc = ctx.shape
     dt = x3.dtype
@@ -254,9 +267,15 @@ def spatial_launch(x3, ctx, op: BlockOperands, wrapper, maps: dict, *, heads, sc
         weights.append(w_out)
     qkv = ln_gemm(h, a1.w_in, ln=(a1.ln_scale, a1.ln_bias), eps=eps)
     out = torch.empty_like(x3)
-    ptrs = cuda_lib.ptr_array([
-        h, x2 if wrapper else None, qkv, kv[0], kv[1] if has_img else None,
-        a1.bo, a2.ln_scale, a2.ln_bias, a2.bo, f.ln_scale, f.ln_bias, f.b1, f.b2, b_out, out])
+    ptrs = [h, x2 if wrapper else None, qkv, kv[0], kv[1] if has_img else None,
+            a1.bo, a2.ln_scale, a2.ln_bias, a2.bo, f.ln_scale, f.ln_bias, f.b1, f.b2, b_out, out]
+    if dt == torch.float32:
+        scratch = torch.empty(cuda_lib.block_f32_scratch(BF * N, C, 64, bool(wrapper)), device=x3.device, dtype=dt)
+        cuda_lib.call("ds_mega_spatial_f32" if wrapper else "ds_spatial_block_f32", cuda_lib.ptr_array(ptrs + weights),
+                      BF, N, C, BF // clips, Lt, L - Lt, float(scale), float(eps), cuda_lib.ptr(scratch),
+                      scratch.numel(), scratch.shape[0])
+        return out
+    ptrs = cuda_lib.ptr_array(ptrs)
     cuda_lib.call("ds_mega_spatial" if wrapper else "ds_spatial_block", ptrs, BF, N, C, BF // clips, Lt, L - Lt,
                   float(scale), float(eps), cuda_lib.spatial_maps(maps, weights, C), *cuda_lib.spatial_plan(C))
     return out
@@ -268,6 +287,7 @@ def fused_spatial_block(x, ctx, lns, attn1, attn2, ff, *, heads, scale, text_len
     card :func:`spatial_launch` (the context K/V and q|k|v GEMMs, then one
     launch of ``ds_spatial_block``), reading ``operands`` (from
     :func:`pack_spatial_block`; packed here when None) and their TMA maps."""
+    dt = cuda_lib.check_dtypes("K11", x)
     if not cuda_lib.use_kernel(x, ctx):
         return spatial_block_plain(x, ctx, lns, attn1, attn2, ff, heads=heads, scale=scale, text_len=text_len,
                                    eps=eps)
@@ -276,9 +296,9 @@ def fused_spatial_block(x, ctx, lns, attn1, attn2, ff, *, heads, scale, text_len
     has_img = len(attn2) == 7
     refuse_unless("11", spatial_block_ok(N, C, C, heads, Dc) and C == heads * 64 and BF % clips == 0
                   and (not has_img or 0 < text_len < L), f"x {tuple(x.shape)} ctx {tuple(ctx.shape)} with {heads} heads")
-    cuda_lib.check_operand("x", x)
-    op = operands or pack_spatial_block(lns, attn1, attn2, ff, dtype=x.dtype)
-    check_spatial_operands(op, C, Dc, has_img)
+    cuda_lib.check_operand("x", x, dt)
+    op = operands or pack_spatial_block(lns, attn1, attn2, ff, dtype=dt)
+    check_spatial_operands(op, C, Dc, has_img, dt)
     out = spatial_launch(x, ctx, op, None, op.maps, heads=heads, scale=scale, text_len=text_len, eps=eps)
     fused_spatial_block.launches += 1
     return out

@@ -34,7 +34,10 @@ plain versions are the plain versions of kernels 5, 10 and 6, and of 7, 2,
 
 The gates :func:`temporal_ok` and :func:`spatial_ok` are the JAX package's
 shape conditions without its TPU tiling terms; the module dispatch routes by
-them and the wrappers refuse what they do not admit.
+them and the wrappers refuse what they do not admit. An fp32 activation
+takes the fp32 kernels instead, with the same operands in fp32:
+``csrc/block_f32.cu::ds_temporal_mega_f32`` (one launch), and the same GEMM
+heads (``ds_ln_gemm_f32``) then ``ds_mega_spatial_f32``; no TMA maps.
 """
 
 from __future__ import annotations
@@ -81,9 +84,9 @@ class MegaOperands(NamedTuple):
     maps: dict = None  # kernels 12, 13: their weights' TMA maps (eight by cluster size; six), kept with them
 
 
-def _check_wrapper(op: MegaOperands, C: int, Ci: int) -> None:
-    cuda_lib.check_operand("w_in", op.w_in, shape=(Ci, C))
-    cuda_lib.check_operand("w_out", op.w_out, shape=(C, Ci))
+def _check_wrapper(op: MegaOperands, C: int, Ci: int, dt: torch.dtype) -> None:
+    cuda_lib.check_operand("w_in", op.w_in, dt, (Ci, C))
+    cuda_lib.check_operand("w_out", op.w_out, dt, (C, Ci))
     cuda_lib.check_operand("b_in", op.b_in, torch.float32, (Ci,))
     cuda_lib.check_operand("b_out", op.b_out, torch.float32, (C,))
 
@@ -123,24 +126,32 @@ def temporal_mega_plain(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, 
 def temporal_mega(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, *, heads, scale, eps=1e-5,
                   operands=None, plan=None):
     """Kernel 12 with the folded GroupNorm vectors ``(mul, add)`` [B, C]:
-    [B, F, H, W, C] -> [B, F, H, W, C]. On the card one launch of
-    ``ds_temporal_mega`` (head dim 64, inner == C <= 640) at the tile
-    ``plan`` (``cuda_lib.block_plan``'s when None), reading ``operands``
-    (from :func:`pack_temporal_mega`; packed here when None) and their TMA
-    maps."""
+    [B, F, H, W, C] -> [B, F, H, W, C]. On the card one launch (head dim 64,
+    inner == C <= 640) of ``ds_temporal_mega`` (bf16) at the tile ``plan``
+    (``cuda_lib.block_plan``'s when None) with the TMA maps of its weights,
+    or of ``ds_temporal_mega_f32`` (fp32), reading ``operands`` (from
+    :func:`pack_temporal_mega`; packed here when None)."""
+    dt = cuda_lib.check_dtypes("K12", x5)
     if not cuda_lib.use_kernel(x5):
         return temporal_mega_plain(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, heads=heads,
                                    scale=scale, eps=eps)
     B, Fn, H, W, C = x5.shape
     inner = heads * 64
     refuse_unless("12", temporal_ok(Fn, C, inner, heads), f"x5 {tuple(x5.shape)} with {heads} heads")
-    cuda_lib.check_operand("x5", x5)
-    op = operands or pack_temporal_mega(w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, dtype=x5.dtype)
-    _check_wrapper(op, C, C)
-    check_block_operands(op.block, C)
+    cuda_lib.check_operand("x5", x5, dt)
+    op = operands or pack_temporal_mega(w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, dtype=dt)
+    _check_wrapper(op, C, C, dt)
+    check_block_operands(op.block, C, dt)
     _check_gn(mul, add, B, C)
     out = torch.empty_like(x5)
     ptrs = [x5, out, *block_pointers(op.block), mul, add, op.w_in, op.b_in, op.w_out, op.b_out]
+    if dt == torch.float32:
+        scratch = torch.empty(cuda_lib.block_f32_scratch(B * Fn * H * W, C, max(64, Fn), True), device=x5.device,
+                              dtype=dt)
+        cuda_lib.call("ds_temporal_mega_f32", cuda_lib.ptr_array(ptrs), B, Fn, H * W, C, float(scale), float(eps),
+                      cuda_lib.ptr(scratch), scratch.numel(), scratch.shape[0])
+        temporal_mega.launches += 1
+        return out
     plan = plan or cuda_lib.block_plan(C, Fn, mega=True)
     maps = cuda_lib.block_maps(op.maps, [*block_weights(op.block), op.w_in, op.w_out], C, plan.cl)
     cuda_lib.call("ds_temporal_mega", cuda_lib.ptr_array(ptrs), B, Fn, H * W, C, float(scale), float(eps), maps,
@@ -194,8 +205,9 @@ def spatial_mega(x4, ctx, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_
     [BF, H, W, C] -> [BF, H, W, C]. On the card
     :func:`fused_block.spatial_launch` (the context K/V, proj_in and q|k|v
     GEMMs, then one launch of ``ds_mega_spatial``; head dim 64, inner == C
-    <= 640), reading ``operands`` (from
+    <= 640; at fp32 ``ds_mega_spatial_f32``), reading ``operands`` (from
     :func:`pack_spatial_mega`; packed here when None) and their TMA maps."""
+    dt = cuda_lib.check_dtypes("K13", x4)
     if not cuda_lib.use_kernel(x4, ctx):
         return spatial_mega_plain(x4, ctx, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out,
                                   heads=heads, scale=scale, text_len=text_len, eps=eps)
@@ -205,10 +217,10 @@ def spatial_mega(x4, ctx, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_
     Ci = heads * 64
     refuse_unless("13", spatial_ok(H * W, C, Ci, heads, Dc) and BF % clips == 0 and (not has_img or 0 < text_len < L),
                   f"x {tuple(x4.shape)} ctx {tuple(ctx.shape)} with {heads} heads")
-    cuda_lib.check_operand("x", x4)
-    op = operands or pack_spatial_mega(w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, dtype=x4.dtype)
-    _check_wrapper(op, C, Ci)
-    check_spatial_operands(op.block, Ci, Dc, has_img)
+    cuda_lib.check_operand("x", x4, dt)
+    op = operands or pack_spatial_mega(w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, dtype=dt)
+    _check_wrapper(op, C, Ci, dt)
+    check_spatial_operands(op.block, Ci, Dc, has_img, dt)
     _check_gn(mul, add, BF, C)
     out = spatial_launch(x4.reshape(BF, H * W, C), ctx, op.block, (mul, add, op.w_in, op.b_in, op.w_out, op.b_out),
                          op.maps, heads=heads, scale=scale, text_len=text_len, eps=eps)

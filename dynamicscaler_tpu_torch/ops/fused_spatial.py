@@ -8,8 +8,9 @@ Counterparts of ``dynamicscaler_tpu/ops/fused_spatial.py``
 
 On the card each op runs as hand-written CUDA kernels: an LN-prologue GEMM
 for the projections, :func:`flash_attention` (``ds_flash_attention``, a
-TMA/wgmma flash-attention forward; N up to 2560, one or two key segments)
-and a GEMM with the bias + residual epilogue. K3 projects the context K/V
+TMA/wgmma flash-attention forward; N up to 2560, one or two key segments;
+at fp32 ``ds_flash_attention_f32``, ``csrc/attention_f32.cu``) and a GEMM
+with the bias + residual epilogue. K3 projects the context K/V
 with the same GEMM kernel. The plain versions keep the TPU kernels' rounding
 points; softmax is normalised AFTER the PV product.
 
@@ -56,14 +57,15 @@ def flash_attention_plain(q, k0, v0, k1=None, v1=None, *, heads, scale):
     return _heads_attention_plain(q, kvs, heads, scale)
 
 
-def _check_rows(name, t, B, C):
-    """A [B, n, >= C] bf16 CUDA view whose rows ds_flash_attention reads
-    with a pitch: unit column stride, 16-byte aligned rows, samples packed."""
-    if (t.device.type != "cuda" or t.dtype != torch.bfloat16 or t.dim() != 3 or t.shape[0] != B
-            or t.shape[2] != C or t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) != t.shape[1] * t.stride(1)
-            or t.data_ptr() % 16):
-        raise ValueError(f"{name}: ds_flash_attention reads [{B}, n, {C}] bf16 CUDA rows with a pitch that is a "
-                         f"multiple of 8 and packed samples, got {tuple(t.shape)} strides {t.stride()} "
+def _check_rows(name, t, B, C, dtype=torch.bfloat16):
+    """A [B, n, >= C] CUDA view of ``dtype`` whose rows ds_flash_attention
+    (or its fp32 twin) reads with a pitch: unit column stride, 16-byte
+    aligned rows, samples packed."""
+    if (t.device.type != "cuda" or t.dtype != dtype or t.dim() != 3 or t.shape[0] != B
+            or t.shape[2] != C or t.stride(2) != 1 or (t.stride(1) * t.element_size()) % 16
+            or t.stride(0) != t.shape[1] * t.stride(1) or t.data_ptr() % 16):
+        raise ValueError(f"{name}: ds_flash_attention reads [{B}, n, {C}] {dtype} CUDA rows with a pitch of whole "
+                         f"16 bytes and packed samples, got {tuple(t.shape)} strides {t.stride()} "
                          f"{t.dtype} on {t.device} address {t.data_ptr():#x}")
 
 
@@ -74,7 +76,9 @@ def flash_attention(q, k0, v0, k1=None, v1=None, *, heads, scale):
     type for PV, the sum divided out after). q [B, Nq, C], k/v [B, L_s, C]
     (views with a row pitch, such as columns of a packed q|k|v); returns
     [B, Nq, C]. On the card one launch of ``csrc/attention.cu::
-    ds_flash_attention`` (head dim 64)."""
+    ds_flash_attention`` (bf16) or ``csrc/attention_f32.cu::
+    ds_flash_attention_f32`` (fp32) (head dim 64)."""
+    dt = cuda_lib.check_dtypes("flash_attention", q, k0, v0, k1, v1)
     if not cuda_lib.use_kernel(q, k0, v0, k1, v1):
         return flash_attention_plain(q, k0, v0, k1, v1, heads=heads, scale=scale)
     B, Nq, C = q.shape
@@ -82,7 +86,7 @@ def flash_attention(q, k0, v0, k1=None, v1=None, *, heads, scale):
         raise ValueError(f"ds_flash_attention takes head dim 64 and whole segments, got C={C} heads={heads}")
     segs = [(k0, v0)] + ([(k1, v1)] if k1 is not None else [])
     for name, t in (("q", q), *((f"k/v {i}", t) for i, kv in enumerate(segs) for t in kv)):
-        _check_rows(name, t, B, C)
+        _check_rows(name, t, B, C, dt)
     for k, v in segs:
         if k.shape != v.shape or k.stride() != v.stride() or k.shape[1] == 0:
             raise ValueError(f"ds_flash_attention: a segment's keys and values must be alike and non-empty, got "
@@ -90,7 +94,8 @@ def flash_attention(q, k0, v0, k1=None, v1=None, *, heads, scale):
     o = torch.empty((B, Nq, C), device=q.device, dtype=q.dtype)
     p = cuda_lib.ptr
     ld1, len1 = (k1.stride(1), k1.shape[1]) if k1 is not None else (0, 0)
-    cuda_lib.call("ds_flash_attention", p(q), q.stride(1), B, Nq, heads, p(k0), p(v0), k0.stride(1), k0.shape[1],
+    name = "ds_flash_attention_f32" if dt == torch.float32 else "ds_flash_attention"
+    cuda_lib.call(name, p(q), q.stride(1), B, Nq, heads, p(k0), p(v0), k0.stride(1), k0.shape[1],
                   p(k1), p(v1), ld1, len1, len(segs), float(scale), p(o), C)
     flash_attention.launches += 1
     return o
@@ -120,13 +125,14 @@ def fused_ln_spatial_attention(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *, head
     On the card: LN-prologue GEMM (q|k|v) -> ds_flash_attention ->
     GEMM + bias + residual, reading ``operands`` (from
     ``fused_temporal.pack_ln_attention``; packed here when None)."""
+    dt = cuda_lib.check_dtypes("K2", x)
     if not cuda_lib.use_kernel(x):
         return ln_spatial_attention_plain(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
                                           heads=heads, scale=scale, eps=eps)
     B, N, C = x.shape
     if C != heads * 64:
         raise ValueError(f"K2 kernel takes head dim 64, got C={C} heads={heads}")
-    cuda_lib.check_operand("x", x)
+    cuda_lib.check_operand("x", x, dt)
     op = operands or pack_ln_attention(ln_scale, ln_bias, wq, wk, wv, wo, bo, dtype=x.dtype)
     x2d = x.reshape(B * N, C)
     qkv = ln_gemm(x2d, op.w_in, ln=(op.ln_scale, op.ln_bias), eps=eps).view(B, N, 3 * C)
@@ -189,14 +195,14 @@ def fused_ln_cross_attention(x, ctx, ln_scale, ln_bias, wq, wk, wv, wo, bo, wk_i
     per segment), ds_flash_attention with one or two segments, GEMM + bias
     + residual, reading ``operands`` (from :func:`pack_ln_cross_attention`;
     packed here when None)."""
+    dt = cuda_lib.check_dtypes("K3", x)
     if not cuda_lib.use_kernel(x, ctx):
         return ln_cross_attention_plain(x, ctx, ln_scale, ln_bias, wq, wk, wv, wo, bo, wk_ip,
                                         wv_ip, heads=heads, scale=scale, text_len=text_len, eps=eps)
     B, N, C = x.shape
     if C != heads * 64:
         raise ValueError(f"K3 kernel takes head dim 64, got C={C} heads={heads}")
-    cuda_lib.check_operand("x", x)
-    dt = x.dtype
+    cuda_lib.check_operand("x", x, dt)
     has_img = wk_ip is not None
     op = operands or pack_ln_cross_attention(ln_scale, ln_bias, wq, wk, wv, wo, bo, wk_ip, wv_ip,
                                              dtype=dt)

@@ -7,8 +7,9 @@ Counterparts of ``dynamicscaler_tpu/ops/fused_temporal.py``
 
 On the card each op runs as a short sequence of hand-written CUDA kernels
 (``csrc/gemm.cu``, and for K1's attention :func:`temporal_attention`,
-``csrc/attention.cu``); see the notes there for what bounds each on the
-H100. The plain versions beside them hold the same
+``csrc/attention.cu``; at fp32 activations their fp32 twins,
+``csrc/gemm_f32.cu`` and ``csrc/attention_f32.cu``); see the notes there
+for what bounds each on the H100. The plain versions beside them hold the same
 rounding points as the TPU kernels: fp32 LayerNorm statistics, bf16 matmul
 inputs with fp32 accumulation, q/k/v rounded to the activation type, fp32
 softmax with probabilities rounded before PV (K1), out-projection + bias in
@@ -219,7 +220,10 @@ def temporal_attention(qkv, *, heads, scale):
     times v, over the F frame tokens of each row. qkv [R, F, 3C] with the
     q, k and v columns side by side (head h at columns 64h of each); returns
     [R, F, C]. On the card one launch of ``csrc/attention.cu::
-    ds_temporal_attention`` (head dim 64, F as :func:`frames_ok`)."""
+    ds_temporal_attention`` (bf16) or ``csrc/attention_f32.cu::
+    ds_temporal_attention_f32`` (fp32) (head dim 64, F as
+    :func:`frames_ok`)."""
+    dt = cuda_lib.check_dtypes("temporal_attention", qkv)
     if not cuda_lib.use_kernel(qkv):
         return temporal_attention_plain(qkv, heads=heads, scale=scale)
     R, Fn, C3 = qkv.shape
@@ -227,9 +231,10 @@ def temporal_attention(qkv, *, heads, scale):
     if not frames_ok(Fn) or C != heads * 64:
         raise ValueError(f"ds_temporal_attention takes 2 <= F, 128 % F == 0 and head dim 64, got F={Fn} "
                          f"C={C} heads={heads}")
-    cuda_lib.check_operand("qkv", qkv)
-    o = torch.empty((R, Fn, C), device=qkv.device, dtype=qkv.dtype)
-    cuda_lib.call("ds_temporal_attention", cuda_lib.ptr(qkv), R, Fn, C, heads, float(scale), cuda_lib.ptr(o))
+    cuda_lib.check_operand("qkv", qkv, dt)
+    o = torch.empty((R, Fn, C), device=qkv.device, dtype=dt)
+    name = "ds_temporal_attention_f32" if dt == torch.float32 else "ds_temporal_attention"
+    cuda_lib.call(name, cuda_lib.ptr(qkv), R, Fn, C, heads, float(scale), cuda_lib.ptr(o))
     temporal_attention.launches += 1
     return o
 
@@ -246,13 +251,14 @@ def fused_ln_attention(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, *, heads, scale
     C]. On the card: LN-prologue GEMM (q|k|v) -> :func:`temporal_attention`
     -> GEMM + bias + residual, reading ``operands`` (from
     :func:`pack_ln_attention`; packed here when None)."""
+    dt = cuda_lib.check_dtypes("K1", x)
     if not cuda_lib.use_kernel(x):
         return ln_attention_plain(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
                                   heads=heads, scale=scale, eps=eps)
     R, Fn, C = x.shape
     if not frames_ok(Fn) or C != heads * 64:
         raise ValueError(f"K1 kernel takes 2 <= F, 128 % F == 0 and head dim 64, got F={Fn} C={C} heads={heads}")
-    cuda_lib.check_operand("x", x)
+    cuda_lib.check_operand("x", x, dt)
     op = operands or pack_ln_attention(ln_scale, ln_bias, wq, wk, wv, wo, bo, dtype=x.dtype)
     x2d = x.reshape(R * Fn, C)
     qkv = ln_gemm(x2d, op.w_in, ln=(op.ln_scale, op.ln_bias), eps=eps)
@@ -302,10 +308,11 @@ def fused_ln_geglu(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps=1e-5, operands=N
     On the card: LN-prologue GEMM with the GEGLU epilogue -> GEMM + bias +
     residual, reading ``operands`` (from :func:`pack_ln_geglu`; packed here
     when None)."""
+    dt = cuda_lib.check_dtypes("K4", x)
     if not cuda_lib.use_kernel(x):
         return ln_geglu_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps)
     C = x.shape[-1]
-    cuda_lib.check_operand("x", x)
+    cuda_lib.check_operand("x", x, dt)
     op = operands or pack_ln_geglu(ln_scale, ln_bias, w1, b1, w2, b2, dtype=x.dtype)
     x2d = x.reshape(-1, C)
     inner = ln_gemm(x2d, op.w1, ln=(op.ln_scale, op.ln_bias), eps=eps, bias=op.b1, mode=MODE_GEGLU)

@@ -20,7 +20,11 @@ fold, then kernel 9) as one call, ``csrc/gn_silu.cu::ds_group_norm_silu``,
 with the statistics inside it. On the card the heads and tails run as
 ``csrc/gemm.cu::ds_ln_gemm`` with its GroupNorm prologue, frame row map and
 residual epilogue, and ``gn_silu_apply`` as ``csrc/gn_silu.cu::ds_gn_silu``;
-see the notes there for what bounds each. Each kernel wrapper takes its plain version (``*_plain``,
+see the notes there for what bounds each. Activations are bf16 or fp32: at
+fp32 the heads and tails run ``csrc/gemm_f32.cu::ds_ln_gemm_f32`` and
+kernel 9 the fp32 instantiation of the same ``gn_silu.cu`` kernels (its
+cluster route reckoning 4-byte elements in ``cuda_lib.gn_plan``). Each
+kernel wrapper takes its plain version (``*_plain``,
 same rounding points: normalised activation rounded to the activation type
 before the product, bias added in fp32 before the rounding, residual added
 in the activation type) for CPU tensors, and counts its kernel launches in
@@ -73,11 +77,10 @@ def group_norm_fold(x, scale, bias, num_groups: int = 32, eps: float = 1e-6):
     ..., C] bf16 or fp32. On the card one launch of ``csrc/gn_silu.cu::
     ds_gn_stats`` (a reduction pass over x and a small fold launch): C % 8
     == 0, C divisible by the groups, C <= 6144."""
+    cuda_lib.check_dtypes("group_norm_fold", x)
     if not cuda_lib.use_kernel(x):
         return group_norm_fold_plain(x, scale, bias, num_groups, eps)
     B, C = x.shape[0], x.shape[-1]
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"ds_gn_stats takes bf16 or fp32 activations, got {x.dtype}")
     cuda_lib.check_operand("x", x, x.dtype)
     if C % 8 or C % num_groups or C > 6144 or x.numel() == 0:
         raise ValueError(f"ds_gn_stats takes C % 8 == 0, C % groups == 0 and C <= 6144, got C={C} "
@@ -121,7 +124,7 @@ def pack_wrapper(w_in, b_in, w_out, b_out, *, dtype):
 
 
 def _check_wrapper(name, x, C, Ci):
-    cuda_lib.check_operand(name, x)
+    cuda_lib.check_operand(name, x, x.dtype)
     if C % 32 or Ci % 64:
         raise ValueError(f"{name}: the kernel takes C % 32 == 0 and Ci % 64 == 0, got C={C} Ci={Ci}")
 
@@ -143,6 +146,7 @@ def head_temporal(x5, mul, add, w, b):
     [B, C] -> [B*H*W, F, Ci] tokens -> proj_in + bias. On the card: the GEMM
     with the GroupNorm prologue, reading the rows of x5 in (b, h, w, f)
     order."""
+    cuda_lib.check_dtypes("head_temporal", x5)
     if not cuda_lib.use_kernel(x5, w):
         return head_temporal_plain(x5, mul, add, w, b)
     B, Fn, H, W, C = x5.shape
@@ -177,12 +181,13 @@ def tail_temporal(y, x5, w, b):
     """proj_out -> permute back -> + residual: [BHW,F,Ci], [B,F,H,W,C] ->
     [B,F,H,W,C]. On the card: the GEMM with the residual epilogue, writing
     (and reading the residual at) the rows of x5 in (b, h, w, f) order."""
+    dt = cuda_lib.check_dtypes("tail_temporal", y, x5)
     if not cuda_lib.use_kernel(y, x5, w):
         return tail_temporal_plain(y, x5, w, b)
     B, Fn, H, W, C = x5.shape
     Ci = y.shape[-1]
     _check_wrapper("y", y, Ci, C)
-    cuda_lib.check_operand("x5", x5)
+    cuda_lib.check_operand("x5", x5, dt)
     out = ln_gemm(y.reshape(-1, Ci), act(w, y.dtype), frame_map=(Fn, H * W), bias=f32(b),
                   residual=x5.reshape(-1, C), mode=MODE_RESIDUAL)
     tail_temporal.launches += 1
@@ -208,6 +213,7 @@ def head_spatial(x4, mul, add, w, b):
     """Kernel 7: GroupNorm apply with the folded vectors ``(mul, add)``
     [BF, C] -> proj_in + bias: [BF,H,W,C] -> [BF, H*W, Ci]. On the card: the
     GEMM with the GroupNorm prologue, one sample per H*W rows."""
+    cuda_lib.check_dtypes("head_spatial", x4)
     if not cuda_lib.use_kernel(x4, w):
         return head_spatial_plain(x4, mul, add, w, b)
     BF, H, W, C = x4.shape
@@ -240,12 +246,13 @@ def tail_spatial_plain(y, x4, w, b):
 def tail_spatial(y, x4, w, b):
     """proj_out -> + residual: [BF,N,Ci], [BF,H,W,C] -> [BF,H,W,C]. On the
     card: the GEMM with the residual epilogue."""
+    dt = cuda_lib.check_dtypes("tail_spatial", y, x4)
     if not cuda_lib.use_kernel(y, x4, w):
         return tail_spatial_plain(y, x4, w, b)
     C = x4.shape[-1]
     Ci = y.shape[-1]
     _check_wrapper("y", y, Ci, C)
-    cuda_lib.check_operand("x4", x4)
+    cuda_lib.check_operand("x4", x4, dt)
     out = ln_gemm(y.reshape(-1, Ci), act(w, y.dtype), bias=f32(b), residual=x4.reshape(-1, C),
                   mode=MODE_RESIDUAL)
     tail_spatial.launches += 1
@@ -272,16 +279,18 @@ def gn_silu_plain(x, mul, add, *, act: bool = True):
 def gn_silu_apply(x, mul, add, *, act: bool = True):
     """Kernel 9: ``silu(x * mul[b] + add[b])`` with the folded vectors
     ``(mul, add)`` [B, C] per sample x.shape[0] (no SiLU with
-    ``act=False``). x: [B, *spatial, C]. On the card: one elementwise pass."""
+    ``act=False``). x: [B, *spatial, C] bf16 or fp32. On the card: one
+    elementwise pass."""
+    dt = cuda_lib.check_dtypes("gn_silu_apply", x)
     if not cuda_lib.use_kernel(x):
         return gn_silu_plain(x, mul, add, act=act)
     B, C = x.shape[0], x.shape[-1]
-    cuda_lib.check_operand("x", x)
+    cuda_lib.check_operand("x", x, dt)
     if C % 8 or C > 6144:
         raise ValueError(f"gn_silu kernel takes C % 8 == 0 and C <= 6144, got C={C}")
     y = torch.empty_like(x)
     cuda_lib.call("ds_gn_silu", cuda_lib.ptr(x), B, x.numel() // B, C, cuda_lib.ptr(mul),
-                  cuda_lib.ptr(add), int(act), cuda_lib.ptr(y))
+                  cuda_lib.ptr(add), int(act), cuda_lib.ptr(y), int(dt == torch.float32))
     gn_silu_apply.launches += 1
     return y
 
@@ -299,18 +308,21 @@ def gn_silu(x, gn_scale, gn_bias, *, eps: float = 1e-5, act: bool = True, vector
     kernel), counted in ``gn_silu.launches`` (and, on the split route,
     ``gn_silu.launches_split``: the call launches the statistics kernels
     too). With ``vectors`` also returns the folded ``(mul, add)`` [B, C]
-    fp32 the call applied (to check the statistics)."""
+    fp32 the call applied (to check the statistics). x bf16 or fp32 (the
+    fp32 instantiation of the same kernels, ``gn_plan`` at 4-byte
+    elements)."""
+    dt = cuda_lib.check_dtypes("gn_silu", x)
     if not cuda_lib.use_kernel(x):
         mul, add = group_norm_fold_plain(x, gn_scale, gn_bias, 32, eps)
         y = gn_silu_plain(x, mul, add, act=act)
         return (y, (mul, add)) if vectors else y
     B, C = x.shape[0], x.shape[-1]
-    cuda_lib.check_operand("x", x)
+    cuda_lib.check_operand("x", x, dt)
     if C % 32 or C > 6144 or x.numel() == 0 or B > 65535:
         raise ValueError(f"ds_group_norm_silu takes C % 32 == 0, C <= 6144 and B <= 65535, got shape "
                          f"{tuple(x.shape)}")
     M = x.numel() // (B * C)
-    plan = cuda_lib.gn_plan(B, M, C, 32)
+    plan = cuda_lib.gn_plan(B, M, C, 32, x.element_size())
     split = plan.route == "split"
     s, b = _gn_vectors(gn_scale, gn_bias)
     y = torch.empty_like(x)
@@ -319,7 +331,7 @@ def gn_silu(x, gn_scale, gn_bias, *, eps: float = 1e-5, act: bool = True, vector
     scratch = torch.empty(n, device=x.device, dtype=torch.float32) if n else None
     cuda_lib.call("ds_group_norm_silu", cuda_lib.ptr(x), B, M, C, 32, cuda_lib.ptr(s), cuda_lib.ptr(b),
                   int(s.dtype == torch.float32), float(eps), int(act), int(split), plan.cs, plan.rows, plan.smem,
-                  plan.splits, cuda_lib.ptr(scratch), cuda_lib.ptr(y))
+                  plan.splits, cuda_lib.ptr(scratch), cuda_lib.ptr(y), int(dt == torch.float32))
     gn_silu.launches += 1
     if split:
         gn_silu.launches_split += 1

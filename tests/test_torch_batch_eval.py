@@ -7,7 +7,7 @@
   each clip conditioned on ``load_first_frame`` of its file; a count of
   files other than the prompts' refused with JAX's message (a ValueError
   here, JAX's an AssertionError); the card route's refusals (``--dtype``
-  other than bfloat16, no card).
+  other than bfloat16 or float32, no card).
 * Without a process group the rank is 0 of 1; a coordinator without the
   rank and the size refused.
 * Each prompt's latent against the JAX CLI's on the tiny t2v twin bundle,
@@ -125,13 +125,13 @@ def test_cond_count_mismatch_refused_as_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--dtype", "float32"], ValueError, "bfloat16 only"),
+    (["--dtype", "float16"], ValueError, "bfloat16 only"),
     (["--ckpt_path", "t2v.ckpt"], RuntimeError, "CUDA card"),
 ])
 def test_card_route_refusals(argv, error, match, tmp_path, monkeypatch):
     """Without ``--dev_tiny`` the bundle goes on the rank's card:
-    ``--dtype`` other than bfloat16 is refused at startup, and so is a
-    machine without a card."""
+    ``--dtype`` other than bfloat16 or float32 is refused at startup, and so
+    is a machine without a card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pf = tmp_path / "prompts.txt"
     pf.write_text(PROMPTS)

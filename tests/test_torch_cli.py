@@ -161,7 +161,7 @@ def test_vargs_match_jax_less_the_warm_flags():
 
 @pytest.mark.parametrize("argv,match", [
     (["--data_parallel_devices", "2"], "data_parallel_devices 2"),
-    (["--dtype", "float32"], "bfloat16 only"),
+    (["--dtype", "float16"], "bfloat16 only"),
 ])
 def test_cli_refuses_at_startup(argv, match, tmp_path):
     with pytest.raises(ValueError, match=match):

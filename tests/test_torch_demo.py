@@ -9,7 +9,7 @@ the CPU.
   request with no image, 503 while a generation runs (a demo object that
   waits on an event).
 * The steps clamped at 60; the card route's refusals (``--dtype`` other
-  than bfloat16, no card).
+  than bfloat16 or float32, no card).
 * ``get_prompt`` and ``get_image`` latents against the JAX demo's on the
   tiny twin bundles, the port handed the JAX draws of ``PRNGKey(seed)``,
   within ``close_fp32_chain``.
@@ -174,12 +174,13 @@ def test_steps_clamped_at_60(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--dtype", "float32"], ValueError, "bfloat16 only"),
+    (["--dtype", "float16"], ValueError, "bfloat16 only"),
     (["--ckpt_path", "t2v.ckpt"], RuntimeError, "CUDA card"),
 ])
 def test_card_route_refusals(argv, error, match, monkeypatch):
     """Without ``--dev_tiny`` the bundle goes on the card: ``--dtype``
-    other than bfloat16 is refused, and so is a machine without a card."""
+    other than bfloat16 or float32 is refused, and so is a machine without a
+    card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(error, match=match):
         demo.build_model(demo.parse_args(argv))

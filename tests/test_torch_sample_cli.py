@@ -70,7 +70,7 @@ def test_dev_tiny_mode_writes_its_video(mode, frames, image, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--dtype", "float32"], "bfloat16 only"),
+    (["--dtype", "float16"], "bfloat16 only"),
     (["--mode", "freetraj", "--dev_tiny"], "--traj"),
     (["--mode", "i2v", "--dev_tiny"], "--image"),
 ])
