@@ -152,8 +152,14 @@ Phases, in order, one result line each (any failure exits non-zero):
    error within 1e-5 of the op's own output, bit-exact on a rerun; GN its
    statistics' gates), timed
    beside the plain version, the same function as PyTorch calls in fp32
-   with TF32 off, and its bound (operations over 67 TFLOP/s, bytes at 4 B
-   an element over 3.35 TB/s), summed per batch-8 forward; then the CLIs
+   with TF32 off, and two bounds (products over the tensor cores'
+   fp32-accurate 494.7 / 3 TFLOP/s, the least time, and over the CUDA
+   cores' 67 TFLOP/s; bytes at 4 B an element over 3.35 TB/s), with
+   TFLOP/s and the share of each, summed per batch-8 forward; the fp32
+   GEMM table (every distinct ``ds_ln_gemm_f32`` call of the batch-8 i2v
+   fp32 forward against ``ln_gemm_plain`` with the fp32 gates, its ms,
+   TFLOP/s, both bounds, plain, ``F.linear`` with TF32 off and the kernel
+   at the planner's other column width, summed per forward); then the CLIs
    in fp32 through their ``main`` on these bundles, TF32 switched on before
    each and off by its startup: ``cli/sample.py --dtype float32`` in t2v and
    i2v modes (2 steps, 320x512x16) and ``cli/gen_pano_360.py --dtype float32
@@ -321,8 +327,11 @@ OVERRIDES = {f"{I2V_FWD}, plan off": "off", f"{I2V_FWD}, plan wrap+blk": WRAP_BL
 GEOMETRIES = {"i2v UNet fwd batch 2, 40x40 latent": (16, 40, 40), "i2v UNet fwd batch 2, 8 frames": (8, 40, 64)}
 FORWARDS = (MAIN_FWD, I2V_FWD, *OVERRIDES, *GEOMETRIES)
 # H100 SXM datasheet peaks: bf16 dense tensor cores, fp32
-# CUDA cores, HBM3
+# CUDA cores, HBM3; and the fp32-accurate rate of the tensor cores, TF32's
+# 494.7 TFLOP/s over the three products of a split fp32 product (the least
+# time for fp32 products: ds_ln_gemm_f32 and ds_flash_attention_f32 run on it)
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_TF32X3 = 494.7e12 / 3
 DEV = torch.device("cuda:0")
 BF = torch.bfloat16
 
@@ -776,7 +785,7 @@ def _profile_forward(where, fwd, wall_ms, phase="phase 2"):
         n = e.key.lower()
         key = ("ds_ln_gemm (K1-K4 projections, K5-K8 wrapper heads/tails; GEMM + prologue pass)"
                if any(k in n for k in ("ds_gemm_kernel", "prologue_ln_kernel", "prologue_gn_kernel", "gemm_f32_kernel",
-                                       "ln_stats_f32_kernel"))
+                                       "prologue_ln_f32_kernel", "prologue_gn_f32_kernel", "tf32_split_kernel"))
                else "ds_group_norm_silu cluster route (K9)" if "gn_cluster_kernel" in n
                else "ds_gn_silu apply kernel (K9 split route)" if "gn_apply_kernel" in n
                else "ds_gn_stats (GroupNorm statistics: K5, K7, K12, K13, K9 split route)"
@@ -809,10 +818,12 @@ class Case:
     calls it), ``fold`` the plain GroupNorm statistics pass whose vectors
     the kernel reads (or None). ``base``: the residual the op adds (L2 error
     is measured against plain - base). ``flops``: the products' operations,
-    tensor-core bf16 (over 989 TFLOP/s) for bf16 activations and CUDA-core
-    fp32 (over 67) for ``fp32`` ones; ``ops``: fp32 CUDA-core operations;
-    with the output, :meth:`set_bound` adds its bytes to the inputs' (each
-    read once, each output written once)."""
+    tensor-core bf16 (over 989 TFLOP/s) for bf16 activations and
+    fp32-accurate tensor-core products (over 494.7 / 3 TFLOP/s, the least
+    time the card can take for them) for ``fp32`` ones, whose bound at the
+    CUDA cores' 67 TFLOP/s is kept beside it (``bound_cc_ms``); ``ops``:
+    fp32 CUDA-core operations; with the output, :meth:`set_bound` adds its
+    bytes to the inputs' (each read once, each output written once)."""
 
     lib_comparable = True  # the library call computes the same output (the GroupNorm statistics' does not)
     block = None  # K10, K12: (tokens, C, F, mega) for the tile plan line
@@ -824,12 +835,15 @@ class Case:
                  fp32=False):
         self.k, self.desc, self.fp32 = k, desc, fp32
         self.run, self.plain, self.library, self.base, self.fold = run, plain, library, base, fold
-        self.op_ms = max(flops / (PEAK_FP32 if fp32 else PEAK_BF16), ops / PEAK_FP32) * 1e3
+        self.flops = flops
+        self.op_ms = max(flops / (PEAK_TF32X3 if fp32 else PEAK_BF16), ops / PEAK_FP32) * 1e3
+        self.op_cc_ms = max(flops, ops) / PEAK_FP32 * 1e3  # fp32: every product on the CUDA cores
         self.in_bytes = sum(t.numel() * t.element_size() for t in inputs if torch.is_tensor(t))
 
     def set_bound(self, out):
         byte_ms = (self.in_bytes + out.numel() * out.element_size()) / PEAK_BYTES * 1e3
         self.bound_ms = max(self.op_ms, byte_ms)
+        self.bound_cc_ms = max(self.op_cc_ms, byte_ms)
         self.bound_by = "bytes" if byte_ms >= self.op_ms else "operations"
 
 
@@ -1379,9 +1393,16 @@ def _time_cases(shapes, runs, phase):
         t = {"ms": _time_ms(case.run, 10), "plain_ms": _time_ms(case.plain, 3),
              "library_ms": _time_ms(case.library, 10), "bound_ms": case.bound_ms,
              "fold_ms": _time_ms(case.fold, 10) if case.fold else 0.0}
+        rates = ""
+        if case.fp32:  # the bound at the CUDA cores' rate beside the tensor cores' fp32-accurate one
+            t["bound_cc_ms"] = case.bound_cc_ms
+        if case.fp32 and case.flops:
+            rates = (f" {case.flops / t['ms'] / 1e9:.1f} TFLOP/s, {100 * case.bound_ms / t['ms']:.0f}% of the bound, "
+                     f"{100 * case.bound_cc_ms / t['ms']:.0f}% of the bound at 67 TFLOP/s "
+                     f"{case.bound_cc_ms:.4f} ms")
         print(f"{phase} {k} {case.desc}: max_abs_err {err:.5g} (tol {tol}) rel_l2 {rel:.5g} (tol {tol_l2}) "
               f"kernel {t['ms']:.3f} ms plain {t['plain_ms']:.3f} ms library {t['library_ms']:.3f} ms "
-              f"(rel_l2 vs plain {lib_rel:.4f}) bound {case.bound_ms:.4f} ms ({case.bound_by})"
+              f"(rel_l2 vs plain {lib_rel:.4f}) bound {case.bound_ms:.4f} ms ({case.bound_by})" + rates
               + (f" group_norm_fold {t['fold_ms']:.3f} ms" if case.fold else "")
               + " [" + ", ".join(f"x{n} per {w}" for w, n in where_n.items()) + f"] {'ok' if ok else 'FAIL'}",
               flush=True)
@@ -1413,9 +1434,12 @@ def _time_cases(shapes, runs, phase):
     if bad:
         _fail(f"{phase}: kernel disagrees with its plain version: {bad}")
     for where, per_k in sums.items():
-        print(f"{phase} sums per {where} (ms: kernel / plain / library / bound; + group_norm_fold): " + ", ".join(
-            f"{k} {c['ms']:.2f}/{c['plain_ms']:.2f}/{c['library_ms']:.2f}/{c['bound_ms']:.3f}"
-            + (f" + {c['fold_ms']:.2f}" if c["fold_ms"] else "") for k, c in per_k.items() if c), flush=True)
+        cc = any(c["bound_cc_ms"] for c in per_k.values())
+        print(f"{phase} sums per {where} (ms: kernel / plain / library / bound"
+              + (" / bound at 67 TFLOP/s" if cc else "") + "; + group_norm_fold): " + ", ".join(
+                  f"{k} {c['ms']:.2f}/{c['plain_ms']:.2f}/{c['library_ms']:.2f}/{c['bound_ms']:.3f}"
+                  + (f"/{c['bound_cc_ms']:.3f}" if c["bound_cc_ms"] else "")
+                  + (f" + {c['fold_ms']:.2f}" if c["fold_ms"] else "") for k, c in per_k.items() if c), flush=True)
         c = per_k["K9"]
         if c:
             print(f"{phase} K9 per {where}: {c['ms']:.2f} ms against the routes' bound {c['route_bound_ms']:.3f} "
@@ -1524,13 +1548,13 @@ def _block_line(r, reckoned):
             + ", ".join(f"CL {cl} {gb:.2f} GB" for cl, gb in reckoned.items()))
 
 
-def _gemm_case(key, rn):
-    """Inputs of a recorded ds_ln_gemm call: x (a GroupNorm or LayerNorm
-    input where there is a prologue), w [N, K] / sqrt(K), fp32 bias and
-    prologue vectors, a bf16 residual."""
+def _gemm_case(key, rn, dt=BF):
+    """Inputs of a recorded ds_ln_gemm call in activation type ``dt``: x (a
+    GroupNorm or LayerNorm input where there is a prologue), w [N, K] /
+    sqrt(K), fp32 bias and prologue vectors, a residual."""
     (M, K), (N, _), pro, rps, fmap, has_bias, mode = key
-    x = (2 * rn(M, K) + 0.5 if pro != "-" else rn(M, K)).to(BF)
-    w = (rn(N, K) / K ** 0.5).to(BF)
+    x = (2 * rn(M, K) + 0.5 if pro != "-" else rn(M, K)).to(dt)
+    w = (rn(N, K) / K ** 0.5).to(dt)
     kw = dict(mode=mode, frame_map=fmap)
     if has_bias:
         kw["bias"] = rn(N, s=0.1)
@@ -1539,57 +1563,98 @@ def _gemm_case(key, rn):
     if pro == "GN":
         kw.update(gn=(1.0 + rn(M // rps, K, s=0.1), rn(M // rps, K, s=0.1)), rows_per_sample=rps)
     if mode == cuda_lib.MODE_RESIDUAL:
-        kw["residual"] = rn(M, N).to(BF)
+        kw["residual"] = rn(M, N).to(dt)
     return x, w, kw
 
 
 MODE_NAMES = {cuda_lib.MODE_STORE: "store", cuda_lib.MODE_RESIDUAL: "+residual", cuda_lib.MODE_GEGLU: "GEGLU"}
 
 
-def _phase_gemms(calls):
-    """Phase 3, the GEMM table: every distinct ds_ln_gemm call of the batch-8
-    i2v forward against ln_gemm_plain (max error against TOL_REL of
-    max|plain|, L2 error against TOL_BRANCH_REL_L2 of the op's own output:
-    plain - residual in mode 1), kernel ms (the prologue pass included),
-    TFLOP/s and share of the bf16 peak, bound (the larger of 2MNK over the
-    peak and the bytes over the HBM rate: inputs read once, the output
-    written once) and F.linear on the same bf16 operands. Then the sums per
-    forward (calls x ms) and the compute-bound shapes with M >= 20480 and K,
-    N >= 640 below 40% of the peak."""
+@contextlib.contextmanager
+def _gemm_f32_block_n(block_n):
+    """ds_ln_gemm_f32 at the other column width of its planner (the ring
+    stages as the planner gives them at that width), inside the block."""
+    plan = cuda_lib.gemm_f32_tile
+    cuda_lib.gemm_f32_tile = lambda M, K, N, mode=cuda_lib.MODE_STORE: plan(M, K, N, mode, block_n=block_n)
+    try:
+        yield
+    finally:
+        cuda_lib.gemm_f32_tile = plan
+
+
+def _phase_gemms(calls, dt=BF, phase="phase 3"):
+    """The GEMM table: every distinct ds_ln_gemm call of a batch-8 i2v
+    forward against ln_gemm_plain, bf16 (``calls`` of the phase-2 forward)
+    or fp32 (``ds_ln_gemm_f32``, the phase-10 forward's). Gates: in bf16 max
+    error within TOL_REL of max|plain|, L2 error within TOL_BRANCH_REL_L2 of
+    the op's own output (plain - residual in mode 1); in fp32 within TOL_F32
+    of max|plain| and TOL_F32 in L2, and bit-exact on a rerun. Per shape
+    kernel ms (the prologue passes included), TFLOP/s and share of the peak
+    (bf16: 989; fp32: the bound at 494.7 / 3 TFLOP/s and the one at the CUDA
+    cores' 67), bound (the larger of 2MNK over the peak and the bytes over
+    the HBM rate: inputs read once, the output written once), F.linear on
+    the same operands (fp32: TF32 off), and in fp32 the plain version's ms
+    and the kernel at the planner's other column width. Then the sums per
+    forward (calls x ms) and the compute-bound shapes with M >= 20480 and
+    K, N >= 640 below 40% of the peak."""
     rn = _gen()
+    fp32 = dt == F32
+    peak = PEAK_TF32X3 if fp32 else PEAK_BF16
+    where = FP32_I2V if fp32 else I2V_FWD
     bad, low = [], []
     tot = collections.Counter()
     for key, n in sorted(calls.items(), key=lambda kv: -kv[0][0][0] * kv[0][0][1] * kv[0][1][0]):
         (M, K), (N, _), pro, rps, fmap, has_bias, mode = key
-        x, w, kw = _gemm_case(key, rn)
+        x, w, kw = _gemm_case(key, rn, dt)
         got = cuda_lib.ln_gemm(x, w, **kw)
         ref = cuda_lib.ln_gemm_plain(x, w, **kw)
         torch.cuda.synchronize()
         diff = got.float() - ref.float()
         err = float(diff.abs().max())
-        tol = TOL_REL * max(1.0, float(ref.float().abs().max()))
         own = ref.float() - (kw["residual"].float() if mode == cuda_lib.MODE_RESIDUAL else 0.0)
         rel = float(diff.norm() / own.norm())
-        ok = bool(torch.isfinite(got).all()) and err <= tol and rel <= TOL_BRANCH_REL_L2
+        if fp32:
+            tol, tol_l2 = TOL_F32 * float(ref.abs().max()), TOL_F32
+            same = bool(torch.equal(cuda_lib.ln_gemm(x, w, **kw), got))
+        else:
+            tol, tol_l2, same = TOL_REL * max(1.0, float(ref.float().abs().max())), TOL_BRANCH_REL_L2, True
+        ok = bool(torch.isfinite(got).all()) and err <= tol and rel <= tol_l2 and same
         ins = [x, w, got, kw.get("bias"), kw.get("residual"), *(kw.get("ln") or ()), *(kw.get("gn") or ())]
         nbytes = sum(t.numel() * t.element_size() for t in ins if t is not None)
         del got, ref, diff, own
         flops = 2 * M * N * K
-        op_ms, byte_ms = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+        op_ms, byte_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(op_ms, byte_ms)
         ms = _time_ms(lambda: cuda_lib.ln_gemm(x, w, **kw), 10)
         lib_ms = _time_ms(lambda: F.linear(x, w), 10)
-        share = flops / (ms * 1e-3) / PEAK_BF16
-        tile = cuda_lib.gemm_tile(M, K, N, mode)
-        print(f"phase 3 gemm M={M} K={K} N={N} {pro} {MODE_NAMES[mode]}"
-              + (f" rows/sample {rps}" if pro == "GN" else "") + (f" map {fmap}" if fmap else "")
-              + f" x{n} per forward: tile 128x{tile.block_n}x{tile.stages} max_abs_err {err:.5f} (tol {tol:.5f}) "
-              f"rel_l2 {rel:.5f} (tol {TOL_BRANCH_REL_L2}) kernel {ms:.3f} ms ({flops / ms / 1e9:.0f} TFLOP/s, "
-              f"{100 * share:.1f}% of 989) bound {max(op_ms, byte_ms):.4f} ms "
-              f"({'bytes' if byte_ms >= op_ms else 'operations'}) F.linear {lib_ms:.3f} ms "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+        share = flops / (ms * 1e-3) / peak
+        tile = (cuda_lib.gemm_f32_tile if fp32 else cuda_lib.gemm_tile)(M, K, N, mode)
+        line = (f"{phase} gemm M={M} K={K} N={N} {pro} {MODE_NAMES[mode]}"
+                + (f" rows/sample {rps}" if pro == "GN" else "") + (f" map {fmap}" if fmap else "")
+                + f" x{n} per forward: tile 128x{tile.block_n}x{tile.stages} ")
+        if fp32:
+            line += (f"max_abs_err {err:.5g} (tol {tol:.5g}, bit-exact rerun {same}) rel_l2 {rel:.5g} (tol {tol_l2}) "
+                     f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.1f}% of the bound) "
+                     f"bound {bound:.4f} ms ({'bytes' if byte_ms >= op_ms else 'operations'}) F.linear {lib_ms:.3f} ms")
+        else:
+            line += (f"max_abs_err {err:.5f} (tol {tol:.5f}) rel_l2 {rel:.5f} (tol {tol_l2}) kernel {ms:.3f} ms "
+                     f"({flops / ms / 1e9:.0f} TFLOP/s, {100 * share:.1f}% of 989) bound {bound:.4f} ms "
+                     f"({'bytes' if byte_ms >= op_ms else 'operations'}) F.linear {lib_ms:.3f} ms")
+        if fp32:
+            other = 64 if tile.block_n == 128 else 128
+            legal = mode != cuda_lib.MODE_GEGLU or (N // 2) % (other // 2) == 0
+            with _gemm_f32_block_n(other):
+                other_ms = _time_ms(lambda: cuda_lib.ln_gemm(x, w, **kw), 10) if legal else float("nan")
+            plain_ms = _time_ms(lambda: cuda_lib.ln_gemm_plain(x, w, **kw), 3)
+            bound_cc = max(flops / PEAK_FP32 * 1e3, byte_ms)
+            line += (f" plain {plain_ms:.3f} ms; bound at 67 TFLOP/s {bound_cc:.4f} ms "
+                     f"({100 * bound_cc / ms:.1f}%); at BN {other} {other_ms:.3f} ms")
+            tot["plain"] += n * plain_ms
+            tot["bound_cc"] += n * bound_cc
+        print(line + f" {'ok' if ok else 'FAIL'}", flush=True)
         tot["ms"] += n * ms
         tot["lib"] += n * lib_ms
-        tot["bound"] += n * max(op_ms, byte_ms)
+        tot["bound"] += n * bound
         tot["calls"] += n
         if not ok:
             bad.append(str(key))
@@ -1597,11 +1662,13 @@ def _phase_gemms(calls):
             low.append(f"M={M} K={K} N={N} {pro} {MODE_NAMES[mode]} {100 * share:.1f}%")
         del x, w, kw
     torch.cuda.empty_cache()
-    print(f"phase 3 gemm sums per {I2V_FWD} ({tot['calls']} calls, {len(calls)} shapes): kernel {tot['ms']:.2f} ms, "
-          f"F.linear {tot['lib']:.2f} ms, bound {tot['bound']:.2f} ms; compute-bound shapes with M >= 20480, "
-          f"K, N >= 640 below 40% of 989 TFLOP/s: {low or 'none'}", flush=True)
+    print(f"{phase} gemm sums per {where} ({tot['calls']} calls, {len(calls)} shapes): kernel {tot['ms']:.2f} ms, "
+          f"F.linear {tot['lib']:.2f} ms, bound {tot['bound']:.2f} ms"
+          + (f", plain {tot['plain']:.2f} ms, bound at 67 TFLOP/s {tot['bound_cc']:.2f} ms" if fp32 else "")
+          + f"; compute-bound shapes with M >= 20480, K, N >= 640 below 40% of "
+          + ("the bound" if fp32 else "989 TFLOP/s") + f": {low or 'none'}", flush=True)
     if bad:
-        _fail(f"ds_ln_gemm disagrees with ln_gemm_plain at {bad}")
+        _fail(f"{'ds_ln_gemm_f32' if fp32 else 'ds_ln_gemm'} disagrees with ln_gemm_plain at {bad}")
 
 
 # the ladder's levels, highest first
@@ -2851,7 +2918,9 @@ def _fp32_kernels(sites):
         ran = [w for w in FP32_FORWARDS if sums[w][k]]
         if not ran:
             _fail(f"phase 10: {k} ran in none of the batch-8 fp32 forwards")
-        records[k] = _record(k, sums[ran[0]][k], max_err, bound_by, ran[0])
+        records[k] = {**_record(k, sums[ran[0]][k], max_err, bound_by, ran[0]),
+                      "bound_cc_ms": sums[ran[0]][k]["bound_cc_ms"]}
+    _phase_gemms(GEMM_SITES[FP32_I2V], F32, "phase 10")
     return records
 
 

@@ -1,8 +1,7 @@
-// The fp32 flash-attention tile of head dim 64 shared by attention_f32.cu
-// (ds_flash_attention_f32, the core of K2 and K3) and block_f32.cu (the
-// attention inside kernels 11 and 13): it multiplies and accumulates in
-// fp32 on the CUDA cores (FFMA) and takes the exponentials with expf; one
-// block's work, its phases separated by barriers.
+// The fp32 flash-attention tile of head dim 64 inside kernels 11 and 13
+// (block_f32.cu): it multiplies and accumulates in fp32 on the CUDA cores
+// (FFMA) and takes the exponentials with expf; one block's work, its phases
+// separated by barriers.
 
 #pragma once
 

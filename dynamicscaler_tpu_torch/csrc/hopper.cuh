@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the TMA/wgmma kernels (gemm.cu: ds_ln_gemm;
 // attention.cu: ds_flash_attention; block.cu: kernels 10 and 12; mega.cu:
-// kernels 11 and 13): mbarriers
+// kernels 11 and 13; at fp32 gemm_f32.cu: ds_ln_gemm_f32 and attention_f32.cu:
+// ds_flash_attention_f32 on tf32 wgmma): mbarriers
 // (local and across a thread-block cluster), TMA tile copies (plain and
 // multicast to a cluster), wgmma descriptors and instructions, and the
 // host-side tensor-map encoder.
@@ -334,6 +335,103 @@ struct WgmmaRegA<64> {
   }
 };
 
+// ---- tf32 wgmma (the fp32 kernels' three-product split) ----------------------
+//
+// tf32 operands are 32-bit and K-major only (no transpose for 32-bit types): a
+// 128-byte swizzle row holds 32 fp32 values, and one k8 step further is +32
+// bytes of the start address (+2 in smem_desc), as a k16 step of bf16 is.
+// The tensor core reads the top 19 bits of an fp32 operand (sign, exponent,
+// 10 mantissa bits) and drops the rest, so the fp32 kernels hand it values
+// already rounded to tf32 (tf32_rna) and carry what the rounding dropped as a
+// second operand: x = hi + lo, hi = tf32(x), lo = tf32(x - hi), and
+// a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi to fp32 accuracy (a_lo.b_lo, about
+// 2^-22 of a.b, is left out).
+
+// x rounded to tf32 (nearest, ties away from zero): an fp32 bit pattern whose
+// 13 low mantissa bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// hi = tf32(x), lo = tf32(x - hi) (x - hi is exact in fp32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// D[64 x N] = A[64 x 8] (shared, K-major) * B[N x 8]^T (shared, K-major)
+// [+ D where scale_d != 0], tf32 operands, fp32 accumulators in the layout of
+// Wgmma<N>.
+template <int N>
+struct WgmmaTf32;
+
+// D[64 x N] = A[64 x 8] (registers) * B[N x 8]^T (shared, K-major) [+ D where
+// scale_d != 0]. Thread (warp w of the warpgroup, lane l) holds A at rows
+// 16w + l/4 (a[0], a[2]) and 16w + l/4 + 8 (a[1], a[3]), columns l%4 (a[0],
+// a[1]) and l%4 + 4 (a[2], a[3]): the m16n8k8 tf32 A fragment of each warp's
+// 16 rows.
+template <int N>
+struct WgmmaTf32RegA;
+
+template <>
+struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32RegA<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32RegA<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
 // ---- host side ------------------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -357,14 +455,16 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of rank 2 or 3 (dims innermost first, byte strides of
-// the outer dims), 128-byte swizzle, zero fill out of bounds.
+// A tensor map of rank 2 or 3 (dims innermost first, byte strides of the
+// outer dims), 128-byte swizzle, zero fill out of bounds; bf16 elements unless
+// `type` says otherwise (the fp32 kernels: CU_TENSOR_MAP_DATA_TYPE_FLOAT32).
 static bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box) {
+                     const cuuint64_t* strides, const cuuint32_t* box,
+                     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled enc = encode_tiled();
   const cuuint32_t unit[3] = {1, 1, 1};
   return enc != nullptr &&
-         enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box, unit,
+         enc(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

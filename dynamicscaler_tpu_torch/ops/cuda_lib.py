@@ -20,8 +20,12 @@ for 11 and 13) and the TMA maps of their weights (:func:`block_maps`,
 the route of kernel 9's one call, GroupNorm [+ SiLU] with its statistics.
 
 Activations are bf16 or fp32. An fp32 activation takes the fp32 kernels
-wherever a bf16 one takes the bf16 kernels: ``gemm_f32.cu::ds_ln_gemm_f32``,
-``attention_f32.cu``'s two attention cores, ``gn_silu.cu``'s kernels
+wherever a bf16 one takes the bf16 kernels: ``gemm_f32.cu::ds_ln_gemm_f32``
+(its tile from :func:`gemm_f32_tile`, its weights split once each by
+:func:`tf32_split_weights`), ``attention_f32.cu``'s two attention cores (the
+GEMM and the flash attention multiply on the tensor cores through a
+three-product tf32 split, :func:`matmul_3xtf32` its plain model for the
+tests), ``gn_silu.cu``'s kernels
 instantiated at fp32 (K1-K9 and the statistics), and ``block_f32.cu``'s
 whole blocks and whole transformers (kernels 10-13, each with a slot of
 scratch a block, :func:`block_f32_scratch`).
@@ -56,6 +60,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "ds_ln_gemm": (_P, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P),
     "ds_ln_gemm_f32": (_P, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P),
+    "ds_tf32_split": (_P, _L, _P, _P),
     "ds_gn_silu": (_P, _I, _L, _I, _P, _P, _I, _P, _I, _P),
     "ds_gn_stats": (_P, _I, _I, _L, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P),
     "ds_group_norm_silu": (_P, _I, _L, _I, _I, _P, _P, _I, _F, _I, _I, _I, _L, _I, _I, _P, _P, _I, _P),
@@ -211,6 +216,37 @@ def check_dtypes(name: str, *tensors) -> torch.dtype:
     return dts.pop()
 
 
+_split_lock = threading.Lock()
+_split_weights = {}  # (storage address, offset, shape, stride) -> (weak ref to the storage, version, [2, N, K])
+
+
+def tf32_split_weights(w: torch.Tensor) -> torch.Tensor:
+    """The fp32 weight ``w`` [N, K] on the card split for ``ds_ln_gemm_f32``:
+    [2, N, K], W_hi = tf32(W) and W_lo = tf32(W - W_hi) (``ds_tf32_split``).
+    Computed at a weight's first use and kept while its storage lives and
+    is not changed in place (a view or ``detach()`` of the same weight finds
+    the same entry, so callers that cast or reshape their weights on every
+    call still split them once); twice the weight's bytes on the card. An
+    inference tensor (the operands a module packs inside the forward's
+    ``torch.inference_mode``) has no version counter: its entry holds while
+    its storage lives."""
+    from torch.multiprocessing.reductions import StorageWeakRef
+
+    storage = w.untyped_storage()
+    key = (storage.data_ptr(), w.storage_offset(), tuple(w.shape), w.stride())
+    version = None if w.is_inference() else w._version
+    with _split_lock:
+        hit = _split_weights.get(key)
+        if hit is not None and not hit[0].expired() and hit[1] == version:
+            return hit[2]
+        for k in [k for k, v in _split_weights.items() if v[0].expired()]:
+            del _split_weights[k]
+        out = torch.empty((2, *w.shape), device=w.device, dtype=torch.float32)
+        call("ds_tf32_split", ptr(w), w.numel(), ptr(out))
+        _split_weights[key] = (StorageWeakRef(storage), version, out)
+        return out
+
+
 def ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
@@ -280,11 +316,78 @@ def gemm_smem(block_n: int, stages: int) -> int:
     return stages * (GEMM_BM + block_n) * GEMM_BK * 2 + GEMM_BM * (block_n + 8) * 2 + 16 * stages + 1024
 
 
-# ds_ln_gemm_f32's tile (csrc/gemm_f32.cu): 128 x 128 a block of 256 threads,
-# K in steps of 16 through two static shared-memory buffers of A and B
-# (k-major, rows padded by 4 floats), two blocks an SM
-GEMM_F32_BK = 16
-GEMM_F32_TILE = GemmTile(128, 2, 2 * GEMM_F32_BK * 2 * (128 + 4) * 4)
+# ds_ln_gemm_f32's tile (csrc/gemm_f32.cu): 128 rows x BN columns a tile, K in
+# steps of 32 (one 128-byte swizzle row of fp32) through a ring of `stages`
+# stages of A, W_hi and W_lo (tf32_split_weights), two mbarriers a stage;
+# a persistent grid of one block per SM. BN is at most 128: a consumer thread
+# holds the tile's accumulators and a stage's own, BN / 2 each.
+GEMM_F32_BK = 32
+GEMM_F32_BLOCK_N = (128, 64)
+GEMM_F32_MAX_STAGES = 8
+# relative time per output column of a tile at each BN: at 64 a consumer
+# loads and splits its A values for half as many products, and the ring
+# carries twice the A bytes per product (phase 10 of chip_smoke.py times
+# every shape at the other width too)
+_GEMM_F32_COLUMN_COST = {128: 1.0, 64: 1.5}
+
+
+def gemm_f32_smem(block_n: int, stages: int) -> int:
+    """Shared memory of a ``ds_ln_gemm_f32`` block, as ``csrc/gemm_f32.cu``
+    reckons it: the alignment pad, the ring (A 128 x 32, B and its remainders
+    block_n x 32 each, fp32) and two mbarriers a stage."""
+    return 1024 + stages * (GEMM_BM + 2 * block_n) * GEMM_F32_BK * 4 + 16 * stages
+
+
+def gemm_f32_tile(M: int, K: int, N: int, mode: int = MODE_STORE, block_n: int | None = None) -> GemmTile:
+    """The tile of ``ds_ln_gemm_f32`` at [M, K] x [N, K]: the BN whose rounds
+    of tiles over the 132 SMs take least time by :data:`_GEMM_F32_COLUMN_COST`
+    (GEGLU pairs value and gate columns, so there BN / 2 must divide N / 2),
+    then as many ring stages as K has steps and shared memory holds (at least
+    2). ``block_n`` fixes BN (chip_smoke.py times the width not chosen)."""
+    cands = [bn for bn in GEMM_F32_BLOCK_N if (block_n is None or bn == block_n)
+             and (mode != MODE_GEGLU or (N // 2) % (bn // 2) == 0)]
+    m_tiles = -(-M // GEMM_BM)
+
+    def cost(bn):
+        return -(-m_tiles * gemm_n_tiles(N, bn, mode) // GEMM_SMS) * bn * _GEMM_F32_COLUMN_COST[bn]
+    bn = min(cands, key=cost)
+    fit = max(s for s in range(2, GEMM_F32_MAX_STAGES + 1) if gemm_f32_smem(bn, s) <= GEMM_SMEM_MAX)
+    stages = max(2, min(fit, -(-K // GEMM_F32_BK)))
+    return GemmTile(bn, stages, gemm_f32_smem(bn, stages))
+
+
+def gemm_n_tiles(N: int, block_n: int, mode: int = MODE_STORE) -> int:
+    """Column tiles of a GEMM over W [N, K] at width block_n (in GEGLU a tile
+    holds block_n / 2 value and as many gate columns)."""
+    return N // block_n if mode == MODE_GEGLU else -(-N // block_n)
+
+
+def gemm_grid(M: int, N: int, block_n: int, mode: int = MODE_STORE) -> int:
+    """Blocks of a ``ds_ln_gemm`` / ``ds_ln_gemm_f32`` launch: one a tile, at
+    most one a streaming multiprocessor (the grid is persistent)."""
+    return min(-(-M // GEMM_BM) * gemm_n_tiles(N, block_n, mode), GEMM_SMS)
+
+
+# ds_flash_attention_f32 (csrc/attention_f32.cu): tiles of 128 query rows of
+# one (sample, head) on a persistent grid; key tiles of 64 through a ring of
+# 2 slots, each the raw K (rounded in place) and its remainders, the raw V,
+# and V^T rounded and its remainders ([64, 64] fp32 each); Q rounded in place
+# and its remainders ([128, 64] fp32 each); two mbarriers for Q and three a slot
+FLASH_F32_BQ, FLASH_F32_BK, FLASH_F32_SLOTS = 128, 64, 2
+
+
+def flash_f32_smem() -> int:
+    """Shared memory of a ``ds_flash_attention_f32`` block, as
+    ``csrc/attention_f32.cu`` reckons it (the same at every N and segment
+    layout: a segment is streamed in key tiles of 64)."""
+    tile = FLASH_F32_BK * 64 * 4
+    return 1024 + 2 * FLASH_F32_BQ * 64 * 4 + FLASH_F32_SLOTS * 5 * tile + 8 * (2 + 3 * FLASH_F32_SLOTS)
+
+
+def flash_grid(B: int, Nq: int, heads: int) -> int:
+    """Blocks of a ``ds_flash_attention_f32`` launch: one a tile of 128 query
+    rows of one (sample, head), at most one a streaming multiprocessor."""
+    return min(B * heads * -(-Nq // FLASH_F32_BQ), GEMM_SMS)
 
 
 def gemm_tile(M: int, K: int, N: int, mode: int = MODE_STORE) -> GemmTile:
@@ -578,8 +681,9 @@ def ln_gemm_plain(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, fram
     rounded to the activation type, the product accumulated in fp32, bias
     added in fp32, then rounded; the residual added in the activation type;
     GEGLU on the rounded value and gate (at fp32 none of these roundings
-    exists: ``ds_ln_gemm_f32`` computes it in one pass). Never on the main
-    path: the reference for the kernels in tests and ``chip_smoke.py``."""
+    exists, and the products are exact fp32, which ``ds_ln_gemm_f32``'s
+    three tf32 products match to fp32's error). Never on the main path: the
+    reference for the kernels in tests and ``chip_smoke.py``."""
     M, K = x2d.shape
     N = w.shape[0]
     dt = x2d.dtype
@@ -613,6 +717,42 @@ def ln_gemm_plain(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, fram
         out[rows] = y
         y = out
     return y
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to tf32 as ``cvt.rna.tf32.f32`` and
+    ``hopper.cuh::tf32_rna`` round it (to nearest, ties away from zero: the
+    13 low mantissa bits cleared after adding half their range to the
+    magnitude; inf and NaN unchanged). A plain model of the split for the
+    tests; the kernels never call it."""
+    bits = x.float().contiguous().view(torch.int32)
+    special = (bits & 0x7F800000) == 0x7F800000
+    return torch.where(special, bits, (bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi), as ``hopper.cuh::
+    split_tf32`` computes them (a plain model for the tests)."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x.float() - hi)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor, *, terms: int = 3, bk: int = GEMM_F32_BK) -> torch.Tensor:
+    """A plain model of the fp32 kernels' products: a [M, K] @ b [K, N] with
+    both operands split (:func:`split_tf32`); each k step of ``bk`` sums its
+    products a_lo.b_hi + a_hi.b_lo + a_hi.b_hi exactly (tf32 products are
+    exact in fp32; float64 here) into a partial rounded to fp32, and the
+    partials are added in fp32, one step after another, as a consumer of
+    ``ds_ln_gemm_f32`` adds a stage's accumulator to the tile's.
+    ``terms=1``: a_hi.b_hi alone, one tf32 product. For the tests only."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    ah, al, bh, bl = (t.double() for t in (ah, al, bh, bl))
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k in range(0, a.shape[1], bk):
+        s = slice(k, k + bk)
+        part = ah[:, s] @ bh[s] if terms == 1 else (ah[:, s] + al[:, s]) @ (bh[s] + bl[s]) - al[:, s] @ bl[s]
+        acc = acc + part.float()
+    return acc
 
 
 def _check_ln_gemm(M, K, N, *, ln, gn, rows_per_sample, frame_map, residual, mode):
@@ -656,7 +796,8 @@ def ln_gemm(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, frame_map=
     in the frame-major order of a [B, F, H, W, .] tensor, logical row
     ``(b*HW + hw)*F + f``. Combinations the kernel does not take, and a
     mix of activation types, raise ValueError on every device; CPU tensors
-    take :func:`ln_gemm_plain`."""
+    take :func:`ln_gemm_plain`. An fp32 ``w`` is split for the tensor cores
+    at its first use (:func:`tf32_split_weights`)."""
     M, K = x2d.shape
     N = w.shape[0]
     n_out = N // 2 if mode == MODE_GEGLU else N
@@ -680,13 +821,11 @@ def ln_gemm(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, frame_map=
         check_operand("residual", residual, dt, (M, n_out))
     y = torch.empty((M, n_out), device=x2d.device, dtype=dt)
     map_f, map_hw = frame_map or (0, 0)
+    # the prologue pass's normalised rows, read by the GEMM
+    scratch = torch.empty_like(x2d) if ln is not None or gn is not None else None
     if dt == torch.float32:
-        # the LayerNorm statistics [M, 2]; the prologue applies as the GEMM stages its tiles
-        scratch = torch.empty(2 * M, device=x2d.device, dtype=torch.float32) if ln is not None else None
-        name, tile = "ds_ln_gemm_f32", GEMM_F32_TILE
+        name, tile, w = "ds_ln_gemm_f32", gemm_f32_tile(M, K, N, mode), tf32_split_weights(w)
     else:
-        # the prologue pass's normalised rows (X's stored order), read by the GEMM
-        scratch = torch.empty_like(x2d) if ln is not None or gn is not None else None
         name, tile = "ds_ln_gemm", gemm_tile(M, K, N, mode)
     call(
         name, ptr(x2d), M, K, ptr(ln[0] if ln else None), ptr(ln[1] if ln else None),

@@ -15,9 +15,12 @@ kernels 10-13). Here:
   kernels 11 and 13 the ``ds_ln_gemm_f32`` heads before the body);
 * the planners at 4-byte elements: ``gn_plan``'s route at every GroupNorm
   call of the full-width forwards and of the VAE within the shared memory
-  of a block, the fp32 GEMM's one tile at every GEMM shape and the scratch
-  of kernels 10-13 at every transformer of the full-width batch-8 i2v
-  forward;
+  of a block, the fp32 GEMM's tile (``gemm_f32_tile``: BN, ring stages,
+  shared memory, GEGLU pairing, the persistent grid) at every GEMM shape of
+  the forward and every shape its gates admit, the tensor-core flash
+  kernel's shared memory and grid at N 40-2560 and both cross segment
+  layouts, and the scratch of kernels 10-13 at every transformer of the
+  full-width batch-8 i2v forward;
 * the plain versions at fp32, composed as the card composes the kernels,
   against the JAX Pallas kernels in interpret mode at the main path's head
   geometry (C 320, 5 heads of 64, few tokens): TA inside K1, FA inside K2
@@ -61,7 +64,6 @@ from torch_port_helpers import i2v_transformers
 
 F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 SMEM_MAX = 232448  # dynamic shared memory a block may have on the H100
-STATIC_SMEM_MAX = 49152  # static shared memory a block may have
 C, HEADS, SCALE = 320, 5, 64 ** -0.5
 REL_L2 = 1e-5
 
@@ -190,6 +192,19 @@ def _fake_card(monkeypatch):
     return calls
 
 
+def _kernel_calls(calls):
+    """The recorded calls less ``ds_tf32_split``, after checking that every
+    ``ds_ln_gemm_f32`` reads as W [2, N, K] the output of a split recorded
+    before it (its weights split once, at their first use)."""
+    split = set()
+    for name, args in calls:
+        if name == "ds_tf32_split":
+            split.add(args[2].value)
+        elif name == "ds_ln_gemm_f32":
+            assert args[11].value in split
+    return [(name, args) for name, args in calls if name != "ds_tf32_split"]
+
+
 # kernel -> (a call at fp32 on fake CUDA tensors, its body's entry point, its pointers, the ds_ln_gemm_f32
 # heads before the body: the context K|V per segment, kernel 13's proj_in, LN1 -> q|k|v)
 _CW = 128
@@ -227,6 +242,7 @@ def test_whole_block_wrappers_name_their_fp32_kernels(monkeypatch, kernel):
     run, name, n_ptrs, heads_gemms = _whole_calls()[kernel]
     before = WHOLE[kernel].launches
     out = run()
+    calls = _kernel_calls(calls)
     assert [c[0] for c in calls] == ["ds_ln_gemm_f32"] * heads_gemms + [name]
     args = calls[-1][1]
     assert len(args[0]) == n_ptrs and out.dtype == F32 and WHOLE[kernel].launches == before + 1
@@ -251,18 +267,66 @@ def test_whole_block_wrappers_name_their_fp32_kernels(monkeypatch, kernel):
 def test_ln_gemm_names_the_fp32_kernel_with_its_tile(monkeypatch):
     calls = _fake_card(monkeypatch)
     M, K, N = 300, 64, 192
-    y = cuda_lib.ln_gemm(_z(M, K), _z(N, K), ln=(_vec(K), _vec(K)), bias=_vec(N))
+    w = _z(N, K)
+    y = cuda_lib.ln_gemm(_z(M, K), w, ln=(_vec(K), _vec(K)), bias=_vec(N))
+    assert [c[0] for c in calls] == ["ds_tf32_split", "ds_ln_gemm_f32"]
+    assert calls[0][1][1] == N * K and calls[-1][1][11].value == calls[0][1][2].value
+    cuda_lib.ln_gemm(_z(M, K), w.detach(), bias=_vec(N))  # the same weight: split once
+    assert [c[0] for c in calls[2:]] == ["ds_ln_gemm_f32"] and calls[-1][1][11].value == calls[0][1][2].value
+    del calls[2:]
     name, args = calls[-1]
-    tile = cuda_lib.GEMM_F32_TILE
+    tile = cuda_lib.gemm_f32_tile(M, K, N)
     assert name == "ds_ln_gemm_f32" and y.dtype == F32 and y.shape == (M, N)
-    assert args[1:3] == (M, K) and args[18:20] == (tile.block_n, 2)
-    assert args[17] is not None  # the LayerNorm statistics [M, 2]
+    assert args[1:3] == (M, K) and args[18:20] == (tile.block_n, tile.stages) == (64, 2)
+    assert args[17] is not None  # the LayerNorm pass's rows [M, K]
     cuda_lib.ln_gemm(_z(M, K), _z(N, K), bias=_vec(N))
     assert calls[-1][0] == "ds_ln_gemm_f32" and calls[-1][1][17] is None  # no prologue, no scratch
     y = cuda_lib.ln_gemm(_z(M, K, dt=BF16), _z(N, K, dt=BF16))
     assert calls[-1][0] == "ds_ln_gemm" and y.dtype == BF16
     y = cuda_lib.ln_gemm(_z(M, K), _z(2 * N, K), ln=(_vec(K), _vec(K)), mode=MODE_GEGLU)
-    assert y.shape == (M, N) and calls[-1][1][18:20] == (128, 2)
+    tile = cuda_lib.gemm_f32_tile(M, K, 2 * N, MODE_GEGLU)
+    assert y.shape == (M, N) and calls[-1][1][18:20] == (tile.block_n, tile.stages)
+
+
+def test_tf32_split_weights_follow_their_weight(monkeypatch):
+    """``tf32_split_weights``: one ``ds_tf32_split`` at a weight's first use
+    ([2, N, K] fp32 out), none for the same storage again (a ``detach()``),
+    a new one after an in-place change or for another view of it, the
+    entry of a weight that is gone dropped at the next split, and an
+    inference tensor (no version counter) split once."""
+    calls = _fake_card(monkeypatch)
+    w = _z(64, 32)
+    first = cuda_lib.tf32_split_weights(w)
+    assert [c[0] for c in calls] == ["ds_tf32_split"] and first.shape == (2, 64, 32) and calls[0][1][1] == 64 * 32
+    assert cuda_lib.tf32_split_weights(w.detach()) is first and len(calls) == 1
+    w.add_(1.0)
+    assert cuda_lib.tf32_split_weights(w) is not first and len(calls) == 2
+    cuda_lib.tf32_split_weights(w.view(32, 64))
+    assert len(calls) == 3
+    key = next(k for k in cuda_lib._split_weights if k[2] == (32, 64))
+    del w
+    cuda_lib.tf32_split_weights(_z(16, 32))
+    assert key not in cuda_lib._split_weights
+    with torch.inference_mode():  # packed inside the forward: no version counter
+        wi = _z(8, 32)
+        split = cuda_lib.tf32_split_weights(wi)
+        assert cuda_lib.tf32_split_weights(wi) is split
+    assert cuda_lib.tf32_split_weights(wi) is split and [c[0] for c in calls].count("ds_tf32_split") == 5
+
+
+@pytest.mark.parametrize("F,H,W", [(16, 5, 8), (16, 5, 5), (8, 6, 6), (32, 4, 8)])
+def test_gemm_f32_head_normalises_in_a_pass(monkeypatch, F, H, W):
+    """Kernel 5 at fp32: ds_ln_gemm_f32 gets the frame map and fp32 scratch
+    [M, K] for its GroupNorm prologue pass (which gathers the rows to
+    logical order at every clip geometry), with the planner's tile."""
+    calls = _fake_card(monkeypatch)
+    Cw = 64
+    ttwrap.head_temporal(_z(2, F, H, W, Cw), _z(2, Cw), _z(2, Cw), _z(Cw, Cw), _vec(Cw))
+    name, args = calls[-1]
+    M = 2 * F * H * W
+    tile = cuda_lib.gemm_f32_tile(M, Cw, Cw)
+    assert name == "ds_ln_gemm_f32" and args[1:3] == (M, Cw) and args[8:11] == (F * H * W, F, H * W)
+    assert args[17] is not None and args[17].value is not None and args[18:20] == (tile.block_n, tile.stages)
 
 
 def test_attention_cores_name_their_fp32_kernels(monkeypatch):
@@ -360,13 +424,9 @@ def test_gn_plan_refuses_other_element_sizes():
         cuda_lib.gn_plan(1, 10, 64, 32, 8)
 
 
-@pytest.mark.parametrize("side,width", [("t", 320), ("t", 512), ("t", 640), ("t", 1280), ("s", 320), ("s", 640),
-                                        ("s", 1280)])
-def test_gemm_f32_tile_at_every_forward_shape(side, width):
-    """Every GEMM of the full-width batch-8 i2v forward at (side, width) in
-    fp32: the one tile of ds_ln_gemm_f32 (128 x 128, a double buffer) whose
-    static shared memory fits a block's 48 KB, and a shape ds_ln_gemm_f32
-    takes (K a multiple of its 16-deep step)."""
+def _forward_gemms(side, width):
+    """(M, K, N, mode) of every GEMM of the full-width batch-8 i2v forward at
+    the transformers of (side, width)."""
     shapes = []
     for s, c, inner, _, H, W in i2v_transformers():
         if (s, inner) != (side, width):
@@ -376,14 +436,95 @@ def test_gemm_f32_tile_at_every_forward_shape(side, width):
                    (T, inner, 8 * inner, MODE_GEGLU), (T, 4 * inner, inner, MODE_RESIDUAL),
                    (T, inner, c, MODE_RESIDUAL)]
         if s == "s":
-            shapes += [(8 * 77, 1024, 2 * inner, MODE_STORE), (8 * 16, 1024, 2 * inner, MODE_STORE)]
+            shapes += [(T, inner, inner, MODE_STORE), (8 * 77, 1024, 2 * inner, MODE_STORE),
+                       (8 * 16, 1024, 2 * inner, MODE_STORE)]
+    return shapes
+
+
+SIDES = [("t", 320), ("t", 512), ("t", 640), ("t", 1280), ("s", 320), ("s", 640), ("s", 1280)]
+
+
+@pytest.mark.parametrize("side,width", SIDES)
+def test_gemm_f32_tile_at_every_forward_shape(side, width):
+    """Every GEMM of the full-width batch-8 i2v forward at (side, width) in
+    fp32: ``gemm_f32_tile``'s BN is 128 or 64 and pairs GEGLU's value and
+    gate columns, its ring has 2 to 8 stages and no more than K has 32-deep
+    steps (at least 2), its shared memory is ``gemm_f32_smem``'s and fits a
+    block, and ds_ln_gemm_f32 takes the shape (K a multiple of its 32-deep
+    step)."""
+    shapes = _forward_gemms(side, width)
     assert shapes
-    tile = cuda_lib.GEMM_F32_TILE
-    assert tile.block_n == 128 and tile.stages == 2 and tile.smem <= STATIC_SMEM_MAX
     for M, K, N, mode in shapes:
-        assert K % cuda_lib.GEMM_F32_BK == 0
+        tile = cuda_lib.gemm_f32_tile(M, K, N, mode)
+        assert tile.block_n in (128, 64) and K % cuda_lib.GEMM_F32_BK == 0
+        assert mode != MODE_GEGLU or (N // 2) % (tile.block_n // 2) == 0
+        assert 2 <= tile.stages <= cuda_lib.GEMM_F32_MAX_STAGES
+        assert tile.stages == 2 or tile.stages <= K // cuda_lib.GEMM_F32_BK
+        assert tile.smem == cuda_lib.gemm_f32_smem(tile.block_n, tile.stages) <= SMEM_MAX
         cuda_lib._check_ln_gemm(M, K, N, ln=None, gn=None, rows_per_sample=0, frame_map=None,
                                 residual=_z(1) if mode == MODE_RESIDUAL else None, mode=mode)
+
+
+@pytest.mark.parametrize("mode", [MODE_STORE, MODE_RESIDUAL, MODE_GEGLU])
+def test_gemm_f32_tile_fits_every_shape_the_gates_admit(mode):
+    """At every K (multiples of 32 up to 5120) and N (multiples of 64 up to
+    10240) that ``_check_ln_gemm`` admits, and M from one tile to the main
+    path's 327680 rows: the tile's shared memory fits a block, its ring
+    holds at least 2 stages, and as many as fit where K has the steps."""
+    for M in (1, 128, 616, 5120, 20480, 81920, 327680):
+        for K in range(32, 5121, 32):
+            for N in range(64, 10241, 64):
+                if mode == MODE_GEGLU and (N // 2) % 32:
+                    continue
+                tile = cuda_lib.gemm_f32_tile(M, K, N, mode)
+                assert tile.smem <= SMEM_MAX and tile.stages >= 2
+                assert cuda_lib.gemm_f32_smem(tile.block_n, tile.stages + 1) > SMEM_MAX \
+                    or tile.stages >= K // cuda_lib.GEMM_F32_BK
+
+
+def test_gemm_f32_tile_pairs_geglu_columns():
+    """GEGLU's tile holds BN / 2 value and BN / 2 gate columns, so BN / 2
+    divides N / 2: where 64 does not divide N / 2 only BN 64 is legal
+    (N / 2 = 32 mod 64), and at the main path's GEGLU widths (N / 2 = 1280,
+    2560, 5120) each tile's value columns land on whole tiles of the gate
+    half."""
+    assert cuda_lib.gemm_f32_tile(4096, 320, 2 * 96, MODE_GEGLU).block_n == 64
+    for half in (1280, 2560, 5120):
+        tile = cuda_lib.gemm_f32_tile(327680, half // 4, 2 * half, MODE_GEGLU)
+        assert half % (tile.block_n // 2) == 0
+        assert cuda_lib.gemm_n_tiles(2 * half, tile.block_n, MODE_GEGLU) * tile.block_n // 2 == half
+
+
+@pytest.mark.parametrize("side,width", SIDES)
+def test_gemm_f32_grid_at_most_one_block_an_sm(side, width):
+    """The persistent grid: one block a tile, never more than the 132 SMs,
+    and every SM busy where there are that many tiles."""
+    for M, K, N, mode in _forward_gemms(side, width):
+        tile = cuda_lib.gemm_f32_tile(M, K, N, mode)
+        tiles = -(-M // 128) * cuda_lib.gemm_n_tiles(N, tile.block_n, mode)
+        grid = cuda_lib.gemm_grid(M, N, tile.block_n, mode)
+        assert grid == min(tiles, 132) and 1 <= grid <= 132
+
+
+# (Nq, key segment lengths): the self-attention at every level of the 40x64
+# latent, the t2v cross-attention (77 text keys) and the i2v one (77 + 16)
+FLASH_SHAPES = [(40, (40,)), (160, (160,)), (640, (640,)), (2560, (2560,)), (2560, (77,)), (2560, (77, 16))]
+
+
+@pytest.mark.parametrize("Nq,lens", FLASH_SHAPES)
+def test_flash_f32_fits_shared_memory(Nq, lens):
+    """ds_flash_attention_f32 at N = 40, 160, 640 and 2560 and at the two
+    cross segments: its block's shared memory (Q and its remainders, two
+    slots of K, K's remainders, V and V^T split in two) fits the H100's
+    232,448 bytes at every shape, with the 1024-byte alignment pad; the
+    keys stream in tiles of 64 (the ragged last one zero-filled), and the
+    grid holds a block an SM at most."""
+    smem = cuda_lib.flash_f32_smem()
+    assert smem == 1024 + 2 * 128 * 256 + 2 * 5 * 64 * 256 + 64 <= SMEM_MAX
+    tiles = [-(-n // cuda_lib.FLASH_F32_BK) for n in lens]
+    assert all(1 <= t and (t - 1) * 64 < n <= t * 64 for t, n in zip(tiles, lens))
+    grid = cuda_lib.flash_grid(8 * 16, Nq, 5)
+    assert grid == min(128 * 5 * -(-Nq // 128), 132)
 
 
 @pytest.mark.parametrize("side,width", [("t", 320), ("t", 512), ("t", 640), ("t", 1280), ("s", 320), ("s", 640),
@@ -716,7 +857,7 @@ def test_fake_card_k1_runs_the_fp32_gemm_and_ta(monkeypatch):
     x = _z(4, 16, 128)
     out = ttemporal.fused_ln_attention(x, _vec(128), _vec(128), *(_z(128, 128),) * 4, _vec(128), heads=2,
                                        scale=0.125)
-    assert [c[0] for c in calls] == ["ds_ln_gemm_f32", "ds_temporal_attention_f32", "ds_ln_gemm_f32"]
+    assert [c[0] for c in _kernel_calls(calls)] == ["ds_ln_gemm_f32", "ds_temporal_attention_f32", "ds_ln_gemm_f32"]
     assert out.dtype == F32 and out.shape == x.shape
     op = ttemporal.pack_ln_attention(_vec(128), _vec(128), *(_z(128, 128, dt=BF16),) * 3, _z(128, 128),
                                      _vec(128), dtype=F32)

@@ -1,0 +1,156 @@
+"""The arithmetic of the fp32 kernels' three-product tf32 split, on the CPU.
+
+``csrc/gemm_f32.cu::ds_ln_gemm_f32`` and ``csrc/attention_f32.cu::
+ds_flash_attention_f32`` multiply fp32 operands on the tensor cores, which
+read only tf32 (10 mantissa bits): each operand is split as x = hi + lo,
+hi = tf32(x), lo = tf32(x - hi) (``cvt.rna.tf32.f32``, ``hopper.cuh::
+split_tf32``), a product runs as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, and the
+products of each 32-deep step are added to the tile's accumulator in fp32.
+``cuda_lib.tf32_rna``, ``split_tf32`` and ``matmul_3xtf32`` are plain models
+of that arithmetic (the kernels never call them). Here:
+
+* hi is a tf32 value (its 13 low mantissa bits zero) and hi + lo gives x
+  back within 2^-22 of |x|;
+* at every GEMM shape of K1-K8 in the full-width batch-8 i2v forward (K and
+  N as the forward has them, M cut to 256; inputs N(0, 1), weights
+  N(0, 1 / K), seeded numpy) the model's largest error stays within a tenth
+  of ``chip_smoke.TOL_F32`` (1e-5, the per-kernel gate on the card) of the
+  largest |exact| (float64) value, and its L2 error within a tenth of
+  TOL_F32 of the exact product's norm;
+* a single tf32 product (a_hi.b_hi) misses that gate, so the gate tells a
+  one-product kernel from the split;
+* P V with P in [0, 1] (softmax probabilities, 64 to 2560 keys) against
+  V N(0, 1) holds the same gate.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dynamicscaler_tpu_torch.ops import cuda_lib
+from torch_port_helpers import i2v_transformers
+
+TOL_F32 = 1e-5  # chip_smoke.TOL_F32: each fp32 kernel within 1e-5 of max|plain|, L2 within 1e-5
+MARGIN = 10.0
+
+
+def _errors(got, exact):
+    """(largest error / largest |exact|, L2 error / L2 norm) against float64."""
+    d = got.double() - exact
+    return float(d.abs().max() / exact.abs().max()), float(d.norm() / exact.norm())
+
+
+def test_hi_is_tf32_and_hi_plus_lo_is_x():
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(np.concatenate([rng.standard_normal(100_000), rng.standard_normal(1000) * 1e-30,
+                                         rng.standard_normal(1000) * 1e30, [0.0, 1.0, -1.0, 2.0 ** -126]])
+                         .astype(np.float32))
+    hi, lo = cuda_lib.split_tf32(x)
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert int((lo.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    back = hi.double() + lo.double()
+    assert bool(((back - x.double()).abs() <= 2.0 ** -22 * x.double().abs()).all())
+    assert bool(((hi - x).abs() <= 2.0 ** -11 * x.abs()).all())  # to nearest: within half a tf32 ulp
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """The tie 1 + 2^-11 (half a tf32 ulp above 1) rounds away from zero to
+    1 + 2^-10, as ``cvt.rna`` does; just below it rounds down."""
+    one = 1.0
+    x = torch.tensor([one + 2.0 ** -11, -(one + 2.0 ** -11), one + 2.0 ** -11 - 2.0 ** -23, one + 2.0 ** -12],
+                     dtype=torch.float32)
+    got = cuda_lib.tf32_rna(x).tolist()
+    assert got == [one + 2.0 ** -10, -(one + 2.0 ** -10), one, one]
+
+
+def _gemm_shapes():
+    """(K, N) of every GEMM of K1-K8 in the full-width batch-8 i2v forward."""
+    shapes = set()
+    for side, c, inner, _, _, _ in i2v_transformers():
+        shapes |= {(c, inner), (inner, 3 * inner), (inner, inner), (inner, 8 * inner), (4 * inner, inner),
+                   (inner, c)}
+        if side == "s":
+            shapes.add((1024, 2 * inner))
+    return sorted(shapes)
+
+
+GEMM_SHAPES = _gemm_shapes()
+
+
+def _operands(K, N, seed):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((256, K)).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32))
+    return a, b
+
+
+@pytest.mark.parametrize("K,N", GEMM_SHAPES)
+def test_3xtf32_holds_the_fp32_gate_at_every_forward_gemm(K, N):
+    a, b = _operands(K, N, K * 100_003 + N)
+    exact = a.double() @ b.double()
+    err, l2 = _errors(cuda_lib.matmul_3xtf32(a, b), exact)
+    assert err <= TOL_F32 / MARGIN and l2 <= TOL_F32 / MARGIN, (K, N, err, l2)
+
+
+@pytest.mark.parametrize("K,N", [GEMM_SHAPES[0], GEMM_SHAPES[len(GEMM_SHAPES) // 2], GEMM_SHAPES[-1]])
+def test_one_tf32_product_misses_the_gate(K, N):
+    a, b = _operands(K, N, K * 100_003 + N)
+    exact = a.double() @ b.double()
+    err, l2 = _errors(cuda_lib.matmul_3xtf32(a, b, terms=1), exact)
+    assert err > TOL_F32 and l2 > TOL_F32, (K, N, err, l2)
+
+
+@pytest.mark.parametrize("keys", [64, 93, 640, 2560])
+def test_3xtf32_pv_holds_the_gate(keys):
+    """O = P V as the flash kernel forms it (P from the softmax, in [0, 1],
+    V N(0, 1), head dim 64); the one-product P V misses the gate."""
+    rng = np.random.default_rng(keys)
+    logits = rng.standard_normal((256, keys)) * 2.0
+    p = np.exp(logits - logits.max(axis=1, keepdims=True))
+    P = torch.from_numpy(p.astype(np.float32))
+    V = torch.from_numpy(rng.standard_normal((keys, 64)).astype(np.float32))
+    exact = P.double() @ V.double()
+    err, l2 = _errors(cuda_lib.matmul_3xtf32(P, V, bk=64), exact)
+    assert err <= TOL_F32 / MARGIN and l2 <= TOL_F32 / MARGIN, (keys, err, l2)
+    err1, l21 = _errors(cuda_lib.matmul_3xtf32(P, V, terms=1, bk=64), exact)
+    assert err1 > TOL_F32 and l21 > TOL_F32, (keys, err1, l21)
+
+
+def _rz32(x):
+    """float64 -> fp32 rounded towards zero."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _tensor_core(a, b, k0, k1, acc):
+    """The tensor core's products over k0..k1 into fp32 ``acc``: per k8 step
+    the three split products, each added to the accumulator exactly and
+    rounded towards zero."""
+    (ah, al), (bh, bl) = cuda_lib.split_tf32(a), cuda_lib.split_tf32(b)
+    ah, al, bh, bl = (t.double().numpy() for t in (ah, al, bh, bl))
+    for k in range(k0, k1, 8):
+        s = slice(k, k + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc = _rz32(acc.astype(np.float64) + x[:, s] @ y[s])
+    return acc
+
+
+@pytest.mark.parametrize("K", [1280, 5120])
+def test_accumulating_towards_zero_needs_the_per_stage_fold(K):
+    """Why ds_ln_gemm_f32 adds each 32-deep stage's products to the tile's
+    accumulator in fp32: the tensor core rounds its additions towards zero,
+    a bias that grows with K. Modelled so, one accumulator over the whole K
+    misses the gate at the UNet's K of 1280 and 5120, while a fresh
+    accumulator a stage, folded in fp32, holds it with the 10x margin."""
+    a, b = _operands(K, 128, K)
+    a = a[:128]
+    exact = (a.double() @ b.double()).numpy()
+    single = _tensor_core(a, b, 0, K, np.zeros((128, 128), np.float32))
+    folded = np.zeros((128, 128), np.float32)
+    for k0 in range(0, K, cuda_lib.GEMM_F32_BK):
+        folded = folded + _tensor_core(a, b, k0, k0 + cuda_lib.GEMM_F32_BK, np.zeros((128, 128), np.float32))
+    top = np.abs(exact).max()
+    assert np.abs(single - exact).max() / top > TOL_F32
+    assert np.abs(folded - exact).max() / top <= TOL_F32 / MARGIN
