@@ -794,7 +794,7 @@ def _profile_forward(where, fwd, wall_ms, phase="phase 2"):
                else "ds_temporal_attn (K1)" if "temporal_attn" in n
                else "ds_temporal_block / ds_temporal_mega (K10, K12)" if "temporal_block_tma_kernel" in n
                else "ds_spatial_block / ds_mega_spatial body (K11, K13)" if "spatial_body_kernel" in n
-               else "ds_temporal_block_f32 / ds_temporal_mega_f32 (K10, K12 fp32)" if "temporal_f32_kernel" in n
+               else "ds_temporal_block_f32 / ds_temporal_mega_f32 (K10, K12 fp32)" if "temporal_tc_f32_kernel" in n
                else "ds_spatial_block_f32 / ds_mega_spatial_f32 body (K11, K13 fp32)" if "spatial_f32_kernel" in n
                else "conv (cuDNN)" if any(s in n for s in ("conv", "cudnn", "fprop", "implicit"))
                else "gemm (cuBLAS: time emb, FreeTraj's plain attention)" if any(s in n for s in ("gemm", "cutlass"))
@@ -921,9 +921,9 @@ def _case(k, pos, opts, rn):
         R, Fn, _ = x.shape
         case = Case(k, f"x{list(x.shape)}", run, plain, _lib_temporal_block(a, opts["heads"], opts["scale"]),
                     base=x, flops=2 * (8 * T * C * C + 4 * R * Fn * Fn * C) + 24 * T * C * C, **common)
-        if not case.fp32:  # the tile plan line of block.cu (block_f32.cu has no plan)
-            case.block = (T, C, Fn, False)
-            case.run_at = lambda plan: fn(*a, **run_kw, plan=plan)
+        case.run_at = lambda plan: fn(*a, **run_kw, plan=plan)
+        # the tile plan line of block.cu, or of temporal_f32.cu at fp32
+        case.block = (T, C, Fn, False)
         return case
     if k == "K12":
         B, Fn, H, W, _ = x.shape
@@ -931,9 +931,8 @@ def _case(k, pos, opts, rn):
         case = Case(k, f"x5{list(x.shape)}", run, plain,
                     _lib_temporal_transformer(x, gn, a[3:], opts["heads"], opts["scale"]), base=x, flops=flops,
                     **common)
-        if not case.fp32:
-            case.block = (T, C, Fn, True)
-            case.run_at = lambda plan: fn(*a, **run_kw, plan=plan)
+        case.run_at = lambda plan: fn(*a, **run_kw, plan=plan)
+        case.block = (T, C, Fn, True)
         return case
     if k in ("K11", "K13"):
         BFn, N = x.shape[0], T // x.shape[0]
@@ -1406,7 +1405,12 @@ def _time_cases(shapes, runs, phase):
               + (f" group_norm_fold {t['fold_ms']:.3f} ms" if case.fold else "")
               + " [" + ", ".join(f"x{n} per {w}" for w, n in where_n.items()) + f"] {'ok' if ok else 'FAIL'}",
               flush=True)
-        if case.block:
+        if case.block and case.fp32:
+            tile = _block_f32_tile(case, t["ms"], ref)
+            tiles[k].append(tile)
+            ok = ok and tile["other_tm_ok"]
+            print(f"{phase} {k} {case.desc} tile: {_block_f32_line(tile)}", flush=True)
+        elif case.block:
             tile, reckoned = _block_tile(case, t["ms"], ref)
             tiles[k].append(tile)
             ok = ok and tile["other_cl_ok"]
@@ -1522,6 +1526,45 @@ def _block_tile(case, ms, ref):
                    other_cl_clusters_at_once=cuda_lib.block_clusters(other, mega))
     reckoned = {cl: wbytes * cuda_lib.block_grid(plan._replace(cl=cl), T) // cl / 1e9 for cl in rec["ms_by_cl"]}
     return rec, reckoned
+
+
+def _block_f32_tile(case, ms, ref):
+    """Kernel 10 / 12 at fp32 at one shape: the tile plan
+    (cuda_lib.block_f32_plan: TM), grid, the tensor-core rate
+    (the fp32 products over the measured ms) and the share of each bound
+    (3xTF32 and the CUDA cores' 67 TFLOP/s); the kernel also at the other
+    tile (TM 128 against 64), its output held to the plain version's gates
+    and bit-exact on rerun, both timed in turn (plan, other, other, plan;
+    ``ms_by_tm``)."""
+    T, C, Fn, mega = case.block
+    plan = cuda_lib.block_f32_plan(C, Fn, T, mega)
+    other = cuda_lib.BlockF32Plan(64 if plan.tm == 128 else 128)
+    if T % other.tm or other.tm % Fn:
+        return {"shape": case.desc, **plan._asdict(), "grid": cuda_lib.block_f32_grid(plan, T),
+                "tflops": case.flops / ms / 1e9, "share_of_bound": case.bound_ms / ms,
+                "share_of_bound_67": case.bound_cc_ms / ms, "ms": ms, "ms_by_tm": {plan.tm: ms}, "other_tm_ok": True}
+    got = case.run_at(other)
+    err, tol, rel, tol_l2, ok = _check(case, got, ref)
+    ok = ok and torch.equal(got, case.run_at(other))
+    del got
+    times = {plan.tm: [], other.tm: []}
+    for p in (plan, other, other, plan):
+        times[p.tm].append(_time_ms(lambda: case.run_at(p), 5))
+    return {"shape": case.desc, **plan._asdict(), "grid": cuda_lib.block_f32_grid(plan, T),
+            "tflops": case.flops / ms / 1e9, "share_of_bound": case.bound_ms / ms,
+            "share_of_bound_67": case.bound_cc_ms / ms, "ms": ms,
+            "ms_by_tm": {tm: sum(v) / len(v) for tm, v in sorted(times.items())}, "other_tm": other.tm,
+            "other_tm_ok": ok, "other_tm_max_abs_err": err, "other_tm_rel_l2": rel}
+
+
+def _block_f32_line(r):
+    other = (f" (TM {r['other_tm']}: max_abs_err {r['other_tm_max_abs_err']:.3g} rel_l2 {r['other_tm_rel_l2']:.3g}, "
+             f"bit-exact on rerun {'ok' if r['other_tm_ok'] else 'FAIL'})" if "other_tm" in r else
+             " (TM 64 does not hold whole rows of these frames)")
+    return (f"plan TM {r['tm']} (BN 128, 4 stages); grid {r['grid']} blocks; "
+            f"{r['tflops']:.1f} TFLOP/s of fp32 products, {100 * r['share_of_bound']:.0f}% of the 3xTF32 bound, "
+            f"{100 * r['share_of_bound_67']:.0f}% of the bound at 67 TFLOP/s; timed: "
+            + "; ".join(f"TM {tm} {ms:.3f} ms" for tm, ms in r["ms_by_tm"].items()) + other)
 
 
 def _spatial_tile(case, ms):
@@ -1675,10 +1718,10 @@ def _phase_gemms(calls, dt=BF, phase="phase 3"):
 LEVEL_NAMES = ("mega", "wrap+blk", "wrap+sub")
 
 
-def _level_module(side, C, inner, heads, H, W, B=8, Fn=16, L=93, Dc=1024):
-    """The UNet's transformer at (side, C, inner) with random bf16 weights
-    and a call of it at the batch-B forward's shape; init_attn (inner !=
-    C) has Conv1d projections."""
+def _level_module(side, C, inner, heads, H, W, B=8, Fn=16, L=93, Dc=1024, dtype=BF):
+    """The UNet's transformer at (side, C, inner) with random weights in
+    ``dtype`` and a call of it at the batch-B forward's shape; init_attn
+    (inner != C) has Conv1d projections."""
     from dynamicscaler_tpu_torch.models.lvdm import init_module_random
     from dynamicscaler_tpu_torch.models.unet3d import SpatialTransformer, TemporalTransformer
 
@@ -1687,11 +1730,11 @@ def _level_module(side, C, inner, heads, H, W, B=8, Fn=16, L=93, Dc=1024):
         m = (TemporalTransformer(C, heads, 64, use_linear=inner == C) if side == "t" else
              SpatialTransformer(C, heads, 64, context_dim=Dc, img_cross_attention=True, text_context_len=77))
     init_module_random(m, g)
-    m.to(BF).eval()
-    x = torch.randn((B * Fn, H, W, C), generator=g, device=DEV).to(BF)
+    m.to(dtype).eval()
+    x = torch.randn((B * Fn, H, W, C), generator=g, device=DEV).to(dtype)
     if side == "t":
         return lambda: m(x, Fn)
-    ctx = torch.randn((B, L, Dc), generator=g, device=DEV).to(BF).repeat_interleave(Fn, dim=0)
+    ctx = torch.randn((B, L, Dc), generator=g, device=DEV).to(dtype).repeat_interleave(Fn, dim=0)
     return lambda: m(x, ctx, Fn)
 
 
@@ -1707,18 +1750,20 @@ def _legal_levels(side, C, inner, heads, H, W, Dc=1024):
     return [lvl for lvl, ok in zip(LEVEL_NAMES, (*gates, True)) if ok]
 
 
-def _phase_levels(cfg):
-    """Phase 3, the plan levels: the transformer module at every legal level
-    at every (side, width) of the batch-8 i2v forward (the width of init_attn
-    its block's, 512), CUDA events, the GroupNorm fold included. Prints each
-    shape's times, the per-forward sums of each plan key (its shapes' calls x
-    ms per call), the fastest plan by those sums, and whether PLAN_DEFAULT
-    still names each key's fastest level (a key where another level was
-    faster by more than 5% is named)."""
-    shapes = collections.Counter(unet_transformers(cfg, 40, 64))
+def _phase_levels(cfg, dtype=BF, sides=("t", "s"), phase="phase 3"):
+    """The plan levels (phase 3 in bf16; phase 10 in fp32 at the temporal
+    keys): the transformer module in ``dtype`` at every legal level at every
+    (side, width) of ``sides`` in the batch-8 i2v forward (the width of
+    init_attn its block's, 512), CUDA events, the GroupNorm fold included.
+    Prints each shape's times, the per-forward sums of each plan key (its
+    shapes' calls x ms per call), the fastest plan by those sums, and
+    whether PLAN_DEFAULT (the one table, for both activation types) still
+    names each key's fastest level (a key where another level was faster by
+    more than 5% is named)."""
+    shapes = collections.Counter(sh for sh in unet_transformers(cfg, 40, 64) if sh[0] in sides)
     sums = collections.defaultdict(collections.Counter)  # plan key -> level -> ms per forward
     for (side, C, inner, heads, H, W), calls in sorted(shapes.items()):
-        call = _level_module(side, C, inner, heads, H, W)
+        call = _level_module(side, C, inner, heads, H, W, dtype=dtype)
         t = {}
         with torch.inference_mode():
             for lvl in _legal_levels(side, C, inner, heads, H, W):
@@ -1727,7 +1772,7 @@ def _phase_levels(cfg):
         del call
         for lvl, ms in t.items():
             sums[(side, inner)][lvl] += calls * ms
-        print(f"phase 3 level {side}{inner} [128,{H},{W},{C}] x{calls} per forward: "
+        print(f"{phase} level {side}{inner} [128,{H},{W},{C}] {str(dtype)[6:]} x{calls} per forward: "
               + ", ".join(f"{lvl} {ms:.3f} ms" for lvl, ms in t.items()) + f"; fastest {min(t, key=t.get)}",
               flush=True)
     torch.cuda.empty_cache()
@@ -1741,12 +1786,14 @@ def _phase_levels(cfg):
         if legal.get(have, float("inf")) > 1.05 * legal[best]:
             beaten.append(f"{key[0]}{key[1]} ({best} {legal[best]:.2f} ms vs PLAN_DEFAULT's {have} "
                           f"{legal.get(have, float('nan')):.2f} ms per forward)")
-    print("phase 3 levels per i2v batch-8 forward (ms): " + ", ".join(
+    print(f"{phase} levels per i2v batch-8 forward in {str(dtype)[6:]} (ms): " + ", ".join(
         f"{s}{c} " + "/".join(f"{lvl} {ms:.2f}" for lvl, ms in per.items()) for (s, c), per in sorted(sums.items())),
         flush=True)
-    print("phase 3 fastest plan: " + json.dumps({f"{s}{c}": lvl for (s, c), lvl in fastest.items()}), flush=True)
-    print("phase 3 plan: " + ("PLAN_DEFAULT names the fastest level at every shape (within 5%)" if not beaten
-                              else "PLAN_DEFAULT is beaten by more than 5% at " + "; ".join(beaten)), flush=True)
+    print(f"{phase} fastest plan in {str(dtype)[6:]}: "
+          + json.dumps({f"{s}{c}": lvl for (s, c), lvl in fastest.items()}), flush=True)
+    print(f"{phase} plan in {str(dtype)[6:]}: " + ("PLAN_DEFAULT names the fastest level at every shape (within 5%)"
+                                                   if not beaten else "PLAN_DEFAULT is beaten by more than 5% at "
+                                                   + "; ".join(beaten)), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2892,7 +2939,8 @@ FP32_SOURCES = {**dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
                                 "dynamicscaler_tpu_torch/csrc/gemm_f32.cu"),
                 **dict.fromkeys(("TA", "FA"), "dynamicscaler_tpu_torch/csrc/attention_f32.cu"),
                 **dict.fromkeys(("K9", "GN"), "dynamicscaler_tpu_torch/csrc/gn_silu.cu"),
-                **dict.fromkeys(("K10", "K11", "K12", "K13"), "dynamicscaler_tpu_torch/csrc/block_f32.cu")}
+                **dict.fromkeys(("K10", "K12"), "dynamicscaler_tpu_torch/csrc/temporal_f32.cu"),
+                **dict.fromkeys(("K11", "K13"), "dynamicscaler_tpu_torch/csrc/block_f32.cu")}
 # the fp32 CLI run: the steps cut to 2 a stage (stage 1's 11 forwards of 8
 # a step, stage 2's 1, stage 3's 4; the second step of each gives its steady
 # s/step), the geometry the CLI's
@@ -2912,7 +2960,7 @@ def _fp32_kernels(sites):
     or bytes at 4 B an element over 3.35 TB/s). Returns per kernel the
     largest error and the ms summed over the first batch-8 i2v fp32 forward
     in which it runs (the default plan, then "off", then all-wrap+blk)."""
-    sums, max_err, bound_by, _ = _time_cases(_recorded_shapes(sites), sites, "phase 10")
+    sums, max_err, bound_by, tiles = _time_cases(_recorded_shapes(sites), sites, "phase 10")
     records = {}
     for k in FP32_KERNELS:
         ran = [w for w in FP32_FORWARDS if sums[w][k]]
@@ -2920,6 +2968,8 @@ def _fp32_kernels(sites):
             _fail(f"phase 10: {k} ran in none of the batch-8 fp32 forwards")
         records[k] = {**_record(k, sums[ran[0]][k], max_err, bound_by, ran[0]),
                       "bound_cc_ms": sums[ran[0]][k]["bound_cc_ms"]}
+        if tiles.get(k):
+            records[k]["tiles"] = tiles[k]
     _phase_gemms(GEMM_SITES[FP32_I2V], F32, "phase 10")
     return records
 
@@ -3025,6 +3075,7 @@ def _phase_fp32(t2v_bf, i2v_bf):
         del r
     torch.cuda.empty_cache()
     records = _fp32_kernels(sites)
+    _phase_levels(i2v_bf.unet.cfg, F32, ("t",), "phase 10")
 
     held = {key for calls in sites.values() for key in calls}
     errs, calls = {}, collections.Counter()

@@ -1,16 +1,20 @@
 """Variants of the fp32 tensor-core kernels, timed in one call on one card.
 
-    python3 chip_tf32_variants.py      # one CUDA card
+    python3 chip_tf32_variants.py               # one CUDA card; every kernel
+    python3 chip_tf32_variants.py block         # only some: gemm, flash, block
 
-``csrc/gemm_f32.cu::ds_ln_gemm_f32`` and ``csrc/attention_f32.cu::
-ds_flash_attention_f32`` multiply fp32 operands as three tf32 products.
-This script builds variants of the two sources (the source as committed,
-changed by text replacement; each built alone with ``nvcc`` into
-``build/tf32_variants/``), runs each through the port's own wrappers
-(``cuda_lib.ln_gemm``, ``fused_spatial.flash_attention``) at shapes of the
-full-width batch-8 i2v fp32 forward, holds it against the plain version,
-and times the variants in turns (as built, then each variant, then the same
-in reverse order). The variants answer the design's questions:
+``csrc/gemm_f32.cu::ds_ln_gemm_f32``, ``csrc/attention_f32.cu::
+ds_flash_attention_f32`` and ``csrc/temporal_f32.cu`` (kernels 10 and 12,
+``ds_temporal_block_f32`` and ``ds_temporal_mega_f32``) multiply fp32
+operands as three tf32 products. This script builds variants of the
+sources (the source as committed, changed by text replacement; each built
+alone with ``nvcc`` into ``build/tf32_variants/``), runs each through the
+port's own wrappers (``cuda_lib.ln_gemm``, ``fused_spatial.flash_attention``,
+``fused_mega.temporal_mega``, ``fused_block.fused_temporal_block``) at
+shapes of the full-width batch-8 i2v fp32 forward, holds it against the
+plain version, and times the variants in turns (as built, then each
+variant, then the same in reverse order). The variants answer the design's
+questions:
 
 * ``integer rounding``: ``hopper.cuh::tf32_rna`` in integer operations
   (the same bits, inf and NaN kept) instead of ``cvt.rna.tf32.f32``;
@@ -22,7 +26,23 @@ in reverse order). The variants answer the design's questions:
   ``cuda_lib.tf32_split_weights``, twice the fp32 weights in memory);
 * ``A not split``, ``K, V not split`` (results wrong, the gate not
   applied): what the split of the activations and of the flash kernel's
-  keys and values costs.
+  keys and values costs;
+* kernels 10 and 12 at the t320 and t640 transformers (kernel 12) and at
+  t1280 (kernel 10: the 10x16 level and the middle block's 5x8), each
+  variant at each token tile it builds (TM 128 and 64), held against the
+  plain version and against the kernel as built at the same tile (``same
+  bits``): ``CL 2`` (clusters of two blocks sharing each weight tile by
+  multicast), ``weights ahead`` (a product's first three stages of weights
+  issued before the consumers' pass ends, where the pass leaves the ring
+  alone), ``split at write`` (the passes write the token rows already
+  split, into the scratch and a mirror of it; the stage brings both, a
+  ring of 3), ``A not split`` (wrong by design: what splitting the rows in
+  registers costs, the most that splitting them when written could save),
+  ``residual resident`` (the residual stream in shared memory beside a ring
+  of 3 where it fits: TM 64 at C 320), ``BN 64`` (column tiles of 64 weight
+  rows), ``2 stages`` (a ring of 2), ``one accumulator`` (every product of
+  a column tile into the tile's accumulator) and ``fold every stage`` (each
+  32-deep stage's products folded alone, as gemm_f32.cu folds them).
 
 Prints one line per shape, then one JSON object of every time and error.
 Fails if a variant does not build or an as-built run misses the fp32 gate.
@@ -38,7 +58,7 @@ import sys
 import torch
 import torch.nn.functional as F
 
-from dynamicscaler_tpu_torch.ops import cuda_lib, fused_spatial
+from dynamicscaler_tpu_torch.ops import cuda_lib, fused_block, fused_mega, fused_spatial
 
 TOL_F32 = 1e-5
 OUT = cuda_lib.REPO_ROOT / "build" / "tf32_variants"
@@ -125,6 +145,283 @@ GEMM_SHAPES = [(327680, 320, 2560, cuda_lib.MODE_GEGLU, True, 5), (81920, 2560, 
                (20480, 1280, 3840, cuda_lib.MODE_STORE, True, 15), (9856, 1024, 2560, cuda_lib.MODE_STORE, False, 6)]
 # (B, Nq, key segments): K2's self-attention at 40x64 and K3's i2v cross-attention
 FLASH_SHAPES = [(128, 2560, (2560,)), (128, 640, (640,)), (128, 2560, (77, 16))]
+# temporal_f32.cu (kernels 10 and 12): the variants of its source, each run at the token tiles it builds (the
+# source as committed: TM 128 and 64)
+TILES = [128, 64]
+# clusters of 2 blocks walking the same tiles in step, each producer issuing half of every weight tile's
+# boxes multicast to both, a slot refilled once the consumers of both released it, `ready` once both
+# blocks' consumers wrote their A rows
+CL2 = [
+    ("// ---- the consumers' passes", """// tma_load_3d landing at offset `dst` of every block of the cluster in `mask`
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                                      int c1, int c2, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1, {%4, %5, %6}], [%2], %3;\\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// ---- the consumers' passes"""),
+    ("  if (lane == 0) mbar_arrive(&empty[s]);\n}", "  if (lane < 2) mbar_arrive_cluster(&empty[s], lane);\n}"),
+    ("  constexpr int BOX = T::HB * ROW;\n", "  constexpr int BOX = T::HB * ROW;\n  const uint32_t rank = cluster_rank();\n"),
+    ("""  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    for (int g = MEGA ? G_IN : G_QKV1; g <= (MEGA ? G_OUT : G_W2); ++g) {
+      mbar_wait(ready, rp);""", """  for (int base = blockIdx.x - rank; base < a.tiles; base += gridDim.x) {
+    for (int g = MEGA ? G_IN : G_QKV1; g <= (MEGA ? G_OUT : G_W2); ++g) {
+      mbar_wait_cluster(ready, rp);"""),
+    ("""            if (n < 0) continue;
+            for (int half = 0; half < 2; ++half)
+              tma_load_3d(sa + T::A_BYTES + half * BN * ROW + b * BOX, &m.w[g], &full[s], kt * BK, n, half);""",
+     """            if (n < 0 || b % 2 != (int)rank) continue;
+            for (int half = 0; half < 2; ++half)
+              tma_load_3d_multicast(sa + T::A_BYTES + half * BN * ROW + b * BOX, &m.w[g], &full[s], kt * BK, n, half,
+                                    3);"""),
+    ("  const size_t slot = (size_t)blockIdx.x * TM;\n",
+     "  const size_t slot = (size_t)blockIdx.x * TM;\n  const uint32_t rank = cluster_rank();\n"),
+    ("""  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    const long long t0 = (long long)tile * TM;
+    const int rows = (int)min((long long)TM, a.T - t0);""",
+     """  for (int base = blockIdx.x - rank; base < a.tiles; base += gridDim.x) {
+    const long long t0 = (long long)(base + rank) * TM;
+    const int rows = a.T > t0 ? (int)min((long long)TM, a.T - t0) : 0;"""),
+    ("      if (tid == 0) mbar_arrive(ready);",
+     "      if (tid == 0) {\n        mbar_arrive_remote(ready, rank);\n        mbar_arrive_remote(ready, rank ^ 1);\n      }"),
+    ("      mbar_init(&empty[s], 8);  // one arrival per consumer warp", "      mbar_init(&empty[s], 16);"),
+    ("    mbar_init(ready, 1);", "    mbar_init(ready, 2);"),
+    ("  __syncthreads();\n  if (threadIdx.x >= CONSUMERS) {", "  cluster_sync_all();\n  if (threadIdx.x >= CONSUMERS) {"),
+    ("    consume<TM, MEGA>(a, smem, full, empty, ready);\n  }\n}",
+     "    consume<TM, MEGA>(a, smem, full, empty, ready);\n  }\n  __syncwarp();\n  cluster_sync_all();\n}"),
+    ("""  temporal_tc_f32_kernel<TM, MEGA><<<blocks, THREADS, smem_bytes<TM>(), stream>>>(m, a);
+  return cudaGetLastError();""", """  static int fit = 0;  // blocks on the card at once
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes<TM>();
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (fit == 0) {
+    int clusters = 0;
+    cfg.gridDim = dim3(2);
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, temporal_tc_f32_kernel<TM, MEGA>, &cfg);
+    if (e != cudaSuccess) return e;
+    fit = 2 * clusters;
+  }
+  blocks &= ~1;
+  if (blocks < 2 || fit < 2) return cudaErrorInvalidConfiguration;
+  cfg.gridDim = dim3(blocks < fit ? blocks : fit);
+  return cudaLaunchKernelEx(&cfg, temporal_tc_f32_kernel<TM, MEGA>, m, a);""")]
+# the schedule: the weights of a product's first 3 stages go out before the consumers' pass ends (`ready`),
+# where the pass leaves the ring alone (all but the attention's), their token rows after it
+WEIGHTS_AHEAD = [
+    ("""      mbar_wait(ready, rp);  // the consumers wrote this product's A rows
+      rp ^= 1;
+      const int N = gemm_n(g, C), KT = gemm_k(g, C) / BK;
+      const bool geglu = g == G_W1;
+      const int nt = geglu ? N / BN : (N + BN - 1) / BN;""", """      const int N = gemm_n(g, C), KT = gemm_k(g, C) / BK;
+      const bool geglu = g == G_W1;
+      const int nt = geglu ? N / BN : (N + BN - 1) / BN;
+      const int P = g == G_WO1 || g == G_WO2 ? 0 : min(STAGES - 1, nt * KT - 1);
+      const int it0 = it;
+      if (P == 0) {
+        mbar_wait(ready, rp);
+        rp ^= 1;
+      }"""),
+    ("          tma_load_2d(sa, &m.a[gemm_a(g)], &full[s], kt * BK, row0);\n", ""),
+    ("""              tma_load_3d(sa + T::A_BYTES + half * BN * ROW + b * BOX, &m.w[g], &full[s], kt * BK, n, half);
+          }""", """              tma_load_3d(sa + T::A_BYTES + half * BN * ROW + b * BOX, &m.w[g], &full[s], kt * BK, n, half);
+          }
+          if (P > 0 && it - it0 == P) {
+            mbar_wait(ready, rp);
+            rp ^= 1;
+            for (int e = 0; e < P; ++e)
+              tma_load_2d(smem + ((it0 + e) % STAGES) * T::STAGE, &m.a[gemm_a(g)], &full[(it0 + e) % STAGES],
+                          (e % KT) * BK, row0);
+          }
+          if (it - it0 >= P) tma_load_2d(sa, &m.a[gemm_a(g)], &full[s], kt * BK, row0);""")]
+# the token rows written already split by the passes that write a product's A rows (LayerNorm,
+# GroupNorm apply, attention, GEGLU, kernel 12's last residual) into the scratch and a mirror of it, the
+# stage bringing both (so 3 slots fit), the consumers loading the fragments without a split
+SPLIT_AT_WRITE = [
+    ("__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }\n",
+     """__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+__device__ long long g_lo;  // floats from a scratch row to its remainders in the mirror
+__device__ __forceinline__ void store_split(float* p, float4 v) {
+  uint4 h, l;
+  split_tf32(v.x, h.x, l.x);
+  split_tf32(v.y, h.y, l.y);
+  split_tf32(v.z, h.z, l.z);
+  split_tf32(v.w, h.w, l.w);
+  *reinterpret_cast<uint4*>(p) = h;
+  *reinterpret_cast<uint4*>(p + g_lo) = l;
+}
+__device__ __forceinline__ void store_split(float* p, float2 v) {
+  uint2 h, l;
+  split_tf32(v.x, h.x, l.x);
+  split_tf32(v.y, h.y, l.y);
+  *reinterpret_cast<uint2*>(p) = h;
+  *reinterpret_cast<uint2*>(p + g_lo) = l;
+}
+"""),
+    ("        *reinterpret_cast<float4*>(dst + (size_t)(r0 + i) * C + k) = o;",
+     "        store_split(dst + (size_t)(r0 + i) * C + k, o);"),
+    ("      *reinterpret_cast<float4*>(dst + (size_t)r * C + c) = v[u];",
+     "      store_split(dst + (size_t)r * C + c, v[u]);"),
+    ("      *reinterpret_cast<float4*>(y + d) = make_float4(o[d] * il, o[d + 1] * il, o[d + 2] * il, o[d + 3] * il);",
+     "      store_split(y + d, make_float4(o[d] * il, o[d + 1] * il, o[d + 2] * il, o[d + 3] * il));"),
+    ("        *reinterpret_cast<float2*>(y + 8 * dt) = make_float2(o[dt][2 * r] * il, o[dt][2 * r + 1] * il);",
+     "        store_split(y + 8 * dt, make_float2(o[dt][2 * r] * il, o[dt][2 * r + 1] * il));"),
+    ("              *reinterpret_cast<float2*>(y + n) = make_float2(v.x * gelu_erf(gt.x), v.y * gelu_erf(gt.y));",
+     "              store_split(y + n, make_float2(v.x * gelu_erf(gt.x), v.y * gelu_erf(gt.y)));"),
+    ("              *reinterpret_cast<float2*>(y + n) = v;",
+     "              if (MEGA && g == G_W2) store_split(y + n, v);\n"
+     "              else *reinterpret_cast<float2*>(y + n) = v;"),
+    ("  static constexpr int STAGE = A_BYTES + 2 * BN * ROW;", "  static constexpr int STAGE = 2 * A_BYTES + 2 * BN * ROW;"),
+    ("constexpr int STAGES = 4; ", "constexpr int STAGES = 3; "),
+    ("__device__ __forceinline__ void load_frags(", "template <int LO>\n__device__ __forceinline__ void load_frags("),
+    ("""        split_tf32(*reinterpret_cast<const float*>(arow + h * 8 * ROW + (((2 * j + c) ^ g) << 4)),
+                   f[0][j][h + 2 * c], f[1][j][h + 2 * c]);""",
+     """        {
+          const uint8_t* q = arow + h * 8 * ROW + (((2 * j + c) ^ g) << 4);
+          f[0][j][h + 2 * c] = *reinterpret_cast<const uint32_t*>(q);
+          f[1][j][h + 2 * c] = *reinterpret_cast<const uint32_t*>(q + LO);
+        }"""),
+    ("load_frags(smem", "load_frags<T::A_BYTES + 2 * BN * ROW>(smem"),
+    ("""          mbar_expect_tx(&full[s], T::A_BYTES + boxes * 2 * BOX);
+          tma_load_2d(sa, &m.a[gemm_a(g)], &full[s], kt * BK, row0);""",
+     """          mbar_expect_tx(&full[s], 2 * T::A_BYTES + boxes * 2 * BOX);
+          tma_load_2d(sa, &m.a[gemm_a(g)], &full[s], kt * BK, row0);
+          tma_load_2d(sa + T::A_BYTES + 2 * BN * ROW, &m.alo[gemm_a(g)], &full[s], kt * BK, row0);"""),
+    ("  CUtensorMap a[N_REGIONS];", "  CUtensorMap alo[N_REGIONS];\n  CUtensorMap a[N_REGIONS];"),
+    ("  a.reg[R_S] = base + rows * 5 * C;\n", """  a.reg[R_S] = base + rows * 5 * C;
+  static float* lo = nullptr;
+  static long long lo_floats = 0;
+  if (lo_floats < scratch_floats) {
+    if (lo) cudaFree(lo);
+    if (cudaMalloc(&lo, scratch_floats * 4) != cudaSuccess) return (int)cudaErrorMemoryAllocation;
+    lo_floats = scratch_floats;
+  }
+  static long long delta;
+  delta = lo - base;
+  if (cudaMemcpyToSymbolAsync(g_lo, &delta, sizeof(delta), 0, cudaMemcpyHostToDevice,
+                              static_cast<cudaStream_t>(stream)) != cudaSuccess)
+    return (int)cudaErrorInvalidValue;
+"""),
+    ("""    if (!make_map(&m.a[r], a.reg[r], 2, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+      return (int)cudaErrorInvalidValue;""",
+     """    if (!make_map(&m.a[r], a.reg[r], 2, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+        !make_map(&m.alo[r], lo + (a.reg[r] - base), 2, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+      return (int)cudaErrorInvalidValue;""")]
+# the residual stream in shared memory beside a ring of 3 slots where it fits (80 KB: TM 64 at C <= 320),
+# kernel 12's last residual written to the LayerNorm rows' region for w_out's TMA
+RESIDENT = [
+    ("constexpr int STAGES = 4; ", "constexpr int STAGES = 3; "),
+    ("constexpr int SMEM_ALIGN = 1024; ", "constexpr int RES = 64 * 320 * 4;\nconstexpr int SMEM_ALIGN = 1024; "),
+    ("  static_assert(SMEM_ALIGN + Tile<TM>::RING + (2 * STAGES + 1) * 8 <= SMEM_MAX, \"the ring fits\");\n"
+     "  return SMEM_ALIGN + Tile<TM>::RING + (2 * STAGES + 1) * 8;",
+     "  return SMEM_ALIGN + Tile<TM>::RING + RES + (2 * STAGES + 1) * 8;"),
+    ("  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Tile<TM>::RING);",
+     "  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Tile<TM>::RING + RES);"),
+    ("  float* ss = a.reg[R_S] + slot * C;",
+     "  float* ss = TM * C * 4 <= RES ? reinterpret_cast<float*>(smem + T::RING) : a.reg[R_S] + slot * C;"),
+    ("g == G_OUT ? R_S : R_H; }", "R_H; }"),
+    ("""          } else if (g == G_WO1 || g == G_WO2 || (g == G_W2 && MEGA)) {
+            y = ss + (size_t)r * C;
+            res = y;""",
+     """          } else if (g == G_WO1 || g == G_WO2) {
+            y = ss + (size_t)r * C;
+            res = y;
+          } else if (g == G_W2 && MEGA) {
+            y = hs + (size_t)r * C;
+            res = ss + (size_t)r * C;""")]
+# the ring at least as large as the F-frame attention that borrows it (for rings smaller than 4 slots of 128
+# weight rows)
+RING_FIT = ("  static constexpr int RING = STAGES * STAGE;",
+            "  static constexpr int RING = STAGES * STAGE > TM * (2 * KV_PITCH + 129) * 4 ? STAGES * STAGE\n"
+            "                                                                          : TM * (2 * KV_PITCH + 129) * 4;")
+BLOCK_ONE_ACC = [("issue_stage<T::WN>(part, f0,", "issue_stage<T::WN>(acc, f0,"),
+                 ("issue_stage<T::WN>(part, f1,", "issue_stage<T::WN>(acc, f1,"),
+                 ("    WgmmaTf32RegA<WN>::mma(part, f[1][j], bh + 2 * j, j || cont);",
+                  "    WgmmaTf32RegA<WN>::mma(part, f[1][j], bh + 2 * j, 1);")]
+BN64 = [RING_FIT, ("constexpr int BN = 128; ", "constexpr int BN = 64;  "),
+        ("  else e = mega ? launch<64, true>(m, a, slots, s) : launch<64, false>(m, a, slots, s);",
+         "  else e = cudaErrorInvalidValue;")]
+# each stage's products into an accumulator of their own, folded into the tile's after every stage (the design
+# of kernels 1-8 at fp32, gemm_f32.cu): the tensor cores wait for the fold after every stage
+FOLD1 = [
+    ("    WgmmaTf32RegA<WN>::mma(part, f[1][j], bh + 2 * j, j || cont);",
+     "    WgmmaTf32RegA<WN>::mma(part, f[1][j], bh + 2 * j, j);"),
+    ("""    issue_stage<T::WN>(part, f1, smem + s1 * T::STAGE + T::A_BYTES + wrow, true);
+    wgmma_wait<1>();  // the first stage's products are done: its slot and f0 are free
+    release(empty, s0, lane);
+    if (kt + 2 < KT) {""", """    wgmma_wait<0>();
+    fence_acc(part);
+    release(empty, s0, lane);
+#pragma unroll
+    for (int i = 0; i < T::ACC; ++i) acc[i] += part[i];
+    issue_stage<T::WN>(part, f1, smem + s1 * T::STAGE + T::A_BYTES + wrow, false);
+    if (kt + 2 < KT) {""")]
+# each accumulator of the stages' own holding four stages' products (128 k), the stages issued one behind the
+# other, each stage's fragments loaded while the one before it runs
+FOLD4_LOOP = """  stage_wait(full, it);
+  load_frags(smem + (it % STAGES) * T::STAGE, r0, g8, t4, f0);
+  issue_stage<T::WN>(part, f0, smem + (it % STAGES) * T::STAGE + T::A_BYTES + wrow, false);
+  stage_wait(full, it + 1);
+  load_frags(smem + ((it + 1) % STAGES) * T::STAGE, r0, g8, t4, f1);
+#define STEP(K, FC, FN)                                                                                  \\
+  {                                                                                                      \\
+    issue_stage<T::WN>(part, FC, smem + ((it + (K)) % STAGES) * T::STAGE + T::A_BYTES + wrow, (K) % 4 != 0); \\
+    wgmma_wait<1>();                                                                                     \\
+    if ((K) % 4 != 0) release(empty, (it + (K) - 1) % STAGES, lane);                                    \\
+    if ((K) + 1 < KT) {                                                                                  \\
+      stage_wait(full, it + (K) + 1);                                                                    \\
+      load_frags(smem + ((it + (K) + 1) % STAGES) * T::STAGE, r0, g8, t4, FN);                           \\
+    }                                                                                                    \\
+    if (((K) + 1) % 4 == 0 || (K) + 1 == KT) {                                                           \\
+      wgmma_wait<0>();                                                                                   \\
+      fence_acc(part);                                                                                   \\
+      release(empty, (it + (K)) % STAGES, lane);                                                         \\
+      _Pragma("unroll") for (int i = 0; i < T::ACC; ++i) acc[i] += part[i];                              \\
+    }                                                                                                    \\
+  }
+#pragma unroll 1
+  for (int kt = 1; kt < KT; kt += 2) {
+    STEP(kt, f1, f0)
+    if (kt + 1 < KT) STEP(kt + 1, f0, f1)
+  }
+#undef STEP
+  it += KT;
+}"""
+FOLD4 = [("""  stage_wait(full, it);
+  load_frags(smem + (it % STAGES) * T::STAGE, r0, g8, t4, f0);
+#pragma unroll 1
+  for (int kt = 0; kt < KT; kt += 2, it += 2) {""", "#if 0\n  for (int kt = 0; kt < KT; kt += 2, it += 2) {"),
+         ("""#pragma unroll
+    for (int i = 0; i < T::ACC; ++i) acc[i] += part[i];
+  }
+}""", """#pragma unroll
+    for (int i = 0; i < T::ACC; ++i) acc[i] += part[i];
+  }
+#endif
+""" + FOLD4_LOOP)]
+# variant -> (source patches, the tiles it runs at); "as built" is the port's own library
+BLOCK_VARIANTS = {"as built": ([], TILES), "CL 2": (CL2, TILES), "weights ahead": (WEIGHTS_AHEAD, TILES),
+                  "split at write": (SPLIT_AT_WRITE, TILES), "A not split": ([SPLIT_A], TILES),
+                  "residual resident": (RESIDENT, [64]), "BN 64": (BN64, [128]),
+                  "2 stages": ([RING_FIT, ("constexpr int STAGES = 4; ", "constexpr int STAGES = 2; ")], TILES),
+                  "one accumulator": (BLOCK_ONE_ACC, [128]), "fold every stage": (FOLD1, TILES),
+                  "fold every 4 stages": (FOLD4, TILES)}
+WRONG += ("block A not split",)
+# (kernel, x's shape, C, calls per batch-8 i2v fp32 forward): kernel 12 at t320 (the plan) and t640 ("off"),
+# kernel 10 at t1280 ("off": the 10x16 level and the middle block's 5x8)
+BLOCK_SHAPES = [("K12", (8, 16, 40, 64), 320, 5), ("K12", (8, 16, 20, 32), 640, 5),
+                ("K10", (8 * 10 * 16, 16), 1280, 5), ("K10", (8 * 5 * 8, 16), 1280, 1)]
 
 
 def _fail(msg):
@@ -163,9 +460,11 @@ def _build_all(jobs):
         if p.returncode:
             _fail(f"variant {key} does not build:\n{out}\n{err[-3000:]}")
         lib = ctypes.CDLL(str(d / "k.so"))
-        fn = getattr(lib, jobs[key][2])
-        fn.argtypes = list(cuda_lib._SIGNATURES[jobs[key][2]])
-        fn.restype = ctypes.c_int
+        names = jobs[key][2]
+        for name in (names,) if isinstance(names, str) else names:
+            fn = getattr(lib, name)
+            fn.argtypes = list(cuda_lib._SIGNATURES[name])
+            fn.restype = ctypes.c_int
         libs[key] = lib
     return libs
 
@@ -190,6 +489,78 @@ def _turns(names, run):
     return {n: sum(v) / len(v) for n, v in ms.items()}
 
 
+def _block_rows(libs, real, rn, report):
+    """Kernels 10 and 12 at BLOCK_SHAPES, each variant at each of its tiles
+    (TM, CL) held against the plain version (max error against max|plain|,
+    L2 against the block's own output; ``same_bits``: equal to the kernel as
+    built at the same tile) and timed in turns."""
+    for k, shape, C, calls in BLOCK_SHAPES:
+        heads = C // 64
+
+        def w(n_out, n_in):
+            return rn(n_out, n_in, s=n_in ** -0.5)
+        lns = tuple(1.0 + rn(C, s=0.1) if i % 2 == 0 else rn(C, s=0.1) for i in range(6))
+        a1, a2 = ((w(C, C), w(C, C), w(C, C), w(C, C), rn(C, s=0.1)) for _ in range(2))
+        ff = (w(8 * C, C), rn(8 * C, s=0.1), w(C, 4 * C), rn(C, s=0.1))
+        if k == "K12":
+            B, F, H, W = shape
+            x = rn(B, F, H, W, C)
+            mul, add = 1.0 + rn(B, C, s=0.1), rn(B, C, s=0.1)
+            wi, bi, wo, bo = w(C, C), rn(C, s=0.1), w(C, C), rn(C, s=0.1)
+            op = fused_mega.pack_temporal_mega(wi, bi, lns, a1, a2, ff, wo, bo, dtype=torch.float32)
+
+            def run(plan):
+                return fused_mega.temporal_mega(x, mul, add, wi, bi, lns, a1, a2, ff, wo, bo, heads=heads, scale=0.125,
+                                                operands=op, plan=plan)
+            flops = 2 * x.numel() * 22 * C
+        else:
+            R, F = shape
+            x = rn(R, F, C)
+            op = fused_block.pack_temporal_block(lns, a1, a2, ff, dtype=torch.float32)
+
+            def run(plan):
+                return fused_block.fused_temporal_block(x, lns, a1, a2, ff, heads=heads, scale=0.125, operands=op,
+                                                        plan=plan)
+            flops = 2 * x.numel() * 20 * C
+        T = x.numel() // C
+        cuda_lib._lib = real
+        with cuda_lib.plain_kernels():
+            ref = run(None)
+        chosen = cuda_lib.block_f32_plan(C, F, T, k == "K12")
+        run(chosen)  # the weights split once, by the real library
+        names = [f"{n} TM {tm}" for n, (_, tiles) in BLOCK_VARIANTS.items() for tm in tiles]
+
+        def call(key):
+            n, tm = key.rsplit(" TM ", 1)
+            cuda_lib._lib = libs.get(f"block {n}", real)
+            return run(cuda_lib.BlockF32Plan(int(tm)))
+        errs, built = {}, {}
+        for key in names:
+            got = call(key)
+            tile = key.split(" TM ", 1)[1]
+            if key.startswith("as built "):
+                built[tile] = got
+            errs[key] = {"vs_plain": float((got - ref).abs().max() / ref.abs().max()),
+                         "l2": float((got - ref).norm() / (ref - x).norm()),
+                         "same_bits": bool(torch.equal(got, built[tile]))}
+        del built
+        ms = _turns(names, lambda key: _time_ms(lambda: call(key)))
+        cuda_lib._lib = real
+        bound = flops / (494.7e12 / 3) * 1e3
+        report["block"].append({"kernel": k, "x": list(x.shape), "calls": calls, "bound_ms": bound, "ms": ms,
+                                "err": errs, "plan": chosen._asdict(),
+                                "grid": {tm: cuda_lib.block_f32_grid(cuda_lib.BlockF32Plan(tm), T) for tm in TILES}})
+        print(f"{k} x{list(x.shape)} x{calls} (3xTF32 bound {bound:.3f} ms; plan TM {chosen.tm}): "
+              + "; ".join(f"{key} {ms[key]:.3f} ms ({100 * bound / ms[key]:.0f}%, err {errs[key]['vs_plain']:.1e}, "
+                          f"L2 {errs[key]['l2']:.1e}{', same bits as built' if errs[key]['same_bits'] else ''}"
+                          + (", wrong by design" if f"block {key.split(' TM ')[0]}" in WRONG else "") + ")"
+                          for key in names), flush=True)
+        for key in names:
+            if key.startswith("as built ") and (errs[key]["vs_plain"] > TOL_F32 or errs[key]["l2"] > TOL_F32):
+                _fail(f"{k} {key} misses the fp32 gate at {list(x.shape)}")
+        del x, op, ref
+
+
 def _errors(got, ref, ref64):
     top = float(ref.abs().max())
     err = {"vs_plain": float((got - ref).abs().max()) / top}
@@ -206,9 +577,18 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    jobs = {f"gemm {n}": (*v, "ds_ln_gemm_f32") for n, v in _variant_sources("gemm_f32.cu", GEMM_VARIANTS).items()}
-    jobs.update({f"flash {n}": (*v, "ds_flash_attention_f32")
-                 for n, v in _variant_sources("attention_f32.cu", FLASH_VARIANTS).items()})
+    only = set(sys.argv[1:]) or {"gemm", "flash", "block"}
+    jobs = {}
+    if "gemm" in only:
+        jobs.update({f"gemm {n}": (*v, "ds_ln_gemm_f32")
+                     for n, v in _variant_sources("gemm_f32.cu", GEMM_VARIANTS).items()})
+    if "flash" in only:
+        jobs.update({f"flash {n}": (*v, "ds_flash_attention_f32")
+                     for n, v in _variant_sources("attention_f32.cu", FLASH_VARIANTS).items()})
+    if "block" in only:
+        patched = {n: (patches, None) for n, (patches, _) in BLOCK_VARIANTS.items() if patches}
+        jobs.update({f"block {n}": (*v, ("ds_temporal_block_f32", "ds_temporal_mega_f32"))
+                     for n, v in _variant_sources("temporal_f32.cu", patched).items()})
     cuda_lib.library()
     libs = _build_all(jobs)
     real = cuda_lib._lib
@@ -217,8 +597,10 @@ def main():
     def rn(*shape, s=1.0):
         return torch.randn(shape, generator=g, device="cuda") * s
 
-    report = {"device": smi, "gemm": [], "flash": []}
-    for M, K, N, mode, ln, calls in GEMM_SHAPES:
+    report = {"device": smi, "gemm": [], "flash": [], "block": []}
+    if "block" in only:
+        _block_rows(libs, real, rn, report)
+    for M, K, N, mode, ln, calls in GEMM_SHAPES if "gemm" in only else ():
         x, w = rn(M, K), rn(N, K, s=K ** -0.5)
         kw = dict(mode=mode, bias=rn(N, s=0.1))
         if ln:
@@ -261,7 +643,7 @@ def main():
         if errs["as built"]["vs_plain"] > TOL_F32:
             _fail(f"ds_ln_gemm_f32 as built misses the fp32 gate at M={M} K={K} N={N}")
         del x, w, kw, ref, ref64
-    for B, Nq, lens in FLASH_SHAPES:
+    for B, Nq, lens in FLASH_SHAPES if "flash" in only else ():
         C, heads = 320, 5
         q = rn(B, Nq, 3 * C)[..., :C]
         segs = []

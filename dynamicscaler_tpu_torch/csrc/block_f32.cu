@@ -1,19 +1,14 @@
-// Kernels 10-13 at fp32: the whole temporal block, the whole temporal
-// transformer, and the bodies of the whole spatial block and the whole
-// spatial transformer, for a model run in float32. The fp32 twins of
-// block.cu::ds_temporal_block / ds_temporal_mega and mega.cu::
-// ds_spatial_block / ds_mega_spatial, with the same pointer layouts.
+// Kernels 11 and 13 at fp32: the bodies of the whole spatial block and the
+// whole spatial transformer, for a model run in float32. The fp32 twins of
+// mega.cu::ds_spatial_block / ds_mega_spatial, with the same pointer
+// layouts and the weights appended. (Kernels 10 and 12 at fp32, the whole
+// temporal block and transformer, are in temporal_f32.cu, on the tensor
+// cores.)
 //
 // Replaces, at fp32 activations, the TPU kernels
-//   dynamicscaler_tpu/ops/fused_block.py::_temporal_block_call  (K10)
 //   dynamicscaler_tpu/ops/fused_block.py::_spatial_block_call   (K11)
-//   dynamicscaler_tpu/ops/fused_mega.py::_t_mega_call           (K12)
 //   dynamicscaler_tpu/ops/fused_mega.py::_s_mega_call           (K13)
 // which compute in x.dtype, so at float32 with no rounding point anywhere:
-//   K10: x += out1(attnF(LN1(x) @ Wqkv1)); x += out2(attnF(LN2(x) @ Wqkv2));
-//        x += GEGLU(LN3(x) @ W1 + b1) @ W2 + b2, over x [R, F, C];
-//   K12: h = GN-apply(x5) permuted to F-frame rows @ W_in + b_in; h = K10(h);
-//        y = x5 + (h @ W_out + b_out) permuted back, over x5 [B, F, H, W, C];
 //   K11 body: h += out1(attnN(qkv)); h += out2(cross(LN2(h) @ Wq2, ctx K|V));
 //        h += GEGLU(LN3(h)) @ W2 + b2, with qkv = LN1(x) @ Wqkv and the
 //        context K|V projected before the launch (ds_ln_gemm_f32), as the
@@ -21,35 +16,32 @@
 //   K13 body: the same from h = proj_in(GN-apply(x)), then y = x + h @ W_out
 //        + b_out.
 // Everything multiplies and accumulates in fp32 on the CUDA cores (FFMA; TF32
-// is not fp32); exponentials with expf, GELU with erff.
+// is not fp32); exponentials with expf, GELU with erff. spatial_f32_kernel,
+// the one kernel of this file, is still the first version.
 //
-// What bounds them on the H100: operations. Per token the block multiplies
-// by 20 C^2 weights (kernel 12 adds 2 C^2, kernel 13's body 16 C^2 + 2 C^2
-// beside the N-token attention), 2 operations each, against 8 C bytes in
-// and out, hundreds of operations a byte at every width, far above the
-// card's 67 TFLOP/s / 3.35 TB/s = 20.
+// What bounds them on the H100: operations. Per token the body multiplies
+// by 16 C^2 weights (kernel 13's adds 2 C^2) beside the N-token attention,
+// 2 operations each, against 8 C bytes in and out, hundreds of operations a
+// byte at every width, far above the card's 67 TFLOP/s / 3.35 TB/s = 20.
 //
 // Design (simple and right first): a persistent grid of 256-thread blocks,
 // each with a slot of global scratch (cuda_lib.block_f32_scratch: the
-// normalised or attention rows [TT, C] and the q|k|v or GEGLU rows [TT, 4C];
-// kernels 12 and 13 also their residual stream [TT, C]), that takes tiles
-// of TT tokens in turn and runs the whole block on them phase after phase,
-// with a barrier between phases: LayerNorm a warp a row; every projection
-// as a register-blocked SIMT GEMM of up to 64 rows x 128 weight rows a pass
-// (a thread a 4 x 8 block, K in steps of 16 through a double buffer in
-// shared memory, the next step's loads in registers while this one
-// computes, the GEGLU value and gate rows in one pass); the F-frame
-// attention of every (row, head) with its keys and values in shared memory,
-// two threads a query (32 dims each); the N-token and the cross-attention
-// as a flash tile of 64 queries a head (attention_f32.cuh::tile_flash, the
-// tile of ds_flash_attention_f32: an online softmax over key tiles of 64 in
-// shared memory, each key segment its own softmax, the normalised outputs
-// summed). The temporal tile is TT = max(64, F) tokens of whole
-// F-frame rows; the spatial tile 64 query tokens of one frame sample. The
-// scratch stays in L2 between a block's phases as far as L2 holds it.
-// Not done yet (later work): tensor cores through a 3xTF32 split, tiles
-// resident in shared memory through the block, weights shared across a
-// cluster.
+// normalised or attention rows [64, C] and the q or GEGLU rows [64, 4C];
+// kernel 13 also its residual stream [64, C]), that takes tiles of 64 query
+// tokens of one frame sample in turn and runs the whole body on them phase
+// after phase, with a barrier between phases: LayerNorm a warp a row; every
+// projection as a register-blocked SIMT GEMM of up to 64 rows x 128 weight
+// rows a pass (a thread a 4 x 8 block, K in steps of 16 through a double
+// buffer in shared memory, the next step's loads in registers while this
+// one computes, the GEGLU value and gate rows in one pass); the N-token and
+// the cross-attention as a flash tile of 64 queries a head
+// (attention_f32.cuh::tile_flash, the tile of ds_flash_attention_f32: an
+// online softmax over key tiles of 64 in shared memory, each key segment
+// its own softmax, the normalised outputs summed). The scratch stays in L2
+// between a block's phases as far as L2 holds it.
+// Not done yet (later work): tensor cores through a 3xTF32 split (as
+// temporal_f32.cu), tiles resident in shared memory through the block,
+// weights shared across a cluster.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,24 +57,14 @@ constexpr int RM = 64;    // rows a GEMM pass; the spatial query tile
 constexpr int BN = 128;   // weight rows a GEMM pass
 constexpr int BK = 16;    // K a step
 constexpr int APITCH = RM + 4, BPITCH = BN + 4;
-constexpr int KV_PITCH = D + 4;
 constexpr int GEMM_FLOATS = 2 * BK * (APITCH + BPITCH);
-constexpr int TATT_FLOATS = 2 * 128 * KV_PITCH;
-constexpr int SMEM_FLOATS = GEMM_FLOATS > TATT_FLOATS ? (GEMM_FLOATS > FLASH_FLOATS ? GEMM_FLOATS : FLASH_FLOATS)
-                                                      : (TATT_FLOATS > FLASH_FLOATS ? TATT_FLOATS : FLASH_FLOATS);
+constexpr int SMEM_FLOATS = GEMM_FLOATS > FLASH_FLOATS ? GEMM_FLOATS : FLASH_FLOATS;
 constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
 
 enum { EPI_STORE = 0, EPI_RESIDUAL = 1, EPI_GEGLU = 2 };
 
 __device__ __forceinline__ float gelu_erf(float g) {
   return g * 0.5f * (1.0f + erff(g * 0.70710678118654752f));
-}
-
-// Stored row of logical row r = (b*HW + hw)*F + f of a [B, F, H, W, .] tensor.
-__device__ __forceinline__ size_t frame_major_row(long long r, int F, int HW) {
-  const long long f = r % F, bhw = r / F;
-  const long long b = bhw / HW;
-  return (size_t)((b * F + f) * HW + (bhw - b * HW));
 }
 
 // ---------------------------------------------------------------------------
@@ -263,177 +245,6 @@ __device__ void tile_ln(const float* src, int rows, int C, const float* __restri
 }
 
 // ---------------------------------------------------------------------------
-// F-frame attention of a tile of TT tokens (TT / F whole rows; TT 64 or 128,
-// 128 / TT heads at a time; tokens >= rows read as zero and are not
-// written): per (row, head) softmax(q k^T * scale) v over the row's F
-// tokens. qkv rows [TT, 3C], each head's q | k | v 192 columns together (as
-// kernel 10 packs them); out rows [TT, C]. Two threads a (token, head), 32 dims each
-// (so q and the output stay within the GEMM phases' register budget), with
-// the keys and values of 128 (token, head) pairs in shared memory.
-// ---------------------------------------------------------------------------
-__device__ void tile_temporal_attention(float* sm, const float* qkv, int TT, int rows, int F, int C, float scale,
-                                        float* out) {
-  const int heads = C / D, hg = 128 / TT, tid = threadIdx.x;
-  float* ks = sm;
-  float* vs = sm + 128 * KV_PITCH;
-  const size_t ld = 3 * (size_t)C;
-  for (int h0 = 0; h0 < heads; h0 += hg) {
-    __syncthreads();  // the last readers of ks / vs are done
-    for (int i = tid; i < 2 * 128 * (D / 4); i += NT) {
-      const int which = i / (128 * (D / 4));  // 0 keys, 1 values
-      const int slot = (i / (D / 4)) % 128, c = (i % (D / 4)) * 4;
-      const int j = slot / TT, t = slot % TT, h = h0 + j;
-      float4 v = zero4();
-      if (h < heads && t < rows) v = *reinterpret_cast<const float4*>(qkv + t * ld + h * 3 * D + (1 + which) * D + c);
-      *reinterpret_cast<float4*>((which ? vs : ks) + slot * KV_PITCH + c) = v;
-    }
-    __syncthreads();
-    // two threads a (token, head): half the 64 dims each; a warp's 16 slots share their head
-    const int slot = tid >> 1, half = tid & 1;
-    const int j = slot / TT, t = slot % TT, h = h0 + j;
-    if (h >= heads) continue;
-    float q[32];
-#pragma unroll
-    for (int d = 0; d < 32; d += 4) {
-      const float4 v = t < rows ? *reinterpret_cast<const float4*>(qkv + t * ld + h * 3 * D + half * 32 + d) : zero4();
-      q[d] = v.x; q[d + 1] = v.y; q[d + 2] = v.z; q[d + 3] = v.w;
-    }
-    const int kb = j * TT + (t / F) * F;
-    auto logit = [&](int jj) {
-      const float* k = ks + (kb + jj) * KV_PITCH + half * 32;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < 32; d += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(k + d);
-        s = fmaf(q[d], v.x, s);
-        s = fmaf(q[d + 1], v.y, s);
-        s = fmaf(q[d + 2], v.z, s);
-        s = fmaf(q[d + 3], v.w, s);
-      }
-      return (s + __shfl_xor_sync(0xffffffffu, s, 1)) * scale;
-    };
-    float m = -INFINITY;
-    for (int jj = 0; jj < F; ++jj) m = fmaxf(m, logit(jj));
-    float o[32], l = 0.f;
-#pragma unroll
-    for (int d = 0; d < 32; ++d) o[d] = 0.f;
-    for (int jj = 0; jj < F; ++jj) {
-      const float p = expf(logit(jj) - m);
-      l += p;
-      const float* v = vs + (kb + jj) * KV_PITCH + half * 32;
-#pragma unroll
-      for (int d = 0; d < 32; d += 4) {
-        const float4 w = *reinterpret_cast<const float4*>(v + d);
-        o[d] = fmaf(p, w.x, o[d]);
-        o[d + 1] = fmaf(p, w.y, o[d + 1]);
-        o[d + 2] = fmaf(p, w.z, o[d + 2]);
-        o[d + 3] = fmaf(p, w.w, o[d + 3]);
-      }
-    }
-    if (t < rows) {
-      float* y = out + (size_t)t * C + h * D + half * 32;
-#pragma unroll
-      for (int d = 0; d < 32; d += 4)
-        *reinterpret_cast<float4*>(y + d) = make_float4(o[d] / l, o[d + 1] / l, o[d + 2] / l, o[d + 3] / l);
-    }
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// kernels 10 and 12
-// ---------------------------------------------------------------------------
-
-struct TArgs {
-  const float* x;  // K10: [R*F, C]; K12: x5 [B, F, H, W, C]
-  float* out;
-  const float* ln_w[3];
-  const float* ln_b[3];
-  const float* wqkv[2];
-  const float* wo[2];
-  const float* bo[2];
-  const float *w1, *b1, *w2, *b2;
-  const float *gn_mul, *gn_add, *w_in, *b_in, *w_out, *b_out;  // K12
-  float* scratch;
-  long long slot;  // floats of scratch a block
-  long long T;     // tokens
-  int F, HW, C, TT, tiles;
-  float scale, eps;
-};
-
-template <bool MEGA>
-__global__ void __launch_bounds__(NT, 2) temporal_f32_kernel(const TArgs a) {
-  extern __shared__ __align__(16) float sm[];
-  const int C = a.C, TT = a.TT;
-  float* nrm = a.scratch + (size_t)blockIdx.x * a.slot;  // [TT, C]: LayerNorm or attention rows
-  float* big = nrm + (size_t)TT * C;                     // [TT, 4C]: q|k|v or GEGLU rows
-  float* hs = big + (size_t)TT * 4 * C;                  // K12: [TT, C] the block's stream
-  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
-    const long long t0 = (long long)tile * TT;
-    const int rows = (int)min((long long)TT, a.T - t0);
-    float* stream;
-    const float* src;
-    if (MEGA) {
-      // h = GN-apply(x5 at the tile's tokens, frame-major rows) @ W_in + b_in
-      const long long clip = (long long)a.F * a.HW;
-      for (int c0 = 0; c0 < rows; c0 += RM) {
-        auto aload = [&](int r, int k) {
-          const long long lt = t0 + c0 + r;
-          const size_t s = (size_t)(lt / clip) * C + k;
-          float4 v = *reinterpret_cast<const float4*>(a.x + frame_major_row(lt, a.F, a.HW) * C + k);
-          const float4 m = __ldg(reinterpret_cast<const float4*>(a.gn_mul + s));
-          const float4 d = __ldg(reinterpret_cast<const float4*>(a.gn_add + s));
-          v.x = __fadd_rn(__fmul_rn(v.x, m.x), d.x);
-          v.y = __fadd_rn(__fmul_rn(v.y, m.y), d.y);
-          v.z = __fadd_rn(__fmul_rn(v.z, m.z), d.z);
-          v.w = __fadd_rn(__fmul_rn(v.w, m.w), d.w);
-          return v;
-        };
-        const Rows y{hs + (size_t)c0 * C, C};
-        tile_gemm<EPI_STORE>(sm, min(RM, rows - c0), C, a.w_in, C, a.b_in, aload, y, y);
-      }
-      stream = hs;
-      src = hs;
-    } else {
-      stream = a.out + t0 * C;
-      src = a.x + t0 * C;
-    }
-    for (int sub = 0; sub < 2; ++sub) {
-      const float* in = sub == 0 ? src : stream;
-      tile_ln(in, rows, C, a.ln_w[sub], a.ln_b[sub], a.eps, nrm);
-      for (int c0 = 0; c0 < rows; c0 += RM) {
-        const Rows y{big + (size_t)c0 * 3 * C, 3 * C};
-        tile_gemm<EPI_STORE>(sm, min(RM, rows - c0), C, a.wqkv[sub], 3 * C, nullptr,
-                             LoadRows{nrm + (size_t)c0 * C, C}, y, y);
-      }
-      tile_temporal_attention(sm, big, TT, rows, a.F, C, a.scale, nrm);
-      for (int c0 = 0; c0 < rows; c0 += RM)
-        tile_gemm<EPI_RESIDUAL>(sm, min(RM, rows - c0), C, a.wo[sub], C, a.bo[sub], LoadRows{nrm + (size_t)c0 * C, C},
-                                Rows{stream + (size_t)c0 * C, C}, Rows{const_cast<float*>(in) + (size_t)c0 * C, C});
-    }
-    tile_ln(stream, rows, C, a.ln_w[2], a.ln_b[2], a.eps, nrm);
-    for (int c0 = 0; c0 < rows; c0 += RM) {
-      const Rows y{big + (size_t)c0 * 4 * C, 4 * C};
-      tile_gemm<EPI_GEGLU>(sm, min(RM, rows - c0), C, a.w1, 8 * C, a.b1, LoadRows{nrm + (size_t)c0 * C, C}, y, y);
-    }
-    for (int c0 = 0; c0 < rows; c0 += RM) {
-      const Rows y{stream + (size_t)c0 * C, C};
-      tile_gemm<EPI_RESIDUAL>(sm, min(RM, rows - c0), 4 * C, a.w2, C, a.b2, LoadRows{big + (size_t)c0 * 4 * C, 4 * C},
-                              y, y);
-    }
-    if (MEGA) {
-      // y = x5 + (h @ W_out + b_out), written back at the frame-major rows
-      for (int c0 = 0; c0 < rows; c0 += RM) {
-        auto yrow = [&](int r) { return a.out + frame_major_row(t0 + c0 + r, a.F, a.HW) * C; };
-        auto rrow = [&](int r) { return a.x + frame_major_row(t0 + c0 + r, a.F, a.HW) * C; };
-        tile_gemm<EPI_RESIDUAL>(sm, min(RM, rows - c0), C, a.w_out, C, a.b_out, LoadRows{hs + (size_t)c0 * C, C},
-                                yrow, rrow);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // kernels 11 and 13 (the body after the context K|V and q|k|v projections)
 // ---------------------------------------------------------------------------
 
@@ -498,8 +309,6 @@ cudaError_t prepare() {
   static cudaError_t done = [] {
     cudaError_t e = cudaSuccess;
     const int n = SMEM_BYTES;
-    if (e == cudaSuccess) e = cudaFuncSetAttribute(temporal_f32_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, n);
-    if (e == cudaSuccess) e = cudaFuncSetAttribute(temporal_f32_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, n);
     if (e == cudaSuccess) e = cudaFuncSetAttribute(spatial_f32_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, n);
     if (e == cudaSuccess) e = cudaFuncSetAttribute(spatial_f32_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, n);
     return e;
@@ -517,44 +326,9 @@ cudaError_t launch(K kernel, const A& a, int blocks, cudaStream_t stream) {
 
 const float* f(const void* p) { return static_cast<const float*>(p); }
 
-// The floats of scratch a block needs: [TT, C] + [TT, 4C] (+ [TT, C] for
-// kernels 12 and 13), TT = max(64, F) for the temporal kernels, 64 spatial.
+// The floats of scratch a block needs: [64, C] + [64, 4C] (+ [64, C] for
+// kernel 13).
 long long slot_floats(int tt, int C, bool mega) { return (long long)tt * C * (mega ? 6 : 5); }
-
-int temporal_run(const void* const* p, bool mega, long long T, int F, int HW, int C, float scale, float eps,
-                 void* scratch, long long scratch_floats, int slots, void* stream) {
-  if (C % 64 || C < 64 || C > 1280 || T <= 0 || F < 2 || F > 128 || 128 % F || T % F || slots <= 0 ||
-      scratch == nullptr)
-    return (int)cudaErrorInvalidValue;
-  TArgs a{};
-  a.x = f(p[0]);
-  a.out = static_cast<float*>(const_cast<void*>(p[1]));
-  for (int s = 0; s < 2; ++s) {
-    a.ln_w[s] = f(p[2 + 5 * s]);
-    a.ln_b[s] = f(p[3 + 5 * s]);
-    a.wqkv[s] = f(p[4 + 5 * s]);
-    a.wo[s] = f(p[5 + 5 * s]);
-    a.bo[s] = f(p[6 + 5 * s]);
-  }
-  a.ln_w[2] = f(p[12]);
-  a.ln_b[2] = f(p[13]);
-  a.w1 = f(p[14]); a.b1 = f(p[15]); a.w2 = f(p[16]); a.b2 = f(p[17]);
-  if (mega) {
-    a.gn_mul = f(p[18]); a.gn_add = f(p[19]); a.w_in = f(p[20]); a.b_in = f(p[21]);
-    a.w_out = f(p[22]); a.b_out = f(p[23]);
-  }
-  a.TT = F > RM ? F : RM;
-  a.T = T; a.F = F; a.HW = HW; a.C = C; a.scale = scale; a.eps = eps;
-  const long long tiles = (T + a.TT - 1) / a.TT;
-  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  a.tiles = (int)tiles;
-  a.slot = slot_floats(a.TT, C, mega);
-  const int blocks = (int)(tiles < slots ? tiles : slots);
-  if (scratch_floats < a.slot * blocks) return (int)cudaErrorInvalidValue;
-  a.scratch = static_cast<float*>(scratch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(mega ? launch(temporal_f32_kernel<true>, a, blocks, s) : launch(temporal_f32_kernel<false>, a, blocks, s));
-}
 
 int spatial_run(const void* const* p, bool mega, int BF, int N, int C, int frames, int Lt, int Li, float scale,
                 float eps, void* scratch, long long scratch_floats, int slots, void* stream) {
@@ -584,26 +358,6 @@ int spatial_run(const void* const* p, bool mega, int BF, int N, int C, int frame
 }
 
 }  // namespace
-
-// p: ds_temporal_block's 18 pointers (block.cu), fp32: 0 x [R*F, C], 1 out,
-// per attention sub-block s = 1, 2: ln_w, ln_b, wqkv [3C, C] (rows: head,
-// then q|k|v, then 64), wo [C, C], bo; then 12 ln3_w, 13 ln3_b, 14 w1 [8C, C],
-// 15 b1 [8C], 16 w2 [C, 4C], 17 b2. scratch: fp32, at least slots *
-// 5 * max(64, F) * C floats (cuda_lib.block_f32_scratch). Shapes the caller
-// guarantees: every pointer 16-byte aligned and contiguous.
-extern "C" int ds_temporal_block_f32(const void* const* p, int R, int F, int C, float scale, float eps, void* scratch,
-                                     long long scratch_floats, int slots, void* stream) {
-  return temporal_run(p, false, (long long)R * F, F, 1, C, scale, eps, scratch, scratch_floats, slots, stream);
-}
-
-// p: kernel 10's 18 pointers with 0 x5 / 1 out [B, F, H, W, C], then 18 mul
-// [B, C], 19 add [B, C], 20 w_in [C, C], 21 b_in, 22 w_out [C, C], 23 b_out.
-// scratch: at least slots * 6 * max(64, F) * C floats.
-extern "C" int ds_temporal_mega_f32(const void* const* p, int B, int F, int HW, int C, float scale, float eps,
-                                    void* scratch, long long scratch_floats, int slots, void* stream) {
-  if (HW <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
-  return temporal_run(p, true, (long long)B * F * HW, F, HW, C, scale, eps, scratch, scratch_floats, slots, stream);
-}
 
 // p: ds_mega_spatial's 15 pointers (mega.cu), fp32: 0 h [T, C] (K11: x), 1 x
 // [T, C] (K13 only), 2 qkv [T, 3C], 3 kv_t [clips * Lt, 2C], 4 kv_i [clips *

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the TMA/wgmma kernels (gemm.cu: ds_ln_gemm;
 // attention.cu: ds_flash_attention; block.cu: kernels 10 and 12; mega.cu:
-// kernels 11 and 13; at fp32 gemm_f32.cu: ds_ln_gemm_f32 and attention_f32.cu:
-// ds_flash_attention_f32 on tf32 wgmma): mbarriers
+// kernels 11 and 13; at fp32 gemm_f32.cu: ds_ln_gemm_f32, attention_f32.cu:
+// ds_flash_attention_f32 and temporal_f32.cu: kernels 10 and 12 on tf32
+// wgmma): mbarriers
 // (local and across a thread-block cluster), TMA tile copies (plain and
 // multicast to a cluster), wgmma descriptors and instructions, and the
 // host-side tensor-map encoder.

@@ -26,9 +26,11 @@ wherever a bf16 one takes the bf16 kernels: ``gemm_f32.cu::ds_ln_gemm_f32``
 GEMM and the flash attention multiply on the tensor cores through a
 three-product tf32 split, :func:`matmul_3xtf32` its plain model for the
 tests), ``gn_silu.cu``'s kernels
-instantiated at fp32 (K1-K9 and the statistics), and ``block_f32.cu``'s
-whole blocks and whole transformers (kernels 10-13, each with a slot of
-scratch a block, :func:`block_f32_scratch`).
+instantiated at fp32 (K1-K9 and the statistics), ``temporal_f32.cu``'s whole
+temporal block and transformer (kernels 10 and 12 on the tensor cores
+through the same split, their tile from :func:`block_f32_plan`, a slot of
+scratch a block, :func:`temporal_f32_scratch`) and ``block_f32.cu``'s
+spatial bodies (kernels 11 and 13, :func:`block_f32_scratch`).
 """
 
 from __future__ import annotations
@@ -76,8 +78,8 @@ _SIGNATURES = {
     "ds_mega_spatial": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P),
     "ds_spatial_block": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P),
     "ds_spatial_maps": (_P, _I, _I, _P, _P),
-    "ds_temporal_block_f32": (_P, _I, _I, _I, _F, _F, _P, _L, _I, _P),
-    "ds_temporal_mega_f32": (_P, _I, _I, _I, _I, _F, _F, _P, _L, _I, _P),
+    "ds_temporal_block_f32": (_P, _I, _I, _I, _F, _F, _P, _L, _I, _I, _P),
+    "ds_temporal_mega_f32": (_P, _I, _I, _I, _I, _F, _F, _P, _L, _I, _I, _P),
     "ds_spatial_block_f32": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _L, _I, _P),
     "ds_mega_spatial_f32": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _L, _I, _P),
 }
@@ -408,20 +410,75 @@ def gemm_tile(M: int, K: int, N: int, mode: int = MODE_STORE) -> GemmTile:
     return GemmTile(bn, stages, gemm_smem(bn, stages))
 
 
-# kernels 10-13 at fp32 (csrc/block_f32.cu): a persistent grid of at most
-# BLOCK_F32_SLOTS blocks of 256 threads (two an SM), each taking tiles of TT
-# tokens (max(64, F) temporal, 64 query tokens spatial) with its own slot of
-# fp32 scratch: [TT, C] normalised or attention rows and [TT, 4C] q|k|v or
-# GEGLU rows, and for kernels 12 and 13 their residual stream [TT, C]
+# kernels 11 and 13 at fp32 (csrc/block_f32.cu): a persistent grid of at
+# most BLOCK_F32_SLOTS blocks of 256 threads (two an SM), each taking tiles
+# of 64 query tokens with its own slot of fp32 scratch: [64, C] normalised or
+# attention rows and [64, 4C] q or GEGLU rows, and for kernel 13 its
+# residual stream [64, C]
 BLOCK_F32_SLOTS = 2 * GEMM_SMS
 
 
 def block_f32_scratch(tokens: int, C: int, tt: int, mega: bool) -> torch.Size:
-    """The scratch of one launch of ``block_f32.cu`` over ``tokens`` tokens
-    in tiles of ``tt``: a slot a block of the grid, ``[blocks, tt, (5 or 6)
-    * C]`` fp32."""
+    """The scratch of one launch of ``block_f32.cu`` (kernels 11 and 13)
+    over ``tokens`` tokens in tiles of ``tt``: a slot a block of the grid,
+    ``[blocks, tt, (5 or 6) * C]`` fp32. Kernels 10 and 12 at fp32 keep
+    their token rows in a scratch slot too, :func:`temporal_f32_scratch`."""
     blocks = min(-(-tokens // tt), BLOCK_F32_SLOTS)
     return torch.Size((blocks, tt, (6 if mega else 5) * C))
+
+
+# ds_temporal_block_f32 / ds_temporal_mega_f32's tile (csrc/temporal_f32.cu):
+# a persistent grid of one 384-thread block an SM, each taking tiles of TM
+# tokens (whole F-frame rows at every F the gate admits); every product on
+# tf32 wgmma with the tokens as the M side, column tiles of 128 weight rows,
+# a ring of 4 slots of 32-deep k stages (the TM token rows, the 128 weight
+# rows split: W_hi, W_lo). chip_tf32_variants.py times the alternatives
+# (clusters of 2 sharing each weight tile by multicast, the token rows split
+# when written, the residual stream in shared memory, BN 64, 2 slots)
+# a tile of 64 tokens costs this share of a tile of 128 (chip_tf32_variants.py
+# on the H100: 27.0 against 19.5 ms for kernel 12 at t320, 1.39x a token)
+BLOCK_F32_TM64_COST = 0.7
+
+
+class BlockF32Plan(NamedTuple):
+    tm: int  # tokens a tile: 128 (two warpgroups of 64 rows) or 64 (both on the same rows, half the columns each)
+
+
+@functools.lru_cache(maxsize=None)
+def block_f32_plan(C: int, F: int, tokens: int, mega: bool = False) -> BlockF32Plan:
+    """The tile of kernels 10 (``mega`` False) and 12 at fp32 at width C, F
+    frames and ``tokens`` tokens: 128 tokens, or 64 where the grid's waves
+    of them take less time (a block takes ceil(tiles / SMs) tiles one after
+    another; a tile of 64 costs :data:`BLOCK_F32_TM64_COST` of one of 128),
+    which is where there are fewer tiles of 128 than SMs: kernel 10 at the
+    middle block's 5120 tokens, 40 tiles of 128 for 132 SMs. Kernel 12 takes
+    C <= 640 only."""
+    if C % 64 or not 64 <= C <= (640 if mega else 1280) or F < 2 or 128 % F or tokens <= 0 or tokens % F:
+        raise ValueError(f"block_f32_plan: C a multiple of 64 up to {640 if mega else 1280}, F dividing 128 and "
+                         f"whole rows of F tokens; got C={C} F={F} tokens={tokens}")
+    if F > 64:
+        return BlockF32Plan(128)
+    waves = {tm: -(-tokens // (tm * GEMM_SMS)) for tm in (128, 64)}
+    return BlockF32Plan(64 if waves[64] * BLOCK_F32_TM64_COST < waves[128] else 128)
+
+
+def block_f32_grid(plan: BlockF32Plan, tokens: int) -> int:
+    """Blocks of a ``ds_temporal_block_f32`` / ``ds_temporal_mega_f32``
+    launch: one a tile of ``plan.tm`` tokens, at most one a streaming
+    multiprocessor (the grid is persistent)."""
+    return min(-(-tokens // plan.tm), GEMM_SMS)
+
+
+def temporal_f32_scratch(tokens: int, C: int, plan: BlockF32Plan) -> torch.Size:
+    """The scratch of one launch of ``ds_temporal_block_f32`` /
+    ``ds_temporal_mega_f32``, flat fp32: a slot of ``plan.tm`` token rows a
+    block of the grid (:func:`block_f32_grid`) in each of three regions, one
+    after another: the LayerNorm, GroupNorm or attention rows [blocks * tm,
+    C], the q|k|v or GEGLU rows [blocks * tm, 4C] and the residual stream
+    [blocks * tm, C]. The token tiles live there between the products: an
+    fp32 tile of 128 tokens (160 KB at C 320) does not fit shared memory
+    beside the weight ring."""
+    return torch.Size((block_f32_grid(plan, tokens) * plan.tm * 6 * C,))
 
 
 # ds_temporal_block / ds_temporal_mega's tile (csrc/block.cu): TM resident

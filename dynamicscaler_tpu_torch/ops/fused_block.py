@@ -35,8 +35,11 @@ JAX package's shape conditions (``temporal_block_fusable``,
 wrappers refuse what they do not admit. On the card the kernels also need
 head dim 64, as the sub-block kernels K1-K4 do. An fp32 activation takes
 the fp32 kernels instead, with the same operands in fp32:
-``csrc/block_f32.cu::ds_temporal_block_f32`` (one launch), and the same GEMM
-heads (``ds_ln_gemm_f32``) then ``ds_spatial_block_f32``; no TMA maps.
+``csrc/temporal_f32.cu::ds_temporal_block_f32`` (one launch on the tensor
+cores, the weights split for them once each by
+``cuda_lib.tf32_split_weights``, its tile from ``cuda_lib.block_f32_plan``),
+and the same GEMM heads (``ds_ln_gemm_f32``) then
+``csrc/block_f32.cu::ds_spatial_block_f32``.
 """
 
 from __future__ import annotations
@@ -142,12 +145,16 @@ def _check_ff(f: FFOperands, C: int, dt: torch.dtype) -> None:
         cuda_lib.check_operand("ff vector", v, torch.float32, (C,))
 
 
-def block_pointers(op: BlockOperands) -> list:
-    """The block operands in ``ds_temporal_block``'s pointer order (after x, out)."""
+def block_pointers(op: BlockOperands, split: bool = False) -> list:
+    """The block operands in ``ds_temporal_block``'s pointer order (after x,
+    out); ``split``: every weight split for the tensor cores, [2, N, K]
+    (``cuda_lib.tf32_split_weights``, once a weight), as the fp32 kernels 10
+    and 12 read them."""
     a1, a2, f = op.attn1, op.attn2, op.ff
-    return [a1.ln_scale, a1.ln_bias, a1.w_in, a1.wo, a1.bo,
-            a2.ln_scale, a2.ln_bias, a2.w_in, a2.wo, a2.bo,
-            f.ln_scale, f.ln_bias, f.w1, f.b1, f.w2, f.b2]
+    w = cuda_lib.tf32_split_weights if split else (lambda t: t)
+    return [a1.ln_scale, a1.ln_bias, w(a1.w_in), w(a1.wo), a1.bo,
+            a2.ln_scale, a2.ln_bias, w(a2.w_in), w(a2.wo), a2.bo,
+            f.ln_scale, f.ln_bias, w(f.w1), f.b1, w(f.w2), f.b2]
 
 
 def block_weights(op: BlockOperands) -> list:
@@ -163,8 +170,10 @@ def fused_temporal_block(x, lns, attn1, attn2, ff, *, heads, scale, eps=1e-5, op
     of ``ds_temporal_block`` (bf16) at the tile ``plan``
     (``cuda_lib.block_plan``'s when None; the kernel refuses one it cannot
     take) with the TMA maps of its weights, or of ``ds_temporal_block_f32``
-    (fp32), reading ``operands`` (from :func:`pack_temporal_block`; packed
-    here when None)."""
+    (fp32) at the tile ``plan`` (``cuda_lib.block_f32_plan``'s when None)
+    with its weights split and a slot of scratch a block
+    (``cuda_lib.temporal_f32_scratch``), reading ``operands`` (from
+    :func:`pack_temporal_block`; packed here when None)."""
     dt = cuda_lib.check_dtypes("K10", x)
     if not cuda_lib.use_kernel(x):
         return temporal_block_plain(x, lns, attn1, attn2, ff, heads=heads, scale=scale, eps=eps)
@@ -175,9 +184,11 @@ def fused_temporal_block(x, lns, attn1, attn2, ff, *, heads, scale, eps=1e-5, op
     check_block_operands(op, C, dt)
     out = torch.empty_like(x)
     if dt == torch.float32:
-        scratch = torch.empty(cuda_lib.block_f32_scratch(R * Fn, C, max(64, Fn), False), device=x.device, dtype=dt)
-        cuda_lib.call("ds_temporal_block_f32", cuda_lib.ptr_array([x, out, *block_pointers(op)]), R, Fn, C,
-                      float(scale), float(eps), cuda_lib.ptr(scratch), scratch.numel(), scratch.shape[0])
+        plan = plan or cuda_lib.block_f32_plan(C, Fn, R * Fn)
+        scratch = torch.empty(cuda_lib.temporal_f32_scratch(R * Fn, C, plan), device=x.device, dtype=dt)
+        cuda_lib.call("ds_temporal_block_f32", cuda_lib.ptr_array([x, out, *block_pointers(op, split=True)]), R, Fn,
+                      C, float(scale), float(eps), cuda_lib.ptr(scratch), scratch.numel(),
+                      cuda_lib.block_f32_grid(plan, R * Fn), *plan)
         fused_temporal_block.launches += 1
         return out
     plan = plan or cuda_lib.block_plan(C, Fn)

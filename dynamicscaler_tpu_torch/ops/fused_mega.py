@@ -36,8 +36,10 @@ The gates :func:`temporal_ok` and :func:`spatial_ok` are the JAX package's
 shape conditions without its TPU tiling terms; the module dispatch routes by
 them and the wrappers refuse what they do not admit. An fp32 activation
 takes the fp32 kernels instead, with the same operands in fp32:
-``csrc/block_f32.cu::ds_temporal_mega_f32`` (one launch), and the same GEMM
-heads (``ds_ln_gemm_f32``) then ``ds_mega_spatial_f32``; no TMA maps.
+``csrc/temporal_f32.cu::ds_temporal_mega_f32`` (one launch on the tensor
+cores, kernel 10's at fp32 with the wrapper's products; the weights split
+once each), and the same GEMM heads (``ds_ln_gemm_f32``) then
+``csrc/block_f32.cu::ds_mega_spatial_f32``.
 """
 
 from __future__ import annotations
@@ -129,8 +131,10 @@ def temporal_mega(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out,
     [B, F, H, W, C] -> [B, F, H, W, C]. On the card one launch (head dim 64,
     inner == C <= 640) of ``ds_temporal_mega`` (bf16) at the tile ``plan``
     (``cuda_lib.block_plan``'s when None) with the TMA maps of its weights,
-    or of ``ds_temporal_mega_f32`` (fp32), reading ``operands`` (from
-    :func:`pack_temporal_mega`; packed here when None)."""
+    or of ``ds_temporal_mega_f32`` (fp32) at the tile ``plan``
+    (``cuda_lib.block_f32_plan``'s when None) with its weights split,
+    reading ``operands`` (from :func:`pack_temporal_mega`; packed here when
+    None)."""
     dt = cuda_lib.check_dtypes("K12", x5)
     if not cuda_lib.use_kernel(x5):
         return temporal_mega_plain(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, heads=heads,
@@ -144,18 +148,21 @@ def temporal_mega(x5, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out,
     check_block_operands(op.block, C, dt)
     _check_gn(mul, add, B, C)
     out = torch.empty_like(x5)
-    ptrs = [x5, out, *block_pointers(op.block), mul, add, op.w_in, op.b_in, op.w_out, op.b_out]
-    if dt == torch.float32:
-        scratch = torch.empty(cuda_lib.block_f32_scratch(B * Fn * H * W, C, max(64, Fn), True), device=x5.device,
-                              dtype=dt)
-        cuda_lib.call("ds_temporal_mega_f32", cuda_lib.ptr_array(ptrs), B, Fn, H * W, C, float(scale), float(eps),
-                      cuda_lib.ptr(scratch), scratch.numel(), scratch.shape[0])
+    f32 = dt == torch.float32
+    w = cuda_lib.tf32_split_weights if f32 else (lambda t: t)
+    ptrs = cuda_lib.ptr_array([x5, out, *block_pointers(op.block, split=f32), mul, add, w(op.w_in), op.b_in,
+                               w(op.w_out), op.b_out])
+    if f32:
+        T = B * Fn * H * W
+        plan = plan or cuda_lib.block_f32_plan(C, Fn, T, mega=True)
+        scratch = torch.empty(cuda_lib.temporal_f32_scratch(T, C, plan), device=x5.device, dtype=dt)
+        cuda_lib.call("ds_temporal_mega_f32", ptrs, B, Fn, H * W, C, float(scale), float(eps), cuda_lib.ptr(scratch),
+                      scratch.numel(), cuda_lib.block_f32_grid(plan, T), *plan)
         temporal_mega.launches += 1
         return out
     plan = plan or cuda_lib.block_plan(C, Fn, mega=True)
     maps = cuda_lib.block_maps(op.maps, [*block_weights(op.block), op.w_in, op.w_out], C, plan.cl)
-    cuda_lib.call("ds_temporal_mega", cuda_lib.ptr_array(ptrs), B, Fn, H * W, C, float(scale), float(eps), maps,
-                  *plan)
+    cuda_lib.call("ds_temporal_mega", ptrs, B, Fn, H * W, C, float(scale), float(eps), maps, *plan)
     temporal_mega.launches += 1
     return out
 

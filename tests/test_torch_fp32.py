@@ -192,16 +192,25 @@ def _fake_card(monkeypatch):
     return calls
 
 
+# the weights' places in the pointer array of ds_temporal_block_f32 (wqkv1,
+# wo1, wqkv2, wo2, w1, w2) and ds_temporal_mega_f32 (and w_in, w_out)
+TEMPORAL_F32_WEIGHTS = {"ds_temporal_block_f32": (4, 5, 9, 10, 14, 16),
+                        "ds_temporal_mega_f32": (4, 5, 9, 10, 14, 16, 20, 22)}
+
+
 def _kernel_calls(calls):
     """The recorded calls less ``ds_tf32_split``, after checking that every
     ``ds_ln_gemm_f32`` reads as W [2, N, K] the output of a split recorded
-    before it (its weights split once, at their first use)."""
+    before it (its weights split once, at their first use), and that kernels
+    10 and 12 at fp32 read every weight so."""
     split = set()
     for name, args in calls:
         if name == "ds_tf32_split":
             split.add(args[2].value)
         elif name == "ds_ln_gemm_f32":
             assert args[11].value in split
+        elif name in TEMPORAL_F32_WEIGHTS:
+            assert all(args[0][i] in split for i in TEMPORAL_F32_WEIGHTS[name])
     return [(name, args) for name, args in calls if name != "ds_tf32_split"]
 
 
@@ -236,8 +245,10 @@ def test_whole_block_wrappers_name_their_fp32_kernels(monkeypatch, kernel):
     """Kernels 10-13 on the card's route at fp32: the ``ds_ln_gemm_f32``
     heads (kernels 11 and 13), then one launch of the fp32 body with its
     pointers, the tokens, and a slot of fp32 scratch a block of the grid
-    (``cuda_lib.block_f32_scratch``); an fp32 output of x's shape; one
-    launch counted."""
+    (``cuda_lib.block_f32_scratch``; kernels 10 and 12: the three regions of
+    ``cuda_lib.temporal_f32_scratch`` and the tile of
+    ``cuda_lib.block_f32_plan``, every weight split); an fp32 output of x's
+    shape; one launch counted."""
     calls = _fake_card(monkeypatch)
     run, name, n_ptrs, heads_gemms = _whole_calls()[kernel]
     before = WHOLE[kernel].launches
@@ -246,17 +257,22 @@ def test_whole_block_wrappers_name_their_fp32_kernels(monkeypatch, kernel):
     assert [c[0] for c in calls] == ["ds_ln_gemm_f32"] * heads_gemms + [name]
     args = calls[-1][1]
     assert len(args[0]) == n_ptrs and out.dtype == F32 and WHOLE[kernel].launches == before + 1
-    scratch_floats, slots = args[-2:]
+    if kernel in ("K10", "K12"):
+        scratch_floats, slots, *plan = args[-3:]
+        T = 5 * 16 if kernel == "K10" else 2 * 8 * 6
+        tile = cuda_lib.block_f32_plan(_CW, 16 if kernel == "K10" else 8, T, mega=kernel == "K12")
+        assert tuple(plan) == tuple(tile) == (64,)  # two tiles of 64 tokens for 132 SMs
+        assert (slots, scratch_floats) == (2, cuda_lib.temporal_f32_scratch(T, _CW, tile).numel()) == (2, 128 * 6 * _CW)
+    else:
+        scratch_floats, slots = args[-2:]
     if kernel == "K10":
         assert args[1:4] == (5, 16, _CW) and out.shape == (5, 16, _CW)
-        want = cuda_lib.block_f32_scratch(5 * 16, _CW, 64, False)
     elif kernel == "K12":
         assert args[1:5] == (2, 8, 6, _CW) and out.shape == (2, 8, 2, 3, _CW)
-        want = cuda_lib.block_f32_scratch(2 * 8 * 6, _CW, 64, True)
     else:
         assert args[1:7] == (4, 272, _CW, 2, 77, 16)
         want = cuda_lib.block_f32_scratch(4 * 272, _CW, 64, kernel == "K13")
-    assert (slots, scratch_floats) == (want[0], want.numel())
+        assert (slots, scratch_floats) == (want[0], want.numel())
 
 
 # ---------------------------------------------------------------------------
@@ -531,10 +547,14 @@ def test_flash_f32_fits_shared_memory(Nq, lens):
                                         ("s", 1280)])
 def test_block_f32_scratch_at_every_transformer(side, width):
     """The scratch of kernels 10-13 at fp32 at every transformer of the
-    full-width batch-8 i2v forward whose gates admit it: a slot of [TT, 5C]
-    (6C with the wrapper, kernels 12 and 13) a block, TT the 64-token tile of
-    16-frame rows or of query tokens, no more blocks than tiles nor than two
-    an SM, and within 1 GiB."""
+    full-width batch-8 i2v forward whose gates admit it. Kernels 11 and 13:
+    a slot of [64, 5C] (6C with the wrapper) a block, no more blocks than
+    64-token tiles nor than two an SM. Kernels 10 and 12: three regions of a
+    128-row slot a block (the LayerNorm or attention rows [., C], the
+    q|k|v or GEGLU rows [., 4C], the stream [., C]) of the plan's TM rows a
+    block, no more blocks than tiles nor than one an SM: TM 128 at the 40x64,
+    20x32 and 10x16 levels, 64 at the middle block's 5x8 (40 tiles of 128
+    for 132 SMs). Each within 1 GiB."""
     n = 0
     for s, c, inner, heads, H, W in i2v_transformers():
         if (s, inner) != (side, width):
@@ -543,8 +563,17 @@ def test_block_f32_scratch_at_every_transformer(side, width):
         ok = (fused_block.temporal_block_ok(16, inner, inner, heads) if s == "t"
               else fused_block.spatial_block_ok(H * W, inner, inner, heads, 1024))
         for mega in (False, True) if ok else ():
-            shape = cuda_lib.block_f32_scratch(T, inner, 64, mega)
-            assert shape == (min(-(-T // 64), 2 * 132), 64, (6 if mega else 5) * inner)
+            if s == "t":
+                if mega and inner > 640:
+                    continue
+                plan = cuda_lib.block_f32_plan(inner, 16, T, mega)
+                assert plan.tm == (64 if H * W == 40 else 128)
+                shape = cuda_lib.temporal_f32_scratch(T, inner, plan)
+                blocks = min(-(-T // plan.tm), 132)
+                assert cuda_lib.block_f32_grid(plan, T) == blocks and shape == (blocks * plan.tm * 6 * inner,)
+            else:
+                shape = cuda_lib.block_f32_scratch(T, inner, 64, mega)
+                assert shape == (min(-(-T // 64), 2 * 132), 64, (6 if mega else 5) * inner)
             assert shape.numel() * 4 <= 2 ** 30
             n += 1
     assert n or (side, width) in (("s", 1280),)
@@ -552,13 +581,101 @@ def test_block_f32_scratch_at_every_transformer(side, width):
 
 def test_block_f32_entry_points_take_the_wrappers_arguments():
     """The C signatures of the four fp32 bodies: the pointer array, the
-    shape, scale and eps, the scratch, its floats and the blocks (slots),
-    then the stream."""
+    shape, scale and eps, the scratch, its floats and the blocks (slots);
+    kernels 10 and 12 then their tile (TM); then the stream."""
     P, I, F, L = cuda_lib._P, cuda_lib._I, cuda_lib._F, cuda_lib._L
     sig = cuda_lib._SIGNATURES
-    assert sig["ds_temporal_block_f32"] == (P, I, I, I, F, F, P, L, I, P)
-    assert sig["ds_temporal_mega_f32"] == (P, I, I, I, I, F, F, P, L, I, P)
+    assert sig["ds_temporal_block_f32"] == (P, I, I, I, F, F, P, L, I, I, P)
+    assert sig["ds_temporal_mega_f32"] == (P, I, I, I, I, F, F, P, L, I, I, P)
     assert sig["ds_spatial_block_f32"] == sig["ds_mega_spatial_f32"] == (P, I, I, I, I, I, I, F, F, P, L, I, P)
+
+
+FRAMES = [2, 4, 8, 16, 32, 64, 128]
+
+
+@pytest.mark.parametrize("C", range(64, 1281, 64))
+def test_block_f32_plan_fits_at_every_shape_the_gates_admit(C):
+    """``cuda_lib.block_f32_plan`` (the tile of ds_temporal_block_f32 and
+    ds_temporal_mega_f32) at every width and frame count the gates admit
+    (kernel 12 up to C 640) and at token counts from one row to the 40x64
+    level's: tiles of 128 or 64 tokens of whole F-frame rows, 64 only where
+    fewer waves of them take less time (never where the 128-token tiles
+    fill every SM); the kernel's shared memory at that tile (csrc/
+    temporal_f32.cu::smem_bytes: the alignment pad, a ring of 4 slots of
+    the tile's token rows and 128 weight rows twice, 32 fp32 each, nine
+    mbarriers) within a block's, and the F-frame attention's q, k and v (at
+    F 8 and 16) or keys, values and logits within the ring it borrows."""
+    for F in FRAMES:
+        for mega in (False, True) if C <= 640 else (False,):
+            assert fused_block.temporal_block_ok(F, C, C, C // 64)
+            assert not mega or fused_mega.temporal_ok(F, C, C, C // 64)
+            for rows in (1, 3, 40, 64, 320, 1280, 20480):
+                T = rows * F
+                plan = cuda_lib.block_f32_plan(C, F, T, mega)
+                assert plan.tm in (128, 64) and plan.tm % F == 0
+                assert plan.tm == 128 or -(-T // 128) < 132
+                tm = plan.tm
+                assert 1024 + 4 * (tm + 256) * 32 * 4 + 8 * 9 <= SMEM_MAX
+                attn = (2 * tm * 68 + tm * (72 if F in (8, 16) else F + 1)) * 4
+                assert attn <= 4 * (tm + 256) * 32 * 4
+    if C > 640:
+        with pytest.raises(ValueError):
+            cuda_lib.block_f32_plan(C, 16, 8 * 16 * 40, mega=True)
+
+
+# (kernel, C, F, tokens) of kernels 10 and 12 in the batch-8 i2v fp32 forward
+# (kernel 12 at t320 under the plan, at t640 under "off"; kernel 10 at
+# init_attn's 512 and t1280 under "off", at the 10x16 level and the middle
+# block's 5x8) -> the recorded tile (TM)
+FORWARD_PLANS = {("K12", 320, 16, 327680): (128,), ("K12", 640, 16, 81920): (128,),
+                 ("K10", 512, 16, 327680): (128,), ("K10", 1280, 16, 20480): (128,),
+                 ("K10", 1280, 16, 5120): (64,)}
+
+
+@pytest.mark.parametrize("kernel,C,F,T", list(FORWARD_PLANS))
+def test_block_f32_plan_at_the_forward_shapes(kernel, C, F, T):
+    assert tuple(cuda_lib.block_f32_plan(C, F, T, kernel == "K12")) == FORWARD_PLANS[kernel, C, F, T]
+    shapes = {(s, inner, 8 * F * H * W) for s, _, inner, _, H, W in i2v_transformers()}
+    assert ("t", C, T) in shapes
+
+
+@pytest.mark.parametrize("kernel", ["K10", "K12"])
+def test_temporal_f32_splits_each_weight_once(monkeypatch, kernel):
+    """Kernels 10 and 12 on the card's route at fp32 (fake card): one
+    ``ds_tf32_split`` a weight at the first call (six, with kernel 12's w_in
+    and w_out eight; [2, N, K] each), the entry point reading their outputs
+    in the weights' places, and none at a second call with the same packed
+    operands."""
+    calls = _fake_card(monkeypatch)
+    Cw, v, w = _CW, _vec(_CW), _z(_CW, _CW)
+    lns, a1, a2, ff = _block_args(Cw)
+    a2 = (_z(Cw, Cw), _z(Cw, Cw), _z(Cw, Cw), _z(Cw, Cw), v)
+    if kernel == "K10":
+        op = fused_block.pack_temporal_block(lns, a1, a2, ff, dtype=F32)
+
+        def run():
+            return fused_block.fused_temporal_block(_z(5, 16, Cw), lns, a1, a2, ff, heads=2, scale=0.125, operands=op)
+        weights = fused_block.block_weights(op)
+        name = "ds_temporal_block_f32"
+    else:
+        w_in, w_out = _z(Cw, Cw), _z(Cw, Cw)
+        op = fused_mega.pack_temporal_mega(w_in, v, lns, a1, a2, ff, w_out, v, dtype=F32)
+
+        def run():
+            return fused_mega.temporal_mega(_z(2, 8, 2, 3, Cw), _z(2, Cw), _z(2, Cw), w_in, v, lns, a1, a2, ff, w_out,
+                                            v, heads=2, scale=0.125, operands=op)
+        weights = [*fused_block.block_weights(op.block), op.w_in, op.w_out]
+        name = "ds_temporal_mega_f32"
+    run()
+    splits = [args for n, args in calls if n == "ds_tf32_split"]
+    assert len(splits) == len(weights) == len(TEMPORAL_F32_WEIGHTS[name])
+    assert sorted(a[1] for a in splits) == sorted(t.numel() for t in weights)
+    launch = _kernel_calls(calls)[-1]
+    assert launch[0] == name
+    assert [launch[1][0][i] for i in TEMPORAL_F32_WEIGHTS[name]] == [a[2].value for a in splits]
+    del calls[:]
+    run()
+    assert [n for n, _ in calls] == [name]
 
 
 # ---------------------------------------------------------------------------

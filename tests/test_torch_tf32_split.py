@@ -154,3 +154,151 @@ def test_accumulating_towards_zero_needs_the_per_stage_fold(K):
     top = np.abs(exact).max()
     assert np.abs(single - exact).max() / top > TOL_F32
     assert np.abs(folded - exact).max() / top <= TOL_F32 / MARGIN
+
+
+# ---------------------------------------------------------------------------
+# kernels 10 and 12 at fp32 (csrc/temporal_f32.cu), modelled phase by phase
+# ---------------------------------------------------------------------------
+
+
+def _mm_fold(a, w):
+    """a [M, K] @ w [N, K]^T as ds_temporal_block_f32 multiplies: both split,
+    the three products of each two 32-deep stages (64 k) into an accumulator
+    of their own, folded into the tile's in fp32 (the sums inside an
+    accumulator exact, as ``matmul_3xtf32`` models them)."""
+    return cuda_lib.matmul_3xtf32(a, w.t().contiguous(), bk=64)
+
+
+def _mm_tensor_core(a, w, bk=64):
+    """:func:`_mm_fold` with each addition inside an accumulator rounded
+    towards zero, as the tensor core rounds it (:func:`_tensor_core`)."""
+    b = w.t().contiguous()
+    acc = np.zeros((a.shape[0], w.shape[0]), np.float32)
+    for k0 in range(0, a.shape[1], bk):
+        acc = acc + _tensor_core(a[:, k0:k0 + bk], b[k0:k0 + bk], 0, min(bk, a.shape[1] - k0), np.zeros_like(acc))
+    return torch.from_numpy(acc)
+
+
+def _mm_one_acc(a, w):
+    """The same products into one accumulator over the whole K, each
+    addition rounded towards zero as the tensor core rounds them."""
+    acc = _tensor_core(a, w.t().contiguous(), 0, a.shape[1], np.zeros((a.shape[0], w.shape[0]), np.float32))
+    return torch.from_numpy(acc)
+
+
+def _ln_rows(x, s, b, eps=1e-5):
+    mu = x.mean(-1, keepdim=True)
+    var = ((x * x).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    return (x - mu) * (torch.rsqrt(var + eps) * s) + b
+
+
+def _attention_rows(q, k, v, F, heads, scale):
+    """The kernel's F-frame attention over token rows [T, C] (T / F rows of F
+    frames): each logit computed once and scaled, the row's maximum, expf of
+    each logit against it, their sum, then the weighted values over it."""
+    T, C = q.shape
+
+    def split(t):
+        return t.reshape(T // F, F, heads, C // heads).transpose(1, 2)
+    s = torch.matmul(split(q), split(k).transpose(-1, -2)) * scale
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.matmul(p, split(v)) / p.sum(-1, keepdim=True)
+    return o.transpose(1, 2).reshape(T, C)
+
+
+def _block_model(x, lns, attn1, attn2, ff, F, heads, scale, mm=_mm_fold, mm_attn_out=None):
+    """Kernel 10's phases over token rows x [T, C], in the kernel's order:
+    LayerNorm into the rows the products read (their split is the A
+    fragments' split in registers, as split_tf32 models it), q|k|v, the
+    attention, the out-projection + bias + residual, twice; then w1 with the
+    GEGLU epilogue, and w2 over the whole hidden (K 4C) + bias + residual.
+    ``mm``: the products; ``mm_attn_out``: the out-projections' (the
+    one-accumulator variant swaps it)."""
+    mm_attn_out = mm_attn_out or mm
+    s1, b1, s2, b2, s3, b3 = lns
+    for (s, b), (wq, wk, wv, wo, bo) in (((s1, b1), attn1), ((s2, b2), attn2)):
+        h = _ln_rows(x, s, b)
+        q, k, v = (mm(h, w) for w in (wq, wk, wv))
+        x = (mm_attn_out(_attention_rows(q, k, v, F, heads, scale), wo) + bo) + x
+    w1, bb1, w2, bb2 = ff
+    a = mm(_ln_rows(x, s3, b3), w1) + bb1
+    val, gate = a.chunk(2, dim=-1)
+    hidden = val * torch.nn.functional.gelu(gate, approximate="none")
+    return (mm(hidden, w2) + bb2) + x
+
+
+def _block_weights(rng, C):
+    def w(n_out, n_in):
+        return torch.from_numpy((rng.standard_normal((n_out, n_in)) / np.sqrt(n_in)).astype(np.float32))
+
+    def vec(n, base=0.0):
+        return torch.from_numpy((base + 0.1 * rng.standard_normal(n)).astype(np.float32))
+    lns = tuple(vec(C, base) for _ in range(3) for base in (1.0, 0.0))
+    attn = [(w(C, C), w(C, C), w(C, C), w(C, C), vec(C)) for _ in range(2)]
+    return lns, attn[0], attn[1], (w(8 * C, C), vec(8 * C), w(C, 4 * C), vec(C)), w, vec
+
+
+def _block_errors(got, ref, base):
+    """(largest error / max|plain|, L2 error / L2 of the block's own output)."""
+    return float((got - ref).abs().max() / ref.abs().max()), float((got - ref).norm() / (ref - base).norm())
+
+
+def _k12_model_errors(mm):
+    """Kernel 12's model at the t320 transformer's shape (C 320, 5 heads, F
+    16), 128 tokens (x5 [1, 16, 2, 4, 320]) with products ``mm``, against
+    the fp32 plain version: (largest error / max|plain|, L2 error / L2 of
+    the transformer's own output)."""
+    from dynamicscaler_tpu_torch.ops import fused_mega
+    rng = np.random.default_rng(320)
+    C, F, heads = 320, 16, 5
+    lns, a1, a2, ff, w, vec = _block_weights(rng, C)
+    w_in, b_in, w_out, b_out = w(C, C), vec(C), w(C, C), vec(C)
+    x5 = torch.from_numpy(rng.standard_normal((1, F, 2, 4, C)).astype(np.float32))
+    mul, add = vec(C, 1.0)[None], vec(C)[None]
+    ref = fused_mega.temporal_mega_plain(x5, mul, add, w_in, b_in, lns, a1, a2, ff, w_out, b_out, heads=heads,
+                                         scale=64 ** -0.5)
+    rows = x5.permute(0, 2, 3, 1, 4).reshape(-1, C)  # F-frame rows (b, h, w), frame f
+    h = mm(rows * mul + add, w_in) + b_in
+    h = _block_model(h, lns, a1, a2, ff, F, heads, 64 ** -0.5, mm=mm)
+    y = (mm(h, w_out) + b_out) + rows
+    return _block_errors(y.reshape(1, 2, 4, F, C).permute(0, 3, 1, 2, 4), ref, x5)
+
+
+def test_k12_model_with_the_tensor_cores_rounding_holds_the_gate():
+    """Kernel 12's model at t320 with the tensor core's rounding towards zero
+    inside each 64-k accumulator (:func:`_mm_tensor_core`): within the 1e-5
+    gate with a margin of 5 (the card measured 1.5e-6 of max|plain| for the
+    kernel, chip_tf32_variants.py), a margin the model of exact sums
+    overstates."""
+    err, l2 = _k12_model_errors(_mm_tensor_core)
+    assert err <= TOL_F32 / 5 and l2 <= TOL_F32 / 5, (err, l2)
+
+
+def test_k12_model_at_t320_holds_a_tenth_of_the_gate():
+    """Kernel 12 at the t320 transformer's shape (C 320, 5 heads, F 16), 128
+    tokens (x5 [1, 16, 2, 4, 320]): the GroupNorm apply, w_in, kernel 10's
+    phases, w_out and the residual x5, each product as the kernel splits it
+    and folds it (64 k at a time, :func:`_mm_fold`), against the fp32 plain
+    version within a tenth of the 1e-5 gate."""
+    err, l2 = _k12_model_errors(_mm_fold)
+    assert err <= TOL_F32 / MARGIN and l2 <= TOL_F32 / MARGIN, (err, l2)
+
+
+def test_k10_model_at_t1280_holds_a_tenth_of_the_gate_and_one_accumulator_does_not():
+    """Kernel 10 at the t1280 block's shape (C 1280, 20 heads, F 16), 64
+    tokens, against the fp32 plain version: within a tenth of the 1e-5 gate
+    with each two 32-deep stages (64 k) folded in fp32 (:func:`_mm_fold`);
+    with the out-projections (K 1280) in one accumulator rounding towards
+    zero, outside the gate: why the fold stays."""
+    from dynamicscaler_tpu_torch.ops import fused_block
+    rng = np.random.default_rng(1280)
+    C, F, heads = 1280, 16, 20
+    lns, a1, a2, ff, _, _ = _block_weights(rng, C)
+    x = torch.from_numpy(rng.standard_normal((4, F, C)).astype(np.float32))
+    ref = fused_block.temporal_block_plain(x, lns, a1, a2, ff, heads=heads, scale=64 ** -0.5)
+    got = _block_model(x.reshape(-1, C), lns, a1, a2, ff, F, heads, 64 ** -0.5).reshape(x.shape)
+    err, l2 = _block_errors(got, ref, x)
+    assert err <= TOL_F32 / MARGIN and l2 <= TOL_F32 / MARGIN, (err, l2)
+    one = _block_model(x.reshape(-1, C), lns, a1, a2, ff, F, heads, 64 ** -0.5, mm_attn_out=_mm_one_acc)
+    err1, l21 = _block_errors(one.reshape(x.shape), ref, x)
+    assert err1 > TOL_F32 or l21 > TOL_F32, (err1, l21)
