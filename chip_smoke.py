@@ -142,15 +142,17 @@ Phases, in order, one result line each (any failure exits non-zero):
    at batch 8 (40x64x16) through the fp32 kernels against the plain
    versions (rel L2 within ``TOL_F32_PATH``, 1e-4) and against the bf16 forward
    of the same weights (printed; sanity gate 0.1), with exact launch
-   counts (``expected_launches(..., dtype=float32)``: every kernel runs at
-   fp32 where it runs at bf16, kernel 12 at t320 under the plan), the i2v
-   one with a device-time profile; the batch-8 i2v forward also under "off"
-   and under the all-wrap+blk plan (kernels 10, 11 and 13 run only there),
-   each against the plain versions with exact launches; every fp32 kernel
-   (K1-K13, TA, FA, GN) at every shape these forwards recorded
+   counts (``expected_launches(..., dtype=float32)``: the fp32 plan,
+   ``PLAN_DEFAULT_F32``, runs kernel 12 at t320, kernel 13 at s320 and
+   s640 and kernel 10 at t512), the i2v one with a device-time profile;
+   the batch-8 i2v forward also under "off" and under the all-wrap+blk plan
+   (kernel 11 runs only there), each against the plain versions with exact
+   launches; every fp32 kernel (K1-K13, TA, FA, GN) at every shape these
+   forwards recorded, and kernels 11 and 13 at ``SPATIAL_REPAIRS``,
    against its plain version (max error within 1e-5 of max|plain|, L2
    error within 1e-5 of the op's own output, bit-exact on a rerun; GN its
-   statistics' gates), timed
+   statistics' gates; kernels 10-13 a ``tile:`` line, the other TM held
+   to the same gates and timed in turns), timed
    beside the plain version, the same function as PyTorch calls in fp32
    with TF32 off, and two bounds (products over the tensor cores'
    fp32-accurate 494.7 / 3 TFLOP/s, the least time, and over the CUDA
@@ -159,7 +161,9 @@ Phases, in order, one result line each (any failure exits non-zero):
    GEMM table (every distinct ``ds_ln_gemm_f32`` call of the batch-8 i2v
    fp32 forward against ``ln_gemm_plain`` with the fp32 gates, its ms,
    TFLOP/s, both bounds, plain, ``F.linear`` with TF32 off and the kernel
-   at the planner's other column width, summed per forward); then the CLIs
+   at the planner's other column width, summed per forward); the fp32
+   level table at every key (as phase 3's, against ``PLAN_DEFAULT_F32``);
+   then the CLIs
    in fp32 through their ``main`` on these bundles, TF32 switched on before
    each and off by its startup: ``cli/sample.py --dtype float32`` in t2v and
    i2v modes (2 steps, 320x512x16) and ``cli/gen_pano_360.py --dtype float32
@@ -661,7 +665,9 @@ def expected_launches(cfg, H, W, frames=16, traj=None, no_temporal_attn=False, d
     from dynamicscaler_tpu_torch.models.unet3d import gn_silu_calls
 
     n = collections.Counter()
-    allows = fused_temporal.plan_allows
+
+    def allows(kind, side, C):
+        return fused_temporal.plan_allows(kind, side, C, dtype)
     t_traj, s_traj, c_traj = traj or (False, False, False)
     for side, C, inner, heads, h, w in unet_transformers(cfg, H, W):
         if side == "t" and no_temporal_attn:
@@ -795,7 +801,8 @@ def _profile_forward(where, fwd, wall_ms, phase="phase 2"):
                else "ds_temporal_block / ds_temporal_mega (K10, K12)" if "temporal_block_tma_kernel" in n
                else "ds_spatial_block / ds_mega_spatial body (K11, K13)" if "spatial_body_kernel" in n
                else "ds_temporal_block_f32 / ds_temporal_mega_f32 (K10, K12 fp32)" if "temporal_tc_f32_kernel" in n
-               else "ds_spatial_block_f32 / ds_mega_spatial_f32 body (K11, K13 fp32)" if "spatial_f32_kernel" in n
+               else "ds_spatial_block_f32 / ds_mega_spatial_f32 body and key split (K11, K13 fp32)"
+               if "spatial_tc_f32_kernel" in n or "split_kv_kernel" in n
                else "conv (cuDNN)" if any(s in n for s in ("conv", "cudnn", "fprop", "implicit"))
                else "gemm (cuBLAS: time emb, FreeTraj's plain attention)" if any(s in n for s in ("gemm", "cutlass"))
                else "elementwise/reduce (casts, cat)")
@@ -827,7 +834,8 @@ class Case:
 
     lib_comparable = True  # the library call computes the same output (the GroupNorm statistics' does not)
     block = None  # K10, K12: (tokens, C, F, mega) for the tile plan line
-    run_at = None  # K10, K12: run(plan), the kernel at another tile plan
+    run_at = None  # K10-K13: run(plan), the kernel at another tile plan
+    f32_tile = None  # K10-K13 at fp32: (plan, the other tile or None, grid(plan)) for the tile line
     spatial = None  # K11, K13: (samples, N, C) for the tile plan line
     gn = None  # K9: (x, scale, bias, eps, act) for the route line
 
@@ -924,6 +932,7 @@ def _case(k, pos, opts, rn):
         case.run_at = lambda plan: fn(*a, **run_kw, plan=plan)
         # the tile plan line of block.cu, or of temporal_f32.cu at fp32
         case.block = (T, C, Fn, False)
+        case.f32_tile = _temporal_f32_tile(C, Fn, T, False) if case.fp32 else None
         return case
     if k == "K12":
         B, Fn, H, W, _ = x.shape
@@ -933,6 +942,7 @@ def _case(k, pos, opts, rn):
                     **common)
         case.run_at = lambda plan: fn(*a, **run_kw, plan=plan)
         case.block = (T, C, Fn, True)
+        case.f32_tile = _temporal_f32_tile(C, Fn, T, True) if case.fp32 else None
         return case
     if k in ("K11", "K13"):
         BFn, N = x.shape[0], T // x.shape[0]
@@ -950,6 +960,11 @@ def _case(k, pos, opts, rn):
                     base=x, flops=flops, **common)
         if not case.fp32:  # the tile plan line of mega.cu
             case.spatial = (BFn, N, C)
+        else:  # of spatial_f32.cu: its query tile, and the other
+            case.run_at = lambda plan: fn(*a, **run_kw, plan=plan)
+            plan = cuda_lib.spatial_f32_plan(C, N, BFn)
+            case.f32_tile = (plan, cuda_lib.BlockF32Plan(64 if plan.tm == 128 else 128),
+                             lambda p: cuda_lib.spatial_f32_grid(p, BFn, N))
         return case
     if k in ("K1", "K2"):
         B, N, _ = x.shape
@@ -1309,12 +1324,12 @@ def _block_desc(C):
 REPAIR = "repair shapes"
 
 
-def _spatial_desc(C, img, Dc=1024):
-    """The descriptions of a spatial block's (lns, attn1, attn2, ff); attn2
-    with image keys (i2v) or without (t2v)."""
-    vec, w = _d(C), _d(C, C)
-    attn2 = (w, _d(C, Dc), _d(C, Dc), w, vec) + ((_d(C, Dc), _d(C, Dc)) if img else ())
-    return (vec,) * 6, (w, w, w, w, vec), attn2, (_d(8 * C, C), _d(8 * C), _d(C, 4 * C), vec)
+def _spatial_desc(C, img, Dc=1024, dt=BF):
+    """The descriptions of a spatial block's (lns, attn1, attn2, ff) in
+    activation type ``dt``; attn2 with image keys (i2v) or without (t2v)."""
+    vec, w = _d(C, dt=dt), _d(C, C, dt=dt)
+    attn2 = (w, _d(C, Dc, dt=dt), _d(C, Dc, dt=dt), w, vec) + ((_d(C, Dc, dt=dt), _d(C, Dc, dt=dt)) if img else ())
+    return (vec,) * 6, (w, w, w, w, vec), attn2, (_d(8 * C, C, dt=dt), _d(8 * C, dt=dt), _d(C, 4 * C, dt=dt), vec)
 
 
 # kernels 11 and 13 at shapes no batch-8 override forward gives them (the
@@ -1346,12 +1361,20 @@ def _repair_cases():
     cases += [("K12", (_d(B, Fn, H, W, C), _d(B, C, dt=f32), _d(B, C, dt=f32), _d(C, C), _d(C), *_block_desc(C),
                        _d(C, C), _d(C)), opts(C))
               for B, Fn, H, W, C in ((2, 8, 40, 64, 320), (1, 32, 20, 32, 640))]
+    return {**{case: {REPAIR: 1} for case in cases}, **_spatial_repair_cases()}
+
+
+def _spatial_repair_cases(dt=BF):
+    """Kernels 11 and 13 at :data:`SPATIAL_REPAIRS` in activation type
+    ``dt``, as phase 2 records the calls (phases 3 and 10)."""
+    f32 = torch.float32
+    cases = []
     for clips, Fn, H, W, C, img in SPATIAL_REPAIRS:
-        BFn, ctx = clips * Fn, _d(clips, 93 if img else 77, 1024)
-        o = (*opts(C), ("text_len", 77))
-        cases += [("K11", (_d(BFn, H * W, C), ctx, *_spatial_desc(C, img)), o),
-                  ("K13", (_d(BFn, H, W, C), ctx, _d(BFn, C, dt=f32), _d(BFn, C, dt=f32), _d(C, C), _d(C),
-                           *_spatial_desc(C, img), _d(C, C), _d(C)), o)]
+        BFn, ctx = clips * Fn, _d(clips, 93 if img else 77, 1024, dt=dt)
+        o = (("eps", 1e-5), ("heads", C // 64), ("scale", 0.125), ("text_len", 77))
+        cases += [("K11", (_d(BFn, H * W, C, dt=dt), ctx, *_spatial_desc(C, img, dt=dt)), o),
+                  ("K13", (_d(BFn, H, W, C, dt=dt), ctx, _d(BFn, C, dt=f32), _d(BFn, C, dt=f32), _d(C, C, dt=dt),
+                           _d(C, dt=dt), *_spatial_desc(C, img, dt=dt), _d(C, C, dt=dt), _d(C, dt=dt)), o)]
     return {case: {REPAIR: 1} for case in cases}
 
 
@@ -1405,7 +1428,7 @@ def _time_cases(shapes, runs, phase):
               + (f" group_norm_fold {t['fold_ms']:.3f} ms" if case.fold else "")
               + " [" + ", ".join(f"x{n} per {w}" for w, n in where_n.items()) + f"] {'ok' if ok else 'FAIL'}",
               flush=True)
-        if case.block and case.fp32:
+        if case.f32_tile:
             tile = _block_f32_tile(case, t["ms"], ref)
             tiles[k].append(tile)
             ok = ok and tile["other_tm_ok"]
@@ -1528,19 +1551,25 @@ def _block_tile(case, ms, ref):
     return rec, reckoned
 
 
+def _temporal_f32_tile(C, Fn, T, mega):
+    """Kernel 10 / 12 at fp32: (cuda_lib.block_f32_plan's tile, the other TM
+    where it holds whole rows of Fn frames, else None, the grid at a tile)."""
+    plan = cuda_lib.block_f32_plan(C, Fn, T, mega)
+    other = cuda_lib.BlockF32Plan(64 if plan.tm == 128 else 128)
+    return plan, None if T % other.tm or other.tm % Fn else other, lambda p: cuda_lib.block_f32_grid(p, T)
+
+
 def _block_f32_tile(case, ms, ref):
-    """Kernel 10 / 12 at fp32 at one shape: the tile plan
-    (cuda_lib.block_f32_plan: TM), grid, the tensor-core rate
+    """Kernels 10-13 at fp32 at one shape: the tile plan (TM:
+    cuda_lib.block_f32_plan, spatial_f32_plan), grid, the tensor-core rate
     (the fp32 products over the measured ms) and the share of each bound
     (3xTF32 and the CUDA cores' 67 TFLOP/s); the kernel also at the other
     tile (TM 128 against 64), its output held to the plain version's gates
     and bit-exact on rerun, both timed in turn (plan, other, other, plan;
     ``ms_by_tm``)."""
-    T, C, Fn, mega = case.block
-    plan = cuda_lib.block_f32_plan(C, Fn, T, mega)
-    other = cuda_lib.BlockF32Plan(64 if plan.tm == 128 else 128)
-    if T % other.tm or other.tm % Fn:
-        return {"shape": case.desc, **plan._asdict(), "grid": cuda_lib.block_f32_grid(plan, T),
+    plan, other, grid = case.f32_tile
+    if other is None:
+        return {"shape": case.desc, **plan._asdict(), "grid": grid(plan),
                 "tflops": case.flops / ms / 1e9, "share_of_bound": case.bound_ms / ms,
                 "share_of_bound_67": case.bound_cc_ms / ms, "ms": ms, "ms_by_tm": {plan.tm: ms}, "other_tm_ok": True}
     got = case.run_at(other)
@@ -1550,7 +1579,7 @@ def _block_f32_tile(case, ms, ref):
     times = {plan.tm: [], other.tm: []}
     for p in (plan, other, other, plan):
         times[p.tm].append(_time_ms(lambda: case.run_at(p), 5))
-    return {"shape": case.desc, **plan._asdict(), "grid": cuda_lib.block_f32_grid(plan, T),
+    return {"shape": case.desc, **plan._asdict(), "grid": grid(plan),
             "tflops": case.flops / ms / 1e9, "share_of_bound": case.bound_ms / ms,
             "share_of_bound_67": case.bound_cc_ms / ms, "ms": ms,
             "ms_by_tm": {tm: sum(v) / len(v) for tm, v in sorted(times.items())}, "other_tm": other.tm,
@@ -1751,15 +1780,15 @@ def _legal_levels(side, C, inner, heads, H, W, Dc=1024):
 
 
 def _phase_levels(cfg, dtype=BF, sides=("t", "s"), phase="phase 3"):
-    """The plan levels (phase 3 in bf16; phase 10 in fp32 at the temporal
-    keys): the transformer module in ``dtype`` at every legal level at every
+    """The plan levels (phase 3 in bf16; phase 10 in fp32): the transformer
+    module in ``dtype`` at every legal level at every
     (side, width) of ``sides`` in the batch-8 i2v forward (the width of
     init_attn its block's, 512), CUDA events, the GroupNorm fold included.
     Prints each shape's times, the per-forward sums of each plan key (its
     shapes' calls x ms per call), the fastest plan by those sums, and
-    whether PLAN_DEFAULT (the one table, for both activation types) still
-    names each key's fastest level (a key where another level was faster by
-    more than 5% is named)."""
+    whether the type's table (PLAN_DEFAULT in bf16, PLAN_DEFAULT_F32 in
+    fp32) still names each key's fastest level (a key where another level
+    was faster by more than 5% is named)."""
     shapes = collections.Counter(sh for sh in unet_transformers(cfg, 40, 64) if sh[0] in sides)
     sums = collections.defaultdict(collections.Counter)  # plan key -> level -> ms per forward
     for (side, C, inner, heads, H, W), calls in sorted(shapes.items()):
@@ -1778,21 +1807,23 @@ def _phase_levels(cfg, dtype=BF, sides=("t", "s"), phase="phase 3"):
     torch.cuda.empty_cache()
     # a level must be legal at every shape of its key to be chosen for it
     fastest, beaten = {}, []
+    name = "PLAN_DEFAULT_F32" if dtype == torch.float32 else "PLAN_DEFAULT"
+    table = getattr(fused_temporal, name)
     for key, per in sorted(sums.items()):
         legal = {lvl: ms for lvl, ms in per.items()
                  if all(lvl in _legal_levels(*sh) for sh in shapes if (sh[0], sh[2]) == key)}
         best = fastest[key] = min(legal, key=legal.get)
-        have = fused_temporal.PLAN_DEFAULT.get(key, "wrap+sub")
+        have = table.get(key, "wrap+sub")
         if legal.get(have, float("inf")) > 1.05 * legal[best]:
-            beaten.append(f"{key[0]}{key[1]} ({best} {legal[best]:.2f} ms vs PLAN_DEFAULT's {have} "
+            beaten.append(f"{key[0]}{key[1]} ({best} {legal[best]:.2f} ms vs {name}'s {have} "
                           f"{legal.get(have, float('nan')):.2f} ms per forward)")
     print(f"{phase} levels per i2v batch-8 forward in {str(dtype)[6:]} (ms): " + ", ".join(
         f"{s}{c} " + "/".join(f"{lvl} {ms:.2f}" for lvl, ms in per.items()) for (s, c), per in sorted(sums.items())),
         flush=True)
     print(f"{phase} fastest plan in {str(dtype)[6:]}: "
           + json.dumps({f"{s}{c}": lvl for (s, c), lvl in fastest.items()}), flush=True)
-    print(f"{phase} plan in {str(dtype)[6:]}: " + ("PLAN_DEFAULT names the fastest level at every shape (within 5%)"
-                                                   if not beaten else "PLAN_DEFAULT is beaten by more than 5% at "
+    print(f"{phase} plan in {str(dtype)[6:]}: " + (f"{name} names the fastest level at every shape (within 5%)"
+                                                   if not beaten else f"{name} is beaten by more than 5% at "
                                                    + "; ".join(beaten)), flush=True)
 
 
@@ -2927,8 +2958,8 @@ def _phase_serve(model, i2v_model, held, lib):
 F32 = torch.float32
 FP32_T2V = "fp32 t2v UNet fwd batch 2"
 FP32_I2V = "fp32 i2v UNet fwd batch 8"
-# the override plans at fp32, as phase 2 runs them at bf16: kernels 10, 11
-# and 13 run only under these
+# the override plans at fp32, as phase 2 runs them at bf16: kernel 11 runs
+# only under these (the fp32 plan runs kernels 10, 12 and 13 at some keys)
 FP32_OVERRIDES = {f"{FP32_I2V}, plan off": "off", f"{FP32_I2V}, plan wrap+blk": WRAP_BLK}
 # the runs whose sums make the fp32 records: the first in which the kernel runs
 FP32_FORWARDS = (FP32_I2V, *FP32_OVERRIDES)
@@ -2940,7 +2971,7 @@ FP32_SOURCES = {**dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
                 **dict.fromkeys(("TA", "FA"), "dynamicscaler_tpu_torch/csrc/attention_f32.cu"),
                 **dict.fromkeys(("K9", "GN"), "dynamicscaler_tpu_torch/csrc/gn_silu.cu"),
                 **dict.fromkeys(("K10", "K12"), "dynamicscaler_tpu_torch/csrc/temporal_f32.cu"),
-                **dict.fromkeys(("K11", "K13"), "dynamicscaler_tpu_torch/csrc/block_f32.cu")}
+                **dict.fromkeys(("K11", "K13"), "dynamicscaler_tpu_torch/csrc/spatial_f32.cu")}
 # the fp32 CLI run: the steps cut to 2 a stage (stage 1's 11 forwards of 8
 # a step, stage 2's 1, stage 3's 4; the second step of each gives its steady
 # s/step), the geometry the CLI's
@@ -2953,14 +2984,19 @@ def _tf32_flags():
 
 
 def _fp32_kernels(sites):
-    """Every fp32 kernel at every shape the phase-10 forwards recorded,
-    against its plain version with the fp32 gates (:func:`_time_cases`),
+    """Every fp32 kernel at every shape the phase-10 forwards recorded (and
+    kernels 11 and 13 at :data:`SPATIAL_REPAIRS`), against its plain version
+    with the fp32 gates (:func:`_time_cases`; kernels 10-13 also at their
+    other tile, bit-exact on rerun),
     timed beside its plain version, the same function as PyTorch library
     calls in fp32 (TF32 off) and its bound (operations over 67 TFLOP/s fp32
     or bytes at 4 B an element over 3.35 TB/s). Returns per kernel the
     largest error and the ms summed over the first batch-8 i2v fp32 forward
     in which it runs (the default plan, then "off", then all-wrap+blk)."""
-    sums, max_err, bound_by, tiles = _time_cases(_recorded_shapes(sites), sites, "phase 10")
+    shapes = _recorded_shapes(sites)
+    for key, runs in _spatial_repair_cases(F32).items():
+        shapes[key] = {**shapes.get(key, {}), **runs}
+    sums, max_err, bound_by, tiles = _time_cases(shapes, (*sites, REPAIR), "phase 10")
     records = {}
     for k in FP32_KERNELS:
         ran = [w for w in FP32_FORWARDS if sums[w][k]]
@@ -3025,8 +3061,9 @@ def _phase_fp32(t2v_bf, i2v_bf):
     the plain versions (rel L2 <= TOL_F32_PATH) and against the bf16 forward of
     the same weights (printed, gated at TOL_F32_VS_BF16), with exact
     launches, and the batch-8 i2v forward under the two override plans
-    (kernels 10, 11 and 13) against the plain versions; every fp32 kernel at every
-    recorded shape against its plain version (:func:`_fp32_kernels`); the
+    (kernels 10, 11 and 13 at every key) against the plain versions; every
+    fp32 kernel at every recorded shape against its plain version
+    (:func:`_fp32_kernels`); the fp32 level table at every key; the
     CLIs at ``--dtype float32`` (``cli/sample.py`` t2v and i2v, 2 steps;
     ``cli/gen_pano_360.py --dev_full_random true`` on the fp32 i2v bundle,
     two steps a stage at the CLI's geometry) with TF32 set on before each
@@ -3075,7 +3112,7 @@ def _phase_fp32(t2v_bf, i2v_bf):
         del r
     torch.cuda.empty_cache()
     records = _fp32_kernels(sites)
-    _phase_levels(i2v_bf.unet.cfg, F32, ("t",), "phase 10")
+    _phase_levels(i2v_bf.unet.cfg, F32, ("t", "s"), "phase 10")
 
     held = {key for calls in sites.values() for key in calls}
     errs, calls = {}, collections.Counter()

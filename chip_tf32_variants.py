@@ -2,19 +2,24 @@
 
     python3 chip_tf32_variants.py               # one CUDA card; every kernel
     python3 chip_tf32_variants.py block         # only some: gemm, flash, block
+                                                # (= temporal and spatial)
 
 ``csrc/gemm_f32.cu::ds_ln_gemm_f32``, ``csrc/attention_f32.cu::
-ds_flash_attention_f32`` and ``csrc/temporal_f32.cu`` (kernels 10 and 12,
-``ds_temporal_block_f32`` and ``ds_temporal_mega_f32``) multiply fp32
-operands as three tf32 products. This script builds variants of the
-sources (the source as committed, changed by text replacement; each built
-alone with ``nvcc`` into ``build/tf32_variants/``), runs each through the
-port's own wrappers (``cuda_lib.ln_gemm``, ``fused_spatial.flash_attention``,
-``fused_mega.temporal_mega``, ``fused_block.fused_temporal_block``) at
-shapes of the full-width batch-8 i2v fp32 forward, holds it against the
-plain version, and times the variants in turns (as built, then each
-variant, then the same in reverse order). The variants answer the design's
-questions:
+ds_flash_attention_f32``, ``csrc/temporal_f32.cu`` (kernels 10 and 12,
+``ds_temporal_block_f32`` and ``ds_temporal_mega_f32``) and
+``csrc/spatial_f32.cu`` (kernels 11 and 13, ``ds_spatial_block_f32`` and
+``ds_mega_spatial_f32``) multiply fp32 operands as three tf32 products.
+This script builds variants of the sources (the source as committed,
+changed by text replacement, a patch applying to the file that holds its
+text: the source, ``tc_f32.cuh`` or ``hopper.cuh``; each built alone with
+``nvcc`` into ``build/tf32_variants/``, ptxas's spill bytes printed), runs
+each through the port's own wrappers (``cuda_lib.ln_gemm``,
+``fused_spatial.flash_attention``, ``fused_mega.temporal_mega``,
+``fused_block.fused_temporal_block``, ``fused_block.fused_spatial_block``,
+``fused_mega.spatial_mega``) at shapes of the full-width batch-8 i2v fp32
+forward, holds it against the plain version, and times the variants in
+turns (as built, then each variant, then the same in reverse order). The
+variants answer the design's questions:
 
 * ``integer rounding``: ``hopper.cuh::tf32_rna`` in integer operations
   (the same bits, inf and NaN kept) instead of ``cvt.rna.tf32.f32``;
@@ -42,7 +47,17 @@ questions:
   of 3 where it fits: TM 64 at C 320), ``BN 64`` (column tiles of 64 weight
   rows), ``2 stages`` (a ring of 2), ``one accumulator`` (every product of
   a column tile into the tile's accumulator) and ``fold every stage`` (each
-  32-deep stage's products folded alone, as gemm_f32.cu folds them).
+  32-deep stage's products folded alone, as gemm_f32.cu folds them);
+* kernels 11 and 13 at the s320 and s640 transformers, at TM 128 and 64:
+  ``a barrier a stage`` (the first version's handoffs), ``Q in
+  registers`` (Q's lo half too), ``indices hoistable`` (the attention's
+  thread indices not made opaque), ``attention not inlined``, ``P V one
+  accumulator`` (no fold), ``test_wait`` (a spinning mbarrier wait),
+  ``splitter warps`` (FA.f32's split in the block instead of the split
+  once a launch, TM 128), and wrong by design ``no attention``, ``no self-attention`` (its key tiles
+  still streamed; also with their hi halves alone), ``no
+  cross-attention`` and ``one key sample`` (every query tile on sample 0's
+  keys, L2-resident): where the time goes.
 
 Prints one line per shape, then one JSON object of every time and error.
 Fails if a variant does not build or an as-built run misses the fp32 gate.
@@ -52,6 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 
@@ -63,6 +79,7 @@ from dynamicscaler_tpu_torch.ops import cuda_lib, fused_block, fused_mega, fused
 TOL_F32 = 1e-5
 OUT = cuda_lib.REPO_ROOT / "build" / "tf32_variants"
 HOPPER = (cuda_lib.CSRC / "hopper.cuh").read_text()
+SHARED = (cuda_lib.CSRC / "tc_f32.cuh").read_text()
 
 
 def _rna_body(src):
@@ -343,8 +360,8 @@ RESIDENT = [
 # the ring at least as large as the F-frame attention that borrows it (for rings smaller than 4 slots of 128
 # weight rows)
 RING_FIT = ("  static constexpr int RING = STAGES * STAGE;",
-            "  static constexpr int RING = STAGES * STAGE > TM * (2 * KV_PITCH + 129) * 4 ? STAGES * STAGE\n"
-            "                                                                          : TM * (2 * KV_PITCH + 129) * 4;")
+            "  static constexpr int RING = STAGES * STAGE > TM * (2 * (D + 4) + 129) * 4 ? STAGES * STAGE\n"
+            "                                                                         : TM * (2 * (D + 4) + 129) * 4;")
 BLOCK_ONE_ACC = [("issue_stage<T::WN>(part, f0,", "issue_stage<T::WN>(acc, f0,"),
                  ("issue_stage<T::WN>(part, f1,", "issue_stage<T::WN>(acc, f1,"),
                  ("    WgmmaTf32RegA<WN>::mma(part, f[1][j], bh + 2 * j, j || cont);",
@@ -424,43 +441,411 @@ BLOCK_SHAPES = [("K12", (8, 16, 40, 64), 320, 5), ("K12", (8, 16, 20, 32), 640, 
                 ("K10", (8 * 10 * 16, 16), 1280, 5), ("K10", (8 * 5 * 8, 16), 1280, 1)]
 
 
+# spatial_f32.cu (kernels 11 and 13): the variants of its source, each run at the query tiles it builds
+# every query tile attends over the first frame sample's keys (wrong by design): the keys and values read from
+# L2 alone, what their reads from device memory cost
+ONE_SAMPLE = [("        const int z = sample + lo * a.samples[seg];",
+               "        const int z = (seg == S_SELF ? 0 : sample) + lo * a.samples[seg];")]
+# the N-token attention's products and softmax skipped, its key tiles still waited for and handed back (wrong
+# by design): what streaming them costs
+NO_SELF = [("a.qkv + tok0 * 3 * C, 3 * (size_t)C, rows, hs, attends, r0,",
+            "a.qkv + tok0 * 3 * C, 3 * (size_t)C, rows, hs, false, r0,")]
+# the cross-attention's products and softmax skipped (wrong by design): what the cross-attention's route costs
+NO_CROSS = [("attention<TM>(a, smem, full, empty, it, S_TEXT, a.nseg, bs, 4 * (size_t)C, rows, hs, attends, r0, t4, lane);",
+             "attention<TM>(a, smem, full, empty, it, S_TEXT, a.nseg, bs, 4 * (size_t)C, rows, hs, false, r0, t4, lane);")]
+# neither attention in the source, nor its key tiles in the ring (wrong by design): the products and passes alone
+NO_ATTENTION = [("attention<TM>(a, smem", "if (false) attention<TM>(a, smem"),
+                ("produce_keys<TM>(m, a, smem", "if (false) produce_keys<TM>(m, a, smem")]
+# the keys' and values' hi halves alone (wrong by design): half the key tiles' bytes and TMA copies
+HI_ONLY = [("    mbar_expect_tx(&full[s], 8 * KH);", "    mbar_expect_tx(&full[s], 4 * KH);"),
+           ("    for (int lo = 0; lo < 2; ++lo)\n#pragma unroll\n      for (int half = 0; half < 2; ++half) {",
+            "    for (int lo = 0; lo < 1; ++lo)\n#pragma unroll\n      for (int half = 0; half < 2; ++half) {")]
+# P V of every key tile accumulated in O's accumulator (O rescaled in registers first), no fold
+PV_ONE_ACC = [("      WgmmaTf32RegA<64>::mma(ot, pl[j], vh + 2 * j, half || j);",
+               "      WgmmaTf32RegA<64>::mma(ot, pl[j], vh + 2 * j, 1);"),
+              ("""          float ot[32];
+          pv(ot, s, smem + sv * T::STAGE + T::A_BYTES);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], ot[i]);""",
+               """#pragma unroll
+          for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+          pv(o, s, smem + sv * T::STAGE + T::A_BYTES);""")]
+# the first version's handoffs: a barrier a stage (the K stage waited for before S = Q K^T and handed back
+# after it, the V^T stage waited for before P V)
+A_BARRIER_A_STAGE = [("""  for (int k0 = 0; k0 < a.len[seg]; k0 += KEYS, it += 2) {
+    const int s = it % STAGES;
+    const uint32_t parity = ((it / STAGES) & 1) ^ 1;
+    mbar_wait(&empty[s], parity);
+    mbar_wait(&empty[s + 1], parity);
+    mbar_expect_tx(&full[s], 8 * KH);
+    mbar_arrive(&full[s + 1]);
+    uint8_t* w = smem + s * T::STAGE + T::A_BYTES;
+#pragma unroll
+    for (int lo = 0; lo < 2; ++lo)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int z = sample + lo * a.samples[seg];
+        tma_load_3d(w + (2 * lo + half) * KH, &m.k[seg], &full[s], h * D + 32 * half, k0, z);
+        tma_load_3d(w + T::STAGE + (2 * lo + half) * KH, &m.vt[seg], &full[s], k0 + 32 * half, h * D, z);
+      }
+  }""", """  for (int k0 = 0; k0 < a.len[seg]; k0 += KEYS) {
+    for (int v = 0; v < 2; ++v, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+      uint8_t* w = smem + s * T::STAGE + T::A_BYTES;
+      mbar_expect_tx(&full[s], 4 * KH);
+#pragma unroll
+      for (int lo = 0; lo < 2; ++lo)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int z = sample + lo * a.samples[seg];
+          if (v == 0) tma_load_3d(w + (2 * lo + half) * KH, &m.k[seg], &full[s], h * D + 32 * half, k0, z);
+          else tma_load_3d(w + (2 * lo + half) * KH, &m.vt[seg], &full[s], k0 + 32 * half, h * D, z);
+        }
+    }
+  }"""),
+                     ("""        if (active) qk(s, qh, qlo, smem + sk * T::STAGE + T::A_BYTES);
+        if (active) {""", """        if (active) qk(s, qh, qlo, smem + sk * T::STAGE + T::A_BYTES);
+        release(empty, sk, lane);
+        if (active) {"""),
+                     ("""        if (active) {
+          float ot[32];""", """        stage_wait(full, it + 1);
+        if (active) {
+          float ot[32];"""),
+                     ("""        release(empty, sk, lane);
+        release(empty, sv, lane);""", """        release(empty, sv, lane);""")]
+def _span(src_name, start, end):
+    """The text of a source from ``start`` up to ``end``, as committed."""
+    text = (cuda_lib.CSRC / src_name).read_text()
+    i = text.index(start)
+    return text[i:text.index(end, i)]
+
+
+# Q's lo half in registers too (64 registers of Q a thread, the products a_lo.b_hi with A from registers)
+Q_IN_REGISTERS = [
+    (_span("spatial_f32.cu", "// A head's 64 query columns at q, split", "// ot = P V over"),
+     """// The A fragments of a head's 64 query columns at q, split: rows r0, r0 + 8
+// (zeros at rows >= rows), columns 8j + t, 8j + t + 4.
+__device__ __forceinline__ void load_q(const float* q, size_t ld, int r0, int rows, int t, uint32_t (&qh)[8][4],
+                                       uint32_t (&ql)[8][4]) {
+  const float* row[2] = {r0 < rows ? q + (size_t)r0 * ld : nullptr, r0 + 8 < rows ? q + (size_t)(r0 + 8) * ld : nullptr};
+  float v[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* p = row[e & 1];
+      v[j][e] = p ? p[8 * j + t + 4 * (e >> 1)] : 0.f;
+    }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(v[j][e], qh[j][e], ql[j][e]);
+}
+
+// s = Q K^T over the head's 64 columns: 8 k8 steps x 3 products into an
+// accumulator started at zero, K (hi: two halves of 32 columns, then lo) at kb.
+__device__ __forceinline__ void qk(float (&s)[32], uint32_t (&qh)[8][4], uint32_t (&ql)[8][4], const uint8_t* kb) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int half = j >> 2, step = 2 * (j & 3);
+    const uint64_t kh = smem_desc(kb + half * KH) + step, kl = smem_desc(kb + (2 + half) * KH) + step;
+    WgmmaTf32RegA<64>::mma(s, ql[j], kh, j);
+    WgmmaTf32RegA<64>::mma(s, qh[j], kl, 1);
+    WgmmaTf32RegA<64>::mma(s, qh[j], kh, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(s);
+  fence_frags(qh);
+  fence_frags(ql);
+}
+
+"""),
+    ("""    uint8_t* qlo = smem + T::RING + wg * 2 * KH;  // this warpgroup's Q_lo tile
+    uint32_t qh[8][4];
+    if (active) {  // (the last head's products that read Q_lo are done: qk waits for them)
+      load_q(q + h * D, ld, r0, r0 & 63, rows, t, qh, qlo);
+      fence_proxy_async();  // the wgmma reads Q_lo through the async proxy
+      asm volatile("bar.sync %0, 128;\\n" ::"r"(2 + wg) : "memory");
+    }
+""",
+     """    uint32_t qh[8][4], ql[8][4];
+    if (active) load_q(q + h * D, ld, r0, rows, t, qh, ql);
+"""),
+    ("""        if (active) qk(s, qh, qlo, smem + sk * T::STAGE + T::A_BYTES);""",
+     """        if (active) qk(s, qh, ql, smem + sk * T::STAGE + T::A_BYTES);""")]
+# FA.f32's way instead of the split once a launch (TM 128 only): no split pass; each key tile's raw K lands in
+# its stage's hi boxes and raw V in the next stage's token rows, three splitter warps of the producer
+# warpgroup (walking the producer's schedule) split K in place with its lo beside it and write V^T split and
+# permuted, then arrive on a fourth barrier a slot that the consumers wait on
+SPLITTERS = [
+    ("(2 * STAGES + 1) * 8", "(4 * STAGES + 1) * 8"),
+    ("""    split_kv_kernel<<<dim3(lpad / KEYS, C / KEYS, samples[s]), 256, 0, st>>>(f(src[s]), ld, kc, kc + C, samples[s], L,
+                                                                             lpad, C, ks, vt);
+""", """    (void)ks;
+    (void)vt;
+"""),
+    ("""    const cuuint64_t kdims[3] = {(cuuint64_t)C, (cuuint64_t)L, (cuuint64_t)B2};
+    const cuuint64_t kstrides[2] = {(cuuint64_t)C * 4, (cuuint64_t)L * C * 4};
+    const cuuint64_t vdims[3] = {(cuuint64_t)lpad, (cuuint64_t)C, (cuuint64_t)B2};
+    const cuuint64_t vstrides[2] = {(cuuint64_t)lpad * 4, (cuuint64_t)C * lpad * 4};
+    const cuuint32_t box[3] = {32, KEYS, 1};
+    if (!make_map(&m.k[s], ks, 3, kdims, kstrides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+        !make_map(&m.vt[s], vt, 3, vdims, vstrides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32))""",
+     """    const cuuint64_t kdims[3] = {(cuuint64_t)C, (cuuint64_t)L, (cuuint64_t)samples[s]};
+    const cuuint64_t kstrides[2] = {(cuuint64_t)ld * 4, (cuuint64_t)L * ld * 4};
+    const cuuint32_t box[3] = {32, KEYS, 1};
+    (void)lpad;
+    if (!make_map(&m.k[s], f(src[s]) + kc, 3, kdims, kstrides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+        !make_map(&m.vt[s], f(src[s]) + kc + C, 3, kdims, kstrides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32))"""),
+    ("""    mbar_expect_tx(&full[s], 8 * KH);
+    mbar_arrive(&full[s + 1]);
+    uint8_t* w = smem + s * T::STAGE + T::A_BYTES;
+#pragma unroll
+    for (int lo = 0; lo < 2; ++lo)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int z = sample + lo * a.samples[seg];
+        tma_load_3d(w + (2 * lo + half) * KH, &m.k[seg], &full[s], h * D + 32 * half, k0, z);
+        tma_load_3d(w + T::STAGE + (2 * lo + half) * KH, &m.vt[seg], &full[s], k0 + 32 * half, h * D, z);
+      }""", """    mbar_expect_tx(&full[s], 4 * KH);
+    mbar_arrive(&full[s + 1]);
+    mbar_arrive(&full[3 * STAGES + 1 + s]);  // a key tile in slot s: the splitters' cue
+    uint8_t* w = smem + s * T::STAGE + T::A_BYTES;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      tma_load_3d(w + half * KH, &m.k[seg], &full[s], h * D + 32 * half, k0, sample);
+      tma_load_3d(smem + (s + 1) * T::STAGE + half * KH, &m.vt[seg], &full[s], h * D + 32 * half, k0, sample);
+    }"""),
+    ("""        stage_wait(full, it);  // the key tile's K and V^T""",
+     """        mbar_wait(full + 2 * STAGES + 1 + it % STAGES, kuse[it % STAGES / 2]++ & 1);  // split by the splitters"""),
+    ("int& it, int seg0, int nseg,", "int& it, int (&kuse)[2], int seg0, int nseg,"),
+    ("attention<TM>(a, smem, full, empty, it, S_SELF", "attention<TM>(a, smem, full, empty, it, kuse, S_SELF"),
+    ("attention<TM>(a, smem, full, empty, it, S_TEXT", "attention<TM>(a, smem, full, empty, it, kuse, S_TEXT"),
+    ("  float* ss = a.reg[R_S] + slot * C;\n  int it = 0;",
+     "  float* ss = a.reg[R_S] + slot * C;\n  int it = 0, kuse[2] = {0, 0};  // and the key tiles each key-tile slot held"),
+    ("""      mbar_init(&empty[s], 8);  // one arrival per consumer warp""",
+     """      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&full[2 * STAGES + 1 + s], 3);
+      mbar_init(&full[3 * STAGES + 1 + s], 1);"""),
+    ("""    if (threadIdx.x == CONSUMERS) produce<TM, MEGA>(maps, a, smem, full, empty, ready);""",
+     """    if (threadIdx.x == CONSUMERS) produce<TM, MEGA>(maps, a, smem, full, empty, ready);
+    else if (threadIdx.x >= CONSUMERS + 32) split_keys<TM, MEGA>(a, smem, full, full + 2 * STAGES + 1);"""),
+    ("""  else e = mega ? launch<64, true>(m, a, slots, st) : launch<64, false>(m, a, slots, st);""",
+     """  else e = cudaErrorInvalidValue;"""),
+    ("""// ---- the consumers --------------------------------------------------------------""",
+     """// byte offset of (row r, column c) in a [rows][32] fp32 tile in the 128-byte swizzle
+__device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((((c >> 2) ^ (r & 7))) << 4) + ((c & 3) << 2); }
+
+// The splitter warps: the producer's schedule, each key tile split in shared memory once it lands
+template <int TM, bool MEGA>
+__device__ void split_keys(const Args& a, uint8_t* smem, uint64_t* full, uint64_t* split) {
+  using T = Tile<TM>;
+  const int C = a.C, heads = C / D, sid = threadIdx.x - CONSUMERS - 32, lane = threadIdx.x & 31;
+  uint64_t* cue = split + STAGES;  // the producer's arrival for each key tile it issues into a slot
+  int it = 0, uses[STAGES] = {};  // the key tiles each slot has held: the splitters skip the products' stages
+  auto keys = [&](int seg) {
+    for (int k0 = 0; k0 < a.len[seg]; k0 += KEYS, it += 2) {
+      const int s = it % STAGES;
+      mbar_wait(&cue[s], uses[s]++ & 1);  // (the slot's phases cannot run ahead of its key tiles' splits)
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      uint8_t* w = smem + s * T::STAGE + T::A_BYTES;  // K raw in the hi boxes; lo 2 KH further
+      const uint8_t* vraw = smem + (s + 1) * T::STAGE;  // V raw in the next stage's token rows
+      uint8_t* vt = w + T::STAGE;                      // V^T hi, then lo 2 KH further
+      for (int i = sid; i < 2 * KH / 16; i += 96) {
+        const float4 v = reinterpret_cast<const float4*>(w)[i];
+        uint4 hi, lo;
+        split_tf32(v.x, hi.x, lo.x);
+        split_tf32(v.y, hi.y, lo.y);
+        split_tf32(v.z, hi.z, lo.z);
+        split_tf32(v.w, hi.w, lo.w);
+        reinterpret_cast<uint4*>(w)[i] = hi;
+        reinterpret_cast<uint4*>(w + 2 * KH)[i] = lo;
+      }
+      for (int i = sid; i < 2 * KH / 16; i += 96) {
+        const int d = i & 63, c4 = (i >> 6) & 7, kh2 = i >> 9;
+        const int key0 = kh2 * 32 + 8 * (c4 >> 1) + (c4 & 1);
+        const uint8_t* vcol = vraw + (d >> 5) * KH;
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(*reinterpret_cast<const float*>(vcol + swz(key0 + 2 * e, d & 31)), hi[e], lo[e]);
+        const int off = kh2 * KH + swz(d, 4 * c4);
+        *reinterpret_cast<uint4*>(vt + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(vt + 2 * KH + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&split[s]);
+    }
+  };
+  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    for (int h = 0; h < heads; ++h) keys(S_SELF);
+    for (int g = G_WO1; g <= (MEGA ? G_OUT : G_W2); ++g) {
+      const int N = gemm_n(g, C), KT = gemm_k(g, C) / BK;
+      it += (g == G_W1 ? N / BN : (N + BN - 1) / BN) * KT;
+      if (g == G_Q2)
+        for (int h = 0; h < heads; ++h)
+          for (int sg = S_TEXT; sg < S_TEXT + a.nseg; ++sg) keys(sg);
+    }
+  }
+}
+
+// ---- the consumers --------------------------------------------------------------""")]
+# every mbarrier wait a spin of mbarrier.test_wait (never suspending the thread) instead of try_wait
+TEST_WAIT = [('        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\\n"',
+              '        "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\\n"')]
+# the attention a function of its own (its registers allocated apart from the products')
+NOINLINE = [("template <int TM>\n__device__ void attention(", "template <int TM>\n__device__ __noinline__ void attention(")]
+# the attention's thread indices as they come (the compiler free to hoist what it derives from them)
+HOISTABLE = [("""    int r0 = r0_, t = t_, wg = threadIdx.x >> 7;
+    asm volatile("" : "+r"(r0), "+r"(t), "+r"(wg));""", """    const int r0 = r0_, t = t_, wg = threadIdx.x >> 7;""")]
+SPATIAL_VARIANTS = {"as built": ([], TILES), "attention not inlined": (NOINLINE, TILES), "indices hoistable": (HOISTABLE, TILES), "a barrier a stage": (A_BARRIER_A_STAGE, TILES),
+                    "Q in registers": (Q_IN_REGISTERS, TILES), "P V one accumulator": (PV_ONE_ACC, [128]),
+                    "test_wait": (TEST_WAIT, [128]), "splitter warps": (SPLITTERS, [128]),
+                    "no attention": (NO_ATTENTION, TILES),
+                    "no self-attention": (NO_SELF, [128]), "no self-attention, hi halves": (NO_SELF + HI_ONLY, [128]),
+                    "no cross-attention": (NO_CROSS, [128]), "one key sample": (ONE_SAMPLE, [128])}
+WRONG += tuple(f"spatial {n}" for n in ("no attention", "no self-attention", "no self-attention, hi halves",
+                                         "no cross-attention", "one key sample"))
+# (kernel, clips, H, W, C, calls per batch-8 i2v fp32 forward): kernels 11 (all-wrap+blk) and 13 ("off") at s320
+# and s640, 16 frames a clip, i2v (77 text and 16 image keys)
+SPATIAL_SHAPES = [("K11", 8, 40, 64, 320, 5), ("K11", 8, 20, 32, 640, 5), ("K13", 8, 40, 64, 320, 5),
+                  ("K13", 8, 20, 32, 640, 5)]
+SPATIAL_NAMES = ("ds_spatial_block_f32", "ds_mega_spatial_f32")
+
+
+class _Body:
+    """A library whose spatial bodies are a variant's, everything else (the
+    GEMM heads, the weight split) the port's own."""
+
+    def __init__(self, real, var):
+        self.real, self.var = real, var
+
+    def __getattr__(self, name):
+        return getattr(self.var if name in SPATIAL_NAMES else self.real, name)
+
+
+def _spatial_rows(libs, real, rn, report):
+    """Kernels 11 and 13 at SPATIAL_SHAPES, each variant at each of its query
+    tiles held against the plain version and the kernel as built at the same
+    tile (``same_bits``) and timed in turns, as :func:`_block_rows`."""
+    for k, clips, H, W, C, calls in SPATIAL_SHAPES:
+        heads, BF, N, L, Dc = C // 64, clips * 16, H * W, 93, 1024
+
+        def w(n_out, n_in):
+            return rn(n_out, n_in, s=n_in ** -0.5)
+        lns = tuple(1.0 + rn(C, s=0.1) if i % 2 == 0 else rn(C, s=0.1) for i in range(6))
+        a1 = (w(C, C), w(C, C), w(C, C), w(C, C), rn(C, s=0.1))
+        a2 = (w(C, C), w(C, Dc), w(C, Dc), w(C, C), rn(C, s=0.1), w(C, Dc), w(C, Dc))
+        ff = (w(8 * C, C), rn(8 * C, s=0.1), w(C, 4 * C), rn(C, s=0.1))
+        ctx = rn(clips, L, Dc)
+        if k == "K13":
+            x = rn(BF, H, W, C)
+            mul, add = 1.0 + rn(BF, C, s=0.1), rn(BF, C, s=0.1)
+            wi, bi, wo, bo = w(C, C), rn(C, s=0.1), w(C, C), rn(C, s=0.1)
+            op = fused_mega.pack_spatial_mega(wi, bi, lns, a1, a2, ff, wo, bo, dtype=torch.float32)
+
+            def run(plan):
+                return fused_mega.spatial_mega(x, ctx, mul, add, wi, bi, lns, a1, a2, ff, wo, bo, heads=heads,
+                                               scale=0.125, operands=op, plan=plan)
+        else:
+            x = rn(BF, N, C)
+            op = fused_block.pack_spatial_block(lns, a1, a2, ff, dtype=torch.float32)
+
+            def run(plan):
+                return fused_block.fused_spatial_block(x, ctx, lns, a1, a2, ff, heads=heads, scale=0.125,
+                                                       operands=op, plan=plan)
+        # the body's products and both attentions' (the heads not counted)
+        flops = 2 * BF * N * (15 + (k == "K13")) * C * C + 4 * BF * N * (N + L) * C
+        cuda_lib._lib = real
+        with cuda_lib.plain_kernels():
+            ref = run(None)
+        chosen = cuda_lib.spatial_f32_plan(C, N, BF)
+        run(chosen)  # the weights split once, by the real library
+        names = [f"{n} TM {tm}" for n, (_, tiles) in SPATIAL_VARIANTS.items() for tm in tiles]
+
+        def call(key):
+            n, tm = key.rsplit(" TM ", 1)
+            cuda_lib._lib = _Body(real, libs[f"spatial {n}"]) if n != "as built" else real
+            return run(cuda_lib.BlockF32Plan(int(tm)))
+        errs, built = {}, {}
+        for key in names:
+            got = call(key)
+            tile = key.split(" TM ", 1)[1]
+            if key.startswith("as built "):
+                built[tile] = got
+            errs[key] = {"vs_plain": float((got - ref).abs().max() / ref.abs().max()),
+                         "l2": float((got - ref).norm() / (ref - x).norm()),
+                         "same_bits": bool(torch.equal(got, built[tile]))}
+        del built
+        ms = _turns(names, lambda key: _time_ms(lambda: call(key)))
+        cuda_lib._lib = real
+        bound = flops / (494.7e12 / 3) * 1e3
+        report["spatial"].append({"kernel": k, "x": list(x.shape), "calls": calls, "bound_ms": bound, "ms": ms,
+                                  "err": errs, "plan": chosen._asdict(),
+                                  "grid": {tm: cuda_lib.spatial_f32_grid(cuda_lib.BlockF32Plan(tm), BF, N)
+                                           for tm in TILES}})
+        print(f"{k} x{list(x.shape)} x{calls} (3xTF32 bound {bound:.3f} ms; plan TM {chosen.tm}): "
+              + "; ".join(f"{key} {ms[key]:.3f} ms ({100 * bound / ms[key]:.0f}%, err {errs[key]['vs_plain']:.1e}, "
+                          f"L2 {errs[key]['l2']:.1e}{', same bits as built' if errs[key]['same_bits'] else ''}"
+                          + (", wrong by design" if f"spatial {key.split(' TM ')[0]}" in WRONG else "") + ")"
+                          for key in names), flush=True)
+        for key in names:
+            if key.startswith("as built ") and (errs[key]["vs_plain"] > TOL_F32 or errs[key]["l2"] > TOL_F32):
+                _fail(f"{k} {key} misses the fp32 gate at {list(x.shape)}")
+        del x, op, ref
+        torch.cuda.empty_cache()
+
+
 def _fail(msg):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
 
 
 def _variant_sources(src_name, variants):
+    """variant -> ({file: text} of the source as k.cu and tc_f32.cuh, each
+    patch applied where its text is, hopper.cuh's text)."""
     src = (cuda_lib.CSRC / src_name).read_text()
     out = {}
     for name, (patches, rna) in variants.items():
-        text = src
+        files = {"k.cu": src, "tc_f32.cuh": SHARED, "hopper.cuh": HOPPER.replace(_rna_body(HOPPER), rna) if rna else HOPPER}
         for old, new in patches:
-            if old not in text:
+            where = [f for f, text in files.items() if old in text]
+            if not where:
                 _fail(f"{src_name} variant {name!r}: the source no longer has {old[:60]!r}")
-            text = text.replace(old, new)
-        hop = HOPPER.replace(_rna_body(HOPPER), rna) if rna else HOPPER
-        out[name] = (text, hop)
+            files[where[0]] = files[where[0]].replace(old, new)
+        out[name] = (files,)
     return out
 
 
 def _build_all(jobs):
-    """jobs: {key: (source text, hopper.cuh text, entry point)} -> loaded libraries, nvcc all at once."""
+    """jobs: {key: ({file: text}, entry point)} -> loaded libraries, nvcc all at once."""
     procs = {}
-    for key, (text, hop, _) in jobs.items():
+    for key, (files, _) in jobs.items():
         d = OUT / key.replace(" ", "_").replace(",", "").replace(".", "_")
         d.mkdir(parents=True, exist_ok=True)
-        (d / "k.cu").write_text(text)
-        (d / "hopper.cuh").write_text(hop)
-        procs[key] = (d, subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-I", str(d),
-                                           "-o", str(d / "k.so"), str(d / "k.cu")],
+        for f, text in files.items():
+            (d / f).write_text(text)
+        procs[key] = (d, subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas=-v", "-shared", "-I",
+                                           str(d), "-o", str(d / "k.so"), str(d / "k.cu")],
                                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
     for key, (d, p) in procs.items():
         out, err = p.communicate()
         if p.returncode:
             _fail(f"variant {key} does not build:\n{out}\n{err[-3000:]}")
+        # ptxas: registers and spill bytes of each whole-block kernel
+        spills = re.findall(r"entry function '\w*?(spatial|temporal)_tc_f32_kernelILi(\d+)ELb(\d)[^\n]*\n(?:[^\n]*"
+                            r"Function properties[^\n]*\n)?\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", out + err)
+        if spills:
+            print(f"variant {key}: ptxas spill stores / loads (bytes): " + ", ".join(
+                f"{n} TM {tm}{' mega' if m == '1' else ''} {st} / {ld}" for n, tm, m, _, st, ld in spills), flush=True)
         lib = ctypes.CDLL(str(d / "k.so"))
-        names = jobs[key][2]
+        names = jobs[key][1]
         for name in (names,) if isinstance(names, str) else names:
             fn = getattr(lib, name)
             fn.argtypes = list(cuda_lib._SIGNATURES[name])
@@ -578,6 +963,8 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     only = set(sys.argv[1:]) or {"gemm", "flash", "block"}
+    if "block" in only:  # kernels 10 and 12, and 11 and 13
+        only |= {"temporal", "spatial"}
     jobs = {}
     if "gemm" in only:
         jobs.update({f"gemm {n}": (*v, "ds_ln_gemm_f32")
@@ -585,10 +972,13 @@ def main():
     if "flash" in only:
         jobs.update({f"flash {n}": (*v, "ds_flash_attention_f32")
                      for n, v in _variant_sources("attention_f32.cu", FLASH_VARIANTS).items()})
-    if "block" in only:
+    if "temporal" in only:
         patched = {n: (patches, None) for n, (patches, _) in BLOCK_VARIANTS.items() if patches}
         jobs.update({f"block {n}": (*v, ("ds_temporal_block_f32", "ds_temporal_mega_f32"))
                      for n, v in _variant_sources("temporal_f32.cu", patched).items()})
+    if "spatial" in only:
+        patched = {n: (patches, None) for n, (patches, _) in SPATIAL_VARIANTS.items() if patches}
+        jobs.update({f"spatial {n}": (*v, SPATIAL_NAMES) for n, v in _variant_sources("spatial_f32.cu", patched).items()})
     cuda_lib.library()
     libs = _build_all(jobs)
     real = cuda_lib._lib
@@ -597,9 +987,11 @@ def main():
     def rn(*shape, s=1.0):
         return torch.randn(shape, generator=g, device="cuda") * s
 
-    report = {"device": smi, "gemm": [], "flash": [], "block": []}
-    if "block" in only:
+    report = {"device": smi, "gemm": [], "flash": [], "block": [], "spatial": []}
+    if "temporal" in only:
         _block_rows(libs, real, rn, report)
+    if "spatial" in only:
+        _spatial_rows(libs, real, rn, report)
     for M, K, N, mode, ln, calls in GEMM_SHAPES if "gemm" in only else ():
         x, w = rn(M, K), rn(N, K, s=K ** -0.5)
         kw = dict(mode=mode, bias=rn(N, s=0.1))

@@ -18,9 +18,9 @@
 // operations against 4 x 64 x 4 bytes read and written, about 6 operations a
 // byte, far below the card's 20 for fp32; a quarter-warp's 8 threads read
 // one key at a time (one row), so the shared-memory reads are broadcasts
-// where F >= 8. (Kernels 10 and 12 run their own F-frame attention,
-// block_f32.cu, two threads a query, within the register budget of their
-// GEMM phases.)
+// where F >= 8. (Kernels 10 and 12 run their own F-frame attention in
+// temporal_f32.cu, and kernels 11 and 13 their N-token and cross-attention
+// in spatial_f32.cu, inside their blocks.)
 //
 // ds_flash_attention_f32: q rows with a pitch, up to two key segments each
 // with its own softmax, the normalised outputs summed (the i2v dual

@@ -233,7 +233,7 @@ class BasicTransformerBlock(nn.Module):
         side = "t" if self.temporal else "s"
         t_self, t_cross = (traj or {}).get("self"), (traj or {}).get("cross")
         if (mask is None and t_self is None and t_cross is None
-                and fused_temporal.plan_allows("block", side, self.dim)):
+                and fused_temporal.plan_allows("block", side, self.dim, x.dtype)):
             if self.temporal and fused_block.temporal_block_ok(x.shape[1], inner, self.dim, heads):
                 return self._whole(x, fused_block.fused_temporal_block, fused_block.pack_temporal_block)
             if (not self.temporal and context is not None

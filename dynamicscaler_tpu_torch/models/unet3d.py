@@ -311,7 +311,7 @@ class SpatialTransformer(nn.Module):
         blk = self.transformer_blocks[0]
         heads = blk.attn1.heads
         if (len(self.transformer_blocks) == 1 and context is not None and traj is None
-                and fused_temporal.plan_allows("mega", "s", C)
+                and fused_temporal.plan_allows("mega", "s", C, x.dtype)
                 and fused_mega.spatial_ok(H * W, C, heads * blk.attn1.dim_head, heads, context.shape[-1])):
             return _whole_transformer(self, x, fused_mega.spatial_transformer, fused_mega.pack_spatial_mega,
                                       context[::num_frames], text_len=blk.attn2.text_context_len)
@@ -367,7 +367,7 @@ class TemporalTransformer(nn.Module):
         blk = self.transformer_blocks[0]
         heads = blk.attn1.heads
         if (len(self.transformer_blocks) == 1 and not self.causal_attention and traj is None
-                and fused_temporal.plan_allows("mega", "t", C)
+                and fused_temporal.plan_allows("mega", "t", C, x.dtype)
                 and fused_mega.temporal_ok(Fn, C, heads * blk.attn1.dim_head, heads)):
             return _whole_transformer(self, x5, fused_mega.temporal_transformer,
                                       fused_mega.pack_temporal_mega).reshape(BF, H, W, C)

@@ -29,8 +29,10 @@ tests), ``gn_silu.cu``'s kernels
 instantiated at fp32 (K1-K9 and the statistics), ``temporal_f32.cu``'s whole
 temporal block and transformer (kernels 10 and 12 on the tensor cores
 through the same split, their tile from :func:`block_f32_plan`, a slot of
-scratch a block, :func:`temporal_f32_scratch`) and ``block_f32.cu``'s
-spatial bodies (kernels 11 and 13, :func:`block_f32_scratch`).
+scratch a block, :func:`temporal_f32_scratch`) and ``spatial_f32.cu``'s
+spatial bodies (kernels 11 and 13 on the same block and products, with the
+N-token and cross-attention on the tensor cores too; their query tile from
+:func:`spatial_f32_plan`, their scratch :func:`spatial_f32_scratch`).
 """
 
 from __future__ import annotations
@@ -80,8 +82,8 @@ _SIGNATURES = {
     "ds_spatial_maps": (_P, _I, _I, _P, _P),
     "ds_temporal_block_f32": (_P, _I, _I, _I, _F, _F, _P, _L, _I, _I, _P),
     "ds_temporal_mega_f32": (_P, _I, _I, _I, _I, _F, _F, _P, _L, _I, _I, _P),
-    "ds_spatial_block_f32": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _L, _I, _P),
-    "ds_mega_spatial_f32": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _L, _I, _P),
+    "ds_spatial_block_f32": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _L, _I, _I, _P),
+    "ds_mega_spatial_f32": (_P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _L, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -410,23 +412,6 @@ def gemm_tile(M: int, K: int, N: int, mode: int = MODE_STORE) -> GemmTile:
     return GemmTile(bn, stages, gemm_smem(bn, stages))
 
 
-# kernels 11 and 13 at fp32 (csrc/block_f32.cu): a persistent grid of at
-# most BLOCK_F32_SLOTS blocks of 256 threads (two an SM), each taking tiles
-# of 64 query tokens with its own slot of fp32 scratch: [64, C] normalised or
-# attention rows and [64, 4C] q or GEGLU rows, and for kernel 13 its
-# residual stream [64, C]
-BLOCK_F32_SLOTS = 2 * GEMM_SMS
-
-
-def block_f32_scratch(tokens: int, C: int, tt: int, mega: bool) -> torch.Size:
-    """The scratch of one launch of ``block_f32.cu`` (kernels 11 and 13)
-    over ``tokens`` tokens in tiles of ``tt``: a slot a block of the grid,
-    ``[blocks, tt, (5 or 6) * C]`` fp32. Kernels 10 and 12 at fp32 keep
-    their token rows in a scratch slot too, :func:`temporal_f32_scratch`."""
-    blocks = min(-(-tokens // tt), BLOCK_F32_SLOTS)
-    return torch.Size((blocks, tt, (6 if mega else 5) * C))
-
-
 # ds_temporal_block_f32 / ds_temporal_mega_f32's tile (csrc/temporal_f32.cu):
 # a persistent grid of one 384-thread block an SM, each taking tiles of TM
 # tokens (whole F-frame rows at every F the gate admits); every product on
@@ -480,6 +465,56 @@ def temporal_f32_scratch(tokens: int, C: int, plan: BlockF32Plan) -> torch.Size:
     beside the weight ring."""
     return torch.Size((block_f32_grid(plan, tokens) * plan.tm * 6 * C,))
 
+
+
+# ds_spatial_block_f32 / ds_mega_spatial_f32's tile (csrc/spatial_f32.cu):
+# temporal_f32.cu's block (one 384-thread block an SM, the ring of 4 slots,
+# tc_f32.cuh's products) over query tiles of TM tokens of one frame sample,
+# the attention's key tiles of SPATIAL_F32_KEYS streamed through the same
+# ring; each key segment's keys and values split once a launch
+SPATIAL_F32_KEYS = 64
+
+
+def _key_pad(n: int) -> int:
+    return -(-n // SPATIAL_F32_KEYS) * SPATIAL_F32_KEYS
+
+
+@functools.lru_cache(maxsize=None)
+def spatial_f32_plan(C: int, N: int, samples: int) -> BlockF32Plan:
+    """The query tile of kernels 11 and 13 at fp32 at width C over
+    ``samples`` frame samples of N tokens: 128 tokens of a sample, or 64
+    where the grid's waves of them take less time (:func:`block_f32_plan`'s
+    rule: a tile of 64 costs :data:`BLOCK_F32_TM64_COST` of one of 128),
+    as where there are fewer tiles of 128 than SMs. Timed on the H100
+    (chip_smoke.py phase 10's tile lines): 128 is the faster at every
+    batch-8 shape, 64 at N 256 (32 samples: 64 tiles of 128). A sample's last
+    tile may be ragged (N 400: three of 128 and one of 16 rows)."""
+    if C % 64 or not 64 <= C <= 640 or N <= 0 or N % 16 or samples <= 0:
+        raise ValueError(f"spatial_f32_plan: C a multiple of 64 up to 640 and N a multiple of 16; got C={C} N={N} "
+                         f"samples={samples}")
+    waves = {tm: -(-samples * -(-N // tm) // GEMM_SMS) for tm in (128, 64)}
+    return BlockF32Plan(64 if waves[64] * BLOCK_F32_TM64_COST < waves[128] else 128)
+
+
+def spatial_f32_grid(plan: BlockF32Plan, samples: int, N: int) -> int:
+    """Blocks of a ``ds_spatial_block_f32`` / ``ds_mega_spatial_f32``
+    launch: one a query tile, at most one a streaming multiprocessor."""
+    return min(samples * -(-N // plan.tm), GEMM_SMS)
+
+
+def spatial_f32_scratch(samples: int, N: int, C: int, clips: int, lens, plan: BlockF32Plan) -> torch.Size:
+    """The scratch of one launch of ``ds_spatial_block_f32`` /
+    ``ds_mega_spatial_f32``, flat fp32: the three regions of
+    :func:`temporal_f32_scratch` (the LayerNorm or attention rows, q2 or the
+    GEGLU rows, the stream) of ``plan.tm`` rows a block of the grid, then for
+    each key segment (the samples' own N tokens; each context segment of
+    ``lens`` keys a clip, a length 0 absent) its keys split [2, samples,
+    len, C] (hi, then lo) and its values transposed and split [2, samples,
+    C, lpad] (lpad: len rounded up to a key tile, zeros past len), written
+    once a launch: 1.7 GB at s320's batch-8 shape."""
+    rows = spatial_f32_grid(plan, samples, N) * plan.tm
+    segs = [(samples, N)] + [(clips, n) for n in lens if n]
+    return torch.Size((rows * 6 * C + sum(2 * s * C * (n + _key_pad(n)) for s, n in segs),))
 
 # ds_temporal_block / ds_temporal_mega's tile (csrc/block.cu): TM resident
 # tokens a block, weight tiles of 128 rows x 64 k (16 KB) through a ring of

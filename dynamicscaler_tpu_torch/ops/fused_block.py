@@ -39,7 +39,9 @@ the fp32 kernels instead, with the same operands in fp32:
 cores, the weights split for them once each by
 ``cuda_lib.tf32_split_weights``, its tile from ``cuda_lib.block_f32_plan``),
 and the same GEMM heads (``ds_ln_gemm_f32``) then
-``csrc/block_f32.cu::ds_spatial_block_f32``.
+``csrc/spatial_f32.cu::ds_spatial_block_f32`` (one launch on the tensor
+cores, the N-token and cross-attention included, kernel 10's block and
+products at fp32; its query tile from ``cuda_lib.spatial_f32_plan``).
 """
 
 from __future__ import annotations
@@ -249,7 +251,7 @@ def spatial_weights(op: BlockOperands) -> list:
     return [op.attn1.wo, op.attn2.w_in, op.attn2.wo, op.ff.w1, op.ff.w2]
 
 
-def spatial_launch(x3, ctx, op: BlockOperands, wrapper, maps: dict, *, heads, scale, text_len, eps):
+def spatial_launch(x3, ctx, op: BlockOperands, wrapper, maps: dict, *, heads, scale, text_len, eps, plan=None):
     """Launch kernel 13 (``wrapper`` = (mul, add, w_in, b_in, w_out, b_out))
     or kernel 11 (``wrapper`` None) on x3 [BF, N, C] with the per-clip
     context ``ctx`` [clips, L, Dc]: by ``ds_ln_gemm`` the context K|V of each
@@ -257,8 +259,10 @@ def spatial_launch(x3, ctx, op: BlockOperands, wrapper, maps: dict, *, heads, sc
     (kernel 13) GroupNorm apply -> proj_in -> h, and LN1(h) -> q|k|v; then
     ``ds_mega_spatial`` / ``ds_spatial_block`` at ``cuda_lib.spatial_plan``'s
     tile with the weights' TMA maps, encoded once into ``maps`` (bf16), or
-    ``ds_mega_spatial_f32`` / ``ds_spatial_block_f32`` with the weights'
-    pointers and a slot of scratch a block (fp32). Returns [BF, N, C]."""
+    ``ds_mega_spatial_f32`` / ``ds_spatial_block_f32`` (fp32) at the query
+    tile ``plan`` (``cuda_lib.spatial_f32_plan``'s when None) with every
+    weight split once (``cuda_lib.tf32_split_weights``) and its scratch
+    (``cuda_lib.spatial_f32_scratch``). Returns [BF, N, C]."""
     BF, N, C = x3.shape
     clips, L, Dc = ctx.shape
     dt = x3.dtype
@@ -281,10 +285,13 @@ def spatial_launch(x3, ctx, op: BlockOperands, wrapper, maps: dict, *, heads, sc
     ptrs = [h, x2 if wrapper else None, qkv, kv[0], kv[1] if has_img else None,
             a1.bo, a2.ln_scale, a2.ln_bias, a2.bo, f.ln_scale, f.ln_bias, f.b1, f.b2, b_out, out]
     if dt == torch.float32:
-        scratch = torch.empty(cuda_lib.block_f32_scratch(BF * N, C, 64, bool(wrapper)), device=x3.device, dtype=dt)
-        cuda_lib.call("ds_mega_spatial_f32" if wrapper else "ds_spatial_block_f32", cuda_lib.ptr_array(ptrs + weights),
-                      BF, N, C, BF // clips, Lt, L - Lt, float(scale), float(eps), cuda_lib.ptr(scratch),
-                      scratch.numel(), scratch.shape[0])
+        plan = plan or cuda_lib.spatial_f32_plan(C, N, BF)
+        scratch = torch.empty(cuda_lib.spatial_f32_scratch(BF, N, C, clips, (Lt, L - Lt), plan), device=x3.device,
+                              dtype=dt)
+        cuda_lib.call("ds_mega_spatial_f32" if wrapper else "ds_spatial_block_f32",
+                      cuda_lib.ptr_array(ptrs + [cuda_lib.tf32_split_weights(w) for w in weights]), BF, N, C,
+                      BF // clips, Lt, L - Lt, float(scale), float(eps), cuda_lib.ptr(scratch), scratch.numel(),
+                      cuda_lib.spatial_f32_grid(plan, BF, N), plan.tm)
         return out
     ptrs = cuda_lib.ptr_array(ptrs)
     cuda_lib.call("ds_mega_spatial" if wrapper else "ds_spatial_block", ptrs, BF, N, C, BF // clips, Lt, L - Lt,
@@ -292,11 +299,13 @@ def spatial_launch(x3, ctx, op: BlockOperands, wrapper, maps: dict, *, heads, sc
     return out
 
 
-def fused_spatial_block(x, ctx, lns, attn1, attn2, ff, *, heads, scale, text_len=77, eps=1e-5, operands=None):
+def fused_spatial_block(x, ctx, lns, attn1, attn2, ff, *, heads, scale, text_len=77, eps=1e-5, operands=None,
+                        plan=None):
     """Kernel 11: the whole spatial BasicTransformerBlock. x [BF, N, C]; ctx
     [clips, L, Dc] per clip (BF = clips * frames); returns [BF, N, C]. On the
     card :func:`spatial_launch` (the context K/V and q|k|v GEMMs, then one
-    launch of ``ds_spatial_block``), reading ``operands`` (from
+    launch of ``ds_spatial_block``, or at fp32 of ``ds_spatial_block_f32``
+    at the query tile ``plan``), reading ``operands`` (from
     :func:`pack_spatial_block`; packed here when None) and their TMA maps."""
     dt = cuda_lib.check_dtypes("K11", x)
     if not cuda_lib.use_kernel(x, ctx):
@@ -310,7 +319,7 @@ def fused_spatial_block(x, ctx, lns, attn1, attn2, ff, *, heads, scale, text_len
     cuda_lib.check_operand("x", x, dt)
     op = operands or pack_spatial_block(lns, attn1, attn2, ff, dtype=dt)
     check_spatial_operands(op, C, Dc, has_img, dt)
-    out = spatial_launch(x, ctx, op, None, op.maps, heads=heads, scale=scale, text_len=text_len, eps=eps)
+    out = spatial_launch(x, ctx, op, None, op.maps, heads=heads, scale=scale, text_len=text_len, eps=eps, plan=plan)
     fused_spatial_block.launches += 1
     return out
 

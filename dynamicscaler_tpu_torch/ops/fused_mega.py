@@ -39,7 +39,9 @@ takes the fp32 kernels instead, with the same operands in fp32:
 ``csrc/temporal_f32.cu::ds_temporal_mega_f32`` (one launch on the tensor
 cores, kernel 10's at fp32 with the wrapper's products; the weights split
 once each), and the same GEMM heads (``ds_ln_gemm_f32``) then
-``csrc/block_f32.cu::ds_mega_spatial_f32``.
+``csrc/spatial_f32.cu::ds_mega_spatial_f32`` (one launch on the tensor
+cores: kernel 11's body at fp32, the N-token and cross-attention included,
+and proj_out).
 """
 
 from __future__ import annotations
@@ -207,12 +209,13 @@ def spatial_mega_plain(x4, ctx, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_o
 
 
 def spatial_mega(x4, ctx, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_out, *, heads, scale,
-                 text_len=77, eps=1e-5, operands=None):
+                 text_len=77, eps=1e-5, operands=None, plan=None):
     """Kernel 13 with the folded GroupNorm vectors ``(mul, add)`` [BF, C]:
     [BF, H, W, C] -> [BF, H, W, C]. On the card
     :func:`fused_block.spatial_launch` (the context K/V, proj_in and q|k|v
     GEMMs, then one launch of ``ds_mega_spatial``; head dim 64, inner == C
-    <= 640; at fp32 ``ds_mega_spatial_f32``), reading ``operands`` (from
+    <= 640; at fp32 ``ds_mega_spatial_f32`` at the query tile ``plan``,
+    ``cuda_lib.spatial_f32_plan``'s when None), reading ``operands`` (from
     :func:`pack_spatial_mega`; packed here when None) and their TMA maps."""
     dt = cuda_lib.check_dtypes("K13", x4)
     if not cuda_lib.use_kernel(x4, ctx):
@@ -230,7 +233,7 @@ def spatial_mega(x4, ctx, mul, add, w_in, b_in, lns, attn1, attn2, ff, w_out, b_
     check_spatial_operands(op.block, Ci, Dc, has_img, dt)
     _check_gn(mul, add, BF, C)
     out = spatial_launch(x4.reshape(BF, H * W, C), ctx, op.block, (mul, add, op.w_in, op.b_in, op.w_out, op.b_out),
-                         op.maps, heads=heads, scale=scale, text_len=text_len, eps=eps)
+                         op.maps, heads=heads, scale=scale, text_len=text_len, eps=eps, plan=plan)
     spatial_mega.launches += 1
     return out.reshape(x4.shape)
 

@@ -50,10 +50,12 @@ from dynamicscaler_tpu_torch.ops.cuda_lib import MODE_GEGLU, MODE_RESIDUAL, act,
 # (fused_block.temporal_block_ok / spatial_block_ok, fused_mega.temporal_ok /
 # spatial_ok) veto on top, falling through to the next level. Shapes not in
 # the table keep wrap+sub, so small test configs keep the sub-block path
-# unless a test sets the plan. DSCALER_FUSE_PLAN (read once, at import) or
-# set_plan takes "auto" (the table), "off" (the highest legal level at every
-# shape) or a comma spec such as "t640=mega,s320=wrap+blk" patching the
-# table.
+# unless a test sets the plan. There is a table for each activation type:
+# PLAN_DEFAULT (bf16) and PLAN_DEFAULT_F32 (fp32, whose kernels have their
+# own timings); plan_allows picks it by the activations' dtype.
+# DSCALER_FUSE_PLAN (read once, at import) or set_plan takes "auto" (the
+# tables), "off" (the highest legal level at every shape, either type) or a
+# comma spec such as "t640=mega,s320=wrap+blk" patching both tables.
 #
 # The table is the fastest level at each shape of the batch-8 i2v UNet
 # forward in one recorded run of chip_smoke.py (phase 3, module ms per
@@ -81,6 +83,17 @@ PLAN_DEFAULT = {
     ("s", 640): "wrap+sub",
     ("s", 1280): "wrap+sub",
 }
+# The fp32 table: PLAN_DEFAULT with the fastest fp32 level at each key where
+# PLAN_DEFAULT's lost by more than 5% (s640, t512) or nearly (s320, 4.6%),
+# from phase 10's fp32 level table (module ms per batch-8 i2v fp32 forward
+# with the GroupNorm fold, the same card; the run is in PERF.md). With kernels 11 and 13 on the tensor cores
+# (csrc/spatial_f32.cu), as kernels 10 and 12 are (csrc/temporal_f32.cu):
+#   s320 : mega 169.70 (wrap+blk 170.81, wrap+sub 177.49)
+#   s640 : mega 92.96 (wrap+blk 95.50, wrap+sub 98.50)
+#   t512 : wrap+blk 41.71 (wrap+sub 45.10)
+# and within 5% of PLAN_DEFAULT's level everywhere else (t320 mega 98.80,
+# wrap+blk 98.32; t640 wrap+sub 83.36, mega 83.11).
+PLAN_DEFAULT_F32 = {**PLAN_DEFAULT, ("t", 512): "wrap+blk", ("s", 320): "mega", ("s", 640): "mega"}
 _LEVEL_ALLOWS = {
     "mega": frozenset({"mega", "block"}),
     "wrap+blk": frozenset({"block"}),
@@ -103,50 +116,59 @@ def _level(level: str, where: str) -> str:
     return level
 
 
+def _tables(patch: dict) -> dict:
+    """The plan of each activation type: its table patched by ``patch``."""
+    return {torch.bfloat16: {**PLAN_DEFAULT, **patch}, torch.float32: {**PLAN_DEFAULT_F32, **patch}}
+
+
 def _parse_plan(spec: str):
-    """The JAX package's spec rules: "auto" or "" the table, "off" None (the
-    highest legal level everywhere), else comma items side+C=level patching
-    the table."""
+    """The JAX package's spec rules: "auto" or "" the tables, "off" None
+    (the highest legal level everywhere), else comma items side+C=level
+    patching both tables."""
     if spec in ("auto", ""):
-        return dict(PLAN_DEFAULT)
+        return _tables({})
     if spec == "off":
         return None
-    plan = dict(PLAN_DEFAULT)
+    patch = {}
     for item in spec.split(","):
         k, _, lvl = item.partition("=")
         _level(lvl, repr(spec))
         side, c = k[0], int(k[1:])
         if side not in ("t", "s"):
             raise PlanError(f"bad plan key {k!r} in {spec!r}")
-        plan[(side, c)] = lvl
-    return plan
+        patch[(side, c)] = lvl
+    return _tables(patch)
 
 
 _PLAN = _parse_plan(os.environ.get("DSCALER_FUSE_PLAN", "auto"))
 
 
 def set_plan(spec=None) -> None:
-    """Set the plan: None or "auto" the table :data:`PLAN_DEFAULT`, "off"
-    the highest legal level at every shape, a comma spec
-    ("t640=mega,s320=wrap+blk") or a dict ``{(side, C): level}`` patching
-    the table."""
+    """Set the plan: None or "auto" the tables :data:`PLAN_DEFAULT` (bf16)
+    and :data:`PLAN_DEFAULT_F32` (fp32), "off" the highest legal level at
+    every shape, a comma spec ("t640=mega,s320=wrap+blk") or a dict
+    ``{(side, C): level}`` patching both tables."""
     global _PLAN
     if spec is None or isinstance(spec, str):
         _PLAN = _parse_plan(spec or "auto")
         return
-    plan = dict(PLAN_DEFAULT)
+    patch = {}
     for (side, c), level in spec.items():
         if side not in ("t", "s"):
             raise PlanError(f"bad plan key {(side, c)!r}")
-        plan[(side, int(c))] = _level(level, f"{(side, c)!r}")
-    _PLAN = plan
+        patch[(side, int(c))] = _level(level, f"{(side, c)!r}")
+    _PLAN = _tables(patch)
 
 
-def plan_allows(kind: str, side: str, C: int) -> bool:
+def plan_allows(kind: str, side: str, C: int, dtype: torch.dtype = torch.bfloat16) -> bool:
     """Does the plan let the ``side`` ("t"/"s") transformer at width ``C``
-    run kernel class ``kind`` ("block": kernel 10 / 11, "mega": kernel 12 /
-    13)? Always under "off"."""
-    return _PLAN is None or kind in _LEVEL_ALLOWS[_PLAN.get((side, C), "wrap+sub")]
+    with activations of ``dtype`` (fp32 reads :data:`PLAN_DEFAULT_F32`'s
+    table, any other type :data:`PLAN_DEFAULT`'s) run kernel class ``kind``
+    ("block": kernel 10 / 11, "mega": kernel 12 / 13)? Always under "off"."""
+    if _PLAN is None:
+        return True
+    table = _PLAN[torch.float32 if dtype == torch.float32 else torch.bfloat16]
+    return kind in _LEVEL_ALLOWS[table.get((side, C), "wrap+sub")]
 
 
 def mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

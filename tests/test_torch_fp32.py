@@ -3,8 +3,8 @@
 Every kernel takes fp32 activations on the card
 (``csrc/gemm_f32.cu::ds_ln_gemm_f32``, ``csrc/attention_f32.cu``'s
 ``ds_temporal_attention_f32`` and ``ds_flash_attention_f32``,
-``csrc/gn_silu.cu`` instantiated at fp32, and ``csrc/block_f32.cu``'s
-kernels 10-13). Here:
+``csrc/gn_silu.cu`` instantiated at fp32, ``csrc/temporal_f32.cu``'s
+kernels 10 and 12 and ``csrc/spatial_f32.cu``'s kernels 11 and 13). Here:
 
 * the dtype rules of every kernel wrapper, held on CPU tensors: one
   activation type, bf16 or fp32, for activations, weights and residuals; a
@@ -19,8 +19,9 @@ kernels 10-13). Here:
   shared memory, GEGLU pairing, the persistent grid) at every GEMM shape of
   the forward and every shape its gates admit, the tensor-core flash
   kernel's shared memory and grid at N 40-2560 and both cross segment
-  layouts, and the scratch of kernels 10-13 at every transformer of the
-  full-width batch-8 i2v forward;
+  layouts, the scratch of kernels 10-13 at every transformer of the
+  full-width batch-8 i2v forward, and the tiles of kernels 10-13 at every
+  shape their gates admit;
 * the plain versions at fp32, composed as the card composes the kernels,
   against the JAX Pallas kernels in interpret mode at the main path's head
   geometry (C 320, 5 heads of 64, few tokens): TA inside K1, FA inside K2
@@ -196,21 +197,24 @@ def _fake_card(monkeypatch):
 # wo1, wqkv2, wo2, w1, w2) and ds_temporal_mega_f32 (and w_in, w_out)
 TEMPORAL_F32_WEIGHTS = {"ds_temporal_block_f32": (4, 5, 9, 10, 14, 16),
                         "ds_temporal_mega_f32": (4, 5, 9, 10, 14, 16, 20, 22)}
+# and of ds_spatial_block_f32 (wo1, wq2, wo2, w1, w2) and ds_mega_spatial_f32 (and w_out)
+SPATIAL_F32_WEIGHTS = {"ds_spatial_block_f32": (15, 16, 17, 18, 19), "ds_mega_spatial_f32": (15, 16, 17, 18, 19, 20)}
+F32_BODY_WEIGHTS = {**TEMPORAL_F32_WEIGHTS, **SPATIAL_F32_WEIGHTS}
 
 
 def _kernel_calls(calls):
     """The recorded calls less ``ds_tf32_split``, after checking that every
     ``ds_ln_gemm_f32`` reads as W [2, N, K] the output of a split recorded
     before it (its weights split once, at their first use), and that kernels
-    10 and 12 at fp32 read every weight so."""
+    10-13 at fp32 read every weight of their body so."""
     split = set()
     for name, args in calls:
         if name == "ds_tf32_split":
             split.add(args[2].value)
         elif name == "ds_ln_gemm_f32":
             assert args[11].value in split
-        elif name in TEMPORAL_F32_WEIGHTS:
-            assert all(args[0][i] in split for i in TEMPORAL_F32_WEIGHTS[name])
+        elif name in F32_BODY_WEIGHTS:
+            assert all(args[0][i] in split for i in F32_BODY_WEIGHTS[name])
     return [(name, args) for name, args in calls if name != "ds_tf32_split"]
 
 
@@ -244,10 +248,12 @@ WHOLE = {"K10": fused_block.fused_temporal_block, "K11": fused_block.fused_spati
 def test_whole_block_wrappers_name_their_fp32_kernels(monkeypatch, kernel):
     """Kernels 10-13 on the card's route at fp32: the ``ds_ln_gemm_f32``
     heads (kernels 11 and 13), then one launch of the fp32 body with its
-    pointers, the tokens, and a slot of fp32 scratch a block of the grid
-    (``cuda_lib.block_f32_scratch``; kernels 10 and 12: the three regions of
+    pointers (every weight split), the tokens, its scratch and grid and its
+    tile (kernels 10 and 12: the three regions of
     ``cuda_lib.temporal_f32_scratch`` and the tile of
-    ``cuda_lib.block_f32_plan``, every weight split); an fp32 output of x's
+    ``cuda_lib.block_f32_plan``; kernels 11 and 13: the regions and the key
+    segments' split keys and values of ``cuda_lib.spatial_f32_scratch`` and
+    the query tile of ``cuda_lib.spatial_f32_plan``); an fp32 output of x's
     shape; one launch counted."""
     calls = _fake_card(monkeypatch)
     run, name, n_ptrs, heads_gemms = _whole_calls()[kernel]
@@ -257,22 +263,24 @@ def test_whole_block_wrappers_name_their_fp32_kernels(monkeypatch, kernel):
     assert [c[0] for c in calls] == ["ds_ln_gemm_f32"] * heads_gemms + [name]
     args = calls[-1][1]
     assert len(args[0]) == n_ptrs and out.dtype == F32 and WHOLE[kernel].launches == before + 1
+    scratch_floats, slots, *plan = args[-3:]
     if kernel in ("K10", "K12"):
-        scratch_floats, slots, *plan = args[-3:]
         T = 5 * 16 if kernel == "K10" else 2 * 8 * 6
         tile = cuda_lib.block_f32_plan(_CW, 16 if kernel == "K10" else 8, T, mega=kernel == "K12")
         assert tuple(plan) == tuple(tile) == (64,)  # two tiles of 64 tokens for 132 SMs
         assert (slots, scratch_floats) == (2, cuda_lib.temporal_f32_scratch(T, _CW, tile).numel()) == (2, 128 * 6 * _CW)
-    else:
-        scratch_floats, slots = args[-2:]
+    else:  # 4 samples of 272 tokens: 12 query tiles of 128 for 132 SMs, so 20 of 64 (the last of a sample 16 rows)
+        tile = cuda_lib.spatial_f32_plan(_CW, 272, 4)
+        assert tuple(plan) == tuple(tile) == (64,) and slots == cuda_lib.spatial_f32_grid(tile, 4, 272) == 20
+        kv = 2 * _CW * (4 * (272 + 320) + 2 * (77 + 128) + 2 * (16 + 64))  # self, text, image: [2, s, L + lpad, C]
+        assert scratch_floats == cuda_lib.spatial_f32_scratch(4, 272, _CW, 2, (77, 16), tile).numel()
+        assert scratch_floats == 20 * 64 * 6 * _CW + kv
     if kernel == "K10":
         assert args[1:4] == (5, 16, _CW) and out.shape == (5, 16, _CW)
     elif kernel == "K12":
         assert args[1:5] == (2, 8, 6, _CW) and out.shape == (2, 8, 2, 3, _CW)
     else:
         assert args[1:7] == (4, 272, _CW, 2, 77, 16)
-        want = cuda_lib.block_f32_scratch(4 * 272, _CW, 64, kernel == "K13")
-        assert (slots, scratch_floats) == (want[0], want.numel())
 
 
 # ---------------------------------------------------------------------------
@@ -547,14 +555,16 @@ def test_flash_f32_fits_shared_memory(Nq, lens):
                                         ("s", 1280)])
 def test_block_f32_scratch_at_every_transformer(side, width):
     """The scratch of kernels 10-13 at fp32 at every transformer of the
-    full-width batch-8 i2v forward whose gates admit it. Kernels 11 and 13:
-    a slot of [64, 5C] (6C with the wrapper) a block, no more blocks than
-    64-token tiles nor than two an SM. Kernels 10 and 12: three regions of a
-    128-row slot a block (the LayerNorm or attention rows [., C], the
-    q|k|v or GEGLU rows [., 4C], the stream [., C]) of the plan's TM rows a
-    block, no more blocks than tiles nor than one an SM: TM 128 at the 40x64,
-    20x32 and 10x16 levels, 64 at the middle block's 5x8 (40 tiles of 128
-    for 132 SMs). Each within 1 GiB."""
+    full-width batch-8 i2v forward whose gates admit it: three regions (the
+    LayerNorm or attention rows [., C], the q|k|v, q2 or GEGLU rows [., 4C],
+    the stream [., C]) of the plan's TM rows a block, no more blocks than
+    tiles nor than one an SM, within 1 GiB. Kernels 10 and 12: TM 128 at
+    the 40x64, 20x32 and 10x16 levels, 64 at the middle block's 5x8 (40
+    tiles of 128 for 132 SMs). Kernels 11 and 13: query tiles of 128 (2560
+    and 640 of them), and beside the regions each key segment's keys split
+    [2, 128 samples, N, C] and values transposed and split [2, 128, C,
+    N] (N 2560 and 640 are whole key tiles), the 8 clips' text (77 keys,
+    padded to 128) and image keys (16, padded to 64): within 2 GiB."""
     n = 0
     for s, c, inner, heads, H, W in i2v_transformers():
         if (s, inner) != (side, width):
@@ -571,23 +581,29 @@ def test_block_f32_scratch_at_every_transformer(side, width):
                 shape = cuda_lib.temporal_f32_scratch(T, inner, plan)
                 blocks = min(-(-T // plan.tm), 132)
                 assert cuda_lib.block_f32_grid(plan, T) == blocks and shape == (blocks * plan.tm * 6 * inner,)
+                assert shape.numel() * 4 <= 2 ** 30
             else:
-                shape = cuda_lib.block_f32_scratch(T, inner, 64, mega)
-                assert shape == (min(-(-T // 64), 2 * 132), 64, (6 if mega else 5) * inner)
-            assert shape.numel() * 4 <= 2 ** 30
+                N = H * W
+                plan = cuda_lib.spatial_f32_plan(inner, N, 128)
+                shape = cuda_lib.spatial_f32_scratch(128, N, inner, 8, (77, 16), plan)
+                blocks = min(128 * -(-N // 128), 132)
+                assert plan.tm == 128 and cuda_lib.spatial_f32_grid(plan, 128, N) == blocks == 132
+                regions = blocks * 128 * 6 * inner
+                kv = 2 * 128 * inner * 2 * N + 2 * 8 * inner * ((77 + 128) + (16 + 64))
+                assert shape == (regions + kv,) and regions * 4 <= 2 ** 30 and shape.numel() * 4 <= 2 ** 31
             n += 1
     assert n or (side, width) in (("s", 1280),)
 
 
 def test_block_f32_entry_points_take_the_wrappers_arguments():
     """The C signatures of the four fp32 bodies: the pointer array, the
-    shape, scale and eps, the scratch, its floats and the blocks (slots);
-    kernels 10 and 12 then their tile (TM); then the stream."""
+    shape, scale and eps, the scratch, its floats and the blocks (slots),
+    their tile (TM), then the stream."""
     P, I, F, L = cuda_lib._P, cuda_lib._I, cuda_lib._F, cuda_lib._L
     sig = cuda_lib._SIGNATURES
     assert sig["ds_temporal_block_f32"] == (P, I, I, I, F, F, P, L, I, I, P)
     assert sig["ds_temporal_mega_f32"] == (P, I, I, I, I, F, F, P, L, I, I, P)
-    assert sig["ds_spatial_block_f32"] == sig["ds_mega_spatial_f32"] == (P, I, I, I, I, I, I, F, F, P, L, I, P)
+    assert sig["ds_spatial_block_f32"] == sig["ds_mega_spatial_f32"] == (P, I, I, I, I, I, I, F, F, P, L, I, I, P)
 
 
 FRAMES = [2, 4, 8, 16, 32, 64, 128]
@@ -676,6 +692,98 @@ def test_temporal_f32_splits_each_weight_once(monkeypatch, kernel):
     del calls[:]
     run()
     assert [n for n, _ in calls] == [name]
+
+
+@pytest.mark.parametrize("C", range(64, 641, 64))
+def test_spatial_f32_plan_fits_at_every_shape_the_gates_admit(C):
+    """``cuda_lib.spatial_f32_plan`` (the query tile of ds_spatial_block_f32
+    and ds_mega_spatial_f32) at every width and token count the gates admit
+    (N 256-4096 by 16) and at 2 to 128 frame samples: tiles of 128 or 64
+    tokens of one sample, 64 only where its waves of tiles take less time
+    (a tile of 64 costing ``BLOCK_F32_TM64_COST`` of one of 128), a sample's last tile
+    ragged where TM does not divide N; the kernel's shared memory at that
+    tile (csrc/spatial_f32.cu::smem_bytes: the alignment pad, a ring of 4
+    slots of the tile's token rows and 128 weight rows twice, 32 fp32 each,
+    nine mbarriers) within a block's, a key tile's K (or V^T) split, 64 keys
+    x 64 columns twice, exactly a stage's weight boxes; the accumulators a
+    consumer thread holds (a product: the tile's and the two stages' [TM /
+    MW... WN / 2] and two stages' split A fragments; the attention: Q split,
+    S, O, O_tile and a half of P split) within the 232 registers setmaxnreg
+    gives a consumer; the scratch's TMA strides whole 16 bytes and the
+    padded keys whole key tiles."""
+    for N in range(256, 4097, 16):
+        assert fused_block.spatial_block_ok(N, C, C, C // 64, 1024) and fused_mega.spatial_ok(N, C, C, C // 64, 1024)
+        for samples in (2, 16, 32, 128):
+            plan = cuda_lib.spatial_f32_plan(C, N, samples)
+            tm = plan.tm
+            waves = {t: -(-samples * -(-N // t) // 132) for t in (128, 64)}
+            assert tm == (64 if waves[64] * cuda_lib.BLOCK_F32_TM64_COST < waves[128] else 128)
+            grid = cuda_lib.spatial_f32_grid(plan, samples, N)
+            assert 1 <= grid <= min(132, samples * -(-N // tm))
+            stage = (tm + 2 * 128) * 32 * 4
+            assert 1024 + 4 * stage + 8 * 9 <= SMEM_MAX
+            assert 2 * 2 * 64 * 32 * 4 == 2 * 128 * 32 * 4  # K hi | lo (two halves of 32 columns each)
+            wn = 128 // (2 // (tm // 64))
+            assert 2 * (wn // 2) + 2 * 2 * 4 * 4 <= 232 and 2 * 32 + 3 * 32 + 2 * 4 * 4 <= 232
+            lpad = -(-N // 64) * 64
+            assert lpad % 64 == 0 and 0 <= lpad - N < 64 and (C * 4) % 16 == 0 and (lpad * 4) % 16 == 0
+            shape = cuda_lib.spatial_f32_scratch(samples, N, C, 2, (77, 16), plan)
+            assert shape.numel() == grid * tm * 6 * C + 2 * samples * C * (N + lpad) + 2 * 2 * C * (77 + 128 + 16 + 64)
+    for bad in ((C, 250, 8), (C + 32, 256, 8), (704, 256, 8)):
+        with pytest.raises(ValueError):
+            cuda_lib.spatial_f32_plan(*bad)
+
+
+@pytest.mark.parametrize("kernel", ["K11", "K13"])
+def test_spatial_f32_splits_each_weight_once_and_its_keys_once_a_launch(monkeypatch, kernel):
+    """Kernels 11 and 13 on the card's route at fp32 (fake card): at the
+    first call one ``ds_tf32_split`` a weight (the heads': q|k|v, each
+    context segment's k|v, kernel 13's w_in; the body's wo1, wq2, wo2, w1,
+    w2, kernel 13's w_out; [2, N, K] each) and the body's entry point
+    reading the body's in its weights' places; the keys and values split
+    in the launch itself, once (its scratch holds one split copy a key
+    segment: the samples' own, the text's and the image's, and no key or
+    value passes through ``ds_tf32_split``); no split at a second call with
+    the same packed operands."""
+    calls = _fake_card(monkeypatch)
+    Cw, Dc = _CW, 256
+    lns, a1, _, ff = _block_args(Cw)
+    a1 = (_z(Cw, Cw), _z(Cw, Cw), _z(Cw, Cw), _z(Cw, Cw), _vec(Cw))
+    ff = (_z(8 * Cw, Cw), _vec(8 * Cw), _z(Cw, 4 * Cw), _vec(Cw))
+    a2 = (_z(Cw, Cw), _z(Cw, Dc), _z(Cw, Dc), _z(Cw, Cw), _vec(Cw), _z(Cw, Dc), _z(Cw, Dc))
+    ctx = _z(2, 93, Dc)
+    if kernel == "K11":
+        op = fused_block.pack_spatial_block(lns, a1, a2, ff, dtype=F32)
+
+        def run():
+            return fused_block.fused_spatial_block(_z(4, 272, Cw), ctx, lns, a1, a2, ff, heads=2, scale=0.125,
+                                                   operands=op)
+        block, extra, name = op, [], "ds_spatial_block_f32"
+    else:
+        w_in, w_out = _z(Cw, Cw), _z(Cw, Cw)
+        op = fused_mega.pack_spatial_mega(w_in, _vec(Cw), lns, a1, a2, ff, w_out, _vec(Cw), dtype=F32)
+
+        def run():
+            return fused_mega.spatial_mega(_z(4, 16, 17, Cw), ctx, _z(4, Cw), _z(4, Cw), w_in, _vec(Cw), lns, a1, a2,
+                                           ff, w_out, _vec(Cw), heads=2, scale=0.125, operands=op)
+        block, extra, name = op.block, [op.w_in, op.w_out], "ds_mega_spatial_f32"
+    body = fused_block.spatial_weights(block) + extra[1:]
+    heads = [block.attn1.w_in, *block.attn2.w_kv] + extra[:1]
+    run()
+    splits = [args for n, args in calls if n == "ds_tf32_split"]
+    assert len(splits) == len(heads) + len(body) == len(SPATIAL_F32_WEIGHTS[name]) + 3 + (kernel == "K13")
+    assert sorted(a[1] for a in splits) == sorted(t.numel() for t in heads + body)
+    launch = _kernel_calls(calls)[-1]
+    assert launch[0] == name
+    split_outs = {a[2].value for a in splits}
+    assert {launch[1][0][i] for i in SPATIAL_F32_WEIGHTS[name]} <= split_outs
+    tile = cuda_lib.spatial_f32_plan(Cw, 272, 4)
+    regions = cuda_lib.spatial_f32_grid(tile, 4, 272) * tile.tm * 6 * Cw
+    kv = 2 * Cw * (4 * (272 + 320) + 2 * (77 + 128) + 2 * (16 + 64))
+    assert launch[1][-3] == regions + kv  # one split copy of each key segment's keys and values
+    del calls[:]
+    run()
+    assert [n for n, _ in calls] == ["ds_ln_gemm_f32"] * (3 + (kernel == "K13")) + [name]
 
 
 # ---------------------------------------------------------------------------

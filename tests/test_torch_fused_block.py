@@ -412,7 +412,7 @@ def test_plan_table_and_overrides(restore_plan):
     with pytest.raises(ValueError):
         fused_temporal.set_plan({("t", 320): "subs"})
     fused_temporal.set_plan()
-    assert fused_temporal._PLAN == fused_temporal.PLAN_DEFAULT
+    assert fused_temporal._PLAN[torch.bfloat16] == fused_temporal.PLAN_DEFAULT
 
 
 @pytest.fixture

@@ -207,12 +207,51 @@ def test_plan_specs_parse_as_jax(restore_plans, spec):
         return
     patched = {(item[0], int(item[1:].partition("=")[0])): item.partition("=")[2]
                for item in spec.split(",") if spec != "auto" and item}
-    assert port == {**fused_temporal.PLAN_DEFAULT, **patched}
-    assert all(port[k] == jax_plan[k] for k in patched)
+    assert port == {torch.bfloat16: {**fused_temporal.PLAN_DEFAULT, **patched},
+                    torch.float32: {**fused_temporal.PLAN_DEFAULT_F32, **patched}}
+    assert all(port[torch.bfloat16][k] == jax_plan[k] for k in patched)
     fused_temporal.set_plan(spec)
-    for (side, c), level in port.items():
-        assert fused_temporal.plan_allows("mega", side, c) == (level == "mega")
-        assert fused_temporal.plan_allows("block", side, c) == (level in ("mega", "wrap+blk"))
+    for dt, table in port.items():
+        for (side, c), level in table.items():
+            assert fused_temporal.plan_allows("mega", side, c, dt) == (level == "mega")
+            assert fused_temporal.plan_allows("block", side, c, dt) == (level in ("mega", "wrap+blk"))
+
+
+def test_fp32_plan_is_chosen_by_the_activations_dtype(restore_plans):
+    """Two tables: bf16 activations (and any other type but fp32) read
+    PLAN_DEFAULT, unchanged (kernel 12 at t320, the sub-blocks elsewhere);
+    fp32 ones PLAN_DEFAULT_F32, which differs at the keys phase 10's fp32
+    level table moved (kernel 13 at s320 and s640, kernel 10 at t512)."""
+    keys = [(side, c) for side in "ts" for c in (320, 640, 1280)] + [("t", 512)]
+    assert fused_temporal.PLAN_DEFAULT == {**dict.fromkeys(keys, "wrap+sub"), ("t", 320): "mega"}
+    assert fused_temporal.PLAN_DEFAULT_F32 == {**fused_temporal.PLAN_DEFAULT, ("s", 320): "mega",
+                                               ("s", 640): "mega", ("t", 512): "wrap+blk"}
+    fused_temporal.set_plan()
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        table = fused_temporal.PLAN_DEFAULT_F32 if dt == torch.float32 else fused_temporal.PLAN_DEFAULT
+        for (side, c), level in table.items():
+            assert fused_temporal.plan_allows("mega", side, c, dt) == (level == "mega"), (dt, side, c)
+            assert fused_temporal.plan_allows("block", side, c, dt) == (level != "wrap+sub"), (dt, side, c)
+    assert fused_temporal.plan_allows("mega", "s", 320, torch.float32)
+    assert not fused_temporal.plan_allows("block", "s", 320) and not fused_temporal.plan_allows("block", "s", 640)
+
+
+@pytest.mark.parametrize("spec", ["off", "s320=wrap+sub,t512=wrap+sub", {("s", 640): "wrap+blk"}])
+def test_off_and_specs_apply_to_both_tables(restore_plans, spec):
+    """"off" allows every level in either type; a spec (string or dict)
+    patches the same entries over both tables, leaving each table's other
+    entries as they were."""
+    fused_temporal.set_plan(spec)
+    if spec == "off":
+        assert all(fused_temporal.plan_allows(kind, side, c, dt) for kind in ("mega", "block") for side in "ts"
+                   for c in (320, 512, 640, 1280) for dt in (torch.bfloat16, torch.float32))
+        return
+    patch = spec if isinstance(spec, dict) else {(i[0], int(i[1:].partition("=")[0])): i.partition("=")[2]
+                                                 for i in spec.split(",")}
+    for dt, table in ((torch.bfloat16, fused_temporal.PLAN_DEFAULT), (torch.float32, fused_temporal.PLAN_DEFAULT_F32)):
+        for (side, c), level in {**table, **patch}.items():
+            assert fused_temporal.plan_allows("mega", side, c, dt) == (level == "mega"), (dt, side, c)
+            assert fused_temporal.plan_allows("block", side, c, dt) == (level != "wrap+sub"), (dt, side, c)
 
 
 @pytest.mark.parametrize("spec,error", [("t320=warp", AssertionError), ("x320=mega", AssertionError),
