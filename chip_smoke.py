@@ -148,11 +148,15 @@ Phases, in order, one result line each (any failure exits non-zero):
    the batch-8 i2v forward also under "off" and under the all-wrap+blk plan
    (kernel 11 runs only there), each against the plain versions with exact
    launches; every fp32 kernel (K1-K13, TA, FA, GN) at every shape these
-   forwards recorded, and kernels 11 and 13 at ``SPATIAL_REPAIRS``,
+   forwards recorded, kernels 11 and 13 at ``SPATIAL_REPAIRS`` and TA at
+   ``TA_F32_REPAIRS`` (F 8, 2, 4, 32, 128: the attention's other bodies),
    against its plain version (max error within 1e-5 of max|plain|, L2
    error within 1e-5 of the op's own output, bit-exact on a rerun; GN its
    statistics' gates; kernels 10-13 a ``tile:`` line, the other TM held
-   to the same gates and timed in turns), timed
+   to the same gates and timed in turns; K9 also forced on every route that
+   holds at the shape, cluster, grid and split, each held to the same gates
+   and timed, the table ``gn_plan``'s fp32 rule comes from, and per forward
+   the calls, ms and bound of each route), timed
    beside the plain version, the same function as PyTorch calls in fp32
    with TF32 off, and two bounds (products over the tensor cores'
    fp32-accurate 494.7 / 3 TFLOP/s, the least time, and over the CUDA
@@ -658,10 +662,11 @@ def expected_launches(cfg, H, W, frames=16, traj=None, no_temporal_attn=False, d
     The device-kernel wrappers inside them: K1's attention core (TA) once
     per K1, K2's and K3's (FA) once per K2 and per K3, the GroupNorm
     statistics (GN) once per K5, K7, K12 and K13 and per K9 call on the
-    split route (``cuda_lib.gn_plan``: the route depends on a sample's rows,
-    channels and element size, not on the batch). ``dtype`` the
-    activations', whose element size K9's plan reckons (fp32 runs every
-    other kernel where bf16 does)."""
+    split route (``cuda_lib.gn_plan``: whether a call splits depends on a
+    sample's rows, channels and element size, not on the batch; no fp32
+    call splits, the grid route taking them). ``dtype`` the activations',
+    whose element size K9's plan reckons (fp32 runs every other kernel where
+    bf16 does)."""
     from dynamicscaler_tpu_torch.models.unet3d import gn_silu_calls
 
     n = collections.Counter()
@@ -793,6 +798,7 @@ def _profile_forward(where, fwd, wall_ms, phase="phase 2"):
                if any(k in n for k in ("ds_gemm_kernel", "prologue_ln_kernel", "prologue_gn_kernel", "gemm_f32_kernel",
                                        "prologue_ln_f32_kernel", "prologue_gn_f32_kernel", "tf32_split_kernel"))
                else "ds_group_norm_silu cluster route (K9)" if "gn_cluster_kernel" in n
+               else "ds_group_norm_silu grid route (K9 fp32)" if "gn_grid_kernel" in n
                else "ds_gn_silu apply kernel (K9 split route)" if "gn_apply_kernel" in n
                else "ds_gn_stats (GroupNorm statistics: K5, K7, K12, K13, K9 split route)"
                if "gn_partial_kernel" in n or "gn_fold_kernel" in n
@@ -1256,18 +1262,49 @@ def _beyond_ulp(got, ref) -> int:
     return int(((got.float() - r).abs() > TOL_GN_ULP * r.abs() + 1e-6 * float(r.abs().max())).sum())
 
 
+def _gn_route_bound(plan, x):
+    """ms of the least traffic of ``plan``'s route for x: x read once and y
+    written once, x read once more on the split route, and on the grid route
+    the rows past the blocks' slabs read once more."""
+    B, C = x.shape[0], x.shape[-1]
+    M = x.numel() // (B * C)
+    nbytes = 2 * x.numel() * x.element_size()
+    if plan.route == "split":
+        nbytes += x.numel() * x.element_size()
+    elif plan.route == "grid":
+        held = cuda_lib.gn_grid_held(plan, C, 32, x.element_size())
+        past = sum(max(0, min(plan.rows, M - q * plan.rows) - held) for q in range(plan.cs))
+        nbytes += B * past * C * x.element_size()
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def _gn_plan_desc(plan, C, elem, clusters=None):
+    if plan.route == "cluster":
+        return f"cluster CS {plan.cs} rows {plan.rows} smem {plan.smem} B, {clusters} clusters at once"
+    if plan.route == "grid":
+        return (f"grid, {plan.splits} samples a pass of {plan.cs} blocks each ({plan.splits * plan.cs} blocks), "
+                f"rows {plan.rows} ({cuda_lib.gn_grid_held(plan, C, 32, elem)} in shared memory) smem {plan.smem} B")
+    return f"split, {plan.splits} statistics splits of {plan.rows} rows"
+
+
 def _gn_route(case, ms, phase="phase 3"):
     """K9 at one shape beside its one-call check: the route of ``gn_plan``
     (blocks a cluster, rows, shared memory, and how many such clusters the
-    card holds at once), the statistics it folded against the plain fold
+    card holds at once; on the grid route the samples a pass, the blocks and
+    the rows a block holds), the statistics it folded against the plain fold
     (within TOL_FOLD_REL, bit-exact on a rerun), the apply kernel alone
     (``gn_silu_apply`` on the plain fold's vectors) against the plain apply
-    within one bf16 ulp and bit-exact on a rerun, and the times against the
-    route's bound (2 x bytes where x is read once, 3 x on the split route)
-    and the apply's own (2 x bytes). Returns (ok, timings)."""
+    within one bf16 ulp (fp32: TOL_F32) and bit-exact on a rerun, and the
+    times against the route's bound (:func:`_gn_route_bound`) and the
+    apply's own (2 x bytes). At fp32 also every route that holds at the
+    shape (cluster, grid, split), each forced through ``gn_silu(...,
+    plan=)``, held to the fp32 gates, bit-exact on a rerun, and timed: the
+    table ``gn_plan``'s fp32 rule is set from. Returns (ok, timings)."""
     x, s, b, eps, act = case.gn
     B, C = x.shape[0], x.shape[-1]
-    plan = cuda_lib.gn_plan(B, x.numel() // (B * C), C, 32, x.element_size())
+    M = x.numel() // (B * C)
+    elem = x.element_size()
+    plan = cuda_lib.gn_plan(B, M, C, 32, elem, cuda_lib.sm_count(x.device))
     y, vec = fused_twrap.gn_silu(x, s, b, eps=eps, act=act, vectors=True)
     y2, vec2 = fused_twrap.gn_silu(x, s, b, eps=eps, act=act, vectors=True)
     vec, vec2 = torch.stack(vec), torch.stack(vec2)
@@ -1290,23 +1327,46 @@ def _gn_route(case, ms, phase="phase 3"):
         n_beyond = _beyond_ulp(ya, ref)
         beyond, within = f"{n_beyond} beyond 1 bf16 ulp", n_beyond == 0 and arel <= TOL_GN_REL_L2
     apply_ok = bool(torch.isfinite(ya).all()) and torch.equal(ya, apply()) and within
-    del y, y2, ya, ref
+    del y, y2, ya
     apply_ms = _time_ms(apply, 10)
-    bound = 2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
-    route_bound = bound * (1.5 if plan.route == "split" else 1.0)
+    bound = 2 * x.numel() * elem / PEAK_BYTES * 1e3
+    route_bound = _gn_route_bound(plan, x)
     clusters = cuda_lib.gn_clusters(plan, C) if plan.route == "cluster" else None
-    where = (f"cluster CS {plan.cs} rows {plan.rows} smem {plan.smem} B, {clusters} clusters at once"
-             if clusters is not None else f"split, {plan.splits} statistics splits of {plan.rows} rows")
-    print(f"{phase} K9 {case.desc} route: {where}; statistics max err {verr:.2e} (tol {vtol:.2e}) rel_l2 {vrel:.1e}, "
-          f"bit-exact rerun {torch.equal(vec, vec2)}; one call {ms:.4f} ms against the route bound "
-          f"{route_bound:.4f} ({100 * route_bound / ms:.0f}%); apply kernel alone {apply_ms:.4f} ms against "
-          f"{bound:.4f} ({100 * bound / apply_ms:.0f}%), {beyond}, rel_l2 {arel:.1e} "
+    print(f"{phase} K9 {case.desc} route: {_gn_plan_desc(plan, C, elem, clusters)}; statistics max err {verr:.2e} "
+          f"(tol {vtol:.2e}) rel_l2 {vrel:.1e}, bit-exact rerun {torch.equal(vec, vec2)}; one call {ms:.4f} ms "
+          f"against the route bound {route_bound:.4f} ({100 * route_bound / ms:.0f}%); apply kernel alone "
+          f"{apply_ms:.4f} ms against {bound:.4f} ({100 * bound / apply_ms:.0f}%), {beyond}, rel_l2 {arel:.1e} "
           f"{'ok' if vec_ok and apply_ok else 'FAIL'}", flush=True)
     if clusters is not None and clusters < 1:
         vec_ok = False
-    return vec_ok and apply_ok, {"apply_ms": apply_ms, "apply_bound_ms": bound, "route_bound_ms": route_bound,
-                                 f"{plan.route}_calls": 1.0, f"{plan.route}_ms": ms,
-                                 f"{plan.route}_bound_ms": route_bound}
+    t = {"apply_ms": apply_ms, "apply_bound_ms": bound, "route_bound_ms": route_bound, f"{plan.route}_calls": 1.0,
+         f"{plan.route}_ms": ms, f"{plan.route}_bound_ms": route_bound}
+    routes_ok = True
+    if case.fp32:
+        line = []
+        for route in cuda_lib.GN_ROUTES:
+            try:
+                other = cuda_lib.gn_plan(B, M, C, 32, elem, cuda_lib.sm_count(x.device), route)
+            except ValueError:
+                continue
+
+            def run(other=other):
+                return fused_twrap.gn_silu(x, s, b, eps=eps, act=act, plan=other)
+            got = run()
+            err = float((got - ref).abs().max()) / float(ref.abs().max())
+            rel = float((got - ref).norm() / ref.norm())
+            same = torch.equal(got, run())
+            ok = bool(torch.isfinite(got).all()) and same and err <= TOL_F32 and rel <= TOL_F32
+            del got
+            r_ms = _time_ms(run, 10)
+            t[f"every_{route}_ms"] = r_ms
+            routes_ok = routes_ok and ok
+            line.append(f"{route}{' (plan)' if route == plan.route else ''} {r_ms:.4f} ms / "
+                        f"{_gn_route_bound(other, x):.4f} (err {err:.1e}, rel_l2 {rel:.1e}, bit-exact {same}"
+                        f"{'' if ok else ', FAIL'})")
+        print(f"{phase} K9 {case.desc} every route: " + "; ".join(line), flush=True)
+    del ref
+    return vec_ok and apply_ok and routes_ok, t
 
 
 def _d(*shape, dt=BF):
@@ -1376,6 +1436,20 @@ def _spatial_repair_cases(dt=BF):
                   ("K13", (_d(BFn, H, W, C, dt=dt), ctx, _d(BFn, C, dt=f32), _d(BFn, C, dt=f32), _d(C, C, dt=dt),
                            _d(C, dt=dt), *_spatial_desc(C, img, dt=dt), _d(C, C, dt=dt), _d(C, dt=dt)), o)]
     return {case: {REPAIR: 1} for case in cases}
+
+
+# K1's attention at fp32 at frame counts no fp32 forward gives (those run 16
+# frames): (rows, F, C) at t640's 81920 tokens, F 8 on the tensor-core body
+# (each query's own row of 8 keys, the other row of the 16-token slab masked)
+# and F 2, 4, 32, 128 on the CUDA-core body (a row of 128 a whole tile)
+TA_F32_REPAIRS = ((10240, 8, 640), (40960, 2, 640), (20480, 4, 640), (2560, 32, 640), (640, 128, 640))
+
+
+def _ta_f32_repair_cases():
+    """TA at fp32 at :data:`TA_F32_REPAIRS`, as K1 records its calls
+    (phase 10)."""
+    return {("TA", (_d(R, Fn, 3 * C, dt=torch.float32),), (("heads", C // 64), ("scale", 0.125))): {REPAIR: 1}
+            for R, Fn, C in TA_F32_REPAIRS}
 
 
 def _recorded_shapes(sites):
@@ -1470,10 +1544,13 @@ def _time_cases(shapes, runs, phase):
         c = per_k["K9"]
         if c:
             print(f"{phase} K9 per {where}: {c['ms']:.2f} ms against the routes' bound {c['route_bound_ms']:.3f} "
-                  f"(function bound {c['bound_ms']:.3f}); cluster route {c['cluster_calls']:.0f} calls "
-                  f"{c['cluster_ms']:.2f} ms / {c['cluster_bound_ms']:.3f}, split route {c['split_calls']:.0f} calls "
-                  f"{c['split_ms']:.2f} ms / {c['split_bound_ms']:.3f}; the apply kernel alone {c['apply_ms']:.2f} ms "
-                  f"/ {c['apply_bound_ms']:.3f}", flush=True)
+                  f"(function bound {c['bound_ms']:.3f}); " + ", ".join(
+                      f"{r} route {c[f'{r}_calls']:.0f} calls {c[f'{r}_ms']:.2f} ms / {c[f'{r}_bound_ms']:.3f}"
+                      for r in cuda_lib.GN_ROUTES)
+                  + f"; the apply kernel alone {c['apply_ms']:.2f} ms / {c['apply_bound_ms']:.3f}"
+                  + ("; every call forced on one route: " + ", ".join(
+                      f"{r} {c[f'every_{r}_ms']:.2f} ms" for r in cuda_lib.GN_ROUTES if c[f"every_{r}_ms"])
+                     + " (cluster where it holds)" if c["every_grid_ms"] else ""), flush=True)
     return sums, max_err, bound_by, tiles
 
 
@@ -2985,7 +3062,8 @@ def _tf32_flags():
 
 def _fp32_kernels(sites):
     """Every fp32 kernel at every shape the phase-10 forwards recorded (and
-    kernels 11 and 13 at :data:`SPATIAL_REPAIRS`), against its plain version
+    kernels 11 and 13 at :data:`SPATIAL_REPAIRS`, TA at
+    :data:`TA_F32_REPAIRS`), against its plain version
     with the fp32 gates (:func:`_time_cases`; kernels 10-13 also at their
     other tile, bit-exact on rerun),
     timed beside its plain version, the same function as PyTorch library
@@ -2994,7 +3072,7 @@ def _fp32_kernels(sites):
     largest error and the ms summed over the first batch-8 i2v fp32 forward
     in which it runs (the default plan, then "off", then all-wrap+blk)."""
     shapes = _recorded_shapes(sites)
-    for key, runs in _spatial_repair_cases(F32).items():
+    for key, runs in {**_spatial_repair_cases(F32), **_ta_f32_repair_cases()}.items():
         shapes[key] = {**shapes.get(key, {}), **runs}
     sums, max_err, bound_by, tiles = _time_cases(shapes, (*sites, REPAIR), "phase 10")
     records = {}

@@ -2,7 +2,7 @@
 
     python3 chip_tf32_variants.py               # one CUDA card; every kernel
     python3 chip_tf32_variants.py block         # only some: gemm, flash, block
-                                                # (= temporal and spatial)
+                                                # (= temporal and spatial), gn, ta
 
 ``csrc/gemm_f32.cu::ds_ln_gemm_f32``, ``csrc/attention_f32.cu::
 ds_flash_attention_f32``, ``csrc/temporal_f32.cu`` (kernels 10 and 12,
@@ -57,7 +57,21 @@ variants answer the design's questions:
   once a launch, TM 128), and wrong by design ``no attention``, ``no self-attention`` (its key tiles
   still streamed; also with their hi halves alone), ``no
   cross-attention`` and ``one key sample`` (every query tile on sample 0's
-  keys, L2-resident): where the time goes.
+  keys, L2-resident): where the time goes;
+* kernel 9 at fp32 (``csrc/gn_silu.cu::ds_group_norm_silu``, through
+  ``fused_twrap.gn_silu`` on ``gn_plan``'s route) at the largest calls of the
+  forward and the VAE: ``plain re-read order`` (the grid route's apply
+  writes the slab before it reads again the rows that did not fit shared
+  memory), and the fp32 SiLU as the accurate ``h / (1 + expf(-h))`` or as
+  ``h * __frcp_rn(1 + __expf(-h))`` against the built ``__fdividef(h, 1 +
+  __expf(-h))``; and the
+  grid route's phases a pass (the load and sums, the reductions, the grid
+  barrier, the partials' gather and fold, the apply) from ``%globaltimer``
+  stamps of four blocks, in a build with the stamps patched in;
+* K1's attention at fp32 (``csrc/attention_f32.cu::
+  ds_temporal_attention_f32``, through ``fused_temporal.temporal_attention``)
+  at the forward's K1 calls: tiles of 64 tokens in a ring of 2 and of 3
+  slots against 128 tokens in 2 (3 slots of 128 do not fit).
 
 Prints one line per shape, then one JSON object of every time and error.
 Fails if a variant does not build or an as-built run misses the fp32 gate.
@@ -800,6 +814,173 @@ def _spatial_rows(libs, real, rn, report):
         torch.cuda.empty_cache()
 
 
+# kernel 9 at fp32 (csrc/gn_silu.cu, ds_group_norm_silu): the apply's order on
+# the grid route where a sample's rows do not all fit the card's shared
+# memory, and the fp32 SiLU's arithmetic
+REREAD = """      for (int r = ns + rl; r < n; r += step) {
+        Chunk<T> v[CLUSTER_UNROLL];
+#pragma unroll
+        for (int j = 0; j < CLUSTER_UNROLL; ++j)
+          if (r + j * rm.lanes < n) v[j] = L::ldcs(xs + (size_t)(r + j * rm.lanes) * C, u, C);
+#pragma unroll
+        for (int j = 0; j < CLUSTER_UNROLL; ++j)
+          if (r + j * rm.lanes < n) L::stcs(ys + (size_t)(r + j * rm.lanes) * C, u, C, apply8<ACT>(v[j], m, a));
+      }
+"""
+SLAB_OUT = """#pragma unroll 4
+      for (int r = rl; r < ns; r += rm.lanes)
+        L::stcs(ys + (size_t)r * C, u, C, apply8<ACT>(L::ld(slab + (size_t)r * C, u, C), m, a));
+"""
+REREAD_LAST = [(REREAD + SLAB_OUT, SLAB_OUT + REREAD)]  # the slab written out first, then the rows read again
+SILU_F32 = "float silu_f32(float h) { return __fdividef(h, 1.0f + __expf(-h)); }"
+ACCURATE_SILU = [(SILU_F32, "float silu_f32(float h) { return h / (1.0f + expf(-h)); }")]
+SILU_RCP = [(SILU_F32, "float silu_f32(float h) { return h * __frcp_rn(1.0f + __expf(-h)); }")]
+GN_VARIANTS = {"as built": ([], None), "plain re-read order": (REREAD_LAST, None),
+               "expf, division": (ACCURATE_SILU, None), "__expf, __frcp_rn": (SILU_RCP, None)}
+# (B, M, C, eps, SiLU): the batch-8 i2v fp32 forward's largest calls on each
+# route (the temporal-conv norm of 52 MB a sample, whose rows past the
+# slabs the apply reads again) and the VAE's largest frame
+GN_SHAPES = [(8, 40960, 320, 1e-5, True), (8, 10240, 640, 1e-5, True), (128, 2560, 320, 1e-5, True),
+             (128, 2560, 960, 1e-5, True), (128, 640, 640, 1e-5, True), (1, 589824, 128, 1e-6, True),
+             (1, 147456, 512, 1e-6, True), (1, 3072, 512, 1e-6, False)]
+# K1's attention at fp32 (csrc/attention_f32.cu, ds_temporal_attention_f32):
+# the ring's depth, at the tile of 64 tokens where three slots fit
+TA_TOK64 = [("constexpr int TA_TOK = 128; ", "constexpr int TA_TOK = 64; ")]
+TA_3 = [("constexpr int TA_STAGES = 2; ", "constexpr int TA_STAGES = 3; ")]
+TA_VARIANTS = {"as built": ([], None), "2 slots of 64 tokens": (TA_TOK64, None),
+               "3 slots of 64 tokens": (TA_TOK64 + TA_3, None)}
+# (rows, F, C): the batch-8 i2v fp32 forward's K1 calls (t640, t1280 at 10x16
+# and 5x8) and the 40x64 level's t320; t640's tokens at F 8 (the tensor-core
+# body with the other row's keys masked) and at F 32 (the CUDA-core body)
+TA_SHAPES = [(5120, 16, 640), (1280, 16, 1280), (320, 16, 1280), (20480, 16, 320), (10240, 8, 640), (2560, 32, 640)]
+
+
+# the grid route's phases, timed: %globaltimer stamps by thread 0 of blocks
+# 0, 1, 64 and the last into a __device__ array read back by an extra entry
+# point (a build of gn_silu.cu with these patches)
+GN_STAMP = """
+__device__ unsigned long long g_stamp[4][64][8];
+__device__ __forceinline__ void stamp(int p, int k) {
+  const int b = blockIdx.x == 0 ? 0 : blockIdx.x == 1 ? 1 : blockIdx.x == 64 ? 2 : blockIdx.x == gridDim.x - 1 ? 3 : -1;
+  if (b < 0 || threadIdx.x != 0 || p >= 64) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  g_stamp[b][p][k] = t;
+}
+"""
+GN_PHASES = [("// Rows [r_begin, r_end) of x (from row0,", GN_STAMP + "\n// Rows [r_begin, r_end) of x (from row0,"),
+             ("  for (int p = 0; p < passes; ++p) {\n", "  for (int p = 0; p < passes; ++p) {\n    stamp(p, 0);\n"),
+             ("      // 2. per channel, the row lanes in order; 3.",
+              "      __syncthreads();\n      stamp(p, 1);\n      // 2. per channel, the row lanes in order; 3."),
+             ("    grid_sync(counter, (p + 1) * (int)gridDim.x);\n",
+              "    stamp(p, 2);\n    grid_sync(counter, (p + 1) * (int)gridDim.x);\n    stamp(p, 3);\n"),
+             ("      // 5. apply: first the streamed rows", "      stamp(p, 4);\n      // 5. apply: first the streamed rows"),
+             ("    __syncthreads();  // the slab and the vectors are free for the next pass\n",
+              "    __syncthreads();  // the slab and the vectors are free for the next pass\n    stamp(p, 5);\n"),
+             ('extern "C" int ds_gn_clusters(', 'extern "C" int ds_gn_stamps(void* out) {\n  return (int)cudaMemcpyFromSymbol(out, '
+              'g_stamp, sizeof(g_stamp));\n}\n\nextern "C" int ds_gn_clusters(')]
+GN_PHASE_NAMES = ("load and sums", "reductions and partials", "grid barrier", "partials gathered and folded", "apply")
+GN_PHASE_SHAPES = [(128, 2560, 320), (8, 40960, 320), (128, 2560, 960), (8, 10240, 640), (128, 640, 1280)]
+
+
+def _gn_phase_rows(lib, real, rn, report):
+    """The grid route (forced) at GN_PHASE_SHAPES, one launch after three
+    warm ones, its phases per pass from the stamps of four blocks (mean
+    over the passes, us)."""
+    from dynamicscaler_tpu_torch.ops import fused_twrap
+    lib.ds_gn_stamps.argtypes = [ctypes.c_void_p]
+    lib.ds_gn_stamps.restype = ctypes.c_int
+    for B, M, C in GN_PHASE_SHAPES:
+        x, s, b = rn(B, M, C), 1.0 + rn(C, s=0.1), rn(C, s=0.1)
+        plan = cuda_lib.gn_plan(B, M, C, 32, 4, cuda_lib.sm_count(x.device), "grid")
+        cuda_lib._lib = lib
+        for _ in range(4):
+            fused_twrap.gn_silu(x, s, b, plan=plan)
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (4 * 64 * 8))()
+        lib.ds_gn_stamps(ctypes.cast(buf, ctypes.c_void_p))
+        cuda_lib._lib = real
+        st = torch.tensor(list(buf), dtype=torch.float64).reshape(4, 64, 8)
+        passes = min(64, -(-B // plan.splits))
+        blocks = {}
+        for i, name in enumerate(("0", "1", "64", "last")):
+            rows = st[i, :passes]
+            blocks[name] = [float((rows[:, k + 1] - rows[:, k]).mean()) / 1e3 for k in range(5)]
+        report["gn_phases"].append({"x": [B, M, C], "plan": plan._asdict(), "passes": passes, "us_per_pass": blocks})
+        print(f"gn phases x[{B}, {M}, {C}] grid ({passes} passes of {plan.splits} samples, {plan.cs} blocks each), "
+              f"us a pass in blocks 0 / 1 / 64 / last: " + "; ".join(
+                  f"{n} " + " / ".join(f"{blocks[bk][k]:.2f}" for bk in blocks) for k, n in enumerate(GN_PHASE_NAMES)),
+              flush=True)
+        del x
+
+
+def _gn_rows(libs, real, rn, report):
+    """Kernel 9 at fp32 at GN_SHAPES on the route ``gn_plan`` takes, each
+    variant held against the plain version (max error against max|plain|,
+    L2; ``same_bits`` as built) and timed in turns."""
+    from dynamicscaler_tpu_torch.ops import fused_twrap
+    for B, M, C, eps, act in GN_SHAPES:
+        x, s, b = rn(B, M, C, s=2.0) + 0.5, 1.0 + rn(C, s=0.1), rn(C, s=0.1)
+        plan = cuda_lib.gn_plan(B, M, C, 32, 4, cuda_lib.sm_count(x.device))
+        mul, add = fused_twrap.group_norm_fold_plain(x, s, b, 32, eps)
+        ref = fused_twrap.gn_silu_plain(x, mul, add, act=act)
+        names = list(GN_VARIANTS)
+
+        def call(n):
+            cuda_lib._lib = libs[f"gn {n}"]
+            return fused_twrap.gn_silu(x, s, b, eps=eps, act=act, plan=plan)
+        errs, built = {}, call("as built")
+        for n in names:
+            got = call(n)
+            errs[n] = {"vs_plain": float((got - ref).abs().max() / ref.abs().max()),
+                       "l2": float((got - ref).norm() / ref.norm()), "same_bits": bool(torch.equal(got, built))}
+        ms = _turns(names, lambda n: _time_ms(lambda: call(n)))
+        cuda_lib._lib = real
+        bound = 2 * x.numel() * 4 / 3.35e12 * 1e3
+        report["gn"].append({"x": [B, M, C], "eps": eps, "act": act, "plan": plan._asdict(), "bound_ms": bound,
+                             "ms": ms, "err": errs})
+        print(f"gn x[{B}, {M}, {C}] {plan.route} (bound {bound:.4f} ms): " + "; ".join(
+            f"{n} {ms[n]:.4f} ms ({100 * bound / ms[n]:.0f}%, err {errs[n]['vs_plain']:.1e}, L2 {errs[n]['l2']:.1e}"
+            f"{', same bits as built' if errs[n]['same_bits'] else ''})" for n in names), flush=True)
+        for n in names:
+            if errs[n]["vs_plain"] > TOL_F32 or errs[n]["l2"] > TOL_F32:
+                print(f"gn x[{B}, {M}, {C}]: {n} misses the fp32 gate", flush=True)
+        if errs["as built"]["vs_plain"] > TOL_F32 or errs["as built"]["l2"] > TOL_F32:
+            _fail(f"ds_group_norm_silu as built misses the fp32 gate at {[B, M, C]}")
+        del x, ref, built
+
+
+def _ta_rows(libs, real, rn, report):
+    """K1's attention at fp32 at TA_SHAPES, each variant held against the
+    plain version and timed in turns."""
+    from dynamicscaler_tpu_torch.ops import fused_temporal
+    for R, Fn, C in TA_SHAPES:
+        heads = C // 64
+        qkv = rn(R, Fn, 3 * C)
+        with cuda_lib.plain_kernels():
+            ref = fused_temporal.temporal_attention(qkv, heads=heads, scale=0.125)
+        names = list(TA_VARIANTS)
+
+        def call(n):
+            cuda_lib._lib = libs[f"ta {n}"]
+            return fused_temporal.temporal_attention(qkv, heads=heads, scale=0.125)
+        errs, built = {}, call("as built")
+        for n in names:
+            got = call(n)
+            errs[n] = {"vs_plain": float((got - ref).abs().max() / ref.abs().max()),
+                       "l2": float((got - ref).norm() / ref.norm()), "same_bits": bool(torch.equal(got, built))}
+        ms = _turns(names, lambda n: _time_ms(lambda: call(n)))
+        cuda_lib._lib = real
+        bound = (qkv.numel() + ref.numel()) * 4 / 3.35e12 * 1e3
+        report["ta"].append({"qkv": [R, Fn, 3 * C], "bound_ms": bound, "ms": ms, "err": errs})
+        print(f"ta qkv[{R}, {Fn}, {3 * C}] (bound {bound:.4f} ms): " + "; ".join(
+            f"{n} {ms[n]:.4f} ms ({100 * bound / ms[n]:.0f}%, err {errs[n]['vs_plain']:.1e}"
+            f"{', same bits as built' if errs[n]['same_bits'] else ''})" for n in names), flush=True)
+        if errs["as built"]["vs_plain"] > TOL_F32 or errs["as built"]["l2"] > TOL_F32:
+            _fail(f"ds_temporal_attention_f32 as built misses the fp32 gate at {[R, Fn, C]}")
+        del qkv, ref, built
+
+
 def _fail(msg):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -962,7 +1143,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    only = set(sys.argv[1:]) or {"gemm", "flash", "block"}
+    only = set(sys.argv[1:]) or {"gemm", "flash", "block", "gn", "ta"}
     if "block" in only:  # kernels 10 and 12, and 11 and 13
         only |= {"temporal", "spatial"}
     jobs = {}
@@ -979,6 +1160,12 @@ def main():
     if "spatial" in only:
         patched = {n: (patches, None) for n, (patches, _) in SPATIAL_VARIANTS.items() if patches}
         jobs.update({f"spatial {n}": (*v, SPATIAL_NAMES) for n, v in _variant_sources("spatial_f32.cu", patched).items()})
+    if "gn" in only:
+        jobs.update({f"gn {n}": (*v, "ds_group_norm_silu") for n, v in _variant_sources("gn_silu.cu", GN_VARIANTS).items()})
+        jobs["gn phases"] = (*_variant_sources("gn_silu.cu", {"phases": (GN_PHASES, None)})["phases"], "ds_group_norm_silu")
+    if "ta" in only:
+        jobs.update({f"ta {n}": (*v, "ds_temporal_attention_f32")
+                     for n, v in _variant_sources("attention_f32.cu", TA_VARIANTS).items()})
     cuda_lib.library()
     libs = _build_all(jobs)
     real = cuda_lib._lib
@@ -987,7 +1174,12 @@ def main():
     def rn(*shape, s=1.0):
         return torch.randn(shape, generator=g, device="cuda") * s
 
-    report = {"device": smi, "gemm": [], "flash": [], "block": [], "spatial": []}
+    report = {"device": smi, "gemm": [], "flash": [], "block": [], "spatial": [], "gn": [], "gn_phases": [], "ta": []}
+    if "gn" in only:
+        _gn_rows(libs, real, rn, report)
+        _gn_phase_rows(libs["gn phases"], real, rn, report)
+    if "ta" in only:
+        _ta_rows(libs, real, rn, report)
     if "temporal" in only:
         _block_rows(libs, real, rn, report)
     if "spatial" in only:

@@ -9,18 +9,26 @@
 //   dynamicscaler_tpu/ops/fused_spatial.py::_cross_kernel  (K3, 77 text + 16 image keys)
 //
 // ds_temporal_attention_f32: F frame tokens per (row, head), 2 <= F <= 128,
-// 128 % F == 0. A block takes 128 tokens (128 / F whole rows) of one head:
-// their keys and values staged in shared memory (2 x 128 x 68 floats), a
-// thread a query token with its q in registers, two passes over its row's
-// keys (the largest logit, then the exponentials, their sum and the
-// weighted values), the sum divided out at the end, FFMA and expf on the
-// CUDA cores. What bounds it: bytes. At F = 16 a token does 16 x 64 x 6
-// operations against 4 x 64 x 4 bytes read and written, about 6 operations a
-// byte, far below the card's 20 for fp32; a quarter-warp's 8 threads read
-// one key at a time (one row), so the shared-memory reads are broadcasts
-// where F >= 8. (Kernels 10 and 12 run their own F-frame attention in
-// temporal_f32.cu, and kernels 11 and 13 their N-token and cross-attention
-// in spatial_f32.cu, inside their blocks.)
+// 128 % F == 0, qkv [R * F, 3C] (q | k | v, head h at column 64h of each).
+// What bounds it: bytes. A token reads its q, k and v and writes its output,
+// 1 KB a (token, head) at fp32, against 16 x 64 x 4 operations at F = 16
+// (12 tf32 operations a byte as three products), far below the 148 a byte
+// of the tensor cores' tf32 rate, so the design keeps a tile's copies in
+// flight while the last one computes:
+//   * a persistent grid of one 256-thread block an SM takes the items (a
+//     tile of 128 tokens, a head) in turn, heads fastest;
+//   * a ring of TA_STAGES slots, each the item's q, k and v [128, 64] in
+//     padded rows, fed by cp.async (16 threads a 256-byte row of one head's
+//     columns, zeros past the last token), the next item's copies in flight
+//     while this one computes, one block barrier an item;
+//   * at F 8 and 16 (the UNet's) a warp takes 16 tokens on the tensor cores,
+//     mma.sync m16n8k8 .tf32 with the three-product split of hopper.cuh, as
+//     kernels 10 and 12 run the same attention (temporal_f32.cu::
+//     attention_tc); at any other F two threads a token on the CUDA cores,
+//     an online softmax; each logit computed once;
+//   * each warp writes its 16 output rows into its own q rows, then stores
+//     them with 16-byte stores, 16 lanes a 256-byte row.
+// chip_tf32_variants.py ta times a ring of 3 slots against 2 (PERF.md).
 //
 // ds_flash_attention_f32: q rows with a pitch, up to two key segments each
 // with its own softmax, the normalised outputs summed (the i2v dual
@@ -78,65 +86,162 @@ namespace {
 constexpr int D = 64;  // head dim
 
 // ---------------------------------------------------------------------------
-// temporal: 128 tokens of one head a block, a thread a query token
+// temporal: a persistent block an SM over (token tile, head), a cp.async ring
 // ---------------------------------------------------------------------------
 
-constexpr int T_TOKENS = 128;
-constexpr int T_PITCH = D + 4;  // floats of a staged row
-constexpr int T_SMEM = 2 * T_TOKENS * T_PITCH * 4;
+using namespace hopper;
 
-__device__ __forceinline__ float dot64(const float (&q)[D], const float* k) {
-  float s = 0.f;
+constexpr int TA_TOK = 128;             // tokens a tile (whole F-frame rows: 128 % F == 0)
+constexpr int TA_STAGES = 2;            // ring slots, each a tile's q, k and v of one head
+constexpr int TA_THREADS = 2 * TA_TOK;  // a warp 16 tokens; two threads a token on the CUDA cores
+constexpr int TA_QP = D + 4;            // floats of a q or k row in a slot (banks 4g + t)
+constexpr int TA_VP = D + 8;            // floats of a v row (banks 8t + g)
+constexpr int TA_SLOT = TA_TOK * (2 * TA_QP + TA_VP);  // floats of a slot
+constexpr int TA_SMEM = TA_STAGES * TA_SLOT * 4;
+static_assert(TA_SMEM <= 232448, "the ring fits the H100's shared memory");
+
+// Ring slot `slot` <- the q, k and v of head h of tokens t0 .. t0 + TA_TOK - 1
+// (zeros past T): a thread's 16-byte copies, 16 threads a 256-byte row.
+__device__ __forceinline__ void ta_load(const float* __restrict__ qkv, long long T, int C, long long t0, int h,
+                                        float* slot) {
+  constexpr int STEP = TA_THREADS / 16;
+  const int tok0 = threadIdx.x >> 4, c4 = (threadIdx.x & 15) * 4;
+  float* qs = slot;
+  float* ks = qs + TA_TOK * TA_QP;
+  float* vs = ks + TA_TOK * TA_QP;
 #pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(k + d);
-    s = fmaf(q[d], v.x, s);
-    s = fmaf(q[d + 1], v.y, s);
-    s = fmaf(q[d + 2], v.z, s);
-    s = fmaf(q[d + 3], v.w, s);
+  for (int u = 0; u < TA_TOK / STEP; ++u) {
+    const int r = tok0 + STEP * u;
+    const bool in = t0 + r < T;
+    const float* src = qkv + (size_t)(in ? t0 + r : 0) * 3 * C + h * D + c4;
+    cp_async16_zfill(qs + r * TA_QP + c4, src, in);
+    cp_async16_zfill(ks + r * TA_QP + c4, src + C, in);
+    cp_async16_zfill(vs + r * TA_VP + c4, src + 2 * C, in);
   }
-  return s;
 }
 
-__global__ void __launch_bounds__(T_TOKENS)
-temporal_attn_f32_kernel(const float* __restrict__ qkv, long long T, int F, int C, float scale,
-                         float* __restrict__ out) {
-  extern __shared__ __align__(16) float t_smem[];
-  float* ks = t_smem;
-  float* vs = t_smem + T_TOKENS * T_PITCH;
-  const int h = blockIdx.y;
-  const long long tok0 = (long long)blockIdx.x * T_TOKENS;
-  const size_t ld = 3 * (size_t)C;
-  for (int i = threadIdx.x; i < 2 * T_TOKENS * (D / 4); i += T_TOKENS) {
-    const int which = i / (T_TOKENS * (D / 4));  // 0 keys, 1 values
-    const int r = (i / (D / 4)) % T_TOKENS, c = (i % (D / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (tok0 + r < T) v = *reinterpret_cast<const float4*>(qkv + (size_t)(tok0 + r) * ld + (1 + which) * C + h * D + c);
-    *reinterpret_cast<float4*>(t_smem + (which * T_TOKENS + r) * T_PITCH + c) = v;
-  }
-  const int r = threadIdx.x;
-  const long long tok = tok0 + r;
-  float q[D];
+// The warp's 16 tokens at F 8 and 16 on the tensor cores (3xTF32), as
+// temporal_f32.cu::attention_tc computes them: the warp's 16 tokens are its
+// queries and keys (a row of 16 frames, or two of 8 with the other row's
+// keys masked); S = q k^T in steps of 8 dims over two key tiles of 8, each
+// step folded in fp32, the keys permuted within each 8 (position 2t holds
+// key t, 2t + 1 key t + 4) so that S's registers are P's A fragment; every
+// logit computed once and scaled, the row's maximum, expf against it and
+// the sum over the lane quad; O = P V (two key steps, eight tiles of 8
+// dims) times the sum's reciprocal, into the warp's q rows.
+template <int FF>
+__device__ __forceinline__ void ta_warp_tc(float* qw, const float* kw, const float* vw, float scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int kp = (g >> 1) + (g & 1) * 4;  // the key at this lane's B column g of a key tile
+  float sc[2][4] = {};
 #pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (tok < T) v = *reinterpret_cast<const float4*>(qkv + (size_t)tok * ld + h * D + d);
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const int c = 8 * kk + t;
+    uint32_t ah[4], al[4];
+    split_tf32(qw[g * TA_QP + c], ah[0], al[0]);
+    split_tf32(qw[(g + 8) * TA_QP + c], ah[1], al[1]);
+    split_tf32(qw[g * TA_QP + c + 4], ah[2], al[2]);
+    split_tf32(qw[(g + 8) * TA_QP + c + 4], ah[3], al[3]);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float* kr = kw + (8 * n + kp) * TA_QP;
+      mma_3xtf32(sc[n], ah, al, kr[c], kr[c + 4]);
+    }
+  }
+  // rows g (sc[n][0], [1]: keys 8n + t, 8n + t + 4) and g + 8 (sc[n][2], [3])
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;  // 0: row g, 1: row g + 8
+      sc[n][e] = FF == 16 || r == n ? sc[n][e] * scale : -INFINITY;  // F 8: the query's own row of 8
+      m[r] = fmaxf(m[r], sc[n][e]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[n][e] = expf(sc[n][e] - m[e >> 1]);
+      l[e >> 1] += sc[n][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float o[8][4] = {};
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {  // keys 8n + t and 8n + t + 4: A columns t and t + 4
+    uint32_t ph[4], pl[4];
+    split_tf32(sc[n][0], ph[0], pl[0]);
+    split_tf32(sc[n][2], ph[1], pl[1]);
+    split_tf32(sc[n][1], ph[2], pl[2]);
+    split_tf32(sc[n][3], ph[3], pl[3]);
+    const float* v0 = vw + (8 * n + t) * TA_VP;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) mma_3xtf32(o[dt], ph, pl, v0[8 * dt + g], v0[4 * TA_VP + 8 * dt + g]);
+  }
+  __syncwarp();  // every lane's q reads are done
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float il = 1.f / l[r];
+    float* y = qw + (g + 8 * r) * TA_QP + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt)
+      *reinterpret_cast<float2*>(y + 8 * dt) = make_float2(o[dt][2 * r] * il, o[dt][2 * r + 1] * il);
+  }
+}
+
+// A token at any other F on the CUDA cores: two threads a token (32 dims
+// each; the pair's partial logits summed by a shuffle, so both hold the
+// same logit), each logit computed once and scaled, an online softmax over
+// the row's F keys (the running maximum, the sum and the weighted values
+// rescaled by expf(m_old - m) where the maximum grows), the output over the
+// sum into the token's q row.
+__device__ __forceinline__ void ta_token_cc(float* qs, const float* ks, const float* vs, int F, float scale) {
+  const int tok = threadIdx.x >> 1, half = threadIdx.x & 1;
+  const int kb = (tok / F) * F;  // the row's first token in the tile
+  float* qr = qs + tok * TA_QP + half * 32;
+  float q[32], o[32];
+#pragma unroll
+  for (int d = 0; d < 32; d += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(qr + d);
     q[d] = v.x; q[d + 1] = v.y; q[d + 2] = v.z; q[d + 3] = v.w;
   }
-  __syncthreads();
-  if (tok >= T) return;
-  const int kb = (r / F) * F;  // the row's first token in the block
-  float m = -INFINITY;
-  for (int j = 0; j < F; ++j) m = fmaxf(m, dot64(q, ks + (kb + j) * T_PITCH) * scale);
-  float o[D], l = 0.f;
 #pragma unroll
-  for (int d = 0; d < D; ++d) o[d] = 0.f;
+  for (int d = 0; d < 32; ++d) o[d] = 0.f;
+  float m = -INFINITY, l = 0.f;
   for (int j = 0; j < F; ++j) {
-    const float p = expf(dot64(q, ks + (kb + j) * T_PITCH) * scale - m);
-    l += p;
-    const float* v = vs + (kb + j) * T_PITCH;
+    const float* k = ks + (kb + j) * TA_QP + half * 32;
+    float p4[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < 32; d += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(k + d);
+      p4[0] = fmaf(q[d], v.x, p4[0]);
+      p4[1] = fmaf(q[d + 1], v.y, p4[1]);
+      p4[2] = fmaf(q[d + 2], v.z, p4[2]);
+      p4[3] = fmaf(q[d + 3], v.w, p4[3]);
+    }
+    float s = (p4[0] + p4[1]) + (p4[2] + p4[3]);
+    s = (s + __shfl_xor_sync(0xffffffffu, s, 1)) * scale;
+    if (s > m) {
+      const float a = expf(m - s);
+      l *= a;
+#pragma unroll
+      for (int d = 0; d < 32; ++d) o[d] *= a;
+      m = s;
+    }
+    const float p = expf(s - m);
+    l += p;
+    const float* v = vs + (kb + j) * TA_VP + half * 32;
+#pragma unroll
+    for (int d = 0; d < 32; d += 4) {
       const float4 w = *reinterpret_cast<const float4*>(v + d);
       o[d] = fmaf(p, w.x, o[d]);
       o[d + 1] = fmaf(p, w.y, o[d + 1]);
@@ -144,17 +249,65 @@ temporal_attn_f32_kernel(const float* __restrict__ qkv, long long T, int F, int 
       o[d + 3] = fmaf(p, w.w, o[d + 3]);
     }
   }
-  float* y = out + (size_t)tok * C + h * D;
+  const float il = 1.f / l;
 #pragma unroll
-  for (int d = 0; d < D; d += 4)
-    *reinterpret_cast<float4*>(y + d) = make_float4(o[d] / l, o[d + 1] / l, o[d + 2] / l, o[d + 3] / l);
+  for (int d = 0; d < 32; d += 4)
+    *reinterpret_cast<float4*>(qr + d) = make_float4(o[d] * il, o[d + 1] * il, o[d + 2] * il, o[d + 3] * il);
+}
+
+// FF 16 or 8: the tensor cores; 0: the CUDA cores at any F. Items (tile,
+// head), heads fastest, taken by the persistent blocks in turn; the ring
+// holds the next TA_STAGES - 1 items' copies in flight while one computes.
+template <int FF>
+__global__ void __launch_bounds__(TA_THREADS, 1)
+temporal_attn_f32_kernel(const float* __restrict__ qkv, long long T, int F, int C, float scale,
+                         float* __restrict__ out) {
+  extern __shared__ __align__(16) float ta_smem[];
+  const int heads = C / D;
+  const long long items = (T + TA_TOK - 1) / TA_TOK * heads;
+  const long long step = gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  long long it = blockIdx.x;
+#pragma unroll
+  for (int s = 0; s < TA_STAGES - 1; ++s) {
+    const long long i = it + s * step;
+    if (i < items) ta_load(qkv, T, C, i / heads * TA_TOK, (int)(i % heads), ta_smem + s * TA_SLOT);
+    cp_async_commit();
+  }
+  for (int slot = 0; it < items; it += step, slot = slot + 1 == TA_STAGES ? 0 : slot + 1) {
+    const long long next = it + (TA_STAGES - 1) * step;
+    const int ns = (slot + TA_STAGES - 1) % TA_STAGES;  // the slot computed an item ago
+    if (next < items) ta_load(qkv, T, C, next / heads * TA_TOK, (int)(next % heads), ta_smem + ns * TA_SLOT);
+    cp_async_commit();
+    cp_async_wait<TA_STAGES - 1>();
+    __syncthreads();  // every thread's copies of this item have landed
+    float* qs = ta_smem + slot * TA_SLOT;
+    const float* ks = qs + TA_TOK * TA_QP;
+    const float* vs = ks + TA_TOK * TA_QP;
+    const int r0 = warp * 16;  // the warp's tokens: its queries, and at F 8 and 16 its keys
+    if (FF)
+      ta_warp_tc<FF>(qs + r0 * TA_QP, ks + r0 * TA_QP, vs + r0 * TA_VP, scale);
+    else
+      ta_token_cc(qs, ks, vs, F, scale);
+    __syncwarp();
+    // the warp's 16 output rows from its q rows, 16 lanes a 256-byte row
+    const long long t0 = it / heads * TA_TOK;
+    const int h = (int)(it % heads);
+#pragma unroll
+    for (int i = lane; i < 16 * (D / 4); i += 32) {
+      const int r = r0 + (i >> 4), c4 = (i & 15) * 4;
+      if (t0 + r < T)
+        *reinterpret_cast<float4*>(out + (size_t)(t0 + r) * C + h * D + c4) =
+            *reinterpret_cast<const float4*>(qs + r * TA_QP + c4);
+    }
+    __syncthreads();  // the slot is free for the copies issued next
+  }
+  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
 // flash: persistent blocks over (query tile, head, sample), TMA ring + tf32 wgmma
 // ---------------------------------------------------------------------------
-
-using namespace hopper;
 
 constexpr int FQ = 128;               // query rows a tile: two consumer warpgroups of 64
 constexpr int FK = 64;                // keys a tile
@@ -464,17 +617,26 @@ bool seg_map(CUtensorMap* map, const void* base, int B, int len, int ld, int wid
 // [R * F, C] fp32, C = heads * 64; 2 <= F <= 128, 128 % F == 0.
 extern "C" int ds_temporal_attention_f32(const void* qkv, int R, int F, int C, int heads, float scale, void* out,
                                          void* stream) {
-  if (R <= 0 || F < 2 || F > 128 || 128 % F || C != heads * D) return (int)cudaErrorInvalidValue;
-  static bool sized = false;
-  if (!sized) {
-    const cudaError_t e = size_smem(temporal_attn_f32_kernel, T_SMEM);
+  if (R <= 0 || F < 2 || F > TA_TOK || TA_TOK % F || C != heads * D) return (int)cudaErrorInvalidValue;
+  void (*kern)(const float*, long long, int, int, float, float*) =
+      F == 16 ? temporal_attn_f32_kernel<16> : F == 8 ? temporal_attn_f32_kernel<8> : temporal_attn_f32_kernel<0>;
+  static bool sized[3] = {false, false, false};
+  const int which = F == 16 ? 0 : F == 8 ? 1 : 2;
+  static int resident[3] = {0, 0, 0};
+  if (!sized[which]) {
+    cudaError_t e = size_smem(kern, TA_SMEM);
+    int per = 0;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, TA_THREADS, TA_SMEM);
     if (e != cudaSuccess) return (int)e;
-    sized = true;
+    if (per < 1) return (int)cudaErrorInvalidConfiguration;
+    resident[which] = per * hopper::sm_count();
+    sized[which] = true;
   }
   const long long T = (long long)R * F;
-  dim3 grid((unsigned)((T + T_TOKENS - 1) / T_TOKENS), heads);
-  temporal_attn_f32_kernel<<<grid, T_TOKENS, T_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qkv), T, F, C, scale, static_cast<float*>(out));
+  const long long items = (T + TA_TOK - 1) / TA_TOK * heads;
+  const int grid = (int)(items < resident[which] ? items : resident[which]);
+  kern<<<grid, TA_THREADS, TA_SMEM, static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(qkv), T, F, C,
+                                                                           scale, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

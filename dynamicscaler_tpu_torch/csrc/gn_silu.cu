@@ -47,7 +47,7 @@
 //
 // ds_group_norm_silu is GroupNorm [-> SiLU] with statistics per sample, the
 // function of the JAX gn_silu (group_norm_fold, then _gn_silu_call) as one
-// call, on one of two routes that cuda_lib.gn_plan picks and this file
+// call, on one of three routes that cuda_lib.gn_plan picks and this file
 // checks:
 //  * "cluster", where a sample's slab (M * C * 2 bytes) fits the shared
 //    memory of CS <= 16 blocks: x is read from device memory exactly once,
@@ -74,22 +74,47 @@
 //    normalised) and two blocks an SM did not time faster on the H100 (see
 //    PERF.md), so the route stays one block a slab; it reads x once where
 //    the split route reads it twice.
-//  * "split", everywhere else (the 6-25 MB temporal-conv clips, the level-0
-//    up-block inputs, the VAE's frames): ds_gn_stats's two launches, then
-//    the apply kernel, from the one call; x is read twice (3 x bytes).
+//  * "split", everywhere else in bf16 (the 6-25 MB temporal-conv clips, the
+//    level-0 up-block inputs, the VAE's frames): ds_gn_stats's two launches,
+//    then the apply kernel, from the one call; x is read twice (3 x bytes).
+//  * "grid", in fp32 wherever bf16 would split (gn_grid_kernel;
+//    cuda_lib.gn_plan's rule, from chip_smoke.py phase 10's timings of
+//    every fp32 shape on each route). One cooperative
+//    launch of a block an SM, all resident, walks the samples in passes: a
+//    pass takes as many whole samples as the card's shared memory holds
+//    (about 132 x 220 KB), each spread over 132 / (samples a pass) blocks,
+//    or one larger sample over every block, whose rows past the blocks'
+//    slabs are read last by the statistics and first by the apply (from L2
+//    as far as it keeps them). A block copies its slab in by cp.async
+//    (every copy in flight at once, two halves), sums it as the cluster
+//    route does, writes its group partials to a scratch in device memory,
+//    and meets every block at an integer arrive counter (no float atomic);
+//    then each block adds its sample's partials in one fixed order, folds
+//    and applies from shared memory. x is read once where a pass holds whole
+//    samples (2 x bytes), as on the cluster route, but no sample waits for
+//    a second wave of clusters. What the phases of a pass cost on the H100
+//    (chip_tf32_variants.py gn, PERF.md): the copies and the apply run at
+//    about 70-80% of the memory's rate each, one after the other, and the
+//    reductions, the barrier and the exchange of the partials, with the
+//    memory idle, take about a quarter of a pass.
 //
 // fp32 activations (a model run in float32; the JAX kernel computes in
 // x.dtype): ds_gn_silu and ds_group_norm_silu take x and y as bf16 (is_f32
-// = 0) or fp32 (is_f32 = 1), on both routes. The loads and stores are
-// templated on the element type (a thread's 8-channel chunk is one 16-byte
-// load in bf16, two in fp32) and everything inside already computes in
+// = 0) or fp32 (is_f32 = 1), on every route. The loads and stores are
+// templated on the element type (a thread's 8 channels are one 16-byte
+// access in bf16, two in fp32: on the cluster and grid routes channels 4u
+// .. 4u + 3 and C / 2 + 4u .. + 3, Lane<float>, so that each access of a
+// warp is 512 contiguous bytes) and everything inside already computes in
 // fp32, so the fp32 instantiation is the same kernel at twice the bytes; the
-// cluster route's slab takes 4 bytes an element (cluster_smem, and
-// cuda_lib.gn_plan's fit, reckon the element size). At fp32 the SiLU is
-// h / (1 + expf(-h)) with a true division (the bf16 route keeps __expf and
-// __fdividef, far inside its one bf16 rounding).
+// slabs take 4 bytes an element (cluster_smem, and cuda_lib.gn_plan's fit,
+// reckon the element size). At fp32 the SiLU is __fdividef(h, 1 +
+// __expf(-h)), as in bf16: within 4e-7 of max|plain| at every shape timed,
+// and faster on both fp32 routes than h / (1 + expf(-h)) with a true
+// division or h * __frcp_rn(1 + __expf(-h)) (chip_tf32_variants.py gn,
+// PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -130,7 +155,9 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float silu(float h) { return __fdividef(h, 1.0f + __expf(-h)); }
-__device__ __forceinline__ float silu_f32(float h) { return h / (1.0f + expf(-h)); }
+// fp32 (chip_tf32_variants.py gn times it against h / (1 + expf(-h)) and h *
+// __frcp_rn(1 + __expf(-h)))
+__device__ __forceinline__ float silu_f32(float h) { return __fdividef(h, 1.0f + __expf(-h)); }
 
 // A thread's chunk: 8 consecutive channels of one row (16 bytes in bf16, 32
 // in fp32), loaded and stored whole.
@@ -147,10 +174,6 @@ struct Chunk<float> {
 
 __device__ __forceinline__ Chunk<bf16> ldg_chunk(const Chunk<bf16>* p) { return {__ldg(&p->u)}; }
 __device__ __forceinline__ Chunk<float> ldg_chunk(const Chunk<float>* p) { return {__ldg(&p->lo), __ldg(&p->hi)}; }
-__device__ __forceinline__ Chunk<bf16> ldcs_chunk(const Chunk<bf16>* p) { return {__ldcs(&p->u)}; }
-__device__ __forceinline__ Chunk<float> ldcs_chunk(const Chunk<float>* p) {
-  return {__ldcs(&p->lo), __ldcs(&p->hi)};
-}
 
 // 8 bf16 values of x -> y with the chunk's folded vectors (m, a).
 template <bool ACT>
@@ -347,6 +370,61 @@ gn_fold_kernel(const float* __restrict__ part, int splits, int C, int G, long lo
   }
 }
 
+// The 8 channels of a row that thread u of a cluster- or grid-route row
+// owns, and how it reaches them: in bf16 channels 8u .. 8u + 7, one 16-byte
+// access; in fp32 4u .. 4u + 3 and C / 2 + 4u .. + 3, two 16-byte accesses
+// each of which the lanes of a warp make at consecutive addresses (a 32-byte
+// chunk a thread would make each access of a warp touch every sector
+// twice). The per-channel sums do not depend on which thread owns a
+// channel. Rows are C elements, in device and in shared memory alike.
+template <typename T>
+struct Lane;
+template <>
+struct Lane<bf16> {
+  static __device__ __forceinline__ int chan(int u, int e, int) { return 8 * u + e; }
+  static __device__ __forceinline__ Chunk<bf16> ld(const bf16* row, int u, int) {
+    return {reinterpret_cast<const uint4*>(row)[u]};
+  }
+  static __device__ __forceinline__ Chunk<bf16> ldg(const bf16* row, int u, int) {
+    return {__ldg(reinterpret_cast<const uint4*>(row) + u)};
+  }
+  static __device__ __forceinline__ Chunk<bf16> ldcs(const bf16* row, int u, int) {
+    return {__ldcs(reinterpret_cast<const uint4*>(row) + u)};
+  }
+  static __device__ __forceinline__ void st(bf16* row, int u, int, const Chunk<bf16>& c) {
+    reinterpret_cast<uint4*>(row)[u] = c.u;
+  }
+  static __device__ __forceinline__ void stcs(bf16* row, int u, int, const Chunk<bf16>& c) {
+    __stcs(reinterpret_cast<uint4*>(row) + u, c.u);
+  }
+};
+template <>
+struct Lane<float> {
+  static __device__ __forceinline__ int chan(int u, int e, int C) { return e < 4 ? 4 * u + e : (C >> 1) + 4 * u + e - 4; }
+  static __device__ __forceinline__ Chunk<float> ld(const float* row, int u, int C) {
+    const float4* r = reinterpret_cast<const float4*>(row);
+    return {r[u], r[u + (C >> 3)]};
+  }
+  static __device__ __forceinline__ Chunk<float> ldg(const float* row, int u, int C) {
+    const float4* r = reinterpret_cast<const float4*>(row);
+    return {__ldg(r + u), __ldg(r + u + (C >> 3))};
+  }
+  static __device__ __forceinline__ Chunk<float> ldcs(const float* row, int u, int C) {
+    const float4* r = reinterpret_cast<const float4*>(row);
+    return {__ldcs(r + u), __ldcs(r + u + (C >> 3))};
+  }
+  static __device__ __forceinline__ void st(float* row, int u, int C, const Chunk<float>& c) {
+    float4* r = reinterpret_cast<float4*>(row);
+    r[u] = c.lo;
+    r[u + (C >> 3)] = c.hi;
+  }
+  static __device__ __forceinline__ void stcs(float* row, int u, int C, const Chunk<float>& c) {
+    float4* r = reinterpret_cast<float4*>(row);
+    __stcs(r + u, c.lo);
+    __stcs(r + u + (C >> 3), c.hi);
+  }
+};
+
 // A float in block `rank` of the cluster, at the offset of `p` in this block.
 __device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
   uint32_t remote;
@@ -380,8 +458,9 @@ __global__ void __launch_bounds__(ROW_THREADS_MAX)
 gn_cluster_kernel(const T* __restrict__ X, int M, int C, int G, int rows, const V* __restrict__ scale,
                   const V* __restrict__ bias, float eps, T* __restrict__ Y, float* __restrict__ vec_out) {
   extern __shared__ __align__(16) uint8_t smem[];
+  using L = Lane<T>;
   const RowMap rm = row_map(C, CLUSTER_THREADS);
-  Chunk<T>* slab = reinterpret_cast<Chunk<T>*>(smem);
+  T* slab = reinterpret_cast<T*>(smem);
   float* red = reinterpret_cast<float*>(smem + (size_t)rows * C * sizeof(T));
   float* csum = red + rm.lanes * C;
   float* gpart = csum + 2 * C;
@@ -391,9 +470,8 @@ gn_cluster_kernel(const T* __restrict__ X, int M, int C, int G, int rows, const 
   const int r0 = (int)rank * rows;
   const int n = rows < M - r0 ? rows : M - r0;
   const int rl = threadIdx.x / rm.per_row, u = threadIdx.x - rl * rm.per_row;
-  const size_t base = ((size_t)b * M + r0) * rm.per_row + u;  // in chunks
-  const Chunk<T>* xs = reinterpret_cast<const Chunk<T>*>(X) + base;
-  Chunk<T>* ys = reinterpret_cast<Chunk<T>*>(Y) + base;
+  const T* xs = X + ((size_t)b * M + r0) * C;  // the block's first row
+  T* ys = Y + ((size_t)b * M + r0) * C;
 
   // 1. the slab into shared memory, summed per channel on the way
   float s[8], ss[8];
@@ -404,13 +482,13 @@ gn_cluster_kernel(const T* __restrict__ X, int M, int C, int G, int rows, const 
 #pragma unroll
     for (int j = 0; j < CLUSTER_UNROLL; ++j) {
       const int rr = r + j * rm.lanes;
-      if (rr < n) v[j] = ldcs_chunk(xs + (size_t)rr * rm.per_row);
+      if (rr < n) v[j] = L::ldcs(xs + (size_t)rr * C, u, C);
     }
 #pragma unroll
     for (int j = 0; j < CLUSTER_UNROLL; ++j) {
       const int rr = r + j * rm.lanes;
       if (rr < n) {
-        slab[rr * rm.per_row + u] = v[j];
+        L::st(slab + (size_t)rr * C, u, C, v[j]);
         float f[8];
         to_f32x8(v[j], f);
 #pragma unroll
@@ -425,7 +503,7 @@ gn_cluster_kernel(const T* __restrict__ X, int M, int C, int G, int rows, const 
 #pragma unroll
   for (int which = 0; which < 2; ++which) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) red[rl * C + 8 * u + e] = which ? ss[e] : s[e];
+    for (int e = 0; e < 8; ++e) red[rl * C + L::chan(u, e, C)] = which ? ss[e] : s[e];
     __syncthreads();
     for (int c = threadIdx.x; c < C; c += blockDim.x) {
       float acc = 0.f;
@@ -479,11 +557,226 @@ gn_cluster_kernel(const T* __restrict__ X, int M, int C, int G, int rows, const 
   __syncthreads();
   // 5. apply from shared memory
   float m[8], a[8];
-  load_vec8(vec + 8 * u, m);
-  load_vec8(vec + C + 8 * u, a);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    m[e] = vec[L::chan(u, e, C)];
+    a[e] = vec[C + L::chan(u, e, C)];
+  }
 #pragma unroll 4
-  for (int r = rl; r < n; r += rm.lanes) ys[(size_t)r * rm.per_row] = apply8<ACT>(slab[r * rm.per_row + u], m, a);
+  for (int r = rl; r < n; r += rm.lanes)
+    L::st(ys + (size_t)r * C, u, C, apply8<ACT>(L::ld(slab + (size_t)r * C, u, C), m, a));
   cluster_wait();  // the other blocks have read this block's partials
+}
+
+// Every block of the launch arrives once a pass (after its partials are
+// written) at an integer counter and waits until all gridDim.x have: `target`
+// is (pass + 1) x gridDim.x. Thread 0 releases the block's writes at the
+// device's scope and acquires the others'.
+__device__ __forceinline__ void grid_sync(int* counter, int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1);
+    int seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(seen) : "l"(counter) : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+// Rows [r_begin, r_end) of x (from row0, rows of C elements) into the same
+// rows of the slab, the range's 16-byte units spread over the block's
+// threads (each warp's lanes at consecutive addresses), as one cp.async
+// group.
+template <typename T>
+__device__ __forceinline__ void grid_fill(T* slab, const T* row0, int r_begin, int r_end, int C) {
+  const int per = C * (int)sizeof(T) / 16;  // 16-byte units a row
+  const uint4* src = reinterpret_cast<const uint4*>(row0);
+  uint4* dst = reinterpret_cast<uint4*>(slab);
+  for (int i = r_begin * per + threadIdx.x; i < r_end * per; i += blockDim.x) hopper::cp_async16(dst + i, src + i);
+  hopper::cp_async_commit();
+}
+
+// The grid route: one cooperative launch of gridDim.x = per_pass x cs
+// blocks, all resident, walks the samples per_pass at a time (a pass).
+// Block (slot, q) takes rows [q * rows, min(M, (q + 1) * rows)) of sample
+// pass * per_pass + slot: the first `held` of them (the slab, rows of C as
+// in x) come into its shared memory by cp.async in two halves, every copy
+// in flight at once, while the rest, if any, stream through registers; it
+// sums x and x^2 per channel (each thread its 8 channels, Lane<T>, over its
+// rows in order: the streamed rows, then the slab's), reduces them to group
+// partials as the cluster route does and writes those to part[pass % 2]
+// [block] (device memory); then the grid barrier; every block of the sample
+// adds the sample's cs partials in a fixed order (the same sums in every
+// block, the same bits on every run), folds them, and applies (+ SiLU) to
+// the streamed rows read again and to the slab, into y. The partials
+// alternate between two buffers by pass: a block writes pass p + 2's only
+// after the barrier of pass p + 1, which every block reaches after it has
+// read pass p's. blockDim = row_map(C, CLUSTER_THREADS) lanes * (C / 8);
+// the shared memory is cluster_smem(held, C, G, elem). The first block of a
+// sample writes the folded mul | add to vec [2, B, C].
+template <bool ACT, typename V, typename T>
+__global__ void __launch_bounds__(ROW_THREADS_MAX)
+gn_grid_kernel(const T* __restrict__ X, int B, int M, int C, int G, int cs, int rows, int held, int per_pass,
+               const V* __restrict__ scale, const V* __restrict__ bias, float eps, T* __restrict__ Y,
+               float* __restrict__ vec, float* __restrict__ part, int* __restrict__ counter) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  using L = Lane<T>;
+  const RowMap rm = row_map(C, CLUSTER_THREADS);
+  T* slab = reinterpret_cast<T*>(smem);
+  float* red = reinterpret_cast<float*>(smem + (size_t)held * C * sizeof(T));
+  float* csum = red + rm.lanes * C;
+  float* gstat = csum + 2 * C + 2 * G;  // cluster_smem's layout (its group partials go to device memory here)
+  const int rl = threadIdx.x / rm.per_row, u = threadIdx.x - rl * rm.per_row;
+  const int slot = blockIdx.x / cs, q = blockIdx.x - slot * cs;
+  const int r0 = q * rows;
+  const int n = rows < M - r0 ? rows : M - r0;  // > 0: the plan leaves no block empty
+  const int ns = n < held ? n : held;           // of which in shared memory
+  const int ns0 = (ns + 1) / 2;                 // the slab's first half: rows [0, ns0)
+  const int cg = C / G, passes = (B + per_pass - 1) / per_pass;
+  const int step = CLUSTER_UNROLL * rm.lanes;
+  for (int p = 0; p < passes; ++p) {
+    const int b = p * per_pass + slot;
+    const bool active = b < B;  // block-uniform: the last pass may hold fewer samples
+    float* pp = part + (size_t)(p & 1) * gridDim.x * 2 * G;
+    const T* xs = X + ((size_t)b * M + r0) * C;  // the block's first row
+    T* ys = Y + ((size_t)b * M + r0) * C;
+    if (active) {
+      // 1. the slab's halves into shared memory, the streamed rows meanwhile
+      // through registers; summed per channel, the streamed rows first, then
+      // the slab's, each in order
+      grid_fill(slab, xs, 0, ns0, C);
+      grid_fill(slab, xs, ns0, ns, C);
+      float s[8], ss[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s[e] = ss[e] = 0.f;
+      for (int r = ns + rl; r < n; r += step) {
+        Chunk<T> v[CLUSTER_UNROLL];
+#pragma unroll
+        for (int j = 0; j < CLUSTER_UNROLL; ++j)
+          if (r + j * rm.lanes < n) v[j] = L::ldg(xs + (size_t)(r + j * rm.lanes) * C, u, C);
+#pragma unroll
+        for (int j = 0; j < CLUSTER_UNROLL; ++j)
+          if (r + j * rm.lanes < n) {
+            float f[8];
+            to_f32x8(v[j], f);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              s[e] += f[e];
+              ss[e] += f[e] * f[e];
+            }
+          }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (half == 0)
+          hopper::cp_async_wait<1>();
+        else
+          hopper::cp_async_wait<0>();
+        __syncthreads();  // every thread's copies of the half have landed
+#pragma unroll 4
+        for (int r = rl + (half ? (ns0 - rl + rm.lanes - 1) / rm.lanes * rm.lanes : 0); r < (half ? ns : ns0);
+             r += rm.lanes) {
+          float f[8];
+          to_f32x8(L::ld(slab + (size_t)r * C, u, C), f);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            s[e] += f[e];
+            ss[e] += f[e] * f[e];
+          }
+        }
+      }
+      // 2. per channel, the row lanes in order; 3. the group's channels in order
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) red[rl * C + L::chan(u, e, C)] = which ? ss[e] : s[e];
+        __syncthreads();
+        for (int c = threadIdx.x; c < C; c += blockDim.x) {
+          float acc = 0.f;
+          for (int i = 0; i < rm.lanes; ++i) acc += red[i * C + c];
+          csum[which * C + c] = acc;
+        }
+        __syncthreads();
+      }
+      for (int t = threadIdx.x; t < 2 * G; t += blockDim.x) {
+        const int which = t / G, g = t - which * G;
+        const float* col = csum + which * C + g * cg;
+        float acc = 0.f;
+        for (int j = 0; j < cg; ++j) acc += col[j];
+        __stcg(pp + (size_t)blockIdx.x * 2 * G + t, acc);
+      }
+    }
+    grid_sync(counter, (p + 1) * (int)gridDim.x);
+    if (active) {
+      // 4. the sample's cs blocks' partials: 8 threads a (sum | sum of
+      // squares, group) each add every 8th block's in block order into four
+      // sums (four loads in flight), then the 8 by a fixed shuffle tree (the
+      // same bits in every block); folded
+      const float* sp = pp + (size_t)slot * cs * 2 * G;
+      const int lane = threadIdx.x & 31;
+      const unsigned eight = 0xffu << (lane & 24);
+      for (int i = threadIdx.x; i < 16 * G && threadIdx.x < (blockDim.x & ~7u); i += blockDim.x & ~7u) {
+        const int t = i >> 3;
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;  // blocks j, j + 8, j + 16, j + 24 of each 32
+        int j = i & 7;
+        for (; j + 24 < cs; j += 32) {
+          a0 += __ldcg(sp + (size_t)j * 2 * G + t);
+          a1 += __ldcg(sp + (size_t)(j + 8) * 2 * G + t);
+          a2 += __ldcg(sp + (size_t)(j + 16) * 2 * G + t);
+          a3 += __ldcg(sp + (size_t)(j + 24) * 2 * G + t);
+        }
+        for (; j < cs; j += 8) a0 += __ldcg(sp + (size_t)j * 2 * G + t);
+        float acc = (a0 + a1) + (a2 + a3);
+        acc += __shfl_xor_sync(eight, acc, 4);
+        acc += __shfl_xor_sync(eight, acc, 2);
+        acc += __shfl_xor_sync(eight, acc, 1);
+        if ((i & 7) == 0) red[t] = acc;
+      }
+      __syncthreads();
+      for (int g = threadIdx.x; g < G; g += blockDim.x) {
+        const float nn = (float)((long long)M * cg);
+        const float mean = red[g] / nn;
+        gstat[g] = mean;
+        gstat[G + g] = rsqrtf(fmaxf(0.f, red[G + g] / nn - mean * mean) + eps);
+      }
+      __syncthreads();
+      for (int c = threadIdx.x; c < C; c += blockDim.x) {
+        const int g = c / cg;
+        const float m = gstat[G + g] * to_f32(scale[c]);
+        const float a = to_f32(bias[c]) - gstat[g] * m;
+        csum[c] = m;
+        csum[C + c] = a;
+        if (q == 0) {
+          vec[(size_t)b * C + c] = m;
+          vec[((size_t)B + b) * C + c] = a;
+        }
+      }
+      __syncthreads();
+      // 5. apply: first the streamed rows read again (read last by the
+      // statistics, so the ones L2 still holds), then the slab
+      float m[8], a[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        m[e] = csum[L::chan(u, e, C)];
+        a[e] = csum[C + L::chan(u, e, C)];
+      }
+      for (int r = ns + rl; r < n; r += step) {
+        Chunk<T> v[CLUSTER_UNROLL];
+#pragma unroll
+        for (int j = 0; j < CLUSTER_UNROLL; ++j)
+          if (r + j * rm.lanes < n) v[j] = L::ldcs(xs + (size_t)(r + j * rm.lanes) * C, u, C);
+#pragma unroll
+        for (int j = 0; j < CLUSTER_UNROLL; ++j)
+          if (r + j * rm.lanes < n) L::stcs(ys + (size_t)(r + j * rm.lanes) * C, u, C, apply8<ACT>(v[j], m, a));
+      }
+#pragma unroll 4
+      for (int r = rl; r < ns; r += rm.lanes)
+        L::stcs(ys + (size_t)r * C, u, C, apply8<ACT>(L::ld(slab + (size_t)r * C, u, C), m, a));
+    }
+    __syncthreads();  // the slab and the vectors are free for the next pass
+  }
 }
 
 // ---- launches ----------------------------------------------------------------
@@ -604,6 +897,53 @@ cudaError_t cluster_any(const void* x, int B, int M, int C, int G, int cs, int r
                  : cluster_launch<ACT, bf16, T>(x, B, M, C, G, cs, rows, smem, scale, bias, eps, y, vec_out, s);
 }
 
+template <bool ACT, typename V, typename T>
+cudaError_t grid_launch(const void* x, int B, int M, int C, int G, int cs, int rows, int held, int per_pass, int smem,
+                        const void* scale, const void* bias, float eps, void* y, float* sc, cudaStream_t s) {
+  void (*kern)(const T*, int, int, int, int, int, int, int, int, const V*, const V*, float, T*, float*, float*, int*) =
+      gn_grid_kernel<ACT, V, T>;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  const RowMap rm = row_map(C, CLUSTER_THREADS);
+  const int threads = rm.lanes * rm.per_row, grid = per_pass * cs;
+  int per = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, threads, smem);
+  if (e != cudaSuccess) return e;
+  if ((long long)per * hopper::sm_count() < grid) return cudaErrorCooperativeLaunchTooLarge;  // not all resident
+  float* vec = sc;
+  float* part = sc + 2 * (size_t)B * C;
+  int* counter = reinterpret_cast<int*>(part + 4 * (size_t)grid * G);
+  e = cudaMemsetAsync(counter, 0, sizeof(int), s);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x), B, M, C, G, cs, rows, held, per_pass,
+                         static_cast<const V*>(scale), static_cast<const V*>(bias), eps, static_cast<T*>(y), vec, part,
+                         counter);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <bool ACT>
+cudaError_t grid_any(const void* x, int B, int M, int C, int G, int cs, int rows, int held, int per_pass, int smem,
+                     const void* scale, const void* bias, int vec_f32, float eps, void* y, float* sc, cudaStream_t s) {
+  return vec_f32
+             ? grid_launch<ACT, float, float>(x, B, M, C, G, cs, rows, held, per_pass, smem, scale, bias, eps, y, sc, s)
+             : grid_launch<ACT, bf16, float>(x, B, M, C, G, cs, rows, held, per_pass, smem, scale, bias, eps, y, sc, s);
+}
+
 bool shape_ok(int B, long long M, int C, int G) {
   return B > 0 && B <= 65535 && M > 0 && C > 0 && C % 8 == 0 && C <= C_MAX && G > 0 && C % G == 0;
 }
@@ -641,10 +981,15 @@ extern "C" int ds_gn_stats(const void* X, int is_f32, int B, long long M, int C,
 // bf16 (vec_f32 = 0) or fp32. The plan is
 // cuda_lib.gn_plan's: route 0 "cluster" (cs blocks a sample of `rows` rows,
 // smem bytes of dynamic shared memory each; scratch null, or [2, B, C] fp32
-// that receives the folded mul | add) or route 1 "split" (`splits` row
+// that receives the folded mul | add), route 1 "split" (`splits` row
 // splits of `rows` rows for the statistics, whose kernel takes smem bytes;
-// scratch [2, B, C] mul | add then [splits, B, 2, C] partials, fp32). A plan
-// that does not match this file's reckoning returns cudaErrorInvalidValue.
+// scratch [2, B, C] mul | add then [splits, B, 2, C] partials, fp32) or
+// route 2 "grid", fp32 only (`splits` samples a pass, cs blocks a sample of
+// `rows` rows, smem bytes each, which hold min(rows, what fits) of them; scratch
+// [2, B, C] mul | add, then [2, splits * cs, 2, G] partials, then the
+// barrier's int counter). A plan that does not match this file's reckoning
+// returns cudaErrorInvalidValue; a grid whose blocks the card cannot hold
+// all at once returns cudaErrorCooperativeLaunchTooLarge.
 extern "C" int ds_group_norm_silu(const void* X, int B, long long M, int C, int G, const void* scale,
                                   const void* bias, int vec_f32, float eps, int act, int route, int cs,
                                   long long rows, int smem, int splits, void* scratch, void* Y, int is_f32,
@@ -666,6 +1011,16 @@ extern "C" int ds_group_norm_silu(const void* X, int B, long long M, int C, int 
       e = act ? cluster_any<true, bf16>(X, B, m, C, G, cs, r, smem, scale, bias, vec_f32, eps, Y, sc, s)
               : cluster_any<false, bf16>(X, B, m, C, G, cs, r, smem, scale, bias, vec_f32, eps, Y, sc, s);
     return (int)e;
+  }
+  if (route == 2) {  // fp32 only
+    const long long fit = (SMEM_MAX - cluster_smem(0, C, G, 4)) / (4LL * C);  // rows a block holds
+    const long long held = rows < fit ? rows : fit;
+    if (!is_f32 || sc == nullptr || M > INT_MAX || cs < 1 || splits < 1 || splits > B ||
+        (long long)(cs - 1) * rows >= M || (long long)cs * rows < M || held < 1 || smem != cluster_smem(held, C, G, 4))
+      return (int)cudaErrorInvalidValue;
+    const int m = (int)M, r = (int)rows, hd = (int)held;
+    return (int)(act ? grid_any<true>(X, B, m, C, G, cs, r, hd, splits, smem, scale, bias, vec_f32, eps, Y, sc, s)
+                     : grid_any<false>(X, B, m, C, G, cs, r, hd, splits, smem, scale, bias, vec_f32, eps, Y, sc, s));
   }
   const int per_row = C / 8;
   const int lanes = per_row < STATS_THREADS ? STATS_THREADS / per_row : 1;

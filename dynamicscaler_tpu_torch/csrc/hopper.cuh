@@ -4,8 +4,10 @@
 // ds_flash_attention_f32 and temporal_f32.cu: kernels 10 and 12 on tf32
 // wgmma): mbarriers
 // (local and across a thread-block cluster), TMA tile copies (plain and
-// multicast to a cluster), wgmma descriptors and instructions, and the
-// host-side tensor-map encoder.
+// multicast to a cluster), wgmma descriptors and instructions, the tf32
+// split and its three-product mma.sync (kernels 10 and 12's and
+// ds_temporal_attention_f32's F-frame attention), cp.async, and the host-side
+// tensor-map encoder.
 //
 // Shared-memory tiles are rows of 128 bytes (64 bf16) in the 128-byte
 // swizzle that TMA writes and wgmma reads: 8-row groups of 1024 bytes, every
@@ -360,6 +362,51 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(x);
   lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a . b on the tensor cores to fp32 accuracy: mma.sync m16n8k8 .tf32
+// with A (16 x 8, the m16n8k8 tf32 fragment: rows g, g + 8, columns t, t +
+// 4 of lane 4g + t) and B (8 x 8: rows t, t + 4, column g) split, the three
+// products a_lo.b_hi + a_hi.b_lo + a_hi.b_hi into a zeroed part folded into
+// d in fp32; D's fragment: rows g (d0, d1), g + 8 (d2, d3), columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4], float b0,
+                                           float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(part, al, bh0, bh1);
+  mma_tf32(part, ah, bl0, bl1);
+  mma_tf32(part, ah, bh0, bh1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += part[i];
+}
+
+// 16 bytes from global to shared memory without registers (cp.async, L2
+// only); the _zfill form writes zeros where `in` is false and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
 // D[64 x N] = A[64 x 8] (shared, K-major) * B[N x 8]^T (shared, K-major)

@@ -149,14 +149,6 @@ __device__ __forceinline__ size_t frame_major_row(long long r, int F, int HW) {
   return (size_t)((b * F + f) * HW + (bhw - b * HW));
 }
 
-// 16 bytes from global to shared memory without registers (cp.async, L2 only)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Kernel 12's head: dst row r = x5 at logical row t0 + r (frame-major
 // stored row) * mul + add of its sample; rows >= rows are zeros.
 template <int TM>
@@ -277,32 +269,6 @@ __device__ void attention(const Args& a, float* sm, const float* qkv, float* out
     for (int d = 0; d < 32; d += 4)
       *reinterpret_cast<float4*>(y + d) = make_float4(o[d] * il, o[d + 1] * il, o[d + 2] * il, o[d + 3] * il);
   }
-}
-
-// d += a . b on the tensor cores to fp32 accuracy: mma.sync m16n8k8 .tf32
-// with A (16 x 8, the m16n8k8 tf32 fragment: rows g, g + 8, columns t, t +
-// 4 of lane 4g + t) and B (8 x 8: rows t, t + 4, column g) split, the three
-// products a_lo.b_hi + a_hi.b_lo + a_hi.b_hi into a zeroed part folded into
-// d in fp32; D's fragment: rows g (d0, d1), g + 8 (d2, d3), columns 2t, 2t + 1.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4], float b0,
-                                           float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(part, al, bh0, bh1);
-  mma_tf32(part, ah, bl0, bl1);
-  mma_tf32(part, ah, bh0, bh1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += part[i];
 }
 
 // The F-frame attention at F 8 and 16 (the UNet's) on the tensor cores

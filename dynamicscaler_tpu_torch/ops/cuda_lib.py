@@ -688,6 +688,11 @@ GN_STATS_ROWS_PER_THREAD = 32
 # a cluster (one a sample)
 GN_CLUSTER_THREADS = 512
 GN_CLUSTER_MAX = 16
+# ds_group_norm_silu's route argument: the index of the route's name
+GN_ROUTES = ("cluster", "split", "grid")
+# the grid route's blocks: one an SM, all resident (the H100 SXM has 132 SMs;
+# the wrapper passes the card's own count)
+GN_GRID_SMS = 132
 
 
 def gn_stats_splits(B: int, M: int, C: int) -> int:
@@ -706,46 +711,132 @@ def gn_cluster_lanes(C: int) -> int:
 
 
 def gn_cluster_smem(rows: int, C: int, G: int, elem: int = 2) -> int:
-    """Shared memory of a cluster-route block of ``ds_group_norm_silu``, as
-    ``csrc/gn_silu.cu::cluster_smem`` reckons it: the slab [rows, C] of
-    ``elem``-byte elements (2 bf16, 4 fp32), the row lanes' fp32 sums
-    [lanes, C], the block's per-channel sums [2, C] and two [2, G] fp32
-    group arrays."""
+    """Shared memory of a cluster-route (or grid-route) block of
+    ``ds_group_norm_silu``, as ``csrc/gn_silu.cu::cluster_smem`` reckons it:
+    the slab [rows, C] of ``elem``-byte elements (2 bf16, 4 fp32), the row
+    lanes' fp32 sums [lanes, C], the block's per-channel sums [2, C] and two
+    [2, G] fp32 group arrays."""
     return elem * rows * C + ((gn_cluster_lanes(C) + 2) * C + 4 * G) * 4
 
 
+def gn_fit_rows(C: int, G: int, elem: int) -> int:
+    """Rows of ``elem``-byte elements at width C that a cluster- or
+    grid-route block holds in shared memory beside its reduction arrays."""
+    return (GEMM_SMEM_MAX - gn_cluster_smem(0, C, G)) // (elem * C)
+
+
 class GnPlan(NamedTuple):
-    route: str   # "cluster" (the slab in shared memory) or "split" (statistics pass, then apply)
-    cs: int      # blocks a cluster, one cluster a sample (0 on the split route)
-    rows: int    # rows of a sample a cluster block holds, or a statistics split sums
-    smem: int    # dynamic shared memory bytes of a cluster block, or of a statistics block
-    splits: int  # row splits of a sample's statistics (0 on the cluster route)
+    route: str   # "cluster" (the slab in shared memory), "split" (statistics pass, then apply) or "grid"
+    cs: int      # blocks a cluster, one cluster a sample; on the grid route blocks a sample (0 on the split route)
+    rows: int    # rows of a sample a cluster or grid block takes, or a statistics split sums
+    smem: int    # dynamic shared memory bytes of a cluster or grid block, or of a statistics block
+    splits: int  # row splits of a sample's statistics; on the grid route samples a pass (0 on the cluster route)
+
+
+def gn_grid_held(plan: GnPlan, C: int, G: int = 32, elem: int = 4) -> int:
+    """Rows of the ``plan.rows`` a grid-route block takes that it holds in
+    shared memory (the rest it reads again in the apply)."""
+    return min(plan.rows, gn_fit_rows(C, G, elem))
+
+
+def gn_grid_scratch(plan: GnPlan, B: int, C: int, G: int = 32) -> int:
+    """fp32 elements of the grid route's scratch: the folded mul | add [2, B,
+    C], the blocks' group partials of two passes [2, splits * cs, 2, G] and
+    the barrier's counter (4 elements, the first an int)."""
+    return 2 * B * C + 4 * plan.splits * plan.cs * G + 4
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of a CUDA ``device`` (the grid route's blocks); :data:`GN_GRID_SMS`
+    for a tensor off the card (the tests' stand-in for one)."""
+    if device.type != "cuda":
+        return GN_GRID_SMS
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
 @functools.lru_cache(maxsize=None)
-def gn_plan(B: int, M: int, C: int, G: int = 32, elem: int = 2) -> GnPlan:
-    """The route of ``ds_group_norm_silu`` for x [B, M, C] of ``elem``-byte
-    elements (2 bf16, 4 fp32), GroupNorm over G groups per sample.
-    "cluster" where a sample's slab fits the shared memory of at most
-    :data:`GN_CLUSTER_MAX` blocks (x read once):
-    the fewest blocks that hold it, except that 6 or 7 become 8 and 9 to 15
-    become 16 (at one block an SM the H100 holds 15 clusters of 8 and 7 of
-    16 at once, 120 and 112 SMs, but 17 of 6, 15 of 7 and 7 to 9 of 9 to
-    15: chip_smoke.py phase 1 prints the table), then as many as whole
-    non-empty row ranges allow. Else "split": the statistics at
-    :func:`gn_stats_splits` row splits, then the apply."""
-    if B <= 0 or M <= 0 or C % 8 or not 0 < C <= 6144 or G <= 0 or C % G or elem not in (2, 4):
-        raise ValueError(f"gn_plan: needs B, M > 0, C % 8 == 0, C <= 6144, C % G == 0, 2- or 4-byte elements; "
-                         f"got B={B} M={M} C={C} G={G} elem={elem}")
-    fit = (GEMM_SMEM_MAX - gn_cluster_smem(0, C, G)) // (elem * C)  # rows a block holds
-    if fit >= 1 and -(-M // fit) <= GN_CLUSTER_MAX and 2 * G * GN_CLUSTER_MAX <= gn_cluster_lanes(C) * C:
-        cs = -(-M // fit)
-        cs = 16 if cs > 8 else 8 if cs > 5 else cs
-        rows = -(-M // min(cs, M))
-        return GnPlan("cluster", -(-M // rows), rows, gn_cluster_smem(rows, C, G, elem), 0)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _gn_cluster(M: int, C: int, G: int, elem: int):
+    """The cluster plan where a sample's slab fits the shared memory of at
+    most :data:`GN_CLUSTER_MAX` blocks, else None (see :func:`gn_plan`)."""
+    fit = gn_fit_rows(C, G, elem)
+    if fit < 1 or -(-M // fit) > GN_CLUSTER_MAX or 2 * G * GN_CLUSTER_MAX > gn_cluster_lanes(C) * C:
+        return None
+    cs = -(-M // fit)
+    cs = 16 if cs > 8 else 8 if cs > 5 else cs
+    rows = -(-M // min(cs, M))
+    return GnPlan("cluster", -(-M // rows), rows, gn_cluster_smem(rows, C, G, elem), 0)
+
+
+def _gn_grid(B: int, M: int, C: int, G: int, elem: int, sms: int) -> GnPlan:
+    """The grid plan: as many whole samples a pass as the card's shared
+    memory holds (``sms`` blocks of :func:`gn_fit_rows` rows), the passes
+    balanced, each sample spread over ``sms // per pass`` blocks; a sample
+    larger than that takes every block alone, its rows past the slab read
+    again in the apply."""
+    fit = gn_fit_rows(C, G, elem)
+    need = -(-M // fit)  # blocks a sample's slab needs
+    if need > sms:
+        per_pass = 1
+    else:
+        passes = -(-B // min(B, sms // need))
+        per_pass = -(-B // passes)
+    rows = -(-M // min(sms // per_pass, M))
+    return GnPlan("grid", -(-M // rows), rows, gn_cluster_smem(min(rows, fit), C, G, elem), per_pass)
+
+
+def _gn_split(B: int, M: int, C: int) -> GnPlan:
     splits = gn_stats_splits(B, M, C)
     lanes = max(1, GN_STATS_THREADS // (C // 8))
     return GnPlan("split", 0, -(-M // splits), 2 * lanes * C * 4, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def gn_plan(B: int, M: int, C: int, G: int = 32, elem: int = 2, sms: int = GN_GRID_SMS,
+            route: str | None = None) -> GnPlan:
+    """The route of ``ds_group_norm_silu`` for x [B, M, C] of ``elem``-byte
+    elements (2 bf16, 4 fp32), GroupNorm over G groups per sample, on a card
+    of ``sms`` SMs.
+
+    * "cluster" (x read once) where a sample's slab fits the shared memory
+      of at most :data:`GN_CLUSTER_MAX` blocks: the fewest blocks that hold
+      it, except that 6 or 7 become 8 and 9 to 15 become 16 (at one block an
+      SM the H100 holds 15 clusters of 8 and 7 of 16 at once, 120 and 112
+      SMs, but 17 of 6, 15 of 7 and 7 to 9 of 9 to 15: chip_smoke.py phase 1
+      prints the table), then as many as whole non-empty row ranges allow.
+    * "split": the statistics at :func:`gn_stats_splits` row splits, then
+      the apply (x read twice).
+    * "grid" (fp32 only): one cooperative launch of at most ``sms`` blocks
+      that walks the samples in passes (:func:`_gn_grid`; x read once where
+      a sample fits the card's shared memory).
+
+    bf16 and fp32 take "cluster" where it holds; else bf16 "split" and
+    fp32 "grid" (chip_smoke.py phase 10 times every fp32 shape on each
+    route: the grid beats the split route at every shape, and neither it
+    nor the cluster route is faster at every shape where both hold; PERF.md
+    has the table). ``route`` names a route to take instead; a route that
+    does not hold raises."""
+    if B <= 0 or M <= 0 or C % 8 or not 0 < C <= 6144 or G <= 0 or C % G or elem not in (2, 4) or sms <= 0:
+        raise ValueError(f"gn_plan: needs B, M > 0, C % 8 == 0, C <= 6144, C % G == 0, 2- or 4-byte elements; "
+                         f"got B={B} M={M} C={C} G={G} elem={elem} sms={sms}")
+    cluster = _gn_cluster(M, C, G, elem)
+    if route is None:
+        route = "cluster" if cluster is not None else "split" if elem == 2 else "grid"
+    if route == "cluster":
+        if cluster is None:
+            raise ValueError(f"gn_plan: a sample of {M} x {C} does not fit the shared memory of "
+                             f"{GN_CLUSTER_MAX} cluster blocks")
+        return cluster
+    if route == "grid":
+        if elem != 4:
+            raise ValueError("gn_plan: the grid route takes 4-byte (fp32) elements")
+        return _gn_grid(B, M, C, G, elem, sms)
+    if route == "split":
+        return _gn_split(B, M, C)
+    raise ValueError(f"gn_plan: no route {route!r}; the routes are {GN_ROUTES}")
 
 
 def gn_clusters(plan: GnPlan, C: int) -> int:

@@ -23,7 +23,8 @@ residual epilogue, and ``gn_silu_apply`` as ``csrc/gn_silu.cu::ds_gn_silu``;
 see the notes there for what bounds each. Activations are bf16 or fp32: at
 fp32 the heads and tails run ``csrc/gemm_f32.cu::ds_ln_gemm_f32`` and
 kernel 9 the fp32 instantiation of the same ``gn_silu.cu`` kernels (its
-cluster route reckoning 4-byte elements in ``cuda_lib.gn_plan``). Each
+cluster route reckoning 4-byte elements in ``cuda_lib.gn_plan``, and a grid
+route of its own). Each
 kernel wrapper takes its plain version (``*_plain``,
 same rounding points: normalised activation rounded to the activation type
 before the product, bias added in fp32 before the rounding, residual added
@@ -298,19 +299,21 @@ def gn_silu_apply(x, mul, add, *, act: bool = True):
 gn_silu_apply.launches = 0
 
 
-def gn_silu(x, gn_scale, gn_bias, *, eps: float = 1e-5, act: bool = True, vectors: bool = False):
+def gn_silu(x, gn_scale, gn_bias, *, eps: float = 1e-5, act: bool = True, vectors: bool = False, plan=None):
     """GroupNorm(32) [-> SiLU] with statistics per sample x.shape[0]
     (ResBlock / TemporalConvBlock / UNet out prologue; the VAE passes
     eps=1e-6): the JAX ``gn_silu`` (``group_norm_fold``, then kernel 9).
     On the card one call of ``csrc/gn_silu.cu::ds_group_norm_silu`` on the
-    route of :func:`cuda_lib.gn_plan` (a thread-block cluster a sample with
-    the slab in shared memory, or ``ds_gn_stats``'s kernels then the apply
-    kernel), counted in ``gn_silu.launches`` (and, on the split route,
-    ``gn_silu.launches_split``: the call launches the statistics kernels
-    too). With ``vectors`` also returns the folded ``(mul, add)`` [B, C]
-    fp32 the call applied (to check the statistics). x bf16 or fp32 (the
-    fp32 instantiation of the same kernels, ``gn_plan`` at 4-byte
-    elements)."""
+    route of :func:`cuda_lib.gn_plan` for the card's SMs (a thread-block
+    cluster a sample with the slab in shared memory; ``ds_gn_stats``'s
+    kernels then the apply kernel; or one cooperative launch over every SM
+    that walks the samples in passes), counted in ``gn_silu.launches`` (and,
+    on the split route, ``gn_silu.launches_split``: the call launches the
+    statistics kernels too). ``plan`` a :class:`cuda_lib.GnPlan` to take
+    instead (to time the routes). With ``vectors`` also returns the folded
+    ``(mul, add)`` [B, C] fp32 the call applied (to check the statistics).
+    x bf16 or fp32 (the fp32 instantiation of the same kernels, ``gn_plan``
+    at 4-byte elements)."""
     dt = cuda_lib.check_dtypes("gn_silu", x)
     if not cuda_lib.use_kernel(x):
         mul, add = group_norm_fold_plain(x, gn_scale, gn_bias, 32, eps)
@@ -322,18 +325,21 @@ def gn_silu(x, gn_scale, gn_bias, *, eps: float = 1e-5, act: bool = True, vector
         raise ValueError(f"ds_group_norm_silu takes C % 32 == 0, C <= 6144 and B <= 65535, got shape "
                          f"{tuple(x.shape)}")
     M = x.numel() // (B * C)
-    plan = cuda_lib.gn_plan(B, M, C, 32, x.element_size())
-    split = plan.route == "split"
+    if plan is None:
+        plan = cuda_lib.gn_plan(B, M, C, 32, x.element_size(), cuda_lib.sm_count(x.device))
     s, b = _gn_vectors(gn_scale, gn_bias)
     y = torch.empty_like(x)
-    # [2, B, C] mul | add, then on the split route the partials [splits, B, 2, C]
-    n = 2 * B * C * (plan.splits + 1) if split else 2 * B * C if vectors else 0
+    # [2, B, C] mul | add, then the split route's partials [splits, B, 2, C]
+    # or the grid route's partials and counter
+    n = {"split": 2 * B * C * (plan.splits + 1), "grid": cuda_lib.gn_grid_scratch(plan, B, C),
+         "cluster": 2 * B * C if vectors else 0}[plan.route]
     scratch = torch.empty(n, device=x.device, dtype=torch.float32) if n else None
     cuda_lib.call("ds_group_norm_silu", cuda_lib.ptr(x), B, M, C, 32, cuda_lib.ptr(s), cuda_lib.ptr(b),
-                  int(s.dtype == torch.float32), float(eps), int(act), int(split), plan.cs, plan.rows, plan.smem,
-                  plan.splits, cuda_lib.ptr(scratch), cuda_lib.ptr(y), int(dt == torch.float32))
+                  int(s.dtype == torch.float32), float(eps), int(act), cuda_lib.GN_ROUTES.index(plan.route), plan.cs,
+                  plan.rows, plan.smem, plan.splits, cuda_lib.ptr(scratch), cuda_lib.ptr(y),
+                  int(dt == torch.float32))
     gn_silu.launches += 1
-    if split:
+    if plan.route == "split":
         gn_silu.launches_split += 1
     return (y, tuple(scratch[:2 * B * C].view(2, B, C).unbind(0))) if vectors else y
 

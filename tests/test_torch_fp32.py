@@ -380,7 +380,8 @@ def test_gn_silu_takes_the_fp32_plan_and_flag(monkeypatch, shape):
     y = ttwrap.gn_silu(x, _vec(Cx), _vec(Cx))
     name, args = calls[-1]
     assert name == "ds_group_norm_silu" and y.dtype == F32
-    assert args[10:15] == (int(plan.route == "split"), plan.cs, plan.rows, plan.smem, plan.splits) and args[17] == 1
+    assert args[10:15] == (cuda_lib.GN_ROUTES.index(plan.route), plan.cs, plan.rows, plan.smem, plan.splits)
+    assert args[17] == 1
     ttwrap.gn_silu_apply(x, _z(B, Cx), _z(B, Cx))
     assert calls[-1][0] == "ds_gn_silu" and calls[-1][1][8] == 1
     ttwrap.gn_silu(x.to(BF16), _vec(Cx), _vec(Cx))
@@ -422,17 +423,20 @@ K9_SITES = {
 @pytest.mark.parametrize("where", list(K9_SITES))
 def test_gn_plan_at_fp32_fits_shared_memory(monkeypatch, where):
     """At every K9 call of the main path and the VAE, the fp32 plan's
-    cluster route holds a 4-byte slab: the rows a block holds fit the
-    block's shared memory beside the reduction arrays, never more rows a
-    block than the bf16 plan's (and so at least as many blocks), and the
-    route is "cluster" exactly where the sample fits 16 such blocks."""
+    cluster and grid routes hold a 4-byte slab: the rows a block holds fit
+    the block's shared memory beside the reduction arrays, a cluster block
+    never more rows than the bf16 plan's (and so at least as many blocks);
+    no call takes the split route; the route is "cluster" exactly where the
+    sample fits 16 such blocks, else "grid", whose passes of whole samples
+    each spread over at most 132 / (samples a pass) blocks cover the batch
+    with no empty block."""
     calls = K9_SITES[where](monkeypatch)
     assert calls
     for B, M, Cx in calls:
         plan = cuda_lib.gn_plan(B, M, Cx, 32, 4)
         fit = (SMEM_MAX - cuda_lib.gn_cluster_smem(0, Cx, 32, 4)) // (4 * Cx)
-        assert plan.route == ("cluster" if -(-M // fit) <= 16 else "split"), (B, M, Cx, plan)
-        assert 0 < plan.smem <= SMEM_MAX
+        assert 0 < plan.smem <= SMEM_MAX and plan.route != "split"
+        assert plan.route == ("cluster" if -(-M // fit) <= 16 else "grid"), (B, M, Cx, plan)
         if plan.route == "cluster":
             assert plan.smem == cuda_lib.gn_cluster_smem(plan.rows, Cx, 32, 4)
             assert plan.smem - cuda_lib.gn_cluster_smem(0, Cx, 32, 4) == 4 * plan.rows * Cx
@@ -440,7 +444,12 @@ def test_gn_plan_at_fp32_fits_shared_memory(monkeypatch, where):
             bf = cuda_lib.gn_plan(B, M, Cx, 32, 2)
             assert bf.route == "cluster" and plan.rows <= bf.rows and bf.cs <= plan.cs
         else:
-            assert plan.splits == cuda_lib.gn_stats_splits(B, M, Cx)
+            per_pass, passes = plan.splits, -(-B // plan.splits)
+            assert 1 <= per_pass <= B and (per_pass - 1) * passes < B  # passes balanced
+            assert plan.cs <= 132 // per_pass and (plan.cs - 1) * plan.rows < M <= plan.cs * plan.rows
+            held = min(plan.rows, fit)
+            assert held == cuda_lib.gn_grid_held(plan, Cx) and plan.smem == cuda_lib.gn_cluster_smem(held, Cx, 32, 4)
+            assert held == plan.rows or per_pass == 1  # rows past the slab only where one sample spans the card
 
 
 def test_gn_plan_refuses_other_element_sizes():

@@ -15,8 +15,17 @@
   lanes, the group's channels, then the cluster's blocks in rank order),
   within 1e-5 of ``group_norm_fold_plain``'s largest magnitude and bit for
   bit the same on a repeat;
+* the same for the fp32 grid route (``gn_grid_kernel``: streamed rows then
+  the slab per thread, row lanes, the group's channels, then the sample's
+  blocks in the kernel's fixed order), at passes of several samples and at
+  a sample larger than the card's shared memory, and, with the fp32 apply,
+  against the JAX ``gn_silu`` in interpret mode at a per-frame and a
+  per-clip shape;
+* at 2-byte elements the plan field for field the one before the grid
+  route, at every call of the full-width forwards and the VAE;
 * the wrapper's host code on CPU tensors with the launch replaced by a
-  recorder: one ``ds_group_norm_silu`` call carrying the plan, no
+  recorder: one ``ds_group_norm_silu`` call carrying the plan (a plan
+  handed in taken as it is; on the grid route route 2 and its scratch), no
   ``ds_gn_stats`` call from Python, and a raise on a non-zero return.
 """
 
@@ -269,3 +278,191 @@ def test_gn_silu_makes_one_call_with_its_plan(monkeypatch, shape, route):
 def test_gn_plan_refuses_what_the_kernel_does_not_take(B, M, C, G):
     with pytest.raises(ValueError, match="gn_plan"):
         cuda_lib.gn_plan(B, M, C, G)
+
+
+# ---------------------------------------------------------------------------
+# the grid route (fp32): gn_grid_kernel's reduction order, modelled
+# ---------------------------------------------------------------------------
+
+
+def _grid_model(x, scale, bias, G, eps, plan):
+    """The grid route's statistics as ``gn_grid_kernel`` orders its fp32
+    sums: block q of a sample takes rows [q * rows, ...); a thread sums its
+    rows (lanes rows apart) in order, first the streamed rows past the
+    ``held`` ones, then the held ones from shared memory; the row lanes in
+    order, the group's channels in order; then the sample's ``cs`` blocks'
+    partials, every 8th block's by each of 8 threads into four sums by 32
+    blocks (the tail into the first), added (0 + 1) + (2 + 3), the 8 added by
+    the kernel's shuffle tree ((0 + 4) + (2 + 6)) + ((1 + 5) + (3 + 7));
+    then the fold. Returns (mul, add) [B, C] float32."""
+    f32 = np.float32
+    B, M, C = x.shape
+    lanes = cuda_lib.gn_cluster_lanes(C)
+    held = cuda_lib.gn_grid_held(plan, C, G, 4)
+    cg = C // G
+    mul, add = np.zeros((B, C), f32), np.zeros((B, C), f32)
+    for b in range(B):
+        parts = []
+        for q in range(plan.cs):
+            rows = x[b, q * plan.rows:(q + 1) * plan.rows]
+            assert len(rows) > 0
+            red = np.zeros((2, lanes, C), f32)
+            for rl in range(lanes):
+                for row in list(rows[held:][rl::lanes]) + list(rows[:held][rl::lanes]):  # a thread's rows, in order
+                    red[0, rl] += row
+                    red[1, rl] += row * row
+            lane_sum = np.zeros((2, C), f32)
+            for rl in range(lanes):
+                lane_sum += red[:, rl]
+            gpart = np.zeros((2, G), f32)
+            for j in range(cg):
+                gpart += lane_sum[:, j::cg]
+            parts.append(gpart)
+        lane = []
+        for j0 in range(8):  # thread j0: blocks j0, j0 + 8, ... into four sums by 32, the tail into the first
+            acc = [np.zeros((2, G), f32) for _ in range(4)]
+            j = j0
+            while j + 24 < len(parts):
+                for k in range(4):
+                    acc[k] += parts[j + 8 * k]
+                j += 32
+            while j < len(parts):
+                acc[0] += parts[j]
+                j += 8
+            lane.append((acc[0] + acc[1]) + (acc[2] + acc[3]))
+        x4 = [lane[i] + lane[i ^ 4] for i in range(8)]
+        x2 = [x4[i] + x4[i ^ 2] for i in range(8)]
+        tot = x2[0] + x2[1]
+        n = f32(M * cg)
+        mean = tot[0] / n
+        rstd = f32(1.0) / np.sqrt(np.maximum(f32(0.0), tot[1] / n - mean * mean) + f32(eps))
+        m = np.repeat(rstd, cg) * scale
+        mul[b], add[b] = m, bias - np.repeat(mean, cg) * m
+    return mul, add
+
+
+def _grid_apply(x, mul, add, act):
+    """The apply at fp32: the product and the sum rounded separately, then
+    h / (1 + exp(-h)) (the grid route's ``__fdividef`` and ``__expf``, whose
+    few ulps the tolerance covers; no SiLU without ``act``)."""
+    h = x * mul[:, None] + add[:, None]
+    return h / (np.float32(1.0) + np.exp(-h)) if act else h
+
+
+@pytest.mark.parametrize("B,M,C,sms", [(2, 4000, 64, 4), (8, 300, 64, 4), (3, 700, 320, 16), (1, 90, 2560, 132),
+                                       (1, 2600, 64, 132)],
+                         ids=["rows-past-the-slab", "passes-of-4", "5-blocks-a-sample", "one-row-lane", "130-blocks"])
+def test_grid_route_reduction_model_matches_the_plain_fold(rng, B, M, C, sms):
+    """The grid route's reduction order gives the plain fold's vectors within
+    1e-5 of their largest magnitude, and the same bits every run: a sample
+    larger than the card's shared memory (C 64 on a card of 4 SMs: 1000 rows
+    a block, 840 held, the rest streamed and read again), 4 samples a pass
+    of one block each in two passes, 3 samples of 5 blocks, one row lane at
+    C 2560, and one sample over 130 blocks (the four sums of each lane)."""
+    x = (2.0 * rng.standard_normal((B, M, C)) + 0.5).astype(np.float32)
+    s = (1.0 + 0.1 * rng.standard_normal(C)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(C)).astype(np.float32)
+    plan = cuda_lib.gn_plan(B, M, C, 32, 4, sms, "grid")
+    assert plan.route == "grid" and plan.splits * plan.cs <= sms
+    assert (plan.cs - 1) * plan.rows < M <= plan.cs * plan.rows
+    if B == 2:
+        assert plan.splits == 1 and cuda_lib.gn_grid_held(plan, C) < plan.rows
+    mul, add = _grid_model(x, s, b, 32, 1e-5, plan)
+    pm, pa = ttwrap.group_norm_fold_plain(_t(x), _t(s), _t(b), 32, 1e-5)
+    for got, want in ((mul, pm.numpy()), (add, pa.numpy())):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.abs(want).max()))
+    again = _grid_model(x, s, b, 32, 1e-5, plan)
+    assert mul.tobytes() == again[0].tobytes() and add.tobytes() == again[1].tobytes()
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+@pytest.mark.parametrize("shape", [(8, 6, 5, 64), (2, 4, 6, 5, 96)], ids=["per-frame", "per-clip"])
+def test_grid_route_model_matches_pallas(rng, interpret, shape, eps, act):
+    """The grid route's model (its reduction order, the fold, the fp32
+    apply) against the JAX gn_silu through its Pallas kernel at a per-frame
+    and a per-clip shape, rtol 1e-5 with a floor of 1e-5 of the output's
+    largest magnitude, bit for bit the same on a repeat; at the plan of an
+    H100 (132 SMs) and of a card of 4 SMs (passes of 4 samples, or 2 row
+    blocks a sample)."""
+    C = shape[-1]
+    x = (3.0 * rng.standard_normal(shape) + 1.0).astype(np.float32)
+    s = (1.0 + 0.1 * rng.standard_normal(C)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(C)).astype(np.float32)
+    ref = np.asarray(jtwrap.gn_silu(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b), eps=eps, act=act, site="unet"))
+    B = shape[0]
+    x3 = x.reshape(B, -1, C)
+    for sms in (132, 4):
+        plan = cuda_lib.gn_plan(B, x3.shape[1], C, 32, 4, sms, "grid")
+        mul, add = _grid_model(x3, s, b, 32, eps, plan)
+        y = _grid_apply(x3, mul, add, act).reshape(shape)
+        np.testing.assert_allclose(y, ref, rtol=1e-5, atol=1e-5 * max(1.0, float(np.abs(ref).max())))
+        again = _grid_apply(x3, *_grid_model(x3, s, b, 32, eps, plan), act)
+        assert again.tobytes() == y.reshape(x3.shape).tobytes()
+
+
+def _plan_before_the_grid_route(B, M, C, G, elem):
+    """``gn_plan`` as it was before the grid route (cluster where a sample
+    fits 16 blocks, else split), kept here to hold bf16 to it."""
+    fit = (SMEM_MAX - cuda_lib.gn_cluster_smem(0, C, G)) // (elem * C)
+    if fit >= 1 and -(-M // fit) <= 16 and 2 * G * 16 <= cuda_lib.gn_cluster_lanes(C) * C:
+        cs = -(-M // fit)
+        cs = 16 if cs > 8 else 8 if cs > 5 else cs
+        rows = -(-M // min(cs, M))
+        return ("cluster", -(-M // rows), rows, cuda_lib.gn_cluster_smem(rows, C, G, elem), 0)
+    splits = cuda_lib.gn_stats_splits(B, M, C)
+    lanes = max(1, 256 // (C // 8))
+    return ("split", 0, -(-M // splits), 2 * lanes * C * 4, splits)
+
+
+@pytest.mark.parametrize("where", list(FORWARDS))
+def test_bf16_plan_is_the_one_before_the_grid_route(monkeypatch, where):
+    """At 2-byte elements ``gn_plan`` never takes the grid route: at every
+    call of the full-width forwards and the VAE it is field for field the
+    plan before the grid route existed, on a card of any SM count."""
+    for B, M, C in FORWARDS[where][0](monkeypatch):
+        want = _plan_before_the_grid_route(B, M, C, 32, 2)
+        for sms in (132, 114, 4):
+            assert tuple(cuda_lib.gn_plan(B, M, C, 32, 2, sms)) == want, (B, M, C, sms)
+
+
+def test_gn_silu_on_the_grid_route_makes_one_call(monkeypatch):
+    """On the grid route (fp32) ``gn_silu`` makes one ``ds_group_norm_silu``
+    call with route 2, the plan's blocks a sample, rows, shared memory and
+    samples a pass, and one scratch buffer of ``gn_grid_scratch`` elements
+    (mul | add, two passes' partials, the counter) whose head it returns as
+    the folded vectors; a plan handed in is taken as it is."""
+    calls, bufs = [], []
+    monkeypatch.setattr(cuda_lib, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(cuda_lib, "check_operand", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_lib, "ptr", lambda t: bufs.append(t) or (None if t is None else id(t)))
+    monkeypatch.setattr(cuda_lib, "call", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(ttwrap.gn_silu, "launches", 0)
+    monkeypatch.setattr(ttwrap.gn_silu, "launches_split", 0)
+    B, F, H, W, C = 2, 16, 40, 64, 320
+    x = torch.zeros((B, F, H, W, C))
+    M = F * H * W
+    plan = cuda_lib.gn_plan(B, M, C, 32, 4, cuda_lib.GN_GRID_SMS, "grid")
+    y, (mul, add) = ttwrap.gn_silu(x, torch.ones(C), torch.zeros(C), vectors=True, plan=plan)
+    assert [c[0] for c in calls] == ["ds_group_norm_silu"] and y.shape == x.shape
+    args = calls[0][1]
+    assert args[10:15] == (2, plan.cs, plan.rows, plan.smem, plan.splits) and args[17] == 1
+    scratch = bufs[3]
+    assert scratch.numel() == cuda_lib.gn_grid_scratch(plan, B, C) == 2 * B * C + 4 * plan.splits * plan.cs * 32 + 4
+    assert mul.data_ptr() == scratch.data_ptr() and add.data_ptr() == scratch.data_ptr() + 4 * B * C
+    assert (ttwrap.gn_silu.launches, ttwrap.gn_silu.launches_split) == (1, 0)
+    other = cuda_lib.gn_plan(B, M, C, 32, 4, cuda_lib.GN_GRID_SMS, "split")
+    ttwrap.gn_silu(x, torch.ones(C), torch.zeros(C), plan=other)
+    assert calls[-1][1][10:15] == (1, 0, other.rows, other.smem, other.splits)
+
+
+def test_gn_plan_refuses_a_route_that_does_not_hold():
+    """A named route that does not hold raises: the cluster route where a
+    sample does not fit 16 blocks, a name that is no route, and the grid
+    route at 2-byte elements."""
+    with pytest.raises(ValueError, match="gn_plan"):
+        cuda_lib.gn_plan(8, 40960, 320, 32, 4, 132, "cluster")
+    with pytest.raises(ValueError, match="gn_plan"):
+        cuda_lib.gn_plan(8, 640, 320, 32, 4, 132, "grid ")
+    with pytest.raises(ValueError, match="gn_plan"):
+        cuda_lib.gn_plan(8, 40960, 320, 32, 2, 132, "grid")

@@ -20,7 +20,13 @@ of that arithmetic (the kernels never call them). Here:
 * a single tf32 product (a_hi.b_hi) misses that gate, so the gate tells a
   one-product kernel from the split;
 * P V with P in [0, 1] (softmax probabilities, 64 to 2560 keys) against
-  V N(0, 1) holds the same gate.
+  V N(0, 1) holds the same gate;
+* K1's attention at fp32 (``csrc/attention_f32.cu::
+  ds_temporal_attention_f32``) modelled as the kernel computes it: at F 16
+  and 8 the three-product attention on ``mma.sync`` with its key
+  permutation, at F 4 and 32 the CUDA-core online softmax, within a tenth
+  of the gate of ``temporal_attention_plain`` and, composed into K1, of the
+  JAX K1 kernel in interpret mode.
 """
 
 import functools
@@ -423,3 +429,161 @@ def test_k11_model_with_the_tensor_cores_rounding_holds_the_gate():
     print(f"K11 s320 model with rounding towards zero: P V folded per key tile {err:.3g} / {l2:.3g}; "
           "in one accumulator %.3g / %.3g" % _k11_model_errors(fold=False))
     assert err <= TOL_F32 / 4 and l2 <= TOL_F32 / 4, (err, l2)
+
+
+# ---------------------------------------------------------------------------
+# K1's attention at fp32 (csrc/attention_f32.cu::ds_temporal_attention_f32)
+# ---------------------------------------------------------------------------
+
+
+def _fma32(a, b, c):
+    """fp32 a * b + c rounded once (the product is exact in float64)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _ta_warp_tc(q, k, v, F, scale, core):
+    """One warp's 16 tokens (a row of 16 frames, or two of 8) as
+    ``ta_warp_tc`` computes them on the tensor cores: S in steps of 8 dims,
+    each step's three products into a fresh accumulator (``core``) folded in
+    fp32, the B operand's column g of key tile n holding key 8n + (g >> 1) +
+    (g & 1) * 4; the logits scaled (at F 8 the other row's masked), the
+    row's maximum, expf, the sum as the lane quad adds it; P's A fragment
+    read from S's registers (column 2t -> A column t, 2t + 1 -> t + 4), P V
+    in two steps of 8 keys, each folded; O times the sum's reciprocal."""
+    f32 = np.float32
+    perm = np.array([(g >> 1) + (g & 1) * 4 for g in range(8)])
+    s = np.zeros((16, 16), f32)  # S's columns in the permuted order: column 8n + g is key 8n + perm[g]
+    for n in range(2):
+        kt = k[8 * n + perm]  # B [8 keys, 64 dims] as the lanes read it
+        for kk in range(0, 64, 8):
+            s[:, 8 * n:8 * n + 8] += core(q[:, kk:kk + 8], kt[:, kk:kk + 8].t().contiguous(), 0, 8,
+                                          np.zeros((16, 8), f32))
+    rows = np.arange(16)[:, None] // 8
+    keys = 8 * (np.arange(16)[None, :] // 8) + np.tile(perm, 2)[None, :]
+    own = (keys // 8 == rows) | (F == 16)
+    s = np.where(own, s * f32(scale), f32(-np.inf))
+    p = np.exp(s - s.max(axis=1, keepdims=True)).astype(f32)
+    quad = np.zeros((16, 4), f32)  # lane t's sum of its four columns (2t, 2t + 1 of both key tiles), in order
+    for t in range(4):
+        for c in (2 * t, 2 * t + 1, 8 + 2 * t, 8 + 2 * t + 1):
+            quad[:, t] += p[:, c]
+    pair = quad + quad[:, [1, 0, 3, 2]]
+    l = pair + pair[:, [2, 3, 0, 1]]
+    a = np.zeros((16, 16), f32)  # P by key: A column c of key step n is key 8n + c
+    for n in range(2):
+        for t in range(4):
+            a[:, 8 * n + t] = p[:, 8 * n + 2 * t]
+            a[:, 8 * n + t + 4] = p[:, 8 * n + 2 * t + 1]
+    o = np.zeros((16, 64), f32)
+    for n in range(2):
+        o += core(torch.from_numpy(a[:, 8 * n:8 * n + 8]), v[8 * n:8 * n + 8], 0, 8, np.zeros((16, 64), f32))
+    return o * (f32(1.0) / l[:, :1])
+
+
+def _ta_token_cc(q, k, v, F, scale):
+    """The CUDA-core path (``ta_token_cc``) over tokens [T, 64] of rows of F:
+    two threads a token, each a half's partial logit in four fma chains
+    added as (p0 + p1) + (p2 + p3), the halves added and scaled; an online
+    softmax over the row's keys in order (the sum and the weighted values
+    rescaled by expf(m_old - m) where the maximum grows); O over the sum."""
+    f32 = np.float32
+    T = q.shape[0]
+    qn, kn, vn = (t.numpy() for t in (q, k, v))
+    base = (np.arange(T) // F) * F
+    m = np.full(T, -np.inf, f32)
+    l = np.zeros(T, f32)
+    o = np.zeros((T, 64), f32)
+    for j in range(F):
+        kj, vj = kn[base + j], vn[base + j]
+        halves = []
+        for h in range(2):
+            p4 = np.zeros((T, 4), f32)
+            for d in range(32 * h, 32 * h + 32, 4):
+                p4 = _fma32(qn[:, d:d + 4], kj[:, d:d + 4], p4)
+            halves.append((p4[:, 0] + p4[:, 1]) + (p4[:, 2] + p4[:, 3]))
+        s = (halves[0] + halves[1]) * f32(scale)
+        grow = s > m
+        alpha = np.exp(np.where(grow, m - s, f32(0.0))).astype(f32)
+        l = np.where(grow, l * alpha, l)
+        o = np.where(grow[:, None], o * alpha[:, None], o)
+        m = np.where(grow, s, m)
+        p = np.exp(s - m).astype(f32)
+        l = l + p
+        o = _fma32(p[:, None], vj, o)
+    return o * (f32(1.0) / l)[:, None]
+
+
+def _ta_model(qkv, F, heads, scale, core):
+    """ds_temporal_attention_f32's model over qkv [T, 3C]: per head, at F 8
+    and 16 warps of 16 tokens on the tensor cores, else the CUDA-core path."""
+    T, C3 = qkv.shape
+    C = C3 // 3
+    out = np.zeros((T, C), np.float32)
+    for h in range(heads):
+        q, k, v = (qkv[:, i * C + 64 * h:i * C + 64 * h + 64].contiguous() for i in range(3))
+        if F in (8, 16):
+            for r0 in range(0, T, 16):
+                out[r0:r0 + 16, 64 * h:64 * h + 64] = _ta_warp_tc(q[r0:r0 + 16], k[r0:r0 + 16], v[r0:r0 + 16], F,
+                                                                   scale, core)
+        else:
+            out[:, 64 * h:64 * h + 64] = _ta_token_cc(q, k, v, F, scale)
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("core", ["exact", "towards zero"])
+@pytest.mark.parametrize("R,F,heads", [(16, 16, 2), (24, 8, 2), (32, 4, 1), (4, 32, 2)])
+def test_temporal_attention_f32_model_holds_a_tenth_of_the_gate(R, F, heads, core):
+    """TA.f32's model (F 16 and 8: the three-product tf32 attention with the
+    key permutation; F 4 and 32: the CUDA-core online softmax) against the
+    fp32 plain version ``temporal_attention_plain``, whose K1 the JAX K1
+    kernel holds below, within a tenth of the 1e-5 gate (max error and L2);
+    the tensor core's additions exact or rounded towards zero. The same
+    bits on a repeat."""
+    from dynamicscaler_tpu_torch.ops import fused_temporal
+    rng = np.random.default_rng(R * F)
+    C = 64 * heads
+    qkv = torch.from_numpy((rng.standard_normal((R * F, 3 * C)) * 1.5).astype(np.float32))
+    ref = fused_temporal.temporal_attention_plain(qkv.reshape(R, F, 3 * C), heads=heads, scale=0.125).reshape(-1, C)
+    cf = _exact_core if core == "exact" else _tensor_core
+    got = _ta_model(qkv, F, heads, 0.125, cf)
+    err, l2 = _errors(got, ref.double())
+    assert err <= TOL_F32 / MARGIN and l2 <= TOL_F32 / MARGIN, (err, l2)
+    assert torch.equal(got, _ta_model(qkv, F, heads, 0.125, cf))
+
+
+@pytest.mark.parametrize("R,F,C,heads", [(8, 16, 128, 2), (12, 8, 64, 1), (16, 4, 64, 1), (4, 32, 128, 2)])
+def test_temporal_attention_f32_model_in_k1_matches_the_jax_kernel(R, F, C, heads):
+    """K1 composed around TA.f32's model (the port's LayerNorm and fp32
+    projections, the model's attention, the out-projection, bias and
+    residual) against the JAX K1 kernel in interpret mode at fp32: the
+    attention branch (output - x) within a tenth of the 1e-5 gate of its
+    largest magnitude and of its L2 norm."""
+    import jax.numpy as jnp
+
+    from dynamicscaler_tpu.ops import fused_temporal as jtemporal
+    from dynamicscaler_tpu_torch.models.layers import layer_norm
+    rng = np.random.default_rng(F)
+    f32 = np.float32
+    x = (rng.standard_normal((R, F, C)) * 0.5).astype(f32)
+    s = (1.0 + 0.1 * rng.standard_normal(C)).astype(f32)
+    b = (0.1 * rng.standard_normal(C)).astype(f32)
+    mats = [(rng.standard_normal((C, C)) / np.sqrt(C)).astype(f32) for _ in range(4)]
+    bo = (0.1 * rng.standard_normal(C)).astype(f32)
+    scale = 0.125
+    jtemporal.set_mode("interpret")
+    try:
+        ref = np.asarray(jtemporal.fused_ln_attention(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b),
+                                                      *map(jnp.asarray, mats), jnp.asarray(bo), heads=heads,
+                                                      scale=scale))
+    finally:
+        jtemporal.set_mode("auto")
+    xt = torch.from_numpy(x).reshape(R * F, C)
+    h = layer_norm(xt, torch.from_numpy(s), torch.from_numpy(b), 1e-5)
+    wq, wk, wv, wo = (torch.from_numpy(m) for m in mats)  # flax [in, out]
+    qkv = torch.cat([h @ wq, h @ wk, h @ wv], dim=1)
+    o = _ta_model(qkv, F, heads, scale, _tensor_core)
+    got = ((o @ wo + torch.from_numpy(bo)) + xt).reshape(R, F, C).numpy()
+    branch = ref - x
+    d = got - ref
+    assert np.abs(d).max() <= TOL_F32 / MARGIN * np.abs(branch).max(), np.abs(d).max() / np.abs(branch).max()
+    assert np.linalg.norm(d) <= TOL_F32 / MARGIN * np.linalg.norm(branch)
