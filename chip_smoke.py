@@ -178,12 +178,23 @@ Phases, in order, one result line each (any failure exits non-zero):
    bundle in fp32 (every parameter 0.01) and the tiny fp32 bundle through
    a VideoCrafter-named checkpoint and ``load_videocrafter_checkpoint`` on
    the card, fp32 and bit-exact.
+11. the window-batch mesh (``parallel/mesh.py``) at world size 1: one NCCL
+   rank on this card (``init_rank``, ``make_mesh(n_data=1)``), the NCCL
+   version printed; phase 6's stage-1 sphere call for one step and phase
+   5's stage-2 request for two steps, each once without a mesh and once
+   with ``mesh=``, where every CFG-packed window batch goes through
+   ``mesh.apply_sharded`` and its NCCL collectives (rank 0's batch
+   broadcast, the eps gathered; one batch a step). The mesh runs equal the
+   mesh-less ones bit for bit (latent, denoised, video), with the same
+   launch counts and one window batch a step; the phase's time and the
+   collectives' ms a batch.
 
 Then one JSON line of kernel records (K1-K13, TA, FA, GN; ``launches`` is
 the sum over the paths: the three samplers, the gen_pano_360 CLI, the
 sample CLI's four modes and the LCM stream, the demo's two requests, the
 batch eval's three runs, the ``no_temporal_attn`` forward, phase 5's
-"off" request and phase 2's two override forwards; and the fp32 records
+"off" request, phase 2's two override forwards and phase 11's two mesh
+runs; and the fp32 records
 ``K1.f32`` ... ``GN.f32``, launches summed over phase 10's forwards and CLI
 runs, times per the first batch-8 fp32 forward in which the kernel runs),
 and last the device JSON line.
@@ -434,6 +445,7 @@ def main() -> None:
         records[k]["max_abs_err"] = max(records[k]["max_abs_err"], errs.get(k, 0.0), sample_errs.get(k, 0.0),
                                         serve_errs.get(k, 0.0))
     f32_records, f32_paths = _phase_fp32(t2v_model, i2v_model)
+    paths.update(_phase_mesh(i2v_model))
 
     kernels = [
         {"name": f"{k} {desc}", "route": "cuda", "source": src, "replaces": rep,
@@ -2006,6 +2018,13 @@ class _Probe:
         return wrapped
 
 
+# phase 5's request: stage 2 of gen_pano_360 (512x1024x16, 2x2 windows of 320x512, UNet batch 8)
+STAGE2_KW = dict(total_w=1024, total_h=512, total_f=16, num_windows_w=2, num_windows_h=2, loop_step=16, height=320,
+                 width=512, frames=16, fps=8, guidance_scale=7.5, num_inference_steps=48, use_skip_time=True,
+                 unet_microbatch=8, decode=True)
+STAGE2_PROMPT = "a panoramic mountain lake at sunrise"
+
+
 def _phase_i2v_sampler(model, steps):
     """Phase 5: stage 2 of gen_pano_360 on the i2v sampler at full width: a
     one-step warm-up request, one timed request of ``steps`` steps under the
@@ -2024,12 +2043,8 @@ def _phase_i2v_sampler(model, steps):
         probe.stats.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        video, _ = i2v.sample_shift_multi_windows(
-            model, "a panoramic mountain lake at sunrise", pano, total_w=1024, total_h=512, total_f=16,
-            num_windows_w=2, num_windows_h=2, loop_step=16, height=320, width=512, frames=16, fps=8,
-            guidance_scale=7.5, num_inference_steps=48, use_skip_time=True, skip_time_step_idx=48 - n_steps,
-            unet_microbatch=8, generator=gen, decode=True,
-        )
+        video, _ = i2v.sample_shift_multi_windows(model, STAGE2_PROMPT, pano, skip_time_step_idx=48 - n_steps,
+                                                  generator=gen, **STAGE2_KW)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         st = collections.Counter(probe.stats)
@@ -2083,6 +2098,15 @@ CLI_PHI_PROMPTS = {
 CLI_THETAS = [360 * t // 6 for t in range(6)]
 CLI_GRID = {90: [0], -90: [0], 75: CLI_THETAS, -75: CLI_THETAS, 60: CLI_THETAS, -60: CLI_THETAS,
             45: CLI_THETAS, -45: CLI_THETAS, 0: CLI_THETAS}
+# phase 6's stage-1 call at the CLI's geometry and schedules (48-step table)
+SPHERE_KW = dict(
+    equirect_width=2048, equirect_height=1024, phi_theta_dict=CLI_GRID, view_fov=120, loop_step_theta=10,
+    phi_prompt_dict=CLI_PHI_PROMPTS, total_f=16, dock_at_f=True,
+    overlap_ratio_list_f=[[0.75, 0.5][i * 2 // 48] for i in range(48)], loop_step_frame=8, height=320, width=512,
+    frames=16, fps=8, guidance_scale=7.5, num_inference_steps=48, paste_on_static=True,
+    merge_renoised_overlap_latent_ratio=1.0,
+    merge_prev_denoised_ratio_list=[0.5 * (1 - t / 20) for t in range(20)] + [0.0] * 28, overlap_mode="last",
+    unet_microbatch=8)
 
 
 def _phase_sphere(model, steps):
@@ -2091,8 +2115,6 @@ def _phase_sphere(model, steps):
     warm-up, the last step timed."""
     from dynamicscaler_tpu_torch.pipelines import sphere
 
-    S = 48
-    ov_org = [0.75, 0.5]
     pano = smooth_panorama(1024, 2048, seed=9)
     probe = _Probe(model, [(model, "encode_text", "conditioning"), (model, "encode_image_cond", "conditioning"),
                            (model, "encode_video", "encode"), (model, "apply_unet", "unet"),
@@ -2115,15 +2137,8 @@ def _phase_sphere(model, steps):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, latent, den = sphere.sample_shift_sphere_panorama(
-            model, CLI_PROMPT, pano, equirect_width=2048, equirect_height=1024, phi_theta_dict=CLI_GRID,
-            view_fov=120, loop_step_theta=10, phi_prompt_dict=CLI_PHI_PROMPTS, total_f=16, dock_at_f=True,
-            overlap_ratio_list_f=[ov_org[i * len(ov_org) // S] for i in range(S)], loop_step_frame=8,
-            height=320, width=512, frames=16, fps=8, guidance_scale=7.5, num_inference_steps=S,
-            denoise_to_step=steps, paste_on_static=True, merge_renoised_overlap_latent_ratio=1.0,
-            merge_prev_denoised_ratio_list=[0.5 * (1 - t / 20) for t in range(20)] + [0.0] * (S - 20),
-            overlap_mode="last", unet_microbatch=8, generator=gen,
-        )
+        _, latent, den = sphere.sample_shift_sphere_panorama(model, CLI_PROMPT, pano, denoise_to_step=steps,
+                                                             generator=gen, **SPHERE_KW)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
@@ -3258,6 +3273,66 @@ def _phase_fp32(t2v_bf, i2v_bf):
     for k in FP32_KERNELS:
         records[k]["max_abs_err"] = max(records[k]["max_abs_err"], errs.get(k, 0.0))
     return records, paths
+
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the window-batch mesh at world size 1
+# ---------------------------------------------------------------------------
+
+
+def _phase_mesh(model):
+    """Phase 11: phase 6's stage-1 step and phase 5's stage-2 request, each
+    without a mesh and on a one-rank NCCL mesh, equal bit for bit with equal
+    launches. Returns the mesh runs' launches by path."""
+    import torch.distributed as dist
+
+    from dynamicscaler_tpu_torch.parallel import mesh as mesh_lib
+    from dynamicscaler_tpu_torch.pipelines import i2v, sphere
+
+    t_phase = time.perf_counter()
+    if dist.is_initialized():
+        _fail("phase 11: a process group is already initialised")
+    mesh_lib.init_rank(0, 1, mesh_lib.free_port(), "cuda")
+    try:
+        mesh = mesh_lib.make_mesh(n_data=1)
+        print(f"phase 11: NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, backend "
+              f"{dist.get_backend()}, mesh {mesh.n_data} x {mesh.n_seq} on {mesh.device}", flush=True)
+        sphere_pano = smooth_panorama(1024, 2048, seed=9)
+        stage2_pano = smooth_panorama(512, 1024, seed=5)
+        runs = {
+            "sphere": (1, lambda m: sphere.sample_shift_sphere_panorama(
+                model, CLI_PROMPT, sphere_pano, denoise_to_step=1, mesh=m,
+                generator=torch.Generator(device=DEV).manual_seed(17), **SPHERE_KW)[1:]),
+            "i2v": (2, lambda m: i2v.sample_shift_multi_windows(
+                model, STAGE2_PROMPT, stage2_pano, skip_time_step_idx=46, mesh=m,
+                generator=torch.Generator(device=DEV).manual_seed(13), **STAGE2_KW)),
+        }
+        paths = {}
+        for name, (steps, fn) in runs.items():
+            got = {}
+            for on in (False, True):
+                mesh.take_gather_seconds()
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = fn(mesh if on else None)
+                torch.cuda.synchronize()
+                got[on] = (outs, _launches(), time.perf_counter() - t0, mesh.take_gather_seconds())
+            (ref, ref_n, ref_s, _), (outs, n, sec, (gathers, gather_s)) = got[False], got[True]
+            same = [bool(torch.equal(a, b)) for a, b in zip(outs, ref)]
+            print(f"phase 11 {name} ({steps} step{'s' * (steps > 1)}): without a mesh {ref_s:.2f} s, on the "
+                  f"one-rank mesh {sec:.2f} s with {gathers} window batches, {1e3 * gather_s / max(gathers, 1):.3f} "
+                  f"ms each in their collectives (rank 0's inputs broadcast, the eps gathered); outputs "
+                  f"{[tuple(o.shape) for o in outs]} bit-identical {same}; launches equal {n == ref_n}", flush=True)
+            if not all(same) or n != ref_n or gathers != steps:
+                _fail(f"phase 11 {name}: bit-identical {same}, launches {n} against {ref_n}, window batches "
+                      f"{gathers} (expected {steps})")
+            paths[f"mesh {name}"] = n
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 11 ok in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
 
 
 if __name__ == "__main__":

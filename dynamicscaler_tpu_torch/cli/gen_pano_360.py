@@ -16,14 +16,21 @@ wall seconds and steady s/step in ``<out_dir>/e2e.json``.
     python -m dynamicscaler_tpu_torch.cli.gen_pano_360 --ckpt_path model.ckpt --bpe_path bpe.txt.gz \\
         --pano_image_path pano.png
     python -m dynamicscaler_tpu_torch.cli.gen_pano_360 --dev_full_random true   # full size, no assets
+    python -m dynamicscaler_tpu_torch.cli.gen_pano_360 --dev_full_random true --data_parallel_devices 4
     python -m dynamicscaler_tpu_torch.cli.gen_pano_360 --dev_tiny true --pano_image_path pano.png
 
 The model runs on the CUDA card in bf16 (``--dtype bfloat16``, the
 default) or fp32 (``--dtype float32``: the fp32 kernels, with TF32 switched
 off for cuDNN's convolutions and PyTorch's matrix products);
-``--dev_tiny`` runs the tiny fp32 model on the CPU. Refused at startup: any
-other ``--dtype`` on the card and ``--data_parallel_devices`` above 1 (no
-multi-GPU path yet). The JAX CLI's warm-start flags
+``--dev_tiny`` runs the tiny fp32 model on the CPU.
+``--data_parallel_devices N`` (N > 1) starts N ranks, one process a card
+on ``cuda:0`` ... ``cuda:N-1`` in an NCCL group (``parallel/mesh.py``; under
+``--dev_tiny`` N gloo processes on the CPU): every rank builds the model,
+rank 0's weights are broadcast, and every DDIM step's window batch is split
+over the ranks (the sequential overlap mode runs whole on each). Rank 0
+alone writes the outputs and prints the stage timings, whose steady s/step
+includes the gather. Refused at startup: any other ``--dtype`` on the card
+and more ranks than the machine has cards. The JAX CLI's warm-start flags
 (``aot_warm``, ``warm_probe``, ``repeat_warm``, ``resident_pass``) exist
 only for its TPU server and XLA compiles and are not flags here.
 """
@@ -103,7 +110,7 @@ class VArgs:
     unet_microbatch: int = 8
     view_get_scale_factor: int = 1
     view_set_scale_factor: int = 1
-    # shard the window batch across this many devices (0 = single); above 1 is refused
+    # split every step's window batch over this many cards, one rank a card (0 or 1: one process)
     data_parallel_devices: int = 0
     dtype: str = "bfloat16"
     save_latents: bool = True
@@ -127,9 +134,10 @@ class VArgs:
 
 def check_flags(vargs: VArgs) -> None:
     """Refuse at startup what the port cannot run, each with its reason."""
-    if vargs.data_parallel_devices > 1:
-        raise ValueError(f"--data_parallel_devices {vargs.data_parallel_devices}: the port runs on one card; "
-                         "the data-parallel window batch over several GPUs is not ported yet")
+    n = vargs.data_parallel_devices
+    if n > 1 and not vargs.dev_tiny and n > torch.cuda.device_count():
+        raise ValueError(f"--data_parallel_devices {n}: one rank a CUDA card needs {n} cards; found "
+                         f"{torch.cuda.device_count()} (--dev_tiny runs the ranks on the CPU)")
     check_dtype(vargs.dtype, vargs.dev_tiny)
 
 
@@ -224,15 +232,50 @@ def main(vargs: VArgs, _model=None, _noise=None):
     replaces :func:`build_model`'s bundle. ``_noise`` (tests only) maps a
     draw site (see :func:`site_seed`) to a ``noise_fn(name, shape)`` that
     replaces that site's generator: the samplers' ``noise_fn``, and for
-    site 3 the re-noise drawn under the name ``re_noise``."""
+    site 3 the re-noise drawn under the name ``re_noise``. With
+    ``--data_parallel_devices`` N > 1 it builds the kernels, starts the N
+    ranks (:func:`_mesh_rank`) and returns when every rank has finished;
+    ``_model`` and ``_noise`` are then refused (each rank builds its own)."""
+    check_flags(vargs)
+    n = vargs.data_parallel_devices
+    if n <= 1:
+        return run(vargs, _model, _noise)
+    if _model is not None or _noise is not None:
+        raise ValueError("_model and _noise hand objects to one process; the ranks build their own")
+    from dynamicscaler_tpu_torch.parallel.mesh import launch
+
+    # one output directory for every rank, named here
+    vargs = dataclasses.replace(vargs, project_name=vargs.project_name or time.strftime("pano-%Y%m%d-%H%M%S"))
+    if not vargs.dev_tiny:
+        from dynamicscaler_tpu_torch.ops import cuda_lib
+
+        cuda_lib.build()  # once, before the ranks start: N nvcc runs would race into build/
+    launch(_mesh_rank, n, args=(vargs,), device_type="cpu" if vargs.dev_tiny else "cuda")
+    return os.path.join(vargs.output_dir, vargs.project_name)
+
+
+def _mesh_rank(rank: int, vargs: VArgs) -> None:
+    """One rank of a ``--data_parallel_devices`` run (``parallel.mesh.launch``
+    joined it to the group and set its card)."""
+    from dynamicscaler_tpu_torch.parallel.mesh import make_mesh
+
+    run(vargs, mesh=make_mesh(n_data=vargs.data_parallel_devices))
+
+
+def run(vargs: VArgs, _model=None, _noise=None, mesh=None):
+    """The three stages in this process (:func:`main`'s one-process run, or
+    one rank of ``mesh``), on flags :func:`main` has checked; returns the
+    output directory."""
     from dynamicscaler_tpu_torch.ops.ddim import draw_noise, re_noise
     from dynamicscaler_tpu_torch.ops.resize import resize_video_latent
+    from dynamicscaler_tpu_torch.parallel.mesh import replicate
     from dynamicscaler_tpu_torch.pipelines import i2v, planar, sphere
     from dynamicscaler_tpu_torch.pipelines.t2v import make_schedule_for_model
     from dynamicscaler_tpu_torch.utils.io import load_image, load_latent, save_latent, save_video, to_uint8_device
 
-    check_flags(vargs)
     setup_precision(vargs.dtype, vargs.dev_tiny)
+    writes = mesh is None or mesh.rank == 0  # rank 0 alone writes and reports
+    log = print if writes else (lambda *a, **kw: None)
     t_start = time.time()
     stage_secs = {}  # wall seconds per stage
     stage_steady = {}  # steady s/step per stage (LOOP_STATS)
@@ -250,23 +293,32 @@ def main(vargs: VArgs, _model=None, _noise=None):
     model = _model if _model is not None else build_model(vargs)
     dev = model.device
     device_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"[setup] {model.config.dtype} model on {dev} ({device_name}) at {time.time() - t_start:.1f}s",
-          flush=True)
+    log(f"[setup] {model.config.dtype} model on {dev} ({device_name}) at {time.time() - t_start:.1f}s",
+        flush=True)
+    if mesh is not None:
+        replicate(model, mesh)
+        log(f"[mesh] window batch split over {mesh.size} ranks ({mesh.n_data} x {mesh.n_seq}), one process a "
+            f"{'card' if dev.type == 'cuda' else 'CPU rank'}, rank 0's weights broadcast", flush=True)
     vs = model.config.vae.spatial_scale
 
     out_dir = os.path.join(vargs.output_dir, vargs.project_name or time.strftime("pano-%Y%m%d-%H%M%S"))
-    os.makedirs(out_dir, exist_ok=True)
+    if writes:
+        os.makedirs(out_dir, exist_ok=True)
     if vargs.dev_full_random and not os.path.exists(vargs.pano_image_path):
-        from PIL import Image
-
-        h0, w0 = vargs.equirect_height, vargs.equirect_width
-        yy, xx = np.mgrid[0:h0, 0:w0]
-        img = np.stack([xx % 256, yy % 256, (xx + yy) % 256], -1).astype(np.uint8)
         path = os.path.join(out_dir, "synthetic_pano.png")
-        Image.fromarray(img).save(path)
+        if writes:
+            from PIL import Image
+
+            h0, w0 = vargs.equirect_height, vargs.equirect_width
+            yy, xx = np.mgrid[0:h0, 0:w0]
+            img = np.stack([xx % 256, yy % 256, (xx + yy) % 256], -1).astype(np.uint8)
+            Image.fromarray(img).save(path)
+        if mesh is not None:
+            mesh.barrier()  # the other ranks read rank 0's file
         vargs = dataclasses.replace(vargs, pano_image_path=path)
-    with open(os.path.join(out_dir, "args.json"), "w") as f:
-        json.dump(dataclasses.asdict(vargs), f, indent=2)
+    if writes:
+        with open(os.path.join(out_dir, "args.json"), "w") as f:
+            json.dump(dataclasses.asdict(vargs), f, indent=2)
 
     def noise_source(site):
         """(generator, noise_fn) of one draw site."""
@@ -330,21 +382,29 @@ def main(vargs: VArgs, _model=None, _noise=None):
         progressive_skip=False,
         merge_renoised_overlap_latent_ratio=vargs.merge_renoised_overlap_latent_ratio,
         unet_microbatch=vargs.unet_microbatch,
-        decode=True,
+        decode=writes,  # the other ranks write no video
+        mesh=mesh,
         **common,
     )
+    # per stage on a mesh: (window batches, seconds in their collectives: rank 0's inputs broadcast, the eps
+    # gathered)
+    stage_gather = {}
+
+    def gathered(stage):
+        if mesh is not None:
+            stage_gather[stage] = mesh.take_gather_seconds()
 
     # ---- STAGE 1: sphere panorama (gen_pano_360.py:227-272) ---------------
     t_stage = time.time()
     if vargs.predenoised_SP_latent_path:
-        print(f"[stage1] loading sphere latent from {vargs.predenoised_SP_latent_path}", flush=True)
+        log(f"[stage1] loading sphere latent from {vargs.predenoised_SP_latent_path}", flush=True)
         sphere_latent = torch.as_tensor(load_latent(vargs.predenoised_SP_latent_path), dtype=torch.float32,
                                         device=dev)
     else:
         pano_big = load_image(vargs.pano_image_path, eq_h * sphere_scale, eq_w * sphere_scale)
-        print(f"[stage1] sphere pano denoise at {eq_w * sphere_scale}x{eq_h * sphere_scale}", flush=True)
+        log(f"[stage1] sphere pano denoise at {eq_w * sphere_scale}x{eq_h * sphere_scale}", flush=True)
         generator, noise_fn = noise_source(1)
-        with _stage1_profile(vargs.profile_dir, dev) if vargs.profile_dir else contextlib.nullcontext():
+        with _stage1_profile(vargs.profile_dir, dev) if vargs.profile_dir and writes else contextlib.nullcontext():
             _, sphere_latent, _ = sphere.sample_shift_sphere_panorama(
                 model,
                 vargs.prompt,
@@ -366,14 +426,16 @@ def main(vargs: VArgs, _model=None, _noise=None):
                 unet_microbatch=vargs.unet_microbatch,
                 generator=generator,
                 noise_fn=noise_fn,
+                mesh=mesh,
                 **common,
             )
-        if vargs.save_latents:
+        if vargs.save_latents and writes:
             save_latent(sphere_latent, os.path.join(out_dir, "sphere_SW_latent.npy"))
         _sync(dev)
         stage_secs["sphere"] = time.time() - t_stage
         stage_steady["sphere"] = sphere.LOOP_STATS.steady_sec_per_step
-    print(f"[stage1] done at {time.time() - t_start:.1f}s; latent {tuple(sphere_latent.shape)}", flush=True)
+        gathered("sphere")
+    log(f"[stage1] done at {time.time() - t_start:.1f}s; latent {tuple(sphere_latent.shape)}", flush=True)
 
     pano_1x = load_image(vargs.pano_image_path, eq_h, eq_w)
     # the videos are encoded and written on threads while the next stage runs
@@ -385,26 +447,28 @@ def main(vargs: VArgs, _model=None, _noise=None):
         t_stage = time.time()
         if not vargs.skip_1x:
             if vargs.predenoised_SW_1x_latent_path:
-                print(f"[stage2] loading 1x latent from {vargs.predenoised_SW_1x_latent_path}", flush=True)
+                log(f"[stage2] loading 1x latent from {vargs.predenoised_SW_1x_latent_path}", flush=True)
                 basic_latent = torch.as_tensor(load_latent(vargs.predenoised_SW_1x_latent_path),
                                                dtype=torch.float32, device=dev)
             else:
                 init_1x = resize_video_latent(sphere_latent, eq_h // vs, eq_w // vs, mode="nearest")
-                print(f"[stage2] planar 1x denoise at {eq_w}x{eq_h}", flush=True)
+                log(f"[stage2] planar 1x denoise at {eq_w}x{eq_h}", flush=True)
                 generator, noise_fn = noise_source(2)
                 video_1x, basic_latent = i2v.sample_shift_multi_windows(
                     model, vargs.prompt, pano_1x, total_w=eq_w, total_h=eq_h, num_windows_w=nw_w2,
                     num_windows_h=nw_h2, init_panorama_latent=init_1x, generator=generator,
                     noise_fn=noise_fn, **planar_kw,
                 )
-                if vargs.save_latents:
-                    save_latent(basic_latent, os.path.join(out_dir, "basic_SW_latent.npy"))
-                frames_1x = to_uint8_device(video_1x[0]).cpu().numpy()
+                if writes:
+                    if vargs.save_latents:
+                        save_latent(basic_latent, os.path.join(out_dir, "basic_SW_latent.npy"))
+                    frames_1x = to_uint8_device(video_1x[0]).cpu().numpy()
+                    saves.append(writer.submit(save_video, frames_1x, out_dir, "shift_windows", fps=vargs.fps))
                 del video_1x
-                saves.append(writer.submit(save_video, frames_1x, out_dir, "shift_windows", fps=vargs.fps))
                 stage_secs["planar_1x"] = time.time() - t_stage
                 stage_steady["planar_1x"] = planar.LOOP_STATS.steady_sec_per_step
-            print(f"[stage2] done at {time.time() - t_start:.1f}s", flush=True)
+                gathered("planar_1x")
+            log(f"[stage2] done at {time.time() - t_start:.1f}s", flush=True)
 
         # ---- STAGE 3: 2x upscale (gen_pano_360.py:345-392) -----------------
         t_stage = time.time()
@@ -419,37 +483,48 @@ def main(vargs: VArgs, _model=None, _noise=None):
                 noise = draw_noise(up.shape, dev, generator, noise_fn, "re_noise")
                 mixed = re_noise(sched, up, 0, S - vargs.denoise_to_step, noise=noise)
             pano_2x = load_image(vargs.pano_image_path, eq_h * uf, eq_w * uf)
-            print(f"[stage3] planar {uf}x upscale denoise at {eq_w * uf}x{eq_h * uf}", flush=True)
+            log(f"[stage3] planar {uf}x upscale denoise at {eq_w * uf}x{eq_h * uf}", flush=True)
             generator, noise_fn = noise_source(4)
             video_2x, latent_2x = i2v.sample_shift_multi_windows(
                 model, vargs.prompt, pano_2x, total_w=eq_w * uf, total_h=eq_h * uf, num_windows_w=nw_w2 * uf,
                 num_windows_h=nw_h2 * uf, init_panorama_latent=mixed, generator=generator, noise_fn=noise_fn,
                 **planar_kw,
             )
-            if vargs.save_latents:
-                save_latent(latent_2x, os.path.join(out_dir, "denoised_latent2x.npy"))
-            frames_2x = to_uint8_device(video_2x[0]).cpu().numpy()
+            if writes:
+                if vargs.save_latents:
+                    save_latent(latent_2x, os.path.join(out_dir, "denoised_latent2x.npy"))
+                frames_2x = to_uint8_device(video_2x[0]).cpu().numpy()
+                saves.append(writer.submit(save_video, frames_2x, out_dir, "SW_2X", fps=vargs.fps))
             del video_2x
-            saves.append(writer.submit(save_video, frames_2x, out_dir, "SW_2X", fps=vargs.fps))
             stage_secs["upscale"] = time.time() - t_stage
             stage_steady["upscale"] = planar.LOOP_STATS.steady_sec_per_step
-            print(f"[stage3] done at {time.time() - t_start:.1f}s", flush=True)
+            gathered("upscale")
+            log(f"[stage3] done at {time.time() - t_start:.1f}s", flush=True)
         for s in saves:
             s.result()
     total = time.time() - t_start
+    if not writes:
+        return out_dir
     for stage, secs in stage_secs.items():
         steady = stage_steady[stage]
         print(f"[gen_pano_360] {stage}: {secs:.2f} s wall, steady "
-              + ("not measured (fewer than 2 steps)" if steady is None else f"{steady:.4f} s/step"), flush=True)
+              + ("not measured (fewer than 2 steps)" if steady is None else f"{steady:.4f} s/step")
+              + (f", {stage_gather[stage][0]} window batches, {stage_gather[stage][1]:.4f} s in their collectives "
+                 "on rank 0"
+                 if stage in stage_gather else ""), flush=True)
+    e2e = {
+        "device": device_name,
+        "stages_sec": stage_secs,
+        "steady_sec_per_step": stage_steady,
+        "total_sec": total,
+        "geometry": f"{eq_w}x{eq_h}x{vargs.total_f}f_steps{S}",
+        "measured_at": time.strftime("%Y-%m-%d %H:%M:%S"),
+    }
+    if mesh is not None:
+        e2e.update(ranks=mesh.size, gather_sec={k: sec for k, (_, sec) in stage_gather.items()},
+                   gathers={k: n for k, (n, _) in stage_gather.items()})
     with open(os.path.join(out_dir, "e2e.json"), "w") as f:
-        json.dump({
-            "device": device_name,
-            "stages_sec": stage_secs,
-            "steady_sec_per_step": stage_steady,
-            "total_sec": total,
-            "geometry": f"{eq_w}x{eq_h}x{vargs.total_f}f_steps{S}",
-            "measured_at": time.strftime("%Y-%m-%d %H:%M:%S"),
-        }, f, indent=2)
+        json.dump(e2e, f, indent=2)
     print(f"[gen_pano_360] total {total:.1f}s -> {out_dir}", flush=True)
     return out_dir
 

@@ -20,6 +20,7 @@ from dynamicscaler_tpu_torch.models.clip import CLIPTextEncoder, CLIPVisionEncod
 from dynamicscaler_tpu_torch.models.resampler import Resampler
 from dynamicscaler_tpu_torch.models.unet3d import UNet3D, is_zero_init
 from dynamicscaler_tpu_torch.models.vae import AutoencoderKL
+from dynamicscaler_tpu_torch.parallel.mesh import apply_sharded
 
 
 def init_module_random(module: nn.Module, generator: torch.Generator, zero_init=lambda n: False):
@@ -171,9 +172,15 @@ class LatentVideoDiffusion:
         return self.unet(x, t, context, fps, no_temporal_attn, traj=traj)
 
     @torch.inference_mode()
-    def apply_unet_microbatched(self, x, t_scalar, context, fps=16, microbatch: int = 0):
+    def apply_unet_microbatched(self, x, t_scalar, context, fps=16, microbatch: int = 0, mesh=None):
         """The window batch through the UNet in ``microbatch`` chunks (0 or
-        >= batch: one call). ``t_scalar`` is one timestep for every item."""
+        >= batch: one call). ``t_scalar`` is one timestep for every item.
+        With a ``mesh`` (``parallel.mesh``) this rank runs its share and the
+        ranks gather the whole batch's eps."""
+        if mesh is not None:
+            def share(xs, cs):
+                return self.apply_unet_microbatched(xs, t_scalar, cs, fps, microbatch)
+            return apply_sharded(mesh, share, x, context, microbatch, self.config.unet.out_channels)
         n = x.shape[0]
         t = torch.full((n,), int(t_scalar), dtype=torch.long, device=x.device)
         if not microbatch or n <= microbatch:

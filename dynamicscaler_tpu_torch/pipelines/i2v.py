@@ -18,7 +18,8 @@ i2v_sphere_panorama_pipeline.py:565-998), its integer-grid variant
 
 Every noise draw takes ``noise_fn`` when given (``ops.ddim.draw_noise``;
 names ``init``, ``skip`` and the engine's ``renoise:*``), else the
-``generator``. The JAX package's conditioning memo, step timers, mesh and
+``generator``. ``mesh`` (``parallel.mesh``) splits each step's window batch
+over its ranks. The JAX package's conditioning memo, step timers and
 warm-only paths are not ported.
 """
 
@@ -191,6 +192,7 @@ def sample_shift_multi_windows(
     generator: Optional[torch.Generator] = None,
     noise_fn=None,
     decode: bool = True,
+    mesh=None,
 ):
     """Planar ring multi-window i2v sampling. Sizes in image pixels
     (``total_*``); windows are the model's native ``height x width``.
@@ -229,7 +231,8 @@ def sample_shift_multi_windows(
     plan = _step_plan(sched, steps_eff, origins_of, context_of, merge_renoised_overlap_latent_ratio,
                       merge_prev_denoised_ratio_list)
     engine = PlanarShiftWindowEngine(model, sched, (frames, wh, ww), guidance_scale=guidance_scale,
-                                     fps=fps, overlap_mode=overlap_mode, unet_microbatch=unet_microbatch)
+                                     fps=fps, overlap_mode=overlap_mode, unet_microbatch=unet_microbatch,
+                                     mesh=mesh)
     latent, denoised = engine.run(latent, plan, uncond, generator, noise_fn=noise_fn)
     # a >= 4K equirect frame decoded whole would not fit in memory: tile the ring
     video = ring_aware_decode(model, denoised, w_tiles=max(1, tw // 256)) if decode else None
@@ -262,6 +265,7 @@ def sample_shift_multi_windows_integer(
     generator: Optional[torch.Generator] = None,
     noise_fn=None,
     decode: bool = True,
+    mesh=None,
 ):
     """Integer-grid i2v multi-window sampler (i2v_normal_pipeline.py:69-426,
     the ``cli/sample.py`` entry): total = window x num_windows per axis,
@@ -300,7 +304,8 @@ def sample_shift_multi_windows_integer(
     plan = _step_plan(sched, steps_eff, grid.step_origins, context_of,
                       merge_renoised_overlap_latent_ratio, merge_prev_denoised_ratio_list)
     engine = PlanarShiftWindowEngine(model, sched, (frames, wh, ww), guidance_scale=guidance_scale,
-                                     fps=fps, overlap_mode=overlap_mode, unet_microbatch=unet_microbatch)
+                                     fps=fps, overlap_mode=overlap_mode, unet_microbatch=unet_microbatch,
+                                     mesh=mesh)
     latent, denoised = engine.run(latent, plan, uncond, generator, noise_fn=noise_fn)
     video = ring_aware_decode(model, denoised, w_tiles=max(1, tw // 256)) if decode else None
     return video, denoised

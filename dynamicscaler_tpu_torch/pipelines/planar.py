@@ -12,9 +12,14 @@ the results back. Overlap modes:
 * ``sequential``: exact reference ordering, window k+1 reads window k's
   writes (N UNet calls per step).
 
-The global latent and the denoised buffer are updated IN PLACE each step
-(the JAX engine donates them instead). The mesh, trace cache and warm-only
-paths of the JAX engine are not ported. Every re-noise draw can be injected
+With a ``mesh`` (``parallel.mesh``) the ``last`` and ``average`` modes split
+each step's CFG-packed batch over the ranks and gather the eps; every rank
+then blends and scatters the whole batch, so all hold the same latent. The
+``sequential`` mode has one window a UNet call and its order is the point:
+every rank runs it whole, as one card does. The global latent and the
+denoised buffer are updated IN PLACE each step (the JAX engine donates them
+instead). The trace cache and warm-only paths of the JAX engine are not
+ported. Every re-noise draw can be injected
 through ``noise_fn`` under the name ``renoise:{step}`` (``renoise:{step}:{k}``
 per window in ``sequential`` mode).
 """
@@ -67,7 +72,7 @@ class StepPlan:
 class PlanarShiftWindowEngine:
     def __init__(self, model, schedule: DDIMSchedule, window_sizes: Tuple[int, int, int],
                  guidance_scale: float = 7.5, fps: int = 16, overlap_mode: str = "last",
-                 unet_microbatch: int = 8):
+                 unet_microbatch: int = 8, mesh=None):
         if overlap_mode not in ("last", "average", "sequential"):
             raise ValueError(f"overlap_mode {overlap_mode!r}")
         self.model = model
@@ -77,6 +82,7 @@ class PlanarShiftWindowEngine:
         self.fps = fps
         self.overlap_mode = overlap_mode
         self.unet_microbatch = unet_microbatch
+        self.mesh = mesh
 
     def run(self, latent: torch.Tensor, plan: Sequence[StepPlan], uncond_context: torch.Tensor,
             generator: Optional[torch.Generator] = None,
@@ -96,17 +102,18 @@ class PlanarShiftWindowEngine:
         LOOP_STATS.finish(latent)
         return latent, denoised
 
-    def _denoise_batch(self, wins, ctx, uncond, sp: StepPlan):
-        """wins [n, f, h, w, C] -> (x_prev, pred_x0); one CFG-packed UNet call."""
+    def _denoise_batch(self, wins, ctx, uncond, sp: StepPlan, mesh=None):
+        """wins [n, f, h, w, C] -> (x_prev, pred_x0); one CFG-packed UNet
+        call, split over ``mesh``'s ranks when given."""
         n = wins.shape[0]
         g = self.guidance_scale
         if g != 1.0:
             x = torch.cat([wins, wins])
             cc = torch.cat([ctx, uncond.expand((n,) + tuple(uncond.shape[1:]))])
-            eps = self.model.apply_unet_microbatched(x, sp.t, cc, self.fps, self.unet_microbatch)
+            eps = self.model.apply_unet_microbatched(x, sp.t, cc, self.fps, self.unet_microbatch, mesh)
             eps = eps[n:] + g * (eps[:n] - eps[n:])
         else:
-            eps = self.model.apply_unet_microbatched(wins, sp.t, ctx, self.fps, self.unet_microbatch)
+            eps = self.model.apply_unet_microbatched(wins, sp.t, ctx, self.fps, self.unet_microbatch, mesh)
         frame_idx = torch.full((self.window_sizes[0],), sp.index, dtype=torch.long)
         return ddim_step(self.schedule, wins, eps, frame_idx)
 
@@ -154,7 +161,7 @@ class PlanarShiftWindowEngine:
             noised, ratio = self._renoise(wins, sp, generator, noise_fn, name)
             wins = mix_with_mask(wins, noised, earlier, ratio)
 
-        new, den = self._denoise_batch(wins, ctx, uncond_context, sp)
+        new, den = self._denoise_batch(wins, ctx, uncond_context, sp, self.mesh)
 
         if self.overlap_mode == "average":
             accum = torch.zeros_like(latent)

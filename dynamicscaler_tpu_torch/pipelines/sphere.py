@@ -25,9 +25,12 @@ Every noise draw takes ``noise_fn`` when given (``ops.ddim.draw_noise``),
 else the ``generator``. Names: ``init``, ``skip``, ``renoise:{step}`` (the
 whole window batch in ``last`` / ``average``), ``pair:{step}:{k}`` (pair k
 in ``sequential``) and ``static:{step}`` (the re-noised static panorama).
-The JAX package's mesh/seq-slab sharding, step-program cache, step timers
-and warm-up programs are not ported; ``LOOP_STATS`` keeps the loop's steady
-s/step.
+With a ``mesh`` (``parallel.mesh``) the ``last`` and ``average`` steps split
+their CFG-packed batch over the ranks and gather the eps; ``sequential``
+runs whole on every rank, as on one card. The JAX package's seq-slab layout
+of the latent (a TPU memory layout; the latent stays whole on every rank),
+step-program cache, step timers and warm-up programs are not ported;
+``LOOP_STATS`` keeps the loop's steady s/step.
 """
 
 from __future__ import annotations
@@ -167,11 +170,12 @@ class _Sampler:
     options that do not change from step to step)."""
 
     def __init__(self, model, sched, frames, guidance, fps, mode, unet_microbatch, get_scale, set_scale,
-                 generator, noise_fn):
+                 generator, noise_fn, mesh=None):
         self.model, self.sched, self.frames = model, sched, frames
         self.guidance, self.fps, self.mode, self.unet_microbatch = guidance, fps, mode, unet_microbatch
         self.get_scale, self.set_scale = get_scale, set_scale
         self.generator, self.noise_fn = generator, noise_fn
+        self.mesh = mesh
 
     def _noise(self, shape, name):
         return draw_noise(shape, self.model.device, self.generator, self.noise_fn, name)
@@ -224,10 +228,11 @@ class _Sampler:
         if self.guidance != 1.0:
             x = torch.cat([wins, wins])
             ctx = torch.cat([sp.context, uncond.expand((n,) + tuple(uncond.shape[1:]))])
-            eps = self.model.apply_unet_microbatched(x, sp.t, ctx, self.fps, self.unet_microbatch)
+            eps = self.model.apply_unet_microbatched(x, sp.t, ctx, self.fps, self.unet_microbatch, self.mesh)
             eps = eps[n:] + self.guidance * (eps[:n] - eps[n:])
         else:
-            eps = self.model.apply_unet_microbatched(wins, sp.t, sp.context, self.fps, self.unet_microbatch)
+            eps = self.model.apply_unet_microbatched(wins, sp.t, sp.context, self.fps, self.unet_microbatch,
+                                                     self.mesh)
         new, den = ddim_step(self.sched, wins, eps, torch.full((self.frames,), sp.index, dtype=torch.long))
         new = mix_with_mask(new, prev, earlier, sp.merge_prev_ratio)
         new, den = self._to_set(new, den)
@@ -252,7 +257,8 @@ class _Sampler:
         279-471): each pair gathers from the CURRENT latent, seeing the
         writes of the pairs before it, and writes both the latent and the
         paste target; the coverage mask is written with each pair's set
-        footprint and read at the native view resolution."""
+        footprint and read at the native view resolution. One pair a UNet
+        call: with a mesh every rank runs it whole."""
         B, F, EH, EW, C = latent.shape
         h, w = maps.gather.shape[1:]
         mh, mw = native.gather.shape[1:]
@@ -370,6 +376,7 @@ def sample_shift_sphere_panorama(
     generator: Optional[torch.Generator] = None,
     noise_fn=None,
     decode: bool = False,
+    mesh=None,
 ):
     """Sphere panorama shift-window sampling. Returns (video or None, final
     latent, denoised latent), each ``[1, total_f, eq_h / vs, eq_w / vs, C]``
@@ -377,7 +384,8 @@ def sample_shift_sphere_panorama(
     ``use_image_cond`` defaults to whether the model has an image encoder
     (i2v); the t2v variant is the same algorithm with text-only
     conditioning. ``denoise_to_step`` stops after that many steps (the CLI
-    runs 15 of 48)."""
+    runs 15 of 48). ``mesh`` splits each step's window batch over its ranks
+    (``parallel.mesh``)."""
     if equirect_width != 2 * equirect_height:
         raise ValueError("equirect requires W = 2H")
     if overlap_mode not in ("last", "average", "sequential"):
@@ -443,7 +451,7 @@ def sample_shift_sphere_panorama(
     ratios_f = overlap_ratio_list_f if overlap_ratio_list_f is not None else [0.5] * S
     ddim_ts = sched.ddim_timesteps.cpu().numpy()
     sampler = _Sampler(model, sched, frames, guidance_scale, fps, overlap_mode, unet_microbatch,
-                       view_get_scale_factor, view_set_scale_factor, generator, noise_fn)
+                       view_get_scale_factor, view_set_scale_factor, generator, noise_fn, mesh)
 
     denoised = torch.zeros_like(latent)
     LOOP_STATS.start(steps_eff)

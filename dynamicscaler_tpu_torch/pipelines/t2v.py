@@ -146,6 +146,7 @@ def sample_shift_multi_windows(
     generator: Optional[torch.Generator] = None,
     noise_fn=None,
     decode: bool = True,
+    mesh=None,
 ):
     """Planar integer-grid shift-window t2v: the global latent is
     ``num_windows_*`` times the native window in each axis, and every DDIM
@@ -160,7 +161,8 @@ def sample_shift_multi_windows(
     initial latent (t2v_normal_pipeline.py:348-403); with
     ``merge_predenoise_ratio_list`` every step re-anchors the latent to the
     re-noised residual, on a checkerboard with ``sparse_add_residual``
-    (:445-468)."""
+    (:445-468). ``mesh`` splits each step's window batch over its ranks
+    (``parallel.mesh``; the single-window pre-denoise runs whole)."""
     sched = make_schedule_for_model(model, num_inference_steps)
     vs = model.config.vae.spatial_scale
     wh, ww = height // vs, width // vs
@@ -223,7 +225,7 @@ def sample_shift_multi_windows(
         ))
     engine = PlanarShiftWindowEngine(model, sched, (frames, wh, ww), guidance_scale=guidance_scale,
                                      fps=fps, overlap_mode=overlap_mode,
-                                     unet_microbatch=unet_microbatch)
+                                     unet_microbatch=unet_microbatch, mesh=mesh)
     latent, denoised = engine.run(latent, plan, uncond, generator, pre_step=pre_step, noise_fn=noise_fn)
     video = model.decode_video(denoised) if decode else None
     return video, denoised

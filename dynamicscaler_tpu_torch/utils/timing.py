@@ -5,7 +5,10 @@ planar engine (``pipelines/planar.py``) and the sphere sampler
 (``pipelines/sphere.py``) each keep one ``LOOP_STATS``: ``start`` before the
 loop, ``mark_first`` after its first step (so the first step's one-off costs
 stay out), ``finish`` after the last. The CLI reads
-``steady_sec_per_step`` per stage.
+``steady_sec_per_step`` per stage. With a mesh (``parallel.mesh``) a step's
+time is the wall time of the whole step on the rank that reads it (the CLI:
+rank 0), the window batch's gather included: the gather is on the rank's
+stream, which the synchronise at each end waits for.
 """
 
 from __future__ import annotations

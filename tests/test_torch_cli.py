@@ -160,13 +160,37 @@ def test_vargs_match_jax_less_the_warm_flags():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--data_parallel_devices", "2"], "data_parallel_devices 2"),
+    # more ranks than cards (none here); the id is the one this case had when every N > 1 was refused
+    pytest.param(["--data_parallel_devices", "2"],
+                 "data_parallel_devices 2: one rank a CUDA card needs 2 cards; found 0",
+                 id="argv0-data_parallel_devices 2"),
     (["--dtype", "float16"], "bfloat16 only"),
 ])
 def test_cli_refuses_at_startup(argv, match, tmp_path):
     with pytest.raises(ValueError, match=match):
         cli.main(cli.VArgs.from_args(argv + ["--output_dir", str(tmp_path)]))
     assert not os.listdir(tmp_path)  # refused before anything was built or written
+
+
+def test_data_parallel_ranks_match_one_process(pano, tmp_path):
+    """``--dev_tiny --data_parallel_devices 2``: two gloo ranks give the
+    three stage latents of the one-process run bit for bit (``--unet_microbatch
+    2``: every stage's shares are whole microbatches), and only rank 0
+    writes: the one-process run's files, ``e2e.json`` with the gathers."""
+    kw = ["--dev_tiny", "true", "--pano_image_path", pano, "--output_dir", str(tmp_path), "--seed", "3",
+          "--unet_microbatch", "2"]
+    one = cli.main(cli.VArgs.from_args(kw + ["--project_name", "one"]))
+    two = cli.main(cli.VArgs.from_args(kw + ["--project_name", "two", "--data_parallel_devices", "2"]))
+    assert sorted(os.listdir(tmp_path)) == ["one", "two"] and set(os.listdir(one)) == set(os.listdir(two))
+    for name in LATENTS:
+        a, b = np.load(os.path.join(one, name)), np.load(os.path.join(two, name))
+        assert np.isfinite(a).all() and np.array_equal(a, b), name
+    e2e = json.load(open(os.path.join(two, "e2e.json")))
+    assert e2e["ranks"] == 2 and set(e2e["gathers"]) == {"sphere", "planar_1x", "upscale"}
+    assert e2e["gathers"]["sphere"] == 3 and e2e["gathers"]["upscale"] == 1  # a gather a step
+    assert json.load(open(os.path.join(two, "args.json")))["data_parallel_devices"] == 2
+    with pytest.raises(ValueError, match="one process"):
+        cli.main(cli.VArgs(dev_tiny=True, data_parallel_devices=2), _model=object())
 
 
 def test_build_model_dev_tiny_on_cpu_and_others_need_the_card(monkeypatch):

@@ -203,9 +203,9 @@ PORT_MODULES = {
     "models.attention", "models.clip", "models.layers", "models.lvdm", "models.resampler", "models.unet3d",
     "models.vae", "ops.attention", "ops.blend", "ops.cuda_lib", "ops.ddim", "ops.freetraj", "ops.fused_block",
     "ops.fused_mega", "ops.fused_spatial", "ops.fused_temporal", "ops.fused_twrap", "ops.lcm", "ops.resize",
-    "ops.ring", "ops.sphere", "parallel.dist", "pipelines.conditioning", "pipelines.fifo", "pipelines.i2v",
-    "pipelines.planar", "pipelines.sphere", "pipelines.t2v", "pipelines.tiled_vae", "utils.avi", "utils.io",
-    "utils.timing", "utils.tokenizer", "utils.weights",
+    "ops.ring", "ops.sphere", "parallel.dist", "parallel.dryrun", "parallel.mesh", "pipelines.conditioning",
+    "pipelines.fifo", "pipelines.i2v", "pipelines.planar", "pipelines.sphere", "pipelines.t2v", "pipelines.tiled_vae",
+    "utils.avi", "utils.io", "utils.timing", "utils.tokenizer", "utils.weights",
 }
 
 
