@@ -41,7 +41,9 @@ Phases, in order, one result line each (any failure exits non-zero):
    run, beside ``torch.var_mean``); and at the shapes no forward of phase 2
    gives (:func:`_repair_cases`: clip geometries of the earlier repairs, and
    K11 and K13 at the 40x40 latent's levels, t2v, 8 frames a clip and N 256
-   and 4096). Per
+   and 4096); and the statistics where the fast variance is inf - inf
+   (:func:`_nan_statistics`: K9 on every route, GN and ``ds_ln_gemm``'s
+   LayerNorm prologue, bf16 and fp32, NaN where the plain version is). Per
    shape: max abs error against the stated tolerance, L2 error, and the
    kernel, plain and library-composite times (CUDA events) beside the bound
    (the least time the H100 could take for the kernel's work); the
@@ -188,15 +190,31 @@ Phases, in order, one result line each (any failure exits non-zero):
    mesh-less ones bit for bit (latent, denoised, video), with the same
    launch counts and one window batch a step; the phase's time and the
    collectives' ms a batch.
+12. temporal relative position and the pooled / alternate encoders: the
+   full-width VideoCrafter2 t2v UNet with ``use_relative_position`` (the
+   ``relative_position_{k,v}`` tables of every temporal attention; seeded
+   random weights, zero-initialised layers perturbed) at window batch 2,
+   16 frames, 40x64 latent, in fp32 and then in bf16 (the same draws
+   rounded), each through the kernels against the plain versions (rel L2
+   within ``TOL_F32_PATH`` in fp32, ``TOL_PATH_REL_L2`` in bf16) with exact
+   launches (``expected_launches``: the rel-pos temporal transformers on
+   K5 + K6 around plain attention and K4, never K1, kernel 10 or 12), the
+   kernel calls at shapes no earlier phase held against their plain
+   versions with the gates of their type; then, in fp32, the full-width
+   ``OpenCLIPImageEmbedderPooled`` (ViT-H/14, an injected dropout mask),
+   ``ClipImageEmbedder`` (the same tower with QuickGELU), the HF CLIP-L
+   text encoder and the T5 v1.1-large encoder, seeded weights, once on the
+   card against the same weights on the CPU (rel L2 within
+   ``TOL_F32_PATH``).
 
 Then one JSON line of kernel records (K1-K13, TA, FA, GN; ``launches`` is
 the sum over the paths: the three samplers, the gen_pano_360 CLI, the
 sample CLI's four modes and the LCM stream, the demo's two requests, the
 batch eval's three runs, the ``no_temporal_attn`` forward, phase 5's
-"off" request, phase 2's two override forwards and phase 11's two mesh
-runs; and the fp32 records
+"off" request, phase 2's two override forwards, phase 11's two mesh
+runs and phase 12's bf16 rel-pos forward; and the fp32 records
 ``K1.f32`` ... ``GN.f32``, launches summed over phase 10's forwards and CLI
-runs, times per the first batch-8 fp32 forward in which the kernel runs),
+runs and phase 12's fp32 rel-pos forward, times per the first batch-8 fp32 forward in which the kernel runs),
 and last the device JSON line.
 """
 
@@ -205,6 +223,7 @@ from __future__ import annotations
 import base64
 import collections
 import contextlib
+import dataclasses
 import http.client
 import io
 import json
@@ -446,6 +465,15 @@ def main() -> None:
                                         serve_errs.get(k, 0.0))
     f32_records, f32_paths = _phase_fp32(t2v_model, i2v_model)
     paths.update(_phase_mesh(i2v_model))
+    del t2v_model, i2v_model
+    torch.cuda.empty_cache()
+    relpos_paths, relpos_errs = _phase_relpos(held)
+    for where, n in relpos_paths.items():
+        (f32_paths if where.startswith("fp32") else paths)[where] = n
+    for recs, dt in ((records, BF), (f32_records, F32)):
+        for k, e in relpos_errs[dt].items():
+            recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], e)
+    _phase_encoders()
 
     kernels = [
         {"name": f"{k} {desc}", "route": "cuda", "source": src, "replaces": rep,
@@ -669,7 +697,9 @@ def expected_launches(cfg, H, W, frames=16, traj=None, no_temporal_attn=False, d
     a spatial one with the self or the cross class K2 unless self, K3
     unless cross, and K4. ``no_temporal_attn`` skips every temporal
     transformer and init_attn (no K1, K5, K6, K10, K12 there, nor their
-    K4). gn_silu (K9): 2 per ResBlock, 4 more in
+    K4). With ``cfg.use_relative_position`` a temporal transformer runs
+    the wrapper head and tail around plain attention and K4 (no K1, kernel
+    10 or 12), as the JAX gates keep it. gn_silu (K9): 2 per ResBlock, 4 more in
     its temporal conv block, and the out norm (``unet3d.gn_silu_calls``).
     The device-kernel wrappers inside them: K1's attention core (TA) once
     per K1, K2's and K3's (FA) once per K2 and per K3, the GroupNorm
@@ -689,7 +719,10 @@ def expected_launches(cfg, H, W, frames=16, traj=None, no_temporal_attn=False, d
     for side, C, inner, heads, h, w in unet_transformers(cfg, H, W):
         if side == "t" and no_temporal_attn:
             continue
-        if side == "t" and t_traj:
+        if side == "t" and cfg.use_relative_position:
+            # plain attention with the tables at both sites; off K1 and kernels 10 and 12
+            n.update(("K5", "K6", "K4"))
+        elif side == "t" and t_traj:
             n.update(("K5", "K6", "K1", "K4"))
         elif side == "s" and (s_traj or c_traj):
             n.update(("K7", "K8", "K4") + (() if s_traj else ("K2",)) + (() if c_traj else ("K3",)))
@@ -1566,6 +1599,82 @@ def _time_cases(shapes, runs, phase):
     return sums, max_err, bound_by, tiles
 
 
+def _nan_statistics():
+    """The statistics' fast variance E[x^2] - mean^2 where it is inf - inf:
+    x [2, M, 320] with sample 0's group 0 at 1e20 (x^2 overflows), one inf
+    in sample 1's group 3 and sample 1's group 10 constant at 3 (an exact
+    zero variance). K9 on every route that holds (``gn_silu(plan=)``), GN
+    (``group_norm_fold``) and ``ln_gemm``'s LayerNorm prologue (row 3 at
+    1e20), bf16 and fp32: NaN exactly where the plain version is (the two
+    groups; the row), every other element within the shape's gates (bf16:
+    K9 one ulp but TOL_REL at the constant group, the fold TOL_FOLD_REL, the
+    GEMM TOL_REL; fp32: TOL_F32)."""
+    g = torch.Generator().manual_seed(19)
+    ok = True
+    for dt in (BF, F32):
+        for M in (1024, 10240):
+            x = 2.0 * torch.randn(2, M, 320, generator=g) + 0.5
+            x[0, :, :10] = 1e20
+            x[1, M // 2, 30] = float("inf")
+            x[1, :, 100:110] = 3.0
+            x = x.to("cuda", dt)
+            s = (1.0 + 0.1 * torch.randn(320, generator=g)).cuda()
+            b = (0.1 * torch.randn(320, generator=g)).cuda()
+            nan = torch.zeros(2, 320, dtype=torch.bool, device="cuda")
+            nan[0, :10], nan[1, 30:40] = True, True
+            pm, pa = fused_twrap.group_norm_fold_plain(x, s, b, 32, 1e-5)
+            ref = fused_twrap.gn_silu_plain(x, pm, pa)
+            fin = ~torch.isnan(ref)
+            # the constant group: its apply x * mul + add cancels to about an fp32 ulp of |x * mul| (316 x),
+            # in the kernel and in plain alike, so bf16 holds it to TOL_REL of its largest |plain|
+            flat = torch.zeros_like(fin)
+            flat[1, :, 100:110] = True
+            line = []
+            for route in cuda_lib.GN_ROUTES:
+                try:
+                    plan = cuda_lib.gn_plan(2, M, 320, 32, x.element_size(), cuda_lib.sm_count(x.device), route)
+                except ValueError:
+                    continue
+                got = fused_twrap.gn_silu(x, s, b, eps=1e-5, plan=plan)
+                same_nan = torch.equal(torch.isnan(got), ~fin) and torch.equal(~fin, nan[:, None].expand_as(fin))
+                r, o = ref[fin].float(), got[fin].float()
+                err = float((o - r).abs().max()) / float(r.abs().max())
+                rf, of = ref[flat].float(), got[flat].float()
+                ferr = float((of - rf).abs().max()) / float(rf.abs().max())
+                if dt == F32:
+                    within = err <= TOL_F32
+                else:
+                    rest = fin & ~flat
+                    within = _beyond_ulp(got[rest].float(), ref[rest].float()) == 0 and ferr <= TOL_REL
+                ok = ok and same_nan and within
+                line.append(f"K9 {route} NaN where plain {same_nan}, finite max err {err:.1e} (constant group "
+                            f"{ferr:.1e}){'' if within else ' FAIL'}")
+            vec = torch.stack(fused_twrap.group_norm_fold(x, s, b, 32, 1e-5))
+            pvec = torch.stack([pm, pa])
+            vnan = torch.equal(torch.isnan(vec), torch.isnan(pvec)) and torch.equal(torch.isnan(pvec[0]), nan)
+            verr = float((vec - pvec)[:, ~nan].abs().max()) / float(pvec[:, ~nan].abs().max())
+            vok = vnan and verr <= (TOL_F32 if dt == F32 else TOL_FOLD_REL)
+            ok = ok and vok
+            line.append(f"GN NaN where plain {vnan}, max err {verr:.1e}{'' if vok else ' FAIL'}")
+            if M == 1024:
+                x2 = x[1, :256].clone()
+                x2[3] = 1e20
+                w = (torch.randn(640, 320, generator=g) / 320 ** 0.5).to("cuda", dt)
+                ln = ((1.0 + 0.1 * torch.randn(320, generator=g)).cuda(), (0.1 * torch.randn(320, generator=g)).cuda())
+                got, r = cuda_lib.ln_gemm(x2, w, ln=ln), cuda_lib.ln_gemm_plain(x2, w, ln=ln)
+                rnan = torch.zeros(256, dtype=torch.bool, device="cuda")
+                rnan[3] = True
+                lnan = torch.equal(torch.isnan(got), torch.isnan(r)) and torch.equal(torch.isnan(r).all(1), rnan) \
+                    and not bool(torch.isnan(r[~rnan]).any())
+                lerr = float((got[~rnan] - r[~rnan]).abs().max()) / float(r[~rnan].abs().max())
+                lok = lnan and lerr <= (TOL_F32 if dt == F32 else TOL_REL)
+                ok = ok and lok
+                line.append(f"ln_gemm NaN row where plain {lnan}, max err {lerr:.1e}{'' if lok else ' FAIL'}")
+            print(f"phase 3 NaN statistics {str(dt)[6:]} [2, {M}, 320]: " + "; ".join(line), flush=True)
+    if not ok:
+        _fail("phase 3: a kernel's statistics did not give NaN where its plain version does")
+
+
 KEYS = ("ms", "plain_ms", "bound_ms", "library_ms")
 
 
@@ -1591,6 +1700,7 @@ def _phase_kernels(sites, cfg):
     sums, max_err, bound_by, tiles = _time_cases(shapes, (*sites, REPAIR), "phase 3")
     _phase_gemms(GEMM_SITES[I2V_FWD])
     _phase_levels(cfg)
+    _nan_statistics()
     print("phase 3 ok", flush=True)
     records = {}
     for k in KERNELS:
@@ -3333,6 +3443,139 @@ def _phase_mesh(model):
         dist.destroy_process_group()
     print(f"phase 11 ok in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return paths
+
+
+
+# ---------------------------------------------------------------------------
+# phase 12: temporal relative position; the pooled and alternate encoders
+# ---------------------------------------------------------------------------
+
+RELPOS_FWD = "rel-pos t2v UNet fwd batch 2"
+
+
+def _relpos_unet():
+    """The full-width VideoCrafter2 t2v UNet with relative position on the
+    card in fp32: seeded random weights (the tables drawn like every
+    weight), the zero-initialised layers perturbed."""
+    from dynamicscaler_tpu_torch.config import videocrafter2_t2v
+    from dynamicscaler_tpu_torch.models.lvdm import init_module_random
+    from dynamicscaler_tpu_torch.models.unet3d import UNet3D, is_zero_init
+    from dynamicscaler_tpu_torch.utils.weights import perturb_zero_params
+
+    cfg = dataclasses.replace(videocrafter2_t2v().unet, use_relative_position=True)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    with torch.device("meta"):
+        unet = UNet3D(cfg)
+    unet.to_empty(device=DEV)
+    init_module_random(unet, gen, is_zero_init)
+    perturb_zero_params(unet, gen)
+    return unet.eval()
+
+
+def _phase_relpos(held):
+    """Phase 12, the rel-pos forwards: fp32, then bf16 (the same weights
+    rounded), each against the plain versions with exact launches; the
+    kernel calls at new shapes held with their type's gates. Returns the
+    launches by path and the largest error per kernel by dtype."""
+    t_phase = time.perf_counter()
+    unet = _relpos_unet()
+    tables = sum(n.endswith("embeddings_table") for n, _ in unet.named_parameters())
+    x, ctx, t = _unet_inputs(2, 77, 12)
+    sites, paths, errs = {}, {}, {}
+    for dt, where, tol in ((F32, f"fp32 {RELPOS_FWD}", TOL_F32_PATH), (BF, RELPOS_FWD, TOL_PATH_REL_L2)):
+        unet.to(dt)
+
+        def fwd():
+            with torch.inference_mode():
+                return unet(x, t, ctx, 16)
+
+        want = expected_launches(unet.cfg, 40, 64, dtype=dt)
+        r = _against_plain(where, fwd, sites, 2, 1)
+        print(f"phase 12 {where}: [2,16,40,64,4] ctx [2,77,1024] {dt}, {tables} relative-position tables: rel_l2 "
+              f"against plain {r.rel:.3e} (tol {tol}) |eps| mean {float(r.out.float().abs().mean()):.4f} kernels "
+              f"{r.ms:.1f} ms plain {r.plain_ms:.1f} ms launches {r.launches}", flush=True)
+        if not r.finite or r.rel > tol or r.launches != want:
+            _fail(f"{where}: rel_l2 {r.rel} finite {r.finite} launches {r.launches}, expected {want}")
+        paths[where] = r.launches
+        del r
+        errs[dt] = _hold_new_shapes(sites[where], held, "phase 12")
+    del unet
+    torch.cuda.empty_cache()
+    print(f"phase 12 rel-pos forwards ok in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths, errs
+
+
+def _phase_encoders():
+    """Phase 12, the encoders: full-width pooled image embedders (ViT-H/14,
+    the OpenCLIP one with an injected dropout mask, the QuickGELU one on the
+    same weights), the HF CLIP-L text encoder and T5 v1.1-large (its query
+    weights scaled as T5 initialises them), seeded weights on the CPU, then
+    once on the card in fp32 (TF32 off) against the CPU's output, rel L2
+    within TOL_F32_PATH."""
+    from dynamicscaler_tpu_torch.config import CLIPVisionConfig
+    from dynamicscaler_tpu_torch.models.clip import ClipImageEmbedder, OpenCLIPImageEmbedderPooled
+    from dynamicscaler_tpu_torch.models.encoders_alt import (HFCLIPTextConfig, HFCLIPTextEncoder, T5Config,
+                                                             T5TextEncoder)
+    from dynamicscaler_tpu_torch.models.lvdm import init_module_random
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(12)
+    rng = np.random.default_rng(12)
+    images = torch.from_numpy(rng.uniform(-1, 1, (2, 320, 512, 3)).astype(np.float32))
+    clip_cfg, t5_cfg = HFCLIPTextConfig(), T5Config()
+    clip_tok = rng.integers(1, clip_cfg.vocab_size - 1, (2, 77))
+    clip_tok[:, 12] = clip_cfg.vocab_size - 1  # the EOT id, the largest
+    t5_tok = rng.integers(0, t5_cfg.vocab_size, (2, 77))
+    pooled = OpenCLIPImageEmbedderPooled(CLIPVisionConfig(), ucg_rate=0.5)
+    quick = ClipImageEmbedder(CLIPVisionConfig())
+    clip_text, t5 = HFCLIPTextEncoder(clip_cfg), T5TextEncoder(t5_cfg)
+    for mod in (pooled, clip_text, t5):
+        init_module_random(mod, g)
+    with torch.no_grad():
+        # T5's logits are unscaled: its initialisation folds 1 / sqrt(d_kv)
+        # into the query weights. Without it the random tower's softmaxes are
+        # near one-hot and 24 layers amplify the card's and the CPU's orders
+        # of summation to a rel L2 of 5.7e-3 on an H100.
+        for blk in t5.encoder.block:
+            blk.layer[0].SelfAttention.q.weight.mul_(t5_cfg.d_kv ** -0.5)
+    quick.load_state_dict(pooled.state_dict())
+    runs = [("OpenCLIPImageEmbedderPooled ViT-H/14", pooled, images, dict(keep=torch.tensor([1.0, 0.0]))),
+            ("ClipImageEmbedder ViT-H/14 (QuickGELU)", quick, images, {}),
+            ("HFCLIPTextEncoder CLIP-L/14", clip_text, clip_tok, {}),
+            ("T5TextEncoder v1.1-large", t5, t5_tok, {})]
+    del pooled, quick, clip_text, t5
+    bad = []
+    while runs:
+        name, mod, inp, kw = runs.pop(0)
+        mod.eval()
+        n = sum(p.numel() for p in mod.parameters())
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref = mod(inp, **kw)
+        cpu_s = time.perf_counter() - t0
+        mod.to(DEV)
+        dinp = inp.to(DEV) if torch.is_tensor(inp) else inp  # token ids (numpy) go to the module's device
+        with torch.inference_mode():
+            mod(dinp, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = mod(dinp, **kw)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = got.float().cpu()
+        rel = float((got - ref).norm() / ref.norm())
+        finite = bool(torch.isfinite(got).all())
+        print(f"phase 12 {name}: {n / 1e6:.1f}M fp32 parameters, input {tuple(inp.shape)} -> {tuple(got.shape)}; "
+              f"card {ms:.2f} ms, CPU {cpu_s:.2f} s; rel_l2 card against CPU {rel:.3e} (tol {TOL_F32_PATH}) "
+              f"finite {finite}", flush=True)
+        if not finite or not rel <= TOL_F32_PATH:
+            bad.append(name)
+        mod.to("cpu")
+        del mod
+    torch.cuda.empty_cache()
+    if bad:
+        _fail(f"phase 12: the card's fp32 encoders disagree with the CPU: {bad}")
+    print(f"phase 12 ok: encoders in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

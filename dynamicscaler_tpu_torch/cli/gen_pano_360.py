@@ -183,10 +183,14 @@ def build_model(vargs: VArgs):
     return load_bundle(vargs.ckpt_path, vargs.bpe_path, videocrafter_i2v(dtype=vargs.dtype))
 
 
-def load_bundle(ckpt_path: str, bpe_path: str, config):
+def load_bundle(ckpt_path: str, bpe_path: str, config, cached: bool = False):
     """The VideoCrafter checkpoint ``ckpt_path`` for ``config`` with the CLIP
-    BPE vocabulary ``bpe_path``, on the card (both CLIPs)."""
+    BPE vocabulary ``bpe_path``, on the card (both CLIPs). ``cached``
+    reads the converted state dicts through ``utils.checkpoint.load_or_convert``
+    (a cache file beside the checkpoint, written on first use), as the
+    single-clip CLI does."""
     from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
+    from dynamicscaler_tpu_torch.utils.checkpoint import load_or_convert
     from dynamicscaler_tpu_torch.utils.tokenizer import load_tokenizer
     from dynamicscaler_tpu_torch.utils.weights import load_videocrafter_checkpoint
 
@@ -195,7 +199,7 @@ def load_bundle(ckpt_path: str, bpe_path: str, config):
     if not os.path.exists(ckpt_path):
         raise FileNotFoundError(f"checkpoint not found: {ckpt_path}")
     tokenizer = load_tokenizer(bpe_path or None)
-    state_dicts = load_videocrafter_checkpoint(ckpt_path, config)
+    state_dicts = (load_or_convert if cached else load_videocrafter_checkpoint)(ckpt_path, config)
     return LatentVideoDiffusion.build(config, "cuda", tokenizer).load_state_dicts(**state_dicts)
 
 

@@ -79,7 +79,8 @@ def build_model(args):
     the CPU (i2v parts for ``--mode i2v``), shrinking the geometry to it as
     the JAX CLI does; else the checkpoint ``--ckpt_path`` for VideoCrafter2
     t2v, or VideoCrafter i2v for ``--mode i2v``, with the CLIP BPE file
-    ``--bpe_path``, on the card."""
+    ``--bpe_path``, on the card, its converted state dicts cached beside it
+    (``utils.checkpoint.load_or_convert``, as the JAX CLI caches its tree)."""
     from dynamicscaler_tpu_torch.cli.gen_pano_360 import load_bundle
     from dynamicscaler_tpu_torch.config import tiny_test_config, videocrafter2_t2v, videocrafter_i2v
     from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
@@ -92,7 +93,7 @@ def build_model(args):
             device="cpu", tokenizer=HashTokenizer(512),
         )
     config = videocrafter_i2v(dtype=args.dtype) if i2v else videocrafter2_t2v(dtype=args.dtype)
-    return load_bundle(args.ckpt_path, args.bpe_path, config)
+    return load_bundle(args.ckpt_path, args.bpe_path, config, cached=True)
 
 
 def main(args, _model=None, _noise=None):

@@ -165,7 +165,7 @@ __global__ void __launch_bounds__(256) prologue_ln_kernel(const bf16* __restrict
     ss += __shfl_xor_sync(0xffffffffu, ss, o);
   }
   const float mu = s / (float)K;
-  const float rstd = rsqrtf(fmaxf(0.f, ss / (float)K - mu * mu) + eps);
+  const float rstd = rsqrtf(fast_variance(ss / (float)K, mu) + eps);
   bf16* a = A + (size_t)row * K;
   for (int k = lane * 8; k < K; k += 256) {
     uint4 v = *reinterpret_cast<const uint4*>(x + k);

@@ -146,7 +146,7 @@ __global__ void __launch_bounds__(256) prologue_ln_f32_kernel(const float* __res
     ss += __shfl_xor_sync(0xffffffffu, ss, o);
   }
   const float mu = s / (float)K;
-  const float rstd = rsqrtf(fmaxf(0.f, ss / (float)K - mu * mu) + eps);
+  const float rstd = rsqrtf(fast_variance(ss / (float)K, mu) + eps);
   float* a = A + (size_t)row * K;
   for (int k = lane * 4; k < K; k += 128) {
     float4 v = *reinterpret_cast<const float4*>(x + k);

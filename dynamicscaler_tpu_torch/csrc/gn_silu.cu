@@ -360,7 +360,7 @@ gn_fold_kernel(const float* __restrict__ part, int splits, int C, int G, long lo
     const float n = (float)(M * cg);
     const float mean = S / n;
     stat[0] = mean;
-    stat[1] = rsqrtf(fmaxf(0.f, SS / n - mean * mean) + eps);
+    stat[1] = rsqrtf(hopper::fast_variance(SS / n, mean) + eps);
   }
   __syncthreads();
   for (int c = g * cg + threadIdx.x; c < (g + 1) * cg; c += FOLD_THREADS) {
@@ -539,7 +539,7 @@ gn_cluster_kernel(const T* __restrict__ X, int M, int C, int G, int rows, const 
     const float nn = (float)((long long)M * cg);
     const float mean = S / nn;
     gstat[g] = mean;
-    gstat[G + g] = rsqrtf(fmaxf(0.f, SS / nn - mean * mean) + eps);
+    gstat[G + g] = rsqrtf(hopper::fast_variance(SS / nn, mean) + eps);
   }
   __syncthreads();
   float* vec = csum;  // mul [C] | add [C]
@@ -739,7 +739,7 @@ gn_grid_kernel(const T* __restrict__ X, int B, int M, int C, int G, int cs, int 
         const float nn = (float)((long long)M * cg);
         const float mean = red[g] / nn;
         gstat[g] = mean;
-        gstat[G + g] = rsqrtf(fmaxf(0.f, red[G + g] / nn - mean * mean) + eps);
+        gstat[G + g] = rsqrtf(hopper::fast_variance(red[G + g] / nn, mean) + eps);
       }
       __syncthreads();
       for (int c = threadIdx.x; c < C; c += blockDim.x) {

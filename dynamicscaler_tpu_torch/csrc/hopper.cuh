@@ -26,6 +26,17 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The LayerNorm and GroupNorm fast variance max(0, E[x^2] - mean^2) with the
+// plain versions' rounding points and NaN: mean^2 rounded on its own (an FMA
+// would keep an overflowing mean^2 exact and give inf where the plain version
+// gives inf - inf = NaN), and a NaN kept, as torch's clamp_min and
+// jnp.maximum keep it (fmaxf returns the number). The row or group is then
+// NaN, as in the plain versions.
+__device__ __forceinline__ float fast_variance(float mean_sq, float mean) {
+  const float v = __fsub_rn(mean_sq, __fmul_rn(mean, mean));
+  return v < 0.f ? 0.f : v;
+}
+
 // ---- mbarriers --------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

@@ -192,7 +192,7 @@ __device__ void layer_norm(const uint8_t* Src, uint8_t* Dst, int C, const float*
       ss += __shfl_xor_sync(0xffffffffu, ss, o);
     }
     mu[i] = sum / (float)C;
-    rstd[i] = rsqrtf(fmaxf(0.f, ss / (float)C - mu[i] * mu[i]) + eps);
+    rstd[i] = rsqrtf(fast_variance(ss / (float)C, mu[i]) + eps);
   }
   for (int k = lane * 8; k < C; k += 256) {
     const float4 w0 = __ldg(reinterpret_cast<const float4*>(s + k));

@@ -89,7 +89,7 @@ __device__ void layer_norm(Src src, int rows, int C, const float* __restrict__ w
         ss[i] += __shfl_xor_sync(0xffffffffu, ss[i], o);
       }
       mu[i] = s[i] / (float)C;
-      rstd[i] = rsqrtf(fmaxf(0.f, ss[i] / (float)C - mu[i] * mu[i]) + eps);
+      rstd[i] = rsqrtf(fast_variance(ss[i] / (float)C, mu[i]) + eps);
     }
     for (int k = lane * 4; k < C; k += 128) {
       const float4 g = __ldg(reinterpret_cast<const float4*>(w + k));

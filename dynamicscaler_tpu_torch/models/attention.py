@@ -25,8 +25,12 @@ modules hand each op its kernel operands, packed once from their parameters
 keep plain math here, and so do the sites FreeTraj re-weights
 (``CrossAttention._traj_attention``): the JAX package computes that
 attention outside any Pallas kernel too. Such a site is chosen because a
-``traj`` entry is given, never because a kernel failed. Relative position
-is not ported (off the shipped configs' path).
+``traj`` entry is given, never because a kernel failed. Temporal relative
+position (``use_relative_position``; ``relative_position_{k,v}`` tables)
+keeps its sites on plain math as well (``CrossAttention._plain_self``), as
+the JAX package computes it outside any Pallas kernel
+(attention.py:162-178, 211-249): off K1 and off the whole-block kernel 10,
+while the block's feed-forward stays on K4.
 """
 
 from __future__ import annotations
@@ -46,14 +50,33 @@ SITE_SPATIAL = "spatial"  # self-attention over H*W tokens
 SITE_CROSS = "cross"  # attention to the text (+ image) context
 
 
+class RelativePosition(nn.Module):
+    """Learned relative-position embeddings of the temporal attention
+    (lvdm/modules/attention.py:21-40): ``embeddings_table`` [2 L + 1, d];
+    ``forward(n, m)`` -> [n, m, d], row ``clip(j - i, -L, L) + L`` for
+    query i and key j."""
+
+    def __init__(self, num_units: int, max_relative_position: int):
+        super().__init__()
+        self.max_relative_position = max_relative_position
+        self.embeddings_table = nn.Parameter(torch.empty(2 * max_relative_position + 1, num_units))
+
+    def forward(self, length_q: int, length_k: int) -> torch.Tensor:
+        L = self.max_relative_position
+        dev = self.embeddings_table.device
+        dist = torch.arange(length_k, device=dev)[None, :] - torch.arange(length_q, device=dev)[:, None]
+        return self.embeddings_table[dist.clamp(-L, L) + L]
+
+
 class CrossAttention(nn.Module):
-    """Self/cross attention with optional dual image-KV
-    (lvdm/modules/attention.py:43-127). ``forward`` runs the whole
-    LN -> attention -> out-proj -> +x sub-block."""
+    """Self/cross attention with optional dual image-KV and temporal
+    relative position (lvdm/modules/attention.py:43-127). ``forward`` runs
+    the whole LN -> attention -> out-proj -> +x sub-block."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, heads: int = 8,
                  dim_head: int = 64, img_cross_attention: bool = False,
-                 text_context_len: int = 77):
+                 text_context_len: int = 77, relative_position: bool = False,
+                 temporal_length: Optional[int] = None):
         super().__init__()
         inner = heads * dim_head
         context_dim = query_dim if context_dim is None else context_dim
@@ -69,13 +92,21 @@ class CrossAttention(nn.Module):
         if img_cross_attention:
             self.to_k_ip = nn.Linear(context_dim, inner, bias=False)
             self.to_v_ip = nn.Linear(context_dim, inner, bias=False)
+        self.relative_position = relative_position
+        if relative_position:
+            if temporal_length is None:
+                raise ValueError("relative position needs the temporal length")
+            self.relative_position_k = RelativePosition(dim_head, temporal_length)
+            self.relative_position_v = RelativePosition(dim_head, temporal_length)
         self._operands = cuda_lib.PackCache()
 
     def forward(self, x, ln: nn.LayerNorm, site: str, context=None, mask=None, traj=None):
         if traj is not None:
+            if self.relative_position:
+                raise ValueError("FreeTraj with temporal relative position is not supported (as in the JAX package)")
             return self._traj_plain(x, ln, context, mask, traj)
-        if mask is not None:
-            return self._masked_plain(x, ln, mask)
+        if mask is not None or self.relative_position:
+            return self._plain_self(x, ln, mask)
         out = self.to_out[0]
         args = (ln.weight, ln.bias, self.to_q.weight, self.to_k.weight, self.to_v.weight,
                 out.weight, out.bias)
@@ -99,9 +130,14 @@ class CrossAttention(nn.Module):
             return None
         return self._operands.get(lambda: pack(*params, dtype=x.dtype), params, x.dtype)
 
-    def _masked_plain(self, x, ln, mask):
-        """Masked self-attention (causal temporal configs), plain math:
-        fp32 logits, masked entries at the fp32 minimum, fp32 softmax."""
+    def _plain_self(self, x, ln, mask):
+        """Self-attention with a mask (causal temporal configs) and/or
+        relative position, plain math: fp32 logits q k^T * scale, plus
+        with relative position the bias q . table_k[j - i] * scale; masked
+        entries at the fp32 minimum; fp32 softmax rounded to the activation
+        type; P V, plus with relative position P . table_v[j - i]
+        (attention.py:211-249; the JAX package recomputes the same
+        probabilities for the second term)."""
         B, N, _ = x.shape
         h, d = self.heads, self.dim_head
         dt = x.dtype
@@ -110,11 +146,18 @@ class CrossAttention(nn.Module):
         def split(t):
             return t.reshape(B, N, h, d).transpose(1, 2)
 
-        q, k, v = (split(mm_f32(xn, lin.weight).to(dt)) for lin in (self.to_q, self.to_k, self.to_v))
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * self.scale
-        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
-        p = torch.softmax(logits, dim=-1).to(dt)
-        o = torch.matmul(p.float(), v.float()).to(dt).transpose(1, 2).reshape(B, N, h * d)
+        q, k, v = (split(mm_f32(xn, lin.weight).to(dt)).float() for lin in (self.to_q, self.to_k, self.to_v))
+        logits = torch.matmul(q, k.transpose(-1, -2)) * self.scale
+        if self.relative_position:
+            k2 = self.relative_position_k(N, N).to(dt).float()  # [N, M, d]
+            logits = logits + torch.einsum("bhnd,nmd->bhnm", q, k2) * self.scale
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+        p = torch.softmax(logits, dim=-1).to(dt).float()
+        o = torch.matmul(p, v)
+        if self.relative_position:
+            o = o + torch.einsum("bhnm,nmd->bhnd", p, self.relative_position_v(N, N).to(dt).float())
+        o = o.to(dt).transpose(1, 2).reshape(B, N, h * d)
         out = self.to_out[0]
         return (mm_f32(o, out.weight) + out.bias.float()).to(dt) + x
 
@@ -184,21 +227,26 @@ class BasicTransformerBlock(nn.Module):
     a pre-LayerNorm and a residual (lvdm/modules/attention.py:187-220).
     ``temporal`` selects the sites: a temporal block's attn1 and attn2 are
     both frame self-attention (K1); a spatial block's are K2 and K3. A
-    temporal block without a mask runs whole as kernel 10, a spatial block
-    with a context whole as kernel 11, where the plan allows ``block`` at
-    its width and the kernel's gate admits the shape."""
+    temporal block without a mask or relative position runs whole as
+    kernel 10, a spatial block with a context whole as kernel 11, where the
+    plan allows ``block`` at its width and the kernel's gate admits the
+    shape. ``relative_position`` (temporal blocks) gives both attentions
+    their tables (attention.py:288-296)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
                  img_cross_attention: bool = False, text_context_len: int = 77,
-                 temporal: bool = False):
+                 temporal: bool = False, relative_position: bool = False,
+                 temporal_length: Optional[int] = None):
         super().__init__()
         self.temporal = temporal
-        self.attn1 = CrossAttention(dim, None, heads, dim_head)
+        self.relative_position = relative_position
+        rel = dict(relative_position=relative_position, temporal_length=temporal_length)
+        self.attn1 = CrossAttention(dim, None, heads, dim_head, **rel)
         self.ff = FeedForward(dim)
         self.attn2 = CrossAttention(
             dim, None if temporal else context_dim, heads, dim_head,
             img_cross_attention=img_cross_attention and not temporal,
-            text_context_len=text_context_len,
+            text_context_len=text_context_len, **rel,
         )
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
@@ -232,7 +280,7 @@ class BasicTransformerBlock(nn.Module):
         inner = heads * self.attn1.dim_head
         side = "t" if self.temporal else "s"
         t_self, t_cross = (traj or {}).get("self"), (traj or {}).get("cross")
-        if (mask is None and t_self is None and t_cross is None
+        if (mask is None and t_self is None and t_cross is None and not self.relative_position
                 and fused_temporal.plan_allows("block", side, self.dim, x.dtype)):
             if self.temporal and fused_block.temporal_block_ok(x.shape[1], inner, self.dim, heads):
                 return self._whole(x, fused_block.fused_temporal_block, fused_block.pack_temporal_block)

@@ -13,11 +13,17 @@ Counterparts of ``dynamicscaler_tpu/models/clip.py``:
   full transformer; all 257 tokens are returned, without ``ln_post`` or the
   projection (drop those two keys of an OpenCLIP ``visual.*`` checkpoint).
   Input is :func:`clip_preprocess`'s output.
+* ``CLIPVisionPooled``: the same tower, then the class token through
+  ``ln_post`` and ``@ proj`` (open_clip ``model.visual``, OpenAI clip
+  ``encode_image``); ``OpenCLIPImageEmbedderPooled`` (condition.py:238-295)
+  and ``ClipImageEmbedder`` (condition.py:136-171, the QuickGELU tower)
+  preprocess, pool and apply :func:`ucg_dropout`.
 
 OpenCLIP state_dict names (``transformer.resblocks.{i}.attn.in_proj_weight``
 ...). LayerNorm eps 1e-5, exact (erf) GELU (LAION ViT-H). Attention is
 PyTorch's SDPA (the JAX package's is stock JAX here too: no repository kernel
-at these sites).
+at these sites). ``quick_gelu`` swaps the MLPs' GELU for OpenAI CLIP's
+``x * sigmoid(1.702 x)``; the state_dict is the same either way.
 """
 
 from __future__ import annotations
@@ -47,8 +53,20 @@ def clip_preprocess(images: torch.Tensor, image_size: int = 224) -> torch.Tensor
     return (x - mean) / std
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """OpenAI CLIP's activation, ``x * sigmoid(1.702 x)``."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+class QuickGELU(nn.Module):
+    """:func:`quick_gelu` as a module."""
+
+    def forward(self, x):
+        return quick_gelu(x)
+
+
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int, causal: bool = True):
+    def __init__(self, width: int, heads: int, causal: bool = True, quick_gelu: bool = False):
         super().__init__()
         self.heads = heads
         self.causal = causal
@@ -57,7 +75,7 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = nn.LayerNorm(width)
         self.mlp = nn.Sequential()
         self.mlp.add_module("c_fc", nn.Linear(width, 4 * width))
-        self.mlp.add_module("gelu", nn.GELU())
+        self.mlp.add_module("gelu", QuickGELU() if quick_gelu else nn.GELU())
         self.mlp.add_module("c_proj", nn.Linear(4 * width, width))
 
     def _attn(self, x):
@@ -95,7 +113,7 @@ class CLIPTextEncoder(nn.Module):
 
 
 class CLIPVisionEncoder(nn.Module):
-    def __init__(self, cfg: CLIPVisionConfig):
+    def __init__(self, cfg: CLIPVisionConfig, quick_gelu: bool = False):
         super().__init__()
         self.cfg = cfg
         grid = cfg.image_size // cfg.patch_size
@@ -105,7 +123,8 @@ class CLIPVisionEncoder(nn.Module):
         self.ln_pre = nn.LayerNorm(cfg.width)
         self.transformer = nn.Module()
         self.transformer.resblocks = nn.ModuleList(
-            [ResidualAttentionBlock(cfg.width, cfg.heads, causal=False) for _ in range(cfg.layers)]
+            [ResidualAttentionBlock(cfg.width, cfg.heads, causal=False, quick_gelu=quick_gelu)
+             for _ in range(cfg.layers)]
         )
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
@@ -119,3 +138,61 @@ class CLIPVisionEncoder(nn.Module):
         for blk in self.transformer.resblocks:
             x = blk(x)
         return x
+
+
+class CLIPVisionPooled(CLIPVisionEncoder):
+    """Pooled, projected CLIP image embedding: the tower's class token ->
+    ``ln_post`` -> ``@ proj`` -> [B, output_dim]. The ``visual.*`` names of
+    both pooled embedders (conv1 ... ln_post, proj)."""
+
+    def __init__(self, cfg: CLIPVisionConfig, quick_gelu: bool = False):
+        super().__init__(cfg, quick_gelu)
+        self.ln_post = nn.LayerNorm(cfg.width)
+        self.proj = nn.Parameter(torch.empty(cfg.width, cfg.output_dim))
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """CLIP-normalised [B, S, S, 3] -> [B, output_dim]."""
+        return self.ln_post(super().forward(images)[:, 0]) @ self.proj
+
+
+def ucg_dropout(z: torch.Tensor, ucg_rate: float, generator: torch.Generator = None, keep: torch.Tensor = None,
+                no_dropout: bool = False) -> torch.Tensor:
+    """Unconditional-guidance dropout (condition.py:169-170, :284-285): a
+    batch row of ``z`` is zeroed with probability ``ucg_rate``. The rows
+    kept are ``keep`` [B] when given (a test hands in the JAX draw), else a
+    Bernoulli draw from ``generator``; with neither, or ``no_dropout``, or
+    a rate <= 0, ``z`` is returned as it is (the reference's
+    ``no_dropout=True``)."""
+    if ucg_rate <= 0.0 or no_dropout or (generator is None and keep is None):
+        return z
+    if keep is None:
+        keep = torch.bernoulli(torch.full((z.shape[0],), 1.0 - ucg_rate, device=generator.device),
+                               generator=generator)
+    keep = torch.as_tensor(keep, device=z.device)
+    return z * keep.reshape(-1, *([1] * (z.ndim - 1))).to(z.dtype)
+
+
+class OpenCLIPImageEmbedderPooled(nn.Module):
+    """``FrozenOpenCLIPImageEmbedder`` (condition.py:238-295): [-1, 1] NHWC
+    images -> :func:`clip_preprocess` -> :class:`CLIPVisionPooled`
+    (``model``) -> :func:`ucg_dropout`."""
+
+    def __init__(self, cfg: CLIPVisionConfig, ucg_rate: float = 0.0, quick_gelu: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.ucg_rate = ucg_rate
+        self.model = CLIPVisionPooled(cfg, quick_gelu)
+
+    def forward(self, images: torch.Tensor, generator: torch.Generator = None, keep: torch.Tensor = None,
+                no_dropout: bool = False) -> torch.Tensor:
+        z = self.model(clip_preprocess(images, self.cfg.image_size))
+        return ucg_dropout(z, self.ucg_rate, generator, keep, no_dropout)
+
+
+class ClipImageEmbedder(OpenCLIPImageEmbedderPooled):
+    """``ClipImageEmbedder`` (condition.py:136-171): OpenAI CLIP's
+    ``encode_image`` (the QuickGELU tower) with the same preprocess and
+    dropout."""
+
+    def __init__(self, cfg: CLIPVisionConfig, ucg_rate: float = 0.0):
+        super().__init__(cfg, ucg_rate, quick_gelu=True)

@@ -1,13 +1,16 @@
-"""The perceiver ``Resampler``: CLIP ViT-H image tokens -> i2v context tokens.
+"""Image-token projectors for i2v conditioning: ``ImageProjModel`` and the
+perceiver ``Resampler`` (CLIP ViT-H image tokens -> i2v context tokens).
 
-Counterpart of ``dynamicscaler_tpu/models/resampler.py::Resampler``
-(lvdm/modules/encoders/ip_resampler.py:45-135): ``proj_in`` to ``dim``, then
+Counterpart of ``dynamicscaler_tpu/models/resampler.py``.
+``ImageProjModel`` (ip_resampler.py:7-21) is a linear map of a pooled image
+embedding to ``num_tokens`` context tokens, then LayerNorm (names ``proj``,
+``norm``). ``Resampler`` (ip_resampler.py:45-135): ``proj_in`` to ``dim``, then
 ``depth`` x (perceiver attention of the learned queries over [x ; queries],
 + residual; LayerNorm -> GELU MLP, + residual), ``proj_out`` and
 ``norm_out``. VideoCrafter ``image_proj_model.*`` state_dict names
 (``layers.{d}.0`` the attention, ``layers.{d}.1`` the MLP). LayerNorm eps
 1e-5, exact (erf) GELU; attention is PyTorch's SDPA (stock JAX in the JAX
-package too). ``ImageProjModel`` is off the i2v path and not ported.
+package too).
 """
 
 from __future__ import annotations
@@ -17,6 +20,20 @@ from torch import nn
 
 from dynamicscaler_tpu_torch.config import ResamplerConfig
 from dynamicscaler_tpu_torch.ops.attention import attention
+
+
+class ImageProjModel(nn.Module):
+    """[B, clip_embeddings_dim] -> [B, num_tokens, cross_attention_dim]."""
+
+    def __init__(self, cross_attention_dim: int = 1024, clip_embeddings_dim: int = 1024, num_tokens: int = 4):
+        super().__init__()
+        self.cross_attention_dim = cross_attention_dim
+        self.num_tokens = num_tokens
+        self.proj = nn.Linear(clip_embeddings_dim, num_tokens * cross_attention_dim)
+        self.norm = nn.LayerNorm(cross_attention_dim)
+
+    def forward(self, image_embeds):
+        return self.norm(self.proj(image_embeds).reshape(-1, self.num_tokens, self.cross_attention_dim))
 
 
 class PerceiverAttention(nn.Module):

@@ -332,18 +332,20 @@ class TemporalTransformer(nn.Module):
     width and kernel 12's gate admits the shape (``fused_mega.temporal_ok``:
     inner == C, so never the 512-wide init_attn), the whole transformer runs
     as kernel 12 (``fused_mega.temporal_transformer``); else the wrapper head
-    and tail (kernels 5, 6) around the block."""
+    and tail (kernels 5, 6) around the block. ``relative_position`` keeps
+    the transformer off kernel 12 (unet3d.py:380-386) and its blocks off
+    kernel 10 and K1 (plain attention with the tables, K4 feed-forward)."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
                  use_linear: bool = True, causal_attention: bool = False,
-                 only_self_att: bool = True, relative_position: bool = False):
+                 only_self_att: bool = True, relative_position: bool = False,
+                 temporal_length: int = 16):
         super().__init__()
         if not only_self_att:
             raise NotImplementedError("cross-attn temporal transformer unused by shipped configs")
-        if relative_position:
-            raise NotImplementedError("temporal relative position is not ported")
         inner = heads * dim_head
         self.causal_attention = causal_attention
+        self.relative_position = relative_position
         self.norm = nn.GroupNorm(32, channels, eps=1e-6)
         if use_linear:
             self.proj_in = nn.Linear(channels, inner)
@@ -352,7 +354,9 @@ class TemporalTransformer(nn.Module):
             self.proj_in = nn.Conv1d(channels, inner, 1)
             self.proj_out = nn.Conv1d(inner, channels, 1)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(inner, heads, dim_head, temporal=True) for _ in range(depth)
+            BasicTransformerBlock(inner, heads, dim_head, temporal=True, relative_position=relative_position,
+                                  temporal_length=temporal_length)
+            for _ in range(depth)
         ])
         self._operands = cuda_lib.PackCache()
         self._mega_operands = cuda_lib.PackCache()
@@ -367,7 +371,7 @@ class TemporalTransformer(nn.Module):
         blk = self.transformer_blocks[0]
         heads = blk.attn1.heads
         if (len(self.transformer_blocks) == 1 and not self.causal_attention and traj is None
-                and fused_temporal.plan_allows("mega", "t", C, x.dtype)
+                and not self.relative_position and fused_temporal.plan_allows("mega", "t", C, x.dtype)
                 and fused_mega.temporal_ok(Fn, C, heads * blk.attn1.dim_head, heads)):
             return _whole_transformer(self, x5, fused_mega.temporal_transformer,
                                       fused_mega.pack_temporal_mega).reshape(BF, H, W, C)
@@ -421,7 +425,7 @@ class UNet3D(nn.Module):
             self.init_attn = nn.Sequential(TemporalTransformer(
                 mc, 8, cfg.num_head_channels, use_linear=False,
                 causal_attention=cfg.use_causal_attention, only_self_att=cfg.temporal_selfatt_only,
-                relative_position=cfg.use_relative_position,
+                relative_position=cfg.use_relative_position, temporal_length=cfg.temporal_length,
             ))
         self.middle_block = nn.ModuleList([self._make(s) for s in mid_specs])
         self.output_blocks = nn.ModuleList([nn.ModuleList([self._make(s) for s in sp]) for sp in out_specs])
@@ -446,7 +450,7 @@ class UNet3D(nn.Module):
                 spec.channels, heads, cfg.num_head_channels, depth=cfg.transformer_depth,
                 use_linear=cfg.use_linear, causal_attention=cfg.use_causal_attention,
                 only_self_att=cfg.temporal_selfatt_only,
-                relative_position=cfg.use_relative_position,
+                relative_position=cfg.use_relative_position, temporal_length=cfg.temporal_length,
             )
         if spec.kind == "down":
             return Downsample(spec.channels)

@@ -222,6 +222,18 @@ class DiagonalGaussianDistribution:
         )
 
 
+class IdentityFirstStage:
+    """Pass-through first stage (lvdm/models/autoencoder.py:202-219), for
+    configs that diffuse in pixel space: encode and decode return their
+    input."""
+
+    def encode(self, x, *args, **kwargs):
+        return x
+
+    def decode(self, x, *args, **kwargs):
+        return x
+
+
 class AutoencoderKL(nn.Module):
     """Encoder + Decoder + quant convs. ``encode`` returns the scaled latent
     (mode, or a sample when a generator or noise is given); ``decode``

@@ -1,12 +1,14 @@
 """Conditioning: text / image context assembly and the CFG uncond context.
 
 Counterpart of ``dynamicscaler_tpu/pipelines/conditioning.py``
-(scripts/evaluation/funcs.py:19-35, utils/multi_prompt_utils.py:1-8). Only
-the shipped configs' ``empty_seq`` uncond type is ported.
+(scripts/evaluation/funcs.py:19-35, utils/multi_prompt_utils.py:1-8), with
+both uncond types: ``empty_seq`` (the shipped configs', the default) and
+``zero_embed``.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Sequence
 
 import torch
@@ -30,14 +32,42 @@ def encode_texts_cached(model, texts: Sequence[str], cache: dict):
     return torch.stack([cache[t] for t in texts])
 
 
-def build_uncond_context(model, batch: int = 1, with_image: bool = None, image_hw=None):
-    """CFG uncond context (``empty_seq``): the embedding of the empty prompt,
-    plus, for an i2v bundle, the image tokens of a zero image. The reference
-    feeds that zero image at the *latent* resolution (h, w)
-    (i2v_sphere_panorama_pipeline.py:111-137); default (40, 64)."""
+def build_uncond_context(model, batch: int = 1, with_image: bool = None, image_hw=None,
+                         uncond_type: str = "empty_seq", cond_like: torch.Tensor = None):
+    """CFG uncond context: a text part, plus, for an i2v bundle, the image
+    tokens of a zero image. The reference feeds that zero image at the
+    *latent* resolution (h, w) (i2v_sphere_panorama_pipeline.py:111-137);
+    default (40, 64). The text part is, by ``uncond_type``:
+
+    * ``empty_seq`` (both shipped configs, ddpm3d.py:338): the embedding of
+      the empty prompt;
+    * ``zero_embed``: zeros shaped like the text part of the cond context
+      ``cond_like`` [B, L, D] (its first ``text_context_len`` tokens). The
+      reference zeroes the whole image+text context and appends the
+      zero-image tokens after it (funcs.py:24-34), 16 tokens more than the
+      cond context; this zeroes the text part only, as the JAX package
+      does, so the CFG pair stays one batch, and warns on an
+      image-conditioned bundle."""
     if with_image is None:
         with_image = model.image_encoder is not None
-    uc_text = model.encode_text([""] * batch)
+    if uncond_type == "zero_embed":
+        if with_image:
+            warnings.warn(
+                "zero_embed uncond on an image-conditioned model: this zeroes only the text part and keeps the "
+                "CFG pair batchable; the reference (funcs.py:24-34) zeroes the full cond embedding and appends "
+                "zero-image tokens (uncond gets 16 extra tokens). Both shipped configs use empty_seq: verify "
+                "parity before using zero_embed with real image-conditioned weights.",
+                stacklevel=2,
+            )
+        if cond_like is None:
+            raise ValueError("zero_embed needs the cond context (cond_like) for its shape")
+        text_len = model.config.unet.text_context_len
+        uc_text = torch.zeros((batch, min(text_len, cond_like.shape[1]), *cond_like.shape[2:]),
+                              dtype=cond_like.dtype, device=cond_like.device)
+    elif uncond_type == "empty_seq":
+        uc_text = model.encode_text([""] * batch)
+    else:
+        raise ValueError(f"uncond_type {uncond_type!r}: empty_seq or zero_embed")
     if not with_image:
         return uc_text
     h, w = image_hw if image_hw is not None else (40, 64)

@@ -41,6 +41,7 @@ from dynamicscaler_tpu_torch.pipelines.conditioning import (
 from dynamicscaler_tpu_torch.pipelines.planar import PlanarShiftWindowEngine, StepPlan
 from dynamicscaler_tpu_torch.pipelines.t2v import basic_sample_loop, make_schedule_for_model
 from dynamicscaler_tpu_torch.pipelines.tiled_vae import ring_aware_decode, tiled_vae_encode
+from dynamicscaler_tpu_torch.utils.timing import Marker
 
 
 def ring_crop_image(image: np.ndarray, top: int, left: int, h: int, w: int) -> np.ndarray:
@@ -205,8 +206,10 @@ def sample_shift_multi_windows(
     grid = PlanarGrid(total_h=th, total_w=tw, win_h=wh, win_w=ww, num_windows_h=num_windows_h,
                       num_windows_w=num_windows_w, loop_step=loop_step, vae_scale=vs)
     pano_image = _host_image(pano_image)
+    tm = Marker("i2v")
     bank, phase_ids = _phase_contexts(model, grid, pano_image, prompt, window_multi_prompt_dict,
                                       height, width, {})
+    tm.mark("phase conditioning (CLIP)", block=bank)
     uncond = build_uncond_context(model, with_image=model.image_encoder is not None, image_hw=(wh, ww))
 
     S = num_inference_steps
@@ -216,6 +219,7 @@ def sample_shift_multi_windows(
                               pano_image, use_skip_time, skip, progressive_skip, generator, noise_fn)
     else:
         latent = torch.as_tensor(init_panorama_latent, dtype=torch.float32, device=model.device)
+    tm.mark("init latent", block=latent)
 
     ratios_f = overlap_ratio_list_f if overlap_ratio_list_f is not None else [0.25] * S
     steps_eff = S - (skip if use_skip_time and not progressive_skip else 0)
@@ -230,12 +234,15 @@ def sample_shift_multi_windows(
 
     plan = _step_plan(sched, steps_eff, origins_of, context_of, merge_renoised_overlap_latent_ratio,
                       merge_prev_denoised_ratio_list)
+    tm.mark("plan built")
     engine = PlanarShiftWindowEngine(model, sched, (frames, wh, ww), guidance_scale=guidance_scale,
                                      fps=fps, overlap_mode=overlap_mode, unet_microbatch=unet_microbatch,
                                      mesh=mesh)
     latent, denoised = engine.run(latent, plan, uncond, generator, noise_fn=noise_fn)
+    tm.mark("denoise loop")
     # a >= 4K equirect frame decoded whole would not fit in memory: tile the ring
     video = ring_aware_decode(model, denoised, w_tiles=max(1, tw // 256)) if decode else None
+    tm.mark("ring decode", block=video)
     return video, denoised
 
 

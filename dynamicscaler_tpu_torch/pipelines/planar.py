@@ -35,7 +35,7 @@ import torch
 from dynamicscaler_tpu_torch.ops.blend import mix_with_mask, normalize_accumulated
 from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, draw_noise, re_noise
 from dynamicscaler_tpu_torch.ops.ring import add_ring_window, get_ring_window, set_ring_window
-from dynamicscaler_tpu_torch.utils.timing import LoopStats
+from dynamicscaler_tpu_torch.utils.timing import LoopStats, Marker
 
 # steady s/step of the most recent run() loop, read by cli/gen_pano_360.py
 LOOP_STATS = LoopStats()
@@ -92,11 +92,13 @@ class PlanarShiftWindowEngine:
         ``pre_step(latent, i)`` may replace the latent before step i."""
         latent = latent.clone()
         denoised = torch.zeros_like(latent)
+        tm = Marker("planar")
         LOOP_STATS.start(len(plan))
         for i, sp in enumerate(plan):
             if pre_step is not None:
                 latent = pre_step(latent, i)
             self.step(latent, denoised, sp, uncond_context, generator, noise_fn, f"renoise:{i}")
+            tm.lap(f"step {i}/{len(plan)} N={len(sp.origins)}", block=latent)
             if i == 0:
                 LOOP_STATS.mark_first(latent)
         LOOP_STATS.finish(latent)

@@ -56,7 +56,7 @@ from dynamicscaler_tpu_torch.ops.sphere import (
 from dynamicscaler_tpu_torch.pipelines.conditioning import build_uncond_context, cat_text_image, encode_texts_cached
 from dynamicscaler_tpu_torch.pipelines.t2v import make_schedule_for_model
 from dynamicscaler_tpu_torch.pipelines.tiled_vae import tiled_vae_encode
-from dynamicscaler_tpu_torch.utils.timing import LoopStats
+from dynamicscaler_tpu_torch.utils.timing import LoopStats, Marker
 
 # steady s/step of the most recent sampler loop, read by cli/gen_pano_360.py
 LOOP_STATS = LoopStats()
@@ -415,9 +415,12 @@ def sample_shift_sphere_panorama(
     maps = maps_at(view_get_scale_factor)
     native = maps if view_get_scale_factor == 1 else maps_at(1)
     set_maps = maps if view_set_scale_factor == view_get_scale_factor else maps_at(view_set_scale_factor)
+    tm = Marker("sphere")
+    tm.mark("maps")
 
     ctx_bank, phase_gid = _view_contexts(model, prompt, pano_image, phase_views, view_fov, phi_prompt_dict,
                                          phi_fov_dict, height, width, use_image_cond)
+    tm.mark("phase conditioning (CLIP)", block=ctx_bank)
     uncond = build_uncond_context(model, with_image=use_image_cond, image_hw=(lat_h, lat_w))
 
     # the clean static pano latent, encoded once
@@ -444,6 +447,7 @@ def sample_shift_sphere_panorama(
             latent = torch.where(sel, noised, draw_noise(shape, dev, generator, noise_fn, "init"))
         else:
             latent = re_noise(sched, clean, 0, S - 1, noise=noise)
+    tm.mark("static encode + init latent", block=(static_clean, latent))
 
     steps_eff = S - (skip if use_skip_time and not progressive_skip else 0)
     if denoise_to_step is not None:
@@ -454,6 +458,7 @@ def sample_shift_sphere_panorama(
                        view_get_scale_factor, view_set_scale_factor, generator, noise_fn, mesh)
 
     denoised = torch.zeros_like(latent)
+    tm.reset_lap()
     LOOP_STATS.start(steps_eff)
     for i in range(steps_eff):
         # with skip the table index keeps counting from the truncated top
@@ -477,6 +482,7 @@ def sample_shift_sphere_panorama(
         )
         latent, denoised = sampler.step(latent, denoised, static_clean, maps[phase], native[phase],
                                         set_maps[phase], uncond, sp)
+        tm.lap(f"step {i}/{steps_eff} phase={phase}", block=latent)
         if i == 0:
             LOOP_STATS.mark_first(latent)
     LOOP_STATS.finish(latent)

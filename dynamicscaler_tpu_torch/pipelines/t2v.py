@@ -117,6 +117,23 @@ def freetraj_sample(model, prompt: str, traj_keyframes: Sequence[Sequence[float]
     return video, den
 
 
+def shuffle_init_frame_order(total_f: int, frames: int, stride: int, rng: np.random.Generator) -> np.ndarray:
+    """The frame order of ``random_shuffle_init_frame_stride``
+    (t2v_normal_pipeline.py:328-337): from the first frame past the first
+    window on, each group of ``stride`` frames takes the frames one window
+    earlier (as already reordered), shuffled by ``rng``. The reference's
+    indexing shuffles the H axis by accident; this shuffles frames, the
+    documented intent, as the JAX package does. Returns [total_f] indices
+    into the frame axis."""
+    order = np.arange(total_f)
+    for start in range(frames, total_f, stride):
+        n = min(stride, total_f - start)
+        src = order[start - frames:start - frames + n].copy()
+        rng.shuffle(src)
+        order[start:start + n] = src
+    return order
+
+
 def sample_shift_multi_windows(
     model,
     prompt: str,
@@ -138,6 +155,7 @@ def sample_shift_multi_windows(
     merge_prev_denoised_ratio_list: Optional[Sequence[float]] = None,
     merge_predenoise_ratio_list: Optional[Sequence[float]] = None,
     sparse_add_residual: bool = True,
+    random_shuffle_init_frame_stride: int = 0,
     init_panorama_latent: Optional[torch.Tensor] = None,
     clear_pre_denoised_latent: Optional[torch.Tensor] = None,
     use_pre_denoise: bool = False,
@@ -162,7 +180,13 @@ def sample_shift_multi_windows(
     ``merge_predenoise_ratio_list`` every step re-anchors the latent to the
     re-noised residual, on a checkerboard with ``sparse_add_residual``
     (:445-468). ``mesh`` splits each step's window batch over its ranks
-    (``parallel.mesh``; the single-window pre-denoise runs whole)."""
+    (``parallel.mesh``; the single-window pre-denoise runs whole).
+
+    ``random_shuffle_init_frame_stride`` > 0 reorders the initial noise's
+    frames past the first window (:func:`shuffle_init_frame_order`) with a
+    numpy generator seeded from a draw of ``generator`` (the JAX package
+    seeds it from its init key, which cannot be reproduced here: a test
+    hands both the same order)."""
     sched = make_schedule_for_model(model, num_inference_steps)
     vs = model.config.vae.spatial_scale
     wh, ww = height // vs, width // vs
@@ -198,6 +222,12 @@ def sample_shift_multi_windows(
                           noise=draw_noise(residual.shape, dev, generator, noise_fn, "pre_denoise"))
     else:
         latent = draw_noise(shape, dev, generator, noise_fn, "init")
+        if random_shuffle_init_frame_stride > 0:
+            gdev = generator.device if generator is not None else "cpu"
+            seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator, device=gdev))
+            order = shuffle_init_frame_order(grid.total_f, frames, random_shuffle_init_frame_stride,
+                                             np.random.default_rng(seed))
+            latent = latent[:, torch.as_tensor(order, device=dev)]
 
     pre_step = None
     if residual is not None and merge_predenoise_ratio_list is not None:

@@ -1,8 +1,10 @@
 """JAX parameter trees -> the port's VideoCrafter-named state_dicts.
 
 The inverse of ``dynamicscaler_tpu/utils/weights.py`` ``convert_unet``,
-``convert_vae``, ``convert_clip_text``, ``convert_clip_vision`` and
-``convert_resampler``: each ``from_jax_*`` takes the JAX
+``convert_vae``, ``convert_clip_text``, ``convert_clip_vision``,
+``convert_clip_vision_pooled``, ``convert_resampler``,
+``convert_hf_clip_text`` and ``convert_t5_encoder`` (and of the
+``ImageProjModel`` tree): each ``from_jax_*`` takes the JAX
 package's parameter tree (nested dicts of numpy arrays, with or without the
 top ``"params"`` level) and returns a ``{name: torch.Tensor}`` state_dict
 for the port's module. Layout changes:
@@ -81,6 +83,9 @@ def _attention(out: _Out, p, tree):
         if name in tree:
             out.lin(f"{p}.{name}", tree[name])
     out.lin(p + ".to_out.0", tree["to_out"])
+    for kv in ("k", "v"):  # temporal relative position (use_relative_position)
+        if f"rel_pos_{kv}" in tree:
+            out[f"{p}.relative_position_{kv}.embeddings_table"] = _t(tree[f"rel_pos_{kv}"])
 
 
 def _transformer(out: _Out, p, tree, depth: int, proj):
@@ -241,6 +246,26 @@ def from_jax_clip_vision(tree: Dict[str, Any], cfg: CLIPVisionConfig) -> Dict[st
     return dict(out)
 
 
+def from_jax_clip_vision_pooled(tree: Dict[str, Any], cfg: CLIPVisionConfig) -> Dict[str, torch.Tensor]:
+    """JAX CLIPVisionPooled params -> the port's ``visual.*``-named
+    state_dict of ``CLIPVisionPooled`` (inverse of
+    ``convert_clip_vision_pooled``: the tower, ``ln_post``, ``proj``)."""
+    p = _params(tree)
+    out = _Out(from_jax_clip_vision(p["tower"], cfg))
+    out.norm("ln_post", p["ln_post"])
+    out["proj"] = _t(p["proj"])
+    return dict(out)
+
+
+def from_jax_image_proj(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ImageProjModel params -> the port's ``proj`` / ``norm`` names."""
+    p = _params(tree)
+    out = _Out()
+    out.lin("proj", p["proj"])
+    out.norm("norm", p["norm"])
+    return dict(out)
+
+
 def from_jax_resampler(tree: Dict[str, Any], cfg: ResamplerConfig) -> Dict[str, torch.Tensor]:
     """JAX Resampler params -> the port's ``image_proj_model.*``-named
     state_dict (inverse of ``convert_resampler``)."""
@@ -259,6 +284,53 @@ def from_jax_resampler(tree: Dict[str, Any], cfg: ResamplerConfig) -> Dict[str, 
         out.norm(f"layers.{d}.1.0", f["norm"])
         out.lin(f"layers.{d}.1.1", f["fc1"])
         out.lin(f"layers.{d}.1.3", f["fc2"])
+    return dict(out)
+
+
+# ---------------------------------------------------------------------------
+# Alternate text encoders (models/encoders_alt.py)
+# ---------------------------------------------------------------------------
+
+
+def from_jax_hf_clip_text(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX HFCLIPTextEncoder params -> a transformers ``CLIPTextModel``-named
+    state_dict (``text_model.*``; inverse of ``convert_hf_clip_text``)."""
+    p = _params(tree)
+    out = _Out()
+    r = "text_model."
+    out[r + "embeddings.token_embedding.weight"] = _t(p["token_embedding"])
+    out[r + "embeddings.position_embedding.weight"] = _t(p["positional_embedding"])
+    out.norm(r + "final_layer_norm", p["ln_final"])
+    for i in range(cfg.layers):
+        b, bt = f"{r}encoder.layers.{i}.", p[f"block{i}"]
+        out.norm(b + "layer_norm1", bt["ln_1"])
+        out.norm(b + "layer_norm2", bt["ln_2"])
+        for n in ("q", "k", "v", "out"):
+            out.lin(f"{b}self_attn.{n}_proj", bt[n])
+        out.lin(b + "mlp.fc1", bt["mlp_fc"])
+        out.lin(b + "mlp.fc2", bt["mlp_proj"])
+    return dict(out)
+
+
+def from_jax_t5(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX T5TextEncoder params -> a transformers ``T5EncoderModel``-named
+    state_dict (inverse of ``convert_t5_encoder``): the embedding under
+    both of its tied names, the bias table in block 0's attention."""
+    p = _params(tree)
+    out = _Out()
+    emb = _t(p["token_embedding"])
+    out["shared.weight"] = emb
+    out["encoder.embed_tokens.weight"] = emb
+    out["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = _t(p["relative_attention_bias"])
+    out["encoder.final_layer_norm.weight"] = _t(p["ln_final"]["weight"])
+    for i in range(cfg.num_layers):
+        b, bt = f"encoder.block.{i}.layer.", p[f"block{i}"]
+        out[b + "0.layer_norm.weight"] = _t(bt["ln_attn"]["weight"])
+        out[b + "1.layer_norm.weight"] = _t(bt["ln_ff"]["weight"])
+        for n in ("q", "k", "v", "o"):
+            out.lin(f"{b}0.SelfAttention.{n}", bt[n])
+        for n in ("wi_0", "wi_1", "wo"):
+            out.lin(f"{b}1.DenseReluDense.{n}", bt[n])
     return dict(out)
 
 

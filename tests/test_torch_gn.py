@@ -11,6 +11,9 @@
   with an absolute floor of 1e-5 of the output's largest magnitude (both
   sides compute in fp32 with the same rounding points and differ only in
   the order of the statistics' sums);
+* a group whose fast variance is inf - inf (x^2 overflows) NaN in the
+  plain fold and output as in the JAX fold and ``gn_silu``, and in the
+  cluster route's model (the kernels keep the NaN on the card);
 * a numpy model of the cluster route's reduction order (per thread, row
   lanes, the group's channels, then the cluster's blocks in rank order),
   within 1e-5 of ``group_norm_fold_plain``'s largest magnitude and bit for
@@ -225,6 +228,46 @@ def test_cluster_route_reduction_model_matches_the_plain_fold(rng, B, M, C):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.abs(want).max()))
     again = _cluster_model(x, s, b, 32, 1e-5)
     assert mul.tobytes() == again[0].tobytes() and add.tobytes() == again[1].tobytes()
+
+
+def _overflowing(rng, B, M, C):
+    """x [B, M, C] whose statistics the fast variance cannot take: sample 0's
+    group 0 at 1e20 (x^2 overflows: inf - inf), one inf in sample 1's group
+    3, and sample 1's group 10 constant at 3 (an exact zero variance)."""
+    cg = C // 32
+    x = (2.0 * rng.standard_normal((B, M, C)) + 0.5).astype(np.float32)
+    x[0, :, :cg] = 1e20
+    x[1, M // 2, 3 * cg] = np.inf
+    x[1, :, 10 * cg:11 * cg] = 3.0
+    return x
+
+
+def test_a_nan_variance_gives_nan_as_in_jax(rng, interpret):
+    """A group whose fast variance is inf - inf gives NaN in the plain fold
+    and its output, as the JAX fold and gn_silu do (``jnp.maximum`` and
+    ``clamp_min`` keep a NaN; the kernels' statistics keep it too, through
+    ``hopper::fast_variance``, and ``chip_smoke.py`` holds them to this on
+    the card); the constant group's zero variance and every other group
+    within the one-call tolerance; the cluster route's reduction model gives
+    NaN at the same places."""
+    B, M, C = 2, 700, 320
+    x = _overflowing(rng, B, M, C)
+    s = (1.0 + 0.1 * rng.standard_normal(C)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(C)).astype(np.float32)
+    ref = np.asarray(jtwrap.gn_silu(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b), eps=1e-5, site="unet"))
+    y, (mul, add) = ttwrap.gn_silu(_t(x), _t(s), _t(b), eps=1e-5, vectors=True)
+    y = y.numpy()
+    nan = np.zeros((B, C), bool)
+    nan[0, :10], nan[1, 30:40] = True, True
+    assert (np.isnan(ref) == nan[:, None, :]).all() and (np.isnan(y) == np.isnan(ref)).all()
+    fin = ~np.isnan(ref)
+    np.testing.assert_allclose(y[fin], ref[fin], rtol=1e-5, atol=1e-5 * float(np.abs(ref[fin]).max()))
+    jm, ja = jtwrap.group_norm_fold(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b), eps=1e-5)
+    with np.errstate(over="ignore", invalid="ignore"):
+        model = _cluster_model(x, s, b, 32, 1e-5)
+    for got, want, mod in ((mul.numpy(), np.asarray(jm), model[0]), (add.numpy(), np.asarray(ja), model[1])):
+        assert (np.isnan(want) == nan).all() and (np.isnan(got) == nan).all() and (np.isnan(mod) == nan).all()
+        np.testing.assert_allclose(got[~nan], want[~nan], rtol=1e-5, atol=1e-5 * float(np.abs(want[~nan]).max()))
 
 
 @pytest.mark.parametrize("shape,route", [((16, 6, 10, 320), "cluster"), ((2, 16, 40, 64, 320), "split")])

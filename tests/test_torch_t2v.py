@@ -200,12 +200,14 @@ def test_hash_tokenizer_ids_do_not_depend_on_the_process():
 # every module of the port, the i2v and sphere slices' and the four CLIs' included; the walk below must find them all
 PORT_MODULES = {
     "cli.batch_eval", "cli.demo", "cli.gen_pano_360", "cli.sample", "config", "core.windows",
-    "models.attention", "models.clip", "models.layers", "models.lvdm", "models.resampler", "models.unet3d",
+    "models.attention", "models.clip", "models.encoders_alt", "models.layers", "models.lvdm", "models.resampler",
+    "models.unet3d",
     "models.vae", "ops.attention", "ops.blend", "ops.cuda_lib", "ops.ddim", "ops.freetraj", "ops.fused_block",
     "ops.fused_mega", "ops.fused_spatial", "ops.fused_temporal", "ops.fused_twrap", "ops.lcm", "ops.resize",
     "ops.ring", "ops.sphere", "parallel.dist", "parallel.dryrun", "parallel.mesh", "pipelines.conditioning",
     "pipelines.fifo", "pipelines.i2v", "pipelines.planar", "pipelines.sphere", "pipelines.t2v", "pipelines.tiled_vae",
-    "utils.avi", "utils.io", "utils.timing", "utils.tokenizer", "utils.weights",
+    "utils.avi", "utils.checkpoint", "utils.ema", "utils.io", "utils.precast", "utils.timing", "utils.tokenizer",
+    "utils.weights",
 }
 
 
@@ -215,7 +217,7 @@ def test_port_imports_no_jax():
         "import dynamicscaler_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dynamicscaler_tpu')]\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dynamicscaler_tpu', 'transformers')]\n"
         "assert not bad, bad\n"
         "print(json.dumps(sorted(k for k in sys.modules if k.startswith('dynamicscaler_tpu_torch.'))))\n"
     )
