@@ -206,15 +206,38 @@ Phases, in order, one result line each (any failure exits non-zero):
    text encoder and the T5 v1.1-large encoder, seeded weights, once on the
    card against the same weights on the CPU (rel L2 within
    ``TOL_F32_PATH``).
+13. the modules that are dead upstream, ``models/vae_aux.py`` and
+   ``models/x_transformer.py``, with seeded random weights (zero-initialised
+   layers perturbed): the DDPM LSUN-256 ``Model`` (ch 128, ch_mult (1, 1, 2,
+   2, 4, 4), 2 blocks, attention at 16, about 114M parameters) at batch 4
+   with timesteps, with vanilla and with linear attention;
+   ``MergedRescaleEncoder`` at the VideoCrafter VAE's widths on 2 frames of
+   320x512; ``MergedRescaleDecoder`` at those widths with z 8;
+   ``Upsampler`` 64 -> 256; ``SimpleDecoder``, ``UpsampleDecoder`` and
+   ``FirstStagePostProcessor`` on the 40x64 latent. Each in fp32, then bf16
+   (the same weights rounded), through the kernels against the plain
+   versions (rel L2 within ``TOL_F32_PATH`` / ``TOL_PATH_REL_L2``), finite,
+   with K9 launched exactly once at each of the module's GroupNorm sites
+   and no other kernel; the K9 calls at new shapes held against their plain
+   versions with the gates of their type. Then the x-transformer in fp32 on
+   the card against the CPU (rel L2 within ``TOL_F32_PATH``):
+   ``TransformerWrapper`` at the width of LDM's BERTEmbedder (vocabulary
+   30522, 77 positions, Encoder dim 1280 depth 32, 8 heads of 64) on [2, 77]
+   tokens with ``return_embeddings``, and an ``AttentionLayers`` stack at dim
+   1280, depth 4, with talking heads, memory KV, sparse top-k, GEGLU, GRU
+   gating, residual attention and cross-attention with a context mask (the
+   CPU keeps the logits the card's top-k kept; a row where they differ must
+   be a tie within fp32 rounding).
 
 Then one JSON line of kernel records (K1-K13, TA, FA, GN; ``launches`` is
 the sum over the paths: the three samplers, the gen_pano_360 CLI, the
 sample CLI's four modes and the LCM stream, the demo's two requests, the
 batch eval's three runs, the ``no_temporal_attn`` forward, phase 5's
 "off" request, phase 2's two override forwards, phase 11's two mesh
-runs and phase 12's bf16 rel-pos forward; and the fp32 records
-``K1.f32`` ... ``GN.f32``, launches summed over phase 10's forwards and CLI
-runs and phase 12's fp32 rel-pos forward, times per the first batch-8 fp32 forward in which the kernel runs),
+runs, phase 12's bf16 rel-pos forward and phase 13's bf16 vae_aux runs;
+and the fp32 records ``K1.f32`` ... ``GN.f32``, launches summed over phase
+10's forwards and CLI runs, phase 12's fp32 rel-pos forward and phase 13's
+fp32 vae_aux runs, times per the first batch-8 fp32 forward in which the kernel runs),
 and last the device JSON line.
 """
 
@@ -474,6 +497,13 @@ def main() -> None:
         for k, e in relpos_errs[dt].items():
             recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], e)
     _phase_encoders()
+    aux_paths, aux_errs = _phase_aux(held)
+    for where, n in aux_paths.items():
+        (f32_paths if where.startswith("fp32") else paths)[where] = n
+    for recs, dt in ((records, BF), (f32_records, F32)):
+        for k, e in aux_errs[dt].items():
+            recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], e)
+    _phase_xtransformer()
 
     kernels = [
         {"name": f"{k} {desc}", "route": "cuda", "source": src, "replaces": rep,
@@ -3577,6 +3607,237 @@ def _phase_encoders():
         _fail(f"phase 12: the card's fp32 encoders disagree with the CPU: {bad}")
     print(f"phase 12 ok: encoders in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+
+# ---------------------------------------------------------------------------
+# phase 13: the dead-upstream modules: models/vae_aux.py, models/x_transformer.py
+# ---------------------------------------------------------------------------
+
+# Ho et al.'s DDPM LSUN-256 (hojonathanho/diffusion, diffusion/scripts/run_lsun.py): ch 128, ch_mult
+# (1, 1, 2, 2, 4, 4), 2 ResNet blocks, attention at 16x16, 256x256x3 (about 114M parameters)
+LSUN_256 = dict(ch=128, out_ch=3, ch_mult=(1, 1, 2, 2, 4, 4), num_res_blocks=2, attn_resolutions=(16,),
+                in_channels=3, resolution=256)
+# LDM's BERTEmbedder (CompVis latent-diffusion configs/latent-diffusion/txt2img-1p4B-eval.yaml):
+# vocabulary 30522, 77 positions, Encoder(dim 1280, depth 32), 8 heads of 64 (about 540M parameters)
+BERT_1P4B = dict(num_tokens=30522, max_seq_len=77, attn_layers_cfg=dict(dim=1280, depth=32, heads=8))
+# an AttentionLayers stack at the same width with the knobs the wrapper leaves off
+XSTACK = dict(dim=1280, depth=4, heads=8, cross_attend=True, residual_attn=True, gate_residual=True,
+              attn_kwargs={"talking_heads": True, "num_mem_kv": 4, "sparse_topk": 16}, ff_kwargs={"glu": True})
+
+
+def _k9_sites(module) -> int:
+    """K9 calls of one forward of a vae_aux module: each GroupNorm runs once
+    through ``models/vae.py::_gn``, but ``FirstStagePostProcessor``'s
+    ``proj_norm`` (C // 2 groups, the plain fold)."""
+    skip = getattr(module, "proj_norm", None)
+    return sum(isinstance(m, torch.nn.GroupNorm) and m is not skip for m in module.modules())
+
+
+def _scale_linear_attention(mod) -> None:
+    """Scale the q and v rows of each ``LinAttnBlock``'s ``to_qkv`` by
+    C^-1/2. The block (no norm, no residual, unscaled ``context · q``) maps
+    an input of size |x| to about sqrt(C) |x|^2 at N(0, 1/fan_in) weights,
+    so at random weights the six blocks of the LSUN-256 Model square their
+    way past fp32 (a CPU run: 7.2 -> 355 -> 4.3e5 -> 3.9e11 -> 3.3e22 ->
+    NaN); scaled, they keep their outputs at 0.07-0.7 beside ResNet
+    outputs of 1.4-7."""
+    from dynamicscaler_tpu_torch.models.vae_aux import LinAttnBlock
+
+    with torch.no_grad():
+        for m in mod.modules():
+            if isinstance(m, LinAttnBlock):
+                C = m.to_out.weight.shape[0]
+                m.to_qkv.weight[:C].mul_(C ** -0.5)
+                m.to_qkv.weight[2 * C:].mul_(C ** -0.5)
+
+
+def _aux_runs(rn):
+    """(name, module builder on the card in fp32, inputs) of each vae_aux run."""
+    from dynamicscaler_tpu_torch.config import VAEConfig
+    from dynamicscaler_tpu_torch.models import vae_aux as A
+
+    lsun = A.AuxModelConfig(**LSUN_256)
+    t = torch.tensor([10, 250, 500, 999], device=DEV)
+    img = rn(4, 256, 256, 3)
+    return [
+        ("Model LSUN-256 vanilla [4,256,256,3]", lambda: A.Model(lsun, device=DEV), (img, t)),
+        ("Model LSUN-256 linear [4,256,256,3]",
+         lambda: A.Model(dataclasses.replace(lsun, attn_type="linear"), device=DEV), (img, t)),
+        ("MergedRescaleEncoder VAE widths [2,320,512,3]",
+         lambda: A.MergedRescaleEncoder(VAEConfig(), out_ch=4, device=DEV), (rn(2, 320, 512, 3),)),
+        ("MergedRescaleDecoder VAE widths z 8 [2,40,64,8]",
+         lambda: A.MergedRescaleDecoder(VAEConfig(z_channels=8), device=DEV), (rn(2, 40, 64, 8),)),
+        ("Upsampler 64->256 [2,64,64,64]", lambda: A.Upsampler(64, 256, 64, 3, device=DEV), (rn(2, 64, 64, 64),)),
+        ("SimpleDecoder [2,40,64,128]", lambda: A.SimpleDecoder(128, 3, device=DEV), (rn(2, 40, 64, 128),)),
+        ("UpsampleDecoder [2,40,64,128]", lambda: A.UpsampleDecoder(128, 3, 128, 2, (2, 2), device=DEV),
+         (rn(2, 40, 64, 128),)),
+        ("FirstStagePostProcessor [2,40,64,4]",
+         lambda: A.FirstStagePostProcessor((1, 2), 4, 128, do_reshape=True, device=DEV), (rn(2, 40, 64, 4),)),
+    ]
+
+
+def _phase_aux(held):
+    """Phase 13, vae_aux: each module with seeded random weights (the
+    zero-initialised ones perturbed, the linear attention's q and v scaled:
+    :func:`_scale_linear_attention`) in fp32, then bf16 (the same weights
+    rounded), through the kernels against the plain versions (rel L2 within
+    ``TOL_F32_PATH`` / ``TOL_PATH_REL_L2``), finite, K9 launched exactly once
+    at each of its GroupNorm sites and no other kernel; the K9 calls at
+    shapes no earlier phase held against their plain versions with the gates
+    of their type. Returns the launches by path and the largest error per
+    kernel by dtype."""
+    from dynamicscaler_tpu_torch.models.lvdm import init_module_random
+    from dynamicscaler_tpu_torch.utils.weights import perturb_zero_params
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(13)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+
+    sites, paths, errs, bad = {}, {}, {F32: {}, BF: {}}, []
+    for name, build, inputs in _aux_runs(rn):
+        mod = build().eval()
+        init_module_random(mod, gen)
+        perturb_zero_params(mod, gen)
+        _scale_linear_attention(mod)
+        n_par, n_k9 = sum(p.numel() for p in mod.parameters()), _k9_sites(mod)
+        for dt, tol in ((F32, TOL_F32_PATH), (BF, TOL_PATH_REL_L2)):
+            mod.to(dt)
+            where = f"{'fp32 ' if dt == F32 else ''}aux {name}"
+
+            def fwd():
+                with torch.inference_mode():
+                    return mod(*inputs)
+
+            r = _against_plain(where, fwd, sites, 2, 1)
+            want = dict.fromkeys(KERNELS, 0)
+            want["K9"], want["GN"] = n_k9, _k9_split(sites[where])
+            print(f"phase 13 {where}: {n_par / 1e6:.1f}M {dt} parameters -> {tuple(r.out.shape)}: rel_l2 against "
+                  f"plain {r.rel:.3e} (tol {tol}) finite {r.finite} kernels {r.ms:.2f} ms plain {r.plain_ms:.2f} ms "
+                  f"launches K9 {r.launches['K9']} (GroupNorm sites {n_k9}), GN {r.launches['GN']}", flush=True)
+            if not r.finite or not r.rel <= tol or r.launches != want:
+                bad.append(f"{where}: rel_l2 {r.rel} finite {r.finite} launches {r.launches}, expected {want}")
+            paths[where] = r.launches
+            del r
+            for k, e in _hold_new_shapes(sites[where], held, "phase 13").items():
+                errs[dt][k] = max(errs[dt].get(k, 0.0), e)
+        del mod
+        torch.cuda.empty_cache()
+    if bad:
+        _fail(f"phase 13: {bad}")
+    print(f"phase 13 vae_aux ok in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths, errs
+
+
+def _xtransformer_runs(g):
+    """(name, module on the CPU with seeded weights, inputs, forward keyword
+    arguments) of the x-transformer runs."""
+    from dynamicscaler_tpu_torch.models import x_transformer as X
+    from dynamicscaler_tpu_torch.models.lvdm import init_module_random
+    from dynamicscaler_tpu_torch.utils.weights import perturb_zero_params
+
+    wrapper = X.TransformerWrapper(**BERT_1P4B, device="cpu")
+    stack = X.AttentionLayers(**XSTACK, device="cpu")
+    for mod in (wrapper, stack):
+        init_module_random(mod, g)
+        perturb_zero_params(mod, g)
+    tokens = torch.randint(0, BERT_1P4B["num_tokens"], (2, 77), generator=g)
+    x, ctx = torch.randn((2, 77, 1280), generator=g), torch.randn((2, 64, 1280), generator=g)
+    cmask = torch.ones((2, 64), dtype=torch.bool)
+    cmask[:, 48:] = False
+    return [("TransformerWrapper BERTEmbedder 1.4B-eval (Encoder dim 1280 depth 32), return_embeddings",
+             wrapper, (tokens,), {"return_embeddings": True}),
+            ("AttentionLayers dim 1280 depth 4 (talking heads, memory KV 4, sparse top-16, GEGLU, GRU gating, "
+             "residual attention, cross-attention with a context mask)", stack, (x,),
+             {"context": ctx, "context_mask": cmask})]
+
+
+@contextlib.contextmanager
+def _topk_selections(kept, replay=False):
+    """Record in ``kept`` the logits each sparse top-k call of
+    ``x_transformer`` keeps (bool, on the CPU), or with ``replay`` keep those
+    recorded instead, in the same order, while counting the rows where the
+    call's own selection differs and the largest top-k margin (the k-th
+    minus the (k+1)-th largest logit, over max|logit|) among them. Top-k is
+    discontinuous where a row's k-th and (k+1)-th logits tie within the
+    rounding of fp32 sums (a margin of 2.3e-6 in a CPU run of the stack at
+    logits up to 10.6; the CPU's fp32 logits were up to 1.1e-5 from fp64's),
+    so the card and the CPU may keep different logits there: the CPU
+    reference takes the card's, and any row where they differ must be such
+    a tie. Yields a dict of ``rows`` and ``margin``."""
+    from dynamicscaler_tpu_torch.models import x_transformer as X
+
+    keep_topk, diff = X.keep_topk, {"rows": 0, "margin": 0.0}
+
+    def wrapped(dots, k, mask_value):
+        vals = torch.topk(dots, k + 1, dim=-1).values
+        own = dots >= vals[..., k - 1:k]
+        if not replay:
+            kept.append(own.cpu())
+            return keep_topk(dots, k, mask_value)
+        card = kept.pop(0).to(dots.device)
+        rows = (card != own).any(dim=-1)
+        if bool(rows.any()):
+            margin = (vals[..., k - 1] - vals[..., k])[rows].max() / dots[dots > mask_value].abs().max()
+            diff["rows"] += int(rows.sum())
+            diff["margin"] = max(diff["margin"], float(margin))
+        return dots.masked_fill(~card, mask_value)
+
+    X.keep_topk = wrapped
+    try:
+        yield diff
+    finally:
+        X.keep_topk = keep_topk
+
+
+# a row where the card and the CPU keep different top-k logits must be a tie within fp32 rounding
+TOPK_TIE = 1e-4
+
+
+def _phase_xtransformer():
+    """Phase 13, the x-transformer: the modules with seeded weights, once on
+    the card in fp32 (TF32 off), then on the CPU, rel L2 within
+    ``TOL_F32_PATH``; the CPU's sparse top-k keeps the logits the card kept
+    (:func:`_topk_selections`)."""
+    t_phase = time.perf_counter()
+    runs = _xtransformer_runs(torch.Generator().manual_seed(13))
+    bad = []
+    while runs:
+        name, mod, args, kw = runs.pop(0)
+        mod.eval().to(DEV)
+        n = sum(p.numel() for p in mod.parameters())
+        dargs = [a.to(DEV) for a in args]
+        dkw = {k: v.to(DEV) if torch.is_tensor(v) else v for k, v in kw.items()}
+        kept = []
+        with torch.inference_mode():
+            mod(*dargs, **dkw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _topk_selections(kept):
+                got = mod(*dargs, **dkw)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = got.float().cpu()
+        mod.to("cpu")
+        t0 = time.perf_counter()
+        with torch.inference_mode(), _topk_selections(kept, replay=True) as diff:
+            ref = mod(*args, **kw)
+        cpu_s = time.perf_counter() - t0
+        rel = float((got - ref).norm() / ref.norm())
+        finite = bool(torch.isfinite(got).all())
+        ties_ok = not kept and diff["margin"] <= TOPK_TIE
+        print(f"phase 13 {name}: {n / 1e6:.1f}M fp32 parameters, input {tuple(args[0].shape)} -> "
+              f"{tuple(got.shape)}; card {ms:.2f} ms, CPU {cpu_s:.2f} s; rel_l2 card against CPU {rel:.3e} "
+              f"(tol {TOL_F32_PATH}) finite {finite}; sparse top-k rows where the card's selection differs from "
+              f"the CPU's {diff['rows']}, largest margin among them {diff['margin']:.1e} of max|logit| "
+              f"(tol {TOPK_TIE})", flush=True)
+        if not finite or not rel <= TOL_F32_PATH or not ties_ok:
+            bad.append(name)
+        del mod, ref, got
+    torch.cuda.empty_cache()
+    if bad:
+        _fail(f"phase 13: the card's fp32 x-transformer disagrees with the CPU: {bad}")
+    print(f"phase 13 ok: x-transformer in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 if __name__ == "__main__":
     main()

@@ -41,6 +41,21 @@ def layer_norm(x, scale, bias, eps: float = 1e-5, dtype=None):
     return y.to(dtype if dtype is not None else x.dtype)
 
 
+def place(module: nn.Module, device, dtype) -> nn.Module:
+    """Move a freshly built ``module`` to ``device`` in ``dtype`` (bf16 or
+    fp32) and return it. ``device`` None leaves it where it was built: a
+    module built inside another, which places the whole."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{type(module).__name__}: dtype bfloat16 or float32, got {dtype}")
+    if device is None:
+        return module.to(dtype=dtype)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{type(module).__name__} is built on the CUDA card by default and none is "
+                           "available: pass device='cpu' to build it on the CPU")
+    return module.to(device=device, dtype=dtype)
+
+
 class MLPEmbed(nn.Sequential):
     """Linear -> SiLU -> Linear (time / fps embedding MLP); state_dict
     names ``0.*`` and ``2.*`` as VideoCrafter's ``time_embed``."""

@@ -41,6 +41,17 @@ from dynamicscaler_tpu_torch.utils.timing import LoopStats, Marker
 LOOP_STATS = LoopStats()
 
 
+def earlier_coverage_masks(origins: Sequence[Tuple[int, int, int]], sizes: Tuple[int, int, int],
+                           dims: Tuple[int, int, int], device="cuda") -> torch.Tensor:
+    """masks[k] = 1 where windows before k in this step covered window k's
+    footprint (the reference's within-step ``denoised_mask`` as window k
+    sees it, i2v_sphere_panorama_pipeline.py:858-871), every axis wrapping
+    around the latent's ``dims`` (F, H, W): :func:`device_earlier_masks` on
+    a latent of those dims. Returns [N, f, h, w, 1] float32 on ``device``:
+    the card unless the caller asks for the CPU."""
+    return device_earlier_masks(origins, sizes, torch.zeros((1, *dims, 1), device=device))
+
+
 def device_earlier_masks(origins, sizes, latent) -> torch.Tensor:
     """masks[k] = 1 where window k's footprint was already covered by
     windows < k in this step (the reference's within-step denoised mask),

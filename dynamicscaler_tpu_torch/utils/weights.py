@@ -3,8 +3,13 @@
 The inverse of ``dynamicscaler_tpu/utils/weights.py`` ``convert_unet``,
 ``convert_vae``, ``convert_clip_text``, ``convert_clip_vision``,
 ``convert_clip_vision_pooled``, ``convert_resampler``,
-``convert_hf_clip_text`` and ``convert_t5_encoder`` (and of the
-``ImageProjModel`` tree): each ``from_jax_*`` takes the JAX
+``convert_hf_clip_text``, ``convert_t5_encoder``, the ``convert_aux_*``
+converters of the auxiliary ae_modules classes (``convert_aux_model``,
+``convert_simple_decoder``, ``convert_upsample_decoder``,
+``convert_latent_rescaler``, ``convert_merged_rescale_encoder`` /
+``_decoder``, ``convert_upsampler``, ``convert_first_stage_post``) and the
+x-transformer's ``convert_attention_layers`` /
+``convert_transformer_wrapper`` (and of the ``ImageProjModel`` tree): each ``from_jax_*`` takes the JAX
 package's parameter tree (nested dicts of numpy arrays, with or without the
 top ``"params"`` level) and returns a ``{name: torch.Tensor}`` state_dict
 for the port's module. Layout changes:
@@ -166,13 +171,40 @@ def _resnet(out: _Out, p, tree):
         out.conv2d(p + ".nin_shortcut", tree["nin_shortcut"])
 
 
+def _vae_attn(out: _Out, p, tree):
+    out.norm(p + ".norm", tree["norm"])
+    for n in ("q", "k", "v", "proj_out"):
+        out.conv2d(f"{p}.{n}", tree[n])
+
+
 def _mid(out: _Out, pre, tree):
     _resnet(out, pre + ".mid.block_1", tree["mid_block_1"])
-    a = tree["mid_attn_1"]
-    out.norm(pre + ".mid.attn_1.norm", a["norm"])
-    for n in ("q", "k", "v", "proj_out"):
-        out.conv2d(f"{pre}.mid.attn_1.{n}", a[n])
+    _vae_attn(out, pre + ".mid.attn_1", tree["mid_attn_1"])
     _resnet(out, pre + ".mid.block_2", tree["mid_block_2"])
+
+
+def _vae_encoder(out: _Out, pre, enc, cfg: VAEConfig):
+    out.conv2d(pre + ".conv_in", enc["conv_in"])
+    for i in range(len(cfg.ch_mult)):
+        for b in range(cfg.num_res_blocks):
+            _resnet(out, f"{pre}.down.{i}.block.{b}", enc[f"down{i}_block{b}"])
+        if i != len(cfg.ch_mult) - 1:
+            out.conv2d(f"{pre}.down.{i}.downsample.conv", enc[f"down{i}_downsample"]["conv"])
+    _mid(out, pre, enc)
+    out.norm(pre + ".norm_out", enc["norm_out"])
+    out.conv2d(pre + ".conv_out", enc["conv_out"])
+
+
+def _vae_decoder(out: _Out, pre, dec, cfg: VAEConfig):
+    out.conv2d(pre + ".conv_in", dec["conv_in"])
+    _mid(out, pre, dec)
+    for i in range(len(cfg.ch_mult)):
+        for b in range(cfg.num_res_blocks + 1):
+            _resnet(out, f"{pre}.up.{i}.block.{b}", dec[f"up{i}_block{b}"])
+        if i != 0:
+            out.conv2d(f"{pre}.up.{i}.upsample.conv", dec[f"up{i}_upsample"]["conv"])
+    out.norm(pre + ".norm_out", dec["norm_out"])
+    out.conv2d(pre + ".conv_out", dec["conv_out"])
 
 
 def from_jax_vae(tree: Dict[str, Any], cfg: VAEConfig) -> Dict[str, torch.Tensor]:
@@ -180,27 +212,230 @@ def from_jax_vae(tree: Dict[str, Any], cfg: VAEConfig) -> Dict[str, torch.Tensor
     ``convert_vae``)."""
     p = _params(tree)
     out = _Out()
-    enc, dec = p["encoder"], p["decoder"]
-    out.conv2d("encoder.conv_in", enc["conv_in"])
-    for i in range(len(cfg.ch_mult)):
-        for b in range(cfg.num_res_blocks):
-            _resnet(out, f"encoder.down.{i}.block.{b}", enc[f"down{i}_block{b}"])
-        if i != len(cfg.ch_mult) - 1:
-            out.conv2d(f"encoder.down.{i}.downsample.conv", enc[f"down{i}_downsample"]["conv"])
-    _mid(out, "encoder", enc)
-    out.norm("encoder.norm_out", enc["norm_out"])
-    out.conv2d("encoder.conv_out", enc["conv_out"])
-    out.conv2d("decoder.conv_in", dec["conv_in"])
-    _mid(out, "decoder", dec)
-    for i in range(len(cfg.ch_mult)):
-        for b in range(cfg.num_res_blocks + 1):
-            _resnet(out, f"decoder.up.{i}.block.{b}", dec[f"up{i}_block{b}"])
-        if i != 0:
-            out.conv2d(f"decoder.up.{i}.upsample.conv", dec[f"up{i}_upsample"]["conv"])
-    out.norm("decoder.norm_out", dec["norm_out"])
-    out.conv2d("decoder.conv_out", dec["conv_out"])
+    _vae_encoder(out, "encoder", p["encoder"], cfg)
+    _vae_decoder(out, "decoder", p["decoder"], cfg)
     out.conv2d("quant_conv", p["quant_conv"])
     out.conv2d("post_quant_conv", p["post_quant_conv"])
+    return dict(out)
+
+
+# ---------------------------------------------------------------------------
+# Auxiliary ae_modules classes (models/vae_aux.py)
+# ---------------------------------------------------------------------------
+
+
+def _resnet_t(out: _Out, p, tree):
+    """A ResNet block with its ``temb_proj`` where the JAX tree has one (a
+    block called with a timestep embedding)."""
+    _resnet(out, p, tree)
+    if "temb_proj" in tree:
+        out.lin(p + ".temb_proj", tree["temb_proj"])
+
+
+def _lin_attn(out: _Out, p, tree):
+    out.conv2d(p + ".to_qkv", tree["to_qkv"])
+    out.conv2d(p + ".to_out", tree["to_out"])
+
+
+def from_jax_aux_model(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX vae_aux.Model params -> the port's ``Model`` state_dict (inverse
+    of ``convert_aux_model``; ``cfg`` an ``AuxModelConfig``; attn_type
+    "none" has no attention parameters)."""
+    p = _params(tree)
+    out = _Out()
+    attn = {"vanilla": _vae_attn, "linear": _lin_attn}.get(cfg.attn_type)
+    if cfg.use_timestep:
+        out.lin("temb.dense.0", p["temb_dense0"])
+        out.lin("temb.dense.1", p["temb_dense1"])
+    out.conv2d("conv_in", p["conv_in"])
+    n, res = len(cfg.ch_mult), cfg.resolution
+    for i in range(n):
+        for b in range(cfg.num_res_blocks):
+            _resnet_t(out, f"down.{i}.block.{b}", p[f"down{i}_block{b}"])
+            if res in cfg.attn_resolutions and attn:
+                attn(out, f"down.{i}.attn.{b}", p[f"down{i}_attn{b}"])
+        if i != n - 1:
+            out.conv2d(f"down.{i}.downsample.conv", p[f"down{i}_downsample"]["conv"])
+            res //= 2
+    _resnet_t(out, "mid.block_1", p["mid_block_1"])
+    if attn:
+        attn(out, "mid.attn_1", p["mid_attn_1"])
+    _resnet_t(out, "mid.block_2", p["mid_block_2"])
+    for i in reversed(range(n)):
+        for b in range(cfg.num_res_blocks + 1):
+            _resnet_t(out, f"up.{i}.block.{b}", p[f"up{i}_block{b}"])
+            if res in cfg.attn_resolutions and attn:
+                attn(out, f"up.{i}.attn.{b}", p[f"up{i}_attn{b}"])
+        if i != 0:
+            out.conv2d(f"up.{i}.upsample.conv", p[f"up{i}_upsample"]["conv"])
+            res *= 2
+    out.norm("norm_out", p["norm_out"])
+    out.conv2d("conv_out", p["conv_out"])
+    return dict(out)
+
+
+def from_jax_simple_decoder(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX SimpleDecoder params -> names ``model.0``-``model.5`` (inverse of
+    ``convert_simple_decoder``)."""
+    p = _params(tree)
+    out = _Out()
+    out.conv2d("model.0", p["conv0"])
+    for i in (1, 2, 3):
+        _resnet(out, f"model.{i}", p[f"res{i}"])
+    out.conv2d("model.4", p["conv4"])
+    out.conv2d("model.5.conv", p["upsample"]["conv"])
+    out.norm("norm_out", p["norm_out"])
+    out.conv2d("conv_out", p["conv_out"])
+    return dict(out)
+
+
+def from_jax_upsample_decoder(tree: Dict[str, Any], ch_mult, num_res_blocks: int) -> Dict[str, torch.Tensor]:
+    """JAX UpsampleDecoder params -> names ``res_blocks.{i}.{b}``,
+    ``upsample_blocks.{i}`` (inverse of ``convert_upsample_decoder``)."""
+    p = _params(tree)
+    out = _Out()
+    for i in range(len(ch_mult)):
+        for b in range(num_res_blocks + 1):
+            _resnet(out, f"res_blocks.{i}.{b}", p[f"res{i}_{b}"])
+        if i != len(ch_mult) - 1:
+            out.conv2d(f"upsample_blocks.{i}.conv", p[f"upsample{i}"]["conv"])
+    out.norm("norm_out", p["norm_out"])
+    out.conv2d("conv_out", p["conv_out"])
+    return dict(out)
+
+
+def _latent_rescaler(out: _Out, pre, p, depth: int):
+    out.conv2d(pre + "conv_in", p["conv_in"])
+    _vae_attn(out, pre + "attn", p["attn"])
+    out.conv2d(pre + "conv_out", p["conv_out"])
+    for i in range(depth):
+        _resnet(out, f"{pre}res_block1.{i}", p[f"res1_{i}"])
+        _resnet(out, f"{pre}res_block2.{i}", p[f"res2_{i}"])
+
+
+def from_jax_latent_rescaler(tree: Dict[str, Any], depth: int = 2) -> Dict[str, torch.Tensor]:
+    """JAX LatentRescaler params -> the port's names (inverse of
+    ``convert_latent_rescaler``)."""
+    out = _Out()
+    _latent_rescaler(out, "", _params(tree), depth)
+    return dict(out)
+
+
+def from_jax_merged_rescale_encoder(tree: Dict[str, Any], cfg: VAEConfig, depth: int = 1) -> Dict[str, torch.Tensor]:
+    """JAX MergedRescaleEncoder params -> ``encoder.*`` / ``rescaler.*``
+    (inverse of ``convert_merged_rescale_encoder``)."""
+    p = _params(tree)
+    out = _Out()
+    _vae_encoder(out, "encoder", p["encoder"], cfg)
+    _latent_rescaler(out, "rescaler.", p["rescaler"], depth)
+    return dict(out)
+
+
+def from_jax_merged_rescale_decoder(tree: Dict[str, Any], cfg: VAEConfig, depth: int = 1) -> Dict[str, torch.Tensor]:
+    """JAX MergedRescaleDecoder params -> ``rescaler.*`` / ``decoder.*``
+    (inverse of ``convert_merged_rescale_decoder``)."""
+    p = _params(tree)
+    out = _Out()
+    _latent_rescaler(out, "rescaler.", p["rescaler"], depth)
+    _vae_decoder(out, "decoder", p["decoder"], cfg)
+    return dict(out)
+
+
+def from_jax_upsampler(tree: Dict[str, Any], cfg: VAEConfig) -> Dict[str, torch.Tensor]:
+    """JAX Upsampler params -> ``rescaler.*`` (depth 2) / ``decoder.*``
+    (inverse of ``convert_upsampler``; ``cfg`` the decoder's)."""
+    p = _params(tree)
+    out = _Out()
+    _latent_rescaler(out, "rescaler.", p["rescaler"], 2)
+    _vae_decoder(out, "decoder", p["decoder"], cfg)
+    return dict(out)
+
+
+def from_jax_first_stage_post(tree: Dict[str, Any], ch_mult) -> Dict[str, torch.Tensor]:
+    """JAX FirstStagePostProcessor params -> ``proj_norm``, ``proj``,
+    ``model.{i}`` (inverse of ``convert_first_stage_post``; no
+    ``temb_proj``: the forward never reads it)."""
+    p = _params(tree)
+    out = _Out()
+    out.norm("proj_norm", p["proj_norm"])
+    out.conv2d("proj", p["proj"])
+    for i in range(len(ch_mult)):
+        _resnet(out, f"model.{i}", p[f"block{i}"])
+    return dict(out)
+
+
+# ---------------------------------------------------------------------------
+# x-transformer (models/x_transformer.py)
+# ---------------------------------------------------------------------------
+
+
+def _x_attention(out: _Out, p, tree):
+    for n in ("to_q", "to_k", "to_v"):
+        out.lin(f"{p}.{n}", tree[n])
+    on_attn = np.shape(tree["to_out"]["kernel"])[1] == 2 * np.shape(tree["to_q"]["kernel"])[0]
+    out.lin(p + (".to_out.0" if on_attn else ".to_out"), tree["to_out"])
+    for n in ("pre_softmax_proj", "post_softmax_proj", "mem_k", "mem_v"):
+        if n in tree:
+            out[f"{p}.{n}"] = _t(tree[n])
+
+
+def _x_layers(out: _Out, pf, p, macaron: bool):
+    n = sum(1 for k in p if k.startswith(("attn_", "ff_")))
+    for i in range(n):
+        base = f"{pf}layers.{i}"
+        t = p.get(f"norm_{i}")
+        if t is None and i == n - 1 and "norm_0" in p:
+            # post-norm never reads the last layer's norm, so the JAX tree has
+            # none; the reference builds it: an identity one of its kind
+            t = {k: (np.zeros_like if k == "bias" else np.ones_like)(np.asarray(v)) for k, v in p["norm_0"].items()}
+        if t is not None:  # none under rezero
+            if "g" in t:
+                out[base + ".0.g"] = _t(t["g"])
+            else:
+                out.norm(base + ".0", t)
+        if f"attn_{i}" in p:
+            rezero = f"rezero_g_{i}" in p
+            _x_attention(out, base + (".1.fn" if rezero else ".1"), p[f"attn_{i}"])
+            if rezero:
+                out[base + ".1.g"] = _t(p[f"rezero_g_{i}"])
+        else:
+            ff, inner = p[f"ff_{i}"], base + (".1.fn" if macaron else ".1")
+            glu = np.shape(ff["proj_in"]["kernel"])[1] == 2 * np.shape(ff["proj_out"]["kernel"])[0]
+            out.lin(inner + (".net.0.proj" if glu else ".net.0.0"), ff["proj_in"])
+            out.lin(inner + ".net.2", ff["proj_out"])
+        if f"gru_{i}" in p:
+            for k, v in p[f"gru_{i}"].items():
+                out[f"{base}.2.gru.{k}"] = _t(v)
+
+
+def from_jax_x_transformer(tree: Dict[str, Any], macaron: bool = False) -> Dict[str, torch.Tensor]:
+    """JAX AttentionLayers or TransformerWrapper params -> the port's
+    state_dict (inverse of ``convert_attention_layers`` /
+    ``convert_transformer_wrapper``). The tree tells the rest: a wrapper by
+    its ``token_emb``, rezero by its gains, the norm by its leaves, GEGLU by
+    ``proj_in``'s width (twice ``proj_out``'s input), ``on_attn`` by
+    ``to_out``'s (twice the model's); ``macaron`` puts every feed-forward
+    under ``.1.fn``, as the reference's ``Scale`` does. Two parameters the
+    JAX forward never creates: a post-norm stack's last norm, which no
+    forward reads, is written as an identity norm (the reference builds
+    it); ``to_logits`` of a wrapper only ever called with
+    ``return_embeddings`` is absent from the tree and from the result."""
+    p = _params(tree)
+    out = _Out()
+    if "token_emb" not in p:
+        _x_layers(out, "", p, macaron)
+        return dict(out)
+    out["token_emb.weight"] = _t(p["token_emb"])
+    if "pos_emb" in p:
+        out["pos_emb.emb.weight"] = _t(p["pos_emb"]["emb"])
+    if "project_emb" in p:
+        out.lin("project_emb", p["project_emb"])
+    if "memory_tokens" in p:
+        out["memory_tokens"] = _t(p["memory_tokens"])
+    out.norm("norm", p["norm"])
+    if "to_logits" in p:
+        out.lin("to_logits", p["to_logits"])
+    _x_layers(out, "attn_layers.", p["attn_layers"], macaron)
     return dict(out)
 
 

@@ -238,6 +238,23 @@ def test_frame_window_origins_match_jax(total_f, frames, ov, lsf, dock):
             jwindows.frame_window_origins(step, total_f, frames, ov, lsf, dock), step
 
 
+@pytest.mark.parametrize("origins,sizes,dims", [
+    ([(0, 0, 0), (0, 0, 4), (0, 0, 8)], (2, 4, 8), (2, 4, 12)),  # tests/test_pipelines.py:63-70
+    ([(0, 0, 0), (1, 2, 8), (0, 2, 10), (1, 0, 4)], (2, 4, 8), (2, 4, 12)),  # :215-227
+    (np.random.default_rng(3).integers(-20, 20, (9, 3)).tolist(), (3, 4, 6), (4, 6, 10)),
+])
+def test_earlier_coverage_masks_match_jax(origins, sizes, dims):
+    """The port's ``earlier_coverage_masks`` against the JAX one and the
+    port's ``device_earlier_masks``: wrapping, overlapping, negative origins."""
+    from dynamicscaler_tpu.pipelines.planar import earlier_coverage_masks as jmasks
+    from dynamicscaler_tpu_torch.pipelines.planar import device_earlier_masks, earlier_coverage_masks
+
+    got = earlier_coverage_masks(origins, sizes, dims, device="cpu")
+    assert got.dtype == torch.float32 and got.shape == (len(origins), *sizes, 1)
+    np.testing.assert_array_equal(got.numpy(), jmasks(origins, sizes, dims))
+    np.testing.assert_array_equal(got.numpy(), device_earlier_masks(origins, sizes, torch.zeros((1, *dims, 4))))
+
+
 def test_i2v_integer_sampler_matches_jax(twin_models):
     """Integer grid, skip-time init from the tiled VAE encode, ring decode."""
     jmodel, tmodel = twin_models

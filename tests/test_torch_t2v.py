@@ -202,7 +202,8 @@ PORT_MODULES = {
     "cli.batch_eval", "cli.demo", "cli.gen_pano_360", "cli.sample", "config", "core.windows",
     "models.attention", "models.clip", "models.encoders_alt", "models.layers", "models.lvdm", "models.resampler",
     "models.unet3d",
-    "models.vae", "ops.attention", "ops.blend", "ops.cuda_lib", "ops.ddim", "ops.freetraj", "ops.fused_block",
+    "models.vae", "models.vae_aux", "models.x_transformer",
+    "ops.attention", "ops.blend", "ops.cuda_lib", "ops.ddim", "ops.freetraj", "ops.fused_block",
     "ops.fused_mega", "ops.fused_spatial", "ops.fused_temporal", "ops.fused_twrap", "ops.lcm", "ops.resize",
     "ops.ring", "ops.sphere", "parallel.dist", "parallel.dryrun", "parallel.mesh", "pipelines.conditioning",
     "pipelines.fifo", "pipelines.i2v", "pipelines.planar", "pipelines.sphere", "pipelines.t2v", "pipelines.tiled_vae",
