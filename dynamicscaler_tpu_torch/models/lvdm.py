@@ -21,6 +21,7 @@ from dynamicscaler_tpu_torch.models.resampler import Resampler
 from dynamicscaler_tpu_torch.models.unet3d import UNet3D, is_zero_init
 from dynamicscaler_tpu_torch.models.vae import AutoencoderKL
 from dynamicscaler_tpu_torch.parallel.mesh import apply_sharded
+from dynamicscaler_tpu_torch.utils.timing import span
 
 
 def init_module_random(module: nn.Module, generator: torch.Generator, zero_init=lambda n: False):
@@ -179,16 +180,21 @@ class LatentVideoDiffusion:
         ranks gather the whole batch's eps."""
         if mesh is not None:
             def share(xs, cs):
-                return self.apply_unet_microbatched(xs, t_scalar, cs, fps, microbatch)
+                return self._unet_rows(xs, t_scalar, cs, fps, microbatch)
             return apply_sharded(mesh, share, x, context, microbatch, self.config.unet.out_channels)
+        return self._unet_rows(x, t_scalar, context, fps, microbatch)
+
+    def _unet_rows(self, x, t_scalar, context, fps, microbatch):
+        """This card's rows of the window batch, a ``unet`` span."""
         n = x.shape[0]
-        t = torch.full((n,), int(t_scalar), dtype=torch.long, device=x.device)
-        if not microbatch or n <= microbatch:
-            return self.apply_unet(x, t, context, fps)
-        return torch.cat([
-            self.apply_unet(x[i:i + microbatch], t[i:i + microbatch], context[i:i + microbatch], fps)
-            for i in range(0, n, microbatch)
-        ])
+        mb = microbatch if microbatch and n > microbatch else n
+        with span("unet", x.device, forwards=-(-n // max(mb, 1)), rows=n):
+            t = torch.full((n,), int(t_scalar), dtype=torch.long, device=x.device)
+            if mb == n:
+                return self.apply_unet(x, t, context, fps)
+            return torch.cat([
+                self.apply_unet(x[i:i + mb], t[i:i + mb], context[i:i + mb], fps) for i in range(0, n, mb)
+            ])
 
     @torch.inference_mode()
     def encode_text_tokens(self, tokens):

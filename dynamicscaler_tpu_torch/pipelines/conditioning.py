@@ -13,6 +13,8 @@ from typing import Dict, Sequence
 
 import torch
 
+from dynamicscaler_tpu_torch.utils.timing import span
+
 
 def select_prompt_by_factor(prompt_dict: Dict[float, str], factor: float) -> str:
     """The prompt of the smallest sorted key >= ``factor`` (else the last)."""
@@ -65,13 +67,15 @@ def build_uncond_context(model, batch: int = 1, with_image: bool = None, image_h
         uc_text = torch.zeros((batch, min(text_len, cond_like.shape[1]), *cond_like.shape[2:]),
                               dtype=cond_like.dtype, device=cond_like.device)
     elif uncond_type == "empty_seq":
-        uc_text = model.encode_text([""] * batch)
+        with span("request.text", prompts=batch):
+            uc_text = model.encode_text([""] * batch)
     else:
         raise ValueError(f"uncond_type {uncond_type!r}: empty_seq or zero_embed")
     if not with_image:
         return uc_text
     h, w = image_hw if image_hw is not None else (40, 64)
-    uc_img = model.encode_image_cond(torch.zeros((batch, h, w, 3)))
+    with span("request.image", crops=batch):
+        uc_img = model.encode_image_cond(torch.zeros((batch, h, w, 3)))
     return cat_text_image(uc_text, uc_img)
 
 

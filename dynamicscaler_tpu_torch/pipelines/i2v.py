@@ -41,7 +41,7 @@ from dynamicscaler_tpu_torch.pipelines.conditioning import (
 from dynamicscaler_tpu_torch.pipelines.planar import PlanarShiftWindowEngine, StepPlan
 from dynamicscaler_tpu_torch.pipelines.t2v import basic_sample_loop, make_schedule_for_model
 from dynamicscaler_tpu_torch.pipelines.tiled_vae import ring_aware_decode, tiled_vae_encode
-from dynamicscaler_tpu_torch.utils.timing import Marker
+from dynamicscaler_tpu_torch.utils.timing import Marker, request, span
 
 
 def ring_crop_image(image: np.ndarray, top: int, left: int, h: int, w: int) -> np.ndarray:
@@ -65,17 +65,16 @@ def window_image_contexts(model, origins_hw, pano_image: np.ndarray, prompt: str
     Resampler tokens of the wrap-around image crop of each window, in one
     text encode (unique prompts) and one image encode."""
     vs = model.config.vae.spatial_scale
-    crops, prompts = [], []
-    for h0, w0 in origins_hw:
-        top, left = h0 * vs, w0 * vs
-        crops.append(ring_crop_image(pano_image, top, left, view_height, view_width))
-        factor = min(1.0, (top + view_height) / total_h_img)
-        prompts.append(select_prompt_by_factor(window_multi_prompt_dict, factor)
-                       if window_multi_prompt_dict else prompt)
-    text_embs = encode_texts_cached(model, prompts, text_cache)
+    corners = [(h0 * vs, w0 * vs) for h0, w0 in origins_hw]
+    prompts = [select_prompt_by_factor(window_multi_prompt_dict, min(1.0, (top + view_height) / total_h_img))
+               if window_multi_prompt_dict else prompt for top, _ in corners]
+    with span("request.text", prompts=len(set(prompts))):
+        text_embs = encode_texts_cached(model, prompts, text_cache)
     if model.image_encoder is None:  # t2v bundle on the planar grid: text only
         return text_embs
-    return cat_text_image(text_embs, model.encode_image_cond(np.stack(crops)))
+    with span("request.image", crops=len(corners)):
+        crops = np.stack([ring_crop_image(pano_image, top, left, view_height, view_width) for top, left in corners])
+        return cat_text_image(text_embs, model.encode_image_cond(crops))
 
 
 def _phase_contexts(model, grid: PlanarGrid, pano_image, prompt, window_multi_prompt_dict,
@@ -161,6 +160,7 @@ def _step_plan(sched, steps_eff: int, origins_of, context_of, renoise_ratio, mer
     return plan
 
 
+@request
 def sample_shift_multi_windows(
     model,
     prompt: str,
@@ -209,17 +209,18 @@ def sample_shift_multi_windows(
     tm = Marker("i2v")
     bank, phase_ids = _phase_contexts(model, grid, pano_image, prompt, window_multi_prompt_dict,
                                       height, width, {})
-    tm.mark("phase conditioning (CLIP)", block=bank)
+    tm.mark("phase conditioning (CLIP)")
     uncond = build_uncond_context(model, with_image=model.image_encoder is not None, image_hw=(wh, ww))
 
     S = num_inference_steps
     skip = int(skip_time_step_idx or 0)
-    if init_panorama_latent is None:
-        latent = _init_latent(model, sched, (1, total_f, th, tw, model.config.unet.in_channels),
-                              pano_image, use_skip_time, skip, progressive_skip, generator, noise_fn)
-    else:
-        latent = torch.as_tensor(init_panorama_latent, dtype=torch.float32, device=model.device)
-    tm.mark("init latent", block=latent)
+    with span("request.init"):
+        if init_panorama_latent is None:
+            latent = _init_latent(model, sched, (1, total_f, th, tw, model.config.unet.in_channels),
+                                  pano_image, use_skip_time, skip, progressive_skip, generator, noise_fn)
+        else:
+            latent = torch.as_tensor(init_panorama_latent, dtype=torch.float32, device=model.device)
+    tm.mark("init latent")
 
     ratios_f = overlap_ratio_list_f if overlap_ratio_list_f is not None else [0.25] * S
     steps_eff = S - (skip if use_skip_time and not progressive_skip else 0)
@@ -232,17 +233,21 @@ def sample_shift_multi_windows(
         ids = phase_ids[(i + begin_index_offset) % loop_step]
         return bank, np.concatenate([ids] * (len(origins) // len(ids)))
 
-    plan = _step_plan(sched, steps_eff, origins_of, context_of, merge_renoised_overlap_latent_ratio,
-                      merge_prev_denoised_ratio_list)
+    with span("request.plan", steps=steps_eff):
+        plan = _step_plan(sched, steps_eff, origins_of, context_of, merge_renoised_overlap_latent_ratio,
+                          merge_prev_denoised_ratio_list)
     tm.mark("plan built")
     engine = PlanarShiftWindowEngine(model, sched, (frames, wh, ww), guidance_scale=guidance_scale,
                                      fps=fps, overlap_mode=overlap_mode, unet_microbatch=unet_microbatch,
                                      mesh=mesh)
     latent, denoised = engine.run(latent, plan, uncond, generator, noise_fn=noise_fn)
     tm.mark("denoise loop")
-    # a >= 4K equirect frame decoded whole would not fit in memory: tile the ring
-    video = ring_aware_decode(model, denoised, w_tiles=max(1, tw // 256)) if decode else None
-    tm.mark("ring decode", block=video)
+    video = None
+    if decode:
+        # a >= 4K equirect frame decoded whole would not fit in memory: tile the ring
+        with span("request.decode", frames=denoised.shape[1]):
+            video = ring_aware_decode(model, denoised, w_tiles=max(1, tw // 256))
+    tm.mark("ring decode")
     return video, denoised
 
 

@@ -35,7 +35,7 @@ import torch
 from dynamicscaler_tpu_torch.ops.blend import mix_with_mask, normalize_accumulated
 from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, draw_noise, re_noise
 from dynamicscaler_tpu_torch.ops.ring import add_ring_window, get_ring_window, set_ring_window
-from dynamicscaler_tpu_torch.utils.timing import LoopStats, Marker
+from dynamicscaler_tpu_torch.utils.timing import LoopStats, Marker, report, span
 
 # steady s/step of the most recent run() loop, read by cli/gen_pano_360.py
 LOOP_STATS = LoopStats()
@@ -109,24 +109,27 @@ class PlanarShiftWindowEngine:
             if pre_step is not None:
                 latent = pre_step(latent, i)
             self.step(latent, denoised, sp, uncond_context, generator, noise_fn, f"renoise:{i}")
-            tm.lap(f"step {i}/{len(plan)} N={len(sp.origins)}", block=latent)
+            tm.lap(f"step {i}/{len(plan)} N={len(sp.origins)}")
             if i == 0:
                 LOOP_STATS.mark_first(latent)
         LOOP_STATS.finish(latent)
+        report()
         return latent, denoised
 
-    def _denoise_batch(self, wins, ctx, uncond, sp: StepPlan, mesh=None):
-        """wins [n, f, h, w, C] -> (x_prev, pred_x0); one CFG-packed UNet
-        call, split over ``mesh``'s ranks when given."""
+    def _cfg_pack(self, wins, ctx, uncond):
+        """The UNet batch and its contexts: cond rows then uncond rows."""
+        if self.guidance_scale == 1.0:
+            return wins, ctx
         n = wins.shape[0]
+        return torch.cat([wins, wins]), torch.cat([ctx, uncond.expand((n,) + tuple(uncond.shape[1:]))])
+
+    def _cfg_update(self, wins, eps, sp: StepPlan):
+        """The CFG combine of ``eps`` and the DDIM step of ``wins`` ->
+        (x_prev, pred_x0)."""
         g = self.guidance_scale
         if g != 1.0:
-            x = torch.cat([wins, wins])
-            cc = torch.cat([ctx, uncond.expand((n,) + tuple(uncond.shape[1:]))])
-            eps = self.model.apply_unet_microbatched(x, sp.t, cc, self.fps, self.unet_microbatch, mesh)
+            n = wins.shape[0]
             eps = eps[n:] + g * (eps[:n] - eps[n:])
-        else:
-            eps = self.model.apply_unet_microbatched(wins, sp.t, ctx, self.fps, self.unet_microbatch, mesh)
         frame_idx = torch.full((self.window_sizes[0],), sp.index, dtype=torch.long)
         return ddim_step(self.schedule, wins, eps, frame_idx)
 
@@ -137,58 +140,87 @@ class PlanarShiftWindowEngine:
         noise = draw_noise(wins.shape, wins.device, generator, noise_fn, name)
         return re_noise(self.schedule, wins, max(sp.index - 1, 0), sp.index, noise=noise), ratio
 
+    @staticmethod
+    def _contexts(sp: StepPlan, n: int):
+        """The step's [n, L, D] window contexts: its rows of the bank, or
+        its contexts repeated over the windows."""
+        ctx = sp.context
+        if sp.ctx_idx is not None:
+            return ctx[torch.as_tensor(np.asarray(sp.ctx_idx), dtype=torch.long, device=ctx.device)]
+        if ctx.shape[0] != n:
+            return ctx.repeat(n // ctx.shape[0], 1, 1)
+        return ctx
+
     def step(self, latent, denoised, sp: StepPlan, uncond_context, generator=None, noise_fn=None,
              name: str = "renoise"):
         """One DDIM step over all windows of ``sp``; updates ``latent`` and
         ``denoised`` in place."""
-        sizes = self.window_sizes
         origins = [tuple(int(v) for v in o) for o in np.asarray(sp.origins)]
-        N = len(origins)
-        ctx = sp.context
-        if sp.ctx_idx is not None:
-            ctx = ctx[torch.as_tensor(np.asarray(sp.ctx_idx), dtype=torch.long, device=ctx.device)]
-        elif ctx.shape[0] != N:
-            ctx = ctx.repeat(N // ctx.shape[0], 1, 1)
-        merge_ratio = sp.merge_prev_ratio or 0.0
+        with span("step", latent.device, windows=len(origins)):
+            if self.overlap_mode == "sequential":
+                self._step_sequential(latent, denoised, sp, origins, uncond_context, generator, noise_fn, name)
+            else:
+                self._step_batched(latent, denoised, sp, origins, uncond_context, generator, noise_fn, name)
 
-        if self.overlap_mode == "sequential":
-            mask_global = torch.zeros_like(latent)
-            for k, origin in enumerate(origins):
+    def _step_sequential(self, latent, denoised, sp: StepPlan, origins, uncond_context, generator, noise_fn,
+                         name):
+        sizes = self.window_sizes
+        merge_ratio = sp.merge_prev_ratio or 0.0
+        with span("step.renoise"):
+            ctx = self._contexts(sp, len(origins))
+        mask_global = torch.zeros_like(latent)
+        for k, origin in enumerate(origins):
+            with span("step.gather"):
                 win = get_ring_window(latent, origin, sizes)
+            with span("step.masks"):
                 mask_win = get_ring_window(mask_global, origin, sizes)
-                prev = win
+            prev = win
+            with span("step.renoise"):
                 noised, ratio = self._renoise(win, sp, generator, noise_fn, f"{name}:{k}")
                 win = mix_with_mask(win, noised, mask_win, ratio)
-                new, den_w = self._denoise_batch(win, ctx[k:k + 1], uncond_context, sp)
+                x, cc = self._cfg_pack(win, ctx[k:k + 1], uncond_context)
+            eps = self.model.apply_unet_microbatched(x, sp.t, cc, self.fps, self.unet_microbatch)
+            with span("step.update"):
+                new, den_w = self._cfg_update(win, eps, sp)
                 new = mix_with_mask(new, prev, mask_win, merge_ratio)
+            with span("step.scatter"):
                 set_ring_window(latent, new, origin)
                 set_ring_window(denoised, den_w, origin)
                 set_ring_window(mask_global, torch.ones_like(new), origin)
-            return
 
-        wins = torch.cat([get_ring_window(latent, o, sizes) for o in origins])
+    def _step_batched(self, latent, denoised, sp: StepPlan, origins, uncond_context, generator, noise_fn, name):
+        sizes = self.window_sizes
+        merge_ratio = sp.merge_prev_ratio or 0.0
+        with span("step.gather"):
+            wins = torch.cat([get_ring_window(latent, o, sizes) for o in origins])
         prev = wins
         earlier = None
         if self.overlap_mode == "last":
-            earlier = device_earlier_masks(origins, sizes, latent)
-            noised, ratio = self._renoise(wins, sp, generator, noise_fn, name)
-            wins = mix_with_mask(wins, noised, earlier, ratio)
+            with span("step.masks"):
+                earlier = device_earlier_masks(origins, sizes, latent)
+        with span("step.renoise"):
+            if self.overlap_mode == "last":
+                noised, ratio = self._renoise(wins, sp, generator, noise_fn, name)
+                wins = mix_with_mask(wins, noised, earlier, ratio)
+            x, cc = self._cfg_pack(wins, self._contexts(sp, len(origins)), uncond_context)
+        eps = self.model.apply_unet_microbatched(x, sp.t, cc, self.fps, self.unet_microbatch, self.mesh)
+        with span("step.update"):
+            new, den = self._cfg_update(wins, eps, sp)
+            if self.overlap_mode != "average":
+                new = mix_with_mask(new, prev, earlier, merge_ratio)
 
-        new, den = self._denoise_batch(wins, ctx, uncond_context, sp, self.mesh)
-
-        if self.overlap_mode == "average":
-            accum = torch.zeros_like(latent)
-            count = torch.zeros(latent.shape[:-1] + (1,), dtype=latent.dtype, device=latent.device)
-            dac = torch.zeros_like(latent)
-            for k, origin in enumerate(origins):
-                add_ring_window(accum, new[k:k + 1], origin)
-                add_ring_window(count, torch.ones_like(new[k:k + 1, ..., :1]), origin)
-                add_ring_window(dac, den[k:k + 1], origin)
-            latent.copy_(normalize_accumulated(accum, count, latent))
-            denoised.copy_(normalize_accumulated(dac, count, denoised))
-            return
-
-        new = mix_with_mask(new, prev, earlier, merge_ratio)
-        for k, origin in enumerate(origins):  # ordered scatter, last write wins
-            set_ring_window(latent, new[k:k + 1], origin)
-            set_ring_window(denoised, den[k:k + 1], origin)
+        with span("step.scatter"):
+            if self.overlap_mode == "average":
+                accum = torch.zeros_like(latent)
+                count = torch.zeros(latent.shape[:-1] + (1,), dtype=latent.dtype, device=latent.device)
+                dac = torch.zeros_like(latent)
+                for k, origin in enumerate(origins):
+                    add_ring_window(accum, new[k:k + 1], origin)
+                    add_ring_window(count, torch.ones_like(new[k:k + 1, ..., :1]), origin)
+                    add_ring_window(dac, den[k:k + 1], origin)
+                latent.copy_(normalize_accumulated(accum, count, latent))
+                denoised.copy_(normalize_accumulated(dac, count, denoised))
+                return
+            for k, origin in enumerate(origins):  # ordered scatter, last write wins
+                set_ring_window(latent, new[k:k + 1], origin)
+                set_ring_window(denoised, den[k:k + 1], origin)

@@ -56,7 +56,7 @@ from dynamicscaler_tpu_torch.ops.sphere import (
 from dynamicscaler_tpu_torch.pipelines.conditioning import build_uncond_context, cat_text_image, encode_texts_cached
 from dynamicscaler_tpu_torch.pipelines.t2v import make_schedule_for_model
 from dynamicscaler_tpu_torch.pipelines.tiled_vae import tiled_vae_encode
-from dynamicscaler_tpu_torch.utils.timing import LoopStats, Marker
+from dynamicscaler_tpu_torch.utils.timing import LoopStats, Marker, request, span
 
 # steady s/step of the most recent sampler loop, read by cli/gen_pano_360.py
 LOOP_STATS = LoopStats()
@@ -186,6 +186,20 @@ class _Sampler:
         noised = re_noise(self.sched, wins, max(sp.index - 1, 0), sp.index, noise=self._noise(wins.shape, name))
         return mix_with_mask(wins, noised, mask, sp.renoise_ratio)
 
+    def _cfg_pack(self, wins, context, uncond):
+        """The UNet batch and its contexts: cond rows then uncond rows."""
+        if self.guidance == 1.0:
+            return wins, context
+        n = wins.shape[0]
+        return torch.cat([wins, wins]), torch.cat([context, uncond.expand((n,) + tuple(uncond.shape[1:]))])
+
+    def _cfg_update(self, wins, eps, sp: SphereStep):
+        """The CFG combine of ``eps`` and the DDIM step of ``wins``."""
+        if self.guidance != 1.0:
+            n = wins.shape[0]
+            eps = eps[n:] + self.guidance * (eps[:n] - eps[n:])
+        return ddim_step(self.sched, wins, eps, torch.full((self.frames,), sp.index, dtype=torch.long))
+
     def _to_native(self, wins):
         if self.get_scale == 1:
             return wins
@@ -212,45 +226,46 @@ class _Sampler:
         """One DDIM step; returns the new (latent, denoised). ``latent``
         [1, F, EH, EW, C]; ``maps`` / ``native`` / ``set_maps`` the phase's
         maps at the get, native and set resolutions."""
-        if self.mode == "sequential":
-            return self._step_sequential(latent, denoised, static_clean, maps, native, set_maps, uncond, sp)
+        with span("step", latent.device, pairs=len(sp.pair_view)):
+            if self.mode == "sequential":
+                return self._step_sequential(latent, denoised, static_clean, maps, native, set_maps, uncond, sp)
+            return self._step_batched(latent, denoised, static_clean, maps, native, set_maps, uncond, sp)
+
+    def _step_batched(self, latent, denoised, static_clean, maps, native, set_maps, uncond, sp: SphereStep):
         B, F, EH, EW, C = latent.shape
         h, w = maps.gather.shape[1:]
-        flat = latent[0].reshape(F, EH * EW, C)
-        wins = torch.stack([self._gather(flat, maps, v, f0, F) for v, f0 in zip(sp.pair_view, sp.pair_f)])
-        wins = self._to_native(wins.reshape(-1, self.frames, h, w, C))
-        earlier = device_sphere_masks(native.gather, native.valid, set_maps.scatter, sp.pair_view, sp.pair_f,
-                                      self.frames, F, EH * EW)
+        with span("step.gather"):
+            flat = latent[0].reshape(F, EH * EW, C)
+            wins = torch.stack([self._gather(flat, maps, v, f0, F) for v, f0 in zip(sp.pair_view, sp.pair_f)])
+            wins = self._to_native(wins.reshape(-1, self.frames, h, w, C))
+        with span("step.masks"):
+            earlier = device_sphere_masks(native.gather, native.valid, set_maps.scatter, sp.pair_view, sp.pair_f,
+                                          self.frames, F, EH * EW)
         prev = wins
-        wins = self._renoise(wins, sp, earlier, f"renoise:{sp.step}")
+        with span("step.renoise"):
+            wins = self._renoise(wins, sp, earlier, f"renoise:{sp.step}")
+            x, ctx = self._cfg_pack(wins, sp.context, uncond)
+        eps = self.model.apply_unet_microbatched(x, sp.t, ctx, self.fps, self.unet_microbatch, self.mesh)
+        with span("step.update"):
+            new, den = self._cfg_update(wins, eps, sp)
+            new = mix_with_mask(new, prev, earlier, sp.merge_prev_ratio)
+            new, den = self._to_set(new, den)
 
-        n = wins.shape[0]
-        if self.guidance != 1.0:
-            x = torch.cat([wins, wins])
-            ctx = torch.cat([sp.context, uncond.expand((n,) + tuple(uncond.shape[1:]))])
-            eps = self.model.apply_unet_microbatched(x, sp.t, ctx, self.fps, self.unet_microbatch, self.mesh)
-            eps = eps[n:] + self.guidance * (eps[:n] - eps[n:])
-        else:
-            eps = self.model.apply_unet_microbatched(wins, sp.t, sp.context, self.fps, self.unet_microbatch,
-                                                     self.mesh)
-        new, den = ddim_step(self.sched, wins, eps, torch.full((self.frames,), sp.index, dtype=torch.long))
-        new = mix_with_mask(new, prev, earlier, sp.merge_prev_ratio)
-        new, den = self._to_set(new, den)
-
-        target = self._static(latent, static_clean, sp) if sp.paste else latent
-        pairs = list(zip(sp.pair_view, sp.pair_f))
-        if self.mode == "average":
-            acc, dacc = torch.zeros_like(target), torch.zeros_like(target)
-            cnt = torch.zeros(target.shape[:-1] + (1,), dtype=target.dtype, device=target.device)
-            dcnt = torch.zeros_like(cnt)  # the same counts again
-            for k, (v, f0) in enumerate(pairs):
-                add_view_nearest(acc, cnt, new[k:k + 1], set_maps.scatter[v], frame_origin=f0)
-                add_view_nearest(dacc, dcnt, den[k:k + 1], set_maps.scatter[v], frame_origin=f0)
-            return normalize_accumulated(acc, cnt, target), normalize_accumulated(dacc, cnt, denoised)
-        for k, (v, f0) in enumerate(pairs):  # pair order: the last write wins
-            set_view_nearest(target, new[k:k + 1], set_maps.plans[v], frame_origin=f0)
-            set_view_nearest(denoised, den[k:k + 1], set_maps.plans[v], frame_origin=f0)
-        return target, denoised
+        with span("step.scatter"):
+            target = self._static(latent, static_clean, sp) if sp.paste else latent
+            pairs = list(zip(sp.pair_view, sp.pair_f))
+            if self.mode == "average":
+                acc, dacc = torch.zeros_like(target), torch.zeros_like(target)
+                cnt = torch.zeros(target.shape[:-1] + (1,), dtype=target.dtype, device=target.device)
+                dcnt = torch.zeros_like(cnt)  # the same counts again
+                for k, (v, f0) in enumerate(pairs):
+                    add_view_nearest(acc, cnt, new[k:k + 1], set_maps.scatter[v], frame_origin=f0)
+                    add_view_nearest(dacc, dcnt, den[k:k + 1], set_maps.scatter[v], frame_origin=f0)
+                return normalize_accumulated(acc, cnt, target), normalize_accumulated(dacc, cnt, denoised)
+            for k, (v, f0) in enumerate(pairs):  # pair order: the last write wins
+                set_view_nearest(target, new[k:k + 1], set_maps.plans[v], frame_origin=f0)
+                set_view_nearest(denoised, den[k:k + 1], set_maps.plans[v], frame_origin=f0)
+            return target, denoised
 
     def _step_sequential(self, latent, denoised, static_clean, maps, native, set_maps, uncond, sp: SphereStep):
         """The reference's exact ordering (i2v_sphere_panorama_pipeline.py:
@@ -263,34 +278,34 @@ class _Sampler:
         h, w = maps.gather.shape[1:]
         mh, mw = native.gather.shape[1:]
         eq = EH * EW
-        tgt = self._static(latent, static_clean, sp) if sp.paste else latent
+        with span("step.scatter"):
+            tgt = self._static(latent, static_clean, sp) if sp.paste else latent
         cov = torch.zeros((F, eq), dtype=torch.float32, device=latent.device)
-        frame_idx = torch.full((self.frames,), sp.index, dtype=torch.long)
-        uc = uncond[:1]
         for k, (v, f0) in enumerate(zip(sp.pair_view, sp.pair_f)):
-            fi = wrap_slice_indices(f0, self.frames, F, latent.device)
-            win = self._gather(latent[0].reshape(F, eq, C), maps, v, f0, F)
-            win = self._to_native(win.reshape(1, self.frames, h, w, C))
+            with span("step.gather"):
+                fi = wrap_slice_indices(f0, self.frames, F, latent.device)
+                win = self._gather(latent[0].reshape(F, eq, C), maps, v, f0, F)
+                win = self._to_native(win.reshape(1, self.frames, h, w, C))
             prev = win
-            mgi = native.gather[v].reshape(-1).clamp(max=eq - 1)
-            m = (cov[fi][:, mgi] * native.valid[v].reshape(1, -1)).reshape(1, self.frames, mh, mw, 1)
-            win = self._renoise(win, sp, m, f"pair:{sp.step}:{k}")
-            ctx_k = sp.context[k:k + 1]
-            if self.guidance != 1.0:
-                eps = self.model.apply_unet(torch.cat([win, win]), torch.full((2,), sp.t, device=win.device),
-                                            torch.cat([ctx_k, uc]), self.fps)
-                eps = eps[1:] + self.guidance * (eps[:1] - eps[1:])
-            else:
-                eps = self.model.apply_unet(win, torch.full((1,), sp.t, device=win.device), ctx_k, self.fps)
-            new, den_w = ddim_step(self.sched, win, eps, frame_idx)
-            new = mix_with_mask(new, prev, m, sp.merge_prev_ratio)
-            new, den_w = self._to_set(new, den_w)
-            plan = set_maps.plans[v]
-            set_view_nearest(latent, new, plan, frame_origin=f0)
-            if sp.paste:
-                set_view_nearest(tgt, new, plan, frame_origin=f0)
-            set_view_nearest(denoised, den_w, plan, frame_origin=f0)
-            cov[fi[:, None], plan.tgt[None, :]] = 1.0
+            with span("step.masks"):
+                mgi = native.gather[v].reshape(-1).clamp(max=eq - 1)
+                m = (cov[fi][:, mgi] * native.valid[v].reshape(1, -1)).reshape(1, self.frames, mh, mw, 1)
+            with span("step.renoise"):
+                win = self._renoise(win, sp, m, f"pair:{sp.step}:{k}")
+                x, ctx = self._cfg_pack(win, sp.context[k:k + 1], uncond[:1])
+            with span("unet", forwards=1, rows=x.shape[0]):
+                eps = self.model.apply_unet(x, torch.full((x.shape[0],), sp.t, device=win.device), ctx, self.fps)
+            with span("step.update"):
+                new, den_w = self._cfg_update(win, eps, sp)
+                new = mix_with_mask(new, prev, m, sp.merge_prev_ratio)
+                new, den_w = self._to_set(new, den_w)
+            with span("step.scatter"):
+                plan = set_maps.plans[v]
+                set_view_nearest(latent, new, plan, frame_origin=f0)
+                if sp.paste:
+                    set_view_nearest(tgt, new, plan, frame_origin=f0)
+                set_view_nearest(denoised, den_w, plan, frame_origin=f0)
+                cov[fi[:, None], plan.tgt[None, :]] = 1.0
         return tgt, denoised
 
 
@@ -317,20 +332,22 @@ def _view_contexts(model, prompt, pano_image, phase_views, view_fov, phi_prompt_
         phase_gid[phase] = np.arange(len(prompts), len(prompts) + len(views))
         prompts += [(phi_prompt_dict or {}).get(phi, prompt) for phi, _ in views]
         specs += [((phi_fov_dict or {}).get(phi, view_fov), theta, phi) for phi, theta in views]
-    text = encode_texts_cached(model, prompts, {})
+    with span("request.text", prompts=len(set(prompts))):
+        text = encode_texts_cached(model, prompts, {})
     if not use_image_cond:
         return text, phase_gid
     eq_h, eq_w = pano_image.shape[:2]
     dev = model.device
-    flat = torch.as_tensor(pano_image, device=dev).reshape(-1, 3)
-    embs = []
-    for i in range(0, len(specs), CROP_CHUNK):
-        svs = make_sphere_views(specs[i:i + CROP_CHUNK], height, width, eq_h, eq_w)
-        idx = torch.as_tensor(np.stack([sv.gather_idx for sv in svs]), dtype=torch.long, device=dev)
-        valid = torch.as_tensor(np.stack([sv.valid for sv in svs]), device=dev)
-        crops = flat[idx.reshape(-1)].reshape(len(svs), height, width, 3) * valid[..., None]
-        embs.append(model.encode_image_cond(crops))
-    return cat_text_image(text, torch.cat(embs)), phase_gid
+    with span("request.image", crops=len(specs)):
+        flat = torch.as_tensor(pano_image, device=dev).reshape(-1, 3)
+        embs = []
+        for i in range(0, len(specs), CROP_CHUNK):
+            svs = make_sphere_views(specs[i:i + CROP_CHUNK], height, width, eq_h, eq_w)
+            idx = torch.as_tensor(np.stack([sv.gather_idx for sv in svs]), dtype=torch.long, device=dev)
+            valid = torch.as_tensor(np.stack([sv.valid for sv in svs]), device=dev)
+            crops = flat[idx.reshape(-1)].reshape(len(svs), height, width, 3) * valid[..., None]
+            embs.append(model.encode_image_cond(crops))
+        return cat_text_image(text, torch.cat(embs)), phase_gid
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +355,7 @@ def _view_contexts(model, prompt, pano_image, phase_views, view_fov, phi_prompt_
 # ---------------------------------------------------------------------------
 
 
+@request
 def sample_shift_sphere_panorama(
     model,
     prompt: str,
@@ -412,15 +430,16 @@ def sample_shift_sphere_panorama(
     def maps_at(scale):
         return _phase_view_maps(phase_views, view_fov, lat_h * scale, lat_w * scale, eq_lat_h, eq_lat_w,
                                 phi_fov_dict, dev)
-    maps = maps_at(view_get_scale_factor)
-    native = maps if view_get_scale_factor == 1 else maps_at(1)
-    set_maps = maps if view_set_scale_factor == view_get_scale_factor else maps_at(view_set_scale_factor)
     tm = Marker("sphere")
+    with span("request.maps", views=sum(len(v) for v in phase_views.values())):
+        maps = maps_at(view_get_scale_factor)
+        native = maps if view_get_scale_factor == 1 else maps_at(1)
+        set_maps = maps if view_set_scale_factor == view_get_scale_factor else maps_at(view_set_scale_factor)
     tm.mark("maps")
 
     ctx_bank, phase_gid = _view_contexts(model, prompt, pano_image, phase_views, view_fov, phi_prompt_dict,
                                          phi_fov_dict, height, width, use_image_cond)
-    tm.mark("phase conditioning (CLIP)", block=ctx_bank)
+    tm.mark("phase conditioning (CLIP)")
     uncond = build_uncond_context(model, with_image=use_image_cond, image_hw=(lat_h, lat_w))
 
     # the clean static pano latent, encoded once
@@ -431,23 +450,24 @@ def sample_shift_sphere_panorama(
 
     skip = int(skip_time_step_idx or 0)
     shape = (1, total_f, eq_lat_h, eq_lat_w, C)
-    if init_sphere_latent is not None:
-        latent = torch.as_tensor(init_sphere_latent, dtype=torch.float32, device=dev).clone()
-    elif not use_skip_time:
-        latent = draw_noise(shape, dev, generator, noise_fn, "init")
-    else:
-        clean = static_clean.repeat(1, total_f, 1, 1, 1)
-        noise = draw_noise(clean.shape, dev, generator, noise_fn, "skip")
-        if progressive_skip:
-            steps_b = np.full((total_f,), S - 1, np.int64)
-            for frame_idx, pskip in enumerate(reversed(range(skip))):
-                steps_b[frame_idx] = S - pskip - 1
-            noised = re_noise_per_frame(sched, clean, torch.from_numpy(steps_b), noise=noise)
-            sel = (torch.arange(total_f, device=dev) < skip)[None, :, None, None, None]
-            latent = torch.where(sel, noised, draw_noise(shape, dev, generator, noise_fn, "init"))
+    with span("request.init"):
+        if init_sphere_latent is not None:
+            latent = torch.as_tensor(init_sphere_latent, dtype=torch.float32, device=dev).clone()
+        elif not use_skip_time:
+            latent = draw_noise(shape, dev, generator, noise_fn, "init")
         else:
-            latent = re_noise(sched, clean, 0, S - 1, noise=noise)
-    tm.mark("static encode + init latent", block=(static_clean, latent))
+            clean = static_clean.repeat(1, total_f, 1, 1, 1)
+            noise = draw_noise(clean.shape, dev, generator, noise_fn, "skip")
+            if progressive_skip:
+                steps_b = np.full((total_f,), S - 1, np.int64)
+                for frame_idx, pskip in enumerate(reversed(range(skip))):
+                    steps_b[frame_idx] = S - pskip - 1
+                noised = re_noise_per_frame(sched, clean, torch.from_numpy(steps_b), noise=noise)
+                sel = (torch.arange(total_f, device=dev) < skip)[None, :, None, None, None]
+                latent = torch.where(sel, noised, draw_noise(shape, dev, generator, noise_fn, "init"))
+            else:
+                latent = re_noise(sched, clean, 0, S - 1, noise=noise)
+    tm.mark("static encode + init latent")
 
     steps_eff = S - (skip if use_skip_time and not progressive_skip else 0)
     if denoise_to_step is not None:
@@ -461,28 +481,30 @@ def sample_shift_sphere_panorama(
     tm.reset_lap()
     LOOP_STATS.start(steps_eff)
     for i in range(steps_eff):
-        # with skip the table index keeps counting from the truncated top
-        index = (S - (skip if use_skip_time and not progressive_skip else 0)) - 1 - i
-        phase = i % loop_step_theta
-        f_origins = frame_window_origins(i, total_f, frames, ratios_f[i], loop_step_frame, dock_at_f)
-        Nv = len(phase_views[phase])
-        ids = np.concatenate([phase_gid[phase]] * len(f_origins))
-        last = i == steps_eff - 1
-        sp = SphereStep(
-            t=int(ddim_ts[index]), index=index,
-            pair_view=tuple(v for _ in f_origins for v in range(Nv)),
-            pair_f=tuple(f0 for f0 in f_origins for _ in range(Nv)),
-            context=ctx_bank[torch.as_tensor(ids, dtype=torch.long, device=ctx_bank.device)],
-            renoise_ratio=float(merge_renoised_overlap_latent_ratio)
-            if merge_renoised_overlap_latent_ratio is not None and not last else 0.0,
-            merge_prev_ratio=float(merge_prev_denoised_ratio_list[i])
-            if merge_prev_denoised_ratio_list is not None and not last else 0.0,
-            paste=bool(paste_on_static and not last),
-            step=i,
-        )
+        # the step's plan is made as the loop reaches it
+        with span("request.plan", steps=1):
+            # with skip the table index keeps counting from the truncated top
+            index = (S - (skip if use_skip_time and not progressive_skip else 0)) - 1 - i
+            phase = i % loop_step_theta
+            f_origins = frame_window_origins(i, total_f, frames, ratios_f[i], loop_step_frame, dock_at_f)
+            Nv = len(phase_views[phase])
+            ids = np.concatenate([phase_gid[phase]] * len(f_origins))
+            last = i == steps_eff - 1
+            sp = SphereStep(
+                t=int(ddim_ts[index]), index=index,
+                pair_view=tuple(v for _ in f_origins for v in range(Nv)),
+                pair_f=tuple(f0 for f0 in f_origins for _ in range(Nv)),
+                context=ctx_bank[torch.as_tensor(ids, dtype=torch.long, device=ctx_bank.device)],
+                renoise_ratio=float(merge_renoised_overlap_latent_ratio)
+                if merge_renoised_overlap_latent_ratio is not None and not last else 0.0,
+                merge_prev_ratio=float(merge_prev_denoised_ratio_list[i])
+                if merge_prev_denoised_ratio_list is not None and not last else 0.0,
+                paste=bool(paste_on_static and not last),
+                step=i,
+            )
         latent, denoised = sampler.step(latent, denoised, static_clean, maps[phase], native[phase],
                                         set_maps[phase], uncond, sp)
-        tm.lap(f"step {i}/{steps_eff} phase={phase}", block=latent)
+        tm.lap(f"step {i}/{steps_eff} phase={phase}")
         if i == 0:
             LOOP_STATS.mark_first(latent)
     LOOP_STATS.finish(latent)
@@ -493,5 +515,8 @@ def sample_shift_sphere_panorama(
         tw = int(eq_lat_w // downsample_factor_before_vae_decode)
         out_latent = resize_video_latent(out_latent, th, tw, mode="nearest")
         out_denoised = resize_video_latent(out_denoised, th, tw, mode="nearest")
-    video = model.decode_video_chunked(out_denoised) if decode else None
+    video = None
+    if decode:
+        with span("request.decode", frames=out_denoised.shape[1]):
+            video = model.decode_video_chunked(out_denoised)
     return video, out_latent, out_denoised

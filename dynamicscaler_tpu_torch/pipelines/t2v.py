@@ -26,6 +26,7 @@ from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, draw_noise
 from dynamicscaler_tpu_torch.ops.resize import resize_video_latent
 from dynamicscaler_tpu_torch.pipelines.conditioning import build_uncond_context
 from dynamicscaler_tpu_torch.pipelines.planar import PlanarShiftWindowEngine, StepPlan
+from dynamicscaler_tpu_torch.utils.timing import request, span
 
 
 def make_schedule_for_model(model, num_steps: int) -> DDIMSchedule:
@@ -134,6 +135,7 @@ def shuffle_init_frame_order(total_f: int, frames: int, stride: int, rng: np.ran
     return order
 
 
+@request
 def sample_shift_multi_windows(
     model,
     prompt: str,
@@ -199,35 +201,37 @@ def sample_shift_multi_windows(
         docking_f=docking[0], docking_h=docking[1], docking_w=docking[2],
         docking_step_range=None if docking_step_range is None else tuple(docking_step_range),
     )
-    context = model.encode_text([prompt])
+    with span("request.text", prompts=1):
+        context = model.encode_text([prompt])
     uncond = build_uncond_context(model, with_image=False)
 
     S = sched.num_ddim_steps
     dev = model.device
     shape = (1, grid.total_f, grid.total_h, grid.total_w, model.config.unet.in_channels)
     residual = None
-    if init_panorama_latent is not None:
-        latent = torch.as_tensor(init_panorama_latent, dtype=torch.float32, device=dev)
-    elif use_pre_denoise:
-        small = clear_pre_denoised_latent
-        if small is None:
-            init = draw_noise((1, frames, wh, ww, shape[-1]), dev, generator, noise_fn, "pre_denoise_init")
-            _, small = basic_sample(model, prompt, height=height, width=width, frames=frames, fps=fps,
-                                    guidance_scale=guidance_scale, num_inference_steps=num_inference_steps,
-                                    latents=init, decode=False)
-        big = resize_video_latent(torch.as_tensor(small, dtype=torch.float32, device=dev),
-                                  grid.total_h, grid.total_w, mode="bicubic")
-        residual = big.repeat(1, num_windows_f, 1, 1, 1)[:, :grid.total_f]
-        latent = re_noise(sched, residual, 0, S - 1,
-                          noise=draw_noise(residual.shape, dev, generator, noise_fn, "pre_denoise"))
-    else:
-        latent = draw_noise(shape, dev, generator, noise_fn, "init")
-        if random_shuffle_init_frame_stride > 0:
-            gdev = generator.device if generator is not None else "cpu"
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator, device=gdev))
-            order = shuffle_init_frame_order(grid.total_f, frames, random_shuffle_init_frame_stride,
-                                             np.random.default_rng(seed))
-            latent = latent[:, torch.as_tensor(order, device=dev)]
+    with span("request.init"):
+        if init_panorama_latent is not None:
+            latent = torch.as_tensor(init_panorama_latent, dtype=torch.float32, device=dev)
+        elif use_pre_denoise:
+            small = clear_pre_denoised_latent
+            if small is None:
+                init = draw_noise((1, frames, wh, ww, shape[-1]), dev, generator, noise_fn, "pre_denoise_init")
+                _, small = basic_sample(model, prompt, height=height, width=width, frames=frames, fps=fps,
+                                        guidance_scale=guidance_scale, num_inference_steps=num_inference_steps,
+                                        latents=init, decode=False)
+            big = resize_video_latent(torch.as_tensor(small, dtype=torch.float32, device=dev),
+                                      grid.total_h, grid.total_w, mode="bicubic")
+            residual = big.repeat(1, num_windows_f, 1, 1, 1)[:, :grid.total_f]
+            latent = re_noise(sched, residual, 0, S - 1,
+                              noise=draw_noise(residual.shape, dev, generator, noise_fn, "pre_denoise"))
+        else:
+            latent = draw_noise(shape, dev, generator, noise_fn, "init")
+            if random_shuffle_init_frame_stride > 0:
+                gdev = generator.device if generator is not None else "cpu"
+                seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator, device=gdev))
+                order = shuffle_init_frame_order(grid.total_f, frames, random_shuffle_init_frame_stride,
+                                                 np.random.default_rng(seed))
+                latent = latent[:, torch.as_tensor(order, device=dev)]
 
     pre_step = None
     if residual is not None and merge_predenoise_ratio_list is not None:
@@ -240,22 +244,26 @@ def sample_shift_multi_windows(
                 return checkerboard_mix(lat, noised, ratio, i)
             return lat * ratio + noised * (1.0 - ratio)
 
-    ddim_ts = sched.ddim_timesteps.cpu().numpy()
-    plan: List[StepPlan] = []
-    for i in range(S):
-        last = i == S - 1
-        plan.append(StepPlan(
-            t=int(ddim_ts[S - 1 - i]),
-            index=S - 1 - i,
-            origins=np.asarray(grid.step_origins(i), np.int64),
-            context=context,
-            renoise_ratio=None if last else merge_renoised_overlap_latent_ratio,
-            merge_prev_ratio=None if last or merge_prev_denoised_ratio_list is None
-            else float(merge_prev_denoised_ratio_list[i]),
-        ))
+    with span("request.plan", steps=S):
+        ddim_ts = sched.ddim_timesteps.cpu().numpy()
+        plan: List[StepPlan] = []
+        for i in range(S):
+            last = i == S - 1
+            plan.append(StepPlan(
+                t=int(ddim_ts[S - 1 - i]),
+                index=S - 1 - i,
+                origins=np.asarray(grid.step_origins(i), np.int64),
+                context=context,
+                renoise_ratio=None if last else merge_renoised_overlap_latent_ratio,
+                merge_prev_ratio=None if last or merge_prev_denoised_ratio_list is None
+                else float(merge_prev_denoised_ratio_list[i]),
+            ))
     engine = PlanarShiftWindowEngine(model, sched, (frames, wh, ww), guidance_scale=guidance_scale,
                                      fps=fps, overlap_mode=overlap_mode,
                                      unet_microbatch=unet_microbatch, mesh=mesh)
     latent, denoised = engine.run(latent, plan, uncond, generator, pre_step=pre_step, noise_fn=noise_fn)
-    video = model.decode_video(denoised) if decode else None
+    video = None
+    if decode:
+        with span("request.decode", frames=denoised.shape[1]):
+            video = model.decode_video(denoised)
     return video, denoised

@@ -15,11 +15,18 @@ from __future__ import annotations
 
 import torch
 
+from dynamicscaler_tpu_torch.utils.timing import span
+
 
 def tiled_vae_encode(model, image, h_tiles: int = 4, w_tiles: int = 4,
                      overlap_latent: int = 32) -> torch.Tensor:
     """[H, W, 3] or [B, H, W, 3] image in [-1, 1] -> [B, 1, H/vs, W/vs, zc]
     fp32 (a one-frame video latent, the posterior mode per tile)."""
+    with span("request.static", model.device, tiles=h_tiles * w_tiles):
+        return _tiled_encode(model, image, h_tiles, w_tiles, overlap_latent)
+
+
+def _tiled_encode(model, image, h_tiles, w_tiles, overlap_latent):
     image = torch.as_tensor(image, dtype=torch.float32, device=model.device)
     if image.ndim == 3:
         image = image[None]

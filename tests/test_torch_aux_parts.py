@@ -229,42 +229,73 @@ MARK = re.compile(r"^\[(\w+)\] (.+): \d+\.\d\ds cum$")
 LAP = re.compile(r"^\[(\w+)\] (.+) \d+\.\d\ds$")
 
 
+SPAN = re.compile(r"^\[request \d+\] (\S+): \d+\.\d\ds x(\d+)(.*)$")
+
+
 def test_marker_prints_as_jax_and_is_silent_when_unset(monkeypatch, capsys):
-    monkeypatch.setenv("DSCALER_STEP_TIMING", "1")
-    for mod in (jtiming, timing):
-        m = mod.Marker("tag")
-        m.mark("setup", block=torch.zeros(2) if mod is timing else None)
+    """The port's marks and laps in the JAX package's line format, each
+    naming the span that closed before it, printed by ``report`` when the
+    sampler call ends, then the request's spans by name with their number
+    and counts; unset, no span opens and nothing prints."""
+    class Model:
+        device = torch.device("cpu")
+
+    @timing.request
+    def sampler(model):
+        m = timing.Marker("tag")
+        with timing.span("request.maps", views=3):
+            pass
+        m.mark("setup")
         m.reset_lap()
-        m.lap("step 0/2", block=(torch.zeros(1), torch.ones(1)) if mod is timing else None)
+        for _ in range(2):
+            with timing.span("step", pairs=2):
+                pass
+        m.lap("step 0/2")
+
+    monkeypatch.setenv("DSCALER_STEP_TIMING", "1")
+    timing.take()
+    m = jtiming.Marker("tag")
+    m.mark("setup")
+    m.reset_lap()
+    m.lap("step 0/2")
+    sampler(Model())
     lines = capsys.readouterr().out.splitlines()
-    assert [MARK.match(s).groups() for s in lines[0::2]] == [("tag", "setup")] * 2
-    assert [LAP.match(s).groups() for s in lines[1::2]] == [("tag", "step 0/2")] * 2
+    assert [MARK.match(s).groups() for s in lines[0:4:2]] == [("tag", "setup")] * 2
+    assert [LAP.match(s).groups() for s in lines[1:4:2]] == [("tag", "step 0/2")] * 2
+    assert [SPAN.match(s).groups() for s in lines[4:]] == [("request", "1", ""), ("request.maps", "1", " views=3"),
+                                                           ("step", "2", " pairs=4")]
+    assert timing.take() == ([], 0)  # kept only for the print
 
     monkeypatch.delenv("DSCALER_STEP_TIMING")
 
-    def no_sync(block):
-        raise AssertionError("a sync with DSCALER_STEP_TIMING unset")
-    monkeypatch.setattr(timing.Marker, "_sync", staticmethod(no_sync))
-    m = timing.Marker("tag")
-    m.mark("setup", block=torch.zeros(1))
-    m.lap("step", block=torch.zeros(1))
+    def no_span(*a):
+        raise AssertionError("a span with DSCALER_STEP_TIMING unset")
+    monkeypatch.setattr(timing, "_Open", no_span)
+    assert not timing.Marker("tag").on
+    sampler(Model())
     assert capsys.readouterr().out == ""
+    assert timing.take() == ([], 0)
 
 
 def test_samplers_mark_their_phases(i2v_twins, monkeypatch, capsys):
     """The i2v sampler's marks and the planar engine's laps, at the JAX
-    package's names."""
+    package's names and in their order, then its spans with their counts,
+    printed when the sampler call ends."""
     monkeypatch.setenv("DSCALER_STEP_TIMING", "1")
     _, tmodel = i2v_twins
     img = np.random.default_rng(0).uniform(-1, 1, (32, 64, 3)).astype(np.float32)
     i2v.sample_shift_multi_windows(tmodel, "a lake", img, total_w=64, total_h=32, total_f=4, num_windows_w=2,
                                    num_windows_h=1, loop_step=2, height=32, width=32, frames=4,
                                    num_inference_steps=2, generator=torch.Generator().manual_seed(0))
-    got = [(m.groups() if m else None) for m in (MARK.match(s) or LAP.match(s)
-                                                 for s in capsys.readouterr().out.splitlines())]
+    out = capsys.readouterr().out.splitlines()
+    got = [m.groups() for m in (MARK.match(s) or LAP.match(s) for s in out) if m]
     assert got == [("i2v", "phase conditioning (CLIP)"), ("i2v", "init latent"), ("i2v", "plan built"),
                    ("planar", "step 0/2 N=2"), ("planar", "step 1/2 N=2"), ("i2v", "denoise loop"),
                    ("i2v", "ring decode")]
+    spans = {m.group(1): m.groups()[1:] for m in map(SPAN.match, out[len(got):])}
+    assert len(spans) == len(out) - len(got)
+    assert spans["step"] == ("2", " windows=4") and spans["unet"] == ("2", " forwards=2 rows=8")
+    assert spans["request.image"] == ("2", " crops=5") and spans["request.decode"] == ("1", " frames=4")
 
 
 # ---------------------------------------------------------------------------
