@@ -1883,6 +1883,27 @@ def _gemm_f32_block_n(block_n):
         cuda_lib.gemm_f32_tile = plan
 
 
+@contextlib.contextmanager
+def _gemm_schedule(schedule):
+    """ds_ln_gemm on one schedule (at the column width and ring stages the
+    planner gives it there), inside the block."""
+    plan = cuda_lib.gemm_tile
+    cuda_lib.gemm_tile = lambda M, K, N, mode=cuda_lib.MODE_STORE: plan(M, K, N, mode, schedule=schedule)
+    try:
+        yield
+    finally:
+        cuda_lib.gemm_tile = plan
+
+
+def _prologue_ms(x, w, kw, ms):
+    """The LayerNorm / GroupNorm prologue pass's share of a ds_ln_gemm call
+    that took ``ms``: less the same GEMM on an A of x's shape without the
+    prologue (unmapped: a frame map's TMA box reads the same bytes), so the
+    difference is the pass's launch, read of X and write of A."""
+    bare = {k: v for k, v in kw.items() if k not in ("ln", "gn", "rows_per_sample", "frame_map")}
+    return ms - _time_ms(lambda: cuda_lib.ln_gemm(x, w, **bare), 10)
+
+
 def _phase_gemms(calls, dt=BF, phase="phase 3"):
     """The GEMM table: every distinct ds_ln_gemm call of a batch-8 i2v
     forward against ln_gemm_plain, bf16 (``calls`` of the phase-2 forward)
@@ -1895,9 +1916,12 @@ def _phase_gemms(calls, dt=BF, phase="phase 3"):
     cores' 67), bound (the larger of 2MNK over the peak and the bytes over
     the HBM rate: inputs read once, the output written once), F.linear on
     the same operands (fp32: TF32 off), and in fp32 the plain version's ms
-    and the kernel at the planner's other column width. Then the sums per
-    forward (calls x ms) and the compute-bound shapes with M >= 20480 and
-    K, N >= 640 below 40% of the peak."""
+    and the kernel at the planner's other column width. In bf16 also each
+    schedule's tile and ms (the planner's choice marked), both held to the
+    gates, the largest difference of the ping-pong output from the
+    cooperative one, and the prologue pass's own ms (:func:`_prologue_ms`). Then
+    the sums per forward (calls x ms) and the compute-bound shapes with M >=
+    20480 and K, N >= 640 below 40% of the peak."""
     rn = _gen()
     fp32 = dt == F32
     peak = PEAK_TF32X3 if fp32 else PEAK_BF16
@@ -1922,6 +1946,7 @@ def _phase_gemms(calls, dt=BF, phase="phase 3"):
         ok = bool(torch.isfinite(got).all()) and err <= tol and rel <= tol_l2 and same
         ins = [x, w, got, kw.get("bias"), kw.get("residual"), *(kw.get("ln") or ()), *(kw.get("gn") or ())]
         nbytes = sum(t.numel() * t.element_size() for t in ins if t is not None)
+        ref_f, own_norm = ref.float(), own.norm()
         del got, ref, diff, own
         flops = 2 * M * N * K
         op_ms, byte_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -1932,7 +1957,7 @@ def _phase_gemms(calls, dt=BF, phase="phase 3"):
         tile = (cuda_lib.gemm_f32_tile if fp32 else cuda_lib.gemm_tile)(M, K, N, mode)
         line = (f"{phase} gemm M={M} K={K} N={N} {pro} {MODE_NAMES[mode]}"
                 + (f" rows/sample {rps}" if pro == "GN" else "") + (f" map {fmap}" if fmap else "")
-                + f" x{n} per forward: tile 128x{tile.block_n}x{tile.stages} ")
+                + f" x{n} per forward: tile {'' if fp32 else tile.schedule + ' '}128x{tile.block_n}x{tile.stages} ")
         if fp32:
             line += (f"max_abs_err {err:.5g} (tol {tol:.5g}, bit-exact rerun {same}) rel_l2 {rel:.5g} (tol {tol_l2}) "
                      f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.1f}% of the bound) "
@@ -1941,6 +1966,27 @@ def _phase_gemms(calls, dt=BF, phase="phase 3"):
             line += (f"max_abs_err {err:.5f} (tol {tol:.5f}) rel_l2 {rel:.5f} (tol {tol_l2}) kernel {ms:.3f} ms "
                      f"({flops / ms / 1e9:.0f} TFLOP/s, {100 * share:.1f}% of 989) bound {bound:.4f} ms "
                      f"({'bytes' if byte_ms >= op_ms else 'operations'}) F.linear {lib_ms:.3f} ms")
+        if not fp32:
+            outs, scheds = {}, []
+            for sched in cuda_lib.GEMM_BLOCK_N:
+                with _gemm_schedule(sched):
+                    t = cuda_lib.gemm_tile(M, K, N, mode)
+                    outs[sched] = out = cuda_lib.ln_gemm(x, w, **kw)
+                    torch.cuda.synchronize()
+                    d = out.float() - ref_f
+                    if not (bool(torch.isfinite(out).all()) and float(d.abs().max()) <= tol
+                            and float(d.norm() / own_norm) <= tol_l2):
+                        ok = False
+                    sched_ms = _time_ms(lambda: cuda_lib.ln_gemm(x, w, **kw), 10)
+                tot[sched] += n * sched_ms
+                scheds.append(f"{sched} 128x{t.block_n}x{t.stages} {sched_ms:.3f} ms"
+                              + (" (chosen)" if sched == tile.schedule else ""))
+            pp_diff = float((outs["pingpong"].float() - outs["cooperative"].float()).abs().max())
+            del outs, out, d
+            pro_ms = _prologue_ms(x, w, kw, ms) if pro != "-" else 0.0
+            tot["prologue"] += n * pro_ms
+            line += (f"; {', '.join(scheds)}; ping-pong vs cooperative max_abs_diff {pp_diff:.5g}"
+                     + (f"; prologue pass {pro_ms:.4f} ms" if pro != "-" else ""))
         if fp32:
             other = 64 if tile.block_n == 128 else 128
             legal = mode != cuda_lib.MODE_GEGLU or (N // 2) % (other // 2) == 0
@@ -1952,6 +1998,7 @@ def _phase_gemms(calls, dt=BF, phase="phase 3"):
                      f"({100 * bound_cc / ms:.1f}%); at BN {other} {other_ms:.3f} ms")
             tot["plain"] += n * plain_ms
             tot["bound_cc"] += n * bound_cc
+        del ref_f
         print(line + f" {'ok' if ok else 'FAIL'}", flush=True)
         tot["ms"] += n * ms
         tot["lib"] += n * lib_ms
@@ -1965,7 +2012,9 @@ def _phase_gemms(calls, dt=BF, phase="phase 3"):
     torch.cuda.empty_cache()
     print(f"{phase} gemm sums per {where} ({tot['calls']} calls, {len(calls)} shapes): kernel {tot['ms']:.2f} ms, "
           f"F.linear {tot['lib']:.2f} ms, bound {tot['bound']:.2f} ms"
-          + (f", plain {tot['plain']:.2f} ms, bound at 67 TFLOP/s {tot['bound_cc']:.2f} ms" if fp32 else "")
+          + (f", plain {tot['plain']:.2f} ms, bound at 67 TFLOP/s {tot['bound_cc']:.2f} ms" if fp32 else
+             "".join(f", {sched} alone {tot[sched]:.2f} ms" for sched in cuda_lib.GEMM_BLOCK_N)
+             + f", of the kernel the prologue passes {tot['prologue']:.2f} ms")
           + f"; compute-bound shapes with M >= 20480, K, N >= 640 below 40% of "
           + ("the bound" if fp32 else "989 TFLOP/s") + f": {low or 'none'}", flush=True)
     if bad:

@@ -52,14 +52,40 @@
 //     or N arrive as zeros), K in steps of 64 (one swizzle row of bf16); the
 //     ring runs on across tiles, so the next tile's loads overlap this one's
 //     epilogue;
-//   * two consumer warpgroups of 64 rows each issue wgmma m64nBNk16 with both
-//     operands in shared memory and fp32 accumulators in registers, taking
-//     turns on the tensor cores, and release each stage on a second mbarrier
-//     (setmaxnreg hands the producer warpgroup's unused registers to them);
-//   * the epilogue adds the bias (and forms GEGLU) from the registers, stages
-//     the bf16 tile in shared memory of its own (not the ring, which is
-//     already loading the next tile), and writes each row in 16-byte pieces,
-//     the residual read the same way and the output row map applied per row;
+//   * two consumer warpgroups issue wgmma with both operands in shared
+//     memory and fp32 accumulators in registers, and release each stage on a
+//     second mbarrier (setmaxnreg hands the producer warpgroup's unused
+//     registers to them), on one of two schedules that cuda_lib.gemm_tile
+//     picks per (M, K, N, mode) from a cost model fitted to the card's times
+//     (chip_smoke.py phase 3 times every forward shape on both):
+//     - cooperative (ds_ln_gemm, ds_gemm_kernel<BN>): both warpgroups work on
+//       the same 128 x BN tile, 64 rows each (wgmma m64nBNk16), so the two
+//       share each B tile: the fewest operand bytes a product (BN 256 reads
+//       a third fewer than 128 x 128). Their epilogue runs together after
+//       the tile's last product: bias (and GEGLU) from the registers into a
+//       bf16 staging tile of its own (not the ring, which already loads the
+//       next tile), then each row out in 16-byte pieces, the residual read
+//       the same way and the output row map applied per row; no product is
+//       issued meanwhile. Chosen where the products dwarf the epilogue (long
+//       K) or where the GEGLU epilogue, heavy in erff, wants both
+//       warpgroups' warps at once (K 320-512);
+//     - ping-pong (ds_ln_gemm_pingpong, ds_gemm_kernel_pingpong): each
+//       warpgroup owns whole 128 x 128 tiles (two m64n128k16 products a k16
+//       step), the block's tiles alternating between them; a pair of named
+//       barriers gives the tensor cores to one warpgroup's mainloop at a
+//       time, and each warpgroup's epilogue runs under the other's mainloop.
+//       The epilogue's memory traffic leaves the instruction stream: the
+//       producer loads the residual tile by TMA into the warpgroup's output
+//       tile (128-byte swizzle, 64-column boxes; MAP_OUT as a 3-D box {64,
+//       hb, F} over [B*F, HW, N]) ahead of the epilogue, on an mbarrier of
+//       its own; the epilogue rounds in place and one thread stores the tile
+//       by TMA (bulk-group commit, then wait for the read before the tile is
+//       reused, on a second mbarrier). Where no box fits the clip (MAP_OUT at
+//       a 10x10 or 5x5 level) the rows leave one by one as in the
+//       cooperative epilogue. Chosen for the residual epilogues, where the
+//       cooperative kernel waits on the residual's reads (K 320 / N 320 +
+//       residual 0.547 -> 0.289 ms), and most other shapes of the forward;
+//     both round and order the same: outputs are bit-identical;
 //   * the frame permute of the temporal head is a 3-D TMA box: 128 logical
 //     rows are hb = 128 / F hw positions x F frames of one clip, and the box
 //     {64, hb, F} over [B*F, HW, K] lands them frame-major in shared memory;
@@ -76,11 +102,12 @@
 //     warpgroups, or in spare warps of the producer's) repeats the prologue
 //     for every column tile of the same rows (N / BN times: 20 at N = 5120)
 //     and held the LN GEMMs well below the rate of the same GEMM without it;
-//     the pass costs one write and one read of M x K bf16, a few percent of
-//     these GEMMs' time (the pass is launched by ds_ln_gemm, so its time is
-//     the GEMM's).
-// Not done yet: TMA stores, clusters with multicast of the A tile, the
-// prologue pass fused into the previous kernel's epilogue.
+//     the pass costs one write and one read of M x K bf16, about a tenth of
+//     these GEMMs' time a forward (the pass is launched by ds_ln_gemm, so its
+//     time is the GEMM's; chip_smoke.py phase 3 times it alone).
+// Not done yet: clusters with multicast of the A tile (the K 320 shapes'
+// operand bytes a product bound both schedules), one column tile over all of
+// N at N 320, the prologue pass fused into the previous kernel's epilogue.
 
 #include "hopper.cuh"
 
@@ -90,7 +117,7 @@ namespace {
 
 using namespace hopper;
 
-constexpr int BM = 128;                  // rows per tile: two consumer warpgroups of 64
+constexpr int BM = 128;                  // rows per tile (cooperative: two consumer warpgroups of 64)
 constexpr int BK = 64;                   // K per stage: one 128-byte swizzle row of bf16
 constexpr int A_BYTES = BM * BK * 2;     // 16 KB per stage
 constexpr int SMEM_MAX = 232448;         // the H100's per-block limit
@@ -104,11 +131,14 @@ constexpr int PRODUCER_REGS = 40;  // 2 * 128 * 232 + 128 * 40 = 64512 of the 65
 
 enum { MAP_NONE = 0, MAP_A = 1, MAP_OUT = 2 };
 
+constexpr int PP_BN = 128;  // the ping-pong tile: 128 x 128 a warpgroup (two m64n128 products a k16 step)
+
 struct Params {
   int M, K, N;                 // N: rows of W (2 * N_out in mode 2)
   int mode, map;
-  int map_F, map_HW, map_hb;   // frame map; map_hb = 128 / map_F (MAP_A)
+  int map_F, map_HW, map_hb;   // frame map; map_hb = 128 / map_F (MAP_A; MAP_OUT as a TMA box)
   int k_tiles, stages, n_tiles, tiles;
+  int out_tma;                 // ping-pong: the output tile leaves by TMA (and the residual arrives so)
   const float* bias;           // [N] or null
   const bf16* R;               // mode 1: [M, N]
   bf16* Y;
@@ -379,6 +409,266 @@ ds_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ 
   }
 }
 
+// ---- the ping-pong schedule ---------------------------------------------------------
+
+// A ping-pong warpgroup's output tile in shared memory: 128 rows of BN bf16
+// as BN / 64 blocks of [128][64] in the 128-byte swizzle, the box layout of
+// the TMA store (and of the residual's TMA load into the same bytes).
+__host__ __device__ constexpr int pp_out_bytes(int bn) { return BM * bn * 2; }
+
+// Byte offset of (row r, column c) in that tile: 16-byte piece c / 8 of a
+// 128-byte row lands at piece (c / 8) ^ (r % 8), so the 8 rows of an
+// accumulator store hit 8 distinct pieces (all 32 banks).
+__device__ __forceinline__ int swizzled(int r, int c) {
+  return (c >> 6) * (BM * 128) + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1);
+}
+
+// Row of the output tile in shared memory for accumulator row i: the
+// logical row under MAP_A (the A box lands frame-major, the output is
+// stored in logical order), the 3-D box's frame-major row under MAP_OUT
+// (row f * hb + hw of the box holds logical row hw * F + f), else i.
+__device__ __forceinline__ int out_row(const Params& p, int i) {
+  if (p.map == MAP_A) return (i % p.map_hb) * p.map_F + i / p.map_hb;
+  if (p.map == MAP_OUT && p.out_tma) return (i % p.map_F) * p.map_hb + i / p.map_F;
+  return i;
+}
+
+// hw0 and b*F of the tile at m0 under a frame map: the coordinates of the
+// 3-D boxes {64, hb, F} over [B*F, HW, .] (A under MAP_A, the output and
+// residual under MAP_OUT)
+__device__ __forceinline__ void clip_coords(const Params& p, int m0, int& hw0, int& bF) {
+  const int bhw = m0 / p.map_F;
+  bF = (bhw / p.map_HW) * p.map_F;
+  hw0 = bhw % p.map_HW;
+}
+
+// Ping-pong: each consumer warpgroup owns whole 128 x BN tiles, the block's
+// tiles alternating between warpgroup 0 and 1. Named barrier 3 + w is
+// warpgroup w's turn on the tensor cores: a warpgroup issues its whole
+// mainloop, hands the turn to the other and runs its epilogue (bias, GEGLU,
+// rounding, residual, store) under the other's mainloop. The producer fills
+// the ring in the tiles' order and loads each residual tile by TMA into its
+// warpgroup's output tile ahead of the epilogue; the epilogue rounds in place
+// and one thread stores the tile by TMA. One k step's products stay in
+// flight while the next step's are issued (the cooperative schedule waits
+// for each step's: there the other warpgroup fills the gap).
+__global__ void __launch_bounds__(THREADS, 1)
+ds_gemm_kernel_pingpong(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
+                        const __grid_constant__ CUtensorMap tmR, const __grid_constant__ CUtensorMap tmY,
+                        const Params p) {
+  constexpr int BN = PP_BN;
+  constexpr int B_BYTES = BN * BK * 2;
+  constexpr int STAGE = A_BYTES + B_BYTES;
+  constexpr int ACC = BN / 2;  // fp32 accumulators per thread for each 64-row half of the tile
+  constexpr int OUT = pp_out_bytes(BN);
+  constexpr int BOX = BM * 128;  // bytes of one 64-column box of the output tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + SMEM_ALIGN - 1) &
+                                             ~uintptr_t(SMEM_ALIGN - 1));
+  const int S = p.stages;
+  uint8_t* outs = smem + S * STAGE;                                    // warpgroup w's tile at w * OUT
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + 2 * OUT);        // TMA landed
+  uint64_t* empty = full + S;                                          // products done
+  uint64_t* res_full = empty + S;                                      // [2] residual tile landed
+  uint64_t* out_free = res_full + 2;                                   // [2] output tile read by its store
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int KT = p.k_tiles;
+  const bool geglu = p.mode == 2;
+  const bool res_tma = p.mode == 1 && p.out_tma;
+  const int n_out = geglu ? p.N / 2 : p.N;
+  const int cols = geglu ? BN / 2 : BN;  // output columns of a tile
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per warp of the consuming warpgroup
+    }
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(&res_full[w], 1);
+      mbar_init(&out_free[w], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const bool out3d = p.map == MAP_OUT && p.out_tma;  // the output (and residual) box is 3-D
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      int it = 0;
+      for (int q = 0, tile = blockIdx.x; tile < p.tiles; ++q, tile += gridDim.x) {
+        const int m0 = (tile / p.n_tiles) * BM;
+        const int n0 = (tile % p.n_tiles) * cols;
+        int a1 = m0, a2 = 0;  // MAP_A: hw0 and b*F of the tile's clip
+        if (p.map == MAP_A) clip_coords(p, m0, a1, a2);
+        int c1 = m0, c2 = 0;  // the residual box's
+        if (out3d) clip_coords(p, m0, c1, c2);
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % S;
+          mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+          uint8_t* sa = smem + s * STAGE;
+          uint8_t* sb = sa + A_BYTES;
+          mbar_expect_tx(&full[s], STAGE);
+          if (p.map == MAP_A) tma_load_3d(sa, &tmA, &full[s], kt * BK, a1, a2);
+          else tma_load_2d(sa, &tmA, &full[s], kt * BK, a1);
+          if (geglu) {
+            tma_load_2d(sb, &tmB, &full[s], kt * BK, n0);
+            tma_load_2d(sb + B_BYTES / 2, &tmB, &full[s], kt * BK, p.N / 2 + n0);
+          } else {
+            tma_load_2d(sb, &tmB, &full[s], kt * BK, n0);
+          }
+          if (kt == 0 && res_tma) {
+            // the tile's residual into its warpgroup's output tile, once the
+            // store of that warpgroup's previous tile has read it
+            const int w = q & 1, j = q >> 1;
+            if (j > 0) mbar_wait(&out_free[w], (j - 1) & 1);
+            uint8_t* dst = outs + w * OUT;
+            const int boxes = ((n_out - n0 < cols ? n_out - n0 : cols) + 63) / 64;
+            mbar_expect_tx(&res_full[w], boxes * BOX);
+            for (int b = 0; b < boxes; ++b) {
+              if (out3d) tma_load_3d(dst + b * BOX, &tmR, &res_full[w], n0 + 64 * b, c1, c2);
+              else tma_load_2d(dst + b * BOX, &tmR, &res_full[w], n0 + 64 * b, c1);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int w = wg;
+    const int warp = tid >> 5, lane = tid & 31;
+    uint8_t* out = outs + w * OUT;
+    if (w == 1) bar_arrive(3, 256);  // warpgroup 0 takes the tensor cores first
+    for (int q = w, j = 0, tile = blockIdx.x + w * gridDim.x; tile < p.tiles;
+         q += 2, ++j, tile += 2 * gridDim.x) {
+      const int m0 = (tile / p.n_tiles) * BM;
+      const int n0 = (tile % p.n_tiles) * cols;
+      const bool handoff = tile + (int)gridDim.x < p.tiles;  // the block's next tile, the other warpgroup's
+      float acc[2][ACC];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < ACC; ++i) acc[h][i] = 0.f;
+
+      bar_sync(3 + w, 256);  // this warpgroup's turn
+      int it = q * KT;       // the ring runs through the tiles in the block's order
+#pragma unroll 1
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int s = it % S;
+        mbar_wait(&full[s], (it / S) & 1);
+        const uint64_t da = smem_desc(smem + s * STAGE);
+        const uint64_t db = smem_desc(smem + s * STAGE + A_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < BK / 16; ++k) {
+          Wgmma<BN>::mma(acc[0], da + 2 * k, db + 2 * k, 1);
+          Wgmma<BN>::mma(acc[1], da + (64 * 128 >> 4) + 2 * k, db + 2 * k, 1);
+        }
+        wgmma_commit();
+        if (kt == KT - 1 && handoff) bar_arrive(4 - w, 256);  // all issued: the other warpgroup's turn
+        wgmma_wait<1>();  // the previous step's products are done: hand its stage back
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % S]);
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % S]);
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+
+      // ---- epilogue, under the other warpgroup's mainloop ----
+      if (res_tma) mbar_wait(&res_full[w], j & 1);
+      else if (p.out_tma && j > 0) mbar_wait(&out_free[w], (j - 1) & 1);
+      // Thread (warp v, lane l) holds, in each half mh, rows 64 mh + 16v + l/4
+      // (+8) and, for each 8-column group g, columns 8g + 2(l%4) + {0, 1}:
+      // acc[mh][4g + 2h + {0, 1}] for row half h.
+#pragma unroll
+      for (int mh = 0; mh < 2; ++mh) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = out_row(p, mh * 64 + warp * 16 + (lane >> 2) + 8 * h);
+          if (geglu) {
+#pragma unroll
+            for (int g = 0; g < BN / 16; ++g) {
+              const int c = 8 * g + 2 * (lane & 3);
+              float2 v = make_float2(acc[mh][4 * g + 2 * h], acc[mh][4 * g + 2 * h + 1]);
+              float2 gt = make_float2(acc[mh][4 * (g + BN / 16) + 2 * h], acc[mh][4 * (g + BN / 16) + 2 * h + 1]);
+              if (p.bias) {
+                const float2 bv = __ldg(reinterpret_cast<const float2*>(p.bias + n0 + c));
+                const float2 bg = __ldg(reinterpret_cast<const float2*>(p.bias + p.N / 2 + n0 + c));
+                v.x += bv.x; v.y += bv.y; gt.x += bg.x; gt.y += bg.y;
+              }
+              v = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+              gt = __bfloat1622float2(__floats2bfloat162_rn(gt.x, gt.y));
+              *reinterpret_cast<__nv_bfloat162*>(out + swizzled(r, c)) =
+                  __floats2bfloat162_rn(v.x * gelu_erf(gt.x), v.y * gelu_erf(gt.y));
+            }
+          } else {
+#pragma unroll
+            for (int g = 0; g < BN / 8; ++g) {
+              const int c = 8 * g + 2 * (lane & 3);
+              float2 v = make_float2(acc[mh][4 * g + 2 * h], acc[mh][4 * g + 2 * h + 1]);
+              if (p.bias && n0 + c < p.N) {
+                const float2 b = __ldg(reinterpret_cast<const float2*>(p.bias + n0 + c));
+                v.x += b.x; v.y += b.y;
+              }
+              __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + swizzled(r, c));
+              __nv_bfloat162 y = __floats2bfloat162_rn(v.x, v.y);
+              if (res_tma) {  // bf16(acc [+ bias]) + R, rounded again
+                const float2 a = __bfloat1622float2(y), rv = __bfloat1622float2(*o);
+                y = __floats2bfloat162_rn(a.x + rv.x, a.y + rv.y);
+              }
+              *o = y;
+            }
+          }
+        }
+      }
+      if (p.out_tma) {
+        fence_proxy_async();  // the TMA store reads the tile through the async proxy
+        bar_sync(1 + w, 128);
+        if (tid == 0) {
+          const int boxes = ((n_out - n0 < cols ? n_out - n0 : cols) + 63) / 64;
+          int c1 = m0, c2 = 0;
+          if (out3d) clip_coords(p, m0, c1, c2);
+          for (int b = 0; b < boxes; ++b) {
+            if (out3d) tma_store_3d(&tmY, out + b * BOX, n0 + 64 * b, c1, c2);
+            else tma_store_2d(&tmY, out + b * BOX, n0 + 64 * b, c1);
+          }
+          bulk_commit();
+          bulk_wait_read<0>();
+          mbar_arrive(&out_free[w]);
+        }
+        __syncwarp();
+      } else {
+        // MAP_OUT where no box fits the clip: rows out in 16-byte pieces,
+        // each row to its stored row, the residual added in bf16
+        bar_sync(1 + w, 128);
+        const int units = cols / 8;
+#pragma unroll 4
+        for (int u2 = tid; u2 < BM * units; u2 += 128) {
+          const int rr = u2 / units, u = u2 - rr * units;
+          const int m = m0 + rr, n = n0 + 8 * u;
+          if (m >= p.M || n >= n_out) continue;
+          const size_t row = p.map == MAP_OUT ? frame_major_row(m, p.map_F, p.map_HW) : (size_t)m;
+          uint4 o4 = *reinterpret_cast<const uint4*>(out + swizzled(rr, 8 * u));
+          if (p.mode == 1) {
+            const uint4 rv = __ldg(reinterpret_cast<const uint4*>(p.R + row * n_out + n));
+            __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&o4);
+            const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&rv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 a = __bfloat1622float2(o[e]), b = __bfloat1622float2(r2[e]);
+              o[e] = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+            }
+          }
+          *reinterpret_cast<uint4*>(p.Y + row * n_out + n) = o4;
+        }
+        bar_sync(1 + w, 128);  // the tile free again
+      }
+    }
+  }
+}
+
 // ---- host side ------------------------------------------------------------------
 
 template <int BN>
@@ -397,45 +687,47 @@ cudaError_t launch(const CUtensorMap& a, const CUtensorMap& b, Params p, int sme
   return cudaGetLastError();
 }
 
-}  // namespace
+cudaError_t launch_pingpong(const CUtensorMap& a, const CUtensorMap& b, const CUtensorMap& r, const CUtensorMap& y,
+                            Params p, int smem, cudaStream_t stream) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(ds_gemm_kernel_pingpong, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  p.n_tiles = (p.mode == 2) ? p.N / PP_BN : (p.N + PP_BN - 1) / PP_BN;
+  p.tiles = p.n_tiles * ((p.M + BM - 1) / BM);
+  const int grid = p.tiles < sm_count() ? p.tiles : sm_count();
+  ds_gemm_kernel_pingpong<<<grid, THREADS, smem, stream>>>(a, b, r, y, p);
+  return cudaGetLastError();
+}
 
-// Combinations (the others return cudaErrorInvalidValue, and cuda_lib.ln_gemm
-// refuses them first): LN prologue with mode 0, 1 or 2; GN prologue with mode
-// 0 (frame map of A optional); no prologue with mode 0, 1 or 2 (frame map of
-// the output optional in mode 1). Shapes: K % 8 == 0, N % 8 == 0 (mode 2: N/2 a
-// multiple of block_n/2); pointers 16-byte aligned and row-contiguous; with
-// gn_mul, M % rows_per_sample == 0 and mul/add are [M / rows_per_sample, K];
-// with a frame map (map_F > 0), M % (map_F * map_HW) == 0, and for the A map
-// (the GroupNorm head) whole clips a sample (rows_per_sample % (map_F *
-// map_HW) == 0). The A map reads each 128-row tile as one 3-D TMA box of 128
-// / F positions x F frames where that box fits a clip (128 % F == 0 and
-// map_HW % (128 / F) == 0: 40x64 and every UNet level of it); at any other F
-// or H*W (a 40x40 latent's 10x10 and 5x5 levels, 384x384's 6x6) the
-// prologue pass writes the normalised rows already permuted to logical
-// order, and the GEMM reads them with the plain 2-D box. scratch: bf16 [M, K]
-// for the prologue's output (LN or GN).
-// block_n (64, 128 or 256) and stages from cuda_lib.gemm_tile.
-extern "C" int ds_ln_gemm(const void* X, int M, int K, const void* ln_w, const void* ln_b, float eps,
-                          const void* gn_mul, const void* gn_add, int rows_per_sample, int map_F, int map_HW,
-                          const void* W, int N, const void* bias, const void* R, void* Y, int mode,
-                          void* scratch, int block_n, int stages, void* stream) {
+// Both schedules' host side: checks, the prologue pass, the tensor maps and
+// the launch.
+int run(const void* X, int M, int K, const void* ln_w, const void* ln_b, float eps, const void* gn_mul,
+        const void* gn_add, int rows_per_sample, int map_F, int map_HW, const void* W, int N, const void* bias,
+        const void* R, void* Y, int mode, void* scratch, int block_n, int stages, bool pingpong, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   const bool ln = ln_w != nullptr, gn = gn_mul != nullptr, map = map_F > 0;
   const int map_kind = !map ? MAP_NONE : gn ? MAP_A : MAP_OUT;
   if (M <= 0 || K <= 0 || K % 8 || N % 8 || mode < 0 || mode > 2) return (int)bad;
-  if (block_n != 64 && block_n != 128 && block_n != 256) return (int)bad;
+  if (pingpong ? block_n != PP_BN : block_n != 64 && block_n != 128 && block_n != 256) return (int)bad;
   if ((ln || gn) && scratch == nullptr) return (int)bad;
   if (ln && (gn || map)) return (int)bad;
   if (gn && (mode != 0 || rows_per_sample <= 0 || M % rows_per_sample)) return (int)bad;
   if (map && (map_HW <= 0 || M % (map_F * map_HW))) return (int)bad;
   if (map_kind == MAP_A && rows_per_sample % (map_F * map_HW)) return (int)bad;
-  // the head's permute as a TMA box, or in the prologue pass (gather)
-  const bool gather = map_kind == MAP_A && (BM % map_F || map_HW % (BM / map_F));
+  // a frame map as a TMA box where 128 / F positions tile the clip: the
+  // head's A box, the tail's output and residual boxes (ping-pong)
+  const bool box = map && BM % map_F == 0 && map_HW % (BM / map_F) == 0;
+  const bool gather = map_kind == MAP_A && !box;  // else the head's permute in the prologue pass
   if (map_kind == MAP_OUT && mode != 1) return (int)bad;
   if (mode == 1 && R == nullptr) return (int)bad;
   if (mode == 2 && (N / 2) % (block_n / 2)) return (int)bad;
   const int stage_bytes = A_BYTES + block_n * BK * 2;
-  const int smem = stages * stage_bytes + epilogue_bytes(block_n) + 2 * stages * 8 + SMEM_ALIGN;
+  const int smem = pingpong ? stages * stage_bytes + 2 * pp_out_bytes(block_n) + (2 * stages + 4) * 8 + SMEM_ALIGN
+                            : stages * stage_bytes + epilogue_bytes(block_n) + 2 * stages * 8 + SMEM_ALIGN;
   if (stages < 2 || smem > SMEM_MAX) return (int)bad;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -488,8 +780,68 @@ extern "C" int ds_ln_gemm(const void* X, int M, int K, const void* ln_w, const v
   p.k_tiles = (K + BK - 1) / BK; p.stages = stages;
   p.bias = static_cast<const float*>(bias); p.R = static_cast<const bf16*>(R); p.Y = static_cast<bf16*>(Y);
   cudaError_t e;
-  if (block_n == 256) e = launch<256>(ta, tb, p, smem, s);
-  else if (block_n == 128) e = launch<128>(ta, tb, p, smem, s);
-  else e = launch<64>(ta, tb, p, smem, s);
-  return (int)e;
+  if (!pingpong) {
+    if (block_n == 256) e = launch<256>(ta, tb, p, smem, s);
+    else if (block_n == 128) e = launch<128>(ta, tb, p, smem, s);
+    else e = launch<64>(ta, tb, p, smem, s);
+    return (int)e;
+  }
+  // the output tile's maps (Y, and R in mode 1): 64-column boxes of 128 rows,
+  // or under MAP_OUT the 3-D box {64, hb, F} over [B*F, HW, N_out]; where no
+  // box fits the clip the rows leave one by one
+  const int n_out = mode == 2 ? N / 2 : N;
+  p.out_tma = map_kind != MAP_OUT || box;
+  if (map_kind == MAP_OUT && box) p.map_hb = BM / map_F;
+  CUtensorMap ty{}, tr{};
+  if (p.out_tma) {
+    if (map_kind == MAP_OUT) {
+      const cuuint64_t dims[3] = {(cuuint64_t)n_out, (cuuint64_t)map_HW, (cuuint64_t)(M / map_HW)};
+      const cuuint64_t strides[2] = {(cuuint64_t)n_out * 2, (cuuint64_t)map_HW * n_out * 2};
+      const cuuint32_t obox[3] = {64, (cuuint32_t)(BM / map_F), (cuuint32_t)map_F};
+      ok = make_map(&ty, Y, 3, dims, strides, obox) && make_map(&tr, R, 3, dims, strides, obox);
+    } else {
+      const cuuint64_t dims[2] = {(cuuint64_t)n_out, (cuuint64_t)M};
+      const cuuint64_t strides[1] = {(cuuint64_t)n_out * 2};
+      const cuuint32_t obox[2] = {64, BM};
+      ok = make_map(&ty, Y, 2, dims, strides, obox) && (mode != 1 || make_map(&tr, R, 2, dims, strides, obox));
+    }
+    if (!ok) return (int)bad;
+  }
+  return (int)launch_pingpong(ta, tb, tr, ty, p, smem, s);
+}
+
+}  // namespace
+
+// Combinations (the others return cudaErrorInvalidValue, and cuda_lib.ln_gemm
+// refuses them first): LN prologue with mode 0, 1 or 2; GN prologue with mode
+// 0 (frame map of A optional); no prologue with mode 0, 1 or 2 (frame map of
+// the output optional in mode 1). Shapes: K % 8 == 0, N % 8 == 0 (mode 2: N/2 a
+// multiple of block_n/2); pointers 16-byte aligned and row-contiguous; with
+// gn_mul, M % rows_per_sample == 0 and mul/add are [M / rows_per_sample, K];
+// with a frame map (map_F > 0), M % (map_F * map_HW) == 0, and for the A map
+// (the GroupNorm head) whole clips a sample (rows_per_sample % (map_F *
+// map_HW) == 0). The A map reads each 128-row tile as one 3-D TMA box of 128
+// / F positions x F frames where that box fits a clip (128 % F == 0 and
+// map_HW % (128 / F) == 0: 40x64 and every UNet level of it); at any other F
+// or H*W (a 40x40 latent's 10x10 and 5x5 levels, 384x384's 6x6) the
+// prologue pass writes the normalised rows already permuted to logical
+// order, and the GEMM reads them with the plain 2-D box. scratch: bf16 [M, K]
+// for the prologue's output (LN or GN).
+// block_n (64, 128 or 256) and stages from cuda_lib.gemm_tile.
+extern "C" int ds_ln_gemm(const void* X, int M, int K, const void* ln_w, const void* ln_b, float eps,
+                          const void* gn_mul, const void* gn_add, int rows_per_sample, int map_F, int map_HW,
+                          const void* W, int N, const void* bias, const void* R, void* Y, int mode,
+                          void* scratch, int block_n, int stages, void* stream) {
+  return run(X, M, K, ln_w, ln_b, eps, gn_mul, gn_add, rows_per_sample, map_F, map_HW, W, N, bias, R, Y, mode,
+             scratch, block_n, stages, false, stream);
+}
+
+// The same GEMM on the ping-pong schedule: ds_ln_gemm's arguments and
+// combinations; block_n 128 (a warpgroup's tile 128 x 128).
+extern "C" int ds_ln_gemm_pingpong(const void* X, int M, int K, const void* ln_w, const void* ln_b, float eps,
+                                   const void* gn_mul, const void* gn_add, int rows_per_sample, int map_F,
+                                   int map_HW, const void* W, int N, const void* bias, const void* R, void* Y,
+                                   int mode, void* scratch, int block_n, int stages, void* stream) {
+  return run(X, M, K, ln_w, ln_b, eps, gn_mul, gn_add, rows_per_sample, map_F, map_HW, W, N, bias, R, Y, mode,
+             scratch, block_n, stages, true, stream);
 }

@@ -4,7 +4,8 @@
 // ds_flash_attention_f32 and temporal_f32.cu: kernels 10 and 12 on tf32
 // wgmma): mbarriers
 // (local and across a thread-block cluster), TMA tile copies (plain and
-// multicast to a cluster), wgmma descriptors and instructions, the tf32
+// multicast to a cluster, and shared -> global stores in bulk groups), named
+// barriers, wgmma descriptors and instructions, the tf32
 // split and its three-product mma.sync (kernels 10 and 12's and
 // ds_temporal_attention_f32's F-frame attention), cp.async, and the host-side
 // tensor-map encoder.
@@ -159,6 +160,40 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%2];\n" ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// Shared -> global tile copies (the box of `map` at these coordinates; rows
+// or columns past the tensor's edge are not written), tracked as bulk groups
+// of the issuing thread.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- named barriers -----------------------------------------------------------------
+
+// Barrier `id` (1-15; 0 is __syncthreads) completes when `n` threads have
+// reached it, counting both kinds: bar_sync waits for that, bar_arrive does not.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // ---- wgmma ------------------------------------------------------------------------

@@ -63,6 +63,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "ds_ln_gemm": (_P, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P),
+    "ds_ln_gemm_pingpong": (_P, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P),
     "ds_ln_gemm_f32": (_P, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P),
     "ds_tf32_split": (_P, _L, _P, _P),
     "ds_gn_silu": (_P, _I, _L, _I, _P, _P, _I, _P, _I, _P),
@@ -296,28 +297,53 @@ class PackCache:
 MODE_STORE, MODE_RESIDUAL, MODE_GEGLU = 0, 1, 2
 
 # ds_ln_gemm's tile (csrc/gemm.cu): 128 rows x BN columns a tile, K in steps
-# of 64 through a ring of `stages` (A, B) tiles in shared memory, beside the
-# epilogue's bf16 staging tile; a persistent grid of one block per SM (132).
+# of 64 through a ring of `stages` (A, B) tiles in shared memory; a persistent
+# grid of one block per SM (132). Two schedules of its two consumer
+# warpgroups: "cooperative" (64 rows of every tile each, BN 64, 128 or 256,
+# beside one bf16 staging tile of 128 rows of BN + 8) and "pingpong" (whole
+# 128 x 128 tiles in turn, each warpgroup's epilogue under the other's
+# products; each warpgroup's bf16 output tile beside the ring, and two more
+# mbarriers a warpgroup).
 GEMM_BM, GEMM_BK, GEMM_SMS = 128, 64, 132
-GEMM_BLOCK_N = (256, 128, 64)
+GEMM_BLOCK_N = {"cooperative": (256, 128, 64), "pingpong": (128,)}
 GEMM_SMEM_MAX = 232448  # bytes of shared memory a block may have on the H100
 GEMM_MAX_STAGES = 8
-# relative time per output column of a tile at each BN (the narrower tiles
-# read more shared memory per product)
-_GEMM_COLUMN_COST = {256: 1.0, 128: 1.08, 64: 1.3}
+# the C entry point of each schedule
+_GEMM_ENTRY = {"cooperative": "ds_ln_gemm", "pingpong": "ds_ln_gemm_pingpong"}
+# A round of tiles over the SMs at each (schedule, BN): the products take
+# K * per_k microseconds a tile and the epilogue per_tile[mode] (store,
+# residual, GEGLU). A cooperative tile takes their sum: both warpgroups run
+# the epilogue and no product is issued meanwhile. A ping-pong warpgroup's
+# epilogue runs under the other's products, so two tiles take the larger of
+# two products and one product plus one epilogue. Least squares (relative)
+# on the H100's times of every GEMM shape of the batch-8 i2v forward at each
+# choice, the prologue pass taken off (chip_smoke.py phase 3 and a run of
+# every BN of both schedules).
+_GEMM_TILE_COST = {
+    ("cooperative", 256): (0.01302, (4.785, 14.04, 4.717)),
+    ("cooperative", 128): (0.00798, (2.518, 6.964, 2.498)),
+    ("cooperative", 64): (0.00568, (1.437, 3.895, 1.388)),
+    ("pingpong", 128): (0.0094, (5.596, 7.905, 6.634)),
+}
 
 
 class GemmTile(NamedTuple):
     block_n: int
     stages: int
     smem: int  # dynamic shared memory bytes, the 1024-byte alignment pad included
+    schedule: str = "cooperative"
 
 
-def gemm_smem(block_n: int, stages: int) -> int:
+def gemm_smem(block_n: int, stages: int, schedule: str = "cooperative") -> int:
     """Shared memory of a ``ds_ln_gemm`` block, as ``csrc/gemm.cu`` reckons
-    it: the ring, the epilogue's bf16 staging tile (128 rows of block_n + 8),
-    two mbarriers a stage and the alignment pad."""
-    return stages * (GEMM_BM + block_n) * GEMM_BK * 2 + GEMM_BM * (block_n + 8) * 2 + 16 * stages + 1024
+    it: the ring and the alignment pad; cooperative: the epilogue's bf16
+    staging tile (128 rows of block_n + 8) and two mbarriers a stage;
+    ping-pong: each warpgroup's output tile (128 x block_n bf16) and two
+    mbarriers a stage and two a warpgroup."""
+    ring = stages * (GEMM_BM + block_n) * GEMM_BK * 2 + 1024
+    if schedule == "pingpong":
+        return ring + 2 * GEMM_BM * block_n * 2 + 8 * (2 * stages + 4)
+    return ring + GEMM_BM * (block_n + 8) * 2 + 16 * stages
 
 
 # ds_ln_gemm_f32's tile (csrc/gemm_f32.cu): 128 rows x BN columns a tile, K in
@@ -394,22 +420,26 @@ def flash_grid(B: int, Nq: int, heads: int) -> int:
     return min(B * heads * -(-Nq // FLASH_F32_BQ), GEMM_SMS)
 
 
-def gemm_tile(M: int, K: int, N: int, mode: int = MODE_STORE) -> GemmTile:
-    """The tile of ``ds_ln_gemm`` at [M, K] x [N, K]: the BN whose rounds of
-    tiles over the 132 SMs take least time by :data:`_GEMM_COLUMN_COST`
-    (the GEGLU epilogue pairs value and gate columns, so there BN / 2 must
-    divide N / 2), then as many ring stages as K has steps and shared memory
-    holds (at least 2)."""
-    cands = [bn for bn in GEMM_BLOCK_N if mode != MODE_GEGLU or (N // 2) % (bn // 2) == 0]
+def gemm_tile(M: int, K: int, N: int, mode: int = MODE_STORE, schedule: str | None = None) -> GemmTile:
+    """The tile of ``ds_ln_gemm`` at [M, K] x [N, K]: the schedule and BN
+    whose rounds of tiles over the 132 SMs take least time by
+    :data:`_GEMM_TILE_COST` (GEGLU pairs value and gate columns, so there BN /
+    2 must divide N / 2), then as many ring stages as K has steps and shared
+    memory holds (at least 2). ``schedule`` fixes the schedule (chip_smoke.py
+    times the one not chosen)."""
+    cands = [(sched, bn) for sched, widths in GEMM_BLOCK_N.items() if schedule in (None, sched) for bn in widths
+             if mode != MODE_GEGLU or (N // 2) % (bn // 2) == 0]
     m_tiles = -(-M // GEMM_BM)
 
-    def cost(bn):
-        n_tiles = N // bn if mode == MODE_GEGLU else -(-N // bn)
-        return -(-m_tiles * n_tiles // GEMM_SMS) * bn * _GEMM_COLUMN_COST[bn]
-    bn = min(cands, key=cost)
-    fit = max(s for s in range(2, GEMM_MAX_STAGES + 1) if gemm_smem(bn, s) <= GEMM_SMEM_MAX)
+    def cost(c):
+        per_k, per_tile = _GEMM_TILE_COST[c]
+        products, epilogue = K * per_k, per_tile[mode]
+        tile = max(products, (products + epilogue) / 2) if c[0] == "pingpong" else products + epilogue
+        return -(-m_tiles * gemm_n_tiles(N, c[1], mode) // GEMM_SMS) * tile
+    sched, bn = min(cands, key=cost)
+    fit = max(s for s in range(2, GEMM_MAX_STAGES + 1) if gemm_smem(bn, s, sched) <= GEMM_SMEM_MAX)
     stages = max(2, min(fit, -(-K // GEMM_BK)))
-    return GemmTile(bn, stages, gemm_smem(bn, stages))
+    return GemmTile(bn, stages, gemm_smem(bn, stages, sched), sched)
 
 
 # ds_temporal_block_f32 / ds_temporal_mega_f32's tile (csrc/temporal_f32.cu):
@@ -966,7 +996,8 @@ def _check_ln_gemm(M, K, N, *, ln, gn, rows_per_sample, frame_map, residual, mod
 
 def ln_gemm(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, frame_map=None, bias=None,
             residual=None, mode=MODE_STORE):
-    """Launch ``csrc/gemm.cu::ds_ln_gemm`` (bf16) or
+    """Launch ``csrc/gemm.cu::ds_ln_gemm`` or ``ds_ln_gemm_pingpong`` (bf16,
+    the schedule :func:`gemm_tile` picks, counted in ``ln_gemm.launches``) or
     ``csrc/gemm_f32.cu::ds_ln_gemm_f32`` (fp32), by the activation type:
     ``epilogue(prologue(x2d) @ w.T)``.
 
@@ -1009,11 +1040,18 @@ def ln_gemm(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, frame_map=
     if dt == torch.float32:
         name, tile, w = "ds_ln_gemm_f32", gemm_f32_tile(M, K, N, mode), tf32_split_weights(w)
     else:
-        name, tile = "ds_ln_gemm", gemm_tile(M, K, N, mode)
+        tile = gemm_tile(M, K, N, mode)
+        name = _GEMM_ENTRY[tile.schedule]
     call(
         name, ptr(x2d), M, K, ptr(ln[0] if ln else None), ptr(ln[1] if ln else None),
         float(eps), ptr(gn[0] if gn else None), ptr(gn[1] if gn else None), int(rows_per_sample),
         int(map_f), int(map_hw), ptr(w), N, ptr(bias), ptr(residual), ptr(y), mode, ptr(scratch),
         tile.block_n, tile.stages,
     )
+    if dt != torch.float32:
+        ln_gemm.launches[tile.schedule] += 1
     return y
+
+
+# bf16 launches by schedule (the fp32 kernel has one)
+ln_gemm.launches = dict.fromkeys(GEMM_BLOCK_N, 0)

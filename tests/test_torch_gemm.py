@@ -11,8 +11,10 @@ JAX package's Pallas kernels in interpret mode: LN -> GEGLU then FF2 +
 residual against K4 (``fused_temporal.py:350``), the GroupNorm head with the
 A row map against ``_head_temporal`` (``fused_twrap.py:150``) and the tail
 with the output row map against ``_tail_temporal`` (``:193``). Also: the
-tile chooser at every GEMM shape of the full-width i2v batch-8 forward, the
-combinations ``ln_gemm`` refuses before a launch, and its CPU routing.
+tile chooser (schedule, tile, shared memory as gemm.cu lays it out) at every
+GEMM shape of the full-width batch-8 i2v and t2v forwards, the launch count
+by schedule, the combinations ``ln_gemm`` refuses before a launch, and its
+CPU routing.
 
 Tolerances: fp32 against float64 numpy and against the JAX kernels, rtol
 1e-5 with an absolute floor of 1e-5 of the output's largest magnitude (the
@@ -181,11 +183,12 @@ def test_gn_head_and_tail_with_row_maps_match_pallas(rng, interpret, B, F, H, W,
     _close(tt.reshape(x5.shape), jt)
 
 
-def _i2v_gemms(side, C):
+def _forward_gemms(side, C, kind="i2v"):
     """Every ds_ln_gemm call (M, K, N, mode, kwargs of the prologue and map)
-    of the full-width i2v UNet's transformers at plan key (side, C), batch
-    8, 16 frames, a 40x64 latent, at every level the plan can route them to:
-    the wrapper head and tail, the sub-block GEMMs, the context K/V per clip."""
+    of the full-width UNet's transformers at plan key (side, C), batch 8, 16
+    frames, a 40x64 latent, at every level the plan can route them to: the
+    wrapper head and tail, the sub-block GEMMs, the context K/V per clip
+    (the image tokens' only in i2v; the t2v UNet has the same widths)."""
     calls = []
     for s, c, inner, _, H, W in i2v_transformers():
         if (s, inner) != (side, C):
@@ -199,29 +202,84 @@ def _i2v_gemms(side, C):
                   (T, inner, 8 * inner, MODE_GEGLU, ln), (T, 4 * inner, inner, MODE_RESIDUAL, {}),
                   (T, inner, c, MODE_RESIDUAL, {"frame_map": (16, HW)} if side == "t" else {})]
         if side == "s":
-            calls += [(T, inner, inner, MODE_STORE, ln), (8 * 77, 1024, 2 * inner, MODE_STORE, {}),
-                      (8 * 16, 1024, 2 * inner, MODE_STORE, {})]
+            calls += [(T, inner, inner, MODE_STORE, ln), (8 * 77, 1024, 2 * inner, MODE_STORE, {})]
+            if kind == "i2v":
+                calls.append((8 * 16, 1024, 2 * inner, MODE_STORE, {}))
     return calls
 
 
-@pytest.mark.parametrize("side,C", [("t", 320), ("t", 512), ("t", 640), ("t", 1280), ("s", 320), ("s", 640),
-                                    ("s", 1280)])
-def test_gemm_tile_fits_every_forward_shape(side, C):
-    """Every GEMM shape of the full-width batch-8 i2v forward at (side, C) is
-    a combination ln_gemm takes and maps to a legal tile (BN 64, 128 or 256;
-    GEGLU pairs value and gate columns within a tile) whose shared memory
-    fits in the H100's 227 KB a block."""
-    calls = _i2v_gemms(side, C)
+def _smem_reckoned(schedule, bn, stages):
+    """A ds_ln_gemm block's shared memory as csrc/gemm.cu lays it out: the
+    1024-byte alignment pad, the ring (A 128 x 64 and B bn x 64 bf16 a
+    stage, full and empty mbarriers); cooperative: one bf16 staging tile of
+    128 rows of bn + 8; ping-pong: each warpgroup's 128 x bn bf16 output tile
+    (where the residual tile lands too) and its residual and output-free
+    mbarriers."""
+    ring = stages * (128 * 64 * 2 + bn * 64 * 2)
+    if schedule == "pingpong":
+        return 1024 + ring + 2 * (128 * bn * 2) + 8 * (2 * stages + 2 * 2)
+    return 1024 + ring + 128 * (bn + 8) * 2 + 8 * (2 * stages)
+
+
+_SIDES = [("t", 320), ("t", 512), ("t", 640), ("t", 1280), ("s", 320), ("s", 640), ("s", 1280)]
+
+
+@pytest.mark.parametrize("side,C,kind", [pytest.param(s, c, "i2v", id=f"{s}-{c}") for s, c in _SIDES]
+                         + [pytest.param(s, c, "t2v", id=f"t2v-{s}-{c}") for s, c in _SIDES])
+def test_gemm_tile_fits_every_forward_shape(side, C, kind):
+    """Every GEMM shape of the full-width batch-8 i2v (and t2v) forward at
+    (side, C) is a combination ln_gemm takes and maps to a named schedule
+    with a legal tile (cooperative BN 64, 128 or 256, ping-pong BN 128;
+    GEGLU pairs value and gate columns within a tile) whose shared memory,
+    reckoned as gemm.cu lays it out, fits in the H100's 232,448 bytes a
+    block; the planner's choice within either schedule fits too."""
+    calls = _forward_gemms(side, C, kind)
     assert calls
     for M, K, N, mode, opts in calls:
         cuda_lib._check_ln_gemm(M, K, N, ln=(1, 1) if opts.get("ln") else None,
                                 gn=(1, 1) if opts.get("gn") else None,
                                 rows_per_sample=opts.get("rows_per_sample", 0), frame_map=opts.get("frame_map"),
                                 residual=1 if mode == MODE_RESIDUAL else None, mode=mode)
-        tile = cuda_lib.gemm_tile(M, K, N, mode)
-        assert tile.block_n in (64, 128, 256) and 2 <= tile.stages <= cuda_lib.GEMM_MAX_STAGES
-        assert tile.smem == cuda_lib.gemm_smem(tile.block_n, tile.stages) <= 227 * 1024
-        assert mode != MODE_GEGLU or (N // 2) % (tile.block_n // 2) == 0
+        chosen = cuda_lib.gemm_tile(M, K, N, mode)
+        tiles = [cuda_lib.gemm_tile(M, K, N, mode, schedule=s) for s in ("cooperative", "pingpong")]
+        assert chosen in tiles
+        for tile, schedule in zip(tiles, ("cooperative", "pingpong")):
+            assert tile.schedule == schedule
+            assert tile.block_n in cuda_lib.GEMM_BLOCK_N[schedule] and 2 <= tile.stages <= cuda_lib.GEMM_MAX_STAGES
+            assert tile.smem == cuda_lib.gemm_smem(tile.block_n, tile.stages, schedule) \
+                == _smem_reckoned(schedule, tile.block_n, tile.stages) <= 232448
+            assert mode != MODE_GEGLU or (N // 2) % (tile.block_n // 2) == 0
+
+
+@pytest.mark.parametrize("M,K,N,mode,schedule", [
+    (327680, 320, 320, MODE_RESIDUAL, "pingpong"),
+    (81920, 640, 640, MODE_STORE, "pingpong"),
+    (327680, 320, 2560, MODE_GEGLU, "cooperative"),
+    (5120, 5120, 1280, MODE_RESIDUAL, "cooperative"),
+])
+def test_ln_gemm_counts_launches_by_schedule(monkeypatch, M, K, N, mode, schedule):
+    """``ln_gemm`` launches the planner's schedule through its C entry point
+    (``ds_ln_gemm`` cooperative, ``ds_ln_gemm_pingpong``) with its tile, and
+    counts the launch under that schedule in ``ln_gemm.launches``;
+    ``cuda_lib.call`` stubbed, so the operands stay on the CPU (a few rows
+    stand for M: the planner and the launch read only the shapes)."""
+    tile = cuda_lib.gemm_tile(M, K, N, mode)
+    assert tile.schedule == schedule
+    calls = []
+    monkeypatch.setattr(cuda_lib, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(cuda_lib, "check_operand", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_lib, "call", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(cuda_lib.ln_gemm, "launches", {"cooperative": 3, "pingpong": 5})
+    monkeypatch.setattr(cuda_lib, "gemm_tile", lambda *a, **k: tile)  # the plan of the full shape
+    x, w = torch.zeros(128, K, dtype=torch.bfloat16), torch.zeros(N, K, dtype=torch.bfloat16)
+    res = torch.zeros(128, N, dtype=torch.bfloat16) if mode == MODE_RESIDUAL else None
+    for _ in range(2):
+        ln_gemm(x, w, residual=res, mode=mode)
+    assert [name for name, _ in calls] == [{"cooperative": "ds_ln_gemm", "pingpong": "ds_ln_gemm_pingpong"}[schedule]] * 2
+    assert all(args[-2:] == (tile.block_n, tile.stages) for _, args in calls)
+    want = {"cooperative": 3, "pingpong": 5}
+    want[schedule] += 2
+    assert cuda_lib.ln_gemm.launches == want
 
 
 @pytest.mark.parametrize("F,HW", [(16, 25), (16, 36), (16, 100), (8, 25), (8, 36), (8, 100), (3, 32), (16, 12)])
