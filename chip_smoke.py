@@ -228,6 +228,22 @@ Phases, in order, one result line each (any failure exits non-zero):
    gating, residual attention and cross-attention with a context mask (the
    CPU keeps the logits the card's top-k kept; a row where they differ must
    be a tie within fp32 rounding).
+14. DynamiCrafter 1024 (``config.dynamicrafter_i2v_1024``): the full-width
+   bundle with seeded random bf16 weights (zero-initialised layers
+   perturbed); one UNet forward at batch 8 (16 frames, 72x128 latent, 8
+   input channels, a 333-token context: 16 image tokens a frame) through
+   the kernels, with exact launch counts (``expected_launches`` at 72x128)
+   and a device-time profile by kernel class, against the plain versions
+   on rows 0 and 7 (the plain spatial attention of a whole batch-8 forward
+   at 9216 tokens would hold 43 GB of logits a head); every kernel call of
+   the forward at a shape no earlier phase held against its plain version
+   with phase 3's gates (K2 and FA at 9216 tokens on one clip's 16 rows);
+   the flash table (``ds_flash_attention`` at every recorded shape of the
+   forward: ms, TFLOP/s, share of 989, bound, one SDPA call a key segment);
+   phase 3's GEMM table at the forward's ``ds_ln_gemm`` shapes (M up to
+   1,179,648 rows); and the transformer levels at 72x128 against
+   ``PLAN_DEFAULT``. ``python3 chip_smoke.py --phase 14`` runs phases 1 and
+   14 alone.
 
 Then one JSON line of kernel records (K1-K13, TA, FA, GN; ``launches`` is
 the sum over the paths: the three samplers, the gen_pano_360 CLI, the
@@ -250,6 +266,7 @@ import dataclasses
 import http.client
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -504,6 +521,7 @@ def main() -> None:
         for k, e in aux_errs[dt].items():
             recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], e)
     _phase_xtransformer()
+    paths[DC_FWD] = _phase_dynamicrafter(held)
 
     kernels = [
         {"name": f"{k} {desc}", "route": "cuda", "source": src, "replaces": rep,
@@ -1904,7 +1922,7 @@ def _prologue_ms(x, w, kw, ms):
     return ms - _time_ms(lambda: cuda_lib.ln_gemm(x, w, **bare), 10)
 
 
-def _phase_gemms(calls, dt=BF, phase="phase 3"):
+def _phase_gemms(calls, dt=BF, phase="phase 3", where=None):
     """The GEMM table: every distinct ds_ln_gemm call of a batch-8 i2v
     forward against ln_gemm_plain, bf16 (``calls`` of the phase-2 forward)
     or fp32 (``ds_ln_gemm_f32``, the phase-10 forward's). Gates: in bf16 max
@@ -1925,7 +1943,7 @@ def _phase_gemms(calls, dt=BF, phase="phase 3"):
     rn = _gen()
     fp32 = dt == F32
     peak = PEAK_TF32X3 if fp32 else PEAK_BF16
-    where = FP32_I2V if fp32 else I2V_FWD
+    where = where or (FP32_I2V if fp32 else I2V_FWD)
     bad, low = [], []
     tot = collections.Counter()
     for key, n in sorted(calls.items(), key=lambda kv: -kv[0][0][0] * kv[0][0][1] * kv[0][1][0]):
@@ -2057,7 +2075,7 @@ def _legal_levels(side, C, inner, heads, H, W, Dc=1024):
     return [lvl for lvl, ok in zip(LEVEL_NAMES, (*gates, True)) if ok]
 
 
-def _phase_levels(cfg, dtype=BF, sides=("t", "s"), phase="phase 3"):
+def _phase_levels(cfg, dtype=BF, sides=("t", "s"), phase="phase 3", hw=(40, 64)):
     """The plan levels (phase 3 in bf16; phase 10 in fp32): the transformer
     module in ``dtype`` at every legal level at every
     (side, width) of ``sides`` in the batch-8 i2v forward (the width of
@@ -2067,7 +2085,7 @@ def _phase_levels(cfg, dtype=BF, sides=("t", "s"), phase="phase 3"):
     whether the type's table (PLAN_DEFAULT in bf16, PLAN_DEFAULT_F32 in
     fp32) still names each key's fastest level (a key where another level
     was faster by more than 5% is named)."""
-    shapes = collections.Counter(sh for sh in unet_transformers(cfg, 40, 64) if sh[0] in sides)
+    shapes = collections.Counter(sh for sh in unet_transformers(cfg, *hw) if sh[0] in sides)
     sums = collections.defaultdict(collections.Counter)  # plan key -> level -> ms per forward
     for (side, C, inner, heads, H, W), calls in sorted(shapes.items()):
         call = _level_module(side, C, inner, heads, H, W, dtype=dtype)
@@ -3888,5 +3906,144 @@ def _phase_xtransformer():
         _fail(f"phase 13: the card's fp32 x-transformer disagrees with the CPU: {bad}")
     print(f"phase 13 ok: x-transformer in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+# ---------------------------------------------------------------------------
+# phase 14: DynamiCrafter 1024 at its 72x128 latent
+# ---------------------------------------------------------------------------
+
+DC_FWD = "DynamiCrafter UNet fwd batch 8, 72x128"
+DC_LOGITS_MAX = 8 << 30  # bytes of one head's fp32 logits a plain attention may hold
+
+
+def _dc_slice(key, B, rows=16):
+    """A recorded K2 / FA call whose plain version's logits would pass
+    ``DC_LOGITS_MAX``, cut to its first ``rows`` batch rows (one clip)."""
+    k, pos, opts = key
+    q = pos[0][0]
+    if k not in ("K2", "FA") or q[0] * q[1] * q[1] * 4 <= DC_LOGITS_MAX:
+        return key
+
+    def cut(d):
+        if isinstance(d, tuple) and len(d) == 2 and isinstance(d[0], tuple) and len(d[0]) == 3 and d[0][0] == B:
+            return ((rows,) + d[0][1:], d[1])
+        return d
+    return k, tuple(cut(d) for d in pos), opts
+
+
+def _flash_table(calls):
+    """``ds_flash_attention`` at every recorded shape of ``calls``: ms,
+    TFLOP/s, share of 989, the bound (operations over 989 TFLOP/s or q, the
+    keys, values and output once over 3.35 TB/s) and one SDPA call a key
+    segment on the same operands."""
+    rn = _gen()
+    tot = collections.Counter()
+    for key, n in sorted(calls.items(), key=str):
+        if key[0] != "FA":
+            continue
+        k, pos, opts = key
+        case = _case(k, pos, dict(opts), rn)
+        ms, lib_ms = _time_ms(case.run, 5), _time_ms(case.library, 5)
+        shapes = [d[0] for d in key[1] if isinstance(d, tuple) and len(d) == 2 and isinstance(d[0], tuple)]
+        nbytes = 2 * (sum(math.prod(sh) for sh in shapes) + math.prod(shapes[0]))  # the output is q's shape
+        bound = max(case.flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+        print(f"phase 14 flash {case.desc} x{n} per forward: kernel {ms:.3f} ms ({case.flops / ms / 1e9:.0f} "
+              f"TFLOP/s, {100 * case.flops / (ms * 1e-3) / PEAK_BF16:.1f}% of 989) bound {bound:.4f} ms "
+              f"({100 * bound / ms:.1f}% of it) SDPA {lib_ms:.3f} ms", flush=True)
+        tot["ms"] += n * ms
+        tot["lib"] += n * lib_ms
+        tot["bound"] += n * bound
+        del case
+    torch.cuda.empty_cache()
+    print(f"phase 14 flash sums per {DC_FWD}: kernel {tot['ms']:.2f} ms, SDPA {tot['lib']:.2f} ms, "
+          f"bound {tot['bound']:.2f} ms", flush=True)
+
+
+def _phase_dynamicrafter(held):
+    """Phase 14 (see the module docstring). Returns the forward's launches."""
+    from dynamicscaler_tpu_torch.config import dynamicrafter_i2v_1024
+    from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
+    from dynamicscaler_tpu_torch.utils.tokenizer import HashTokenizer
+    from dynamicscaler_tpu_torch.utils.weights import perturb_zero_params
+
+    t0 = time.perf_counter()
+    cfg = dynamicrafter_i2v_1024()
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    model = LatentVideoDiffusion.init_random(cfg, gen, tokenizer=HashTokenizer())
+    perturb_zero_params(model.unet, gen)
+    n = sum(p.numel() for _, m in model.components() for p in m.parameters())
+    print(f"phase 14 model dynamicrafter_1024: {n / 1e9:.3f}B random bf16 weights in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    B, Fn, H, W = 8, 16, 72, 128
+    L = cfg.unet.text_context_len + Fn * cfg.unet.image_tokens_per_frame
+    g = torch.Generator(device=DEV).manual_seed(15)
+    x = torch.randn((B, Fn, H, W, cfg.unet.in_channels), generator=g, device=DEV)
+    ctx = torch.randn((B, L, cfg.unet.context_dim), generator=g, device=DEV)
+    t = torch.full((B,), 999, device=DEV)
+
+    def fwd(rows=slice(None)):
+        return model.apply_unet(x[rows], t[rows], ctx[rows], 10)
+    calls = collections.Counter()
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with _recording(calls), _recording_gemms(GEMM_SITES.setdefault(DC_FWD, collections.Counter())):
+        got = fwd()
+    torch.cuda.synchronize()
+    launches, want = _launches(), expected_launches(cfg.unet, H, W, Fn)
+    peak = torch.cuda.max_memory_allocated()
+    ms = _wall_ms(fwd, 2)
+    rels = []
+    with cuda_lib.plain_kernels():
+        for r in (0, B - 1):
+            ref = fwd(slice(r, r + 1))
+            rels.append(float((got[r:r + 1].float() - ref.float()).norm() / ref.float().norm()))
+            del ref
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(got).all())
+    print(f"phase 14 {DC_FWD}: x [{B},{Fn},{H},{W},{cfg.unet.in_channels}] ctx [{B},{L},1024] -> "
+          f"{tuple(got.shape)}: rel_l2 rows 0 / {B - 1} {rels[0]:.5f} / {rels[1]:.5f} (tol {TOL_PATH_REL_L2}) "
+          f"|v| mean {float(got.abs().mean()):.4f} kernels {ms:.1f} ms peak memory {peak / 2**30:.2f} GiB "
+          f"launches {launches}", flush=True)
+    del got
+    if not finite or max(rels) > TOL_PATH_REL_L2:
+        _fail(f"{DC_FWD}: the kernel path disagrees with the plain path: rel_l2 {rels} finite {finite}")
+    if launches != want:
+        _fail(f"{DC_FWD}: launch counts {launches} != {want}")
+    _profile_forward(DC_FWD, fwd, ms, phase="phase 14")
+    torch.cuda.empty_cache()
+    sliced = collections.Counter()
+    for key, k_n in calls.items():
+        sliced[_dc_slice(key, B * Fn)] += k_n
+    errs = _hold_new_shapes(sliced, held, "phase 14")
+    _flash_table(calls)
+    _phase_gemms(GEMM_SITES[DC_FWD], phase="phase 14", where=DC_FWD)
+    del model, x, ctx
+    torch.cuda.empty_cache()
+    _phase_levels(cfg.unet, phase="phase 14", hw=(H, W))
+    print(f"phase 14 ok: largest errors at new shapes {errs}", flush=True)
+    return launches
+
+
+def _only(phase: str) -> None:
+    """``--phase 14``: phase 1's build, then phase 14 alone."""
+    if phase != "14":
+        _fail(f"--phase {phase}: only 14 runs alone")
+    if not torch.cuda.is_available():
+        _fail("no CUDA device: the port's smoke run needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    lib = cuda_lib.build(verbose=True)
+    cuda_lib.library()
+    print(f"phase 1 ok: built {lib.relative_to(cuda_lib.REPO_ROOT)} in {time.perf_counter() - t0:.1f} s "
+          f"on {torch.cuda.get_device_name(0)} [{smi}]", flush=True)
+    _phase_dynamicrafter(set())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase":
+        _only(sys.argv[2])
+    else:
+        main()

@@ -19,6 +19,14 @@ wall seconds and steady s/step in ``<out_dir>/e2e.json``.
     python -m dynamicscaler_tpu_torch.cli.gen_pano_360 --dev_full_random true --data_parallel_devices 4
     python -m dynamicscaler_tpu_torch.cli.gen_pano_360 --dev_tiny true --pano_image_path pano.png
 
+``--model`` names the preset (``config.PRESETS``): ``videocrafter_i2v_512``
+(the default) or ``dynamicrafter_1024``, DynamiCrafter's 1024 model, whose
+checkpoint has the same names (``--ckpt_path``). For the latter the flags
+the user does not give take DynamiCrafter's published values
+(``MODEL_DEFAULTS``: 576 x 1024 windows on a 2048 x 1024 panorama, frame
+stride 10 on ``--fps``, ``--guidance_rescale`` 0.7); its hybrid
+conditioning joins the panorama's latent to every view and window row.
+
 The model runs on the CUDA card in bf16 (``--dtype bfloat16``, the
 default) or fp32 (``--dtype float32``: the fp32 kernels, with TF32 switched
 off for cuDNN's convolutions and PyTorch's matrix products);
@@ -42,6 +50,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -58,6 +67,13 @@ DEFAULT_PHI_PROMPT = {
     -60: "green blue ocean with waves",
     -75: "green blue ocean water",
     -90: "green blue ocean water",
+}
+
+
+# the flags a preset sets where the command line does not give them
+MODEL_DEFAULTS = {
+    "dynamicrafter_1024": dict(height=576, width=1024, fps=10, equirect_width=2048, equirect_height=1024,
+                               guidance_rescale=0.7),
 }
 
 
@@ -117,6 +133,9 @@ class VArgs:
     profile_dir: str = ""  # write a torch.profiler Chrome trace of stage 1 here
     dev_tiny: bool = False  # tiny random fp32 model on the CPU, no assets (smoke/testing)
     dev_full_random: bool = False  # full-size constant-weight model on the card, no assets
+    # the port's own flags: the preset (config.PRESETS) and the guidance rescale of its samplers
+    model: str = "videocrafter_i2v_512"
+    guidance_rescale: float = 0.0
 
     @classmethod
     def from_args(cls, argv=None) -> "VArgs":
@@ -129,11 +148,20 @@ class VArgs:
                 )
             else:
                 parser.add_argument(f"--{f.name}", type=type(f.default), default=f.default)
-        return cls(**vars(parser.parse_args(argv)))
+        vals = vars(parser.parse_args(argv))
+        given = {a[2:].split("=")[0] for a in (sys.argv[1:] if argv is None else argv) if a.startswith("--")}
+        for name, value in MODEL_DEFAULTS.get(vals["model"], {}).items():
+            if name not in given:
+                vals[name] = value
+        return cls(**vals)
 
 
 def check_flags(vargs: VArgs) -> None:
     """Refuse at startup what the port cannot run, each with its reason."""
+    from dynamicscaler_tpu_torch.config import PRESETS
+
+    if vargs.model not in PRESETS:
+        raise ValueError(f"--model {vargs.model}: one of {', '.join(PRESETS)}")
     n = vargs.data_parallel_devices
     if n > 1 and not vargs.dev_tiny and n > torch.cuda.device_count():
         raise ValueError(f"--data_parallel_devices {n}: one rank a CUDA card needs {n} cards; found "
@@ -164,23 +192,33 @@ def setup_precision(dtype: str, dev_tiny: bool) -> None:
 
 
 def build_model(vargs: VArgs):
-    """The bundle the flags name: ``--dev_tiny`` the tiny random fp32 i2v
-    model on the CPU; ``--dev_full_random`` the full-size i2v bundle with
-    every parameter 0.01 on the card; else the VideoCrafter i2v checkpoint
-    ``--ckpt_path`` with the CLIP BPE vocabulary ``--bpe_path``, on the
-    card."""
-    from dynamicscaler_tpu_torch.config import tiny_test_config, videocrafter_i2v
+    """The bundle the flags name, of the preset ``--model``:
+    ``--dev_tiny`` the tiny random fp32 model of its topology on the CPU;
+    ``--dev_full_random`` the full-size bundle with every parameter 0.01 on
+    the card; else the checkpoint ``--ckpt_path`` with the CLIP BPE
+    vocabulary ``--bpe_path``, on the card."""
     from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
     from dynamicscaler_tpu_torch.utils.tokenizer import HashTokenizer
 
     if vargs.dev_tiny:
         return LatentVideoDiffusion.init_random(
-            tiny_test_config(img_attention=True), torch.Generator().manual_seed(vargs.seed % (2**31)),
+            model_config(vargs.model, tiny=True), torch.Generator().manual_seed(vargs.seed % (2**31)),
             device="cpu", tokenizer=HashTokenizer(512),
         )
     if vargs.dev_full_random:
-        return LatentVideoDiffusion.init_constant(videocrafter_i2v(vargs.dtype), tokenizer=HashTokenizer(49408))
-    return load_bundle(vargs.ckpt_path, vargs.bpe_path, videocrafter_i2v(dtype=vargs.dtype))
+        return LatentVideoDiffusion.init_constant(model_config(vargs.model, vargs.dtype),
+                                                  tokenizer=HashTokenizer(49408))
+    return load_bundle(vargs.ckpt_path, vargs.bpe_path, model_config(vargs.model, vargs.dtype))
+
+
+def model_config(name: str, dtype: str = "bfloat16", tiny: bool = False):
+    """The preset ``name`` of ``config.PRESETS`` in ``dtype``; with ``tiny``
+    the tiny fp32 test model of its topology."""
+    from dynamicscaler_tpu_torch import config
+
+    if tiny:
+        return config.tiny_dynamicrafter_config() if name == "dynamicrafter_1024" else config.tiny_test_config(True)
+    return config.PRESETS[name](dtype)
 
 
 def load_bundle(ckpt_path: str, bpe_path: str, config, cached: bool = False):
@@ -378,6 +416,7 @@ def run(vargs: VArgs, _model=None, _noise=None, mesh=None):
         loop_step_frame=vargs.loop_step_frame,
         merge_prev_denoised_ratio_list=merge_prev_list,
         overlap_mode=vargs.overlap_mode,
+        guidance_rescale=vargs.guidance_rescale,
     )
     planar_kw = dict(
         loop_step=vargs.loop_step_hw,

@@ -1,7 +1,13 @@
 """Model / pipeline configuration (mirror of ``dynamicscaler_tpu/config.py``).
 
 Plain frozen dataclasses; the presets reproduce the two shipped VideoCrafter
-configs (configs/inference_t2v_512_v2.0.yaml, inference_i2v_512_v1.0.yaml).
+configs (configs/inference_t2v_512_v2.0.yaml, inference_i2v_512_v1.0.yaml)
+and DynamiCrafter's 1024 image-to-video model
+(configs/inference_1024_v1.0.yaml of github.com/Doubiiu/DynamiCrafter),
+which the JAX package does not have: hybrid conditioning (the image latent
+joined to the noisy latent as input channels), image tokens per frame and
+v-prediction on a zero-terminal-SNR schedule. The defaults of the fields it
+adds keep the VideoCrafter presets as they were.
 """
 
 from __future__ import annotations
@@ -36,6 +42,16 @@ class UNetConfig:
     addition_attention: bool = True
     fps_cond: bool = True
     text_context_len: int = 77
+    # image tokens each frame takes from the context (DynamiCrafter: 16 of the
+    # Resampler's 16 x 16, frame f tokens [16 f, 16 f + 16) after the text);
+    # 0: every frame takes all of them (VideoCrafter)
+    image_tokens_per_frame: int = 0
+
+    @property
+    def concat_channels(self) -> int:
+        """Input channels joined to the noisy latent (DynamiCrafter's
+        ``conditioning_key: hybrid``: the image latent); 0 without."""
+        return self.in_channels - self.out_channels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +113,13 @@ class ResamplerConfig:
     embedding_dim: int = 1280
     output_dim: int = 1024
     ff_mult: int = 4
+    # DynamiCrafter's ``video_length``: num_queries x video_length learned
+    # queries, so as many tokens a crop
+    video_length: int = 1
+
+    @property
+    def tokens(self) -> int:
+        return self.num_queries * self.video_length
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +136,12 @@ class DiffusionConfig:
     mid_step: int = 400
     scale_factor: float = 0.18215
     uncond_type: str = "empty_seq"
+    # what the UNet predicts: "eps" (VideoCrafter) or "v" (DynamiCrafter)
+    parameterization: str = "eps"
+    # betas rescaled to a zero terminal SNR (DynamiCrafter's rescale_betas_zero_snr)
+    rescale_betas_zero_snr: bool = False
+    # DDIM timestep selection: "uniform" or "uniform_trailing"
+    timestep_spacing: str = "uniform"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +181,26 @@ def videocrafter_i2v(dtype: str = "bfloat16") -> ModelConfig:
     )
 
 
+def dynamicrafter_i2v_1024(dtype: str = "bfloat16") -> ModelConfig:
+    """configs/inference_1024_v1.0.yaml of DynamiCrafter: 8 input channels
+    (4 noisy, 4 of the image latent), 16 image tokens per frame from a
+    16 x 16-query Resampler, v-prediction with zero-terminal-SNR betas and
+    trailing DDIM timesteps, frame stride 10 on the fps embedding, windows
+    of 576 x 1024."""
+    return ModelConfig(
+        unet=UNetConfig(in_channels=8, use_image_attention=True, image_tokens_per_frame=16),
+        clip_vision=CLIPVisionConfig(),
+        resampler=ResamplerConfig(video_length=16),
+        diffusion=DiffusionConfig(scale_b=0.3, parameterization="v", rescale_betas_zero_snr=True,
+                                  timestep_spacing="uniform_trailing"),
+        dtype=dtype,
+    )
+
+
+# the presets by the names the CLIs take
+PRESETS = {"videocrafter_i2v_512": videocrafter_i2v, "dynamicrafter_1024": dynamicrafter_i2v_1024}
+
+
 def tiny_test_config(img_attention: bool = True) -> ModelConfig:
     """Miniature ModelConfig for fast CPU tests (same topology, tiny dims);
     identical to ``dynamicscaler_tpu.models.lvdm.tiny_test_config``."""
@@ -179,4 +228,18 @@ def tiny_test_config(img_attention: bool = True) -> ModelConfig:
         if img_attention
         else None,
         dtype="float32",
+    )
+
+
+def tiny_dynamicrafter_config() -> ModelConfig:
+    """The tiny test topology as DynamiCrafter: 8 input channels, 2 image
+    tokens for each of 4 frames, v-prediction on the zero-SNR trailing
+    schedule, fp32."""
+    cfg = tiny_test_config(img_attention=True)
+    return dataclasses.replace(
+        cfg,
+        unet=dataclasses.replace(cfg.unet, in_channels=8, image_tokens_per_frame=2),
+        resampler=dataclasses.replace(cfg.resampler, num_queries=2, video_length=4),
+        diffusion=DiffusionConfig(scale_b=0.3, parameterization="v", rescale_betas_zero_snr=True,
+                                  timestep_spacing="uniform_trailing"),
     )

@@ -17,7 +17,7 @@ feed-forward sub-block dispatches by SITE to one op:
   ``fused_block.fused_temporal_block``;
 * a whole spatial block the same way (``fused_block.spatial_block_ok``) ->
   kernel 11 ``fused_block.fused_spatial_block``, with the context of each
-  clip once.
+  clip once (of each frame where frames have their own image tokens).
 
 Each op takes its plain PyTorch version for CPU tensors. On the card the
 modules hand each op its kernel operands, packed once from their parameters
@@ -269,8 +269,9 @@ class BasicTransformerBlock(nn.Module):
                                                         ff.net[2].weight, ff.net[2].bias)
 
     def forward(self, x, context=None, mask=None, num_frames: int = 1, traj=None):
-        """x [B, N, dim]; context [B, L, D], the same rows for the
-        ``num_frames`` samples of a clip (spatial blocks). ``traj``
+        """x [B, N, dim]; context [B, L, D], the same rows for each run of
+        ``num_frames`` samples (spatial blocks: a clip's frames, or 1 where
+        each frame has its own image tokens). ``traj``
         ({"self": ..., "cross": ...}, FreeTraj's per-site factors): attn1
         takes ``traj["self"]`` and attn2 ``traj["cross"]``, so a temporal
         block's second frame self-attention, whose entry is None, stays on

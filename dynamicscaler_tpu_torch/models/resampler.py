@@ -74,7 +74,9 @@ class Resampler(nn.Module):
     def __init__(self, cfg: ResamplerConfig):
         super().__init__()
         self.cfg = cfg
-        self.latents = nn.Parameter(torch.empty(1, cfg.num_queries, cfg.dim))
+        # DynamiCrafter's video_length multiplies the queries (ip_resampler.py:
+        # num_queries * video_length): the same [1, tokens, dim] parameter
+        self.latents = nn.Parameter(torch.empty(1, cfg.tokens, cfg.dim))
         self.proj_in = nn.Linear(cfg.embedding_dim, cfg.dim)
         self.proj_out = nn.Linear(cfg.dim, cfg.output_dim)
         self.norm_out = nn.LayerNorm(cfg.output_dim)
@@ -85,7 +87,7 @@ class Resampler(nn.Module):
         ])
 
     def forward(self, x):
-        """x [B, T, embedding_dim] -> [B, num_queries, output_dim]."""
+        """x [B, T, embedding_dim] -> [B, num_queries x video_length, output_dim]."""
         latents = self.latents.expand(x.shape[0], -1, -1)
         x = self.proj_in(x)
         for attn, ff in self.layers:

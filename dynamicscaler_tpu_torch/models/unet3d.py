@@ -303,8 +303,9 @@ class SpatialTransformer(nn.Module):
         self._mega_operands = cuda_lib.PackCache()
 
     def forward(self, x, context, num_frames: int = 1, traj=None):
-        """x [(B F), H, W, C]; context [(B F), L, D], the same rows for the
-        ``num_frames`` samples of a clip; ``traj`` FreeTraj's factors
+        """x [(B F), H, W, C]; context [(B F), L, D], the same rows for each
+        run of ``num_frames`` samples (a clip's frames; 1 where each frame
+        has its own image tokens); ``traj`` FreeTraj's factors
         (:func:`freetraj_spatial`), which keep the transformer off kernel 13
         (unet3d.py:301-305)."""
         BF, H, W, C = x.shape
@@ -458,7 +459,9 @@ class UNet3D(nn.Module):
             return Upsample(spec.channels)
         raise ValueError(spec.kind)
 
-    def _run_specs(self, specs, layers, h, emb, context, Fn, traj=None, no_temporal_attn=False):
+    def _run_specs(self, specs, layers, h, emb, context, Fn, ctx_run, traj=None, no_temporal_attn=False):
+        """``ctx_run``: the (B F) rows that share one context
+        (:meth:`frame_context`)."""
         for spec, layer in zip(specs, layers):
             if spec.kind == "conv_in":
                 h = conv2d_nhwc(h, layer)
@@ -467,14 +470,37 @@ class UNet3D(nn.Module):
             elif spec.kind == "res":
                 h = layer(h, emb, Fn)
             elif spec.kind == "spatial":
-                h = layer(h, context, Fn, traj=freetraj_spatial(traj, h.shape, Fn))
+                h = layer(h, context, ctx_run, traj=freetraj_spatial(traj, h.shape, Fn))
             elif spec.kind == "temporal" and not no_temporal_attn:
                 h = layer(h, Fn, traj=freetraj_temporal(traj, h.shape, Fn))
         return h
 
+    def frame_context(self, context, Fn: int):
+        """The (B F) rows' context of a clip context [B, L, D] and the run
+        of rows that share one: the clip's context on each of its frames
+        (unet3d.py:548), a run of Fn; with ``image_tokens_per_frame`` n
+        (DynamiCrafter, openaimodel3d.py forward) the text tokens on each
+        frame and frame f's image tokens [f n, f n + n) after them, a run
+        of 1, so that the whole-block kernels 11 and 13, which project a
+        run's context K/V once, take every frame's own."""
+        cfg = self.cfg
+        n = cfg.image_tokens_per_frame
+        if not n:
+            return context.repeat_interleave(Fn, dim=0), Fn
+        B, L, D = context.shape
+        Lt = cfg.text_context_len
+        if L != Lt + Fn * n:
+            raise ValueError(f"context of {L} tokens: {Lt} text and {n} image tokens for each of {Fn} frames "
+                             f"make {Lt + Fn * n}")
+        txt = context[:, :Lt].repeat_interleave(Fn, dim=0)
+        return torch.cat([txt, context[:, Lt:].reshape(B * Fn, n, D)], dim=1), 1
+
     def forward(self, x, timesteps, context, fps=16, no_temporal_attn=False, traj=None):
-        """eps prediction. x [B, F, H, W, C]; timesteps [B] (whole clip) or
-        [B, F] (per frame); context [B, L, context_dim]; fps scalar or [B];
+        """The model output: eps, or v under a v-parameterised config. x
+        [B, F, H, W, in_channels] (with hybrid conditioning the noisy
+        latent's channels, then the joined image latent's); timesteps [B]
+        (whole clip) or [B, F] (per frame); context [B, L, context_dim];
+        fps scalar or [B] (DynamiCrafter's frame stride ``fs``);
         ``no_temporal_attn`` skips every temporal transformer and init_attn
         (the legacy sampler's temporal-guidance probe); ``traj`` an
         ``ops.freetraj.FreeTraj`` (trajectory control, with ``active``
@@ -491,20 +517,24 @@ class UNet3D(nn.Module):
             emb = emb + self.fps_embedding(
                 timestep_embedding(fps_t.repeat_interleave(Fn), cfg.model_channels).to(dt)
             )
-        # the context is repeated per frame: it rides the (B F) batch (unet3d.py:548)
-        ctx = context.repeat_interleave(Fn, dim=0).to(dt)
+        if C != cfg.in_channels:
+            raise ValueError(f"x has {C} channels, the UNet takes {cfg.in_channels}"
+                             + (" (the noisy latent's and the joined image latent's)" if cfg.concat_channels else ""))
+        # the context rides the (B F) batch
+        ctx, run = self.frame_context(context, Fn)
+        ctx = ctx.to(dt)
         h = x.reshape(B * Fn, H, W, C).to(dt)
 
         hs = []
         for i, (specs, layers) in enumerate(zip(self._in_specs, self.input_blocks)):
-            h = self._run_specs(specs, layers, h, emb, ctx, Fn, traj, no_temporal_attn)
+            h = self._run_specs(specs, layers, h, emb, ctx, Fn, run, traj, no_temporal_attn)
             if i == 0 and cfg.addition_attention and not no_temporal_attn:
                 h = self.init_attn[0](h, Fn, traj=freetraj_temporal(traj, h.shape, Fn))
             hs.append(h)
-        h = self._run_specs(self._mid_specs, self.middle_block, h, emb, ctx, Fn, traj, no_temporal_attn)
+        h = self._run_specs(self._mid_specs, self.middle_block, h, emb, ctx, Fn, run, traj, no_temporal_attn)
         for specs, layers in zip(self._out_specs, self.output_blocks):
             h = torch.cat([h, hs.pop()], dim=-1)
-            h = self._run_specs(specs, layers, h, emb, ctx, Fn, traj, no_temporal_attn)
+            h = self._run_specs(specs, layers, h, emb, ctx, Fn, run, traj, no_temporal_attn)
 
         h = fused_twrap.gn_silu(h, self.out[0].weight, self.out[0].bias, eps=1e-5)
         y = conv2d_nhwc(h, self.out[2]).float()

@@ -2,7 +2,10 @@
 
 Counterpart of ``dynamicscaler_tpu/ops/ddim.py``: tables built in float64
 numpy on the host and stored as float32 tensors in a :class:`DDIMSchedule`;
-``ddim_step`` takes a per-frame DDIM index vector. Noise is explicit: pass
+``ddim_step`` takes a per-frame DDIM index vector. A schedule made for a
+v-parameterised model (DynamiCrafter: ``parameterization="v"``, betas
+rescaled to a zero terminal SNR, trailing timesteps) converts the model's v
+to eps and x0 in every step that takes it. Noise is explicit: pass
 ``noise=`` (tests inject the same numbers into both twins) or a
 ``torch.Generator``.
 """
@@ -33,11 +36,32 @@ def make_beta_schedule(schedule: str, n_timestep: int, linear_start: float = 1e-
     raise ValueError(f"schedule '{schedule}' unknown")
 
 
+def rescale_zero_terminal_snr(betas: np.ndarray) -> np.ndarray:
+    """Betas whose last alphas_cumprod is 0 (Lin et al. 2023, "Common
+    diffusion noise schedules and sample steps are flawed", Algorithm 1;
+    DynamiCrafter lvdm/models/ddpm3d.py ``rescale_zero_terminal_snr``):
+    sqrt(alphas_cumprod) shifted to end at 0 and scaled to keep its first
+    value."""
+    sqrt_acp = np.sqrt(np.cumprod(1.0 - betas, axis=0))
+    first, last = sqrt_acp[0].copy(), sqrt_acp[-1].copy()
+    sqrt_acp = (sqrt_acp - last) * (first / (first - last))
+    acp = sqrt_acp ** 2
+    return 1.0 - np.concatenate([acp[:1], acp[1:] / acp[:-1]])
+
+
 def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int,
                         discretize: str = "uniform") -> np.ndarray:
-    """DDIM sub-schedule timestep selection (utils_diffusion.py:56)."""
+    """DDIM sub-schedule timestep selection (utils_diffusion.py:56), and
+    DynamiCrafter's ``uniform_trailing``: every T / S-th timestep counted
+    down from the last, so the first DDIM step is at T - 1."""
     if discretize == "uniform":
         return np.linspace(0, num_ddpm_timesteps - 1, num_ddim_timesteps).round().astype(np.int64)
+    if discretize == "uniform_trailing":
+        c = num_ddpm_timesteps / num_ddim_timesteps
+        ts = np.flip(np.round(np.arange(num_ddpm_timesteps, 0, -c))).astype(np.int64) - 1
+        if ts.shape[0] != num_ddim_timesteps:
+            raise ValueError(f"uniform_trailing gives {ts.shape[0]} timesteps for {num_ddim_timesteps} steps")
+        return ts
     if discretize == "quad":
         return (np.linspace(0, np.sqrt(num_ddpm_timesteps * 0.8), num_ddim_timesteps) ** 2).astype(int) + 1
     raise NotImplementedError(f"ddim discretization '{discretize}' unknown")
@@ -72,6 +96,7 @@ class DDIMSchedule:
     num_ddpm_timesteps: int = 1000
     num_ddim_steps: int = 50
     eta: float = 0.0
+    parameterization: str = "eps"  # what the model predicts: "eps" or "v"
 
 
 def make_ddim_schedule(num_ddim_steps: int, num_ddpm_timesteps: int = 1000,
@@ -79,14 +104,19 @@ def make_ddim_schedule(num_ddim_steps: int, num_ddpm_timesteps: int = 1000,
                        linear_end: float = 0.012, eta: float = 0.0, discretize: str = "uniform",
                        use_scale: bool = False, scale_a: float = 1.0, scale_b: float = 0.3,
                        mid_step: int = 400, given_alphas_cumprod: Optional[np.ndarray] = None,
-                       device=None) -> DDIMSchedule:
+                       device=None, rescale_betas_zero_snr: bool = False,
+                       parameterization: str = "eps") -> DDIMSchedule:
     """Full schedule (host float64 -> float32 tensors on ``device``)."""
+    if parameterization not in ("eps", "v"):
+        raise ValueError(f"parameterization {parameterization!r}: eps or v")
     if given_alphas_cumprod is not None:
         alphas_cumprod = np.asarray(given_alphas_cumprod, dtype=np.float64)
         betas = 1.0 - alphas_cumprod / np.append(1.0, alphas_cumprod[:-1])
         num_ddpm_timesteps = alphas_cumprod.shape[0]
     else:
         betas = make_beta_schedule(beta_schedule, num_ddpm_timesteps, linear_start, linear_end)
+        if rescale_betas_zero_snr:
+            betas = rescale_zero_terminal_snr(betas)
         alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
     alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
     ddim_ts = make_ddim_timesteps(num_ddim_steps, num_ddpm_timesteps, discretize)
@@ -119,6 +149,7 @@ def make_ddim_schedule(num_ddim_steps: int, num_ddpm_timesteps: int = 1000,
         num_ddpm_timesteps=int(num_ddpm_timesteps),
         num_ddim_steps=int(num_ddim_steps),
         eta=float(eta),
+        parameterization=parameterization,
     )
 
 
@@ -149,17 +180,34 @@ def draw_noise(shape, device, generator: Optional[torch.Generator] = None, noise
     return torch.randn(tuple(shape), generator=generator, device=device)
 
 
+def x0_and_eps(schedule: DDIMSchedule, x, model_out, indices, frame_axis: int = 1):
+    """(pred_x0, eps) of the model's output at per-frame DDIM indices: for
+    eps, x0 = (x - sqrt(1 - a_t) eps) / sqrt(a_t); for v (ddpm3d.py
+    ``predict_start_from_z_and_v``, ``predict_eps_from_z_and_v``), at the
+    DDPM tables' sqrt(alphas_cumprod[t]) and sqrt(1 - alphas_cumprod[t]),
+    x0 = sqrt(acp) x - sqrt(1 - acp) v and eps = sqrt(acp) v + sqrt(1 - acp)
+    x, which hold at a zero terminal SNR too."""
+    nd = x.ndim
+    if schedule.parameterization == "v":
+        ts = schedule.ddim_timesteps
+        sac = _per_frame(schedule.sqrt_alphas_cumprod[ts], indices, nd, frame_axis)
+        somac = _per_frame(schedule.sqrt_one_minus_alphas_cumprod[ts], indices, nd, frame_axis)
+        return sac * x - somac * model_out, sac * model_out + somac * x
+    a_t = _per_frame(schedule.ddim_alphas, indices, nd, frame_axis)
+    sqrt_omat = _per_frame(schedule.ddim_sqrt_one_minus_alphas, indices, nd, frame_axis)
+    return (x - sqrt_omat * model_out) / torch.sqrt(a_t), model_out
+
+
 def ddim_step(schedule: DDIMSchedule, x, noise_pred, indices,
               generator: Optional[torch.Generator] = None, frame_axis: int = 1,
               noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One DDIM update with a per-frame DDIM index vector ``indices`` [F].
+    """One DDIM update with a per-frame DDIM index vector ``indices`` [F]
+    of the model's output ``noise_pred`` (eps, or v under a v schedule).
     Returns ``(x_prev, pred_x0)``. With eta 0 it draws no noise."""
     nd = x.ndim
-    a_t = _per_frame(schedule.ddim_alphas, indices, nd, frame_axis)
     a_prev = _per_frame(schedule.ddim_alphas_prev, indices, nd, frame_axis)
     sigma_t = _per_frame(schedule.ddim_sigmas, indices, nd, frame_axis)
-    sqrt_omat = _per_frame(schedule.ddim_sqrt_one_minus_alphas, indices, nd, frame_axis)
-    pred_x0 = (x - sqrt_omat * noise_pred) / torch.sqrt(a_t)
+    pred_x0, noise_pred = x0_and_eps(schedule, x, noise_pred, indices, frame_axis)
     dir_xt = torch.sqrt(1.0 - a_prev - sigma_t ** 2) * noise_pred
     x_prev = torch.sqrt(a_prev) * pred_x0 + dir_xt
     if schedule.eta > 0 and (generator is not None or noise is not None):
@@ -221,11 +269,9 @@ def ddim_step_scaled(schedule: DDIMSchedule, x, noise_pred, indices,
     DDIM index vector [F]. With eta > 0 and a ``generator`` or ``noise_fn``
     it adds sigma_t times the draw ``step``. Returns ``(x_prev, pred_x0)``."""
     nd = x.ndim
-    a_t = _per_frame(schedule.ddim_alphas, indices, nd, frame_axis)
     a_prev = _per_frame(schedule.ddim_alphas_prev, indices, nd, frame_axis)
     sigma_t = _per_frame(schedule.ddim_sigmas, indices, nd, frame_axis)
-    sqrt_omat = _per_frame(schedule.ddim_sqrt_one_minus_alphas, indices, nd, frame_axis)
-    pred_x0 = (x - sqrt_omat * noise_pred) / torch.sqrt(a_t)
+    pred_x0, noise_pred = x0_and_eps(schedule, x, noise_pred, indices, frame_axis)
     dir_xt = torch.sqrt(1.0 - a_prev - sigma_t ** 2) * noise_pred
     if schedule.use_scale:
         sc, sc_prev = ddim_scale_tables(schedule)
@@ -236,6 +282,23 @@ def ddim_step_scaled(schedule: DDIMSchedule, x, noise_pred, indices,
     if schedule.eta > 0 and (generator is not None or noise_fn is not None):
         x_prev = x_prev + sigma_t * _draw_like(x, generator, noise_fn, "step")
     return x_prev, pred_x0
+
+
+def guided(cond, uncond, guidance_scale: float, rescale: float = 0.0):
+    """Classifier-free guidance of the model's output, cond and uncond rows
+    [n, ...], with the guidance rescale of DynamiCrafter's sampler
+    (samplers/ddim.py ``rescale_noise_cfg``, Lin et al. 2023 section 3.4):
+    rescale phi * out * std(cond) / std(out) + (1 - phi) * out, each std
+    over a row's elements (unbiased, as ``torch.std``); a constant row
+    (std 0, as from a model whose output layer is still zero) is left
+    unscaled. All on the card: it reads nothing back."""
+    out = uncond + guidance_scale * (cond - uncond)
+    if rescale:
+        dims = tuple(range(1, out.ndim))
+        sd = out.std(dim=dims, keepdim=True)
+        ratio = torch.where(sd > 0, cond.std(dim=dims, keepdim=True) / sd, 1.0)
+        out = rescale * (out * ratio) + (1.0 - rescale) * out
+    return out
 
 
 def cfg_combine(eps_cond, eps_uncond, guidance_scale: float, uc_type: Optional[str] = None):

@@ -74,7 +74,7 @@ def build_uncond_context(model, batch: int = 1, with_image: bool = None, image_h
     if not with_image:
         return uc_text
     h, w = image_hw if image_hw is not None else (40, 64)
-    with span("request.image", crops=batch):
+    with span("request.image", crops=batch, tokens=batch * model.config.resampler.tokens):
         uc_img = model.encode_image_cond(torch.zeros((batch, h, w, 3)))
     return cat_text_image(uc_text, uc_img)
 

@@ -25,7 +25,7 @@ import torch
 from dynamicscaler_tpu_torch.ops.ddim import ddim_step, draw_noise, re_noise_per_frame
 from dynamicscaler_tpu_torch.ops.lcm import fifo_timestep_vectors, lcm_add_noise, lcm_step, make_lcm_schedule
 from dynamicscaler_tpu_torch.pipelines.conditioning import build_uncond_context
-from dynamicscaler_tpu_torch.pipelines.t2v import make_schedule_for_model
+from dynamicscaler_tpu_torch.pipelines.t2v import make_schedule_for_model, refuse_concat
 
 
 def _fifo_loop(model, queue, t_frames, step, ctx2, guidance_scale, fps, num_out_frames, generator, noise_fn):
@@ -56,6 +56,7 @@ def fifo_sample(model, prompt: str, num_output_frames: int, height: int = 320, w
     or None, latent frames [1, N, h, w, C])."""
     if scheduler not in ("ddim", "lcm"):
         raise ValueError(f"scheduler {scheduler!r}: ddim or lcm")
+    refuse_concat(model, "fifo_sample")
     frames = frames or model.config.unet.temporal_length
     vs = model.config.vae.spatial_scale
     h, w = height // vs, width // vs
@@ -65,7 +66,7 @@ def fifo_sample(model, prompt: str, num_output_frames: int, height: int = 320, w
     uncond = build_uncond_context(model, with_image=False)
     ctx2 = torch.cat([context, uncond])
     if base_latent is None:
-        base = draw_noise((1, frames, h, w, model.config.unet.in_channels), dev, generator, noise_fn, "init")
+        base = draw_noise((1, frames, h, w, model.config.unet.out_channels), dev, generator, noise_fn, "init")
     else:
         base = torch.as_tensor(base_latent, dtype=torch.float32, device=dev)
     stagger = draw_noise(base.shape, dev, generator, noise_fn, "stagger")

@@ -16,6 +16,16 @@ i2v_sphere_panorama_pipeline.py:565-998), its integer-grid variant
 * optional skip-time init from the tiled VAE encode of the image;
 * the ring-aware wrap-padded VAE decode.
 
+A model with hybrid conditioning (DynamiCrafter, ``unet.concat_channels``)
+also takes the image latent joined to its input: the tiled VAE encode of
+the whole panorama, made once a request (the skip-time init reuses it), of
+which every window row takes its crop (``PlanarShiftWindowEngine``'s
+``concat``); where DynamiCrafter encodes the conditioning image itself,
+the windows here take the crop of the panorama's encode, which differs
+within the encoder's receptive field of the crop's edges. The single-window
+``basic_sample`` joins the conditioning image's own encode. The ring decode
+goes frame by frame, as DynamiCrafter's ``perframe_ae``.
+
 Every noise draw takes ``noise_fn`` when given (``ops.ddim.draw_noise``;
 names ``init``, ``skip`` and the engine's ``renoise:*``), else the
 ``generator``. ``mesh`` (``parallel.mesh``) splits each step's window batch
@@ -72,7 +82,7 @@ def window_image_contexts(model, origins_hw, pano_image: np.ndarray, prompt: str
         text_embs = encode_texts_cached(model, prompts, text_cache)
     if model.image_encoder is None:  # t2v bundle on the planar grid: text only
         return text_embs
-    with span("request.image", crops=len(corners)):
+    with span("request.image", crops=len(corners), tokens=len(corners) * model.config.resampler.tokens):
         crops = np.stack([ring_crop_image(pano_image, top, left, view_height, view_width) for top, left in corners])
         return cat_text_image(text_embs, model.encode_image_cond(crops))
 
@@ -92,11 +102,12 @@ def _phase_contexts(model, grid: PlanarGrid, pano_image, prompt, window_multi_pr
 
 
 def _init_latent(model, sched, shape, pano_image, use_skip_time: bool, skip: int,
-                 progressive_skip: bool, generator, noise_fn) -> torch.Tensor:
+                 progressive_skip: bool, generator, noise_fn, static=None) -> torch.Tensor:
     """Pure noise, or with ``use_skip_time`` the tiled VAE encode of the
-    image repeated over the frames and re-noised: to the last DDIM step for
-    every frame, or with ``progressive_skip`` frame f < skip to step
-    S - skip + f (the other frames stay noise)."""
+    image (``static`` where the caller has it) repeated over the frames and
+    re-noised: to the last DDIM step for every frame, or with
+    ``progressive_skip`` frame f < skip to step S - skip + f (the other
+    frames stay noise)."""
     dev = model.device
     S = sched.num_ddim_steps
     total_f = shape[1]
@@ -105,7 +116,7 @@ def _init_latent(model, sched, shape, pano_image, use_skip_time: bool, skip: int
         latent = draw_noise(shape, dev, generator, noise_fn, "init")
     if not use_skip_time:
         return latent
-    clean = tiled_vae_encode(model, pano_image).repeat(1, total_f, 1, 1, 1)
+    clean = (tiled_vae_encode(model, pano_image) if static is None else static).repeat(1, total_f, 1, 1, 1)
     noise = draw_noise(clean.shape, dev, generator, noise_fn, "skip")
     if not progressive_skip:
         return re_noise(sched, clean, 0, S - 1, noise=noise)
@@ -117,14 +128,25 @@ def _init_latent(model, sched, shape, pano_image, use_skip_time: bool, skip: int
     return torch.where(sel, noised, latent)
 
 
+def concat_latent(model, image) -> Optional[torch.Tensor]:
+    """The latent a hybrid-conditioned model joins to its input: the tiled
+    VAE encode of ``image`` [H, W, 3] -> [1, 1, H/vs, W/vs, c]; None for a
+    model without."""
+    if not model.config.unet.concat_channels:
+        return None
+    return tiled_vae_encode(model, image)
+
+
 def basic_sample(model, prompt: str, cond_image, height: int = 320, width: int = 512,
                  frames: int = 16, fps: int = 16, guidance_scale: float = 7.5,
                  num_inference_steps: int = 48, generator: Optional[torch.Generator] = None,
-                 latents=None, decode: bool = True, noise_fn=None):
+                 latents=None, decode: bool = True, noise_fn=None, guidance_rescale: float = 0.0):
     """Single-window i2v generation, the batch-eval i2v path
     (scripts/evaluation/inference.py:107-122): context = [text ; image
     tokens of ``cond_image`` [H, W, 3] in [-1, 1]], uncond = [empty text ;
-    zero-image tokens at the image's size]. Returns (video or None,
+    zero-image tokens at the image's size]; a hybrid-conditioned model also
+    joins the image's encode, repeated over the frames, to both rows
+    (DynamiCrafter's ``image_guided_synthesis``). Returns (video or None,
     denoised latent [1, F, h, w, C])."""
     sched = make_schedule_for_model(model, num_inference_steps)
     vs = model.config.vae.spatial_scale
@@ -132,10 +154,15 @@ def basic_sample(model, prompt: str, cond_image, height: int = 320, width: int =
     context = cat_text_image(model.encode_text([prompt]), model.encode_image_cond(cond_image[None]))
     uncond = build_uncond_context(model, with_image=True, image_hw=cond_image.shape[:2])
     if latents is None:
-        latents = draw_noise((1, frames, height // vs, width // vs, model.config.unet.in_channels),
+        latents = draw_noise((1, frames, height // vs, width // vs, model.config.unet.out_channels),
                              model.device, generator, noise_fn, "init")
     latents = torch.as_tensor(latents, dtype=torch.float32, device=model.device)
-    _, den = basic_sample_loop(model, sched, latents, context, uncond, guidance_scale, fps)
+    concat = None
+    if model.config.unet.concat_channels:
+        concat = model.encode_video(torch.as_tensor(cond_image, device=model.device)[None, None])
+        concat = concat.expand(-1, latents.shape[1], -1, -1, -1)
+    _, den = basic_sample_loop(model, sched, latents, context, uncond, guidance_scale, fps, concat=concat,
+                               guidance_rescale=guidance_rescale)
     video = model.decode_video(den) if decode else None
     return video, den
 
@@ -194,11 +221,13 @@ def sample_shift_multi_windows(
     noise_fn=None,
     decode: bool = True,
     mesh=None,
+    guidance_rescale: float = 0.0,
 ):
     """Planar ring multi-window i2v sampling. Sizes in image pixels
     (``total_*``); windows are the model's native ``height x width``.
-    Returns (video [1, F, total_h, total_w, 3] or None, denoised latent
-    [1, F, th, tw, C])."""
+    ``guidance_rescale`` as in ``ops.ddim.guided`` (DynamiCrafter's
+    published sampling: 0.7). Returns (video [1, F, total_h, total_w, 3] or
+    None, denoised latent [1, F, th, tw, C])."""
     sched = make_schedule_for_model(model, num_inference_steps)
     vs = model.config.vae.spatial_scale
     wh, ww = height // vs, width // vs
@@ -214,10 +243,11 @@ def sample_shift_multi_windows(
 
     S = num_inference_steps
     skip = int(skip_time_step_idx or 0)
+    static = concat_latent(model, pano_image)
     with span("request.init"):
         if init_panorama_latent is None:
-            latent = _init_latent(model, sched, (1, total_f, th, tw, model.config.unet.in_channels),
-                                  pano_image, use_skip_time, skip, progressive_skip, generator, noise_fn)
+            latent = _init_latent(model, sched, (1, total_f, th, tw, model.config.unet.out_channels),
+                                  pano_image, use_skip_time, skip, progressive_skip, generator, noise_fn, static)
         else:
             latent = torch.as_tensor(init_panorama_latent, dtype=torch.float32, device=model.device)
     tm.mark("init latent")
@@ -239,7 +269,7 @@ def sample_shift_multi_windows(
     tm.mark("plan built")
     engine = PlanarShiftWindowEngine(model, sched, (frames, wh, ww), guidance_scale=guidance_scale,
                                      fps=fps, overlap_mode=overlap_mode, unet_microbatch=unet_microbatch,
-                                     mesh=mesh)
+                                     mesh=mesh, concat=static, guidance_rescale=guidance_rescale)
     latent, denoised = engine.run(latent, plan, uncond, generator, noise_fn=noise_fn)
     tm.mark("denoise loop")
     video = None
@@ -278,11 +308,13 @@ def sample_shift_multi_windows_integer(
     noise_fn=None,
     decode: bool = True,
     mesh=None,
+    guidance_rescale: float = 0.0,
 ):
     """Integer-grid i2v multi-window sampler (i2v_normal_pipeline.py:69-426,
     the ``cli/sample.py`` entry): total = window x num_windows per axis,
     whole-window step offsets, optional H docking, per-window image
-    conditioning from the crops of ``pano_image``."""
+    conditioning from the crops of ``pano_image`` (and their crops of its
+    encode under hybrid conditioning)."""
     sched = make_schedule_for_model(model, num_inference_steps)
     vs = model.config.vae.spatial_scale
     wh, ww = height // vs, width // vs
@@ -299,9 +331,10 @@ def sample_shift_multi_windows_integer(
 
     S = num_inference_steps
     skip = int(skip_time_step_idx or 0)
+    static = concat_latent(model, pano_image)
     if init_panorama_latent is None:
-        latent = _init_latent(model, sched, (1, grid.total_f, th, tw, model.config.unet.in_channels),
-                              pano_image, use_skip_time, skip, progressive_skip, generator, noise_fn)
+        latent = _init_latent(model, sched, (1, grid.total_f, th, tw, model.config.unet.out_channels),
+                              pano_image, use_skip_time, skip, progressive_skip, generator, noise_fn, static)
     else:
         latent = torch.as_tensor(init_panorama_latent, dtype=torch.float32, device=model.device)
 
@@ -317,7 +350,7 @@ def sample_shift_multi_windows_integer(
                       merge_renoised_overlap_latent_ratio, merge_prev_denoised_ratio_list)
     engine = PlanarShiftWindowEngine(model, sched, (frames, wh, ww), guidance_scale=guidance_scale,
                                      fps=fps, overlap_mode=overlap_mode, unet_microbatch=unet_microbatch,
-                                     mesh=mesh)
+                                     mesh=mesh, concat=static, guidance_rescale=guidance_rescale)
     latent, denoised = engine.run(latent, plan, uncond, generator, noise_fn=noise_fn)
     video = ring_aware_decode(model, denoised, w_tiles=max(1, tw // 256)) if decode else None
     return video, denoised

@@ -22,10 +22,20 @@ instead). The trace cache and warm-only paths of the JAX engine are not
 ported. Every re-noise draw can be injected
 through ``noise_fn`` under the name ``renoise:{step}`` (``renoise:{step}:{k}``
 per window in ``sequential`` mode).
+
+A model with hybrid conditioning (DynamiCrafter) takes ``concat``, the
+clean latent of the whole panorama [1, 1, H, W, c]: each UNet row gets its
+window's crop of it, cut at the window's (h0, w0) with the same ring wrap
+as the noisy gather and repeated over the frames, joined after the noisy
+channels (cond and uncond rows alike). Re-noise, DDIM and the scatter touch
+the noisy channels only. ``guidance_rescale`` rescales the guided output
+(``ops.ddim.guided``); a v-parameterised schedule converts it in the DDIM
+step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -33,7 +43,7 @@ import numpy as np
 import torch
 
 from dynamicscaler_tpu_torch.ops.blend import mix_with_mask, normalize_accumulated
-from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, draw_noise, re_noise
+from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, draw_noise, guided, re_noise
 from dynamicscaler_tpu_torch.ops.ring import add_ring_window, get_ring_window, set_ring_window
 from dynamicscaler_tpu_torch.utils.timing import LoopStats, Marker, report, span
 
@@ -83,9 +93,14 @@ class StepPlan:
 class PlanarShiftWindowEngine:
     def __init__(self, model, schedule: DDIMSchedule, window_sizes: Tuple[int, int, int],
                  guidance_scale: float = 7.5, fps: int = 16, overlap_mode: str = "last",
-                 unet_microbatch: int = 8, mesh=None):
+                 unet_microbatch: int = 8, mesh=None, concat: Optional[torch.Tensor] = None,
+                 guidance_rescale: float = 0.0):
         if overlap_mode not in ("last", "average", "sequential"):
             raise ValueError(f"overlap_mode {overlap_mode!r}")
+        want = model.config.unet.concat_channels
+        have = 0 if concat is None else concat.shape[-1]
+        if have != want:
+            raise ValueError(f"the UNet joins {want} latent channels to its input, the engine was given {have}")
         self.model = model
         self.schedule = schedule
         self.window_sizes = window_sizes
@@ -94,6 +109,8 @@ class PlanarShiftWindowEngine:
         self.overlap_mode = overlap_mode
         self.unet_microbatch = unet_microbatch
         self.mesh = mesh
+        self.concat = concat
+        self.guidance_rescale = guidance_rescale
 
     def run(self, latent: torch.Tensor, plan: Sequence[StepPlan], uncond_context: torch.Tensor,
             generator: Optional[torch.Generator] = None,
@@ -123,15 +140,31 @@ class PlanarShiftWindowEngine:
         n = wins.shape[0]
         return torch.cat([wins, wins]), torch.cat([ctx, uncond.expand((n,) + tuple(uncond.shape[1:]))])
 
+    def _joined(self, x, origins):
+        """The UNet rows ``x`` (the windows at ``origins``, then again as
+        uncond rows) with each window's crop of the concat latent joined;
+        ``x`` itself without one."""
+        if self.concat is None:
+            return x
+        f, h, w = self.window_sizes
+        with span("step.concat", rows=x.shape[0]):
+            crops = torch.cat([get_ring_window(self.concat, (0, int(h0), int(w0)), (1, h, w))
+                               for _, h0, w0 in origins]).expand(-1, f, -1, -1, -1)
+            return torch.cat([x, crops.repeat(x.shape[0] // crops.shape[0], 1, 1, 1, 1)], dim=-1)
+
     def _cfg_update(self, wins, eps, sp: StepPlan):
-        """The CFG combine of ``eps`` and the DDIM step of ``wins`` ->
-        (x_prev, pred_x0)."""
+        """The CFG combine of the model's output ``eps`` (with the guidance
+        rescale) and the DDIM step of ``wins`` -> (x_prev, pred_x0); a
+        ``step.rescale`` span where either the rescale or a v conversion
+        runs."""
         g = self.guidance_scale
-        if g != 1.0:
-            n = wins.shape[0]
-            eps = eps[n:] + g * (eps[:n] - eps[n:])
+        n = wins.shape[0]
         frame_idx = torch.full((self.window_sizes[0],), sp.index, dtype=torch.long)
-        return ddim_step(self.schedule, wins, eps, frame_idx)
+        converts = self.guidance_rescale or self.schedule.parameterization == "v"
+        with span("step.rescale", rows=n) if converts else contextlib.nullcontext():
+            if g != 1.0:
+                eps = guided(eps[:n], eps[n:], g, self.guidance_rescale)
+            return ddim_step(self.schedule, wins, eps, frame_idx)
 
     def _renoise(self, wins, sp: StepPlan, generator, noise_fn, name):
         ratio = sp.renoise_ratio or 0.0
@@ -179,6 +212,7 @@ class PlanarShiftWindowEngine:
                 noised, ratio = self._renoise(win, sp, generator, noise_fn, f"{name}:{k}")
                 win = mix_with_mask(win, noised, mask_win, ratio)
                 x, cc = self._cfg_pack(win, ctx[k:k + 1], uncond_context)
+            x = self._joined(x, [origin])
             eps = self.model.apply_unet_microbatched(x, sp.t, cc, self.fps, self.unet_microbatch)
             with span("step.update"):
                 new, den_w = self._cfg_update(win, eps, sp)
@@ -203,6 +237,7 @@ class PlanarShiftWindowEngine:
                 noised, ratio = self._renoise(wins, sp, generator, noise_fn, name)
                 wins = mix_with_mask(wins, noised, earlier, ratio)
             x, cc = self._cfg_pack(wins, self._contexts(sp, len(origins)), uncond_context)
+        x = self._joined(x, origins)
         eps = self.model.apply_unet_microbatched(x, sp.t, cc, self.fps, self.unet_microbatch, self.mesh)
         with span("step.update"):
             new, den = self._cfg_update(wins, eps, sp)

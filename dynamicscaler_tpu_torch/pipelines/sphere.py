@@ -31,10 +31,17 @@ runs whole on every rank, as on one card. The JAX package's seq-slab layout
 of the latent (a TPU memory layout; the latent stays whole on every rank),
 step-program cache, step timers and warm-up programs are not ported;
 ``LOOP_STATS`` keeps the loop's steady s/step.
+
+A model with hybrid conditioning (DynamiCrafter) joins the clean panorama
+latent to its input: every pair's row takes the view's gather of it,
+repeated over the frames (cond and uncond rows alike);
+``guidance_rescale`` rescales the guided output and a v-parameterised
+schedule converts it in the DDIM step, as in ``pipelines/planar.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -43,7 +50,7 @@ import torch
 
 from dynamicscaler_tpu_torch.core.windows import frame_window_origins, sphere_phase_views
 from dynamicscaler_tpu_torch.ops.blend import mix_with_mask, normalize_accumulated
-from dynamicscaler_tpu_torch.ops.ddim import ddim_step, draw_noise, re_noise, re_noise_per_frame
+from dynamicscaler_tpu_torch.ops.ddim import ddim_step, draw_noise, guided, re_noise, re_noise_per_frame
 from dynamicscaler_tpu_torch.ops.resize import resize_video_latent
 from dynamicscaler_tpu_torch.ops.ring import wrap_slice_indices
 from dynamicscaler_tpu_torch.ops.sphere import (
@@ -170,12 +177,14 @@ class _Sampler:
     options that do not change from step to step)."""
 
     def __init__(self, model, sched, frames, guidance, fps, mode, unet_microbatch, get_scale, set_scale,
-                 generator, noise_fn, mesh=None):
+                 generator, noise_fn, mesh=None, guidance_rescale: float = 0.0):
         self.model, self.sched, self.frames = model, sched, frames
         self.guidance, self.fps, self.mode, self.unet_microbatch = guidance, fps, mode, unet_microbatch
         self.get_scale, self.set_scale = get_scale, set_scale
         self.generator, self.noise_fn = generator, noise_fn
         self.mesh = mesh
+        self.guidance_rescale = guidance_rescale
+        self.concat = bool(model.config.unet.concat_channels)
 
     def _noise(self, shape, name):
         return draw_noise(shape, self.model.device, self.generator, self.noise_fn, name)
@@ -194,11 +203,28 @@ class _Sampler:
         return torch.cat([wins, wins]), torch.cat([context, uncond.expand((n,) + tuple(uncond.shape[1:]))])
 
     def _cfg_update(self, wins, eps, sp: SphereStep):
-        """The CFG combine of ``eps`` and the DDIM step of ``wins``."""
-        if self.guidance != 1.0:
-            n = wins.shape[0]
-            eps = eps[n:] + self.guidance * (eps[:n] - eps[n:])
-        return ddim_step(self.sched, wins, eps, torch.full((self.frames,), sp.index, dtype=torch.long))
+        """The CFG combine of the model's output ``eps`` (with the guidance
+        rescale) and the DDIM step of ``wins``; a ``step.rescale`` span where
+        either the rescale or a v conversion runs."""
+        n = wins.shape[0]
+        converts = self.guidance_rescale or self.sched.parameterization == "v"
+        with span("step.rescale", rows=n) if converts else contextlib.nullcontext():
+            if self.guidance != 1.0:
+                eps = guided(eps[:n], eps[n:], self.guidance, self.guidance_rescale)
+            return ddim_step(self.sched, wins, eps, torch.full((self.frames,), sp.index, dtype=torch.long))
+
+    def _joined(self, x, static_clean, maps: PhaseMaps, views):
+        """The UNet rows ``x`` (the pairs of ``views``, then again as uncond
+        rows) with each view's gather of the clean panorama latent joined,
+        repeated over the frames; ``x`` itself without hybrid conditioning."""
+        if not self.concat:
+            return x
+        h, w = maps.gather.shape[1:]
+        with span("step.concat", rows=x.shape[0]):
+            flat = static_clean[0].reshape(1, -1, static_clean.shape[-1])
+            crops = torch.stack([self._gather(flat, maps, v, 0, 1) for v in views])
+            crops = self._to_native(crops.reshape(len(views), self.frames, h, w, -1))
+            return torch.cat([x, crops.repeat(x.shape[0] // len(views), 1, 1, 1, 1)], dim=-1)
 
     def _to_native(self, wins):
         if self.get_scale == 1:
@@ -245,6 +271,7 @@ class _Sampler:
         with span("step.renoise"):
             wins = self._renoise(wins, sp, earlier, f"renoise:{sp.step}")
             x, ctx = self._cfg_pack(wins, sp.context, uncond)
+        x = self._joined(x, static_clean, maps, sp.pair_view)
         eps = self.model.apply_unet_microbatched(x, sp.t, ctx, self.fps, self.unet_microbatch, self.mesh)
         with span("step.update"):
             new, den = self._cfg_update(wins, eps, sp)
@@ -293,6 +320,7 @@ class _Sampler:
             with span("step.renoise"):
                 win = self._renoise(win, sp, m, f"pair:{sp.step}:{k}")
                 x, ctx = self._cfg_pack(win, sp.context[k:k + 1], uncond[:1])
+            x = self._joined(x, static_clean, maps, [v])
             with span("unet", forwards=1, rows=x.shape[0]):
                 eps = self.model.apply_unet(x, torch.full((x.shape[0],), sp.t, device=win.device), ctx, self.fps)
             with span("step.update"):
@@ -338,7 +366,7 @@ def _view_contexts(model, prompt, pano_image, phase_views, view_fov, phi_prompt_
         return text, phase_gid
     eq_h, eq_w = pano_image.shape[:2]
     dev = model.device
-    with span("request.image", crops=len(specs)):
+    with span("request.image", crops=len(specs), tokens=len(specs) * model.config.resampler.tokens):
         flat = torch.as_tensor(pano_image, device=dev).reshape(-1, 3)
         embs = []
         for i in range(0, len(specs), CROP_CHUNK):
@@ -395,6 +423,7 @@ def sample_shift_sphere_panorama(
     noise_fn=None,
     decode: bool = False,
     mesh=None,
+    guidance_rescale: float = 0.0,
 ):
     """Sphere panorama shift-window sampling. Returns (video or None, final
     latent, denoised latent), each ``[1, total_f, eq_h / vs, eq_w / vs, C]``
@@ -415,7 +444,7 @@ def sample_shift_sphere_panorama(
     eq_lat_h, eq_lat_w = equirect_height // vs, equirect_width // vs
     total_f = total_f or frames
     S = num_inference_steps
-    C = model.config.unet.in_channels
+    C = model.config.unet.out_channels
     if use_image_cond is None:
         use_image_cond = model.image_encoder is not None
     if torch.is_tensor(pano_image):
@@ -443,7 +472,7 @@ def sample_shift_sphere_panorama(
     uncond = build_uncond_context(model, with_image=use_image_cond, image_hw=(lat_h, lat_w))
 
     # the clean static pano latent, encoded once
-    if paste_on_static or use_skip_time:
+    if paste_on_static or use_skip_time or model.config.unet.concat_channels:
         static_clean = tiled_vae_encode(model, pano_image)
     else:
         static_clean = torch.zeros((1, 1, eq_lat_h, eq_lat_w, C), device=dev)
@@ -475,7 +504,7 @@ def sample_shift_sphere_panorama(
     ratios_f = overlap_ratio_list_f if overlap_ratio_list_f is not None else [0.5] * S
     ddim_ts = sched.ddim_timesteps.cpu().numpy()
     sampler = _Sampler(model, sched, frames, guidance_scale, fps, overlap_mode, unet_microbatch,
-                       view_get_scale_factor, view_set_scale_factor, generator, noise_fn, mesh)
+                       view_get_scale_factor, view_set_scale_factor, generator, noise_fn, mesh, guidance_rescale)
 
     denoised = torch.zeros_like(latent)
     tm.reset_lap()

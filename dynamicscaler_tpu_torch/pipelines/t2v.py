@@ -22,7 +22,7 @@ import torch
 from dynamicscaler_tpu_torch.core.windows import IntegerGrid
 from dynamicscaler_tpu_torch.ops import freetraj as freetraj_ops
 from dynamicscaler_tpu_torch.ops.blend import checkerboard_mix
-from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, draw_noise, make_ddim_schedule, re_noise
+from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, draw_noise, guided, make_ddim_schedule, re_noise
 from dynamicscaler_tpu_torch.ops.resize import resize_video_latent
 from dynamicscaler_tpu_torch.pipelines.conditioning import build_uncond_context
 from dynamicscaler_tpu_torch.pipelines.planar import PlanarShiftWindowEngine, StepPlan
@@ -30,22 +30,34 @@ from dynamicscaler_tpu_torch.utils.timing import request, span
 
 
 def make_schedule_for_model(model, num_steps: int) -> DDIMSchedule:
+    """The model's DDIM schedule: its betas (rescaled to a zero terminal
+    SNR where it asks), its timestep spacing and its parameterization."""
     d = model.config.diffusion
     return make_ddim_schedule(
         num_steps, d.timesteps, beta_schedule=d.beta_schedule, linear_start=d.linear_start,
-        linear_end=d.linear_end, use_scale=d.use_scale, scale_a=d.scale_a, scale_b=d.scale_b,
-        mid_step=d.mid_step, device=model.device,
+        linear_end=d.linear_end, discretize=d.timestep_spacing, use_scale=d.use_scale, scale_a=d.scale_a,
+        scale_b=d.scale_b, mid_step=d.mid_step, device=model.device,
+        rescale_betas_zero_snr=d.rescale_betas_zero_snr, parameterization=d.parameterization,
     )
+
+
+def refuse_concat(model, sampler: str) -> None:
+    """A text-to-video sampler has no image to join to the noisy latent."""
+    if model.config.unet.concat_channels:
+        raise ValueError(f"{sampler}: the model joins an image latent to its input (hybrid conditioning); "
+                         "sample it with the image-to-video samplers")
 
 
 def basic_sample_loop(model, sched: DDIMSchedule, latent, context, uncond, guidance_scale: float,
                       fps: int, num_skip: int = 0, traj: Optional[freetraj_ops.FreeTraj] = None,
-                      traj_thres: float = 600.0):
+                      traj_thres: float = 600.0, concat=None, guidance_rescale: float = 0.0):
     """Single-window DDIM with CFG packed into one batch-2 UNet call per
     step, over the last ``S - num_skip`` steps of the table. With ``traj``
     (FreeTraj) each step re-gates it from its timestep: spatial masking
     while t > ``traj_thres``, temporal re-weighting always (t2v.py:
-    129-168). Returns (latent, denoised)."""
+    129-168). ``concat`` [1, F, h, w, c] is joined to both rows' input
+    (hybrid conditioning); ``guidance_rescale`` as in ``ops.ddim.guided``.
+    Returns (latent, denoised)."""
     S = sched.num_ddim_steps
     Fn = latent.shape[1]
     ctx2 = torch.cat([context, uncond])
@@ -54,8 +66,9 @@ def basic_sample_loop(model, sched: DDIMSchedule, latent, context, uncond, guida
         index = S - 1 - i - num_skip
         t2 = torch.full((2,), int(sched.ddim_timesteps[index]), device=latent.device)
         tr = None if traj is None else freetraj_ops.gate_active(traj, t2, traj_thres, 2, Fn)
-        eps = model.apply_unet(torch.cat([latent, latent]), t2, ctx2, fps, traj=tr)
-        eps = eps[1:] + guidance_scale * (eps[:1] - eps[1:])
+        x = latent if concat is None else torch.cat([latent, concat], dim=-1)
+        eps = model.apply_unet(torch.cat([x, x]), t2, ctx2, fps, traj=tr)
+        eps = guided(eps[:1], eps[1:], guidance_scale, guidance_rescale)
         latent, den = ddim_step(sched, latent, eps, torch.full((Fn,), index))
     return latent, den
 
@@ -68,6 +81,7 @@ def basic_sample(model, prompt: str, height: int = 320, width: int = 512, frames
     latent [1, F, h, w, C])."""
     if model.config.unet.use_image_attention:
         raise ValueError("basic_sample is the t2v path; use the i2v pipelines for image cond")
+    refuse_concat(model, "t2v.basic_sample")
     sched = make_schedule_for_model(model, num_inference_steps)
     vs = model.config.vae.spatial_scale
     h, w = height // vs, width // vs
@@ -76,7 +90,7 @@ def basic_sample(model, prompt: str, height: int = 320, width: int = 512, frames
     if latents is None:
         if skip_time_step_idx:
             raise ValueError("skip_time_step_idx requires a prepared latent")
-        latents = draw_noise((1, frames, h, w, model.config.unet.in_channels), model.device, generator,
+        latents = draw_noise((1, frames, h, w, model.config.unet.out_channels), model.device, generator,
                              noise_fn, "init")
     latents = torch.as_tensor(latents, dtype=torch.float32, device=model.device)
     _, den = basic_sample_loop(model, sched, latents, context, uncond, guidance_scale, fps,
@@ -100,6 +114,7 @@ def freetraj_sample(model, prompt: str, traj_keyframes: Sequence[Sequence[float]
     None, denoised latent [1, F, h, w, C])."""
     if model.config.unet.use_image_attention:
         raise ValueError("freetraj_sample is a t2v path; i2v conditioning unsupported")
+    refuse_concat(model, "freetraj_sample")
     sched = make_schedule_for_model(model, num_inference_steps)
     vs = model.config.vae.spatial_scale
     h, w = height // vs, width // vs
@@ -110,7 +125,7 @@ def freetraj_sample(model, prompt: str, traj_keyframes: Sequence[Sequence[float]
         batch=2,  # CFG-packed (cond, uncond)
         temporal_attn=traj_classes[0], self_attn=traj_classes[1], cross_attn=traj_classes[2], device=model.device,
     )
-    latents = draw_noise((1, frames, h, w, model.config.unet.in_channels), model.device, generator, noise_fn,
+    latents = draw_noise((1, frames, h, w, model.config.unet.out_channels), model.device, generator, noise_fn,
                          "init")
     _, den = basic_sample_loop(model, sched, latents, context, uncond, guidance_scale, fps, traj=traj,
                                traj_thres=traj_thres)
@@ -189,6 +204,7 @@ def sample_shift_multi_windows(
     numpy generator seeded from a draw of ``generator`` (the JAX package
     seeds it from its init key, which cannot be reproduced here: a test
     hands both the same order)."""
+    refuse_concat(model, "t2v.sample_shift_multi_windows")
     sched = make_schedule_for_model(model, num_inference_steps)
     vs = model.config.vae.spatial_scale
     wh, ww = height // vs, width // vs
@@ -207,7 +223,7 @@ def sample_shift_multi_windows(
 
     S = sched.num_ddim_steps
     dev = model.device
-    shape = (1, grid.total_f, grid.total_h, grid.total_w, model.config.unet.in_channels)
+    shape = (1, grid.total_f, grid.total_h, grid.total_w, model.config.unet.out_channels)
     residual = None
     with span("request.init"):
         if init_panorama_latent is not None:

@@ -50,6 +50,8 @@ from torch_port_helpers import (close_fp32_chain, i2v_jax_params, i2v_twin_model
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX CLI's flags for its TPU server and XLA compiles, not ported
 DROPPED = {"aot_warm", "warm_probe", "repeat_warm", "resident_pass"}
+# the port's own flags, which the JAX CLI does not have: the preset and the guidance rescale
+PORT_ONLY = {"model": ("videocrafter_i2v_512", "str"), "guidance_rescale": (0.0, "float")}
 LATENTS = ("sphere_SW_latent.npy", "basic_SW_latent.npy", "denoised_latent2x.npy")
 SEED = 11
 
@@ -124,9 +126,10 @@ def test_cli_writes_the_jax_files_and_args(twin_runs):
     assert set(os.listdir(tdir)) == set(os.listdir(jdir)) | {"e2e.json"}
     jargs = json.load(open(os.path.join(jdir, "args.json")))
     targs = json.load(open(os.path.join(tdir, "args.json")))
-    assert set(targs) == set(jargs) - DROPPED
-    assert {k: targs[k] for k in targs if k not in ("project_name",)} == \
-        {k: jargs[k] for k in targs if k not in ("project_name",)}
+    assert set(targs) == (set(jargs) - DROPPED) | set(PORT_ONLY)
+    assert {k: targs[k] for k in targs if k not in ("project_name", *PORT_ONLY)} == \
+        {k: jargs[k] for k in targs if k not in ("project_name", *PORT_ONLY)}
+    assert {k: targs[k] for k in PORT_ONLY} == {k: v[0] for k, v in PORT_ONLY.items()}
     e2e = json.load(open(os.path.join(tdir, "e2e.json")))
     assert e2e["device"] == "cpu" and set(e2e["stages_sec"]) == {"sphere", "planar_1x", "upscale"}
     # dev_tiny: stage 1 runs 3 steps, stages 2 and 3 one each (4 steps, skip 3)
@@ -150,12 +153,13 @@ def test_cli_resume_reproduces_the_full_run(pano, tmp_path):
 def test_vargs_match_jax_less_the_warm_flags():
     ours = {f.name: (f.default, f.type) for f in dataclasses.fields(cli.VArgs)}
     ref = {f.name: (f.default, f.type) for f in dataclasses.fields(jcli.VArgs) if f.name not in DROPPED}
-    assert ours == ref
+    assert {k: v for k, v in ours.items() if k not in PORT_ONLY} == ref
+    assert {k: ours[k] for k in PORT_ONLY} == PORT_ONLY
     # the same parsing, bools included
     argv = ["--skip_1x", "yes", "--do_upscale", "false", "--guidance_scale", "5", "--phi_num", "4"]
     a = dataclasses.asdict(cli.VArgs.from_args(argv))
     b = dataclasses.asdict(jcli.VArgs.from_args(argv))
-    assert a == {k: v for k, v in b.items() if k not in DROPPED}
+    assert {k: v for k, v in a.items() if k not in PORT_ONLY} == {k: v for k, v in b.items() if k not in DROPPED}
     assert a["skip_1x"] is True and a["do_upscale"] is False and a["guidance_scale"] == 5.0
 
 

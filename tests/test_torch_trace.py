@@ -71,9 +71,9 @@ EXPECTED = {
     "t2v": ["request", "request.text", "request.text", "request.init", "request.plan", *STEP, "request.decode"],
 }
 COUNTS = {
-    "sphere": {"request.maps": {"views": 6}, "request.image": {"crops": 6}, "request.static": {"tiles": 16},
+    "sphere": {"request.maps": {"views": 6}, "request.image": {"crops": 6, "tokens": 24}, "request.static": {"tiles": 16},
                "step": {"pairs": 3}, "unet": {"forwards": 3, "rows": 6}, "request.decode": {"frames": 4}},
-    "planar": {"request.image": {"crops": 4}, "request.static": {"tiles": 16}, "step": {"windows": 2},
+    "planar": {"request.image": {"crops": 4, "tokens": 16}, "request.static": {"tiles": 16}, "step": {"windows": 2},
                "unet": {"forwards": 1, "rows": 4}, "request.decode": {"frames": 4}},
     "t2v": {"request.text": {"prompts": 1}, "step": {"windows": 4}, "unet": {"forwards": 2, "rows": 8},
             "request.decode": {"frames": 8}},
