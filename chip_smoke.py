@@ -59,7 +59,10 @@ Phases, in order, one result line each (any failure exits non-zero):
    (M, K, N, prologue, epilogue mode, row map, calls per forward) against
    ``cuda_lib.ln_gemm_plain`` under the same gates, with its time, TFLOP/s
    and share of the 989 TFLOP/s peak, bound and ``F.linear`` on the same bf16
-   operands (a yardstick; the port never calls it). Then the
+   operands (a yardstick; the port never calls it), the parent's pick (the
+   planner's table before the 160-column widths) timed beside the
+   planner's, every (schedule, BN) held to cooperative BN 128 bit for bit,
+   and the forward's launches by (schedule, BN). Then the
    transformer module at every legal level (mega, wrap+blk, wrap+sub) at
    every (side, width) of the batch-8 i2v forward, the fold included, and
    one line saying whether ``PLAN_DEFAULT`` still names each shape's fastest
@@ -1902,15 +1905,34 @@ def _gemm_f32_block_n(block_n):
 
 
 @contextlib.contextmanager
-def _gemm_schedule(schedule):
+def _gemm_schedule(schedule, block_n=None):
     """ds_ln_gemm on one schedule (at the column width and ring stages the
-    planner gives it there), inside the block."""
+    planner gives it there, or at ``block_n``), inside the block."""
     plan = cuda_lib.gemm_tile
-    cuda_lib.gemm_tile = lambda M, K, N, mode=cuda_lib.MODE_STORE: plan(M, K, N, mode, schedule=schedule)
+    cuda_lib.gemm_tile = lambda M, K, N, mode=cuda_lib.MODE_STORE: plan(M, K, N, mode, schedule=schedule,
+                                                                         block_n=block_n)
     try:
         yield
     finally:
         cuda_lib.gemm_tile = plan
+
+
+# The planner's cost table before the 160-column widths (cooperative 320,
+# ping-pong 160) were added, for the parent's pick beside the planner's
+def _parent_pick(M, K, N, mode):
+    """(schedule, BN) that gemm_tile chose among cooperative 64 / 128 / 256
+    and ping-pong 128 with its cost table of then."""
+    table = {("cooperative", 256): (0.01302, (4.785, 14.04, 4.717)),
+             ("cooperative", 128): (0.00798, (2.518, 6.964, 2.498)),
+             ("cooperative", 64): (0.00568, (1.437, 3.895, 1.388)),
+             ("pingpong", 128): (0.0094, (5.596, 7.905, 6.634))}
+
+    def cost(c):
+        per_k, per_tile = table[c]
+        products, epilogue = K * per_k, per_tile[mode]
+        tile = max(products, (products + epilogue) / 2) if c[0] == "pingpong" else products + epilogue
+        return -(-(-(-M // cuda_lib.GEMM_BM)) * cuda_lib.gemm_n_tiles(N, c[1], mode) // cuda_lib.GEMM_SMS) * tile
+    return min((c for c in table if mode != cuda_lib.MODE_GEGLU or (N // 2) % (c[1] // 2) == 0), key=cost)
 
 
 def _prologue_ms(x, w, kw, ms):
@@ -1934,18 +1956,21 @@ def _phase_gemms(calls, dt=BF, phase="phase 3", where=None):
     cores' 67), bound (the larger of 2MNK over the peak and the bytes over
     the HBM rate: inputs read once, the output written once), F.linear on
     the same operands (fp32: TF32 off), and in fp32 the plain version's ms
-    and the kernel at the planner's other column width. In bf16 also each
-    schedule's tile and ms (the planner's choice marked), both held to the
-    gates, the largest difference of the ping-pong output from the
-    cooperative one, and the prologue pass's own ms (:func:`_prologue_ms`). Then
-    the sums per forward (calls x ms) and the compute-bound shapes with M >=
-    20480 and K, N >= 640 below 40% of the peak."""
+    and the kernel at the planner's other column width. In bf16 also the
+    parent's pick (:func:`_parent_pick`: the widths before the 160-column
+    products) and its ms, each schedule's tile and ms (the planner's choice
+    marked), both held to the gates, every (schedule, BN) the shape admits
+    held to cooperative BN 128's output bit for bit, and the prologue pass's
+    own ms (:func:`_prologue_ms`). Then the sums per forward (calls x ms;
+    bf16: the planner's and the parent's picks, and the forward's launches
+    by (schedule, BN)) and the compute-bound shapes with M >= 20480 and K, N
+    >= 640 below 40% of the peak."""
     rn = _gen()
     fp32 = dt == F32
     peak = PEAK_TF32X3 if fp32 else PEAK_BF16
     where = where or (FP32_I2V if fp32 else I2V_FWD)
     bad, low = [], []
-    tot = collections.Counter()
+    tot, widths = collections.Counter(), collections.Counter()
     for key, n in sorted(calls.items(), key=lambda kv: -kv[0][0][0] * kv[0][0][1] * kv[0][1][0]):
         (M, K), (N, _), pro, rps, fmap, has_bias, mode = key
         x, w, kw = _gemm_case(key, rn, dt)
@@ -1985,11 +2010,11 @@ def _phase_gemms(calls, dt=BF, phase="phase 3", where=None):
                      f"({flops / ms / 1e9:.0f} TFLOP/s, {100 * share:.1f}% of 989) bound {bound:.4f} ms "
                      f"({'bytes' if byte_ms >= op_ms else 'operations'}) F.linear {lib_ms:.3f} ms")
         if not fp32:
-            outs, scheds = {}, []
+            scheds = []
             for sched in cuda_lib.GEMM_BLOCK_N:
                 with _gemm_schedule(sched):
                     t = cuda_lib.gemm_tile(M, K, N, mode)
-                    outs[sched] = out = cuda_lib.ln_gemm(x, w, **kw)
+                    out = cuda_lib.ln_gemm(x, w, **kw)
                     torch.cuda.synchronize()
                     d = out.float() - ref_f
                     if not (bool(torch.isfinite(out).all()) and float(d.abs().max()) <= tol
@@ -1999,11 +2024,30 @@ def _phase_gemms(calls, dt=BF, phase="phase 3", where=None):
                 tot[sched] += n * sched_ms
                 scheds.append(f"{sched} 128x{t.block_n}x{t.stages} {sched_ms:.3f} ms"
                               + (" (chosen)" if sched == tile.schedule else ""))
-            pp_diff = float((outs["pingpong"].float() - outs["cooperative"].float()).abs().max())
-            del outs, out, d
+            del out, d
+            # every width the shape admits against cooperative BN 128, bit for bit
+            with _gemm_schedule("cooperative", 128):
+                base = cuda_lib.ln_gemm(x, w, **kw)
+            differ = []
+            for sched, bns in cuda_lib.GEMM_BLOCK_N.items():
+                for bn in bns:
+                    if mode == cuda_lib.MODE_GEGLU and (N // 2) % (bn // 2):
+                        continue
+                    with _gemm_schedule(sched, bn):
+                        if not torch.equal(cuda_lib.ln_gemm(x, w, **kw), base):
+                            differ.append(f"{sched} {bn}")
+            ok = ok and not differ
+            del base
+            par = _parent_pick(M, K, N, mode)
+            with _gemm_schedule(*par):
+                par_ms = _time_ms(lambda: cuda_lib.ln_gemm(x, w, **kw), 10)
+            tot["parent"] += n * par_ms
+            widths[tile.schedule, tile.block_n] += n
             pro_ms = _prologue_ms(x, w, kw, ms) if pro != "-" else 0.0
             tot["prologue"] += n * pro_ms
-            line += (f"; {', '.join(scheds)}; ping-pong vs cooperative max_abs_diff {pp_diff:.5g}"
+            line += (f"; parent's pick {par[0]} 128x{par[1]} {par_ms:.3f} ms ({ms / par_ms - 1:+.1%} chosen against it)"
+                     f"; {', '.join(scheds)}; every width equal to cooperative 128 bit for bit: "
+                     + ("yes" if not differ else f"NO: {differ}")
                      + (f"; prologue pass {pro_ms:.4f} ms" if pro != "-" else ""))
         if fp32:
             other = 64 if tile.block_n == 128 else 128
@@ -2031,8 +2075,12 @@ def _phase_gemms(calls, dt=BF, phase="phase 3", where=None):
     print(f"{phase} gemm sums per {where} ({tot['calls']} calls, {len(calls)} shapes): kernel {tot['ms']:.2f} ms, "
           f"F.linear {tot['lib']:.2f} ms, bound {tot['bound']:.2f} ms"
           + (f", plain {tot['plain']:.2f} ms, bound at 67 TFLOP/s {tot['bound_cc']:.2f} ms" if fp32 else
-             "".join(f", {sched} alone {tot[sched]:.2f} ms" for sched in cuda_lib.GEMM_BLOCK_N)
-             + f", of the kernel the prologue passes {tot['prologue']:.2f} ms")
+             f", the parent's picks {tot['parent']:.2f} ms"
+             + "".join(f", {sched} alone {tot[sched]:.2f} ms" for sched in cuda_lib.GEMM_BLOCK_N)
+             + f", of the kernel the prologue passes {tot['prologue']:.2f} ms; launches by width "
+             + ", ".join(f"{s} {bn}: {k}" for (s, bn), k in sorted(widths.items()))
+             + f" ({sum(k for (_, bn), k in widths.items() if bn in (160, 320))} of {tot['calls']} on 160-column"
+             " products)")
           + f"; compute-bound shapes with M >= 20480, K, N >= 640 below 40% of "
           + ("the bound" if fp32 else "989 TFLOP/s") + f": {low or 'none'}", flush=True)
     if bad:

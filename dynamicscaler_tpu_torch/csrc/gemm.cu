@@ -44,8 +44,8 @@
 // M = 327680, ~100 operations a byte) are byte-bound. So the design keeps the
 // tensor cores fed and streams every operand once:
 //   * a persistent grid (one block per SM) walks the 128 x BN output tiles
-//     (BN 64, 128 or 256, chosen per shape on the host: cuda_lib.gemm_tile),
-//     column tiles fastest, so the blocks in flight share their A rows in L2;
+//     (chosen per shape on the host: cuda_lib.gemm_tile), column tiles
+//     fastest, so the blocks in flight share their A rows in L2;
 //   * a producer thread fills a ring of `stages` (A, B) tiles in shared
 //     memory with TMA copies (cp.async.bulk.tensor, 128-byte swizzle,
 //     completion on an mbarrier per stage; out-of-bounds rows of a ragged M
@@ -58,26 +58,36 @@
 //     registers to them), on one of two schedules that cuda_lib.gemm_tile
 //     picks per (M, K, N, mode) from a cost model fitted to the card's times
 //     (chip_smoke.py phase 3 times every forward shape on both):
-//     - cooperative (ds_ln_gemm, ds_gemm_kernel<BN>): both warpgroups work on
-//       the same 128 x BN tile, 64 rows each (wgmma m64nBNk16), so the two
-//       share each B tile: the fewest operand bytes a product (BN 256 reads
-//       a third fewer than 128 x 128). Their epilogue runs together after
-//       the tile's last product: bias (and GEGLU) from the registers into a
-//       bf16 staging tile of its own (not the ring, which already loads the
-//       next tile), then each row out in 16-byte pieces, the residual read
-//       the same way and the output row map applied per row; no product is
-//       issued meanwhile. Chosen where the products dwarf the epilogue (long
-//       K) or where the GEGLU epilogue, heavy in erff, wants both
-//       warpgroups' warps at once (K 320-512);
-//     - ping-pong (ds_ln_gemm_pingpong, ds_gemm_kernel_pingpong): each
-//       warpgroup owns whole 128 x 128 tiles (two m64n128k16 products a k16
-//       step), the block's tiles alternating between them; a pair of named
-//       barriers gives the tensor cores to one warpgroup's mainloop at a
-//       time, and each warpgroup's epilogue runs under the other's mainloop.
+//     - cooperative (ds_ln_gemm, ds_gemm_kernel<BN>, BN 64, 128, 256 or
+//       320): both warpgroups work on the same 128 x BN tile, 64 rows each
+//       (wgmma m64nBNk16; at BN 320 two m64n160k16 products side by side),
+//       so the two share each B tile: the fewest operand bytes a product
+//       (BN 256 reads a third fewer than 128 x 128). BN 320 spans a whole
+//       N-320 GEMM (the C 320 level's store and residual shapes): each A row
+//       block is staged once and W exactly once, with no zero columns (BN
+//       128 stages A three times and pads 320 to 384; 256 pads to 512).
+//       Their epilogue runs together after the tile's last product: bias
+//       (and GEGLU) from the registers into a bf16 staging tile of its own
+//       (not the ring, which already loads the next tile), then each row out
+//       in 16-byte pieces, the residual read the same way and the output row
+//       map applied per row (one product's columns at a time, so BN 320's
+//       staging is 160 wide and three ring stages still fit beside it: a
+//       320-wide one would leave room for two); no product is issued
+//       meanwhile. Chosen where the
+//       products dwarf the epilogue (long K) or where the GEGLU epilogue,
+//       heavy in erff, wants both warpgroups' warps at once (K 320-512);
+//     - ping-pong (ds_ln_gemm_pingpong, ds_gemm_kernel_pingpong<BN>): each
+//       warpgroup owns whole 128 x BN tiles, BN 128 or 160 (two m64nBNk16
+//       products a k16 step; 160 makes an N-320 GEMM two column tiles, not
+//       three, with no padding), the block's tiles alternating between
+//       them; a pair of named barriers gives the tensor cores to one
+//       warpgroup's mainloop at a time, and each warpgroup's epilogue runs
+//       under the other's mainloop.
 //       The epilogue's memory traffic leaves the instruction stream: the
 //       producer loads the residual tile by TMA into the warpgroup's output
-//       tile (128-byte swizzle, 64-column boxes; MAP_OUT as a 3-D box {64,
-//       hb, F} over [B*F, HW, N]) ahead of the epilogue, on an mbarrier of
+//       tile (64-column boxes in the 128-byte swizzle; at BN 160 32-column
+//       boxes in the 64-byte swizzle; MAP_OUT as a 3-D box {64 or 32, hb,
+//       F} over [B*F, HW, N]) ahead of the epilogue, on an mbarrier of
 //       its own; the epilogue rounds in place and one thread stores the tile
 //       by TMA (bulk-group commit, then wait for the read before the tile is
 //       reused, on a second mbarrier). Where no box fits the clip (MAP_OUT at
@@ -105,9 +115,8 @@
 //     the pass costs one write and one read of M x K bf16, about a tenth of
 //     these GEMMs' time a forward (the pass is launched by ds_ln_gemm, so its
 //     time is the GEMM's; chip_smoke.py phase 3 times it alone).
-// Not done yet: clusters with multicast of the A tile (the K 320 shapes'
-// operand bytes a product bound both schedules), one column tile over all of
-// N at N 320, the prologue pass fused into the previous kernel's epilogue.
+// Not done yet: clusters with multicast of the A tile, the prologue pass fused
+// into the previous kernel's epilogue.
 
 #include "hopper.cuh"
 
@@ -131,7 +140,6 @@ constexpr int PRODUCER_REGS = 40;  // 2 * 128 * 232 + 128 * 40 = 64512 of the 65
 
 enum { MAP_NONE = 0, MAP_A = 1, MAP_OUT = 2 };
 
-constexpr int PP_BN = 128;  // the ping-pong tile: 128 x 128 a warpgroup (two m64n128 products a k16 step)
 
 struct Params {
   int M, K, N;                 // N: rows of W (2 * N_out in mode 2)
@@ -144,10 +152,24 @@ struct Params {
   bf16* Y;
 };
 
-// bf16 staging of the output tile for the epilogue: 128 rows of BN values,
-// the row pitch padded by 8 (the accumulator stores hit distinct banks).
-__host__ __device__ constexpr int epilogue_pitch(int bn) { return bn + 8; }
+// Width of one wgmma product of a cooperative tile BN wide: the tile itself
+// up to 256 (wgmma's widest), else two products of BN / 2 (BN 320: two
+// m64n160 products side by side, columns 0-159 and 160-319).
+__host__ __device__ constexpr int product_n(int bn) { return bn > 256 ? bn / 2 : bn; }
+
+// bf16 staging of the output for the cooperative epilogue, one product's
+// columns at a time: 128 rows of product_n(BN) values, the row pitch padded
+// by 8 (the accumulator stores hit distinct banks).
+__host__ __device__ constexpr int epilogue_pitch(int bn) { return product_n(bn) + 8; }
 __host__ __device__ constexpr int epilogue_bytes(int bn) { return BM * epilogue_pitch(bn) * 2; }
+
+// Accumulator i of a thread's row of a tile held as products of H values
+// each (the flat layout of one wgmma as wide as the tile; i is a constant
+// after unrolling, so this stays in registers).
+template <int P, int H>
+__device__ __forceinline__ float& acc_at(float (&acc)[P][H], int i) {
+  return acc[i / H][i % H];
+}
 
 __device__ __forceinline__ float gelu_erf(float g) {
   return g * 0.5f * (1.0f + erff(g * 0.70710678118654752f));
@@ -258,7 +280,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 ds_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB, const Params p) {
   constexpr int B_BYTES = BN * BK * 2;
   constexpr int STAGE = A_BYTES + B_BYTES;
-  constexpr int ACC = BN / 2;  // fp32 accumulators per consumer thread
+  constexpr int PN = product_n(BN);  // columns of one wgmma product
+  constexpr int P = BN / PN;         // products a k16 step (2 at BN 320)
+  constexpr int ACC = PN / 2;        // fp32 accumulators per consumer thread and product
   constexpr int PITCH = epilogue_pitch(BN);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + SMEM_ALIGN - 1) &
@@ -303,9 +327,9 @@ ds_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ 
           mbar_expect_tx(&full[s], STAGE);
           if (p.map == MAP_A) tma_load_3d(sa, &tmA, &full[s], kt * BK, a1, a2);
           else tma_load_2d(sa, &tmA, &full[s], kt * BK, a1);
-          if (geglu) {
+          if (geglu || P > 1) {  // two boxes of BN / 2 rows: value and gate rows, or BN 320's halves
             tma_load_2d(sb, &tmB, &full[s], kt * BK, n0);
-            tma_load_2d(sb + B_BYTES / 2, &tmB, &full[s], kt * BK, p.N / 2 + n0);
+            tma_load_2d(sb + B_BYTES / 2, &tmB, &full[s], kt * BK, (geglu ? p.N / 2 : BN / 2) + n0);
           } else {
             tma_load_2d(sb, &tmB, &full[s], kt * BK, n0);
           }
@@ -317,16 +341,19 @@ ds_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ 
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int warp = tid >> 5, lane = tid & 31;
     const int n_out = geglu ? p.N / 2 : p.N;
-    constexpr int UNITS = BN / 8;  // 8-output pieces of a row (half of them in GEGLU)
-    const int units = geglu ? UNITS / 2 : UNITS;
+    // 8-output pieces of a staged row: a product's columns, or in GEGLU the
+    // BN / 2 outputs of the whole tile (value and gate paired)
+    const int units = geglu ? BN / 16 : PN / 8;
     bf16* stage_rows = staging + wg * 64 * PITCH;
     int it = 0;
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
       const int m0 = (tile / p.n_tiles) * BM;
       const int n0 = (tile % p.n_tiles) * (geglu ? BN / 2 : BN);
-      float acc[ACC];
+      float acc[P][ACC];
 #pragma unroll
-      for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+      for (int j = 0; j < P; ++j)
+#pragma unroll
+        for (int i = 0; i < ACC; ++i) acc[j][i] = 0.f;
       // Per stage: wait for it, issue the products, wait for them, hand the
       // stage back; the two warpgroups take turns on the tensor cores.
       // (Keeping a group in flight, wait_group 1, makes ptxas serialize the
@@ -339,72 +366,83 @@ ds_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ 
         const uint64_t db = smem_desc(smem + s * STAGE + A_BYTES);
         wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < BK / 16; ++k) Wgmma<BN>::mma(acc, da + 2 * k, db + 2 * k, 1);
+        for (int k = 0; k < BK / 16; ++k)
+#pragma unroll
+          for (int j = 0; j < P; ++j) Wgmma<PN>::mma(acc[j], da + 2 * k, db + j * (PN * 128 >> 4) + 2 * k, 1);
         wgmma_commit();
         wgmma_wait<0>();
         if (lane == 0) mbar_arrive(&empty[s]);
       }
-      fence_acc(acc);
+#pragma unroll
+      for (int j = 0; j < P; ++j) fence_acc(acc[j]);
 
       // ---- epilogue ----
       // Thread (warp w, lane l) holds rows 16w + l/4 (+8) and, for each
-      // 8-column group g, columns 8g + 2(l%4) + {0, 1}: acc[4g + 2h + {0, 1}]
-      // for row half h. Bias (and GEGLU) here, into the bf16 staging rows.
+      // 8-column group g of the tile, columns 8g + 2(l%4) + {0, 1}:
+      // acc_at(4g + 2h + {0, 1}) for row half h. Bias (and GEGLU) here, into
+      // the bf16 staging rows, one product's columns a pass (GEGLU: its
+      // BN / 2 outputs in one pass, value column c paired with gate column
+      // c + BN / 2).
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        bf16* srow = stage_rows + (warp * 16 + (lane >> 2) + 8 * h) * PITCH + 2 * (lane & 3);
-        if (geglu) {
+      for (int j = 0; j < P; ++j) {
+        if (geglu && j > 0) break;
 #pragma unroll
-          for (int g = 0; g < BN / 16; ++g) {
-            const int n = n0 + 8 * g + 2 * (lane & 3);
-            float2 v = make_float2(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
-            float2 gt = make_float2(acc[4 * (g + BN / 16) + 2 * h], acc[4 * (g + BN / 16) + 2 * h + 1]);
-            if (p.bias) {
-              const float2 bv = __ldg(reinterpret_cast<const float2*>(p.bias + n));
-              const float2 bg = __ldg(reinterpret_cast<const float2*>(p.bias + p.N / 2 + n));
-              v.x += bv.x; v.y += bv.y; gt.x += bg.x; gt.y += bg.y;
+        for (int h = 0; h < 2; ++h) {
+          bf16* srow = stage_rows + (warp * 16 + (lane >> 2) + 8 * h) * PITCH + 2 * (lane & 3);
+          if (geglu) {
+#pragma unroll
+            for (int g = 0; g < BN / 16; ++g) {
+              const int n = n0 + 8 * g + 2 * (lane & 3);
+              float2 v = make_float2(acc_at(acc, 4 * g + 2 * h), acc_at(acc, 4 * g + 2 * h + 1));
+              float2 gt = make_float2(acc_at(acc, 4 * (g + BN / 16) + 2 * h),
+                                      acc_at(acc, 4 * (g + BN / 16) + 2 * h + 1));
+              if (p.bias) {
+                const float2 bv = __ldg(reinterpret_cast<const float2*>(p.bias + n));
+                const float2 bg = __ldg(reinterpret_cast<const float2*>(p.bias + p.N / 2 + n));
+                v.x += bv.x; v.y += bv.y; gt.x += bg.x; gt.y += bg.y;
+              }
+              v = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+              gt = __bfloat1622float2(__floats2bfloat162_rn(gt.x, gt.y));
+              *reinterpret_cast<__nv_bfloat162*>(srow + 8 * g) =
+                  __floats2bfloat162_rn(v.x * gelu_erf(gt.x), v.y * gelu_erf(gt.y));
             }
-            v = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
-            gt = __bfloat1622float2(__floats2bfloat162_rn(gt.x, gt.y));
-            *reinterpret_cast<__nv_bfloat162*>(srow + 8 * g) =
-                __floats2bfloat162_rn(v.x * gelu_erf(gt.x), v.y * gelu_erf(gt.y));
-          }
-        } else {
+          } else {
 #pragma unroll
-          for (int g = 0; g < BN / 8; ++g) {
-            const int n = n0 + 8 * g + 2 * (lane & 3);
-            float2 v = make_float2(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
-            if (p.bias && n < p.N) {
-              const float2 b = __ldg(reinterpret_cast<const float2*>(p.bias + n));
-              v.x += b.x; v.y += b.y;
+            for (int g = 0; g < PN / 8; ++g) {
+              const int n = n0 + j * PN + 8 * g + 2 * (lane & 3);
+              float2 v = make_float2(acc[j][4 * g + 2 * h], acc[j][4 * g + 2 * h + 1]);
+              if (p.bias && n < p.N) {
+                const float2 b = __ldg(reinterpret_cast<const float2*>(p.bias + n));
+                v.x += b.x; v.y += b.y;
+              }
+              *reinterpret_cast<__nv_bfloat162*>(srow + 8 * g) = __floats2bfloat162_rn(v.x, v.y);
             }
-            *reinterpret_cast<__nv_bfloat162*>(srow + 8 * g) = __floats2bfloat162_rn(v.x, v.y);
           }
         }
-      }
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-      // Rows out in 16-byte pieces, the residual added in bf16 (mode 1).
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+        // Rows out in 16-byte pieces, the residual added in bf16 (mode 1).
 #pragma unroll 4
-      for (int q = tid; q < 64 * units; q += 128) {
-        const int rr = q / units, u = q - rr * units;
-        const int m = logical_row(p, m0, wg * 64 + rr);
-        const int n = n0 + 8 * u;
-        if (m >= p.M || n >= n_out) continue;  // a ragged last row or column tile
-        const size_t row = p.map == MAP_OUT ? frame_major_row(m, p.map_F, p.map_HW) : (size_t)m;
-        uint4 out = *reinterpret_cast<const uint4*>(stage_rows + rr * PITCH + 8 * u);
-        if (p.mode == 1) {
-          const uint4 rv = __ldg(reinterpret_cast<const uint4*>(p.R + row * n_out + n));
-          __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
-          const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&rv);
+        for (int q = tid; q < 64 * units; q += 128) {
+          const int rr = q / units, u = q - rr * units;
+          const int m = logical_row(p, m0, wg * 64 + rr);
+          const int n = n0 + j * PN + 8 * u;
+          if (m >= p.M || n >= n_out) continue;  // a ragged last row or column tile
+          const size_t row = p.map == MAP_OUT ? frame_major_row(m, p.map_F, p.map_HW) : (size_t)m;
+          uint4 out = *reinterpret_cast<const uint4*>(stage_rows + rr * PITCH + 8 * u);
+          if (p.mode == 1) {
+            const uint4 rv = __ldg(reinterpret_cast<const uint4*>(p.R + row * n_out + n));
+            __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+            const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&rv);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 a = __bfloat1622float2(o[e]), b = __bfloat1622float2(r2[e]);
-            o[e] = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+            for (int e = 0; e < 4; ++e) {
+              const float2 a = __bfloat1622float2(o[e]), b = __bfloat1622float2(r2[e]);
+              o[e] = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+            }
           }
+          *reinterpret_cast<uint4*>(p.Y + row * n_out + n) = out;
         }
-        *reinterpret_cast<uint4*>(p.Y + row * n_out + n) = out;
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // staging free again
       }
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // staging free again
     }
   }
 }
@@ -412,15 +450,21 @@ ds_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ 
 // ---- the ping-pong schedule ---------------------------------------------------------
 
 // A ping-pong warpgroup's output tile in shared memory: 128 rows of BN bf16
-// as BN / 64 blocks of [128][64] in the 128-byte swizzle, the box layout of
-// the TMA store (and of the residual's TMA load into the same bytes).
+// as BN / OC blocks of [128][OC], the box layout of the TMA store (and of the
+// residual's TMA load into the same bytes): OC 64 columns in the 128-byte
+// swizzle where 64 divides BN, else (BN 160) 32 columns in the 64-byte
+// swizzle, so that no box runs into the next tile's columns.
 __host__ __device__ constexpr int pp_out_bytes(int bn) { return BM * bn * 2; }
+__host__ __device__ constexpr int pp_box_cols(int bn) { return bn % 64 == 0 ? 64 : 32; }
 
-// Byte offset of (row r, column c) in that tile: 16-byte piece c / 8 of a
-// 128-byte row lands at piece (c / 8) ^ (r % 8), so the 8 rows of an
-// accumulator store hit 8 distinct pieces (all 32 banks).
+// Byte offset of (row r, column c) in that tile: in a block of OC-column
+// rows (2 * OC bytes), 16-byte piece q of the 128-byte line at offset o
+// lands at q ^ ((o / 128) % (2 * OC / 16)): the TMA swizzle of that width.
+// So the 8 rows of an accumulator store hit 8 distinct pieces (all 32 banks).
+template <int OC>
 __device__ __forceinline__ int swizzled(int r, int c) {
-  return (c >> 6) * (BM * 128) + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1);
+  const int o = r * (2 * OC) + ((c % OC) << 1);
+  return (c / OC) * (BM * 2 * OC) + (o ^ (((o >> 7) & (2 * OC / 16 - 1)) << 4));
 }
 
 // Row of the output tile in shared memory for accumulator row i: the
@@ -452,16 +496,17 @@ __device__ __forceinline__ void clip_coords(const Params& p, int m0, int& hw0, i
 // and one thread stores the tile by TMA. One k step's products stay in
 // flight while the next step's are issued (the cooperative schedule waits
 // for each step's: there the other warpgroup fills the gap).
+template <int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 ds_gemm_kernel_pingpong(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
                         const __grid_constant__ CUtensorMap tmR, const __grid_constant__ CUtensorMap tmY,
                         const Params p) {
-  constexpr int BN = PP_BN;
   constexpr int B_BYTES = BN * BK * 2;
   constexpr int STAGE = A_BYTES + B_BYTES;
   constexpr int ACC = BN / 2;  // fp32 accumulators per thread for each 64-row half of the tile
   constexpr int OUT = pp_out_bytes(BN);
-  constexpr int BOX = BM * 128;  // bytes of one 64-column box of the output tile
+  constexpr int OC = pp_box_cols(BN);
+  constexpr int BOX = BM * OC * 2;  // bytes of one OC-column box of the output tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + SMEM_ALIGN - 1) &
                                              ~uintptr_t(SMEM_ALIGN - 1));
@@ -525,11 +570,11 @@ ds_gemm_kernel_pingpong(const __grid_constant__ CUtensorMap tmA, const __grid_co
             const int w = q & 1, j = q >> 1;
             if (j > 0) mbar_wait(&out_free[w], (j - 1) & 1);
             uint8_t* dst = outs + w * OUT;
-            const int boxes = ((n_out - n0 < cols ? n_out - n0 : cols) + 63) / 64;
+            const int boxes = ((n_out - n0 < cols ? n_out - n0 : cols) + OC - 1) / OC;
             mbar_expect_tx(&res_full[w], boxes * BOX);
             for (int b = 0; b < boxes; ++b) {
-              if (out3d) tma_load_3d(dst + b * BOX, &tmR, &res_full[w], n0 + 64 * b, c1, c2);
-              else tma_load_2d(dst + b * BOX, &tmR, &res_full[w], n0 + 64 * b, c1);
+              if (out3d) tma_load_3d(dst + b * BOX, &tmR, &res_full[w], n0 + OC * b, c1, c2);
+              else tma_load_2d(dst + b * BOX, &tmR, &res_full[w], n0 + OC * b, c1);
             }
           }
         }
@@ -600,7 +645,7 @@ ds_gemm_kernel_pingpong(const __grid_constant__ CUtensorMap tmA, const __grid_co
               }
               v = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
               gt = __bfloat1622float2(__floats2bfloat162_rn(gt.x, gt.y));
-              *reinterpret_cast<__nv_bfloat162*>(out + swizzled(r, c)) =
+              *reinterpret_cast<__nv_bfloat162*>(out + swizzled<OC>(r, c)) =
                   __floats2bfloat162_rn(v.x * gelu_erf(gt.x), v.y * gelu_erf(gt.y));
             }
           } else {
@@ -612,7 +657,7 @@ ds_gemm_kernel_pingpong(const __grid_constant__ CUtensorMap tmA, const __grid_co
                 const float2 b = __ldg(reinterpret_cast<const float2*>(p.bias + n0 + c));
                 v.x += b.x; v.y += b.y;
               }
-              __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + swizzled(r, c));
+              __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + swizzled<OC>(r, c));
               __nv_bfloat162 y = __floats2bfloat162_rn(v.x, v.y);
               if (res_tma) {  // bf16(acc [+ bias]) + R, rounded again
                 const float2 a = __bfloat1622float2(y), rv = __bfloat1622float2(*o);
@@ -627,12 +672,12 @@ ds_gemm_kernel_pingpong(const __grid_constant__ CUtensorMap tmA, const __grid_co
         fence_proxy_async();  // the TMA store reads the tile through the async proxy
         bar_sync(1 + w, 128);
         if (tid == 0) {
-          const int boxes = ((n_out - n0 < cols ? n_out - n0 : cols) + 63) / 64;
+          const int boxes = ((n_out - n0 < cols ? n_out - n0 : cols) + OC - 1) / OC;
           int c1 = m0, c2 = 0;
           if (out3d) clip_coords(p, m0, c1, c2);
           for (int b = 0; b < boxes; ++b) {
-            if (out3d) tma_store_3d(&tmY, out + b * BOX, n0 + 64 * b, c1, c2);
-            else tma_store_2d(&tmY, out + b * BOX, n0 + 64 * b, c1);
+            if (out3d) tma_store_3d(&tmY, out + b * BOX, n0 + OC * b, c1, c2);
+            else tma_store_2d(&tmY, out + b * BOX, n0 + OC * b, c1);
           }
           bulk_commit();
           bulk_wait_read<0>();
@@ -640,8 +685,9 @@ ds_gemm_kernel_pingpong(const __grid_constant__ CUtensorMap tmA, const __grid_co
         }
         __syncwarp();
       } else {
-        // MAP_OUT where no box fits the clip: rows out in 16-byte pieces,
-        // each row to its stored row, the residual added in bf16
+        // MAP_OUT where no box fits the clip, or GEGLU at BN 160 (80
+        // output columns, no whole number of boxes): rows out in 16-byte
+        // pieces, each row to its stored row, the residual added in bf16
         bar_sync(1 + w, 128);
         const int units = cols / 8;
 #pragma unroll 4
@@ -650,7 +696,7 @@ ds_gemm_kernel_pingpong(const __grid_constant__ CUtensorMap tmA, const __grid_co
           const int m = m0 + rr, n = n0 + 8 * u;
           if (m >= p.M || n >= n_out) continue;
           const size_t row = p.map == MAP_OUT ? frame_major_row(m, p.map_F, p.map_HW) : (size_t)m;
-          uint4 o4 = *reinterpret_cast<const uint4*>(out + swizzled(rr, 8 * u));
+          uint4 o4 = *reinterpret_cast<const uint4*>(out + swizzled<OC>(rr, 8 * u));
           if (p.mode == 1) {
             const uint4 rv = __ldg(reinterpret_cast<const uint4*>(p.R + row * n_out + n));
             __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&o4);
@@ -687,19 +733,20 @@ cudaError_t launch(const CUtensorMap& a, const CUtensorMap& b, Params p, int sme
   return cudaGetLastError();
 }
 
+template <int BN>
 cudaError_t launch_pingpong(const CUtensorMap& a, const CUtensorMap& b, const CUtensorMap& r, const CUtensorMap& y,
                             Params p, int smem, cudaStream_t stream) {
   static bool sized = false;
   if (!sized) {
     const cudaError_t e =
-        cudaFuncSetAttribute(ds_gemm_kernel_pingpong, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+        cudaFuncSetAttribute(ds_gemm_kernel_pingpong<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     if (e != cudaSuccess) return e;
     sized = true;
   }
-  p.n_tiles = (p.mode == 2) ? p.N / PP_BN : (p.N + PP_BN - 1) / PP_BN;
+  p.n_tiles = (p.mode == 2) ? p.N / BN : (p.N + BN - 1) / BN;
   p.tiles = p.n_tiles * ((p.M + BM - 1) / BM);
   const int grid = p.tiles < sm_count() ? p.tiles : sm_count();
-  ds_gemm_kernel_pingpong<<<grid, THREADS, smem, stream>>>(a, b, r, y, p);
+  ds_gemm_kernel_pingpong<BN><<<grid, THREADS, smem, stream>>>(a, b, r, y, p);
   return cudaGetLastError();
 }
 
@@ -712,7 +759,9 @@ int run(const void* X, int M, int K, const void* ln_w, const void* ln_b, float e
   const bool ln = ln_w != nullptr, gn = gn_mul != nullptr, map = map_F > 0;
   const int map_kind = !map ? MAP_NONE : gn ? MAP_A : MAP_OUT;
   if (M <= 0 || K <= 0 || K % 8 || N % 8 || mode < 0 || mode > 2) return (int)bad;
-  if (pingpong ? block_n != PP_BN : block_n != 64 && block_n != 128 && block_n != 256) return (int)bad;
+  if (pingpong ? block_n != 128 && block_n != 160
+               : block_n != 64 && block_n != 128 && block_n != 256 && block_n != 320)
+    return (int)bad;
   if ((ln || gn) && scratch == nullptr) return (int)bad;
   if (ln && (gn || map)) return (int)bad;
   if (gn && (mode != 0 || rows_per_sample <= 0 || M % rows_per_sample)) return (int)bad;
@@ -769,7 +818,9 @@ int run(const void* X, int M, int K, const void* ln_w, const void* ln_b, float e
   {
     const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
     const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-    const cuuint32_t box[2] = {BK, (cuuint32_t)(mode == 2 ? block_n / 2 : block_n)};
+    // GEGLU's value and gate rows, and BN 320's two halves (a box has at
+    // most 256 rows), arrive as two boxes of block_n / 2 rows
+    const cuuint32_t box[2] = {BK, (cuuint32_t)(mode == 2 || block_n > 256 ? block_n / 2 : block_n)};
     ok = ok && make_map(&tb, W, 2, dims, strides, box);
   }
   if (!ok) return (int)bad;
@@ -781,33 +832,40 @@ int run(const void* X, int M, int K, const void* ln_w, const void* ln_b, float e
   p.bias = static_cast<const float*>(bias); p.R = static_cast<const bf16*>(R); p.Y = static_cast<bf16*>(Y);
   cudaError_t e;
   if (!pingpong) {
-    if (block_n == 256) e = launch<256>(ta, tb, p, smem, s);
+    if (block_n == 320) e = launch<320>(ta, tb, p, smem, s);
+    else if (block_n == 256) e = launch<256>(ta, tb, p, smem, s);
     else if (block_n == 128) e = launch<128>(ta, tb, p, smem, s);
     else e = launch<64>(ta, tb, p, smem, s);
     return (int)e;
   }
-  // the output tile's maps (Y, and R in mode 1): 64-column boxes of 128 rows,
-  // or under MAP_OUT the 3-D box {64, hb, F} over [B*F, HW, N_out]; where no
-  // box fits the clip the rows leave one by one
+  // the output tile's maps (Y, and R in mode 1): boxes of pp_box_cols
+  // columns and 128 rows, or under MAP_OUT the 3-D box {columns, hb, F} over
+  // [B*F, HW, N_out]; where no box fits the clip, or the tile's outputs are
+  // no whole number of boxes, the rows leave one by one
   const int n_out = mode == 2 ? N / 2 : N;
-  p.out_tma = map_kind != MAP_OUT || box;
+  const int oc = pp_box_cols(block_n);
+  const CUtensorMapSwizzle oswz = oc == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  p.out_tma = (map_kind != MAP_OUT || box) && (mode == 2 ? block_n / 2 : block_n) % oc == 0;
   if (map_kind == MAP_OUT && box) p.map_hb = BM / map_F;
   CUtensorMap ty{}, tr{};
   if (p.out_tma) {
+    const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     if (map_kind == MAP_OUT) {
       const cuuint64_t dims[3] = {(cuuint64_t)n_out, (cuuint64_t)map_HW, (cuuint64_t)(M / map_HW)};
       const cuuint64_t strides[2] = {(cuuint64_t)n_out * 2, (cuuint64_t)map_HW * n_out * 2};
-      const cuuint32_t obox[3] = {64, (cuuint32_t)(BM / map_F), (cuuint32_t)map_F};
-      ok = make_map(&ty, Y, 3, dims, strides, obox) && make_map(&tr, R, 3, dims, strides, obox);
+      const cuuint32_t obox[3] = {(cuuint32_t)oc, (cuuint32_t)(BM / map_F), (cuuint32_t)map_F};
+      ok = make_map(&ty, Y, 3, dims, strides, obox, bf, oswz) && make_map(&tr, R, 3, dims, strides, obox, bf, oswz);
     } else {
       const cuuint64_t dims[2] = {(cuuint64_t)n_out, (cuuint64_t)M};
       const cuuint64_t strides[1] = {(cuuint64_t)n_out * 2};
-      const cuuint32_t obox[2] = {64, BM};
-      ok = make_map(&ty, Y, 2, dims, strides, obox) && (mode != 1 || make_map(&tr, R, 2, dims, strides, obox));
+      const cuuint32_t obox[2] = {(cuuint32_t)oc, BM};
+      ok = make_map(&ty, Y, 2, dims, strides, obox, bf, oswz) &&
+           (mode != 1 || make_map(&tr, R, 2, dims, strides, obox, bf, oswz));
     }
     if (!ok) return (int)bad;
   }
-  return (int)launch_pingpong(ta, tb, tr, ty, p, smem, s);
+  if (block_n == 160) return (int)launch_pingpong<160>(ta, tb, tr, ty, p, smem, s);
+  return (int)launch_pingpong<128>(ta, tb, tr, ty, p, smem, s);
 }
 
 }  // namespace
@@ -827,7 +885,7 @@ int run(const void* X, int M, int K, const void* ln_w, const void* ln_b, float e
 // prologue pass writes the normalised rows already permuted to logical
 // order, and the GEMM reads them with the plain 2-D box. scratch: bf16 [M, K]
 // for the prologue's output (LN or GN).
-// block_n (64, 128 or 256) and stages from cuda_lib.gemm_tile.
+// block_n (64, 128, 256 or 320) and stages from cuda_lib.gemm_tile.
 extern "C" int ds_ln_gemm(const void* X, int M, int K, const void* ln_w, const void* ln_b, float eps,
                           const void* gn_mul, const void* gn_add, int rows_per_sample, int map_F, int map_HW,
                           const void* W, int N, const void* bias, const void* R, void* Y, int mode,
@@ -837,7 +895,7 @@ extern "C" int ds_ln_gemm(const void* X, int M, int K, const void* ln_w, const v
 }
 
 // The same GEMM on the ping-pong schedule: ds_ln_gemm's arguments and
-// combinations; block_n 128 (a warpgroup's tile 128 x 128).
+// combinations; block_n 128 or 160 (a warpgroup's tile 128 x block_n).
 extern "C" int ds_ln_gemm_pingpong(const void* X, int M, int K, const void* ln_w, const void* ln_b, float eps,
                                    const void* gn_mul, const void* gn_add, int rows_per_sample, int map_F,
                                    int map_HW, const void* W, int N, const void* bias, const void* R, void* Y,

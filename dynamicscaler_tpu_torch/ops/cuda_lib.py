@@ -299,13 +299,16 @@ MODE_STORE, MODE_RESIDUAL, MODE_GEGLU = 0, 1, 2
 # ds_ln_gemm's tile (csrc/gemm.cu): 128 rows x BN columns a tile, K in steps
 # of 64 through a ring of `stages` (A, B) tiles in shared memory; a persistent
 # grid of one block per SM (132). Two schedules of its two consumer
-# warpgroups: "cooperative" (64 rows of every tile each, BN 64, 128 or 256,
-# beside one bf16 staging tile of 128 rows of BN + 8) and "pingpong" (whole
-# 128 x 128 tiles in turn, each warpgroup's epilogue under the other's
-# products; each warpgroup's bf16 output tile beside the ring, and two more
-# mbarriers a warpgroup).
+# warpgroups: "cooperative" (64 rows of every tile each, BN 64, 128, 256 or
+# 320, the last as two 160-column wgmma products, beside one bf16 staging
+# tile of 128 rows of one product's columns + 8) and "pingpong" (whole 128 x
+# BN tiles in turn, BN 128 or 160, each warpgroup's epilogue under the
+# other's products; each warpgroup's bf16 output tile beside the ring, and
+# two more mbarriers a warpgroup). The 160-column products make an N-320
+# GEMM one cooperative column tile or two ping-pong ones with no padding (BN
+# 128: three, the last half zeros), and 320 divides every transformer width.
 GEMM_BM, GEMM_BK, GEMM_SMS = 128, 64, 132
-GEMM_BLOCK_N = {"cooperative": (256, 128, 64), "pingpong": (128,)}
+GEMM_BLOCK_N = {"cooperative": (320, 256, 128, 64), "pingpong": (160, 128)}
 GEMM_SMEM_MAX = 232448  # bytes of shared memory a block may have on the H100
 GEMM_MAX_STAGES = 8
 # the C entry point of each schedule
@@ -316,14 +319,18 @@ _GEMM_ENTRY = {"cooperative": "ds_ln_gemm", "pingpong": "ds_ln_gemm_pingpong"}
 # the epilogue and no product is issued meanwhile. A ping-pong warpgroup's
 # epilogue runs under the other's products, so two tiles take the larger of
 # two products and one product plus one epilogue. Least squares (relative)
-# on the H100's times of every GEMM shape of the batch-8 i2v forward at each
-# choice, the prologue pass taken off (chip_smoke.py phase 3 and a run of
-# every BN of both schedules).
+# on the H100's times of every GEMM shape of the batch-8 i2v forward at 40x64
+# and of the DynamiCrafter forward at 72x128 at every (schedule, BN), the
+# prologue pass taken off, over the shapes of 0.1 ms and more (below that a
+# launch's time is the host's; chip_smoke.py phases 3 and 14 time the
+# planner's pick beside the pick of the table before BN 320 and 160).
 _GEMM_TILE_COST = {
-    ("cooperative", 256): (0.01302, (4.785, 14.04, 4.717)),
-    ("cooperative", 128): (0.00798, (2.518, 6.964, 2.498)),
-    ("cooperative", 64): (0.00568, (1.437, 3.895, 1.388)),
-    ("pingpong", 128): (0.0094, (5.596, 7.905, 6.634)),
+    ("cooperative", 320): (0.01404, (6.03, 18.99, 7.758)),
+    ("cooperative", 256): (0.01125, (4.889, 14.63, 5.897)),
+    ("cooperative", 128): (0.00701, (2.403, 7.479, 3.266)),
+    ("cooperative", 64): (0.005315, (1.289, 3.975, 1.673)),
+    ("pingpong", 160): (0.009541, (6.915, 10.18, 10.44)),
+    ("pingpong", 128): (0.008507, (6.26, 8.363, 7.576)),
 }
 
 
@@ -337,13 +344,15 @@ class GemmTile(NamedTuple):
 def gemm_smem(block_n: int, stages: int, schedule: str = "cooperative") -> int:
     """Shared memory of a ``ds_ln_gemm`` block, as ``csrc/gemm.cu`` reckons
     it: the ring and the alignment pad; cooperative: the epilogue's bf16
-    staging tile (128 rows of block_n + 8) and two mbarriers a stage;
-    ping-pong: each warpgroup's output tile (128 x block_n bf16) and two
-    mbarriers a stage and two a warpgroup."""
+    staging tile (128 rows of one wgmma product's columns + 8: block_n, or
+    half of it past 256) and two mbarriers a stage; ping-pong: each
+    warpgroup's output tile (128 x block_n bf16) and two mbarriers a stage
+    and two a warpgroup."""
     ring = stages * (GEMM_BM + block_n) * GEMM_BK * 2 + 1024
     if schedule == "pingpong":
         return ring + 2 * GEMM_BM * block_n * 2 + 8 * (2 * stages + 4)
-    return ring + GEMM_BM * (block_n + 8) * 2 + 16 * stages
+    product_n = block_n // 2 if block_n > 256 else block_n
+    return ring + GEMM_BM * (product_n + 8) * 2 + 16 * stages
 
 
 # ds_ln_gemm_f32's tile (csrc/gemm_f32.cu): 128 rows x BN columns a tile, K in
@@ -420,15 +429,20 @@ def flash_grid(B: int, Nq: int, heads: int) -> int:
     return min(B * heads * -(-Nq // FLASH_F32_BQ), GEMM_SMS)
 
 
-def gemm_tile(M: int, K: int, N: int, mode: int = MODE_STORE, schedule: str | None = None) -> GemmTile:
+@functools.lru_cache(maxsize=None)
+def gemm_tile(M: int, K: int, N: int, mode: int = MODE_STORE, schedule: str | None = None,
+              block_n: int | None = None) -> GemmTile:
     """The tile of ``ds_ln_gemm`` at [M, K] x [N, K]: the schedule and BN
     whose rounds of tiles over the 132 SMs take least time by
     :data:`_GEMM_TILE_COST` (GEGLU pairs value and gate columns, so there BN /
     2 must divide N / 2), then as many ring stages as K has steps and shared
-    memory holds (at least 2). ``schedule`` fixes the schedule (chip_smoke.py
-    times the one not chosen)."""
+    memory holds (at least 2). ``schedule`` and ``block_n`` fix the schedule
+    and the width (chip_smoke.py times the ones not chosen). Cached: every
+    launch asks, and a forward has a few dozen shapes."""
     cands = [(sched, bn) for sched, widths in GEMM_BLOCK_N.items() if schedule in (None, sched) for bn in widths
-             if mode != MODE_GEGLU or (N // 2) % (bn // 2) == 0]
+             if block_n in (None, bn) and (mode != MODE_GEGLU or (N // 2) % (bn // 2) == 0)]
+    if not cands:
+        raise ValueError(f"gemm_tile: no {schedule or 'bf16'} tile of width {block_n} takes N={N} in mode {mode}")
     m_tiles = -(-M // GEMM_BM)
 
     def cost(c):
@@ -999,7 +1013,8 @@ def ln_gemm(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, frame_map=
     """Launch ``csrc/gemm.cu::ds_ln_gemm`` or ``ds_ln_gemm_pingpong`` (bf16,
     the schedule :func:`gemm_tile` picks, counted in ``ln_gemm.launches``) or
     ``csrc/gemm_f32.cu::ds_ln_gemm_f32`` (fp32), by the activation type:
-    ``epilogue(prologue(x2d) @ w.T)``.
+    ``epilogue(prologue(x2d) @ w.T)``. A bf16 launch is also counted by
+    (schedule, BN) in ``ln_gemm.launches_by_width``.
 
     x2d [M, K] bf16 or fp32; w [N, K] and residual [M, N] (``MODE_RESIDUAL``
     only) of x2d's type; bias fp32 [N]. ``MODE_GEGLU`` returns [M, N / 2].
@@ -1050,8 +1065,10 @@ def ln_gemm(x2d, w, *, ln=None, eps=1e-5, gn=None, rows_per_sample=0, frame_map=
     )
     if dt != torch.float32:
         ln_gemm.launches[tile.schedule] += 1
+        ln_gemm.launches_by_width[tile.schedule, tile.block_n] += 1
     return y
 
 
-# bf16 launches by schedule (the fp32 kernel has one)
+# bf16 launches by schedule, and by (schedule, BN) (the fp32 kernel has one)
 ln_gemm.launches = dict.fromkeys(GEMM_BLOCK_N, 0)
+ln_gemm.launches_by_width = {(s, bn): 0 for s, widths in GEMM_BLOCK_N.items() for bn in widths}

@@ -188,11 +188,17 @@ def _forward_gemms(side, C, kind="i2v"):
     of the full-width UNet's transformers at plan key (side, C), batch 8, 16
     frames, a 40x64 latent, at every level the plan can route them to: the
     wrapper head and tail, the sub-block GEMMs, the context K/V per clip
-    (the image tokens' only in i2v; the t2v UNet has the same widths)."""
+    (the image tokens' only in i2v; the t2v UNet has the same widths).
+    ``kind`` "dc": DynamiCrafter 1024's forward at its 72x128 latent (the
+    same UNet layout, each level 1.8 x 2 times the tokens), whose context
+    K/V the sub-block path projects on every frame's row: 8 x 16 x 77 text
+    and 8 x 16 x 16 image tokens (the shapes phase 14 records)."""
     calls = []
     for s, c, inner, _, H, W in i2v_transformers():
         if (s, inner) != (side, C):
             continue
+        if kind == "dc":
+            H, W = H * 72 // 40, W * 2
         T, HW = 8 * 16 * H * W, H * W
         ln = dict(ln=True)
         head = dict(gn=True, rows_per_sample=16 * HW if side == "t" else HW,
@@ -202,9 +208,10 @@ def _forward_gemms(side, C, kind="i2v"):
                   (T, inner, 8 * inner, MODE_GEGLU, ln), (T, 4 * inner, inner, MODE_RESIDUAL, {}),
                   (T, inner, c, MODE_RESIDUAL, {"frame_map": (16, HW)} if side == "t" else {})]
         if side == "s":
-            calls += [(T, inner, inner, MODE_STORE, ln), (8 * 77, 1024, 2 * inner, MODE_STORE, {})]
-            if kind == "i2v":
-                calls.append((8 * 16, 1024, 2 * inner, MODE_STORE, {}))
+            rows = 8 * 16 if kind == "dc" else 8
+            calls += [(T, inner, inner, MODE_STORE, ln), (rows * 77, 1024, 2 * inner, MODE_STORE, {})]
+            if kind != "t2v":
+                calls.append((rows * 16, 1024, 2 * inner, MODE_STORE, {}))
     return calls
 
 
@@ -212,24 +219,30 @@ def _smem_reckoned(schedule, bn, stages):
     """A ds_ln_gemm block's shared memory as csrc/gemm.cu lays it out: the
     1024-byte alignment pad, the ring (A 128 x 64 and B bn x 64 bf16 a
     stage, full and empty mbarriers); cooperative: one bf16 staging tile of
-    128 rows of bn + 8; ping-pong: each warpgroup's 128 x bn bf16 output tile
-    (where the residual tile lands too) and its residual and output-free
-    mbarriers."""
+    128 rows of one wgmma product's columns + 8 (bn up to 256; BN 320 is two
+    160-column products, staged one after the other); ping-pong: each
+    warpgroup's 128 x bn bf16 output tile (where the residual tile lands too:
+    64-column boxes, or 32-column ones at bn 160, back to back) and its
+    residual and output-free mbarriers."""
     ring = stages * (128 * 64 * 2 + bn * 64 * 2)
     if schedule == "pingpong":
         return 1024 + ring + 2 * (128 * bn * 2) + 8 * (2 * stages + 2 * 2)
-    return 1024 + ring + 128 * (bn + 8) * 2 + 8 * (2 * stages)
+    staged = {64: 64, 128: 128, 256: 256, 320: 160}[bn]
+    return 1024 + ring + 128 * (staged + 8) * 2 + 8 * (2 * stages)
 
 
 _SIDES = [("t", 320), ("t", 512), ("t", 640), ("t", 1280), ("s", 320), ("s", 640), ("s", 1280)]
 
 
 @pytest.mark.parametrize("side,C,kind", [pytest.param(s, c, "i2v", id=f"{s}-{c}") for s, c in _SIDES]
-                         + [pytest.param(s, c, "t2v", id=f"t2v-{s}-{c}") for s, c in _SIDES])
+                         + [pytest.param(s, c, "t2v", id=f"t2v-{s}-{c}") for s, c in _SIDES]
+                         + [pytest.param(s, c, "dc", id=f"dc-{s}-{c}") for s, c in _SIDES])
 def test_gemm_tile_fits_every_forward_shape(side, C, kind):
-    """Every GEMM shape of the full-width batch-8 i2v (and t2v) forward at
+    """Every GEMM shape of the full-width batch-8 i2v (and t2v, and
+    DynamiCrafter 72x128) forward at
     (side, C) is a combination ln_gemm takes and maps to a named schedule
-    with a legal tile (cooperative BN 64, 128 or 256, ping-pong BN 128;
+    with a legal tile (cooperative BN 64, 128, 256 or 320, ping-pong BN 128
+    or 160;
     GEGLU pairs value and gate columns within a tile) whose shared memory,
     reckoned as gemm.cu lays it out, fits in the H100's 232,448 bytes a
     block; the planner's choice within either schedule fits too."""
@@ -280,6 +293,58 @@ def test_ln_gemm_counts_launches_by_schedule(monkeypatch, M, K, N, mode, schedul
     want = {"cooperative": 3, "pingpong": 5}
     want[schedule] += 2
     assert cuda_lib.ln_gemm.launches == want
+
+
+_TILES = [(s, bn) for s, widths in cuda_lib.GEMM_BLOCK_N.items() for bn in widths]
+
+
+@pytest.mark.parametrize("schedule,bn", _TILES, ids=[f"{s}-{bn}" for s, bn in _TILES])
+def test_ln_gemm_counts_launches_by_width(monkeypatch, schedule, bn):
+    """``ln_gemm`` counts each bf16 launch under its (schedule, BN) in
+    ``ln_gemm.launches_by_width`` beside the count by schedule, and hands
+    the C entry point that width; ``cuda_lib.call`` stubbed, the planner
+    forced to the tile."""
+    tile = cuda_lib.GemmTile(bn, 2, cuda_lib.gemm_smem(bn, 2, schedule), schedule)
+    calls = []
+    monkeypatch.setattr(cuda_lib, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(cuda_lib, "check_operand", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_lib, "call", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(cuda_lib, "gemm_tile", lambda *a, **k: tile)
+    monkeypatch.setattr(cuda_lib.ln_gemm, "launches", {"cooperative": 3, "pingpong": 5})
+    monkeypatch.setattr(cuda_lib.ln_gemm, "launches_by_width", {t: 1 for t in _TILES})
+    x, w = torch.zeros(128, 320, dtype=torch.bfloat16), torch.zeros(640, 320, dtype=torch.bfloat16)
+    for _ in range(3):
+        ln_gemm(x, w, mode=MODE_GEGLU)
+    ln_gemm(x.float(), w.float())  # fp32: ds_ln_gemm_f32, counted by neither
+    entry = {"cooperative": "ds_ln_gemm", "pingpong": "ds_ln_gemm_pingpong"}[schedule]
+    assert [name for name, _ in calls[:3]] == [entry] * 3
+    assert calls[-1][0] == "ds_ln_gemm_f32" and all(args[-2] == bn for _, args in calls[:3])
+    assert cuda_lib.ln_gemm.launches_by_width == {t: 1 + 3 * (t == (schedule, bn)) for t in _TILES}
+    assert cuda_lib.ln_gemm.launches == {"cooperative": 3 + 3 * (schedule == "cooperative"),
+                                         "pingpong": 5 + 3 * (schedule == "pingpong")}
+
+
+@pytest.mark.parametrize("schedule,bn", [("cooperative", 320), ("pingpong", 160)])
+@pytest.mark.parametrize("N", [480, 640, 1280, 1536, 2048, 2560, 5120, 10240])
+def test_gemm_tile_pairs_geglu_columns_where_the_width_divides(schedule, bn, N):
+    """GEGLU pairs bn / 2 value columns with as many gate columns in a tile
+    (cooperative 320: 160 + 160, ping-pong 160: 80 + 80), so gemm_tile
+    admits the 160-column widths only where bn / 2 divides N / 2 (N / 2 =
+    1280, 2560, 5120: every GEGLU of the UNets; 240 admits 80 and not 160;
+    768 and 1024 neither), and its free choice within the schedule is
+    always a width that pairs."""
+    pairs = (N // 2) % (bn // 2) == 0
+    if pairs:
+        tile = cuda_lib.gemm_tile(327680, 320, N, MODE_GEGLU, schedule=schedule, block_n=bn)
+        assert (tile.schedule, tile.block_n) == (schedule, bn)
+        assert tile.smem == _smem_reckoned(schedule, bn, tile.stages) <= 232448
+    else:
+        with pytest.raises(ValueError, match="no"):
+            cuda_lib.gemm_tile(327680, 320, N, MODE_GEGLU, schedule=schedule, block_n=bn)
+    assert pairs == (N in (480, 640, 1280, 2560, 5120, 10240) if bn == 160 else N in (640, 1280, 2560, 5120, 10240))
+    if any((N // 2) % (w // 2) == 0 for w in cuda_lib.GEMM_BLOCK_N[schedule]):
+        free = cuda_lib.gemm_tile(327680, 320, N, MODE_GEGLU, schedule=schedule)
+        assert (N // 2) % (free.block_n // 2) == 0
 
 
 @pytest.mark.parametrize("F,HW", [(16, 25), (16, 36), (16, 100), (8, 25), (8, 36), (8, 100), (3, 32), (16, 12)])
