@@ -48,7 +48,7 @@ from dynamicscaler_tpu_torch.pipelines.conditioning import (
     encode_texts_cached,
     select_prompt_by_factor,
 )
-from dynamicscaler_tpu_torch.pipelines.planar import PlanarShiftWindowEngine, StepPlan
+from dynamicscaler_tpu_torch.pipelines.planar import PlanarShiftWindowEngine, step_plan
 from dynamicscaler_tpu_torch.pipelines.t2v import basic_sample_loop, make_schedule_for_model
 from dynamicscaler_tpu_torch.pipelines.tiled_vae import ring_aware_decode, tiled_vae_encode
 from dynamicscaler_tpu_torch.utils.timing import Marker, request, span
@@ -167,26 +167,6 @@ def basic_sample(model, prompt: str, cond_image, height: int = 320, width: int =
     return video, den
 
 
-def _step_plan(sched, steps_eff: int, origins_of, context_of, renoise_ratio, merge_prev_list):
-    """StepPlans of the last ``steps_eff`` DDIM steps; ``origins_of(i)`` and
-    ``context_of(i, origins)`` -> (context, ctx_idx) give each step's windows
-    and conditioning."""
-    ddim_ts = sched.ddim_timesteps.cpu().numpy()
-    plan = []
-    for i in range(steps_eff):
-        index = steps_eff - 1 - i
-        origins = origins_of(i)
-        context, ctx_idx = context_of(i, origins)
-        last = i == steps_eff - 1
-        plan.append(StepPlan(
-            t=int(ddim_ts[index]), index=index, origins=np.asarray(origins, np.int64),
-            context=context, ctx_idx=ctx_idx,
-            renoise_ratio=None if last or renoise_ratio is None else float(renoise_ratio),
-            merge_prev_ratio=None if last or merge_prev_list is None else float(merge_prev_list[i]),
-        ))
-    return plan
-
-
 @request
 def sample_shift_multi_windows(
     model,
@@ -264,8 +244,8 @@ def sample_shift_multi_windows(
         return bank, np.concatenate([ids] * (len(origins) // len(ids)))
 
     with span("request.plan", steps=steps_eff):
-        plan = _step_plan(sched, steps_eff, origins_of, context_of, merge_renoised_overlap_latent_ratio,
-                          merge_prev_denoised_ratio_list)
+        plan = step_plan(sched, steps_eff, origins_of, context_of, merge_renoised_overlap_latent_ratio,
+                         merge_prev_denoised_ratio_list)
     tm.mark("plan built")
     engine = PlanarShiftWindowEngine(model, sched, (frames, wh, ww), guidance_scale=guidance_scale,
                                      fps=fps, overlap_mode=overlap_mode, unet_microbatch=unet_microbatch,
@@ -346,8 +326,8 @@ def sample_shift_multi_windows_integer(
         return ctx_cache[hw], None
 
     steps_eff = S - (skip if use_skip_time and not progressive_skip else 0)
-    plan = _step_plan(sched, steps_eff, grid.step_origins, context_of,
-                      merge_renoised_overlap_latent_ratio, merge_prev_denoised_ratio_list)
+    plan = step_plan(sched, steps_eff, grid.step_origins, context_of,
+                     merge_renoised_overlap_latent_ratio, merge_prev_denoised_ratio_list)
     engine = PlanarShiftWindowEngine(model, sched, (frames, wh, ww), guidance_scale=guidance_scale,
                                      fps=fps, overlap_mode=overlap_mode, unet_microbatch=unet_microbatch,
                                      mesh=mesh, concat=static, guidance_rescale=guidance_rescale)

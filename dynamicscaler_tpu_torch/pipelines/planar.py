@@ -3,23 +3,19 @@
 Counterpart of ``dynamicscaler_tpu/pipelines/planar.py``: one DDIM step
 over N overlapping ring windows gathers the windows from the global latent
 as a batch, runs the UNet once on the ``2N`` CFG-packed batch and scatters
-the results back. Overlap modes:
+the results back (``pipelines/window_step.py`` runs the step; this module
+is its ring geometry). Overlap modes:
 
 * ``last`` (default): windows read the step-start snapshot; the
   order-dependent blends use earlier-window coverage masks and the scatter
   is ordered (last write wins);
 * ``average``: weighted scatter-average over overlaps, order-free;
 * ``sequential``: exact reference ordering, window k+1 reads window k's
-  writes (N UNet calls per step).
+  writes (N UNet calls per step, whole on every rank of a ``mesh``).
 
-With a ``mesh`` (``parallel.mesh``) the ``last`` and ``average`` modes split
-each step's CFG-packed batch over the ranks and gather the eps; every rank
-then blends and scatters the whole batch, so all hold the same latent. The
-``sequential`` mode has one window a UNet call and its order is the point:
-every rank runs it whole, as one card does. The global latent and the
-denoised buffer are updated IN PLACE each step (the JAX engine donates them
-instead). The trace cache and warm-only paths of the JAX engine are not
-ported. Every re-noise draw can be injected
+The global latent and the denoised buffer are updated IN PLACE each step
+(the JAX engine donates them instead). The trace cache and warm-only paths
+of the JAX engine are not ported. Every re-noise draw can be injected
 through ``noise_fn`` under the name ``renoise:{step}`` (``renoise:{step}:{k}``
 per window in ``sequential`` mode).
 
@@ -35,16 +31,16 @@ step.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from dynamicscaler_tpu_torch.ops.blend import mix_with_mask, normalize_accumulated
-from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, draw_noise, guided, re_noise
+from dynamicscaler_tpu_torch.ops.blend import normalize_accumulated
+from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, draw_noise
 from dynamicscaler_tpu_torch.ops.ring import add_ring_window, get_ring_window, set_ring_window
+from dynamicscaler_tpu_torch.pipelines.window_step import check_overlap_mode, join, window_step
 from dynamicscaler_tpu_torch.utils.timing import LoopStats, Marker, report, span
 
 # steady s/step of the most recent run() loop, read by cli/gen_pano_360.py
@@ -90,13 +86,32 @@ class StepPlan:
     ctx_idx: Optional[np.ndarray] = None
 
 
+def step_plan(sched, steps_eff: int, origins_of, context_of, renoise_ratio, merge_prev_list):
+    """StepPlans of the last ``steps_eff`` DDIM steps; ``origins_of(i)`` and
+    ``context_of(i, origins)`` -> (context, ctx_idx) give each step's windows
+    and conditioning."""
+    ddim_ts = sched.ddim_timesteps.cpu().numpy()
+    plan = []
+    for i in range(steps_eff):
+        index = steps_eff - 1 - i
+        origins = origins_of(i)
+        context, ctx_idx = context_of(i, origins)
+        last = i == steps_eff - 1
+        plan.append(StepPlan(
+            t=int(ddim_ts[index]), index=index, origins=np.asarray(origins, np.int64),
+            context=context, ctx_idx=ctx_idx,
+            renoise_ratio=None if last or renoise_ratio is None else float(renoise_ratio),
+            merge_prev_ratio=None if last or merge_prev_list is None else float(merge_prev_list[i]),
+        ))
+    return plan
+
+
 class PlanarShiftWindowEngine:
     def __init__(self, model, schedule: DDIMSchedule, window_sizes: Tuple[int, int, int],
                  guidance_scale: float = 7.5, fps: int = 16, overlap_mode: str = "last",
                  unet_microbatch: int = 8, mesh=None, concat: Optional[torch.Tensor] = None,
                  guidance_rescale: float = 0.0):
-        if overlap_mode not in ("last", "average", "sequential"):
-            raise ValueError(f"overlap_mode {overlap_mode!r}")
+        check_overlap_mode(overlap_mode)
         want = model.config.unet.concat_channels
         have = 0 if concat is None else concat.shape[-1]
         if have != want:
@@ -133,13 +148,6 @@ class PlanarShiftWindowEngine:
         report()
         return latent, denoised
 
-    def _cfg_pack(self, wins, ctx, uncond):
-        """The UNet batch and its contexts: cond rows then uncond rows."""
-        if self.guidance_scale == 1.0:
-            return wins, ctx
-        n = wins.shape[0]
-        return torch.cat([wins, wins]), torch.cat([ctx, uncond.expand((n,) + tuple(uncond.shape[1:]))])
-
     def _joined(self, x, origins):
         """The UNet rows ``x`` (the windows at ``origins``, then again as
         uncond rows) with each window's crop of the concat latent joined;
@@ -147,42 +155,8 @@ class PlanarShiftWindowEngine:
         if self.concat is None:
             return x
         f, h, w = self.window_sizes
-        with span("step.concat", rows=x.shape[0]):
-            crops = torch.cat([get_ring_window(self.concat, (0, int(h0), int(w0)), (1, h, w))
-                               for _, h0, w0 in origins]).expand(-1, f, -1, -1, -1)
-            return torch.cat([x, crops.repeat(x.shape[0] // crops.shape[0], 1, 1, 1, 1)], dim=-1)
-
-    def _cfg_update(self, wins, eps, sp: StepPlan):
-        """The CFG combine of the model's output ``eps`` (with the guidance
-        rescale) and the DDIM step of ``wins`` -> (x_prev, pred_x0); a
-        ``step.rescale`` span where either the rescale or a v conversion
-        runs."""
-        g = self.guidance_scale
-        n = wins.shape[0]
-        frame_idx = torch.full((self.window_sizes[0],), sp.index, dtype=torch.long)
-        converts = self.guidance_rescale or self.schedule.parameterization == "v"
-        with span("step.rescale", rows=n) if converts else contextlib.nullcontext():
-            if g != 1.0:
-                eps = guided(eps[:n], eps[n:], g, self.guidance_rescale)
-            return ddim_step(self.schedule, wins, eps, frame_idx)
-
-    def _renoise(self, wins, sp: StepPlan, generator, noise_fn, name):
-        ratio = sp.renoise_ratio or 0.0
-        if ratio == 0.0:  # a 0-ratio mix is the identity: draw no noise
-            return wins, ratio
-        noise = draw_noise(wins.shape, wins.device, generator, noise_fn, name)
-        return re_noise(self.schedule, wins, max(sp.index - 1, 0), sp.index, noise=noise), ratio
-
-    @staticmethod
-    def _contexts(sp: StepPlan, n: int):
-        """The step's [n, L, D] window contexts: its rows of the bank, or
-        its contexts repeated over the windows."""
-        ctx = sp.context
-        if sp.ctx_idx is not None:
-            return ctx[torch.as_tensor(np.asarray(sp.ctx_idx), dtype=torch.long, device=ctx.device)]
-        if ctx.shape[0] != n:
-            return ctx.repeat(n // ctx.shape[0], 1, 1)
-        return ctx
+        return join(x, lambda: torch.cat([get_ring_window(self.concat, (0, int(h0), int(w0)), (1, h, w))
+                                          for _, h0, w0 in origins]).expand(-1, f, -1, -1, -1))
 
     def step(self, latent, denoised, sp: StepPlan, uncond_context, generator=None, noise_fn=None,
              name: str = "renoise"):
@@ -190,72 +164,71 @@ class PlanarShiftWindowEngine:
         ``denoised`` in place."""
         origins = [tuple(int(v) for v in o) for o in np.asarray(sp.origins)]
         with span("step", latent.device, windows=len(origins)):
-            if self.overlap_mode == "sequential":
-                self._step_sequential(latent, denoised, sp, origins, uncond_context, generator, noise_fn, name)
-            else:
-                self._step_batched(latent, denoised, sp, origins, uncond_context, generator, noise_fn, name)
+            window_step(self, _RingWindows(self, latent, denoised, sp, origins, generator, noise_fn, name), sp,
+                        uncond_context)
 
-    def _step_sequential(self, latent, denoised, sp: StepPlan, origins, uncond_context, generator, noise_fn,
-                         name):
-        sizes = self.window_sizes
-        merge_ratio = sp.merge_prev_ratio or 0.0
+
+class _RingWindows:
+    """The ring windows of one planar step: masked by the earlier windows'
+    coverage (not under ``average``), scattered in order (the last write
+    wins) or accumulated and normalised (``average``); a ``sequential``
+    window reads the latent as the windows before it wrote it."""
+
+    def __init__(self, engine, latent, denoised, sp, origins, generator, noise_fn, name):
+        self.engine, self.latent, self.denoised, self.sp, self.origins = engine, latent, denoised, sp, origins
+        self.generator, self.noise_fn, self.name = generator, noise_fn, name
+        self.n, self.masked, self.microbatch = len(origins), engine.overlap_mode != "average", engine.unet_microbatch
+        self.ctx = self.cov = None  # set in sequential mode
+
+    def begin(self):
         with span("step.renoise"):
-            ctx = self._contexts(sp, len(origins))
-        mask_global = torch.zeros_like(latent)
-        for k, origin in enumerate(origins):
-            with span("step.gather"):
-                win = get_ring_window(latent, origin, sizes)
-            with span("step.masks"):
-                mask_win = get_ring_window(mask_global, origin, sizes)
-            prev = win
-            with span("step.renoise"):
-                noised, ratio = self._renoise(win, sp, generator, noise_fn, f"{name}:{k}")
-                win = mix_with_mask(win, noised, mask_win, ratio)
-                x, cc = self._cfg_pack(win, ctx[k:k + 1], uncond_context)
-            x = self._joined(x, [origin])
-            eps = self.model.apply_unet_microbatched(x, sp.t, cc, self.fps, self.unet_microbatch)
-            with span("step.update"):
-                new, den_w = self._cfg_update(win, eps, sp)
-                new = mix_with_mask(new, prev, mask_win, merge_ratio)
-            with span("step.scatter"):
-                set_ring_window(latent, new, origin)
-                set_ring_window(denoised, den_w, origin)
-                set_ring_window(mask_global, torch.ones_like(new), origin)
+            self.ctx = self._contexts()
+        self.cov = torch.zeros_like(self.latent)
 
-    def _step_batched(self, latent, denoised, sp: StepPlan, origins, uncond_context, generator, noise_fn, name):
-        sizes = self.window_sizes
-        merge_ratio = sp.merge_prev_ratio or 0.0
-        with span("step.gather"):
-            wins = torch.cat([get_ring_window(latent, o, sizes) for o in origins])
-        prev = wins
-        earlier = None
-        if self.overlap_mode == "last":
-            with span("step.masks"):
-                earlier = device_earlier_masks(origins, sizes, latent)
-        with span("step.renoise"):
-            if self.overlap_mode == "last":
-                noised, ratio = self._renoise(wins, sp, generator, noise_fn, name)
-                wins = mix_with_mask(wins, noised, earlier, ratio)
-            x, cc = self._cfg_pack(wins, self._contexts(sp, len(origins)), uncond_context)
-        x = self._joined(x, origins)
-        eps = self.model.apply_unet_microbatched(x, sp.t, cc, self.fps, self.unet_microbatch, self.mesh)
-        with span("step.update"):
-            new, den = self._cfg_update(wins, eps, sp)
-            if self.overlap_mode != "average":
-                new = mix_with_mask(new, prev, earlier, merge_ratio)
+    def _contexts(self):
+        """The step's [n, L, D] window contexts: its rows of the bank, or
+        its contexts repeated over the windows."""
+        ctx, idx = self.sp.context, self.sp.ctx_idx
+        if idx is not None:
+            return ctx[torch.as_tensor(np.asarray(idx), dtype=torch.long, device=ctx.device)]
+        return ctx if ctx.shape[0] == self.n else ctx.repeat(self.n // ctx.shape[0], 1, 1)
 
-        with span("step.scatter"):
-            if self.overlap_mode == "average":
-                accum = torch.zeros_like(latent)
-                count = torch.zeros(latent.shape[:-1] + (1,), dtype=latent.dtype, device=latent.device)
-                dac = torch.zeros_like(latent)
-                for k, origin in enumerate(origins):
-                    add_ring_window(accum, new[k:k + 1], origin)
-                    add_ring_window(count, torch.ones_like(new[k:k + 1, ..., :1]), origin)
-                    add_ring_window(dac, den[k:k + 1], origin)
-                latent.copy_(normalize_accumulated(accum, count, latent))
-                denoised.copy_(normalize_accumulated(dac, count, denoised))
-                return
-            for k, origin in enumerate(origins):  # ordered scatter, last write wins
-                set_ring_window(latent, new[k:k + 1], origin)
-                set_ring_window(denoised, den[k:k + 1], origin)
+    def gather(self, rows):
+        return torch.cat([get_ring_window(self.latent, o, self.engine.window_sizes) for o in self.origins[rows]])
+
+    def masks(self, rows):
+        if self.cov is None:
+            return device_earlier_masks(self.origins, self.engine.window_sizes, self.latent)
+        return get_ring_window(self.cov, self.origins[rows.start], self.engine.window_sizes)
+
+    def contexts(self, rows):
+        return (self._contexts() if self.ctx is None else self.ctx)[rows]
+
+    def noise(self, shape, rows):
+        name = self.name if self.cov is None else f"{self.name}:{rows.start}"
+        return draw_noise(shape, self.latent.device, self.generator, self.noise_fn, name)
+
+    def joined(self, x, rows):
+        return self.engine._joined(x, self.origins[rows])
+
+    def to_set(self, new, den):
+        return new, den
+
+    def scatter(self, rows, new, den):
+        latent, denoised, origins = self.latent, self.denoised, self.origins[rows]
+        if self.engine.overlap_mode == "average":
+            accum = torch.zeros_like(latent)
+            count = torch.zeros(latent.shape[:-1] + (1,), dtype=latent.dtype, device=latent.device)
+            dac = torch.zeros_like(latent)
+            for k, origin in enumerate(origins):
+                add_ring_window(accum, new[k:k + 1], origin)
+                add_ring_window(count, torch.ones_like(new[k:k + 1, ..., :1]), origin)
+                add_ring_window(dac, den[k:k + 1], origin)
+            latent.copy_(normalize_accumulated(accum, count, latent))
+            denoised.copy_(normalize_accumulated(dac, count, denoised))
+            return
+        for k, origin in enumerate(origins):  # ordered scatter, last write wins
+            set_ring_window(latent, new[k:k + 1], origin)
+            set_ring_window(denoised, den[k:k + 1], origin)
+            if self.cov is not None:  # the window's footprint, which the later windows' masks read
+                set_ring_window(self.cov, torch.ones_like(new[k:k + 1]), origin)

@@ -12,25 +12,19 @@ t2v_sphere_panorama_pipeline.py:24-316):
   the image tokens of the view's perspective crop of the panorama) are made
   up front: one batched text encode and one image encode, in chunks, over
   all phases' views;
-* one DDIM step gathers every (frame window, view) pair from the latent as
-  one batch, mixes in re-noise where earlier pairs of the step already
-  wrote, runs the CFG-packed UNet batch in ``unet_microbatch`` chunks, DDIM
-  steps, mixes with the previous latent, and scatters back in pair order
-  (``last``) or averaged (``average``); ``sequential`` runs the pairs one at
-  a time, each reading the writes of the pairs before it;
-* with ``paste_on_static`` the writes land on the clean panorama latent
-  (tiled-VAE encoded once) re-noised to the step's level.
+* one DDIM step (``pipelines/window_step.py`` over :class:`_Views`)
+  runs every (frame window, view) pair as one CFG-packed UNet batch in
+  ``unet_microbatch`` chunks (``last``, ``average``; split over the ranks
+  of a ``mesh``), or pair by pair (``sequential``).
 
 Every noise draw takes ``noise_fn`` when given (``ops.ddim.draw_noise``),
 else the ``generator``. Names: ``init``, ``skip``, ``renoise:{step}`` (the
 whole window batch in ``last`` / ``average``), ``pair:{step}:{k}`` (pair k
 in ``sequential``) and ``static:{step}`` (the re-noised static panorama).
-With a ``mesh`` (``parallel.mesh``) the ``last`` and ``average`` steps split
-their CFG-packed batch over the ranks and gather the eps; ``sequential``
-runs whole on every rank, as on one card. The JAX package's seq-slab layout
-of the latent (a TPU memory layout; the latent stays whole on every rank),
-step-program cache, step timers and warm-up programs are not ported;
-``LOOP_STATS`` keeps the loop's steady s/step.
+The JAX package's seq-slab layout of the latent (a TPU memory layout; the
+latent stays whole on every rank), step-program cache, step timers and
+warm-up programs are not ported; ``LOOP_STATS`` keeps the loop's steady
+s/step.
 
 A model with hybrid conditioning (DynamiCrafter) joins the clean panorama
 latent to its input: every pair's row takes the view's gather of it,
@@ -41,7 +35,6 @@ schedule converts it in the DDIM step, as in ``pipelines/planar.py``.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,8 +42,8 @@ import numpy as np
 import torch
 
 from dynamicscaler_tpu_torch.core.windows import frame_window_origins, sphere_phase_views
-from dynamicscaler_tpu_torch.ops.blend import mix_with_mask, normalize_accumulated
-from dynamicscaler_tpu_torch.ops.ddim import ddim_step, draw_noise, guided, re_noise, re_noise_per_frame
+from dynamicscaler_tpu_torch.ops.blend import normalize_accumulated
+from dynamicscaler_tpu_torch.ops.ddim import draw_noise, re_noise, re_noise_per_frame
 from dynamicscaler_tpu_torch.ops.resize import resize_video_latent
 from dynamicscaler_tpu_torch.ops.ring import wrap_slice_indices
 from dynamicscaler_tpu_torch.ops.sphere import (
@@ -63,6 +56,7 @@ from dynamicscaler_tpu_torch.ops.sphere import (
 from dynamicscaler_tpu_torch.pipelines.conditioning import build_uncond_context, cat_text_image, encode_texts_cached
 from dynamicscaler_tpu_torch.pipelines.t2v import make_schedule_for_model
 from dynamicscaler_tpu_torch.pipelines.tiled_vae import tiled_vae_encode
+from dynamicscaler_tpu_torch.pipelines.window_step import check_overlap_mode, join, window_step
 from dynamicscaler_tpu_torch.utils.timing import LoopStats, Marker, request, span
 
 # steady s/step of the most recent sampler loop, read by cli/gen_pano_360.py
@@ -173,168 +167,127 @@ class SphereStep:
 
 
 class _Sampler:
-    """The step functions of one sampler call (model, schedule and the
-    options that do not change from step to step)."""
+    """The options of one sampler call that do not change from step to
+    step, and its step."""
 
-    def __init__(self, model, sched, frames, guidance, fps, mode, unet_microbatch, get_scale, set_scale,
-                 generator, noise_fn, mesh=None, guidance_rescale: float = 0.0):
-        self.model, self.sched, self.frames = model, sched, frames
-        self.guidance, self.fps, self.mode, self.unet_microbatch = guidance, fps, mode, unet_microbatch
-        self.get_scale, self.set_scale = get_scale, set_scale
-        self.generator, self.noise_fn = generator, noise_fn
-        self.mesh = mesh
+    def __init__(self, model, schedule, frames, guidance_scale, fps, overlap_mode, unet_microbatch, get_scale,
+                 set_scale, generator, noise_fn, mesh=None, guidance_rescale: float = 0.0):
+        self.model, self.schedule, self.frames = model, schedule, frames
+        self.guidance_scale, self.fps, self.overlap_mode = guidance_scale, fps, overlap_mode
+        self.unet_microbatch, self.get_scale, self.set_scale = unet_microbatch, get_scale, set_scale
+        self.generator, self.noise_fn, self.mesh = generator, noise_fn, mesh
         self.guidance_rescale = guidance_rescale
-        self.concat = bool(model.config.unet.concat_channels)
-
-    def _noise(self, shape, name):
-        return draw_noise(shape, self.model.device, self.generator, self.noise_fn, name)
-
-    def _renoise(self, wins, sp: SphereStep, mask, name):
-        if sp.renoise_ratio == 0.0:  # a 0-ratio mix is the identity: draw no noise
-            return wins
-        noised = re_noise(self.sched, wins, max(sp.index - 1, 0), sp.index, noise=self._noise(wins.shape, name))
-        return mix_with_mask(wins, noised, mask, sp.renoise_ratio)
-
-    def _cfg_pack(self, wins, context, uncond):
-        """The UNet batch and its contexts: cond rows then uncond rows."""
-        if self.guidance == 1.0:
-            return wins, context
-        n = wins.shape[0]
-        return torch.cat([wins, wins]), torch.cat([context, uncond.expand((n,) + tuple(uncond.shape[1:]))])
-
-    def _cfg_update(self, wins, eps, sp: SphereStep):
-        """The CFG combine of the model's output ``eps`` (with the guidance
-        rescale) and the DDIM step of ``wins``; a ``step.rescale`` span where
-        either the rescale or a v conversion runs."""
-        n = wins.shape[0]
-        converts = self.guidance_rescale or self.sched.parameterization == "v"
-        with span("step.rescale", rows=n) if converts else contextlib.nullcontext():
-            if self.guidance != 1.0:
-                eps = guided(eps[:n], eps[n:], self.guidance, self.guidance_rescale)
-            return ddim_step(self.sched, wins, eps, torch.full((self.frames,), sp.index, dtype=torch.long))
-
-    def _joined(self, x, static_clean, maps: PhaseMaps, views):
-        """The UNet rows ``x`` (the pairs of ``views``, then again as uncond
-        rows) with each view's gather of the clean panorama latent joined,
-        repeated over the frames; ``x`` itself without hybrid conditioning."""
-        if not self.concat:
-            return x
-        h, w = maps.gather.shape[1:]
-        with span("step.concat", rows=x.shape[0]):
-            flat = static_clean[0].reshape(1, -1, static_clean.shape[-1])
-            crops = torch.stack([self._gather(flat, maps, v, 0, 1) for v in views])
-            crops = self._to_native(crops.reshape(len(views), self.frames, h, w, -1))
-            return torch.cat([x, crops.repeat(x.shape[0] // len(views), 1, 1, 1, 1)], dim=-1)
-
-    def _to_native(self, wins):
-        if self.get_scale == 1:
-            return wins
-        return resize_video_latent(wins, wins.shape[2] // self.get_scale, wins.shape[3] // self.get_scale,
-                                   mode="nearest")
-
-    def _to_set(self, *ts):
-        if self.set_scale == 1:
-            return ts
-        return tuple(resize_video_latent(t, t.shape[2] * self.set_scale, t.shape[3] * self.set_scale,
-                                         mode="nearest") for t in ts)
-
-    def _static(self, latent, static_clean, sp: SphereStep):
-        clean = static_clean.expand(latent.shape[0], latent.shape[1], *static_clean.shape[2:])
-        return re_noise(self.sched, clean, 0, sp.index, noise=self._noise(clean.shape, f"static:{sp.step}"))
-
-    def _gather(self, flat, maps: PhaseMaps, v, f0, F):
-        """[frames, h * w, C] window of view v at frame origin f0 of a
-        [F, H * W, C] latent, invalid pixels zeroed."""
-        fi = wrap_slice_indices(f0, self.frames, F, flat.device)
-        return flat[fi][:, maps.gather[v].reshape(-1)] * maps.valid[v].reshape(1, -1, 1)
 
     def step(self, latent, denoised, static_clean, maps, native, set_maps, uncond, sp: SphereStep):
         """One DDIM step; returns the new (latent, denoised). ``latent``
         [1, F, EH, EW, C]; ``maps`` / ``native`` / ``set_maps`` the phase's
         maps at the get, native and set resolutions."""
         with span("step", latent.device, pairs=len(sp.pair_view)):
-            if self.mode == "sequential":
-                return self._step_sequential(latent, denoised, static_clean, maps, native, set_maps, uncond, sp)
-            return self._step_batched(latent, denoised, static_clean, maps, native, set_maps, uncond, sp)
+            views = _Views(self, latent, denoised, static_clean, maps, native, set_maps, sp)
+            window_step(self, views, sp, uncond)
+            return views.target, views.denoised
 
-    def _step_batched(self, latent, denoised, static_clean, maps, native, set_maps, uncond, sp: SphereStep):
-        B, F, EH, EW, C = latent.shape
-        h, w = maps.gather.shape[1:]
-        with span("step.gather"):
-            flat = latent[0].reshape(F, EH * EW, C)
-            wins = torch.stack([self._gather(flat, maps, v, f0, F) for v, f0 in zip(sp.pair_view, sp.pair_f)])
-            wins = self._to_native(wins.reshape(-1, self.frames, h, w, C))
-        with span("step.masks"):
-            earlier = device_sphere_masks(native.gather, native.valid, set_maps.scatter, sp.pair_view, sp.pair_f,
-                                          self.frames, F, EH * EW)
-        prev = wins
-        with span("step.renoise"):
-            wins = self._renoise(wins, sp, earlier, f"renoise:{sp.step}")
-            x, ctx = self._cfg_pack(wins, sp.context, uncond)
-        x = self._joined(x, static_clean, maps, sp.pair_view)
-        eps = self.model.apply_unet_microbatched(x, sp.t, ctx, self.fps, self.unet_microbatch, self.mesh)
-        with span("step.update"):
-            new, den = self._cfg_update(wins, eps, sp)
-            new = mix_with_mask(new, prev, earlier, sp.merge_prev_ratio)
-            new, den = self._to_set(new, den)
 
-        with span("step.scatter"):
-            target = self._static(latent, static_clean, sp) if sp.paste else latent
-            pairs = list(zip(sp.pair_view, sp.pair_f))
-            if self.mode == "average":
-                acc, dacc = torch.zeros_like(target), torch.zeros_like(target)
-                cnt = torch.zeros(target.shape[:-1] + (1,), dtype=target.dtype, device=target.device)
-                dcnt = torch.zeros_like(cnt)  # the same counts again
-                for k, (v, f0) in enumerate(pairs):
-                    add_view_nearest(acc, cnt, new[k:k + 1], set_maps.scatter[v], frame_origin=f0)
-                    add_view_nearest(dacc, dcnt, den[k:k + 1], set_maps.scatter[v], frame_origin=f0)
-                return normalize_accumulated(acc, cnt, target), normalize_accumulated(dacc, cnt, denoised)
-            for k, (v, f0) in enumerate(pairs):  # pair order: the last write wins
-                set_view_nearest(target, new[k:k + 1], set_maps.plans[v], frame_origin=f0)
-                set_view_nearest(denoised, den[k:k + 1], set_maps.plans[v], frame_origin=f0)
-            return target, denoised
+class _Views:
+    """The (frame window, view) pairs of one sphere step: gathered at the
+    get scale and resized to the native one; masked where earlier pairs'
+    set footprints cover them; resized to the set scale and scattered in
+    pair order (the last write wins) or averaged, onto the latent or, with
+    ``sp.paste``, onto the clean panorama re-noised to the step's level. A
+    ``sequential`` pair reads the latent as the pairs before it wrote it
+    and writes both the latent and the paste target
+    (i2v_sphere_panorama_pipeline.py:279-471), in one UNet call."""
 
-    def _step_sequential(self, latent, denoised, static_clean, maps, native, set_maps, uncond, sp: SphereStep):
-        """The reference's exact ordering (i2v_sphere_panorama_pipeline.py:
-        279-471): each pair gathers from the CURRENT latent, seeing the
-        writes of the pairs before it, and writes both the latent and the
-        paste target; the coverage mask is written with each pair's set
-        footprint and read at the native view resolution. One pair a UNet
-        call: with a mesh every rank runs it whole."""
-        B, F, EH, EW, C = latent.shape
-        h, w = maps.gather.shape[1:]
-        mh, mw = native.gather.shape[1:]
-        eq = EH * EW
-        with span("step.scatter"):
-            tgt = self._static(latent, static_clean, sp) if sp.paste else latent
-        cov = torch.zeros((F, eq), dtype=torch.float32, device=latent.device)
-        for k, (v, f0) in enumerate(zip(sp.pair_view, sp.pair_f)):
-            with span("step.gather"):
-                fi = wrap_slice_indices(f0, self.frames, F, latent.device)
-                win = self._gather(latent[0].reshape(F, eq, C), maps, v, f0, F)
-                win = self._to_native(win.reshape(1, self.frames, h, w, C))
-            prev = win
-            with span("step.masks"):
-                mgi = native.gather[v].reshape(-1).clamp(max=eq - 1)
-                m = (cov[fi][:, mgi] * native.valid[v].reshape(1, -1)).reshape(1, self.frames, mh, mw, 1)
-            with span("step.renoise"):
-                win = self._renoise(win, sp, m, f"pair:{sp.step}:{k}")
-                x, ctx = self._cfg_pack(win, sp.context[k:k + 1], uncond[:1])
-            x = self._joined(x, static_clean, maps, [v])
-            with span("unet", forwards=1, rows=x.shape[0]):
-                eps = self.model.apply_unet(x, torch.full((x.shape[0],), sp.t, device=win.device), ctx, self.fps)
-            with span("step.update"):
-                new, den_w = self._cfg_update(win, eps, sp)
-                new = mix_with_mask(new, prev, m, sp.merge_prev_ratio)
-                new, den_w = self._to_set(new, den_w)
-            with span("step.scatter"):
-                plan = set_maps.plans[v]
-                set_view_nearest(latent, new, plan, frame_origin=f0)
-                if sp.paste:
-                    set_view_nearest(tgt, new, plan, frame_origin=f0)
-                set_view_nearest(denoised, den_w, plan, frame_origin=f0)
-                cov[fi[:, None], plan.tgt[None, :]] = 1.0
-        return tgt, denoised
+    def __init__(self, s, latent, denoised, static_clean, maps, native, set_maps, sp):
+        self.s, self.latent, self.denoised, self.static_clean = s, latent, denoised, static_clean
+        self.maps, self.native, self.set_maps, self.sp = maps, native, set_maps, sp
+        self.pairs = list(zip(sp.pair_view, sp.pair_f))
+        self.n, self.frames, self.masked = len(self.pairs), s.frames, True
+        _, self.F, EH, EW, _ = latent.shape
+        self.eq = EH * EW  # equirect latent pixels
+        self.microbatch = 0 if s.overlap_mode == "sequential" else s.unet_microbatch
+        # the write target; in sequential mode the running coverage [F, EH * EW] and the frames of the pair
+        self.target = self.cov = self.fi = None
+
+    def begin(self):
+        with span("step.scatter"):  # the paste target's draw comes before the pairs'
+            self.target = self._target()
+        self.cov = torch.zeros((self.F, self.eq), dtype=torch.float32, device=self.latent.device)
+
+    def _target(self):
+        if not self.sp.paste:
+            return self.latent
+        clean = self.static_clean.expand(*self.latent.shape[:2], *self.static_clean.shape[2:])
+        noise = self._draw(clean.shape, f"static:{self.sp.step}")
+        return re_noise(self.s.schedule, clean, 0, self.sp.index, noise=noise)
+
+    def _draw(self, shape, name):
+        return draw_noise(shape, self.s.model.device, self.s.generator, self.s.noise_fn, name)
+
+    def _stack(self, latent, pairs):
+        """The (view, frame origin) ``pairs`` of ``latent`` [1, F, EH, EW, C],
+        invalid pixels zeroed, at the native resolution."""
+        F, C = latent.shape[1], latent.shape[-1]
+        flat, m, g = latent[0].reshape(F, -1, C), self.maps, self.s.get_scale
+        wins = torch.stack([flat[wrap_slice_indices(f0, self.frames, F, flat.device)][:, m.gather[v].reshape(-1)]
+                            * m.valid[v].reshape(1, -1, 1) for v, f0 in pairs])
+        wins = wins.reshape(-1, self.frames, *m.gather.shape[1:], C)
+        return wins if g == 1 else resize_video_latent(wins, wins.shape[2] // g, wins.shape[3] // g, mode="nearest")
+
+    def gather(self, rows):
+        return self._stack(self.latent, self.pairs[rows])
+
+    def masks(self, rows):
+        native = self.native
+        if self.cov is None:
+            return device_sphere_masks(native.gather, native.valid, self.set_maps.scatter, self.sp.pair_view,
+                                       self.sp.pair_f, self.frames, self.F, self.eq)
+        (v, f0), = self.pairs[rows]
+        self.fi = wrap_slice_indices(f0, self.frames, self.F, self.latent.device)
+        m = self.cov[self.fi][:, native.gather[v].reshape(-1).clamp(max=self.eq - 1)] * native.valid[v].reshape(1, -1)
+        return m.reshape(1, self.frames, *native.gather.shape[1:], 1)
+
+    def contexts(self, rows):
+        return self.sp.context[rows]
+
+    def noise(self, shape, rows):
+        step = self.sp.step
+        return self._draw(shape, f"renoise:{step}" if self.cov is None else f"pair:{step}:{rows.start}")
+
+    def joined(self, x, rows):
+        """``x`` with each pair's view of the clean panorama latent joined,
+        repeated over the frames (hybrid conditioning)."""
+        if not self.s.model.config.unet.concat_channels:
+            return x
+        return join(x, lambda: self._stack(self.static_clean, [(v, 0) for v in self.sp.pair_view[rows]]))
+
+    def to_set(self, *ts):
+        s = self.s.set_scale
+        return ts if s == 1 else tuple(resize_video_latent(t, t.shape[2] * s, t.shape[3] * s, mode="nearest")
+                                       for t in ts)
+
+    def scatter(self, rows, new, den):
+        plans, scatter = self.set_maps.plans, self.set_maps.scatter
+        if self.target is None:
+            self.target = self._target()
+        target, denoised = self.target, self.denoised
+        if self.s.overlap_mode == "average":
+            acc, dacc = torch.zeros_like(target), torch.zeros_like(target)
+            cnt = torch.zeros(target.shape[:-1] + (1,), dtype=target.dtype, device=target.device)
+            dcnt = torch.zeros_like(cnt)  # the same counts again
+            for k, (v, f0) in enumerate(self.pairs):
+                add_view_nearest(acc, cnt, new[k:k + 1], scatter[v], frame_origin=f0)
+                add_view_nearest(dacc, dcnt, den[k:k + 1], scatter[v], frame_origin=f0)
+            self.target = normalize_accumulated(acc, cnt, target)
+            self.denoised = normalize_accumulated(dacc, cnt, denoised)
+            return
+        for k, (v, f0) in enumerate(self.pairs[rows]):  # pair order: the last write wins
+            if self.cov is not None and target is not self.latent:
+                set_view_nearest(self.latent, new[k:k + 1], plans[v], frame_origin=f0)
+            set_view_nearest(target, new[k:k + 1], plans[v], frame_origin=f0)
+            set_view_nearest(denoised, den[k:k + 1], plans[v], frame_origin=f0)
+            if self.cov is not None:  # the pair's set footprint, which the later pairs' masks read
+                self.cov[self.fi[:, None], plans[v].tgt[None, :]] = 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -435,8 +388,7 @@ def sample_shift_sphere_panorama(
     (``parallel.mesh``)."""
     if equirect_width != 2 * equirect_height:
         raise ValueError("equirect requires W = 2H")
-    if overlap_mode not in ("last", "average", "sequential"):
-        raise ValueError(f"overlap_mode {overlap_mode!r}")
+    check_overlap_mode(overlap_mode)
     dev = model.device
     sched = make_schedule_for_model(model, num_inference_steps)
     vs = model.config.vae.spatial_scale

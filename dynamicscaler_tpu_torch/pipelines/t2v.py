@@ -14,7 +14,7 @@ clip (``use_pre_denoise``). Every noise draw takes ``noise_fn`` when given
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +25,7 @@ from dynamicscaler_tpu_torch.ops.blend import checkerboard_mix
 from dynamicscaler_tpu_torch.ops.ddim import DDIMSchedule, ddim_step, draw_noise, guided, make_ddim_schedule, re_noise
 from dynamicscaler_tpu_torch.ops.resize import resize_video_latent
 from dynamicscaler_tpu_torch.pipelines.conditioning import build_uncond_context
-from dynamicscaler_tpu_torch.pipelines.planar import PlanarShiftWindowEngine, StepPlan
+from dynamicscaler_tpu_torch.pipelines.planar import PlanarShiftWindowEngine, step_plan
 from dynamicscaler_tpu_torch.utils.timing import request, span
 
 
@@ -261,19 +261,8 @@ def sample_shift_multi_windows(
             return lat * ratio + noised * (1.0 - ratio)
 
     with span("request.plan", steps=S):
-        ddim_ts = sched.ddim_timesteps.cpu().numpy()
-        plan: List[StepPlan] = []
-        for i in range(S):
-            last = i == S - 1
-            plan.append(StepPlan(
-                t=int(ddim_ts[S - 1 - i]),
-                index=S - 1 - i,
-                origins=np.asarray(grid.step_origins(i), np.int64),
-                context=context,
-                renoise_ratio=None if last else merge_renoised_overlap_latent_ratio,
-                merge_prev_ratio=None if last or merge_prev_denoised_ratio_list is None
-                else float(merge_prev_denoised_ratio_list[i]),
-            ))
+        plan = step_plan(sched, S, grid.step_origins, lambda i, origins: (context, None),
+                         merge_renoised_overlap_latent_ratio, merge_prev_denoised_ratio_list)
     engine = PlanarShiftWindowEngine(model, sched, (frames, wh, ww), guidance_scale=guidance_scale,
                                      fps=fps, overlap_mode=overlap_mode,
                                      unet_microbatch=unet_microbatch, mesh=mesh)

@@ -5,15 +5,19 @@ Off, ``span`` is one shared no-op: nothing recorded, no event, and the
 tiny sphere, i2v-planar and t2v samplers give bit-identical latents with
 tracing on and off. On, one step of each sampler opens the spans of its
 preamble, its step split around the UNet, and its decode, in order, with
-their parents, request ids and counts. A running ``torch.profiler`` turns
-the recorder on and holds the ``ds.*`` ranges. ``LoopStats`` reads the
-device time between its events (a stub event here)."""
+their parents, request ids and counts: in each overlap mode, and with a
+tiny DynamiCrafter (the concat join and the guidance rescale) on the
+planar and sphere windows. A running ``torch.profiler`` turns the
+recorder on and holds the ``ds.*`` ranges. ``LoopStats`` reads the device
+time between its events (a stub event here)."""
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
-from dynamicscaler_tpu_torch.config import tiny_test_config
+from dynamicscaler_tpu_torch.config import tiny_dynamicrafter_config, tiny_test_config
 from dynamicscaler_tpu_torch.models.lvdm import LatentVideoDiffusion
 from dynamicscaler_tpu_torch.pipelines import i2v, planar, sphere, t2v
 from dynamicscaler_tpu_torch.utils import timing
@@ -22,61 +26,104 @@ from dynamicscaler_tpu_torch.utils.tokenizer import HashTokenizer
 torch.set_num_threads(1)
 
 PANO = np.random.default_rng(0).uniform(-1, 1, (32, 64, 3)).astype(np.float32)
-STEP = ["step", "step.gather", "step.masks", "step.renoise", "unet", "step.update", "step.scatter"]
+# one window's spans inside a step: the batch of a ``last`` step, or each
+# window of a ``sequential`` one
+WINDOW = ["step.gather", "step.masks", "step.renoise", "unet", "step.update", "step.scatter"]
+STEP = ["step", *WINDOW]
+# ``average`` on the ring: no masks, so no re-noise and no merge
+AVERAGE = ["step", "step.gather", "step.renoise", "unet", "step.update", "step.scatter"]
+# hybrid conditioning: the concat join before the UNet, the rescale and the
+# v conversion inside the update
+HYBRID = ["step", "step.gather", "step.masks", "step.renoise", "step.concat", "unet", "step.update", "step.rescale",
+          "step.scatter"]
+PARENT = {**{n: "step" for n in WINDOW + ["step.concat"]}, "step.rescale": "step.update"}
 
 
-def tiny(img: bool):
-    cfg = tiny_test_config(img)
+def tiny(cfg):
     return LatentVideoDiffusion.init_random(cfg, torch.Generator().manual_seed(3), device="cpu",
                                             tokenizer=HashTokenizer(cfg.clip_text.vocab_size))
 
 
 @pytest.fixture(scope="module")
 def models():
-    return {"i2v": tiny(True), "t2v": tiny(False)}
+    return {"i2v": tiny(tiny_test_config(True)), "t2v": tiny(tiny_test_config(False)),
+            "dc": tiny(tiny_dynamicrafter_config())}
 
 
-def run_sphere(models, steps=2):
+def run_sphere(models, steps=2, mode="last", model="i2v", **kw):
     _, latent, den = sphere.sample_shift_sphere_panorama(
-        models["i2v"], "ocean", PANO, equirect_width=64, equirect_height=32,
+        models[model], "ocean", PANO, equirect_width=64, equirect_height=32,
         phi_theta_dict={0.0: [0.0, 180.0], 60.0: [90.0]}, view_fov=110, loop_step_theta=2, height=16, width=16,
         frames=4, fps=8, num_inference_steps=3, denoise_to_step=steps, total_f=4, unet_microbatch=2,
-        generator=torch.Generator().manual_seed(0), decode=True)
+        overlap_mode=mode, generator=torch.Generator().manual_seed(0), decode=True, **kw)
     return latent, den
 
 
-def run_planar(models, steps=2):
+def run_planar(models, steps=2, mode="last", model="i2v", **kw):
     _, den = i2v.sample_shift_multi_windows(
-        models["i2v"], "a lake", PANO, total_w=64, total_h=32, total_f=4, num_windows_w=2, num_windows_h=1,
+        models[model], "a lake", PANO, total_w=64, total_h=32, total_f=4, num_windows_w=2, num_windows_h=1,
         loop_step=2, height=32, width=32, frames=4, num_inference_steps=2 + steps, use_skip_time=True,
-        skip_time_step_idx=2, generator=torch.Generator().manual_seed(0))
+        skip_time_step_idx=2, overlap_mode=mode, generator=torch.Generator().manual_seed(0), **kw)
     return (den,)
 
 
-def run_t2v(models, steps=2):
+def run_t2v(models, steps=2, mode="last"):
     _, den = t2v.sample_shift_multi_windows(
         models["t2v"], "a fox", num_windows_f=2, num_windows_w=2, height=16, width=16, frames=4,
-        num_inference_steps=steps, loop_step=2, unet_microbatch=4, generator=torch.Generator().manual_seed(0))
+        num_inference_steps=steps, loop_step=2, unet_microbatch=4, overlap_mode=mode,
+        generator=torch.Generator().manual_seed(0))
     return (den,)
 
 
 SAMPLERS = {"sphere": run_sphere, "planar": run_planar, "t2v": run_t2v}
+for _name, _run in list(SAMPLERS.items()):
+    for _mode in ("average", "sequential"):
+        SAMPLERS[f"{_name}-{_mode}"] = functools.partial(_run, mode=_mode)
+SAMPLERS["sphere-dc"] = functools.partial(run_sphere, model="dc", guidance_rescale=0.7)
+SAMPLERS["planar-dc"] = functools.partial(run_planar, model="dc", guidance_rescale=0.7)
+
+SPHERE = ["request", "request.maps", "request.text", "request.image", "request.text", "request.image",
+          "request.static", "request.init", "request.plan"]
+# the skip-time init encodes the panorama inside ``request.init``; a hybrid
+# model's concat latent is encoded before it, and the init reuses it
+PLANAR = ["request", "request.text", "request.image", "request.text", "request.image", "request.init",
+          "request.static", "request.plan"]
+STATIC_IN_INIT = {"planar", "planar-average", "planar-sequential"}
+T2V = ["request", "request.text", "request.text", "request.init", "request.plan"]
 
 # one step of each sampler: its request's spans, in the order they open
 EXPECTED = {
-    "sphere": ["request", "request.maps", "request.text", "request.image", "request.text", "request.image",
-               "request.static", "request.init", "request.plan", *STEP, "request.decode"],
-    "planar": ["request", "request.text", "request.image", "request.text", "request.image", "request.init",
-               "request.static", "request.plan", *STEP, "request.decode"],
-    "t2v": ["request", "request.text", "request.text", "request.init", "request.plan", *STEP, "request.decode"],
+    "sphere": [*SPHERE, *STEP, "request.decode"],
+    "sphere-average": [*SPHERE, *STEP, "request.decode"],
+    # the paste target first (its draw comes before the pairs'), then pair by pair
+    "sphere-sequential": [*SPHERE, "step", "step.scatter", *WINDOW * 3, "request.decode"],
+    "sphere-dc": [*SPHERE, *HYBRID, "request.decode"],
+    "planar": [*PLANAR, *STEP, "request.decode"],
+    "planar-average": [*PLANAR, *AVERAGE, "request.decode"],
+    # the window contexts first, then window by window
+    "planar-sequential": [*PLANAR, "step", "step.renoise", *WINDOW * 2, "request.decode"],
+    "planar-dc": [*PLANAR[:5], "request.static", "request.init", "request.plan", *HYBRID, "request.decode"],
+    "t2v": [*T2V, *STEP, "request.decode"],
+    "t2v-average": [*T2V, *AVERAGE, "request.decode"],
+    "t2v-sequential": [*T2V, "step", "step.renoise", *WINDOW * 4, "request.decode"],
 }
 COUNTS = {
     "sphere": {"request.maps": {"views": 6}, "request.image": {"crops": 6, "tokens": 24}, "request.static": {"tiles": 16},
                "step": {"pairs": 3}, "unet": {"forwards": 3, "rows": 6}, "request.decode": {"frames": 4}},
+    "sphere-average": {"step": {"pairs": 3}, "unet": {"forwards": 3, "rows": 6}},
+    "sphere-sequential": {"step": {"pairs": 3}, "unet": {"forwards": 1, "rows": 2}},
+    "sphere-dc": {"request.image": {"crops": 6, "tokens": 48}, "step": {"pairs": 3}, "step.concat": {"rows": 6},
+                  "unet": {"forwards": 3, "rows": 6}, "step.rescale": {"rows": 3}},
     "planar": {"request.image": {"crops": 4, "tokens": 16}, "request.static": {"tiles": 16}, "step": {"windows": 2},
                "unet": {"forwards": 1, "rows": 4}, "request.decode": {"frames": 4}},
+    "planar-average": {"step": {"windows": 2}, "unet": {"forwards": 1, "rows": 4}},
+    "planar-sequential": {"step": {"windows": 2}, "unet": {"forwards": 1, "rows": 2}},
+    "planar-dc": {"request.image": {"crops": 4, "tokens": 32}, "request.static": {"tiles": 16}, "step": {"windows": 2},
+                  "step.concat": {"rows": 4}, "unet": {"forwards": 1, "rows": 4}, "step.rescale": {"rows": 2}},
     "t2v": {"request.text": {"prompts": 1}, "step": {"windows": 4}, "unet": {"forwards": 2, "rows": 8},
             "request.decode": {"frames": 8}},
+    "t2v-average": {"step": {"windows": 4}, "unet": {"forwards": 2, "rows": 8}},
+    "t2v-sequential": {"step": {"windows": 4}, "unet": {"forwards": 1, "rows": 2}},
 }
 
 
@@ -109,12 +156,13 @@ def test_one_step_opens_the_spans_in_order(models, name):
     assert [s.name for s in got] == EXPECTED[name]
     req = got[0]
     assert req.parent is None and all(s.request == req.request for s in got)
-    ids = {s.name: s.id for s in reversed(got)}
+    latest = {req.name: req.id}  # the last span of each name opened so far
     for s in got[1:]:
-        parent = "step" if s.name in STEP[1:] else "request.init" if s.name == "request.static" and \
-            name == "planar" else "request"
-        assert s.parent == ids[parent], s
+        parent = PARENT.get(s.name, "request.init" if s.name == "request.static" and name in STATIC_IN_INIT
+                            else "request")
+        assert s.parent == latest[parent], s
         assert s.t0_ns <= s.t1_ns and s.device_ms is None  # the CPU: host times only
+        latest[s.name] = s.id
     for span_name, counts in COUNTS[name].items():
         assert next(s for s in got if s.name == span_name).counts == counts
     # a new request id each call
